@@ -3,38 +3,61 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; each prints
+its seconds):
 
 1. build: compile every CUDA source of the port (one ``nvcc`` each, all at
    once) and print the build seconds and the card's name and power limit;
-2. kernels: each kernel against its plain PyTorch version on the card at
-   the serving shapes (H=16, D=128, page 32, 8 slots, ragged lengths up
-   to 2048, bf16; a GQA case with Hkv=4, a window=256 case; prefill chunks
-   of 128 and 40 rows at starts 0 and 300).  Tolerances: fp32 pages
-   1e-5 (the kernel and the plain version differ only in summation
-   order); bf16 pages 2e-2 against the plain version computed in fp32
-   from the same bf16 inputs (the kernel keeps probabilities in fp32 where
-   the plain version rounds them to bf16, and rounds its output to bf16);
-3. serving: GPT-1.3B at full width (24 layers, hidden 2048, 16 heads)
-   with random bf16 weights from a fixed seed, 16 requests through the
+2. kernels: each kernel variant against its plain PyTorch version on the
+   card at the serving shapes.
+   - paged decode and chunk prefill over float, int8 and int4 pages (H=16,
+     D=128, page 32, 8 slots, ragged lengths up to 2048; a GQA case with
+     Hkv=4 and a window=256 case; prefill chunks of 128 and 40 rows at
+     starts 0 and 300), and the multi-query verify kernel at T=5 over the
+     same three page kinds.  Tolerances: fp32 queries 1e-5 (kernel and
+     plain version differ only in summation order, quantized pages
+     dequantize exactly); bf16 2e-2 against the plain version computed in
+     fp32 from the same inputs (the kernel keeps probabilities in fp32
+     where the plain version rounds them to bf16, and rounds its output);
+   - ``w8a8_gemm`` at GPT-1.3B's four projection shapes, M=8 (decode) and
+     M=128 (prefill), and a ragged M=40: the quantized activations, their
+     scales and the fp32 output equal the plain version bit for bit, and
+     the bf16 output (the same fp32 rounded once) too;
+3. serving: GPT-1.3B at full width (24 layers, hidden 2048, 16 heads) with
+   random bf16 weights from a fixed seed, 16 requests per run through the
    paged engine (8 slots, page 32, chunk 128; prompts of 64-512 tokens,
-   half of them behind a shared 128-token prefix; 32-64 new tokens each).
-   Launch counts are zeroed just before this run and read just after it:
-   every kernel must have launched;
-4. engine against the dense decoder on the card: fp32, 1.3B width, 2
-   layers, 4 prompts, 24 greedy tokens each.  With random weights a
+   half of them behind a shared 128-token prefix; 32-64 new tokens each),
+   in the engine's modes: (a) bf16 weights and pages, (b) ``int8=True``
+   (W8A8 projections, int8 pages), (c) ``int8=True, kv_bits=4``, (d)
+   ``spec_k=4`` (the other half of the prompts repeat a short motif, so
+   that the drafter proposes), and two shorter speculative runs over
+   quantized pages, (e) ``int8=True, spec_k=4`` and (f) ``int8=True,
+   kv_bits=4, spec_k=4`` (8 requests each).  Launch counts are zeroed just
+   before each run and read just after it: exactly the run's kernel
+   variants must have launched.  (a)-(d) are then profiled over 8 more
+   requests;
+4. parity on the card, fp32, 1.3B width, 2 layers, 4 prompts, 24 greedy
+   tokens each: the engine (kernels) against the dense decoder, and the
+   speculative engine against the plain engine.  With random weights a
    near-tie between two logits can flip an argmax under another summation
    order, so at least 99% of the tokens must agree up to each request's
-   first divergence (divergences are printed).
+   first divergence (divergences are printed).  The W8A8 engine (int8 and
+   int4 pages) is held against the dense decoder by teacher forcing
+   instead, at least 90% of the positions agreeing: quantized activations
+   turn such float-level differences into int8 rounding differences, and
+   one early divergence would end the greedy comparison.
 
 Before the last line it prints the card's name and power limit and one
-JSON object ``{"kernels": [...]}`` with each kernel's launches on the
-serving run, its error against the plain version, its time, the plain
-version's time, its bound (bytes moved over 3.35 TB/s or operations over
-989 TFLOP/s, whichever is larger) and the time of
-``scaled_dot_product_attention`` on pre-gathered dense K/V (the gather
-excluded), which the port itself never calls.  The last line is
-``{"ok": true, "device": {...}}``.
+JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
+the serving run that reaches it, its error against the plain version, its
+time (``w8a8_gemm``'s by CUDA-graph replay, which takes the host's enqueue
+cost out of calls that short), the plain version's time, its bound (bytes moved over 3.35 TB/s or
+operations over the peak of their type, whichever is larger) and the time
+of one PyTorch call computing the same function, which the port itself
+never calls: ``scaled_dot_product_attention`` on pre-gathered, dequantized
+dense K/V (the gather and the dequant excluded) for the attention kernels,
+``torch._int_mm`` on the pre-quantized operands (the quantize excluded) for
+``w8a8_gemm``.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -45,6 +68,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12              # H100 SXM dense int8 tensor-core peak
+KINDS = {None: "", 8: "_int8", 4: "_int4"}   # page kind -> variant suffix
+PROJ = {"qkv": (2048, 6144), "proj": (2048, 2048), "fc1": (2048, 8192),
+        "fc2": (8192, 2048)}    # GPT-1.3B projections, (K, N)
 
 
 def log(msg):
@@ -69,11 +96,39 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops, peak):
+def graph_ms(fn, iters=20, replays=5):
+    """Mean device milliseconds of ``fn`` with the host's enqueue cost
+    taken out: ``iters`` calls captured in one CUDA graph (after a warm-up
+    on a side stream), CUDA events around ``replays`` replays.  For calls
+    of a few tens of microseconds, whose eager timing measures how fast
+    the host enqueues them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, iters=replays, warmup=1) / iters
+
+
+def bound_ms(nbytes, ops, peak):
     """Least time for the work: bytes over the memory rate or operations
     over the peak rate for their type, whichever is larger."""
-    b, o = nbytes / HBM_BYTES_PER_S, flops / peak
+    b, o = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(b, o) * 1e3, "bytes" if b >= o else "operations"
+
+
+def _check(label, err, tol):
+    log(f"{label}: max_abs_err {err:.3e} (tol {tol:g})")
+    if not err <= tol:
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{err}")
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -102,163 +157,303 @@ def phase_build():
 
 # -- phase 2 -----------------------------------------------------------------
 
-def _decode_case(torch, rng, hkv, window, dtype, lengths):
-    """Inputs of one decode case on the card: 8 slots, 16 query heads,
-    D=128, page 32, each slot's pages a random set of the pool."""
+def _pages(torch, g, n_pages, hkv, dtype, bits):
+    """K and V pages (n_pages, Hkv, 32, 128) of kind ``bits`` and the
+    scales of a quantized kind: float pages in ``dtype``, or random fp32
+    pages quantized by the port's own rule."""
+    from paddle_tpu_torch.ops import quantize_int4_per_token, quantize_per_token
+
     dev = torch.device("cuda")
-    b, h, d, ps, maxp = 8, 16, 128, 32, 64
-    n_pages = 1 + b * maxp
-    pages = 1 + rng.permutation(n_pages - 1).reshape(b, maxp)
-    g = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 30)))
-    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(dtype)
-    return dict(q=mk(b, h, d), k=mk(n_pages, hkv, ps, d),
-                v=mk(n_pages, hkv, ps, d),
-                bt=torch.tensor(pages, dtype=torch.int32, device=dev),
-                lens=torch.tensor(lengths, dtype=torch.int32, device=dev),
-                window=window)
+    k, v = (torch.randn(n_pages, hkv, 32, 128, device=dev, generator=g)
+            for _ in range(2))
+    if bits is None:
+        return k.to(dtype), v.to(dtype), {}
+    quant = quantize_int4_per_token if bits == 4 else quantize_per_token
+    (kq, ks), (vq, vs) = quant(k), quant(v)
+    return kq, vq, dict(k_scales=ks, v_scales=vs)
 
 
-def _prefill_case(torch, rng, hkv, window, dtype, c, start):
-    dev = torch.device("cuda")
-    h, d, ps, maxp = 16, 128, 32, 64
-    n_pages = 1 + maxp
-    g = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 30)))
-    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(dtype)
-    table = 1 + rng.permutation(n_pages - 1)
-    return dict(q=mk(c, h, d), k=mk(n_pages, hkv, ps, d),
-                v=mk(n_pages, hkv, ps, d),
-                bt=torch.tensor(table, dtype=torch.int32, device=dev),
-                start=start, window=window)
+def _float(pages, sc):
+    """Float pages as fp32 for the plain version; quantized ones as they
+    are (the plain version dequantizes them in fp32)."""
+    return pages if sc else pages.float()
+
+
+def _page_bytes(bits, d, elt):
+    """Device bytes of one position of one KV head on one side."""
+    return d * elt if bits is None else (d if bits == 8 else d // 2) + 4
 
 
 def _visible(qpos, window):
     return qpos + 1 if window is None else min(qpos + 1, window)
 
 
-def phase_kernels(np, torch):
+def _dense_kv(gather_pages, pages, bt, sc, side, dtype):
+    """A slot batch's K or V gathered dense (and dequantized) in ``dtype``:
+    the operand of the SDPA yardstick, built outside its timing."""
+    return gather_pages(pages, bt, sc.get(side + "_scales"), 128).to(dtype)
+
+
+def _time_case(label, kernel, plain, library, nbytes, ops):
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain)
+    lib_ms = time_ms(library)
+    bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+    log(f"{label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on gathered "
+        f"K/V {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def phase_paged(np, torch):
+    """Decode, prefill and verify kernels over the three page kinds."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import (gather_pages, paged_attention,
+                                          paged_attention_mq,
+                                          paged_attention_mq_plain,
                                           paged_attention_plain,
                                           paged_prefill, paged_prefill_plain)
 
+    dev = torch.device("cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
     rng = np.random.RandomState(0)
     lengths = [2048, 1, 777, 1500, 33, 1024, 2000, 64]
+    b, h, d, ps, maxp = 8, 16, 128, 32, 64
     results = {}
+    cases = (("mha", 16, None, bf16), ("gqa4", 4, None, bf16),
+             ("window256", 16, 256, bf16), ("mha_fp32", 16, None, fp32))
 
-    # decode: MHA bf16 (timed), GQA bf16, window bf16, MHA fp32
-    decode_err = 0.0
-    for name, hkv, window, dtype in (("mha", 16, None, torch.bfloat16),
-                                     ("gqa4", 4, None, torch.bfloat16),
-                                     ("window256", 16, 256, torch.bfloat16),
-                                     ("mha_fp32", 16, None, torch.float32)):
-        c = _decode_case(torch, rng, hkv, window, dtype, lengths)
-        out = paged_attention(c["q"], c["k"], c["v"], c["bt"], c["lens"],
-                              window=window)
-        ref = paged_attention_plain(c["q"].float(), c["k"].float(),
-                                    c["v"].float(), c["bt"], c["lens"],
-                                    window=window)
-        torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        tol = 1e-5 if dtype == torch.float32 else 2e-2
-        log(f"paged_attention {name}: max_abs_err {err:.3e} (tol {tol:g})")
-        if not err <= tol:
-            raise AssertionError(f"paged_attention {name} disagrees: {err}")
-        if dtype == torch.bfloat16:
-            decode_err = max(decode_err, err)
-        if name != "mha":
-            continue
-        args = (c["q"], c["k"], c["v"], c["bt"], c["lens"])
-        ms = time_ms(lambda: paged_attention(*args))
-        plain_ms = time_ms(lambda: paged_attention_plain(*args))
-        # the yardstick: SDPA over the slots' K/V pre-gathered dense, with
-        # the length mask; the gather is outside the timed call
-        kd = gather_pages(c["k"], c["bt"])
-        vd = gather_pages(c["v"], c["bt"])
-        pos = torch.arange(kd.shape[2], device=kd.device)
-        mask = (pos[None, :] < c["lens"][:, None].long())[:, None, None, :]
-        qd = c["q"][:, :, None, :]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask))
-        b, h, d = c["q"].shape
-        vis = sum(_visible(n - 1, window) for n in lengths)
-        nbytes = 2 * vis * hkv * d * 2 + 2 * b * h * d * 2 + c["bt"].numel() \
-            * 4 + b * 4
-        flops = 4 * vis * h * d
-        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
-        results["paged_attention"] = dict(ms=ms, plain_ms=plain_ms,
-                                          bound_ms=bms, bound_by=by,
-                                          library_ms=lib_ms)
-        log(f"paged_attention timed case: B=8 H=16 Hkv=16 D=128 page 32 "
-            f"bf16, lengths {lengths}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa on gathered K/V {lib_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({nbytes} bytes)")
-    results["paged_attention"]["max_abs_err"] = decode_err
+    def gen():
+        return torch.Generator(device=dev).manual_seed(
+            int(rng.randint(1 << 30)))
 
-    # prefill: C in {128, 40} x start in {0, 300}, MHA; GQA and window at
-    # C=128, start 300; fp32 once
-    prefill_err = 0.0
-    cases = [(f"c{cc}_s{st}", 16, None, torch.bfloat16, cc, st)
-             for cc in (128, 40) for st in (0, 300)]
-    cases += [("gqa4_c128_s300", 4, None, torch.bfloat16, 128, 300),
-              ("window256_c128_s300", 16, 256, torch.bfloat16, 128, 300),
-              ("fp32_c40_s300", 16, None, torch.float32, 40, 300)]
-    for name, hkv, window, dtype, cc, st in cases:
-        c = _prefill_case(torch, rng, hkv, window, dtype, cc, st)
-        out = paged_prefill(c["q"], c["k"], c["v"], c["bt"], st,
-                            window=window)
-        ref = paged_prefill_plain(c["q"].float(), c["k"].float(),
-                                  c["v"].float(), c["bt"], st, window=window)
-        torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        tol = 1e-5 if dtype == torch.float32 else 2e-2
-        log(f"paged_prefill {name}: max_abs_err {err:.3e} (tol {tol:g})")
-        if not err <= tol:
-            raise AssertionError(f"paged_prefill {name} disagrees: {err}")
-        if dtype == torch.bfloat16:
-            prefill_err = max(prefill_err, err)
-        if name != "c128_s300":
-            continue
-        args = (c["q"], c["k"], c["v"], c["bt"], st)
-        ms = time_ms(lambda: paged_prefill(*args))
-        plain_ms = time_ms(lambda: paged_prefill_plain(*args))
-        s_vis = st + cc
-        kd = gather_pages(c["k"], c["bt"][None])[:, :, :s_vis]
-        vd = gather_pages(c["v"], c["bt"][None])[:, :, :s_vis]
-        qpos = st + torch.arange(cc, device=kd.device)[:, None]
-        mask = torch.arange(s_vis, device=kd.device)[None, :] <= qpos
-        qd = c["q"].transpose(0, 1)[None]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask))
-        h, d = c["q"].shape[1:]
-        vis = sum(_visible(st + i, window) for i in range(cc))
-        nbytes = 2 * s_vis * hkv * d * 2 + 2 * cc * h * d * 2 \
-            + c["bt"].numel() * 4
-        flops = 4 * vis * h * d
-        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
-        results["paged_prefill"] = dict(ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bms, bound_by=by,
-                                        library_ms=lib_ms)
-        log(f"paged_prefill timed case: C=128 start=300 H=16 Hkv=16 D=128 "
-            f"page 32 bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on "
-            f"gathered K/V {lib_ms:.4f} ms, bound {bms:.4f} ms")
-    results["paged_prefill"]["max_abs_err"] = prefill_err
+    def table(shape, n_pages):
+        return torch.tensor(1 + rng.permutation(n_pages - 1).reshape(shape),
+                            dtype=torch.int32, device=dev)
+
+    # decode: per page kind MHA bf16 (timed), GQA, window, fp32 queries
+    for bits, suffix in KINDS.items():
+        name = "paged_attention" + suffix
+        worst = 0.0
+        for case, hkv, window, dtype in cases:
+            g = gen()
+            n_pages = 1 + b * maxp
+            kp, vp, sc = _pages(torch, g, n_pages, hkv, dtype, bits)
+            q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
+            bt = table((b, maxp), n_pages)
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            out = paged_attention(q, kp, vp, bt, lens, window=window, **sc)
+            ref = paged_attention_plain(q.float(), _float(kp, sc),
+                                        _float(vp, sc), bt, lens,
+                                        window=window, **sc)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            _check(f"{name} {case}", err, 1e-5 if dtype == fp32 else 2e-2)
+            if dtype == bf16:
+                worst = max(worst, err)
+            if case != "mha":
+                continue
+            kd = _dense_kv(gather_pages, kp, bt, sc, "k", dtype)
+            vd = _dense_kv(gather_pages, vp, bt, sc, "v", dtype)
+            pos = torch.arange(kd.shape[2], device=dev)
+            mask = (pos[None, :] < lens[:, None].long())[:, None, None, :]
+            vis = sum(_visible(n - 1, window) for n in lengths)
+            nbytes = (2 * vis * hkv * _page_bytes(bits, d, 2)
+                      + 2 * b * h * d * 2 + bt.numel() * 4 + b * 4)
+            results[name] = _time_case(
+                f"{name} timed case: B=8 H=Hkv=16 D=128 page 32, bf16 "
+                f"queries, lengths {lengths}",
+                lambda: paged_attention(q, kp, vp, bt, lens, **sc),
+                lambda: paged_attention_plain(q, kp, vp, bt, lens, **sc),
+                lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd,
+                                                       attn_mask=mask),
+                nbytes, 4 * vis * h * d)
+        results[name]["max_abs_err"] = worst
+
+    # prefill: C in {128, 40} x start in {0, 300}, GQA, window, fp32
+    pcases = [(f"c{cc}_s{st}", 16, None, bf16, cc, st)
+              for cc in (128, 40) for st in (0, 300)]
+    pcases += [("gqa4_c128_s300", 4, None, bf16, 128, 300),
+               ("window256_c128_s300", 16, 256, bf16, 128, 300),
+               ("fp32_c40_s300", 16, None, fp32, 40, 300)]
+    for bits, suffix in KINDS.items():
+        name = "paged_prefill" + suffix
+        worst = 0.0
+        for case, hkv, window, dtype, cc, st in pcases:
+            g = gen()
+            kp, vp, sc = _pages(torch, g, 1 + maxp, hkv, dtype, bits)
+            q = torch.randn(cc, h, d, device=dev, generator=g).to(dtype)
+            bt = table((maxp,), 1 + maxp)
+            out = paged_prefill(q, kp, vp, bt, st, window=window, **sc)
+            ref = paged_prefill_plain(q.float(), _float(kp, sc),
+                                      _float(vp, sc), bt, st, window=window,
+                                      **sc)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            _check(f"{name} {case}", err, 1e-5 if dtype == fp32 else 2e-2)
+            if dtype == bf16:
+                worst = max(worst, err)
+            if case != "c128_s300":
+                continue
+            s_vis = st + cc
+            kd = _dense_kv(gather_pages, kp, bt[None], sc, "k",
+                           dtype)[:, :, :s_vis]
+            vd = _dense_kv(gather_pages, vp, bt[None], sc, "v",
+                           dtype)[:, :, :s_vis]
+            qpos = st + torch.arange(cc, device=dev)[:, None]
+            mask = torch.arange(s_vis, device=dev)[None, :] <= qpos
+            qd = q.transpose(0, 1)[None]
+            vis = sum(_visible(st + i, window) for i in range(cc))
+            nbytes = (2 * s_vis * hkv * _page_bytes(bits, d, 2)
+                      + 2 * cc * h * d * 2 + bt.numel() * 4)
+            results[name] = _time_case(
+                f"{name} timed case: C=128 start=300 H=Hkv=16 D=128 page "
+                "32, bf16 queries",
+                lambda: paged_prefill(q, kp, vp, bt, st, **sc),
+                lambda: paged_prefill_plain(q, kp, vp, bt, st, **sc),
+                lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                       attn_mask=mask),
+                nbytes, 4 * vis * h * d)
+        results[name]["max_abs_err"] = worst
+
+    # verify: T=5 draft rows per slot, positions lengths .. lengths + 4
+    t = 5
+    mq_lens = [min(n, maxp * ps - t) for n in lengths]
+    for bits, suffix in KINDS.items():
+        name = "paged_attention_mq" + suffix
+        worst = 0.0
+        for case, hkv, window, dtype in cases:
+            g = gen()
+            n_pages = 1 + b * maxp
+            kp, vp, sc = _pages(torch, g, n_pages, hkv, dtype, bits)
+            q = torch.randn(b, t, h, d, device=dev, generator=g).to(dtype)
+            bt = table((b, maxp), n_pages)
+            lens = torch.tensor(mq_lens, dtype=torch.int32, device=dev)
+            out = paged_attention_mq(q, kp, vp, bt, lens, window=window,
+                                     **sc)
+            ref = paged_attention_mq_plain(q.float(), _float(kp, sc),
+                                           _float(vp, sc), bt, lens,
+                                           window=window, **sc)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            _check(f"{name} {case} T=5", err, 1e-5 if dtype == fp32 else 2e-2)
+            if dtype == bf16:
+                worst = max(worst, err)
+            if case != "mha":
+                continue
+            kd = _dense_kv(gather_pages, kp, bt, sc, "k", dtype)
+            vd = _dense_kv(gather_pages, vp, bt, sc, "v", dtype)
+            pos = torch.arange(kd.shape[2], device=dev)
+            qpos = lens[:, None].long() + torch.arange(t, device=dev)[None]
+            mask = (pos[None, None, :] <= qpos[:, :, None])[:, None]
+            qd = q.transpose(1, 2)
+            union = sum(n + t for n in mq_lens)
+            vis = sum(_visible(n + i, window) for n in mq_lens
+                      for i in range(t))
+            nbytes = (2 * union * hkv * _page_bytes(bits, d, 2)
+                      + 2 * b * t * h * d * 2 + bt.numel() * 4 + b * 4)
+            results[name] = _time_case(
+                f"{name} timed case: B=8 T=5 H=Hkv=16 D=128 page 32, bf16 "
+                f"queries, lengths {mq_lens}",
+                lambda: paged_attention_mq(q, kp, vp, bt, lens, **sc),
+                lambda: paged_attention_mq_plain(q, kp, vp, bt, lens, **sc),
+                lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                       attn_mask=mask),
+                nbytes, 4 * vis * h * d)
+        results[name]["max_abs_err"] = worst
     return results
+
+
+def phase_gemm(np, torch):
+    """``w8a8_gemm`` against its plain version, exactly, at the 1.3B
+    projection shapes; timed at M=8 (one decode step's four projections of
+    a layer, summed for the kernels line) and at M=128, by CUDA-graph
+    replay: an eager call of a few tens of microseconds is bound by the
+    host's enqueue rate, which the eager times beside it show."""
+    from paddle_tpu_torch.kernels import w8a8_gemm, w8a8_gemm_plain
+    from paddle_tpu_torch.ops import quantize_per_channel
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0,
+               ops=0)
+    for proj, (k, n) in PROJ.items():
+        w = torch.randn(k, n, device=dev, generator=g) * 0.02
+        wq, ws = quantize_per_channel(w, axis=1)
+        wq = wq.t().contiguous()                     # (N, K), K contiguous
+        wb = w.to(torch.bfloat16)
+        for m in (8, 40, 128):
+            x = torch.randn(m, k, device=dev, generator=g)
+            x[-1] = 0.0                              # the 1e-8 clamp
+            out, xq, sx = w8a8_gemm(x, wq, ws, return_quantized=True)
+            ref, rxq, rsx = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
+            xb = x.to(torch.bfloat16)
+            exact = (torch.equal(xq, rxq) and torch.equal(sx, rsx)
+                     and torch.equal(out, ref)
+                     and torch.equal(w8a8_gemm(xb, wq, ws),
+                                     w8a8_gemm_plain(xb, wq, ws)))
+            err = (out - ref).abs().max().item()
+            log(f"w8a8_gemm {proj} M={m} K={k} N={n}: bit-exact {exact} "
+                f"(max_abs_err {err:.3e})")
+            if not exact:
+                raise AssertionError(f"w8a8_gemm {proj} M={m} is not exact")
+            if m == 40:
+                continue
+            # the yardstick: torch._int_mm on the quantized operands, which
+            # needs M > 16: M=8 pads to 32 rows (quantize excluded)
+            xq_pad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
+            xq_pad[:m] = xq
+            calls = dict(kernel=lambda: w8a8_gemm(xb, wq, ws),
+                         plain=lambda: w8a8_gemm_plain(xb, wq, ws),
+                         int_mm=lambda: torch._int_mm(xq_pad, wq.t()),
+                         bf16_matmul=lambda: xb @ wb)
+            # device time from CUDA-graph replays; eager times beside
+            dev_ms = {key: graph_ms(fn) for key, fn in calls.items()}
+            eager = {key: time_ms(fn) for key, fn in calls.items()}
+            ms, plain_ms, lib_ms = (dev_ms["kernel"], dev_ms["plain"],
+                                    dev_ms["int_mm"])
+            nbytes = m * k * 2 + n * k + n * 4 + m * n * 2
+            bms, by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS)
+            log(f"  timed bf16 x, graph replay (eager): kernel {ms:.4f} "
+                f"({eager['kernel']:.4f}) ms, plain {plain_ms:.4f} "
+                f"({eager['plain']:.4f}) ms, _int_mm {lib_ms:.4f} "
+                f"({eager['int_mm']:.4f}) ms (M padded to {max(m, 32)}), "
+                f"bf16 matmul {dev_ms['bf16_matmul']:.4f} "
+                f"({eager['bf16_matmul']:.4f}) ms, bound {bms:.4f} ms ({by})")
+            if m == 8:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", bms), ("library_ms", lib_ms),
+                                 ("bytes", nbytes), ("ops", 2 * m * n * k)):
+                    tot[key] += val
+    bms, by = bound_ms(tot["bytes"], tot["ops"], INT8_OPS)
+    log(f"w8a8_gemm one decode layer (M=8, qkv + proj + fc1 + fc2): "
+        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, _int_mm "
+        f"{tot['library_ms']:.4f} ms, bound {bms:.4f} ms")
+    return {"w8a8_gemm": dict(ms=tot["ms"], plain_ms=tot["plain_ms"],
+                              bound_ms=bms, bound_by=by,
+                              library_ms=tot["library_ms"], max_abs_err=0.0)}
 
 
 # -- phase 3 -----------------------------------------------------------------
 
-def _requests(np, rng, cfg, shared, n=16):
+def _requests(np, rng, cfg, shared, n=16, motif=False):
     """``n`` (prompt, max_new_tokens) pairs: prompts of 64-512 tokens, the
-    even ones behind the ``shared`` 128-token prefix, 32-64 new tokens."""
+    even ones behind the ``shared`` 128-token prefix, 32-64 new tokens;
+    with ``motif`` the odd ones repeat a random 4-12 token motif."""
     out = []
     for i in range(n):
         if i % 2 == 0:
             tail = rng.randint(0, cfg.vocab_size, (int(rng.randint(32, 385)),))
             prompt = np.concatenate([shared, tail])
         else:
-            prompt = rng.randint(0, cfg.vocab_size,
-                                 (int(rng.randint(64, 513)),))
+            size = int(rng.randint(64, 513))
+            if motif:
+                unit = rng.randint(0, cfg.vocab_size,
+                                   (int(rng.randint(4, 13)),))
+                prompt = np.tile(unit, size // unit.size + 1)[:size]
+            else:
+                prompt = rng.randint(0, cfg.vocab_size, (size,))
         out.append((prompt, int(rng.randint(32, 65))))
     return out
 
@@ -270,8 +465,9 @@ def _profile(torch, eng, requests):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: host-side op events would cost the profiler
+    # tens of seconds to assemble for the quantized runs
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(requests)
         torch.cuda.synchronize()
@@ -282,29 +478,41 @@ def _profile(torch, eng, requests):
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us() / 1e3)
     busy = sum(by_name.values())
-    log(f"profile: {len(requests)} more requests, wall {1e3 * wall:.1f} ms, "
-        f"device busy {busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}%)")
+    log(f"  profile: {len(requests)} more requests, wall {1e3 * wall:.1f} "
+        f"ms, device busy {busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
 
 
-def phase_serving(np, torch):
+# label, engine options, requests, motif prompts, kernel variants it runs
+SERVING_RUNS = (
+    ("a", {}, 16, False, {"paged_attention", "paged_prefill"}),
+    ("b", {"int8": True}, 16, False,
+     {"w8a8_gemm", "paged_attention_int8", "paged_prefill_int8"}),
+    ("c", {"int8": True, "kv_bits": 4}, 16, False,
+     {"w8a8_gemm", "paged_attention_int4", "paged_prefill_int4"}),
+    ("d", {"spec_k": 4}, 16, True, {"paged_prefill", "paged_attention_mq"}),
+    ("e", {"int8": True, "spec_k": 4}, 8, True,
+     {"w8a8_gemm", "paged_prefill_int8", "paged_attention_mq_int8"}),
+    ("f", {"int8": True, "kv_bits": 4, "spec_k": 4}, 8, True,
+     {"w8a8_gemm", "paged_prefill_int4", "paged_attention_mq_int4"}),
+)
+
+
+def _serve(np, torch, model, label, opts, n_req, motif, expected):
+    """One serving run of the 1.3B model: returns the launch counts of the
+    kernel variants it ran."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
     from paddle_tpu_torch.serving import ServingEngine
 
-    cfg = gpt_1p3b()
+    cfg = model.cfg
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = GPTForPretraining(cfg, seed=0)          # bf16 on the card
-    eng = ServingEngine(model, max_slots=8, page_size=32, chunk_tokens=128)
-    torch.cuda.synchronize()
-    log(f"serving: gpt_1p3b bf16 built in {time.perf_counter() - t0:.2f} s; "
-        f"KV pool {eng.pool.num_pages} pages, "
-        f"{eng.pool.bytes_per_token()} bytes/token")
+    eng = ServingEngine(model, max_slots=8, page_size=32, chunk_tokens=128,
+                        **opts)
     rng = np.random.RandomState(1)
     shared = rng.randint(0, cfg.vocab_size, (128,))
-    rids = [eng.add_request(p, n) for p, n in _requests(np, rng, cfg, shared)]
+    rids = [eng.add_request(p, n) for p, n in
+            _requests(np, rng, cfg, shared, n=n_req, motif=motif)]
 
     reset_launch_counts()
     done = {}
@@ -315,43 +523,127 @@ def phase_serving(np, torch):
         eng.check_invariants()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    launches = {name: n for name, n in KERNELS.items() if n}
 
     reasons = {done[r].reason for r in rids}
     if set(done) != set(rids) or reasons != {"length"}:
-        raise AssertionError(f"requests ended {reasons}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+        raise AssertionError(f"run ({label}): requests ended {reasons}")
+    if set(launches) != expected:
+        raise AssertionError(f"run ({label}) launched {sorted(launches)}, "
+                             f"expected {sorted(expected)}")
     s = eng.stats
-    if s["prefix_hit_tokens"] <= 0:
-        raise AssertionError("no prefix-cache hit on the shared prefix")
+    if n_req > eng.max_slots and s["prefix_hit_tokens"] <= 0:
+        # a second admission wave finds the first wave's shared prefix
+        raise AssertionError(f"run ({label}): no prefix-cache hit")
     if eng.scheduler.n_active or eng.pool.pages_in_use:
-        raise AssertionError("the pool did not drain clean")
+        raise AssertionError(f"run ({label}): the pool did not drain clean")
     for fin in done.values():
         if len(fin.tokens) == 0 or not ((0 <= fin.tokens)
                                         & (fin.tokens < cfg.vocab_size)).all():
             raise AssertionError(f"request {fin.rid} produced bad tokens")
-    log(f"serving: 16 requests in {wall:.2f} s, {s['tokens_generated']} "
-        f"tokens; decode {s['decode_tokens'] / s['decode_s']:.1f} tokens/s "
-        f"over {s['decode_calls']} steps, mean decode step "
+    log(f"serving ({label}) {json.dumps(opts)}: {n_req} requests in "
+        f"{wall:.2f} s, {s['tokens_generated']} tokens; decode "
+        f"{s['decode_tokens'] / s['decode_s']:.1f} tokens/s over "
+        f"{s['decode_calls']} steps, mean decode step "
         f"{1e3 * s['decode_s'] / s['decode_calls']:.3f} ms, mean prefill "
         f"chunk {1e3 * s['prefill_s'] / s['prefill_calls']:.3f} ms over "
-        f"{s['prefill_calls']} chunks; prefix hit tokens "
-        f"{s['prefix_hit_tokens']} of {s['prompt_tokens']}; preemptions "
-        f"{s['preemptions']}; max_memory_allocated "
+        f"{s['prefill_calls']} chunks; pool {eng.pool.bytes_per_token()} "
+        f"bytes/token; prefix hit tokens {s['prefix_hit_tokens']} of "
+        f"{s['prompt_tokens']}; preemptions {s['preemptions']}; "
+        f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("serving launches: " + json.dumps(launches) + f" (decode "
-        f"{launches['paged_attention'] / s['decode_calls']:.1f} per step, "
-        f"prefill {launches['paged_prefill'] / s['prefill_calls']:.1f} per "
-        "chunk)")
-    _profile(torch, eng, _requests(np, rng, cfg, shared, n=8))
-    del eng, model
+    if eng.spec_k:
+        log(f"  spec: drafted {s['spec_drafted']}, accepted "
+            f"{s['spec_accepted']}, rejected {s['spec_rejected']} "
+            f"(acceptance {s['spec_accepted'] / max(1, s['spec_drafted']):.3f})")
+    log(f"  launches: {json.dumps(launches)}")
+    if label in "abcd":
+        _profile(torch, eng, _requests(np, rng, cfg, shared, n=8,
+                                       motif=motif))
+    del eng
     torch.cuda.empty_cache()
     return launches
 
 
+def phase_serving(np, torch):
+    """Every serving run; returns each kernel variant's launch count on the
+    first run that reaches it, and that run's label."""
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+
+    t0 = time.perf_counter()
+    model = GPTForPretraining(gpt_1p3b(), seed=0)          # bf16 on the card
+    torch.cuda.synchronize()
+    log(f"serving: gpt_1p3b bf16 built in {time.perf_counter() - t0:.2f} s")
+    first = {}
+    for label, opts, n_req, motif, expected in SERVING_RUNS:
+        t1 = time.perf_counter()
+        launches = _serve(np, torch, model, label, opts, n_req, motif,
+                          expected)
+        for name, n in launches.items():
+            first.setdefault(name, (n, label))
+        log(f"  run ({label}) took {time.perf_counter() - t1:.2f} s")
+    del model
+    torch.cuda.empty_cache()
+    return first
+
+
 # -- phase 4 -----------------------------------------------------------------
+
+def _agreement(np, label, got, want):
+    """Tokens that agree up to each request's first divergence, as a share;
+    fails below 99%."""
+    agree = total = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        diff = np.nonzero(a != b)[0]
+        first = int(diff[0]) if diff.size else len(b)
+        agree += first
+        total += len(b)
+        if diff.size:
+            log(f"parity {label}: request {i} diverges at token {first}: "
+                f"{a[first]} against {b[first]}")
+    share = agree / total
+    log(f"parity {label}: {agree}/{total} tokens agree up to the first "
+        f"divergence ({100 * share:.2f}%)")
+    if share < 0.99:
+        raise AssertionError(f"parity {label}: agreement {share:.4f} < 0.99")
+
+
+def _forced(np, torch, model, label, prompts, got, int8, kv_bits):
+    """Teacher forcing: the dense decoder reads each prompt and the
+    engine's own tokens in one forward, and its greedy choice at every
+    position is compared with the engine's token there.  Quantized
+    activations turn a float-level difference of summation order into a
+    different int8 rounding now and then, which moves near-tied logits of
+    a random model; so at least 90% of the positions must agree (the
+    reference's own budget for int8 argmax agreement), and each
+    disagreement is printed with the dense decoder's gap between its top
+    logit and the engine's token."""
+    from paddle_tpu_torch.models.generation import _decoder_setup, _empty_cache
+
+    params, make_run = _decoder_setup(model, int8=int8)
+    run = make_run(params)
+    agree = total = 0
+    for i, (p, toks) in enumerate(zip(prompts, got)):
+        seq = np.concatenate([p, toks[:-1]])
+        ids = torch.as_tensor(seq[None], device=model.device).long()
+        kc, vc = _empty_cache(model.cfg, 1, seq.size, model.dtype,
+                              model.device, int8=int8, kv_bits=kv_bits)
+        logits = run(ids, 0, kc, vc)[0][0, p.size - 1:]       # (T, V)
+        want = logits.argmax(-1).cpu().numpy()
+        for j in np.nonzero(want != toks)[0]:
+            row = logits[j]
+            gap = (row.max() - row[int(toks[j])]).item()
+            log(f"parity {label}: request {i} position {j}: engine "
+                f"{toks[j]}, dense {want[j]}, dense logit gap {gap:.3e} "
+                f"(logit std {row.std().item():.3e})")
+        agree += int((want == toks).sum())
+        total += toks.size
+    share = agree / total
+    log(f"parity {label}: {agree}/{total} positions agree under teacher "
+        f"forcing ({100 * share:.2f}%)")
+    if share < 0.9:
+        raise AssertionError(f"parity {label}: agreement {share:.4f} < 0.9")
+
 
 def phase_parity(np, torch):
     import dataclasses
@@ -363,31 +655,33 @@ def phase_parity(np, torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = GPTForPretraining(dataclasses.replace(gpt_1p3b(), num_layers=2),
-                              seed=1,
-                              dtype=torch.float32)
+                              seed=1, dtype=torch.float32)
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, model.cfg.vocab_size, (n,))
                for n in (17, 64, 100, 250)]
-    eng = ServingEngine(model, max_slots=4, page_size=32, chunk_tokens=128)
-    rids = [eng.add_request(p, 24) for p in prompts]
-    done = eng.run()
-    agree = total = 0
-    for rid, p in zip(rids, prompts):
-        got = done[rid].tokens
-        want = generate(model, p[None], 24)[0, len(p):].cpu().numpy()
-        diff = np.nonzero(got != want)[0]
-        first = int(diff[0]) if diff.size else len(want)
-        agree += first
-        total += len(want)
-        if diff.size:
-            log(f"parity: request {rid} diverges at token {first}: "
-                f"engine {got[first]} dense {want[first]}")
-    share = agree / total
-    log(f"parity: engine (kernels) vs dense decoder, fp32, 2 layers: "
-        f"{agree}/{total} tokens agree up to the first divergence "
-        f"({100 * share:.2f}%)")
-    if share < 0.99:
-        raise AssertionError(f"engine/dense agreement {share:.4f} < 0.99")
+    # two of them repeat a motif, so that the speculative run drafts
+    prompts[1] = np.tile(prompts[1][:6], 11)[:64]
+    prompts[3] = np.tile(prompts[3][:9], 28)[:250]
+
+    def serve(**opts):
+        eng = ServingEngine(model, max_slots=4, page_size=32,
+                            chunk_tokens=128, **opts)
+        rids = [eng.add_request(p, 24) for p in prompts]
+        done = eng.run()
+        return [done[r].tokens for r in rids], eng
+
+    plain, _ = serve()
+    dense = [generate(model, p[None], 24)[0, len(p):].cpu().numpy()
+             for p in prompts]
+    _agreement(np, "engine vs dense decoder, bf16 path", plain, dense)
+    for opts in ({"int8": True}, {"int8": True, "kv_bits": 4}):
+        got, eng = serve(**opts)
+        _forced(np, torch, model, f"engine vs dense decoder, "
+                f"{json.dumps(opts)}", prompts, got, True, eng.kv_bits)
+    spec, eng = serve(spec_k=4)
+    log(f"parity spec: drafted {eng.stats['spec_drafted']}, accepted "
+        f"{eng.stats['spec_accepted']}")
+    _agreement(np, "spec_k=4 engine vs plain engine", spec, plain)
 
 
 def main():
@@ -409,19 +703,35 @@ def main():
         return 2
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
+    clock = time.perf_counter()
+
+    def done(phase):
+        nonlocal clock
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - clock:.2f} s")
+        clock = now
+
     card = phase_build()
-    kernels = phase_kernels(np, torch)
-    launches = phase_serving(np, torch)
+    done("1 build")
+    kernels = phase_paged(np, torch)
+    kernels.update(phase_gemm(np, torch))
+    done("2 kernels")
+    first = phase_serving(np, torch)
+    done("3 serving")
     phase_parity(np, torch)
-    sources = {"paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
-                                   "paddle_tpu/kernels/paged_attention.py:213"),
-               "paged_prefill": ("paddle_tpu_torch/csrc/paged_prefill.cu",
-                                 "paddle_tpu/kernels/paged_prefill.py:166")}
+    done("4 parity")
     line = []
-    for name, (src, replaces) in sources.items():
-        k = kernels[name]
-        line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+    for name, k in kernels.items():
+        src = name.split("_int")[0]
+        entry = {"paged_attention": 213, "paged_attention_mq": 372}
+        replaces = {"paged_prefill": "paddle_tpu/kernels/paged_prefill.py:166",
+                    "w8a8_gemm": "paddle_tpu/kernels/int8_gemm.py:85"}.get(
+            src, f"paddle_tpu/kernels/paged_attention.py:{entry.get(src)}")
+        n, run = first[name]
+        log(f"{name}: {n} launches on serving run ({run})")
+        line.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/{src}.cu",
+                     "replaces": replaces, "launches": n,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],

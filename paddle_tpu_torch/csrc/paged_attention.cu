@@ -1,12 +1,15 @@
-// Paged decode attention for Hopper (sm_90a), float pages (fp32 or bf16).
+// Paged decode attention for Hopper (sm_90a): float pages (fp32 or bf16),
+// int8 pages and nibble-packed int4 pages, each with fp32 or bf16 queries.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/paged_attention.py:
-// paged_attention (body _paged_kernel, recurrence _page_recurrence).
+// paged_attention (bodies _paged_kernel, _paged_kernel_int8,
+// _paged_kernel_int4; recurrence _page_recurrence).
 //
 // out[b, h] = softmax_j(q[b, h] . K[j] * scale) @ V over the positions j of
 // slot b that its block-table row names, masked to j < lengths[b] and, with
 // a window W, j >= lengths[b] - W; query heads are grouped G = H / Hkv over
-// their shared KV head.
+// their shared KV head.  Quantized pages dequantize right after the load
+// (paged_common.cuh), as the TPU kernel does in VMEM after the page DMA.
 //
 // Grid: one block per (kv head, slot), so the G query heads of a group
 // share every K/V page load.  The block reads block_tables[b, :] and
@@ -14,24 +17,26 @@
 // positions, from max(0, len - W) / ps (0 without a window) to
 // (len - 1) / ps; the TPU kernel walks all max_pages pages and masks them.
 //
-// Bound on this card: HBM bytes.  A decode step reads B * len * 2 * Hkv * D
-// * sizeof(T) bytes of pages per layer and does ~4 flops per byte read, far
-// below the ~295 flops/byte at which the tensor cores would bind.  The
-// design reads each needed page exactly once, in 16-byte vectors that
-// neighbouring threads take from neighbouring addresses, and never touches
-// the pages past the slot's length that the TPU kernel streamed in and
-// masked.  (One page in flight per block: overlapping the next page's load
-// with this page's math, and splitting long sequences over several blocks,
-// are later work.)
+// Bound on this card: HBM bytes.  A decode step reads B * len * 2 * Hkv *
+// (D * sizeof(page value) + scale bytes) per layer and does ~4 flops per
+// page value, far below the ~295 flops/byte at which the tensor cores would
+// bind.  The design reads each needed page exactly once, in 16-byte vectors
+// that neighbouring threads take from neighbouring addresses, and never
+// touches the pages past the slot's length that the TPU kernel streamed in
+// and masked.  (One page in flight per block: overlapping the next page's
+// load with this page's math, and splitting long sequences over several
+// blocks, are later work.)
 
 #include "paged_common.cuh"
 
 namespace ptt {
 
-template <typename T>
+template <typename T, int BITS>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
+paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ k_pages,
+                    const void* __restrict__ v_pages,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales,
                     const int* __restrict__ block_tables,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int H, int Hkv, int ps, int D, int max_pages,
@@ -53,8 +58,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   int first, last;
   page_range(len - 1, len - 1, window, ps, max_pages, &first, &last);
-  attend_pages(k_pages, v_pages, block_tables + size_t(b) * max_pages,
-               num_pages, kvh, Hkv, ps, D, scale, window, R, first, last, s);
+  attend_pages<T, BITS>(k_pages, v_pages, k_scales, v_scales,
+                        block_tables + size_t(b) * max_pages, num_pages, kvh,
+                        Hkv, ps, D, scale, window, R, first, last, s);
 
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const float l = s.l[i / D];
@@ -62,44 +68,73 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T>
+template <typename T, int BITS>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const int* bt, const int* lens, void* out, int B,
-                          int H, int Hkv, int ps, int D, int max_pages,
-                          int num_pages, float scale, int window,
-                          cudaStream_t stream) {
+                          const float* ks, const float* vs, const int* bt,
+                          const int* lens, void* out, int B, int H, int Hkv,
+                          int ps, int D, int max_pages, int num_pages,
+                          float scale, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / Hkv, ps, D);
-  auto kern = paged_decode_kernel<T>;
+  auto kern = paged_decode_kernel<T, BITS>;
   cudaError_t err = prepare_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bt, lens, static_cast<T*>(out), H, Hkv, ps, D,
-      max_pages, num_pages, scale, window);
+      static_cast<const T*>(q), k, v, ks, vs, bt, lens, static_cast<T*>(out),
+      H, Hkv, ps, D, max_pages, num_pages, scale, window);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_decode(int kv_bits, const void* q, const void* k,
+                            const void* v, const float* ks, const float* vs,
+                            const int* bt, const int* lens, void* out, int B,
+                            int H, int Hkv, int ps, int D, int max_pages,
+                            int num_pages, float scale, int window,
+                            cudaStream_t st) {
+  switch (kv_bits) {
+    case 0:
+      return launch_decode<T, 0>(q, k, v, ks, vs, bt, lens, out, B, H, Hkv,
+                                 ps, D, max_pages, num_pages, scale, window,
+                                 st);
+    case 8:
+      return launch_decode<T, 8>(q, k, v, ks, vs, bt, lens, out, B, H, Hkv,
+                                 ps, D, max_pages, num_pages, scale, window,
+                                 st);
+    case 4:
+      return launch_decode<T, 4>(q, k, v, ks, vs, bt, lens, out, B, H, Hkv,
+                                 ps, D, max_pages, num_pages, scale, window,
+                                 st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace ptt
 
-// dtype: 0 = fp32, 1 = bf16.  window <= 0 means no window.  Returns the
-// CUDA error code of the launch.
+// dtype (of q and out): 0 = fp32, 1 = bf16.  kv_bits: 0 = float pages of
+// q's dtype (scales unused, may be null), 8 = int8 pages, 4 = packed int4
+// pages, both with fp32 scales (P, Hkv, ps, 1).  window <= 0 means no
+// window.  Returns the CUDA error code of the launch.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
-                                   const void* v_pages, const void* block_tables,
+                                   const void* v_pages, const void* k_scales,
+                                   const void* v_scales,
+                                   const void* block_tables,
                                    const void* lengths, void* out, int B, int H,
                                    int Hkv, int ps, int D, int max_pages,
                                    int num_pages, float scale, int window,
-                                   int dtype, void* stream) {
+                                   int dtype, int kv_bits, void* stream) {
   const int* bt = static_cast<const int*>(block_tables);
   const int* lens = static_cast<const int*>(lengths);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return int(ptt::launch_decode<__nv_bfloat16>(q, k_pages, v_pages, bt, lens,
-                                                 out, B, H, Hkv, ps, D,
-                                                 max_pages, num_pages, scale,
-                                                 window, st));
+    return int(ptt::dispatch_decode<__nv_bfloat16>(
+        kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, H, Hkv, ps,
+        D, max_pages, num_pages, scale, window, st));
   if (dtype == 0)
-    return int(ptt::launch_decode<float>(q, k_pages, v_pages, bt, lens, out, B,
-                                         H, Hkv, ps, D, max_pages, num_pages,
-                                         scale, window, st));
+    return int(ptt::dispatch_decode<float>(
+        kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, H, Hkv, ps,
+        D, max_pages, num_pages, scale, window, st));
   return int(cudaErrorInvalidValue);
 }

@@ -1,24 +1,38 @@
-// Shared body of the paged attention kernels (decode and chunk prefill).
+// Shared body of the paged attention kernels (decode, chunk prefill and
+// multi-query verify).
 //
 // One thread block attends R query rows that share one KV head of one
 // sequence slot: the G = H / Hkv query heads of a GQA group, times the
 // query positions the block owns (1 for decode, a tile of the chunk for
-// prefill).  The block walks the slot's block table itself, page by page,
-// over the pages that can hold visible positions only, and folds each page
-// into an online softmax (running max m, denominator l and fp32
-// accumulator per row).  On the TPU the page axis was a sequential grid
-// dimension carrying m/l/acc in scratch; here it is a loop inside the
-// block, and the scratch lives in shared memory.
+// prefill, the T draft rows for verify).  The block walks the slot's block
+// table itself, page by page, over the pages that can hold visible
+// positions only, and folds each page into an online softmax (running max
+// m, denominator l and fp32 accumulator per row).  On the TPU the page axis
+// was a sequential grid dimension carrying m/l/acc in scratch; here it is a
+// loop inside the block, and the scratch lives in shared memory.
 //
 // Visibility of key position `pos` to a row at query position `qpos`:
 //   pos <= qpos  and, with a window W > 0,  pos > qpos - W.
 // Decode rows sit at qpos = lengths[b] - 1, which is the reference's
 // `pos < lengths[b]` (and `pos >= lengths[b] - W`).
 //
+// Page kinds (template parameter BITS), independent of the query/output
+// type T (fp32 or bf16):
+//   0  float pages of type T, (P, Hkv, ps, D);
+//   8  int8 values (P, Hkv, ps, D) with fp32 scales (P, Hkv, ps, 1): a
+//      16-byte load brings 16 values, each dequantized as float(v) * scale;
+//   4  int4 values packed two per byte, (P, Hkv, ps, D/2), split halves:
+//      byte i of a row holds d = i in its low nibble and d = i + D/2 in its
+//      high nibble, both sign-extended, with the int8 scale layout.
+// The dequantized values are exact in fp32 (one rounding of one product,
+// as in the reference's gather), so on fp32 queries the kernels differ
+// from the plain versions only in summation order.
+//
 // Bound: device-memory bytes.  Each visited page is read once per block as
 // contiguous 16-byte vectors, neighbouring threads on neighbouring
 // addresses, and converted to fp32 in shared memory; all query heads of a
-// GQA group share that one read.
+// GQA group share that one read.  Quantized pages move 2x (int8) or ~4x
+// (int4) fewer bytes than bf16 pages for the same positions.
 
 #pragma once
 
@@ -88,9 +102,9 @@ __device__ inline Smem carve(float* base, int R, int ps, int D) {
   return s;
 }
 
-// Copy one contiguous (rows, D) slab of a page into shared memory as fp32,
-// 16 bytes per load.  Needs D * sizeof(T) % 16 == 0 and a 16-byte aligned
-// source (the wrapper checks both).
+// Copy one contiguous (rows, D) slab of a float page into shared memory as
+// fp32, 16 bytes per load.  Needs D * sizeof(T) % 16 == 0 and a 16-byte
+// aligned source (the wrapper checks both).
 template <typename T>
 __device__ __forceinline__ void load_slab(const T* __restrict__ src, float* dst,
                                           int rows, int D, int dst_stride) {
@@ -108,6 +122,74 @@ __device__ __forceinline__ void load_slab(const T* __restrict__ src, float* dst,
   }
 }
 
+// The same for an int8 slab: 16 values per load, each times its row's
+// scale.  Needs D % 16 == 0.
+__device__ __forceinline__ void load_slab_int8(const int8_t* __restrict__ src,
+                                               const float* __restrict__ scl,
+                                               float* dst, int rows, int D,
+                                               int dst_stride) {
+  const int n_vec = rows * D / 16;
+  const uint4* src4 = reinterpret_cast<const uint4*>(src);
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    const uint4 raw = __ldg(src4 + i);
+    const int8_t* vals = reinterpret_cast<const int8_t*>(&raw);
+    const int e = i * 16;
+    const int r = e / D;
+    const float sc = __ldg(scl + r);
+    float* out = dst + r * dst_stride + (e - r * D);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) out[k] = float(vals[k]) * sc;
+  }
+}
+
+// A 4-bit two's-complement nibble (0..15) as its value -8..7.
+__device__ __forceinline__ int sign_extend4(int n) { return n - ((n & 8) << 1); }
+
+// The same for a packed int4 slab, rows of D/2 bytes: 16 bytes per load
+// give 32 values, byte c of a row feeding d = c (low nibble) and
+// d = c + D/2 (high nibble).  Needs D % 32 == 0.
+__device__ __forceinline__ void load_slab_int4(const uint8_t* __restrict__ src,
+                                               const float* __restrict__ scl,
+                                               float* dst, int rows, int D,
+                                               int dst_stride) {
+  const int half = D / 2;
+  const int n_vec = rows * half / 16;
+  const uint4* src4 = reinterpret_cast<const uint4*>(src);
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    const uint4 raw = __ldg(src4 + i);
+    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&raw);
+    const int e = i * 16;
+    const int r = e / half;
+    const float sc = __ldg(scl + r);
+    float* out = dst + r * dst_stride + (e - r * half);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int b = bytes[k];
+      out[k] = float(sign_extend4(b & 0xF)) * sc;
+      out[k + half] = float(sign_extend4(b >> 4)) * sc;
+    }
+  }
+}
+
+// Load the (ps, D) slab `slab` = page * Hkv + kv head of a page pool of
+// kind BITS into shared memory as fp32 (`scales` unused for float pages).
+template <typename T, int BITS>
+__device__ __forceinline__ void load_page(const void* __restrict__ pages,
+                                          const float* __restrict__ scales,
+                                          size_t slab, int ps, int D,
+                                          float* dst, int dst_stride) {
+  if constexpr (BITS == 8) {
+    load_slab_int8(static_cast<const int8_t*>(pages) + slab * ps * D,
+                   scales + slab * ps, dst, ps, D, dst_stride);
+  } else if constexpr (BITS == 4) {
+    load_slab_int4(static_cast<const uint8_t*>(pages) + slab * ps * (D / 2),
+                   scales + slab * ps, dst, ps, D, dst_stride);
+  } else {
+    load_slab(static_cast<const T*>(pages) + slab * ps * D, dst, ps, D,
+              dst_stride);
+  }
+}
+
 // Initialise the running statistics of R rows; q, acc and qpos are filled
 // by the caller before the __syncthreads that precedes attend_pages.
 __device__ inline void init_rows(const Smem& s, int R) {
@@ -121,9 +203,11 @@ __device__ inline void init_rows(const Smem& s, int R) {
 // into the rows' online softmax.  Page ids outside [0, num_pages) are
 // skipped.  Ends with acc holding the unnormalised sums and l the
 // denominators.
-template <typename T>
-__device__ void attend_pages(const T* __restrict__ k_pages,
-                             const T* __restrict__ v_pages,
+template <typename T, int BITS>
+__device__ void attend_pages(const void* __restrict__ k_pages,
+                             const void* __restrict__ v_pages,
+                             const float* __restrict__ k_scales,
+                             const float* __restrict__ v_scales,
                              const int* __restrict__ table, int num_pages,
                              int kvh, int Hkv, int ps, int D, float scale,
                              int window, int R, int p_first, int p_last,
@@ -133,9 +217,9 @@ __device__ void attend_pages(const T* __restrict__ k_pages,
   for (int pg = p_first; pg <= p_last; ++pg) {
     const int page = table[pg];
     if (page < 0 || page >= num_pages) continue;  // uniform over the block
-    const size_t base = (size_t(page) * Hkv + kvh) * size_t(ps) * D;
-    load_slab(k_pages + base, s.k, ps, D, D + 1);
-    load_slab(v_pages + base, s.v, ps, D, D);
+    const size_t slab = size_t(page) * Hkv + kvh;
+    load_page<T, BITS>(k_pages, k_scales, slab, ps, D, s.k, D + 1);
+    load_page<T, BITS>(v_pages, v_scales, slab, ps, D, s.v, D);
     __syncthreads();
 
     // scores of every (row, key) pair of the page; invisible keys -inf

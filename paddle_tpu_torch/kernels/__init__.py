@@ -1,24 +1,29 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
 The CUDA sources live in ``paddle_tpu_torch/csrc`` and build at first use
-(:mod:`._build`).  Every wrapper keeps a ``launches`` count of the kernel
-launches it made.
+(:mod:`._build`).  Every kernel variant (a kernel and its page kind) keeps
+a count of its launches: ``KERNELS[name]``.
 """
 
+from . import _build
+from .int8_gemm import w8a8_gemm, w8a8_gemm_plain
 from .paged_attention import (gather_pages, paged_attention,
+                              paged_attention_mq, paged_attention_mq_plain,
                               paged_attention_plain)
 from .paged_prefill import paged_prefill, paged_prefill_plain
 
-#: every kernel wrapper of the port, by name
-KERNELS = {"paged_attention": paged_attention,
-           "paged_prefill": paged_prefill}
+#: every kernel variant of the port, by name: ``paged_attention``,
+#: ``paged_attention_int8``, ``paged_attention_int4``, the same three of
+#: ``paged_attention_mq`` and ``paged_prefill``, and ``w8a8_gemm``
+KERNELS = _build.LAUNCHES
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for name in KERNELS:
+        KERNELS[name] = 0
 
 
 __all__ = ["gather_pages", "paged_attention", "paged_attention_plain",
-           "paged_prefill", "paged_prefill_plain", "KERNELS",
-           "reset_launch_counts"]
+           "paged_attention_mq", "paged_attention_mq_plain",
+           "paged_prefill", "paged_prefill_plain", "w8a8_gemm",
+           "w8a8_gemm_plain", "KERNELS", "reset_launch_counts"]

@@ -6,6 +6,8 @@ library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/paddle_tpu_torch/<name>-<hash>.so <name>.cu
 
+There is no fast-math flag: divisions stay IEEE and ``rintf`` rounds half
+to even, which the bit-exact quantization of ``w8a8_gemm.cu`` relies on.
 The output lands in ``build/paddle_tpu_torch/`` at the root of the
 checkout (ignored by git), named by a hash of the sources, the headers
 and the flags, so a changed source builds anew and an unchanged one loads
@@ -32,19 +34,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C entry points of each source: name -> (function, argtypes)
+# the C entry points of each source: name -> (function, argtypes).  kv_bits
+# is 0 for float pages (the scale pointers may then be null), 8 or 4.
 SIGNATURES = {
-    # q, k_pages, v_pages, block_tables, lengths, out,
+    # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
     # B, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
-    # dtype (0 fp32, 1 bf16), stream
+    # dtype (0 fp32, 1 bf16), kv_bits, stream
     "paged_attention": ("paged_attention_fwd",
-                        [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]),
-    # q, k_pages, v_pages, block_table, out, start,
+                        [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P]),
+    # q, k_pages, v_pages, k_scales, v_scales, block_table, out, start,
     # C, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
-    # dtype, stream
+    # dtype, kv_bits, stream
     "paged_prefill": ("paged_prefill_fwd",
-                      [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P]),
+                      [_P] * 7 + [_I] * 8 + [_F, _I, _I, _I, _P]),
+    # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
+    # B, T, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
+    # dtype, kv_bits, stream
+    "paged_attention_mq": ("paged_attention_mq_fwd",
+                           [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P]),
+    # x, xq, sx, wq, ws, out, M, N, K, dtype, stream
+    "w8a8_gemm": ("w8a8_gemm_fwd", [_P] * 6 + [_I] * 4 + [_P]),
 }
+
+#: launches of every kernel variant (a kernel and its page kind), by name,
+#: in registration order: its wrapper adds one right after each launch of
+#: that variant, and nowhere else
+LAUNCHES: Dict[str, int] = {}
 
 _loaded: Dict[str, object] = {}
 #: seconds each source took to compile in this process (0 when cached)

@@ -42,6 +42,15 @@ class GPTConfig:
     # sliding-window causal attention: position p attends
     # [p - attn_window + 1, p].  None is full causal attention.
     attn_window: Optional[int] = None
+    # int8: decoding and serving run the QKV/output/MLP projections W8A8
+    # (per-output-channel int8 weights quantized once at setup, dynamic
+    # per-token int8 activations, int32 sums) and keep an int8 KV cache
+    # unless kv_bits says otherwise.  The parameters stay float.
+    int8: bool = False
+    # kv_bits: decode-time KV cache precision.  None stores the model
+    # dtype, 8 int8 values with one fp32 scale per position (also implied
+    # by int8), 4 two nibbles per byte with the same scales.
+    kv_bits: Optional[int] = None
 
     def __post_init__(self):
         if self.ffn_hidden is None:
@@ -54,6 +63,8 @@ class GPTConfig:
                 f"num_kv_heads ({self.num_kv_heads})")
         if self.attn_window is not None and self.attn_window < 1:
             raise ValueError(f"attn_window must be >= 1, got {self.attn_window}")
+        if self.kv_bits not in (None, 4, 8):
+            raise ValueError(f"kv_bits must be None, 8 or 4, got {self.kv_bits}")
 
     @property
     def head_dim(self) -> int:

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged KV pool.
 
-Counterpart of ``paddle_tpu/serving/engine.py`` for bf16/fp32 weights and
-float KV pages.  Every host-loop iteration (:meth:`ServingEngine.step`)
+Counterpart of ``paddle_tpu/serving/engine.py``.  Every host-loop
+iteration (:meth:`ServingEngine.step`)
 expires deadlines, admits waiting requests into freed slots, spends the
 step's chunk budget on prompt prefill, grows decode pages (preempting the
 youngest slot under pressure) and runs one decode step over every started
@@ -18,6 +18,17 @@ slot:
   (:func:`~paddle_tpu_torch.kernels.paged_attention`), sampling.
   ``decode_block=k`` runs k such steps before the host looks at the
   tokens.
+* **speculative verify** (``spec_k > 0``): an n-gram drafter proposes up
+  to ``spec_k`` tokens per slot from its own history, one step scores
+  ``[carry, drafts]`` for every slot through the multi-query kernel
+  (:func:`~paddle_tpu_torch.kernels.paged_attention_mq`), and the greedy
+  rejection rule keeps the longest agreeing prefix plus one corrected
+  token: the output is token for token that of plain greedy decoding.
+
+``int8`` serves W8A8 projections (the ``w8a8_gemm`` kernel) over int8 KV
+pages; ``kv_bits`` 8 or 4 picks int8 or nibble-packed int4 pages, which
+the scatter quantizes per position and every attention kernel
+dequantizes right after its page loads.
 
 Prefix caching shares full prompt pages across requests through the pool's
 radix index, with a copy-on-write clone for a partial tail page.
@@ -27,10 +38,10 @@ The reference jits these programs and donates the pool buffers to them;
 here the step functions run eagerly and update the pool tensors IN PLACE,
 which is what donation buys there: one copy of the pool, never two.
 
-Features of the reference engine that are not ported yet — speculative
-decoding, quantized KV pages and W8A8 weights, disaggregated handoff,
-double-buffered dispatch, weighted fair queueing, metrics, tracing, the
-flight recorder, fault injection and snapshots — are not accepted here.
+Features of the reference engine that are not ported yet — disaggregated
+handoff, double-buffered dispatch, weighted fair queueing, metrics,
+tracing, the flight recorder, fault injection and snapshots — are not
+accepted here.
 """
 
 from __future__ import annotations
@@ -43,11 +54,15 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..kernels import paged_attention, paged_prefill
+from ..kernels import paged_attention, paged_attention_mq, paged_prefill
 from ..models.generation import (_block_finish, _block_qkv, _decoder_setup,
-                                 _lm_head, _make_sampler)
+                                 _lm_head, _make_sampler, _resolve_int8,
+                                 _resolve_kv_bits, spec_accept_greedy)
+from ..ops.quant_ops import quantize_int4_per_token, quantize_per_token
+from .drafter import NGramDrafter
 from .kv_pool import KVPool
 from .scheduler import FCFSScheduler, Request
+
 
 @dataclasses.dataclass
 class FinishedRequest:
@@ -93,6 +108,9 @@ class _Slot:
         # len(pages) shrinks while hw_pages marks where growth appends
         self.hw_pages = len(pages)
         self.started = False          # first token sampled; decoding
+        # speculative draft of this step: host-only, rebuilt from the
+        # request's history by every speculative step
+        self.draft: List[int] = []
 
 
 class ServingEngine:
@@ -110,6 +128,16 @@ class ServingEngine:
     waiting queue (overflow becomes a ``rejected`` terminal); ``clock``
     (zero-argument callable, seconds) drives deadlines, default
     ``time.monotonic``; ``attn_window`` overrides ``cfg.attn_window``.
+
+    ``int8`` (default ``cfg.int8``) serves W8A8 projections and, unless
+    ``kv_bits`` says otherwise, int8 KV pages; ``kv_bits`` (default
+    ``cfg.kv_bits``) picks 8 (int8) or 4 (nibble-packed int4) pages with
+    fp32 per-position scales.  ``spec_k`` > 0 drafts up to that many
+    tokens per slot and step (an :class:`~.drafter.NGramDrafter` matching
+    n-grams up to ``spec_ngram`` long, or any ``drafter`` with
+    ``draft(history, max_tokens)``) and verifies them in one step; it
+    needs greedy sampling and replaces ``decode_block``.  Its acceptance
+    is counted in ``stats["spec_drafted"/"spec_accepted"/"spec_rejected"]``.
     """
 
     def __init__(self, model, *, device: DeviceLike = None,
@@ -124,7 +152,9 @@ class ServingEngine:
                  prefix_cache: bool = True,
                  max_queue: Optional[int] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 attn_window: Optional[int] = None):
+                 attn_window: Optional[int] = None,
+                 int8: Optional[bool] = None, kv_bits: Optional[int] = None,
+                 spec_k: int = 0, spec_ngram: int = 3, drafter=None):
         cfg = model.cfg
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -132,7 +162,23 @@ class ServingEngine:
             raise ValueError(f"the model lives on {model.device}, the engine "
                              f"runs on {self.device}")
         self.decode_block = max(1, int(decode_block))
-        self.params, _ = _decoder_setup(model)
+        self.spec_k = max(0, int(spec_k))
+        if self.spec_k:
+            if not greedy:
+                raise ValueError(
+                    "speculative decoding (spec_k > 0) requires greedy "
+                    "sampling: the longest-agreeing-prefix rule is the "
+                    "greedy case of rejection sampling")
+            if self.decode_block > 1:
+                raise ValueError(
+                    "spec_k > 0 replaces decode_block fusion: the verify "
+                    "step already scores spec_k + 1 positions")
+        self._drafter = drafter if drafter is not None else (
+            NGramDrafter(self.spec_k, max_ngram=spec_ngram)
+            if self.spec_k else None)
+        self.int8 = _resolve_int8(cfg, int8)
+        self.kv_bits = _resolve_kv_bits(cfg, self.int8, kv_bits)
+        self.params, _ = _decoder_setup(model, int8=self.int8)
         self.n_heads = cfg.num_heads
         self.n_kv_heads = cfg.num_kv_heads
         self.head_dim = cfg.head_dim
@@ -155,7 +201,7 @@ class ServingEngine:
         self.pool = KVPool(cfg.num_layers, cfg.num_heads, self.head_dim,
                            n_pages, page_size, dtype=model.dtype,
                            device=self.device, prefix_cache=prefix_cache,
-                           num_kv_heads=self.n_kv_heads)
+                           num_kv_heads=self.n_kv_heads, kv_bits=self.kv_bits)
         self.scheduler = FCFSScheduler(max_slots, self.pool,
                                        token_budget=token_budget)
         self._sample = _make_sampler(greedy, temperature, top_k, top_p)
@@ -178,18 +224,43 @@ class ServingEngine:
                       "step_wall_s": 0.0, "last_step_s": 0.0,
                       "prefill_s": 0.0, "decode_s": 0.0,
                       "preemptions": 0, "recompute_tokens": 0,
-                      "rejected": 0, "expired": 0, "cancelled": 0}
+                      "rejected": 0, "expired": 0, "cancelled": 0,
+                      # speculative decoding: drafted = proposals scored
+                      # by verify = accepted + rejected; the bonus or
+                      # correction token is ordinary decode output
+                      "spec_drafted": 0, "spec_accepted": 0,
+                      "spec_rejected": 0}
 
     # -- device work ------------------------------------------------------
 
     def _scatter_kv(self, li, rows, offs, k1, v1):
-        """Write per-token K/V rows (N, Hkv, D) into layer ``li`` of the
-        pool at (page ``rows[i]``, offset ``offs[i]``), in place.  Padded
-        and inactive rows all target the null page 0: a scatter with
-        duplicate indices lands in no defined order, which is harmless only
-        because page 0 is never read unmasked."""
-        self.pool.buffers["k"][li][rows, :, offs] = k1
-        self.pool.buffers["v"][li][rows, :, offs] = v1
+        """Write per-token K/V rows (..., Hkv, D) into layer ``li`` of the
+        pool at (page ``rows``, offset ``offs``), in place — quantized to
+        int8 (or packed int4) values plus fp32 per-position scales when the
+        pool is quantized.  The one scatter of the decode, verify and
+        prefill steps.  Padded and inactive rows all target the null page
+        0: a scatter with duplicate indices lands in no defined order,
+        which is harmless only because page 0 is never read unmasked."""
+        bufs = self.pool.buffers
+        if self.kv_bits is None:
+            bufs["k"][li][rows, :, offs] = k1
+            bufs["v"][li][rows, :, offs] = v1
+            return
+        quant = (quantize_int4_per_token if self.kv_bits == 4
+                 else quantize_per_token)
+        for side, blk in (("k", k1), ("v", v1)):
+            vals, scales = quant(blk)
+            bufs[side][li][rows, :, offs] = vals
+            bufs[side + "s"][li][rows, :, offs] = scales
+
+    def _pages(self, li):
+        """Layer ``li``'s pages and, for a quantized pool, their scales, as
+        the paged kernels take them."""
+        bufs = self.pool.buffers
+        kw = {}
+        if self.kv_bits is not None:
+            kw = dict(k_scales=bufs["ks"][li], v_scales=bufs["vs"][li])
+        return bufs["k"][li], bufs["v"][li], kw
 
     def _decode_once(self, toks, lengths, active, table):
         """One decode step for every slot lane: returns the sampled tokens
@@ -209,10 +280,9 @@ class ServingEngine:
             q, kb, vb = _block_qkv(bp, x, self.n_heads, eps,
                                    n_kv_heads=self.n_kv_heads)
             self._scatter_kv(li, rows, offs, kb[:, :, 0], vb[:, :, 0])
-            out = paged_attention(q[:, :, 0].contiguous(),
-                                  self.pool.buffers["k"][li],
-                                  self.pool.buffers["v"][li], table,
-                                  lengths + 1, window=self.window)
+            kp, vp, kw = self._pages(li)
+            out = paged_attention(q[:, :, 0].contiguous(), kp, vp, table,
+                                  lengths + 1, window=self.window, **kw)
             x = _block_finish(bp, x, out.reshape(s, 1, -1).to(x.dtype), eps)
         logits = _lm_head(p, x[:, 0], eps)                     # (S, V)
         return self._sample(logits, self._generator).to(torch.int32)
@@ -236,6 +306,53 @@ class ServingEngine:
             rem = (rem - 1).clamp(min=0)
             steps.append(nxt)
         return torch.stack(steps).cpu().numpy()
+
+    @torch.no_grad()
+    def _verify_call(self, draft: np.ndarray, n_draft: np.ndarray
+                     ) -> np.ndarray:
+        """The speculative verify step: every slot lane embeds its
+        ``[carry, draft_0 .. draft_{k-1}]`` block at positions ``len ..
+        len + k``, scatters the rows' K/V into its pages, attends each row
+        to the history and the block's earlier rows (multi-query kernel),
+        and predicts greedily after every row.  Rows past the lane's
+        ``n_draft`` and every row of a lane not decoding this step
+        (``n_draft == -1``) write to the null page.  Returns the
+        predictions (S, k + 1) on the host — the one sync of the step.
+
+        Rejected rows leave stale K/V past the accepted prefix; the next
+        step's scatter rewrites those positions before any row attends to
+        them, and no row attends past its own position."""
+        p, ps, eps, dev = self.params, self.page_size, self.eps, self.device
+        t = self.spec_k + 1
+        toks = torch.from_numpy(self._tok).to(dev)
+        lengths = torch.from_numpy(self._len).to(dev)
+        table = torch.from_numpy(self._table).to(dev)
+        n_d = torch.from_numpy(n_draft).to(dev)
+        block = torch.cat([toks[:, None], torch.from_numpy(draft).to(dev)],
+                          dim=1)                                 # (S, T)
+        s = block.shape[0]
+        pos = lengths[:, None] + torch.arange(t, device=dev,
+                                              dtype=torch.int32)[None, :]
+        # rows of short drafts can run past the position table: clamp
+        # their embedding gather (their outputs are unused)
+        pe = p["wpe"][pos.clamp(max=p["wpe"].shape[0] - 1)]
+        x = p["wte"][block] + pe                                 # (S, T, h)
+        row_ok = torch.arange(t, device=dev)[None, :] <= n_d[:, None]
+        page_idx = (pos // ps).clamp(max=self.max_pages - 1).long()
+        rows = torch.where(row_ok, torch.gather(table, 1, page_idx), 0)
+        offs = pos % ps
+        for li, bp in enumerate(p["blocks"]):
+            q, kb, vb = _block_qkv(bp, x, self.n_heads, eps,
+                                   n_kv_heads=self.n_kv_heads)  # (S,H,T,D)
+            self._scatter_kv(li, rows, offs, kb.transpose(1, 2),
+                             vb.transpose(1, 2))
+            kp, vp, kw = self._pages(li)
+            out = paged_attention_mq(q.transpose(1, 2).contiguous(), kp, vp,
+                                     table, lengths, window=self.window, **kw)
+            x = _block_finish(bp, x, out.reshape(s, t, -1).to(x.dtype), eps)
+        logits = _lm_head(p, x, eps)                             # (S, T, V)
+        pred = self._sample(logits.reshape(s * t, -1), self._generator)
+        return pred.reshape(s, t).to(torch.int32).cpu().numpy()
 
     @torch.no_grad()
     def _prefill_chunk(self, toks: np.ndarray, start: int, n_valid: int,
@@ -266,10 +383,9 @@ class ServingEngine:
             # (1, H, C, D) -> (C, H, D): the page-scatter layout
             self._scatter_kv(li, rows, offs, kb[0].transpose(0, 1),
                              vb[0].transpose(0, 1))
-            out = paged_prefill(q[0].transpose(0, 1).contiguous(),
-                                self.pool.buffers["k"][li],
-                                self.pool.buffers["v"][li], row, start,
-                                window=self.window)
+            kp, vp, kw = self._pages(li)
+            out = paged_prefill(q[0].transpose(0, 1).contiguous(), kp, vp,
+                                row, start, window=self.window, **kw)
             x = _block_finish(bp, x, out.reshape(1, c, -1).to(x.dtype), eps)
         if sample_row is None:
             return None
@@ -422,7 +538,8 @@ class ServingEngine:
         decode."""
         n_decoding = sum(1 for s in self._slots
                          if s is not None and s.started)
-        budget = self.scheduler.prefill_budget(n_decoding, self.chunk_tokens)
+        budget = self.scheduler.prefill_budget(
+            n_decoding, self.chunk_tokens, decode_cost=1 + self.spec_k)
         partial = sorted((i for i, s in enumerate(self._slots)
                           if s is not None and not s.started),
                          key=lambda i: self._slots[i].seq)
@@ -515,6 +632,8 @@ class ServingEngine:
         self.pool.free(victims)
 
     def _decode_step(self, finished: List[FinishedRequest]) -> None:
+        if self.spec_k:
+            return self._spec_decode_step(finished)
         # page growth oldest first, so preemption victims are always
         # younger than the grower
         order = sorted((i for i, s in enumerate(self._slots)
@@ -559,6 +678,74 @@ class ServingEngine:
                 self._len[idx] += consumed
                 self._recycle_window_pages(idx)
 
+    def _spec_decode_step(self, finished: List[FinishedRequest]) -> None:
+        """One speculative iteration over the started slots: draft from each
+        request's history, grow pages for the whole verify block (carry +
+        drafts, the same on-demand growth and preemption as decode), one
+        verify step, then the greedy rejection rule advances each slot by
+        ``accepted + 1`` tokens.  The draft is capped at ``remaining_new -
+        1``, so even full acceptance plus the bonus token lands exactly on
+        ``max_new_tokens``."""
+        k = self.spec_k
+        order = sorted((i for i, s in enumerate(self._slots)
+                        if s is not None and s.started),
+                       key=lambda i: self._slots[i].seq)
+        # -1 marks a lane not decoding this step (empty, mid-prefill or
+        # stalled): the verify step parks all its rows on the null page
+        n_draft = np.full((self.max_slots,), -1, np.int32)
+        draft = np.zeros((self.max_slots, k), np.int32)
+        run: List[int] = []
+        for idx in order:
+            st = self._slots[idx]
+            if st is None:                    # preempted by an earlier grow
+                continue
+            cap = min(k, st.request.remaining_new - 1)
+            st.draft = []
+            if cap > 0:
+                prop = np.asarray(
+                    self._drafter.draft(st.request.work_prompt(), cap),
+                    np.int32).reshape(-1)
+                st.draft = [int(v) for v in prop[:cap]]
+            if self._grow_pages(idx, len(st.draft) + 1):
+                run.append(idx)
+                n_draft[idx] = len(st.draft)
+                draft[idx, :len(st.draft)] = st.draft
+        if not run:
+            return
+        pred = self._verify_call(draft, n_draft)
+        self.stats["decode_calls"] += 1
+        for idx in run:
+            st = self._slots[idx]
+            req = st.request
+            nd = len(st.draft)
+            n_acc, emitted = spec_accept_greedy(pred[idx], st.draft)
+            st.draft = []
+            self.stats["spec_drafted"] += nd
+            self.stats["spec_accepted"] += n_acc
+            self.stats["spec_rejected"] += nd - n_acc
+            reason = None
+            n_new = 0
+            for tok in emitted:
+                st.tokens.append(tok)
+                n_new += 1
+                self.stats["tokens_generated"] += 1
+                self.stats["decode_tokens"] += 1
+                if (self.eos_token_id is not None
+                        and tok == self.eos_token_id):
+                    reason = "eos"
+                    break
+            if reason is None and len(st.tokens) >= req.max_new_tokens:
+                reason = "length"
+            if reason is not None:
+                finished.append(self._finish(idx, reason))
+            else:
+                # positions len .. len + n_new - 1 now hold the K/V of the
+                # carry and the accepted drafts; the new carry is the
+                # bonus or correction token, whose K/V the next step writes
+                self._tok[idx] = emitted[n_new - 1]
+                self._len[idx] += n_new
+                self._recycle_window_pages(idx)
+
     def step(self) -> List[FinishedRequest]:
         """One engine iteration: expire deadlines, admit into freed slots,
         advance partial prefills by the chunk budget, grow decode pages
@@ -595,8 +782,9 @@ class ServingEngine:
         bookkeeping balances, the refcount total equals the page
         references live slots hold (so waiting and preempted requests hold
         none), no rid is waiting and resident at once, slot occupancy
-        agrees with the scheduler, and windowed slots keep a bounded ring
-        of live pages."""
+        agrees with the scheduler, windowed slots keep a bounded ring of
+        live pages, and a speculative draft stays within ``spec_k`` and the
+        request's remaining budget, on a decoding slot."""
         self.pool.check()
         refs = sum(len(s.pages) for s in self._slots if s is not None)
         held = sum(self.pool.refcount)
@@ -633,7 +821,7 @@ class ServingEngine:
                         f"(hw {s.hw_pages}, live {len(s.pages)})")
             elif s.started:
                 length = int(self._len[i])
-                k = self.decode_block
+                k = max(self.decode_block, self.spec_k + 1)
                 cap = self.pool.pages_for(min(length + k,
                                               self.window + k)) + 1
                 if len(s.pages) > cap:
@@ -641,6 +829,12 @@ class ServingEngine:
                         f"slot {i} holds {len(s.pages)} pages at len "
                         f"{length} under window {self.window}; ring cap "
                         f"is {cap}")
+            if s.draft and (len(s.draft) > self.spec_k or not s.started
+                            or len(s.draft) >= s.request.remaining_new):
+                raise AssertionError(
+                    f"slot {i} holds a draft of {len(s.draft)} tokens "
+                    f"(spec_k {self.spec_k}, started {s.started}, "
+                    f"remaining {s.request.remaining_new})")
 
     def run(self, requests: Optional[Sequence] = None
             ) -> Dict[int, FinishedRequest]:

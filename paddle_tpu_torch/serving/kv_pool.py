@@ -1,13 +1,15 @@
 """Page-pool KV cache allocator (PagedAttention / vLLM, SOSP '23).
 
-Counterpart of ``paddle_tpu/serving/kv_pool.py`` with float pages.  The KV
-cache is a pool of fixed-size pages shared by all slots; each sequence
-owns just enough pages for its current length, recorded in a per-slot
-block table.
+Counterpart of ``paddle_tpu/serving/kv_pool.py``.  The KV cache is a pool
+of fixed-size pages shared by all slots; each sequence owns just enough
+pages for its current length, recorded in a per-slot block table.
 
 Device layout: one tensor per side, all layers stacked,
-``(L, P, Hkv, page_size, D)`` in the model dtype.  The engine's step
-functions write these tensors in place.
+``(L, P, Hkv, page_size, D)`` in the model dtype.  With ``kv_bits=8`` the
+pages hold int8 values, with ``kv_bits=4`` two int4 values per byte
+(``(…, D // 2)``, split halves), and both add fp32 per-position scale
+buffers ``ks``/``vs`` of shape ``(L, P, Hkv, page_size, 1)``.  The
+engine's step functions write these tensors in place.
 
 Page 0 is RESERVED as the null page: the allocator never hands it out,
 block-table padding points at it, and masked/inactive lanes write their
@@ -40,24 +42,40 @@ class KVPool:
                  num_pages: int, page_size: int, *,
                  dtype: torch.dtype = torch.float32,
                  device="cpu", prefix_cache: bool = False,
-                 num_kv_heads: Optional[int] = None):
+                 num_kv_heads: Optional[int] = None,
+                 kv_bits: Optional[int] = None):
         if num_pages < 2:
             raise ValueError("KVPool needs >= 2 pages (page 0 is the "
                              "reserved null page)")
+        if kv_bits not in (None, 4, 8):
+            raise ValueError(f"kv_bits must be None, 4 or 8, got {kv_bits}")
         kv_heads = num_kv_heads or num_heads
         if num_heads % kv_heads != 0:
             raise ValueError(f"num_heads={num_heads} not divisible by "
                              f"num_kv_heads={kv_heads}")
+        if kv_bits == 4 and head_dim % 2 != 0:
+            raise ValueError("kv_bits=4 needs an even head_dim "
+                             "(two nibbles per byte)")
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.num_kv_heads = kv_heads
         self.head_dim = head_dim
         self.num_pages = num_pages
         self.page_size = page_size
-        shape = (num_layers, num_pages, kv_heads, page_size, head_dim)
-        self.buffers: Dict[str, torch.Tensor] = {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        self.kv_bits = kv_bits
+        store_d = head_dim // 2 if kv_bits == 4 else head_dim
+        shape = (num_layers, num_pages, kv_heads, page_size, store_d)
+        if kv_bits is None:
+            self.buffers: Dict[str, torch.Tensor] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        else:
+            scales = shape[:-1] + (1,)
+            self.buffers = {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(scales, dtype=torch.float32, device=device),
+                "vs": torch.zeros(scales, dtype=torch.float32, device=device)}
         # LIFO free list over pages 1..P-1 (page 0 stays the null page),
         # mirrored by a set for O(1) membership
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
@@ -176,7 +194,7 @@ class KVPool:
 
     def bytes_per_token(self) -> int:
         """Device bytes one token position costs across all layers and both
-        sides (GQA divides it by the group factor)."""
-        k = self.buffers["k"]
-        return 2 * self.num_layers * self.num_kv_heads * self.head_dim \
-            * k.element_size()
+        sides, scales included (GQA divides it by the group factor, int8 by
+        about 2 against bf16, int4 by about 4)."""
+        return self.num_layers * self.num_kv_heads * sum(
+            b.element_size() * b.shape[-1] for b in self.buffers.values())

@@ -171,11 +171,16 @@ class FCFSScheduler:
 
     # -- per-step decisions ----------------------------------------------
 
-    def prefill_budget(self, n_decoding: int, chunk_tokens: int) -> int:
+    def prefill_budget(self, n_decoding: int, chunk_tokens: int,
+                       decode_cost: int = 1) -> int:
         """Sarathi chunk budget for one step: the token budget left after
-        one token per active decode, capped at the engine's chunk width
-        and floored at 1 so prefill always progresses."""
-        return max(1, min(chunk_tokens, self.token_budget - n_decoding))
+        ``decode_cost`` tokens per active decode, capped at the engine's
+        chunk width and floored at 1 so prefill always progresses.
+        ``decode_cost`` is 1 for plain decode; a speculative engine
+        reserves ``spec_k + 1`` per decoding slot, since its verify step
+        scores that many positions whether or not they are accepted."""
+        return max(1, min(chunk_tokens,
+                          self.token_budget - n_decoding * decode_cost))
 
     def schedule_step(self) -> List[Admission]:
         """Admit from the queue into free slots until slots or pages run

@@ -12,6 +12,12 @@ Linear weights there are ``[in, out]`` and applied as ``x @ W``.  The port
 KEEPS that layout (it does not transpose to ``nn.Linear``'s ``[out, in]``),
 so every array copies over unchanged and the two packages run the same
 products on the same memory layout.
+
+Only the float tree crosses over.  For W8A8 decoding both packages
+quantize the int8 weights from these float weights at setup
+(``models/generation._block_params``), so a quantized tree (``*_wq``) is
+never loaded; the port keeps its int8 weights transposed, (N, K), for the
+tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ def params_from_jax(tree) -> Dict[str, object]:
     ``np.asarray`` accepts) as a port state dict: ``{"wte": tensor, …,
     "blocks.0.qkv_w": tensor, …}`` in fp32 on the CPU, ready for
     ``GPTForPretraining.load_state_dict``.  Quantized trees (``*_wq``) are
-    refused: the int8 weight path is not ported yet."""
+    refused: the port quantizes its int8 weights from the float ones."""
     def tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 

@@ -15,21 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-
-import paddle_tpu as paddle
-from paddle_tpu.models import generation as jgen
-from paddle_tpu.models.gpt import GPTConfig as JConfig
-from paddle_tpu.models.gpt import GPTForPretraining as JModel
 from paddle_tpu.serving import ServingEngine as JEngine
-from paddle_tpu_torch.models import generate
-from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
 from paddle_tpu_torch.serving import (FCFSScheduler, KVPool, PrefixIndex,
                                       Request, ServingEngine)
-from paddle_tpu_torch.weights import load_jax_params
-
-CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=2,
-           max_seq_len=96)
+from torch_parity import (assert_all_equal, dense, drain, pair, prompts_of,
+                          serve_both)
 
 
 # ---------------------------------------------------------------------------
@@ -182,61 +172,6 @@ def test_scheduler_rejects_oversized_request():
 # ---------------------------------------------------------------------------
 
 
-def _pair(seed=3, **over):
-    paddle.seed(seed)
-    jm = JModel(JConfig(**{**CFG, **over}, dropout=0.0))
-    jm.eval()
-    tree = jax.tree_util.tree_map(np.asarray, jgen._decoder_setup(jm)[0])
-    tm = GPTForPretraining(GPTConfig(**{**CFG, **over}), device="cpu")
-    load_jax_params(tm, tree)
-    return jm, tm
-
-
-def _drain(eng, trace=None):
-    """Step ``eng`` to completion, auditing invariants after every step;
-    ``trace(eng)`` observes the engine after each step."""
-    done = {}
-    while eng.has_work:
-        for fin in eng.step():
-            done[fin.rid] = fin
-        eng.check_invariants()
-        if trace is not None:
-            trace(eng)
-    assert eng.scheduler.n_active == 0 and eng.pool.pages_in_use == 0
-    return done
-
-
-def _serve_both(jm, tm, prompts, n, trace=None, **kw):
-    """The same requests through the port engine and the JAX engine;
-    returns (port tokens, JAX tokens, port engine, JAX engine)."""
-    eng = ServingEngine(tm, device="cpu", max_slots=2, page_size=8, **kw)
-    rids = [eng.add_request(p, n) for p in prompts]
-    out = _drain(eng, trace)
-    jeng = JEngine(jm, max_slots=2, page_size=8, use_paged_kernel=False,
-                   **kw)
-    jrids = [jeng.add_request(p, n) for p in prompts]
-    jout = jeng.run()
-    assert all(out[r].reason == "length" for r in rids)
-    return ([out[r].tokens for r in rids], [jout[r].tokens for r in jrids],
-            eng, jeng)
-
-
-def _dense(tm, prompts, n):
-    return [generate(tm, p[None], n)[0, len(p):].numpy() for p in prompts]
-
-
-def _prompts(rng, lens):
-    return [rng.randint(0, 512, (k,)).astype(np.int32) for k in lens]
-
-
-def _assert_all_equal(*token_lists):
-    first = token_lists[0]
-    for other in token_lists[1:]:
-        assert len(other) == len(first)
-        for a, b in zip(first, other):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 @pytest.mark.parametrize("over,kw", [
     ({}, {}),
     ({}, {"chunk_tokens": 8}),
@@ -244,10 +179,10 @@ def _assert_all_equal(*token_lists):
     ({"num_heads": 4, "num_kv_heads": 2}, {"chunk_tokens": 8}),
 ], ids=["plain", "chunked8", "decode_block4", "gqa_chunked8"])
 def test_engine_matches_dense_and_reference(over, kw):
-    jm, tm = _pair(**over)
-    prompts = _prompts(np.random.RandomState(3), (5, 11, 23, 7))
-    port, ref, eng, _ = _serve_both(jm, tm, prompts, 12, **kw)
-    _assert_all_equal(port, _dense(tm, prompts, 12), ref)
+    jm, tm = pair(**over)
+    prompts = prompts_of(np.random.RandomState(3), (5, 11, 23, 7))
+    port, ref, eng, _ = serve_both(jm, tm, prompts, 12, **kw)
+    assert_all_equal(port, dense(tm, prompts, 12), ref)
     if "chunk_tokens" in kw:
         assert eng.stats["prefill_calls"] > len(prompts)
 
@@ -256,12 +191,12 @@ def test_engine_shared_prefix_and_cow_tail():
     """Full-page prefix hits shared across a wave of requests, then a
     copy-on-write partial tail: B shares A's first page and half of its
     second, C repeats A (all but its last token from cache)."""
-    jm, tm = _pair(seed=4)
+    jm, tm = pair(seed=4)
     rng = np.random.RandomState(21)
     shared = rng.randint(0, 512, (16,)).astype(np.int32)
-    wave = [np.concatenate([shared, t]) for t in _prompts(rng, (5, 3, 7, 4))]
-    port, ref, eng, jeng = _serve_both(jm, tm, wave, 6, chunk_tokens=16)
-    _assert_all_equal(port, _dense(tm, wave, 6), ref)
+    wave = [np.concatenate([shared, t]) for t in prompts_of(rng, (5, 3, 7, 4))]
+    port, ref, eng, jeng = serve_both(jm, tm, wave, 6, chunk_tokens=16)
+    assert_all_equal(port, dense(tm, wave, 6), ref)
     assert eng.stats["prefix_hit_tokens"] >= 2 * 16
     assert eng.stats["prefix_hit_tokens"] == jeng.stats["prefix_hit_tokens"]
 
@@ -274,8 +209,8 @@ def test_engine_shared_prefix_and_cow_tail():
     hits = []
     for p in (A, B, A.copy()):
         rid, jrid = eng.add_request(p, 6), jeng.add_request(p, 6)
-        tok = _drain(eng)[rid].tokens
-        _assert_all_equal([tok], _dense(tm, [p], 6), [jeng.run()[jrid].tokens])
+        tok = drain(eng)[rid].tokens
+        assert_all_equal([tok], dense(tm, [p], 6), [jeng.run()[jrid].tokens])
         hits.append(eng.stats["prefix_hit_tokens"])
     assert hits == [0, 12, 12 + 15]           # B: 8 + 4 via COW; C: 8 + 7
 
@@ -283,14 +218,14 @@ def test_engine_shared_prefix_and_cow_tail():
 def test_engine_preemption_under_a_small_pool():
     """Six usable pages cannot hold both residents' growth: the younger is
     preempted, requeued and recomputed, and every token stays exact."""
-    jm, tm = _pair()
+    jm, tm = pair()
     rng = np.random.RandomState(51)
     A = rng.randint(0, 512, (8,)).astype(np.int32)
     B = rng.randint(0, 512, (16,)).astype(np.int32)
     eng = ServingEngine(tm, device="cpu", max_slots=2, page_size=8,
                         num_pages=7, chunk_tokens=16)
     ra, rb = eng.add_request(A, 24), eng.add_request(B, 16)
-    out = _drain(eng)
+    out = drain(eng)
     jeng = JEngine(jm, max_slots=2, page_size=8, num_pages=7,
                    chunk_tokens=16, use_paged_kernel=False)
     ja, jb = jeng.add_request(A, 24), jeng.add_request(B, 16)
@@ -298,9 +233,9 @@ def test_engine_preemption_under_a_small_pool():
     assert eng.stats["preemptions"] >= 1
     assert eng.stats["recompute_tokens"] > 0
     assert eng.stats["preemptions"] == jeng.stats["preemptions"]
-    _assert_all_equal([out[ra].tokens], _dense(tm, [A], 24),
+    assert_all_equal([out[ra].tokens], dense(tm, [A], 24),
                       [jout[ja].tokens])
-    _assert_all_equal([out[rb].tokens], _dense(tm, [B], 16),
+    assert_all_equal([out[rb].tokens], dense(tm, [B], 16),
                       [jout[jb].tokens])
 
 
@@ -309,8 +244,8 @@ def test_engine_window_recycles_pages():
     stay a bounded ring while the high-water page count keeps growing,
     recycled pages go back to the pool, and tokens stay exact."""
     over = dict(num_heads=4, num_kv_heads=2, attn_window=16)
-    jm, tm = _pair(seed=6, **over)
-    prompts = _prompts(np.random.RandomState(11), (5, 13))
+    jm, tm = pair(seed=6, **over)
+    prompts = prompts_of(np.random.RandomState(11), (5, 13))
     seen = {"live": 0, "hw": 0}
 
     def trace(eng):
@@ -319,9 +254,9 @@ def test_engine_window_recycles_pages():
                 seen["live"] = max(seen["live"], len(st.pages))
                 seen["hw"] = max(seen["hw"], st.hw_pages)
 
-    port, ref, eng, _ = _serve_both(jm, tm, prompts, 40, trace=trace,
+    port, ref, eng, _ = serve_both(jm, tm, prompts, 40, trace=trace,
                                     prefix_cache=False)
-    _assert_all_equal(port, _dense(tm, prompts, 40), ref)
+    assert_all_equal(port, dense(tm, prompts, 40), ref)
     cap = eng.pool.pages_for(16 + 1) + 1
     assert seen["live"] <= cap < seen["hw"]
     assert eng.pool.num_free == eng.pool.num_pages - 1
@@ -330,7 +265,7 @@ def test_engine_window_recycles_pages():
 def test_engine_lifecycle_cancel_expire_reject():
     """cancel() in every state, deadlines and the bounded queue: every
     request ends in exactly one terminal state and the pool drains."""
-    _, tm = _pair()
+    _, tm = pair()
     now = {"t": 0.0}
     eng = ServingEngine(tm, device="cpu", max_slots=1, page_size=8,
                         chunk_tokens=4, max_queue=2, clock=lambda: now["t"])
@@ -342,7 +277,7 @@ def test_engine_lifecycle_cancel_expire_reject():
     assert eng.cancel(r1) and not eng.cancel(r1)
     now["t"] = 5.0                                          # r2 overdue
     r4 = eng.add_request(rng.randint(0, 512, (5,)), 3)
-    out.update(_drain(eng))
+    out.update(drain(eng))
     assert {r: out[r].reason for r in (r1, r2, r3, r4)} == {
         r1: "cancelled", r2: "expired", r3: "rejected", r4: "length"}
     with pytest.raises(ValueError):
