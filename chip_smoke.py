@@ -9,7 +9,7 @@ its seconds):
 1. build: compile every CUDA source of the port (one ``nvcc`` each, all at
    once) and print the build seconds and the card's name and power limit;
 2. kernels: each kernel variant against its plain PyTorch version on the
-   card at the serving shapes.
+   card at the serving and training shapes.
    - paged decode and chunk prefill over float, int8 and int4 pages (H=16,
      D=128, page 32, 8 slots, ragged lengths up to 2048; a GQA case with
      Hkv=4 and a window=256 case; prefill chunks of 128 and 40 rows at
@@ -20,9 +20,19 @@ its seconds):
      fp32 from the same inputs (the kernel keeps probabilities in fp32
      where the plain version rounds them to bf16, and rounds its output);
    - ``w8a8_gemm`` at GPT-1.3B's four projection shapes, M=8 (decode) and
-     M=128 (prefill), and a ragged M=40: the quantized activations, their
-     scales and the fp32 output equal the plain version bit for bit, and
-     the bf16 output (the same fp32 rounded once) too;
+     M=128 (prefill), and a ragged M=40, and at the training flagship's
+     four projections at M=12288 with bf16 activations (run (d) of phase
+     5): the quantized activations, their scales and the output equal the
+     plain version bit for bit;
+   - the flash forward, dQ and dK/dV kernels on q/k/v head views of one
+     fused QKV tensor, as the model hands them over: the training
+     flagship shape (B=12, H=12, S=1024, D=128, causal, bf16) in bsnd and
+     in sbnd, sbnd with GQA (Hkv=4) and window=256 at B=12 (the shapes of
+     training runs (a)-(c)), an fp32 case, bsnd and sbnd GQA cases, a
+     window=256 case and a ragged S=520; out, lse, dQ, dK and dV each on
+     its own (the backward kernels from the plain forward's out and lse),
+     elementwise within ``atol * rms + rtol * |plain|`` with the rms of
+     the plain row (``FLASH_TOL``);
 3. serving: GPT-1.3B at full width (24 layers, hidden 2048, 16 heads) with
    random bf16 weights from a fixed seed, 16 requests per run through the
    paged engine (8 slots, page 32, chunk 128; prompts of 64-512 tokens,
@@ -45,19 +55,37 @@ its seconds):
    int4 pages) is held against the dense decoder by teacher forcing
    instead, at least 90% of the positions agreeing: quantized activations
    turn such float-level differences into int8 rounding differences, and
-   one early divergence would end the greedy comparison.
+   one early divergence would end the greedy comparison;
+5. training: first the train step in fp32 on the card against the same
+   step on the CPU (flagship width, 2 layers, batch 1, seq 512, 2 steps;
+   losses to 1e-4 relative, and each leaf's update, ||card - CPU|| over
+   ||CPU||, to ``UPDATE_RTOL``), then the 760M training flagship (vocab
+   50304, hidden 1536, 24 layers, 12 heads, seq 1024, batch 12, bf16
+   parameters with fp32 AdamW masters, remat off, CE chunks of 2048 rows)
+   in four runs: (a) batch-major, (b) ``seq_major=True``, (c)
+   ``seq_major=True, num_kv_heads=4, attn_window=256, remat=True`` and (d)
+   ``int8=True`` (W8A8 with straight-through gradients).  Each takes 1
+   warm-up and 4 timed steps on one seeded batch, prints step ms,
+   tokens/s, MFU (the bench's flop count over 989 TFLOP/s) and peak
+   memory, asserts finite, falling losses and exactly the run's launches
+   (24 per step of each flash kernel, the forward twice under remat, 96
+   ``w8a8_gemm`` per step in (d)), and profiles one more step.
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
-the serving run that reaches it, its error against the plain version, its
-time (``w8a8_gemm``'s by CUDA-graph replay, which takes the host's enqueue
-cost out of calls that short), the plain version's time, its bound (bytes moved over 3.35 TB/s or
-operations over the peak of their type, whichever is larger) and the time
+the serving or training run that first reaches it, its error against the
+plain version, its time (``w8a8_gemm``'s by CUDA-graph replay, which
+takes the host's enqueue cost out of calls that short), the plain
+version's time, its bound (bytes moved over 3.35 TB/s or operations over
+the peak of their type, whichever is larger) and the time
 of one PyTorch call computing the same function, which the port itself
 never calls: ``scaled_dot_product_attention`` on pre-gathered, dequantized
 dense K/V (the gather and the dequant excluded) for the attention kernels,
 ``torch._int_mm`` on the pre-quantized operands (the quantize excluded) for
-``w8a8_gemm``.  The last line is ``{"ok": true, "device": {...}}``.
+``w8a8_gemm``, ``scaled_dot_product_attention(is_causal=True)`` for the
+flash forward and its backward (forward and backward less the forward,
+both by CUDA-graph replay) for the two backward kernels.  The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -72,6 +100,8 @@ INT8_OPS = 1979e12              # H100 SXM dense int8 tensor-core peak
 KINDS = {None: "", 8: "_int8", 4: "_int4"}   # page kind -> variant suffix
 PROJ = {"qkv": (2048, 6144), "proj": (2048, 2048), "fc1": (2048, 8192),
         "fc2": (8192, 2048)}    # GPT-1.3B projections, (K, N)
+TRAIN_PROJ = {"qkv": (1536, 4608), "proj": (1536, 1536), "fc1": (1536, 6144),
+              "fc2": (6144, 1536)}    # the training flagship's, (K, N)
 
 
 def log(msg):
@@ -140,7 +170,7 @@ def phase_build():
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s total, per source "
         + json.dumps({k: round(v, 2) for k, v in _build.build_seconds.items()}))
-    for name in _build.SIGNATURES:
+    for name in _build.SOURCES:
         ptxas = _build.BUILD_DIR / f"{name}.ptxas.txt"
         if ptxas.exists():
             for line in ptxas.read_text().splitlines():
@@ -426,6 +456,24 @@ def phase_gemm(np, torch):
                                  ("bound_ms", bms), ("library_ms", lib_ms),
                                  ("bytes", nbytes), ("ops", 2 * m * n * k)):
                     tot[key] += val
+    # the training flagship's projections at its M = 12 x 1024 rows, bf16
+    # activations and the live weight quantized as w8a8_matmul does
+    m = TRAIN_BATCH * TRAIN_SEQ
+    for proj, (k, n) in TRAIN_PROJ.items():
+        w = (torch.randn(k, n, device=dev, generator=g) * 0.02).bfloat16()
+        wq, ws = quantize_per_channel(w.float().t(), axis=0)
+        wq = wq.contiguous()
+        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+        got = w8a8_gemm(x, wq, ws, return_quantized=True)
+        want = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"w8a8_gemm training {proj} M={m} K={k} N={n}, bf16: bit-exact "
+            f"{exact}; kernel {time_ms(lambda: w8a8_gemm(x, wq, ws), 5):.4f} "
+            f"ms, _int_mm on the quantized operands "
+            f"{time_ms(lambda: torch._int_mm(got[1], wq.t()), 5):.4f} ms")
+        if not exact:
+            raise AssertionError(f"w8a8_gemm training {proj} is not exact")
+        del x, got, want
     bms, by = bound_ms(tot["bytes"], tot["ops"], INT8_OPS)
     log(f"w8a8_gemm one decode layer (M=8, qkv + proj + fc1 + fc2): "
         f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, _int_mm "
@@ -433,6 +481,166 @@ def phase_gemm(np, torch):
     return {"w8a8_gemm": dict(ms=tot["ms"], plain_ms=tot["plain_ms"],
                               bound_ms=bms, bound_by=by,
                               library_ms=tot["library_ms"], max_abs_err=0.0)}
+
+
+# flash kernels: layout, B, H, Hkv, S, causal, window, dtype (D = 128); the
+# first and the last two are the shapes of training runs (a), (b) and (c)
+FLASH_CASES = (
+    ("flagship", "bsnd", 12, 12, 12, 1024, True, None, "bf16"),
+    ("fp32", "bsnd", 2, 4, 4, 512, True, None, "fp32"),
+    ("bsnd_gqa4", "bsnd", 4, 12, 4, 1024, True, None, "bf16"),
+    ("sbnd_gqa4", "sbnd", 4, 12, 4, 1024, True, None, "bf16"),
+    ("window256", "bsnd", 4, 12, 12, 1024, True, 256, "bf16"),
+    ("ragged520", "bsnd", 2, 12, 12, 520, True, None, "bf16"),
+    ("sbnd_flagship", "sbnd", 12, 12, 12, 1024, True, None, "bf16"),
+    ("sbnd_gqa4_window256", "sbnd", 12, 12, 4, 1024, True, 256, "bf16"),
+)
+# elementwise |kernel - plain| <= atol * rms + rtol * |plain|, with the rms
+# of the plain row (the last axis: a head's D values, or lse over S), per
+# tensor and dtype: (rtol, atol).  fp32: summation order only.  bf16: out,
+# dq, dk and dv are rounded once to bf16 (2^-8 of the value, 2^-7 at the
+# foot of a binade), and the kernels round P and dS to bf16 for the
+# tensor cores (the forward's P against its running maximum where the
+# plain version uses the row's final one, the backward's where the plain
+# version keeps fp32): an error on the scale of the terms summed, which
+# the row's rms follows where a value cancels (an early key's dV sums
+# O(1) terms of many queries); lse stays fp32.
+# At atol 1e-2 the worst shares of the bound on an H100 were 0.93 (out),
+# 0.85 (dq), 0.69 (dk) and 1.04 (dv) over these cases, hence 3e-2
+FLASH_TOL = {
+    "fp32": {"out": (1e-5, 1e-5), "lse": (1e-6, 1e-6), "dq": (1e-5, 1e-5),
+             "dk": (1e-5, 1e-5), "dv": (1e-5, 1e-5)},
+    "bf16": {"out": (2e-2, 3e-2), "lse": (1e-6, 1e-6), "dq": (2e-2, 3e-2),
+             "dk": (2e-2, 3e-2), "dv": (2e-2, 3e-2)},
+}
+
+
+def _flash_close(label, got, want, rtol, atol):
+    """Holds ``got`` to ``want`` elementwise within ``atol * rms +
+    rtol * |want|`` (``rms`` of ``want``'s row, at least 1e-2 of the
+    tensor's: a row that is zero, as the first query's dQ under a causal
+    mask, is held to the summation noise around it); logs the max abs
+    error, the tensor's rms and the worst share of the bound used, and
+    returns the max abs error."""
+    g, w = got.float(), want.float()
+    rms = w.square().mean().sqrt()
+    row = w.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-2 * rms)
+    err = (g - w).abs()
+    used = (err / (atol * row + rtol * w.abs())).max().item()
+    top = err.max().item()
+    log(f"{label}: max_abs_err {top:.3e}, rms {rms:.3e}, worst {used:.3f} "
+        f"of the bound (rtol {rtol:g}, atol {atol:g} * row rms)")
+    if not used <= 1.0:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return top
+
+
+def _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype):
+    """q, k, v as the model hands them to attention: head views of one
+    fused projection output ([B, S, W] for bsnd, [S, B, W] for sbnd)."""
+    lead = (s, b) if layout == "sbnd" else (b, s)
+    qkv = torch.randn(*lead, (h + 2 * hkv) * d, device="cuda",
+                      generator=g).to(dtype)
+    q, k, v = torch.split(qkv, [h * d, hkv * d, hkv * d], dim=-1)
+    return (q.reshape(*lead, h, d), k.reshape(*lead, hkv, d),
+            v.reshape(*lead, hkv, d))
+
+
+def phase_flash(np, torch):
+    """The forward, dQ and dK/dV kernels against their plain versions in
+    every case (the backward kernels take the plain forward's out and lse,
+    so each kernel is held on its own), and timed at the flagship shape."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels.flash import (flash_bwd, flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda, flash_delta,
+                                                flash_fwd_cuda)
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    d = 128
+    for case, layout, b, h, hkv, s, causal, window, dt in FLASH_CASES:
+        g = torch.Generator(device="cuda").manual_seed(s + h + hkv)
+        dtype = dtypes[dt]
+        q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype)
+        scale = 1.0 / np.sqrt(d)
+        out, lse = flash_fwd_cuda(q, k, v, causal, scale, window, layout)
+        ref, rlse = flash_fwd_plain(q, k, v, causal, scale, window, layout)
+        do = torch.randn(ref.shape, device="cuda", generator=g).to(dtype)
+        got = flash_bwd(q, k, v, ref, rlse, do, causal, scale, window, layout)
+        want = flash_bwd_plain(q, k, v, ref, rlse, do, causal, scale, window,
+                               layout)
+        torch.cuda.synchronize()
+        for name, part, a, r in (("flash_fwd", "out", out, ref),
+                                 ("flash_fwd", "lse", lse, rlse),
+                                 ("flash_bwd_dq", "dq", got[0], want[0]),
+                                 ("flash_bwd_dkv", "dk", got[1], want[1]),
+                                 ("flash_bwd_dkv", "dv", got[2], want[2])):
+            err = _flash_close(
+                f"{name} {part} {case} ({layout}, B={b} H={h} Hkv={hkv} "
+                f"S={s} D={d}, {dt}, window {window})", a, r,
+                *FLASH_TOL[dt][part])
+            if dt == "bf16":
+                worst[name] = max(worst[name], err)
+        del q, k, v, out, lse, ref, rlse, do, got, want
+    torch.cuda.empty_cache()
+
+    # timing at the flagship shape, on the model's strided views
+    _, layout, b, h, hkv, s, causal, window, _ = FLASH_CASES[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, torch.bfloat16)
+    scale = 1.0 / np.sqrt(d)
+    out, lse = flash_fwd_cuda(q, k, v, causal, scale, window, layout)
+    do = torch.randn(out.shape, device="cuda", generator=g).bfloat16()
+    delta = flash_delta(out, do, layout)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))      # SDPA's view
+    lib = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    doh = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*lib, is_causal=True)
+        torch.autograd.grad(o, lib, doh)
+
+    ms = {"flash_fwd": time_ms(lambda: flash_fwd_cuda(
+              q, k, v, causal, scale, window, layout)),
+          "flash_bwd_dq": time_ms(lambda: flash_bwd_dq_cuda(
+              q, k, v, lse, delta, do, causal, scale, window, layout)),
+          "flash_bwd_dkv": time_ms(lambda: flash_bwd_dkv_cuda(
+              q, k, v, lse, delta, do, causal, scale, window, layout))}
+    plain_fwd = time_ms(lambda: flash_fwd_plain(q, k, v, causal, scale,
+                                                window, layout), iters=3)
+    plain_bwd = time_ms(lambda: flash_bwd_plain(q, k, v, out, lse, do,
+                                                causal, scale, window,
+                                                layout), iters=3)
+    # the library by CUDA-graph replay: an eager SDPA forward + backward
+    # is bound by the host's enqueue of autograd
+    lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    lib_bwd = graph_ms(sdpa_fwd_bwd) - lib_fwd
+    elems = b * s * h * d * 2                    # bytes of one bf16 operand
+    rows = b * h * s * 4                         # bytes of lse or delta
+    half = b * h * s * s * d / 2                 # causal: half the pairs
+    work = {"flash_fwd": (4 * elems + rows, 4 * half),
+            "flash_bwd_dq": (5 * elems + 2 * rows, 6 * half),
+            "flash_bwd_dkv": (6 * elems + 2 * rows, 8 * half)}
+    results = {}
+    for name, (nbytes, ops) in work.items():
+        bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+        fwd = name == "flash_fwd"
+        results[name] = dict(ms=ms[name],
+                             plain_ms=plain_fwd if fwd else plain_bwd,
+                             bound_ms=bms, bound_by=by,
+                             library_ms=lib_fwd if fwd else lib_bwd,
+                             max_abs_err=worst[name])
+        log(f"{name} timed case: B={b} H={h} S={s} D={d} causal bf16, q/k/v "
+            f"head views of one QKV tensor: {ms[name]:.4f} ms, plain "
+            f"{results[name]['plain_ms']:.4f} ms (the whole "
+            f"{'forward' if fwd else 'backward'}), sdpa by graph replay "
+            f"{'forward' if fwd else 'fwd+bwd - fwd'} "
+            f"{results[name]['library_ms']:.4f} ms, bound {bms:.4f} ms "
+            f"({by}; {ops:.4g} flop, {nbytes} bytes)")
+    return results
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -458,10 +666,10 @@ def _requests(np, rng, cfg, shared, n=16, motif=False):
     return out
 
 
-def _profile(torch, eng, requests):
-    """Serve ``requests`` under torch.profiler and print the device's busy
-    share of the host-clock wall time and the device time by kernel.  The
-    profiler slows the host, so the idle share is an upper bound."""
+def _profile(torch, what, fn):
+    """Run ``fn`` under torch.profiler and print the device's busy share of
+    the host-clock wall time and the device time by kernel.  The profiler
+    slows the host, so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -469,7 +677,7 @@ def _profile(torch, eng, requests):
     # tens of seconds to assemble for the quantized runs
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(requests)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -478,8 +686,8 @@ def _profile(torch, eng, requests):
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us() / 1e3)
     busy = sum(by_name.values())
-    log(f"  profile: {len(requests)} more requests, wall {1e3 * wall:.1f} "
-        f"ms, device busy {busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}%)")
+    log(f"  profile: {what}, wall {1e3 * wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
 
@@ -558,8 +766,8 @@ def _serve(np, torch, model, label, opts, n_req, motif, expected):
             f"(acceptance {s['spec_accepted'] / max(1, s['spec_drafted']):.3f})")
     log(f"  launches: {json.dumps(launches)}")
     if label in "abcd":
-        _profile(torch, eng, _requests(np, rng, cfg, shared, n=8,
-                                       motif=motif))
+        more = _requests(np, rng, cfg, shared, n=8, motif=motif)
+        _profile(torch, f"{len(more)} more requests", lambda: eng.run(more))
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -684,6 +892,174 @@ def phase_parity(np, torch):
     _agreement(np, "spec_k=4 engine vs plain engine", spec, plain)
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+# the training flagship: vocab 50304, hidden 1536, 24 layers, 12 heads
+# (D = 128), seq 1024, batch 12, bf16 parameters with fp32 AdamW masters,
+# remat off, CE chunks of 2048 rows
+TRAIN_CFG = dict(vocab_size=50304, hidden_size=1536, num_layers=24,
+                 num_heads=12, max_seq_len=1024)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 12, 1024, 5
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# label, config overrides, remat, kernels that launch (per step: 24 of
+# each flash kernel, the forward twice under remat, and 4 x 24 w8a8_gemm
+# per forward with int8)
+TRAIN_RUNS = (
+    ("a", {}, False, {"flash_fwd": 24, "flash_bwd_dq": 24,
+                      "flash_bwd_dkv": 24}),
+    ("b", {"seq_major": True}, False,
+     {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}),
+    ("c", {"seq_major": True, "num_kv_heads": 4, "attn_window": 256}, True,
+     {"flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}),
+    ("d", {"int8": True}, False,
+     {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
+      "w8a8_gemm": 96}),
+)
+
+
+def _flops_per_token(cfg, seq):
+    """Training flops per token: 6 N over the blocks' 12 h^2 weights per
+    layer, the attention term and the LM head (the repo's bench count)."""
+    h, n_layers, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    return (6.0 * n_layers * 12 * h * h + 12.0 * n_layers * h * seq
+            + 6.0 * v * h)
+
+
+# a leaf's update on the card against the CPU's, fp32 (see update_ratios)
+UPDATE_RTOL = 2e-3
+
+
+def update_ratios(torch, cfg, names, got, want, init):
+    """Per leaf, ||(got - init) - (want - init)|| / ||want - init||, logged
+    with the share of elements more than 1e-6 apart.  The key part of the
+    QKV bias is left out: it adds q.b_k to a whole row of scores, which
+    the softmax cancels, so its gradient is zero but for rounding, and
+    AdamW steps each side by ~lr on its own noise there."""
+    ratios = {}
+    for name, a, b, a0 in zip(names, got, want, init):
+        if name.endswith("qkv_b"):
+            keep = torch.ones(a.numel(), dtype=torch.bool)
+            keep[cfg.hidden_size:
+                 cfg.hidden_size + cfg.num_kv_heads * cfg.head_dim] = False
+            a, b, a0 = a[keep], b[keep], a0[keep]
+        ratios[name] = ((a - b).norm() / (b - a0).norm()).item()
+        share = ((a - b).abs() > 1e-6).float().mean().item()
+        log(f"  update {name}: ratio {ratios[name]:.3e}, share of elements "
+            f"more than 1e-6 apart {share:.3e}")
+    worst = max(ratios, key=ratios.get)
+    log(f"  worst update ratio {ratios[worst]:.3e} on {worst}")
+    return ratios
+
+
+def _train_parity(np, torch):
+    """The train step in fp32 on the card (flash kernels, fp32 products,
+    no TF32) against the same step on the CPU (plain attention) from the
+    same weights and batch: flagship width, 2 layers, batch 1, seq 512, 2
+    steps.  Losses agree to 1e-4 relative, and each leaf's update to
+    UPDATE_RTOL: ||card update - CPU update|| / ||CPU update|| (see
+    :func:`update_ratios`)."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.gpt import build_functional_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**{**TRAIN_CFG, "num_layers": 2})
+    cpu = GPTForPretraining(cfg, device="cpu", dtype=torch.float32, seed=3)
+    card = GPTForPretraining(cfg, device="cuda", dtype=torch.float32, seed=3)
+    card.load_state_dict(cpu.state_dict())
+    names = {p.data_ptr(): n for n, p in cpu.named_parameters()}
+    names = [names[p.data_ptr()] for p in cpu.leaves()]
+    init = [p.detach().clone() for p in cpu.leaves()]
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (1, 512)).astype("int32")
+    labels = rng.randint(0, cfg.vocab_size, (1, 512)).astype("int64")
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        step, params, opt = build_functional_train_step(
+            model, lr=1e-4, remat=False, ce_chunk_rows=2048)
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(2):
+            params, opt, loss = step(params, opt, ids, labels)
+            losses.append(float(loss))
+        runs[name] = (losses, [p.cpu() for p in params])
+        log(f"train parity: {name} losses {losses} "
+            f"({time.perf_counter() - t0:.2f} s)")
+    (lc, pc), (lh, ph) = runs["card"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    ratios = update_ratios(torch, cfg, names, pc, ph, init)
+    log(f"train parity: card vs cpu, loss rel err {rel:.3e} (tol 1e-4), "
+        f"worst update ratio {max(ratios.values()):.3e} (tol {UPDATE_RTOL:g})")
+    if not (rel <= 1e-4 and max(ratios.values()) <= UPDATE_RTOL):
+        raise AssertionError("the train step on the card disagrees with the "
+                             "CPU")
+
+
+def _train(np, torch, label, over, remat, per_step):
+    """One training run at full width: 1 warm-up and 4 timed steps on one
+    seeded batch; returns the kernels' launch counts."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.gpt import build_functional_train_step
+
+    cfg = GPTConfig(**TRAIN_CFG, **over)
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForPretraining(cfg, seed=0)                # bf16 on the card
+    step, params, opt = build_functional_train_step(
+        model, lr=1e-4, remat=remat, ce_chunk_rows=2048)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    labels = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    ids = torch.as_tensor(ids.astype("int32"), device=model.device)
+    labels = torch.as_tensor(labels.astype("int64"), device=model.device)
+
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, ids, labels)
+        losses.append(float(loss))                      # synchronises
+        times.append(time.perf_counter() - t0)
+    launches = {name: n for name, n in KERNELS.items() if n}
+    want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"training ({label}) launched {launches}, "
+                             f"expected {want}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training ({label}): losses {losses}")
+    step_s = float(np.mean(times[1:]))
+    tps = TRAIN_BATCH * TRAIN_SEQ / step_s
+    mfu = tps * _flops_per_token(cfg, TRAIN_SEQ) / BF16_FLOPS
+    log(f"training ({label}) {json.dumps(over)} remat={remat}: losses "
+        f"{[round(x, 4) for x in losses]}; step {1e3 * step_s:.1f} ms "
+        f"(timed steps {[round(1e3 * t, 1) for t in times[1:]]}, warm-up "
+        f"{1e3 * times[0]:.1f} ms), {tps:.0f} tokens/s, MFU {100 * mfu:.2f}% "
+        f"of 989 TFLOP/s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  launches: {json.dumps(launches)}")
+    _profile(torch, "one more step",
+             lambda: step(params, opt, ids, labels))
+    del model, step, params, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_training(np, torch):
+    """The slice parity check, then training runs (a)-(d); returns each
+    kernel's launch count on the first run that reaches it, and that
+    run's label."""
+    _train_parity(np, torch)
+    first = {}
+    for label, over, remat, per_step in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        for name, n in _train(np, torch, label, over, remat,
+                              per_step).items():
+            first.setdefault(name, (n, label))
+        log(f"  run ({label}) took {time.perf_counter() - t0:.2f} s")
+    return first
+
+
 def main():
     try:
         import numpy as np
@@ -715,20 +1091,31 @@ def main():
     done("1 build")
     kernels = phase_paged(np, torch)
     kernels.update(phase_gemm(np, torch))
+    kernels.update(phase_flash(np, torch))
     done("2 kernels")
     first = phase_serving(np, torch)
     done("3 serving")
     phase_parity(np, torch)
     done("4 parity")
+    trained = phase_training(np, torch)
+    done("5 training")
     line = []
     for name, k in kernels.items():
         src = name.split("_int")[0]
         entry = {"paged_attention": 213, "paged_attention_mq": 372}
         replaces = {"paged_prefill": "paddle_tpu/kernels/paged_prefill.py:166",
-                    "w8a8_gemm": "paddle_tpu/kernels/int8_gemm.py:85"}.get(
+                    "w8a8_gemm": "paddle_tpu/kernels/int8_gemm.py:85",
+                    "flash_fwd": "paddle_tpu/kernels/flash.py:74",
+                    "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
+                    "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"}.get(
             src, f"paddle_tpu/kernels/paged_attention.py:{entry.get(src)}")
-        n, run = first[name]
-        log(f"{name}: {n} launches on serving run ({run})")
+        if name in FLASH:
+            n, run = trained[name]
+            src = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
+            log(f"{name}: {n} launches on training run ({run})")
+        else:
+            n, run = first[name]
+            log(f"{name}: {n} launches on serving run ({run})")
         line.append({"name": name, "route": "cuda",
                      "source": f"paddle_tpu_torch/csrc/{src}.cu",
                      "replaces": replaces, "launches": n,

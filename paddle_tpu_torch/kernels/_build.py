@@ -34,27 +34,41 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C entry points of each source: name -> (function, argtypes).  kv_bits
-# is 0 for float pages (the scale pointers may then be null), 8 or 4.
+# the C entry points: name -> (source, function, argtypes), the source
+# being csrc/<source>.cu.  kv_bits is 0 for float pages (the scale
+# pointers may then be null), 8 or 4.  The flash entries take a pointer to
+# int64 strides (b, s, h of each tensor operand, in argument order).
 SIGNATURES = {
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
     # B, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
     # dtype (0 fp32, 1 bf16), kv_bits, stream
-    "paged_attention": ("paged_attention_fwd",
+    "paged_attention": ("paged_attention", "paged_attention_fwd",
                         [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P]),
     # q, k_pages, v_pages, k_scales, v_scales, block_table, out, start,
     # C, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
     # dtype, kv_bits, stream
-    "paged_prefill": ("paged_prefill_fwd",
+    "paged_prefill": ("paged_prefill", "paged_prefill_fwd",
                       [_P] * 7 + [_I] * 8 + [_F, _I, _I, _I, _P]),
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
     # B, T, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
     # dtype, kv_bits, stream
-    "paged_attention_mq": ("paged_attention_mq_fwd",
+    "paged_attention_mq": ("paged_attention_mq", "paged_attention_mq_fwd",
                            [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P]),
     # x, xq, sx, wq, ws, out, M, N, K, dtype, stream
-    "w8a8_gemm": ("w8a8_gemm_fwd", [_P] * 6 + [_I] * 4 + [_P]),
+    "w8a8_gemm": ("w8a8_gemm", "w8a8_gemm_fwd", [_P] * 6 + [_I] * 4 + [_P]),
+    # q, k, v, out, lse, strides, B, H, Hkv, S, D, scale, causal, window,
+    # dtype (0 fp32, 1 bf16), stream
+    "flash_fwd": ("flash_fwd", "flash_fwd", [_P] * 6 + [_I] * 5 + [_F]
+                  + [_I] * 3 + [_P]),
+    # q, k, v, dout, lse, delta, dq, strides, then as flash_fwd
+    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq", [_P] * 8 + [_I] * 5
+                     + [_F] + [_I] * 3 + [_P]),
+    # q, k, v, dout, lse, delta, dk, dv, strides, then as flash_fwd
+    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv", [_P] * 9 + [_I] * 5
+                      + [_F] + [_I] * 3 + [_P]),
 }
+#: the CUDA sources, csrc/<name>.cu, in registration order
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 #: launches of every kernel variant (a kernel and its page kind), by name,
 #: in registration order: its wrapper adds one right after each launch of
@@ -113,7 +127,7 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, target)   # atomic: a reader never sees a partial file
 
 
-def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> List[Path]:
+def build_all(names: Iterable[str] = SOURCES) -> List[Path]:
     """Compile every named source that is not built yet, all ``nvcc``
     processes at once, and return the libraries' paths."""
     names = list(names)
@@ -127,13 +141,13 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> List[Path]:
 
 
 def kernel(name: str):
-    """The C entry point of ``csrc/<name>.cu`` with its argtypes set,
-    building the library first if needed.  The function returns the CUDA
-    error code of its launch (0 on success)."""
+    """The C entry point ``name`` with its argtypes set, building its
+    source's library first if needed.  The function returns the CUDA error
+    code of its launch (0 on success)."""
     fn = _loaded.get(name)
     if fn is None:
-        path = build_all([name])[0]
-        symbol, argtypes = SIGNATURES[name]
+        source, symbol, argtypes = SIGNATURES[name]
+        path = build_all([source])[0]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -1,0 +1,397 @@
+"""Flash attention, forward and backward: the CUDA kernels' wrappers, their
+plain versions, and the autograd function that ties them together.
+
+Counterpart of ``paddle_tpu/kernels/flash.py`` (``flash_attention``,
+``supported``, ``_pick_block``, ``_layout_s_axis`` and the forward / dQ /
+dK-dV Pallas bodies behind its six ``pallas_call`` sites).  The kernels
+are ``paddle_tpu_torch/csrc/flash_fwd.cu`` and ``flash_bwd.cu`` (one
+kernel each for the forward, dQ and dK/dV); see the sources for their
+design and what bounds them on the card.
+
+Layouts, as in the reference: ``"bnsd"`` ([..., S, D], q/k/v with the same
+heads), ``"bsnd"`` ([B, S, H, D]) and ``"sbnd"`` ([S, B, H, D]); the two
+seq-major layouts take GQA (k/v with fewer heads, a divisor of q's).  The
+kernels read every layout in place through strides, so a caller's views
+(the head slices of a fused QKV projection) need no transposes or copies.
+
+:func:`flash_attention` differentiates through :class:`_Flash`, which
+saves ``(q, k, v, out, lse)`` as the reference's ``_flash_fwd_rule`` does.
+CPU tensors take the plain versions (:func:`flash_fwd_plain`,
+:func:`flash_bwd_plain`); CUDA tensors launch the kernels, or raise.
+Launches count as ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+_NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+_build.LAUNCHES.update({name: 0 for name in _KERNELS})
+
+
+def _pick_block(s: int, want: int = 512):
+    """The reference's block choice: the first of ``want``, 512, 256, ...,
+    8 that divides ``s`` (None when none does).  It decides which lengths
+    :func:`supported` admits; the CUDA kernels use their own tiles and take
+    any length."""
+    for b in (want, 512, 256, 128, 64, 32, 16, 8):
+        if b <= s and s % b == 0:
+            return b
+    return None
+
+
+def _layout_s_axis(layout, ndim=4):
+    if layout == "bsnd":
+        return -3
+    if layout == "sbnd":
+        return -ndim  # seq leads: [s, b, nh, d]
+    return -2
+
+
+def _shape_reason(q, k, layout):
+    """The shape checks that :func:`flash_attention` makes as the
+    reference's does (layout rank, cross-attention lengths, GQA), as a
+    reason, or None."""
+    s_axis = _layout_s_axis(layout, q.ndim)
+    if layout in ("bsnd", "sbnd") and q.ndim != 4:
+        return f"layout {layout!r} needs 4-D q/k/v, got {q.ndim}-D"
+    if q.shape[s_axis] != k.shape[s_axis]:
+        return "q/k of other lengths (cross-attention)"
+    if q.ndim < 3:
+        return None
+    h_axis = 2 if layout in ("bsnd", "sbnd") else -3
+    nh, nkv = q.shape[h_axis], k.shape[h_axis]
+    if nh != nkv and (layout not in ("bsnd", "sbnd") or nkv == 0
+                      or nh % nkv != 0):
+        return (f"{nh} query heads over {nkv} KV heads in layout "
+                f"{layout!r} (GQA needs bsnd or sbnd and a divisor)")
+    return None
+
+
+def _head_dim_reason(d):
+    if d % 8 != 0 or not (16 <= d <= 256):
+        return f"head_dim {d} (needs a multiple of 8 in 16..256)"
+    return None
+
+
+def unsupported_reason(q, k, mask=None, dropout_p=0.0, layout="bnsd"):
+    """Why the flash kernels cannot take these inputs, or None when they
+    can: the reference's :func:`supported` gate, reason by reason."""
+    if mask is not None:
+        return "an explicit attention mask"
+    if dropout_p != 0.0:
+        return f"dropout_p={dropout_p}"
+    if q.ndim < 3:
+        return f"{q.ndim}-D q (needs at least 3 dims)"
+    reason = _shape_reason(q, k, layout) or _head_dim_reason(q.shape[-1])
+    if reason is not None:
+        return reason
+    s_len = q.shape[_layout_s_axis(layout, q.ndim)]
+    if _pick_block(s_len) is None:
+        return f"sequence length {s_len} (needs a multiple of 8)"
+    return None
+
+
+def supported(q, k, mask=None, dropout_p=0.0, layout="bnsd") -> bool:
+    """Shape/feature gate of :func:`flash_attention` (the reference's)."""
+    return unsupported_reason(q, k, mask, dropout_p, layout) is None
+
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+
+
+def _canon(x, layout):
+    """``x`` as a [B, S, H, D] view: bsnd as it is, sbnd permuted, bnsd
+    [..., S, D] flattened to (B*H, S, 1, D)."""
+    if layout == "bsnd":
+        return x
+    if layout == "sbnd":
+        return x.permute(1, 0, 2, 3)
+    return x.reshape(-1, x.shape[-2], x.shape[-1]).unsqueeze(2)
+
+
+def _heads(x, layout):
+    """``x`` as a [B, H, S, D] view."""
+    return _canon(x, layout).transpose(1, 2)
+
+
+def _from_heads(xh, layout, shape):
+    """A [B, H, S, D] result back to ``layout``, as a fresh tensor of
+    ``shape``."""
+    if layout == "bsnd":
+        return xh.transpose(1, 2).contiguous()
+    if layout == "sbnd":
+        return xh.permute(2, 0, 1, 3).contiguous()
+    return xh.reshape(shape).contiguous()
+
+
+def _visible(s_len, causal, window, device):
+    """(S, S) bool: key j visible to query i."""
+    i = torch.arange(s_len, device=device)[:, None]
+    j = torch.arange(s_len, device=device)[None, :]
+    keep = torch.ones(s_len, s_len, dtype=torch.bool, device=device)
+    if causal:
+        keep = j <= i
+        if window is not None:
+            keep = keep & (j > i - window)
+    return keep
+
+
+def _grouped(q, k, v, layout):
+    """q as (B, Hkv, G, S, D) and k, v as (B, Hkv, S, D): query heads
+    grouped over their KV head by a reshape, never by repeating K/V."""
+    qh, kh, vh = (_heads(t, layout) for t in (q, k, v))
+    b, h, s, d = qh.shape
+    hkv = kh.shape[1]
+    return qh.reshape(b, hkv, h // hkv, s, d), kh, vh
+
+
+def _scores(qg, kh, scale, causal, window):
+    """fp32 scores of the kernels: products of the inputs' values summed
+    in fp32, times ``scale``, -1e30 where masked."""
+    s = torch.einsum("bngqd,bnkd->bngqk", qg.float(), kh.float()) * scale
+    if causal:
+        keep = _visible(s.shape[-1], causal, window, s.device)
+        s = torch.where(keep, s, _NEG_INF)
+    return s
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def flash_fwd_plain(q, k, v, causal=False, scale=None, window=None,
+                    layout="bnsd"):
+    """The forward kernel's plain version: the reference's ``_fwd_kernel``
+    recurrence written densely.  Returns ``out`` (q's shape and dtype) and
+    ``lse`` (B*H, S) fp32, row ``b * H + h`` (for bnsd, the flattened
+    leading index).  P is cast to V's dtype before P.V and
+    ``l = max(l, 1e-30)``, as in the kernel."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qg, kh, vh = _grouped(q, k, v, layout)
+    s = _scores(qg, kh, scale, causal, window)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1).clamp_min(1e-30)
+    acc = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), vh.float())
+    b, hkv, g, s_len, d = qg.shape
+    out = (acc / l[..., None]).to(q.dtype).reshape(b, hkv * g, s_len, d)
+    lse = (m + torch.log(l)).reshape(b * hkv * g, s_len)
+    return _from_heads(out, layout, q.shape), lse
+
+
+def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
+                    window=None, layout="bnsd"):
+    """The backward kernels' plain version: dQ, dK, dV recomputed from the
+    forward's ``lse`` and ``delta = rowsum(dO * O)`` (fp32) as the
+    reference's ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` compute them:
+    ``p = exp(s - lse)``, ``dp = dO.V^T`` and ``ds = p * (dp - delta) *
+    scale`` in fp32; ``dQ = ds.K`` with ds cast to K's dtype, ``dV =
+    P^T.dO`` with P in fp32, ``dK = ds^T.Q`` with ds cast to Q's dtype.
+    GQA: each KV head's gradient sums its query-head group in fp32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qg, kh, vh = _grouped(q, k, v, layout)
+    b, hkv, g, s_len, d = qg.shape
+    dog = _heads(do, layout).reshape(qg.shape).float()
+    og = _heads(out, layout).reshape(qg.shape).float()
+    delta = (dog * og).sum(-1)
+    lse = lse.reshape(b, hkv, g, s_len)
+    p = torch.exp(_scores(qg, kh, scale, causal, window) - lse[..., None])
+    dp = torch.einsum("bngqd,bnkd->bngqk", dog, vh.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bngqk,bnkd->bngqd", ds.to(k.dtype).float(), kh.float())
+    dv = torch.einsum("bngqk,bngqd->bnkd", p, dog)
+    dk = torch.einsum("bngqk,bngqd->bnkd", ds.to(q.dtype).float(), qg.float())
+    dq = dq.to(q.dtype).reshape(b, hkv * g, s_len, d)
+    return (_from_heads(dq, layout, q.shape),
+            _from_heads(dk.to(k.dtype), layout, k.shape),
+            _from_heads(dv.to(v.dtype), layout, v.shape))
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+
+def _operand(x, layout):
+    """``x`` as the [B, S, H, D] view the kernels read, copied to a
+    contiguous one only when its strides or address are not whole 16-byte
+    vectors (d must be contiguous)."""
+    c = _canon(x, layout)
+    vec = 16 // c.element_size()
+    ok = ((c.stride(3) == 1 or c.shape[3] == 1) and c.data_ptr() % 16 == 0
+          and all(st % vec == 0 for st in c.stride()[:3]))
+    return c if ok else c.contiguous()
+
+
+def _check(q, k, v):
+    """What the kernels ask beyond :func:`flash_attention`'s shape checks,
+    which their callers have made: one float dtype, one device, and a head
+    dim that their tiles take."""
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash kernels take fp32 or bf16 q/k/v of one "
+                         f"dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash kernels: q, k and v must share a device")
+    reason = _head_dim_reason(q.shape[-1])
+    if reason is not None:
+        raise ValueError(f"flash kernels cannot take {reason}")
+
+
+def _launch(name, tensors, strided, dims, scale, causal, window, dtype):
+    """Launch ``name`` over raw ``tensors`` (pointers in argument order),
+    with the strides of the ``strided`` [B, S, H, D] views."""
+    strides = [st for t in strided for st in t.stride()[:3]]
+    arr = (ctypes.c_longlong * len(strides))(*strides)
+    dev = tensors[0].device
+    code = _build.kernel(name)(
+        *[t.data_ptr() for t in tensors], ctypes.addressof(arr), *dims,
+        float(scale), int(causal), int(window or 0), _DTYPES[dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(name, code)
+    _build.LAUNCHES[name] += 1
+
+
+def _dims(qc, kc):
+    b, s, h, d = qc.shape
+    return b, h, kc.shape[2], s, d
+
+
+def flash_fwd_cuda(q, k, v, causal, scale, window, layout):
+    """The forward kernel: ``out`` (q's shape and dtype), ``lse`` (B*H, S)
+    fp32.  CUDA tensors only."""
+    _check(q, k, v)
+    qc, kc, vc = (_operand(t, layout) for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    oc = _canon(out, layout)
+    b, h, hkv, s, d = _dims(qc, kc)
+    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", (qc, kc, vc, oc, lse), (qc, kc, vc, oc),
+            (b, h, hkv, s, d), scale, causal, window, q.dtype)
+    return out, lse
+
+
+def flash_delta(out, do, layout="bnsd"):
+    """``delta = rowsum(dO * O)`` in fp32 as (B*H, S), row ``b * H + h``:
+    the backward's per-row input, summed by PyTorch as the reference sums
+    it outside Pallas."""
+    delta = (_canon(do, layout).float() * _canon(out, layout).float()).sum(-1)
+    b, s, h = delta.shape
+    return delta.transpose(1, 2).reshape(b * h, s).contiguous()
+
+
+def _bwd_operands(q, k, v, lse, do, layout):
+    """The backward kernels' read operands as [B, S, H, D] views, the
+    contiguous lse, and the dims (B, H, Hkv, S, D)."""
+    _check(q, k, v)
+    qc, kc, vc, dc = (_operand(t, layout) for t in (q, k, v, do.to(q.dtype)))
+    return (qc, kc, vc, dc), lse.contiguous(), _dims(qc, kc)
+
+
+def flash_bwd_dq_cuda(q, k, v, lse, delta, do, causal, scale, window,
+                      layout):
+    """The dQ kernel: ``dq`` in q's shape and dtype.  CUDA tensors only."""
+    (qc, kc, vc, dc), lse, dims = _bwd_operands(q, k, v, lse, do, layout)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dqc = _canon(dq, layout)
+    _launch("flash_bwd_dq", (qc, kc, vc, dc, lse, delta, dqc),
+            (qc, kc, vc, dc, dqc), dims, scale, causal, window, q.dtype)
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, lse, delta, do, causal, scale, window,
+                       layout):
+    """The dK/dV kernel: ``dk, dv`` in k's and v's shapes and dtypes.
+    CUDA tensors only."""
+    (qc, kc, vc, dc), lse, dims = _bwd_operands(q, k, v, lse, do, layout)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dkc, dvc = _canon(dk, layout), _canon(dv, layout)
+    _launch("flash_bwd_dkv", (qc, kc, vc, dc, lse, delta, dkc, dvc),
+            (qc, kc, vc, dc, dkc, dvc), dims, scale, causal, window, q.dtype)
+    return dk, dv
+
+
+def _device_of(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    return q.device.type
+
+
+def flash_fwd(q, k, v, causal=False, scale=None, window=None, layout="bnsd"):
+    """``(out, lse)``: the plain version for CPU tensors, the kernel for
+    CUDA tensors."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if _device_of(q) == "cpu":
+        return flash_fwd_plain(q, k, v, causal, scale, window, layout)
+    return flash_fwd_cuda(q, k, v, causal, scale, window, layout)
+
+
+def flash_bwd(q, k, v, out, lse, do, causal=False, scale=None, window=None,
+              layout="bnsd"):
+    """``(dq, dk, dv)``: the plain version for CPU tensors, the kernels
+    for CUDA tensors."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if _device_of(q) == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, do, causal, scale, window,
+                               layout)
+    args = (q, k, v, lse, flash_delta(out, do, layout), do, causal, scale,
+            window, layout)
+    return (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+
+
+class _Flash(torch.autograd.Function):
+    """Forward kernel; backward from the saved ``(q, k, v, out, lse)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, layout):
+        out, lse = flash_fwd(q, k, v, causal, scale, window, layout)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, scale, window, layout)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, *ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
+                    block_k=None, layout="bnsd", window=None):
+    """Flash attention over ``layout`` (see the module docstring), with the
+    reference's arguments and ValueErrors.  ``window`` (causal only) masks
+    keys more than ``window - 1`` positions behind each query.
+    ``block_q``/``block_k`` are checked as the reference checks them (a
+    length with no block raises); the CUDA kernels pick their own tiles."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if window is not None and not causal:
+        raise ValueError("flash_attention: window requires causal=True")
+    win = None if window is None else int(window)
+    s_axis = _layout_s_axis(layout, q.ndim)
+    s_len = q.shape[s_axis]
+    if (block_q or _pick_block(s_len)) is None or \
+            (block_k or _pick_block(s_len)) is None:
+        raise ValueError(
+            f"flash_attention: unsupported seq len {s_len} (needs a power-of-"
+            f"two-ish divisor >= 8)")
+    reason = _shape_reason(q, k, layout)
+    if reason is not None:
+        raise ValueError(f"flash_attention: {reason}")
+    return _Flash.apply(q, k, v, bool(causal), float(scale), win, layout)

@@ -34,12 +34,13 @@ _PROJECTIONS = ("qkv", "proj", "fc1", "fc2")
 
 def _block_params(blk, int8=False):
     """One block's parameter dict, keyed as in the reference.  Float: the
-    block's own parameters, not copies.  With ``int8`` each projection
+    block's own parameters, detached (the same storage, not copies, and no
+    autograd graph).  With ``int8`` each projection
     weight is quantized once, here, per output channel: ``<name>_wq`` is
     (N, K) int8 — the reference's (K, N) ``_wq`` transposed, K contiguous,
     as the W8A8 kernel reads it — and ``<name>_ws`` (N,) fp32; the float
     ``<name>_w`` is left out, so decoding never reads it."""
-    p = dict(blk.named_parameters())
+    p = {k: v.detach() for k, v in blk.named_parameters()}
     if int8:
         for name in _PROJECTIONS:
             wq, ws = quantize_per_channel(p.pop(name + "_w"), axis=1)
@@ -187,17 +188,17 @@ def _layer(cache, li):
 def _decoder_setup(model, int8=None, attn_window=None):
     """Shared decode substrate: returns ``(params, make_run)`` — the flat
     parameter dict (the same keys as the reference's tree; float tensors
-    are the model's own parameters, not copies; with ``int8``, default
-    ``cfg.int8``, the projections carry quantized weights instead, see
-    :func:`_block_params`) and ``make_run(p)`` producing the cached forward
+    are the model's own parameters, detached, not copies; with ``int8``,
+    default ``cfg.int8``, the projections carry quantized weights instead,
+    see :func:`_block_params`) and ``make_run(p)`` producing the cached forward
     ``run(tokens, pos, kc, vc) -> (logits, kc, vc)``."""
     cfg = model.cfg
     eps = cfg.layer_norm_eps
     window = attn_window if attn_window is not None else cfg.attn_window
     int8 = _resolve_int8(cfg, int8)
     params = {
-        "wte": model.wte, "wpe": model.wpe,
-        "lnf_g": model.lnf_g, "lnf_b": model.lnf_b,
+        "wte": model.wte.detach(), "wpe": model.wpe.detach(),
+        "lnf_g": model.lnf_g.detach(), "lnf_b": model.lnf_b.detach(),
         "blocks": [_block_params(blk, int8=int8) for blk in model.blocks],
     }
 

@@ -10,8 +10,10 @@ the port quantizes bit-identically to the reference:
 * int4 values pack two per byte in the SPLIT-HALVES layout:
   ``byte[i] = (q[i] & 0xF) | (q[i + D/2] << 4)``.
 
-The fake-quant training ops and the straight-through W8A8 gradient belong
-to the training slice and are not here.
+:func:`w8a8_matmul` is the differentiable W8A8 product of the training
+path (the reference's ``_w8a8_ste``): int8 forward through the
+``w8a8_gemm`` kernel, straight-through gradients.  The registered
+fake-quant training ops are not ported.
 """
 
 from __future__ import annotations
@@ -112,3 +114,44 @@ def w8a8_apply(x, wq, ws, out_dtype=None):
     if out_dtype is not None:
         out = out.to(out_dtype)
     return out.reshape(*lead, wq.shape[0])
+
+
+class _W8A8STE(torch.autograd.Function):
+    """The reference's ``_w8a8_ste`` custom VJP: an int8 forward, a
+    straight-through backward computed as for the float ``x @ w``."""
+
+    @staticmethod
+    def forward(ctx, x, w, transpose_y):
+        # the live weight, quantized per output channel on every call; the
+        # kernel reads it (N, K), K contiguous, which the transposed
+        # weight already is under transpose_y
+        wt = w.float() if transpose_y else w.float().t()
+        wq, ws = quantize_per_channel(wt, axis=0)
+        ctx.save_for_backward(x, w)
+        ctx.transpose_y = transpose_y
+        return w8a8_apply(x, wq.contiguous(), ws, out_dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # fp32 products, as _w8a8_bwd: they stay torch.matmul, since the
+        # reference computes them outside any kernel of its own
+        x, w = ctx.saved_tensors
+        gf, wf = g.float(), w.float()
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        g2 = gf.reshape(-1, gf.shape[-1])
+        if ctx.transpose_y:
+            dx, dw = gf @ wf, g2.t() @ x2              # [.., K], [N, K]
+        else:
+            dx, dw = gf @ wf.t(), x2.t() @ g2          # [.., K], [K, N]
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
+def w8a8_matmul(x, w, transpose_y: bool = False):
+    """``x @ w`` (``x @ w.T`` with ``transpose_y``) from FLOAT weights, the
+    W8A8 way: per-output-channel int8 quantization of the live weight and
+    dynamic per-token quantization of ``x`` on every call, the int8 product
+    through :func:`~paddle_tpu_torch.kernels.w8a8_gemm` (the CUDA kernel for
+    CUDA tensors, its plain version for CPU tensors), output in x's dtype.
+    Differentiable with straight-through gradients: ``dx = g @ w^T`` and
+    ``dw = x^T @ g`` in fp32, cast to x's and w's dtypes."""
+    return _W8A8STE.apply(x, w, bool(transpose_y))

@@ -32,16 +32,20 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..device import DeviceLike, resolve_device, resolve_dtype
 from .prefix_cache import PrefixIndex
 
 
 class KVPool:
-    """Fixed-size page pool + refcounted free-list allocator."""
+    """Fixed-size page pool + refcounted free-list allocator.  The pool
+    lives on ``device`` (the CUDA card unless the caller passes one; see
+    :mod:`paddle_tpu_torch.device`) in ``dtype`` (default: the device's,
+    fp32 on the CPU and bf16 on the card)."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_pages: int, page_size: int, *,
-                 dtype: torch.dtype = torch.float32,
-                 device="cpu", prefix_cache: bool = False,
+                 dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, prefix_cache: bool = False,
                  num_kv_heads: Optional[int] = None,
                  kv_bits: Optional[int] = None):
         if num_pages < 2:
@@ -63,6 +67,8 @@ class KVPool:
         self.num_pages = num_pages
         self.page_size = page_size
         self.kv_bits = kv_bits
+        device = resolve_device(device)
+        dtype = resolve_dtype(dtype, device)
         store_d = head_dim // 2 if kv_bits == 4 else head_dim
         shape = (num_layers, num_pages, kv_heads, page_size, store_d)
         if kv_bits is None:

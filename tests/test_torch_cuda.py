@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the train
+step on the card against the CPU, on the card.
 
 Skips where PyTorch sees no CUDA device.  This file imports neither JAX nor
 the reference package, so it also runs on a machine that has only the
@@ -10,11 +11,13 @@ port's dependencies::
 import pytest
 import torch
 
-from paddle_tpu_torch.kernels import (paged_attention, paged_attention_mq,
+from paddle_tpu_torch.kernels import (flash_bwd_plain, flash_fwd_plain,
+                                      paged_attention, paged_attention_mq,
                                       paged_attention_mq_plain,
                                       paged_attention_plain, paged_prefill,
-                                      paged_prefill_plain, w8a8_gemm,
+                                      paged_prefill_plain, sdpa, w8a8_gemm,
                                       w8a8_gemm_plain)
+from paddle_tpu_torch.kernels.flash import flash_bwd, flash_fwd
 from paddle_tpu_torch.ops import quantize_int4_per_token, quantize_per_token
 
 
@@ -132,3 +135,167 @@ def test_w8a8_gemm_is_exact_on_card(dev, k, n):
         assert torch.equal(w8a8_gemm(xb, wq, ws), w8a8_gemm_plain(xb, wq, ws))
     with pytest.raises(ValueError):
         w8a8_gemm(x[:, :-1].contiguous(), wq, ws)      # K != wq's K
+
+
+# layout, B, H, Hkv, S, D, causal, window: every layout, GQA, a window,
+# lengths that are not a multiple of any tile (136, 200, 520, 40) and a
+# head_dim that is not a multiple of 16 (24)
+FLASH_CASES = [
+    ("bnsd", 2, 3, 3, 136, 64, True, None),
+    ("bnsd", 2, 2, 2, 64, 128, False, None),
+    ("bsnd", 2, 4, 2, 200, 128, True, 48),
+    ("sbnd", 2, 4, 1, 72, 32, True, None),
+    ("bsnd", 1, 2, 2, 520, 128, True, None),
+    ("sbnd", 1, 4, 2, 40, 24, False, None),
+]
+
+
+def _flash_inputs(dev, g, layout, b, h, hkv, s, d, dtype):
+    def shape(n):
+        return {"bnsd": (b, n, s, d), "bsnd": (b, s, n, d),
+                "sbnd": (s, b, n, d)}[layout]
+    q, k, v = (torch.randn(shape(n), device=dev, generator=g).to(dtype)
+               for n in (h, hkv, hkv))
+    return q, k, v
+
+
+# elementwise |kernel - plain| <= atol * rms + rtol * |plain| (rms of the
+# plain row, the last axis, at least 1e-2 of the tensor's), as (rtol, atol)
+# per tensor: fp32 differs in summation order only; bf16 out, dq, dk and
+# dv are rounded once to bf16 and the kernels round P and dS to bf16 for
+# the tensor cores where the plain versions keep fp32, an error on the
+# scale of the row's terms; lse is fp32 (the smoke's FLASH_TOL)
+FLASH_TOL = {
+    torch.float32: {"out": (1e-5, 1e-5), "lse": (1e-6, 1e-6),
+                    "dq": (1e-5, 1e-5), "dk": (1e-5, 1e-5),
+                    "dv": (1e-5, 1e-5)},
+    torch.bfloat16: {"out": (2e-2, 3e-2), "lse": (1e-6, 1e-6),
+                     "dq": (2e-2, 3e-2), "dk": (2e-2, 3e-2),
+                     "dv": (2e-2, 3e-2)},
+}
+
+
+def _close(got, want, tol, what):
+    rtol, atol = tol
+    g, w = got.float(), want.float()
+    row = w.square().mean(-1, keepdim=True).sqrt()
+    row = row.clamp_min(1e-2 * w.square().mean().sqrt())
+    bound = atol * row + rtol * w.abs()
+    used = ((g - w).abs() / bound).max().item()
+    assert used <= 1.0, f"{what}: {used:.3f} of the bound {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"{c[0]}-h{c[2]}/{c[3]}-s{c[4]}-d{c[5]}"
+                              for c in FLASH_CASES])
+def test_flash_kernels_match_plain_on_card(dev, case):
+    """The forward, dQ and dK/dV kernels against their plain versions on
+    the same inputs, each tensor elementwise within FLASH_TOL.  The
+    backward kernels get the plain forward's out and lse, so each kernel
+    is held on its own."""
+    layout, b, h, hkv, s, d, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    for dtype, tol in FLASH_TOL.items():
+        q, k, v = _flash_inputs(dev, g, layout, b, h, hkv, s, d, dtype)
+        out, lse = flash_fwd(q, k, v, causal, None, window, layout)
+        ref, rlse = flash_fwd_plain(q, k, v, causal, None, window, layout)
+        torch.cuda.synchronize()
+        _close(out, ref, tol["out"], f"{dtype} out")
+        _close(lse, rlse, tol["lse"], f"{dtype} lse")
+        do = torch.randn(ref.shape, device=dev, generator=g).to(dtype)
+        got = flash_bwd(q, k, v, ref, rlse, do, causal, None, window, layout)
+        want = flash_bwd_plain(q, k, v, ref, rlse, do, causal, None, window,
+                               layout)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            assert x.shape == y.shape and x.dtype == dtype
+            _close(x, y, tol[name], f"{dtype} {name}")
+
+
+@pytest.mark.cuda
+def test_sdpa_on_card_launches_flash_or_raises(dev):
+    """sdpa on CUDA tensors takes the flash kernels at any supported
+    length, and raises where the kernels cannot go (no plain fallback)."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = _flash_inputs(dev, g, "bsnd", 2, 4, 2, 64, 64, torch.bfloat16)
+    reset_launch_counts()
+    sdpa(q, k, v, is_causal=True, layout="bsnd")
+    assert KERNELS["flash_fwd"] == 1
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        sdpa(q[..., :12], k[..., :12], v[..., :12], layout="bsnd")
+    with pytest.raises(NotImplementedError, match="mask"):
+        sdpa(q, k, v, mask=torch.ones(64, 64, dtype=torch.bool, device=dev),
+             layout="bsnd")
+
+
+def _update_ratios(cfg, names, got, want, init):
+    """Per leaf, ||(got - init) - (want - init)|| / ||want - init||.  The
+    key part of the QKV bias is left out: it adds q.b_k to a whole row of
+    scores, which the softmax cancels, so its gradient is zero but for
+    rounding, and AdamW steps each side by ~lr on its own noise there."""
+    ratios = {}
+    for name, a, b, a0 in zip(names, got, want, init):
+        if name.endswith("qkv_b"):
+            keep = torch.ones(a.numel(), dtype=torch.bool)
+            keep[cfg.hidden_size:
+                 cfg.hidden_size + cfg.num_kv_heads * cfg.head_dim] = False
+            a, b, a0 = a[keep], b[keep], a0[keep]
+        ratios[name] = ((a - b).norm() / (b - a0).norm()).item()
+    return ratios
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over,remat,update_rtol", [
+    ({}, False, 1e-3),
+    ({"seq_major": True, "num_kv_heads": 2, "attn_window": 24}, True, 1e-3),
+    ({"int8": True}, "dots", 5e-2),
+], ids=["flagship-like", "seq_major-gqa-window-remat", "int8-dots"])
+def test_train_step_on_card_matches_cpu(dev, over, remat, update_rtol):
+    """The fp32 train step on the card (flash kernels, w8a8_gemm) against
+    the same step on the CPU (plain attention and GEMM), 2 steps from the
+    same weights: losses to 1e-4 relative, and each leaf's update to
+    ``update_rtol`` as ||card update - CPU update|| / ||CPU update||.
+    Under W8A8 a summation-order difference now and then rounds an
+    activation to the other int8 value, which moves every gradient
+    downstream of it, and AdamW's first, sign-like steps flip where a
+    gradient is that small; the readings per leaf are printed."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.gpt import build_functional_train_step
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4, max_seq_len=64, **over)
+    cpu = GPTForPretraining(cfg, device="cpu", dtype=torch.float32, seed=2)
+    card = GPTForPretraining(cfg, device=dev, dtype=torch.float32, seed=2)
+    card.load_state_dict(cpu.state_dict())
+    names = {p.data_ptr(): n for n, p in cpu.named_parameters()}
+    names = [names[p.data_ptr()] for p in cpu.leaves()]
+    init = [p.detach().clone() for p in cpu.leaves()]
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 512, (2, 64))
+    labels = rng.randint(0, 512, (2, 64))
+    out = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        step, params, opt = build_functional_train_step(
+            model, remat=remat, ce_chunk_rows=32)
+        reset_launch_counts()
+        losses = []
+        for _ in range(2):
+            params, opt, loss = step(params, opt, ids, labels)
+            losses.append(float(loss))
+        out[name] = (losses, [p.cpu() for p in params], dict(KERNELS))
+    (lc, pc, kc), (lh, ph, kh) = out["card"], out["cpu"]
+    assert kc["flash_bwd_dq"] == kc["flash_bwd_dkv"] == 4
+    assert kc["flash_fwd"] == (8 if remat else 4)
+    assert kc["w8a8_gemm"] == (2 * 2 * 4 * 2 if over.get("int8") else 0)
+    assert not any(kh.values())                 # the CPU launches nothing
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
+    ratios = _update_ratios(cfg, names, pc, ph, init)
+    print("update ratios, card vs cpu:",
+          {n: float(f"{r:.3e}") for n, r in ratios.items()})
+    assert max(ratios.values()) <= update_rtol, ratios

@@ -1,0 +1,339 @@
+"""The port's flash attention (plain versions, autograd, gate) and sdpa
+against the reference, on the CPU.
+
+* ``flash_fwd_plain`` against the reference's jnp attention
+  (``_sdpa_reference``) and ``jax.nn.logsumexp`` of its masked, scaled
+  scores; ``flash_bwd_plain`` and autograd through ``flash_attention``
+  against ``jax.vjp`` of ``_sdpa_reference``; every layout, causal or
+  not, a window, GQA in the seq-major layouts, a custom scale.  fp32,
+  1e-5: the two sides differ only in summation order.
+* ``supported``, ``_pick_block`` and ``flash_attention``'s ValueErrors
+  decide as the reference's over a grid of shapes.
+* The plain versions against the reference's interpreted Pallas bodies
+  (``_fwd_call``, ``_bwd_call``, ``_fwd_call_smajor``,
+  ``_bwd_call_smajor`` with ``interpret=True``), in test functions of
+  their own.
+* ``sdpa`` on CPU tensors against the reference's ``sdpa``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.kernels import attention as jatt
+from paddle_tpu.kernels import flash as jflash
+from paddle_tpu_torch.kernels import attention as tatt
+from paddle_tpu_torch.kernels import flash as tflash
+from torch_parity import interpretable  # noqa: F401
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+# layout, B, H, Hkv, S, D, causal, window, scale
+CASES = [
+    ("bnsd", 2, 2, 2, 24, 16, True, None, None),
+    ("bnsd", 2, 3, 3, 16, 32, False, None, None),
+    ("bnsd", 1, 2, 2, 40, 16, True, 7, 0.3),
+    ("bsnd", 2, 4, 2, 24, 16, True, None, None),
+    ("bsnd", 2, 4, 1, 32, 16, False, None, 0.5),
+    ("bsnd", 1, 2, 2, 40, 24, True, 9, None),
+    ("sbnd", 2, 4, 4, 24, 16, True, None, None),
+    ("sbnd", 2, 6, 2, 16, 16, True, 5, None),
+    ("sbnd", 1, 2, 1, 32, 32, False, None, 0.2),
+]
+IDS = [f"{c[0]}-h{c[2]}/{c[3]}-{'causal' if c[6] else 'full'}"
+       f"{'-w' + str(c[7]) if c[7] else ''}{'-scale' if c[8] else ''}"
+       for c in CASES]
+
+
+def _to_layout(a, layout):
+    """A [B, H, S, D] array in ``layout``."""
+    return {"bnsd": a, "bsnd": a.transpose(0, 2, 1, 3),
+            "sbnd": a.transpose(2, 0, 1, 3)}[layout]
+
+
+def _from_layout(a, layout):
+    return {"bnsd": a, "bsnd": a.transpose(0, 2, 1, 3),
+            "sbnd": a.transpose(1, 2, 0, 3)}[layout]
+
+
+def _inputs(case, seed=0):
+    layout, b, h, hkv, s, d = case[:6]
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, h, s, d).astype(np.float32),
+            rng.randn(b, hkv, s, d).astype(np.float32),
+            rng.randn(b, hkv, s, d).astype(np.float32))
+
+
+def _t(a, layout):
+    return torch.from_numpy(np.ascontiguousarray(_to_layout(a, layout)))
+
+
+def _ref(q, k, v, causal, window, scale):
+    return _ref_fn(causal, window, scale)(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+
+
+def _ref_fn(causal, window, scale):
+    return lambda q, k, v: jatt._sdpa_reference(
+        q, k, v, scale=scale, is_causal=causal, window=window)
+
+
+def _ref_lse(q, k, causal, window, scale):
+    """logsumexp of the reference's masked, scaled scores, (B*H, S)."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    sc = scale if scale is not None else 1.0 / np.sqrt(d)
+    qg = jnp.asarray(q).reshape(b, hkv, h // hkv, s, d)
+    logits = jnp.einsum("bngqd,bnkd->bngqk", qg, jnp.asarray(k)) * sc
+    if causal:
+        i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+        keep = j <= i
+        if window is not None:
+            keep = keep & (j > i - window)
+        logits = jnp.where(keep, logits, -jnp.inf)
+    return np.asarray(jax.nn.logsumexp(logits, axis=-1)).reshape(b * h, s)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_flash_fwd_plain_matches_reference_and_logsumexp(case):
+    layout, *_, causal, window, scale = case
+    q, k, v = _inputs(case)
+    out, lse = tflash.flash_fwd_plain(_t(q, layout), _t(k, layout),
+                                      _t(v, layout), causal, scale, window,
+                                      layout)
+    np.testing.assert_allclose(_from_layout(out.numpy(), layout),
+                               np.asarray(_ref(q, k, v, causal, window,
+                                               scale)), **TOL)
+    np.testing.assert_allclose(lse.numpy(),
+                               _ref_lse(q, k, causal, window, scale), **TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_flash_grads_match_reference_vjp(case):
+    """flash_bwd_plain from the plain forward's out and lse, and autograd
+    through flash_attention, both against jax.vjp of the reference."""
+    layout, *_, causal, window, scale = case
+    q, k, v = _inputs(case, seed=1)
+    g = np.random.RandomState(2).randn(*q.shape).astype(np.float32)
+    _, vjp = jax.vjp(_ref_fn(causal, window, scale), jnp.asarray(q),
+                     jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    tq, tk, tv = (_t(a, layout).requires_grad_() for a in (q, k, v))
+    out = tflash.flash_attention(tq, tk, tv, causal=causal, scale=scale,
+                                 layout=layout, window=window)
+    out.backward(_t(g, layout))
+    grads = [x.grad for x in (tq, tk, tv)]
+    o, lse = tflash.flash_fwd_plain(tq.detach(), tk.detach(), tv.detach(),
+                                    causal, scale, window, layout)
+    plain = tflash.flash_bwd_plain(tq.detach(), tk.detach(), tv.detach(), o,
+                                   lse, _t(g, layout), causal, scale, window,
+                                   layout)
+    for got_a, got_p, ref in zip(grads, plain, want):
+        np.testing.assert_allclose(_from_layout(got_a.numpy(), layout), ref,
+                                   **TOL)
+        np.testing.assert_allclose(_from_layout(got_p.numpy(), layout), ref,
+                                   **TOL)
+
+
+def _shapes():
+    for layout in ("bnsd", "bsnd", "sbnd"):
+        for s in (4, 8, 12, 24, 40, 100, 520):
+            for d in (8, 12, 16, 24, 80, 260):
+                for nh, nkv in ((4, 4), (4, 2), (4, 3)):
+                    shape = {"bnsd": lambda n: (2, n, s, d),
+                             "bsnd": lambda n: (2, s, n, d),
+                             "sbnd": lambda n: (s, 2, n, d)}[layout]
+                    yield layout, shape(nh), shape(nkv)
+
+
+def test_supported_and_pick_block_match_reference():
+    for s in range(1, 1100, 7):
+        assert tflash._pick_block(s) == jflash._pick_block(s)
+        assert tflash._pick_block(s, 64) == jflash._pick_block(s, 64)
+    n = 0
+    for layout, qs, ks in _shapes():
+        for mask, drop in ((None, 0.0), (np.ones(1), 0.0), (None, 0.1)):
+            want = jflash.supported(np.zeros(qs), np.zeros(ks), mask=mask,
+                                    dropout_p=drop, layout=layout)
+            got = tflash.supported(torch.empty(qs), torch.empty(ks),
+                                   mask=mask, dropout_p=drop, layout=layout)
+            assert got == want, (layout, qs, ks, mask, drop)
+            n += want
+    assert n > 0
+    # 3-D q under a seq-major layout, and 2-D q
+    for layout in ("bnsd", "bsnd", "sbnd"):
+        for shape in ((4, 16, 16), (16, 16)):
+            assert (tflash.supported(torch.empty(shape), torch.empty(shape),
+                                     layout=layout)
+                    == jflash.supported(np.zeros(shape), np.zeros(shape),
+                                        layout=layout))
+
+
+def test_flash_attention_validation_matches_reference(monkeypatch):
+    """ValueError where the reference raises one, for the same shapes and
+    options; the reference's kernels are stubbed out, so only its checks
+    run."""
+    monkeypatch.setattr(jflash, "_flash", lambda *a: a[-3])
+    monkeypatch.setattr(jflash, "_flash_smajor", lambda *a: a[-3])
+
+    def raises(fn):
+        try:
+            fn()
+        except ValueError:
+            return True
+        return False
+
+    n = 0
+    for layout, qs, ks in _shapes():
+        if 0 in qs:
+            continue
+        for causal, window, bq in ((True, None, None), (False, 8, None),
+                                   (True, 4, None), (False, None, 16)):
+            kw = dict(causal=causal, window=window, block_q=bq,
+                      layout=layout)
+            want = raises(lambda: jflash.flash_attention(
+                jnp.zeros(qs), jnp.zeros(ks), jnp.zeros(ks), **kw))
+            got = raises(lambda: tflash.flash_attention(
+                torch.zeros(qs), torch.zeros(ks), torch.zeros(ks), **kw))
+            assert got == want, (layout, qs, ks, kw)
+            n += want
+    assert n > 0
+    # cross-attention lengths
+    q, k = torch.zeros(2, 2, 16, 16), torch.zeros(2, 2, 24, 16)
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, k, k)
+
+
+# ---------------------------------------------------------------------------
+# the reference's interpreted Pallas bodies
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 10)],
+                         ids=["causal", "full", "window10"])
+def test_plain_matches_interpreted_pallas_bnsd(causal, window, interpretable):
+    """_fwd_call and _bwd_call (the bnsd sites) in interpret mode, blocks
+    of 8 over S=32, against the plain versions."""
+    rng = np.random.RandomState(3)
+    bh, s, d = 3, 32, 16
+    q, k, v, do = (rng.randn(bh, s, d).astype(np.float32) for _ in range(4))
+    scale = 0.25
+    with jflash._x64_off():
+        out, lse = jflash._fwd_call(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), scale, causal, 8, 8,
+                                    True, bh, s, d, s // 8, window)
+        dq, dk, dv = jflash._bwd_call(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), out, lse,
+                                      jnp.asarray(do), scale, causal, 8, 8,
+                                      True, window)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    tout, tlse = tflash.flash_fwd_plain(tq, tk, tv, causal, scale, window)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(out), **TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(lse)[:, 0], **TOL)
+    got = tflash.flash_bwd_plain(tq, tk, tv, tout, tlse, tdo, causal, scale,
+                                 window)
+    for a, b in zip(got, (dq, dk, dv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+@pytest.mark.parametrize("seq_first,nkv,window",
+                         [(False, 4, None), (False, 2, 6), (True, 4, None),
+                          (True, 1, 9)],
+                         ids=["bsnd", "bsnd-gqa2-w6", "sbnd", "sbnd-gqa1-w9"])
+def test_plain_matches_interpreted_pallas_smajor(seq_first, nkv, window,
+                                                 interpretable):
+    """_fwd_call_smajor and _bwd_call_smajor (the seq-major sites, the GQA
+    head map and the group sums) in interpret mode, blocks of 8 over S=24,
+    against the plain versions."""
+    rng = np.random.RandomState(4)
+    b, s, nh, d = 2, 24, 4, 16
+    lead = (s, b) if seq_first else (b, s)
+    layout = "sbnd" if seq_first else "bsnd"
+    q, do = (rng.randn(*lead, nh * d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(*lead, nkv * d).astype(np.float32) for _ in range(2))
+    scale = 0.25
+    args = dict(seq_first=seq_first, nkv=nkv, window=window)
+    out, lse = jflash._fwd_call_smajor(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), nh, scale, True, 8, 8,
+                                       True, **args)
+    dq, dk, dv = jflash._bwd_call_smajor(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse,
+        jnp.asarray(do), nh, scale, True, 8, 8, True, **args)
+    tq, tdo = (torch.from_numpy(a).reshape(*lead, nh, d) for a in (q, do))
+    tk, tv = (torch.from_numpy(a).reshape(*lead, nkv, d) for a in (k, v))
+    tout, tlse = tflash.flash_fwd_plain(tq, tk, tv, True, scale, window,
+                                        layout)
+    np.testing.assert_allclose(tout.reshape(*lead, nh * d).numpy(),
+                               np.asarray(out), **TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(lse)[:, 0], **TOL)
+    got = tflash.flash_bwd_plain(tq, tk, tv, tout, tlse, tdo, True, scale,
+                                 window, layout)
+    for a, ref in zip(got, (dq, dk, dv)):
+        np.testing.assert_allclose(a.reshape(np.asarray(ref).shape).numpy(),
+                                   np.asarray(ref), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# sdpa
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("layout,nkv,window",
+                         [("bnsd", 4, None), ("bnsd", 2, None),
+                          ("bsnd", 2, 5), ("sbnd", 1, None), ("sbnd", 4, 7)])
+def test_sdpa_on_cpu_matches_reference(layout, nkv, window):
+    """The port's sdpa on CPU tensors (the plain attention, GQA by reshape
+    even in bnsd) against the reference's sdpa on the CPU, values and
+    gradients."""
+    q, k, v = _inputs((layout, 2, 4, nkv, 20, 16), seed=5)
+    g = np.random.RandomState(6).randn(*q.shape).astype(np.float32)
+    ref = jatt.sdpa(*(jnp.asarray(_to_layout(a, layout)) for a in (q, k, v)),
+                    is_causal=True, layout=layout, window=window)
+    _, vjp = jax.vjp(lambda *a: jatt.sdpa(*a, is_causal=True, layout=layout,
+                                          window=window),
+                     *(jnp.asarray(_to_layout(a, layout)) for a in (q, k, v)))
+    tq, tk, tv = (_t(a, layout).requires_grad_() for a in (q, k, v))
+    out = tatt.sdpa(tq, tk, tv, is_causal=True, layout=layout, window=window)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    out.backward(_t(g, layout))
+    for x, want in zip((tq, tk, tv), vjp(jnp.asarray(_to_layout(g, layout)))):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mask_kind", ["bool", "float"])
+def test_sdpa_plain_masks_and_bf16_match_reference(mask_kind):
+    """Explicit masks (boolean: -1e9 where False; float: added), and bf16
+    inputs: scores scaled in bf16, softmax in fp32, probabilities cast
+    back to bf16 (one bf16 rounding apart, 1e-2)."""
+    q, k, v = _inputs(("bnsd", 2, 2, 2, 12, 16), seed=7)
+    rng = np.random.RandomState(8)
+    mask = (rng.rand(12, 12) > 0.3) if mask_kind == "bool" else \
+        rng.randn(12, 12).astype(np.float32)
+    ref = jatt._sdpa_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               mask=jnp.asarray(mask))
+    got = tatt.sdpa_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                          mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    bq, bk, bv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref = jatt._sdpa_reference(bq, bk, bv, is_causal=True)
+    got = tatt.sdpa_plain(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                          is_causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_sdpa_refuses_what_is_not_ported():
+    q = torch.zeros(1, 2, 16, 16)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tatt.sdpa(q, q, q, dropout_p=0.1)
+    assert tflash.unsupported_reason(q, q, dropout_p=0.1) is not None
+    assert "head_dim" in tflash.unsupported_reason(torch.zeros(1, 2, 16, 12),
+                                                   torch.zeros(1, 2, 16, 12))
+    assert "mask" in tflash.unsupported_reason(q, q, mask=q)

@@ -103,19 +103,20 @@ def test_kv_bits_resolution_and_validation():
 
 
 def test_kv_pool_int4_gqa_layout_and_bytes():
-    pool = KVPool(2, 4, 16, 8, 8, num_kv_heads=2, kv_bits=4)
+    pool = KVPool(2, 4, 16, 8, 8, num_kv_heads=2, kv_bits=4, device="cpu")
     assert tuple(pool.buffers["k"].shape) == (2, 8, 2, 8, 8)   # D // 2
     assert pool.buffers["k"].dtype == torch.int8
     assert tuple(pool.buffers["ks"].shape) == (2, 8, 2, 8, 1)
     assert pool.buffers["vs"].dtype == torch.float32
     # per layer, per side: 2 kv heads x (8 packed bytes + 4 scale bytes)
     assert pool.bytes_per_token() == 2 * 2 * (2 * 8 + 2 * 4) == 96
-    assert KVPool(2, 4, 16, 8, 8).bytes_per_token() == 2 * 2 * 4 * 16 * 4
-    int8 = KVPool(2, 4, 16, 8, 8, kv_bits=8)
+    assert (KVPool(2, 4, 16, 8, 8, device="cpu").bytes_per_token()
+            == 2 * 2 * 4 * 16 * 4)
+    int8 = KVPool(2, 4, 16, 8, 8, kv_bits=8, device="cpu")
     assert int8.buffers["v"].shape[-1] == 16
     assert int8.bytes_per_token() == 2 * 4 * (2 * 16 + 2 * 4)
     # GPT-1.3B (24 layers, 16 heads, D = 128): bf16, int8, int4 pages
-    full = dict(num_pages=2, page_size=32)
+    full = dict(num_pages=2, page_size=32, device="cpu")
     assert KVPool(24, 16, 128, dtype=torch.bfloat16,
                   **full).bytes_per_token() == 196608
     assert KVPool(24, 16, 128, kv_bits=8, **full).bytes_per_token() == 101376
@@ -124,11 +125,11 @@ def test_kv_pool_int4_gqa_layout_and_bytes():
 
 def test_kv_pool_ctor_validation():
     with pytest.raises(ValueError):
-        KVPool(1, 4, 16, 8, 8, kv_bits=3)
+        KVPool(1, 4, 16, 8, 8, kv_bits=3, device="cpu")
     with pytest.raises(ValueError):
-        KVPool(1, 4, 15, 8, 8, kv_bits=4)          # odd head_dim
+        KVPool(1, 4, 15, 8, 8, kv_bits=4, device="cpu")      # odd head_dim
     with pytest.raises(ValueError):
-        KVPool(1, 4, 16, 8, 8, num_kv_heads=3)     # 4 % 3 != 0
+        KVPool(1, 4, 16, 8, 8, num_kv_heads=3, device="cpu")  # 4 % 3 != 0
 
 
 # ---------------------------------------------------------------------------

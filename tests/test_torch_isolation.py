@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving import KVPool, ServingEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -32,7 +32,9 @@ def test_port_imports_no_jax_and_no_reference_at_runtime():
         "import json, sys\n"
         "before = set(sys.modules)\n"
         "import paddle_tpu_torch, paddle_tpu_torch.models, "
-        "paddle_tpu_torch.serving, paddle_tpu_torch.kernels, "
+        "paddle_tpu_torch.models.gpt, paddle_tpu_torch.serving, "
+        "paddle_tpu_torch.kernels, paddle_tpu_torch.kernels.flash, "
+        "paddle_tpu_torch.kernels.attention, paddle_tpu_torch.ops, "
         "paddle_tpu_torch.weights, chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -70,3 +72,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert ServingEngine(model, device="cpu").device.type == "cpu"
     with pytest.raises(ValueError):     # the model lives elsewhere
         ServingEngine(model, device="meta")
+
+
+def test_kv_pool_follows_the_device_policy(monkeypatch):
+    """A bare KVPool is an entry point too: the card unless the caller
+    passes a device, and the device's dtype (fp32 on the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KVPool(1, 2, 16, num_pages=4, page_size=4)
+    pool = KVPool(1, 2, 16, num_pages=4, page_size=4, device="cpu")
+    assert pool.buffers["k"].device.type == "cpu"
+    assert pool.buffers["k"].dtype == torch.float32

@@ -15,7 +15,6 @@ import pytest
 import torch
 
 import jax
-import jax.experimental
 import jax.numpy as jnp
 
 from paddle_tpu.kernels import paged_attention as jpa
@@ -23,21 +22,9 @@ from paddle_tpu.kernels import paged_prefill as jpp
 from paddle_tpu_torch.kernels import (KERNELS, paged_attention,
                                       paged_attention_plain, paged_prefill,
                                       paged_prefill_plain)
+from torch_parity import interpretable  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture
-def interpretable(monkeypatch):
-    """Lets the reference's Pallas kernels run in interpret mode on a jax
-    whose ``jax.experimental`` lacks ``disable_x64`` (the reference's
-    ``flash._x64_off`` imports it): the same context manager under its
-    newer spelling, ``jax.enable_x64(False)``.  Nothing changes on a jax
-    that has it."""
-    if not hasattr(jax.experimental, "disable_x64"):
-        monkeypatch.setattr(jax.experimental, "disable_x64",
-                            lambda: jax.enable_x64(False), raising=False)
-
 
 def _pages(rng, P, HKV, PS, D):
     return (rng.randn(P, HKV, PS, D).astype("float32"),

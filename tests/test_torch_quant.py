@@ -19,7 +19,6 @@ import pytest
 import torch
 
 import jax
-import jax.experimental
 import jax.numpy as jnp
 
 from paddle_tpu.kernels import int8_gemm as jgemm
@@ -31,19 +30,9 @@ from paddle_tpu_torch.kernels import (KERNELS, paged_attention,
                                       paged_prefill_plain, w8a8_gemm,
                                       w8a8_gemm_plain)
 from paddle_tpu_torch.ops import quant_ops as tq
+from torch_parity import interpretable  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture
-def interpretable(monkeypatch):
-    """Lets the reference's Pallas kernels run in interpret mode on a jax
-    whose ``jax.experimental`` lacks ``disable_x64``: the same context
-    manager under its newer spelling, ``jax.enable_x64(False)``."""
-    if not hasattr(jax.experimental, "disable_x64"):
-        monkeypatch.setattr(jax.experimental, "disable_x64",
-                            lambda: jax.enable_x64(False), raising=False)
-
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -28,7 +28,7 @@ from torch_parity import (assert_all_equal, dense, drain, pair, prompts_of,
 
 
 def test_kv_pool_alloc_free_invariants():
-    pool = KVPool(2, 2, 16, num_pages=8, page_size=4)
+    pool = KVPool(2, 2, 16, num_pages=8, page_size=4, device="cpu")
     assert pool.num_free == 7  # page 0 reserved
     a = pool.alloc(3)
     b = pool.alloc(4)
@@ -51,17 +51,19 @@ def test_kv_pool_alloc_free_invariants():
 
 def test_kv_pool_gqa_layout_and_bytes():
     pool = KVPool(3, 8, 16, num_pages=4, page_size=4, num_kv_heads=2,
-                  dtype=torch.bfloat16)
+                  dtype=torch.bfloat16, device="cpu")
     assert tuple(pool.buffers["v"].shape) == (3, 4, 2, 4, 16)
     assert pool.bytes_per_token() == 2 * 3 * 2 * 16 * 2
     with pytest.raises(ValueError):
-        KVPool(1, 3, 16, num_pages=4, page_size=4, num_kv_heads=2)
+        KVPool(1, 3, 16, num_pages=4, page_size=4, num_kv_heads=2,
+               device="cpu")
     with pytest.raises(ValueError):
-        KVPool(1, 2, 16, num_pages=1, page_size=4)
+        KVPool(1, 2, 16, num_pages=1, page_size=4, device="cpu")
 
 
 def test_kv_pool_refcount_sharing_and_reclaim():
-    pool = KVPool(1, 1, 8, num_pages=6, page_size=4, prefix_cache=True)
+    pool = KVPool(1, 1, 8, num_pages=6, page_size=4, prefix_cache=True,
+                  device="cpu")
     pages = pool.alloc(2)
     pool.prefix.insert(np.arange(8, dtype=np.int32), pages)
     pool.retain(pages)
@@ -82,7 +84,8 @@ def test_kv_pool_refcount_sharing_and_reclaim():
 
 def test_kv_pool_alloc_free_stress():
     rng = np.random.RandomState(0)
-    pool = KVPool(1, 1, 8, num_pages=64, page_size=4, prefix_cache=True)
+    pool = KVPool(1, 1, 8, num_pages=64, page_size=4, prefix_cache=True,
+                  device="cpu")
     live = []
     for i in range(2000):
         r = rng.rand()
@@ -126,7 +129,7 @@ def test_prefix_index_match_insert_lru():
 
 
 def test_scheduler_fcfs_pages_gate_admission():
-    pool = KVPool(1, 1, 8, num_pages=9, page_size=4)
+    pool = KVPool(1, 1, 8, num_pages=9, page_size=4, device="cpu")
     sched = FCFSScheduler(n_slots=4, pool=pool, token_budget=10)
     rng = np.random.RandomState(0)
     reqs = [Request(prompt=rng.randint(0, 9, (n,)), max_new_tokens=4)
@@ -142,7 +145,7 @@ def test_scheduler_fcfs_pages_gate_admission():
 
 
 def test_scheduler_admission_ignores_max_new_tokens():
-    pool = KVPool(1, 1, 8, num_pages=9, page_size=4)
+    pool = KVPool(1, 1, 8, num_pages=9, page_size=4, device="cpu")
     sched = FCFSScheduler(n_slots=2, pool=pool)
     sched.add(Request(prompt=np.arange(3), max_new_tokens=29))
     adm = sched.schedule_step()
@@ -150,7 +153,7 @@ def test_scheduler_admission_ignores_max_new_tokens():
 
 
 def test_scheduler_chunk_budget():
-    pool = KVPool(1, 1, 8, num_pages=20, page_size=4)
+    pool = KVPool(1, 1, 8, num_pages=20, page_size=4, device="cpu")
     sched = FCFSScheduler(n_slots=8, pool=pool, token_budget=16)
     assert sched.prefill_budget(0, chunk_tokens=64) == 16
     assert sched.prefill_budget(4, chunk_tokens=64) == 12
@@ -159,7 +162,7 @@ def test_scheduler_chunk_budget():
 
 
 def test_scheduler_rejects_oversized_request():
-    pool = KVPool(1, 1, 8, num_pages=4, page_size=4)
+    pool = KVPool(1, 1, 8, num_pages=4, page_size=4, device="cpu")
     sched = FCFSScheduler(n_slots=2, pool=pool)
     with pytest.raises(ValueError):
         sched.add(Request(prompt=np.arange(20), max_new_tokens=4))

@@ -19,7 +19,6 @@ import pytest
 import torch
 
 import jax
-import jax.experimental
 import jax.numpy as jnp
 
 from paddle_tpu.kernels import paged_attention as jpa
@@ -30,21 +29,10 @@ from paddle_tpu_torch.kernels import (paged_attention_mq,
 from paddle_tpu_torch.models.generation import spec_accept_greedy
 from paddle_tpu_torch.serving import (FCFSScheduler, KVPool, NGramDrafter,
                                       ServingEngine)
-from torch_parity import (assert_all_equal, dense, drain, pair, prompts_of,
-                          serve_both)
+from torch_parity import (assert_all_equal, dense, drain,  # noqa: F401
+                          interpretable, pair, prompts_of, serve_both)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture
-def interpretable(monkeypatch):
-    """Lets the reference's Pallas kernels run in interpret mode on a jax
-    whose ``jax.experimental`` lacks ``disable_x64``: the same context
-    manager under its newer spelling, ``jax.enable_x64(False)``."""
-    if not hasattr(jax.experimental, "disable_x64"):
-        monkeypatch.setattr(jax.experimental, "disable_x64",
-                            lambda: jax.enable_x64(False), raising=False)
-
 
 def _t(a):
     return torch.from_numpy(np.array(a))
@@ -105,7 +93,7 @@ def test_spec_accept_greedy_rule():
 
 
 def test_prefill_budget_reserves_the_verify_width():
-    pool = KVPool(1, 1, 8, num_pages=20, page_size=4)
+    pool = KVPool(1, 1, 8, num_pages=20, page_size=4, device="cpu")
     sched = FCFSScheduler(n_slots=8, pool=pool, token_budget=32)
     assert sched.prefill_budget(4, chunk_tokens=64) == 28
     assert sched.prefill_budget(4, chunk_tokens=64, decode_cost=5) == 12

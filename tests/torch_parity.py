@@ -1,13 +1,16 @@
-"""Shared helpers of the port's serving parity tests: one seeded reference
-model and the port model holding its weights, a step loop that audits the
-port engine after every step, and the token comparisons.
+"""Shared helpers of the port's parity tests: one seeded reference model
+and the port model holding its weights, a step loop that audits the port
+engine after every step, the token comparisons, and the fixture that lets
+the reference's Pallas kernels run in interpret mode.
 
     port ServingEngine == port dense decoder == JAX ServingEngine
 """
 
 import numpy as np
+import pytest
 
 import jax
+import jax.experimental
 
 import paddle_tpu as paddle
 from paddle_tpu.models import generation as jgen
@@ -21,6 +24,18 @@ from paddle_tpu_torch.weights import load_jax_params
 
 CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=2,
            max_seq_len=96)
+
+
+@pytest.fixture
+def interpretable(monkeypatch):
+    """Lets the reference's Pallas kernels run in interpret mode on a jax
+    whose ``jax.experimental`` lacks ``disable_x64`` (the reference's
+    ``flash._x64_off`` imports it): the same context manager under its
+    newer spelling, ``jax.enable_x64(False)``.  Nothing changes on a jax
+    that has it.  Test modules import it from here."""
+    if not hasattr(jax.experimental, "disable_x64"):
+        monkeypatch.setattr(jax.experimental, "disable_x64",
+                            lambda: jax.enable_x64(False), raising=False)
 
 
 def pair(seed=3, **over):
