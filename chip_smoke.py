@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result line; each prints
 its seconds):
 
 1. build: compile every CUDA source of the port (one ``nvcc`` each, all at
-   once) and print the build seconds and the card's name and power limit;
+   once) and print the build seconds, each kernel's registers and spills
+   as ``ptxas`` reports them, and the card's name and power limit;
 2. kernels: each kernel variant against its plain PyTorch version on the
    card at the serving and training shapes.
    - paged decode and chunk prefill over float, int8 and int4 pages (H=16,
@@ -29,10 +30,12 @@ its seconds):
      flagship shape (B=12, H=12, S=1024, D=128, causal, bf16) in bsnd and
      in sbnd, sbnd with GQA (Hkv=4) and window=256 at B=12 (the shapes of
      training runs (a)-(c)), an fp32 case, bsnd and sbnd GQA cases, a
-     window=256 case and a ragged S=520; out, lse, dQ, dK and dV each on
-     its own (the backward kernels from the plain forward's out and lse),
-     elementwise within ``atol * rms + rtol * |plain|`` with the rms of
-     the plain row (``FLASH_TOL``);
+     window=256 case, a ragged S=520 and the bench's long_seq_4k point
+     (B=2, S=4096); out, lse, dQ, dK and dV each on its own (the backward
+     kernels from the plain forward's out and lse), elementwise within
+     ``atol * rms + rtol * |plain|`` with the rms of the plain row
+     (``FLASH_TOL``); then each kernel timed beside SDPA at the flagship
+     shape, at S=4096 and at the flagship shape with D=64;
 3. serving: GPT-1.3B at full width (24 layers, hidden 2048, 16 heads) with
    random bf16 weights from a fixed seed, 16 requests per run through the
    paged engine (8 slots, page 32, chunk 128; prompts of 64-512 tokens,
@@ -174,8 +177,10 @@ def phase_build():
         ptxas = _build.BUILD_DIR / f"{name}.ptxas.txt"
         if ptxas.exists():
             for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    log(f"  {name}: {line.split(chr(39))[1]}")
+                elif "registers" in line or "spill" in line:
+                    log(f"    {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -484,7 +489,8 @@ def phase_gemm(np, torch):
 
 
 # flash kernels: layout, B, H, Hkv, S, causal, window, dtype (D = 128); the
-# first and the last two are the shapes of training runs (a), (b) and (c)
+# first and the last three are the shapes of training runs (a), (b) and
+# (c) and the bench's long_seq_4k point (bench.py), which is timed too
 FLASH_CASES = (
     ("flagship", "bsnd", 12, 12, 12, 1024, True, None, "bf16"),
     ("fp32", "bsnd", 2, 4, 4, 512, True, None, "fp32"),
@@ -494,6 +500,7 @@ FLASH_CASES = (
     ("ragged520", "bsnd", 2, 12, 12, 520, True, None, "bf16"),
     ("sbnd_flagship", "sbnd", 12, 12, 12, 1024, True, None, "bf16"),
     ("sbnd_gqa4_window256", "sbnd", 12, 12, 4, 1024, True, 256, "bf16"),
+    ("long_seq_4k", "bsnd", 2, 12, 12, 4096, True, None, "bf16"),
 )
 # elementwise |kernel - plain| <= atol * rms + rtol * |plain|, with the rms
 # of the plain row (the last axis: a head's D values, or lse over S), per
@@ -549,13 +556,11 @@ def _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype):
 def phase_flash(np, torch):
     """The forward, dQ and dK/dV kernels against their plain versions in
     every case (the backward kernels take the plain forward's out and lse,
-    so each kernel is held on its own), and timed at the flagship shape."""
-    import torch.nn.functional as F
-
+    so each kernel is held on its own), and timed at the flagship shape
+    (the kernels line), at the long-sequence point and at the flagship
+    shape with head dim 64 (logged)."""
     from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
-    from paddle_tpu_torch.kernels.flash import (flash_bwd, flash_bwd_dkv_cuda,
-                                                flash_bwd_dq_cuda, flash_delta,
-                                                flash_fwd_cuda)
+    from paddle_tpu_torch.kernels.flash import flash_bwd, flash_fwd_cuda
 
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -586,8 +591,24 @@ def phase_flash(np, torch):
         del q, k, v, out, lse, ref, rlse, do, got, want
     torch.cuda.empty_cache()
 
-    # timing at the flagship shape, on the model's strided views
-    _, layout, b, h, hkv, s, causal, window, _ = FLASH_CASES[0]
+    results = _time_flash(np, torch, FLASH_CASES[0], worst)
+    _time_flash(np, torch, FLASH_CASES[-1], worst)
+    _time_flash(np, torch, FLASH_CASES[0], worst, d=64)
+    return results
+
+
+def _time_flash(np, torch, case, worst, d=128):
+    """The three kernels, their plain versions and SDPA timed on one
+    case's strided views at head dim ``d``; returns each kernel's entry of
+    the kernels line."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels.flash import (flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda, flash_delta,
+                                                flash_fwd_cuda)
+
+    label, layout, b, h, hkv, s, causal, window, _ = case
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, torch.bfloat16)
     scale = 1.0 / np.sqrt(d)
@@ -633,8 +654,9 @@ def phase_flash(np, torch):
                              bound_ms=bms, bound_by=by,
                              library_ms=lib_fwd if fwd else lib_bwd,
                              max_abs_err=worst[name])
-        log(f"{name} timed case: B={b} H={h} S={s} D={d} causal bf16, q/k/v "
-            f"head views of one QKV tensor: {ms[name]:.4f} ms, plain "
+        log(f"{name} timed case {label}: B={b} H={h} S={s} D={d} causal "
+            f"bf16, q/k/v head views of one QKV tensor: {ms[name]:.4f} ms "
+            f"({ops / ms[name] / 1e9:.1f} TFLOP/s), plain "
             f"{results[name]['plain_ms']:.4f} ms (the whole "
             f"{'forward' if fwd else 'backward'}), sdpa by graph replay "
             f"{'forward' if fwd else 'fwd+bwd - fwd'} "

@@ -13,35 +13,54 @@
 // with no transposes or copies.  Query head h reads KV head h / G.
 //
 // On the TPU a (b, h) pair kept its whole K/V in VMEM and a sequential
-// loop over k-blocks carried m/l/acc in registers.  Here a block of 8
-// warps owns one tile of BQ query rows (or BK key rows in dK/dV) and
-// streams the other side's tiles through shared memory; the running max
-// m, denominator l and every accumulator (O, dQ, dK, dV) live in shared
-// memory in fp32.  Tiles of fully masked positions are skipped by the loop
-// bounds (causal, and the window's first visible tile), re-derived for the
-// CUDA tile sizes; the remaining masks are per element.  A sequence length
-// that is not a multiple of the tile leaves a ragged last tile: its rows
-// load as zeros, are masked out of every product, and are never stored.
+// loop over k-blocks carried m/l/acc in registers.  Here a block owns one
+// tile of BQ query rows (or BK key rows in dK/dV) and streams the other
+// side's tiles through shared memory.  Tiles of fully masked positions are
+// skipped by the loop bounds (causal, and the window's first visible
+// tile), re-derived for the CUDA tile sizes.  A sequence length that is
+// not a multiple of the tile leaves a ragged last tile: its rows load as
+// zeros, are masked out of every product, and are never stored.  Masking
+// follows the reference: a position outside the causal band (or the
+// window) has its scaled score replaced by -1e30 before the running max;
+// in the backward its probability is 0.
 //
-// Products of two tiles (tile_mm): bf16 operands go through the tensor
-// cores with wmma 16x16x16 fragments loaded from shared memory and fp32
-// accumulation.  The product of two bf16 values is exact in fp32, so such
-// a product is the reference's jnp.dot(..., preferred_element_type=
-// float32) up to summation order.  fp32 operands go through fp32 FMAs (no
-// TF32), decision for decision the fp32 reference.
+// Bound on this card: at the training shape (B*H = 144, S = 1024, D = 128,
+// causal) the work is 4 (forward), 6 (dQ) and 8 (dK/dV) x B*H*S^2*D/2
+// flops against 4-6 operands of B*H*S*D bf16 values.  By the card's rates
+// (3.35 TB/s, 989 TFLOP/s) the forward's bytes take slightly longer than
+// its flops, and dK/dV's flops longer than its bytes; either way the time
+// that can be won lies in feeding the tensor cores.
 //
-// Masking follows the reference: a position outside the causal band (or
-// the window) has its scaled score replaced by -1e30 before the running
-// max; in the backward its probability is 0.
+// Two designs live here, chosen by dtype (a choice of body by type, not a
+// fallback: a failed build or launch raises in the wrapper).
 //
-// Bound on this card: at training shapes (S = 1024, D = 128) the work is
-// 4 (forward), 6 (dQ) and 8 (dK/dV) x B*H*S^2*D/2 flops against a few
-// bytes per element, far above the H100's ~295 flops per byte, so tensor
-// core time bounds them.  This first version keeps every intermediate in
-// shared memory and moves fragments between shared memory and registers
-// for each 16x16 product, so shared-memory bandwidth, not the tensor
-// cores, limits it; wgmma with register-resident accumulators and TMA
-// loads are later work.
+// bf16 forward and dK/dV (flash_fwd_bf16, flash_bwd_dkv_bf16): register-
+// fragment kernels.  Every product is mma.sync m16n8k16 (bf16 operands,
+// fp32 accumulation; the product of two bf16 values is exact in fp32, as
+// the reference's preferred_element_type=float32) with operands loaded by
+// ldmatrix (.trans for the operand whose reduction runs along rows) from
+// shared-memory tiles whose rows are padded by one 16-byte vector, which
+// makes every ldmatrix phase conflict-free.  Each warp owns 16 rows of the
+// output side for the block's life, and its accumulators (O, or dK and
+// dV) stay in registers.  The accumulator layout of m16n8k16 is the A
+// operand layout of the next product (two adjacent n8 tiles are one k16
+// fragment), so P (forward) and P^T, dS^T (dK/dV) go from one product to
+// the next in registers, rounded to bf16, and no score tile is written to
+// shared memory.  The streamed side comes through a ring of shared-memory
+// stages filled by cp.async 16-byte copies: tile j + 1 is in flight while
+// tile j is computed on.  Only a warp's tile that crosses the causal
+// diagonal, the window's edge or row S evaluates per-element masks; a
+// warp skips a tile it cannot see at all.  mma.sync is used rather than
+// wgmma: its accumulator-as-operand layout is what keeps P in registers,
+// it needs no shared-memory descriptors, and the file still builds in
+// seconds.
+//
+// dQ and fp32 (flash_bwd_dq_kernel, and the fp32 forward and dK/dV):
+// every accumulator and the S/P/dS tiles live in shared memory in fp32;
+// tile_mm multiplies bf16 tiles with wmma 16x16x16 fragments (fp32
+// accumulation) and fp32 tiles with fp32 FMAs in k order (no TF32),
+// decision for decision the fp32 reference.  Shared-memory bandwidth, not
+// the tensor cores, limits that design.
 
 #pragma once
 
@@ -60,9 +79,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 8;  // measured 1.6-1.7x faster than 4 on an H100
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;  // the reference's _NEG_INF
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -109,7 +126,7 @@ __device__ __forceinline__ T* slice(const Operand& o, int b, int h) {
 // Leading dimension of a tile of `cols` values of `elt` bytes: one 16-byte
 // vector of padding staggers the rows across shared-memory banks and keeps
 // every row 16-byte (and every 16-row fragment 32-byte) aligned.
-__host__ __device__ inline int tile_ld(int cols, int elt) { return cols + 16 / elt; }
+__host__ __device__ constexpr int tile_ld(int cols, int elt) { return cols + 16 / elt; }
 
 // Shared-memory carve-up: 128-byte aligned sections, the same arithmetic
 // on the host (sizing) and the device (addresses).
@@ -260,14 +277,14 @@ inline int pick_tile(F bytes, int most, size_t* smem) {
 }
 
 template <typename K>
-inline cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t st,
-                          const Args& a) {
+inline cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
+                          cudaStream_t st, const Args& a) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, kThreads, smem, st>>>(a);
+  kernel<<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -300,6 +317,144 @@ inline bool make_args(Args* a, void* const ptrs[8], const long long* strides,
   a->causal = causal;
   a->window = causal ? window : 0;
   return true;
+}
+
+// -- register-fragment toolkit of the bf16 kernels ---------------------------
+//
+// mma.sync m16n8k16 fragments, lane = 4 * g + t (g = lane / 4, t = lane % 4):
+// A (16 x 16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8,
+// 2t+8..); B (16 x 8): b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
+// C (16 x 8, fp32): c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1).
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid (src is
+// then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zero where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [row0, row0 + R) of one (b, h) slice into a bf16 tile [R][tile_ld]:
+// DP columns, zero past D and past row S, by cp.async 16-byte copies from
+// all NT threads of the block (D and the strides are multiples of one
+// vector, which the wrapper checks).
+template <int R, int DP, int NT>
+__device__ __forceinline__ void cp_rows(bf16* tile, const bf16* src, long long stride,
+                                        int row0, int S, int D) {
+  constexpr int VPR = DP / 8, N = R * VPR;
+#pragma unroll
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    if (N % NT == 0 || e < N) {
+      const int r = e / VPR, c = (e - r * VPR) * 8;
+      const bool ok = row0 + r < S && c < D;
+      cp_async16(tile + r * tile_ld(DP, 2) + c, ok ? src + (row0 + r) * stride + c : src, ok);
+    }
+  }
+}
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8 and receives (row lane / 4, cols 2 (lane % 4),
+// +1) of matrix j in r[j] (.trans: of its transpose).
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The A fragment of rows [r0, r0 + 16) x cols [c0, c0 + 16) of a row-major
+// tile.
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t r[4], const bf16* tile, int r0, int c0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(r, tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
+}
+
+// B fragments of two n8 tiles where B(k, n) = tile[n][k] (the rows are
+// B's columns, as K's rows in Q.K^T): n = n0..n0+15, k = k0..k0+15;
+// {r[0], r[1]} for n0, {r[2], r[3]} for n0 + 8.
+template <int LD>
+__device__ __forceinline__ void frag_b_rows(uint32_t r[4], const bf16* tile, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(r, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n8 tiles where B(k, n) = tile[k][n] (as V's rows in
+// P.V): k = k0..k0+15, n = n0..n0+15; {r[0], r[1]} for n0, {r[2], r[3]}
+// for n0 + 8.
+template <int LD>
+__device__ __forceinline__ void frag_b_cols(uint32_t r[4], const bf16* tile, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(r, tile + (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8);
+}
+
+// c += a . b, m16n8k16, bf16 operands, fp32 accumulator.
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment of k16 step kk from an fp32 accumulator of n8 tiles c[]:
+// tiles 2 kk and 2 kk + 1, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t r[4], const float c0[4], const float c1[4]) {
+  r[0] = pack_bf16(c0[0], c0[1]);
+  r[1] = pack_bf16(c0[2], c0[3]);
+  r[2] = pack_bf16(c1[0], c1[1]);
+  r[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// The edge-tile test.  Every key of [k0, k0 + nk) is visible to every
+// query of [q0, q0 + nq): the tile needs no per-element mask.
+__device__ __forceinline__ bool all_visible(const Args& a, int q0, int nq, int k0, int nk) {
+  if (q0 + nq > a.S || k0 + nk > a.S) return false;
+  if (!a.causal) return true;
+  return k0 + nk - 1 <= q0 && (a.window <= 0 || k0 > q0 + nq - 1 - a.window);
+}
+
+// No key of [k0, k0 + nk) is visible to any query of [q0, q0 + nq): the
+// tile can be skipped.  (A row whose keys are all masked in a tile it
+// does compute gets p = exp(-1e30 - (-1e30)) = 1 there, as in the
+// reference; its first visible key then scales that by exp(-1e30 - m) =
+// 0, so skipping such a tile gives the same result.)
+__device__ __forceinline__ bool none_visible(const Args& a, int q0, int nq, int k0, int nk) {
+  if (q0 >= a.S || k0 >= a.S) return true;
+  if (!a.causal) return false;
+  return k0 > q0 + nq - 1 || (a.window > 0 && k0 + nk - 1 <= q0 - a.window);
 }
 
 }  // namespace fa
