@@ -15,11 +15,16 @@ its seconds):
      D=128, page 32, 8 slots, ragged lengths up to 2048; a GQA case with
      Hkv=4 and a window=256 case; prefill chunks of 128 and 40 rows at
      starts 0 and 300), and the multi-query verify kernel at T=5 over the
-     same three page kinds.  Tolerances: fp32 queries 1e-5 (kernel and
-     plain version differ only in summation order, quantized pages
+     same three page kinds; decode and verify also at the serving runs'
+     own context lengths (64-576).  Tolerances: fp32 queries 1e-5 (kernel
+     and plain version differ only in summation order, quantized pages
      dequantize exactly); bf16 2e-2 against the plain version computed in
-     fp32 from the same inputs (the kernel keeps probabilities in fp32
-     where the plain version rounds them to bf16, and rounds its output);
+     fp32 from the same inputs (the kernel rounds probabilities to bf16
+     for the tensor cores, the plain version keeps them in fp32, and the
+     kernel rounds its output).  Each kernel is timed, by CUDA-graph
+     replay with the eager time beside, at the 2048-token lengths (the
+     kernels line), and decode and verify also in the GQA case and at the
+     serving lengths (logged);
    - ``w8a8_gemm`` at GPT-1.3B's four projection shapes, M=8 (decode) and
      M=128 (prefill), and a ragged M=40, and at the training flagship's
      four projections at M=12288 with bf16 activations (run (d) of phase
@@ -77,9 +82,10 @@ its seconds):
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
 the serving or training run that first reaches it, its error against the
-plain version, its time (``w8a8_gemm``'s by CUDA-graph replay, which
-takes the host's enqueue cost out of calls that short), the plain
-version's time, its bound (bytes moved over 3.35 TB/s or operations over
+plain version, its time (the paged kernels' and ``w8a8_gemm``'s by
+CUDA-graph replay, which takes the host's enqueue cost out of calls that
+short, with their yardsticks timed the same way), the plain version's
+time, its bound (bytes moved over 3.35 TB/s or operations over
 the peak of their type, whichever is larger) and the time
 of one PyTorch call computing the same function, which the port itself
 never calls: ``scaled_dot_product_attention`` on pre-gathered, dequantized
@@ -230,31 +236,110 @@ def _dense_kv(gather_pages, pages, bt, sc, side, dtype):
 
 
 def _time_case(label, kernel, plain, library, nbytes, ops):
-    ms = time_ms(kernel)
-    plain_ms = time_ms(plain)
-    lib_ms = time_ms(library)
+    """The kernel, its plain version and the library call, each by
+    CUDA-graph replay (what the kernels line reports), with its eager time
+    beside: an eager call of a few tens of microseconds measures how fast
+    the host enqueues it."""
+    calls = dict(kernel=kernel, plain=plain, library=library)
+    graph = {key: graph_ms(fn) for key, fn in calls.items()}
+    eager = {key: time_ms(fn) for key, fn in calls.items()}
     bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
-    log(f"{label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on gathered "
-        f"K/V {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+    log(f"{label}: graph replay (eager) kernel {graph['kernel']:.4f} "
+        f"({eager['kernel']:.4f}) ms, plain {graph['plain']:.4f} "
+        f"({eager['plain']:.4f}) ms, sdpa on gathered K/V "
+        f"{graph['library']:.4f} ({eager['library']:.4f}) ms, bound "
+        f"{bms:.4f} ms ({by}; {nbytes} bytes)")
+    return dict(ms=graph["kernel"], plain_ms=graph["plain"], bound_ms=bms,
+                bound_by=by, library_ms=graph["library"])
+
+
+# decode and verify: H=16, D=128, page 32, 64-entry block tables (GPT-1.3B
+# in the engine); the timed lengths, and lengths of the serving runs' own
+# contexts (prompts of 64-512 tokens plus up to 64 new ones)
+PAGED_H, PAGED_D, PAGED_MAXP = 16, 128, 64
+TIMED_LENGTHS = [2048, 1, 777, 1500, 33, 1024, 2000, 64]
+SERVING_LENGTHS = [64, 576, 200, 448, 96, 320, 512, 130]
+VERIFY_T = 5
+
+
+def _attention_case(torch, gen, table, bits, hkv, window, dtype, lengths,
+                    t=None):
+    """Decode (``t`` None) or verify (``t`` draft rows) over pages of kind
+    ``bits`` at ``lengths``, held against the plain version computed in
+    fp32 from the same inputs; returns the call's operands and the max
+    abs error."""
+    from paddle_tpu_torch.kernels import (paged_attention, paged_attention_mq,
+                                          paged_attention_mq_plain,
+                                          paged_attention_plain)
+
+    dev = torch.device("cuda")
+    b = len(lengths)
+    n_pages = 1 + b * PAGED_MAXP
+    g = gen()
+    kp, vp, sc = _pages(torch, g, n_pages, hkv, dtype, bits)
+    shape = (b, PAGED_H, PAGED_D) if t is None else (b, t, PAGED_H, PAGED_D)
+    q = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    bt = table((b, PAGED_MAXP), n_pages)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    fn, plain = ((paged_attention, paged_attention_plain) if t is None else
+                 (paged_attention_mq, paged_attention_mq_plain))
+    out = fn(q, kp, vp, bt, lens, window=window, **sc)
+    ref = plain(q.float(), _float(kp, sc), _float(vp, sc), bt, lens,
+                window=window, **sc)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    return dict(q=q, kp=kp, vp=vp, sc=sc, bt=bt, lens=lens, fn=fn,
+                plain=plain, lengths=lengths, t=t, bits=bits), err
+
+
+def _time_attention(torch, label, case):
+    """Time one unwindowed decode or verify case of :func:`_attention_case`
+    beside SDPA on its gathered, dequantized dense K/V (GQA: K/V repeated
+    to the query heads outside the timing)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import gather_pages
+
+    q, kp, vp, sc, bt, lens = (case[k] for k in
+                               ("q", "kp", "vp", "sc", "bt", "lens"))
+    fn, plain, t, lengths = case["fn"], case["plain"], case["t"], \
+        case["lengths"]
+    b, h, d, hkv = len(lengths), PAGED_H, PAGED_D, kp.shape[1]
+    kd = _dense_kv(gather_pages, kp, bt, sc, "k", q.dtype)
+    vd = _dense_kv(gather_pages, vp, bt, sc, "v", q.dtype)
+    if hkv != h:
+        kd, vd = (x.repeat_interleave(h // hkv, dim=1) for x in (kd, vd))
+    pos = torch.arange(kd.shape[2], device=q.device)
+    if t is None:
+        mask = (pos[None, :] < lens[:, None].long())[:, None, None, :]
+        qd, n_q = q[:, :, None], 1
+        union = vis = sum(lengths)
+    else:
+        qpos = lens[:, None].long() + torch.arange(t, device=q.device)[None]
+        mask = (pos[None, None, :] <= qpos[:, :, None])[:, None]
+        qd, n_q = q.transpose(1, 2), t
+        union = sum(n + t for n in lengths)
+        vis = sum(n + i + 1 for n in lengths for i in range(t))
+    nbytes = (2 * union * hkv * _page_bytes(case["bits"], d, 2)
+              + 2 * b * n_q * h * d * 2 + bt.numel() * 4 + b * 4)
+    return _time_case(
+        label, lambda: fn(q, kp, vp, bt, lens, **sc),
+        lambda: plain(q, kp, vp, bt, lens, **sc),
+        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+        nbytes, 4 * vis * h * d)
 
 
 def phase_paged(np, torch):
     """Decode, prefill and verify kernels over the three page kinds."""
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.kernels import (gather_pages, paged_attention,
-                                          paged_attention_mq,
-                                          paged_attention_mq_plain,
-                                          paged_attention_plain,
-                                          paged_prefill, paged_prefill_plain)
+    from paddle_tpu_torch.kernels import (gather_pages, paged_prefill,
+                                          paged_prefill_plain)
 
     dev = torch.device("cuda")
     bf16, fp32 = torch.bfloat16, torch.float32
     rng = np.random.RandomState(0)
-    lengths = [2048, 1, 777, 1500, 33, 1024, 2000, 64]
-    b, h, d, ps, maxp = 8, 16, 128, 32, 64
+    d, h, maxp = PAGED_D, PAGED_H, PAGED_MAXP
     results = {}
     cases = (("mha", 16, None, bf16), ("gqa4", 4, None, bf16),
              ("window256", 16, 256, bf16), ("mha_fp32", 16, None, fp32))
@@ -267,44 +352,43 @@ def phase_paged(np, torch):
         return torch.tensor(1 + rng.permutation(n_pages - 1).reshape(shape),
                             dtype=torch.int32, device=dev)
 
-    # decode: per page kind MHA bf16 (timed), GQA, window, fp32 queries
-    for bits, suffix in KINDS.items():
-        name = "paged_attention" + suffix
-        worst = 0.0
-        for case, hkv, window, dtype in cases:
-            g = gen()
-            n_pages = 1 + b * maxp
-            kp, vp, sc = _pages(torch, g, n_pages, hkv, dtype, bits)
-            q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
-            bt = table((b, maxp), n_pages)
-            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-            out = paged_attention(q, kp, vp, bt, lens, window=window, **sc)
-            ref = paged_attention_plain(q.float(), _float(kp, sc),
-                                        _float(vp, sc), bt, lens,
-                                        window=window, **sc)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            _check(f"{name} {case}", err, 1e-5 if dtype == fp32 else 2e-2)
-            if dtype == bf16:
-                worst = max(worst, err)
-            if case != "mha":
-                continue
-            kd = _dense_kv(gather_pages, kp, bt, sc, "k", dtype)
-            vd = _dense_kv(gather_pages, vp, bt, sc, "v", dtype)
-            pos = torch.arange(kd.shape[2], device=dev)
-            mask = (pos[None, :] < lens[:, None].long())[:, None, None, :]
-            vis = sum(_visible(n - 1, window) for n in lengths)
-            nbytes = (2 * vis * hkv * _page_bytes(bits, d, 2)
-                      + 2 * b * h * d * 2 + bt.numel() * 4 + b * 4)
-            results[name] = _time_case(
-                f"{name} timed case: B=8 H=Hkv=16 D=128 page 32, bf16 "
-                f"queries, lengths {lengths}",
-                lambda: paged_attention(q, kp, vp, bt, lens, **sc),
-                lambda: paged_attention_plain(q, kp, vp, bt, lens, **sc),
-                lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd,
-                                                       attn_mask=mask),
-                nbytes, 4 * vis * h * d)
-        results[name]["max_abs_err"] = worst
+    # decode and verify (T=5): per page kind MHA bf16 (timed), GQA (timed,
+    # logged), window, fp32 queries at the timed lengths; then MHA bf16 at
+    # the serving runs' lengths (timed, logged).  Verify's lengths leave
+    # room for the T rows in the 64-page tables.
+    mq_lens = [min(n, maxp * 32 - VERIFY_T) for n in TIMED_LENGTHS]
+    for kind, t, lengths in (("paged_attention", None, TIMED_LENGTHS),
+                             ("paged_attention_mq", VERIFY_T, mq_lens)):
+        what = "decode" if t is None else f"verify T={t}"
+        for bits, suffix in KINDS.items():
+            name = kind + suffix
+            worst = 0.0
+            for label, hkv, window, dtype in cases:
+                case, err = _attention_case(torch, gen, table, bits, hkv,
+                                            window, dtype, lengths, t)
+                _check(f"{name} {label}{'' if t is None else f' T={t}'}",
+                       err, 1e-5 if dtype == fp32 else 2e-2)
+                if dtype == bf16:
+                    worst = max(worst, err)
+                shape = (f"B=8 H=16 Hkv={hkv} D=128 page 32, bf16 queries, "
+                         f"lengths {lengths}")
+                if label == "mha":
+                    results[name] = _time_attention(
+                        torch, f"{name} timed case, {what}: {shape}", case)
+                elif label == "gqa4":
+                    _time_attention(torch, f"{name} GQA case, {what}: "
+                                    f"{shape}", case)
+                del case
+            case, err = _attention_case(torch, gen, table, bits, 16, None,
+                                        bf16, SERVING_LENGTHS, t)
+            _check(f"{name} serving lengths", err, 2e-2)
+            worst = max(worst, err)
+            _time_attention(torch, f"{name} serving-length case, {what}: "
+                            f"B=8 H=Hkv=16 D=128 page 32, bf16 queries, "
+                            f"lengths {SERVING_LENGTHS}", case)
+            del case
+            results[name]["max_abs_err"] = worst
+            torch.cuda.empty_cache()
 
     # prefill: C in {128, 40} x start in {0, 300}, GQA, window, fp32
     pcases = [(f"c{cc}_s{st}", 16, None, bf16, cc, st)
@@ -352,51 +436,6 @@ def phase_paged(np, torch):
                 nbytes, 4 * vis * h * d)
         results[name]["max_abs_err"] = worst
 
-    # verify: T=5 draft rows per slot, positions lengths .. lengths + 4
-    t = 5
-    mq_lens = [min(n, maxp * ps - t) for n in lengths]
-    for bits, suffix in KINDS.items():
-        name = "paged_attention_mq" + suffix
-        worst = 0.0
-        for case, hkv, window, dtype in cases:
-            g = gen()
-            n_pages = 1 + b * maxp
-            kp, vp, sc = _pages(torch, g, n_pages, hkv, dtype, bits)
-            q = torch.randn(b, t, h, d, device=dev, generator=g).to(dtype)
-            bt = table((b, maxp), n_pages)
-            lens = torch.tensor(mq_lens, dtype=torch.int32, device=dev)
-            out = paged_attention_mq(q, kp, vp, bt, lens, window=window,
-                                     **sc)
-            ref = paged_attention_mq_plain(q.float(), _float(kp, sc),
-                                           _float(vp, sc), bt, lens,
-                                           window=window, **sc)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            _check(f"{name} {case} T=5", err, 1e-5 if dtype == fp32 else 2e-2)
-            if dtype == bf16:
-                worst = max(worst, err)
-            if case != "mha":
-                continue
-            kd = _dense_kv(gather_pages, kp, bt, sc, "k", dtype)
-            vd = _dense_kv(gather_pages, vp, bt, sc, "v", dtype)
-            pos = torch.arange(kd.shape[2], device=dev)
-            qpos = lens[:, None].long() + torch.arange(t, device=dev)[None]
-            mask = (pos[None, None, :] <= qpos[:, :, None])[:, None]
-            qd = q.transpose(1, 2)
-            union = sum(n + t for n in mq_lens)
-            vis = sum(_visible(n + i, window) for n in mq_lens
-                      for i in range(t))
-            nbytes = (2 * union * hkv * _page_bytes(bits, d, 2)
-                      + 2 * b * t * h * d * 2 + bt.numel() * 4 + b * 4)
-            results[name] = _time_case(
-                f"{name} timed case: B=8 T=5 H=Hkv=16 D=128 page 32, bf16 "
-                f"queries, lengths {mq_lens}",
-                lambda: paged_attention_mq(q, kp, vp, bt, lens, **sc),
-                lambda: paged_attention_mq_plain(q, kp, vp, bt, lens, **sc),
-                lambda: F.scaled_dot_product_attention(qd, kd, vd,
-                                                       attn_mask=mask),
-                nbytes, 4 * vis * h * d)
-        results[name]["max_abs_err"] = worst
     return results
 
 
@@ -712,6 +751,13 @@ def _profile(torch, what, fn):
         f"{busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
+    # the paged decode or verify kernels: the split-KV body and its merge
+    # (bf16), or the one-block-per-slot body (fp32)
+    attn = sum(ms for name, ms in by_name.items()
+               if any(k in name for k in ("split_kernel", "merge_kernel",
+                                          "paged_decode", "paged_mq")))
+    log(f"  paged decode / verify kernels: {attn:.2f} ms "
+        f"({100 * attn / max(busy, 1e-9):.1f}% of device time)")
 
 
 # label, engine options, requests, motif prompts, kernel variants it runs

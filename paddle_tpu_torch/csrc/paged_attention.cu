@@ -1,5 +1,5 @@
-// Paged decode attention for Hopper (sm_90a): float pages (fp32 or bf16),
-// int8 pages and nibble-packed int4 pages, each with fp32 or bf16 queries.
+// Paged decode attention for Hopper (sm_90a): bf16 or fp32 queries over
+// float pages of their type, int8 pages and nibble-packed int4 pages.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/paged_attention.py:
 // paged_attention (bodies _paged_kernel, _paged_kernel_int8,
@@ -8,26 +8,31 @@
 // out[b, h] = softmax_j(q[b, h] . K[j] * scale) @ V over the positions j of
 // slot b that its block-table row names, masked to j < lengths[b] and, with
 // a window W, j >= lengths[b] - W; query heads are grouped G = H / Hkv over
-// their shared KV head.  Quantized pages dequantize right after the load
-// (paged_common.cuh), as the TPU kernel does in VMEM after the page DMA.
-//
-// Grid: one block per (kv head, slot), so the G query heads of a group
-// share every K/V page load.  The block reads block_tables[b, :] and
-// lengths[b] itself and loops only over the pages that hold visible
-// positions, from max(0, len - W) / ps (0 without a window) to
-// (len - 1) / ps; the TPU kernel walks all max_pages pages and masks them.
+// their shared KV head, so a group shares every page read.  The TPU kernel
+// walks all max_pages pages of a slot as a sequential grid axis and masks
+// them; here only the pages that hold visible positions are read.
 //
 // Bound on this card: HBM bytes.  A decode step reads B * len * 2 * Hkv *
-// (D * sizeof(page value) + scale bytes) per layer and does ~4 flops per
-// page value, far below the ~295 flops/byte at which the tensor cores would
-// bind.  The design reads each needed page exactly once, in 16-byte vectors
-// that neighbouring threads take from neighbouring addresses, and never
-// touches the pages past the slot's length that the TPU kernel streamed in
-// and masked.  (One page in flight per block: overlapping the next page's
-// load with this page's math, and splitting long sequences over several
-// blocks, are later work.)
+// (D * value bytes + scale bytes) per layer and does ~4 flops per value
+// read, far below the ~295 flops/byte at which the tensor cores would bind.
+// What held the first design back was not the bytes but too little in
+// flight: one block per (KV head, slot), 128 blocks for 132 SMs, each
+// walking its slot's pages one at a time (load, barrier, compute), so the
+// kernel took as long as the longest slot's serial walk.
+//
+// Two bodies, chosen by the query dtype (a choice of body by type, not a
+// fallback: a failed launch raises in the wrapper):
+// - bf16 queries: the split-KV body of paged_split.cuh.  The slot's pages
+//   are cut into splits of `pages_per_split` block-table entries, one
+//   block per (KV head, slot, split); each warp streams its pages through
+//   its own cp.async ring and multiplies on the tensor cores (mma.sync),
+//   and a second kernel merges the splits by their lse.  Decode is its
+//   T = 1 case, the row at position lengths[b] - 1.
+// - fp32 queries: one block per (KV head, slot) walks the visible pages
+//   with exact fp32 FMA products (attend_pages, paged_common.cuh), so that
+//   the kernel differs from the plain version only in summation order.
 
-#include "paged_common.cuh"
+#include "paged_split.cuh"
 
 namespace ptt {
 
@@ -84,26 +89,25 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_decode(int kv_bits, const void* q, const void* k,
-                            const void* v, const float* ks, const float* vs,
-                            const int* bt, const int* lens, void* out, int B,
-                            int H, int Hkv, int ps, int D, int max_pages,
-                            int num_pages, float scale, int window,
-                            cudaStream_t st) {
+cudaError_t dispatch_decode_fp32(int kv_bits, const void* q, const void* k,
+                                 const void* v, const float* ks, const float* vs,
+                                 const int* bt, const int* lens, void* out, int B,
+                                 int H, int Hkv, int ps, int D, int max_pages,
+                                 int num_pages, float scale, int window,
+                                 cudaStream_t st) {
   switch (kv_bits) {
     case 0:
-      return launch_decode<T, 0>(q, k, v, ks, vs, bt, lens, out, B, H, Hkv,
-                                 ps, D, max_pages, num_pages, scale, window,
-                                 st);
+      return launch_decode<float, 0>(q, k, v, ks, vs, bt, lens, out, B, H,
+                                     Hkv, ps, D, max_pages, num_pages, scale,
+                                     window, st);
     case 8:
-      return launch_decode<T, 8>(q, k, v, ks, vs, bt, lens, out, B, H, Hkv,
-                                 ps, D, max_pages, num_pages, scale, window,
-                                 st);
+      return launch_decode<float, 8>(q, k, v, ks, vs, bt, lens, out, B, H,
+                                     Hkv, ps, D, max_pages, num_pages, scale,
+                                     window, st);
     case 4:
-      return launch_decode<T, 4>(q, k, v, ks, vs, bt, lens, out, B, H, Hkv,
-                                 ps, D, max_pages, num_pages, scale, window,
-                                 st);
+      return launch_decode<float, 4>(q, k, v, ks, vs, bt, lens, out, B, H,
+                                     Hkv, ps, D, max_pages, num_pages, scale,
+                                     window, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -114,26 +118,33 @@ cudaError_t dispatch_decode(int kv_bits, const void* q, const void* k,
 // dtype (of q and out): 0 = fp32, 1 = bf16.  kv_bits: 0 = float pages of
 // q's dtype (scales unused, may be null), 8 = int8 pages, 4 = packed int4
 // pages, both with fp32 scales (P, Hkv, ps, 1).  window <= 0 means no
-// window.  Returns the CUDA error code of the launch.
+// window.  bf16: `pages_per_split` block-table entries per split, and
+// `ws` holds B * Hkv * n_split * H / Hkv * (D + 2) floats, n_split =
+// ceil(max_pages / pages_per_split), when n_split > 1 (fp32 uses
+// neither).  Returns the CUDA error code of the launches.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* k_scales,
                                    const void* v_scales,
                                    const void* block_tables,
-                                   const void* lengths, void* out, int B, int H,
-                                   int Hkv, int ps, int D, int max_pages,
-                                   int num_pages, float scale, int window,
-                                   int dtype, int kv_bits, void* stream) {
+                                   const void* lengths, void* out, void* ws,
+                                   int B, int H, int Hkv, int ps, int D,
+                                   int max_pages, int num_pages,
+                                   int pages_per_split, float scale,
+                                   int window, int dtype, int kv_bits,
+                                   void* stream) {
   const int* bt = static_cast<const int*>(block_tables);
   const int* lens = static_cast<const int*>(lengths);
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return int(ptt::dispatch_decode<__nv_bfloat16>(
-        kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, H, Hkv, ps,
-        D, max_pages, num_pages, scale, window, st));
+    return int(ptt::split::launch(q, k_pages, v_pages, ks, vs, bt, lens, out,
+                                  static_cast<float*>(ws), B, 1, -1, H, Hkv,
+                                  ps, D, max_pages, num_pages,
+                                  pages_per_split, scale, window, kv_bits,
+                                  st));
   if (dtype == 0)
-    return int(ptt::dispatch_decode<float>(
+    return int(ptt::dispatch_decode_fp32(
         kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, H, Hkv, ps,
         D, max_pages, num_pages, scale, window, st));
   return int(cudaErrorInvalidValue);

@@ -1,6 +1,6 @@
 // Multi-query (speculative verify) paged attention for Hopper (sm_90a):
-// float pages (fp32 or bf16), int8 pages and nibble-packed int4 pages, each
-// with fp32 or bf16 queries.
+// bf16 or fp32 queries over float pages of their type, int8 pages and
+// nibble-packed int4 pages.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/paged_attention.py:
 // paged_attention_mq (bodies _mq_kernel, _mq_kernel_int8, _mq_kernel_int4;
@@ -12,20 +12,25 @@
 // position j iff j <= lengths[b] + t (and j > lengths[b] + t - W under a
 // window W): the history and, causally, the block's earlier rows.  T == 1
 // never reaches this kernel: the wrapper sends it to the decode kernel with
-// lengths + 1, as the reference does.
+// lengths + 1, as the reference does.  The TPU kernel pads T to 8 sublanes
+// and walks all max_pages pages, masking them; here only the pages that
+// hold visible positions are read, once for all T rows and G query heads.
 //
-// Grid: one block per (kv head, slot) with R = G * T rows, row r = (draft
-// row r / G, query head kvh * G + r % G), so the G query heads of a group
-// and all T rows share every K/V page load.  The block walks the slot's
-// pages from the first one the window leaves visible to the first row to
-// (lengths[b] + T - 1) / ps; the TPU kernel pads T to 8 sublanes and walks
-// all max_pages pages, masking them.
+// Bound on this card: HBM bytes, as for decode: the slot's (len + T)
+// visible positions of K and V are read once for T rows instead of one,
+// so verifying T positions costs about one decode step's page bytes.  The
+// first design ran one block per (KV head, slot) over the slot's pages one
+// at a time, with R = G * T rows of scalar fp32 dot products per page.
 //
-// Bound on this card: HBM bytes, as for decode: the block reads the slot's
-// (len + T) visible positions of K and V once, for T rows instead of one,
-// so verifying T positions costs about one decode step's page bytes.
+// Two bodies, chosen by the query dtype (not a fallback: a failed launch
+// raises in the wrapper):
+// - bf16 queries: the split-KV body of paged_split.cuh with T rows per
+//   slot (row r = draft row r / G of query head kvh * G + r % G), up to 16
+//   rows per block on the tensor cores, splits merged by their lse;
+// - fp32 queries: one block per (KV head, slot) with exact fp32 FMA
+//   products over the visible pages (attend_pages, paged_common.cuh).
 
-#include "paged_common.cuh"
+#include "paged_split.cuh"
 
 namespace ptt {
 
@@ -87,23 +92,25 @@ cudaError_t launch_mq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_mq(int kv_bits, const void* q, const void* k,
-                        const void* v, const float* ks, const float* vs,
-                        const int* bt, const int* lens, void* out, int B,
-                        int n_q, int H, int Hkv, int ps, int D, int max_pages,
-                        int num_pages, float scale, int window,
-                        cudaStream_t st) {
+cudaError_t dispatch_mq_fp32(int kv_bits, const void* q, const void* k,
+                             const void* v, const float* ks, const float* vs,
+                             const int* bt, const int* lens, void* out, int B,
+                             int n_q, int H, int Hkv, int ps, int D,
+                             int max_pages, int num_pages, float scale,
+                             int window, cudaStream_t st) {
   switch (kv_bits) {
     case 0:
-      return launch_mq<T, 0>(q, k, v, ks, vs, bt, lens, out, B, n_q, H, Hkv,
-                             ps, D, max_pages, num_pages, scale, window, st);
+      return launch_mq<float, 0>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
+                                 Hkv, ps, D, max_pages, num_pages, scale,
+                                 window, st);
     case 8:
-      return launch_mq<T, 8>(q, k, v, ks, vs, bt, lens, out, B, n_q, H, Hkv,
-                             ps, D, max_pages, num_pages, scale, window, st);
+      return launch_mq<float, 8>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
+                                 Hkv, ps, D, max_pages, num_pages, scale,
+                                 window, st);
     case 4:
-      return launch_mq<T, 4>(q, k, v, ks, vs, bt, lens, out, B, n_q, H, Hkv,
-                             ps, D, max_pages, num_pages, scale, window, st);
+      return launch_mq<float, 4>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
+                                 Hkv, ps, D, max_pages, num_pages, scale,
+                                 window, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -114,24 +121,29 @@ cudaError_t dispatch_mq(int kv_bits, const void* q, const void* k,
 // q/out (B, T, H, D); dtype (of q and out): 0 = fp32, 1 = bf16.  kv_bits:
 // 0 = float pages of q's dtype (scales unused, may be null), 8 = int8,
 // 4 = packed int4 pages with fp32 scales (P, Hkv, ps, 1).  window <= 0
-// means no window.  Returns the CUDA error code of the launch.
+// means no window.  bf16: `pages_per_split` block-table entries per
+// split, and `ws` holds B * Hkv * n_split * T * H / Hkv * (D + 2) floats,
+// n_split = ceil(max_pages / pages_per_split), when n_split > 1 (fp32
+// uses neither).  Returns the CUDA error code of the launches.
 extern "C" int paged_attention_mq_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* block_tables,
-    const void* lengths, void* out, int B, int n_q, int H, int Hkv, int ps,
-    int D, int max_pages, int num_pages, float scale, int window, int dtype,
-    int kv_bits, void* stream) {
+    const void* lengths, void* out, void* ws, int B, int n_q, int H, int Hkv,
+    int ps, int D, int max_pages, int num_pages, int pages_per_split,
+    float scale, int window, int dtype, int kv_bits, void* stream) {
   const int* bt = static_cast<const int*>(block_tables);
   const int* lens = static_cast<const int*>(lengths);
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return int(ptt::dispatch_mq<__nv_bfloat16>(
-        kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, n_q, H, Hkv,
-        ps, D, max_pages, num_pages, scale, window, st));
+    return int(ptt::split::launch(q, k_pages, v_pages, ks, vs, bt, lens, out,
+                                  static_cast<float*>(ws), B, n_q, 0, H, Hkv,
+                                  ps, D, max_pages, num_pages,
+                                  pages_per_split, scale, window, kv_bits,
+                                  st));
   if (dtype == 0)
-    return int(ptt::dispatch_mq<float>(
+    return int(ptt::dispatch_mq_fp32(
         kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, n_q, H, Hkv,
         ps, D, max_pages, num_pages, scale, window, st));
   return int(cudaErrorInvalidValue);

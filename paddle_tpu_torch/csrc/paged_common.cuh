@@ -1,5 +1,6 @@
-// Shared body of the paged attention kernels (decode, chunk prefill and
-// multi-query verify).
+// Shared body of the paged attention kernels: chunk prefill at fp32 and
+// bf16 queries, and decode and multi-query verify at fp32 queries (their
+// bf16 queries take the split-KV body of paged_split.cuh).
 //
 // One thread block attends R query rows that share one KV head of one
 // sequence slot: the G = H / Hkv query heads of a GQA group, times the

@@ -40,20 +40,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # int64 strides (b, s, h of each tensor operand, in argument order).
 SIGNATURES = {
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
-    # B, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
-    # dtype (0 fp32, 1 bf16), kv_bits, stream
+    # workspace, B, H, Hkv, page_size, D, max_pages, num_pages,
+    # pages_per_split, scale, window, dtype (0 fp32, 1 bf16), kv_bits,
+    # stream
     "paged_attention": ("paged_attention", "paged_attention_fwd",
-                        [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P]),
+                        [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P]),
     # q, k_pages, v_pages, k_scales, v_scales, block_table, out, start,
     # C, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
     # dtype, kv_bits, stream
     "paged_prefill": ("paged_prefill", "paged_prefill_fwd",
                       [_P] * 7 + [_I] * 8 + [_F, _I, _I, _I, _P]),
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
-    # B, T, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
-    # dtype, kv_bits, stream
+    # workspace, B, T, H, Hkv, page_size, D, max_pages, num_pages,
+    # pages_per_split, scale, window, dtype, kv_bits, stream
     "paged_attention_mq": ("paged_attention_mq", "paged_attention_mq_fwd",
-                           [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P]),
+                           [_P] * 9 + [_I] * 9 + [_F, _I, _I, _I, _P]),
     # x, xq, sx, wq, ws, out, M, N, K, dtype, stream
     "w8a8_gemm": ("w8a8_gemm", "w8a8_gemm_fwd", [_P] * 6 + [_I] * 4 + [_P]),
     # q, k, v, out, lse, strides, B, H, Hkv, S, D, scale, causal, window,

@@ -5,19 +5,25 @@ Counterpart of ``paddle_tpu/kernels/paged_attention.py``
 (``paged_attention``, ``paged_attention_mq``, ``paged_attention_ref``,
 ``paged_attention_mq_ref``, ``gather_pages``, ``_group_scores``) over
 float, int8 and nibble-packed int4 pages.  The kernels are
-``paddle_tpu_torch/csrc/paged_attention.cu`` (decode: one thread block per
-(KV head, slot) walks the slot's block table over the pages that hold
-visible positions) and ``paddle_tpu_torch/csrc/paged_attention_mq.cu``
-(verify: the same walk for T draft rows per slot); see the sources for
-their design and what bounds them on the card.
+``paddle_tpu_torch/csrc/paged_attention.cu`` (decode) and
+``paddle_tpu_torch/csrc/paged_attention_mq.cu`` (verify: T draft rows per
+slot).  For bf16 queries both run the split-KV body of
+``csrc/paged_split.cuh``: each slot's block-table row is cut into splits
+of :func:`split_plan`'s ``pages_per_split`` entries, one thread block per
+(KV head, slot, split), and a second kernel merges the splits' partials
+from a workspace this module allocates; fp32 queries take one block per
+(KV head, slot) with exact fp32 products.  See the sources for their
+design and what bounds them on the card.
 
 Each wrapper takes the plain version for CPU tensors and launches its
-kernel for CUDA tensors; there is no other path.  Launches count per page
-kind: ``paged_attention``, ``paged_attention_int8``,
+kernel for CUDA tensors; there is no other path.  Launches count per
+wrapper call and page kind: ``paged_attention``, ``paged_attention_int8``,
 ``paged_attention_int4`` and the same three of ``paged_attention_mq``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -31,6 +37,34 @@ _SUFFIX = {0: "", 8: "_int8", 4: "_int4"}   # page kind -> variant name
 _DECODE = {b: "paged_attention" + s for b, s in _SUFFIX.items()}
 _MQ = {b: "paged_attention_mq" + s for b, s in _SUFFIX.items()}
 _build.LAUNCHES.update({n: 0 for n in (*_DECODE.values(), *_MQ.values())})
+#: what the split plan aims for: thread blocks per call (four per SM of an
+#: H100's 132), and key positions per split at least (four 32-key tiles for
+#: each of a block's four warps, so that each warp's cp.async ring runs
+#: ahead of its math)
+SPLIT_BLOCKS = 528
+SPLIT_MIN_POSITIONS = 512
+#: head dims the bf16 body takes (it pads D to 64, 128 or 256)
+_MAX_BF16_D = 256
+
+
+def split_plan(batch, kv_heads, max_pages, page_size):
+    """How the bf16 decode and verify kernels cut each slot's block-table
+    row of ``max_pages`` entries: ``(pages_per_split, n_split)``, split s
+    taking entries ``[s * pages_per_split, (s + 1) * pages_per_split)``
+    (the last one fewer).  Enough splits that ``batch * kv_heads *
+    n_split`` blocks reach :data:`SPLIT_BLOCKS`, each of at least
+    :data:`SPLIT_MIN_POSITIONS` positions.
+
+    A function of host-known shapes only: the slots' lengths live on the
+    device, and the wrapper never reads them (no sync, and a CUDA graph
+    can capture the call as it is).  A kernel block whose split holds no
+    position its rows can see writes an empty partial and exits."""
+    if min(batch, kv_heads, max_pages, page_size) < 1:
+        raise ValueError("split_plan: every shape must be positive")
+    want = -(-SPLIT_BLOCKS // (batch * kv_heads))
+    pps = max(-(-SPLIT_MIN_POSITIONS // page_size), -(-max_pages // want))
+    pps = min(pps, max_pages)
+    return pps, -(-max_pages // pps)
 
 
 def gather_pages(pages, block_tables, scales=None, head_dim=None):
@@ -186,6 +220,37 @@ def _scale_arg(scale, d):
     return float(1.0 / np.sqrt(d) if scale is None else scale)
 
 
+def _launch(name, q, k_pages, v_pages, block_tables, lengths, k_scales,
+            v_scales, bits, scale, window):
+    """Launch the decode (q (B, H, D)) or verify (q (B, T, H, D)) kernel
+    on validated operands; bf16 queries get the split plan and, with more
+    than one split, the partials' workspace.  Returns the output."""
+    *lead, d = q.shape                             # (B, H) or (B, T, H)
+    p, hkv, ps, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+    pps, ws = maxp, None
+    if q.dtype == torch.bfloat16:
+        if d > _MAX_BF16_D:
+            raise ValueError(f"{name}: bf16 queries take D <= {_MAX_BF16_D}, "
+                             f"got {d}")
+        pps, n_split = split_plan(lead[0], hkv, maxp, ps)
+        if n_split > 1:
+            # per split and (slot, KV head): the G * T rows' O, m and l
+            ws = torch.empty(n_split * math.prod(lead) * (d + 2),
+                             dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    code = _build.kernel(name)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if bits == 0 else k_scales.data_ptr(),
+        None if bits == 0 else v_scales.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), *lead, hkv, ps, d, maxp, p,
+        pps, _scale_arg(scale, d), 0 if window is None else int(window),
+        _DTYPES[q.dtype], bits, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(name, code)
+    return out
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     k_scales=None, v_scales=None, scale=None, window=None):
     """Single-query decode attention through a paged KV pool.
@@ -211,21 +276,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     b, h, d = q.shape
     bits = _check_pages("paged_attention", q, k_pages, v_pages, h, d,
                         k_scales, v_scales)
-    p, hkv, ps, _ = k_pages.shape
     _check_index("paged_attention", block_tables, q.device, dim=2)
     _check_index("paged_attention", lengths, q.device, shape=(b,))
     if block_tables.shape[0] != b:
         raise ValueError("paged_attention: block_tables must be (B, max_pages)")
-    out = torch.empty_like(q)
-    fn = _build.kernel("paged_attention")
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              None if bits == 0 else k_scales.data_ptr(),
-              None if bits == 0 else v_scales.data_ptr(),
-              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-              b, h, hkv, ps, d, block_tables.shape[1], p, _scale_arg(scale, d),
-              0 if window is None else int(window), _DTYPES[q.dtype], bits,
-              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("paged_attention", code)
+    out = _launch("paged_attention", q, k_pages, v_pages, block_tables,
+                  lengths, k_scales, v_scales, bits, scale, window)
     _build.LAUNCHES[_DECODE[bits]] += 1
     return out
 
@@ -260,22 +316,12 @@ def paged_attention_mq(q, k_pages, v_pages, block_tables, lengths, *,
             f"paged_attention_mq runs on cpu or cuda, not {q.device}")
     bits = _check_pages("paged_attention_mq", q, k_pages, v_pages, h, d,
                         k_scales, v_scales)
-    p, hkv, ps, _ = k_pages.shape
     _check_index("paged_attention_mq", block_tables, q.device, dim=2)
     _check_index("paged_attention_mq", lengths, q.device, shape=(b,))
     if block_tables.shape[0] != b:
         raise ValueError(
             "paged_attention_mq: block_tables must be (B, max_pages)")
-    out = torch.empty_like(q)
-    fn = _build.kernel("paged_attention_mq")
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              None if bits == 0 else k_scales.data_ptr(),
-              None if bits == 0 else v_scales.data_ptr(),
-              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-              b, t, h, hkv, ps, d, block_tables.shape[1], p,
-              _scale_arg(scale, d), 0 if window is None else int(window),
-              _DTYPES[q.dtype], bits,
-              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("paged_attention_mq", code)
+    out = _launch("paged_attention_mq", q, k_pages, v_pages, block_tables,
+                  lengths, k_scales, v_scales, bits, scale, window)
     _build.LAUNCHES[_MQ[bits]] += 1
     return out

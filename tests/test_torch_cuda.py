@@ -113,6 +113,135 @@ def test_mq_kernel_matches_plain_on_card(dev, bits):
                 rtol=1e-5, atol=1e-5)
 
 
+# The split-KV body (bf16 queries) and the fp32 body at a block-table width
+# the plan cuts into several splits: lengths at the page edges (1, 31, 32,
+# 33), a split's length +-1 and the full table; windows inside one split
+# (40) and windows that leave whole splits empty (300 and 100 of the
+# longest slots).  bf16 is held to 2e-2 against the plain version computed
+# in fp32 from the same inputs (the kernel rounds P to bf16 for the tensor
+# cores and rounds its output), fp32 to 1e-5 (summation order only).
+SPLIT_B, SPLIT_HKV, SPLIT_MAXP, SPLIT_PS = 10, 2, 48, 32
+SPLIT_WINDOWS = (None, 40, 100, 300)
+
+
+def _split_lengths():
+    from paddle_tpu_torch.kernels.paged_attention import split_plan
+
+    pps, n_split = split_plan(SPLIT_B, SPLIT_HKV, SPLIT_MAXP, SPLIT_PS)
+    assert n_split > 2
+    span = pps * SPLIT_PS
+    return [1, 31, 32, 33, span - 1, span, span + 1, 2 * span + 1,
+            SPLIT_MAXP * SPLIT_PS - 1, SPLIT_MAXP * SPLIT_PS]
+
+
+def _split_case(dev, g, bits, dtype):
+    """Pages of kind ``bits`` (float ones in ``dtype``), a shuffled block
+    table, and the pages the plain version reads in fp32."""
+    kp, vp, sc = _pool(dev, g, bits, P=1 + SPLIT_B * SPLIT_MAXP,
+                       HKV=SPLIT_HKV, PS=SPLIT_PS)
+    if bits is None:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    bt = torch.randperm(SPLIT_B * SPLIT_MAXP, device=dev, generator=g).add(1)
+    bt = bt.to(torch.int32).reshape(SPLIT_B, SPLIT_MAXP).contiguous()
+    kf, vf = (kp, vp) if sc else (kp.float(), vp.float())
+    return kp, vp, sc, bt, kf, vf
+
+
+def _held(out, ref, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        err = (out.float() - ref).abs().max().item()
+        assert err <= 2e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
+def test_split_decode_matches_plain_on_card(dev, bits, dtype):
+    """Decode over several splits, G in {1, 2, 4, 8}, every window; two
+    identical calls are bit-identical (the merge adds in a fixed order)."""
+    g = torch.Generator(device=dev).manual_seed(11 + (bits or 0))
+    lens = torch.tensor(_split_lengths(), dtype=torch.int32, device=dev)
+    for group in (1, 2, 4, 8):
+        kp, vp, sc, bt, kf, vf = _split_case(dev, g, bits, dtype)
+        q = torch.randn(SPLIT_B, group * SPLIT_HKV, 128, device=dev,
+                        generator=g).to(dtype)
+        for window in SPLIT_WINDOWS:
+            out = paged_attention(q, kp, vp, bt, lens, window=window, **sc)
+            ref = paged_attention_plain(q.float(), kf, vf, bt, lens,
+                                        window=window, **sc)
+            _held(out, ref, dtype)
+            again = paged_attention(q, kp, vp, bt, lens, window=window, **sc)
+            assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
+def test_split_verify_matches_plain_on_card(dev, bits, dtype):
+    """Verify over several splits, G in {1, 2, 4, 8} x T in {2, 5, 8}
+    (up to 64 rows: four row groups), every window; bit-identical
+    repeats."""
+    g = torch.Generator(device=dev).manual_seed(23 + (bits or 0))
+    for group in (1, 2, 4, 8):
+        kp, vp, sc, bt, kf, vf = _split_case(dev, g, bits, dtype)
+        for t in (2, 5, 8):
+            # the block's last row at most at the table's last position
+            lens = torch.tensor([max(0, n - t) for n in _split_lengths()],
+                                dtype=torch.int32, device=dev)
+            q = torch.randn(SPLIT_B, t, group * SPLIT_HKV, 128, device=dev,
+                            generator=g).to(dtype)
+            for window in SPLIT_WINDOWS:
+                out = paged_attention_mq(q, kp, vp, bt, lens, window=window,
+                                         **sc)
+                ref = paged_attention_mq_plain(q.float(), kf, vf, bt, lens,
+                                               window=window, **sc)
+                _held(out, ref, dtype)
+                again = paged_attention_mq(q, kp, vp, bt, lens,
+                                           window=window, **sc)
+                assert torch.equal(out, again)
+
+
+# page sizes and head dims of the split-KV body besides the engine's
+# (32, 128): pages smaller than a 32-key tile (zero-padded tiles), a page
+# of two tiles, D padded to 64 and to 128, and D=256 (two-warp groups)
+SPLIT_SHAPES = [(8, 128), (16, 64), (64, 128), (32, 96), (32, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,d", SPLIT_SHAPES,
+                         ids=[f"page{p}-d{d}" for p, d in SPLIT_SHAPES])
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
+def test_split_shapes_match_plain_on_card(dev, bits, ps, d):
+    """Decode (G=2) and verify (T=5, G=2) with bf16 queries over several
+    splits at other page sizes and head dims, with and without a window;
+    bit-identical repeats."""
+    g = torch.Generator(device=dev).manual_seed(ps + d + (bits or 0))
+    b, hkv, maxp = 4, 2, 1024 // ps
+    kp, vp, sc = _pool(dev, g, bits, P=1 + b * maxp, HKV=hkv, PS=ps, D=d)
+    if bits is None:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    kf, vf = (kp, vp) if sc else (kp.float(), vp.float())
+    bt = torch.randperm(b * maxp, device=dev, generator=g).add(1)
+    bt = bt.to(torch.int32).reshape(b, maxp).contiguous()
+    for t in (None, 5):
+        lens = [1, ps + 1, 600, 1024 - (t or 0)]
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        shape = (b, 2 * hkv, d) if t is None else (b, t, 2 * hkv, d)
+        q = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+        fn, plain = ((paged_attention, paged_attention_plain) if t is None
+                     else (paged_attention_mq, paged_attention_mq_plain))
+        for window in (None, 100):
+            out = fn(q, kp, vp, bt, lens, window=window, **sc)
+            ref = plain(q.float(), kf, vf, bt, lens, window=window, **sc)
+            _held(out, ref, torch.bfloat16)
+            assert torch.equal(out, fn(q, kp, vp, bt, lens, window=window,
+                                       **sc))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(2048, 6144), (8192, 2048), (128, 48)])
 def test_w8a8_gemm_is_exact_on_card(dev, k, n):

@@ -125,3 +125,77 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     c = paged_prefill(q, _t(kp), _t(vp), bt[0], 7)
     assert torch.equal(c, paged_prefill_plain(q, _t(kp), _t(vp), bt[0], 7))
     assert KERNELS == before
+
+
+# (batch, kv_heads, max_pages, page_size): the smoke's timed and GQA
+# shapes, one page, pages smaller and larger than the kernel's 32-key
+# tiles, and wide tables that need many splits
+PLAN_SHAPES = [(8, 16, 64, 32), (8, 4, 64, 32), (1, 1, 1, 32), (3, 2, 7, 8),
+               (64, 16, 512, 16), (2, 8, 33, 128), (16, 2, 1000, 32),
+               (10, 2, 24, 32)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=["-".join(map(str, s)) for s in PLAN_SHAPES])
+def test_split_plan_covers_every_page_once(shape):
+    """Every block-table entry lies in exactly one split, no split is
+    empty, and a split spans at least SPLIT_MIN_POSITIONS positions unless
+    the whole table is shorter."""
+    from paddle_tpu_torch.kernels.paged_attention import (
+        SPLIT_MIN_POSITIONS, split_plan)
+
+    batch, kv_heads, max_pages, page_size = shape
+    pps, n_split = split_plan(*shape)
+    cover = np.zeros(max_pages, int)
+    for s in range(n_split):
+        lo, hi = s * pps, min((s + 1) * pps, max_pages)
+        assert lo < hi
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    assert pps * page_size >= min(SPLIT_MIN_POSITIONS, max_pages * page_size)
+
+
+class _Untouchable(torch.Tensor):
+    """A lengths tensor that fails every use but handing over its
+    address, as the CUDA path may."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.data_ptr:
+            return super().__torch_function__(func, types, args, kwargs or {})
+        raise AssertionError(f"the wrapper read lengths ({func})")
+
+
+@pytest.mark.parametrize("t", [None, 5], ids=["decode", "verify"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES[:4],
+                         ids=["-".join(map(str, s)) for s in PLAN_SHAPES[:4]])
+def test_cuda_launch_plans_from_shapes_alone(monkeypatch, shape, t):
+    """The launch the wrappers make for bf16 queries: the kernel gets
+    split_plan's pages per split and a workspace exactly when there is
+    more than one split, and lengths is only passed on by address: the
+    plan reads nothing from the device."""
+    import importlib
+    import types
+
+    from paddle_tpu_torch.kernels import _build
+    mod = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
+
+    batch, hkv, maxp, ps = shape
+    calls = []
+    monkeypatch.setattr(_build, "kernel",
+                        lambda name: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    h, d = 2 * hkv, 16
+    q = torch.zeros((batch, h, d) if t is None else (batch, t, h, d),
+                    dtype=torch.bfloat16)
+    pages = torch.zeros(1 + batch * maxp, hkv, ps, d, dtype=torch.bfloat16)
+    bt = torch.zeros(batch, maxp, dtype=torch.int32)
+    lens = torch.zeros(batch, dtype=torch.int32).as_subclass(_Untouchable)
+    name = "paged_attention" if t is None else "paged_attention_mq"
+    mod._launch(name, q, pages, pages, bt, lens, None, None, 0, None, None)
+    pps, n_split = mod.split_plan(batch, hkv, maxp, ps)
+    args = calls[0]
+    ws, pps_arg = args[8], args[16 if t is None else 17]
+    assert pps_arg == pps
+    assert (ws is not None) == (n_split > 1)
