@@ -16,20 +16,22 @@ its seconds):
      Hkv=4 and a window=256 case; prefill chunks of 128 and 40 rows at
      starts 0 and 300), and the multi-query verify kernel at T=5 over the
      same three page kinds; decode and verify also at the serving runs'
-     own context lengths (64-576).  Tolerances: fp32 queries 1e-5 (kernel
+     own context lengths (64-576), prefill at the serving runs' own chunks
+     (128 rows at starts 0-512).  Tolerances: fp32 queries 1e-5 (kernel
      and plain version differ only in summation order, quantized pages
      dequantize exactly); bf16 2e-2 against the plain version computed in
      fp32 from the same inputs (the kernel rounds probabilities to bf16
      for the tensor cores, the plain version keeps them in fp32, and the
      kernel rounds its output).  Each kernel is timed, by CUDA-graph
      replay with the eager time beside, at the 2048-token lengths (the
-     kernels line), and decode and verify also in the GQA case and at the
-     serving lengths (logged);
+     kernels line), and also in the GQA case and at the serving lengths
+     and chunks (logged);
    - ``w8a8_gemm`` at GPT-1.3B's four projection shapes, M=8 (decode) and
      M=128 (prefill), and a ragged M=40, and at the training flagship's
      four projections at M=12288 with bf16 activations (run (d) of phase
-     5): the quantized activations, their scales and the output equal the
-     plain version bit for bit;
+     5, timed beside ``torch._int_mm``, summed over a layer with its
+     bound): the quantized activations, their scales and the output equal
+     the plain version bit for bit;
    - the flash forward, dQ and dK/dV kernels on q/k/v head views of one
      fused QKV tensor, as the model hands them over: the training
      flagship shape (B=12, H=12, S=1024, D=128, causal, bf16) in bsnd and
@@ -225,10 +227,6 @@ def _page_bytes(bits, d, elt):
     return d * elt if bits is None else (d if bits == 8 else d // 2) + 4
 
 
-def _visible(qpos, window):
-    return qpos + 1 if window is None else min(qpos + 1, window)
-
-
 def _dense_kv(gather_pages, pages, bt, sc, side, dtype):
     """A slot batch's K or V gathered dense (and dequantized) in ``dtype``:
     the operand of the SDPA yardstick, built outside its timing."""
@@ -331,15 +329,10 @@ def _time_attention(torch, label, case):
 
 def phase_paged(np, torch):
     """Decode, prefill and verify kernels over the three page kinds."""
-    import torch.nn.functional as F
-
-    from paddle_tpu_torch.kernels import (gather_pages, paged_prefill,
-                                          paged_prefill_plain)
-
     dev = torch.device("cuda")
     bf16, fp32 = torch.bfloat16, torch.float32
     rng = np.random.RandomState(0)
-    d, h, maxp = PAGED_D, PAGED_H, PAGED_MAXP
+    maxp = PAGED_MAXP
     results = {}
     cases = (("mha", 16, None, bf16), ("gqa4", 4, None, bf16),
              ("window256", 16, 256, bf16), ("mha_fp32", 16, None, fp32))
@@ -390,52 +383,104 @@ def phase_paged(np, torch):
             results[name]["max_abs_err"] = worst
             torch.cuda.empty_cache()
 
-    # prefill: C in {128, 40} x start in {0, 300}, GQA, window, fp32
-    pcases = [(f"c{cc}_s{st}", 16, None, bf16, cc, st)
-              for cc in (128, 40) for st in (0, 300)]
-    pcases += [("gqa4_c128_s300", 4, None, bf16, 128, 300),
-               ("window256_c128_s300", 16, 256, bf16, 128, 300),
-               ("fp32_c40_s300", 16, None, fp32, 40, 300)]
+    results.update(_prefill_cases(torch, gen, table))
+    return results
+
+
+def _prefill_case(torch, g, table, bits, hkv, window, dtype, cc, st):
+    """One prefill chunk of ``cc`` rows at ``st`` over a slot's 64-entry
+    table of pages of kind ``bits``, held against the plain version
+    computed in fp32 from the same inputs; returns the call's operands and
+    the max abs error."""
+    from paddle_tpu_torch.kernels import paged_prefill, paged_prefill_plain
+
+    maxp = PAGED_MAXP
+    kp, vp, sc = _pages(torch, g, 1 + maxp, hkv, dtype, bits)
+    q = torch.randn(cc, PAGED_H, PAGED_D, device="cuda",
+                    generator=g).to(dtype)
+    bt = table((maxp,), 1 + maxp)
+    out = paged_prefill(q, kp, vp, bt, st, window=window, **sc)
+    ref = paged_prefill_plain(q.float(), _float(kp, sc), _float(vp, sc), bt,
+                              st, window=window, **sc)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    return dict(q=q, kp=kp, vp=vp, sc=sc, bt=bt, st=st, bits=bits), err
+
+
+def _time_prefill(torch, label, case):
+    """Time one unwindowed prefill case of :func:`_prefill_case` beside
+    SDPA on its gathered, dequantized dense K/V."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import (gather_pages, paged_prefill,
+                                          paged_prefill_plain)
+
+    q, kp, vp, sc, bt, st = (case[k] for k in
+                             ("q", "kp", "vp", "sc", "bt", "st"))
+    cc, h, d, hkv = q.shape[0], PAGED_H, PAGED_D, kp.shape[1]
+    s_vis = st + cc
+    kd = _dense_kv(gather_pages, kp, bt[None], sc, "k", q.dtype)[:, :, :s_vis]
+    vd = _dense_kv(gather_pages, vp, bt[None], sc, "v", q.dtype)[:, :, :s_vis]
+    if hkv != h:
+        kd, vd = (x.repeat_interleave(h // hkv, dim=1) for x in (kd, vd))
+    qpos = st + torch.arange(cc, device=q.device)[:, None]
+    mask = torch.arange(s_vis, device=q.device)[None, :] <= qpos
+    qd = q.transpose(0, 1)[None]
+    vis = sum(st + i + 1 for i in range(cc))
+    nbytes = (2 * s_vis * hkv * _page_bytes(case["bits"], d, 2)
+              + 2 * cc * h * d * 2 + bt.numel() * 4)
+    return _time_case(
+        label, lambda: paged_prefill(q, kp, vp, bt, st, **sc),
+        lambda: paged_prefill_plain(q, kp, vp, bt, st, **sc),
+        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+        nbytes, 4 * vis * h * d)
+
+
+# prefill: C in {128, 40} x start in {0, 300}, GQA, window, fp32 queries;
+# timed at C=128, start 300 (the kernels line) and, logged, at the serving
+# runs' own chunks (128 rows of prompts of up to 640 tokens) and with GQA
+PREFILL_CASES = ([(f"c{cc}_s{st}", 16, None, "bf16", cc, st)
+                  for cc in (128, 40) for st in (0, 300)]
+                 + [("gqa4_c128_s300", 4, None, "bf16", 128, 300),
+                    ("window256_c128_s300", 16, 256, "bf16", 128, 300),
+                    ("fp32_c40_s300", 16, None, "fp32", 40, 300)])
+PREFILL_SERVING_STARTS = (0, 128, 256, 384, 512)
+
+
+def _prefill_cases(torch, gen, table):
+    """The prefill kernel over the three page kinds: every case of
+    PREFILL_CASES held against the plain version, the timed case, and the
+    serving chunks and the GQA case timed and logged; returns each kind's
+    entry of the kernels line."""
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    results = {}
     for bits, suffix in KINDS.items():
         name = "paged_prefill" + suffix
         worst = 0.0
-        for case, hkv, window, dtype, cc, st in pcases:
-            g = gen()
-            kp, vp, sc = _pages(torch, g, 1 + maxp, hkv, dtype, bits)
-            q = torch.randn(cc, h, d, device=dev, generator=g).to(dtype)
-            bt = table((maxp,), 1 + maxp)
-            out = paged_prefill(q, kp, vp, bt, st, window=window, **sc)
-            ref = paged_prefill_plain(q.float(), _float(kp, sc),
-                                      _float(vp, sc), bt, st, window=window,
-                                      **sc)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            _check(f"{name} {case}", err, 1e-5 if dtype == fp32 else 2e-2)
-            if dtype == bf16:
+        for label, hkv, window, dt, cc, st in PREFILL_CASES:
+            case, err = _prefill_case(torch, gen(), table, bits, hkv, window,
+                                      dtypes[dt], cc, st)
+            _check(f"{name} {label}", err, 1e-5 if dt == "fp32" else 2e-2)
+            if dt == "bf16":
                 worst = max(worst, err)
-            if case != "c128_s300":
-                continue
-            s_vis = st + cc
-            kd = _dense_kv(gather_pages, kp, bt[None], sc, "k",
-                           dtype)[:, :, :s_vis]
-            vd = _dense_kv(gather_pages, vp, bt[None], sc, "v",
-                           dtype)[:, :, :s_vis]
-            qpos = st + torch.arange(cc, device=dev)[:, None]
-            mask = torch.arange(s_vis, device=dev)[None, :] <= qpos
-            qd = q.transpose(0, 1)[None]
-            vis = sum(_visible(st + i, window) for i in range(cc))
-            nbytes = (2 * s_vis * hkv * _page_bytes(bits, d, 2)
-                      + 2 * cc * h * d * 2 + bt.numel() * 4)
-            results[name] = _time_case(
-                f"{name} timed case: C=128 start=300 H=Hkv=16 D=128 page "
-                "32, bf16 queries",
-                lambda: paged_prefill(q, kp, vp, bt, st, **sc),
-                lambda: paged_prefill_plain(q, kp, vp, bt, st, **sc),
-                lambda: F.scaled_dot_product_attention(qd, kd, vd,
-                                                       attn_mask=mask),
-                nbytes, 4 * vis * h * d)
+            shape = (f"C={cc} start={st} H=16 Hkv={hkv} D=128 page 32, bf16 "
+                     "queries")
+            if label == "c128_s300":
+                results[name] = _time_prefill(
+                    torch, f"{name} timed case: {shape}", case)
+            elif label == "gqa4_c128_s300":
+                _time_prefill(torch, f"{name} GQA case: {shape}", case)
+            del case
+        for st in PREFILL_SERVING_STARTS:
+            case, err = _prefill_case(torch, gen(), table, bits, 16, None,
+                                      torch.bfloat16, 128, st)
+            _check(f"{name} serving chunk at {st}", err, 2e-2)
+            worst = max(worst, err)
+            _time_prefill(torch, f"{name} serving chunk: C=128 start={st} "
+                          "H=Hkv=16 D=128 page 32, bf16 queries", case)
+            del case
         results[name]["max_abs_err"] = worst
-
+        torch.cuda.empty_cache()
     return results
 
 
@@ -503,6 +548,7 @@ def phase_gemm(np, torch):
     # the training flagship's projections at its M = 12 x 1024 rows, bf16
     # activations and the live weight quantized as w8a8_matmul does
     m = TRAIN_BATCH * TRAIN_SEQ
+    train = dict(ms=0.0, library_ms=0.0, bytes=0, ops=0)
     for proj, (k, n) in TRAIN_PROJ.items():
         w = (torch.randn(k, n, device=dev, generator=g) * 0.02).bfloat16()
         wq, ws = quantize_per_channel(w.float().t(), axis=0)
@@ -511,13 +557,23 @@ def phase_gemm(np, torch):
         got = w8a8_gemm(x, wq, ws, return_quantized=True)
         want = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        ms = time_ms(lambda: w8a8_gemm(x, wq, ws), 5)
+        lib_ms = time_ms(lambda: torch._int_mm(got[1], wq.t()), 5)
         log(f"w8a8_gemm training {proj} M={m} K={k} N={n}, bf16: bit-exact "
-            f"{exact}; kernel {time_ms(lambda: w8a8_gemm(x, wq, ws), 5):.4f} "
-            f"ms, _int_mm on the quantized operands "
-            f"{time_ms(lambda: torch._int_mm(got[1], wq.t()), 5):.4f} ms")
+            f"{exact}; kernel {ms:.4f} ms, _int_mm on the quantized operands "
+            f"{lib_ms:.4f} ms")
         if not exact:
             raise AssertionError(f"w8a8_gemm training {proj} is not exact")
+        for key, val in (("ms", ms), ("library_ms", lib_ms),
+                         ("bytes", m * k * 2 + n * k + n * 4 + m * n * 2),
+                         ("ops", 2 * m * n * k)):
+            train[key] += val
         del x, got, want
+    bms, by = bound_ms(train["bytes"], train["ops"], INT8_OPS)
+    log(f"w8a8_gemm one training layer's forward (M={m}, qkv + proj + fc1 + "
+        f"fc2, bf16 x): {train['ms']:.4f} ms, _int_mm {train['library_ms']:.4f}"
+        f" ms ({train['ms'] / train['library_ms']:.2f}x), bound {bms:.4f} ms "
+        f"({by}); 96 launches a step in training run (d)")
     bms, by = bound_ms(tot["bytes"], tot["ops"], INT8_OPS)
     log(f"w8a8_gemm one decode layer (M=8, qkv + proj + fc1 + fc2): "
         f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, _int_mm "
@@ -665,7 +721,7 @@ def _time_flash(np, torch, case, worst, d=128):
     ms = {"flash_fwd": time_ms(lambda: flash_fwd_cuda(
               q, k, v, causal, scale, window, layout)),
           "flash_bwd_dq": time_ms(lambda: flash_bwd_dq_cuda(
-              q, k, v, lse, delta, do, causal, scale, window, layout)),
+              q, k, v, out, lse, delta, do, causal, scale, window, layout)),
           "flash_bwd_dkv": time_ms(lambda: flash_bwd_dkv_cuda(
               q, k, v, lse, delta, do, causal, scale, window, layout))}
     plain_fwd = time_ms(lambda: flash_fwd_plain(q, k, v, causal, scale,
@@ -751,13 +807,17 @@ def _profile(torch, what, fn):
         f"{busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
-    # the paged decode or verify kernels: the split-KV body and its merge
-    # (bf16), or the one-block-per-slot body (fp32)
-    attn = sum(ms for name, ms in by_name.items()
-               if any(k in name for k in ("split_kernel", "merge_kernel",
-                                          "paged_decode", "paged_mq")))
-    log(f"  paged decode / verify kernels: {attn:.2f} ms "
-        f"({100 * attn / max(busy, 1e-9):.1f}% of device time)")
+    # the paged kernels: the split-KV body and its merge for bf16 queries
+    # (decode and verify in its tile split, prefill in its row split:
+    # template argument false or true), the FMA bodies for fp32 ones
+    for kind, keys in (("decode / verify", ("false>", "paged_decode",
+                                            "paged_mq")),
+                       ("prefill", ("true>", "paged_prefill"))):
+        ms = sum(t for name, t in by_name.items()
+                 if ("ptt::" in name or "paged_" in name)
+                 and any(k in name for k in keys))
+        log(f"  paged {kind} kernels: {ms:.2f} ms "
+            f"({100 * ms / max(busy, 1e-9):.1f}% of device time)")
 
 
 # label, engine options, requests, motif prompts, kernel variants it runs

@@ -10,10 +10,9 @@
 // - lse) (0 where masked), dp = dO.v in fp32, ds = p * (dp - delta) *
 // scale.
 //
-// dQ (flash_bwd_dq_kernel, both dtypes): the shared-memory design of
-// flash_common.cuh.  Grid (query tiles, query heads, batch), heaviest
-// tiles first.  A block keeps its Q and dO tiles and walks the k-tiles
-// [lo, hi): dQ += ds.K with ds cast to K's dtype first.
+// dQ: grid (query tiles, query heads, batch), heaviest tiles first.  A
+// block keeps its Q and dO tiles and walks the k-tiles [lo, hi): dQ +=
+// ds.K with ds cast to K's dtype first.
 //
 // dK/dV: grid (key tiles, KV heads, batch), the heaviest causal tiles
 // (smallest key index) first.  A block keeps its K and V tiles and, for
@@ -24,32 +23,47 @@
 // (flash.py _bwd_call_smajor), the block loops over the group itself and
 // accumulates all of it in fp32: no partial buffers.
 //
-// bf16 (flash_bwd_dkv_bf16): at the training shape its 8 B*H*S^2*D/2
-// flops bound it (0.078 ms against 0.068 ms of bytes), and what stood
-// between the old kernel and the tensor cores was shared-memory traffic.
-// So a block of NW warps owns BK key rows; each warp owns 16 of them and
-// DP / DSPLIT columns of their dK and dV, which accumulate in registers
-// for the block's life (at D = 128: 4 warps, 64 key rows, 64-row query
-// tiles, 255 registers a thread and no spill; 8 warps over 128 keys,
-// 32-row query tiles or D split over two warps measured 7-69% slower on
-// an H100).  K and V stay in shared memory.  Q, dO, lse and
-// delta of BQ query rows stream through a 2-stage cp.async ring (the
-// next (head, q-tile) pair in flight while this one is computed on).  With
-// keys as rows, S^T = K.Q^T and dP^T = V.dO^T come out in the accumulator
+// bf16, both kernels: at the training shape their 6 (dQ) and 8 (dK/dV)
+// B*H*S^2*D/2 flops bound them (0.059 and 0.078 ms against 0.057 and 0.068
+// ms of bytes), and what stood between the first, shared-memory kernels and the
+// tensor cores was shared-memory traffic (S, dP, dS and the accumulators
+// as fp32 tiles, wmma, five block barriers a tile).  So both are register-
+// fragment kernels on flash_common.cuh's toolkit.
+//
+// flash_bwd_dq_bf16: a block of NW warps owns BQ query rows; each warp owns
+// 16 of them and DP / DSPLIT columns of their dQ, which accumulates in
+// registers for the block's life.  Q and dO arrive once by cp.async into
+// padded tiles (A fragments by ldmatrix); K and V stream through a 2-stage
+// cp.async ring of BK-row tiles with zero-filled ragged rows.  S = Q.K^T
+// and dP = dO.V^T come out in the accumulator layout, each lane keeps its
+// two rows' lse and delta in registers, p and ds are formed in registers,
+// and dS, rounded to bf16, is the A operand of dQ += dS.K directly (K's B
+// fragments by ldmatrix.trans): no S, P or dS tile touches shared memory.
+// Per-element masks run only on a warp's tiles that cross the diagonal,
+// the window's edge or row S.  At DP = 256 two warps share each 16 query
+// rows (DSPLIT = 2), each recomputing S and dP, so that dQ fits in
+// registers.
+//
+// flash_bwd_dkv_bf16: a block of NW warps owns BK key rows; each warp owns
+// 16 of them and DP / DSPLIT columns of their dK and dV, which accumulate
+// in registers for the block's life (at D = 128: 4 warps, 64 key rows,
+// 64-row query tiles, 255 registers a thread and no spill; 8 warps over
+// 128 keys, 32-row query tiles or D split over two warps measured 7-69%
+// slower on an H100).  K and V stay in shared memory.  Q, dO, lse and
+// delta of BQ query rows stream through a 2-stage cp.async ring (the next
+// (head, q-tile) pair in flight while this one is computed on).  With keys
+// as rows, S^T = K.Q^T and dP^T = V.dO^T come out in the accumulator
 // layout (Q's and dO's B fragments by ldmatrix), p and ds are formed in
 // registers (each lane reads lse and delta of its own query columns), and
-// P^T and dS^T, rounded to bf16, are the A operands of dV += P^T.dO and
-// dK += dS^T.Q directly (dO's and Q's B fragments by ldmatrix.trans): no
-// S, P or dS tile touches shared memory.  Per-element masks run only on a
-// warp's tiles that cross the diagonal, the window's edge or row S.  The
-// reference keeps P in fp32 for P^T.dO; this kernel feeds the tensor
-// cores bf16 P (as the forward does for P.V), a rounding the bf16
-// tolerance of the comparison covers.  At DP = 256 two warps share each
-// 16 key rows (DSPLIT = 2), each recomputing S^T and dP^T, so that the
-// accumulators fit in registers.
+// P^T and dS^T, rounded to bf16, are the A operands of dV += P^T.dO and dK
+// += dS^T.Q directly (dO's and Q's B fragments by ldmatrix.trans).  The
+// reference keeps P in fp32 for P^T.dO; this kernel feeds the tensor cores
+// bf16 P (as the forward does for P.V), a rounding the bf16 tolerance of
+// the comparison covers.  At DP = 256 two warps share each 16 key rows.
 //
-// fp32 (flash_bwd_dkv_fp32_kernel): the shared-memory design, fp32 FMAs;
-// P stays fp32.
+// fp32 (flash_bwd_dq_fp32_kernel, flash_bwd_dkv_fp32_kernel): the shared-
+// memory design of flash_common.cuh, fp32 FMAs; P stays fp32.  The dQ
+// kernel forms dp - delta in fp64 from O itself (see there).
 
 #include "flash_common.cuh"
 
@@ -59,113 +73,114 @@ struct BwdSmem {
   size_t q, dout, k, v, s, dp, p, ds, acc1, acc2, lse, delta, total;
 };
 
-// dkv: the accumulators are dK and dV over key rows (BK); otherwise dQ
-// over query rows (BQ) and no P tile.
-__host__ __device__ inline BwdSmem bwd_smem(int BQ, int BK, int DP, int elt,
-                                            bool dkv) {
+// Shared memory of the fp32 kernels.  dkv: the accumulators are dK and dV
+// over key rows (BK), with P and dP tiles; otherwise dQ over query rows
+// (BQ), whose tile first stages O, and fp64 delta.
+__host__ __device__ inline BwdSmem bwd_smem(int BQ, int BK, int DP, bool dkv) {
   Carve c;
   BwdSmem t;
-  const int ldt = tile_ld(DP, elt);
+  const int ldt = tile_ld(DP, 4);
   const size_t sf = size_t(BQ) * tile_ld(BK, 4) * 4;
-  const size_t st = size_t(BQ) * tile_ld(BK, elt) * elt;
-  const size_t acc = size_t(dkv ? BK : BQ) * tile_ld(DP, 4) * 4;
-  t.q = c.take(size_t(BQ) * ldt * elt);
-  t.dout = c.take(size_t(BQ) * ldt * elt);
-  t.k = c.take(size_t(BK) * ldt * elt);
-  t.v = c.take(size_t(BK) * ldt * elt);
+  const size_t acc = size_t(dkv ? BK : BQ) * ldt * 4;
+  t.q = c.take(size_t(BQ) * ldt * 4);
+  t.dout = c.take(size_t(BQ) * ldt * 4);
+  t.k = c.take(size_t(BK) * ldt * 4);
+  t.v = c.take(size_t(BK) * ldt * 4);
   t.s = c.take(sf);
-  t.dp = c.take(sf);
-  t.p = dkv ? c.take(st) : 0;
-  t.ds = c.take(st);
+  t.dp = dkv ? c.take(sf) : 0;
+  t.p = dkv ? c.take(sf) : 0;
+  t.ds = c.take(sf);
   t.acc1 = c.take(acc);
   t.acc2 = dkv ? c.take(acc) : 0;
   t.lse = c.take(size_t(BQ) * 4);
-  t.delta = c.take(size_t(BQ) * 4);
+  t.delta = c.take(size_t(BQ) * 8);
   t.total = c.off;
   return t;
 }
 
-// Q and dO rows [q0, q0 + BQ) of head h, with their lse and delta (0 on
-// the ragged edge, whose rows every product masks out).
-template <typename T>
-__device__ void load_q_side(const Args& a, int b, int h, int q0, T* sq,
-                            T* sdo, int ldt, float* slse, float* sdelta) {
-  load_rows(sq, ldt, slice<const T>(a.q, b, h), a.q.s, q0, a.BQ, a.S, a.D, a.DP);
-  load_rows(sdo, ldt, slice<const T>(a.dout, b, h), a.dout.s, q0, a.BQ, a.S,
-            a.D, a.DP);
+// Q and dO rows [q0, q0 + BQ) of head h, with their lse (0 on the ragged
+// edge, whose rows every product masks out).
+__device__ void load_q_side(const Args& a, int b, int h, int q0, float* sq, float* sdo,
+                            int ldt, float* slse) {
+  load_rows(sq, ldt, slice<const float>(a.q, b, h), a.q.s, q0, a.BQ, a.S, a.D, a.DP);
+  load_rows(sdo, ldt, slice<const float>(a.dout, b, h), a.dout.s, q0, a.BQ, a.S, a.D,
+            a.DP);
   const size_t row = (size_t(b) * a.H + h) * a.S;
-  for (int r = threadIdx.x; r < a.BQ; r += blockDim.x) {
-    const bool in = q0 + r < a.S;
-    slse[r] = in ? a.lse[row + q0 + r] : 0.f;
-    sdelta[r] = in ? a.delta[row + q0 + r] : 0.f;
-  }
+  for (int r = threadIdx.x; r < a.BQ; r += blockDim.x)
+    slse[r] = q0 + r < a.S ? a.lse[row + q0 + r] : 0.f;
 }
 
-// p and ds of one (q-tile, k-tile) pair from S = Q.K^T and dP = dO.V^T;
-// p is written only when sp is given (the dK/dV kernel).
-template <typename T>
-__device__ void probs_and_ds(const Args& a, int q0, int k0, const float* ss,
-                             const float* sdp, int lds, const float* slse,
-                             const float* sdelta, T* sp, T* sds, int ldp) {
-  for (int e = threadIdx.x; e < a.BQ * a.BK; e += blockDim.x) {
-    const int r = e / a.BK, c = e - r * a.BK;
-    const float p = visible(a, q0 + r, k0 + c)
-                        ? expf(ss[r * lds + c] * a.scale - slse[r])
-                        : 0.f;
-    if (sp) sp[r * ldp + c] = from_float<T>(p);
-    sds[r * ldp + c] = from_float<T>(p * (sdp[r * lds + c] - sdelta[r]) * a.scale);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
+// dQ, fp32: a block keeps its Q, dO (and O, for delta) tiles and walks the
+// k-tiles [lo, hi): dQ += ds.K.  dp = dO.v and delta = rowsum(dO * O) are
+// summed in fp64 and their difference rounded to fp32 once (the plain
+// version does the same): where they cancel, as for a query that sees one
+// key (its O is that key's V, so its dQ is 0 exactly, as the reference's
+// autodiff gives), no fp32 summation noise is left.
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_fp32_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
-  const int BQ = a.BQ, BK = a.BK, DP = a.DP, elt = sizeof(T);
-  const int ldt = tile_ld(DP, elt), lds = tile_ld(BK, 4);
-  const int ldp = tile_ld(BK, elt), ldo = tile_ld(DP, 4);
-  const BwdSmem L = bwd_smem(BQ, BK, DP, elt, false);
-  T* sq = reinterpret_cast<T*>(smem + L.q);
-  T* sdo = reinterpret_cast<T*>(smem + L.dout);
-  T* sk = reinterpret_cast<T*>(smem + L.k);
-  T* sv = reinterpret_cast<T*>(smem + L.v);
+  const int BQ = a.BQ, BK = a.BK, DP = a.DP;
+  const int ld = tile_ld(DP, 4), lds = tile_ld(BK, 4);
+  const BwdSmem L = bwd_smem(BQ, BK, DP, false);
+  float* sq = reinterpret_cast<float*>(smem + L.q);
+  float* sdo = reinterpret_cast<float*>(smem + L.dout);
+  float* sk = reinterpret_cast<float*>(smem + L.k);
+  float* sv = reinterpret_cast<float*>(smem + L.v);
   float* ss = reinterpret_cast<float*>(smem + L.s);
-  float* sdp = reinterpret_cast<float*>(smem + L.dp);
-  T* sds = reinterpret_cast<T*>(smem + L.ds);
+  float* sds = reinterpret_cast<float*>(smem + L.ds);
   float* sdq = reinterpret_cast<float*>(smem + L.acc1);
   float* slse = reinterpret_cast<float*>(smem + L.lse);
-  float* sdelta = reinterpret_cast<float*>(smem + L.delta);
+  double* sdelta = reinterpret_cast<double*>(smem + L.delta);
 
   const int q0 = qt * BQ;
-  load_q_side(a, b, h, q0, sq, sdo, ldt, slse, sdelta);
-  zero(sdq, BQ, DP, ldo);
-  const T* kb = slice<const T>(a.k, b, kvh);
-  const T* vb = slice<const T>(a.v, b, kvh);
+  load_q_side(a, b, h, q0, sq, sdo, ld, slse);
+  load_rows(sdq, ld, slice<const float>(a.o, b, h), a.o.s, q0, BQ, a.S, a.D, DP);
+  __syncthreads();
+  for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
+    double acc = 0.0;
+    for (int d = 0; d < DP; ++d) acc = fma(double(sdo[r * ld + d]), double(sdq[r * ld + d]), acc);
+    sdelta[r] = acc;
+  }
+  __syncthreads();
+  zero(sdq, BQ, DP, ld);
+  const float* kb = slice<const float>(a.k, b, kvh);
+  const float* vb = slice<const float>(a.v, b, kvh);
   int lo, hi;
   k_tiles(a, qt, &lo, &hi);
   for (int j = lo; j < hi; ++j) {
     __syncthreads();  // the previous tile's K and dS are consumed
-    load_rows(sk, ldt, kb, a.k.s, j * BK, BK, a.S, a.D, DP);
-    load_rows(sv, ldt, vb, a.v.s, j * BK, BK, a.S, a.D, DP);
+    load_rows(sk, ld, kb, a.k.s, j * BK, BK, a.S, a.D, DP);
+    load_rows(sv, ld, vb, a.v.s, j * BK, BK, a.S, a.D, DP);
     __syncthreads();
-    tile_mm<false, true>(ss, lds, sq, ldt, sk, ldt, BQ, BK, DP, false);
-    tile_mm<false, true>(sdp, lds, sdo, ldt, sv, ldt, BQ, BK, DP, false);
+    tile_mm<false, true>(ss, lds, sq, ld, sk, ld, BQ, BK, DP, false);
     __syncthreads();
-    probs_and_ds<T>(a, q0, j * BK, ss, sdp, lds, slse, sdelta, nullptr, sds, ldp);
+    for (int e = threadIdx.x; e < BQ * BK; e += blockDim.x) {
+      const int r = e / BK, c = e - r * BK;
+      float ds = 0.f;
+      if (visible(a, q0 + r, j * BK + c)) {
+        double dp = 0.0;
+        for (int d = 0; d < DP; ++d) dp = fma(double(sdo[r * ld + d]), double(sv[c * ld + d]), dp);
+        const float p = expf(ss[r * lds + c] * a.scale - slse[r]);
+        ds = p * float(dp - sdelta[r]) * a.scale;
+      }
+      sds[r * lds + c] = ds;
+    }
     __syncthreads();
-    tile_mm<false, false>(sdq, ldo, sds, ldp, sk, ldt, BQ, DP, BK, true);
+    tile_mm<false, false>(sdq, ld, sds, lds, sk, ld, BQ, DP, BK, true);
   }
   __syncthreads();
-  store_rows(slice<T>(a.dq, b, h), a.dq.s, sdq, ldo, nullptr, q0, BQ, a.S, a.D);
+  store_rows(slice<float>(a.dq, b, h), a.dq.s, sdq, ld, nullptr, q0, BQ, a.S, a.D);
 }
 
+// dK/dV, fp32: p and ds of one (q-tile, k-tile) pair from S = Q.K^T and
+// dP = dO.V^T, delta from the wrapper.
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fp32_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int BQ = a.BQ, BK = a.BK, DP = a.DP;
   const int ld = tile_ld(DP, 4), lds = tile_ld(BK, 4);
-  const BwdSmem L = bwd_smem(BQ, BK, DP, 4, true);
+  const BwdSmem L = bwd_smem(BQ, BK, DP, true);
   float* sq = reinterpret_cast<float*>(smem + L.q);
   float* sdo = reinterpret_cast<float*>(smem + L.dout);
   float* sk = reinterpret_cast<float*>(smem + L.k);
@@ -188,14 +203,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fp32_kernel(Args a) {
   q_tiles(a, kt, &lo, &hi);
   for (int g = 0; g < a.G; ++g) {
     const int h = kvh * a.G + g;
+    const size_t row = (size_t(b) * a.H + h) * a.S;
     for (int i = lo; i < hi; ++i) {
+      const int q0 = i * BQ;
       __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-      load_q_side(a, b, h, i * BQ, sq, sdo, ld, slse, sdelta);
+      load_q_side(a, b, h, q0, sq, sdo, ld, slse);
+      for (int r = threadIdx.x; r < BQ; r += blockDim.x)
+        sdelta[r] = q0 + r < a.S ? a.delta[row + q0 + r] : 0.f;
       __syncthreads();
       tile_mm<false, true>(ss, lds, sq, ld, sk, ld, BQ, BK, DP, false);
       tile_mm<false, true>(sdp, lds, sdo, ld, sv, ld, BQ, BK, DP, false);
       __syncthreads();
-      probs_and_ds(a, i * BQ, k0, ss, sdp, lds, slse, sdelta, sp, sds, lds);
+      for (int e = threadIdx.x; e < BQ * BK; e += blockDim.x) {
+        const int r = e / BK, c = e - r * BK;
+        const float p = visible(a, q0 + r, k0 + c) ? expf(ss[r * lds + c] * a.scale - slse[r])
+                                                   : 0.f;
+        sp[r * lds + c] = p;
+        sds[r * lds + c] = p * (sdp[r * lds + c] - sdelta[r]) * a.scale;
+      }
       __syncthreads();
       tile_mm<true, false>(sdv, ld, sp, lds, sdo, ld, BK, DP, BQ, true);
       tile_mm<true, false>(sdk, ld, sds, lds, sq, ld, BK, DP, BQ, true);
@@ -204,6 +229,154 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fp32_kernel(Args a) {
   __syncthreads();
   store_rows(slice<float>(a.dk, b, kvh), a.dk.s, sdk, ld, nullptr, k0, BK, a.S, a.D);
   store_rows(slice<float>(a.dv, b, kvh), a.dv.s, sdv, ld, nullptr, k0, BK, a.S, a.D);
+}
+
+// Tiles of the bf16 dQ kernel: NW warps, DSPLIT of them over each 16
+// query rows (BQ = 16 NW / DSPLIT), BK-row K/V tiles in a 2-stage ring.
+template <int DP_, int NW_, int DSPLIT_, int BK_>
+struct DqTile {
+  static constexpr int DP = DP_, NW = NW_, DSPLIT = DSPLIT_, BK = BK_, STAGES = 2;
+  static constexpr int NT = 32 * NW, RW = NW / DSPLIT, BQ = 16 * RW, LD = tile_ld(DP, 2);
+  static constexpr int DW = DP / DSPLIT;  // columns of dQ a warp owns
+  static constexpr int KD = DP / 16;      // k16 steps over d (S, dP)
+  static constexpr int NS = BK / 8;       // n8 tiles of S and dP
+  static constexpr int NA = DW / 8;       // n8 tiles of dQ
+  static constexpr size_t Q_ELEMS = size_t(BQ) * LD;   // one of Q, dO
+  static constexpr size_t KV_ELEMS = size_t(BK) * LD;  // one of K, V
+  static constexpr size_t SMEM = 2 * Q_ELEMS * 2 + size_t(STAGES) * 2 * KV_ELEMS * 2;
+};
+
+template <typename C>
+__global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
+  constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sdo = sq + C::Q_ELEMS;
+  bf16* skv = sdo + C::Q_ELEMS;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = qt * C::BQ, wr = (warp % C::RW) * 16, r0 = q0 + wr;
+  const int d0 = (warp / C::RW) * C::DW;
+  const bf16* kb = slice<const bf16>(a.k, b, kvh);
+  const bf16* vb = slice<const bf16>(a.v, b, kvh);
+  int lo, hi;
+  k_tiles(a, qt, &lo, &hi);
+
+  auto load_kv = [&](int j) {
+    bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.S, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.S, a.D);
+  };
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.S, a.D);
+  cp_rows<C::BQ, C::DP, C::NT>(sdo, slice<const bf16>(a.dout, b, h), a.dout.s, q0, a.S,
+                               a.D);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (lo + s < hi) load_kv(lo + s);
+    cp_async_commit();
+  }
+
+  // lse (base 2) and delta of this lane's rows g and g + 8 (0 past row S,
+  // where every tile is an edge tile and p is masked to 0)
+  const float scale2 = a.scale * kLog2e;
+  const size_t row = (size_t(b) * a.H + h) * a.S;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + (lane >> 2) + hf * 8;
+    lse2[hf] = r < a.S ? a.lse[row + r] * kLog2e : 0.f;
+    dl[hf] = r < a.S ? a.delta[row + r] : 0.f;
+  }
+  float dq[C::NA][4];
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  for (int j = lo; j < hi; ++j) {
+    cp_async_wait<STAGES - 2>();  // tile j (and Q, dO) have landed
+    __syncthreads();              // ... for every thread; tile j - 1 is consumed
+    if (j + STAGES - 1 < hi) load_kv(j + STAGES - 1);
+    cp_async_commit();
+    const int k0 = j * BK;
+    if (none_visible(a, r0, 16, k0, BK)) continue;
+    const bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    const bf16* sv = sk + C::KV_ELEMS;
+
+    // S = Q.K^T and dP = dO.V^T: 16 queries x BK keys each
+    float s[C::NS][4], dp[C::NS][4];
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk) {
+      uint32_t qa[4], oa[4];
+      frag_a<LD>(qa, sq, wr, kk * 16);
+      frag_a<LD>(oa, sdo, wr, kk * 16);
+#pragma unroll
+      for (int n = 0; n < C::NS; n += 2) {
+        uint32_t kf[4], vf[4];
+        frag_b_rows<LD>(kf, sk, n * 8, kk * 16);
+        mma16816(s[n], qa, kf[0], kf[1]);
+        mma16816(s[n + 1], qa, kf[2], kf[3]);
+        frag_b_rows<LD>(vf, sv, n * 8, kk * 16);
+        mma16816(dp[n], oa, vf[0], vf[1]);
+        mma16816(dp[n + 1], oa, vf[2], vf[3]);
+      }
+    }
+
+    // p = exp(s * scale - lse) and ds = p (dp - delta) scale (in dp);
+    // element e: query row g + (e / 2) * 8, key column 2t + (e % 2) of
+    // tile n.  Masks only where the warp's tile crosses an edge.
+    const bool edge = !all_visible(a, r0, 16, k0, BK);
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[n][e] * scale2 - lse2[e >> 1]);
+        if (edge && !visible(a, r0 + (lane >> 2) + (e >> 1) * 8, k0 + n * 8 + 2 * (lane & 3) + (e & 1)))
+          p = 0.f;
+        dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * a.scale;
+      }
+
+    // dQ += dS.K over the warp's columns: dS, rounded to bf16 (K's dtype,
+    // as the reference casts it), is the A operand; K's B fragments by
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t da[4];
+      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < C::NA; n += 2) {
+        uint32_t kf[4];
+        frag_b_cols<LD>(kf, sk, kk * 16, d0 + n * 8);
+        mma16816(dq[n], da, kf[0], kf[1]);
+        mma16816(dq[n + 1], da, kf[2], kf[3]);
+      }
+    }
+  }
+
+  // epilogue: dQ through the Q tile (every warp is done with it), 16-byte
+  // stores
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int at = (wr + (lane >> 2) + hf * 8) * LD + d0 + n * 8 + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(sq + at) = pack_bf16(dq[n][2 * hf], dq[n][2 * hf + 1]);
+    }
+  __syncthreads();
+  bf16* dqb = slice<bf16>(a.dq, b, h);
+  constexpr int VPR = C::DP / 8;
+  for (int e = threadIdx.x; e < C::BQ * VPR; e += C::NT) {
+    const int r = e / VPR, c = (e - r * VPR) * 8;
+    if (q0 + r < a.S && c < a.D)
+      *reinterpret_cast<uint4*>(dqb + (q0 + r) * a.dq.s + c) =
+          *reinterpret_cast<const uint4*>(sq + r * LD + c);
+  }
 }
 
 // Tiles of the bf16 dK/dV kernel: NW warps, DSPLIT of them over each 16
@@ -373,24 +546,37 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
   }
 }
 
-// The shared-memory kernels: dQ (both dtypes) and the fp32 dK/dV.
-// 32-row tiles: at 64 rows (D = 128, bf16) they need 145 and 187 KB of
-// shared memory, one block per SM, and measured 1.2-1.5x slower on an
-// H100 than at 32.
-template <typename T>
-cudaError_t bwd_shared(Args a, bool dkv, cudaStream_t st) {
+// The fp32 kernels: 32-row tiles, or 16 where 32 do not fit.
+cudaError_t bwd_fp32(Args a, bool dkv, cudaStream_t st) {
   size_t smem = 0;
-  const int elt = sizeof(T), DP = a.DP;
-  const int t = pick_tile(
-      [&](int n) { return bwd_smem(n, n, DP, elt, dkv).total; }, 32, &smem);
+  const int DP = a.DP;
+  const int t = pick_tile([&](int n) { return bwd_smem(n, n, DP, dkv).total; }, 32, &smem);
   if (t == 0) return cudaErrorInvalidValue;
   a.BQ = a.BK = t;
   const int tiles = (a.S + t - 1) / t;
   if (dkv)
-    return launch(flash_bwd_dkv_fp32_kernel, dim3(tiles, a.H / a.G, a.B),
-                  kThreads, smem, st, a);
-  return launch(flash_bwd_dq_kernel<T>, dim3(tiles, a.H, a.B), kThreads, smem,
-                st, a);
+    return launch(flash_bwd_dkv_fp32_kernel, dim3(tiles, a.H / a.G, a.B), kThreads, smem,
+                  st, a);
+  return launch(flash_bwd_dq_fp32_kernel, dim3(tiles, a.H, a.B), kThreads, smem, st, a);
+}
+
+template <typename C>
+cudaError_t dq_bf16(Args a, cudaStream_t st) {
+  a.BQ = C::BQ;
+  a.BK = C::BK;
+  const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
+  return launch(flash_bwd_dq_bf16<C>, grid, C::NT, C::SMEM, st, a);
+}
+
+// The dQ tiles by padded head dim (warps, warps per 16 query rows, K/V
+// rows): 4 warps over 64 queries, 64-row K/V tiles up to D = 64 and
+// 32-row above (the forward's); at D = 256, 8 warps, two over each 16
+// queries.
+cudaError_t dq_bf16(Args a, cudaStream_t st) {
+  if (a.D <= 32) return dq_bf16<DqTile<32, 4, 1, 64>>(a, st);
+  if (a.D <= 64) return dq_bf16<DqTile<64, 4, 1, 64>>(a, st);
+  if (a.D <= 128) return dq_bf16<DqTile<128, 4, 1, 32>>(a, st);
+  return dq_bf16<DqTile<256, 8, 2, 32>>(a, st);
 }
 
 template <typename C>
@@ -401,10 +587,10 @@ cudaError_t dkv_bf16(Args a, cudaStream_t st) {
   return launch(flash_bwd_dkv_bf16<C>, grid, C::NT, C::SMEM, st, a);
 }
 
-// The tiles by padded head dim (warps, warps per 16 key rows, Q/dO rows):
-// 4 warps over 64 keys, 64-row Q tiles up to D = 128 (measured against its
-// alternatives on an H100: PERF.md); at D = 256, 8 warps, two over each 16
-// keys, 32-row Q tiles.
+// The dK/dV tiles by padded head dim (warps, warps per 16 key rows, Q/dO
+// rows): 4 warps over 64 keys, 64-row Q tiles up to D = 128 (measured
+// against its alternatives on an H100: PERF.md); at D = 256, 8 warps, two
+// over each 16 keys, 32-row Q tiles.
 cudaError_t dkv_bf16(Args a, cudaStream_t st) {
   if (a.D <= 32) return dkv_bf16<DkvTile<32, 4, 1, 64>>(a, st);
   if (a.D <= 64) return dkv_bf16<DkvTile<64, 4, 1, 64>>(a, st);
@@ -425,31 +611,33 @@ inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
   a.lse = static_cast<float*>(const_cast<void*>(lse));
   a.delta = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dkv) return int(dtype == 1 ? dkv_bf16(a, st) : bwd_shared<float>(a, true, st));
-  return int(dtype == 1 ? bwd_shared<bf16>(a, false, st) : bwd_shared<float>(a, false, st));
+  if (dtype == 0) return int(bwd_fp32(a, dkv, st));
+  return int(dkv ? dkv_bf16(a, st) : dq_bf16(a, st));
 }
 
 }  // namespace fa
 
-// q, k, v, dout: [B, S, H(kv), D] views given by `strides` (b, s, h of q,
-// k, v, dout, dq in that order; d contiguous; every stride and D a
-// multiple of one 16-byte vector); lse, delta: (B * H, S) fp32.  dq: q's
-// view.  dtype: 0 fp32, 1 bf16.  Returns the CUDA error code of the launch.
+// q, k, v, out, dout: [B, S, H(kv), D] views given by `strides` (b, s, h
+// of q, k, v, out, dout, dq in that order; d contiguous; every stride and D
+// a multiple of one 16-byte vector); lse, delta: (B * H, S) fp32.  dq: q's
+// view.  out (the forward's output) is read by the fp32 kernel, which
+// forms delta itself; the bf16 kernel reads delta.  dtype: 0 fp32, 1 bf16.
+// Returns the CUDA error code of the launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
+                            const void* out, const void* dout, const void* lse,
                             const void* delta, void* dq,
                             const long long* strides, int B, int H, int Hkv,
                             int S, int D, float scale, int causal, int window,
                             int dtype, void* stream) {
   void* ptrs[8] = {const_cast<void*>(q), const_cast<void*>(k),
-                   const_cast<void*>(v), nullptr, const_cast<void*>(dout),
-                   dq, nullptr, nullptr};
+                   const_cast<void*>(v), const_cast<void*>(out),
+                   const_cast<void*>(dout), dq, nullptr, nullptr};
   return fa::bwd_entry(ptrs, lse, delta, strides, B, H, Hkv, S, D, scale,
                        causal, window, dtype, stream, false);
 }
 
-// As flash_bwd_dq, with the strides of q, k, v, dout, dk, dv; dk and dv
-// are k's and v's views.
+// As flash_bwd_dq without out, with the strides of q, k, v, dout, dk, dv;
+// dk and dv are k's and v's views.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv,

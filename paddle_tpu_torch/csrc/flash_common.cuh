@@ -34,18 +34,19 @@
 // Two designs live here, chosen by dtype (a choice of body by type, not a
 // fallback: a failed build or launch raises in the wrapper).
 //
-// bf16 forward and dK/dV (flash_fwd_bf16, flash_bwd_dkv_bf16): register-
-// fragment kernels.  Every product is mma.sync m16n8k16 (bf16 operands,
-// fp32 accumulation; the product of two bf16 values is exact in fp32, as
-// the reference's preferred_element_type=float32) with operands loaded by
+// bf16 forward, dQ and dK/dV (flash_fwd_bf16, flash_bwd_dq_bf16,
+// flash_bwd_dkv_bf16): register-fragment kernels.  Every product is
+// mma.sync m16n8k16 (bf16 operands, fp32 accumulation; the product of two
+// bf16 values is exact in fp32, as the reference's
+// preferred_element_type=float32) with operands loaded by
 // ldmatrix (.trans for the operand whose reduction runs along rows) from
 // shared-memory tiles whose rows are padded by one 16-byte vector, which
 // makes every ldmatrix phase conflict-free.  Each warp owns 16 rows of the
 // output side for the block's life, and its accumulators (O, or dK and
 // dV) stay in registers.  The accumulator layout of m16n8k16 is the A
 // operand layout of the next product (two adjacent n8 tiles are one k16
-// fragment), so P (forward) and P^T, dS^T (dK/dV) go from one product to
-// the next in registers, rounded to bf16, and no score tile is written to
+// fragment), so P (forward), dS (dQ) and P^T, dS^T (dK/dV) go from one
+// product to the next in registers, rounded to bf16, and no score tile is written to
 // shared memory.  The streamed side comes through a ring of shared-memory
 // stages filled by cp.async 16-byte copies: tile j + 1 is in flight while
 // tile j is computed on.  Only a warp's tile that crosses the causal
@@ -55,22 +56,19 @@
 // it needs no shared-memory descriptors, and the file still builds in
 // seconds.
 //
-// dQ and fp32 (flash_bwd_dq_kernel, and the fp32 forward and dK/dV):
-// every accumulator and the S/P/dS tiles live in shared memory in fp32;
-// tile_mm multiplies bf16 tiles with wmma 16x16x16 fragments (fp32
-// accumulation) and fp32 tiles with fp32 FMAs in k order (no TF32),
-// decision for decision the fp32 reference.  Shared-memory bandwidth, not
-// the tensor cores, limits that design.
+// fp32 (the forward, dQ and dK/dV fp32 kernels): every accumulator and
+// the S/P/dS tiles live in shared memory; tile_mm multiplies them with
+// fp32 FMAs in k order (no TF32), decision for decision the fp32
+// reference.  Shared-memory bandwidth, not the tensor cores, limits that
+// design.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace fa {
 
@@ -177,40 +175,10 @@ __device__ __forceinline__ void zero(float* buf, int rows, int cols, int ld) {
   }
 }
 
-// C[M][N] (fp32, ldc) = (accumulate ? C : 0) + A[M][K] . B[K][N], all in
+// C[M][N] (ldc) = (accumulate ? C : 0) + A[M][K] . B[K][N], all fp32 in
 // shared memory.  A_T: A is stored transposed (A(m, k) at a[k * lda + m]);
-// B_T: B is stored transposed (B(k, n) at b[n * ldb + k]).  M, N, K are
-// multiples of 16.  bf16: wmma on the tensor cores, each warp owning whole
-// 16x16 output tiles; fp32: FMAs in k order, one output per thread at a
-// time.  Callers synchronise around it.
-template <bool A_T, bool B_T>
-__device__ void tile_mm(float* c, int ldc, const bf16* a, int lda,
-                        const bf16* b, int ldb, int M, int N, int K,
-                        bool accumulate) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5;
-  const int tn = N / 16, tiles = (M / 16) * tn;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int m0 = (t / tn) * 16, n0 = (t - (t / tn) * tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    float* cp = c + m0 * ldc + n0;
-    if (accumulate)
-      wmma::load_matrix_sync(acc, cp, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-      wmma::load_matrix_sync(fa, A_T ? a + k0 * lda + m0 : a + m0 * lda + k0, lda);
-      wmma::load_matrix_sync(fb, B_T ? b + n0 * ldb + k0 : b + k0 * ldb + n0, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(cp, acc, ldc, wmma::mem_row_major);
-  }
-}
-
+// B_T: B is stored transposed (B(k, n) at b[n * ldb + k]).  FMAs in k
+// order, one output per thread at a time.  Callers synchronise around it.
 template <bool A_T, bool B_T>
 __device__ void tile_mm(float* c, int ldc, const float* a, int lda,
                         const float* b, int ldb, int M, int N, int K,

@@ -36,14 +36,14 @@
 
 namespace ptt {
 
-template <typename T, int BITS>
+template <int BITS>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ k_pages,
+paged_decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pages,
                     const void* __restrict__ v_pages,
                     const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales,
                     const int* __restrict__ block_tables,
-                    const int* __restrict__ lengths, T* __restrict__ out,
+                    const int* __restrict__ lengths, float* __restrict__ out,
                     int H, int Hkv, int ps, int D, int max_pages,
                     int num_pages, float scale, int window) {
   extern __shared__ float smem[];
@@ -54,7 +54,7 @@ paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ k_pages,
   const size_t row0 = (size_t(b) * H + size_t(kvh) * G) * D;  // q/out offset
 
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
-    s.q[i] = to_float(q[row0 + i]);
+    s.q[i] = q[row0 + i];
     s.acc[i] = 0.f;
   }
   for (int r = threadIdx.x; r < R; r += blockDim.x) s.qpos[r] = len - 1;
@@ -63,29 +63,29 @@ paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ k_pages,
 
   int first, last;
   page_range(len - 1, len - 1, window, ps, max_pages, &first, &last);
-  attend_pages<T, BITS>(k_pages, v_pages, k_scales, v_scales,
-                        block_tables + size_t(b) * max_pages, num_pages, kvh,
-                        Hkv, ps, D, scale, window, R, first, last, s);
+  attend_pages<BITS>(k_pages, v_pages, k_scales, v_scales,
+                     block_tables + size_t(b) * max_pages, num_pages, kvh,
+                     Hkv, ps, D, scale, window, R, first, last, s);
 
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const float l = s.l[i / D];
-    out[row0 + i] = from_float<T>(l > 0.f ? s.acc[i] / l : 0.f);
+    out[row0 + i] = l > 0.f ? s.acc[i] / l : 0.f;
   }
 }
 
-template <typename T, int BITS>
+template <int BITS>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const float* ks, const float* vs, const int* bt,
                           const int* lens, void* out, int B, int H, int Hkv,
                           int ps, int D, int max_pages, int num_pages,
                           float scale, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / Hkv, ps, D);
-  auto kern = paged_decode_kernel<T, BITS>;
+  auto kern = paged_decode_kernel<BITS>;
   cudaError_t err = prepare_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), k, v, ks, vs, bt, lens, static_cast<T*>(out),
-      H, Hkv, ps, D, max_pages, num_pages, scale, window);
+      static_cast<const float*>(q), k, v, ks, vs, bt, lens,
+      static_cast<float*>(out), H, Hkv, ps, D, max_pages, num_pages, scale, window);
   return cudaGetLastError();
 }
 
@@ -97,15 +97,15 @@ cudaError_t dispatch_decode_fp32(int kv_bits, const void* q, const void* k,
                                  cudaStream_t st) {
   switch (kv_bits) {
     case 0:
-      return launch_decode<float, 0>(q, k, v, ks, vs, bt, lens, out, B, H,
+      return launch_decode<0>(q, k, v, ks, vs, bt, lens, out, B, H,
                                      Hkv, ps, D, max_pages, num_pages, scale,
                                      window, st);
     case 8:
-      return launch_decode<float, 8>(q, k, v, ks, vs, bt, lens, out, B, H,
+      return launch_decode<8>(q, k, v, ks, vs, bt, lens, out, B, H,
                                      Hkv, ps, D, max_pages, num_pages, scale,
                                      window, st);
     case 4:
-      return launch_decode<float, 4>(q, k, v, ks, vs, bt, lens, out, B, H,
+      return launch_decode<4>(q, k, v, ks, vs, bt, lens, out, B, H,
                                      Hkv, ps, D, max_pages, num_pages, scale,
                                      window, st);
     default:
@@ -138,11 +138,10 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
   const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return int(ptt::split::launch(q, k_pages, v_pages, ks, vs, bt, lens, out,
-                                  static_cast<float*>(ws), B, 1, -1, H, Hkv,
-                                  ps, D, max_pages, num_pages,
-                                  pages_per_split, scale, window, kv_bits,
-                                  st));
+    return int(ptt::split::launch<false>(
+        q, k_pages, v_pages, ks, vs, bt, lens, out, static_cast<float*>(ws), B,
+        1, -1, H, Hkv, ps, D, max_pages, num_pages, pages_per_split, scale,
+        window, kv_bits, st));
   if (dtype == 0)
     return int(ptt::dispatch_decode_fp32(
         kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, H, Hkv, ps,

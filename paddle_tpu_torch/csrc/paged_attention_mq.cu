@@ -34,14 +34,14 @@
 
 namespace ptt {
 
-template <typename T, int BITS>
+template <int BITS>
 __global__ void __launch_bounds__(kThreads)
-paged_mq_kernel(const T* __restrict__ q, const void* __restrict__ k_pages,
+paged_mq_kernel(const float* __restrict__ q, const void* __restrict__ k_pages,
                 const void* __restrict__ v_pages,
                 const float* __restrict__ k_scales,
                 const float* __restrict__ v_scales,
                 const int* __restrict__ block_tables,
-                const int* __restrict__ lengths, T* __restrict__ out, int n_q,
+                const int* __restrict__ lengths, float* __restrict__ out, int n_q,
                 int H, int Hkv, int ps, int D, int max_pages, int num_pages,
                 float scale, int window) {
   extern __shared__ float smem[];
@@ -54,7 +54,7 @@ paged_mq_kernel(const T* __restrict__ q, const void* __restrict__ k_pages,
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
     const int r = e / D, d = e - r * D;
     const int t = r / G, h = kvh * G + r % G;
-    s.q[e] = to_float(q[((size_t(b) * n_q + t) * H + h) * D + d]);
+    s.q[e] = q[((size_t(b) * n_q + t) * H + h) * D + d];
     s.acc[e] = 0.f;
   }
   for (int r = threadIdx.x; r < R; r += blockDim.x) s.qpos[r] = len + r / G;
@@ -63,32 +63,32 @@ paged_mq_kernel(const T* __restrict__ q, const void* __restrict__ k_pages,
 
   int first, last;
   page_range(len, len + n_q - 1, window, ps, max_pages, &first, &last);
-  attend_pages<T, BITS>(k_pages, v_pages, k_scales, v_scales,
-                        block_tables + size_t(b) * max_pages, num_pages, kvh,
-                        Hkv, ps, D, scale, window, R, first, last, s);
+  attend_pages<BITS>(k_pages, v_pages, k_scales, v_scales,
+                     block_tables + size_t(b) * max_pages, num_pages, kvh,
+                     Hkv, ps, D, scale, window, R, first, last, s);
 
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
     const int r = e / D, d = e - r * D;
     const int t = r / G, h = kvh * G + r % G;
     const float l = s.l[r];
     out[((size_t(b) * n_q + t) * H + h) * D + d] =
-        from_float<T>(l > 0.f ? s.acc[e] / l : 0.f);
+        l > 0.f ? s.acc[e] / l : 0.f;
   }
 }
 
-template <typename T, int BITS>
+template <int BITS>
 cudaError_t launch_mq(const void* q, const void* k, const void* v,
                       const float* ks, const float* vs, const int* bt,
                       const int* lens, void* out, int B, int n_q, int H,
                       int Hkv, int ps, int D, int max_pages, int num_pages,
                       float scale, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / Hkv * n_q, ps, D);
-  auto kern = paged_mq_kernel<T, BITS>;
+  auto kern = paged_mq_kernel<BITS>;
   cudaError_t err = prepare_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), k, v, ks, vs, bt, lens, static_cast<T*>(out),
-      n_q, H, Hkv, ps, D, max_pages, num_pages, scale, window);
+      static_cast<const float*>(q), k, v, ks, vs, bt, lens,
+      static_cast<float*>(out), n_q, H, Hkv, ps, D, max_pages, num_pages, scale, window);
   return cudaGetLastError();
 }
 
@@ -100,15 +100,15 @@ cudaError_t dispatch_mq_fp32(int kv_bits, const void* q, const void* k,
                              int window, cudaStream_t st) {
   switch (kv_bits) {
     case 0:
-      return launch_mq<float, 0>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
+      return launch_mq<0>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
                                  Hkv, ps, D, max_pages, num_pages, scale,
                                  window, st);
     case 8:
-      return launch_mq<float, 8>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
+      return launch_mq<8>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
                                  Hkv, ps, D, max_pages, num_pages, scale,
                                  window, st);
     case 4:
-      return launch_mq<float, 4>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
+      return launch_mq<4>(q, k, v, ks, vs, bt, lens, out, B, n_q, H,
                                  Hkv, ps, D, max_pages, num_pages, scale,
                                  window, st);
     default:
@@ -137,11 +137,10 @@ extern "C" int paged_attention_mq_fwd(
   const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return int(ptt::split::launch(q, k_pages, v_pages, ks, vs, bt, lens, out,
-                                  static_cast<float*>(ws), B, n_q, 0, H, Hkv,
-                                  ps, D, max_pages, num_pages,
-                                  pages_per_split, scale, window, kv_bits,
-                                  st));
+    return int(ptt::split::launch<false>(
+        q, k_pages, v_pages, ks, vs, bt, lens, out, static_cast<float*>(ws), B,
+        n_q, 0, H, Hkv, ps, D, max_pages, num_pages, pages_per_split, scale,
+        window, kv_bits, st));
   if (dtype == 0)
     return int(ptt::dispatch_mq_fp32(
         kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, n_q, H, Hkv,

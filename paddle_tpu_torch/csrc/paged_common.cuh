@@ -1,6 +1,6 @@
-// Shared body of the paged attention kernels: chunk prefill at fp32 and
-// bf16 queries, and decode and multi-query verify at fp32 queries (their
-// bf16 queries take the split-KV body of paged_split.cuh).
+// Shared body of the paged attention kernels at fp32 queries: decode,
+// multi-query verify and chunk prefill (their bf16 queries take the
+// split-KV body of paged_split.cuh).
 //
 // One thread block attends R query rows that share one KV head of one
 // sequence slot: the G = H / Hkv query heads of a GQA group, times the
@@ -17,9 +17,8 @@
 // Decode rows sit at qpos = lengths[b] - 1, which is the reference's
 // `pos < lengths[b]` (and `pos >= lengths[b] - W`).
 //
-// Page kinds (template parameter BITS), independent of the query/output
-// type T (fp32 or bf16):
-//   0  float pages of type T, (P, Hkv, ps, D);
+// Page kinds (template parameter BITS):
+//   0  fp32 pages, (P, Hkv, ps, D);
 //   8  int8 values (P, Hkv, ps, D) with fp32 scales (P, Hkv, ps, 1): a
 //      16-byte load brings 16 values, each dequantized as float(v) * scale;
 //   4  int4 values packed two per byte, (P, Hkv, ps, D/2), split halves:
@@ -31,13 +30,11 @@
 //
 // Bound: device-memory bytes.  Each visited page is read once per block as
 // contiguous 16-byte vectors, neighbouring threads on neighbouring
-// addresses, and converted to fp32 in shared memory; all query heads of a
-// GQA group share that one read.  Quantized pages move 2x (int8) or ~4x
-// (int4) fewer bytes than bf16 pages for the same positions.
+// addresses, and kept (or dequantized) as fp32 in shared memory; all query
+// heads of a GQA group share that one read.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,20 +42,6 @@
 namespace ptt {
 
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -103,23 +86,22 @@ __device__ inline Smem carve(float* base, int R, int ps, int D) {
   return s;
 }
 
-// Copy one contiguous (rows, D) slab of a float page into shared memory as
-// fp32, 16 bytes per load.  Needs D * sizeof(T) % 16 == 0 and a 16-byte
-// aligned source (the wrapper checks both).
-template <typename T>
-__device__ __forceinline__ void load_slab(const T* __restrict__ src, float* dst,
+// Copy one contiguous (rows, D) slab of an fp32 page into shared memory,
+// 16 bytes per load.  Needs D % 4 == 0 and a 16-byte aligned source (the
+// wrapper checks both).
+__device__ __forceinline__ void load_slab(const float* __restrict__ src, float* dst,
                                           int rows, int D, int dst_stride) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int n_vec = rows * D / VEC;
-  const uint4* src4 = reinterpret_cast<const uint4*>(src);
+  const int n_vec = rows * D / 4;
+  const float4* src4 = reinterpret_cast<const float4*>(src);
   for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
-    const uint4 raw = __ldg(src4 + i);
-    const T* vals = reinterpret_cast<const T*>(&raw);
-    const int e = i * VEC;
+    const float4 v = __ldg(src4 + i);
+    const int e = i * 4;
     const int r = e / D;
     float* out = dst + r * dst_stride + (e - r * D);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) out[k] = to_float(vals[k]);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
   }
 }
 
@@ -174,7 +156,7 @@ __device__ __forceinline__ void load_slab_int4(const uint8_t* __restrict__ src,
 
 // Load the (ps, D) slab `slab` = page * Hkv + kv head of a page pool of
 // kind BITS into shared memory as fp32 (`scales` unused for float pages).
-template <typename T, int BITS>
+template <int BITS>
 __device__ __forceinline__ void load_page(const void* __restrict__ pages,
                                           const float* __restrict__ scales,
                                           size_t slab, int ps, int D,
@@ -186,7 +168,7 @@ __device__ __forceinline__ void load_page(const void* __restrict__ pages,
     load_slab_int4(static_cast<const uint8_t*>(pages) + slab * ps * (D / 2),
                    scales + slab * ps, dst, ps, D, dst_stride);
   } else {
-    load_slab(static_cast<const T*>(pages) + slab * ps * D, dst, ps, D,
+    load_slab(static_cast<const float*>(pages) + slab * ps * D, dst, ps, D,
               dst_stride);
   }
 }
@@ -204,7 +186,7 @@ __device__ inline void init_rows(const Smem& s, int R) {
 // into the rows' online softmax.  Page ids outside [0, num_pages) are
 // skipped.  Ends with acc holding the unnormalised sums and l the
 // denominators.
-template <typename T, int BITS>
+template <int BITS>
 __device__ void attend_pages(const void* __restrict__ k_pages,
                              const void* __restrict__ v_pages,
                              const float* __restrict__ k_scales,
@@ -219,8 +201,8 @@ __device__ void attend_pages(const void* __restrict__ k_pages,
     const int page = table[pg];
     if (page < 0 || page >= num_pages) continue;  // uniform over the block
     const size_t slab = size_t(page) * Hkv + kvh;
-    load_page<T, BITS>(k_pages, k_scales, slab, ps, D, s.k, D + 1);
-    load_page<T, BITS>(v_pages, v_scales, slab, ps, D, s.v, D);
+    load_page<BITS>(k_pages, k_scales, slab, ps, D, s.k, D + 1);
+    load_page<BITS>(v_pages, v_scales, slab, ps, D, s.v, D);
     __syncthreads();
 
     // scores of every (row, key) pair of the page; invisible keys -inf

@@ -45,11 +45,11 @@ SIGNATURES = {
     # stream
     "paged_attention": ("paged_attention", "paged_attention_fwd",
                         [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P]),
-    # q, k_pages, v_pages, k_scales, v_scales, block_table, out, start,
-    # C, H, Hkv, page_size, D, max_pages, num_pages, scale, window,
-    # dtype, kv_bits, stream
+    # q, k_pages, v_pages, k_scales, v_scales, block_table, out,
+    # workspace, start, C, H, Hkv, page_size, D, max_pages, num_pages,
+    # pages_per_split, scale, window, dtype, kv_bits, stream
     "paged_prefill": ("paged_prefill", "paged_prefill_fwd",
-                      [_P] * 7 + [_I] * 8 + [_F, _I, _I, _I, _P]),
+                      [_P] * 8 + [_I] * 9 + [_F, _I, _I, _I, _P]),
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
     # workspace, B, T, H, Hkv, page_size, D, max_pages, num_pages,
     # pages_per_split, scale, window, dtype, kv_bits, stream
@@ -61,8 +61,8 @@ SIGNATURES = {
     # dtype (0 fp32, 1 bf16), stream
     "flash_fwd": ("flash_fwd", "flash_fwd", [_P] * 6 + [_I] * 5 + [_F]
                   + [_I] * 3 + [_P]),
-    # q, k, v, dout, lse, delta, dq, strides, then as flash_fwd
-    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq", [_P] * 8 + [_I] * 5
+    # q, k, v, out, dout, lse, delta, dq, strides, then as flash_fwd
+    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq", [_P] * 9 + [_I] * 5
                      + [_F] + [_I] * 3 + [_P]),
     # q, k, v, dout, lse, delta, dk, dv, strides, then as flash_fwd
     "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv", [_P] * 9 + [_I] * 5

@@ -194,23 +194,29 @@ def flash_fwd_plain(q, k, v, causal=False, scale=None, window=None,
 def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
                     window=None, layout="bnsd"):
     """The backward kernels' plain version: dQ, dK, dV recomputed from the
-    forward's ``lse`` and ``delta = rowsum(dO * O)`` (fp32) as the
-    reference's ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` compute them:
-    ``p = exp(s - lse)``, ``dp = dO.V^T`` and ``ds = p * (dp - delta) *
-    scale`` in fp32; ``dQ = ds.K`` with ds cast to K's dtype, ``dV =
-    P^T.dO`` with P in fp32, ``dK = ds^T.Q`` with ds cast to Q's dtype.
-    GQA: each KV head's gradient sums its query-head group in fp32."""
+    forward's ``lse`` and ``delta = rowsum(dO * O)`` as the reference's
+    ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` compute them: ``p = exp(s -
+    lse)``, ``dp = dO.V^T`` and ``ds = p * (dp - delta) * scale`` in fp32;
+    ``dQ = ds.K`` with ds cast to K's dtype, ``dV = P^T.dO`` with P in
+    fp32, ``dK = ds^T.Q`` with ds cast to Q's dtype.  GQA: each KV head's
+    gradient sums its query-head group in fp32.
+
+    ``dp`` and ``delta`` are summed in fp64 and their difference rounded
+    to fp32 once, as the fp32 dQ kernel forms it: where they cancel (a
+    query that sees one key has O equal to that key's V, and its dQ is 0
+    exactly, as the reference's autodiff gives) no fp32 summation noise,
+    which another summation order would not reproduce, is left."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qg, kh, vh = _grouped(q, k, v, layout)
     b, hkv, g, s_len, d = qg.shape
     dog = _heads(do, layout).reshape(qg.shape).float()
-    og = _heads(out, layout).reshape(qg.shape).float()
-    delta = (dog * og).sum(-1)
+    og = _heads(out, layout).reshape(qg.shape).double()
+    delta = (dog.double() * og).sum(-1)
     lse = lse.reshape(b, hkv, g, s_len)
     p = torch.exp(_scores(qg, kh, scale, causal, window) - lse[..., None])
-    dp = torch.einsum("bngqd,bnkd->bngqk", dog, vh.float())
-    ds = p * (dp - delta[..., None]) * scale
+    dp = torch.einsum("bngqd,bnkd->bngqk", dog.double(), vh.double())
+    ds = p * (dp - delta[..., None]).float() * scale
     dq = torch.einsum("bngqk,bnkd->bngqd", ds.to(k.dtype).float(), kh.float())
     dv = torch.einsum("bngqk,bngqd->bnkd", p, dog)
     dk = torch.einsum("bngqk,bngqd->bnkd", ds.to(q.dtype).float(), qg.float())
@@ -300,14 +306,17 @@ def _bwd_operands(q, k, v, lse, do, layout):
     return (qc, kc, vc, dc), lse.contiguous(), _dims(qc, kc)
 
 
-def flash_bwd_dq_cuda(q, k, v, lse, delta, do, causal, scale, window,
+def flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, causal, scale, window,
                       layout):
-    """The dQ kernel: ``dq`` in q's shape and dtype.  CUDA tensors only."""
+    """The dQ kernel: ``dq`` in q's shape and dtype.  CUDA tensors only.
+    The fp32 kernel forms delta from ``out`` itself; bf16 reads
+    ``delta``."""
     (qc, kc, vc, dc), lse, dims = _bwd_operands(q, k, v, lse, do, layout)
+    oc = _operand(out.to(q.dtype), layout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dqc = _canon(dq, layout)
-    _launch("flash_bwd_dq", (qc, kc, vc, dc, lse, delta, dqc),
-            (qc, kc, vc, dc, dqc), dims, scale, causal, window, q.dtype)
+    _launch("flash_bwd_dq", (qc, kc, vc, oc, dc, lse, delta, dqc),
+            (qc, kc, vc, oc, dc, dqc), dims, scale, causal, window, q.dtype)
     return dq
 
 
@@ -350,9 +359,10 @@ def flash_bwd(q, k, v, out, lse, do, causal=False, scale=None, window=None,
     if _device_of(q) == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, causal, scale, window,
                                layout)
-    args = (q, k, v, lse, flash_delta(out, do, layout), do, causal, scale,
-            window, layout)
-    return (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    delta = flash_delta(out, do, layout)
+    opts = (causal, scale, window, layout)
+    return (flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, *opts),
+            *flash_bwd_dkv_cuda(q, k, v, lse, delta, do, *opts))
 
 
 class _Flash(torch.autograd.Function):

@@ -58,7 +58,7 @@ def split_plan(batch, kv_heads, max_pages, page_size):
     A function of host-known shapes only: the slots' lengths live on the
     device, and the wrapper never reads them (no sync, and a CUDA graph
     can capture the call as it is).  A kernel block whose split holds no
-    position its rows can see writes an empty partial and exits."""
+    position its rows can see exits at once."""
     if min(batch, kv_heads, max_pages, page_size) < 1:
         raise ValueError("split_plan: every shape must be positive")
     want = -(-SPLIT_BLOCKS // (batch * kv_heads))

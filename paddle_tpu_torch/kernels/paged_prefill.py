@@ -3,10 +3,14 @@ version.
 
 Counterpart of ``paddle_tpu/kernels/paged_prefill.py`` (``paged_prefill``,
 ``paged_prefill_ref``) over float, int8 and nibble-packed int4 pages.  The
-kernel is ``paddle_tpu_torch/csrc/paged_prefill.cu``: blocks over (query
-tile of the chunk, KV head) walk the slot's block table up to the last
-page the tile can see; see the source for its design and what bounds it
-on the card.
+kernel is ``paddle_tpu_torch/csrc/paged_prefill.cu``.  For bf16 queries it
+runs the split-KV body of ``csrc/paged_split.cuh``: blocks of
+:data:`PREFILL_ROWS` rows (the chunk's rows times the query heads of a
+GQA group) over :func:`prefill_plan`'s splits of the slot's block table,
+and a second kernel that merges the splits' partials from a workspace
+this module allocates; fp32 queries take blocks over (query tile of the
+chunk, KV head) with exact fp32 products.  See the sources for their
+design and what bounds them on the card.
 
 :func:`paged_prefill` takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors; there is no other path.  Launches count per
@@ -19,12 +23,42 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .paged_attention import (_DTYPES, _NEG_INF, _SUFFIX, _check_index,
-                              _check_pages, _scale_arg, _scale_scores,
-                              gather_pages)
+from .paged_attention import (_DTYPES, _MAX_BF16_D, _NEG_INF, _SUFFIX,
+                              SPLIT_BLOCKS, _check_index, _check_pages,
+                              _scale_arg, _scale_scores, gather_pages)
 
 _PREFILL = {b: "paged_prefill" + s for b, s in _SUFFIX.items()}
 _build.LAUNCHES.update({n: 0 for n in _PREFILL.values()})
+#: the bf16 kernel's query rows per thread block (four warps of 16 rows on
+#: one K/V tile ring), and key positions per split at least (four 32-key
+#: tiles, so that the ring runs ahead of the math)
+PREFILL_ROWS = 64
+PREFILL_MIN_POSITIONS = 128
+
+
+def prefill_plan(chunk, heads, kv_heads, max_pages, page_size):
+    """How the bf16 prefill kernel cuts the slot's block-table row of
+    ``max_pages`` entries: ``(pages_per_split, n_split)``, split s taking
+    entries ``[s * pages_per_split, (s + 1) * pages_per_split)`` (the last
+    one fewer).  Enough splits that the ``kv_heads`` x row blocks of
+    :data:`PREFILL_ROWS` (the ``chunk`` x ``heads / kv_heads`` rows of a
+    KV head) x ``n_split`` blocks reach :data:`SPLIT_BLOCKS`, each split
+    of at least :data:`PREFILL_MIN_POSITIONS` positions.
+
+    A function of host-known shapes only, and not of the chunk's start:
+    every chunk of a bucket gets the same grid (a CUDA graph can capture
+    the call), and a block whose split holds no position its rows can see
+    exits at once."""
+    if min(chunk, heads, kv_heads, max_pages, page_size) < 1 \
+            or heads % kv_heads:
+        raise ValueError("prefill_plan: every shape must be positive, and "
+                         "kv_heads must divide heads")
+    rows = chunk * (heads // kv_heads)
+    blocks = kv_heads * -(-rows // PREFILL_ROWS)
+    want = -(-SPLIT_BLOCKS // blocks)
+    pps = max(-(-PREFILL_MIN_POSITIONS // page_size), -(-max_pages // want))
+    pps = min(pps, max_pages)
+    return pps, -(-max_pages // pps)
 
 
 def paged_prefill_plain(q, k_pages, v_pages, block_table, start, *,
@@ -53,6 +87,37 @@ def paged_prefill_plain(q, k_pages, v_pages, block_table, start, *,
     return out.reshape(c, h, d).to(q.dtype)
 
 
+def _launch(q, k_pages, v_pages, block_table, start, k_scales, v_scales,
+            bits, scale, window):
+    """Launch the kernel on validated operands; bf16 queries get the
+    prefill plan and, with more than one split, the partials' workspace.
+    Returns the output."""
+    c, h, d = q.shape
+    p, hkv, ps, _ = k_pages.shape
+    maxp = block_table.shape[0]
+    pps, ws = maxp, None
+    if q.dtype == torch.bfloat16:
+        if d > _MAX_BF16_D:
+            raise ValueError(f"paged_prefill: bf16 queries take D <= "
+                             f"{_MAX_BF16_D}, got {d}")
+        pps, n_split = prefill_plan(c, h, hkv, maxp, ps)
+        if n_split > 1:
+            # per split: the C * H rows' O, m and l
+            ws = torch.empty(n_split * c * h * (d + 2), dtype=torch.float32,
+                             device=q.device)
+    out = torch.empty_like(q)
+    code = _build.kernel("paged_prefill")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if bits == 0 else k_scales.data_ptr(),
+        None if bits == 0 else v_scales.data_ptr(), block_table.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(), start, c, h,
+        hkv, ps, d, maxp, p, pps, _scale_arg(scale, d),
+        0 if window is None else int(window), _DTYPES[q.dtype], bits,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("paged_prefill", code)
+    return out
+
+
 def paged_prefill(q, k_pages, v_pages, block_table, start, *, k_scales=None,
                   v_scales=None, scale=None, window=None):
     """Chunk attention through a paged KV pool.
@@ -78,20 +143,11 @@ def paged_prefill(q, k_pages, v_pages, block_table, start, *, k_scales=None,
     c, h, d = q.shape
     bits = _check_pages("paged_prefill", q, k_pages, v_pages, h, d,
                         k_scales, v_scales)
-    p, hkv, ps, _ = k_pages.shape
     _check_index("paged_prefill", block_table, q.device, dim=1)
     start = int(start)
     if start < 0:
         raise ValueError(f"paged_prefill: start must be >= 0, got {start}")
-    out = torch.empty_like(q)
-    fn = _build.kernel("paged_prefill")
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              None if bits == 0 else k_scales.data_ptr(),
-              None if bits == 0 else v_scales.data_ptr(),
-              block_table.data_ptr(), out.data_ptr(), start, c, h, hkv, ps, d,
-              block_table.shape[0], p, _scale_arg(scale, d),
-              0 if window is None else int(window), _DTYPES[q.dtype], bits,
-              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("paged_prefill", code)
+    out = _launch(q, k_pages, v_pages, block_table, start, k_scales,
+                  v_scales, bits, scale, window)
     _build.LAUNCHES[_PREFILL[bits]] += 1
     return out

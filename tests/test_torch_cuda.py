@@ -242,6 +242,83 @@ def test_split_shapes_match_plain_on_card(dev, bits, ps, d):
                                        **sc))
 
 
+# Prefill with bf16 queries (the split-KV body's row split, over the
+# prefill plan's splits) at a block-table width the plan cuts into several
+# splits: chunks of 1, 16, 40 and 128 rows at start 0, at a page edge and
+# in mid-page, with no window, a window smaller than a tile (which leaves
+# whole tiles and splits of the table unseen) and one wider than a split;
+# G in {1, 2, 4, 8}; bf16 held to 2e-2 against the plain version computed
+# in fp32 from the same inputs, and two identical calls bit-identical.
+PREFILL_MAXP = 48
+PREFILL_CHUNKS = (1, 16, 40, 128)
+PREFILL_STARTS = (0, 256, 700)
+PREFILL_WINDOWS = (None, 24, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
+def test_split_prefill_matches_plain_on_card(dev, bits):
+    """The prefill kernel on the split-KV body for each page kind: every
+    chunk width, start and window above, G 1-8; bit-identical repeats.
+    The plan splits the 48-entry table into several splits in every
+    case."""
+    from paddle_tpu_torch.kernels.paged_prefill import prefill_plan
+
+    g = torch.Generator(device=dev).manual_seed(31 + (bits or 0))
+    hkv = 2
+    for group in (1, 2, 4, 8):
+        kp, vp, sc = _pool(dev, g, bits, P=1 + PREFILL_MAXP, HKV=hkv)
+        if bits is None:
+            kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+        kf, vf = (kp, vp) if sc else (kp.float(), vp.float())
+        bt = torch.randperm(PREFILL_MAXP, device=dev, generator=g).add(1)
+        bt = bt.to(torch.int32).contiguous()
+        for c in PREFILL_CHUNKS:
+            assert prefill_plan(c, group * hkv, hkv, PREFILL_MAXP, 32)[1] > 1
+            for start in PREFILL_STARTS:
+                q = torch.randn(c, group * hkv, 128, device=dev,
+                                generator=g).to(torch.bfloat16)
+                for window in PREFILL_WINDOWS:
+                    out = paged_prefill(q, kp, vp, bt, start, window=window,
+                                        **sc)
+                    ref = paged_prefill_plain(q.float(), kf, vf, bt, start,
+                                              window=window, **sc)
+                    _held(out, ref, torch.bfloat16)
+                    again = paged_prefill(q, kp, vp, bt, start,
+                                          window=window, **sc)
+                    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,d", SPLIT_SHAPES + [(32, 64)],
+                         ids=[f"page{p}-d{d}"
+                              for p, d in SPLIT_SHAPES + [(32, 64)]])
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
+def test_split_prefill_shapes_match_plain_on_card(dev, bits, ps, d):
+    """Prefill with bf16 queries (G=2) at other page sizes (8, 16, 64) and
+    head dims (64, 96, 256: the row split's two-warp groups), chunks of 40
+    and 128 rows from a mid-page start, with and without a window;
+    bit-identical repeats."""
+    g = torch.Generator(device=dev).manual_seed(ps + d + 5 + (bits or 0))
+    hkv, maxp = 2, 1024 // ps
+    kp, vp, sc = _pool(dev, g, bits, P=1 + maxp, HKV=hkv, PS=ps, D=d)
+    if bits is None:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    kf, vf = (kp, vp) if sc else (kp.float(), vp.float())
+    bt = torch.randperm(maxp, device=dev, generator=g).add(1)
+    bt = bt.to(torch.int32).contiguous()
+    for c, start in ((40, 300), (128, 600)):
+        q = torch.randn(c, 2 * hkv, d, device=dev,
+                        generator=g).to(torch.bfloat16)
+        for window in (None, 100):
+            out = paged_prefill(q, kp, vp, bt, start, window=window, **sc)
+            ref = paged_prefill_plain(q.float(), kf, vf, bt, start,
+                                      window=window, **sc)
+            _held(out, ref, torch.bfloat16)
+            assert torch.equal(out, paged_prefill(q, kp, vp, bt, start,
+                                                  window=window, **sc))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(2048, 6144), (8192, 2048), (128, 48)])
 def test_w8a8_gemm_is_exact_on_card(dev, k, n):
@@ -289,13 +366,6 @@ FLASH_CASES = [
     ("bsnd", 1, 2, 1, 200, 256, True, None),
     ("bsnd", 1, 4, 2, 300, 256, True, 40),
 ]
-# The masked D=256 cases run in bf16 only.  In fp32 the first query sees
-# one key, so its dQ is zero in exact arithmetic; the fp32 dQ kernel (the
-# shared-memory design) leaves the cancellation noise of dp - delta over
-# 256 terms there, well past the fp32 bound: a limit of that kernel's
-# test, not of the bf16 kernels these cases are for.  fp32 at D=256 runs
-# unmasked above.
-BF16_ONLY = set(FLASH_CASES[-2:])
 
 
 def _flash_inputs(dev, g, layout, b, h, hkv, s, d, dtype):
@@ -341,12 +411,12 @@ def test_flash_kernels_match_plain_on_card(dev, case):
     """The forward, dQ and dK/dV kernels against their plain versions on
     the same inputs, each tensor elementwise within FLASH_TOL.  The
     backward kernels get the plain forward's out and lse, so each kernel
-    is held on its own."""
+    is held on its own.  The first query of a causal case sees one key,
+    so its dQ is 0 exactly: both sides form dp - delta in fp64 (see
+    flash_bwd_plain).  A second dQ launch is bit-identical."""
     layout, b, h, hkv, s, d, causal, window = case
     g = torch.Generator(device=dev).manual_seed(s + d)
     for dtype, tol in FLASH_TOL.items():
-        if dtype == torch.float32 and case in BF16_ONLY:
-            continue
         q, k, v = _flash_inputs(dev, g, layout, b, h, hkv, s, d, dtype)
         out, lse = flash_fwd(q, k, v, causal, None, window, layout)
         ref, rlse = flash_fwd_plain(q, k, v, causal, None, window, layout)
@@ -361,6 +431,9 @@ def test_flash_kernels_match_plain_on_card(dev, case):
         for name, x, y in zip(("dq", "dk", "dv"), got, want):
             assert x.shape == y.shape and x.dtype == dtype
             _close(x, y, tol[name], f"{dtype} {name}")
+        again = flash_bwd(q, k, v, ref, rlse, do, causal, None, window,
+                          layout)
+        assert torch.equal(got[0], again[0])
 
 
 @pytest.mark.cuda

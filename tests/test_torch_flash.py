@@ -139,6 +139,84 @@ def test_flash_grads_match_reference_vjp(case):
                                    **TOL)
 
 
+# the card's masked D=256 flash cases (tests/test_torch_cuda.py), with
+# fewer heads: causal at S=200, and window 40 at S=300
+FIRST_ROW_CASES = [("bsnd", 1, 2, 1, 200, 256, True, None, None),
+                   ("bsnd", 1, 2, 1, 300, 256, True, 40, None)]
+
+
+def _row_close(got, want, rtol, atol):
+    """The card test's elementwise bound: |got - want| <= atol * rms +
+    rtol * |want|, with the rms of want's row (at least 1e-2 of the
+    tensor's); returns the worst share of the bound used."""
+    row = np.sqrt(np.mean(np.square(want), -1, keepdims=True))
+    row = np.maximum(row, 1e-2 * np.sqrt(np.mean(np.square(want))))
+    return float(np.max(np.abs(got - want) / (atol * row + rtol * np.abs(want))))
+
+
+@pytest.mark.parametrize("case", FIRST_ROW_CASES,
+                         ids=["causal-s200-d256", "window40-s300-d256"])
+def test_first_query_dq_matches_reference_exactly(case):
+    """fp32 gradients at the masked D=256 shapes, the first query's dQ
+    included.  That query sees one key: the reference's autodiff forms
+    ``p * (dp - sum(p * dp))`` with p = 1 there, so ``jax.vjp`` gives a dQ
+    of 0 exactly; flash_bwd_plain forms ``dp - delta`` in fp64 and gives 0
+    up to fp64 rounding.  Every dQ, dK and dV element then agrees with the
+    reference within the card's fp32 FLASH_TOL bound, 1e-5 of its row's
+    rms, the first row included."""
+    layout, *_, causal, window, scale = case
+    q, k, v = _inputs(case, seed=3)
+    g = np.random.RandomState(4).randn(*q.shape).astype(np.float32)
+    _, vjp = jax.vjp(_ref_fn(causal, window, scale), jnp.asarray(q),
+                     jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    assert not want[0][:, :, 0].any()
+    tq, tk, tv = (_t(a, layout) for a in (q, k, v))
+    o, lse = tflash.flash_fwd_plain(tq, tk, tv, causal, scale, window, layout)
+    got = tflash.flash_bwd_plain(tq, tk, tv, o, lse, _t(g, layout), causal,
+                                 scale, window, layout)
+    got = [_from_layout(x.numpy(), layout) for x in got]
+    assert np.abs(got[0][:, :, 0]).max() <= 1e-12
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert _row_close(x, ref, 1e-5, 1e-5) <= 1.0, name
+
+
+def test_dq_launch_hands_the_kernel_out(monkeypatch):
+    """The dQ kernel's launch passes q, k, v, out, dout, lse, delta, dq and
+    the strides of the five [B, S, H, D] views and dq (the fp32 kernel
+    forms delta from out)."""
+    import ctypes
+    import types
+
+    from paddle_tpu_torch.kernels import _build
+
+    calls = []
+
+    def kernel(name):
+        def launch(*a):      # the strides live for the call only
+            ptr = ctypes.cast(a[8], ctypes.POINTER(ctypes.c_longlong))
+            calls.append((name, a, [ptr[i] for i in range(18)]))
+            return 0
+        return launch
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    b, s, h, hkv, d = 2, 16, 4, 2, 16
+    q, out, do = (torch.randn(b, s, h, d) for _ in range(3))
+    k, v = (torch.randn(b, s, hkv, d) for _ in range(2))
+    lse, delta = torch.zeros(b * h, s), torch.zeros(b * h, s)
+    dq = tflash.flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, True, 0.25,
+                                  None, "bsnd")
+    (name, args, strides), = calls
+    assert name == "flash_bwd_dq" and dq.shape == q.shape
+    assert args[3] == out.data_ptr() and args[4] == do.data_ptr()
+    assert args[5] == lse.data_ptr() and args[6] == delta.data_ptr()
+    assert strides == [st for t in (q, k, v, out, do, dq)
+                       for st in t.stride()[:3]]
+    assert args[9:14] == (b, h, hkv, s, d)
+
+
 def _shapes():
     for layout in ("bnsd", "bsnd", "sbnd"):
         for s in (4, 8, 12, 24, 40, 100, 520):

@@ -199,3 +199,81 @@ def test_cuda_launch_plans_from_shapes_alone(monkeypatch, shape, t):
     ws, pps_arg = args[8], args[16 if t is None else 17]
     assert pps_arg == pps
     assert (ws is not None) == (n_split > 1)
+
+
+# (chunk, heads, kv_heads, max_pages, page_size): the smoke's timed chunk
+# and the engine's smallest bucket at GPT-1.3B's shapes, GQA, one-row and
+# ragged chunks, pages smaller and larger than a 32-key tile, and a wide
+# table
+PREFILL_PLAN_SHAPES = [(128, 16, 16, 64, 32), (8, 16, 16, 64, 32),
+                       (128, 16, 4, 64, 32), (1, 2, 2, 48, 32),
+                       (40, 16, 2, 48, 32), (128, 8, 8, 33, 8),
+                       (64, 32, 32, 512, 16), (16, 4, 1, 7, 128)]
+
+
+@pytest.mark.parametrize("shape", PREFILL_PLAN_SHAPES,
+                         ids=["-".join(map(str, s))
+                              for s in PREFILL_PLAN_SHAPES])
+def test_prefill_plan_covers_every_page_once(shape):
+    """Every block-table entry lies in exactly one split, no split is
+    empty, and a split spans at least PREFILL_MIN_POSITIONS positions
+    unless the whole table is shorter; the plan reaches SPLIT_BLOCKS
+    blocks unless the splits are at their smallest."""
+    from paddle_tpu_torch.kernels.paged_attention import SPLIT_BLOCKS
+    from paddle_tpu_torch.kernels.paged_prefill import (
+        PREFILL_MIN_POSITIONS, PREFILL_ROWS, prefill_plan)
+
+    chunk, heads, kv_heads, max_pages, page_size = shape
+    pps, n_split = prefill_plan(*shape)
+    cover = np.zeros(max_pages, int)
+    for s in range(n_split):
+        lo, hi = s * pps, min((s + 1) * pps, max_pages)
+        assert lo < hi
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    least = -(-PREFILL_MIN_POSITIONS // page_size)
+    assert pps >= min(least, max_pages)
+    blocks = kv_heads * -(-chunk * (heads // kv_heads) // PREFILL_ROWS)
+    assert blocks * n_split >= SPLIT_BLOCKS or pps <= least \
+        or n_split == max_pages
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", PREFILL_PLAN_SHAPES[:5],
+                         ids=["-".join(map(str, s))
+                              for s in PREFILL_PLAN_SHAPES[:5]])
+def test_cuda_prefill_launch_plans_from_shapes_alone(monkeypatch, shape,
+                                                     dtype):
+    """The launch the prefill wrapper makes: bf16 queries get
+    prefill_plan's pages per split and a workspace exactly when there is
+    more than one split, the same at every start (one grid per chunk
+    bucket); fp32 queries take the whole table and no workspace."""
+    import importlib
+    import types
+
+    from paddle_tpu_torch.kernels import _build
+    mod = importlib.import_module("paddle_tpu_torch.kernels.paged_prefill")
+
+    chunk, heads, hkv, maxp, ps = shape
+    calls = []
+    monkeypatch.setattr(_build, "kernel",
+                        lambda name: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    d = 16
+    q = torch.zeros(chunk, heads, d, dtype=dtype)
+    pages = torch.zeros(1 + maxp, hkv, ps, d, dtype=dtype)
+    bt = torch.zeros(maxp, dtype=torch.int32)
+    starts = (0, 37, maxp * ps - chunk)
+    for start in starts:
+        mod._launch(q, pages, pages, bt, start, None, None, 0, None, None)
+    pps, n_split = mod.prefill_plan(chunk, heads, hkv, maxp, ps)
+    for args, start in zip(calls, starts):
+        ws, start_arg, pps_arg = args[7], args[8], args[16]
+        assert start_arg == start
+        if dtype == torch.bfloat16:
+            assert pps_arg == pps
+            assert (ws is not None) == (n_split > 1)
+        else:
+            assert pps_arg == maxp and ws is None
