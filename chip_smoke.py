@@ -31,7 +31,10 @@ its seconds):
      four projections at M=12288 with bf16 activations (run (d) of phase
      5, timed beside ``torch._int_mm``, summed over a layer with its
      bound): the quantized activations, their scales and the output equal
-     the plain version bit for bit;
+     the plain version bit for bit.  Then the profile of its quantize and
+     GEMM kernels, and the sweep of its plan (``_gemm_sweep``: both paths
+     at M = 8-256 and the crossover found, the split count at M=8, the
+     wgmma tile width at M=128 and M=12288);
    - the flash forward, dQ and dK/dV kernels on q/k/v head views of one
      fused QKV tensor, as the model hands them over: the training
      flagship shape (B=12, H=12, S=1024, D=128, causal, bf16) in bsnd and
@@ -484,24 +487,94 @@ def _prefill_cases(torch, gen, table):
     return results
 
 
+GEMM_SWEEP_M = (8, 16, 32, 64, 128, 256)
+
+
+def _gemm_weights(torch, g, proj):
+    """Each projection's per-channel int8 weight (N, K) and scales, as
+    the model quantizes them: {name: (wq, ws, k, n)}."""
+    from paddle_tpu_torch.ops import quantize_per_channel
+
+    out = {}
+    for name, (k, n) in proj.items():
+        w = torch.randn(n, k, device="cuda", generator=g) * 0.02
+        wq, ws = quantize_per_channel(w.bfloat16().float(), axis=0)
+        out[name] = (wq.contiguous(), ws, k, n)
+    return out
+
+
+def _layer_ms(torch, g, weights, m, timer, **plan):
+    """One layer's four projections at ``m`` bf16 rows under ``plan``'s
+    overrides of gemm_plan, summed: ms by ``timer`` (graph_ms or
+    time_ms)."""
+    from paddle_tpu_torch.kernels.int8_gemm import gemm_plan, w8a8_gemm
+
+    total = 0.0
+    for wq, ws, k, n in weights.values():
+        x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+        pl = gemm_plan(m, n, k, **plan)
+        total += timer(lambda: w8a8_gemm(x, wq, ws, plan=pl))
+    return total
+
+
+def _gemm_sweep(torch, g, weights, train):
+    """The measured decisions of gemm_plan, logged: the crossover M
+    between the split and the wgmma path at the 1.3B projections (graph
+    replay), the split path's split count at M=8, and the wgmma tile width
+    at a prefill chunk's 128 rows (graph replay) and at the training rows
+    (CUDA events).  Returns the crossover the sweep found."""
+    from paddle_tpu_torch.kernels import int8_gemm as ig
+
+    faster = {}
+    for m in GEMM_SWEEP_M:
+        t = {p: _layer_ms(torch, g, weights, m, graph_ms, path=p)
+             for p in ("split", "wgmma")}
+        pick = "split" if m <= ig.GEMM_CROSSOVER else "wgmma"
+        faster[m] = min(t, key=t.get)
+        log(f"w8a8_gemm sweep, one decode layer at M={m}: split "
+            f"{t['split']:.4f} ms, wgmma {t['wgmma']:.4f} ms; the plan takes "
+            f"{pick}, faster: {faster[m]}")
+    found = max([m for m in GEMM_SWEEP_M if faster[m] == "split"], default=0)
+    log(f"w8a8_gemm crossover: split is faster up to M={found} of "
+        f"{GEMM_SWEEP_M}; GEMM_CROSSOVER = {ig.GEMM_CROSSOVER}")
+    base = {name: ig.gemm_plan(8, n, k).n_split
+            for name, (_, _, k, n) in weights.items()}
+    log(f"w8a8_gemm M=8 plan splits: {base}")
+    for label, f in (("1", lambda s: 1), ("half", lambda s: max(1, s // 2)),
+                     ("plan", lambda s: s), ("double", lambda s: 2 * s)):
+        total = 0.0
+        for name, (wq, ws, k, n) in weights.items():
+            total += _layer_ms(torch, g, {name: weights[name]}, 8, graph_ms,
+                               n_split=f(base[name]))
+        log(f"w8a8_gemm sweep, M=8 layer, splits {label}: {total:.4f} ms")
+    for m, layer, timer in ((128, weights, graph_ms),
+                            (TRAIN_BATCH * TRAIN_SEQ, train,
+                             lambda fn: time_ms(fn, 5))):
+        for bn in ig.WGMMA_BN_CHOICES:
+            ms = _layer_ms(torch, g, layer, m, timer, path="wgmma", bn=bn)
+            log(f"w8a8_gemm sweep, M={m} layer, wgmma 128 x {bn}: "
+                f"{ms:.4f} ms")
+    return found
+
+
 def phase_gemm(np, torch):
     """``w8a8_gemm`` against its plain version, exactly, at the 1.3B
-    projection shapes; timed at M=8 (one decode step's four projections of
-    a layer, summed for the kernels line) and at M=128, by CUDA-graph
-    replay: an eager call of a few tens of microseconds is bound by the
-    host's enqueue rate, which the eager times beside it show."""
+    projection shapes (M = 8, 40 and 128, fp32 and bf16 activations) and
+    the training flagship's (M = 12288, bf16); timed at M=8 (one decode
+    step's four projections of a layer, summed for the kernels line) and at
+    M=128, by CUDA-graph replay, with the host's cost per call (eager time
+    less replay time) beside; at M=12288 by CUDA events.  Then the sweep
+    of the plan's decisions (``_gemm_sweep``)."""
     from paddle_tpu_torch.kernels import w8a8_gemm, w8a8_gemm_plain
-    from paddle_tpu_torch.ops import quantize_per_channel
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
+    weights = _gemm_weights(torch, g, PROJ)
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0,
-               ops=0)
-    for proj, (k, n) in PROJ.items():
-        w = torch.randn(k, n, device=dev, generator=g) * 0.02
-        wq, ws = quantize_per_channel(w, axis=1)
-        wq = wq.t().contiguous()                     # (N, K), K contiguous
-        wb = w.to(torch.bfloat16)
+               ops=0, host_us=0.0)
+    prefill = dict(ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    for proj, (wq, ws, k, n) in weights.items():
+        wb = (wq.float() * ws[:, None]).t().contiguous().bfloat16()
         for m in (8, 40, 128):
             x = torch.randn(m, k, device=dev, generator=g)
             x[-1] = 0.0                              # the 1e-8 clamp
@@ -523,37 +596,46 @@ def phase_gemm(np, torch):
             # needs M > 16: M=8 pads to 32 rows (quantize excluded)
             xq_pad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
             xq_pad[:m] = xq
-            calls = dict(kernel=lambda: w8a8_gemm(xb, wq, ws),
-                         plain=lambda: w8a8_gemm_plain(xb, wq, ws),
+            calls = dict(bf16_matmul=lambda: xb @ wb,
+                         kernel=lambda: w8a8_gemm(xb, wq, ws),
                          int_mm=lambda: torch._int_mm(xq_pad, wq.t()),
-                         bf16_matmul=lambda: xb @ wb)
-            # device time from CUDA-graph replays; eager times beside
+                         plain=lambda: w8a8_gemm_plain(xb, wq, ws))
+            # device time from CUDA-graph replays, eager times beside; the
+            # kernel and _int_mm in turns, twice each (the mean), after the
+            # bf16 matmul and before the plain version's fp64 product, so
+            # that the two meet the card in the same state
             dev_ms = {key: graph_ms(fn) for key, fn in calls.items()}
+            for key in ("kernel", "int_mm"):
+                dev_ms[key] = (dev_ms[key] + graph_ms(calls[key])) / 2
             eager = {key: time_ms(fn) for key, fn in calls.items()}
             ms, plain_ms, lib_ms = (dev_ms["kernel"], dev_ms["plain"],
                                     dev_ms["int_mm"])
             nbytes = m * k * 2 + n * k + n * 4 + m * n * 2
             bms, by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS)
+            host_us = (eager["kernel"] - ms) * 1e3
             log(f"  timed bf16 x, graph replay (eager): kernel {ms:.4f} "
                 f"({eager['kernel']:.4f}) ms, plain {plain_ms:.4f} "
                 f"({eager['plain']:.4f}) ms, _int_mm {lib_ms:.4f} "
                 f"({eager['int_mm']:.4f}) ms (M padded to {max(m, 32)}), "
                 f"bf16 matmul {dev_ms['bf16_matmul']:.4f} "
-                f"({eager['bf16_matmul']:.4f}) ms, bound {bms:.4f} ms ({by})")
-            if m == 8:
-                for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("bound_ms", bms), ("library_ms", lib_ms),
-                                 ("bytes", nbytes), ("ops", 2 * m * n * k)):
-                    tot[key] += val
+                f"({eager['bf16_matmul']:.4f}) ms, bound {bms:.4f} ms ({by}); "
+                f"host cost per call (eager - replay) {host_us:.2f} us")
+            acc = tot if m == 8 else prefill
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", bms), ("library_ms", lib_ms),
+                             ("bytes", nbytes), ("ops", 2 * m * n * k),
+                             ("host_us", host_us)):
+                if key in acc:
+                    acc[key] += val
     # the training flagship's projections at its M = 12 x 1024 rows, bf16
     # activations and the live weight quantized as w8a8_matmul does
     m = TRAIN_BATCH * TRAIN_SEQ
+    train_weights = _gemm_weights(torch, g, TRAIN_PROJ)
     train = dict(ms=0.0, library_ms=0.0, bytes=0, ops=0)
-    for proj, (k, n) in TRAIN_PROJ.items():
-        w = (torch.randn(k, n, device=dev, generator=g) * 0.02).bfloat16()
-        wq, ws = quantize_per_channel(w.float().t(), axis=0)
-        wq = wq.contiguous()
+    layer = []
+    for proj, (wq, ws, k, n) in train_weights.items():
         x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+        layer.append((x, wq, ws))
         got = w8a8_gemm(x, wq, ws, return_quantized=True)
         want = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -568,16 +650,32 @@ def phase_gemm(np, torch):
                          ("bytes", m * k * 2 + n * k + n * 4 + m * n * 2),
                          ("ops", 2 * m * n * k)):
             train[key] += val
-        del x, got, want
+        del got, want
+    # the quantize's and the GEMM's device time (a dependent GEMM's span
+    # starts early, so it includes some of its wait for the quantize)
+    _profile(torch, f"w8a8_gemm, one training layer (M={m}), 5 times",
+             lambda: [w8a8_gemm(*a) for _ in range(5) for a in layer])
+    del layer
     bms, by = bound_ms(train["bytes"], train["ops"], INT8_OPS)
     log(f"w8a8_gemm one training layer's forward (M={m}, qkv + proj + fc1 + "
         f"fc2, bf16 x): {train['ms']:.4f} ms, _int_mm {train['library_ms']:.4f}"
         f" ms ({train['ms'] / train['library_ms']:.2f}x), bound {bms:.4f} ms "
-        f"({by}); 96 launches a step in training run (d)")
+        f"({by}), {train['ops'] / train['ms'] / 1e9:.1f} TOP/s; 96 launches "
+        "a step in training run (d)")
+    pms, pby = bound_ms(prefill["bytes"], prefill["ops"], INT8_OPS)
+    log(f"w8a8_gemm one prefill layer (M=128, qkv + proj + fc1 + fc2): "
+        f"{prefill['ms']:.4f} ms, _int_mm {prefill['library_ms']:.4f} ms, "
+        f"bound {pms:.4f} ms ({pby})")
     bms, by = bound_ms(tot["bytes"], tot["ops"], INT8_OPS)
     log(f"w8a8_gemm one decode layer (M=8, qkv + proj + fc1 + fc2): "
         f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, _int_mm "
-        f"{tot['library_ms']:.4f} ms, bound {bms:.4f} ms")
+        f"{tot['library_ms']:.4f} ms, bound {bms:.4f} ms; host cost "
+        f"{tot['host_us'] / 4:.2f} us a call (eager - replay)")
+    decode = [(torch.randn(8, k, device=dev, generator=g).bfloat16(), wq, ws)
+              for wq, ws, k, _ in weights.values()]
+    _profile(torch, "w8a8_gemm, one decode layer (M=8), 20 times",
+             lambda: [w8a8_gemm(*a) for _ in range(20) for a in decode])
+    _gemm_sweep(torch, g, weights, train_weights)
     return {"w8a8_gemm": dict(ms=tot["ms"], plain_ms=tot["plain_ms"],
                               bound_ms=bms, bound_by=by,
                               library_ms=tot["library_ms"], max_abs_err=0.0)}
@@ -816,8 +914,9 @@ def _profile(torch, what, fn):
         ms = sum(t for name, t in by_name.items()
                  if ("ptt::" in name or "paged_" in name)
                  and any(k in name for k in keys))
-        log(f"  paged {kind} kernels: {ms:.2f} ms "
-            f"({100 * ms / max(busy, 1e-9):.1f}% of device time)")
+        if ms:
+            log(f"  paged {kind} kernels: {ms:.2f} ms "
+                f"({100 * ms / max(busy, 1e-9):.1f}% of device time)")
 
 
 # label, engine options, requests, motif prompts, kernel variants it runs

@@ -55,8 +55,9 @@ SIGNATURES = {
     # pages_per_split, scale, window, dtype, kv_bits, stream
     "paged_attention_mq": ("paged_attention_mq", "paged_attention_mq_fwd",
                            [_P] * 9 + [_I] * 9 + [_F, _I, _I, _I, _P]),
-    # x, xq, sx, wq, ws, out, M, N, K, dtype, stream
-    "w8a8_gemm": ("w8a8_gemm", "w8a8_gemm_fwd", [_P] * 6 + [_I] * 4 + [_P]),
+    # x, xq, sx, wq, ws, out, M, N, K, dtype, path (0 split, 1 wgmma), bm,
+    # bn, chunks per split, stream
+    "w8a8_gemm": ("w8a8_gemm", "w8a8_gemm_fwd", [_P] * 6 + [_I] * 8 + [_P]),
     # q, k, v, out, lse, strides, B, H, Hkv, S, D, scale, causal, window,
     # dtype (0 fp32, 1 bf16), stream
     "flash_fwd": ("flash_fwd", "flash_fwd", [_P] * 6 + [_I] * 5 + [_F]

@@ -8,18 +8,25 @@ rescale ``float(acc) * sx[row] * ws[col]``, cast to x's dtype.
 
 The weight is stored **(N, K)**, K contiguous: the reference's (K, N)
 per-output-channel int8 weight transposed once at setup, which is the
-layout the tensor core's ``.col`` B operand reads.  Both versions here take
-that layout.  The kernel is ``paddle_tpu_torch/csrc/w8a8_gemm.cu`` (a
-row-quantize pass, then an ``mma.sync`` s8 GEMM with the rescale in its
-epilogue); see the source for its design and what bounds it on the card.
+layout both tensor-core paths read (``mma.sync``'s ``.col`` B operand,
+``wgmma``'s K-major B).  Both versions here take that layout.  The kernel
+is ``paddle_tpu_torch/csrc/w8a8_gemm.cu``, with two bodies that
+:func:`gemm_plan` picks from the shapes alone: for few rows one launch of
+a weight-streaming split-K ``mma.sync`` body whose thread-block clusters
+sum their splits in distributed shared memory, for many rows a persistent
+TMA + ``wgmma`` body, each launched as a dependent of one row-quantize
+pass.  See the source for the design and what bounds each on the card.
 
 :func:`w8a8_gemm` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; a shape the kernel cannot take raises, it is
-never rerouted.  Each call counts one ``w8a8_gemm`` launch (the two passes
-of one kernel).
+never rerouted.  Each call counts one ``w8a8_gemm`` launch (its quantize
+and GEMM are one kernel's).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +35,83 @@ from . import _build
 from .paged_attention import _DTYPES
 
 _build.LAUNCHES["w8a8_gemm"] = 0
+
+#: K bytes per ring stage of the split path (one ``mma.sync`` k32 pair)
+GEMM_KC = 64
+#: output rows and columns per block of the split path
+SPLIT_BM, SPLIT_BN = 16, 32
+#: the split path cuts K into a power of two of splits, as many as keep the
+#: grid within this many blocks (about six on each of the H100's 132 SMs;
+#: measured: PERF.md) ...
+SPLIT_BLOCKS = 768
+#: ... and at most this many: the blocks of a tile form one thread-block
+#: cluster (the portable maximum), whose partial sums meet in distributed
+#: shared memory
+SPLIT_MAX = 8
+#: output rows per tile of the wgmma path (two m64 warpgroups)
+WGMMA_BM = 128
+#: the wgmma path's tile widths: the wide one where its tiles fill the
+#: card's 132 SMs, the narrow one below (more blocks stream the weight)
+WGMMA_BN_CHOICES, WGMMA_SMS = (128, 256), 132
+#: rows up to which the split path runs; more rows take the wgmma path
+#: (measured on an H100 by chip_smoke.py's sweep: see PERF.md)
+GEMM_CROSSOVER = 16
+
+_PATHS = {"split": 0, "wgmma": 1}
+
+
+class GemmPlan(NamedTuple):
+    """One launch of the kernel: ``path`` ("split" or "wgmma"), its output
+    tile ``bm`` x ``bn``, and the 64-byte K chunks each split takes
+    (``chunks_per_split``; the last split fewer) and how many splits there
+    are.  Neither path needs a workspace: the split path's partial sums
+    meet in its cluster's shared memory."""
+    path: str
+    bm: int
+    bn: int
+    chunks_per_split: int
+    n_split: int
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m, n, k, *, path=None, bn=None, n_split=None):
+    """The kernel's launch for an (m, k) x (n, k)^T product, from the shapes
+    alone: the split path for ``m <= GEMM_CROSSOVER`` rows, the wgmma path
+    above.  Split: :data:`SPLIT_BM` x :data:`SPLIT_BN` tiles, and K cut
+    into ``n_split`` equal ranges of ``chunks_per_split`` chunks of
+    :data:`GEMM_KC` bytes (the last one fewer), a power of two, as many
+    as keep the grid within :data:`SPLIT_BLOCKS` blocks, at most
+    :data:`SPLIT_MAX`.
+    Wgmma: :data:`WGMMA_BM` x 256 tiles over all of K where they are at
+    least :data:`WGMMA_SMS`, 128 x 128 below.
+
+    ``path``, ``bn`` (wgmma) and ``n_split`` (the splits wanted; split)
+    override the choices, for tests and measurements."""
+    if m < 1 or k < GEMM_KC or k % GEMM_KC or n < 16 or n % 16:
+        raise ValueError(f"gemm_plan: the kernel takes M >= 1, K % 64 == 0 "
+                         f"and N % 16 == 0, not M={m}, K={k}, N={n}")
+    chunks = k // GEMM_KC
+    path = path or ("split" if m <= GEMM_CROSSOVER else "wgmma")
+    if path == "wgmma":
+        wide = _cdiv(m, WGMMA_BM) * _cdiv(n, 256) >= WGMMA_SMS
+        bn = bn or WGMMA_BN_CHOICES[wide]
+        if bn not in WGMMA_BN_CHOICES:
+            raise ValueError(f"gemm_plan: wgmma takes bn in "
+                             f"{WGMMA_BN_CHOICES}")
+        return GemmPlan("wgmma", WGMMA_BM, bn, chunks, 1)
+    if path != "split" or bn not in (None, SPLIT_BN):
+        raise ValueError(f"gemm_plan: no path {path!r} with bn={bn}")
+    if n_split is None:
+        tiles = _cdiv(m, SPLIT_BM) * _cdiv(n, SPLIT_BN)
+        n_split = 1
+        while n_split * 2 <= min(SPLIT_MAX, SPLIT_BLOCKS // tiles):
+            n_split *= 2
+    cps = _cdiv(chunks, min(n_split, SPLIT_MAX))
+    return GemmPlan("split", SPLIT_BM, SPLIT_BN, cps, _cdiv(chunks, cps))
 
 
 def w8a8_gemm_plain(x, wq, ws, *, return_quantized=False):
@@ -44,20 +128,8 @@ def w8a8_gemm_plain(x, wq, ws, *, return_quantized=False):
     return (out, xq, sx) if return_quantized else out
 
 
-def w8a8_gemm(x, wq, ws, *, return_quantized=False):
-    """Dynamic per-token quantize + int8 GEMM + rescale.
-
-    ``x`` (M, K) fp32/bf16 contiguous, any M >= 1; ``wq`` (N, K) int8
-    contiguous with K % 64 == 0 and N % 16 == 0; ``ws`` (N,) fp32.
-    Returns (M, N) in x's dtype (and ``xq``, ``sx`` (M, 1) with
-    ``return_quantized``).
-
-    CPU tensors take :func:`w8a8_gemm_plain`.  CUDA tensors launch the
-    kernel on the current stream without synchronising, or raise."""
-    if x.device.type == "cpu":
-        return w8a8_gemm_plain(x, wq, ws, return_quantized=return_quantized)
-    if x.device.type != "cuda":
-        raise ValueError(f"w8a8_gemm runs on cpu or cuda, not {x.device}")
+def _validate(x, wq, ws):
+    """The shapes, dtypes and layouts the kernel takes; returns (m, k, n)."""
     if x.dtype not in _DTYPES or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("w8a8_gemm: x must be a contiguous (M, K) fp32 or "
                          "bf16 tensor")
@@ -76,13 +148,46 @@ def w8a8_gemm(x, wq, ws, *, return_quantized=False):
                          f"and N % 16 == 0, not M={m}, K={k}, N={n}")
     if x.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("w8a8_gemm: x and wq must be 16-byte aligned")
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    return m, k, n
+
+
+def _launch(x, wq, ws, plan):
+    """Allocate the call's scratch (xq, then sx: one buffer) and output, and
+    launch; returns (out, scratch)."""
+    m, k = x.shape
+    n = wq.shape[0]
+    scratch = torch.empty(m * k + 4 * m, dtype=torch.uint8, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn = _build.kernel("w8a8_gemm")
-    code = fn(x.data_ptr(), xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
-              ws.data_ptr(), out.data_ptr(), m, n, k, _DTYPES[x.dtype],
-              torch.cuda.current_stream(x.device).cuda_stream)
+    base = scratch.data_ptr()
+    code = _build.kernel("w8a8_gemm")(
+        x.data_ptr(), base, base + m * k, wq.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), m, n, k, _DTYPES[x.dtype], _PATHS[plan.path], plan.bm,
+        plan.bn, plan.chunks_per_split,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("w8a8_gemm", code)
+    return out, scratch
+
+
+def w8a8_gemm(x, wq, ws, *, return_quantized=False, plan=None):
+    """Dynamic per-token quantize + int8 GEMM + rescale.
+
+    ``x`` (M, K) fp32/bf16 contiguous, any M >= 1; ``wq`` (N, K) int8
+    contiguous with K % 64 == 0 and N % 16 == 0; ``ws`` (N,) fp32.
+    Returns (M, N) in x's dtype (and ``xq``, ``sx`` (M, 1) with
+    ``return_quantized``).  ``plan`` (a :class:`GemmPlan`) overrides
+    :func:`gemm_plan`'s.
+
+    CPU tensors take :func:`w8a8_gemm_plain`.  CUDA tensors launch the
+    kernel on the current stream without synchronising, or raise."""
+    if x.device.type == "cpu":
+        return w8a8_gemm_plain(x, wq, ws, return_quantized=return_quantized)
+    if x.device.type != "cuda":
+        raise ValueError(f"w8a8_gemm runs on cpu or cuda, not {x.device}")
+    m, k, n = _validate(x, wq, ws)
+    out, scratch = _launch(x, wq, ws, plan or gemm_plan(m, n, k))
     _build.LAUNCHES["w8a8_gemm"] += 1
-    return (out, xq, sx) if return_quantized else out
+    if not return_quantized:
+        return out
+    xq = scratch[:m * k].view(torch.int8).view(m, k)
+    sx = scratch[m * k:m * k + 4 * m].view(torch.float32).view(m, 1)
+    return out, xq, sx

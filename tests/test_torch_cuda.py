@@ -319,28 +319,116 @@ def test_split_prefill_shapes_match_plain_on_card(dev, bits, ps, d):
                                                   window=window, **sc))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,n", [(2048, 6144), (8192, 2048), (128, 48)])
-def test_w8a8_gemm_is_exact_on_card(dev, k, n):
-    """The W8A8 kernel equals its plain version bit for bit: the quantized
-    activations and their scales, and the fp32 output (the same int32
-    sums, converted and rescaled in the same order); bf16 output is the
-    same fp32 rounded once."""
-    g = torch.Generator(device=dev).manual_seed(k + n)
+def _gemm_weight(dev, g, n, k):
+    """A per-channel int8 weight (N, K) and its scales, as the model
+    quantizes one."""
     w = torch.randn(n, k, device=dev, generator=g) * 0.02
     ws = w.abs().amax(1).clamp_min(1e-8) / 127.0
     wq = torch.round(w / ws[:, None]).clamp(-127, 127).to(torch.int8)
-    for m in (1, 8, 40, 128):
+    return wq, ws
+
+
+def _gemm_exact(x, wq, ws, plan=None):
+    """w8a8_gemm equals its plain version bit for bit (xq, sx, out), and a
+    second call gives the same bits."""
+    from paddle_tpu_torch.kernels.int8_gemm import w8a8_gemm as gemm
+
+    out, xq, sx = gemm(x, wq, ws, return_quantized=True, plan=plan)
+    ref, rxq, rsx = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
+    assert torch.equal(xq, rxq) and torch.equal(sx, rsx)
+    assert torch.equal(out, ref)
+    assert torch.equal(gemm(x, wq, ws, plan=plan), out)
+
+
+GEMM_MS = (1, 8, 16, 17, 40, 63, 64, 65, 128, 129, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(64, 48), (2048, 6144), (8192, 2048),
+                                 (1536, 4608), (128, 48)])
+def test_w8a8_gemm_is_exact_on_card(dev, k, n):
+    """The W8A8 kernel equals its plain version bit for bit on both paths
+    and on both sides of the crossover: the quantized activations and their
+    scales, and the output in fp32 and bf16 (the same int32 sums, converted
+    and rescaled in the same order).  Each M also runs on the path its plan
+    does not pick."""
+    from paddle_tpu_torch.kernels.int8_gemm import gemm_plan
+
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    wq, ws = _gemm_weight(dev, g, n, k)
+    for m in GEMM_MS:
         x = torch.randn(m, k, device=dev, generator=g)
         x[-1] = 0.0                      # all-zero row: the 1e-8 clamp
-        out, xq, sx = w8a8_gemm(x, wq, ws, return_quantized=True)
-        ref, rxq, rsx = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
-        assert torch.equal(xq, rxq) and torch.equal(sx, rsx)
-        assert torch.equal(out, ref)
-        xb = x.to(torch.bfloat16)
-        assert torch.equal(w8a8_gemm(xb, wq, ws), w8a8_gemm_plain(xb, wq, ws))
+        other = "wgmma" if gemm_plan(m, n, k).path == "split" else "split"
+        for xt in (x, x.to(torch.bfloat16)):
+            _gemm_exact(xt, wq, ws)
+            _gemm_exact(xt, wq, ws, gemm_plan(m, n, k, path=other))
     with pytest.raises(ValueError):
         w8a8_gemm(x[:, :-1].contiguous(), wq, ws)      # K != wq's K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["split", "wgmma"])
+def test_w8a8_gemm_rows_columns_and_ties_on_card(dev, path):
+    """A map of the accumulator fragment that swapped rows or columns
+    cannot hide: rows of distinct scales and a per-column ws = 1 + col / N;
+    and values that fall on exact .5 boundaries after the division, which
+    round half to even (2.5 -> 2, 3.5 -> 4, -0.5 -> -0)."""
+    from paddle_tpu_torch.kernels.int8_gemm import gemm_plan
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    m, k, n = 72, 256, 208
+    wq, _ = _gemm_weight(dev, g, n, k)
+    ws = 1.0 + torch.arange(n, device=dev, dtype=torch.float32) / n
+    x = torch.randn(m, k, device=dev, generator=g)
+    x *= (1.0 + torch.arange(m, device=dev, dtype=torch.float32))[:, None]
+    # row 0: absmax 127 gives sx = 1, so x / sx is x itself
+    x[0] = torch.tensor([2.5, 3.5, -0.5, 0.5, -2.5, 126.5, -126.5, 127.0],
+                        device=dev).repeat(k // 8)
+    plan = gemm_plan(m, n, k, path=path)
+    for xt in (x, x.to(torch.bfloat16)):
+        _gemm_exact(xt, wq, ws, plan)
+    _, xq, _ = w8a8_gemm(x, wq, ws, return_quantized=True, plan=plan)
+    assert xq[0, :8].tolist() == [2, 4, 0, 0, -2, 126, -126, 127]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want,n_split", [(1, 1), (2, 2), (6, 6), (8, 8)])
+def test_w8a8_gemm_split_counts_on_card(dev, want, n_split):
+    """The split path at M = 8 under any split count, clusters of 1 to 8
+    blocks (6 wanted gives 6 splits of 6, 6, 6, 6, 6 and 2 chunks), and a
+    CUDA graph's replays give the same bits."""
+    from paddle_tpu_torch.kernels.int8_gemm import gemm_plan
+
+    g = torch.Generator(device=dev).manual_seed(want)
+    m, k, n = 8, 2048, 2048
+    wq, ws = _gemm_weight(dev, g, n, k)
+    x = torch.randn(m, k, device=dev, generator=g, dtype=torch.bfloat16)
+    plan = gemm_plan(m, n, k, n_split=want)
+    assert plan.n_split == n_split
+    _gemm_exact(x, wq, ws, plan)
+    ref = w8a8_gemm_plain(x, wq, ws)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = w8a8_gemm(x, wq, ws, plan=plan)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_w8a8_gemm_training_rows_on_card(dev):
+    """The training flagship's qkv projection at its M = 12 x 1024 rows,
+    bf16 activations: bit-exact on the wgmma path."""
+    from paddle_tpu_torch.kernels.int8_gemm import gemm_plan
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    m, k, n = 12288, 1536, 4608
+    wq, ws = _gemm_weight(dev, g, n, k)
+    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    assert gemm_plan(m, n, k).path == "wgmma"
+    _gemm_exact(x, wq, ws)
 
 
 # layout, B, H, Hkv, S, D, causal, window: every layout, GQA, a window,
