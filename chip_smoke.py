@@ -29,7 +29,7 @@ its seconds):
    - ``w8a8_gemm`` at GPT-1.3B's four projection shapes, M=8 (decode) and
      M=128 (prefill), and a ragged M=40, and at the training flagship's
      four projections at M=12288 with bf16 activations (run (d) of phase
-     5, timed beside ``torch._int_mm``, summed over a layer with its
+     6, timed beside ``torch._int_mm``, summed over a layer with its
      bound): the quantized activations, their scales and the output equal
      the plain version bit for bit.  Then the profile of its quantize and
      GEMM kernels, and the sweep of its plan (``_gemm_sweep``: both paths
@@ -69,7 +69,29 @@ its seconds):
    instead, at least 90% of the positions agreeing: quantized activations
    turn such float-level differences into int8 rounding differences, and
    one early divergence would end the greedy comparison;
-5. training: first the train step in fp32 on the card against the same
+5. cluster: the rest of the serving engine.  (1) Exact checks on phase
+   4's fp32 model: the handoff round trip (``export_pages`` -> host numpy
+   -> ``ingest_pages`` into other pages) byte-equal for bf16, int8 and
+   int4 pages and their scales; ``make_cluster(model, 2,
+   disaggregate=True)``, ``double_buffer=True`` and a snapshot taken at
+   step 5, restored and drained, each token for token the monolithic
+   engine's output on phase 4's prompts; a seeded ``FaultPlan.random``
+   chaos run of an int8 engine under WFQ over two tenants (staggered
+   arrivals, deadlines, a cancel, a bounded queue) that must give every
+   request exactly one terminal, pass ``check_invariants`` after every
+   step and leak no page.  (2) GPT-1.3B in bf16 on phase 3's 16 requests,
+   16 slots (one per request, so that the engine and the cluster's
+   prefill replica run the same chunks): (a) one engine, (g) the
+   disaggregated cluster (one prefill and one decode replica on the one
+   card) and (h) (a) with ``double_buffer=True``, in the order a, h, g,
+   h, a; each with its launches asserted, its
+   replicas' decode-step and prefill-chunk ms, ``decode_sync_s``,
+   handoffs and handoff bytes logged, its tokens held against (a)'s by
+   the 99% agreement of phase 4 (the chunk schedules differ, so bf16 may
+   flip a near tie), and a profile of 8 more requests.  (3) The export
+   and ingest ms of one request's 18 pages at full width for the three
+   page kinds, and the snapshot and restore seconds of run (a)'s engine;
+6. training: first the train step in fp32 on the card against the same
    step on the CPU (flagship width, 2 layers, batch 1, seq 512, 2 steps;
    losses to 1e-4 relative, and each leaf's update, ||card - CPU|| over
    ||CPU||, to ``UPDATE_RTOL``), then the 760M training flagship (vocab
@@ -86,7 +108,8 @@ its seconds):
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
-the serving or training run that first reaches it, its error against the
+the serving or training run that first reaches it (and, under
+``launches_in``, on phase 5's runs (g) and (h)), its error against the
 plain version, its time (the paged kernels' and ``w8a8_gemm``'s by
 CUDA-graph replay, which takes the host's enqueue cost out of calls that
 short, with their yardsticks timed the same way), the plain version's
@@ -883,8 +906,9 @@ def _requests(np, rng, cfg, shared, n=16, motif=False):
 
 def _profile(torch, what, fn):
     """Run ``fn`` under torch.profiler and print the device's busy share of
-    the host-clock wall time and the device time by kernel.  The profiler
-    slows the host, so the idle share is an upper bound."""
+    the host-clock wall time and the device time by kernel; returns the
+    busy share.  The profiler slows the host, so the idle share is an upper
+    bound."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -901,8 +925,9 @@ def _profile(torch, what, fn):
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us() / 1e3)
     busy = sum(by_name.values())
+    share = busy / (1e3 * wall)
     log(f"  profile: {what}, wall {1e3 * wall:.1f} ms, device busy "
-        f"{busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}%)")
+        f"{busy:.1f} ms ({100 * share:.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
     # the paged kernels: the split-KV body and its merge for bf16 queries
@@ -917,6 +942,7 @@ def _profile(torch, what, fn):
         if ms:
             log(f"  paged {kind} kernels: {ms:.2f} ms "
                 f"({100 * ms / max(busy, 1e-9):.1f}% of device time)")
+    return share
 
 
 # label, engine options, requests, motif prompts, kernel variants it runs
@@ -1080,11 +1106,12 @@ def _forced(np, torch, model, label, prompts, got, int8, kv_bits):
         raise AssertionError(f"parity {label}: agreement {share:.4f} < 0.9")
 
 
-def phase_parity(np, torch):
+def _parity_model(np, torch):
+    """Phase 4's model (fp32, GPT-1.3B width, 2 layers, seed 1; TF32 off
+    everywhere from here on) and its 4 prompts."""
     import dataclasses
 
-    from paddle_tpu_torch.models import GPTForPretraining, generate, gpt_1p3b
-    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
 
     # fp32 products in full fp32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1097,6 +1124,14 @@ def phase_parity(np, torch):
     # two of them repeat a motif, so that the speculative run drafts
     prompts[1] = np.tile(prompts[1][:6], 11)[:64]
     prompts[3] = np.tile(prompts[3][:9], 28)[:250]
+    return model, prompts
+
+
+def phase_parity(np, torch):
+    from paddle_tpu_torch.models import generate
+    from paddle_tpu_torch.serving import ServingEngine
+
+    model, prompts = _parity_model(np, torch)
 
     def serve(**opts):
         eng = ServingEngine(model, max_slots=4, page_size=32,
@@ -1120,6 +1155,258 @@ def phase_parity(np, torch):
 
 
 # -- phase 5 -----------------------------------------------------------------
+
+def _roundtrip(torch, layers, bits, reps=1):
+    """One request's pages (18: 576 positions at page 32) through
+    ``export_pages`` -> host numpy -> ``ingest_pages`` into other pages of
+    a second pool, at GPT-1.3B's width (16 heads, D=128) over ``layers``
+    layers: byte-equal, page bytes and scales, or fail.  Returns the mean
+    export and ingest ms over ``reps`` round trips (host clock, each
+    synchronised) and the payload's bytes."""
+    from paddle_tpu_torch.serving import KVPool
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    kw = dict(num_pages=40, page_size=32, dtype=torch.bfloat16, kv_bits=bits)
+    src, dst = KVPool(layers, 16, 128, **kw), KVPool(layers, 16, 128, **kw)
+    for buf in src.buffers.values():
+        if buf.dtype == torch.int8:
+            buf.copy_(torch.randint(-128, 128, buf.shape, dtype=torch.int8,
+                                    device="cuda", generator=g))
+        else:
+            buf.copy_(torch.randn(buf.shape, device="cuda", generator=g))
+    pages, into = src.alloc(18), dst.alloc(25)[7:]
+    exp = ing = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = src.export_pages(pages)           # ends in host numpy
+        t1 = time.perf_counter()
+        dst.ingest_pages(payload, into)
+        torch.cuda.synchronize()
+        exp += t1 - t0
+        ing += time.perf_counter() - t1
+    for name, buf in src.buffers.items():
+        if not torch.equal(buf[:, pages].view(torch.uint8),
+                           dst.buffers[name][:, into].view(torch.uint8)):
+            raise AssertionError(f"handoff round trip, kv_bits={bits}: "
+                                 f"buffer {name} differs")
+    return 1e3 * exp / reps, 1e3 * ing / reps, src.payload_nbytes(payload)
+
+
+def _drain(target, done):
+    """Step an engine or a router to completion, auditing it after every
+    step; each rid must reach exactly one terminal."""
+    while target.has_work:
+        for fin in target.step():
+            if fin.rid in done:
+                raise AssertionError(f"rid {fin.rid}: two terminals")
+            done[fin.rid] = fin
+        target.check_invariants()
+    return done
+
+
+def _same_tokens(np, label, got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: request {i} differs: {a} "
+                                 f"against {b}")
+    log(f"exact {label}: {sum(len(b) for b in want)} tokens of "
+        f"{len(want)} requests equal")
+
+
+def _exact_checks(np, torch):
+    """Part (1): phase 4's fp32 model, TF32 off.  Every comparison is
+    token for token."""
+    from paddle_tpu_torch.serving import (TERMINAL_REASONS, FaultPlan,
+                                          ServingEngine, make_cluster)
+
+    for bits in (None, 8, 4):
+        _roundtrip(torch, 2, bits)
+    log("exact handoff round trip (2 layers): bf16, int8 and int4 pages "
+        "and scales byte-equal")
+    model, prompts = _parity_model(np, torch)
+    kw = dict(max_slots=4, page_size=32, chunk_tokens=128)
+
+    def serve(target):
+        rids = [target.add_request(p, 24) for p in prompts]
+        done = _drain(target, {})
+        return [done[r].tokens for r in rids]
+
+    want = serve(ServingEngine(model, **kw))
+    router = make_cluster(model, 2, disaggregate=True, **kw)
+    _same_tokens(np, "make_cluster(2, disaggregate=True) vs the monolithic "
+                 "engine", serve(router), want)
+    if router.stats["handoffs"] != len(prompts):
+        raise AssertionError(f"cluster handed off {router.stats}")
+    _same_tokens(np, "double_buffer=True vs False",
+                 serve(ServingEngine(model, double_buffer=True, **kw)), want)
+    eng = ServingEngine(model, **kw)
+    rids = [eng.add_request(p, 24) for p in prompts]
+    done = {}
+    for _ in range(5):
+        for fin in eng.step():
+            done[fin.rid] = fin
+    snap = eng.snapshot()
+    del eng
+    done = _drain(ServingEngine.restore(model, snap), done)
+    _same_tokens(np, "snapshot at step 5, restored and drained, vs the "
+                 "uninterrupted run", [done[r].tokens for r in rids], want)
+
+    plan = FaultPlan.random(0, n_steps=40, p_alloc=0.2, p_raise=0.12,
+                            p_latency=0.15, max_latency_s=0.01)
+    eng = ServingEngine(model, int8=True, faults=plan, num_pages=24,
+                        max_queue=6, tenants={"a": 1.0, "b": 3.0}, **kw)
+    rng = np.random.RandomState(3)
+    rids = []
+
+    def arrive(i):
+        rids.append(eng.add_request(
+            rng.randint(0, model.cfg.vocab_size, (int(rng.randint(8, 200)),)),
+            int(rng.randint(4, 24)), tenant="ab"[i % 2],
+            deadline_s=(0.02 if i % 4 == 3 else None)))
+
+    done, steps = {}, 0
+    while eng.has_work or steps < 8:
+        steps += 1
+        for i in range(2 * steps - 2, 2 * steps) if steps <= 8 else ():
+            arrive(i)
+        if steps == 4:
+            eng.cancel(rids[0])
+        for fin in eng.step():
+            if fin.rid in done or fin.reason not in TERMINAL_REASONS:
+                raise AssertionError(f"chaos: bad terminal {fin}")
+            done[fin.rid] = fin
+        eng.check_invariants()
+    if set(done) != set(rids) or eng.pool.pages_in_use:
+        raise AssertionError("chaos: a request without a terminal, or a "
+                             "leaked page")
+    if not (plan.injected["alloc_fail"] and plan.injected["raise"]):
+        raise AssertionError(f"chaos: no fault fired {plan.injected}")
+    reasons = {}
+    for fin in done.values():
+        reasons[fin.reason] = reasons.get(fin.reason, 0) + 1
+    log(f"exact chaos (int8, WFQ a:b = 1:3, FaultPlan.random(0)): "
+        f"{len(rids)} requests, one terminal each {json.dumps(reasons)}, "
+        f"{steps} steps, faults {json.dumps(plan.injected)}, "
+        f"step_faults {eng.stats['step_faults']}, preemptions "
+        f"{eng.stats['preemptions']}, no page leaked; vt "
+        f"{json.dumps(eng.scheduler.policy.vt)}")
+    del model, eng, router
+    torch.cuda.empty_cache()
+
+
+def _replica_line(label, eng):
+    s = eng.stats
+    dec = (f"decode step {1e3 * s['decode_s'] / s['decode_calls']:.3f} ms "
+           f"over {s['decode_calls']} steps, decode_sync_s "
+           f"{s['decode_sync_s']:.4f} (retires in flight "
+           f"{eng.retires_in_flight}), " if s["decode_calls"] else "")
+    pre = (f"prefill chunk {1e3 * s['prefill_s'] / s['prefill_calls']:.3f} "
+           f"ms over {s['prefill_calls']} chunks, "
+           if s["prefill_calls"] else "")
+    log(f"  {label} [{eng.role}]: {dec}{pre}handoffs_out "
+        f"{s['handoffs_out']}, handoffs_in {s['handoffs_in']}, "
+        f"handoff_bytes {s['handoff_bytes']}, tokens "
+        f"{s['tokens_generated']}")
+
+
+# label, what it builds, kernel variants it runs; (a) and (h) run twice,
+# in turns around (g), so that an order effect shows as a difference
+# between a run and its repeat
+CLUSTER_RUNS = (
+    ("a", "ServingEngine(model)", {"paged_attention", "paged_prefill"}),
+    ("h", "ServingEngine(model, double_buffer=True)",
+     {"paged_attention", "paged_prefill"}),
+    ("g", "make_cluster(model, 2, disaggregate=True)",
+     {"paged_attention", "paged_prefill"}),
+    ("h2", "ServingEngine(model, double_buffer=True)",
+     {"paged_attention", "paged_prefill"}),
+    ("a2", "ServingEngine(model)", {"paged_attention", "paged_prefill"}),
+)
+
+
+def phase_cluster(np, torch):
+    """Part (1) the exact checks; part (2) runs (a), (g) and (h) of
+    GPT-1.3B in bf16 on phase 3's 16 requests; part (3) the handoff's
+    export / ingest times at full width and the snapshot / restore
+    seconds of run (a)'s pool.  Returns each kernel variant's launches in
+    (g) and (h)."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+    from paddle_tpu_torch.serving import (ServingEngine, make_cluster,
+                                          restore_engine, snapshot_engine)
+
+    _exact_checks(np, torch)
+    model = GPTForPretraining(gpt_1p3b(), seed=0)          # bf16 on the card
+    cfg = model.cfg
+    # 16 slots, one per request: every request is admitted at step 1 in
+    # the engine and in the cluster's prefill replica alike, so both run
+    # the same prefill chunks (at phase 3's 8 slots the prefill replica,
+    # freed at each handoff, admits the second wave earlier, its chunks
+    # fall elsewhere, and bf16 rounding flips near ties of this random
+    # model in a tenth of the tokens)
+    kw = dict(max_slots=16, page_size=32, chunk_tokens=128)
+    builds = {"a": lambda: ServingEngine(model, **kw),
+              "g": lambda: make_cluster(model, 2, disaggregate=True, **kw),
+              "h": lambda: ServingEngine(model, double_buffer=True, **kw)}
+    tokens, launched, keep = {}, {}, None
+    for label, what, expected in CLUSTER_RUNS:
+        rng = np.random.RandomState(1)
+        shared = rng.randint(0, cfg.vocab_size, (128,))
+        target = builds[label[0]]()
+        rids = [target.add_request(p, n)
+                for p, n in _requests(np, rng, cfg, shared, n=16)]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        done = _drain(target, {})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: n for name, n in KERNELS.items() if n}
+        if set(launches) != expected:
+            raise AssertionError(f"run ({label}) launched {sorted(launches)}"
+                                 f", expected {sorted(expected)}")
+        if {done[r].reason for r in rids} != {"length"}:
+            raise AssertionError(f"run ({label}): a request did not finish")
+        tokens[label] = [done[r].tokens for r in rids]
+        launched[label] = launches
+        log(f"cluster run ({label}) {what}: 16 requests in {wall:.2f} s, "
+            f"launches {json.dumps(launches)}")
+        replicas = getattr(target, "replicas", [target])
+        for i, eng in enumerate(replicas):
+            _replica_line(f"replica {i}", eng)
+        if label != "a":
+            _agreement(np, f"run ({label}) vs run (a)", tokens[label],
+                       tokens["a"])
+        more = _requests(np, rng, cfg, shared, n=8)
+        _profile(torch, f"run ({label}), 8 more requests",
+                 lambda: target.run(more))
+        if label == "a":
+            keep = target
+        else:
+            del target
+        torch.cuda.empty_cache()
+
+    for bits in (None, 8, 4):
+        _roundtrip(torch, cfg.num_layers, bits)                 # warm-up
+        exp, ing, nbytes = _roundtrip(torch, cfg.num_layers, bits, reps=5)
+        log(f"handoff of one request's 18 pages, 24 layers, "
+            f"{'bf16' if bits is None else f'int{bits}'} pages: "
+            f"{nbytes} bytes, export {exp:.3f} ms, ingest {ing:.3f} ms "
+            f"(host clock, mean of 5 after a warm-up)")
+    t0 = time.perf_counter()
+    snap = snapshot_engine(keep)
+    t1 = time.perf_counter()
+    back = restore_engine(model, snap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"snapshot of run (a)'s engine ({keep.pool.hbm_bytes()} pool "
+        f"bytes): {t1 - t0:.3f} s; restore {t2 - t1:.3f} s")
+    del snap, back, keep, model
+    torch.cuda.empty_cache()
+    return {label: launched[label] for label in ("g", "h")}
+
+
+# -- phase 6 -----------------------------------------------------------------
 
 # the training flagship: vocab 50304, hidden 1536, 24 layers, 12 heads
 # (D = 128), seq 1024, batch 12, bf16 parameters with fp32 AdamW masters,
@@ -1324,8 +1611,10 @@ def main():
     done("3 serving")
     phase_parity(np, torch)
     done("4 parity")
+    cluster = phase_cluster(np, torch)
+    done("5 cluster")
     trained = phase_training(np, torch)
-    done("5 training")
+    done("6 training")
     line = []
     for name, k in kernels.items():
         src = name.split("_int")[0]
@@ -1343,13 +1632,18 @@ def main():
         else:
             n, run = first[name]
             log(f"{name}: {n} launches on serving run ({run})")
-        line.append({"name": name, "route": "cuda",
-                     "source": f"paddle_tpu_torch/csrc/{src}.cu",
-                     "replaces": replaces, "launches": n,
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"]})
+        entry = {"name": name, "route": "cuda",
+                 "source": f"paddle_tpu_torch/csrc/{src}.cu",
+                 "replaces": replaces, "launches": n,
+                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+        more = {run: c[name] for run, c in cluster.items() if name in c}
+        if more:
+            # its launches in phase 5's runs (g) and (h)
+            entry["launches_in"] = more
+            log(f"{name}: {json.dumps(more)} launches in cluster runs")
+        line.append(entry)
     log(card)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,36 @@
 """Paged, continuous-batching serving of a GPT (PyTorch port of
-``paddle_tpu/serving``): the page pool, the prefix index, the FCFS
-scheduler, the n-gram drafter and the engine."""
+``paddle_tpu/serving``): the page pool, the prefix index, the scheduler
+and its tenancy policies, the n-gram drafter, the engine, fault
+injection, metrics, tracing, the flight recorder, snapshots and the
+multi-replica router.  The reference's HTTP front end and its profiler
+bridge (``attach_profiler`` / ``detach_profiler``) are not ported yet."""
 
-from .drafter import NGramDrafter
-from .engine import FinishedRequest, ServingEngine
 from .kv_pool import KVPool
 from .prefix_cache import PrefixIndex
 from .scheduler import Admission, FCFSScheduler, Request
-from .tenancy import FCFSPolicy, SchedulerPolicy, make_policy
+from .tenancy import (DEFAULT_TENANT, ClusterWFQState, FCFSPolicy,
+                      SchedulerPolicy, TenantConfig, WFQPolicy, make_policy)
+from .metrics import (Counter, Gauge, Histogram, MetricsFileExporter,
+                      MetricsRegistry, SLOTracker, aggregate_scalars,
+                      cluster_prometheus, merge_registries)
+from .tracing import (PID_ENGINE, PID_HOST, PID_REQUESTS, PID_ROUTER,
+                      TraceRecorder, flow_id, merge_traces, validate_trace)
+from .drafter import NGramDrafter
+from .flight_recorder import FlightRecorder
+from .engine import TERMINAL_REASONS, FinishedRequest, ServingEngine
+from .faults import FaultPlan, InjectedFault
+from .snapshot import handoff_state, restore_engine, snapshot_engine
+from .router import Router, make_cluster
 
-__all__ = ["ServingEngine", "FinishedRequest", "KVPool", "NGramDrafter",
-           "PrefixIndex", "FCFSScheduler", "Request", "Admission",
-           "SchedulerPolicy", "FCFSPolicy", "make_policy"]
+__all__ = ["KVPool", "PrefixIndex", "FCFSScheduler", "Request", "Admission",
+           "ServingEngine", "FinishedRequest", "TERMINAL_REASONS",
+           "FaultPlan", "InjectedFault", "snapshot_engine",
+           "restore_engine", "handoff_state", "MetricsRegistry", "Counter",
+           "Gauge", "Histogram", "MetricsFileExporter", "TraceRecorder",
+           "PID_ENGINE", "PID_REQUESTS", "PID_HOST", "PID_ROUTER",
+           "SchedulerPolicy", "FCFSPolicy", "WFQPolicy", "TenantConfig",
+           "ClusterWFQState", "DEFAULT_TENANT", "make_policy",
+           "NGramDrafter", "Router", "make_cluster",
+           "aggregate_scalars", "cluster_prometheus", "merge_registries",
+           "SLOTracker", "FlightRecorder", "flow_id", "merge_traces",
+           "validate_trace"]

@@ -22,6 +22,16 @@ prefix ``retain``\\ s the shared pages; ``free`` drops one reference per
 page and only a page at refcount 0 leaves circulation — back to the free
 list, unless the pool's :class:`~.prefix_cache.PrefixIndex` still names it,
 in which case it parks as *reclaimable* until LRU eviction hands it back.
+
+Page payloads (the disaggregated prefill -> decode handoff and snapshots)
+travel as host numpy in the snapshot-v5 wire format: one array per buffer
+(``k``, ``v`` and, for quantized pages, ``ks``/``vs``) in block-table
+order, with the pool's :meth:`KVPool.layout` beside them.  numpy has no
+bf16, so a bf16 buffer ships as its raw 16-bit patterns in a ``uint16``
+array: a reader tells the two apart by the layout's ``page_dtype``
+(``"bfloat16"``), and no other page dtype ships as ``uint16``.  An array
+of ``ml_dtypes``' bfloat16 (what the reference exports) is taken the same
+way.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import math
 from collections import Counter
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, resolve_dtype
@@ -47,7 +58,8 @@ class KVPool:
                  dtype: Optional[torch.dtype] = None,
                  device: DeviceLike = None, prefix_cache: bool = False,
                  num_kv_heads: Optional[int] = None,
-                 kv_bits: Optional[int] = None):
+                 kv_bits: Optional[int] = None,
+                 window: Optional[int] = None):
         if num_pages < 2:
             raise ValueError("KVPool needs >= 2 pages (page 0 is the "
                              "reserved null page)")
@@ -67,6 +79,7 @@ class KVPool:
         self.num_pages = num_pages
         self.page_size = page_size
         self.kv_bits = kv_bits
+        self.window = window
         device = resolve_device(device)
         dtype = resolve_dtype(dtype, device)
         store_d = head_dim // 2 if kv_bits == 4 else head_dim
@@ -89,6 +102,13 @@ class KVPool:
         self.refcount: List[int] = [0] * num_pages
         self.prefix: Optional[PrefixIndex] = (
             PrefixIndex(page_size) if prefix_cache else None)
+        # optional fault-injection plan (serving/faults.py): a scripted
+        # step makes every alloc fail, the observable a real exhausted
+        # pool produces
+        self.faults = None
+        # allocator traffic, mirrored into the engine's metrics registry
+        self.alloc_calls = 0
+        self.alloc_failures = 0
 
     # -- allocation -------------------------------------------------------
 
@@ -131,11 +151,16 @@ class KVPool:
         (caller keeps the request queued — FCFS)."""
         if n_pages == 0:
             return []
+        self.alloc_calls += 1
+        if self.faults is not None and self.faults.fail_alloc():
+            self.alloc_failures += 1
+            return None
         if n_pages > len(self._free) and self.prefix is not None:
             for p in self.prefix.evict(n_pages - len(self._free),
                                        self.refcount):
                 self._push_free(p)
         if n_pages > len(self._free):
+            self.alloc_failures += 1
             return None
         got = []
         for _ in range(n_pages):
@@ -174,6 +199,74 @@ class KVPool:
     # sites that drop a whole lease
     release = free
 
+    # -- page payload transfer --------------------------------------------
+
+    def export_pages(self, pages: List[int]) -> Dict[str, object]:
+        """The K/V bytes of ``pages`` (in the given block-table order) as
+        host numpy — the handoff payload, one array ``(L, n, Hkv, ps, d)``
+        per buffer, so quantized pages travel with their scale planes.
+        On the card: one device gather and one device-to-host copy per
+        buffer.  The payload embeds :meth:`layout`; :meth:`ingest_pages`
+        on the receiving pool refuses a mismatch."""
+        idx = [int(p) for p in pages]
+        for p in idx:
+            self._check_page(p)
+        rows = torch.tensor(idx, dtype=torch.long)
+        out = {}
+        for name, buf in self.buffers.items():
+            got = buf.index_select(1, rows.to(buf.device))
+            out[name] = to_wire(got)
+        return {"layout": self.layout(), "buffers": out}
+
+    @staticmethod
+    def payload_nbytes(payload: Dict[str, object]) -> int:
+        """Wire size of an :meth:`export_pages` payload (page bytes and
+        scale planes; the layout dict is negligible)."""
+        return sum(int(a.nbytes) for a in payload["buffers"].values())
+
+    def check_layout(self, want: Dict[str, object],
+                     what: str = "page payload") -> None:
+        """Refuse a foreign KV layout loudly, with the per-key diff: mixed
+        layouts would reinterpret page bytes silently."""
+        have = self.layout()
+        if have != want:
+            diff = {k: (want.get(k), have.get(k))
+                    for k in set(want) | set(have)
+                    if have.get(k) != want.get(k)}
+            raise ValueError(
+                f"{what} KV layout does not match this pool — sender vs "
+                f"receiver: {diff}; pages are byte-compatible only between "
+                "pools that share kv heads, page dtype, kv_bits, window "
+                "and page geometry")
+
+    def ingest_pages(self, payload: Dict[str, object],
+                     pages: List[int]) -> None:
+        """Adopt an :meth:`export_pages` payload into freshly leased
+        ``pages`` (same order).  Layout-guarded; on the card one
+        host-to-device copy and one ``index_copy_`` per buffer, so the
+        round trip export -> host -> ingest is bit-exact for float, int8
+        and int4 pages and their scales."""
+        self.check_layout(payload["layout"])
+        bufs = payload["buffers"]
+        if set(bufs) != set(self.buffers):
+            raise ValueError(
+                f"payload buffers {sorted(bufs)} != pool buffers "
+                f"{sorted(self.buffers)}")
+        idx = [int(p) for p in pages]
+        for p in idx:
+            self._check_page(p)
+        n = len(idx)
+        for name, arr in bufs.items():
+            if arr.shape[1] != n:
+                raise ValueError(
+                    f"payload buffer {name!r} carries {arr.shape[1]} "
+                    f"pages for a {n}-page lease")
+        rows = torch.tensor(idx, dtype=torch.long)
+        for name, arr in bufs.items():
+            buf = self.buffers[name]
+            src = from_wire(arr, buf.dtype, buf.device)
+            buf.index_copy_(1, rows.to(buf.device), src)
+
     # -- invariants -------------------------------------------------------
 
     def check(self) -> None:
@@ -198,9 +291,66 @@ class KVPool:
 
     # -- stats ------------------------------------------------------------
 
+    def utilization(self) -> float:
+        """Fraction of usable pages out of the free list (live + cached)."""
+        usable = self.num_pages - 1
+        return 1.0 - len(self._free) / max(usable, 1)
+
+    def hbm_bytes(self) -> int:
+        return sum(b.numel() * b.element_size()
+                   for b in self.buffers.values())
+
     def bytes_per_token(self) -> int:
         """Device bytes one token position costs across all layers and both
         sides, scales included (GQA divides it by the group factor, int8 by
         about 2 against bf16, int4 by about 4)."""
         return self.num_layers * self.num_kv_heads * sum(
             b.element_size() * b.shape[-1] for b in self.buffers.values())
+
+    def layout(self) -> Dict[str, object]:
+        """The pool's KV storage layout — everything that must MATCH for
+        another pool's pages to be byte-compatible with this one (what
+        snapshot v5 records and restore refuses to mix).  ``page_dtype``
+        takes numpy's spelling (``"float32"``, ``"bfloat16"``,
+        ``"int8"``), as the reference's pools give it."""
+        return {
+            "kv_heads": self.num_kv_heads,
+            "page_dtype": dtype_name(self.buffers["k"].dtype),
+            "kv_bits": self.kv_bits,
+            "window": self.window,
+            "page_size": self.page_size,
+            "head_dim": self.head_dim,
+        }
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype: ``torch.bfloat16`` -> ``"bfloat16"``."""
+    return str(dtype).replace("torch.", "")
+
+
+def to_wire(t: torch.Tensor) -> np.ndarray:
+    """A tensor as host numpy in the wire format: bf16 as its raw bit
+    patterns in ``uint16`` (numpy has no bf16), every other dtype as is."""
+    # a copy either way: the wire never aliases a live CPU buffer
+    host = t.clone() if t.device.type == "cpu" else t.cpu()
+    if t.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(np.uint16)
+    return host.numpy()
+
+
+def from_wire(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    """The inverse of :func:`to_wire` onto ``device`` in ``dtype``: a
+    ``uint16`` array (or one of ``ml_dtypes``' bfloat16) meant for a bf16
+    buffer is viewed back bit for bit."""
+    arr = np.ascontiguousarray(arr)
+    if dtype == torch.bfloat16:
+        if arr.dtype != np.uint16:
+            if arr.dtype.name != "bfloat16":
+                raise ValueError(f"a bf16 buffer takes uint16 bit patterns, "
+                                 f"got {arr.dtype}")
+            arr = arr.view(np.uint16)
+        return torch.from_numpy(arr.view(np.int16)).to(device).view(dtype)
+    if dtype_name(dtype) != arr.dtype.name:
+        raise ValueError(f"a {dtype_name(dtype)} buffer cannot take a "
+                         f"{arr.dtype} array")
+    return torch.from_numpy(arr).to(device)

@@ -15,9 +15,7 @@ token-chunk hash), with the chunk stored on the node so partial-tail
 matches — the copy-on-write candidates — can be found by prefix
 comparison.
 
-Own copy of ``paddle_tpu/serving/prefix_cache.py`` for the PyTorch port
-(host numpy only), without the snapshot and router probes, which are not
-ported yet.
+Counterpart of ``paddle_tpu/serving/prefix_cache.py`` (host numpy only).
 
 Lifecycle contract with :class:`~paddle_tpu_torch.serving.kv_pool.KVPool`:
 
@@ -58,6 +56,10 @@ class PrefixIndex:
         self.root = _Node(None, -1, None)
         self._by_page: Dict[int, _Node] = {}
         self._tick = 0
+        # lifetime eviction count: cache-churn observable the
+        # engine mirrors into its metrics registry — rising evictions at
+        # a flat hit rate means the working set outgrew the pool
+        self.evictions = 0
         # prompts NOT indexed because sliding-window attention would
         # recycle their pages past the window boundary — the clean-refusal
         # counter the engine increments instead of inserting
@@ -122,6 +124,29 @@ class PrefixIndex:
             self._touch(node)
         return pages, partial
 
+    def probe_len(self, tokens) -> int:
+        """Longest cached prefix of ``tokens`` in TOKENS, read-only: the
+        same walk as :meth:`match` (full page-aligned chain plus the best
+        partial tail) but touching neither the LRU ticks nor refcounts —
+        this is how a replica exposes its prefix-index keys to the
+        multi-replica router, which probes EVERY replica per
+        request and must not distort the caches it merely inspected."""
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        ps = self.page_size
+        node, i = self.root, 0
+        while i + ps <= toks.size:
+            child = node.children.get(toks[i:i + ps].tobytes())
+            if child is None:
+                break
+            node = child
+            i += ps
+        rest = toks[i:]
+        best_m = 0
+        if rest.size:
+            for child in node.children.values():
+                best_m = max(best_m, self._common_prefix(rest, child.chunk))
+        return i + best_m
+
     # -- insertion --------------------------------------------------------
 
     def insert(self, tokens, pages: Sequence[int]) -> List[int]:
@@ -152,6 +177,45 @@ class PrefixIndex:
             self._touch(node)
         return new
 
+    # -- snapshot (serving/snapshot.py) -----------------------------------
+
+    def to_state(self) -> dict:
+        """Plain-python capture of the whole tree: nodes in parent-first
+        (DFS) order as ``(parent_page, page, chunk, tick)``, with the
+        root named by page -1.  Everything numpy/int — picklable and
+        device-free."""
+        nodes = []
+
+        def walk(node: _Node) -> None:
+            for child in node.children.values():
+                nodes.append((node.page, child.page,
+                              np.asarray(child.chunk, np.int32).copy(),
+                              child.tick))
+                walk(child)
+
+        walk(self.root)
+        return {"page_size": self.page_size, "tick": self._tick,
+                "nodes": nodes, "evictions": self.evictions,
+                "window_refusals": self.window_refusals}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "PrefixIndex":
+        """Rebuild an index from :meth:`to_state`.  Parent-first node
+        order means every parent exists before its children link in."""
+        idx = cls(state["page_size"])
+        by_page: Dict[int, _Node] = {-1: idx.root}
+        for parent_page, page, chunk, tick in state["nodes"]:
+            parent = by_page[int(parent_page)]
+            node = _Node(np.asarray(chunk, np.int32), int(page), parent)
+            node.tick = int(tick)
+            parent.children[node.chunk.tobytes()] = node
+            idx._by_page[node.page] = node
+            by_page[node.page] = node
+        idx._tick = int(state["tick"])
+        idx.evictions = int(state.get("evictions", 0))
+        idx.window_refusals = int(state.get("window_refusals", 0))
+        return idx
+
     # -- eviction ---------------------------------------------------------
 
     def evict(self, n_pages: int, refcount: Sequence[int]) -> List[int]:
@@ -177,4 +241,5 @@ class PrefixIndex:
                 del node.parent.children[node.chunk.tobytes()]
                 del self._by_page[node.page]
                 out.append(node.page)
+        self.evictions += len(out)
         return out

@@ -610,3 +610,75 @@ def test_train_step_on_card_matches_cpu(dev, over, remat, update_rtol):
     print("update ratios, card vs cpu:",
           {n: float(f"{r:.3e}") for n, r in ratios.items()})
     assert max(ratios.values()) <= update_rtol, ratios
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "int8", "int4"])
+def test_handoff_roundtrip_on_card(dev, bits):
+    """export_pages -> host numpy -> ingest_pages into other pages of
+    another pool on the card is byte-equal, page bytes and scales alike,
+    for bf16 (which travels as its uint16 bit patterns), int8 and int4."""
+    from paddle_tpu_torch.serving import KVPool
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    kw = dict(num_pages=12, page_size=32, dtype=torch.bfloat16, device=dev,
+              num_kv_heads=2, kv_bits=bits)
+    src, dst = KVPool(2, 4, 128, **kw), KVPool(2, 4, 128, **kw)
+    for buf in src.buffers.values():
+        if buf.dtype == torch.int8:
+            buf.copy_(torch.randint(-128, 128, buf.shape, device=dev,
+                                    generator=g, dtype=torch.int8))
+        else:
+            buf.copy_(torch.randn(buf.shape, device=dev, generator=g))
+    pages = src.alloc(5)
+    payload = src.export_pages(pages)
+    if bits is None:
+        assert payload["buffers"]["k"].dtype.name == "uint16"
+        assert payload["layout"]["page_dtype"] == "bfloat16"
+    into = dst.alloc(7)[2:]
+    dst.ingest_pages(payload, into)
+    for name, buf in src.buffers.items():
+        a, b = buf[:, pages], dst.buffers[name][:, into]
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+    assert src.payload_nbytes(payload) == sum(
+        buf[:, pages].numel() * buf.element_size()
+        for buf in src.buffers.values())
+
+
+@pytest.mark.cuda
+def test_double_buffer_leaves_the_decode_in_flight(dev, monkeypatch):
+    """With double_buffer=True the decode dispatched in one step is still
+    running on the card when the next step retires it: no host sync sits
+    between dispatch and retire.  A spin kernel queued ahead of each
+    dispatch keeps the card busy, so the engine's flag
+    (``retires_in_flight``), not a time, shows it; any sync in dispatch or
+    in the next step's admission would have drained the spin first."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = GPTConfig(vocab_size=4096, hidden_size=512, num_layers=4,
+                    num_heads=4, max_seq_len=256)
+    model = GPTForPretraining(cfg, seed=0)
+    eng = ServingEngine(model, max_slots=2, page_size=32, double_buffer=True)
+    rid = eng.add_request(torch.arange(40).numpy(), 8)
+    eng.step()                       # admit, prefill, first dispatch
+    assert eng._inflight is not None
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: syncs.append(a))
+    dispatch = eng._decode_call
+
+    def spin_then_dispatch(remaining):
+        torch.cuda._sleep(200_000_000)          # ~0.1 s of GPU cycles
+        return dispatch(remaining)
+
+    eng._decode_call = spin_then_dispatch
+    eng.step()                       # retire (not pending), dispatch
+    before = eng.retires_in_flight
+    eng.step()                       # retire the spun dispatch
+    assert eng.retires_in_flight == before + 1
+    assert syncs == [] and eng.device_syncs == 0
+    assert eng.stats["last_decode_sync_s"] > 0
+    eng._decode_call = dispatch
+    done = eng.run()
+    assert done[rid].reason == "length" and len(done[rid].tokens) == 8

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
-from paddle_tpu_torch.serving import KVPool, ServingEngine
+from paddle_tpu_torch.serving import KVPool, ServingEngine, make_cluster
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -35,7 +35,12 @@ def test_port_imports_no_jax_and_no_reference_at_runtime():
         "paddle_tpu_torch.models.gpt, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.kernels, paddle_tpu_torch.kernels.flash, "
         "paddle_tpu_torch.kernels.attention, paddle_tpu_torch.ops, "
-        "paddle_tpu_torch.weights, chip_smoke\n"
+        "paddle_tpu_torch.weights, paddle_tpu_torch.serving.faults, "
+        "paddle_tpu_torch.serving.flight_recorder, "
+        "paddle_tpu_torch.serving.metrics, paddle_tpu_torch.serving.tracing, "
+        "paddle_tpu_torch.serving.snapshot, paddle_tpu_torch.serving.router, "
+        "paddle_tpu_torch.serving.tenancy, paddle_tpu_torch.utils.tensorboard, "
+        "chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps([len(new), bad]))\n")
@@ -70,6 +75,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
     assert ServingEngine(model, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_cluster(model, 2, disaggregate=True)
+    assert all(e.device.type == "cpu"
+               for e in make_cluster(model, 2, device="cpu").replicas)
     with pytest.raises(ValueError):     # the model lives elsewhere
         ServingEngine(model, device="meta")
 

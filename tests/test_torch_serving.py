@@ -167,7 +167,9 @@ def test_scheduler_rejects_oversized_request():
     with pytest.raises(ValueError):
         sched.add(Request(prompt=np.arange(20), max_new_tokens=4))
     with pytest.raises(ValueError):
-        FCFSScheduler(n_slots=2, pool=pool, policy="wfq")
+        FCFSScheduler(n_slots=2, pool=pool, policy="lottery")
+    with pytest.raises(ValueError):     # tenants need the wfq policy
+        FCFSScheduler(n_slots=2, pool=pool, policy="fcfs", tenants={"a": 1})
 
 
 # ---------------------------------------------------------------------------
