@@ -91,6 +91,35 @@ its seconds):
    flip a near tie), and a profile of 8 more requests.  (3) The export
    and ingest ms of one request's 18 pages at full width for the three
    page kinds, and the snapshot and restore seconds of run (a)'s engine;
+5b. front end and decoding.  (1) Exact checks on phase 4's fp32 model:
+   ``serve()`` in a background thread (its event loop on another thread
+   than the engine's) takes phase 4's prompts as concurrent streamed
+   completions, each stream token for token its ``FinishedRequest`` and
+   the direct engine's output; a stream reset mid-way gives its pages
+   back within two steps; a full queue (``max_queue=0``) answers 429;
+   ``/metrics`` counts the streams and ``/healthz`` answers 200; the same
+   streams through ``make_cluster(model, 2, disaggregate=True)``.  Beam
+   search (beam 4, EOS a greedy first token) on the card against the same
+   call on the CPU, held as phase 4 holds greedy runs, and beam 1 equal to
+   greedy decoding.  The dropout=0.1 train step on the card against the
+   CPU with the same injected masks (phase 6's parity tolerances), and
+   remat=True against remat=False on the card at one seed.  (2) GPT-1.3B
+   on phase 3's 16 requests at 16 slots, sent at once over HTTP, bf16 and
+   ``int8=True``: client-side time to first token and between tokens
+   (p50, p99) beside the engine's decode-step and prefill-chunk ms, each
+   stream equal to its ``FinishedRequest``, launches asserted, bf16
+   agreeing with phase 5's run (a) at 99% or more.  (3) Beam search on
+   GPT-1.3B (B=2, beam 4, 128-token prompts, 32 new tokens), bf16 and
+   W8A8 (96 ``w8a8_gemm`` launches a forward asserted): ms per generated
+   position.  (4) ``w8a8_gemm`` as the tied int8 head (N=50304, K=2048)
+   at M=8 and 1024, bit-exact, timed by CUDA-graph replay beside
+   ``torch._int_mm`` with its bound; and at the ragged shapes the wrapper
+   pads (N=50257, K=96 and 1600), bit-exact; GPT-1.3B's eager forward
+   with ``int8_lm_head`` launching 4 x 24 + 1 ``w8a8_gemm``.  (5)
+   Training run (e): run (a) of phase 6 with ``dropout=0.1`` and
+   ``remat=True`` (without remat the materialised attention took the
+   peak to 72 GiB), which launches no flash kernel (dropout takes the
+   reference's non-kernel attention);
 6. training: first the train step in fp32 on the card against the same
    step on the CPU (flagship width, 2 layers, batch 1, seq 512, 2 steps;
    losses to 1e-4 relative, and each leaf's update, ||card - CPU|| over
@@ -1330,7 +1359,7 @@ def phase_cluster(np, torch):
     GPT-1.3B in bf16 on phase 3's 16 requests; part (3) the handoff's
     export / ingest times at full width and the snapshot / restore
     seconds of run (a)'s pool.  Returns each kernel variant's launches in
-    (g) and (h)."""
+    (g) and (h), and run (a)'s tokens."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
     from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
     from paddle_tpu_torch.serving import (ServingEngine, make_cluster,
@@ -1403,7 +1432,528 @@ def phase_cluster(np, torch):
         f"bytes): {t1 - t0:.3f} s; restore {t2 - t1:.3f} s")
     del snap, back, keep, model
     torch.cuda.empty_cache()
-    return {label: launched[label] for label in ("g", "h")}
+    return {label: launched[label] for label in ("g", "h")}, tokens["a"]
+
+
+# -- phase 5b ----------------------------------------------------------------
+
+def _pct(vals, q):
+    """The ``q``-th percentile of ``vals`` (linear interpolation)."""
+    import numpy as np
+
+    return float(np.percentile(np.asarray(vals, dtype=np.float64), q))
+
+
+async def _sse_request(port, payload, cut_after=None):
+    """One streamed completion over a fresh connection.  Returns the
+    status, the streamed tokens with their arrival times (host clock),
+    the final event and the send time.  ``cut_after``: reset the
+    connection (SO_LINGER 0) once that many tokens have arrived."""
+    import asyncio
+    import socket
+    import struct
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = json.dumps(payload).encode()
+    t_send = time.perf_counter()
+    writer.write(f"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                 f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    await writer.drain()
+    buf, status, tokens, times, final = b"", None, [], [], None
+    while True:
+        chunk = await asyncio.wait_for(reader.read(65536), 600)
+        if not chunk:
+            break
+        buf += chunk
+        if status is None and b"\r\n\r\n" in buf:
+            head, _, buf = buf.partition(b"\r\n\r\n")
+            status = int(head.split(b"\r\n")[0].split()[1])
+        while status == 200 and b"\n\n" in buf:
+            event, _, buf = buf.partition(b"\n\n")
+            data = event.decode().strip()[len("data: "):]
+            if data == "[DONE]":
+                continue
+            doc = json.loads(data)
+            if doc["object"] == "completion.chunk":
+                tokens.append(doc["token"])
+                times.append(time.perf_counter())
+            else:
+                final = doc
+        if cut_after is not None and len(tokens) >= cut_after:
+            writer.get_extra_info("socket").setsockopt(
+                socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+            writer.transport.abort()
+            return dict(status=status, tokens=tokens, times=times,
+                        final=None, t_send=t_send, body=buf)
+    writer.close()
+    return dict(status=status, tokens=tokens, times=times, final=final,
+                t_send=t_send, body=buf)
+
+
+async def _http_get(port, path):
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(), 60)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split(b"\r\n")[0].split()[1]), head, body
+
+
+class _Served:
+    """``serve()`` on an ephemeral port in a background thread (its event
+    loop there, the engine built in this one); ``port`` once bound.  On
+    exit the server is shut down and its thread joined; a server that
+    died or did not stop fails the phase."""
+
+    def __init__(self, target):
+        self.target, self.port = target, None
+
+    def __enter__(self):
+        import threading
+
+        from paddle_tpu_torch.serving import serve
+
+        ready, self._box = threading.Event(), {}
+
+        def on_start(fe, shutdown):
+            self.port, self._shutdown = fe.port, shutdown
+            ready.set()
+
+        def run():
+            try:
+                serve(self.target, port=0, banner=False, on_start=on_start)
+            except BaseException as e:       # reported by __exit__
+                self._box["error"] = e
+                ready.set()
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        if not ready.wait(120) or self.port is None:
+            raise AssertionError(f"serve() did not start: {self._box}")
+        return self
+
+    def __exit__(self, *exc):
+        self._shutdown()
+        self._thread.join(120)
+        if self._thread.is_alive() or "error" in self._box:
+            raise AssertionError(f"serve() did not stop cleanly: "
+                                 f"{self._box}")
+        return False
+
+
+def _streams(port, payloads):
+    """The payloads as concurrent streamed completions."""
+    import asyncio
+
+    async def go():
+        return await asyncio.gather(*(_sse_request(port, p)
+                                      for p in payloads))
+
+    return asyncio.run(go())
+
+
+def _recording(target):
+    """Wrap ``target.step`` so that every FinishedRequest is kept:
+    returns the dict it fills."""
+    finished, step = {}, target.step
+
+    def recorded():
+        fins = step()
+        finished.update((f.rid, f) for f in fins)
+        return fins
+
+    target.step = recorded
+    return finished
+
+
+def _check_streams(np, label, results, finished, want=None):
+    """Every stream answered 200, streamed exactly its final event's and
+    its FinishedRequest's tokens (and ``want``'s, where given)."""
+    for i, r in enumerate(results):
+        if r["status"] != 200 or r["final"] is None:
+            raise AssertionError(f"{label}: stream {i} status {r['status']}")
+        toks = np.asarray(r["tokens"])
+        fin = finished[r["final"]["id"]]
+        if not (np.array_equal(toks, r["final"]["tokens"])
+                and np.array_equal(toks, fin.tokens)):
+            raise AssertionError(f"{label}: stream {i} differs from its "
+                                 f"FinishedRequest")
+        if want is not None and not np.array_equal(toks, want[i]):
+            raise AssertionError(f"{label}: stream {i} differs from the "
+                                 f"direct engine: {toks} against {want[i]}")
+
+
+def _front_exact(np, torch):
+    """Part (1) on phase 4's fp32 model: streams, a cut stream, a 429, the
+    scrape and the health check, the cluster; beam search on the card
+    against the CPU; the dropout train step on the card against the CPU
+    with injected masks, and remat against none."""
+    import asyncio
+
+    from paddle_tpu_torch.serving import ServingEngine, make_cluster
+
+    model, prompts = _parity_model(np, torch)
+    kw = dict(max_slots=4, page_size=32, chunk_tokens=128)
+    payloads = [{"prompt": [int(t) for t in p], "max_tokens": 24}
+                for p in prompts]
+    direct = ServingEngine(model, **kw)
+    rids = [direct.add_request(p, 24) for p in prompts]
+    done = direct.run()
+    want = [done[r].tokens for r in rids]
+
+    eng = ServingEngine(model, **kw)
+    finished = _recording(eng)
+    with _Served(eng) as srv:
+        results = _streams(srv.port, payloads)
+        _check_streams(np, "front end, 4 concurrent streams", results,
+                       finished, want)
+        log(f"exact front end: 4 concurrent streams, "
+            f"{sum(len(w) for w in want)} tokens, each equal to its "
+            f"FinishedRequest and to the direct engine")
+        _, _, body = asyncio.run(_http_get(srv.port, "/healthz"))
+        base = json.loads(body)["pages_in_use"]
+        cut = asyncio.run(_sse_request(srv.port, dict(payloads[3],
+                                                      max_tokens=200),
+                                       cut_after=2))
+        step_at_cut = eng._step_idx
+        for _ in range(2000):
+            _, _, body = asyncio.run(_http_get(srv.port, "/healthz"))
+            health = json.loads(body)
+            if health["pages_in_use"] == base and eng.stats["cancelled"]:
+                break
+            time.sleep(0.005)
+        after = health["step"] - step_at_cut
+        log(f"exact front end: a stream reset after {len(cut['tokens'])} "
+            f"tokens; pages_in_use back at its baseline {base} "
+            f"{after} step(s) after the reset, cancelled "
+            f"{eng.stats['cancelled']}")
+        if health["pages_in_use"] != base or eng.stats["cancelled"] != 1 \
+                or after > 2:
+            raise AssertionError(f"the cut stream was not released within "
+                                 f"two steps: {health}, {after} steps")
+        status, _, body = asyncio.run(_http_get(srv.port, "/metrics"))
+        lines = body.decode().splitlines()
+        count = ('serving_http_requests{code="200",'
+                 'route="/v1/completions"} 5')
+        if status != 200 or count not in lines:
+            raise AssertionError("/metrics does not count the 5 streams")
+        status, _, body = asyncio.run(_http_get(srv.port, "/healthz"))
+        if status != 200 or json.loads(body)["status"] != "ok":
+            raise AssertionError(f"/healthz {status} {body}")
+    log("exact front end: /metrics counts the 5 streams, /healthz 200")
+    full = ServingEngine(model, max_queue=0, **kw)
+    with _Served(full) as srv:
+        r = asyncio.run(_sse_request(srv.port, payloads[0]))
+    if r["status"] != 429 or full.stats["rejected"]:
+        raise AssertionError(f"max_queue=0: status {r['status']}")
+    log("exact front end: a full queue (max_queue=0) answers 429 and "
+        "enqueues nothing")
+    router = make_cluster(model, 2, disaggregate=True, **kw)
+    finished = _recording(router)
+    with _Served(router) as srv:
+        results = _streams(srv.port, payloads)
+    _check_streams(np, "front end over make_cluster(2, disaggregate=True)",
+                   results, finished, want)
+    if router.stats["handoffs"] != len(prompts):
+        raise AssertionError(f"cluster handed off {router.stats}")
+    log("exact front end: the same 4 streams through make_cluster(model, 2, "
+        "disaggregate=True) equal the direct engine")
+    del eng, full, router, direct
+    _beam_parity(np, torch, model, prompts)
+    del model
+    torch.cuda.empty_cache()
+    _dropout_parity(np, torch)
+
+
+def _beam_parity(np, torch, model, prompts):
+    """Beam search (beam 4, EOS a greedy first token) on the card against
+    the same call on the CPU, held as phase 4 holds greedy runs; beam 1
+    equal to greedy decoding on the card."""
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         build_beam_search_fn, generate)
+
+    ids = np.stack([prompts[0], prompts[2][:17]]).astype(np.int64)
+    eos = int(generate(model, ids, 1)[0, -1])
+    cpu = GPTForPretraining(model.cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict(model.state_dict())
+    kw = dict(beam_size=4, eos_token_id=eos, length_penalty=1.0)
+    got = build_beam_search_fn(model, 12, **kw)(ids).cpu().numpy()[:, 17:]
+    want = build_beam_search_fn(cpu, 12, **kw)(ids).numpy()[:, 17:]
+    log(f"beam search, card vs CPU (EOS {eos}): card {got.tolist()}, CPU "
+        f"{want.tolist()}")
+    _agreement(np, "beam search (beam 4, EOS frozen) card vs CPU", got, want)
+    one = build_beam_search_fn(model, 12, beam_size=1)(ids).cpu().numpy()
+    _same_tokens(np, "beam_size=1 vs greedy decoding on the card",
+                 list(one), list(generate(model, ids, 12).cpu().numpy()))
+    del cpu
+
+
+def _injected_uniform(torch):
+    """Uniforms that depend on the key alone, the same on the card and
+    the CPU: drawn on the CPU from the key, then moved."""
+    def uniform(key, shape, device):
+        gen = torch.Generator().manual_seed(int(key))
+        return torch.rand(tuple(shape), generator=gen).to(device)
+
+    return uniform
+
+
+def _dropout_parity(np, torch):
+    """The dropout=0.1 train step on the card (fp32, no TF32) against the
+    CPU with the same injected masks, phase 6's parity tolerances; then
+    remat=True against remat=False on the card at one seed with the
+    card's own generator."""
+    from paddle_tpu_torch.framework import random as trand
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.gpt import build_functional_train_step
+
+    cfg = GPTConfig(**{**TRAIN_CFG, "num_layers": 2, "dropout": 0.1})
+    cpu = GPTForPretraining(cfg, device="cpu", dtype=torch.float32, seed=3)
+    card = GPTForPretraining(cfg, device="cuda", dtype=torch.float32, seed=3)
+    card.load_state_dict(cpu.state_dict())
+    names = {p.data_ptr(): n for n, p in cpu.named_parameters()}
+    names = [names[p.data_ptr()] for p in cpu.leaves()]
+    init = [p.detach().clone() for p in cpu.leaves()]
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (1, 512)).astype("int32")
+    labels = rng.randint(0, cfg.vocab_size, (1, 512)).astype("int64")
+
+    def train(model, remat, steps=2):
+        trand.seed(11)
+        step, params, opt = build_functional_train_step(
+            model, lr=1e-4, remat=remat, ce_chunk_rows=2048)
+        params = [p.clone() for p in params]
+        losses = []
+        for _ in range(steps):
+            params, opt, loss = step(params, opt, ids, labels)
+            losses.append(float(loss))
+        return losses, [p.cpu() for p in params]
+
+    real = trand.uniform
+    trand.uniform = _injected_uniform(torch)
+    try:
+        reset_launch_counts()
+        lc, pc = train(card, False)
+        launched = {k: n for k, n in KERNELS.items() if n}
+        lh, ph = train(cpu, False)
+    finally:
+        trand.uniform = real
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    ratios = update_ratios(torch, cfg, names, pc, ph, init)
+    log(f"dropout train step, card vs CPU with injected masks: losses "
+        f"{lc} / {lh}, loss rel err {rel:.3e} (tol 1e-4), worst update "
+        f"ratio {max(ratios.values()):.3e} (tol {UPDATE_RTOL:g}); card "
+        f"launches {json.dumps(launched)}")
+    if not (rel <= 1e-4 and max(ratios.values()) <= UPDATE_RTOL):
+        raise AssertionError("the dropout train step on the card disagrees "
+                             "with the CPU")
+    if launched:
+        raise AssertionError(f"dropout launched kernels: {launched}")
+    (l0, p0), (l1, p1) = train(card, False), train(card, True)
+    diff = max((a - b).abs().max().item() for a, b in zip(p0, p1))
+    log(f"dropout train step on the card, remat=True vs remat=False at one "
+        f"seed: losses {l1} / {l0}, largest parameter difference {diff:.3e}")
+    if l0 != l1 or diff > 1e-6:
+        raise AssertionError("remat changed the dropout step")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+HTTP_RUNS = (("bf16", {}, {"paged_attention", "paged_prefill"}),
+             ("int8", {"int8": True},
+              {"w8a8_gemm", "paged_attention_int8", "paged_prefill_int8"}))
+
+
+def _front_serving(np, torch, model, tokens_a):
+    """Part (2): GPT-1.3B on phase 3's 16 requests over HTTP, 16 slots,
+    sent at once; client-side time to first token and between tokens
+    beside the engine's own step times; bf16 against phase 5's run (a)."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = model.cfg
+    for label, opts, expected in HTTP_RUNS:
+        rng = np.random.RandomState(1)
+        shared = rng.randint(0, cfg.vocab_size, (128,))
+        reqs = _requests(np, rng, cfg, shared, n=16)
+        eng = ServingEngine(model, max_slots=16, page_size=32,
+                            chunk_tokens=128, **opts)
+        finished = _recording(eng)
+        with _Served(eng) as srv:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            results = _streams(srv.port, [
+                {"prompt": [int(t) for t in p], "max_tokens": n}
+                for p, n in reqs])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: n for name, n in KERNELS.items() if n}
+        _check_streams(np, f"HTTP run ({label})", results, finished)
+        if set(launches) != expected:
+            raise AssertionError(f"HTTP run ({label}) launched "
+                                 f"{sorted(launches)}, expected "
+                                 f"{sorted(expected)}")
+        ttft = [1e3 * (r["times"][0] - r["t_send"]) for r in results]
+        tbt = [1e3 * (b - a) for r in results
+               for a, b in zip(r["times"], r["times"][1:])]
+        s = eng.stats
+        log(f"HTTP run ({label}) {json.dumps(opts)}: 16 concurrent streams "
+            f"in {wall:.2f} s, {s['tokens_generated']} tokens; client time "
+            f"to first token p50 {_pct(ttft, 50):.1f} ms, p99 "
+            f"{_pct(ttft, 99):.1f} ms; between tokens p50 "
+            f"{_pct(tbt, 50):.2f} ms, p99 {_pct(tbt, 99):.2f} ms; engine "
+            f"decode step {1e3 * s['decode_s'] / s['decode_calls']:.3f} ms "
+            f"over {s['decode_calls']} steps, prefill chunk "
+            f"{1e3 * s['prefill_s'] / s['prefill_calls']:.3f} ms over "
+            f"{s['prefill_calls']} chunks; launches {json.dumps(launches)}")
+        if label == "bf16":
+            _agreement(np, "HTTP run (bf16) vs phase 5's run (a)",
+                       [np.asarray(r["tokens"]) for r in results], tokens_a)
+        del eng
+        torch.cuda.empty_cache()
+
+
+def _beam_serving(np, torch, model):
+    """Part (3): beam search on GPT-1.3B (B=2, beam 4, 128-token prompts,
+    32 new tokens), bf16 and W8A8, timed after a warm-up call."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import build_beam_search_fn
+
+    rng = np.random.RandomState(4)
+    ids = rng.randint(0, model.cfg.vocab_size, (2, 128))
+    for label, int8 in (("bf16", False), ("int8", True)):
+        fn = build_beam_search_fn(model, 32, beam_size=4, int8=int8)
+        fn(ids)                                                # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(ids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: n for name, n in KERNELS.items() if n}
+        want = {"w8a8_gemm": 4 * model.cfg.num_layers * 32} if int8 else {}
+        if launches != want:
+            raise AssertionError(f"beam search ({label}) launched "
+                                 f"{launches}, expected {want}")
+        new = out[:, 128:].cpu().numpy()
+        if new.shape != (2, 32) or not ((0 <= new) & (new < model.cfg.
+                                                      vocab_size)).all():
+            raise AssertionError(f"beam search ({label}): bad output")
+        log(f"beam search ({label}), B=2, beam 4, 128-token prompts, 32 new "
+            f"tokens: {1e3 * wall:.1f} ms, {1e3 * wall / 32:.3f} ms per "
+            f"generated position, {1e3 * wall / 64:.3f} ms per output token; "
+            f"launches {json.dumps(launches)}")
+
+
+HEAD_SHAPES = ((8, 2048, 50304), (1024, 2048, 50304))
+RAGGED_SHAPES = ((8, 96, 50257), (1024, 96, 50257), (8, 1600, 50257),
+                 (1024, 1600, 50257))
+
+
+def _head_gemm(np, torch):
+    """Part (4): ``w8a8_gemm`` as GPT-1.3B's tied int8 head (N=50304,
+    K=2048) at M=8 and M=1024, bit-exact against its plain version and
+    timed by CUDA-graph replay beside ``torch._int_mm`` on the
+    pre-quantized operands, with its bound; then the ragged shapes the
+    wrapper pads (N=50257, K=96 and 1600), bit-exact."""
+    from paddle_tpu_torch.kernels import w8a8_gemm, w8a8_gemm_plain
+    from paddle_tpu_torch.kernels.int8_gemm import gemm_plan
+    from paddle_tpu_torch.ops import quantize_per_channel
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = {}
+    for m, k, n in HEAD_SHAPES + RAGGED_SHAPES:
+        w = torch.randn(n, k, device="cuda", generator=g) * 0.02
+        wq, ws = quantize_per_channel(w.bfloat16().float(), axis=0)
+        wq = wq.contiguous()
+        x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+        got = w8a8_gemm(x, wq, ws, return_quantized=True)
+        want = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"w8a8_gemm M={m} K={k} N={n} (plan of the padded shape: "
+            f"{gemm_plan(m, -(-n // 16) * 16, -(-k // 64) * 64).path}): "
+            f"bit-exact {exact}")
+        if not exact:
+            raise AssertionError(f"w8a8_gemm M={m} K={k} N={n} is not exact")
+        if (m, k, n) not in HEAD_SHAPES:
+            continue
+        xq_pad = torch.zeros(max(m, 32), k, dtype=torch.int8, device="cuda")
+        xq_pad[:m] = got[1]
+        kern = lambda: w8a8_gemm(x, wq, ws)                    # noqa: E731
+        lib = lambda: torch._int_mm(xq_pad, wq.t())            # noqa: E731
+        ms = (graph_ms(kern, iters=10) + graph_ms(kern, iters=10)) / 2
+        lib_ms = (graph_ms(lib, iters=10) + graph_ms(lib, iters=10)) / 2
+        plain_ms = time_ms(lambda: w8a8_gemm_plain(x, wq, ws), 3, 1)
+        nbytes = m * k * 2 + n * k + n * 4 + m * n * 2
+        bms, by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS)
+        rows[m] = dict(ms=ms, library_ms=lib_ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by)
+        log(f"  int8 head M={m}: kernel {ms:.4f} ms (graph replay), "
+            f"_int_mm {lib_ms:.4f} ms (M padded to {max(m, 32)}), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{2 * m * n * k / ms / 1e9:.1f} TOP/s")
+    log(f"int8 head: {json.dumps(rows)}")
+
+
+def _int8_head_forward(np, torch, model):
+    """GPT-1.3B's eager forward with ``int8`` and ``int8_lm_head`` (the
+    bf16 model's weights, its config switched): the four projections of
+    each block and the tied head launch ``w8a8_gemm``, attention the flash
+    forward; finite logits of the vocabulary's width."""
+    import dataclasses
+
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, int8=True, int8_lm_head=True)
+    ids = np.random.RandomState(6).randint(0, cfg.vocab_size, (2, 128))
+    try:
+        with torch.no_grad():
+            model(ids)                                       # warm-up
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = model(ids)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        model.cfg = cfg
+    launches = {name: n for name, n in KERNELS.items() if n}
+    want = {"w8a8_gemm": 4 * cfg.num_layers + 1,
+            "flash_fwd": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"int8-head forward launched {launches}, "
+                             f"expected {want}")
+    if logits.shape != (2, 128, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError("int8-head forward: bad logits")
+    log(f"int8-head forward of GPT-1.3B (B=2, S=128, W8A8 blocks and head): "
+        f"{1e3 * wall:.1f} ms; launches {json.dumps(launches)}")
+
+
+def phase_frontend(np, torch, tokens_a):
+    """Phase 5b: part (1) the exact checks; (2) HTTP serving of GPT-1.3B;
+    (3) beam search on GPT-1.3B; (4) the int8 head's GEMM; (5) training
+    run (e), run (a) of phase 6 with dropout=0.1."""
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+
+    _front_exact(np, torch)
+    model = GPTForPretraining(gpt_1p3b(), seed=0)          # bf16 on the card
+    _front_serving(np, torch, model, tokens_a)
+    _beam_serving(np, torch, model)
+    _int8_head_forward(np, torch, model)
+    del model
+    torch.cuda.empty_cache()
+    _head_gemm(np, torch)
+    # run (e): the materialised attention keeps ~0.98 GiB a layer for the
+    # backward (fp32 softmax, bf16 dropped probabilities, the keep mask),
+    # 23.6 GiB over 24 layers above run (a)'s 44 GiB: 72.1 GiB measured
+    # without remat on an H100, past the ~70 GiB line, so remat=True
+    _train(np, torch, "e", {"dropout": 0.1}, True, {})
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1611,8 +2161,10 @@ def main():
     done("3 serving")
     phase_parity(np, torch)
     done("4 parity")
-    cluster = phase_cluster(np, torch)
+    cluster, tokens_a = phase_cluster(np, torch)
     done("5 cluster")
+    phase_frontend(np, torch, tokens_a)
+    done("5b front end and decoding")
     trained = phase_training(np, torch)
     done("6 training")
     line = []

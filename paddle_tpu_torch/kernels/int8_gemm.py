@@ -18,9 +18,12 @@ TMA + ``wgmma`` body, each launched as a dependent of one row-quantize
 pass.  See the source for the design and what bounds each on the card.
 
 :func:`w8a8_gemm` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; a shape the kernel cannot take raises, it is
-never rerouted.  Each call counts one ``w8a8_gemm`` launch (its quantize
-and GEMM are one kernel's).
+kernel for CUDA tensors, never rerouted.  The kernel's bodies read K in
+64-byte chunks and N in 16-column groups; any other K or N is zero-padded
+by the wrapper (:func:`pad_operands`) and the output sliced back, which is
+exact: zero K columns change neither a row's absmax nor the int32 sums,
+and zero weight rows (scale 1) only fill the columns cut off.  Each call
+counts one ``w8a8_gemm`` launch (its quantize and GEMM are one kernel's).
 """
 
 from __future__ import annotations
@@ -168,26 +171,62 @@ def _launch(x, wq, ws, plan):
     return out, scratch
 
 
+def pad_operands(x, wq, ws):
+    """The operands zero-padded to the kernel's granularity: K up to a
+    multiple of :data:`GEMM_KC` (zero columns of ``x`` and ``wq``), N up to
+    a multiple of 16 (zero rows of ``wq``, scale 1).  Returned unchanged
+    when both are aligned already."""
+    m, k = x.shape
+    n = wq.shape[0]
+    kp = max(GEMM_KC, _cdiv(k, GEMM_KC) * GEMM_KC)
+    np_ = max(16, _cdiv(n, 16) * 16)
+    if (kp, np_) == (k, n):
+        return x, wq, ws
+    xp = x.new_zeros((m, kp))
+    xp[:, :k] = x
+    wqp = wq.new_zeros((np_, kp))
+    wqp[:n, :k] = wq
+    wsp = ws.new_ones((np_,))
+    wsp[:n] = ws
+    return xp, wqp, wsp
+
+
 def w8a8_gemm(x, wq, ws, *, return_quantized=False, plan=None):
     """Dynamic per-token quantize + int8 GEMM + rescale.
 
-    ``x`` (M, K) fp32/bf16 contiguous, any M >= 1; ``wq`` (N, K) int8
-    contiguous with K % 64 == 0 and N % 16 == 0; ``ws`` (N,) fp32.
-    Returns (M, N) in x's dtype (and ``xq``, ``sx`` (M, 1) with
-    ``return_quantized``).  ``plan`` (a :class:`GemmPlan`) overrides
-    :func:`gemm_plan`'s.
+    ``x`` (M, K) fp32/bf16 contiguous; ``wq`` (N, K) int8 contiguous;
+    ``ws`` (N,) fp32; any M, K, N >= 1.  Returns (M, N) in x's dtype (and
+    ``xq``, ``sx`` (M, 1) with ``return_quantized``).  ``plan`` (a
+    :class:`GemmPlan`, for the padded shape) overrides :func:`gemm_plan`'s.
 
     CPU tensors take :func:`w8a8_gemm_plain`.  CUDA tensors launch the
-    kernel on the current stream without synchronising, or raise."""
+    kernel on the current stream without synchronising, or raise; a K or
+    N off the kernel's granularity is padded (:func:`pad_operands`) and
+    the output sliced back."""
     if x.device.type == "cpu":
         return w8a8_gemm_plain(x, wq, ws, return_quantized=return_quantized)
     if x.device.type != "cuda":
         raise ValueError(f"w8a8_gemm runs on cpu or cuda, not {x.device}")
-    m, k, n = _validate(x, wq, ws)
-    out, scratch = _launch(x, wq, ws, plan or gemm_plan(m, n, k))
+    return _kernel_gemm(x, wq, ws, return_quantized, plan)
+
+
+def _kernel_gemm(x, wq, ws, return_quantized, plan):
+    """The CUDA path: pad to the kernel's granularity, launch, slice."""
+    if (x.dim() != 2 or wq.dim() != 2 or wq.shape[1] != x.shape[1]
+            or min(x.shape[1], wq.shape[0]) < 1
+            or tuple(ws.shape) != (wq.shape[0],)):
+        raise ValueError(f"w8a8_gemm: x (M, K), wq (N, K) and ws (N,) with "
+                         f"K, N >= 1, not {tuple(x.shape)}, "
+                         f"{tuple(wq.shape)} and {tuple(ws.shape)}")
+    k, n = x.shape[1], wq.shape[0]
+    xp, wqp, wsp = pad_operands(x, wq, ws)
+    m, kp, np_ = _validate(xp, wqp, wsp)
+    out, scratch = _launch(xp, wqp, wsp, plan or gemm_plan(m, np_, kp))
     _build.LAUNCHES["w8a8_gemm"] += 1
+    if np_ != n:
+        out = out[:, :n].contiguous()
     if not return_quantized:
         return out
-    xq = scratch[:m * k].view(torch.int8).view(m, k)
-    sx = scratch[m * k:m * k + 4 * m].view(torch.float32).view(m, 1)
+    xq = scratch[:m * kp].view(torch.int8).view(m, kp)[:, :k]
+    sx = scratch[m * kp:m * kp + 4 * m].view(torch.float32).view(m, 1)
     return out, xq, sx

@@ -15,6 +15,8 @@ dequantized inside attention.
 The reference runs the whole generation as one jitted ``lax.scan``; here
 PyTorch runs eagerly, so the decode loop is a Python loop and the cache is
 updated in place.  Sampling draws from an explicit ``torch.Generator``.
+:func:`build_beam_search_fn` is the reference's beam search, decision for
+decision, over the same cache.
 """
 
 from __future__ import annotations
@@ -363,3 +365,130 @@ def generate(model, ids, max_new_tokens: int = 32, temperature: float = 1.0,
                            top_p=top_p, eos_token_id=eos_token_id, int8=int8,
                            kv_bits=kv_bits, attn_window=attn_window)
     return fn(ids, seed)
+
+
+def _log_softmax(x):
+    """``jax.nn.log_softmax`` over the last axis, in its order: the
+    max-shifted values minus the log of their exponentials' sum."""
+    shifted = x - x.max(dim=-1, keepdim=True).values
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
+def _top_k(x, k):
+    """``lax.top_k`` over the last axis: the ``k`` largest values and their
+    indices, descending, equal values in index order (a stable sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _cache_rows(cache, rows):
+    """A cache side with its batch rows (axis 1) taken in ``rows`` order:
+    a new tensor, or a new ``(values, scales)`` pair."""
+    if isinstance(cache, tuple):
+        return tuple(c.index_select(1, rows) for c in cache)
+    return cache.index_select(1, rows)
+
+
+def build_beam_search_fn(model, max_new_tokens: int, beam_size: int = 4,
+                         length_penalty: float = 0.0,
+                         eos_token_id: Optional[int] = None,
+                         int8: Optional[bool] = None):
+    """Beam-search decoding: ``gen(ids)`` takes (B, T0) token ids and
+    returns (B, T0 + max_new_tokens) on the model's device.
+
+    Counterpart of the reference's ``build_beam_search_fn``: the B x K
+    beams are flattened into the batch rows (row ``b * K + k``); the
+    prompts prefill once, and the ``top_k`` of the last position's
+    log-softmax seeds the K beams, whose caches are the prompt's repeated;
+    each step is one (B*K)-row decode against the shared dense cache,
+    then the top K of each batch row's K*V candidates (score plus
+    log-prob) pick the parent beams and tokens, and the cache's rows are
+    reordered to the parents.  Scores are sums of token log-probs.  With
+    ``eos_token_id`` set a beam that emitted EOS is frozen: only its EOS
+    continuation survives, at an unchanged score, and its length stops
+    growing.  The sequences are read back through the parent pointers,
+    and each batch row takes the beam of the best ``score / ((5 + len) /
+    6) ** length_penalty`` (GNMT; 1 when ``length_penalty`` is 0) over
+    the beam's actual length.  ``int8`` (default ``cfg.int8``) runs W8A8
+    projections over ``(values, scales)`` caches, which reorder together.
+
+    Ties break as ``lax.top_k`` breaks them, the lower index first (a
+    stable descending sort): frozen beams make exact ties routine.  The
+    cache is written in place by each step's forward, so the reorder
+    takes the rows into new tensors after the write (``index_select``):
+    no step reads a row that the next step overwrites."""
+    cfg = model.cfg
+    K = beam_size
+    int8 = _resolve_int8(cfg, int8)
+    params, make_run = _decoder_setup(model, int8=int8)
+    run = make_run(params)
+    device = model.device
+
+    @torch.no_grad()
+    def gen(ids):
+        ids = torch.as_tensor(ids).to(device=device, dtype=torch.long)
+        b, t0 = ids.shape
+        if t0 + max_new_tokens > cfg.max_seq_len:
+            raise ValueError(
+                f"{t0} prompt + {max_new_tokens} new tokens exceed the "
+                f"model's max_seq_len {cfg.max_seq_len}")
+        V = params["wte"].shape[0]
+        kc, vc = _empty_cache(cfg, b, t0 + max_new_tokens,
+                              params["wte"].dtype, device, int8=int8)
+        logits, kc, vc = run(ids, 0, kc, vc)
+        scores0, tok0 = _top_k(_log_softmax(logits[:, -1]), K)   # (B, K)
+        rep = torch.arange(b, device=device).repeat_interleave(K)
+        kc, vc = _cache_rows(kc, rep), _cache_rows(vc, rep)      # b*K + k
+        tokens = tok0.reshape(b * K)
+        scores = scores0.reshape(b * K)
+        finished = (torch.zeros(b * K, dtype=torch.bool, device=device)
+                    if eos_token_id is None else tokens == eos_token_id)
+        lengths = torch.ones(b * K, dtype=torch.float32, device=device)
+        if eos_token_id is not None:
+            frozen = torch.full((V,), -torch.inf, device=device)
+            frozen[eos_token_id] = 0.0
+        base = torch.arange(b, device=device)[:, None] * K
+        toks, parents = [], []
+        for i in range(max_new_tokens - 1):
+            logits, kc, vc = run(tokens[:, None], t0 + i, kc, vc)
+            lp = _log_softmax(logits[:, -1])                      # (B*K, V)
+            if eos_token_id is not None:
+                # frozen beams: only the EOS continuation survives, at an
+                # unchanged score
+                lp = torch.where(finished[:, None], frozen[None, :], lp)
+            cand = (scores[:, None] + lp).reshape(b, K * V)
+            new_scores, flat = _top_k(cand, K)                    # (B, K)
+            parent = flat // V
+            new_tok = flat % V
+            rows = (base + parent).reshape(b * K)
+            kc, vc = _cache_rows(kc, rows), _cache_rows(vc, rows)
+            tokens = new_tok.reshape(b * K)
+            scores = new_scores.reshape(b * K)
+            finished = finished[rows]
+            # live beams grew by one token; frozen beams keep the length
+            # they had at their EOS (it feeds the length penalty)
+            lengths = lengths[rows] + (~finished).float()
+            if eos_token_id is not None:
+                finished = finished | (tokens == eos_token_id)
+            toks.append(tokens)
+            parents.append(rows)
+
+        # backtrack through the parent pointers
+        rows = torch.arange(b * K, device=device)
+        seq = []
+        for step_toks, step_parents in zip(reversed(toks), reversed(parents)):
+            seq.append(step_toks[rows])
+            rows = step_parents[rows]
+        first = tok0.reshape(b * K)[rows]
+        beams = torch.stack([first] + seq[::-1])                  # (new, B*K)
+        if length_penalty:
+            norm = torch.pow((5.0 + lengths) / 6.0,
+                             torch.tensor(length_penalty, dtype=torch.float32))
+        else:
+            norm = torch.ones_like(lengths)
+        best = torch.argmax((scores / norm).reshape(b, K), dim=1)  # (B,)
+        pick = torch.arange(b, device=device) * K + best
+        out = beams[:, pick].t()                                   # (B, new)
+        return torch.cat([ids, out.to(ids.dtype)], dim=1)
+
+    return gen

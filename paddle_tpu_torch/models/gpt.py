@@ -17,11 +17,28 @@ cross-entropy and AdamW with fp32 masters) run attention through
 :func:`~paddle_tpu_torch.kernels.sdpa`: the flash kernels on the card, the
 dense plain attention on the CPU.  With ``int8`` the four projections of
 each block go through :func:`~paddle_tpu_torch.ops.w8a8_matmul` (the
-``w8a8_gemm`` kernel, straight-through gradients).
+``w8a8_gemm`` kernel, straight-through gradients), and with
+``int8_lm_head`` too the eager forward's tied head.
+
+Dropout (``cfg.dropout > 0``, in training mode) follows the reference: on
+the embedding sum (:func:`~paddle_tpu_torch.ops.dropout`) and on each
+block's attention probabilities (:func:`~paddle_tpu_torch.kernels.
+attention.sdpa_dropout`, the reference's non-kernel attention: dropout
+never reaches the flash kernels, there or here).  Each mask is drawn from
+its own key: the eager forward takes one key per site from the seed chain
+(:mod:`paddle_tpu_torch.framework.random`) in the reference's order, the
+embedding's and then each block's; the train step folds its step counter
+into a base key drawn when it is built and splits the step's keys off
+that, as the reference's ``fold_in(_base_key, t)`` does.  A block gets its
+key as an argument and seeds its generator inside, so a block recomputed
+by ``torch.utils.checkpoint`` draws the mask its forward drew.  On one
+device the reference runs its blocks as an unrolled loop (its
+``lax.scan`` over stacked blocks only runs with a pipeline axis), so
+every block draws its own mask, here as there.
 
 The reference's distributed options (a mesh, pipeline stacking, ZeRO
-``sharding_stage``, ``dp_axis``, ``use_parallel``) and dropout in training
-are not ported: asking for them raises NotImplementedError.
+``sharding_stage``, ``dp_axis``, ``use_parallel``) are not ported: asking
+for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,7 +55,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device, resolve_dtype
+from ..framework import random as _random
 from ..kernels.attention import sdpa
+from ..ops.nn_ops import dropout as _dropout
 from ..ops.quant_ops import w8a8_matmul
 from .generation import _ln
 
@@ -66,6 +85,11 @@ class GPTConfig:
     # per-token int8 activations, int32 sums) and keep an int8 KV cache
     # unless kv_bits says otherwise.  The parameters stay float.
     int8: bool = False
+    # int8_lm_head: with int8, the eager forward's tied LM head runs W8A8
+    # too (per-vocab-row weight scales, per-token activation scales); the
+    # train step's chunked cross-entropy head stays float, as the
+    # reference's does
+    int8_lm_head: bool = False
     # kv_bits: decode-time KV cache precision.  None stores the model
     # dtype, 8 int8 values with one fp32 scale per position (also implied
     # by int8), 4 two nibbles per byte with the same scales.
@@ -196,13 +220,20 @@ class GPTForPretraining(nn.Module):
     def forward(self, ids):
         """Logits of ``ids`` (B, S): (B, S, V), or (S, B, V) with
         ``cfg.seq_major``, in the model's dtype; the LM head is tied to
-        ``wte``.  Dropout is not ported: a model with ``cfg.dropout > 0``
-        raises in training mode."""
-        if self.training and self.cfg.dropout > 0:
-            raise NotImplementedError("dropout in the training forward is "
-                                      "not ported")
+        ``wte`` (W8A8 under ``cfg.int8`` and ``cfg.int8_lm_head``).  In
+        training mode ``cfg.dropout`` drops on the embedding and on the
+        attention probabilities, with one key per site from the seed
+        chain."""
+        cfg = self.cfg
         ids = torch.as_tensor(ids, device=self.device).long()
-        x = _hidden(self.cfg, _tree(self.leaves(), self.cfg), ids)
+        # one key per dropout site, embedding first, as the reference's
+        # eager ops draw them (whether or not they drop)
+        keys = [_random.next_rng_key() for _ in range(1 + cfg.num_layers)]
+        drop = cfg.dropout if self.training else 0.0
+        x = _hidden(cfg, _tree(self.leaves(), cfg), ids, keys=keys,
+                    dropout=drop)
+        if cfg.int8 and cfg.int8_lm_head:
+            return w8a8_matmul(x, self.wte, transpose_y=True)
         return x @ self.wte.t()
 
 
@@ -263,13 +294,15 @@ def _linear(x, w, b, int8):
     return (w8a8_matmul(x, w) if int8 else x @ w) + b
 
 
-def _attention(cfg, p, x):
+def _attention(cfg, p, x, key=None, dropout=0.0):
     """The block's attention half over ``x`` [B, S, H] (or [S, B, H] with
     ``seq_major``): Q, K and V are head views of the fused projection
     (a reshape, no transposes), read in place by the flash kernels (bsnd
     or sbnd).  Batch-major GQA uses bsnd here where the reference
     transposes to bnsd and, having no bnsd GQA kernel, runs its jnp
-    attention."""
+    attention.  ``dropout`` > 0 drops attention probabilities with the
+    mask of ``key`` (:func:`~paddle_tpu_torch.kernels.attention.
+    sdpa_dropout`)."""
     hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     d0, d1, _ = x.shape
     qkv = _linear(x, p["qkv_w"], p["qkv_b"], cfg.int8)
@@ -277,16 +310,18 @@ def _attention(cfg, p, x):
     out = sdpa(q.reshape(d0, d1, nh, hd), k.reshape(d0, d1, nkv, hd),
                v.reshape(d0, d1, nkv, hd), is_causal=True,
                layout="sbnd" if cfg.seq_major else "bsnd",
-               window=cfg.attn_window)
+               window=cfg.attn_window, dropout_p=dropout, key=key)
     return _linear(out.reshape(d0, d1, nh * hd), p["proj_w"], p["proj_b"],
                    cfg.int8)
 
 
-def _block(cfg, x, *leaves):
-    """One pre-LN block over ``x``; ``leaves`` in ``_BLOCK_KEYS`` order."""
+def _block(cfg, x, key, dropout, *leaves):
+    """One pre-LN block over ``x``; ``leaves`` in ``_BLOCK_KEYS`` order,
+    ``key`` the mask key of its attention dropout."""
     p = dict(zip(_BLOCK_KEYS, leaves))
     eps = cfg.layer_norm_eps
-    x = x + _attention(cfg, p, _ln32(x, p["ln1_g"], p["ln1_b"], eps))
+    x = x + _attention(cfg, p, _ln32(x, p["ln1_g"], p["ln1_b"], eps),
+                       key=key, dropout=dropout)
     h = _ln32(x, p["ln2_g"], p["ln2_b"], eps)
     h = F.gelu(_linear(h, p["fc1_w"], p["fc1_b"], cfg.int8),
                approximate="none")
@@ -327,15 +362,23 @@ def _remat(fn, remat):
     return fn
 
 
-def _hidden(cfg, tree, ids, remat=False, cast=None):
+def _hidden(cfg, tree, ids, remat=False, cast=None, keys=None,
+            dropout=0.0):
     """Final-LayerNorm hidden states of ``ids`` (B, S): [B, S, H], or
     [S, B, H] with ``seq_major``.  ``cast`` (default identity) applies to
-    each parameter at its use, inside the checkpointed region."""
+    each parameter at its use, inside the checkpointed region.
+    ``dropout`` > 0 drops on the embedding with ``keys[0]`` and in block
+    ``i``'s attention with ``keys[1 + i]``; the key goes into the
+    checkpointed block, where its generator is seeded, so a recomputed
+    block draws its forward's mask."""
     cast = cast or (lambda a: a)
+    keys = keys or [None] * (1 + cfg.num_layers)
     x = _embed(cfg, cast(tree["wte"]), cast(tree["wpe"]), ids)
-    block = _remat(lambda h, *ls: _block(cfg, h, *map(cast, ls)), remat)
-    for leaves in tree["blocks"]:
-        x = block(x, *leaves)
+    x = _dropout(x, dropout, keys[0])
+    block = _remat(lambda h, key, *ls: _block(cfg, h, key, dropout,
+                                              *map(cast, ls)), remat)
+    for key, leaves in zip(keys[1:], tree["blocks"]):
+        x = block(x, key, *leaves)
     return _ln32(x, cast(tree["lnf_g"]), cast(tree["lnf_b"]),
                  cfg.layer_norm_eps)
 
@@ -398,8 +441,14 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
     bias-corrected moments, ``upd = m_hat / (sqrt(v_hat) + eps) + wd *
     w32``, ``w32 - lr * upd``, in fp32 on ``_foreach`` tensor lists.
 
-    ``mesh``, ``dp_axis``, ``sharding_stage`` > 0, ``cfg.use_parallel`` and
-    ``cfg.dropout`` > 0 raise NotImplementedError."""
+    With ``cfg.dropout`` > 0 and the model in training mode, each step
+    drops on the embedding and the attention probabilities with fresh
+    masks: the step's key is the base key (drawn from the live seed chain
+    when the step is built) folded with ``opt_state["t"]``, and the
+    sites' keys split off it in the reference's order.
+
+    ``mesh``, ``dp_axis``, ``sharding_stage`` > 0 and ``cfg.use_parallel``
+    raise NotImplementedError."""
     cfg = model.cfg
     if mesh is not None or dp_axis is not None or sharding_stage:
         raise NotImplementedError("the distributed options of the train "
@@ -408,9 +457,6 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
     if cfg.use_parallel:
         raise NotImplementedError("tensor-parallel GPT (use_parallel) is "
                                   "not ported")
-    if cfg.dropout > 0:
-        raise NotImplementedError("dropout in the training forward is not "
-                                  "ported")
     if remat != "dots" and not isinstance(remat, bool):
         raise ValueError(f"remat must be True, False, or 'dots'; got "
                          f"{remat!r}")
@@ -428,9 +474,12 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
     if any(p.dtype != torch.float32 for p in params):
         opt_state["master"] = [p.float().clone() for p in params]
     device = model.device
+    # drawn from the LIVE seed chain, so seed() decides the step's masks
+    base_key = _random.next_rng_key()
 
-    def loss_fn(leaves, ids, labels):
-        x = _hidden(cfg, _tree(leaves, cfg), ids, remat=remat, cast=cast)
+    def loss_fn(leaves, ids, labels, keys, drop):
+        x = _hidden(cfg, _tree(leaves, cfg), ids, remat=remat, cast=cast,
+                    keys=keys, dropout=drop)
         w = cast(leaves[0])
         if cfg.seq_major:
             labels = labels.t()          # the logits' [S, B] order
@@ -448,7 +497,14 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
         ids = torch.as_tensor(ids, device=device).long()
         labels = torch.as_tensor(labels, device=device).long()
         leaves = [p.detach().requires_grad_() for p in params]
-        loss = loss_fn(leaves, ids, labels)
+        # fresh masks every step: the step counter folded into the base
+        # key, the sites' keys split off it (embedding, then each block)
+        with _random.trace_rng_scope(
+                _random.fold_in(base_key, opt_state["t"])):
+            keys = [_random.next_rng_key()
+                    for _ in range(1 + cfg.num_layers)]
+        drop = cfg.dropout if model.training else 0.0
+        loss = loss_fn(leaves, ids, labels, keys, drop)
         grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
         t = opt_state["t"] + 1
         # the bias corrections in fp32, as the reference's traced counter

@@ -56,6 +56,7 @@ wait for the work already queued, and the overlap would be nil.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -340,6 +341,11 @@ class ServingEngine:
         self._sample = _make_sampler(greedy, temperature, top_k, top_p)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._io = _HostIO(self.device)
+        # the stream current where the engine was built: step() enters it
+        # (and the engine's device) whichever thread calls it, since
+        # PyTorch's current device and stream are per thread
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
 
         # ctor echo for snapshot/restore: enough to rebuild an equivalent
         # engine around the captured state.  faults, clock and the device
@@ -1407,6 +1413,15 @@ class ServingEngine:
                                "adopted_pages": len(pages)})
         return True
 
+    @contextlib.contextmanager
+    def _on_device(self):
+        """The engine's device and stream, on any thread."""
+        if self._stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            yield
+
     def step(self) -> List[FinishedRequest]:
         """One engine iteration: expire deadlines, admit into freed slots,
         advance partial prefills by the chunk budget, grow decode pages
@@ -1415,7 +1430,12 @@ class ServingEngine:
         request that reached a terminal state this step (including
         rejects and cancels recorded since the last step).  An injected
         fault aborts the rest of the iteration at a phase boundary; a
-        real one re-parks this step's terminals and re-raises."""
+        real one re-parks this step's terminals and re-raises.  Runs on
+        the engine's device and stream, whichever thread calls it."""
+        with self._on_device():
+            return self._step()
+
+    def _step(self) -> List[FinishedRequest]:
         t0 = time.perf_counter()
         self._step_idx += 1
         if self.faults is not None:

@@ -14,10 +14,9 @@ openable in Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``:
   * **one engine track** (pid ``PID_ENGINE``): per-step ``admit`` /
     ``prefill`` / ``decode`` phase X (complete) events, so slow steps
     and fault-aborted phases line up against request state;
-  * **host spans** (pid ``PID_HOST``): the lane is reserved for a
-    profiler's host spans.  The port has no profiler module yet, so the
-    reference's ``attach_profiler`` / ``detach_profiler`` bridge is not
-    here.
+  * **host spans** (pid ``PID_HOST``): :func:`attach_profiler` bridges
+    ``paddle_tpu_torch.profiler.RecordEvent`` — every host span recorded
+    anywhere in-process lands on the SAME timeline as the engine phases.
 
 B/E discipline: :meth:`TraceRecorder.end` pops the recorder's own
 per-track stack and names the E event from it, so emitted B/E pairs are
@@ -51,7 +50,8 @@ from typing import Callable, Dict, List, Optional
 
 __all__ = ["TraceRecorder", "PID_ENGINE", "PID_REQUESTS", "PID_HOST",
            "PID_ROUTER", "PID_STRIDE", "FLOW_CAT_HANDOFF", "flow_id",
-           "merge_traces", "validate_trace", "save_trace"]
+           "merge_traces", "validate_trace", "save_trace",
+           "attach_profiler", "detach_profiler"]
 
 #: Process lanes of the unified timeline.
 PID_ENGINE = 1      # engine step phases (admit/prefill/decode X events)
@@ -302,3 +302,45 @@ def validate_trace(trace) -> dict:
                 f"got {phs}")
     counts["flows"] = len(flows)
     return counts
+
+
+# -- profiler bridge ---------------------------------------------------------
+
+def attach_profiler(tracer: TraceRecorder, pid: int = PID_HOST,
+                    tid: int = 0):
+    """Mirror every ``profiler.RecordEvent`` span into ``tracer`` as an X
+    event on the host lane — engine phases, request lifecycle and host
+    spans land on ONE Perfetto timeline.  Returns the sink handle for
+    :func:`detach_profiler`; callers who outlive the tracer should
+    detach, or the module-global sink list keeps feeding (and growing)
+    a dead trace.  Idempotent per tracer: re-attaching an
+    already-bridged tracer returns the existing sink instead of
+    doubling every span.  RecordEvent measures on
+    ``time.perf_counter``; the recorder maps those stamps through its
+    own t0, so alignment with engine phases is exact when the tracer
+    runs on the default clock (and merely monotonic under a virtual
+    test clock)."""
+    from .. import profiler as _prof
+
+    existing = getattr(tracer, "_profiler_sink", None)
+    if existing is not None:
+        return existing
+    tracer.process_name(pid, "host (profiler.RecordEvent)")
+
+    def sink(name: str, t0: float, t1: float) -> None:
+        tracer.complete(name, t0, t1 - t0, pid, tid)
+
+    sink.tracer = tracer
+    tracer._profiler_sink = sink
+    _prof.add_span_sink(sink)
+    return sink
+
+
+def detach_profiler(sink) -> None:
+    from .. import profiler as _prof
+
+    _prof.remove_span_sink(sink)
+    tracer = getattr(sink, "tracer", None)
+    if tracer is not None and \
+            getattr(tracer, "_profiler_sink", None) is sink:
+        tracer._profiler_sink = None

@@ -682,3 +682,142 @@ def test_double_buffer_leaves_the_decode_in_flight(dev, monkeypatch):
     eng._decode_call = dispatch
     done = eng.run()
     assert done[rid].reason == "length" and len(done[rid].tokens) == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 96, 50257), (300, 96, 50257),
+                                   (8, 1600, 50257), (1024, 1600, 40),
+                                   (8, 2048, 50304), (1024, 2048, 50304)],
+                         ids=["m8-k96-n50257", "m300-k96-n50257",
+                              "m8-k1600-n50257", "m1024-k1600-n40",
+                              "head-m8", "head-m1024"])
+def test_w8a8_gemm_ragged_and_head_shapes_are_exact_on_card(dev, monkeypatch,
+                                                            m, k, n):
+    """K and N off the kernel's granularity (a GPT-2 vocabulary of 50257,
+    K = 96 and 1600) are padded by the wrapper and stay bit-exact against
+    the plain version, and so does the tied int8 head of GPT-1.3B (N =
+    50304, K = 2048) at decode and prefill rows; the plain version is
+    never reached from the CUDA path."""
+    from paddle_tpu_torch.kernels import KERNELS, int8_gemm
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    wq, ws = _gemm_weight(dev, g, n, k)
+    x = torch.randn(m, k, device=dev, generator=g)
+    x[-1] = 0.0
+    plain = int8_gemm.w8a8_gemm_plain
+    ref, rxq, rsx = plain(x, wq, ws, return_quantized=True)
+    bref = plain(x.bfloat16(), wq, ws)
+    monkeypatch.setattr(int8_gemm, "w8a8_gemm_plain",
+                        lambda *a, **kw: pytest.fail("plain on the card"))
+    before = KERNELS["w8a8_gemm"]
+    out, xq, sx = w8a8_gemm(x, wq, ws, return_quantized=True)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n) and xq.shape == (m, k)
+    assert torch.equal(xq, rxq) and torch.equal(sx, rsx)
+    assert torch.equal(out, ref)
+    assert torch.equal(w8a8_gemm(x.bfloat16(), wq, ws), bref)
+    assert KERNELS["w8a8_gemm"] == before + 2
+
+
+@pytest.mark.cuda
+def test_sdpa_with_dropout_launches_no_flash_kernel(dev, monkeypatch):
+    """Attention dropout takes the reference's non-kernel path on the card
+    too: no flash kernel launches, and with the same injected uniforms the
+    card's output matches the CPU's (fp32, 1e-5: summation order)."""
+    from paddle_tpu_torch.framework import random as trand
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.kernels.attention import sdpa_dropout
+
+    def uniform(key, shape, device):
+        gen = torch.Generator().manual_seed(key)
+        return torch.rand(tuple(shape), generator=gen).to(device)
+
+    monkeypatch.setattr(trand, "uniform", uniform)
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = _flash_inputs(dev, g, "bsnd", 2, 4, 2, 64, 64, torch.float32)
+    reset_launch_counts()
+    out = sdpa(q, k, v, is_causal=True, layout="bsnd", dropout_p=0.1, key=9)
+    torch.cuda.synchronize()
+    assert not any(KERNELS.values())
+    ref = sdpa_dropout(q.cpu(), k.cpu(), v.cpu(), 0.1, 9, is_causal=True,
+                       layout="bsnd")
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
+    sdpa(q, k, v, is_causal=True, layout="bsnd")
+    assert KERNELS["flash_fwd"] == 1
+
+
+@pytest.mark.cuda
+def test_frontend_stream_on_card_equals_its_finished_request(dev):
+    """``serve()`` in a background thread (its event loop on another thread
+    than the engine's) streams tokens equal to the engine's
+    FinishedRequest and to a direct run of the same prompt; the kernels
+    launched."""
+    import asyncio
+    import json
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.serving import ServingEngine, serve
+
+    cfg = GPTConfig(vocab_size=4096, hidden_size=512, num_layers=2,
+                    num_heads=4, max_seq_len=256)
+    model = GPTForPretraining(cfg, seed=0, dtype=torch.float32)
+    prompt = np.arange(3, 43) % 4096
+    want = ServingEngine(model, max_slots=2, page_size=32).run(
+        [(prompt, 12)])
+    want = next(iter(want.values())).tokens
+    eng = ServingEngine(model, max_slots=2, page_size=32)
+    finished, started = {}, threading.Event()
+    orig = eng.step
+
+    def step():
+        fins = orig()
+        finished.update((f.rid, f) for f in fins)
+        return fins
+
+    eng.step = step
+    box = {}
+
+    def on_start(fe, shutdown):
+        box["port"], box["shutdown"] = fe.port, shutdown
+        started.set()
+
+    th = threading.Thread(target=serve, args=(eng,),
+                          kwargs=dict(port=0, banner=False,
+                                      on_start=on_start), daemon=True)
+    th.start()
+    assert started.wait(60)
+
+    async def call():
+        reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                       box["port"])
+        body = json.dumps({"prompt": [int(t) for t in prompt],
+                           "max_tokens": 12}).encode()
+        writer.write(b"POST /v1/completions HTTP/1.1\r\nContent-Length: "
+                     + str(len(body)).encode() + b"\r\n\r\n" + body)
+        await writer.drain()
+        raw = await asyncio.wait_for(reader.read(), 120)
+        writer.close()
+        return raw
+
+    reset_launch_counts()
+    try:
+        raw = asyncio.run(call())
+    finally:
+        box["shutdown"]()
+        th.join(60)
+    assert not th.is_alive()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    assert head.startswith(b"HTTP/1.1 200")
+    events = [b[6:] for b in body.decode().split("\n\n")
+              if b.startswith("data: ")]
+    assert events[-1] == "[DONE]"
+    final = json.loads(events[-2])
+    streamed = [json.loads(e)["token"] for e in events[:-2]]
+    assert streamed == final["tokens"]
+    np.testing.assert_array_equal(finished[final["id"]].tokens, streamed)
+    np.testing.assert_array_equal(np.asarray(streamed), want)
+    assert KERNELS["paged_attention"] > 0 and KERNELS["paged_prefill"] > 0

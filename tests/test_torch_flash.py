@@ -409,8 +409,11 @@ def test_sdpa_plain_masks_and_bf16_match_reference(mask_kind):
 
 def test_sdpa_refuses_what_is_not_ported():
     q = torch.zeros(1, 2, 16, 16)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tatt.sdpa(q, q, q, dropout_p=0.1)
+    # attention dropout is ported as the reference routes it, through
+    # sdpa_dropout (the jnp path there); the flash kernels still refuse it
+    torch.testing.assert_close(tatt.sdpa(q, q, q, dropout_p=0.1, key=5),
+                               tatt.sdpa_dropout(q, q, q, 0.1, 5),
+                               rtol=0, atol=0)
     assert tflash.unsupported_reason(q, q, dropout_p=0.1) is not None
     assert "head_dim" in tflash.unsupported_reason(torch.zeros(1, 2, 16, 12),
                                                    torch.zeros(1, 2, 16, 12))

@@ -242,3 +242,70 @@ def test_gemm_plan_is_a_named_plan():
     assert isinstance(plan, GemmPlan)
     assert plan._fields == ("path", "bm", "bn", "chunks_per_split",
                             "n_split")
+
+
+# (M, K, N): ragged K and N as a GPT-2 vocabulary (50257) or width (1600)
+# gives them, K below one chunk, and one row and column
+RAGGED = [(3, 96, 50257), (5, 1600, 40), (2, 1, 1), (17, 130, 24),
+          (1, 2048, 50257)]
+
+
+@pytest.mark.parametrize("shape", RAGGED, ids=["x".join(map(str, s))
+                                               for s in RAGGED])
+def test_padding_to_the_kernel_granularity_is_exact(shape):
+    """``pad_operands`` zero-pads K to a multiple of 64 and N to one of 16
+    (weight rows of scale 1): the plain version over the padded operands,
+    sliced back, equals it over the ragged ones bit for bit, xq and sx
+    included (zero columns change neither a row's absmax nor a sum)."""
+    m, k, n = shape
+    g = torch.Generator().manual_seed(k + n)
+    x = torch.randn(m, k, generator=g) * 3.0
+    x[0, 0] = 0.0
+    wq = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g)
+    ws = torch.rand(n, generator=g) * 1e-2
+    xp, wqp, wsp = int8_gemm.pad_operands(x, wq, ws)
+    assert xp.shape[1] % GEMM_KC == 0 and wqp.shape[0] % 16 == 0
+    assert wqp.shape[1] == xp.shape[1] and wsp.shape == (wqp.shape[0],)
+    want, wxq, wsx = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = w8a8_gemm_plain(xp.to(dtype), wqp, wsp)[:, :n]
+        assert torch.equal(got, w8a8_gemm_plain(x.to(dtype), wq, ws))
+    _, pxq, psx = w8a8_gemm_plain(xp, wqp, wsp, return_quantized=True)
+    assert torch.equal(pxq[:, :k], wxq) and torch.equal(psx, wsx)
+    assert not pxq[:, k:].any()
+
+
+def test_aligned_operands_are_not_copied():
+    x, wq, ws = torch.zeros(4, 128), torch.zeros(48, 128, dtype=torch.int8), \
+        torch.ones(48)
+    assert all(a is b for a, b in zip(int8_gemm.pad_operands(x, wq, ws),
+                                      (x, wq, ws)))
+
+
+@pytest.mark.parametrize("shape", RAGGED[:2] + [(40, 1600, 50257)],
+                         ids=["3x96x50257", "5x1600x40", "40x1600x50257"])
+def test_kernel_path_launches_padded_shapes_and_slices_back(monkeypatch,
+                                                            shape):
+    """The CUDA path (its C entry point recorded) launches the padded
+    shape with the plan of the padded shape and returns (M, N), xq (M,
+    K) and sx (M, 1): no ragged shape reaches the kernel, and none goes
+    to the plain version."""
+    m, k, n = shape
+    calls = _record(monkeypatch)
+    monkeypatch.setattr(int8_gemm, "w8a8_gemm_plain",
+                        lambda *a, **kw: pytest.fail("plain version"))
+    x = torch.zeros(m, k, dtype=torch.bfloat16)
+    wq = torch.zeros(n, k, dtype=torch.int8)
+    out, xq, sx = int8_gemm._kernel_gemm(x, wq, torch.ones(n), True, None)
+    (args,) = calls
+    kp, np_ = -(-k // 64) * 64, -(-n // 16) * 16
+    assert args[6:9] == (m, np_, kp)
+    plan = gemm_plan(m, np_, kp)
+    assert args[10:14] == ({"split": 0, "wgmma": 1}[plan.path], plan.bm,
+                           plan.bn, plan.chunks_per_split)
+    assert out.shape == (m, n) and out.is_contiguous()
+    assert xq.shape == (m, k) and sx.shape == (m, 1)
+    with pytest.raises(ValueError):
+        int8_gemm._kernel_gemm(x, wq[:, :-1], torch.ones(n), False, None)
+    with pytest.raises(ValueError):
+        int8_gemm._kernel_gemm(x, wq, torch.ones(n + 1), False, None)

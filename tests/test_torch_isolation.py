@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
-from paddle_tpu_torch.serving import KVPool, ServingEngine, make_cluster
+from paddle_tpu_torch.serving import (KVPool, ServingEngine, ServingFrontend,
+                                      make_cluster)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -40,6 +41,9 @@ def test_port_imports_no_jax_and_no_reference_at_runtime():
         "paddle_tpu_torch.serving.metrics, paddle_tpu_torch.serving.tracing, "
         "paddle_tpu_torch.serving.snapshot, paddle_tpu_torch.serving.router, "
         "paddle_tpu_torch.serving.tenancy, paddle_tpu_torch.utils.tensorboard, "
+        "paddle_tpu_torch.serving.frontend, paddle_tpu_torch.profiler, "
+        "paddle_tpu_torch.framework.random, paddle_tpu_torch.framework.flags, "
+        "paddle_tpu_torch.ops.nn_ops, paddle_tpu_torch.examples.serve_gpt, "
         "chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -81,6 +85,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                for e in make_cluster(model, 2, device="cpu").replicas)
     with pytest.raises(ValueError):     # the model lives elsewhere
         ServingEngine(model, device="meta")
+    # the front end serves an engine, which wants the card
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingFrontend(ServingEngine(model))
+    assert ServingFrontend(ServingEngine(model, device="cpu")).engine
+
+
+def test_serve_cli_wants_the_card_without_device():
+    """``python -m paddle_tpu_torch.examples.serve_gpt`` without
+    ``--device`` and with no card visible stops with the device policy's
+    error; it does not fall back to the CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.examples.serve_gpt",
+         "--requests", "1"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+    assert "requests" not in proc.stdout
 
 
 def test_kv_pool_follows_the_device_policy(monkeypatch):
