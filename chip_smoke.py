@@ -133,7 +133,26 @@ its seconds):
    tokens/s, MFU (the bench's flop count over 989 TFLOP/s) and peak
    memory, asserts finite, falling losses and exactly the run's launches
    (24 per step of each flash kernel, the forward twice under remat, 96
-   ``w8a8_gemm`` per step in (d)), and profiles one more step.
+   ``w8a8_gemm`` per step in (d)), and profiles one more step;
+7. distributed: (1) a one-rank NCCL group on 127.0.0.1 through
+   ``init_parallel_env()`` (NCCL, the card's default) and ``fleet.init``
+   with every degree 1; the training flagship's width at 2 layers (batch
+   12, seq 1024, bf16) trained 3 steps through the distributed step (the
+   mesh installed, ``dp_axis="dp"``, ZeRO stage 0) and through the plain
+   step from the same weights: losses and parameters bit for bit, flash
+   launches asserted, each step's ms logged; tensor-parallel greedy
+   decode at mp=1 equal to ``generate``.  (2) Row-parallel W8A8's int32
+   partial sums through ``w8a8_gemm`` exact at M=8 and 12288.  (3) Ring
+   flash from shards held in one process (ring 4, B=2, H=12, D=128;
+   S=2048 bf16 causal and full, S=1024 fp32 causal): forward (out, lse)
+   and backward (dQ, dK, dV) against the plain flash versions on the
+   whole sequence from the same inputs with phase 2's ``FLASH_TOL``,
+   launches asserted (10 of each kernel causal, 16 full); then ring 4
+   forward + backward at S=8192 timed against the whole-sequence flash
+   kernels (CUDA events).  ``--phase 7`` builds and runs this phase
+   alone (no result line).  Multi-rank parity runs on the CPU over gloo
+   (``tests/test_torch_{collective,tp,zero,pp,tp_decode,ring}.py``):
+   NCCL does not put two ranks on one card.
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -2124,6 +2143,261 @@ def phase_training(np, torch):
     return first
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+# ring flash on the card from shards held in one process: label, B, H, S,
+# causal, dtype (D = 128, ring 4)
+RING = 4
+RING_CASES = (("bf16_causal", 2, 12, 2048, True, "bf16"),
+              ("bf16_full", 2, 12, 2048, False, "bf16"),
+              ("fp32_causal", 2, 12, 1024, True, "fp32"))
+RING_TIMED = (2, 12, 8192)            # B, H, S: causal bf16, ring 4
+RING_STEPS = 3
+
+
+def _one_rank_group(torch):
+    """A one-rank NCCL group on 127.0.0.1 through ``init_parallel_env()``
+    (the card's default backend) and ``fleet.init`` with every degree 1;
+    returns the installed mesh."""
+    from paddle_tpu_torch.distributed import fleet, init_parallel_env
+    from paddle_tpu_torch.distributed.launch_utils import find_free_port
+    from paddle_tpu_torch.distributed.mesh import get_mesh
+
+    os.environ.update({"MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(find_free_port()), "RANK": "0",
+                       "WORLD_SIZE": "1", "LOCAL_RANK": "0"})
+    env = init_parallel_env(timeout=120)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+                        "sharding_degree": 1}
+    fleet.init(is_collective=True, strategy=s)
+    import torch.distributed as dist
+
+    log(f"distributed: {dist.get_backend()} group of {dist.get_world_size()} "
+        f"rank(s), rank {env.rank} on {env.device}, mesh "
+        f"{get_mesh().shape}")
+    return get_mesh()
+
+
+def _dist_step_parity(np, torch, mesh):
+    """The training flagship's width at 2 layers, bf16, through the
+    distributed step (the mesh installed, dp_axis="dp", ZeRO stage 0) and
+    the non-distributed step from the same weights: losses and parameters
+    bit for bit over RING_STEPS steps, flash launches asserted, each
+    step's ms logged.  Then tensor-parallel greedy decode at mp=1 against
+    ``generate``, token for token."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining, generate
+    from paddle_tpu_torch.models.generation import build_generate_fn
+    from paddle_tpu_torch.models.gpt import build_functional_train_step
+
+    cfg = GPTConfig(**{**TRAIN_CFG, "num_layers": 2})
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    labels = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    ids = torch.as_tensor(ids.astype("int32"), device="cuda")
+    labels = torch.as_tensor(labels.astype("int64"), device="cuda")
+    runs = {}
+    for name in ("plain", "distributed"):
+        model = GPTForPretraining(cfg, seed=0)
+        if name == "plain":
+            mesh_mod.set_mesh(None)
+            step, params, opt = build_functional_train_step(
+                model, lr=1e-4, remat=False, ce_chunk_rows=2048)
+            mesh_mod.set_mesh(mesh)
+        else:
+            step, params, opt = build_functional_train_step(
+                model, lr=1e-4, remat=False, ce_chunk_rows=2048,
+                dp_axis="dp", sharding_stage=0)
+        reset_launch_counts()
+        losses, times = [], []
+        for _ in range(RING_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, ids, labels)
+            losses.append(float(loss))
+            times.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: KERNELS[k] for k in FLASH}
+        want = {k: cfg.num_layers * RING_STEPS for k in FLASH}
+        if launches != want:
+            raise AssertionError(f"{name} step launched {launches}, expected "
+                                 f"{want}")
+        runs[name] = (losses, [p.clone() for p in params])
+        log(f"one-rank {name} step (2 layers, hidden {cfg.hidden_size}, batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16): losses {losses}, step ms "
+            f"{[round(t, 3) for t in times]} (first includes warm-up), "
+            f"launches {json.dumps(launches)}")
+        del model, step, opt
+    (lp, pp), (ld, pd) = runs["plain"], runs["distributed"]
+    same = [torch.equal(a, b) for a, b in zip(pp, pd)]
+    log(f"one-rank distributed vs plain step: losses equal {lp == ld}, "
+        f"{sum(same)} of {len(same)} parameters bit-identical")
+    if lp != ld or not all(same):
+        raise AssertionError("the one-rank distributed step differs from the "
+                             "plain step")
+    del pp, pd
+    model = GPTForPretraining(GPTConfig(**{**TRAIN_CFG, "num_layers": 2,
+                                           "use_parallel": True}), seed=0)
+    model.eval()
+    prompts = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 64)),
+                              device="cuda")
+    tp = build_generate_fn(model, 32)(prompts)
+    plain = generate(model, prompts, 32)
+    if not torch.equal(tp, plain):
+        raise AssertionError("tensor-parallel decode at mp=1 differs from "
+                             "generate")
+    log(f"tensor-parallel greedy decode at mp=1: {tp.shape[0]} x 32 tokens "
+        f"equal generate's (model.tp {model.tp})")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _ring_shards(torch, g, b, h, s, dtype):
+    """q, k, v, dO (B, H, S, D=128) and their ring shards along S."""
+    full = [torch.randn(b, h, s, 128, device="cuda", generator=g).to(dtype)
+            for _ in range(4)]
+    return full, [[x.contiguous() for x in t.chunk(RING, dim=2)]
+                  for t in full]
+
+
+def _ring_parity(np, torch):
+    """Ring flash forward and backward from shards in one process against
+    the plain flash versions on the whole sequence (the same inputs,
+    computed in fp32), with phase 2's FLASH_TOL; each launch counted."""
+    from paddle_tpu_torch.kernels import (KERNELS, flash_bwd_plain,
+                                          flash_fwd_plain, reset_launch_counts)
+    from paddle_tpu_torch.kernels import ring
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    worst = {}
+    for label, b, h, s, causal, dt in RING_CASES:
+        g = torch.Generator(device="cuda").manual_seed(s + causal)
+        (q, k, v, do), (qs, ks, vs, dos) = _ring_shards(torch, g, b, h, s,
+                                                        dtypes[dt])
+        reset_launch_counts()
+        outs, lses = ring._local_ring_forward(qs, ks, vs, causal=causal)
+        dqs, dks, dvs = ring._local_ring_backward(qs, ks, vs, outs, lses, dos,
+                                                  causal=causal)
+        torch.cuda.synchronize()
+        blocks = RING * (RING + 1) // 2 if causal else RING * RING
+        launches = {k: KERNELS[k] for k in FLASH}
+        if launches != {k: blocks for k in FLASH}:
+            raise AssertionError(f"ring {label} launched {launches}, "
+                                 f"expected {blocks} of each")
+        # the plain versions on the whole sequence from the same inputs
+        # (computing in fp32 and rounding where the kernels round), as
+        # phase 2 holds each kernel
+        out, lse = flash_fwd_plain(q, k, v, causal)
+        dq, dk, dv = flash_bwd_plain(q, k, v, out, lse, do, causal)
+        got = {"out": torch.cat(outs, 2), "lse": torch.cat(lses, 2).reshape(
+            b * h, s), "dq": torch.cat(dqs, 2), "dk": torch.cat(dks, 2),
+            "dv": torch.cat(dvs, 2)}
+        want = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+        for part in got:
+            err = _flash_close(f"ring flash {part} {label} (ring {RING}, B={b} "
+                               f"H={h} S={s} D=128, {dt})", got[part],
+                               want[part], *FLASH_TOL[dt][part])
+            worst[part] = max(worst.get(part, 0.0), err)
+        log(f"  ring {label}: {json.dumps(launches)} launches")
+        del q, k, v, do, qs, ks, vs, dos, outs, lses, dqs, dks, dvs
+        del out, lse, dq, dk, dv, got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _ring_timing(np, torch, card):
+    """Ring 4 forward + backward at S=8192 (shards in one process, every
+    rank's blocks) against the whole-sequence flash kernels, CUDA
+    events."""
+    from paddle_tpu_torch.kernels import ring
+    from paddle_tpu_torch.kernels.flash import flash_bwd, flash_fwd_cuda
+
+    b, h, s = RING_TIMED
+    g = torch.Generator(device="cuda").manual_seed(1)
+    (q, k, v, do), (qs, ks, vs, dos) = _ring_shards(torch, g, b, h, s,
+                                                    torch.bfloat16)
+    scale = 1.0 / np.sqrt(128)
+
+    def ring_fwd():
+        return ring._local_ring_forward(qs, ks, vs, causal=True)
+
+    outs, lses = ring_fwd()
+
+    def ring_bwd():
+        return ring._local_ring_backward(qs, ks, vs, outs, lses, dos,
+                                         causal=True)
+
+    out, lse = flash_fwd_cuda(q, k, v, True, scale, None, "bnsd")
+    ms = {"ring fwd": time_ms(ring_fwd, iters=5, warmup=1),
+          "ring bwd": time_ms(ring_bwd, iters=5, warmup=1),
+          "whole fwd": time_ms(lambda: flash_fwd_cuda(
+              q, k, v, True, scale, None, "bnsd"), iters=5, warmup=1),
+          "whole bwd": time_ms(lambda: flash_bwd(
+              q, k, v, out, lse, do, True, scale, None, "bnsd"), iters=5,
+              warmup=1)}
+    ring_ms = ms["ring fwd"] + ms["ring bwd"]
+    whole_ms = ms["whole fwd"] + ms["whole bwd"]
+    log(f"ring flash timing (B={b} H={h} S={s} D=128 causal bf16, ring "
+        f"{RING}, every rank's shards in one process; {card}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; ring fwd+bwd {ring_ms:.4f} ms vs whole-sequence flash "
+        f"fwd+bwd {whole_ms:.4f} ms ({ring_ms / whole_ms:.3f}x)")
+    del q, k, v, do, qs, ks, vs, dos, outs, lses, out, lse
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _int32_products(np, torch):
+    """Row-parallel W8A8's int32 partial sums (mp > 1 on several cards)
+    through the ``w8a8_gemm`` kernel, against the integer product: at a
+    decode layer's fc2 split over mp=2 (M=8, K=4096, N=2048) and at
+    training rows (M=12288, K=3072), exactly."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.mp_layers import (
+        INT32_CHUNK, _kernel_products)
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for m, k, n in ((8, 4096, 2048), (12288, 3072, 1536)):
+        xq = torch.randint(-127, 128, (m, k), device="cuda", generator=g,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), device="cuda", generator=g,
+                           dtype=torch.int8)
+        xq[0], wq[0] = 127, 127
+        reset_launch_counts()
+        got = _kernel_products(xq, wq)
+        torch.cuda.synchronize()
+        n_launch = KERNELS["w8a8_gemm"]
+        want = (xq.double() @ wq.double().t()).to(torch.int32)
+        exact = torch.equal(got, want)
+        log(f"row-parallel int32 sums M={m} K={k} N={n}: {n_launch} "
+            f"w8a8_gemm launches (K chunks of {INT32_CHUNK}), exact {exact}")
+        if not exact or n_launch != -(-k // INT32_CHUNK):
+            raise AssertionError("the int32 partial sums through w8a8_gemm "
+                                 "are not the integer product")
+        del xq, wq, got, want
+
+
+def phase_distributed(np, torch, card):
+    """Phase 7: a one-rank NCCL group through the distributed step and TP
+    decode, then ring flash on the card from shards in one process."""
+    import torch.distributed as dist
+
+    mesh = _one_rank_group(torch)
+    try:
+        _dist_step_parity(np, torch, mesh)
+    finally:
+        from paddle_tpu_torch.distributed import mesh as mesh_mod
+
+        mesh_mod.set_mesh(None)
+        dist.destroy_process_group()
+    _int32_products(np, torch)
+    worst = _ring_parity(np, torch)
+    log(f"ring flash worst max_abs_err per tensor: {json.dumps(worst)}")
+    _ring_timing(np, torch, card)
+    log(card)
+
+
 def main():
     try:
         import numpy as np
@@ -2153,6 +2427,11 @@ def main():
 
     card = phase_build()
     done("1 build")
+    if sys.argv[1:] == ["--phase", "7"]:
+        # phase 7 alone, for work on the distributed layer: no result line
+        phase_distributed(np, torch, card)
+        done("7 distributed")
+        return 0
     kernels = phase_paged(np, torch)
     kernels.update(phase_gemm(np, torch))
     kernels.update(phase_flash(np, torch))
@@ -2167,6 +2446,8 @@ def main():
     done("5b front end and decoding")
     trained = phase_training(np, torch)
     done("6 training")
+    phase_distributed(np, torch, card)
+    done("7 distributed")
     line = []
     for name, k in kernels.items():
         src = name.split("_int")[0]

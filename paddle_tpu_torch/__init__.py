@@ -11,6 +11,10 @@ mirrors the JAX package so that every module has an obvious counterpart:
   beside its plain PyTorch version;
 * ``serving/``: the paged, continuous-batching serving engine and its
   streaming HTTP front end (``serving/frontend.py``);
+* ``distributed/``: ``paddle.distributed`` over ``torch.distributed``
+  (the collective API, the ``(dp, pp, sharding, mp)`` mesh, ``spawn``,
+  ``fleet`` and its tensor-parallel layers), which the train step, TP
+  decoding and ``kernels/ring.py`` (ring attention) run over;
 * ``framework/``: the seed chain of explicit ``torch.Generator``s and the
   flags the profiler reads; ``profiler.py``: host spans, their table and
   ``torch.profiler`` traces;

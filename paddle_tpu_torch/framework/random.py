@@ -98,9 +98,46 @@ def next_rng_key() -> int:
     return sub
 
 
+def get_rng_state() -> int:
+    """The global chain's key (what :func:`next_rng_key` splits next)."""
+    key = getattr(_state, "key", None)
+    return make_key(_DEFAULT_SEED) if key is None else key
+
+
+def set_rng_state(key: int) -> None:
+    """Put the global chain at ``key`` (from :func:`get_rng_state`)."""
+    _state.key = int(key)
+
+
 def generator(key: int, device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``key``."""
     return torch.Generator(device=device).manual_seed(int(key))
+
+
+class ShardedKey:
+    """A key whose draws are this rank's part of a larger draw: ``parts``
+    maps a dim of the drawn shape to ``(index, count)``, this draw being
+    part ``index`` of ``count`` equal consecutive parts along it.  The
+    distributed train step hands one to each dropout site, so a rank's
+    mask is its slice (its batch rows, its heads) of the mask the whole
+    model draws on one device."""
+
+    def __init__(self, key: int, parts):
+        self.key = key
+        self.parts = dict(parts)
+
+
+def draw(key, shape: Sequence[int], device) -> torch.Tensor:
+    """:func:`uniform` of ``key`` over ``shape``; for a
+    :class:`ShardedKey` the uniforms of the whole shape, sliced to this
+    rank's part."""
+    if not isinstance(key, ShardedKey):
+        return uniform(key, shape, device)
+    full, index = list(shape), [slice(None)] * len(shape)
+    for dim, (i, n) in key.parts.items():
+        full[dim] = shape[dim] * n
+        index[dim] = slice(i * shape[dim], (i + 1) * shape[dim])
+    return uniform(key.key, full, device)[tuple(index)]
 
 
 def uniform(key: Optional[int], shape: Sequence[int], device) -> torch.Tensor:

@@ -63,7 +63,7 @@ def _attend(q, k, v, mask, scale, is_causal, window, dropout_p=0.0,
             logits = logits + mask.to(logits.dtype)
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     if dropout_p > 0.0 and key is not None:
-        keep = (_random.uniform(key, probs.shape, q.device)
+        keep = (_random.draw(key, probs.shape, q.device)
                 < torch.tensor(1.0 - dropout_p, dtype=torch.float32))
         # a division by a tensor of probs' dtype, as jnp divides by the
         # weakly typed 1 - p (PyTorch divides by a Python number through

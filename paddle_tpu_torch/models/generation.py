@@ -17,6 +17,15 @@ PyTorch runs eagerly, so the decode loop is a Python loop and the cache is
 updated in place.  Sampling draws from an explicit ``torch.Generator``.
 :func:`build_beam_search_fn` is the reference's beam search, decision for
 decision, over the same cache.
+
+A tensor-parallel model (``use_parallel`` built under a mesh with mp > 1,
+``model.tp``) decodes with its rank's heads and KV cache: the embedding
+is vocabulary-parallel, proj and fc2 all-reduce their partial products
+(W8A8: the global activation absmax and the int32 sums, as
+:func:`~paddle_tpu_torch.distributed.fleet.meta_parallel.mp_layers.
+row_parallel_w8a8` does, with global weight scales), and the head's
+vocabulary-split logits are all-gathered before the sampler, so every
+rank picks the same tokens, those of the one-device decode.
 """
 
 from __future__ import annotations
@@ -25,36 +34,55 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    quantize_row_parallel, row_parallel_w8a8)
 from ..ops.quant_ops import (quantize_int4_per_token, quantize_per_channel,
                              quantize_per_token, unpack_int4, w8a8_apply)
 
 _NEG_INF = -1e30
 _PROJECTIONS = ("qkv", "proj", "fc1", "fc2")
+_ROW_PARALLEL = ("proj", "fc2")
 
 
-def _block_params(blk, int8=False):
+def _block_params(blk, int8=False, tp=None):
     """One block's parameter dict, keyed as in the reference.  Float: the
     block's own parameters, detached (the same storage, not copies, and no
     autograd graph).  With ``int8`` each projection
     weight is quantized once, here, per output channel: ``<name>_wq`` is
     (N, K) int8 — the reference's (K, N) ``_wq`` transposed, K contiguous,
     as the W8A8 kernel reads it — and ``<name>_ws`` (N,) fp32; the float
-    ``<name>_w`` is left out, so decoding never reads it."""
+    ``<name>_w`` is left out, so decoding never reads it.  Under ``tp``
+    the row-parallel weights (proj, fc2) take the global scales of their
+    split K (:func:`quantize_row_parallel`)."""
     p = {k: v.detach() for k, v in blk.named_parameters()}
     if int8:
         for name in _PROJECTIONS:
-            wq, ws = quantize_per_channel(p.pop(name + "_w"), axis=1)
+            w = p.pop(name + "_w")
+            if tp is not None and name in _ROW_PARALLEL:
+                p[name + "_wq"], p[name + "_ws"] = quantize_row_parallel(
+                    w, tp.group)
+                continue
+            wq, ws = quantize_per_channel(w, axis=1)
             p[name + "_wq"] = wq.t().contiguous()
             p[name + "_ws"] = ws
     return p
 
 
-def _mm(p, name, x):
+def _mm(p, name, x, tp=None):
     """``x @ weight``: W8A8 through the int8 GEMM when the block carries
-    quantized weights, a float matmul otherwise."""
+    quantized weights, a float matmul otherwise; under ``tp`` the
+    row-parallel products are summed over the ranks."""
     wq = p.get(name + "_wq")
+    if tp is not None and name in _ROW_PARALLEL:
+        if wq is not None:
+            return row_parallel_w8a8(x, wq, p[name + "_ws"], tp.group,
+                                     out_dtype=x.dtype)
+        out = x @ p[name + "_w"]
+        dist.all_reduce(out, group=tp.group)
+        return out
     if wq is not None:
         return w8a8_apply(x, wq, p[name + "_ws"], out_dtype=x.dtype)
     return x @ p[name + "_w"]
@@ -75,13 +103,14 @@ def _ln(x, g, b, eps):
     return (x - mu) / torch.sqrt(var + eps) * g + b
 
 
-def _block_qkv(p, x, n_heads, eps, n_kv_heads=None):
+def _block_qkv(p, x, n_heads, eps, n_kv_heads=None, head_dim=None):
     """The block's pre-attention half: LN1, the fused QKV projection and
     the head split.  ``x`` is (B, T, h); returns ``q`` (B, H, T, D) and
     ``k``/``v`` (B, Hkv, T, D) — under GQA the projection is
-    (H + 2*Hkv)*D wide and the split uneven."""
+    (H + 2*Hkv)*D wide and the split uneven.  ``head_dim`` (default h /
+    H) is given when H counts a tensor-parallel rank's heads."""
     b, t, h = x.shape
-    hd = h // n_heads
+    hd = head_dim or h // n_heads
     nkv = n_kv_heads or n_heads
     hx = _ln(x, p["ln1_g"], p["ln1_b"], eps)
     qkv = _mm(p, "qkv", hx) + p["qkv_b"]
@@ -93,25 +122,27 @@ def _block_qkv(p, x, n_heads, eps, n_kv_heads=None):
     return heads(q, n_heads), heads(k, nkv), heads(v, nkv)
 
 
-def _lm_head(p, x, eps):
+def _lm_head(p, x, eps, tp=None):
     """Final LN and the tied-embedding projection; fp32 logits over the
-    last axis of ``x``."""
+    last axis of ``x`` (under ``tp`` this rank's vocabulary rows'
+    logits, all-gathered)."""
     h = _ln(x, p["lnf_g"], p["lnf_b"], eps)
-    return (h @ p["wte"].t()).float()
+    logits = (h @ p["wte"].t()).float()
+    return logits if tp is None else tp.gather(logits)
 
 
-def _block_finish(p, x, out, eps):
+def _block_finish(p, x, out, eps, tp=None):
     """The block's post-attention half: output projection residual and the
     MLP residual (exact-erf GELU).  ``out`` is the attention output merged
     back to the layout of ``x``."""
-    x = x + _mm(p, "proj", out) + p["proj_b"]
+    x = x + _mm(p, "proj", out, tp) + p["proj_b"]
     hx = _ln(x, p["ln2_g"], p["ln2_b"], eps)
     hid = F.gelu(_mm(p, "fc1", hx) + p["fc1_b"], approximate="none")
-    return x + _mm(p, "fc2", hid) + p["fc2_b"]
+    return x + _mm(p, "fc2", hid, tp) + p["fc2_b"]
 
 
 def _block_fwd(p, x, k_cache, v_cache, pos, n_heads, eps, n_kv_heads=None,
-               window=None):
+               window=None, tp=None, head_dim=None):
     """One decoder block over ``x`` (B, T, h) with its K/V written into the
     dense cache at ``pos``.
 
@@ -124,11 +155,14 @@ def _block_fwd(p, x, k_cache, v_cache, pos, n_heads, eps, n_kv_heads=None,
     reference's signature.  Query heads group over the shared K/V head by
     a reshape, never by repeating the cache.  ``window`` masks keys more
     than ``window - 1`` positions behind each query.  Works for prefill
-    (T = prompt length, pos = 0) and decode (T = 1, pos = length)."""
+    (T = prompt length, pos = 0) and decode (T = 1, pos = length).  Under
+    ``tp`` the heads (``n_heads``, ``n_kv_heads`` of ``head_dim``) and the
+    cache are this rank's."""
     b, t, h = x.shape
-    hd = h // n_heads
+    hd = head_dim or h // n_heads
     nkv = n_kv_heads or n_heads
-    q, k_blk, v_blk = _block_qkv(p, x, n_heads, eps, n_kv_heads=n_kv_heads)
+    q, k_blk, v_blk = _block_qkv(p, x, n_heads, eps, n_kv_heads=n_kv_heads,
+                                 head_dim=hd)
     if isinstance(k_cache, tuple):
         # the pool's rules: the dense cache and the pages quantize alike
         quant = (quantize_int4_per_token if k_cache[0].shape[-1] != hd
@@ -156,8 +190,9 @@ def _block_fwd(p, x, k_cache, v_cache, pos, n_heads, eps, n_kv_heads=None,
     scores = torch.where(mask, scores, _NEG_INF)
     att = torch.softmax(scores, dim=-1).to(v_eff.dtype)
     out = torch.einsum("bngts,bnsd->bngtd", att, v_eff)
-    out = out.reshape(b, n_heads, t, hd).transpose(1, 2).reshape(b, t, h)
-    return _block_finish(p, x, out.to(x.dtype), eps), k_cache, v_cache
+    out = out.reshape(b, n_heads, t, hd).transpose(1, 2).reshape(
+        b, t, n_heads * hd)
+    return _block_finish(p, x, out.to(x.dtype), eps, tp), k_cache, v_cache
 
 
 def _resolve_int8(cfg, int8=None) -> bool:
@@ -198,35 +233,43 @@ def _decoder_setup(model, int8=None, attn_window=None):
     eps = cfg.layer_norm_eps
     window = attn_window if attn_window is not None else cfg.attn_window
     int8 = _resolve_int8(cfg, int8)
+    tp = getattr(model, "tp", None)
+    nh, nkv = (cfg.num_heads, cfg.num_kv_heads) if tp is None else tp.heads
     params = {
         "wte": model.wte.detach(), "wpe": model.wpe.detach(),
         "lnf_g": model.lnf_g.detach(), "lnf_b": model.lnf_b.detach(),
-        "blocks": [_block_params(blk, int8=int8) for blk in model.blocks],
+        "blocks": [_block_params(blk, int8=int8, tp=tp)
+                   for blk in model.blocks],
     }
 
     def make_run(p):
         def run(tokens, pos, kc, vc):
             t = tokens.shape[1]
             pe = p["wpe"][pos + torch.arange(t, device=tokens.device)]
-            x = p["wte"][tokens] + pe
+            if tp is None:
+                x = p["wte"][tokens] + pe
+            else:
+                x = tp.embed(p["wte"], tokens) + pe
             for li, bp in enumerate(p["blocks"]):
                 x, _, _ = _block_fwd(bp, x, _layer(kc, li), _layer(vc, li),
-                                     pos, cfg.num_heads, eps,
-                                     n_kv_heads=cfg.num_kv_heads,
-                                     window=window)
-            return _lm_head(p, x, eps), kc, vc
+                                     pos, nh, eps, n_kv_heads=nkv,
+                                     window=window, tp=tp,
+                                     head_dim=cfg.head_dim)
+            return _lm_head(p, x, eps, tp), kc, vc
 
         return run
 
     return params, make_run
 
 
-def _empty_cache(cfg, b, s_max, dtype, device, int8=False, kv_bits=None):
+def _empty_cache(cfg, b, s_max, dtype, device, int8=False, kv_bits=None,
+                 mp=1):
     """Zeroed K and V caches, (L, B, Hkv, S, D) each, in ``dtype``; with a
     quantized width (``kv_bits``, or ``int8``'s int8 default) each side is
     an ``(values, scales)`` pair: int8 (L, B, Hkv, S, D) — or (…, D // 2)
-    packed int4 — and fp32 (L, B, Hkv, S, 1)."""
-    shape = (cfg.num_layers, b, cfg.num_kv_heads, s_max, cfg.head_dim)
+    packed int4 — and fp32 (L, B, Hkv, S, 1).  Over ``mp``
+    tensor-parallel ranks each holds Hkv / mp heads."""
+    shape = (cfg.num_layers, b, cfg.num_kv_heads // mp, s_max, cfg.head_dim)
     kv_bits = _resolve_kv_bits(cfg, int8, kv_bits)
     if kv_bits is not None:
         vd = cfg.head_dim // 2 if kv_bits == 4 else cfg.head_dim
@@ -321,6 +364,7 @@ def build_generate_fn(model, max_new_tokens: int, temperature: float = 1.0,
     sample = _make_sampler(greedy, temperature, top_k, top_p)
     run = make_run(params)
     device = model.device
+    mp = model.tp.n if getattr(model, "tp", None) is not None else 1
 
     @torch.no_grad()
     def gen(ids, seed: int = 0):
@@ -332,7 +376,7 @@ def build_generate_fn(model, max_new_tokens: int, temperature: float = 1.0,
                 f"model's max_seq_len {cfg.max_seq_len}")
         kc, vc = _empty_cache(cfg, b, t0 + max_new_tokens,
                               params["wte"].dtype, device, int8=int8,
-                              kv_bits=kv_bits)
+                              kv_bits=kv_bits, mp=mp)
         generator = torch.Generator(device=device).manual_seed(seed)
         logits, kc, vc = run(ids, 0, kc, vc)
         tok = sample(logits[:, -1], generator)
@@ -423,6 +467,7 @@ def build_beam_search_fn(model, max_new_tokens: int, beam_size: int = 4,
     params, make_run = _decoder_setup(model, int8=int8)
     run = make_run(params)
     device = model.device
+    mp = model.tp.n if getattr(model, "tp", None) is not None else 1
 
     @torch.no_grad()
     def gen(ids):
@@ -432,9 +477,9 @@ def build_beam_search_fn(model, max_new_tokens: int, beam_size: int = 4,
             raise ValueError(
                 f"{t0} prompt + {max_new_tokens} new tokens exceed the "
                 f"model's max_seq_len {cfg.max_seq_len}")
-        V = params["wte"].shape[0]
+        V = cfg.vocab_size
         kc, vc = _empty_cache(cfg, b, t0 + max_new_tokens,
-                              params["wte"].dtype, device, int8=int8)
+                              params["wte"].dtype, device, int8=int8, mp=mp)
         logits, kc, vc = run(ids, 0, kc, vc)
         scores0, tok0 = _top_k(_log_softmax(logits[:, -1]), K)   # (B, K)
         rep = torch.arange(b, device=device).repeat_interleave(K)

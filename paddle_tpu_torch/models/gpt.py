@@ -36,9 +36,14 @@ device the reference runs its blocks as an unrolled loop (its
 ``lax.scan`` over stacked blocks only runs with a pipeline axis), so
 every block draws its own mask, here as there.
 
-The reference's distributed options (a mesh, pipeline stacking, ZeRO
-``sharding_stage``, ``dp_axis``, ``use_parallel``) are not ported: asking
-for them raises NotImplementedError.
+Distributed training runs over the hybrid mesh of
+:mod:`paddle_tpu_torch.distributed.mesh` (``dp x pp x sharding x mp``,
+one process per rank): see :func:`build_functional_train_step`.  A model
+built with ``use_parallel`` under a mesh whose mp degree is above 1 holds
+its rank's tensor-parallel slices (:func:`paddle_tpu_torch.weights.
+tp_index`: heads of the fused QKV, columns of fc1, rows of proj and fc2,
+vocabulary rows of the tied embedding) of the weights the one-device
+model of the same seed holds.
 """
 
 from __future__ import annotations
@@ -49,16 +54,23 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device, resolve_dtype
+from ..distributed import mesh as mesh_mod
+from ..distributed.collective import _c_concat, _c_identity, _gather
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    column_parallel_linear, parallel_cross_entropy, row_parallel_linear,
+    vocab_parallel_embedding)
 from ..framework import random as _random
 from ..kernels.attention import sdpa
 from ..ops.nn_ops import dropout as _dropout
 from ..ops.quant_ops import w8a8_matmul
+from ..weights import tp_shard
 from .generation import _ln
 
 
@@ -97,8 +109,8 @@ class GPTConfig:
     # seq_major: the training forward keeps [S, B, H] activations from the
     # embedding to the logits; attention reads them in place ("sbnd").
     seq_major: bool = False
-    # tensor-parallel layers over a mesh: not ported (the train step
-    # raises NotImplementedError)
+    # use_parallel: tensor-parallel layers over the installed mesh's mp
+    # axis (a model built under mp > 1 holds its rank's slices)
     use_parallel: bool = False
 
     def __post_init__(self):
@@ -200,6 +212,15 @@ class GPTForPretraining(nn.Module):
             for _ in range(cfg.num_layers))
         self.lnf_g = nn.Parameter(torch.ones(h, **kw))
         self.lnf_b = nn.Parameter(torch.zeros(h, **kw))
+        # tensor parallelism: the global weights of this seed, sliced
+        self.tp = None
+        mesh = mesh_mod.get_mesh() if cfg.use_parallel else None
+        if mesh is not None and mesh.shape["mp"] > 1:
+            self.tp = TensorParallel(cfg, mesh)
+            with torch.no_grad():
+                for name, p in self.named_parameters():
+                    p.data = tp_shard(cfg, name, p.data, self.tp.n,
+                                      self.tp.rank).contiguous()
 
     @property
     def device(self) -> torch.device:
@@ -230,11 +251,16 @@ class GPTForPretraining(nn.Module):
         # eager ops draw them (whether or not they drop)
         keys = [_random.next_rng_key() for _ in range(1 + cfg.num_layers)]
         drop = cfg.dropout if self.training else 0.0
+        tp = self.tp
         x = _hidden(cfg, _tree(self.leaves(), cfg), ids, keys=keys,
-                    dropout=drop)
+                    dropout=drop, tp=tp)
+        if tp is not None:
+            x = _c_identity(x, tp.group)
         if cfg.int8 and cfg.int8_lm_head:
-            return w8a8_matmul(x, self.wte, transpose_y=True)
-        return x @ self.wte.t()
+            logits = w8a8_matmul(x, self.wte, transpose_y=True)
+        else:
+            logits = x @ self.wte.t()
+        return logits if tp is None else tp.concat(logits)
 
 
 class GPTPretrainingCriterion(nn.Module):
@@ -266,6 +292,52 @@ class GPTPretrainingCriterion(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+class TensorParallel:
+    """The mesh's mp axis as the GPT's layers use it: rank ``rank`` of
+    ``n`` in ``group``, holding ``heads`` = (query heads, KV heads) of its
+    own.  The layers are the Megatron ones of :mod:`paddle_tpu_torch.
+    distributed.fleet.meta_parallel.mp_layers`: QKV and fc1
+    column-parallel, proj and fc2 row-parallel, the tied embedding and
+    head vocabulary-parallel (the cross-entropy never gathers the
+    logits).  Every head, KV head, vocabulary row and hidden unit of the
+    MLP must split evenly."""
+
+    def __init__(self, cfg: GPTConfig, mesh):
+        self.group = mesh.group("mp")
+        self.n, self.rank = mesh.shape["mp"], mesh.coord["mp"]
+        for what, size in (("num_heads", cfg.num_heads),
+                           ("num_kv_heads", cfg.num_kv_heads),
+                           ("vocab_size", cfg.vocab_size),
+                           ("ffn_hidden", cfg.ffn_hidden)):
+            if size % self.n:
+                raise ValueError(f"tensor parallelism over mp={self.n} needs "
+                                 f"{what} ({size}) to be a multiple of it")
+        self.heads = (cfg.num_heads // self.n, cfg.num_kv_heads // self.n)
+        self.vocab = cfg.vocab_size
+
+    def embed(self, wte, ids):
+        return vocab_parallel_embedding(ids, wte, self.group)
+
+    def col(self, x, w, b, int8):
+        return column_parallel_linear(x, w, b, self.group, int8=int8)
+
+    def row(self, x, w, b, int8):
+        return row_parallel_linear(x, w, b, self.group, int8=int8)
+
+    def concat(self, logits):
+        """Vocabulary-split logits gathered whole (differentiable)."""
+        return _c_concat(logits, self.group)
+
+    def gather(self, logits):
+        """Vocabulary-split logits gathered whole (no gradient)."""
+        return _gather(logits, self.group, -1)
+
+
+# ---------------------------------------------------------------------------
 # the training forward: functions of a parameter tree
 # ---------------------------------------------------------------------------
 
@@ -294,7 +366,7 @@ def _linear(x, w, b, int8):
     return (w8a8_matmul(x, w) if int8 else x @ w) + b
 
 
-def _attention(cfg, p, x, key=None, dropout=0.0):
+def _attention(cfg, p, x, key=None, dropout=0.0, tp=None):
     """The block's attention half over ``x`` [B, S, H] (or [S, B, H] with
     ``seq_major``): Q, K and V are head views of the fused projection
     (a reshape, no transposes), read in place by the flash kernels (bsnd
@@ -302,39 +374,50 @@ def _attention(cfg, p, x, key=None, dropout=0.0):
     transposes to bnsd and, having no bnsd GQA kernel, runs its jnp
     attention.  ``dropout`` > 0 drops attention probabilities with the
     mask of ``key`` (:func:`~paddle_tpu_torch.kernels.attention.
-    sdpa_dropout`)."""
-    hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    sdpa_dropout`).  Under ``tp`` the QKV projection is column-parallel
+    (this rank's heads) and proj row-parallel."""
+    hd = cfg.head_dim
+    nh, nkv = (cfg.num_heads, cfg.num_kv_heads) if tp is None else tp.heads
+    col = _linear if tp is None else tp.col
+    row = _linear if tp is None else tp.row
     d0, d1, _ = x.shape
-    qkv = _linear(x, p["qkv_w"], p["qkv_b"], cfg.int8)
+    qkv = col(x, p["qkv_w"], p["qkv_b"], cfg.int8)
     q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
     out = sdpa(q.reshape(d0, d1, nh, hd), k.reshape(d0, d1, nkv, hd),
                v.reshape(d0, d1, nkv, hd), is_causal=True,
                layout="sbnd" if cfg.seq_major else "bsnd",
                window=cfg.attn_window, dropout_p=dropout, key=key)
-    return _linear(out.reshape(d0, d1, nh * hd), p["proj_w"], p["proj_b"],
-                   cfg.int8)
+    return row(out.reshape(d0, d1, nh * hd), p["proj_w"], p["proj_b"],
+               cfg.int8)
 
 
-def _block(cfg, x, key, dropout, *leaves):
+def _block(cfg, x, key, dropout, tp, *leaves):
     """One pre-LN block over ``x``; ``leaves`` in ``_BLOCK_KEYS`` order,
-    ``key`` the mask key of its attention dropout."""
+    ``key`` the mask key of its attention dropout, ``tp`` the tensor
+    parallelism (None on one rank)."""
     p = dict(zip(_BLOCK_KEYS, leaves))
     eps = cfg.layer_norm_eps
     x = x + _attention(cfg, p, _ln32(x, p["ln1_g"], p["ln1_b"], eps),
-                       key=key, dropout=dropout)
+                       key=key, dropout=dropout, tp=tp)
     h = _ln32(x, p["ln2_g"], p["ln2_b"], eps)
-    h = F.gelu(_linear(h, p["fc1_w"], p["fc1_b"], cfg.int8),
-               approximate="none")
-    return x + _linear(h, p["fc2_w"], p["fc2_b"], cfg.int8)
+    col = _linear if tp is None else tp.col
+    row = _linear if tp is None else tp.row
+    h = F.gelu(col(h, p["fc1_w"], p["fc1_b"], cfg.int8), approximate="none")
+    return x + row(h, p["fc2_w"], p["fc2_b"], cfg.int8)
 
 
-def _embed(cfg, wte, wpe, ids):
+def _embed(cfg, wte, wpe, ids, tp=None):
     """Word plus position embeddings; with ``seq_major`` only the ids are
-    transposed, and the activations are [S, B, H] from here on."""
+    transposed, and the activations are [S, B, H] from here on.  Under
+    ``tp`` the word embedding is vocabulary-parallel."""
     pe = wpe[:ids.shape[1]]
+    if tp is None:
+        if cfg.seq_major:
+            return wte[ids.t()] + pe[:, None]
+        return wte[ids] + pe
     if cfg.seq_major:
-        return wte[ids.t()] + pe[:, None]
-    return wte[ids] + pe
+        return tp.embed(wte, ids.t()) + pe[:, None]
+    return tp.embed(wte, ids) + pe
 
 
 _MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
@@ -362,8 +445,24 @@ def _remat(fn, remat):
     return fn
 
 
+def _run_blocks(cfg, x, blocks, keys, dropout, remat, cast, tp=None,
+                uses=None):
+    """``x`` through ``blocks`` (lists of 12 leaves), block ``i`` with
+    dropout key ``keys[i]``.  ``uses`` (ZeRO stage 3: one function per
+    leaf of a block, gathering its shard whole) and ``cast`` apply at
+    each leaf's use, inside the checkpointed region, so a recomputed
+    block gathers and casts again."""
+    uses = uses or [lambda a: a] * len(_BLOCK_KEYS)
+    block = _remat(lambda h, key, *ls: _block(
+        cfg, h, key, dropout, tp, *[cast(u(a)) for u, a in zip(uses, ls)]),
+        remat)
+    for key, leaves in zip(keys, blocks):
+        x = block(x, key, *leaves)
+    return x
+
+
 def _hidden(cfg, tree, ids, remat=False, cast=None, keys=None,
-            dropout=0.0):
+            dropout=0.0, tp=None):
     """Final-LayerNorm hidden states of ``ids`` (B, S): [B, S, H], or
     [S, B, H] with ``seq_major``.  ``cast`` (default identity) applies to
     each parameter at its use, inside the checkpointed region.
@@ -373,12 +472,10 @@ def _hidden(cfg, tree, ids, remat=False, cast=None, keys=None,
     block draws its forward's mask."""
     cast = cast or (lambda a: a)
     keys = keys or [None] * (1 + cfg.num_layers)
-    x = _embed(cfg, cast(tree["wte"]), cast(tree["wpe"]), ids)
+    x = _embed(cfg, cast(tree["wte"]), cast(tree["wpe"]), ids, tp)
     x = _dropout(x, dropout, keys[0])
-    block = _remat(lambda h, key, *ls: _block(cfg, h, key, dropout,
-                                              *map(cast, ls)), remat)
-    for key, leaves in zip(keys[1:], tree["blocks"]):
-        x = block(x, key, *leaves)
+    x = _run_blocks(cfg, x, tree["blocks"], keys[1:], dropout, remat, cast,
+                    tp)
     return _ln32(x, cast(tree["lnf_g"]), cast(tree["lnf_b"]),
                  cfg.layer_norm_eps)
 
@@ -393,28 +490,104 @@ def _xent_chunk(xc, w32, lc):
     return (lse - picked).sum()
 
 
-def _chunked_softmax_xent(x2, w, labels1, chunk_rows=1024):
+def _parallel_xent_chunk(xc, w32, lc, group):
+    """:func:`_xent_chunk` over a vocabulary-parallel head: this rank's
+    logits, the cross-entropy by all-reduces (never gathered)."""
+    return parallel_cross_entropy(xc.float() @ w32.t(), lc, group).sum()
+
+
+def _chunked_softmax_xent(x2, w, labels1, chunk_rows=1024, tp=None):
     """Mean cross-entropy of ``x2`` (N, H) against the tied head ``w``
     (V, H) without a (N, V) tensor: chunks of ``chunk_rows`` rows (halved
     until they divide N), each under ``torch.utils.checkpoint`` so its
-    (chunk, V) fp32 logits are recomputed in the backward, not kept."""
+    (chunk, V) fp32 logits are recomputed in the backward, not kept.
+    Under ``tp`` ``w`` is this rank's vocabulary rows."""
     n = x2.shape[0]
     c = min(chunk_rows, n)
     while n % c:
         c //= 2
     w32 = w.float()
-    labels1 = labels1.clamp(0, w.shape[0] - 1)
+    vocab = w.shape[0] if tp is None else tp.vocab
+    labels1 = labels1.clamp(0, vocab - 1)
+    if tp is not None:
+        x2 = _c_identity(x2, tp.group)
     tot = torch.zeros((), dtype=torch.float32, device=x2.device)
     for i in range(0, n, c):
-        tot = tot + checkpoint(_xent_chunk, x2[i:i + c], w32,
-                               labels1[i:i + c], use_reentrant=False)
+        if tp is None:
+            part = checkpoint(_xent_chunk, x2[i:i + c], w32,
+                              labels1[i:i + c], use_reentrant=False)
+        else:
+            part = checkpoint(_parallel_xent_chunk, x2[i:i + c], w32,
+                              labels1[i:i + c], tp.group,
+                              use_reentrant=False)
+        tot = tot + part
     return tot / n
+
+
+def _loss(cfg, x, w, labels, ce_chunk_rows, tp=None):
+    """Mean cross-entropy of final hidden states ``x`` against ``labels``
+    (B, S) through the tied head ``w``: chunked (``ce_chunk_rows`` > 0) or
+    over dense logits."""
+    if cfg.seq_major:
+        labels = labels.t()          # the logits' [S, B] order
+    d0, d1, h = x.shape
+    if ce_chunk_rows:
+        return _chunked_softmax_xent(x.reshape(d0 * d1, h), w,
+                                     labels.reshape(d0 * d1),
+                                     chunk_rows=ce_chunk_rows, tp=tp)
+    if tp is not None:
+        x = _c_identity(x, tp.group)
+        logits = (x @ w.t()).float()
+        lab = labels.clamp(0, tp.vocab - 1)
+        return parallel_cross_entropy(logits, lab, tp.group).mean()
+    logits = (x @ w.t()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp(0, w.shape[0] - 1)[..., None])
+    return (lse - picked[..., 0]).mean()
 
 
 def _dtype(name):
     if name is None or isinstance(name, torch.dtype):
         return name
     return getattr(torch, str(name))
+
+
+def _adamw(w32, grads, m, v, t, lr, beta1, beta2, eps, wd):
+    """The reference's AdamW on ``_foreach`` lists, in its order: the
+    moments ``m`` and ``v`` updated in place, the bias corrections in
+    fp32 as its traced counter, ``upd = m_hat / (sqrt(v_hat) + eps) + wd
+    * w32``; returns the new fp32 weights ``w32 - lr * upd``."""
+    b1t = float(np.float32(1.0) - np.float32(beta1) ** np.float32(t))
+    b2t = float(np.float32(1.0) - np.float32(beta2) ** np.float32(t))
+    torch._foreach_mul_(m, beta1)
+    torch._foreach_add_(m, torch._foreach_mul(grads, 1 - beta1))
+    torch._foreach_mul_(v, beta2)
+    torch._foreach_add_(v, torch._foreach_mul(
+        torch._foreach_mul(grads, grads), 1 - beta2))
+    den = torch._foreach_sqrt(torch._foreach_div(v, b2t))
+    torch._foreach_add_(den, eps)
+    upd = torch._foreach_div(torch._foreach_div(m, b1t), den)
+    torch._foreach_add_(upd, torch._foreach_mul(w32, wd))
+    return torch._foreach_sub(w32, torch._foreach_mul(upd, lr))
+
+
+def _sharding_stage(sharding_stage, shd):
+    """The ZeRO stage the reference takes: the caller's, else the fleet
+    strategy's ``sharding_configs["stage"]``, else 2 when the sharding
+    axis is above 1; 0 whenever it is not."""
+    if sharding_stage is None:
+        from ..distributed import fleet
+
+        strat = fleet._fleet_state.get("strategy")
+        if strat is not None and shd > 1:
+            sharding_stage = int(strat.sharding_configs.get("stage", 2))
+        else:
+            sharding_stage = 2 if shd > 1 else 0
+    if shd <= 1:
+        return 0
+    if sharding_stage not in (0, 1, 2, 3):
+        raise ValueError(f"sharding_stage must be 0-3, got {sharding_stage}")
+    return sharding_stage
 
 
 def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
@@ -447,23 +620,46 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
     when the step is built) folded with ``opt_state["t"]``, and the
     sites' keys split off it in the reference's order.
 
-    ``mesh``, ``dp_axis``, ``sharding_stage`` > 0 and ``cfg.use_parallel``
-    raise NotImplementedError."""
+    **Distributed.**  With a hybrid mesh (``mesh``, else the one
+    installed by ``fleet.init`` / ``build_hybrid_mesh``) the step is one
+    rank's part of the step over ``dp x pp x sharding x mp``, and
+    computes the function of the one-device step on the global batch:
+    see :func:`_distributed_step`.  ``dp_axis`` (None means "dp", the
+    reference's default; no other axis is taken) and ``sharding_stage``
+    (None: the reference's choice, :func:`_sharding_stage`) apply there.
+    Asking for a mesh, ``dp_axis``, a ZeRO stage or a ``use_parallel``
+    model without an initialised process group raises RuntimeError: the
+    step never runs them quietly on one device."""
     cfg = model.cfg
-    if mesh is not None or dp_axis is not None or sharding_stage:
-        raise NotImplementedError("the distributed options of the train "
-                                  "step (mesh, dp_axis, sharding_stage) are "
-                                  "not ported")
-    if cfg.use_parallel:
-        raise NotImplementedError("tensor-parallel GPT (use_parallel) is "
-                                  "not ported")
     if remat != "dots" and not isinstance(remat, bool):
         raise ValueError(f"remat must be True, False, or 'dots'; got "
                          f"{remat!r}")
+    asked = [name for name, on in (("mesh", mesh is not None),
+                                   ("dp_axis", dp_axis is not None),
+                                   ("sharding_stage", bool(sharding_stage)),
+                                   ("use_parallel", cfg.use_parallel)) if on]
+    if asked and not dist.is_initialized():
+        raise RuntimeError(
+            f"{', '.join(asked)}: the distributed train step needs an "
+            "initialised process group (init_parallel_env / fleet.init); "
+            "it does not run distributed options on one device")
+    if dp_axis not in (None, "dp"):
+        raise ValueError(f"dp_axis must be 'dp' (the batch splits over the "
+                         f"mesh's dp and sharding axes), got {dp_axis!r}")
+    if mesh is None:
+        mesh = mesh_mod.get_mesh()
+        if mesh is None and asked:
+            mesh = mesh_mod.ensure_default_mesh()
     cd = _dtype(compute_dtype)
 
     def cast(a):
         return a.to(cd) if cd is not None and a.dtype != cd else a
+
+    opts = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps, wd=wd)
+    if mesh is not None:
+        stage = _sharding_stage(sharding_stage, mesh.shape["sharding"])
+        return _distributed_step(model, mesh, stage, remat, ce_chunk_rows,
+                                 cast, opts)
 
     params = [p.detach() for p in model.leaves()]
     opt_state = {"m": [torch.zeros_like(p, dtype=torch.float32)
@@ -477,22 +673,6 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
     # drawn from the LIVE seed chain, so seed() decides the step's masks
     base_key = _random.next_rng_key()
 
-    def loss_fn(leaves, ids, labels, keys, drop):
-        x = _hidden(cfg, _tree(leaves, cfg), ids, remat=remat, cast=cast,
-                    keys=keys, dropout=drop)
-        w = cast(leaves[0])
-        if cfg.seq_major:
-            labels = labels.t()          # the logits' [S, B] order
-        d0, d1, h = x.shape
-        if ce_chunk_rows:
-            return _chunked_softmax_xent(x.reshape(d0 * d1, h), w,
-                                         labels.reshape(d0 * d1),
-                                         chunk_rows=ce_chunk_rows)
-        logits = (x @ w.t()).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, labels.clamp(0, w.shape[0] - 1)[..., None])
-        return (lse - picked[..., 0]).mean()
-
     def step(params, opt_state, ids, labels):
         ids = torch.as_tensor(ids, device=device).long()
         labels = torch.as_tensor(labels, device=device).long()
@@ -504,28 +684,340 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
             keys = [_random.next_rng_key()
                     for _ in range(1 + cfg.num_layers)]
         drop = cfg.dropout if model.training else 0.0
-        loss = loss_fn(leaves, ids, labels, keys, drop)
+        x = _hidden(cfg, _tree(leaves, cfg), ids, remat=remat, cast=cast,
+                    keys=keys, dropout=drop)
+        loss = _loss(cfg, x, cast(leaves[0]), labels, ce_chunk_rows)
         grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
         t = opt_state["t"] + 1
-        # the bias corrections in fp32, as the reference's traced counter
-        b1t = float(np.float32(1.0) - np.float32(beta1) ** np.float32(t))
-        b2t = float(np.float32(1.0) - np.float32(beta2) ** np.float32(t))
-        m, v = opt_state["m"], opt_state["v"]
         w32 = opt_state.get("master", params)
-        torch._foreach_mul_(m, beta1)
-        torch._foreach_add_(m, torch._foreach_mul(grads, 1 - beta1))
-        torch._foreach_mul_(v, beta2)
-        torch._foreach_add_(v, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - beta2))
-        den = torch._foreach_sqrt(torch._foreach_div(v, b2t))
-        torch._foreach_add_(den, eps)
-        upd = torch._foreach_div(torch._foreach_div(m, b1t), den)
-        torch._foreach_add_(upd, torch._foreach_mul(w32, wd))
-        new = torch._foreach_sub(w32, torch._foreach_mul(upd, lr))
+        new = _adamw(w32, grads, opt_state["m"], opt_state["v"], t, **opts)
         if "master" in opt_state:
             opt_state["master"] = new
         torch._foreach_copy_(params, new)
         opt_state["t"] = t
         return params, opt_state, loss.detach()
 
+    return step, params, opt_state
+
+
+# ---------------------------------------------------------------------------
+# the distributed step: dp x pp x sharding x mp
+# ---------------------------------------------------------------------------
+
+
+class _Flat:
+    """ZeRO's partition of one leaf over the ``n`` ranks of the sharding
+    axis: flattened, zero-padded to a multiple of ``n``, rank ``r`` holding
+    the ``r``-th of ``n`` equal chunks.  (The reference puts the axis on
+    the leaf's first free divisible dim; AdamW is elementwise, so any
+    partition gives the same update, and a flat one divides every leaf.)"""
+
+    def __init__(self, shape, n, r):
+        self.shape = tuple(shape)
+        self.numel = int(np.prod(self.shape, dtype=np.int64))
+        self.n, self.r = n, r
+        self.chunk = -(-self.numel // n)
+
+    def padded(self, t):
+        """``t`` flattened and zero-padded to ``n * chunk``."""
+        flat = t.reshape(-1)
+        pad = self.n * self.chunk - self.numel
+        return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+    def shard(self, t):
+        """This rank's chunk of ``t``, a new tensor."""
+        return self.padded(t)[self.r * self.chunk:
+                              (self.r + 1) * self.chunk].clone()
+
+    def whole(self, chunks):
+        """The leaf from all ranks' chunks, ``(n, chunk)``."""
+        return chunks.reshape(-1)[:self.numel].view(self.shape)
+
+
+def _coalesced(tensors, fn):
+    """``fn`` on one flat buffer of ``tensors`` (one collective for the
+    lot), copied back into them."""
+    if not tensors:
+        return
+    buf = torch.cat([t.reshape(-1) for t in tensors])
+    fn(buf)
+    torch._foreach_copy_(tensors, [c.view_as(t) for c, t in zip(
+        torch.split(buf, [t.numel() for t in tensors]), tensors)])
+
+
+def _all_gather_flat(shards, flats, group, out_dtype):
+    """Whole leaves from each rank's ``shards`` (one all-gather)."""
+    buf = torch.cat([s.to(out_dtype).reshape(-1) for s in shards])
+    out = buf.new_empty(flats[0].n * buf.numel())
+    dist.all_gather_into_tensor(out, buf, group=group)
+    out = out.view(flats[0].n, buf.numel())
+    whole, off = [], 0
+    for f in flats:
+        whole.append(f.whole(out[:, off:off + f.chunk]))
+        off += f.chunk
+    return whole
+
+
+def _reduce_scatter_flat(grads, flats, group):
+    """Each leaf's gradient summed over the group, this rank's chunk of
+    it kept (one reduce-scatter)."""
+    n = flats[0].n
+    buf = torch.cat([f.padded(g).view(n, f.chunk)
+                     for f, g in zip(flats, grads)], dim=1).reshape(-1)
+    out = buf.new_empty(buf.numel() // n)
+    dist.reduce_scatter_tensor(out, buf, group=group)
+    return list(torch.split(out, [f.chunk for f in flats]))
+
+
+class _GatherShard(torch.autograd.Function):
+    """ZeRO stage 3: a leaf's chunk gathered whole at its use; the
+    gradient of the whole leaf is summed over the sharding ranks and
+    each keeps its chunk."""
+
+    @staticmethod
+    def forward(ctx, shard, flat, group):
+        ctx.flat, ctx.group = flat, group
+        out = shard.new_empty(flat.n * flat.chunk)
+        dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
+        return flat.whole(out.view(flat.n, flat.chunk)).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        f = ctx.flat
+        out = g.new_empty(f.chunk)
+        dist.reduce_scatter_tensor(out, f.padded(g.contiguous()),
+                                   group=ctx.group)
+        return out, None, None
+
+
+class _SendAct(torch.autograd.Function):
+    """Pipeline: the stage's output activation sent to the next stage;
+    returns a scalar to differentiate from, whose backward receives the
+    activation's gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, peer, group):
+        ctx.peer, ctx.group = peer, group
+        ctx.like = (x.shape, x.dtype, x.device)
+        dist.send(x.detach().contiguous(), dst=peer, group=group)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.like
+        gx = torch.empty(shape, dtype=dtype, device=device)
+        dist.recv(gx, src=ctx.peer, group=ctx.group)
+        return gx, None, None
+
+
+class _RecvAct(torch.autograd.Function):
+    """Pipeline: the previous stage's activation received; its gradient
+    goes back there.  ``anchor`` (a scalar requiring grad) ties the
+    received tensor into the graph."""
+
+    @staticmethod
+    def forward(ctx, anchor, shape, dtype, peer, group):
+        ctx.peer, ctx.group = peer, group
+        x = torch.empty(shape, dtype=dtype, device=anchor.device)
+        dist.recv(x, src=peer, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        dist.send(g.contiguous(), dst=ctx.peer, group=ctx.group)
+        return torch.zeros((), device=g.device), None, None, None, None
+
+
+def _step_keys(cfg, base_key, t, homogeneous):
+    """The step's dropout keys: the embedding's, then one per block; under
+    a pipeline axis every block shares one key, as the reference's
+    scanned block body draws one for all layers."""
+    with _random.trace_rng_scope(_random.fold_in(base_key, t)):
+        if homogeneous:
+            emb, blk = _random.next_rng_key(), _random.next_rng_key()
+            return [emb] + [blk] * cfg.num_layers
+        return [_random.next_rng_key() for _ in range(1 + cfg.num_layers)]
+
+
+def _distributed_step(model, mesh, stage, remat, ce_chunk_rows, cast, opts):
+    """One rank's train step over the hybrid mesh (ZeRO stage ``stage``).
+
+    * mp: a ``use_parallel`` model holds this rank's tensor-parallel
+      slices (:class:`TensorParallel`); mp = 1 runs the one-device layers.
+    * dp x sharding: ``ids`` / ``labels`` are this rank's rows of the
+      global batch (:func:`~paddle_tpu_torch.distributed.mesh.
+      shard_batch`); gradients are averaged over that group and the
+      returned loss is the global batch's mean on every rank.
+    * ZeRO (over the sharding axis, each leaf split by :class:`_Flat`):
+      stage 1 holds ``m``, ``v`` and the fp32 masters 1/N, updates its
+      chunk of every leaf and all-gathers the new weights; stage 2 also
+      reduce-scatters the gradients instead of all-reducing them; stage 3
+      holds the parameters 1/N too and gathers each whole at its use
+      (:class:`_GatherShard`, again inside a checkpointed block's
+      recompute).
+    * pp: this rank holds its stage's blocks (``num_layers / pp`` of
+      them) and the other leaves (embeddings, final LayerNorm), which stay
+      whole on every stage and whose gradients are summed over pp; the
+      activation goes forward and its gradient comes back by send / recv
+      inside autograd Functions, and the last stage's loss is broadcast.
+      One dropout key serves every block of a step, as in the reference's
+      scan over stacked blocks.
+
+    ``params`` are this rank's leaves: wte, wpe, its stage's blocks,
+    lnf_g, lnf_b (the model's own tensors, updated in place; their ZeRO
+    chunks under stage 3).  ``step.names`` names them (port names);
+    ``step.unshard(params)`` (every rank calls it) gives them whole."""
+    cfg = model.cfg
+    tp = model.tp
+    mp = mesh.shape["mp"]
+    if mp > 1 and (tp is None or tp.n != mp):
+        raise ValueError(f"the mesh has mp={mp}: the model must be built "
+                         "with use_parallel=True under that mesh")
+    if mp == 1 and tp is not None:
+        raise ValueError("a tensor-parallel model needs the mesh it was "
+                         "built under")
+    pp, pstage = mesh.shape["pp"], mesh.coord["pp"]
+    if cfg.num_layers % pp:
+        raise ValueError(f"num_layers {cfg.num_layers} does not split over "
+                         f"pp={pp} stages")
+    per = cfg.num_layers // pp
+    first = pstage * per
+    homogeneous = pp > 1 and cfg.num_layers > 1
+    tree = _tree(model.leaves(), cfg)
+    held = [tree["wte"], tree["wpe"],
+            *[p for blk in tree["blocks"][first:first + per] for p in blk],
+            tree["lnf_g"], tree["lnf_b"]]
+    names = ["wte", "wpe", *[f"blocks.{first + i}.{k}" for i in range(per)
+                             for k in _BLOCK_KEYS], "lnf_g", "lnf_b"]
+    held = [p.detach() for p in held]
+    nonblock = [0, 1, len(held) - 2, len(held) - 1]
+    device = model.device
+    data = mesh.group(("dp", "sharding"))
+    n_data = mesh.degree(("dp", "sharding"))
+    sgroup, sd = mesh.group("sharding"), mesh.shape["sharding"]
+    flats = [_Flat(p.shape, sd, mesh.coord["sharding"]) for p in held]
+    nkey = len(_BLOCK_KEYS)
+
+    if stage >= 3:
+        params = [f.shard(p) for f, p in zip(flats, held)]
+    else:
+        params = held
+
+    def zeros():
+        """fp32 moments: a chunk of each leaf from stage 1, else whole."""
+        if stage >= 1:
+            return [torch.zeros(f.chunk, device=device) for f in flats]
+        return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+
+    opt_state = {"m": zeros(), "v": zeros(), "t": 0}
+    if any(p.dtype != torch.float32 for p in params):
+        opt_state["master"] = [f.shard(p.float()) if stage in (1, 2)
+                               else p.float().clone()
+                               for f, p in zip(flats, params)]
+    base_key = _random.next_rng_key()
+    pgroup = mesh.group("pp")
+    prev = mesh.rank_of(**{**mesh.coord, "pp": pstage - 1})
+    nxt = mesh.rank_of(**{**mesh.coord, "pp": pstage + 1})
+    last = mesh.rank_of(**{**mesh.coord, "pp": pp - 1})
+    bdim = 1 if cfg.seq_major else 0
+    batch_part = (mesh.index(("dp", "sharding")), n_data)
+
+    def sharded(key, heads):
+        """The site's key as this rank's part of the global mask."""
+        parts = {}
+        if n_data > 1:
+            parts[bdim if not heads else 0] = batch_part
+        if heads and mp > 1:
+            parts[1] = (tp.rank, mp)
+        return _random.ShardedKey(key, parts) if parts else key
+
+    def use(i):
+        """Leaf ``i`` whole at its use (ZeRO stage 3 gathers it)."""
+        if stage < 3:
+            return lambda a: a
+        return lambda a, f=flats[i]: _GatherShard.apply(a, f, sgroup)
+
+    block_uses = [use(2 + j) for j in range(nkey)]
+
+    def forward(leaves, ids, labels, keys, drop):
+        """This stage's part: (the scalar to differentiate, the loss or
+        None, the anchor of a received activation or None)."""
+        wte, wpe, lnf_g, lnf_b = (use(i)(leaves[i]) for i in nonblock)
+        blocks = [leaves[2 + b * nkey:2 + (b + 1) * nkey]
+                  for b in range(per)]
+        anchor = None
+        if pstage == 0:
+            x = _embed(cfg, cast(wte), cast(wpe), ids, tp)
+            x = _dropout(x, drop, sharded(keys[0], False))
+        else:
+            b, s = ids.shape
+            shape = ((s, b) if cfg.seq_major else (b, s)) + (
+                cfg.hidden_size,)
+            anchor = torch.zeros((), device=device, requires_grad=True)
+            x = _RecvAct.apply(anchor, shape, cast(wte).dtype, prev, pgroup)
+        bkeys = [sharded(k, True) for k in keys[1 + first:1 + first + per]]
+        x = _run_blocks(cfg, x, blocks, bkeys, drop, remat, cast, tp,
+                        block_uses)
+        if pstage < pp - 1:
+            return _SendAct.apply(x, nxt, pgroup), None, anchor
+        x = _ln32(x, cast(lnf_g), cast(lnf_b), cfg.layer_norm_eps)
+        loss = _loss(cfg, x, cast(wte), labels, ce_chunk_rows, tp)
+        return loss, loss, anchor
+
+    def step(params, opt_state, ids, labels):
+        ids = torch.as_tensor(ids, device=device).long()
+        labels = torch.as_tensor(labels, device=device).long()
+        leaves = [p.detach().requires_grad_() for p in params]
+        keys = _step_keys(cfg, base_key, opt_state["t"], homogeneous)
+        drop = cfg.dropout if model.training else 0.0
+        out, loss, anchor = forward(leaves, ids, labels, keys, drop)
+        inputs = leaves + ([anchor] if anchor is not None else [])
+        grads = torch.autograd.grad(out, inputs, allow_unused=True)
+        grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
+                 else g.float() for g, p in zip(grads, leaves)]
+        if pp > 1:
+            _coalesced([grads[i] for i in nonblock],
+                       lambda b: dist.all_reduce(b, group=pgroup))
+        if stage == 2:
+            grads = _reduce_scatter_flat(grads, flats, sgroup)
+        reduce_over = data if stage < 2 else mesh.group("dp")
+        _coalesced(grads, lambda b: dist.all_reduce(b, group=reduce_over))
+        torch._foreach_div_(grads, float(n_data))
+        if stage == 1:
+            grads = [f.shard(g) for f, g in zip(flats, grads)]
+
+        t = opt_state["t"] + 1
+        if stage in (1, 2):
+            w32 = opt_state.get("master") or [f.shard(p)
+                                              for f, p in zip(flats, params)]
+        else:
+            w32 = opt_state.get("master", params)
+        new = _adamw(w32, grads, opt_state["m"], opt_state["v"], t, **opts)
+        if "master" in opt_state:
+            opt_state["master"] = new
+        if stage in (1, 2):
+            new = _all_gather_flat(new, flats, sgroup, params[0].dtype)
+        torch._foreach_copy_(params, new)
+        opt_state["t"] = t
+
+        # the global batch's mean loss, on every rank
+        if loss is None:
+            loss = torch.zeros((), device=device)
+        else:
+            loss = loss.detach().float().clone()
+            dist.all_reduce(loss, group=data)
+            loss = loss / n_data
+        if pp > 1:
+            dist.broadcast(loss, src=last, group=pgroup)
+        return params, opt_state, loss
+
+    def unshard(params):
+        """This rank's leaves whole (every rank of the group calls it)."""
+        if stage < 3:
+            return list(params)
+        return _all_gather_flat(params, flats, sgroup, params[0].dtype)
+
+    step.names = names
+    step.unshard = unshard
+    step.stage = stage
     return step, params, opt_state

@@ -8,7 +8,7 @@
   values are multiplied by ``1 / (1 - p)`` rounded to x's dtype (0 when
   p >= 1) and the dropped ones are 0.
 
-The uniforms come from :func:`paddle_tpu_torch.framework.random.uniform`
+The uniforms come from :func:`paddle_tpu_torch.framework.random.draw`
 of the caller's key: the same key draws the same mask.
 """
 
@@ -27,7 +27,7 @@ def dropout(x, p: float, key: Optional[int], training: bool = True):
     (``upscale_in_train``)."""
     if p == 0.0 or not training:
         return x
-    keep = _random.uniform(key, x.shape, x.device) < np.float32(1.0 - p)
+    keep = _random.draw(key, x.shape, x.device) < np.float32(1.0 - p)
     scale = 0.0 if p >= 1.0 else 1.0 / (1.0 - p)
     scale = torch.tensor(scale, dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros_like(x))

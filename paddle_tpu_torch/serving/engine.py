@@ -270,6 +270,11 @@ class ServingEngine:
                  attn_window: Optional[int] = None,
                  role: str = "both", double_buffer: bool = False):
         cfg = model.cfg
+        if getattr(model, "tp", None) is not None:
+            # the reference's engine has no tensor parallelism either
+            raise ValueError("the serving engine takes a whole model; a "
+                             "tensor-parallel model decodes through "
+                             "build_generate_fn / build_beam_search_fn")
         self.cfg = cfg
         self.device = resolve_device(device)
         if model.device != self.device:

@@ -19,6 +19,18 @@ quantize the int8 weights from these float weights at setup
 never loaded; the port keeps its int8 weights transposed, (N, K), for the
 tensor-core kernel.
 
+Tensor parallelism (``GPTConfig.use_parallel`` under a mesh with mp >
+1) keeps rank r's slice of each split parameter (:func:`tp_index`): the
+vocabulary rows of ``wte``; the columns of ``qkv`` BY HEAD (its q heads,
+then its k heads, then its v heads: GSPMD splits the fused columns
+contiguously, which would hand a rank other heads' columns) and of
+``fc1``; the rows of ``proj`` and ``fc2``.  The rest is whole on every
+rank.  :func:`load_jax_named_params` and :func:`load_jax_params` slice
+global weights for a tensor-parallel model; :func:`rank_shards` gives a
+rank of any ``(dp, pp, sharding, mp)`` topology its shards (its pipeline
+stage's blocks) and :func:`gather_shards` puts ranks' shards back
+together.
+
 Training compares by the JAX model's named parameters instead
 (``gpt.embeddings.word_embeddings.weight``, ``gpt.blocks.{i}.attn.qkv.
 weight``, ...): their order, ``model.parameters()``, is the order of the
@@ -84,13 +96,128 @@ def port_name(jax_name: str) -> str:
     return f"blocks.{idx}.{_JAX_BLOCK[key]}"
 
 
+def tp_index(cfg, name: str, mp: int, rank: int):
+    """``(dim, indices)``: where port parameter ``name`` is split over
+    ``mp`` tensor-parallel ranks and which of its indices rank ``rank``
+    holds (numpy int64); None for a parameter every rank holds whole."""
+    key = name.rsplit(".", 1)[-1]
+    hd = cfg.head_dim
+    if key == "qkv_w" or key == "qkv_b":
+        nh, nkv = cfg.num_heads // mp, cfg.num_kv_heads // mp
+        q0 = rank * nh * hd
+        k0 = cfg.num_heads * hd + rank * nkv * hd
+        v0 = k0 + cfg.num_kv_heads * hd
+        idx = np.concatenate([np.arange(q0, q0 + nh * hd),
+                              np.arange(k0, k0 + nkv * hd),
+                              np.arange(v0, v0 + nkv * hd)])
+        return (1 if key == "qkv_w" else 0), idx
+    split = {"wte": (0, cfg.vocab_size), "proj_w": (0, cfg.hidden_size),
+             "fc1_w": (1, cfg.ffn_hidden), "fc1_b": (0, cfg.ffn_hidden),
+             "fc2_w": (0, cfg.ffn_hidden)}.get(key)
+    if split is None:
+        return None
+    dim, n = split
+    per = n // mp
+    return dim, np.arange(rank * per, (rank + 1) * per)
+
+
+def _tp_length(cfg, key):
+    """The global length of split parameter ``key`` along its split dim."""
+    if key in ("qkv_w", "qkv_b"):
+        return (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    return {"wte": cfg.vocab_size, "proj_w": cfg.hidden_size}.get(
+        key, cfg.ffn_hidden)
+
+
+def tp_shard(cfg, name, a, mp, rank):
+    """Rank ``rank``'s slice of the global parameter ``a`` (numpy or
+    torch) named ``name``; a global shape other than ``cfg``'s raises
+    ValueError."""
+    where = tp_index(cfg, name, mp, rank) if mp > 1 else None
+    if where is None:
+        return a
+    dim, idx = where
+    length = _tp_length(cfg, name.rsplit(".", 1)[-1])
+    if a.shape[dim] != length:
+        raise ValueError(f"{name}: global size {a.shape[dim]} along dim "
+                         f"{dim}, the config's is {length}")
+    if isinstance(a, torch.Tensor):
+        return a.index_select(dim, torch.as_tensor(idx, device=a.device))
+    return np.take(a, idx, axis=dim)
+
+
+def _load(model, state):
+    """``state`` (global port-named tensors) into ``model``, sliced to the
+    model's tensor-parallel rank when it has one."""
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        state = {k: tp_shard(model.cfg, k, v, tp.n, tp.rank)
+                 for k, v in state.items()}
+    model.load_state_dict(state, strict=True)
+
+
 def load_jax_named_params(model, named) -> None:
     """Copy ``(name, array)`` pairs of the JAX model's
-    ``named_parameters()`` (arrays as numpy) into ``model``, casting to its
-    dtype and device.  Every parameter must be given, shapes exactly."""
-    state = {port_name(n): torch.from_numpy(np.array(a, dtype=np.float32))
-             for n, a in named}
-    model.load_state_dict(state, strict=True)
+    ``named_parameters()`` (arrays as numpy, global) into ``model``,
+    casting to its dtype and device; a tensor-parallel model takes its
+    rank's slices.  Every parameter must be given, shapes exactly."""
+    _load(model, {port_name(n): torch.from_numpy(np.array(a, np.float32))
+                  for n, a in named})
+
+
+def _stage_of(name, cfg, pp):
+    """The pipeline stage holding ``name`` (None: every stage)."""
+    if not name.startswith("blocks."):
+        return None
+    return int(name.split(".")[1]) // (cfg.num_layers // pp)
+
+
+def rank_shards(named, cfg, coord, dims) -> Dict[str, np.ndarray]:
+    """The shards one rank holds, as port-named numpy arrays: ``named`` is
+    the reference's global ``(name, array)`` pairs, ``coord`` the rank's
+    ``{"dp", "pp", "sharding", "mp"}`` indices and ``dims`` the degrees.
+    The rank holds the blocks of its pipeline stage and the other leaves,
+    each its tensor-parallel slice (dp and sharding ranks hold the
+    same)."""
+    mp, pp = dims.get("mp", 1), dims.get("pp", 1)
+    out = {}
+    for n, a in named:
+        name = port_name(n)
+        stage = _stage_of(name, cfg, pp)
+        if stage is None or stage == coord.get("pp", 0):
+            out[name] = tp_shard(cfg, name, np.asarray(a, np.float32), mp,
+                                 coord.get("mp", 0))
+    return out
+
+
+def gather_shards(ranks, cfg, dims) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`rank_shards`: ``ranks`` is ``(coord, shards)``
+    pairs covering every pipeline stage and tensor-parallel rank (more
+    dp / sharding replicas may come; the first of each is taken);
+    returns the global port-named arrays."""
+    mp = dims.get("mp", 1)
+    pieces = {}
+    for coord, shards in ranks:
+        for name, a in shards.items():
+            pieces.setdefault(name, {}).setdefault(coord.get("mp", 0),
+                                                   np.asarray(a))
+    out = {}
+    for name, by_rank in pieces.items():
+        where = tp_index(cfg, name, mp, 0) if mp > 1 else None
+        if where is None:
+            out[name] = by_rank[0]
+            continue
+        dim = where[0]
+        shape = list(by_rank[0].shape)
+        shape[dim] *= mp
+        full = np.zeros(shape, by_rank[0].dtype)
+        for r, a in by_rank.items():
+            idx = tp_index(cfg, name, mp, r)[1]
+            index = [slice(None)] * full.ndim
+            index[dim] = idx
+            full[tuple(index)] = a
+        out[name] = full
+    return out
 
 
 def params_to_numpy(params):
@@ -103,5 +230,6 @@ def params_to_numpy(params):
 def load_jax_params(model, tree) -> None:
     """Copy the reference's parameter tree into ``model`` (a
     :class:`~paddle_tpu_torch.models.gpt.GPTForPretraining`), casting to
-    the model's dtype and device.  Shapes must match exactly."""
-    model.load_state_dict(params_from_jax(tree), strict=True)
+    the model's dtype and device; a tensor-parallel model takes its
+    rank's slices.  Shapes must match exactly."""
+    _load(model, params_from_jax(tree))

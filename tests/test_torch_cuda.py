@@ -821,3 +821,64 @@ def test_frontend_stream_on_card_equals_its_finished_request(dev):
     np.testing.assert_array_equal(finished[final["id"]].tokens, streamed)
     np.testing.assert_array_equal(np.asarray(streamed), want)
     assert KERNELS["paged_attention"] > 0 and KERNELS["paged_prefill"] > 0
+
+
+@pytest.mark.cuda
+def test_kernel_int32_products_are_exact_on_card(dev):
+    """Row-parallel W8A8's int32 partial sums through the ``w8a8_gemm``
+    kernel (``mp_layers._kernel_products``) equal the integer product,
+    extremes included, over several K chunks."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.mp_layers import (
+        _kernel_products)
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for m, k, n in ((5, 3000, 40), (64, 4096, 2048), (1, 1024, 16)):
+        xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        xq[0], wq[0] = 127, 127                  # the largest sums
+        reset_launch_counts()
+        got = _kernel_products(xq, wq)
+        assert KERNELS["w8a8_gemm"] == -(-k // 1024)
+        want = (xq.cpu().double() @ wq.cpu().double().t()).to(torch.int32)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_ring_flash_from_shards_matches_whole_sequence_on_card(dev, dtype,
+                                                               causal):
+    """The ring's flash composition (4 shards in one process: the
+    diagonal block causal, earlier blocks whole, later ones skipped)
+    against the plain flash versions on the whole sequence, fp32 at 1e-5
+    and bf16 at the smoke's FLASH_TOL (3e-2 of the row's rms, at least
+    1e-2 of the tensor's, plus 2e-2 of each value)."""
+    from paddle_tpu_torch.kernels import ring
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, do = (torch.randn(2, 4, 512, 64, device=dev, generator=g)
+                   .to(dtype) for _ in range(4))
+    qs, ks, vs, dos = ([x.contiguous() for x in t.chunk(4, dim=2)]
+                       for t in (q, k, v, do))
+    outs, lses = ring._local_ring_forward(qs, ks, vs, causal=causal)
+    dqs, dks, dvs = ring._local_ring_backward(qs, ks, vs, outs, lses, dos,
+                                              causal=causal)
+    out, lse = flash_fwd_plain(q, k, v, causal)
+    want = (out, *flash_bwd_plain(q, k, v, out, lse, do, causal))
+    got = [torch.cat(t, 2) for t in (outs, dqs, dks, dvs)]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                       msg=name)
+        else:
+            rms = b.square().mean().sqrt()
+            row = b.square().mean(-1, keepdim=True).sqrt().clamp_min(
+                1e-2 * rms)
+            used = ((a - b).abs() / (3e-2 * row + 2e-2 * b.abs())).max()
+            assert used <= 1.0, (name, used.item())
+    torch.testing.assert_close(torch.cat(lses, 2).reshape(8, 512), lse,
+                               rtol=1e-5, atol=1e-5)

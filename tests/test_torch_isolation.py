@@ -15,7 +15,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from paddle_tpu_torch.distributed import init_parallel_env
 from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+from paddle_tpu_torch.models.gpt import build_functional_train_step
 from paddle_tpu_torch.serving import (KVPool, ServingEngine, ServingFrontend,
                                       make_cluster)
 
@@ -44,7 +46,18 @@ def test_port_imports_no_jax_and_no_reference_at_runtime():
         "paddle_tpu_torch.serving.frontend, paddle_tpu_torch.profiler, "
         "paddle_tpu_torch.framework.random, paddle_tpu_torch.framework.flags, "
         "paddle_tpu_torch.ops.nn_ops, paddle_tpu_torch.examples.serve_gpt, "
-        "chip_smoke\n"
+        "paddle_tpu_torch.distributed, paddle_tpu_torch.distributed.env, "
+        "paddle_tpu_torch.distributed.launch_utils, "
+        "paddle_tpu_torch.distributed.spawn, "
+        "paddle_tpu_torch.distributed.parallel, "
+        "paddle_tpu_torch.distributed.mesh, "
+        "paddle_tpu_torch.distributed.collective, "
+        "paddle_tpu_torch.distributed.fleet, "
+        "paddle_tpu_torch.distributed.fleet.topology, "
+        "paddle_tpu_torch.distributed.fleet.distributed_strategy, "
+        "paddle_tpu_torch.distributed.fleet.meta_parallel, "
+        "paddle_tpu_torch.distributed.fleet.meta_parallel.mp_layers, "
+        "paddle_tpu_torch.kernels.ring, chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps([len(new), bad]))\n")
@@ -89,6 +102,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingFrontend(ServingEngine(model))
     assert ServingFrontend(ServingEngine(model, device="cpu")).engine
+    # the process group is NCCL on the card unless gloo is asked for, and
+    # a distributed train step wants a group: neither runs on the CPU
+    # quietly
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        init_parallel_env()
+    with pytest.raises(RuntimeError, match="process group"):
+        build_functional_train_step(model, mesh=object())
+    with pytest.raises(RuntimeError, match="process group"):
+        build_functional_train_step(model, dp_axis="dp")
 
 
 def test_serve_cli_wants_the_card_without_device():

@@ -202,14 +202,18 @@ def test_weight_names_map_to_the_port_in_train_order():
 
 
 def test_options_that_are_not_ported_raise():
+    """``remat`` outside its three values raises ValueError; each
+    distributed option (a mesh, ``dp_axis``, a ZeRO stage, a
+    ``use_parallel`` model) asked for without an initialised process
+    group raises RuntimeError saying so, never running on one device."""
     _, tm = _pair({})
     with pytest.raises(ValueError, match="remat"):
         build_functional_train_step(tm, remat="full")
     for kw in ({"mesh": object()}, {"dp_axis": "dp"}, {"sharding_stage": 2}):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="process group"):
             build_functional_train_step(tm, **kw)
     m = GPTForPretraining(GPTConfig(**CFG, use_parallel=True), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="use_parallel.*process group"):
         build_functional_train_step(m)
     # dropout is ported: it drops in training mode and is the identity
     # in eval

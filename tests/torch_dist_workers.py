@@ -1,0 +1,414 @@
+"""Rank programs of the port's distributed tests, and the runner that
+spawns them.
+
+This module imports torch, numpy and the port only: every spawned rank
+imports it (``spawn`` starts fresh interpreters that import the module
+defining the rank's function), so a rank never loads JAX or the
+reference.  The reference runs in the test process; its inputs and the
+ranks' results cross as numpy, pickled through files under the test's
+``tmp_path``.
+
+:func:`run` spawns ``world`` gloo ranks of one program (a function here,
+by name) with a FileStore rendezvous under ``tmp_path``, a 60 s timeout
+on every collective and a join deadline, and returns each rank's result
+in rank order.
+"""
+
+import os
+import pickle
+import time
+
+import numpy as np
+
+JOIN_TIMEOUT = 240      # seconds: a hung rank fails its test, not the run
+GROUP_TIMEOUT = 60
+
+
+def run(tmp_path, world, program, payload=None, timeout=JOIN_TIMEOUT):
+    from paddle_tpu_torch.distributed import spawn
+
+    tmp = str(tmp_path)
+    tag = f"{program}-{time.monotonic_ns()}"
+    pin = os.path.join(tmp, f"{tag}.in.pkl")
+    with open(pin, "wb") as f:
+        pickle.dump(payload, f)
+    spawn(_entry, args=(tmp, tag, program, pin), nprocs=world,
+          timeout=timeout)
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{tag}.rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _entry(tmp, tag, program, pin):
+    import torch
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+
+    torch.set_num_threads(1)
+    env = init_parallel_env(backend="gloo",
+                            store_path=os.path.join(tmp, f"{tag}.store"),
+                            timeout=GROUP_TIMEOUT)
+    with open(pin, "rb") as f:
+        payload = pickle.load(f)
+    result = globals()[program](payload)
+    with open(os.path.join(tmp, f"{tag}.rank{env.rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+# -- programs -----------------------------------------------------------------
+
+
+def hang(payload):
+    """Rank 0 never finishes (the join deadline must end it)."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        time.sleep(600)
+
+
+def fail(payload):
+    """Rank 1 raises while rank 0 waits for it in a collective (the first
+    failure must end the pool)."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        raise ValueError("rank 1 fails on purpose")
+    dist.barrier()
+
+
+def _fleet(dp=1, mp=1, pp=1, sharding=1, stage=None):
+    """fleet.init over the hybrid degrees (the strategy's ZeRO stage when
+    ``stage`` is given); returns the installed mesh."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp,
+                        "sharding_degree": sharding}
+    if stage is not None:
+        s.sharding = True
+        s.sharding_configs = {"sharding_degree": sharding, "stage": stage}
+    fleet.init(is_collective=True, strategy=s)
+    return mesh_mod.get_mesh()
+
+
+def collectives(payload):
+    """Every collective of the public API on this rank's values, and the
+    five ``_c_*`` Functions' outputs and input gradients."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    out = {}
+    base = torch.tensor([r + 1.0, 2.0 - r, 0.5 * (r + 2)])
+    for name, op in (("sum", C.ReduceOp.SUM), ("max", C.ReduceOp.MAX),
+                     ("min", C.ReduceOp.MIN), ("prod", C.ReduceOp.PROD)):
+        out["all_reduce_" + name] = _np(C.all_reduce(base.clone(), op))
+    gathered = []
+    C.all_gather(gathered, base * 10)
+    out["all_gather"] = np.stack([_np(t) for t in gathered])
+    out["broadcast"] = _np(C.broadcast(base.clone(), src=n - 1))
+    red = C.reduce(base.clone(), dst=0)
+    out["reduce_on_0"] = _np(red) if r == 0 else None
+    src_list = [torch.full((2,), 100.0 * i) for i in range(n)]
+    out["scatter"] = _np(C.scatter(torch.zeros(2), src_list, src=0))
+    received = []
+    C.alltoall([torch.full((2,), 10.0 * r + j) for j in range(n)], received)
+    out["alltoall"] = np.stack([_np(t) for t in received])
+    buf = torch.zeros(3)
+    if r == 0:
+        C.send(base * 7, dst=1)
+    elif r == 1:
+        C.recv(buf, src=0)
+    out["recv_on_1"] = _np(buf)
+    C.barrier()
+    g = C.new_group([0, 1])
+    out["new_group"] = (g.rank, g.nranks, g.ranks)
+    out["new_group_sum"] = (_np(C.all_reduce(base.clone(), group=g))
+                            if r in (0, 1) else None)
+    out["get_group"] = (C.get_group(0).nranks, C.get_group(g.id).ranks)
+    w = torch.from_numpy(payload["w"])            # (4, 3 n): same on all
+    wr = torch.from_numpy(payload["wr"][r])       # (4, 3): this rank's
+    x_loc = torch.from_numpy(payload["x"][r]).requires_grad_()   # (4, 3)
+    x_glob = torch.from_numpy(payload["xg"]).requires_grad_()    # (4, 3 n)
+    world = C.get_group(0)
+    y = C._c_identity(x_glob, world)
+    (y[:, :3] * wr).sum().backward()
+    out["c_identity"] = (_np(y), _np(x_glob.grad))
+    x_glob.grad = None
+    y = C._mp_allreduce(x_loc, group=world)
+    (y * w[:, :3]).sum().backward()
+    out["mp_allreduce"] = (_np(y), _np(x_loc.grad))
+    x_loc.grad = None
+    y = C._c_concat(x_loc, world)
+    (y * w).sum().backward()
+    out["c_concat"] = (_np(y), _np(x_loc.grad))
+    y = C._c_split(x_glob, world)
+    (y * wr).sum().backward()
+    out["c_split"] = (_np(y), _np(x_glob.grad))
+    logits = torch.from_numpy(payload["logits"][r]).requires_grad_()
+    label = torch.from_numpy(payload["label"])
+    loss, soft = C._c_softmax_with_cross_entropy(logits, label, world,
+                                                  return_softmax=True)
+    loss.sum().backward()
+    out["xent"] = (_np(loss), _np(soft), _np(logits.grad))
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+
+    env = init_parallel_env()                 # up already: the same group
+    out["env"] = (env.rank, env.world_size, env.nranks, str(env.device),
+                  dist.get_backend())
+    mesh = _fleet(dp=-1)
+    out["shard_batch"] = mesh_mod.shard_batch(np.arange(2 * n))
+    try:
+        mesh_mod.shard_batch(np.arange(2 * n + 1))
+        out["shard_batch_ragged"] = None
+    except ValueError as e:
+        out["shard_batch_ragged"] = str(e)
+    out["util_sum"] = fleet.util.all_reduce(np.array([r + 1.0]))
+    out["files"] = fleet.util.get_file_shard([f"f{i}" for i in range(5)])
+    out["worker"] = (fleet.worker_index(), fleet.worker_num(),
+                     fleet.is_first_worker())
+    out["mesh"] = mesh.shape
+    _fleet(mp=n)
+    x = torch.from_numpy(payload["x"][0])                     # (4, 3)
+    out["split"] = (tuple(C.split(x, (3, 2 * n), "linear", axis=1,
+                                  gather_out=True).shape),
+                    tuple(C.split(x, (3, 2 * n), "linear", axis=1,
+                                  gather_out=False).shape),
+                    tuple(C.split(torch.zeros(4, 2 * n), (2 * n, 3),
+                                  "linear", axis=0).shape),
+                    tuple(C.split(torch.tensor([[0, n]]), (2 * n, 5),
+                                  "embedding").shape))
+    return out
+
+
+HCG_ACCESSORS = ("get_parallel_mode", "get_global_rank",
+                 "get_data_parallel_rank", "get_data_parallel_world_size",
+                 "get_model_parallel_rank", "get_model_parallel_world_size",
+                 "get_stage_id", "get_pipe_parallel_world_size",
+                 "is_first_stage", "is_last_stage",
+                 "get_sharding_parallel_rank",
+                 "get_sharding_parallel_world_size")
+
+
+def hcg(payload):
+    """The accessors of each topology's HybridCommunicateGroup, and each
+    axis group's ranks."""
+    from paddle_tpu_torch.distributed import fleet
+
+    out = []
+    for dp, pp, sd, mp in payload["dims"]:
+        _fleet(dp=dp, mp=mp, pp=pp, sharding=sd)
+        h = fleet.get_hybrid_communicate_group()
+        acc = {name: getattr(h, name)() for name in HCG_ACCESSORS}
+        acc["rank_from_stage"] = [h.get_rank_from_stage(s)
+                                  for s in range(pp)]
+        acc["groups"] = {axis: getattr(h, f"get_{axis}_group")().ranks
+                         for axis in ("data_parallel", "model_parallel",
+                                      "pipe_parallel", "sharding_parallel")}
+        out.append(acc)
+    return out
+
+
+def tp_layers(payload):
+    """The reference's tensor-parallel layer setups on its global
+    weights: column -> row parallel linear, the vocab-parallel embedding
+    and the parallel cross-entropy; outputs and gradients."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+
+    mesh = _fleet(mp=payload["mp"], dp=1)
+    out = {"coord": mesh.coord}
+    col = mpp.ColumnParallelLinear(8, 16, gather_output=False, device="cpu")
+    row = mpp.RowParallelLinear(16, 8, input_is_parallel=True, device="cpu")
+    col.set_global(payload["wc"], payload["bc"])
+    row.set_global(payload["wr"], payload["br"])
+    x = torch.from_numpy(payload["x"]).requires_grad_()
+    y = row(col(x))
+    (y * torch.from_numpy(payload["gy"])).sum().backward()
+    out["linear"] = (_np(y), _np(x.grad), _np(col.weight.grad),
+                     _np(col.bias.grad), _np(row.weight.grad),
+                     _np(row.bias.grad))
+    gathered = mpp.ColumnParallelLinear(8, 16, gather_output=True,
+                                        device="cpu")
+    gathered.set_global(payload["wc"], payload["bc"])
+    out["gather_output"] = _np(gathered(x))
+    emb = mpp.VocabParallelEmbedding(32, 16, device="cpu")
+    emb.set_global(payload["emb"])
+    e = emb(torch.from_numpy(payload["ids"]))
+    (e * torch.from_numpy(payload["ge"])).sum().backward()
+    out["embedding"] = (_np(e), _np(emb.weight.grad))
+    logits = torch.from_numpy(payload["logits"]).requires_grad_()
+    local = logits.chunk(payload["mp"], dim=-1)[mesh.coord["mp"]]
+    loss = mpp.ParallelCrossEntropy()(local, torch.from_numpy(
+        payload["labels"]))
+    loss.sum().backward()
+    out["xent"] = (_np(loss), _np(logits.grad))
+    # the modules' own initialisation: the slices of the one-rank layers of
+    # the same seed
+    out["init"] = (_np(mpp.ColumnParallelLinear(8, 16, device="cpu",
+                                                seed=5).weight),
+                   _np(mpp.RowParallelLinear(16, 8, device="cpu",
+                                             seed=5).weight),
+                   _np(mpp.VocabParallelEmbedding(32, 16, device="cpu",
+                                                  seed=5).weight))
+    return out
+
+
+class _Uniforms:
+    """Dropout key ``order[n]`` gets ``arrays[n]`` (the test hands the
+    reference the same arrays in its draw order)."""
+
+    def __init__(self, arrays, order):
+        self.arrays, self.order = arrays, order
+
+    def __call__(self, key, shape, device):
+        import torch
+
+        a = self.arrays[self.order.index(key)]
+        assert tuple(a.shape) == tuple(shape), (a.shape, shape)
+        return torch.from_numpy(a).to(device)
+
+
+def train(payload):
+    """The port's distributed train step, one run per entry of
+    ``payload["runs"]``, from the reference's global weights (the run's
+    ``named``, else the payload's): losses,
+    this rank's leaves (whole, by port name), the optimizer state's
+    sizes."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.framework import random as trand
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             build_functional_train_step)
+    from paddle_tpu_torch.weights import load_jax_named_params
+
+    results = []
+    for run in payload["runs"]:
+        mesh = _fleet(**run["dims"], stage=run.get("strategy_stage"))
+        cfg = GPTConfig(**{**payload["cfg"], **run.get("over", {})})
+        model = GPTForPretraining(cfg, device="cpu")
+        load_jax_named_params(model, run.get("named", payload["named"]))
+        if run.get("dtype"):
+            model.to(getattr(torch, run["dtype"]))
+        old = trand.uniform
+        if run.get("uniforms") is not None:
+            # the step's first keys: its base key is the chain's next
+            from paddle_tpu_torch.models.gpt import _step_keys
+
+            trand.seed(0)
+            keys = _step_keys(cfg, trand.next_rng_key(), 0,
+                              mesh.shape["pp"] > 1)
+            trand.uniform = _Uniforms(run["uniforms"],
+                                      list(dict.fromkeys(keys)))
+        try:
+            trand.seed(0)
+            step, params, opt = build_functional_train_step(model,
+                                                            **run["step"])
+            ids = mesh_mod.shard_batch(payload["ids"])
+            labels = mesh_mod.shard_batch(payload["labels"])
+            losses = []
+            for _ in range(run.get("steps", 3)):
+                params, opt, loss = step(params, opt, ids, labels)
+                losses.append(float(loss))
+        finally:
+            trand.uniform = old
+        full = step.unshard(params)
+        results.append({
+            "coord": mesh.coord, "losses": losses, "stage": step.stage,
+            "params": {n: _np(p.float()) for n, p in zip(step.names, full)},
+            "numel": {"params": [p.numel() for p in params],
+                      "m": [t.numel() for t in opt["m"]],
+                      "v": [t.numel() for t in opt["v"]],
+                      "whole": [p.numel() for p in full],
+                      "master": [t.numel() for t in opt.get("master", [])]},
+            "in_place": all(p.data_ptr() == q.data_ptr() for p, q in zip(
+                params, [model.leaves()[i] for i in _held(model, step)])),
+        })
+    return results
+
+
+def _held(model, step):
+    """Indices into ``model.leaves()`` of the step's leaves."""
+    names = {}
+    blocks = [f"blocks.{i}.{k}" for i in range(model.cfg.num_layers)
+              for k in ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w",
+                        "proj_b", "ln2_g", "ln2_b", "fc1_w", "fc1_b",
+                        "fc2_w", "fc2_b")]
+    for i, n in enumerate(["wte", "wpe", *blocks, "lnf_g", "lnf_b"]):
+        names[n] = i
+    return [names[n] for n in step.names]
+
+
+def decode(payload):
+    """Tensor-parallel greedy, beam and int8 greedy / beam decoding from
+    the reference's global weights, one result per model of
+    ``payload["models"]`` (a config and its named weights)."""
+    from paddle_tpu_torch.models import (build_beam_search_fn,
+                                         build_generate_fn)
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.weights import load_jax_named_params
+
+    _fleet(mp=payload["mp"])
+    ids, n = payload["ids"], payload["new"]
+    out = []
+    for cfg, named in payload["models"]:
+        model = GPTForPretraining(GPTConfig(**cfg, use_parallel=True),
+                                  device="cpu")
+        load_jax_named_params(model, named)
+        model.eval()
+        out.append({
+            "heads": model.tp.heads,
+            "logits": _np(model(ids)),
+            "greedy": _np(build_generate_fn(model, n)(ids)),
+            "beam": _np(build_beam_search_fn(model, n, beam_size=3)(ids)),
+            "int8": _np(build_generate_fn(model, n, int8=True)(ids)),
+            "int8_beam": _np(build_beam_search_fn(model, n, beam_size=3,
+                                                  int8=True)(ids)),
+        })
+    return out
+
+
+def ring(payload):
+    """ring_attention / ring_flash_attention over the mesh's mp axis on
+    global inputs: each case's output and input gradients; the S % ring
+    check."""
+    import torch
+
+    from paddle_tpu_torch.kernels.ring import (ring_attention,
+                                               ring_flash_attention)
+
+    _fleet(mp=payload["ring"])
+    out = {}
+    for name, case in payload["cases"].items():
+        q, k, v, w = (torch.from_numpy(a) for a in (case["q"], case["k"],
+                                                     case["v"], case["w"]))
+        q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+        fn = ring_flash_attention if case["flash"] else ring_attention
+        o = fn(q, k, v, axis="mp", causal=case["causal"],
+               layout=case["layout"], window=case.get("window"))
+        (o * w).sum().backward()
+        out[name] = (_np(o), _np(q.grad), _np(k.grad), _np(v.grad))
+    bad = torch.zeros(1, 2, 66, 16)
+    try:
+        ring_attention(bad, bad, bad, axis="mp")
+        out["ragged"] = None
+    except ValueError as e:
+        out["ragged"] = str(e)
+    return out
