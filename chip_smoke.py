@@ -133,7 +133,10 @@ its seconds):
    tokens/s, MFU (the bench's flop count over 989 TFLOP/s) and peak
    memory, asserts finite, falling losses and exactly the run's launches
    (24 per step of each flash kernel, the forward twice under remat, 96
-   ``w8a8_gemm`` per step in (d)), and profiles one more step;
+   ``w8a8_gemm`` per step in (d)), and profiles one more step; every run
+   logs the memory still allocated when it begins and after it is freed
+   (garbage collected first: a remat step's closures sit in reference
+   cycles), so a peak is the run's own;
 7. distributed: (1) a one-rank NCCL group on 127.0.0.1 through
    ``init_parallel_env()`` (NCCL, the card's default) and ``fleet.init``
    with every degree 1; the training flagship's width at 2 layers (batch
@@ -147,12 +150,32 @@ its seconds):
    S=2048 bf16 causal and full, S=1024 fp32 causal): forward (out, lse)
    and backward (dQ, dK, dV) against the plain flash versions on the
    whole sequence from the same inputs with phase 2's ``FLASH_TOL``,
-   launches asserted (10 of each kernel causal, 16 full); then ring 4
-   forward + backward at S=8192 timed against the whole-sequence flash
-   kernels (CUDA events).  ``--phase 7`` builds and runs this phase
-   alone (no result line).  Multi-rank parity runs on the CPU over gloo
+   launches asserted (10 of each kernel causal, 16 full); the bf16 ring
+   and the bf16 whole-sequence kernels each against attention computed
+   in fp32 from fp32 inputs (logged: is the ring's error within the
+   whole-sequence kernels'?); then ring 4 forward + backward at S=8192
+   timed against the whole-sequence flash kernels (CUDA events).
+   ``--phase 7`` builds and runs this phase alone (no result line).
+   Multi-rank parity runs on the CPU over gloo
    (``tests/test_torch_{collective,tp,zero,pp,tp_decode,ring}.py``):
-   NCCL does not put two ranks on one card.
+   NCCL does not put two ranks on one card;
+8. eager BERT, the paddle-shaped API (``paddle_tpu_torch.to_tensor``,
+   ``nn``, ``loss.backward()``, ``optimizer``, ``amp``) driving
+   ``examples/pretrain_bert.py``'s loop: (1) the CPU tests' small BERT
+   (vocab 256, hidden 32, 2 layers, 2 heads, batch 2, seq 16, 4 masked)
+   3 steps on the card and on the CPU from the same weights, losses
+   within FLASH_TOL's fp32 1e-5; (2) the flash kernels at BERT-base's
+   attention (B=32, H=12, S=512, D=64, bnsd, not causal) in fp32 and
+   bf16, held to their plain versions and timed beside them and SDPA;
+   (3) BERT-base at ``bench.py``'s ``_bert_bench`` shape (vocab 30528,
+   hidden 768, 12 layers, 12 heads, seq 512, batch 32, 76 masked) in
+   fp32 and under ``amp.auto_cast()`` (bf16): 12 steps of the example's
+   schedule, the first 1 warm-up and 4 timed (step ms, tokens/s, MFU
+   over 989 TFLOP/s for both, ``max_memory_allocated``, the busy share
+   of one profiled step, the ops traced a step and their host cost),
+   with 12 launches of each flash kernel a step and a falling loss
+   asserted.  ``--phase 8`` builds and runs this phase alone (no result
+   line).
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -169,8 +192,11 @@ dense K/V (the gather and the dequant excluded) for the attention kernels,
 ``torch._int_mm`` on the pre-quantized operands (the quantize excluded) for
 ``w8a8_gemm``, ``scaled_dot_product_attention(is_causal=True)`` for the
 flash forward and its backward (forward and backward less the forward,
-both by CUDA-graph replay) for the two backward kernels.  The last line
-is ``{"ok": true, "device": {...}}``.
+both by CUDA-graph replay) for the two backward kernels.  The flash
+kernels have a second row each at BERT-base's attention in fp32 and in
+bf16 (``flash_fwd_bert_fp32`` ...), with their launches on phase 8's
+runs and their bounds at the fp32 (67 TFLOP/s) or bf16 peak.  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -2086,6 +2112,7 @@ def _train(np, torch, label, over, remat, per_step):
     from paddle_tpu_torch.models.gpt import build_functional_train_step
 
     cfg = GPTConfig(**TRAIN_CFG, **over)
+    carried = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     model = GPTForPretraining(cfg, seed=0)                # bf16 on the card
     step, params, opt = build_functional_train_step(
@@ -2119,12 +2146,16 @@ def _train(np, torch, label, over, remat, per_step):
         f"(timed steps {[round(1e3 * t, 1) for t in times[1:]]}, warm-up "
         f"{1e3 * times[0]:.1f} ms), {tps:.0f} tokens/s, MFU {100 * mfu:.2f}% "
         f"of 989 TFLOP/s; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (after "
+        f"reset_peak_memory_stats; {carried:.2f} GiB allocated before the "
+        f"run began)")
     log(f"  launches: {json.dumps(launches)}")
     _profile(torch, "one more step",
              lambda: step(params, opt, ids, labels))
-    del model, step, params, opt
-    torch.cuda.empty_cache()
+    del model, step, params, opt, loss
+    _free(torch)
+    log(f"  after run ({label}): {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB still allocated")
     return launches
 
 
@@ -2306,6 +2337,57 @@ def _ring_parity(np, torch):
     return worst
 
 
+def _ring_vs_fp32(np, torch):
+    """The bf16 ring and the bf16 whole-sequence flash kernels, each held
+    to the plain version computed in fp32 from the fp32 inputs (phase 7's
+    ring shapes, causal and full): the error of each against the true
+    attention, and whether the ring's is within the whole-sequence
+    kernels'.  Logged, not gated: both carry bf16's rounding of out, P
+    and dS, which FLASH_TOL's bf16 bounds (held against the plain version
+    on the same bf16 rounding) do not cover."""
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels import ring
+    from paddle_tpu_torch.kernels.flash import flash_bwd, flash_fwd_cuda
+
+    verdict = {}
+    for label, b, h, s, causal, dt in RING_CASES:
+        if dt != "bf16":
+            continue
+        g = torch.Generator(device="cuda").manual_seed(s + causal)
+        (q, k, v, do), (qs, ks, vs, dos) = _ring_shards(torch, g, b, h, s,
+                                                        torch.bfloat16)
+        scale = 1.0 / np.sqrt(128)
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        out, lse = flash_fwd_plain(q32, k32, v32, causal)
+        want = dict(zip(("dq", "dk", "dv"), flash_bwd_plain(
+            q32, k32, v32, out, lse, do32, causal)), out=out)
+        wo, wl = flash_fwd_cuda(q, k, v, causal, scale, None, "bnsd")
+        whole = dict(zip(("dq", "dk", "dv"), flash_bwd(
+            q, k, v, wo, wl, do, causal, scale, None, "bnsd")), out=wo)
+        outs, lses = ring._local_ring_forward(qs, ks, vs, causal=causal)
+        rq, rk, rv = ring._local_ring_backward(qs, ks, vs, outs, lses, dos,
+                                               causal=causal)
+        rng = {"out": torch.cat(outs, 2), "dq": torch.cat(rq, 2),
+               "dk": torch.cat(rk, 2), "dv": torch.cat(rv, 2)}
+        for part in ("out", "dq", "dk", "dv"):
+            w = want[part]
+            ew = (whole[part].float() - w).abs().max().item()
+            er = (rng[part].float() - w).abs().max().item()
+            rms = w.square().mean().sqrt().item()
+            verdict[f"{label} {part}"] = er <= ew
+            log(f"C.3 {label} {part} (B={b} H={h} S={s} D=128) against fp32 "
+                f"attention: whole-sequence bf16 kernels max_abs_err "
+                f"{ew:.3e}, ring {RING} {er:.3e} ({er / max(ew, 1e-30):.2f}x"
+                f"), rms {rms:.3e}; ring within the whole-sequence "
+                f"kernels' error: {er <= ew}")
+        del q, k, v, do, qs, ks, vs, dos, q32, k32, v32, do32, out, lse
+        del want, wo, wl, whole, outs, lses, rq, rk, rv, rng
+        torch.cuda.empty_cache()
+    log(f"C.3 ring within the whole-sequence kernels' error: "
+        f"{sum(verdict.values())} of {len(verdict)} tensors")
+    return verdict
+
+
 def _ring_timing(np, torch, card):
     """Ring 4 forward + backward at S=8192 (shards in one process, every
     rank's blocks) against the whole-sequence flash kernels, CUDA
@@ -2394,8 +2476,301 @@ def phase_distributed(np, torch, card):
     _int32_products(np, torch)
     worst = _ring_parity(np, torch)
     log(f"ring flash worst max_abs_err per tensor: {json.dumps(worst)}")
+    _ring_vs_fp32(np, torch)
     _ring_timing(np, torch, card)
     log(card)
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+# the eager API's BERT: the CPU tests' small config, and BERT-base at the
+# bench's shape (bench.py _bert_bench: vocab 30528, hidden 768, 12 layers,
+# 12 heads, seq 512, batch 32, 76 masked tokens a sequence)
+BERT_SMALL = ["--hidden", "32", "--layers", "2", "--heads", "2", "--vocab",
+              "256", "--seq", "16", "--batch", "2", "--masked", "4"]
+BERT_BASE = ["--hidden", "768", "--layers", "12", "--heads", "12", "--vocab",
+             "30528", "--seq", "512", "--batch", "32", "--masked", "76"]
+BERT_STEPS = 5                  # 1 warm-up and 4 timed
+# the example's schedule over 12 steps (warm-up 5): the first 5 are timed;
+# the loss must fall over the 12, as it does in the reference (a 12-layer
+# post-LN BERT climbs over its first warm-up steps, in both packages)
+BERT_TRAIN = 12
+FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
+
+
+def bert_flops_per_token(h, n_layers, s, v, m_frac):
+    """Training flops per token, bench.py's count: 6 x (per layer 12 h^2
+    + 2 s h, plus the MLM head's h^2 + h v over the masked share)."""
+    return 6.0 * (n_layers * (12.0 * h * h + 2.0 * s * h)
+                  + m_frac * (h * h + h * v))
+
+
+class _OpClock:
+    """Counts the eager ops a step traces and the host time spent inside
+    the tracer (dispatch, kernel enqueue, autograd recording), by wrapping
+    ``tracer.trace_op``; the optimizer's update ops (``run_eager_kernel``)
+    are counted apart."""
+
+    def __init__(self):
+        from paddle_tpu_torch.dygraph import tracer
+
+        self.tracer = tracer
+        self.ops = self.updates = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        tr = self.tracer
+        self._trace, self._run = tr.trace_op, tr.run_eager_kernel
+
+        def trace_op(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return self._trace(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.ops += 1
+
+        def run_eager_kernel(*a, **k):
+            self.updates += 1
+            return self._run(*a, **k)
+
+        tr.trace_op, tr.run_eager_kernel = trace_op, run_eager_kernel
+        return self
+
+    def __exit__(self, *exc):
+        self.tracer.trace_op = self._trace
+        self.tracer.run_eager_kernel = self._run
+        return False
+
+
+def _bert_run(np, torch, argv, steps, amp=False, device="gpu", state=None,
+              profile=False):
+    """The port's pretrain_bert example built and driven through the eager
+    API on ``device``: ``steps`` steps of its loop; returns the model's
+    initial state (numpy), the losses, the step seconds, the flash
+    launches and, for a full run on the card, what one more step costs."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.examples import pretrain_bert as ex
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.weights import (load_paddle_state_dict,
+                                          state_dict_to_numpy)
+
+    paddle.set_device(device)
+    args = ex.parse(argv + ["--steps", str(steps), "--device", device])
+    old = unique_name.switch()
+    try:
+        cfg, model, crit, sched, opt = ex.build(args)
+        if state is not None:
+            load_paddle_state_dict(model, state)
+        init = state_dict_to_numpy(model) if state is None else state
+        batch = ex.make_batch(cfg, args.batch, args.seq, args.masked,
+                              args.seed)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = [], []
+        for _ in range(steps):
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = ex.train_step(model, crit, opt, sched, batch, amp=amp)
+            losses.append(float(loss.numpy()))          # synchronises
+            times.append(time.perf_counter() - t0)
+        launches = {k: KERNELS[k] for k in FLASH}
+        extra = None
+        if profile:
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with _OpClock() as clock:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex.train_step(model, crit, opt, sched, batch, amp=amp)
+                torch.cuda.synchronize()
+                host = time.perf_counter() - t0
+            busy = _profile(torch, "one more step", lambda: ex.train_step(
+                model, crit, opt, sched, batch, amp=amp))
+            extra = {"peak_gib": peak, "busy": busy, "ops": clock.ops,
+                     "updates": clock.updates, "op_us": 1e6 * clock.seconds
+                     / max(clock.ops, 1), "trace_s": clock.seconds,
+                     "step_s": host, "cfg": cfg, "args": args}
+        return init, losses, times, launches, extra
+    finally:
+        unique_name.switch(old)
+        paddle.set_device("gpu")
+
+
+def _free(torch):
+    """Collect the garbage (autograd graphs and closures sit in reference
+    cycles), then return the freed blocks to the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _bert_parity(np, torch):
+    """(1) The small BERT (the CPU tests' config) for 3 steps of the
+    example's loop on the card (the flash kernels) and on the CPU (their
+    plain versions) from the same weights: losses within FLASH_TOL's fp32
+    tolerance (1e-5 relative), and 2 layers' flash launches a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init, cpu, _, _, _ = _bert_run(np, torch, BERT_SMALL, 3, device="cpu")
+    _, card, _, launches, _ = _bert_run(np, torch, BERT_SMALL, 3,
+                                        state=init)
+    _free(torch)
+    rtol = FLASH_TOL["fp32"]["out"][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"eager BERT small, card vs cpu: losses card {card} cpu {cpu}, "
+        f"rel err {rel:.3e} (tol {rtol:g}); launches {json.dumps(launches)}")
+    if not rel <= rtol:
+        raise AssertionError("the eager BERT step on the card disagrees with "
+                             "the CPU")
+    if launches != {k: 3 * 2 for k in FLASH}:
+        raise AssertionError(f"small BERT launched {launches}")
+
+
+def _bert_base(np, torch, amp, card):
+    """(2) BERT-base at the bench's shape through the eager API, fp32 or
+    under ``amp.auto_cast()`` (bf16): the example's loop for BERT_TRAIN
+    steps, the first 1 warm-up and 4 timed; asserts 12 launches of each
+    flash kernel a step and a finite loss that falls (the last three
+    below the first);
+    logs step ms, tokens/s, MFU, peak memory, the busy share of one
+    profiled step, and the eager ops a step traces with their host cost.
+    Returns the run's flash launches."""
+    label = "bf16 auto_cast" if amp else "fp32"
+    _, losses, times, launches, x = _bert_run(np, torch, BERT_BASE,
+                                              BERT_TRAIN, amp=amp,
+                                              profile=True)
+    _free(torch)
+    cfg, args = x["cfg"], x["args"]
+    want = {k: 12 * BERT_TRAIN for k in FLASH}
+    if launches != want:
+        raise AssertionError(f"BERT-base ({label}) launched {launches}, "
+                             f"expected {want}")
+    if not (np.all(np.isfinite(losses))
+            and max(losses[-3:]) < losses[0]):
+        raise AssertionError(f"BERT-base ({label}): losses {losses}")
+    times = times[:BERT_STEPS]
+    step_s = float(np.mean(times[1:]))
+    tokens = args.batch * args.seq
+    fpt = bert_flops_per_token(cfg.hidden_size, cfg.num_layers, args.seq,
+                               cfg.vocab_size, args.masked / args.seq)
+    mfu = tokens / step_s * fpt / BF16_FLOPS
+    log(f"eager BERT-base ({label}; B={args.batch} S={args.seq} "
+        f"{args.masked} masked, {card}): losses "
+        f"{[round(v, 4) for v in losses]}; step {1e3 * step_s:.1f} ms "
+        f"(timed {[round(1e3 * t, 1) for t in times[1:]]}, warm-up "
+        f"{1e3 * times[0]:.1f} ms), {tokens / step_s:.0f} tokens/s, MFU "
+        f"{100 * mfu:.2f}% of the bf16 peak 989 TFLOP/s (the fp32 run too); "
+        f"max_memory_allocated {x['peak_gib']:.2f} GiB; device busy "
+        f"{100 * x['busy']:.1f}% of one profiled step; {x['ops']} traced ops "
+        f"and {x['updates']} optimizer update ops a step, "
+        f"{x['op_us']:.1f} us host per traced op ({1e3 * x['trace_s']:.1f} "
+        f"ms of a {1e3 * x['step_s']:.1f} ms step inside the tracer); "
+        f"launches {json.dumps(launches)}")
+    return launches
+
+
+def _time_flash_bert(np, torch, dt):
+    """The three flash kernels at BERT-base's attention (B=32, H=12,
+    S=512, D=64, bnsd, not causal) in ``dt``: held to their plain versions
+    with FLASH_TOL, timed by CUDA events beside the plain versions and
+    SDPA; returns their kernels-line entries."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels.flash import (flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda, flash_delta,
+                                                flash_fwd_cuda)
+
+    b, h, s, d = 32, 12, 512, 64
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dt]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=g).to(
+        dtype) for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = flash_fwd_cuda(q, k, v, False, scale, None, "bnsd")
+    ref, rlse = flash_fwd_plain(q, k, v, False, scale, None, "bnsd")
+    delta = flash_delta(ref, do, "bnsd")
+    dq = flash_bwd_dq_cuda(q, k, v, ref, rlse, delta, do, False, scale,
+                           None, "bnsd")
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, rlse, delta, do, False, scale, None,
+                                "bnsd")
+    want = flash_bwd_plain(q, k, v, ref, rlse, do, False, scale, None, "bnsd")
+    err = {}
+    for name, part, a, r in (("flash_fwd", "out", out, ref),
+                             ("flash_fwd", "lse", lse, rlse),
+                             ("flash_bwd_dq", "dq", dq, want[0]),
+                             ("flash_bwd_dkv", "dk", dk, want[1]),
+                             ("flash_bwd_dkv", "dv", dv, want[2])):
+        e = _flash_close(f"{name} {part} BERT-base (bnsd, B={b} H={h} S={s} "
+                         f"D={d}, not causal, {dt})", a, r,
+                         *FLASH_TOL[dt][part])
+        err[name] = max(err.get(name, 0.0), e)
+    lib = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*lib)
+        torch.autograd.grad(o, lib, do)
+
+    ms = {"flash_fwd": time_ms(lambda: flash_fwd_cuda(
+              q, k, v, False, scale, None, "bnsd")),
+          "flash_bwd_dq": time_ms(lambda: flash_bwd_dq_cuda(
+              q, k, v, out, lse, delta, do, False, scale, None, "bnsd")),
+          "flash_bwd_dkv": time_ms(lambda: flash_bwd_dkv_cuda(
+              q, k, v, lse, delta, do, False, scale, None, "bnsd"))}
+    plain_fwd = time_ms(lambda: flash_fwd_plain(q, k, v, False, scale, None,
+                                                "bnsd"), iters=3)
+    plain_bwd = time_ms(lambda: flash_bwd_plain(q, k, v, out, lse, do, False,
+                                                scale, None, "bnsd"), iters=3)
+    lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    lib_bwd = graph_ms(sdpa_fwd_bwd) - lib_fwd
+    elt = 4 if dt == "fp32" else 2
+    elems = b * h * s * d * elt                  # bytes of one operand
+    rows = b * h * s * 4                         # bytes of lse or delta
+    full = b * h * s * s * d                     # every query-key pair
+    work = {"flash_fwd": (4 * elems + rows, 4 * full),
+            "flash_bwd_dq": (5 * elems + 2 * rows, 6 * full),
+            "flash_bwd_dkv": (6 * elems + 2 * rows, 8 * full)}
+    peak = FP32_FLOPS if dt == "fp32" else BF16_FLOPS
+    results = {}
+    for name, (nbytes, ops) in work.items():
+        bms, by = bound_ms(nbytes, ops, peak)
+        fwd = name == "flash_fwd"
+        results[f"{name}_bert_{dt}"] = dict(
+            ms=ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
+            bound_ms=bms, bound_by=by,
+            library_ms=lib_fwd if fwd else lib_bwd, max_abs_err=err[name])
+        log(f"{name} BERT-base ({dt}): B={b} H={h} S={s} D={d} bnsd not "
+            f"causal: {ms[name]:.4f} ms ({ops / ms[name] / 1e9:.1f} TFLOP/s), "
+            f"plain {plain_fwd if fwd else plain_bwd:.4f} ms (the whole "
+            f"{'forward' if fwd else 'backward'}), sdpa "
+            f"{'forward' if fwd else 'fwd+bwd - fwd'} by graph replay "
+            f"{lib_fwd if fwd else lib_bwd:.4f} ms, bound {bms:.4f} ms "
+            f"({by}; {ops:.4g} flop at "
+            f"{'67 TFLOP/s fp32' if dt == 'fp32' else '989 TFLOP/s bf16'}, "
+            f"{nbytes} bytes)")
+    del q, k, v, do, out, lse, ref, rlse, delta, dq, dk, dv, want, lib
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_bert(np, torch, card):
+    """Phase 8, eager BERT: (1) the small BERT card vs CPU; (2) BERT-base
+    in fp32 and under bf16 ``auto_cast``; the flash kernels at BERT-base's
+    attention shape in fp32 and bf16.  Returns the kernels-line entries
+    and each run's flash launches."""
+    _bert_parity(np, torch)
+    kernels = {}
+    for dt in ("fp32", "bf16"):
+        kernels.update(_time_flash_bert(np, torch, dt))
+    runs = {"fp32": _bert_base(np, torch, False, card),
+            "bf16": _bert_base(np, torch, True, card)}
+    log(card)
+    return kernels, runs
 
 
 def main():
@@ -2432,6 +2807,11 @@ def main():
         phase_distributed(np, torch, card)
         done("7 distributed")
         return 0
+    if sys.argv[1:] == ["--phase", "8"]:
+        # phase 8 alone, for work on the eager API: no result line
+        phase_bert(np, torch, card)
+        done("8 eager BERT")
+        return 0
     kernels = phase_paged(np, torch)
     kernels.update(phase_gemm(np, torch))
     kernels.update(phase_flash(np, torch))
@@ -2448,6 +2828,9 @@ def main():
     done("6 training")
     phase_distributed(np, torch, card)
     done("7 distributed")
+    bert_kernels, bert_runs = phase_bert(np, torch, card)
+    done("8 eager BERT")
+    kernels.update(bert_kernels)
     line = []
     for name, k in kernels.items():
         src = name.split("_int")[0]
@@ -2458,7 +2841,16 @@ def main():
                     "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
                     "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"}.get(
             src, f"paddle_tpu/kernels/paged_attention.py:{entry.get(src)}")
-        if name in FLASH:
+        if "_bert_" in name:
+            base, dt = name.split("_bert_")
+            n, run = bert_runs[dt][base], f"eager BERT-base {dt}"
+            src = "flash_fwd" if base == "flash_fwd" else "flash_bwd"
+            replaces = {"flash_fwd": "paddle_tpu/kernels/flash.py:74",
+                        "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
+                        "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"
+                        }[base]
+            log(f"{name}: {n} launches on the {run} run")
+        elif name in FLASH:
             n, run = trained[name]
             src = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
             log(f"{name}: {n} launches on training run ({run})")

@@ -61,7 +61,7 @@ def _block_params(blk, int8=False, tp=None):
     if int8:
         for name in _PROJECTIONS:
             w = p.pop(name + "_w")
-            if tp is not None and name in _ROW_PARALLEL:
+            if _row_split(tp, name):
                 p[name + "_wq"], p[name + "_ws"] = quantize_row_parallel(
                     w, tp.group)
                 continue
@@ -71,12 +71,19 @@ def _block_params(blk, int8=False, tp=None):
     return p
 
 
+def _row_split(tp, name):
+    """Whether projection ``name`` is row-parallel under ``tp``: fc2
+    always, proj where attention splits by head."""
+    return (tp is not None and name in _ROW_PARALLEL
+            and (name != "proj" or tp.split is not None))
+
+
 def _mm(p, name, x, tp=None):
     """``x @ weight``: W8A8 through the int8 GEMM when the block carries
     quantized weights, a float matmul otherwise; under ``tp`` the
     row-parallel products are summed over the ranks."""
     wq = p.get(name + "_wq")
-    if tp is not None and name in _ROW_PARALLEL:
+    if _row_split(tp, name):
         if wq is not None:
             return row_parallel_w8a8(x, wq, p[name + "_ws"], tp.group,
                                      out_dtype=x.dtype)
@@ -263,13 +270,14 @@ def _decoder_setup(model, int8=None, attn_window=None):
 
 
 def _empty_cache(cfg, b, s_max, dtype, device, int8=False, kv_bits=None,
-                 mp=1):
+                 kv_heads=None):
     """Zeroed K and V caches, (L, B, Hkv, S, D) each, in ``dtype``; with a
     quantized width (``kv_bits``, or ``int8``'s int8 default) each side is
     an ``(values, scales)`` pair: int8 (L, B, Hkv, S, D) — or (…, D // 2)
-    packed int4 — and fp32 (L, B, Hkv, S, 1).  Over ``mp``
-    tensor-parallel ranks each holds Hkv / mp heads."""
-    shape = (cfg.num_layers, b, cfg.num_kv_heads // mp, s_max, cfg.head_dim)
+    packed int4 — and fp32 (L, B, Hkv, S, 1).  A tensor-parallel rank
+    holds ``kv_heads``, its own K/V heads (``TensorParallel.heads``)."""
+    hkv = cfg.num_kv_heads if kv_heads is None else kv_heads
+    shape = (cfg.num_layers, b, hkv, s_max, cfg.head_dim)
     kv_bits = _resolve_kv_bits(cfg, int8, kv_bits)
     if kv_bits is not None:
         vd = cfg.head_dim // 2 if kv_bits == 4 else cfg.head_dim
@@ -364,7 +372,8 @@ def build_generate_fn(model, max_new_tokens: int, temperature: float = 1.0,
     sample = _make_sampler(greedy, temperature, top_k, top_p)
     run = make_run(params)
     device = model.device
-    mp = model.tp.n if getattr(model, "tp", None) is not None else 1
+    kv_heads = (model.tp.heads[1] if getattr(model, "tp", None) is not None
+                else None)
 
     @torch.no_grad()
     def gen(ids, seed: int = 0):
@@ -376,7 +385,7 @@ def build_generate_fn(model, max_new_tokens: int, temperature: float = 1.0,
                 f"model's max_seq_len {cfg.max_seq_len}")
         kc, vc = _empty_cache(cfg, b, t0 + max_new_tokens,
                               params["wte"].dtype, device, int8=int8,
-                              kv_bits=kv_bits, mp=mp)
+                              kv_bits=kv_bits, kv_heads=kv_heads)
         generator = torch.Generator(device=device).manual_seed(seed)
         logits, kc, vc = run(ids, 0, kc, vc)
         tok = sample(logits[:, -1], generator)
@@ -467,7 +476,8 @@ def build_beam_search_fn(model, max_new_tokens: int, beam_size: int = 4,
     params, make_run = _decoder_setup(model, int8=int8)
     run = make_run(params)
     device = model.device
-    mp = model.tp.n if getattr(model, "tp", None) is not None else 1
+    kv_heads = (model.tp.heads[1] if getattr(model, "tp", None) is not None
+                else None)
 
     @torch.no_grad()
     def gen(ids):
@@ -479,7 +489,8 @@ def build_beam_search_fn(model, max_new_tokens: int, beam_size: int = 4,
                 f"model's max_seq_len {cfg.max_seq_len}")
         V = cfg.vocab_size
         kc, vc = _empty_cache(cfg, b, t0 + max_new_tokens,
-                              params["wte"].dtype, device, int8=int8, mp=mp)
+                              params["wte"].dtype, device, int8=int8,
+                              kv_heads=kv_heads)
         logits, kc, vc = run(ids, 0, kc, vc)
         scores0, tok0 = _top_k(_log_softmax(logits[:, -1]), K)   # (B, K)
         rep = torch.arange(b, device=device).repeat_interleave(K)

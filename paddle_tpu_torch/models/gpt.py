@@ -70,7 +70,7 @@ from ..framework import random as _random
 from ..kernels.attention import sdpa
 from ..ops.nn_ops import dropout as _dropout
 from ..ops.quant_ops import w8a8_matmul
-from ..weights import tp_shard
+from ..weights import attn_split, tp_shard
 from .generation import _ln
 
 
@@ -296,6 +296,35 @@ class GPTPretrainingCriterion(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+class _SharedKV(torch.autograd.Function):
+    """Identity on a rank's QKV columns (or bias) in the forward; in the
+    backward the gradient of its K/V columns is summed over the ranks that
+    hold copies of the same K/V head, so the copies stay equal: each
+    rank scatters its K/V gradient into its heads' slots of a buffer over
+    all K/V heads, one all-reduce over mp sums the copies, and each rank
+    reads its slots back."""
+
+    @staticmethod
+    def forward(ctx, w, tp):
+        ctx.tp = tp
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        nq, kv0, nkv = tp.split[1], tp.split[2], tp.split[3]
+        hd = tp.head_dim
+        lead = g.shape[:-1]
+        kv = g[..., nq * hd:].reshape(*lead, 2, nkv, hd)
+        buf = g.new_zeros(*lead, 2, tp.kv_heads, hd)
+        buf[..., kv0:kv0 + nkv, :] = kv
+        dist.all_reduce(buf, group=tp.group)
+        out = g.clone()
+        out[..., nq * hd:] = buf[..., kv0:kv0 + nkv, :].reshape(
+            *lead, 2 * nkv * hd)
+        return out, None
+
+
 class TensorParallel:
     """The mesh's mp axis as the GPT's layers use it: rank ``rank`` of
     ``n`` in ``group``, holding ``heads`` = (query heads, KV heads) of its
@@ -303,20 +332,31 @@ class TensorParallel:
     distributed.fleet.meta_parallel.mp_layers`: QKV and fc1
     column-parallel, proj and fc2 row-parallel, the tied embedding and
     head vocabulary-parallel (the cross-entropy never gathers the
-    logits).  Every head, KV head, vocabulary row and hidden unit of the
-    MLP must split evenly."""
+    logits).  The vocabulary and the MLP's hidden units must split
+    evenly.  Attention splits by head as :func:`~paddle_tpu_torch.
+    weights.attn_split` decides: with fewer K/V heads than ranks each
+    rank holds the K/V head its query heads read, and the gradient of
+    such a copy is summed over the ranks sharing it (:class:`_SharedKV`);
+    where mp does not divide the query heads attention is whole on every
+    rank (``split`` None), with QKV and proj replicated.  Their gradients
+    are then equal on every rank without a collective: the residual
+    stream's gradient reaching them is whole on every rank (the split
+    MLP's and the head's partial input gradients are all-reduced where
+    they enter), so each rank computes the same update."""
 
     def __init__(self, cfg: GPTConfig, mesh):
         self.group = mesh.group("mp")
         self.n, self.rank = mesh.shape["mp"], mesh.coord["mp"]
-        for what, size in (("num_heads", cfg.num_heads),
-                           ("num_kv_heads", cfg.num_kv_heads),
-                           ("vocab_size", cfg.vocab_size),
+        for what, size in (("vocab_size", cfg.vocab_size),
                            ("ffn_hidden", cfg.ffn_hidden)):
             if size % self.n:
                 raise ValueError(f"tensor parallelism over mp={self.n} needs "
                                  f"{what} ({size}) to be a multiple of it")
-        self.heads = (cfg.num_heads // self.n, cfg.num_kv_heads // self.n)
+        self.split = attn_split(cfg, self.n, self.rank)
+        self.head_dim, self.kv_heads = cfg.head_dim, cfg.num_kv_heads
+        self.heads = ((cfg.num_heads, cfg.num_kv_heads) if self.split is None
+                      else (self.split[1], self.split[3]))
+        self.shared_kv = self.split is not None and cfg.num_kv_heads < self.n
         self.vocab = cfg.vocab_size
 
     def embed(self, wte, ids):
@@ -327,6 +367,21 @@ class TensorParallel:
 
     def row(self, x, w, b, int8):
         return row_parallel_linear(x, w, b, self.group, int8=int8)
+
+    def qkv(self, x, w, b, int8):
+        """The fused QKV projection: column-parallel over this rank's
+        heads (K/V copies summed in the backward), or whole."""
+        if self.split is None:
+            return _linear(x, w, b, int8)
+        if self.shared_kv:
+            w, b = _SharedKV.apply(w, self), _SharedKV.apply(b, self)
+        return self.col(x, w, b, int8)
+
+    def proj(self, x, w, b, int8):
+        """The attention's output projection: row-parallel, or whole."""
+        if self.split is None:
+            return _linear(x, w, b, int8)
+        return self.row(x, w, b, int8)
 
     def concat(self, logits):
         """Vocabulary-split logits gathered whole (differentiable)."""
@@ -375,11 +430,12 @@ def _attention(cfg, p, x, key=None, dropout=0.0, tp=None):
     attention.  ``dropout`` > 0 drops attention probabilities with the
     mask of ``key`` (:func:`~paddle_tpu_torch.kernels.attention.
     sdpa_dropout`).  Under ``tp`` the QKV projection is column-parallel
-    (this rank's heads) and proj row-parallel."""
+    (this rank's heads) and proj row-parallel, or both whole where
+    attention does not split (:class:`TensorParallel`)."""
     hd = cfg.head_dim
     nh, nkv = (cfg.num_heads, cfg.num_kv_heads) if tp is None else tp.heads
-    col = _linear if tp is None else tp.col
-    row = _linear if tp is None else tp.row
+    col = _linear if tp is None else tp.qkv
+    row = _linear if tp is None else tp.proj
     d0, d1, _ = x.shape
     qkv = col(x, p["qkv_w"], p["qkv_b"], cfg.int8)
     q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
@@ -927,7 +983,7 @@ def _distributed_step(model, mesh, stage, remat, ce_chunk_rows, cast, opts):
         parts = {}
         if n_data > 1:
             parts[bdim if not heads else 0] = batch_part
-        if heads and mp > 1:
+        if heads and mp > 1 and tp.split is not None:
             parts[1] = (tp.rank, mp)
         return _random.ShardedKey(key, parts) if parts else key
 

@@ -1,0 +1,23 @@
+"""The layers ported so far (counterpart of ``paddle_tpu/nn/layer``):
+common, norm, activation and loss.  ``conv``, ``pooling``, ``rnn``,
+``transformer`` and ``extras`` wait for later slices (ROADMAP A)."""
+
+from .common import (  # noqa: F401
+    Bilinear, CosineSimilarity, Dropout, Dropout2D, Embedding, Flatten,
+    Identity, Linear, Pad2D,
+)
+from .norm import (  # noqa: F401
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+    LocalResponseNorm, SyncBatchNorm,
+)
+from .activation import (  # noqa: F401
+    ELU, GELU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh, LeakyReLU,
+    LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6, SELU, SiLU,
+    Sigmoid, Softmax, Softplus, Softshrink, Softsign, Swish, Tanh, Tanhshrink,
+    ThresholdedReLU,
+)
+from .loss import (  # noqa: F401
+    BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss, L1Loss,
+    MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
+)

@@ -1,15 +1,31 @@
-"""Dropout, the reference's ``dropout`` kernel (``paddle_tpu/ops/nn_ops.py``
-``dropout_kernel``), decision for decision:
+"""Neural-net ops: norms, dropout, the fused losses and attention.
+
+Counterpart of ``paddle_tpu/ops/nn_ops.py`` less its vision ops (conv2d
+/ conv3d and their transposes, pool2d / pool3d, ``max_pool2d_with_index``
+and the interpolation ops, which wait for ROADMAP A.12), and of the
+reference's registered ``scaled_dot_product_attention``
+(``paddle_tpu/kernels/attention.py:111-125``), whose kernel here is
+:func:`paddle_tpu_torch.kernels.attention.sdpa`: on the card it launches
+the flash kernels, forward and backward, or raises.
+
+The ops whose backward the reference writes by hand keep it as a
+registered grad op (``batch_norm_grad``, ``dropout_grad``,
+``softmax_with_cross_entropy_grad``, ``data_norm_grad``), named by the
+forward op's ``grad_maker``; the others differentiate by autograd.
+
+:func:`dropout` is the GPT's dropout, the reference's ``dropout`` kernel
+decision for decision:
 
 * ``p == 0`` in training is the identity, with NO draw;
 * in eval (``training=False``) it is the identity (``upscale_in_train``,
-  the mode the GPT uses; the other mode is not ported);
+  the mode the GPT uses);
 * otherwise keep = ``uniform(float32) < float32(1 - p)``; the kept
   values are multiplied by ``1 / (1 - p)`` rounded to x's dtype (0 when
   p >= 1) and the dropped ones are 0.
 
 The uniforms come from :func:`paddle_tpu_torch.framework.random.draw`
-of the caller's key: the same key draws the same mask.
+of the caller's key: the same key draws the same mask; the ``dropout``
+op draws them the same way from its op key.
 """
 
 from __future__ import annotations
@@ -18,8 +34,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..framework import random as _random
+from ..kernels import attention as _attention
+from .registry import GRAD_SUFFIX, register_op
 
 
 def dropout(x, p: float, key: Optional[int], training: bool = True):
@@ -31,3 +50,475 @@ def dropout(x, p: float, key: Optional[int], training: bool = True):
     scale = 0.0 if p >= 1.0 else 1.0 / (1.0 - p)
     scale = torch.tensor(scale, dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# batch_norm (hand-written grad: uses the saved batch statistics)
+# ---------------------------------------------------------------------------
+
+
+def _bn_axes(x, data_layout):
+    if data_layout == "NHWC":
+        return tuple(range(x.ndim - 1)), (1,) * (x.ndim - 1) + (-1,)
+    return (0,) + tuple(range(2, x.ndim)), (1, -1) + (1,) * (x.ndim - 2)
+
+
+def _batch_norm_grad_maker(ins, outs, ogs):
+    return "batch_norm_grad", {
+        "X": ins["X"], "Scale": ins["Scale"], "Bias": ins["Bias"],
+        "Mean": ins["Mean"], "Variance": ins["Variance"],
+        "SavedMean": outs["SavedMean"], "SavedVariance": outs["SavedVariance"],
+        "Y" + GRAD_SUFFIX: ogs["Y"]}
+
+
+@register_op("batch_norm", nondiff_slots=("Mean", "Variance"),
+             nondiff_out_slots=("MeanOut", "VarianceOut", "SavedMean",
+                                "SavedVariance"),
+             grad_maker=_batch_norm_grad_maker)
+def batch_norm_kernel(ins, attrs):
+    """Batch statistics in one pass over x shifted by a per-channel value
+    of its first sample (the reference's form), or the running ones in
+    eval; MeanOut / VarianceOut are the updated running statistics."""
+    x = ins["X"]
+    scale, bias = ins["Scale"], ins["Bias"]
+    mean_rt, var_rt = ins["Mean"], ins["Variance"]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    is_test = attrs.get("is_test", False) and not attrs.get(
+        "trainable_statistics", False)
+    use_global = attrs.get("use_global_stats", False) or is_test
+    layout = attrs.get("data_layout", "NCHW")
+    axes, bshape = _bn_axes(x, layout)
+    xf = x.float()
+    if use_global:
+        mean, var = mean_rt, var_rt
+        mean_out, var_out = mean_rt, var_rt
+        saved_mean, saved_var = mean_rt, torch.rsqrt(var_rt + eps)
+    else:
+        if layout == "NHWC":
+            first = xf[(slice(0, 1),) * (x.ndim - 1)]
+        else:
+            first = xf[(slice(0, 1), slice(None))
+                       + (slice(0, 1),) * (x.ndim - 2)]
+        shift = torch.mean(first, dim=axes).detach()
+        xc = xf - shift.reshape(bshape)
+        mean_c = torch.mean(xc, dim=axes)
+        var = torch.clamp_min(torch.mean(torch.square(xc), dim=axes)
+                              - torch.square(mean_c), 0.0)
+        mean = mean_c + shift
+        mean_out = momentum * mean_rt + (1.0 - momentum) * mean
+        var_out = momentum * var_rt + (1.0 - momentum) * var
+        saved_mean, saved_var = mean, torch.rsqrt(var + eps)
+    inv_std = torch.rsqrt(var + eps)
+    y = (xf - mean.reshape(bshape)) * inv_std.reshape(bshape)
+    y = y * scale.reshape(bshape) + bias.reshape(bshape)
+    return {"Y": y.to(x.dtype), "MeanOut": mean_out, "VarianceOut": var_out,
+            "SavedMean": saved_mean, "SavedVariance": saved_var}
+
+
+@register_op("batch_norm_grad", no_grad=True)
+def batch_norm_grad_kernel(ins, attrs):
+    x, scale = ins["X"], ins["Scale"]
+    dy = ins["Y" + GRAD_SUFFIX]
+    eps = attrs.get("epsilon", 1e-5)
+    use_global = attrs.get("use_global_stats", False) or attrs.get(
+        "is_test", False)
+    axes, bshape = _bn_axes(x, attrs.get("data_layout", "NCHW"))
+    xf, dyf = x.float(), dy.float()
+    m = 1
+    for a in axes:
+        m *= x.shape[a]
+    if use_global:
+        inv_std = torch.rsqrt(ins["Variance"] + eps)
+        xhat = (xf - ins["Mean"].reshape(bshape)) * inv_std.reshape(bshape)
+        dx = dyf * (scale * inv_std).reshape(bshape)
+        dscale = torch.sum(dyf * xhat, dim=axes)
+        dbias = torch.sum(dyf, dim=axes)
+    else:
+        inv_std = ins["SavedVariance"]  # rsqrt(var + eps)
+        xhat = (xf - ins["SavedMean"].reshape(bshape)) \
+            * inv_std.reshape(bshape)
+        dbias = torch.sum(dyf, dim=axes)
+        dscale = torch.sum(dyf * xhat, dim=axes)
+        dx = ((scale * inv_std).reshape(bshape) / m
+              * (m * dyf - dbias.reshape(bshape)
+                 - xhat * dscale.reshape(bshape)))
+    return {"X" + GRAD_SUFFIX: dx.to(x.dtype), "Scale" + GRAD_SUFFIX: dscale,
+            "Bias" + GRAD_SUFFIX: dbias}
+
+
+def _moments(xf, axes):
+    """Mean and population variance over ``axes`` (kept)."""
+    var, mean = torch.var_mean(xf, dim=axes, correction=0, keepdim=True)
+    return mean, var
+
+
+@register_op("layer_norm", nondiff_out_slots=("Mean", "Variance"))
+def layer_norm_kernel(ins, attrs):
+    """LayerNorm over the dims from ``begin_norm_axis``, in fp32, cast
+    back to x's dtype."""
+    x = ins["X"]
+    eps = attrs.get("epsilon", 1e-5)
+    bna = attrs.get("begin_norm_axis", 1)
+    axes = tuple(range(bna, x.ndim))
+    xf = x.float()
+    mean, var = _moments(xf, axes)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    norm_shape = tuple(x.shape[bna:])
+    if ins.get("Scale") is not None:
+        y = y * ins["Scale"].reshape(norm_shape).float()
+    if ins.get("Bias") is not None:
+        y = y + ins["Bias"].reshape(norm_shape).float()
+    return {"Y": y.to(x.dtype), "Mean": mean.squeeze(axes),
+            "Variance": var.squeeze(axes)}
+
+
+@register_op("group_norm", nondiff_out_slots=("Mean", "Variance"))
+def group_norm_kernel(ins, attrs):
+    x = ins["X"]  # NCHW
+    g = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:])).float()
+    axes = tuple(range(2, xg.ndim))
+    mean, var = _moments(xg, axes)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    cshape = (1, c) + (1,) * (x.ndim - 2)
+    if ins.get("Scale") is not None:
+        y = y * ins["Scale"].reshape(cshape)
+    if ins.get("Bias") is not None:
+        y = y + ins["Bias"].reshape(cshape)
+    return {"Y": y.to(x.dtype), "Mean": mean.squeeze(axes),
+            "Variance": var.squeeze(axes)}
+
+
+@register_op("instance_norm",
+             nondiff_out_slots=("SavedMean", "SavedVariance"))
+def instance_norm_kernel(ins, attrs):
+    x = ins["X"]
+    eps = attrs.get("epsilon", 1e-5)
+    axes = tuple(range(2, x.ndim))
+    mean, var = _moments(x.float(), axes)
+    y = (x.float() - mean) * torch.rsqrt(var + eps)
+    cshape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
+    if ins.get("Scale") is not None:
+        y = y * ins["Scale"].reshape(cshape)
+    if ins.get("Bias") is not None:
+        y = y + ins["Bias"].reshape(cshape)
+    return {"Y": y.to(x.dtype), "SavedMean": mean.squeeze(axes),
+            "SavedVariance": var.squeeze(axes)}
+
+
+# ---------------------------------------------------------------------------
+# dropout (hand-written grad: reuses the Mask)
+# ---------------------------------------------------------------------------
+
+
+def _dropout_grad_maker(ins, outs, ogs):
+    return "dropout_grad", {"Mask": outs["Mask"],
+                            "Out" + GRAD_SUFFIX: ogs["Out"]}
+
+
+@register_op("dropout", needs_rng=True, nondiff_out_slots=("Mask",),
+             grad_maker=_dropout_grad_maker)
+def dropout_kernel(ins, attrs, rng=None):
+    """The op of :func:`dropout`, with the reference's attributes
+    (``dropout_prob``, ``is_test``, ``dropout_implementation`` and a mask
+    restricted to ``axis``); the Mask (uint8) is saved for the
+    backward."""
+    x = ins["X"]
+    p = attrs.get("dropout_prob", 0.5)
+    is_test = attrs.get("is_test", False)
+    impl = attrs.get("dropout_implementation", "upscale_in_train")
+    ones = torch.ones(tuple(x.shape), dtype=torch.uint8, device=x.device)
+    if p == 0.0 and not is_test:
+        return {"Out": x.view_as(x), "Mask": ones}
+    if is_test:
+        if impl == "upscale_in_train":
+            return {"Out": x.view_as(x), "Mask": ones}
+        return {"Out": x * (1.0 - p), "Mask": ones}
+    axes = attrs.get("axis")
+    if axes is not None:
+        axes = [axes] if isinstance(axes, int) else list(axes)
+        mask_shape = tuple(x.shape[i] if i in axes else 1
+                           for i in range(x.ndim))
+    else:
+        mask_shape = tuple(x.shape)
+    keep = _random.draw(rng, mask_shape, x.device) < np.float32(1.0 - p)
+    keep = torch.broadcast_to(keep, tuple(x.shape))
+    if impl == "upscale_in_train":
+        scale = 0.0 if p >= 1.0 else 1.0 / (1.0 - p)
+        out = torch.where(keep, x * torch.tensor(scale, dtype=x.dtype),
+                          torch.zeros_like(x))
+    else:
+        out = torch.where(keep, x, torch.zeros_like(x))
+    return {"Out": out, "Mask": keep.to(torch.uint8)}
+
+
+@register_op("dropout_grad", no_grad=True)
+def dropout_grad_kernel(ins, attrs):
+    dy = ins["Out" + GRAD_SUFFIX]
+    mask = ins["Mask"].to(dy.dtype)
+    p = attrs.get("dropout_prob", 0.5)
+    if attrs.get("dropout_implementation",
+                 "upscale_in_train") == "upscale_in_train":
+        scale = 0.0 if p >= 1.0 else 1.0 / (1.0 - p)
+        dx = dy * mask * torch.tensor(scale, dtype=dy.dtype)
+    else:
+        dx = dy * mask
+    return {"X" + GRAD_SUFFIX: dx}
+
+
+# ---------------------------------------------------------------------------
+# softmax + cross entropy (fused; hand-written grad)
+# ---------------------------------------------------------------------------
+
+
+def _swce_grad_maker(ins, outs, ogs):
+    return "softmax_with_cross_entropy_grad", {
+        "Softmax": outs["Softmax"], "Label": ins["Label"],
+        "Loss" + GRAD_SUFFIX: ogs["Loss"]}
+
+
+def _hard_label(label, axis, ndim, ignore_index):
+    lab = label
+    if lab.ndim == ndim:
+        lab = lab.squeeze(axis)
+    valid = lab != ignore_index
+    return torch.where(valid, lab, torch.zeros_like(lab)).long(), valid
+
+
+@register_op("softmax_with_cross_entropy", nondiff_slots=("Label",),
+             nondiff_out_slots=("Softmax",), grad_maker=_swce_grad_maker)
+def softmax_with_cross_entropy_kernel(ins, attrs):
+    """The log-sum-exp form, always numerically stable; hard labels equal
+    to ``ignore_index`` (whatever its sign) give 0."""
+    logits, label = ins["Logits"], ins["Label"]
+    axis = attrs.get("axis", -1) % logits.ndim
+    ignore_index = attrs.get("ignore_index", -100)
+    lse = torch.logsumexp(logits, dim=axis, keepdim=True)
+    log_softmax = logits - lse
+    softmax = torch.exp(log_softmax)
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * log_softmax, dim=axis, keepdim=True)
+    else:
+        safe, valid = _hard_label(label, axis, logits.ndim, ignore_index)
+        safe = safe.clamp(0, logits.shape[axis] - 1)
+        picked = torch.take_along_dim(log_softmax, safe.unsqueeze(axis),
+                                      dim=axis)
+        loss = torch.where(valid.unsqueeze(axis), -picked,
+                           torch.zeros_like(picked))
+    return {"Softmax": softmax, "Loss": loss.to(logits.dtype)}
+
+
+@register_op("softmax_with_cross_entropy_grad", no_grad=True)
+def softmax_with_cross_entropy_grad_kernel(ins, attrs):
+    softmax, label = ins["Softmax"], ins["Label"]
+    dloss = ins["Loss" + GRAD_SUFFIX]
+    axis = attrs.get("axis", -1) % softmax.ndim
+    if attrs.get("soft_label", False):
+        dlogits = (softmax - label) * dloss
+    else:
+        safe, valid = _hard_label(label, axis, softmax.ndim,
+                                  attrs.get("ignore_index", -100))
+        onehot = F.one_hot(safe, softmax.shape[axis]).to(softmax.dtype)
+        onehot = onehot.movedim(-1, axis)
+        dlogits = (softmax - onehot) * dloss
+        dlogits = torch.where(valid.unsqueeze(axis), dlogits,
+                              torch.zeros_like(dlogits))
+    return {"Logits" + GRAD_SUFFIX: dlogits}
+
+
+@register_op("cross_entropy", nondiff_slots=("Label",))
+def cross_entropy_kernel(ins, attrs):
+    """X is probabilities (not logits)."""
+    x, label = ins["X"], ins["Label"]
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * torch.log(torch.clamp_min(x, 1e-12)),
+                          dim=-1, keepdim=True)
+    else:
+        lab = label.squeeze(-1) if label.ndim == x.ndim else label
+        lab = lab.long().clamp(0, x.shape[-1] - 1)
+        picked = torch.take_along_dim(x, lab.unsqueeze(-1), dim=-1)
+        loss = -torch.log(torch.clamp_min(picked, 1e-12))
+    return {"Y": loss}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def bce_with_logits_kernel(ins, attrs):
+    x, label = ins["X"], ins["Label"]
+    loss = torch.clamp_min(x, 0) - x * label + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    ignore_index = attrs.get("ignore_index", -100)
+    if ignore_index >= 0:
+        loss = torch.where(label == ignore_index, torch.zeros_like(loss),
+                           loss)
+    if attrs.get("normalize", False):
+        norm = torch.clamp_min(torch.sum((label != ignore_index).to(
+            loss.dtype)), 1.0)
+        loss = loss / norm
+    return {"Out": loss}
+
+
+@register_op("bce_loss")
+def bce_loss_kernel(ins, attrs):
+    x, label = ins["X"], ins["Label"]
+    x = torch.clamp(x, 1e-12, 1.0 - 1e-7)
+    return {"Out": -(label * torch.log(x) + (1.0 - label) * torch.log1p(-x))}
+
+
+@register_op("huber_loss", nondiff_out_slots=("Residual",))
+def huber_loss_kernel(ins, attrs):
+    x, y = ins["X"], ins["Y"]
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Out": loss, "Residual": r}
+
+
+@register_op("smooth_l1_loss", nondiff_out_slots=("Diff",))
+def smooth_l1_kernel(ins, attrs):
+    x, y = ins["X"], ins["Y"]
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    d = x - y
+    ad = torch.abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * d * d * s2, ad - 0.5 / s2)
+    return {"Out": torch.sum(loss, dim=-1, keepdim=True), "Diff": d}
+
+
+@register_op("kldiv_loss")
+def kldiv_loss_kernel(ins, attrs):
+    x, target = ins["X"], ins["Target"]
+    loss = target * (torch.log(torch.clamp_min(target, 1e-12)) - x)
+    loss = torch.where(target > 0, loss, torch.zeros_like(loss))
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        return {"Loss": torch.mean(loss)}
+    if red == "sum":
+        return {"Loss": torch.sum(loss)}
+    if red == "batchmean":
+        return {"Loss": torch.sum(loss) / x.shape[0]}
+    return {"Loss": loss}
+
+
+@register_op("square_error_cost")
+def square_error_cost_kernel(ins, attrs):
+    return {"Out": torch.square(ins["X"] - ins["Y"])}
+
+
+@register_op("accuracy", nondiff_slots=("Out", "Indices", "Label"),
+             no_grad=True)
+def accuracy_kernel(ins, attrs):
+    """The share of samples whose top-k Indices hit Label."""
+    indices, label = ins["Indices"], ins["Label"]
+    if label.ndim < indices.ndim:
+        label = label[..., None]
+    correct = torch.any(indices == label, dim=-1)
+    return {"Accuracy": torch.mean(correct.float()),
+            "Correct": torch.sum(correct.to(torch.int32)).to(torch.int32),
+            "Total": torch.tensor(label.shape[0], dtype=torch.int32,
+                                  device=label.device)}
+
+
+@register_op("label_smooth")
+def label_smooth_kernel(ins, attrs):
+    x = ins["X"]
+    eps = attrs.get("epsilon", 0.0)
+    return {"Out": (1.0 - eps) * x + eps / x.shape[-1]}
+
+
+@register_op("norm", nondiff_out_slots=("Norm",))
+def norm_kernel(ins, attrs):
+    x = ins["X"]
+    n = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                             keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": x / n, "Norm": n}
+
+
+def _data_norm_grad_maker(ins, outs, ogs):
+    return "data_norm_grad", {
+        "X": ins["X"], "BatchSize": ins["BatchSize"],
+        "BatchSum": ins["BatchSum"], "BatchSquareSum": ins["BatchSquareSum"],
+        "Y" + GRAD_SUFFIX: ogs["Y"]}
+
+
+@register_op("data_norm", nondiff_slots=("BatchSize", "BatchSum",
+                                         "BatchSquareSum"),
+             nondiff_out_slots=("BatchSizeOut", "BatchSumOut",
+                                "BatchSquareSumOut"),
+             grad_maker=_data_norm_grad_maker)
+def data_norm_kernel(ins, attrs):
+    """y = (x - sum / size) * sqrt(size / square_sum); the statistics'
+    update runs in the grad op, as in the reference."""
+    x = ins["X"]
+    size = ins["BatchSize"].detach()
+    ssum = ins["BatchSum"].detach()
+    ssq = ins["BatchSquareSum"].detach()
+    y = (x - ssum / size) * torch.sqrt(size / ssq)
+    return {"Y": y, "BatchSizeOut": size, "BatchSumOut": ssum,
+            "BatchSquareSumOut": ssq}
+
+
+@register_op("data_norm_grad", no_grad=True)
+def data_norm_grad_kernel(ins, attrs):
+    """dX = dY * scale, plus the statistics' update (training only)."""
+    x = ins["X"]
+    dy = ins["Y" + GRAD_SUFFIX]
+    size, ssum, ssq = ins["BatchSize"], ins["BatchSum"], \
+        ins["BatchSquareSum"]
+    mean = ssum / size
+    scale = torch.sqrt(size / ssq)
+    out = {"BatchSizeOut": size, "BatchSumOut": ssum,
+           "BatchSquareSumOut": ssq}
+    if not attrs.get("is_test", False):
+        decay = attrs.get("summary_decay_rate", 0.9999999)
+        out = {"BatchSizeOut": decay * size + x.shape[0],
+               "BatchSumOut": decay * ssum + torch.sum(x, dim=0),
+               "BatchSquareSumOut": decay * ssq
+               + torch.sum(torch.square(x - mean), dim=0)}
+    out["X" + GRAD_SUFFIX] = dy * scale
+    return out
+
+
+@register_op("fused_softmax_mask")
+def fused_softmax_mask_kernel(ins, attrs):
+    """softmax(x + mask) in fp32."""
+    x = ins["X"]
+    s = x.float() + ins["Mask"].float()
+    s = s - torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s)
+    return {"Out": (e / torch.sum(e, dim=-1, keepdim=True)).to(x.dtype)}
+
+
+@register_op("fused_softmax_mask_upper_triangle")
+def fused_softmax_mask_upper_triangle_kernel(ins, attrs):
+    """The causal softmax: keys after the query's position get -1e9."""
+    x = ins["X"]
+    q, k = x.shape[-2], x.shape[-1]
+    mask = torch.tril(torch.ones((q, k), dtype=torch.bool, device=x.device),
+                      diagonal=k - q)
+    s = torch.where(mask, x.float(), torch.tensor(-1e9))
+    s = s - torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s) * mask
+    return {"Out": (e / torch.clamp_min(torch.sum(e, dim=-1, keepdim=True),
+                                        1e-30)).to(x.dtype)}
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+@register_op("scaled_dot_product_attention", needs_rng=True)
+def sdpa_kernel(ins, attrs, rng=None):
+    """:func:`~paddle_tpu_torch.kernels.attention.sdpa`: on the card the
+    flash kernels (forward here, dQ and dK/dV in the backward), on the
+    CPU their plain version; dropout with the op's key."""
+    p = 0.0 if attrs.get("is_test", False) else attrs.get("dropout_p", 0.0)
+    return {"Out": _attention.sdpa(
+        ins["Q"], ins["K"], ins["V"], mask=ins.get("Mask"),
+        scale=attrs.get("scale"), is_causal=attrs.get("is_causal", False),
+        dropout_p=p, layout=attrs.get("layout", "bnsd"),
+        window=attrs.get("window"), key=rng)}

@@ -100,6 +100,12 @@ class RecordEvent:
         return False
 
 
+def is_profiling() -> bool:
+    """True while spans are collected (a table or a device trace): the
+    eager tracer then opens one span per op."""
+    return bool(_state["enabled"]) or _state["trace"] is not None
+
+
 @contextlib.contextmanager
 def record_event(name: str):
     with RecordEvent(name):

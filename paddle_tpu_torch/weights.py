@@ -22,10 +22,13 @@ tensor-core kernel.
 Tensor parallelism (``GPTConfig.use_parallel`` under a mesh with mp >
 1) keeps rank r's slice of each split parameter (:func:`tp_index`): the
 vocabulary rows of ``wte``; the columns of ``qkv`` BY HEAD (its q heads,
-then its k heads, then its v heads: GSPMD splits the fused columns
-contiguously, which would hand a rank other heads' columns) and of
-``fc1``; the rows of ``proj`` and ``fc2``.  The rest is whole on every
-rank.  :func:`load_jax_named_params` and :func:`load_jax_params` slice
+then the k heads and the v heads those q heads read: GSPMD splits the
+fused columns contiguously, which would hand a rank other heads' columns)
+and of ``fc1``; the rows of ``proj`` and ``fc2``.  The rest is whole on
+every rank.  Where mp does not divide the heads (:func:`attn_split`),
+attention is not split: ``qkv`` and ``proj`` are whole on every rank;
+where fewer K/V heads than ranks exist, the ranks that read one K/V head
+each hold a copy of it.  :func:`load_jax_named_params` and :func:`load_jax_params` slice
 global weights for a tensor-parallel model; :func:`rank_shards` gives a
 rank of any ``(dp, pp, sharding, mp)`` topology its shards (its pipeline
 stage's blocks) and :func:`gather_shards` puts ranks' shards back
@@ -96,18 +99,38 @@ def port_name(jax_name: str) -> str:
     return f"blocks.{idx}.{_JAX_BLOCK[key]}"
 
 
+def attn_split(cfg, mp: int, rank: int):
+    """How tensor parallelism over ``mp`` ranks splits attention for rank
+    ``rank``: ``(q0, nq, kv0, nkv)``, its first query head and their
+    count and the first K/V head they read and their count; None when
+    attention stays whole on every rank.  Attention splits by head when
+    mp divides the query heads and the K/V heads split evenly or each
+    rank's query heads read one K/V head (mp a multiple of the K/V
+    heads; the ranks that share it hold copies)."""
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    if nh % mp or (nkv % mp and mp % nkv):
+        return None
+    nq = nh // mp
+    group = nh // nkv
+    q0 = rank * nq
+    kv0 = q0 // group
+    return q0, nq, kv0, (q0 + nq - 1) // group + 1 - kv0
+
+
 def tp_index(cfg, name: str, mp: int, rank: int):
     """``(dim, indices)``: where port parameter ``name`` is split over
     ``mp`` tensor-parallel ranks and which of its indices rank ``rank``
     holds (numpy int64); None for a parameter every rank holds whole."""
     key = name.rsplit(".", 1)[-1]
     hd = cfg.head_dim
+    heads = attn_split(cfg, mp, rank)
+    if key in ("qkv_w", "qkv_b", "proj_w") and heads is None:
+        return None
     if key == "qkv_w" or key == "qkv_b":
-        nh, nkv = cfg.num_heads // mp, cfg.num_kv_heads // mp
-        q0 = rank * nh * hd
-        k0 = cfg.num_heads * hd + rank * nkv * hd
-        v0 = k0 + cfg.num_kv_heads * hd
-        idx = np.concatenate([np.arange(q0, q0 + nh * hd),
+        q0, nq, kv0, nkv = heads
+        k0 = (cfg.num_heads + kv0) * hd
+        v0 = (cfg.num_heads + cfg.num_kv_heads + kv0) * hd
+        idx = np.concatenate([np.arange(q0 * hd, (q0 + nq) * hd),
                               np.arange(k0, k0 + nkv * hd),
                               np.arange(v0, v0 + nkv * hd)])
         return (1 if key == "qkv_w" else 0), idx
@@ -209,7 +232,7 @@ def gather_shards(ranks, cfg, dims) -> Dict[str, np.ndarray]:
             continue
         dim = where[0]
         shape = list(by_rank[0].shape)
-        shape[dim] *= mp
+        shape[dim] = _tp_length(cfg, name.rsplit(".", 1)[-1])
         full = np.zeros(shape, by_rank[0].dtype)
         for r, a in by_rank.items():
             idx = tp_index(cfg, name, mp, r)[1]
@@ -233,3 +256,44 @@ def load_jax_params(model, tree) -> None:
     the model's dtype and device; a tensor-parallel model takes its
     rank's slices.  Shapes must match exactly."""
     _load(model, params_from_jax(tree))
+
+
+# ---------------------------------------------------------------------------
+# the paddle-shaped eager API: nn.Layer state dicts, optimizer state
+# ---------------------------------------------------------------------------
+
+
+def load_paddle_state_dict(layer, state) -> None:
+    """Load a reference ``Layer.state_dict()`` (structured names such as
+    ``bert.layers.0.attn.qkv.weight``, values as numpy arrays or anything
+    ``np.asarray`` takes, paddle layouts: Linear weights ``[in, out]``)
+    into the port's :class:`~paddle_tpu_torch.nn.Layer` of the same
+    structure, cast to each parameter's dtype and device.  Every key must
+    match, both ways."""
+    missing, unexpected = layer.set_state_dict(
+        {k: np.asarray(v) for k, v in state.items()})
+    if missing or unexpected:
+        raise ValueError(f"state dict mismatch: missing {missing[:8]}, "
+                         f"unexpected {unexpected[:8]}")
+
+
+def state_dict_to_numpy(layer) -> Dict[str, np.ndarray]:
+    """The port's ``Layer.state_dict()`` as fp32 (or integer) numpy
+    arrays, by structured name."""
+    return {k: v.numpy() for k, v in layer.state_dict().items()}
+
+
+def optimizer_state_to_numpy(opt) -> Dict[str, object]:
+    """The port optimizer's ``state_dict()`` as numpy arrays under the
+    reference's keys (``{param}_{acc}_0``; ``LR_Scheduler`` as it is)."""
+    return {k: (v if k == "LR_Scheduler" else np.asarray(
+        v.numpy() if hasattr(v, "numpy") else v))
+        for k, v in opt.state_dict().items()}
+
+
+def load_optimizer_state(opt, state) -> None:
+    """Load a reference optimizer's ``state_dict()`` (numpy values under
+    its keys) into the port's optimizer: existing accumulators are
+    overwritten, the rest are held until the first step creates them."""
+    opt.set_state_dict({k: (v if k == "LR_Scheduler" else np.asarray(v))
+                        for k, v in state.items()})

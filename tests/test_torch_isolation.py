@@ -137,3 +137,66 @@ def test_kv_pool_follows_the_device_policy(monkeypatch):
     pool = KVPool(1, 2, 16, num_pages=4, page_size=4, device="cpu")
     assert pool.buffers["k"].device.type == "cpu"
     assert pool.buffers["k"].dtype == torch.float32
+
+
+EAGER_MODULES = (
+    "paddle_tpu_torch.framework", "paddle_tpu_torch.framework.dtype",
+    "paddle_tpu_torch.framework.place", "paddle_tpu_torch.framework.scope",
+    "paddle_tpu_torch.framework.unique_name",
+    "paddle_tpu_torch.framework.nan_inf",
+    "paddle_tpu_torch.framework.program", "paddle_tpu_torch.ops.registry",
+    "paddle_tpu_torch.ops.dispatch", "paddle_tpu_torch.ops.math_ops",
+    "paddle_tpu_torch.ops.activation_ops", "paddle_tpu_torch.ops.tensor_ops",
+    "paddle_tpu_torch.ops.optimizer_ops", "paddle_tpu_torch.dygraph",
+    "paddle_tpu_torch.dygraph.tensor", "paddle_tpu_torch.dygraph.tracer",
+    "paddle_tpu_torch.dygraph.engine", "paddle_tpu_torch.dygraph.base",
+    "paddle_tpu_torch.tensor_api", "paddle_tpu_torch.autograd",
+    "paddle_tpu_torch.nn", "paddle_tpu_torch.nn.layer_base",
+    "paddle_tpu_torch.nn.initializer", "paddle_tpu_torch.nn.functional",
+    "paddle_tpu_torch.nn.layer.common", "paddle_tpu_torch.nn.layer.norm",
+    "paddle_tpu_torch.nn.layer.activation", "paddle_tpu_torch.nn.layer.loss",
+    "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.optimizer",
+    "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.regularizer",
+    "paddle_tpu_torch.amp", "paddle_tpu_torch.amp.auto_cast",
+    "paddle_tpu_torch.amp.grad_scaler", "paddle_tpu_torch.models.bert",
+    "paddle_tpu_torch.examples.pretrain_bert")
+
+
+def test_eager_core_imports_no_jax_and_no_reference():
+    """Every module of the eager core, the layers, the optimizers, amp and
+    BERT imports in a fresh process without JAX or the reference."""
+    code = (
+        "import importlib, json, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {EAGER_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "new = set(sys.modules) - before\n"
+        f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps([len(new), bad]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n_new, bad = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert n_new > len(EAGER_MODULES) and bad == []
+
+
+def test_to_tensor_wants_the_card_without_set_device():
+    """The eager API's place is the card: without one, and without
+    ``set_device("cpu")``, making a tensor raises; after it, it works."""
+    code = (
+        "import paddle_tpu_torch as paddle\n"
+        "try:\n"
+        "    paddle.to_tensor([1.0])\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+        "paddle.set_device('cpu')\n"
+        "print('cpu:', paddle.to_tensor([1.0]).place)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env.pop("PADDLE_TPU_DEVICE", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "raised:" in proc.stdout and "set_device('cpu')" in proc.stdout
+    assert "cpu: CPUPlace(0)" in proc.stdout

@@ -166,6 +166,11 @@ RUNS = [
                               "ce_chunk_rows": 0}, 1e-4),
     ("gqa_window", {"num_heads": 4, "num_kv_heads": 2, "attn_window": 5},
      {"lr": 1e-4, "remat": False}, 2e-5),
+    # fewer K/V heads than ranks: both ranks hold the one K/V head
+    ("kv_heads_1", {"num_heads": 2, "num_kv_heads": 1}, {"lr": 1e-4},
+     2e-5),
+    # mp does not divide the heads: attention whole on both ranks
+    ("heads_1", {"num_heads": 1}, {"lr": 1e-4}, 2e-5),
 ]
 
 
@@ -256,13 +261,17 @@ def test_tp2_train_step_matches_reference(tp_train, case):
     for n, a in whole.items():
         np.testing.assert_allclose(a, ref_after[n], rtol=0, atol=atol,
                                    err_msg=n)
-    # each rank holds its half of every split leaf
+    # each rank holds its half of every split leaf, and its heads of QKV
     cfg = GPTConfig(**{**CFG, **over})
-    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     for res in ranks:
+        nq, nkv = res["heads"]
         assert res["params"]["wte"].shape == (64, 32)
-        assert res["params"]["blocks.0.qkv_w"].shape == (32, qkv // 2)
+        assert res["params"]["blocks.0.qkv_w"].shape == (
+            32, (nq + 2 * nkv) * cfg.head_dim)
         assert res["params"]["blocks.0.fc2_w"].shape == (64, 32)
+    assert [r["heads"] for r in ranks] == [
+        {"kv_heads_1": (1, 1), "heads_1": (1, 1)}.get(
+            name, (cfg.num_heads // 2, cfg.num_kv_heads // 2))] * 2
     # and the port's one-device step agrees
     losses, single = _port_single(named, over, opts)
     np.testing.assert_allclose(ranks[0]["losses"], losses, rtol=1e-5)
@@ -342,9 +351,14 @@ def test_tensor_parallel_needs_even_splits():
             return None
 
     TensorParallel(GPTConfig(**CFG), Mesh())
-    for over in ({"num_heads": 1, "hidden_size": 32},
-                 {"num_kv_heads": 1}, {"vocab_size": 129},
-                 {"ffn_hidden": 65}):
+    # head counts that mp does not divide run, as the reference's GSPMD
+    # split runs them: one query head keeps attention whole, one K/V head
+    # is held by both ranks
+    assert TensorParallel(GPTConfig(**{**CFG, "num_heads": 1}),
+                          Mesh()).heads == (1, 1)
+    assert TensorParallel(GPTConfig(**{**CFG, "num_kv_heads": 1}),
+                          Mesh()).heads == (1, 1)
+    for over in ({"vocab_size": 129}, {"ffn_hidden": 65}):
         with pytest.raises(ValueError, match="multiple"):
             TensorParallel(GPTConfig(**{**CFG, **over}), Mesh())
 

@@ -4,7 +4,8 @@ on the CPU: greedy and beam search, fp32 and W8A8, token for token.
 The model is ``tests/test_w8a8_gpt.py``'s (vocab 512, hidden 64, 2
 layers, 2 heads; seed 0 in the reference), and the same with GQA (4
 query heads over 2 K/V heads) and a window of 6; the prompts (2, 7) of
-its ``test_int8_decode_tp2``, 10 new tokens.  fp32: both ranks equal the
+its ``test_int8_decode_tp2``, 10 new tokens; and 4 query heads over one
+K/V head, which both ranks hold.  fp32: both ranks equal the
 port's one-device decode and the reference's ``build_generate_fn`` /
 ``build_beam_search_fn`` tokens exactly.  W8A8: both ranks equal the
 port's one-device int8 decode exactly (the row-parallel products take the
@@ -33,7 +34,9 @@ NEW = 10
 # the reference test's model, and one with GQA (4 query heads over 2 K/V
 # heads: one K/V head a rank) and a sliding window
 MODELS = {"mha": {}, "gqa_window": {"num_heads": 4, "num_kv_heads": 2,
-                                    "attn_window": 6}}
+                                    "attn_window": 6},
+          # one K/V head for two ranks: both hold it
+          "kv_heads_1": {"num_heads": 4, "num_kv_heads": 1}}
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +91,7 @@ def test_each_rank_decodes_its_heads(decoded):
     _, _, got = decoded
     assert [res["heads"] for res in got["mha"]] == [(1, 1), (1, 1)]
     assert [res["heads"] for res in got["gqa_window"]] == [(2, 1), (2, 1)]
+    assert [res["heads"] for res in got["kv_heads_1"]] == [(2, 1), (2, 1)]
 
 
 @pytest.mark.parametrize("model", list(MODELS))

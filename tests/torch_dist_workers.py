@@ -332,6 +332,7 @@ def train(payload):
         full = step.unshard(params)
         results.append({
             "coord": mesh.coord, "losses": losses, "stage": step.stage,
+            "heads": None if model.tp is None else model.tp.heads,
             "params": {n: _np(p.float()) for n, p in zip(step.names, full)},
             "numel": {"params": [p.numel() for p in params],
                       "m": [t.numel() for t in opt["m"]],
