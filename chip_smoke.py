@@ -8,7 +8,8 @@ its seconds):
 
 1. build: compile every CUDA source of the port (one ``nvcc`` each, all at
    once) and print the build seconds, each kernel's registers and spills
-   as ``ptxas`` reports them, and the card's name and power limit;
+   as ``ptxas`` reports them, the flash backward's dynamic shared memory
+   by dtype and head dim, and the card's name and power limit;
 2. kernels: each kernel variant against its plain PyTorch version on the
    card at the serving and training shapes.
    - paged decode and chunk prefill over float, int8 and int4 pages (H=16,
@@ -45,7 +46,10 @@ its seconds):
      kernels from the plain forward's out and lse), elementwise within
      ``atol * rms + rtol * |plain|`` with the rms of the plain row
      (``FLASH_TOL``); then each kernel timed beside SDPA at the flagship
-     shape, at S=4096 and at the flagship shape with D=64;
+     shape, at S=4096, at the flagship shape with D=64 and at the fp32
+     case (its backward bound at the kernels' arithmetic, three TF32
+     products an operation at 495 TFLOP/s, and logged beside it at 67
+     TFLOP/s of fp32 FMAs);
 3. serving: GPT-1.3B at full width (24 layers, hidden 2048, 16 heads) with
    random bf16 weights from a fixed seed, 16 requests per run through the
    paged engine (8 slots, page 32, chunk 128; prompts of 64-512 tokens,
@@ -166,7 +170,12 @@ its seconds):
    3 steps on the card and on the CPU from the same weights, losses
    within FLASH_TOL's fp32 1e-5; (2) the flash kernels at BERT-base's
    attention (B=32, H=12, S=512, D=64, bnsd, not causal) in fp32 and
-   bf16, held to their plain versions and timed beside them and SDPA;
+   bf16, held to their plain versions and timed beside them and SDPA,
+   and the fp32 dQ and dK/dV again at two peaked softmaxes (q scaled so
+   that the logits' std is 2.4 or 8): timed, with the share of pairs
+   that take dp in fp64 (p >= 1/16), and measured against the plain
+   version and, with it and SDPA, against the backward in fp64 (logged:
+   at such logits fp32 itself is further than FLASH_TOL from fp64);
    (3) BERT-base at ``bench.py``'s ``_bert_bench`` shape (vocab 30528,
    hidden 768, 12 layers, 12 heads, seq 512, batch 32, 76 masked) in
    fp32 and under ``amp.auto_cast()`` (bf16): 12 steps of the example's
@@ -195,8 +204,10 @@ flash forward and its backward (forward and backward less the forward,
 both by CUDA-graph replay) for the two backward kernels.  The flash
 kernels have a second row each at BERT-base's attention in fp32 and in
 bf16 (``flash_fwd_bert_fp32`` ...), with their launches on phase 8's
-runs and their bounds at the fp32 (67 TFLOP/s) or bf16 peak.  The last
-line is ``{"ok": true, "device": {...}}``.
+runs and their bounds at the peak of the arithmetic each uses: bf16
+tensor cores (989 TFLOP/s), the fp32 forward's FMAs (67 TFLOP/s), the
+fp32 backward's three TF32 products an operation (495 / 3 TFLOP/s).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -207,6 +218,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor-core peak
+FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
 INT8_OPS = 1979e12              # H100 SXM dense int8 tensor-core peak
 KINDS = {None: "", 8: "_int8", 4: "_int4"}   # page kind -> variant suffix
 PROJ = {"qkv": (2048, 6144), "proj": (2048, 2048), "fc1": (2048, 8192),
@@ -289,6 +302,12 @@ def phase_build():
                     log(f"  {name}: {line.split(chr(39))[1]}")
                 elif "registers" in line or "spill" in line:
                     log(f"    {line.strip()}")
+    smem = _build.kernel("flash_bwd_smem")
+    log("  flash_bwd dynamic shared memory, bytes by padded D (dQ, dK/dV): "
+        + "; ".join(f"{dt} " + ", ".join(
+            f"{d}: {smem(d, code, 0)}, {smem(d, code, 1)}"
+            for d in (32, 64, 128, 256))
+            for dt, code in (("fp32", 0), ("bf16", 1))))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -819,17 +838,23 @@ def _flash_close(label, got, want, rtol, atol):
     mask, is held to the summation noise around it); logs the max abs
     error, the tensor's rms and the worst share of the bound used, and
     returns the max abs error."""
-    g, w = got.float(), want.float()
-    rms = w.square().mean().sqrt()
-    row = w.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-2 * rms)
-    err = (g - w).abs()
-    used = (err / (atol * row + rtol * w.abs())).max().item()
-    top = err.max().item()
+    used, top, rms = _flash_share(got, want, rtol, atol)
     log(f"{label}: max_abs_err {top:.3e}, rms {rms:.3e}, worst {used:.3f} "
         f"of the bound (rtol {rtol:g}, atol {atol:g} * row rms)")
     if not used <= 1.0:
         raise AssertionError(f"{label} disagrees with its plain version")
     return top
+
+
+def _flash_share(got, want, rtol, atol):
+    """The worst share of :func:`_flash_close`'s bound that ``got`` uses
+    against ``want``, the max abs error and ``want``'s rms."""
+    g, w = got.float(), want.float()
+    rms = w.square().mean().sqrt()
+    row = w.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-2 * rms)
+    err = (g - w).abs()
+    used = (err / (atol * row + rtol * w.abs())).max().item()
+    return used, err.max().item(), rms.item()
 
 
 def _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype):
@@ -884,13 +909,14 @@ def phase_flash(np, torch):
     results = _time_flash(np, torch, FLASH_CASES[0], worst)
     _time_flash(np, torch, FLASH_CASES[-1], worst)
     _time_flash(np, torch, FLASH_CASES[0], worst, d=64)
+    _time_flash(np, torch, FLASH_CASES[1], worst)
     return results
 
 
 def _time_flash(np, torch, case, worst, d=128):
     """The three kernels, their plain versions and SDPA timed on one
-    case's strided views at head dim ``d``; returns each kernel's entry of
-    the kernels line."""
+    case's strided views at head dim ``d`` in the case's dtype; returns
+    each kernel's entry of the kernels line."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
@@ -898,12 +924,13 @@ def _time_flash(np, torch, case, worst, d=128):
                                                 flash_bwd_dq_cuda, flash_delta,
                                                 flash_fwd_cuda)
 
-    label, layout, b, h, hkv, s, causal, window, _ = case
+    label, layout, b, h, hkv, s, causal, window, dt = case
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dt]
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, torch.bfloat16)
+    q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype)
     scale = 1.0 / np.sqrt(d)
     out, lse = flash_fwd_cuda(q, k, v, causal, scale, window, layout)
-    do = torch.randn(out.shape, device="cuda", generator=g).bfloat16()
+    do = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
     delta = flash_delta(out, do, layout)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))      # SDPA's view
     lib = [x.detach().requires_grad_() for x in (qh, kh, vh)]
@@ -929,15 +956,15 @@ def _time_flash(np, torch, case, worst, d=128):
     lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True))
     lib_bwd = graph_ms(sdpa_fwd_bwd) - lib_fwd
-    elems = b * s * h * d * 2                    # bytes of one bf16 operand
-    rows = b * h * s * 4                         # bytes of lse or delta
+    elems = b * s * h * d * q.element_size()     # bytes of one operand
+    rows = b * h * s * (8 if dt == "fp32" else 4)  # delta (fp32: hi + lo)
     half = b * h * s * s * d / 2                 # causal: half the pairs
-    work = {"flash_fwd": (4 * elems + rows, 4 * half),
-            "flash_bwd_dq": (5 * elems + 2 * rows, 6 * half),
-            "flash_bwd_dkv": (6 * elems + 2 * rows, 8 * half)}
+    work = {"flash_fwd": (4 * elems + b * h * s * 4, 4 * half),
+            "flash_bwd_dq": (5 * elems + b * h * s * 4 + rows, 6 * half),
+            "flash_bwd_dkv": (6 * elems + b * h * s * 4 + rows, 8 * half)}
     results = {}
     for name, (nbytes, ops) in work.items():
-        bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+        bms, by, peak = _flash_bound(dt, name, nbytes, ops)
         fwd = name == "flash_fwd"
         results[name] = dict(ms=ms[name],
                              plain_ms=plain_fwd if fwd else plain_bwd,
@@ -945,14 +972,28 @@ def _time_flash(np, torch, case, worst, d=128):
                              library_ms=lib_fwd if fwd else lib_bwd,
                              max_abs_err=worst[name])
         log(f"{name} timed case {label}: B={b} H={h} S={s} D={d} causal "
-            f"bf16, q/k/v head views of one QKV tensor: {ms[name]:.4f} ms "
+            f"{dt}, q/k/v head views of one QKV tensor: {ms[name]:.4f} ms "
             f"({ops / ms[name] / 1e9:.1f} TFLOP/s), plain "
             f"{results[name]['plain_ms']:.4f} ms (the whole "
             f"{'forward' if fwd else 'backward'}), sdpa by graph replay "
             f"{'forward' if fwd else 'fwd+bwd - fwd'} "
             f"{results[name]['library_ms']:.4f} ms, bound {bms:.4f} ms "
-            f"({by}; {ops:.4g} flop, {nbytes} bytes)")
+            f"({by}; {ops:.4g} flop at {peak}, {nbytes} bytes)")
     return results
+
+
+def _flash_bound(dt, name, nbytes, ops):
+    """A flash kernel's bound in ms at the peak of the arithmetic it uses:
+    bf16 tensor cores, the fp32 forward's FMAs, or the fp32 backward's
+    three TF32 products an operation (3xTF32); ``bound_ms``'s pair and
+    the peak named (for the fp32 backward, with its FMA bound beside)."""
+    if dt == "bf16":
+        return (*bound_ms(nbytes, ops, BF16_FLOPS), "989 TFLOP/s bf16")
+    if name == "flash_fwd":
+        return (*bound_ms(nbytes, ops, FP32_FLOPS), "67 TFLOP/s fp32")
+    return (*bound_ms(nbytes, ops, TF32_FLOPS / 3),
+            f"495 / 3 TFLOP/s, 3xTF32; {ops / FP32_FLOPS * 1e3:.4f} ms at "
+            "67 TFLOP/s of fp32 FMAs")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1004,6 +1045,10 @@ def _profile(torch, what, fn):
         f"{busy:.1f} ms ({100 * share:.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%  {name[:90]}")
+    ms = sum(t for name, t in by_name.items() if "flash_" in name)
+    if ms:
+        log(f"  flash kernels: {ms:.2f} ms ({100 * ms / max(busy, 1e-9):.1f}% "
+            f"of device time)")
     # the paged kernels: the split-KV body and its merge for bf16 queries
     # (decode and verify in its tile split, prefill in its row split:
     # template argument false or true), the FMA bodies for fp32 ones
@@ -2495,7 +2540,6 @@ BERT_STEPS = 5                  # 1 warm-up and 4 timed
 # the loss must fall over the 12, as it does in the reference (a 12-layer
 # post-LN BERT climbs over its first warm-up steps, in both packages)
 BERT_TRAIN = 12
-FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
 
 
 def bert_flops_per_token(h, n_layers, s, v, m_frac):
@@ -2728,17 +2772,15 @@ def _time_flash_bert(np, torch, dt):
                                                 scale, None, "bnsd"), iters=3)
     lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     lib_bwd = graph_ms(sdpa_fwd_bwd) - lib_fwd
-    elt = 4 if dt == "fp32" else 2
-    elems = b * h * s * d * elt                  # bytes of one operand
-    rows = b * h * s * 4                         # bytes of lse or delta
+    elems = b * h * s * d * q.element_size()     # bytes of one operand
+    rows = b * h * s * (8 if dt == "fp32" else 4)  # delta (fp32: hi + lo)
     full = b * h * s * s * d                     # every query-key pair
-    work = {"flash_fwd": (4 * elems + rows, 4 * full),
-            "flash_bwd_dq": (5 * elems + 2 * rows, 6 * full),
-            "flash_bwd_dkv": (6 * elems + 2 * rows, 8 * full)}
-    peak = FP32_FLOPS if dt == "fp32" else BF16_FLOPS
+    work = {"flash_fwd": (4 * elems + b * h * s * 4, 4 * full),
+            "flash_bwd_dq": (5 * elems + b * h * s * 4 + rows, 6 * full),
+            "flash_bwd_dkv": (6 * elems + b * h * s * 4 + rows, 8 * full)}
     results = {}
     for name, (nbytes, ops) in work.items():
-        bms, by = bound_ms(nbytes, ops, peak)
+        bms, by, peak = _flash_bound(dt, name, nbytes, ops)
         fwd = name == "flash_fwd"
         results[f"{name}_bert_{dt}"] = dict(
             ms=ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
@@ -2750,12 +2792,86 @@ def _time_flash_bert(np, torch, dt):
             f"{'forward' if fwd else 'backward'}), sdpa "
             f"{'forward' if fwd else 'fwd+bwd - fwd'} by graph replay "
             f"{lib_fwd if fwd else lib_bwd:.4f} ms, bound {bms:.4f} ms "
-            f"({by}; {ops:.4g} flop at "
-            f"{'67 TFLOP/s fp32' if dt == 'fp32' else '989 TFLOP/s bf16'}, "
-            f"{nbytes} bytes)")
+            f"({by}; {ops:.4g} flop at {peak}, {nbytes} bytes; "
+            f"{100 * bms / ms[name]:.1f}% of it)")
+    if dt == "fp32":
+        _time_peaked(np, torch, q, k, v, do, scale, ms)
     del q, k, v, do, out, lse, ref, rlse, delta, dq, dk, dv, want, lib
     torch.cuda.empty_cache()
     return results
+
+
+def _time_peaked(np, torch, q, k, v, do, scale, random_ms):
+    """The fp32 dQ and dK/dV at BERT-base's attention with q scaled so
+    that the logits' std is 2.4 (scale 0.3 at D=64) or 8 (near one key
+    a query), as trained heads concentrate: timed beside ``random_ms``
+    (std 1), with the share of pairs at p >= 1/16, which take dp in fp64
+    (csrc/flash_bwd.cu, heavy_dp64).  Logs, as shares of FLASH_TOL fp32,
+    the kernels against the plain version and both, and SDPA's backward,
+    against the backward computed in fp64 from the same inputs: where
+    the logits are large, fp32 itself misses FLASH_TOL's premise (a
+    summation order apart), so here the kernels are held instead to be
+    no further from fp64 than twice the plain version's distance, or
+    twice FLASH_TOL where the plain version is within it."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels.flash import (flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda, flash_delta)
+
+    b, h, s, _ = q.shape
+    tol = FLASH_TOL["fp32"]
+    for std in (2.4, 8.0):
+        qp = q * std
+        ref, rlse = flash_fwd_plain(qp, k, v, False, scale, None, "bnsd")
+        delta = flash_delta(ref, do, "bnsd")
+        got = ((flash_bwd_dq_cuda(qp, k, v, ref, rlse, delta, do, False,
+                                  scale, None, "bnsd"),)
+               + flash_bwd_dkv_cuda(qp, k, v, rlse, delta, do, False, scale,
+                                    None, "bnsd"))
+        want = flash_bwd_plain(qp, k, v, ref, rlse, do, False, scale, None,
+                               "bnsd")
+        lib = [x.detach().requires_grad_() for x in (qp, k, v)]
+        sdpa = torch.autograd.grad(F.scaled_dot_product_attention(*lib),
+                                   lib, do)
+        # the backward in fp64 from q, k, v and dO alone
+        q64, k64, v64, do64 = (x.double() for x in (qp, k, v, do))
+        p = torch.softmax(q64 @ k64.transpose(-1, -2) * scale, -1)
+        heavy = (p >= 1 / 16).sum().item()
+        top = p.amax(-1).mean().item()
+        dp = do64 @ v64.transpose(-1, -2)
+        ds = p * (dp - (do64 * (p @ v64)).sum(-1, keepdim=True)) * scale
+        exact = (ds @ k64, ds.transpose(-1, -2) @ q64,
+                 p.transpose(-1, -2) @ do64)
+        del q64, k64, v64, do64, p, dp, ds
+        for i, part in enumerate(("dq", "dk", "dv")):
+            share = {}
+            for name, x, y in (("kernel vs plain", got[i], want[i]),
+                               ("kernel vs fp64", got[i], exact[i]),
+                               ("plain vs fp64", want[i], exact[i]),
+                               ("sdpa vs fp64", sdpa[i], exact[i])):
+                share[name] = _flash_share(x, y, *tol[part])[0]
+            log(f"flash_bwd {part} BERT-base fp32, logits' std {std}: worst "
+                "share of FLASH_TOL fp32 " + ", ".join(
+                    f"{name} {v:.3f}" for name, v in share.items()))
+            if not share["kernel vs fp64"] <= 2 * max(1.0,
+                                                     share["plain vs fp64"]):
+                raise AssertionError(f"flash_bwd {part} at logits' std {std}"
+                                     " is further from fp64 than the plain "
+                                     "version allows")
+        ms = {"flash_bwd_dq": time_ms(lambda: flash_bwd_dq_cuda(
+                  qp, k, v, ref, rlse, delta, do, False, scale, None, "bnsd")),
+              "flash_bwd_dkv": time_ms(lambda: flash_bwd_dkv_cuda(
+                  qp, k, v, rlse, delta, do, False, scale, None, "bnsd"))}
+        for name, t in ms.items():
+            log(f"{name} BERT-base (fp32), logits' std {std}: {t:.4f} ms "
+                f"({100 * (t / random_ms[name] - 1):+.1f}% against std 1's "
+                f"{random_ms[name]:.4f}); pairs at p >= 1/16, dp in fp64: "
+                f"{heavy} of {b * h * s * s} "
+                f"({100 * heavy / (b * h * s * s):.3f}%, "
+                f"{heavy / (b * h * s):.2f} a query); mean top p {top:.3f}")
+        del qp, ref, rlse, delta, got, want, lib, sdpa, exact
+    torch.cuda.empty_cache()
 
 
 def phase_bert(np, torch, card):

@@ -4,11 +4,10 @@
 //
 // Replaces the TPU kernels paddle_tpu/kernels/flash.py: _bwd_dq_kernel and
 // _bwd_dkv_kernel, as launched by _bwd_call (bnsd) and _bwd_call_smajor
-// (bsnd / sbnd, GQA).  delta = rowsum(dO * O) in fp32 is an input, as in
-// the reference, which computes it outside Pallas (the wrapper does here).
+// (bsnd / sbnd, GQA).  delta = rowsum(dO * O) is an input, as in the
+// reference, which computes it outside Pallas (the wrapper does here).
 // Both kernels compute, per (query, key) pair, s = q.k * scale, p = exp(s
-// - lse) (0 where masked), dp = dO.v in fp32, ds = p * (dp - delta) *
-// scale.
+// - lse) (0 where masked), dp = dO.v, ds = p * (dp - delta) * scale.
 //
 // dQ: grid (query tiles, query heads, batch), heaviest tiles first.  A
 // block keeps its Q and dO tiles and walks the k-tiles [lo, hi): dQ +=
@@ -61,189 +60,51 @@
 // bf16 P (as the forward does for P.V), a rounding the bf16 tolerance of
 // the comparison covers.  At DP = 256 two warps share each 16 key rows.
 //
-// fp32 (flash_bwd_dq_fp32_kernel, flash_bwd_dkv_fp32_kernel): the shared-
-// memory design of flash_common.cuh, fp32 FMAs; P stays fp32.  The dQ
-// kernel forms dp - delta in fp64 from O itself (see there).
+// fp32 (flash_bwd_dq_fp32, flash_bwd_dkv_fp32): at BERT-base's attention
+// (B*H = 384, S = 512, D = 64, not causal) their 6 and 8 B*H*S^2*D flops
+// take 0.58 and 0.77 ms at the card's 67 TFLOP/s of fp32 FMAs, and 0.23
+// and 0.31 ms as three TF32 products each at 495 TFLOP/s, against 0.08
+// and 0.09 ms of bytes: operations bound them, and the tensor cores are
+// the way to fp32-accurate operations at more than the FMA rate.  So both
+// are the bf16 kernels above with fp32 tiles (row pitch DP + 4 floats) in
+// the same cp.async rings and every product on mma.sync m16n8k8 in
+// 3xTF32 (flash_common.cuh's toolkit): S, dP (S^T, dP^T), p and ds in
+// registers, P in fp32 for dV += P^T.dO as in the reference, dQ or dK and
+// dV accumulated in registers and stored from them as float2.  Where the
+// bf16 kernels hand the accumulator to the next product as its A
+// fragment, these permute the summation order instead (tf32_acc_a,
+// tf32_b_cols).  Each k8 step's three products go into a fresh partial
+// that an fp32 add takes into the accumulator: chained into one register
+// across the reduction, the tensor cores' roundings (not to nearest)
+// added up past FLASH_TOL's fp32 bound on an H100.  ds needs dp - delta
+// where they cancel (see heavy_dp64); with it a query that sees
+// one key gets dQ = 0 to fp64 rounding, as the reference's autodiff
+// gives 0.  (No rule by key count: the ring hands a block the whole
+// sequence's lse and delta, so a block's first query may see one of its
+// keys and many others.)  The tiles (dq_tiles, dkv_tiles) were timed
+// against 2- and 8-warp, 16- to 64-row and D-split alternatives on an
+// H100; the fp32 ones stream 32-row tiles where the bf16 ones stream 64.
 
 #include "flash_common.cuh"
 
 namespace fa {
 
-struct BwdSmem {
-  size_t q, dout, k, v, s, dp, p, ds, acc1, acc2, lse, delta, total;
-};
-
-// Shared memory of the fp32 kernels.  dkv: the accumulators are dK and dV
-// over key rows (BK), with P and dP tiles; otherwise dQ over query rows
-// (BQ), whose tile first stages O, and fp64 delta.
-__host__ __device__ inline BwdSmem bwd_smem(int BQ, int BK, int DP, bool dkv) {
-  Carve c;
-  BwdSmem t;
-  const int ldt = tile_ld(DP, 4);
-  const size_t sf = size_t(BQ) * tile_ld(BK, 4) * 4;
-  const size_t acc = size_t(dkv ? BK : BQ) * ldt * 4;
-  t.q = c.take(size_t(BQ) * ldt * 4);
-  t.dout = c.take(size_t(BQ) * ldt * 4);
-  t.k = c.take(size_t(BK) * ldt * 4);
-  t.v = c.take(size_t(BK) * ldt * 4);
-  t.s = c.take(sf);
-  t.dp = dkv ? c.take(sf) : 0;
-  t.p = dkv ? c.take(sf) : 0;
-  t.ds = c.take(sf);
-  t.acc1 = c.take(acc);
-  t.acc2 = dkv ? c.take(acc) : 0;
-  t.lse = c.take(size_t(BQ) * 4);
-  t.delta = c.take(size_t(BQ) * 8);
-  t.total = c.off;
-  return t;
-}
-
-// Q and dO rows [q0, q0 + BQ) of head h, with their lse (0 on the ragged
-// edge, whose rows every product masks out).
-__device__ void load_q_side(const Args& a, int b, int h, int q0, float* sq, float* sdo,
-                            int ldt, float* slse) {
-  load_rows(sq, ldt, slice<const float>(a.q, b, h), a.q.s, q0, a.BQ, a.S, a.D, a.DP);
-  load_rows(sdo, ldt, slice<const float>(a.dout, b, h), a.dout.s, q0, a.BQ, a.S, a.D,
-            a.DP);
-  const size_t row = (size_t(b) * a.H + h) * a.S;
-  for (int r = threadIdx.x; r < a.BQ; r += blockDim.x)
-    slse[r] = q0 + r < a.S ? a.lse[row + q0 + r] : 0.f;
-}
-
-// dQ, fp32: a block keeps its Q, dO (and O, for delta) tiles and walks the
-// k-tiles [lo, hi): dQ += ds.K.  dp = dO.v and delta = rowsum(dO * O) are
-// summed in fp64 and their difference rounded to fp32 once (the plain
-// version does the same): where they cancel, as for a query that sees one
-// key (its O is that key's V, so its dQ is 0 exactly, as the reference's
-// autodiff gives), no fp32 summation noise is left.
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_fp32_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
-  const int BQ = a.BQ, BK = a.BK, DP = a.DP;
-  const int ld = tile_ld(DP, 4), lds = tile_ld(BK, 4);
-  const BwdSmem L = bwd_smem(BQ, BK, DP, false);
-  float* sq = reinterpret_cast<float*>(smem + L.q);
-  float* sdo = reinterpret_cast<float*>(smem + L.dout);
-  float* sk = reinterpret_cast<float*>(smem + L.k);
-  float* sv = reinterpret_cast<float*>(smem + L.v);
-  float* ss = reinterpret_cast<float*>(smem + L.s);
-  float* sds = reinterpret_cast<float*>(smem + L.ds);
-  float* sdq = reinterpret_cast<float*>(smem + L.acc1);
-  float* slse = reinterpret_cast<float*>(smem + L.lse);
-  double* sdelta = reinterpret_cast<double*>(smem + L.delta);
-
-  const int q0 = qt * BQ;
-  load_q_side(a, b, h, q0, sq, sdo, ld, slse);
-  load_rows(sdq, ld, slice<const float>(a.o, b, h), a.o.s, q0, BQ, a.S, a.D, DP);
-  __syncthreads();
-  for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
-    double acc = 0.0;
-    for (int d = 0; d < DP; ++d) acc = fma(double(sdo[r * ld + d]), double(sdq[r * ld + d]), acc);
-    sdelta[r] = acc;
-  }
-  __syncthreads();
-  zero(sdq, BQ, DP, ld);
-  const float* kb = slice<const float>(a.k, b, kvh);
-  const float* vb = slice<const float>(a.v, b, kvh);
-  int lo, hi;
-  k_tiles(a, qt, &lo, &hi);
-  for (int j = lo; j < hi; ++j) {
-    __syncthreads();  // the previous tile's K and dS are consumed
-    load_rows(sk, ld, kb, a.k.s, j * BK, BK, a.S, a.D, DP);
-    load_rows(sv, ld, vb, a.v.s, j * BK, BK, a.S, a.D, DP);
-    __syncthreads();
-    tile_mm<false, true>(ss, lds, sq, ld, sk, ld, BQ, BK, DP, false);
-    __syncthreads();
-    for (int e = threadIdx.x; e < BQ * BK; e += blockDim.x) {
-      const int r = e / BK, c = e - r * BK;
-      float ds = 0.f;
-      if (visible(a, q0 + r, j * BK + c)) {
-        double dp = 0.0;
-        for (int d = 0; d < DP; ++d) dp = fma(double(sdo[r * ld + d]), double(sv[c * ld + d]), dp);
-        const float p = expf(ss[r * lds + c] * a.scale - slse[r]);
-        ds = p * float(dp - sdelta[r]) * a.scale;
-      }
-      sds[r * lds + c] = ds;
-    }
-    __syncthreads();
-    tile_mm<false, false>(sdq, ld, sds, lds, sk, ld, BQ, DP, BK, true);
-  }
-  __syncthreads();
-  store_rows(slice<float>(a.dq, b, h), a.dq.s, sdq, ld, nullptr, q0, BQ, a.S, a.D);
-}
-
-// dK/dV, fp32: p and ds of one (q-tile, k-tile) pair from S = Q.K^T and
-// dP = dO.V^T, delta from the wrapper.
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fp32_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int BQ = a.BQ, BK = a.BK, DP = a.DP;
-  const int ld = tile_ld(DP, 4), lds = tile_ld(BK, 4);
-  const BwdSmem L = bwd_smem(BQ, BK, DP, true);
-  float* sq = reinterpret_cast<float*>(smem + L.q);
-  float* sdo = reinterpret_cast<float*>(smem + L.dout);
-  float* sk = reinterpret_cast<float*>(smem + L.k);
-  float* sv = reinterpret_cast<float*>(smem + L.v);
-  float* ss = reinterpret_cast<float*>(smem + L.s);
-  float* sdp = reinterpret_cast<float*>(smem + L.dp);
-  float* sp = reinterpret_cast<float*>(smem + L.p);
-  float* sds = reinterpret_cast<float*>(smem + L.ds);
-  float* sdk = reinterpret_cast<float*>(smem + L.acc1);
-  float* sdv = reinterpret_cast<float*>(smem + L.acc2);
-  float* slse = reinterpret_cast<float*>(smem + L.lse);
-  float* sdelta = reinterpret_cast<float*>(smem + L.delta);
-
-  const int k0 = kt * BK;
-  load_rows(sk, ld, slice<const float>(a.k, b, kvh), a.k.s, k0, BK, a.S, a.D, DP);
-  load_rows(sv, ld, slice<const float>(a.v, b, kvh), a.v.s, k0, BK, a.S, a.D, DP);
-  zero(sdk, BK, DP, ld);
-  zero(sdv, BK, DP, ld);
-  int lo, hi;
-  q_tiles(a, kt, &lo, &hi);
-  for (int g = 0; g < a.G; ++g) {
-    const int h = kvh * a.G + g;
-    const size_t row = (size_t(b) * a.H + h) * a.S;
-    for (int i = lo; i < hi; ++i) {
-      const int q0 = i * BQ;
-      __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-      load_q_side(a, b, h, q0, sq, sdo, ld, slse);
-      for (int r = threadIdx.x; r < BQ; r += blockDim.x)
-        sdelta[r] = q0 + r < a.S ? a.delta[row + q0 + r] : 0.f;
-      __syncthreads();
-      tile_mm<false, true>(ss, lds, sq, ld, sk, ld, BQ, BK, DP, false);
-      tile_mm<false, true>(sdp, lds, sdo, ld, sv, ld, BQ, BK, DP, false);
-      __syncthreads();
-      for (int e = threadIdx.x; e < BQ * BK; e += blockDim.x) {
-        const int r = e / BK, c = e - r * BK;
-        const float p = visible(a, q0 + r, k0 + c) ? expf(ss[r * lds + c] * a.scale - slse[r])
-                                                   : 0.f;
-        sp[r * lds + c] = p;
-        sds[r * lds + c] = p * (sdp[r * lds + c] - sdelta[r]) * a.scale;
-      }
-      __syncthreads();
-      tile_mm<true, false>(sdv, ld, sp, lds, sdo, ld, BK, DP, BQ, true);
-      tile_mm<true, false>(sdk, ld, sds, lds, sq, ld, BK, DP, BQ, true);
-    }
-  }
-  __syncthreads();
-  store_rows(slice<float>(a.dk, b, kvh), a.dk.s, sdk, ld, nullptr, k0, BK, a.S, a.D);
-  store_rows(slice<float>(a.dv, b, kvh), a.dv.s, sdv, ld, nullptr, k0, BK, a.S, a.D);
-}
-
-// Tiles of the bf16 dQ kernel: NW warps, DSPLIT of them over each 16
-// query rows (BQ = 16 NW / DSPLIT), BK-row K/V tiles in a 2-stage ring.
-template <int DP_, int NW_, int DSPLIT_, int BK_>
+// Tiles of the dQ kernels, elements of T (bf16 or fp32): NW warps, DSPLIT
+// of them over each 16 query rows (BQ = 16 NW / DSPLIT), BK-row K/V tiles
+// in a 2-stage ring.
+template <typename T_, int DP_, int NW_, int DSPLIT_, int BK_>
 struct DqTile {
+  using T = T_;
+  static constexpr int ELT = sizeof(T), KSTEP = 32 / ELT;  // k of one mma: 16 or 8
   static constexpr int DP = DP_, NW = NW_, DSPLIT = DSPLIT_, BK = BK_, STAGES = 2;
-  static constexpr int NT = 32 * NW, RW = NW / DSPLIT, BQ = 16 * RW, LD = tile_ld(DP, 2);
+  static constexpr int NT = 32 * NW, RW = NW / DSPLIT, BQ = 16 * RW, LD = tile_ld(DP, ELT);
   static constexpr int DW = DP / DSPLIT;  // columns of dQ a warp owns
-  static constexpr int KD = DP / 16;      // k16 steps over d (S, dP)
+  static constexpr int KD = DP / KSTEP;   // k steps over d (S, dP)
   static constexpr int NS = BK / 8;       // n8 tiles of S and dP
   static constexpr int NA = DW / 8;       // n8 tiles of dQ
   static constexpr size_t Q_ELEMS = size_t(BQ) * LD;   // one of Q, dO
   static constexpr size_t KV_ELEMS = size_t(BK) * LD;  // one of K, V
-  static constexpr size_t SMEM = 2 * Q_ELEMS * 2 + size_t(STAGES) * 2 * KV_ELEMS * 2;
+  static constexpr size_t SMEM = (2 * Q_ELEMS + size_t(STAGES) * 2 * KV_ELEMS) * ELT;
 };
 
 template <typename C>
@@ -379,21 +240,25 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
   }
 }
 
-// Tiles of the bf16 dK/dV kernel: NW warps, DSPLIT of them over each 16
-// key rows (BK = 16 NW / DSPLIT), BQ-row Q/dO tiles in a 2-stage ring.
-template <int DP_, int NW_, int DSPLIT_, int BQ_>
+// Tiles of the dK/dV kernels, elements of T (bf16 or fp32): NW warps,
+// DSPLIT of them over each 16 key rows (BK = 16 NW / DSPLIT), BQ-row Q/dO
+// tiles in a 2-stage ring.
+template <typename T_, int DP_, int NW_, int DSPLIT_, int BQ_>
 struct DkvTile {
+  using T = T_;
+  static constexpr int ELT = sizeof(T), KSTEP = 32 / ELT;  // k of one mma: 16 or 8
   static constexpr int DP = DP_, NW = NW_, DSPLIT = DSPLIT_, BQ = BQ_, STAGES = 2;
-  static constexpr int NT = 32 * NW, RW = NW / DSPLIT, BK = 16 * RW, LD = tile_ld(DP, 2);
+  static constexpr int NT = 32 * NW, RW = NW / DSPLIT, BK = 16 * RW, LD = tile_ld(DP, ELT);
   static constexpr int DW = DP / DSPLIT;  // columns of dK/dV a warp owns
-  static constexpr int KD = DP / 16;      // k16 steps over d (S^T, dP^T)
+  static constexpr int KD = DP / KSTEP;   // k steps over d (S^T, dP^T)
   static constexpr int NS = BQ / 8;       // n8 tiles of S^T
   static constexpr int NA = DW / 8;       // n8 tiles of dK, dV
   static constexpr size_t KV_ELEMS = size_t(BK) * LD;
   static constexpr size_t Q_ELEMS = size_t(BQ) * LD;
-  // one stage: Q, dO (bf16), lse, delta (fp32)
-  static constexpr size_t STAGE_BYTES = 2 * Q_ELEMS * 2 + 2 * BQ * 4;
-  static constexpr size_t SMEM = 2 * KV_ELEMS * 2 + STAGES * STAGE_BYTES;
+  static constexpr int DELT = ELT == 4 ? 8 : 4;  // delta: hi + lo for fp32 inputs
+  // one stage: Q, dO (T), lse (fp32), delta
+  static constexpr size_t STAGE_BYTES = 2 * Q_ELEMS * ELT + BQ * (4 + DELT);
+  static constexpr size_t SMEM = 2 * KV_ELEMS * ELT + STAGES * STAGE_BYTES;
 };
 
 template <typename C>
@@ -546,56 +411,403 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
   }
 }
 
-// The fp32 kernels: 32-row tiles, or 16 where 32 do not fit.
-cudaError_t bwd_fp32(Args a, bool dkv, cudaStream_t st) {
-  size_t smem = 0;
-  const int DP = a.DP;
-  const int t = pick_tile([&](int n) { return bwd_smem(n, n, DP, dkv).total; }, 32, &smem);
-  if (t == 0) return cudaErrorInvalidValue;
-  a.BQ = a.BK = t;
-  const int tiles = (a.S + t - 1) / t;
-  if (dkv)
-    return launch(flash_bwd_dkv_fp32_kernel, dim3(tiles, a.H / a.G, a.B), kThreads, smem,
-                  st, a);
-  return launch(flash_bwd_dq_fp32_kernel, dim3(tiles, a.H, a.B), kThreads, smem, st, a);
+// ds = p (dp - delta) scale needs dp - delta to a small part of the
+// smaller of the two where they cancel: where a query's probability sits
+// on few keys, dp of each is close to delta (their p-weighted mean), and
+// a 3xTF32 dp is off by a few units in the last place of |dO| |v|.  delta
+// comes summed in fp64 (as fp32 hi + lo, so that dp - hi - lo keeps its
+// low bits), and a pair that holds at least kHeavy of its query's
+// probability (at most 16 a query) takes dp in fp64 from the fp32 rows,
+// as flash_bwd_plain forms it.
+constexpr float kHeavy = 1.f / 16;
+
+// Row pair of one heavy (query, key) pair: dO's and V's fp32 rows in
+// shared memory and the query's delta.
+struct HeavyPair {
+  const float* x;
+  const float* y;
+  float2 delta;
+};
+
+// d[n][e] = dp - delta in fp64 for every pair whose bit n * 4 + e is set
+// in its lane's `heavy`.  The warp takes up to four pairs a round, one
+// for each 8-lane group: each lane of a group sums every 8th term of the
+// pair's D-long dot in fp64 and three shuffles sum the group, so a pair
+// costs a few instructions a lane and no lane waits on another's D-long
+// loop; a warp with no heavy pair pays one vote.  pair(l, n, e) gives
+// lane l's pair of slot (n, e) (every lane calls it, with the lane its
+// group serves).  A pair's sum order does not depend on the group or
+// round that takes it: two launches agree bit for bit.
+template <int NS, typename P>
+__device__ __forceinline__ void heavy_dp64(float (&d)[NS][4], uint32_t heavy, int D, P&& pair) {
+  static_assert(NS * 4 <= 32, "one bit a slot");
+  const int lane = threadIdx.x & 31, grp = lane >> 3;
+  for (;;) {
+    const uint32_t lanes = __ballot_sync(~0u, heavy != 0);
+    if (!lanes) return;
+    // the owner of group grp's pair: the grp-th lane with one (if any)
+    uint32_t m = lanes;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (i < grp) m &= m - 1;
+    const int l = m ? __ffs(m) - 1 : 0;
+    const int slot = max(__shfl_sync(~0u, __ffs(heavy) - 1, l), 0);
+    const int rank = __popc(lanes & ((1u << lane) - 1));  // among the owners
+    const bool owner = heavy != 0 && rank < 4;
+    if (owner) heavy &= heavy - 1;
+    const HeavyPair hp = pair(l, slot >> 2, slot & 3);
+    double acc = 0.0;
+    if (m)
+      for (int i = lane & 7; i < D; i += 8) acc = fma(double(hp.x[i]), double(hp.y[i]), acc);
+#pragma unroll
+    for (int o = 4; o; o >>= 1) acc += __shfl_xor_sync(~0u, acc, o);
+    const float v = float(acc - double(hp.delta.x) - double(hp.delta.y));
+    // each owner takes the value and slot of the group that served it
+    const float got = __shfl_sync(~0u, v, 8 * (rank & 3));
+    const int at = __shfl_sync(~0u, slot, 8 * (rank & 3));
+    if (owner) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n * 4 + e == at) d[n][e] = got;
+    }
+  }
+}
+
+// dQ, fp32: flash_bwd_dq_bf16's walk with fp32 tiles and 3xTF32 products.
+template <typename C>
+__global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
+  constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sdo = sq + C::Q_ELEMS;
+  float* skv = sdo + C::Q_ELEMS;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = qt * C::BQ, wr = (warp % C::RW) * 16, r0 = q0 + wr;
+  const int d0 = (warp / C::RW) * C::DW;
+  const float* kb = slice<const float>(a.k, b, kvh);
+  const float* vb = slice<const float>(a.v, b, kvh);
+  int lo, hi;
+  k_tiles(a, qt, &lo, &hi);
+
+  auto load_kv = [&](int j) {
+    float* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.S, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.S, a.D);
+  };
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.S, a.D);
+  cp_rows<C::BQ, C::DP, C::NT>(sdo, slice<const float>(a.dout, b, h), a.dout.s, q0, a.S,
+                               a.D);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (lo + s < hi) load_kv(lo + s);
+    cp_async_commit();
+  }
+
+  // lse and delta of this lane's rows g and g + 8 (0 past row S, where
+  // every tile is an edge tile and p is masked to 0)
+  const size_t row = (size_t(b) * a.H + h) * a.S;
+  float lse[2];
+  float2 dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + (lane >> 2) + hf * 8;
+    lse[hf] = r < a.S ? a.lse[row + r] : 0.f;
+    dl[hf] = r < a.S ? a.delta2[row + r] : make_float2(0.f, 0.f);
+  }
+  float dq[C::NA][4];
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  for (int j = lo; j < hi; ++j) {
+    cp_async_wait<STAGES - 2>();  // tile j (and Q, dO) have landed
+    __syncthreads();              // ... for every thread; tile j - 1 is consumed
+    if (j + STAGES - 1 < hi) load_kv(j + STAGES - 1);
+    cp_async_commit();
+    const int k0 = j * BK;
+    if (none_visible(a, r0, 16, k0, BK)) continue;
+    const float* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    const float* sv = sk + C::KV_ELEMS;
+
+    // S = Q.K^T and dP = dO.V^T: 16 queries x BK keys each
+    float s[C::NS][4], dp[C::NS][4];
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk) {
+      const Tf32A qa = tf32_a<LD>(sq, wr, kk * 8);
+      const Tf32A oa = tf32_a<LD>(sdo, wr, kk * 8);
+#pragma unroll
+      for (int n = 0; n < C::NS; ++n) {
+        mma_3xtf32(s[n], qa, tf32_b_rows<LD>(sk, n * 8, kk * 8));
+        mma_3xtf32(dp[n], oa, tf32_b_rows<LD>(sv, n * 8, kk * 8));
+      }
+    }
+
+    // p = exp(s * scale - lse) and ds = p (dp - delta) scale (in dp);
+    // element e: query row g + (e / 2) * 8, key column 2t + (e % 2) of
+    // tile n.  Masks only where the warp's tile crosses an edge.
+    const bool edge = !all_visible(a, r0, 16, k0, BK);
+    uint32_t heavy = 0;
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = (lane >> 2) + (e >> 1) * 8, c = n * 8 + 2 * (lane & 3) + (e & 1);
+        float p = expf(s[n][e] * a.scale - lse[e >> 1]);
+        if (edge && !visible(a, r0 + r, k0 + c)) p = 0.f;
+        s[n][e] = p;
+        dp[n][e] = (dp[n][e] - dl[e >> 1].x) - dl[e >> 1].y;
+        if (p >= kHeavy) heavy |= 1u << (n * 4 + e);
+      }
+    heavy_dp64(dp, heavy, a.D, [&](int l, int n, int e) {
+      const int hf = e >> 1;  // lane l's row g or g + 8: its delta from its registers
+      const float2 d0 = make_float2(__shfl_sync(~0u, dl[0].x, l), __shfl_sync(~0u, dl[0].y, l));
+      const float2 d1 = make_float2(__shfl_sync(~0u, dl[1].x, l), __shfl_sync(~0u, dl[1].y, l));
+      return HeavyPair{sdo + (wr + (l >> 2) + hf * 8) * LD,
+                       sv + (n * 8 + 2 * (l & 3) + (e & 1)) * LD, hf ? d1 : d0};
+    });
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * dp[n][e] * a.scale;
+
+    // dQ += dS.K over the warp's columns: dS tile kk is the A operand of
+    // k8 step kk
+#pragma unroll
+    for (int kk = 0; kk < C::NS; ++kk) {
+      const Tf32A da = tf32_acc_a(dp[kk]);
+#pragma unroll
+      for (int n = 0; n < C::NA; ++n)
+        mma_3xtf32(dq[n], da, tf32_b_cols<LD>(sk, kk * 8, d0 + n * 8));
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dqb = slice<float>(a.dq, b, h);
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n) {
+    const int c = d0 + n * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r0 + (lane >> 2) + hf * 8;
+      if (r < a.S && c < a.D)
+        *reinterpret_cast<float2*>(dqb + r * a.dq.s + c) =
+            make_float2(dq[n][2 * hf], dq[n][2 * hf + 1]);
+    }
+  }
+}
+
+// dK/dV, fp32: flash_bwd_dkv_bf16's walk with fp32 tiles and 3xTF32
+// products; P^T stays fp32 for dV += P^T.dO.
+template <typename C>
+__global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
+  constexpr int LD = C::LD, BQ = C::BQ, STAGES = C::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + C::KV_ELEMS;
+  unsigned char* ring = smem + 2 * C::KV_ELEMS * 4;
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k0 = kt * C::BK, wr = (warp % C::RW) * 16, kr0 = k0 + wr;
+  const int d0 = (warp / C::RW) * C::DW;
+  int lo, hi;
+  q_tiles(a, kt, &lo, &hi);
+  const int nq = hi - lo, total = a.G * nq;
+
+  cp_rows<C::BK, C::DP, C::NT>(sk, slice<const float>(a.k, b, kvh), a.k.s, k0, a.S, a.D);
+  cp_rows<C::BK, C::DP, C::NT>(sv, slice<const float>(a.v, b, kvh), a.v.s, k0, a.S, a.D);
+  cp_async_commit();
+  // (head, q-tile) pair t of the walk: Q, dO, lse, delta into stage t % STAGES
+  auto load_q = [&](int t) {
+    const int h = kvh * a.G + t / nq, q0 = (lo + t % nq) * BQ;
+    unsigned char* st = ring + size_t(t % STAGES) * C::STAGE_BYTES;
+    float* sq = reinterpret_cast<float*>(st);
+    cp_rows<BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.S, a.D);
+    cp_rows<BQ, C::DP, C::NT>(sq + C::Q_ELEMS, slice<const float>(a.dout, b, h), a.dout.s,
+                              q0, a.S, a.D);
+    float* sl = sq + 2 * C::Q_ELEMS;
+    float2* sd = reinterpret_cast<float2*>(sl + BQ);
+    const size_t row = (size_t(b) * a.H + h) * a.S;
+    for (int r = threadIdx.x; r < BQ; r += C::NT) {
+      const bool ok = q0 + r < a.S;
+      const size_t at = row + (ok ? q0 + r : 0);
+      cp_async4(sl + r, a.lse + at, ok);
+      cp_async8(sd + r, a.delta2 + at, ok);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < total) load_q(t);
+    cp_async_commit();
+  }
+
+  float dk[C::NA][4], dv[C::NA][4];
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait<STAGES - 2>();  // pair t (and K, V) have landed
+    __syncthreads();              // ... for every thread; pair t - 1 is consumed
+    if (t + STAGES - 1 < total) load_q(t + STAGES - 1);
+    cp_async_commit();
+    const int q0 = (lo + t % nq) * BQ;
+    if (none_visible(a, q0, BQ, kr0, 16)) continue;
+    const float* sq = reinterpret_cast<const float*>(ring + size_t(t % STAGES) * C::STAGE_BYTES);
+    const float* sdo = sq + C::Q_ELEMS;
+    const float* slse = sdo + C::Q_ELEMS;
+    const float2* sdelta = reinterpret_cast<const float2*>(slse + BQ);
+
+    // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x BQ queries each
+    float s[C::NS][4], dp[C::NS][4];
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk) {
+      const Tf32A ka = tf32_a<LD>(sk, wr, kk * 8);
+      const Tf32A va = tf32_a<LD>(sv, wr, kk * 8);
+#pragma unroll
+      for (int n = 0; n < C::NS; ++n) {
+        mma_3xtf32(s[n], ka, tf32_b_rows<LD>(sq, n * 8, kk * 8));
+        mma_3xtf32(dp[n], va, tf32_b_rows<LD>(sdo, n * 8, kk * 8));
+      }
+    }
+
+    // p (in s) and ds (in dp); element e: key row g + (e / 2) * 8, query
+    // column 2t + (e % 2) of tile n.  Masks only where the warp's tile
+    // crosses an edge.
+    const bool edge = !all_visible(a, q0, BQ, kr0, 16);
+    uint32_t heavy = 0;
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n) {
+      const int c = n * 8 + 2 * (lane & 3);
+      const float2 ls = *reinterpret_cast<const float2*>(slse + c);
+      const float4 de = *reinterpret_cast<const float4*>(sdelta + c);  // hi, lo of c, c + 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = expf(s[n][e] * a.scale - ((e & 1) ? ls.y : ls.x));
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, q0 + c + (e & 1), kr0 + (lane >> 2) + (e >> 1) * 8)) s[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[n][e] = (e & 1) ? (dp[n][e] - de.z) - de.w : (dp[n][e] - de.x) - de.y;
+        if (s[n][e] >= kHeavy) heavy |= 1u << (n * 4 + e);
+      }
+    }
+    heavy_dp64(dp, heavy, a.D, [&](int l, int n, int e) {
+      const int c = n * 8 + 2 * (l & 3) + (e & 1);
+      return HeavyPair{sdo + c * LD, sv + (wr + (l >> 2) + (e >> 1) * 8) * LD, sdelta[c]};
+    });
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * dp[n][e] * a.scale;
+
+    // dV += P^T.dO and dK += dS^T.Q over the warp's columns: tile kk of
+    // P^T and dS^T is the A operand of k8 step kk
+#pragma unroll
+    for (int kk = 0; kk < C::NS; ++kk) {
+      const Tf32A pa = tf32_acc_a(s[kk]);
+      const Tf32A da = tf32_acc_a(dp[kk]);
+#pragma unroll
+      for (int n = 0; n < C::NA; ++n) {
+        mma_3xtf32(dv[n], pa, tf32_b_cols<LD>(sdo, kk * 8, d0 + n * 8));
+        mma_3xtf32(dk[n], da, tf32_b_cols<LD>(sq, kk * 8, d0 + n * 8));
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dkb = slice<float>(a.dk, b, kvh);
+  float* dvb = slice<float>(a.dv, b, kvh);
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n) {
+    const int c = d0 + n * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = kr0 + (lane >> 2) + hf * 8;
+      if (r < a.S && c < a.D) {
+        *reinterpret_cast<float2*>(dkb + r * a.dk.s + c) =
+            make_float2(dk[n][2 * hf], dk[n][2 * hf + 1]);
+        *reinterpret_cast<float2*>(dvb + r * a.dv.s + c) =
+            make_float2(dv[n][2 * hf], dv[n][2 * hf + 1]);
+      }
+    }
+  }
 }
 
 template <typename C>
-cudaError_t dq_bf16(Args a, cudaStream_t st) {
+cudaError_t dq_launch(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
   const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
-  return launch(flash_bwd_dq_bf16<C>, grid, C::NT, C::SMEM, st, a);
+  if constexpr (C::ELT == 2) return launch(flash_bwd_dq_bf16<C>, grid, C::NT, C::SMEM, st, a);
+  else return launch(flash_bwd_dq_fp32<C>, grid, C::NT, C::SMEM, st, a);
 }
 
-// The dQ tiles by padded head dim (warps, warps per 16 query rows, K/V
-// rows): 4 warps over 64 queries, 64-row K/V tiles up to D = 64 and
-// 32-row above (the forward's); at D = 256, 8 warps, two over each 16
-// queries.
-cudaError_t dq_bf16(Args a, cudaStream_t st) {
-  if (a.D <= 32) return dq_bf16<DqTile<32, 4, 1, 64>>(a, st);
-  if (a.D <= 64) return dq_bf16<DqTile<64, 4, 1, 64>>(a, st);
-  if (a.D <= 128) return dq_bf16<DqTile<128, 4, 1, 32>>(a, st);
-  return dq_bf16<DqTile<256, 8, 2, 32>>(a, st);
+// The dQ tiles by dtype (0 fp32, 1 bf16) and padded head dim (warps,
+// warps per 16 query rows, K/V rows), handed to f as a value of their
+// type.  bf16: 4 warps over 64 queries, 64-row K/V tiles up to D = 64
+// and 32-row above (the forward's); at D = 256, 8 warps, two over each 16
+// queries.  fp32 (twice the bytes a row): 4 warps over 64 queries and
+// 32-row K/V tiles up to D = 64 (three blocks an SM); at D = 128, two
+// warps over each 16 queries (dQ in 32 registers); at D = 256, 8 warps,
+// 16-row K/V tiles (195 KB).
+template <typename F>
+cudaError_t dq_tiles(int dtype, int D, F&& f) {
+  if (dtype == 1) {
+    if (D <= 32) return f(DqTile<bf16, 32, 4, 1, 64>{});
+    if (D <= 64) return f(DqTile<bf16, 64, 4, 1, 64>{});
+    if (D <= 128) return f(DqTile<bf16, 128, 4, 1, 32>{});
+    return f(DqTile<bf16, 256, 8, 2, 32>{});
+  }
+  if (D <= 32) return f(DqTile<float, 32, 4, 1, 32>{});
+  if (D <= 64) return f(DqTile<float, 64, 4, 1, 32>{});
+  if (D <= 128) return f(DqTile<float, 128, 4, 2, 32>{});
+  return f(DqTile<float, 256, 8, 2, 16>{});
 }
 
 template <typename C>
-cudaError_t dkv_bf16(Args a, cudaStream_t st) {
+cudaError_t dkv_launch(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
   const dim3 grid((a.S + C::BK - 1) / C::BK, a.H / a.G, a.B);
-  return launch(flash_bwd_dkv_bf16<C>, grid, C::NT, C::SMEM, st, a);
+  if constexpr (C::ELT == 2) return launch(flash_bwd_dkv_bf16<C>, grid, C::NT, C::SMEM, st, a);
+  else return launch(flash_bwd_dkv_fp32<C>, grid, C::NT, C::SMEM, st, a);
 }
 
-// The dK/dV tiles by padded head dim (warps, warps per 16 key rows, Q/dO
-// rows): 4 warps over 64 keys, 64-row Q tiles up to D = 128 (measured
-// against its alternatives on an H100: PERF.md); at D = 256, 8 warps, two
-// over each 16 keys, 32-row Q tiles.
-cudaError_t dkv_bf16(Args a, cudaStream_t st) {
-  if (a.D <= 32) return dkv_bf16<DkvTile<32, 4, 1, 64>>(a, st);
-  if (a.D <= 64) return dkv_bf16<DkvTile<64, 4, 1, 64>>(a, st);
-  if (a.D <= 128) return dkv_bf16<DkvTile<128, 4, 1, 64>>(a, st);
-  return dkv_bf16<DkvTile<256, 8, 2, 32>>(a, st);
+// The dK/dV tiles by dtype and padded head dim (warps, warps per 16 key
+// rows, Q/dO rows).  bf16: 4 warps over 64 keys, 64-row Q tiles up to D =
+// 128 (measured against its alternatives on an H100: PERF.md); at D =
+// 256, 8 warps, two over each 16 keys, 32-row Q tiles.  fp32: 32-row Q
+// tiles; 4 warps over 64 keys at D = 32, 8 over 128 at D = 64; at D =
+// 128, 4 warps, two over each 16 keys (dK and dV in 64 registers); at D =
+// 256, 8 warps, four over each 16 keys (196 KB).
+template <typename F>
+cudaError_t dkv_tiles(int dtype, int D, F&& f) {
+  if (dtype == 1) {
+    if (D <= 32) return f(DkvTile<bf16, 32, 4, 1, 64>{});
+    if (D <= 64) return f(DkvTile<bf16, 64, 4, 1, 64>{});
+    if (D <= 128) return f(DkvTile<bf16, 128, 4, 1, 64>{});
+    return f(DkvTile<bf16, 256, 8, 2, 32>{});
+  }
+  if (D <= 32) return f(DkvTile<float, 32, 4, 1, 32>{});
+  if (D <= 64) return f(DkvTile<float, 64, 8, 1, 32>{});
+  if (D <= 128) return f(DkvTile<float, 128, 4, 2, 32>{});
+  return f(DkvTile<float, 256, 8, 4, 32>{});
 }
 
 inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
@@ -609,20 +821,25 @@ inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
                  elt))
     return int(cudaErrorInvalidValue);
   a.lse = static_cast<float*>(const_cast<void*>(lse));
-  a.delta = static_cast<const float*>(delta);
+  if (dtype == 0)
+    a.delta2 = static_cast<const float2*>(delta);
+  else
+    a.delta = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return int(bwd_fp32(a, dkv, st));
-  return int(dkv ? dkv_bf16(a, st) : dq_bf16(a, st));
+  if (dkv) return int(dkv_tiles(dtype, D, [&](auto c) { return dkv_launch<decltype(c)>(a, st); }));
+  return int(dq_tiles(dtype, D, [&](auto c) { return dq_launch<decltype(c)>(a, st); }));
 }
 
 }  // namespace fa
 
 // q, k, v, out, dout: [B, S, H(kv), D] views given by `strides` (b, s, h
 // of q, k, v, out, dout, dq in that order; d contiguous; every stride and D
-// a multiple of one 16-byte vector); lse, delta: (B * H, S) fp32.  dq: q's
-// view.  out (the forward's output) is read by the fp32 kernel, which
-// forms delta itself; the bf16 kernel reads delta.  dtype: 0 fp32, 1 bf16.
-// Returns the CUDA error code of the launch.
+// a multiple of one 16-byte vector); lse: (B * H, S) fp32; delta =
+// rowsum(dO * O): (B * H, S) fp32 for bf16 inputs, and for fp32 inputs
+// (B * H, S, 2) fp32, the fp64 sum as hi + lo.  dq: q's view.  out (the
+// forward's output) is read by neither kernel; it stays in the
+// interface.  dtype: 0 fp32, 1 bf16.  Returns the CUDA error code of the
+// launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* out, const void* dout, const void* lse,
                             const void* delta, void* dq,
@@ -649,4 +866,20 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                    nullptr, dk, dv};
   return fa::bwd_entry(ptrs, lse, delta, strides, B, H, Hkv, S, D, scale,
                        causal, window, dtype, stream, true);
+}
+
+// The dynamic shared memory, in bytes, that the dQ (dkv 0) or dK/dV (dkv
+// 1) kernel asks for at head dim D and dtype (0 fp32, 1 bf16); ptxas -v
+// reports static shared memory only.
+extern "C" int flash_bwd_smem(int D, int dtype, int dkv) {
+  int bytes = 0;
+  auto get = [&](auto c) {
+    bytes = int(decltype(c)::SMEM);
+    return cudaSuccess;
+  };
+  if (dkv)
+    fa::dkv_tiles(dtype, D, get);
+  else
+    fa::dq_tiles(dtype, D, get);
+  return bytes;
 }

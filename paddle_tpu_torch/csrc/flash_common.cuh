@@ -31,7 +31,7 @@
 // its flops, and dK/dV's flops longer than its bytes; either way the time
 // that can be won lies in feeding the tensor cores.
 //
-// Two designs live here, chosen by dtype (a choice of body by type, not a
+// The designs below are chosen by dtype (a choice of body by type, not a
 // fallback: a failed build or launch raises in the wrapper).
 //
 // bf16 forward, dQ and dK/dV (flash_fwd_bf16, flash_bwd_dq_bf16,
@@ -56,11 +56,17 @@
 // it needs no shared-memory descriptors, and the file still builds in
 // seconds.
 //
-// fp32 (the forward, dQ and dK/dV fp32 kernels): every accumulator and
-// the S/P/dS tiles live in shared memory; tile_mm multiplies them with
-// fp32 FMAs in k order (no TF32), decision for decision the fp32
-// reference.  Shared-memory bandwidth, not the tensor cores, limits that
-// design.
+// fp32 dQ and dK/dV (flash_bwd_dq_fp32, flash_bwd_dkv_fp32): the bf16
+// kernels' register-fragment structure on mma.sync m16n8k8 with TF32
+// operands, each product split into three ("3xTF32", see the toolkit
+// below), so that the tensor cores give fp32-accurate sums: fp32 tiles in
+// the same cp.async rings, fragments by 32-bit shared loads, the
+// accumulators and S/P/dS in registers.
+//
+// fp32 forward (flash_fwd_fp32_kernel): every accumulator and the S/P
+// tiles live in shared memory; tile_mm multiplies them with fp32 FMAs in
+// k order (no TF32), decision for decision the fp32 reference.
+// Shared-memory bandwidth, not the tensor cores, limits that design.
 
 #pragma once
 
@@ -108,7 +114,8 @@ struct Operand {
 struct Args {
   Operand q, k, v, o, dout, dq, dk, dv;
   float* lse;           // (B * H, S) fp32, row b * H + h
-  const float* delta;   // (B * H, S) fp32: rowsum(dO * O)
+  const float* delta;   // (B * H, S) fp32: rowsum(dO * O) (bf16 kernels)
+  const float2* delta2;  // the same summed in fp64, as fp32 hi + lo (fp32 kernels)
   int B, H, G, S, D;    // G = H / Hkv query heads per KV head
   int DP;               // D rounded up to 16 (the tiles' width)
   int BQ, BK;           // query and key rows per tile
@@ -311,6 +318,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+// 8 bytes global -> shared, asynchronously; zero where !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -321,21 +334,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [row0, row0 + R) of one (b, h) slice into a bf16 tile [R][tile_ld]:
-// DP columns, zero past D and past row S, by cp.async 16-byte copies from
-// all NT threads of the block (D and the strides are multiples of one
-// vector, which the wrapper checks).
-template <int R, int DP, int NT>
-__device__ __forceinline__ void cp_rows(bf16* tile, const bf16* src, long long stride,
-                                        int row0, int S, int D) {
-  constexpr int VPR = DP / 8, N = R * VPR;
+// Rows [row0, row0 + R) of one (b, h) slice into a tile of T (bf16 or
+// fp32) [R][tile_ld]: DP columns, zero past D and past row S, by cp.async
+// 16-byte copies from all NT threads of the block (D and the strides are
+// multiples of one vector, which the wrapper checks).
+template <int R, int DP, int NT, typename T>
+__device__ __forceinline__ void cp_rows(T* tile, const T* src, long long stride, int row0,
+                                        int S, int D) {
+  constexpr int V = 16 / sizeof(T), VPR = DP / V, N = R * VPR;
 #pragma unroll
   for (int i = 0; i < (N + NT - 1) / NT; ++i) {
     const int e = threadIdx.x + i * NT;
     if (N % NT == 0 || e < N) {
-      const int r = e / VPR, c = (e - r * VPR) * 8;
+      const int r = e / VPR, c = (e - r * VPR) * V;
       const bool ok = row0 + r < S && c < D;
-      cp_async16(tile + r * tile_ld(DP, 2) + c, ok ? src + (row0 + r) * stride + c : src, ok);
+      cp_async16(tile + r * tile_ld(DP, sizeof(T)) + c, ok ? src + (row0 + r) * stride + c : src,
+                 ok);
     }
   }
 }
@@ -404,6 +418,127 @@ __device__ __forceinline__ void acc_to_a(uint32_t r[4], const float c0[4], const
   r[1] = pack_bf16(c0[2], c0[3]);
   r[2] = pack_bf16(c1[0], c1[1]);
   r[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// -- split-TF32 toolkit of the fp32 backward kernels -------------------------
+//
+// mma.sync m16n8k8 with .tf32 operands (19-bit values in 32-bit registers),
+// lane = 4 * g + t: A (16 x 8): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3
+// (g+8, t+4); B (8 x 8): b0 (k t, n g), b1 (k t+4, n g); C (16 x 8, fp32)
+// as m16n8k16's.  Every fp32 operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi) (to nearest, ties away, as cvt.rna), which together keep ~22
+// of its 24 bits, and a product accumulates lo.hi and hi.lo first, then
+// hi.hi, into fp32 (CUTLASS's OpMultiplyAddFastF32, the scheme of
+// PyTorch's fp32 memory-efficient attention): the dropped lo.lo term is
+// 2^-22 of the product.  A single TF32 product would keep 11 bits.
+//
+// Fragments come from fp32 shared-memory tiles by 32-bit loads (ldmatrix
+// moves 16-bit matrices, and the transposed operands cannot use it).
+// With rows padded by one 16-byte vector (tile_ld(DP, 4) = DP + 4, DP a
+// multiple of 32), both patterns below touch 32 distinct banks.  The
+// accumulator's column pair (2t, 2t + 1) is not the A fragment's (t,
+// t + 4), so where S, P or dS is the A operand of the next product, the
+// order of the summation index k is permuted instead of the values: A's k
+// t and t + 4 are the accumulator's columns 2t and 2t + 1, and B's rows
+// are read in the same order (tf32_b_cols).
+
+struct Tf32A {
+  uint32_t hi[4], lo[4];
+};
+struct Tf32B {
+  uint32_t hi[2], lo[2];
+};
+
+// tf32(x) rounded as cvt.rna.tf32.f32 rounds a finite x: half a unit of
+// the 13 dropped bits added to the magnitude's bit pattern, then masked.
+// (ptxas expands the cvt itself into a compare-and-select sequence on
+// sm_90a, some twice the instructions.)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a . b, m16n8k8, tf32 operands, fp32 accumulator.
+__device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32: lo.hi + hi.lo, then hi.hi, into a partial that
+// starts at 0, which is then added to c by an fp32 add (round to
+// nearest).  Chained into c itself, the three products of every step
+// would add as many tensor-core roundings to c as the reduction has
+// steps.
+__device__ __forceinline__ void mma_3xtf32(float c[4], const Tf32A& a, const Tf32B& b) {
+  float t[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
+      : "r"(a.lo[0]), "r"(a.lo[1]), "r"(a.lo[2]), "r"(a.lo[3]), "r"(b.hi[0]), "r"(b.hi[1]),
+        "f"(0.f));
+  mma1688(t, a.hi, b.lo[0], b.lo[1]);
+  mma1688(t, a.hi, b.hi[0], b.hi[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// The A fragment of rows [r0, r0 + 16) x cols [c0, c0 + 8) of a row-major
+// fp32 tile.
+template <int LD>
+__device__ __forceinline__ Tf32A tf32_a(const float* tile, int r0, int c0) {
+  const int lane = threadIdx.x & 31;
+  const float* p = tile + (r0 + (lane >> 2)) * LD + c0 + (lane & 3);
+  Tf32A f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[8 * LD], f.hi[1], f.lo[1]);
+  split_tf32(p[4], f.hi[2], f.lo[2]);
+  split_tf32(p[8 * LD + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// The B fragment of one n8 tile where B(k, n) = tile[n][k] (K's rows in
+// Q.K^T): n = n0..n0+7, k = k0..k0+7.
+template <int LD>
+__device__ __forceinline__ Tf32B tf32_b_rows(const float* tile, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
+  Tf32B f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// The B fragment of one n8 tile where B(k, n) = tile[k][n] (K's rows in
+// dS.K), k = k0..k0+7 in tf32_acc_a's order: k t is row k0 + 2t, k t + 4
+// row k0 + 2t + 1.
+template <int LD>
+__device__ __forceinline__ Tf32B tf32_b_cols(const float* tile, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  Tf32B f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[LD], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// The A fragment whose 8 k columns are the columns of accumulator n8 tile
+// c, in tf32_b_cols's order: every value stays in its lane.
+__device__ __forceinline__ Tf32A tf32_acc_a(const float c[4]) {
+  Tf32A f;
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+  return f;
 }
 
 // The edge-tile test.  Every key of [k0, k0 + nk) is visible to every

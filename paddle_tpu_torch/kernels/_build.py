@@ -68,6 +68,9 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, strides, then as flash_fwd
     "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv", [_P] * 9 + [_I] * 5
                       + [_F] + [_I] * 3 + [_P]),
+    # D, dtype, dkv (0 dQ, 1 dK/dV): the kernel's dynamic shared memory in
+    # bytes (no launch)
+    "flash_bwd_smem": ("flash_bwd", "flash_bwd_smem", [_I] * 3),
 }
 #: the CUDA sources, csrc/<name>.cu, in registration order
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))

@@ -202,10 +202,12 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
     gradient sums its query-head group in fp32.
 
     ``dp`` and ``delta`` are summed in fp64 and their difference rounded
-    to fp32 once, as the fp32 dQ kernel forms it: where they cancel (a
-    query that sees one key has O equal to that key's V, and its dQ is 0
-    exactly, as the reference's autodiff gives) no fp32 summation noise,
-    which another summation order would not reproduce, is left."""
+    to fp32 once: where they cancel (a query that sees one key has O
+    equal to that key's V, and its dQ is 0 exactly, as the reference's
+    autodiff gives) no fp32 summation noise, which another summation
+    order would not reproduce, is left.  The fp32 kernels take delta
+    summed in fp64 too, and dp in fp64 for a pair that holds at least
+    1/16 of its query's probability."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qg, kh, vh = _grouped(q, k, v, layout)
@@ -290,28 +292,49 @@ def flash_fwd_cuda(q, k, v, causal, scale, window, layout):
 
 
 def flash_delta(out, do, layout="bnsd"):
-    """``delta = rowsum(dO * O)`` in fp32 as (B*H, S), row ``b * H + h``:
-    the backward's per-row input, summed by PyTorch as the reference sums
-    it outside Pallas."""
-    delta = (_canon(do, layout).float() * _canon(out, layout).float()).sum(-1)
-    b, s, h = delta.shape
-    return delta.transpose(1, 2).reshape(b * h, s).contiguous()
+    """``delta = rowsum(dO * O)``, row ``b * H + h``: the backward's
+    per-row input, summed by PyTorch as the reference sums it outside
+    Pallas.  For bf16 ``out`` (B*H, S) fp32.  For fp32 ``out`` it is
+    summed in fp64, as :func:`flash_bwd_plain` forms it, and handed over
+    as (B*H, S, 2) fp32, hi and lo with hi + lo that sum: where a query's
+    probability sits on few keys, dp - delta cancels and the fp32 kernels
+    need delta's low bits."""
+    dc, oc = _canon(do, layout), _canon(out, layout)
+    if out.dtype != torch.float32:
+        delta = (dc.float() * oc.float()).sum(-1)
+        b, s, h = delta.shape
+        return delta.transpose(1, 2).reshape(b * h, s).contiguous()
+    d64 = (dc.double() * oc.double()).sum(-1)
+    hi = d64.float()
+    delta = torch.stack((hi, (d64 - hi.double()).float()), -1)
+    b, s, h, _ = delta.shape
+    return delta.transpose(1, 2).reshape(b * h, s, 2).contiguous()
 
 
-def _bwd_operands(q, k, v, lse, do, layout):
+def _bwd_operands(q, k, v, lse, delta, do, layout):
     """The backward kernels' read operands as [B, S, H, D] views, the
-    contiguous lse, and the dims (B, H, Hkv, S, D)."""
+    contiguous lse and delta, and the dims (B, H, Hkv, S, D).  delta must
+    have :func:`flash_delta`'s layout for q's dtype: the kernels read it
+    through a raw pointer."""
     _check(q, k, v)
     qc, kc, vc, dc = (_operand(t, layout) for t in (q, k, v, do.to(q.dtype)))
-    return (qc, kc, vc, dc), lse.contiguous(), _dims(qc, kc)
+    dims = _dims(qc, kc)
+    b, h, _, s, _ = dims
+    want = (b * h, s, 2) if q.dtype == torch.float32 else (b * h, s)
+    if delta.dtype != torch.float32 or tuple(delta.shape) != want:
+        raise ValueError(f"flash backward: delta must be fp32 {want} "
+                         f"(flash_delta), not {delta.dtype} "
+                         f"{tuple(delta.shape)}")
+    return (qc, kc, vc, dc), lse.contiguous(), delta.contiguous(), dims
 
 
 def flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, causal, scale, window,
                       layout):
     """The dQ kernel: ``dq`` in q's shape and dtype.  CUDA tensors only.
-    The fp32 kernel forms delta from ``out`` itself; bf16 reads
-    ``delta``."""
-    (qc, kc, vc, dc), lse, dims = _bwd_operands(q, k, v, lse, do, layout)
+    The kernel reads ``delta``; ``out`` is handed over because the C entry
+    point takes it, and no body reads it."""
+    (qc, kc, vc, dc), lse, delta, dims = _bwd_operands(q, k, v, lse, delta,
+                                                       do, layout)
     oc = _operand(out.to(q.dtype), layout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dqc = _canon(dq, layout)
@@ -324,7 +347,8 @@ def flash_bwd_dkv_cuda(q, k, v, lse, delta, do, causal, scale, window,
                        layout):
     """The dK/dV kernel: ``dk, dv`` in k's and v's shapes and dtypes.
     CUDA tensors only."""
-    (qc, kc, vc, dc), lse, dims = _bwd_operands(q, k, v, lse, do, layout)
+    (qc, kc, vc, dc), lse, delta, dims = _bwd_operands(q, k, v, lse, delta,
+                                                       do, layout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     dkc, dvc = _canon(dk, layout), _canon(dv, layout)

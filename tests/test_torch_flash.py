@@ -183,8 +183,8 @@ def test_first_query_dq_matches_reference_exactly(case):
 
 def test_dq_launch_hands_the_kernel_out(monkeypatch):
     """The dQ kernel's launch passes q, k, v, out, dout, lse, delta, dq and
-    the strides of the five [B, S, H, D] views and dq (the fp32 kernel
-    forms delta from out)."""
+    the strides of the five [B, S, H, D] views and dq (out stays in the
+    C entry point's interface; the kernels read delta)."""
     import ctypes
     import types
 
@@ -205,7 +205,7 @@ def test_dq_launch_hands_the_kernel_out(monkeypatch):
     b, s, h, hkv, d = 2, 16, 4, 2, 16
     q, out, do = (torch.randn(b, s, h, d) for _ in range(3))
     k, v = (torch.randn(b, s, hkv, d) for _ in range(2))
-    lse, delta = torch.zeros(b * h, s), torch.zeros(b * h, s)
+    lse, delta = torch.zeros(b * h, s), torch.zeros(b * h, s, 2)
     dq = tflash.flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, True, 0.25,
                                   None, "bsnd")
     (name, args, strides), = calls
