@@ -56,17 +56,12 @@
 // it needs no shared-memory descriptors, and the file still builds in
 // seconds.
 //
-// fp32 dQ and dK/dV (flash_bwd_dq_fp32, flash_bwd_dkv_fp32): the bf16
-// kernels' register-fragment structure on mma.sync m16n8k8 with TF32
-// operands, each product split into three ("3xTF32", see the toolkit
-// below), so that the tensor cores give fp32-accurate sums: fp32 tiles in
-// the same cp.async rings, fragments by 32-bit shared loads, the
-// accumulators and S/P/dS in registers.
-//
-// fp32 forward (flash_fwd_fp32_kernel): every accumulator and the S/P
-// tiles live in shared memory; tile_mm multiplies them with fp32 FMAs in
-// k order (no TF32), decision for decision the fp32 reference.
-// Shared-memory bandwidth, not the tensor cores, limits that design.
+// fp32 forward, dQ and dK/dV (flash_fwd_fp32, flash_bwd_dq_fp32,
+// flash_bwd_dkv_fp32): the bf16 kernels' register-fragment structure on
+// mma.sync m16n8k8 with TF32 operands, each product split into three
+// ("3xTF32", see the toolkit below), so that the tensor cores give
+// fp32-accurate sums: fp32 tiles in the same cp.async rings, fragments by
+// 32-bit shared loads, the accumulators and S/P/dS in registers.
 
 #pragma once
 
@@ -80,27 +75,11 @@ namespace fa {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 8;  // measured 1.6-1.7x faster than 4 on an H100
-constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;  // the reference's _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -133,73 +112,6 @@ __device__ __forceinline__ T* slice(const Operand& o, int b, int h) {
 // every row 16-byte (and every 16-row fragment 32-byte) aligned.
 __host__ __device__ constexpr int tile_ld(int cols, int elt) { return cols + 16 / elt; }
 
-// Shared-memory carve-up: 128-byte aligned sections, the same arithmetic
-// on the host (sizing) and the device (addresses).
-struct Carve {
-  size_t off = 0;
-  __host__ __device__ size_t take(size_t bytes) {
-    const size_t o = off;
-    off += (bytes + 127) & ~size_t(127);
-    return o;
-  }
-};
-
-// Rows [row0, row0 + R) of one (b, h) slice into a tile [R][ld] of T: DP
-// columns, zero past D and past row S, in 16-byte vectors (D and the
-// strides are multiples of the vector, which the wrapper checks).
-template <typename T>
-__device__ void load_rows(T* tile, int ld, const T* src, long long s_stride,
-                          int row0, int R, int S, int D, int DP) {
-  constexpr int V = 16 / sizeof(T);
-  const int vpr = DP / V;
-  for (int e = threadIdx.x; e < R * vpr; e += blockDim.x) {
-    const int r = e / vpr, c = (e - r * vpr) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * s_stride + c);
-    *reinterpret_cast<uint4*>(tile + r * ld + c) = val;
-  }
-}
-
-// fp32 rows of `acc` [R][lda] (each divided by div[r] when div is given)
-// to rows [row0, row0 + R) of one (b, h) slice, in T, rows < S only.
-template <typename T>
-__device__ void store_rows(T* dst, long long s_stride, const float* acc,
-                           int lda, const float* div, int row0, int R, int S,
-                           int D) {
-  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    const int r = e / D, d = e - r * D;
-    if (row0 + r >= S) continue;
-    const float x = div ? acc[r * lda + d] / div[r] : acc[r * lda + d];
-    dst[(row0 + r) * s_stride + d] = from_float<T>(x);
-  }
-}
-
-__device__ __forceinline__ void zero(float* buf, int rows, int cols, int ld) {
-  for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
-    const int r = e / cols;
-    buf[r * ld + (e - r * cols)] = 0.f;
-  }
-}
-
-// C[M][N] (ldc) = (accumulate ? C : 0) + A[M][K] . B[K][N], all fp32 in
-// shared memory.  A_T: A is stored transposed (A(m, k) at a[k * lda + m]);
-// B_T: B is stored transposed (B(k, n) at b[n * ldb + k]).  FMAs in k
-// order, one output per thread at a time.  Callers synchronise around it.
-template <bool A_T, bool B_T>
-__device__ void tile_mm(float* c, int ldc, const float* a, int lda,
-                        const float* b, int ldb, int M, int N, int K,
-                        bool accumulate) {
-  for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
-    const int m = e / N, n = e - m * N;
-    float s = accumulate ? c[m * ldc + n] : 0.f;
-    for (int k = 0; k < K; ++k)
-      s = fmaf(A_T ? a[k * lda + m] : a[m * lda + k],
-               B_T ? b[n * ldb + k] : b[k * ldb + n], s);
-    c[m * ldc + n] = s;
-  }
-}
-
 // Key position kj is visible to query position qi.
 __device__ __forceinline__ bool visible(const Args& a, int qi, int kj) {
   if (qi >= a.S || kj >= a.S) return false;
@@ -230,25 +142,6 @@ __device__ __forceinline__ void q_tiles(const Args& a, int kt, int* lo, int* hi)
     if (a.window > 0)
       *hi = min(((kt + 1) * a.BK + a.window - 1 + a.BQ - 1) / a.BQ, nq);
   }
-}
-
-// The largest square tile of at most `most` rows (64, 32 or 16) whose
-// shared memory, bytes(tile), fits the card's opt-in limit; 0 if none does.
-template <typename F>
-inline int pick_tile(F bytes, int most, size_t* smem) {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  for (int t = most; t >= 16; t /= 2) {
-    const size_t n = bytes(t);
-    if (n <= size_t(limit)) {
-      *smem = n;
-      return t;
-    }
-  }
-  return 0;
 }
 
 template <typename K>
@@ -420,7 +313,7 @@ __device__ __forceinline__ void acc_to_a(uint32_t r[4], const float c0[4], const
   r[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// -- split-TF32 toolkit of the fp32 backward kernels -------------------------
+// -- split-TF32 toolkit of the fp32 kernels ----------------------------------
 //
 // mma.sync m16n8k8 with .tf32 operands (19-bit values in 32-bit registers),
 // lane = 4 * g + t: A (16 x 8): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3
@@ -491,6 +384,40 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const Tf32A& a, const Tf3
   for (int i = 0; i < 4; ++i) c[i] += t[i];
 }
 
+// B in three TF32 parts: hi, mid = tf32(x - hi), lo = tf32(x - hi - mid)
+// hold every bit of an fp32 x (11 + 11 + 11 >= 24), where hi and lo keep
+// ~22.
+struct Tf32B3 {
+  uint32_t hi[2], mid[2], lo[2];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  hi = tf32_rna(x);
+  const float r = x - __uint_as_float(hi);
+  mid = tf32_rna(r);
+  lo = tf32_rna(r - __uint_as_float(mid));
+}
+
+// c += a . b with b in three parts: lo.hi + hi.lo + hi.mid, then hi.hi,
+// into a fresh partial added to c.  Where a's row holds one 1 and zeros
+// (a query whose probability sits on one key), the row gets b's values
+// to the last bit, as an fp32 product does; two parts of b would miss
+// them by ~2^-22.
+__device__ __forceinline__ void mma_4xtf32(float c[4], const Tf32A& a, const Tf32B3& b) {
+  float t[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
+      : "r"(a.lo[0]), "r"(a.lo[1]), "r"(a.lo[2]), "r"(a.lo[3]), "r"(b.hi[0]), "r"(b.hi[1]),
+        "f"(0.f));
+  mma1688(t, a.hi, b.lo[0], b.lo[1]);
+  mma1688(t, a.hi, b.mid[0], b.mid[1]);
+  mma1688(t, a.hi, b.hi[0], b.hi[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
 // The A fragment of rows [r0, r0 + 16) x cols [c0, c0 + 8) of a row-major
 // fp32 tile.
 template <int LD>
@@ -530,6 +457,17 @@ __device__ __forceinline__ Tf32B tf32_b_cols(const float* tile, int k0, int n0) 
   return f;
 }
 
+// tf32_b_cols's fragment in three parts.
+template <int LD>
+__device__ __forceinline__ Tf32B3 tf32_b_cols3(const float* tile, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  Tf32B3 f;
+  split_tf32(p[0], f.hi[0], f.mid[0], f.lo[0]);
+  split_tf32(p[LD], f.hi[1], f.mid[1], f.lo[1]);
+  return f;
+}
+
 // The A fragment whose 8 k columns are the columns of accumulator n8 tile
 // c, in tf32_b_cols's order: every value stays in its lane.
 __device__ __forceinline__ Tf32A tf32_acc_a(const float c[4]) {
@@ -539,6 +477,80 @@ __device__ __forceinline__ Tf32A tf32_acc_a(const float c[4]) {
   split_tf32(c[1], f.hi[2], f.lo[2]);
   split_tf32(c[3], f.hi[3], f.lo[3]);
   return f;
+}
+
+// A tile split ahead of its products: hi and lo of every value, as TF32
+// bit patterns in two fp32 tiles of one shape.  The loaders below read
+// fragments from it as their fp32 namesakes do, with no split per load.
+struct SplitTile {
+  const float* hi;
+  const float* lo;
+};
+
+template <int LD>
+__device__ __forceinline__ Tf32A tf32_a(SplitTile t, int r0, int c0) {
+  const int lane = threadIdx.x & 31, at = (r0 + (lane >> 2)) * LD + c0 + (lane & 3);
+  const int off[4] = {0, 8 * LD, 4, 8 * LD + 4};
+  Tf32A f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = __float_as_uint(t.hi[at + off[i]]);
+    f.lo[i] = __float_as_uint(t.lo[at + off[i]]);
+  }
+  return f;
+}
+
+template <int LD>
+__device__ __forceinline__ Tf32B tf32_b_rows(SplitTile t, int n0, int k0) {
+  const int lane = threadIdx.x & 31, at = (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
+  return Tf32B{{__float_as_uint(t.hi[at]), __float_as_uint(t.hi[at + 4])},
+               {__float_as_uint(t.lo[at]), __float_as_uint(t.lo[at + 4])}};
+}
+
+// A tile split ahead in three parts (hi, mid, lo).
+struct SplitTile3 {
+  const float* hi;
+  const float* mid;
+  const float* lo;
+};
+
+template <int LD>
+__device__ __forceinline__ Tf32B3 tf32_b_cols3(SplitTile3 t, int k0, int n0) {
+  const int lane = threadIdx.x & 31, at = (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  return Tf32B3{{__float_as_uint(t.hi[at]), __float_as_uint(t.hi[at + LD])},
+                {__float_as_uint(t.mid[at]), __float_as_uint(t.mid[at + LD])},
+                {__float_as_uint(t.lo[at]), __float_as_uint(t.lo[at + LD])}};
+}
+
+// Rows [0, R) x DP of an fp32 tile (pitch tile_ld(DP, 4)) split in place
+// into PARTS (2 or 3) TF32 parts: hi over the value, the rest into the
+// same place of p1 (lo; for three parts mid, and lo into p2), by the NT
+// threads numbered from tid, a 16-byte vector at a time.
+template <int R, int DP, int NT, int PARTS>
+__device__ __forceinline__ void split_rows(float* tile, float* p1, float* p2, int tid) {
+  constexpr int LD = tile_ld(DP, 4), VPR = DP / 4, N = R * VPR;
+#pragma unroll
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+    const int e = tid + i * NT;
+    if (N % NT == 0 || e < N) {
+      const int at = (e / VPR) * LD + (e % VPR) * 4;
+      float x[4], part[3][4];
+      *reinterpret_cast<float4*>(x) = *reinterpret_cast<const float4*>(tile + at);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t h, m, l;
+        if constexpr (PARTS == 2) split_tf32(x[j], h, m);
+        else split_tf32(x[j], h, m, l);
+        part[0][j] = __uint_as_float(h);
+        part[1][j] = __uint_as_float(m);
+        if constexpr (PARTS == 3) part[2][j] = __uint_as_float(l);
+      }
+      *reinterpret_cast<float4*>(tile + at) = *reinterpret_cast<const float4*>(part[0]);
+      *reinterpret_cast<float4*>(p1 + at) = *reinterpret_cast<const float4*>(part[1]);
+      if constexpr (PARTS == 3)
+        *reinterpret_cast<float4*>(p2 + at) = *reinterpret_cast<const float4*>(part[2]);
+    }
+  }
 }
 
 // The edge-tile test.  Every key of [k0, k0 + nk) is visible to every

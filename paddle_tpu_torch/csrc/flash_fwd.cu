@@ -35,115 +35,35 @@
 // tiles, 128 registers a thread and no spill; on an H100, 8 warps, 64-row
 // K/V tiles or a third stage measured slower (PERF.md).
 //
-// fp32 (flash_fwd_fp32_kernel): the shared-memory design of
-// flash_common.cuh, 8 warps, fp32 FMAs, decision for decision the fp32
-// reference.
+// fp32 (flash_fwd_fp32): at BERT-base's attention (B*H = 384, S = 512,
+// D = 64, not causal) its 4 B*H*S^2*D flops take 0.385 ms at the card's
+// 67 TFLOP/s of fp32 FMAs and 0.156 ms as three TF32 products each at 495
+// TFLOP/s, against 0.06 ms of bytes: operations bound it.  So it is the
+// bf16 body above with fp32 tiles (row pitch DP + 4 floats) in the same
+// cp.async ring and every product on mma.sync m16n8k8 in 3xTF32
+// (flash_common.cuh's toolkit): S = Q.K^T and the online softmax in
+// registers, P in fp32 (V's dtype, as the reference) the A operand of O
+// += P.V through tf32_acc_a's permuted k order (V's B fragments by
+// tf32_b_cols), each k8 step's products in a fresh partial that an fp32
+// add takes into O, and O stored from registers as float2.  V is split in
+// three parts and P.V takes four products (mma_4xtf32): a query that sees
+// one key then gets that key's v to the last bit, as the plain version
+// does, and the backward, whose delta comes from this out, finds dp -
+// delta = 0 there (with two parts, 2^-22 of v was left, and the ring's
+// fp32 dQ of such a query missed FLASH_TOL on the card).  What
+// limits it is instructions beside the tensor cores: each fp32 operand
+// value split into hi and lo (five integer and float operations), each
+// step's partial added to its accumulator.  Three choices cut them, each
+// a template argument of the tiles (FwdTile32) timed on an H100: a warp
+// owns two m16 tiles where its registers allow (D <= 64), so that each
+// K or V fragment, loaded and split once, feeds two products; the block
+// splits each K/V tile once (split_rows) instead of every warp splitting
+// its fragments; and Q is split once into hi and lo tiles where that
+// left it faster (D = 32, 128).
 
 #include "flash_common.cuh"
 
 namespace fa {
-
-struct FwdSmem {
-  size_t q, k, v, s, p, o, m, l, alpha, total;
-};
-
-// Shared memory of the fp32 kernel: Q, K, V, S, P and O tiles, and m, l,
-// alpha per row.
-__host__ __device__ inline FwdSmem fwd_smem(int BQ, int BK, int DP) {
-  Carve c;
-  FwdSmem t;
-  const int ldt = tile_ld(DP, 4), lds = tile_ld(BK, 4);
-  t.q = c.take(size_t(BQ) * ldt * 4);
-  t.k = c.take(size_t(BK) * ldt * 4);
-  t.v = c.take(size_t(BK) * ldt * 4);
-  t.s = c.take(size_t(BQ) * lds * 4);
-  t.p = c.take(size_t(BQ) * lds * 4);
-  t.o = c.take(size_t(BQ) * ldt * 4);
-  t.m = c.take(size_t(BQ) * 4);
-  t.l = c.take(size_t(BQ) * 4);
-  t.alpha = c.take(size_t(BQ) * 4);
-  t.total = c.off;
-  return t;
-}
-
-__global__ void __launch_bounds__(kThreads) flash_fwd_fp32_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
-  const int BQ = a.BQ, BK = a.BK, DP = a.DP;
-  const int ld = tile_ld(DP, 4), lds = tile_ld(BK, 4);
-  const FwdSmem L = fwd_smem(BQ, BK, DP);
-  float* sq = reinterpret_cast<float*>(smem + L.q);
-  float* sk = reinterpret_cast<float*>(smem + L.k);
-  float* sv = reinterpret_cast<float*>(smem + L.v);
-  float* ss = reinterpret_cast<float*>(smem + L.s);
-  float* sp = reinterpret_cast<float*>(smem + L.p);
-  float* so = reinterpret_cast<float*>(smem + L.o);
-  float* sm = reinterpret_cast<float*>(smem + L.m);
-  float* sl = reinterpret_cast<float*>(smem + L.l);
-  float* salpha = reinterpret_cast<float*>(smem + L.alpha);
-
-  const int q0 = qt * BQ;
-  load_rows(sq, ld, slice<const float>(a.q, b, h), a.q.s, q0, BQ, a.S, a.D, DP);
-  zero(so, BQ, DP, ld);
-  for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
-    sm[r] = kNegInf;
-    sl[r] = 0.f;
-  }
-  const float* kb = slice<const float>(a.k, b, kvh);
-  const float* vb = slice<const float>(a.v, b, kvh);
-  int lo, hi;
-  k_tiles(a, qt, &lo, &hi);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int j = lo; j < hi; ++j) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_rows(sk, ld, kb, a.k.s, j * BK, BK, a.S, a.D, DP);
-    load_rows(sv, ld, vb, a.v.s, j * BK, BK, a.S, a.D, DP);
-    __syncthreads();
-    tile_mm<false, true>(ss, lds, sq, ld, sk, ld, BQ, BK, DP, false);
-    __syncthreads();
-    // online softmax, one warp per row
-    for (int r = warp; r < BQ; r += kWarps) {
-      const int qi = q0 + r;
-      float mx = kNegInf;
-      for (int c = lane; c < BK; c += 32) {
-        float s = ss[r * lds + c] * a.scale;
-        if (!visible(a, qi, j * BK + c)) s = kNegInf;
-        ss[r * lds + c] = s;
-        mx = fmaxf(mx, s);
-      }
-      const float m_old = sm[r], m_new = fmaxf(m_old, warp_max(mx));
-      float sum = 0.f;
-      for (int c = lane; c < BK; c += 32) {
-        const float p = expf(ss[r * lds + c] - m_new);
-        sum += p;
-        sp[r * lds + c] = p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        salpha[r] = alpha;
-        sl[r] = sl[r] * alpha + sum;
-        sm[r] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < BQ * DP; e += blockDim.x) {
-      const int r = e / DP;
-      so[r * ld + (e - r * DP)] *= salpha[r];
-    }
-    __syncthreads();
-    tile_mm<false, false>(so, ld, sp, lds, sv, ld, BQ, DP, BK, true);
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < BQ; r += blockDim.x) sl[r] = fmaxf(sl[r], 1e-30f);
-  __syncthreads();
-  store_rows(slice<float>(a.o, b, h), a.o.s, so, ld, sl, q0, BQ, a.S, a.D);
-  float* lse = a.lse + (size_t(b) * a.H + h) * a.S;
-  for (int r = threadIdx.x; r < BQ; r += blockDim.x)
-    if (q0 + r < a.S) lse[q0 + r] = sm[r] + logf(sl[r]);
-}
 
 // Tiles of the bf16 forward: 4 warps of 16 query rows each, BK-row K/V
 // tiles in a 2-stage ring.
@@ -306,15 +226,242 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
   }
 }
 
+// Where the fp32 forward splits Q into TF32 hi and lo: at every k8 step
+// from the fp32 tile (as the backward kernels do), or once into hi and lo
+// shared-memory tiles.
+enum QSplit { kQEachStep, kQShared };
+
+// Tiles of the fp32 forward: NW warps of MW m16 tiles (16 MW query rows)
+// each, BK-row K/V tiles in a 2-stage ring; Q split as QSPLIT says;
+// KVSPLIT: each K/V tile split once into hi (in place) and lo tiles (V:
+// mid and lo) by the whole block, instead of each warp splitting its
+// fragments.  A warp with MW = 2 loads and splits each B fragment once
+// for two m16 tiles.
+template <int DP_, int NW_, int MW_, int BK_, QSplit QSPLIT_, bool KVSPLIT_>
+struct FwdTile32 {
+  static constexpr int DP = DP_, NW = NW_, MW = MW_, BK = BK_, STAGES = 2;
+  static constexpr QSplit QSPLIT = QSPLIT_;
+  static constexpr bool KVSPLIT = KVSPLIT_;
+  static constexpr int NT = 32 * NW, WR = 16 * MW, BQ = WR * NW, LD = tile_ld(DP, 4);
+  static constexpr int KD = DP / 8;  // k8 steps over d (S = Q.K^T)
+  static constexpr int NS = BK / 8;  // n8 tiles of S, k8 steps of P.V
+  static constexpr int NO = DP / 8;  // n8 tiles of O
+  static constexpr size_t Q_ELEMS = size_t(BQ) * LD;
+  static constexpr size_t KV_ELEMS = size_t(BK) * LD;  // one of K, V
+  static constexpr size_t Q_TILES = QSPLIT == kQShared ? 2 : 1;
+  static constexpr size_t KV_TILES = 2 * STAGES + (KVSPLIT ? 3 : 0);
+  static constexpr size_t SMEM = (Q_TILES * Q_ELEMS + KV_TILES * KV_ELEMS) * 4;
+  static_assert(SMEM <= 232448, "more shared memory than a block can have");
+};
+
+// One block an SM stated: ptxas then gives the body up to 255 registers a
+// thread, and the dispatch's tiles ran as fast or faster so on an H100
+// than with the count ptxas picks without it, or with room left for 3-4
+// blocks an SM.
+template <typename C>
+__global__ void __launch_bounds__(C::NT, 1) flash_fwd_fp32(Args a) {
+  constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES, MW = C::MW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sql = sq + C::Q_ELEMS;                          // Q's lo (kQShared)
+  float* skv = sq + C::Q_TILES * C::Q_ELEMS;             // the ring
+  float* skvl = skv + size_t(STAGES) * 2 * C::KV_ELEMS;  // K's lo, V's mid, lo (KVSPLIT)
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = qt * C::BQ, wr = warp * C::WR, r0 = q0 + wr;
+  const float* kb = slice<const float>(a.k, b, kvh);
+  const float* vb = slice<const float>(a.v, b, kvh);
+  int lo, hi;
+  k_tiles(a, qt, &lo, &hi);
+
+  auto load_kv = [&](int j) {
+    float* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.S, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.S, a.D);
+  };
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.S, a.D);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (lo + s < hi) load_kv(lo + s);
+    cp_async_commit();
+  }
+
+  // Q split once into hi and lo tiles, where the tiles say so
+  if constexpr (C::QSPLIT == kQShared) {
+    cp_async_wait<STAGES - 1>();  // Q has landed
+    __syncthreads();              // ... for every thread
+    split_rows<C::WR, C::DP, 32, 2>(sq + wr * LD, sql + wr * LD, nullptr, lane);  // own rows
+    __syncwarp();
+  }
+
+  float o[MW][C::NO][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n) o[i][n][0] = o[i][n][1] = o[i][n][2] = o[i][n][3] = 0.f;
+  // running max (base 2: of s * log2(e)) and per-lane sum, rows g, g + 8
+  // of each m16 tile
+  float m[MW][2], l[MW][2];
+#pragma unroll
+  for (int i = 0; i < MW; ++i) m[i][0] = m[i][1] = kNegInf, l[i][0] = l[i][1] = 0.f;
+  const float scale2 = a.scale * kLog2e;
+
+  for (int j = lo; j < hi; ++j) {
+    cp_async_wait<STAGES - 2>();  // tile j has landed
+    __syncthreads();              // ... for every thread; tile j - 1 is consumed
+    if (j + STAGES - 1 < hi) load_kv(j + STAGES - 1);
+    cp_async_commit();
+    float* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    float* sv = sk + C::KV_ELEMS;
+    if constexpr (C::KVSPLIT) {
+      split_rows<BK, C::DP, C::NT, 2>(sk, skvl, nullptr, threadIdx.x);
+      split_rows<BK, C::DP, C::NT, 3>(sv, skvl + C::KV_ELEMS, skvl + 2 * C::KV_ELEMS,
+                                      threadIdx.x);
+      __syncthreads();
+    }
+    const int k0 = j * BK;
+    if (none_visible(a, r0, C::WR, k0, BK)) continue;
+    const auto kf = [&] {
+      if constexpr (C::KVSPLIT) return SplitTile{sk, skvl};
+      else return static_cast<const float*>(sk);
+    }();
+    const auto vf = [&] {
+      if constexpr (C::KVSPLIT) return SplitTile3{sv, skvl + C::KV_ELEMS, skvl + 2 * C::KV_ELEMS};
+      else return static_cast<const float*>(sv);
+    }();
+
+    // S = Q.K^T, each B fragment for all MW m16 tiles
+    float s[MW][C::NS][4];
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int n = 0; n < C::NS; ++n) s[i][n][0] = s[i][n][1] = s[i][n][2] = s[i][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk) {
+      Tf32A qa[MW];
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        if constexpr (C::QSPLIT == kQShared)
+          qa[i] = tf32_a<LD>(SplitTile{sq, sql}, wr + 16 * i, kk * 8);
+        else qa[i] = tf32_a<LD>(sq, wr + 16 * i, kk * 8);
+      }
+#pragma unroll
+      for (int n = 0; n < C::NS; ++n) {
+        const Tf32B kb8 = tf32_b_rows<LD>(kf, n * 8, kk * 8);
+#pragma unroll
+        for (int i = 0; i < MW; ++i) mma_3xtf32(s[i][n], qa[i], kb8);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < MW; ++i) {
+      const int ri = r0 + 16 * i;
+      // scale (to base 2), and mask only where the m16 tile crosses an edge
+      if (all_visible(a, ri, 16, k0, BK)) {
+#pragma unroll
+        for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][n][e] *= scale2;
+      } else {
+#pragma unroll
+        for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][n][e] = visible(a, ri + (lane >> 2) + (e >> 1) * 8, k0 + n * 8 + 2 * (lane & 3) + (e & 1))
+                             ? s[i][n][e] * scale2
+                             : kNegInf;
+      }
+
+      // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < C::NS; ++n) mx = fmaxf(mx, fmaxf(s[i][n][2 * hf], s[i][n][2 * hf + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i][hf], mx), alpha = exp2f(m[i][hf] - m_new);
+        m[i][hf] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+          for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+            s[i][n][e] = exp2f(s[i][n][e] - m_new);
+            sum += s[i][n][e];
+          }
+        l[i][hf] = l[i][hf] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < C::NO; ++n) {
+          o[i][n][2 * hf] *= alpha;
+          o[i][n][2 * hf + 1] *= alpha;
+        }
+      }
+    }
+
+    // O += P.V: P (fp32, V's dtype) from the S accumulator, tile kk the A
+    // operand of k8 step kk; V in three parts (mma_4xtf32: a query whose
+    // probability sits on one key gets its v exactly, as the plain
+    // version's, so that the backward's dp - delta cancels to 0 there);
+    // each B fragment for all MW m16 tiles
+#pragma unroll
+    for (int kk = 0; kk < C::NS; ++kk) {
+      Tf32A pa[MW];
+#pragma unroll
+      for (int i = 0; i < MW; ++i) pa[i] = tf32_acc_a(s[i][kk]);
+#pragma unroll
+      for (int n = 0; n < C::NO; ++n) {
+        const Tf32B3 vb8 = tf32_b_cols3<LD>(vf, kk * 8, n * 8);
+#pragma unroll
+        for (int i = 0; i < MW; ++i) mma_4xtf32(o[i][n], pa[i], vb8);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: out = O / max(l, 1e-30) from registers, and lse
+  float* lse = a.lse + (size_t(b) * a.H + h) * a.S;
+  float* ob = slice<float>(a.o, b, h);
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float lt = l[i][hf];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      lt = fmaxf(lt, 1e-30f);
+      const int r = r0 + 16 * i + (lane >> 2) + hf * 8;
+      if (r >= a.S) continue;
+      if ((lane & 3) == 0) lse[r] = m[i][hf] * kLn2 + logf(lt);
+#pragma unroll
+      for (int n = 0; n < C::NO; ++n) {
+        const int c = n * 8 + 2 * (lane & 3);
+        if (c < a.D)
+          *reinterpret_cast<float2*>(ob + r * a.o.s + c) =
+              make_float2(o[i][n][2 * hf] / lt, o[i][n][2 * hf + 1] / lt);
+      }
+    }
+}
+
+template <typename C>
 cudaError_t fwd_fp32(Args a, cudaStream_t st) {
-  size_t smem = 0;
-  const int DP = a.DP;
-  const int t = pick_tile([&](int n) { return fwd_smem(n, n, DP).total; },
-                          64, &smem);
-  if (t == 0) return cudaErrorInvalidValue;
-  a.BQ = a.BK = t;
-  const dim3 grid((a.S + t - 1) / t, a.H, a.B);
-  return launch(flash_fwd_fp32_kernel, grid, kThreads, smem, st, a);
+  a.BQ = C::BQ;
+  a.BK = C::BK;
+  const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
+  return launch(flash_fwd_fp32<C>, grid, C::NT, C::SMEM, st, a);
+}
+
+// The tiles by padded head dim (warps, m16 tiles a warp, K/V rows, Q
+// split, K/V split): D = 64 and 128 the fastest of their variants on an
+// H100 at BERT-base's attention and at causal S = 512 and 1024 (PERF.md);
+// D = 32 and 256 timed on no shape that a path of the port runs.
+cudaError_t fwd_fp32(Args a, cudaStream_t st) {
+  if (a.D <= 32) return fwd_fp32<FwdTile32<32, 4, 2, 32, kQShared, true>>(a, st);
+  if (a.D <= 64) return fwd_fp32<FwdTile32<64, 8, 2, 32, kQEachStep, true>>(a, st);
+  if (a.D <= 128) return fwd_fp32<FwdTile32<128, 4, 1, 16, kQShared, false>>(a, st);
+  return fwd_fp32<FwdTile32<256, 8, 1, 16, kQEachStep, false>>(a, st);
 }
 
 template <typename C>

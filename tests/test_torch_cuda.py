@@ -438,7 +438,9 @@ def test_w8a8_gemm_training_rows_on_card(dev):
 # padded to 128 (96), a sequence shorter than one tile (8), a window
 # smaller than a tile and not a multiple of 16 (40 at S=300), a GQA group
 # of 3, a long non-causal sequence, D=256 causal and windowed, and
-# BERT-base's attention at batch 2 (bnsd, not causal, D=64)
+# BERT-base's attention at batch 2 (bnsd, not causal, D=64), and S=77,
+# a multiple of neither the fp32 forward's 128 query rows a block nor its
+# 32 (D=24) or 16 (D=256) key rows a tile
 FLASH_CASES = [
     ("bnsd", 2, 3, 3, 136, 64, True, None),
     ("bnsd", 2, 2, 2, 64, 128, False, None),
@@ -455,6 +457,8 @@ FLASH_CASES = [
     ("bsnd", 1, 2, 1, 200, 256, True, None),
     ("bsnd", 1, 4, 2, 300, 256, True, 40),
     ("bnsd", 2, 12, 12, 512, 64, False, None),
+    ("sbnd", 2, 4, 2, 77, 24, True, None),
+    ("bsnd", 1, 4, 2, 77, 256, False, None),
 ]
 
 
@@ -504,7 +508,7 @@ def test_flash_kernels_match_plain_on_card(dev, case):
     is held on its own.  The first query of a causal case sees one key,
     so its dQ is 0 up to fp64 rounding: both sides form dp - delta in
     fp64 there (the fp32 kernels for a pair that holds at least 1/16 of
-    its query's probability).  A second launch of each backward kernel is
+    its query's probability).  A second launch of each kernel is
     bit-identical."""
     layout, b, h, hkv, s, d, causal, window = case
     g = torch.Generator(device=dev).manual_seed(s + d)
@@ -515,6 +519,8 @@ def test_flash_kernels_match_plain_on_card(dev, case):
         torch.cuda.synchronize()
         _close(out, ref, tol["out"], f"{dtype} out")
         _close(lse, rlse, tol["lse"], f"{dtype} lse")
+        again = flash_fwd(q, k, v, causal, None, window, layout)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
         do = torch.randn(ref.shape, device=dev, generator=g).to(dtype)
         got = flash_bwd(q, k, v, ref, rlse, do, causal, None, window, layout)
         want = flash_bwd_plain(q, k, v, ref, rlse, do, causal, None, window,
