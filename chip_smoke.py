@@ -43,15 +43,17 @@ its seconds):
      flagship shape (B=12, H=12, S=1024, D=128, causal, bf16) in bsnd and
      in sbnd, sbnd with GQA (Hkv=4) and window=256 at B=12 (the shapes of
      training runs (a)-(c)), an fp32 case, bsnd and sbnd GQA cases, a
-     window=256 case, a ragged S=520 and the bench's long_seq_4k point
-     (B=2, S=4096); out, lse, dQ, dK and dV each on its own (the backward
-     kernels from the plain forward's out and lse), elementwise within
-     ``atol * rms + rtol * |plain|`` with the rms of the plain row
-     (``FLASH_TOL``); then each kernel timed beside SDPA at the flagship
-     shape, at S=4096, at the flagship shape with D=64 and at the fp32
+     window=256 case, a ragged S=520, phase 9's attention (the same
+     shape in bnsd, head views of the fused QKV transposed as the paddle
+     GPT hands them over, in fp32 and in bf16) and the bench's
+     long_seq_4k point (B=2, S=4096); out, lse, dQ, dK and dV each on
+     its own (the backward kernels from the plain forward's out and
+     lse), elementwise within ``atol * rms + rtol * |plain|`` with the
+     rms of the plain row (``FLASH_TOL``); then each kernel timed beside SDPA at the flagship
+     shape, at S=4096, at the flagship shape with D=64, at the fp32
      case (its bounds at the kernels' arithmetic, three TF32 products an
      operation at 495 TFLOP/s, and logged beside it at 67 TFLOP/s of fp32
-     FMAs);
+     FMAs) and at phase 9's two bnsd cases (rows of the kernels line);
 3. serving: GPT-1.3B at full width (24 layers, hidden 2048, 16 heads) with
    random bf16 weights from a fixed seed, 16 requests per run through the
    paged engine (8 slots, page 32, chunk 128; prompts of 64-512 tokens,
@@ -187,7 +189,35 @@ its seconds):
    of one profiled step, the ops traced a step and their host cost),
    with 12 launches of each flash kernel a step and a falling loss
    asserted.  ``--phase 8`` builds and runs this phase alone (no result
-   line).
+   line);
+9. fleet on ``nn.Layer``: a one-rank NCCL group (``fleet.init``, every
+   degree 1) and the paddle-shaped GPT-760M (``models/gpt_layers.py``;
+   the training flagship at full width: vocab 50304, hidden 1536, 24
+   layers, 12 heads, seq 1024, fp32 weights from seeded paddle
+   initializers, batch 12), AdamW(weight_decay=0.01) with
+   ``ClipGradByGlobalNorm(1.0)``, each run from the same weights (carried
+   by ``weights.load_paddle_state_dict``): (1) the plain eager loop
+   (``loss.backward()``, ``opt.step()``); (2) the same through
+   ``fleet.distributed_model`` (``DataParallelSPMD``) and
+   ``fleet.distributed_optimizer`` (``HybridParallelOptimizer``): losses
+   and parameters bit for bit run (1)'s; (3) ``PipelineParallel`` over
+   ``GPTForPretrainingPipe(cfg, num_stages=1)``, 4 microbatches of 3:
+   losses within rtol 2e-4 / atol 2e-4 of run (1)'s (the reference's
+   bound for pipelined against single-device training), and the
+   engine's cost over the plain step; (4) run (2) under
+   ``amp.auto_cast()`` (bf16), its loss falling.  Each run takes 1
+   warm-up and 3 timed steps (step ms, tokens/s, MFU over 989 TFLOP/s,
+   ``max_memory_allocated``), asserts its flash launches (24 of each
+   kernel a microbatch's forward and backward), and takes one more step
+   under ``_OpClock`` (traced ops and their host cost) and one profiled
+   (busy share, the flash kernels' share of device time).  (5) One
+   ``GPTBlock`` at this width through ``fleet.utils.recompute``: its
+   input's and parameters' gradients bit for bit the plain block's.
+   ``--phase 9`` builds and runs this phase alone (no result line).
+   Multi-rank pipelines, data parallelism, sharding and tensor
+   parallelism on ``nn.Layer`` run on the CPU over gloo
+   (``tests/test_torch_{pipeline,fleet,tp}.py``): NCCL does not put two
+   ranks on one card.
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -205,14 +235,18 @@ dense K/V (the gather and the dequant excluded) for the attention kernels,
 ``w8a8_gemm``, ``scaled_dot_product_attention(is_causal=True)`` for the
 flash forward and its backward (forward and backward less the forward,
 both by CUDA-graph replay) for the two backward kernels.  The flash
-kernels have a second row each at BERT-base's attention in fp32 and in
+kernels have more rows each: at BERT-base's attention in fp32 and in
 bf16 (``flash_fwd_bert_fp32`` ...), with their launches on phase 8's
-runs and their bounds at the peak of the arithmetic each uses: bf16
-tensor cores (989 TFLOP/s), the fp32 kernels' three TF32 products an
-operation (495 / 3 TFLOP/s).
+runs, and at GPT-760M's (phase 9's bnsd cases of phase 2) in fp32 and in
+bf16 (``flash_fwd_gpt760m_fp32`` ...), with their launches on phase 9's
+plain fp32 run and its bf16 run (and under ``launches_in`` on its other
+fp32 runs); their bounds are at the peak of the arithmetic each uses:
+bf16 tensor cores (989 TFLOP/s), the fp32 kernels' three TF32 products
+an operation (495 / 3 TFLOP/s).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -802,7 +836,9 @@ def phase_gemm(np, torch):
 
 # flash kernels: layout, B, H, Hkv, S, causal, window, dtype (D = 128); the
 # first and the last three are the shapes of training runs (a), (b) and
-# (c) and the bench's long_seq_4k point (bench.py), which is timed too
+# (c) and the bench's long_seq_4k point (bench.py), which is timed too;
+# the two gpt760m_bnsd cases are phase 9's attention in fp32 (runs 1-3 and
+# the recompute) and in bf16 (run 4, auto_cast), timed as kernels-line rows
 FLASH_CASES = (
     ("flagship", "bsnd", 12, 12, 12, 1024, True, None, "bf16"),
     ("fp32", "bsnd", 2, 4, 4, 512, True, None, "fp32"),
@@ -810,6 +846,8 @@ FLASH_CASES = (
     ("sbnd_gqa4", "sbnd", 4, 12, 4, 1024, True, None, "bf16"),
     ("window256", "bsnd", 4, 12, 12, 1024, True, 256, "bf16"),
     ("ragged520", "bsnd", 2, 12, 12, 520, True, None, "bf16"),
+    ("gpt760m_bnsd_fp32", "bnsd", 12, 12, 12, 1024, True, None, "fp32"),
+    ("gpt760m_bnsd_bf16", "bnsd", 12, 12, 12, 1024, True, None, "bf16"),
     ("sbnd_flagship", "sbnd", 12, 12, 12, 1024, True, None, "bf16"),
     ("sbnd_gqa4_window256", "sbnd", 12, 12, 4, 1024, True, 256, "bf16"),
     ("long_seq_4k", "bsnd", 2, 12, 12, 4096, True, None, "bf16"),
@@ -862,13 +900,18 @@ def _flash_share(got, want, rtol, atol):
 
 def _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype):
     """q, k, v as the model hands them to attention: head views of one
-    fused projection output ([B, S, W] for bsnd, [S, B, W] for sbnd)."""
+    fused projection output ([B, S, W] for bsnd and bnsd, [S, B, W] for
+    sbnd); for bnsd each [B, S, H, D] view transposed to [B, H, S, D], as
+    the paddle GPT (models/gpt_layers.py) transposes them."""
     lead = (s, b) if layout == "sbnd" else (b, s)
     qkv = torch.randn(*lead, (h + 2 * hkv) * d, device="cuda",
                       generator=g).to(dtype)
     q, k, v = torch.split(qkv, [h * d, hkv * d, hkv * d], dim=-1)
-    return (q.reshape(*lead, h, d), k.reshape(*lead, hkv, d),
-            v.reshape(*lead, hkv, d))
+    views = (q.reshape(*lead, h, d), k.reshape(*lead, hkv, d),
+             v.reshape(*lead, hkv, d))
+    if layout == "bnsd":
+        return tuple(t.transpose(1, 2) for t in views)
+    return views
 
 
 def phase_flash(np, torch):
@@ -876,12 +919,14 @@ def phase_flash(np, torch):
     every case (the backward kernels take the plain forward's out and lse,
     so each kernel is held on its own), and timed at the flagship shape
     (the kernels line), at the long-sequence point and at the flagship
-    shape with head dim 64 (logged)."""
+    shape with head dim 64 (logged), and at phase 9's two bnsd cases (their
+    own rows of the kernels line, ``flash_fwd_gpt760m_fp32`` ...)."""
     from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
     from paddle_tpu_torch.kernels.flash import flash_bwd, flash_fwd_cuda
 
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    errs = {}           # case -> kernel -> max abs error
     d = 128
     for case, layout, b, h, hkv, s, causal, window, dt in FLASH_CASES:
         g = torch.Generator(device="cuda").manual_seed(s + h + hkv)
@@ -906,6 +951,8 @@ def phase_flash(np, torch):
                 *FLASH_TOL[dt][part])
             if dt == "bf16":
                 worst[name] = max(worst[name], err)
+            errs.setdefault(case, dict.fromkeys(worst, 0.0))
+            errs[case][name] = max(errs[case][name], err)
         del q, k, v, out, lse, ref, rlse, do, got, want
     torch.cuda.empty_cache()
 
@@ -913,6 +960,11 @@ def phase_flash(np, torch):
     _time_flash(np, torch, FLASH_CASES[-1], worst)
     _time_flash(np, torch, FLASH_CASES[0], worst, d=64)
     _time_flash(np, torch, FLASH_CASES[1], worst)
+    for case in FLASH_CASES:
+        if case[0].startswith("gpt760m_bnsd_"):
+            rows = _time_flash(np, torch, case, errs[case[0]])
+            results.update({f"{name}_gpt760m_{case[-1]}": row
+                            for name, row in rows.items()})
     return results
 
 
@@ -935,9 +987,11 @@ def _time_flash(np, torch, case, worst, d=128):
     out, lse = flash_fwd_cuda(q, k, v, causal, scale, window, layout)
     do = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
     delta = flash_delta(out, do, layout)
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))      # SDPA's view
+    if layout == "bnsd":
+        qh, kh, vh, doh = q, k, v, do                        # SDPA's view
+    else:
+        qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
     lib = [x.detach().requires_grad_() for x in (qh, kh, vh)]
-    doh = do.transpose(1, 2)
 
     def sdpa_fwd_bwd():
         o = F.scaled_dot_product_attention(*lib, is_causal=True)
@@ -2909,6 +2963,254 @@ def phase_bert(np, torch, card):
     return kernels, runs
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+# fleet on nn.Layer: the paddle-shaped GPT-760M (TRAIN_CFG at full width,
+# seq 1024) in fp32 (paddle's default dtype), batch 12; the pipeline as 4
+# microbatches of 3; AdamW(weight_decay=0.01) with the global-norm clip
+FLEET_STEPS = 4                 # 1 warm-up and 3 timed
+FLEET_ACC, FLEET_MB = 4, 3
+
+
+def _fleet_opt(params):
+    import paddle_tpu_torch as paddle
+
+    return paddle.optimizer.AdamW(
+        learning_rate=1e-4, parameters=params, weight_decay=0.01,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+
+def _fleet_build(pipe=False, state=None):
+    """The paddle GPT (or its pipe at one stage) and the criterion under
+    fresh unique names, seeded; ``state`` (numpy, the reference's
+    GPTForPretraining keys) loaded through ``weights``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import gpt_layers
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    cfg = gpt_layers.GPTConfig(**TRAIN_CFG)
+    with unique_name.guard():
+        paddle.seed(0)
+        model = (gpt_layers.GPTForPretrainingPipe(cfg, num_stages=1) if pipe
+                 else gpt_layers.GPTForPretraining(cfg))
+        crit = gpt_layers.GPTPretrainingCriterion()
+    if state is not None:
+        load_paddle_state_dict(model, state)
+    return cfg, model, crit
+
+
+def _fleet_steps(np, torch, step, label, cfg, launches_per_step):
+    """FLEET_STEPS of ``step()`` (returns the loss Tensor): losses, the
+    timed steps' ms, the flash launches asserted, then one more step under
+    ``_OpClock`` and one profiled; logs what each costs."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    carried = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(FLEET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        losses.append(float(loss.numpy()))                # synchronises
+        times.append(time.perf_counter() - t0)
+    launches = {k: KERNELS[k] for k in FLASH}
+    want = {k: launches_per_step * FLEET_STEPS for k in FLASH}
+    if launches != want:
+        raise AssertionError(f"{label} launched {launches}, expected {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with _OpClock() as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    busy = _profile(torch, f"{label}, one more step", step)
+    step_s = float(np.mean(times[1:]))
+    tps = TRAIN_BATCH * TRAIN_SEQ / step_s
+    mfu = tps * _flops_per_token(cfg, TRAIN_SEQ) / BF16_FLOPS
+    log(f"fleet {label}: losses {[round(x, 5) for x in losses]}; step "
+        f"{1e3 * step_s:.1f} ms (timed {[round(1e3 * t, 1) for t in times[1:]]}"
+        f", warm-up {1e3 * times[0]:.1f} ms), {tps:.0f} tokens/s, MFU "
+        f"{100 * mfu:.2f}% of 989 TFLOP/s; max_memory_allocated {peak:.2f} "
+        f"GiB ({carried:.2f} GiB allocated before); device busy "
+        f"{100 * busy:.1f}% of one profiled step; {clock.ops} traced ops and "
+        f"{clock.updates} update ops a step, {1e6 * clock.seconds / max(clock.ops, 1):.1f} "
+        f"us host per traced op ({1e3 * clock.seconds:.1f} ms of a "
+        f"{1e3 * host:.1f} ms step inside the tracer); launches "
+        f"{json.dumps(launches)}")
+    return {"losses": losses, "step_s": step_s, "launches": launches,
+            "ops": clock.ops, "updates": clock.updates}
+
+
+def _fleet_eager(np, torch, ids, labels, state, fleet_wrap, amp=False):
+    """Run 1 (the plain eager loop) or, with ``fleet_wrap``, the same
+    through ``fleet.distributed_model`` / ``distributed_optimizer``;
+    returns the run's numbers and its trained parameters (on the CPU)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+
+    cfg, model, crit = _fleet_build(state=state)
+    opt = _fleet_opt(model.parameters())
+    net = model
+    if fleet_wrap:
+        net = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+        kinds = (type(net).__name__, type(opt).__name__)
+        if kinds != ("DataParallelSPMD", "HybridParallelOptimizer"):
+            raise AssertionError(f"fleet wrapped the model as {kinds}")
+
+    def step():
+        with (paddle.amp.auto_cast() if amp else contextlib.nullcontext()):
+            loss = crit(net(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    label = ("bf16 auto_cast, " if amp else "fp32, ") + (
+        "DataParallelSPMD + HybridParallelOptimizer" if fleet_wrap
+        else "plain")
+    run = _fleet_steps(np, torch, step, label, cfg, cfg.num_layers)
+    if fleet_wrap and net._n != 1:
+        raise AssertionError("the one-rank data group is not one rank")
+    trained = [p._t.detach().cpu() for p in model.parameters()]
+    del model, net, opt, crit
+    _free(torch)
+    return run, trained
+
+
+def _fleet_pipeline(np, torch, ids, labels, state):
+    """Run 3: PipelineParallel over GPTForPretrainingPipe at one stage, 4
+    microbatches of 3, built as the reference's test builds it."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+
+    cfg, pipe, _ = _fleet_build(pipe=True, state=state)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+                        "sharding_degree": 1}
+    s.pipeline_configs = {"accumulate_steps": FLEET_ACC,
+                          "micro_batch_size": FLEET_MB}
+    model = mpp.PipelineParallel(pipe, fleet.get_hybrid_communicate_group(),
+                                 s)
+    opt = _fleet_opt(pipe.parameters())
+    run = _fleet_steps(np, torch, lambda: model.train_batch(
+        (ids, labels), optimizer=opt), f"PipelineParallel (S=1, "
+        f"{FLEET_ACC} x {FLEET_MB})", cfg, FLEET_ACC * cfg.num_layers)
+    del model, pipe, opt
+    _free(torch)
+    return run
+
+
+def _fleet_recompute(np, torch):
+    """One GPTBlock at full width, fp32: its input's and parameters'
+    gradients through ``fleet.utils.recompute`` bit for bit the plain
+    block's; the flash launches of each (the forward twice under
+    recompute)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet.utils import recompute
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import gpt_layers
+
+    with unique_name.guard():
+        paddle.seed(0)
+        blk = gpt_layers.GPTBlock(gpt_layers.GPTConfig(**TRAIN_CFG))
+    xb = np.random.RandomState(1).randn(
+        TRAIN_BATCH, TRAIN_SEQ, TRAIN_CFG["hidden_size"]).astype("float32")
+    runs = []
+    for use in (False, True):
+        for p in blk.parameters():
+            p.clear_grad()
+        reset_launch_counts()
+        x = paddle.to_tensor(xb, stop_gradient=False)
+        out = recompute(blk, x) if use else blk(x)
+        out.sum().backward()
+        runs.append(([p.grad._t.clone() for p in blk.parameters()],
+                     x.grad._t.clone(), {k: KERNELS[k] for k in FLASH}))
+    (pg, px, pl), (rg, rx, rl) = runs
+    same = [torch.equal(a, b) for a, b in zip(pg + [px], rg + [rx])]
+    log(f"fleet recompute: one GPTBlock (B={TRAIN_BATCH} S={TRAIN_SEQ} "
+        f"hidden {TRAIN_CFG['hidden_size']}, fp32), {sum(same)} of "
+        f"{len(same)} gradients bit-identical to the plain block's; "
+        f"launches plain {json.dumps(pl)}, recompute {json.dumps(rl)}")
+    if not all(same):
+        raise AssertionError("recompute's gradients differ from the plain "
+                             "block's")
+    if pl != dict.fromkeys(FLASH, 1) or rl != {
+            k: 2 if k == "flash_fwd" else 1 for k in FLASH}:
+        raise AssertionError(f"recompute launched {rl}, plain {pl}")
+    del blk, runs
+    _free(torch)
+    return {"plain": pl, "recompute": rl}
+
+
+def phase_fleet(np, torch, card):
+    """Phase 9: GPT-760M at full width through fleet on a one-rank NCCL
+    group; returns each run's flash launches by the dtype the kernels ran
+    in, the first run of each dtype first."""
+    import paddle_tpu_torch as paddle
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.weights import state_dict_to_numpy
+
+    _one_rank_group(torch)
+    paddle.set_device("gpu")
+    try:
+        rng = np.random.RandomState(0)
+        v = TRAIN_CFG["vocab_size"]
+        ids = paddle.to_tensor(rng.randint(0, v, (TRAIN_BATCH, TRAIN_SEQ))
+                               .astype("int64"))
+        labels = paddle.to_tensor(rng.randint(0, v, (TRAIN_BATCH, TRAIN_SEQ))
+                                  .astype("int64"))
+        _, model, _ = _fleet_build()
+        state = state_dict_to_numpy(model)
+        del model
+        _free(torch)
+        plain, plain_w = _fleet_eager(np, torch, ids, labels, state, False)
+        dp, dp_w = _fleet_eager(np, torch, ids, labels, state, True)
+        same = [torch.equal(a, b) for a, b in zip(plain_w, dp_w)]
+        log(f"fleet DataParallelSPMD (one rank) vs plain: losses equal "
+            f"{plain['losses'] == dp['losses']}, {sum(same)} of {len(same)} "
+            f"parameters bit-identical after {FLEET_STEPS} steps")
+        if plain["losses"] != dp["losses"] or not all(same):
+            raise AssertionError("fleet's one-rank data parallel run differs "
+                                 "from the plain run")
+        del plain_w, dp_w
+        pipe = _fleet_pipeline(np, torch, ids, labels, state)
+        got, want = np.array(pipe["losses"]), np.array(plain["losses"])
+        err = np.abs(got - want) / (2e-4 + 2e-4 * np.abs(want))
+        log(f"fleet PipelineParallel vs plain: losses {got.tolist()} vs "
+            f"{want.tolist()}, worst share of the bound (rtol 2e-4, atol "
+            f"2e-4) {err.max():.3f}; engine cost over the plain step "
+            f"{1e3 * (pipe['step_s'] - plain['step_s']):+.1f} ms "
+            f"({pipe['step_s'] / plain['step_s']:.3f}x), traced ops "
+            f"{pipe['ops']} vs {plain['ops']}, update ops {pipe['updates']} "
+            f"vs {plain['updates']}")
+        if not err.max() <= 1.0:
+            raise AssertionError("the one-stage pipeline misses the plain "
+                                 "run's losses")
+        bf16, _ = _fleet_eager(np, torch, ids, labels, state, True, amp=True)
+        if not bf16["losses"][-1] < bf16["losses"][0]:
+            raise AssertionError(f"bf16 fleet run: losses {bf16['losses']}")
+        rec = _fleet_recompute(np, torch)
+    finally:
+        mesh_mod.set_mesh(None)
+        dist.destroy_process_group()
+    log(card)
+    return {"fp32": {"fleet plain fp32": plain["launches"],
+                     "fleet DataParallelSPMD fp32": dp["launches"],
+                     "fleet PipelineParallel fp32": pipe["launches"],
+                     "fleet recompute block fp32": rec["recompute"]},
+            "bf16": {"fleet bf16 auto_cast": bf16["launches"]}}
+
+
 def main():
     try:
         import numpy as np
@@ -2948,6 +3250,11 @@ def main():
         phase_bert(np, torch, card)
         done("8 eager BERT")
         return 0
+    if sys.argv[1:] == ["--phase", "9"]:
+        # phase 9 alone, for work on fleet: no result line
+        phase_fleet(np, torch, card)
+        done("9 fleet")
+        return 0
     kernels = phase_paged(np, torch)
     kernels.update(phase_gemm(np, torch))
     kernels.update(phase_flash(np, torch))
@@ -2966,6 +3273,8 @@ def main():
     done("7 distributed")
     bert_kernels, bert_runs = phase_bert(np, torch, card)
     done("8 eager BERT")
+    fleet_runs = phase_fleet(np, torch, card)
+    done("9 fleet")
     kernels.update(bert_kernels)
     line = []
     for name, k in kernels.items():
@@ -2977,9 +3286,16 @@ def main():
                     "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
                     "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"}.get(
             src, f"paddle_tpu/kernels/paged_attention.py:{entry.get(src)}")
-        if "_bert_" in name:
-            base, dt = name.split("_bert_")
-            n, run = bert_runs[dt][base], f"eager BERT-base {dt}"
+        more = {run: c[name] for run, c in cluster.items() if name in c}
+        if "_bert_" in name or "_gpt760m_" in name:
+            base, dt = name.split("_bert_" if "_bert_" in name
+                                  else "_gpt760m_")
+            if "_bert_" in name:
+                n, run = bert_runs[dt][base], f"eager BERT-base {dt}"
+            else:
+                (run, c), *rest = fleet_runs[dt].items()
+                n = c[base]
+                more = {r: other[base] for r, other in rest}
             src = "flash_fwd" if base == "flash_fwd" else "flash_bwd"
             replaces = {"flash_fwd": "paddle_tpu/kernels/flash.py:74",
                         "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
@@ -2999,11 +3315,11 @@ def main():
                  "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                  "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                  "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-        more = {run: c[name] for run, c in cluster.items() if name in c}
         if more:
-            # its launches in phase 5's runs (g) and (h)
+            # its launches in phase 5's runs (g) and (h), or in phase 9's
+            # other runs of its dtype
             entry["launches_in"] = more
-            log(f"{name}: {json.dumps(more)} launches in cluster runs")
+            log(f"{name}: {json.dumps(more)} launches in other runs")
         line.append(entry)
     log(card)
     log(json.dumps({"kernels": line}))

@@ -25,7 +25,9 @@ mirrors the JAX package so that every module has an obvious counterpart:
   autograd as the tape), ``tensor_api.py`` (the ``paddle.*``
   functions), ``autograd/`` (``PyLayer``), ``nn/``, ``optimizer/``,
   ``regularizer.py`` and ``amp/``; ``models/bert.py`` pretrains BERT
-  on them;
+  on them and ``models/gpt_layers.py`` is GPT as paddle layers, which
+  ``fleet`` trains (``distributed_model`` / ``distributed_optimizer``,
+  ``PipelineParallel``, ``DataParallel``, the sharding optimizer);
 * ``examples/serve_gpt.py``: the serve CLI
   (``python -m paddle_tpu_torch.examples.serve_gpt``), and
   ``examples/pretrain_bert.py``: BERT pretraining through the eager API
@@ -37,7 +39,7 @@ Entry points run on the CUDA card unless the caller passes ``device="cpu"``
 card (``gpu:0``) unless ``set_device("cpu")`` says otherwise.  The
 top-level namespace is the reference's ``paddle_tpu`` namespace for the
 modules ported so far: ``to_tensor``, ``seed``, ``set_device``,
-``no_grad``, ``grad`` and the tensor functions.
+``no_grad``, ``grad``, ``DataParallel`` and the tensor functions.
 """
 
 from .device import default_device, default_dtype, resolve_device  # noqa: F401
@@ -93,6 +95,7 @@ from . import amp  # noqa: F401
 from . import autograd  # noqa: F401
 from . import regularizer  # noqa: F401
 from .nn import ParamAttr  # noqa: F401
+from .dygraph.parallel import DataParallel  # noqa: F401
 
 VarBase = Tensor
 in_dynamic_mode = in_dygraph_mode

@@ -4,11 +4,13 @@ the parallel environment, the hybrid mesh, ``spawn`` and ``fleet``.
 Counterpart of ``paddle_tpu/distributed/`` for what the port has ported:
 ``env``, ``parallel``, ``mesh``, ``collective``, ``spawn`` (with the parts
 of ``launch_utils`` it uses) and ``fleet`` (topology, strategy, worker
-queries, the tensor-parallel layers).  NCCL on the card; gloo when the
-caller asks for it (:func:`init_parallel_env`).  Not ported yet (ROADMAP
-A.6): the launcher CLI, checkpoint, cloud_utils, utils, elastic, the
-pipeline layer and engine, the parallel wrappers and the sharding
-optimizer, the parameter-server datasets.
+queries, ``meta_parallel``: the tensor-parallel layers, ``PipelineLayer``
+and its 1F1B engine, the model wrappers, the sharding and hybrid
+optimizers; ``meta_optimizers``; ``utils.recompute``;
+``distributed_model`` / ``distributed_optimizer``).  NCCL on the card;
+gloo when the caller asks for it (:func:`init_parallel_env`).  Not ported
+yet (ROADMAP A.11): the launcher CLI, checkpoint, cloud_utils, utils,
+elastic, ``fleet.utils.fs``, the parameter-server datasets.
 """
 
 from . import fleet  # noqa: F401

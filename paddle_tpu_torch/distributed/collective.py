@@ -23,12 +23,21 @@ The model-parallel helpers differentiate (each an autograd Function):
   row max and sum of exponentials by all-reduce (MAX, SUM), the label's
   logit by an all-reduce of the rank that holds it; backward ``softmax -
   onehot`` on the local slice.
+
+The flat-buffer helpers (:class:`_Flat`, :func:`_coalesced`,
+:func:`_all_gather_flat`, :func:`_reduce_scatter_flat`) run one
+collective for many leaves: ZeRO's train step, the pipeline engine's 1/S
+storage, the data-parallel wrapper's gradient buckets.  The
+point-to-point helpers (:class:`_SendAct`, :class:`_RecvAct`,
+:func:`_exchange`) move a pipeline's activations and their gradients
+between stages.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -354,25 +363,169 @@ def _c_softmax_with_cross_entropy(logits, label, group=None,
     return loss, e / s
 
 
+# -- flat buffers: ZeRO's partition of a leaf, coalesced collectives ----------
+
+
+class _Flat:
+    """The partition of one leaf over the ``n`` ranks of a group (ZeRO's
+    sharding axis, the pipeline's 1/S storage): flattened, zero-padded to
+    a multiple of ``n``, rank ``r`` holding the ``r``-th of ``n`` equal
+    chunks.  (The reference's ZeRO puts the axis on
+    the leaf's first free divisible dim; AdamW is elementwise, so any
+    partition gives the same update, and a flat one divides every leaf.)"""
+
+    def __init__(self, shape, n, r):
+        self.shape = tuple(shape)
+        self.numel = int(np.prod(self.shape, dtype=np.int64))
+        self.n, self.r = n, r
+        self.chunk = -(-self.numel // n)
+
+    def padded(self, t):
+        """``t`` flattened and zero-padded to ``n * chunk``."""
+        flat = t.reshape(-1)
+        pad = self.n * self.chunk - self.numel
+        return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+    def shard(self, t):
+        """This rank's chunk of ``t``, a new tensor."""
+        return self.padded(t)[self.r * self.chunk:
+                              (self.r + 1) * self.chunk].clone()
+
+    def whole(self, chunks):
+        """The leaf from all ranks' chunks, ``(n, chunk)``."""
+        return chunks.reshape(-1)[:self.numel].view(self.shape)
+
+
+def _coalesced(tensors, fn):
+    """``fn`` on one flat buffer of ``tensors`` (one collective for the
+    lot), copied back into them."""
+    if not tensors:
+        return
+    buf = torch.cat([t.reshape(-1) for t in tensors])
+    fn(buf)
+    torch._foreach_copy_(tensors, [c.view_as(t) for c, t in zip(
+        torch.split(buf, [t.numel() for t in tensors]), tensors)])
+
+
+def _all_gather_flat(shards, flats, group, out_dtype):
+    """Whole leaves from each rank's ``shards`` (one all-gather)."""
+    buf = torch.cat([s.to(out_dtype).reshape(-1) for s in shards])
+    out = buf.new_empty(flats[0].n * buf.numel())
+    dist.all_gather_into_tensor(out, buf, group=group)
+    out = out.view(flats[0].n, buf.numel())
+    whole, off = [], 0
+    for f in flats:
+        whole.append(f.whole(out[:, off:off + f.chunk]))
+        off += f.chunk
+    return whole
+
+
+def _reduce_scatter_flat(grads, flats, group):
+    """Each leaf's gradient summed over the group, this rank's chunk of
+    it kept (one reduce-scatter)."""
+    n = flats[0].n
+    buf = torch.cat([f.padded(g).view(n, f.chunk)
+                     for f, g in zip(flats, grads)], dim=1).reshape(-1)
+    out = buf.new_empty(buf.numel() // n)
+    dist.reduce_scatter_tensor(out, buf, group=group)
+    return list(torch.split(out, [f.chunk for f in flats]))
+
+
+# -- point-to-point: the pipeline's activations ------------------------------
+# The functional train step (models/gpt.py) sends through the autograd
+# pair; the pipeline engine, which runs its own schedule, posts its sends
+# and receives together (_exchange), each activation behind a header.
+
+
+class _SendAct(torch.autograd.Function):
+    """Pipeline: the stage's output activation sent to the next stage;
+    returns a scalar to differentiate from, whose backward receives the
+    activation's gradient back (the functional train step's transport,
+    :mod:`paddle_tpu_torch.models.gpt`)."""
+
+    @staticmethod
+    def forward(ctx, x, peer, group):
+        ctx.peer, ctx.group = peer, group
+        ctx.like = (x.shape, x.dtype, x.device)
+        dist.send(x.detach().contiguous(), dst=peer, group=group)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.like
+        gx = torch.empty(shape, dtype=dtype, device=device)
+        dist.recv(gx, src=ctx.peer, group=ctx.group)
+        return gx, None, None
+
+
+class _RecvAct(torch.autograd.Function):
+    """Pipeline: the previous stage's activation received; its gradient
+    goes back there.  ``anchor`` (a scalar requiring grad) ties the
+    received tensor into the graph."""
+
+    @staticmethod
+    def forward(ctx, anchor, shape, dtype, peer, group):
+        ctx.peer, ctx.group = peer, group
+        x = torch.empty(shape, dtype=dtype, device=anchor.device)
+        dist.recv(x, src=peer, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        dist.send(g.contiguous(), dst=ctx.peer, group=ctx.group)
+        return torch.zeros((), device=g.device), None, None, None, None
+
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+_HEADER = 8      # ndim, up to 6 dims, the dtype's index in _DTYPES
+
+
+def _header(t):
+    """The header that precedes ``t`` on the wire: its dims and dtype."""
+    if t.dim() > _HEADER - 2:
+        raise ValueError(f"a pipeline activation of {t.dim()} dims")
+    h = [t.dim(), *t.shape] + [0] * (_HEADER - 2 - t.dim())
+    return torch.tensor(h + [_DTYPES.index(t.dtype)], dtype=torch.long,
+                        device=t.device)
+
+
+def _exchange(sends=(), recvs=()):
+    """Post ``sends`` ((tensor, dst) pairs) and ``recvs`` ((tensor, src))
+    together and wait for all of them."""
+    ops = ([dist.P2POp(dist.isend, t.contiguous(), peer)
+            for t, peer in sends]
+           + [dist.P2POp(dist.irecv, t, peer) for t, peer in recvs])
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
           weight_attr=None, bias_attr=None, name=None):
     """A row- or column-split linear layer (``operation="linear"``,
     ``axis`` 0 or 1) or a vocabulary-split embedding
-    (``"embedding"``) over the mesh's mp axis, built and applied to
-    ``x``."""
+    (``"embedding"``) over the mesh's mp axis, built on ``x``'s device
+    and applied to ``x`` (a Tensor of the eager API, or a torch tensor);
+    returns a Tensor."""
+    from ..dygraph.tensor import Tensor
     from .fleet import meta_parallel as mpp
 
+    t = x._t if isinstance(x, Tensor) else x
     if operation == "embedding":
-        return mpp.VocabParallelEmbedding(size[0], size[1], device=x.device)(x)
-    if operation == "linear":
-        if axis == 0:
-            layer = mpp.RowParallelLinear(size[0], size[1],
-                                          has_bias=bias_attr is not False,
-                                          device=x.device)
-        else:
-            layer = mpp.ColumnParallelLinear(size[0], size[1],
-                                             has_bias=bias_attr is not False,
-                                             gather_output=gather_out,
-                                             device=x.device)
-        return layer(x)
-    raise ValueError(f"unknown operation {operation!r}")
+        layer = mpp.VocabParallelEmbedding(size[0], size[1],
+                                           weight_attr=weight_attr,
+                                           device=t.device)
+    elif operation == "linear" and axis == 0:
+        layer = mpp.RowParallelLinear(size[0], size[1],
+                                      weight_attr=weight_attr,
+                                      has_bias=bias_attr is not False,
+                                      device=t.device)
+    elif operation == "linear":
+        layer = mpp.ColumnParallelLinear(size[0], size[1],
+                                         weight_attr=weight_attr,
+                                         has_bias=bias_attr is not False,
+                                         gather_output=gather_out,
+                                         device=t.device)
+    else:
+        raise ValueError(f"unknown operation {operation!r}")
+    return layer(x)

@@ -1,14 +1,17 @@
-"""``fleet``: the hybrid topology, its strategy and the worker queries.
+"""``fleet``: the hybrid topology, its strategy, the worker queries, and
+the wrappers of ``nn.Layer`` models and their optimizers.
 
 Counterpart of ``paddle_tpu/distributed/fleet/__init__.py`` for the
 collective path: :func:`init` starts the process group (NCCL on the card
 unless gloo was started first, see
 :func:`~paddle_tpu_torch.distributed.parallel.init_parallel_env`), builds
 the ``dp x pp x sharding x mp`` topology of the strategy's
-``hybrid_configs`` and installs its mesh.  ``distributed_model`` and
-``distributed_optimizer`` wrap ``nn.Layer`` models and ``paddle.optimizer``
-optimizers, which the port has not ported yet (ROADMAP A.7): they raise
-NotImplementedError.  The parameter-server path is out of scope, as in the
+``hybrid_configs`` and installs its mesh.  :func:`distributed_model`
+wraps a model by the topology's parallel mode (``PipelineParallel``,
+``TensorParallel``, ``ShardingParallel`` or ``DataParallelSPMD``) and
+:func:`distributed_optimizer` an optimizer in ``HybridParallelOptimizer``
+(:mod:`.meta_parallel`); ``meta_optimizers`` and ``utils.recompute`` come
+with them.  The parameter-server path is out of scope, as in the
 reference.
 """
 
@@ -21,7 +24,9 @@ import torch
 
 from .. import env as dist_env
 from ..parallel import init_parallel_env
+from . import meta_optimizers  # noqa: F401
 from . import meta_parallel  # noqa: F401
+from . import utils  # noqa: F401
 from .distributed_strategy import DistributedStrategy
 from .topology import CommunicateTopology, HybridCommunicateGroup
 
@@ -82,20 +87,30 @@ def get_hybrid_communicate_group() -> HybridCommunicateGroup:
     return _fleet_state["hcg"]
 
 
-def _a7(what):
-    return NotImplementedError(
-        f"fleet.{what} wraps nn.Layer models and paddle.optimizer "
-        "optimizers, which the port has not ported yet (ROADMAP A.7); "
-        "train through models.gpt.build_functional_train_step, which takes "
-        "the hybrid mesh")
-
-
 def distributed_model(model):
-    raise _a7("distributed_model")
+    """``model`` wrapped by the parallel mode of the topology
+    :func:`init` built (the reference's choice, ``fleet_base.py``'s
+    ``distributed_model``)."""
+    hcg = get_hybrid_communicate_group()
+    strategy = _fleet_state["strategy"]
+    mode = hcg.get_parallel_mode()
+    if mode == "pipeline_parallel":
+        return meta_parallel.PipelineParallel(model, hcg, strategy)
+    if mode == "tensor_parallel":
+        return meta_parallel.TensorParallel(model, hcg, strategy)
+    if mode == "sharding_parallel":
+        return meta_parallel.ShardingParallel(model, hcg, strategy)
+    return meta_parallel.DataParallelSPMD(model, hcg, strategy)
 
 
 def distributed_optimizer(optimizer, strategy=None):
-    raise _a7("distributed_optimizer")
+    """``optimizer`` wrapped in ``HybridParallelOptimizer`` (sharded by
+    ``DygraphShardingOptimizer`` when the strategy shards)."""
+    if strategy is not None:
+        _fleet_state["strategy"] = strategy
+    return meta_parallel.HybridParallelOptimizer(
+        optimizer, get_hybrid_communicate_group(),
+        _fleet_state["strategy"] or DistributedStrategy())
 
 
 def worker_index():

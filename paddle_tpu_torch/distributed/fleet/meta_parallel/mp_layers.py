@@ -24,10 +24,16 @@ them (:mod:`paddle_tpu_torch.distributed.collective`):
   kernel on the card) are all-reduced before the rescale, so the product
   equals the single-device one bit for bit.
 
-Every module builds the global initialisation from a generator seeded
-with ``seed`` on its device (the card unless ``device`` says otherwise)
-and keeps its rank's slice, so a layer equals the slice of the one-rank
-layer of that seed; :meth:`set_global` loads given global weights.
+The layers are paddle ``nn.Layer``s (:class:`_Parallel`): their
+parameters are ``EagerParameter``s holding this rank's shard, their
+``forward`` takes and returns the eager API's Tensors and runs the
+functional forms above on their torch tensors, so a paddle model holds
+them as sublayers and the port's optimizers take their parameters.  Each
+builds the global initialisation (from a generator seeded with ``seed``
+on its device, the current place unless ``device`` says otherwise, or
+from its ``weight_attr``'s initializer) and keeps its rank's slice, so a
+layer equals the slice of the one-rank layer of that seed;
+:meth:`~_Parallel.set_global` loads given global weights.
 """
 
 from __future__ import annotations
@@ -36,11 +42,13 @@ import contextlib
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
-from torch import nn
 
-from ....device import resolve_device, resolve_dtype
+from ....device import resolve_device
+from ....dygraph.tensor import Tensor
+from ....nn.layer_base import Layer
 from ....framework import random as _random
 from ....ops.quant_ops import _QMAX, _scale, w8a8_matmul
 from ... import mesh as mesh_mod
@@ -209,23 +217,115 @@ def _split(n, parts, what):
     return n // parts
 
 
-class _Parallel(nn.Module):
-    """Shared set-up: the mp group, degree and rank, the device, dtype
-    and a generator of ``seed`` for the global initialisation."""
+def _place_of(device):
+    from ....framework.place import CPUPlace, CUDAPlace
+
+    return (CPUPlace() if device.type == "cpu"
+            else CUDAPlace(device.index or 0))
+
+
+@contextlib.contextmanager
+def _on(device):
+    """The eager API's current place is ``device`` inside (initializer
+    ops make their values on the current place)."""
+    from ....framework import place as place_mod
+
+    old = getattr(place_mod._state, "place", None)
+    place_mod._state.place = _place_of(device)
+    try:
+        yield
+    finally:
+        place_mod._state.place = old
+
+
+def _as_tensor(x):
+    return x if isinstance(x, Tensor) else Tensor._wrap(x)
+
+
+def _amp_cast(op_type, ts):
+    """``ts`` as the tracer would cast them for ``op_type`` under
+    ``amp.auto_cast`` (the layers run their functional forms through
+    ``trace_fn``, which the amp hook does not see)."""
+    from ....dygraph import tracer
+
+    amp = tracer.amp_state()
+    if amp is None:
+        return ts
+    from ....amp.auto_cast import maybe_autocast_inputs
+
+    ins, _ = maybe_autocast_inputs(amp, op_type, {"X": list(ts)}, {})
+    return ins["X"]
+
+
+class _Parallel(Layer):
+    """Shared set-up of the tensor-parallel layers (paddle ``nn.Layer``s):
+    the mp group, degree and rank, the device (the current place unless
+    ``device`` names one), the dtype (the layer's, fp32 by default) and a
+    generator of ``seed`` for the global initialisation.
+
+    A parameter is drawn whole (its global shape) and this rank keeps its
+    part along the split dim: the contiguous ``1/mp`` slice, or the global
+    indices a layer is given.  A ``weight_attr`` initializer (or the
+    global one) draws it from the seed chain as ``create_parameter`` does;
+    without one the weight comes from the generator of ``seed``
+    (Xavier-uniform, or N(0, 0.02) for the embedding) and the bias is
+    ``Constant(0)``.  Parameters are named by the unique-name counters as
+    the reference names them (``columnparallellinear_0.w_0``); a split
+    one carries ``is_distributed`` (mp > 1) and ``tp_split``: (dim, the
+    global indices it holds, the global length)."""
 
     def _setup(self, device, dtype, seed):
+        from ....framework.dtype import to_torch_dtype
+        from ....framework.place import current_device
+
         self.group, self.mp, self.rank = _mp()
-        self.device_ = resolve_device(device)
-        self.dtype_ = resolve_dtype(dtype, self.device_)
+        self.device_ = (current_device() if device is None
+                        else resolve_device(device))
+        self.dtype_ = to_torch_dtype(dtype or self._dtype)
         self.gen = torch.Generator(device=self.device_).manual_seed(seed)
 
-    def _param(self, full, dim):
-        """This rank's slice of ``full`` along ``dim`` (all of it for dim
-        None) as a parameter."""
-        if dim is not None:
-            n = full.shape[dim] // self.mp
-            full = full.narrow(dim, self.rank * n, n)
-        return nn.Parameter(full.to(self.dtype_).contiguous())
+    def _indices(self, n, dim, index):
+        """The global indices along ``dim`` (length ``n``) this rank
+        holds, as a torch index on the device; None for a whole one."""
+        if dim is None:
+            return None
+        if index is None:
+            per = n // self.mp
+            index = range(self.rank * per, (self.rank + 1) * per)
+        return torch.as_tensor(list(index), dtype=torch.long,
+                               device=self.device_)
+
+    def _make(self, shape, attr, dim, draw, is_bias=False, index=None):
+        """This rank's part of the global parameter of ``shape``."""
+        from ....framework import unique_name
+        from ....nn.initializer import Constant, _global_initializer
+        from ....nn.layer_base import EagerParameter, ParamAttr
+
+        attr = ParamAttr._to_attr(attr)
+        if attr is False:
+            return None
+        init = attr.initializer or _global_initializer(is_bias)
+        if init is None and is_bias:
+            init = Constant(0.0)
+        if init is not None:
+            with _on(self.device_):
+                full = init.apply_dygraph(list(shape), "float32")
+        else:
+            full = draw()
+        idx = self._indices(shape[dim] if dim is not None else 0, dim,
+                            index)
+        if idx is not None:
+            full = full.index_select(dim, idx)
+        p = EagerParameter(
+            full.to(self.dtype_).contiguous(), trainable=attr.trainable,
+            name=attr.name or unique_name.generate(self._full_name + ".w"),
+            learning_rate=attr.learning_rate, regularizer=attr.regularizer,
+            need_clip=attr.need_clip,
+            is_distributed=idx is not None and self.mp > 1,
+            place=_place_of(self.device_))
+        p.tp_split = (None if idx is None else
+                      (dim, idx.cpu().numpy(), int(shape[dim])))
+        return p
 
     def _xavier(self, fan_in, fan_out):
         limit = math.sqrt(6.0 / (fan_in + fan_out))
@@ -235,16 +335,28 @@ class _Parallel(nn.Module):
     @torch.no_grad()
     def set_global(self, weight, bias=None):
         """Load global ``weight`` (and ``bias``), keeping this rank's
-        slices."""
+        parts."""
         for name, full in (("weight", weight), ("bias", bias)):
             if full is None:
                 continue
-            full = torch.as_tensor(full).to(self.device_)
-            dim = self._dims[name]
-            if dim is not None:
-                n = full.shape[dim] // self.mp
-                full = full.narrow(dim, self.rank * n, n)
-            getattr(self, name).copy_(full)
+            p = getattr(self, name)
+            full = torch.as_tensor(np.asarray(full)).to(p._t.device)
+            if p.tp_split is not None:
+                dim, idx, _ = p.tp_split
+                full = full.index_select(dim, torch.as_tensor(
+                    idx, device=full.device))
+            p._t.copy_(full)
+
+    def _traced(self, fn, x):
+        """``fn(x, weight, bias)`` on the torch tensors, recorded by
+        autograd (the operands cast as amp casts a matmul); takes and
+        returns port Tensors."""
+        from ....dygraph import tracer
+
+        x, w = _amp_cast("matmul_v2", [_as_tensor(x), self.weight])
+        if self.bias is None:
+            return tracer.trace_fn(lambda a, b: fn(a, b, None), [x, w])
+        return tracer.trace_fn(fn, [x, w, self.bias])
 
 
 class VocabParallelEmbedding(_Parallel):
@@ -255,35 +367,48 @@ class VocabParallelEmbedding(_Parallel):
         super().__init__()
         self._setup(device, dtype, seed)
         _split(num_embeddings, self.mp, "num_embeddings")
-        self._dims = {"weight": 0, "bias": None}
-        full = torch.empty(num_embeddings, embedding_dim, device=self.device_)
-        full.normal_(0.0, 0.02, generator=self.gen)
-        self.weight = self._param(full, 0)
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+
+        def draw():
+            full = torch.empty(num_embeddings, embedding_dim,
+                               device=self.device_)
+            return full.normal_(0.0, 0.02, generator=self.gen)
+
+        self.weight = self._make([num_embeddings, embedding_dim],
+                                 weight_attr, 0, draw)
+        self.bias = None
 
     def forward(self, x):
-        return vocab_parallel_embedding(x, self.weight, self.group)
+        from ....dygraph import tracer
+
+        return tracer.trace_fn(
+            lambda ids, w: vocab_parallel_embedding(ids, w, self.group),
+            [_as_tensor(x), self.weight])
 
 
 class ColumnParallelLinear(_Parallel):
     """Weight ``[in, out]`` with its columns (and bias) split over mp;
-    Xavier-uniform init, zero bias."""
+    Xavier-uniform init, zero bias.  ``columns``: the global column
+    indices this rank holds (default its contiguous slice; the GPT's
+    fused QKV takes its heads' columns)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, gather_output=True, name=None, *, seed=0,
-                 device=None, dtype=None, int8=False):
+                 device=None, dtype=None, int8=False, columns=None):
         super().__init__()
         self._setup(device, dtype, seed)
         _split(out_features, self.mp, "out_features")
         self.gather_output, self.int8 = gather_output, int8
-        self._dims = {"weight": 1, "bias": 0}
-        self.weight = self._param(self._xavier(in_features, out_features), 1)
-        self.bias = (self._param(torch.zeros(out_features,
-                                             device=self.device_), 0)
-                     if has_bias else None)
+        self.weight = self._make(
+            [in_features, out_features], weight_attr, 1,
+            lambda: self._xavier(in_features, out_features), index=columns)
+        self.bias = (self._make([out_features], None, 0, None, True,
+                                index=columns) if has_bias else None)
 
     def forward(self, x):
-        return column_parallel_linear(x, self.weight, self.bias, self.group,
-                                      self.gather_output, self.int8)
+        return self._traced(lambda a, w, b: column_parallel_linear(
+            a, w, b, self.group, self.gather_output, self.int8), x)
 
 
 class RowParallelLinear(_Parallel):
@@ -297,18 +422,18 @@ class RowParallelLinear(_Parallel):
         self._setup(device, dtype, seed)
         _split(in_features, self.mp, "in_features")
         self.input_is_parallel, self.int8 = input_is_parallel, int8
-        self._dims = {"weight": 0, "bias": None}
-        self.weight = self._param(self._xavier(in_features, out_features), 0)
-        self.bias = (self._param(torch.zeros(out_features,
-                                             device=self.device_), None)
+        self.weight = self._make(
+            [in_features, out_features], weight_attr, 0,
+            lambda: self._xavier(in_features, out_features))
+        self.bias = (self._make([out_features], None, None, None, True)
                      if has_bias else None)
 
     def forward(self, x):
-        return row_parallel_linear(x, self.weight, self.bias, self.group,
-                                   self.input_is_parallel, self.int8)
+        return self._traced(lambda a, w, b: row_parallel_linear(
+            a, w, b, self.group, self.input_is_parallel, self.int8), x)
 
 
-class ParallelCrossEntropy(nn.Module):
+class ParallelCrossEntropy(Layer):
     """Softmax cross-entropy over vocabulary-split logits, ``[..., 1]`` per
     row, as the reference's ``c_softmax_with_cross_entropy``."""
 
@@ -317,8 +442,14 @@ class ParallelCrossEntropy(nn.Module):
         self._group = mp_group
 
     def forward(self, input, label):
+        from ....dygraph import tracer
+
         group = self._group if self._group is not None else _mp()[0]
-        return _c_softmax_with_cross_entropy(input, label, group)
+        logits, = _amp_cast("c_softmax_with_cross_entropy",
+                            [_as_tensor(input)])
+        return tracer.trace_fn(
+            lambda lg, lb: _c_softmax_with_cross_entropy(lg, lb, group),
+            [logits, _as_tensor(label)])
 
 
 # -- the RNG state tracker -----------------------------------------------------

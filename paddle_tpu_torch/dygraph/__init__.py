@@ -1,9 +1,9 @@
 """The dygraph (eager) engine: :class:`Tensor` over one ``torch.Tensor``,
 the op tracer, and backward through torch autograd.
 
-Counterpart of ``paddle_tpu/dygraph/``; ``dygraph/parallel.py``
-(``DataParallel``) waits for the distributed layers on ``nn.Layer``
-(ROADMAP A.8).
+Counterpart of ``paddle_tpu/dygraph/``; ``dygraph/parallel.py`` holds
+``DataParallel`` (imported on first use: it builds on
+``distributed``).
 """
 
 from .tensor import Tensor, to_tensor  # noqa: F401

@@ -109,6 +109,20 @@ def set_rng_state(key: int) -> None:
     _state.key = int(key)
 
 
+def get_chain_state():
+    """Where the draws stand: (the global chain's key, the open
+    :class:`trace_rng_scope`'s key or None).  A replay that restores it
+    (:func:`set_chain_state`) draws the same keys again."""
+    return get_rng_state(), getattr(_state, "trace_key", None)
+
+
+def set_chain_state(state) -> None:
+    """Put the draws back where :func:`get_chain_state` found them."""
+    key, trace_key = state
+    set_rng_state(key)
+    _state.trace_key = trace_key
+
+
 def generator(key: int, device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``key``."""
     return torch.Generator(device=device).manual_seed(int(key))

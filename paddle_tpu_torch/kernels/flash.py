@@ -110,12 +110,17 @@ def supported(q, k, mask=None, dropout_p=0.0, layout="bnsd") -> bool:
 
 
 def _canon(x, layout):
-    """``x`` as a [B, S, H, D] view: bsnd as it is, sbnd permuted, bnsd
-    [..., S, D] flattened to (B*H, S, 1, D)."""
+    """``x`` as a [B, S, H, D] view: bsnd as it is, sbnd permuted, 4-D
+    bnsd transposed (a view of any strides: the head views of a fused QKV
+    that the model transposes are read in place, where flattening B and H
+    would copy them), other bnsd [..., S, D] flattened to (B*H, S, 1,
+    D)."""
     if layout == "bsnd":
         return x
     if layout == "sbnd":
         return x.permute(1, 0, 2, 3)
+    if x.dim() == 4:
+        return x.transpose(1, 2)
     return x.reshape(-1, x.shape[-2], x.shape[-1]).unsqueeze(2)
 
 

@@ -62,7 +62,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import DeviceLike, resolve_device, resolve_dtype
 from ..distributed import mesh as mesh_mod
-from ..distributed.collective import _c_concat, _c_identity, _gather
+from ..distributed.collective import (_all_gather_flat, _c_concat,
+                                      _c_identity, _coalesced, _Flat,
+                                      _gather, _RecvAct, _reduce_scatter_flat,
+                                      _SendAct)
 from ..distributed.fleet.meta_parallel.mp_layers import (
     column_parallel_linear, parallel_cross_entropy, row_parallel_linear,
     vocab_parallel_embedding)
@@ -761,70 +764,6 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
 # ---------------------------------------------------------------------------
 
 
-class _Flat:
-    """ZeRO's partition of one leaf over the ``n`` ranks of the sharding
-    axis: flattened, zero-padded to a multiple of ``n``, rank ``r`` holding
-    the ``r``-th of ``n`` equal chunks.  (The reference puts the axis on
-    the leaf's first free divisible dim; AdamW is elementwise, so any
-    partition gives the same update, and a flat one divides every leaf.)"""
-
-    def __init__(self, shape, n, r):
-        self.shape = tuple(shape)
-        self.numel = int(np.prod(self.shape, dtype=np.int64))
-        self.n, self.r = n, r
-        self.chunk = -(-self.numel // n)
-
-    def padded(self, t):
-        """``t`` flattened and zero-padded to ``n * chunk``."""
-        flat = t.reshape(-1)
-        pad = self.n * self.chunk - self.numel
-        return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
-
-    def shard(self, t):
-        """This rank's chunk of ``t``, a new tensor."""
-        return self.padded(t)[self.r * self.chunk:
-                              (self.r + 1) * self.chunk].clone()
-
-    def whole(self, chunks):
-        """The leaf from all ranks' chunks, ``(n, chunk)``."""
-        return chunks.reshape(-1)[:self.numel].view(self.shape)
-
-
-def _coalesced(tensors, fn):
-    """``fn`` on one flat buffer of ``tensors`` (one collective for the
-    lot), copied back into them."""
-    if not tensors:
-        return
-    buf = torch.cat([t.reshape(-1) for t in tensors])
-    fn(buf)
-    torch._foreach_copy_(tensors, [c.view_as(t) for c, t in zip(
-        torch.split(buf, [t.numel() for t in tensors]), tensors)])
-
-
-def _all_gather_flat(shards, flats, group, out_dtype):
-    """Whole leaves from each rank's ``shards`` (one all-gather)."""
-    buf = torch.cat([s.to(out_dtype).reshape(-1) for s in shards])
-    out = buf.new_empty(flats[0].n * buf.numel())
-    dist.all_gather_into_tensor(out, buf, group=group)
-    out = out.view(flats[0].n, buf.numel())
-    whole, off = [], 0
-    for f in flats:
-        whole.append(f.whole(out[:, off:off + f.chunk]))
-        off += f.chunk
-    return whole
-
-
-def _reduce_scatter_flat(grads, flats, group):
-    """Each leaf's gradient summed over the group, this rank's chunk of
-    it kept (one reduce-scatter)."""
-    n = flats[0].n
-    buf = torch.cat([f.padded(g).view(n, f.chunk)
-                     for f, g in zip(flats, grads)], dim=1).reshape(-1)
-    out = buf.new_empty(buf.numel() // n)
-    dist.reduce_scatter_tensor(out, buf, group=group)
-    return list(torch.split(out, [f.chunk for f in flats]))
-
-
 class _GatherShard(torch.autograd.Function):
     """ZeRO stage 3: a leaf's chunk gathered whole at its use; the
     gradient of the whole leaf is summed over the sharding ranks and
@@ -844,44 +783,6 @@ class _GatherShard(torch.autograd.Function):
         dist.reduce_scatter_tensor(out, f.padded(g.contiguous()),
                                    group=ctx.group)
         return out, None, None
-
-
-class _SendAct(torch.autograd.Function):
-    """Pipeline: the stage's output activation sent to the next stage;
-    returns a scalar to differentiate from, whose backward receives the
-    activation's gradient back."""
-
-    @staticmethod
-    def forward(ctx, x, peer, group):
-        ctx.peer, ctx.group = peer, group
-        ctx.like = (x.shape, x.dtype, x.device)
-        dist.send(x.detach().contiguous(), dst=peer, group=group)
-        return x.new_zeros(())
-
-    @staticmethod
-    def backward(ctx, g):
-        shape, dtype, device = ctx.like
-        gx = torch.empty(shape, dtype=dtype, device=device)
-        dist.recv(gx, src=ctx.peer, group=ctx.group)
-        return gx, None, None
-
-
-class _RecvAct(torch.autograd.Function):
-    """Pipeline: the previous stage's activation received; its gradient
-    goes back there.  ``anchor`` (a scalar requiring grad) ties the
-    received tensor into the graph."""
-
-    @staticmethod
-    def forward(ctx, anchor, shape, dtype, peer, group):
-        ctx.peer, ctx.group = peer, group
-        x = torch.empty(shape, dtype=dtype, device=anchor.device)
-        dist.recv(x, src=peer, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        dist.send(g.contiguous(), dst=ctx.peer, group=ctx.group)
-        return torch.zeros((), device=g.device), None, None, None, None
 
 
 def _step_keys(cfg, base_key, t, homogeneous):

@@ -49,9 +49,9 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """scale = clip_norm / max(global_norm, clip_norm) applied to every grad
-    (parity: fluid/clip.py ClipGradByGlobalNorm — the hybrid-parallel variant
-    additionally sums the squared norms over the model-parallel group, which
-    waits for the distributed layers on nn.Layer)."""
+    (parity: fluid/clip.py ClipGradByGlobalNorm — the hybrid-parallel variant,
+    ``_HybridClip`` in distributed/fleet/meta_parallel/sharding_optimizer.py,
+    additionally sums the squared norms over the mp, sharding and pp groups)."""
 
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)

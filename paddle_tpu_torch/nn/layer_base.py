@@ -63,7 +63,10 @@ class EagerParameter(Tensor):
     """Dygraph parameter (parity: ParamBase in varbase_patch / framework.py)."""
 
     def __init__(self, data, trainable=True, name=None, **meta):
-        super().__init__(data, stop_gradient=not trainable, name=name, persistable=True)
+        # ``place``: where the parameter lives (the current place when
+        # None), for layers built on a device named by the caller
+        super().__init__(data, stop_gradient=not trainable, name=name,
+                         persistable=True, place=meta.pop("place", None))
         self.trainable = trainable
         self.optimize_attr = {"learning_rate": meta.pop("learning_rate", 1.0)}
         self.regularizer = meta.pop("regularizer", None)

@@ -328,9 +328,13 @@ def _take(x, index, axis):
 
 @register_op("lookup_table_v2", nondiff_slots=("Ids",))
 def lookup_table_v2_kernel(ins, attrs):
-    """The embedding lookup; ids equal to ``padding_idx`` read zeros."""
+    """The embedding lookup; ids equal to ``padding_idx`` read zeros.
+    ``torch.nn.functional.embedding`` (not ``index_select``, whose CUDA
+    backward adds repeated rows by atomics in no fixed order): its
+    backward sums a row's gradients in a fixed order, so a step repeats
+    bit for bit on the card."""
     w, ids = ins["W"], ins["Ids"]
-    out = _take(w, ids, 0)
+    out = torch.nn.functional.embedding(ids.long(), w)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids == padding_idx)[..., None],

@@ -32,7 +32,9 @@ each hold a copy of it.  :func:`load_jax_named_params` and :func:`load_jax_param
 global weights for a tensor-parallel model; :func:`rank_shards` gives a
 rank of any ``(dp, pp, sharding, mp)`` topology its shards (its pipeline
 stage's blocks) and :func:`gather_shards` puts ranks' shards back
-together.
+together; given the paddle layers' state dicts (``models/gpt_layers``,
+a pipeline's ``run_functions`` keys), it returns the reference's
+``GPTForPretraining`` keys.
 
 Training compares by the JAX model's named parameters instead
 (``gpt.embeddings.word_embeddings.weight``, ``gpt.blocks.{i}.attn.qkv.
@@ -97,6 +99,56 @@ def port_name(jax_name: str) -> str:
     if head or not idx.isdigit() or key not in _JAX_BLOCK:
         raise ValueError(f"not a GPT parameter name: {jax_name!r}")
     return f"blocks.{idx}.{_JAX_BLOCK[key]}"
+
+
+def reference_name(name: str) -> str:
+    """The inverse of :func:`port_name`: ``blocks.3.qkv_w`` ->
+    ``gpt.blocks.3.attn.qkv.weight``."""
+    for jax_name, port in _JAX_TOP.items():
+        if port == name:
+            return jax_name
+    head, idx, key = name.split(".")
+    for jax_key, port in _JAX_BLOCK.items():
+        if port == key and head == "blocks":
+            return f"gpt.blocks.{idx}.{jax_key}"
+    raise ValueError(f"not a port GPT parameter name: {name!r}")
+
+
+def pipe_to_reference(key: str, num_layers: int) -> str:
+    """A ``GPTForPretrainingPipe`` state-dict key as the reference's
+    ``GPTForPretraining`` key: ``run_functions.0.*`` is the embedding,
+    ``run_functions.{i}.*`` block ``i - 1``, ``run_functions.{L + 1}`` the
+    final LayerNorm."""
+    head, idx, rest = key.split(".", 2)
+    if head != "run_functions":
+        raise ValueError(f"not a pipeline key: {key!r}")
+    i = int(idx)
+    if i == 0:
+        return f"gpt.embeddings.{rest}"
+    if i <= num_layers:
+        return f"gpt.blocks.{i - 1}.{rest}"
+    if i == num_layers + 1:
+        return f"gpt.ln_f.{rest}"
+    raise ValueError(f"{key!r}: no layer {i} in a {num_layers}-layer pipe")
+
+
+def reference_to_pipe(key: str, num_layers: int) -> str:
+    """The inverse of :func:`pipe_to_reference`."""
+    if key.startswith("gpt.embeddings."):
+        return "run_functions.0." + key[len("gpt.embeddings."):]
+    if key.startswith("gpt.blocks."):
+        idx, rest = key[len("gpt.blocks."):].split(".", 1)
+        return f"run_functions.{int(idx) + 1}.{rest}"
+    if key.startswith("gpt.ln_f."):
+        return f"run_functions.{num_layers + 1}.{key[len('gpt.ln_f.'):]}"
+    raise ValueError(f"not a GPT key: {key!r}")
+
+
+def _pipe_layers(keys):
+    """The block count of a GPT pipe from its state-dict keys (the final
+    LayerNorm is ``run_functions.{L + 1}``, held by every rank)."""
+    return max(int(k.split(".")[1]) for k in keys
+               if k.startswith("run_functions.")) - 1
 
 
 def attn_split(cfg, mp: int, rank: int):
@@ -217,7 +269,19 @@ def gather_shards(ranks, cfg, dims) -> Dict[str, np.ndarray]:
     """The inverse of :func:`rank_shards`: ``ranks`` is ``(coord, shards)``
     pairs covering every pipeline stage and tensor-parallel rank (more
     dp / sharding replicas may come; the first of each is taken);
-    returns the global port-named arrays."""
+    returns the global arrays.  Shards by port name give port names;
+    shards by the paddle layers' state-dict names (the reference's
+    ``GPTForPretraining`` keys, or a ``GPTForPretrainingPipe``'s
+    ``run_functions.{i}`` keys, each rank's held part and its
+    tensor-parallel slices as :mod:`~paddle_tpu_torch.models.gpt_layers`
+    splits them) give the reference's ``GPTForPretraining`` keys."""
+    paddle = any(k.startswith(("gpt.", "run_functions."))
+                 for _, shards in ranks for k in shards)
+    if paddle:
+        ranks = [(coord, {port_name(
+            pipe_to_reference(k, cfg.num_layers)
+            if k.startswith("run_functions.") else k): a
+            for k, a in shards.items()}) for coord, shards in ranks]
     mp = dims.get("mp", 1)
     pieces = {}
     for coord, shards in ranks:
@@ -240,6 +304,8 @@ def gather_shards(ranks, cfg, dims) -> Dict[str, np.ndarray]:
             index[dim] = idx
             full[tuple(index)] = a
         out[name] = full
+    if paddle:
+        out = {reference_name(k): v for k, v in out.items()}
     return out
 
 
@@ -269,9 +335,29 @@ def load_paddle_state_dict(layer, state) -> None:
     ``np.asarray`` takes, paddle layouts: Linear weights ``[in, out]``)
     into the port's :class:`~paddle_tpu_torch.nn.Layer` of the same
     structure, cast to each parameter's dtype and device.  Every key must
-    match, both ways."""
-    missing, unexpected = layer.set_state_dict(
-        {k: np.asarray(v) for k, v in state.items()})
+    match, both ways, with two translations:
+
+    * a ``GPTForPretrainingPipe`` (``run_functions.{i}`` keys) takes a
+      ``GPTForPretraining`` state dict (:func:`reference_to_pipe`); on a
+      pipeline rank the blocks of other stages, which the engine dropped,
+      are skipped;
+    * a tensor-parallel parameter (``tp_split``) given its global value
+      keeps its slice."""
+    own = layer.state_dict()
+    state = {k: np.asarray(v) for k, v in state.items()}
+    if (any(k.startswith("run_functions.") for k in own)
+            and any(k.startswith("gpt.") for k in state)):
+        n = _pipe_layers(own)
+        state = {reference_to_pipe(k, n): v for k, v in state.items()}
+        state = {k: v for k, v in state.items()
+                 if k in own or not k.startswith("run_functions.")
+                 or not 1 <= int(k.split(".")[1]) <= n}
+    for k, v in state.items():
+        split = getattr(own.get(k), "tp_split", None)
+        if split is not None and tuple(v.shape) != tuple(own[k].shape):
+            dim, idx, _ = split
+            state[k] = np.take(v, idx, axis=dim)
+    missing, unexpected = layer.set_state_dict(state)
     if missing or unexpected:
         raise ValueError(f"state dict mismatch: missing {missing[:8]}, "
                          f"unexpected {unexpected[:8]}")

@@ -213,9 +213,22 @@ def test_spawn_ends_the_pool_when_a_rank_fails(tmp_path):
     assert time.monotonic() - t0 < 45
 
 
-def test_fleet_wrappers_of_nn_layers_wait_for_a7():
-    from paddle_tpu_torch.distributed import fleet
+def test_fleet_wrappers_of_nn_layers_wait_for_a7(tmp_path):
+    """``fleet.distributed_model`` / ``distributed_optimizer`` wrap a small
+    ``nn.Layer`` and optimizer in the reference's types (one gloo rank,
+    every degree 1: data parallel).  (The name is the one of the check
+    that they raised until the wrappers were ported.)"""
+    from paddle_tpu import nn as jnn, optimizer as jopt
+    from paddle_tpu.distributed import fleet as jfleet
+    from paddle_tpu.distributed import mesh as jmesh
 
-    for fn in (fleet.distributed_model, fleet.distributed_optimizer):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            fn(None)
+    jfleet.init(is_collective=True)
+    net = jnn.Linear(4, 4)
+    want = (type(jfleet.distributed_model(net)).__name__,
+            type(jfleet.distributed_optimizer(
+                jopt.SGD(0.1, parameters=net.parameters()))).__name__)
+    jmesh._MESH = None
+    got, = W.run(tmp_path, 1, "fleet_wrappers",
+                 {"modes": {"data_parallel": {}}})
+    assert got["data_parallel"] == want == ("DataParallelSPMD",
+                                            "HybridParallelOptimizer")

@@ -217,6 +217,42 @@ def test_dq_launch_hands_the_kernel_out(monkeypatch):
     assert args[9:14] == (b, h, hkv, s, d)
 
 
+
+def test_fwd_launch_reads_bnsd_head_views_in_place(monkeypatch):
+    """bnsd q, k, v that are transposed head views of one fused QKV
+    tensor, as the paddle GPT hands them over, reach the forward kernel
+    in place (their own pointers and [B, S, H, D] strides, B and H not
+    flattened into a copy), and lse keeps its rows b * H + h."""
+    import ctypes
+    import types
+
+    from paddle_tpu_torch.kernels import _build
+
+    calls = []
+
+    def kernel(name):
+        def launch(*a):
+            ptr = ctypes.cast(a[5], ctypes.POINTER(ctypes.c_longlong))
+            calls.append((name, a, [ptr[i] for i in range(12)]))
+            return 0
+        return launch
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    b, s, h, d = 2, 16, 4, 16
+    qkv = torch.randn(b, s, 3 * h * d)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in torch.split(qkv, h * d, dim=-1))
+    out, lse = tflash.flash_fwd_cuda(q, k, v, True, 0.25, None, "bnsd")
+    (name, args, strides), = calls
+    assert name == "flash_fwd" and out.shape == q.shape
+    assert lse.shape == (b * h, s)
+    assert args[:3] == tuple(t.data_ptr() for t in (q, k, v))
+    assert strides == [st for t in (q, k, v, out)
+                       for st in t.transpose(1, 2).stride()[:3]]
+    assert args[6:11] == (b, h, h, s, d)
+
 def _shapes():
     for layout in ("bnsd", "bsnd", "sbnd"):
         for s in (4, 8, 12, 24, 40, 100, 520):

@@ -152,6 +152,50 @@ def test_layers_hold_the_slices_of_the_one_rank_initialisation(layers):
         np.testing.assert_array_equal(e, _slices(we, 4, 0)[r])
 
 
+def test_parallel_layers_are_paddle_layers_an_optimizer_trains(tmp_path):
+    """The layers are paddle ``nn.Layer``s: a paddle model holds a
+    ColumnParallelLinear and a RowParallelLinear as sublayers (their
+    parameters named as the reference names them), the port's AdamW
+    trains it one step at mp=1 (one gloo rank), and the loss and the
+    parameters after the step equal the reference's same layers'
+    (1e-5 relative, 1e-6 absolute)."""
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu.framework import unique_name as jnames
+    from paddle_tpu.nn import functional as jF
+
+    saved, jmesh._MESH = jmesh._MESH, None
+    try:
+        class Net(paddle.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.col = jmpp.ColumnParallelLinear(8, 16,
+                                                     gather_output=False)
+                self.row = jmpp.RowParallelLinear(16, 8,
+                                                  input_is_parallel=True)
+
+            def forward(self, x):
+                return self.row(jF.gelu(self.col(x)))
+
+        with jnames.guard():
+            paddle.seed(3)
+            net = Net()
+        state = {k: v.numpy() for k, v in net.state_dict().items()}
+        x = np.random.RandomState(4).randn(4, 8).astype("float32")
+        loss = (net(paddle.to_tensor(x)) ** 2).mean()
+        loss.backward()
+        jopt.AdamW(learning_rate=1e-2, parameters=net.parameters(),
+                   weight_decay=0.01).step()
+    finally:
+        jmesh._MESH = saved
+    res, = W.run(tmp_path, 1, "tp_layer_train", {"state": state, "x": x})
+    assert res["layer"] == [True, True]
+    assert res["names"] == [p.name for p in net.parameters()]
+    np.testing.assert_allclose(res["loss"], float(loss.numpy()), rtol=1e-5)
+    for k, v in net.state_dict().items():
+        np.testing.assert_allclose(res["state"][k], v.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------

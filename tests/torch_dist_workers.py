@@ -62,6 +62,9 @@ def _entry(tmp, tag, program, pin):
 
 
 def _np(t):
+    """A torch tensor or an eager-API Tensor as numpy."""
+    if hasattr(t, "_t"):
+        return t.numpy()
     return t.detach().cpu().numpy()
 
 
@@ -227,46 +230,43 @@ def hcg(payload):
 def tp_layers(payload):
     """The reference's tensor-parallel layer setups on its global
     weights: column -> row parallel linear, the vocab-parallel embedding
-    and the parallel cross-entropy; outputs and gradients."""
-    import torch
-
+    and the parallel cross-entropy (paddle ``nn.Layer``s on the eager
+    API's Tensors); outputs and gradients."""
+    import paddle_tpu_torch as tp
     from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
 
+    tp.set_device("cpu")
     mesh = _fleet(mp=payload["mp"], dp=1)
     out = {"coord": mesh.coord}
-    col = mpp.ColumnParallelLinear(8, 16, gather_output=False, device="cpu")
-    row = mpp.RowParallelLinear(16, 8, input_is_parallel=True, device="cpu")
+    col = mpp.ColumnParallelLinear(8, 16, gather_output=False)
+    row = mpp.RowParallelLinear(16, 8, input_is_parallel=True)
     col.set_global(payload["wc"], payload["bc"])
     row.set_global(payload["wr"], payload["br"])
-    x = torch.from_numpy(payload["x"]).requires_grad_()
+    x = tp.to_tensor(payload["x"], stop_gradient=False)
     y = row(col(x))
-    (y * torch.from_numpy(payload["gy"])).sum().backward()
+    (y * tp.to_tensor(payload["gy"])).sum().backward()
     out["linear"] = (_np(y), _np(x.grad), _np(col.weight.grad),
                      _np(col.bias.grad), _np(row.weight.grad),
                      _np(row.bias.grad))
-    gathered = mpp.ColumnParallelLinear(8, 16, gather_output=True,
-                                        device="cpu")
+    gathered = mpp.ColumnParallelLinear(8, 16, gather_output=True)
     gathered.set_global(payload["wc"], payload["bc"])
     out["gather_output"] = _np(gathered(x))
-    emb = mpp.VocabParallelEmbedding(32, 16, device="cpu")
+    emb = mpp.VocabParallelEmbedding(32, 16)
     emb.set_global(payload["emb"])
-    e = emb(torch.from_numpy(payload["ids"]))
-    (e * torch.from_numpy(payload["ge"])).sum().backward()
+    e = emb(tp.to_tensor(payload["ids"]))
+    (e * tp.to_tensor(payload["ge"])).sum().backward()
     out["embedding"] = (_np(e), _np(emb.weight.grad))
-    logits = torch.from_numpy(payload["logits"]).requires_grad_()
-    local = logits.chunk(payload["mp"], dim=-1)[mesh.coord["mp"]]
-    loss = mpp.ParallelCrossEntropy()(local, torch.from_numpy(
+    logits = tp.to_tensor(payload["logits"], stop_gradient=False)
+    local = tp.chunk(logits, payload["mp"], axis=-1)[mesh.coord["mp"]]
+    loss = mpp.ParallelCrossEntropy()(local, tp.to_tensor(
         payload["labels"]))
     loss.sum().backward()
     out["xent"] = (_np(loss), _np(logits.grad))
     # the modules' own initialisation: the slices of the one-rank layers of
     # the same seed
-    out["init"] = (_np(mpp.ColumnParallelLinear(8, 16, device="cpu",
-                                                seed=5).weight),
-                   _np(mpp.RowParallelLinear(16, 8, device="cpu",
-                                             seed=5).weight),
-                   _np(mpp.VocabParallelEmbedding(32, 16, device="cpu",
-                                                  seed=5).weight))
+    out["init"] = (_np(mpp.ColumnParallelLinear(8, 16, seed=5).weight),
+                   _np(mpp.RowParallelLinear(16, 8, seed=5).weight),
+                   _np(mpp.VocabParallelEmbedding(32, 16, seed=5).weight))
     return out
 
 
@@ -412,4 +412,305 @@ def ring(payload):
         out["ragged"] = None
     except ValueError as e:
         out["ragged"] = str(e)
+    return out
+
+
+# -- fleet on nn.Layer ---------------------------------------------------------
+
+
+def _strategy(dp=1, mp=1, pp=1, sharding=1, acc=None):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp,
+                        "sharding_degree": sharding}
+    if sharding > 1:
+        s.sharding = True
+    if acc is not None:
+        s.pipeline_configs = {"accumulate_steps": acc, "micro_batch_size": 2}
+    return s
+
+
+def _fleet_init(**dims):
+    """fleet.init over ``dims`` on the CPU; returns (strategy, hcg)."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.distributed import fleet
+
+    tp.set_device("cpu")
+    s = _strategy(**dims)
+    fleet.init(is_collective=True, strategy=s)
+    return s, fleet.get_hybrid_communicate_group()
+
+
+def tp_layer_train(payload):
+    """A paddle nn.Layer holding a ColumnParallelLinear and a
+    RowParallelLinear at mp=1, one AdamW step from the reference's
+    weights: the loss and the parameters after it."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn, optimizer as opt
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.weights import (load_paddle_state_dict,
+                                          state_dict_to_numpy)
+
+    _fleet_init()
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.col = mpp.ColumnParallelLinear(8, 16, gather_output=False)
+            self.row = mpp.RowParallelLinear(16, 8, input_is_parallel=True)
+
+        def forward(self, x):
+            return self.row(nn.functional.gelu(self.col(x)))
+
+    with unique_name.guard():
+        net = Net()
+    load_paddle_state_dict(net, payload["state"])
+    o = opt.AdamW(learning_rate=1e-2, parameters=net.parameters(),
+                  weight_decay=0.01)
+    loss = (net(tp.to_tensor(payload["x"])) ** 2).mean()
+    loss.backward()
+    o.step()
+    return {"loss": float(loss), "state": state_dict_to_numpy(net),
+            "names": [p.name for p in net.parameters()],
+            "layer": [isinstance(m, nn.Layer) for m in (net.col, net.row)]}
+
+
+def fleet_wrappers(payload):
+    """The wrapper types ``distributed_model`` / ``distributed_optimizer``
+    return for a small nn.Layer and optimizer under each parallel mode
+    the payload names."""
+    from paddle_tpu_torch import nn, optimizer as opt
+    from paddle_tpu_torch.distributed import fleet
+
+    out = {}
+    for mode, dims in payload["modes"].items():
+        _fleet_init(**dims)
+        net = nn.Linear(4, 4)
+        model = fleet.distributed_model(net)
+        o = fleet.distributed_optimizer(
+            opt.SGD(0.1, parameters=net.parameters()))
+        out[mode] = (type(model).__name__, type(o).__name__)
+    return out
+
+
+def _adamw(params, clip=1.0, lr=1e-3):
+    from paddle_tpu_torch import nn, optimizer as opt
+
+    return opt.AdamW(learning_rate=lr, parameters=params, weight_decay=0.01,
+                     grad_clip=nn.ClipGradByGlobalNorm(clip))
+
+
+def _pipe(cfg_kw, state, pp, acc):
+    """fleet.init at pp, a GPTForPretrainingPipe from ``state`` (the
+    reference GPTForPretraining's) wrapped in PipelineParallel."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import gpt_layers
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    s, hcg = _fleet_init(pp=pp, acc=acc)
+    with unique_name.guard():
+        tp.seed(0)
+        pipe = gpt_layers.GPTForPretrainingPipe(
+            gpt_layers.GPTConfig(**cfg_kw), num_stages=pp)
+    load_paddle_state_dict(pipe, state)
+    return pipe, mpp.PipelineParallel(pipe, hcg, s)
+
+
+def pipeline(payload):
+    """PipelineParallel at pp=2 (one rank a stage): AdamW and clip over
+    4 microbatches for 4 steps; the scheduler-and-momentum case; fresh
+    dropout per step."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.weights import state_dict_to_numpy
+
+    ids, labels = payload["ids"], payload["labels"]
+    out = {}
+    pipe, model = _pipe(payload["cfg"], payload["state"], 2, 4)
+    params = pipe.parameters()
+    o = _adamw(params)
+    losses = []
+    for _ in range(4):
+        losses.append(float(model.train_batch(
+            (tp.to_tensor(ids), tp.to_tensor(labels)), optimizer=o)))
+    eng = model._engine
+    out["adamw"] = {
+        "losses": losses, "stage": eng.stage,
+        "blocks": sorted({int(k.split(".")[1]) for k in pipe.state_dict()}),
+        "other_numel": [f.numel for f in eng._flats],
+        "chunks": [t.numel() for t in eng.other],
+        "released": [p._t.numel() for p in eng.other_params],
+        "moments": [t.numel() for t in eng.opt_state["m"]],
+        "mid_numel": [p.numel() for p in eng.mid_params],
+        "state": state_dict_to_numpy(model)}
+
+    pipe, model = _pipe(payload["cfg"], payload["state2"], 2, 2)
+    sched = opt.lr.StepDecay(learning_rate=0.05, step_size=1, gamma=0.5)
+    o = opt.Momentum(learning_rate=sched, momentum=0.9,
+                     parameters=pipe.parameters())
+    ids2, labels2 = payload["ids2"], payload["labels2"]
+    losses = [float(model.train_batch(
+        (tp.to_tensor(ids2), tp.to_tensor(labels2)), optimizer=o,
+        lr_scheduler=sched)) for _ in range(3)]
+    ev = model.eval_batch((tp.to_tensor(ids2), tp.to_tensor(labels2)))
+    out["momentum"] = {"losses": losses, "last_epoch": sched.last_epoch,
+                       "eval": float(ev)}
+
+    pipe, model = _pipe({**payload["cfg"], "dropout": 0.3},
+                        payload["state2"], 2, 2)
+    o = opt.SGD(learning_rate=0.0, parameters=pipe.parameters())
+    out["dropout"] = [float(model.train_batch(
+        (tp.to_tensor(ids2), tp.to_tensor(labels2)), optimizer=o))
+        for _ in range(2)]
+    return out
+
+
+def fleet_checks(payload):
+    """Two ranks: DataParallel at dp=2; the sharding optimizer at
+    sharding=2 beside its unsharded run; the hybrid optimizer's clip at
+    mp=2; LocalSGD; DGC's sparse exchange; the paddle GPT at mp=2
+    through distributed_model / distributed_optimizer."""
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn, optimizer as opt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import (
+        DGCMomentumOptimizer, LocalSGDOptimizer)
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import gpt_layers
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.weights import (load_paddle_state_dict,
+                                          state_dict_to_numpy)
+
+    r = dist.get_rank()
+    out = {}
+
+    # DataParallel at dp=2: the reference's test_dp_matches_single_device
+    _fleet_init(dp=2)
+    net = nn.Linear(4, 1)
+    load_paddle_state_dict(net, payload["dp_state"])
+    model = tp.DataParallel(net)
+    o = opt.SGD(0.1, parameters=net.parameters())
+    xb, yb = payload["dp_x"], payload["dp_y"]
+    for _ in range(5):
+        loss = F.mse_loss(model(tp.to_tensor(xb)),
+                          tp.to_tensor(mesh_mod.shard_batch(yb)))
+        loss.backward()
+        o.step()
+        o.clear_grad()
+    out["dp"] = state_dict_to_numpy(net)
+
+    # ZeRO-1 at sharding=2 beside the same run unsharded (dp=2)
+    runs = {}
+    for name, dims in (("sharded", {"sharding": 2}), ("unsharded",
+                                                      {"dp": 2})):
+        _fleet_init(**dims)
+        with unique_name.guard():
+            net = nn.Sequential(nn.Linear(8, 16), nn.GELU(),
+                                nn.Linear(16, 4))
+        load_paddle_state_dict(net, payload["mlp_state"])
+        model = fleet.distributed_model(net)
+        o = fleet.distributed_optimizer(_adamw(net.parameters(), clip=0.5,
+                                               lr=1e-2))
+        losses = []
+        for _ in range(3):
+            loss = F.mse_loss(model(tp.to_tensor(payload["mlp_x"])),
+                              tp.to_tensor(mesh_mod.shard_batch(
+                                  payload["mlp_y"])))
+            loss.backward()
+            o.step()
+            o.clear_grad()
+            losses.append(float(loss))
+        moments = sum(v.numel() for k, v in o._inner.state_dict().items()
+                      if "moment1" in k)
+        runs[name] = {"losses": losses, "moments": moments,
+                      "state": state_dict_to_numpy(net),
+                      "model": type(model).__name__,
+                      "opt": type(o._inner_wrapped).__name__}
+    out["sharding"] = runs
+
+    # the hybrid clip at mp=2: column -> row parallel, AdamW with a clip
+    # that bites, one step
+    s, hcg = _fleet_init(mp=2)
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.col = mpp.ColumnParallelLinear(8, 16, gather_output=False)
+            self.row = mpp.RowParallelLinear(16, 8, input_is_parallel=True)
+
+        def forward(self, x):
+            return self.row(nn.functional.gelu(self.col(x)))
+
+    net = Net()
+    load_paddle_state_dict(net, payload["tp_state"])
+    model = fleet.distributed_model(net)
+    o = fleet.distributed_optimizer(_adamw(net.parameters(), clip=0.05,
+                                           lr=1e-2))
+    loss = (model(tp.to_tensor(payload["tp_x"])) ** 2).mean()
+    loss.backward()
+    o.step()
+    out["mp_clip"] = {"state": state_dict_to_numpy(net),
+                      "model": type(model).__name__}
+
+    # LocalSGD: each rank its own data, parameters averaged every 2 steps
+    _fleet_init(dp=2)
+    net = nn.Linear(4, 1)
+    load_paddle_state_dict(net, payload["dp_state"])
+    o = LocalSGDOptimizer(opt.SGD(0.1, parameters=net.parameters()),
+                          k_steps=2)
+    after = []
+    for i in range(3):
+        x = payload["local_x"][r][i]
+        loss = F.mse_loss(net(tp.to_tensor(x)),
+                          tp.to_tensor(payload["local_y"][r][i]))
+        loss.backward()
+        o.step()
+        o.clear_grad()
+        after.append(state_dict_to_numpy(net))
+    out["localsgd"] = after
+
+    # DGC: tests/dgc_train_script.py's two ranks, k = 1
+    n = 16
+    w = tp.to_tensor(np.zeros((n,), "float32"), stop_gradient=False)
+    g = np.zeros((n,), "float32")
+    g[2 + r] = 10.0 * (r + 1)
+    g[8] = 0.1
+    w.grad = tp.to_tensor(g)
+    o = DGCMomentumOptimizer(learning_rate=1.0, momentum=0.0,
+                             parameters=[w], rampup_begin_step=0,
+                             sparsity=[1.0 - 1.0 / n])
+    o.step()
+    out["dgc"] = (w.numpy(), list(o._u.values())[0].cpu().numpy())
+
+    # the paddle GPT at mp=2, two steps through fleet's wrappers
+    s, hcg = _fleet_init(mp=2)
+    with unique_name.guard():
+        tp.seed(0)
+        cfg = gpt_layers.GPTConfig(**{**payload["gpt_cfg"],
+                                      "use_parallel": True})
+        gpt = gpt_layers.GPTForPretraining(cfg)
+        crit = gpt_layers.GPTPretrainingCriterion()
+    load_paddle_state_dict(gpt, payload["gpt_state"])
+    model = fleet.distributed_model(gpt)
+    o = fleet.distributed_optimizer(_adamw(gpt.parameters()))
+    losses = []
+    for _ in range(2):
+        loss = crit(model(tp.to_tensor(payload["gpt_ids"])),
+                    tp.to_tensor(payload["gpt_labels"]))
+        loss.backward()
+        o.step()
+        o.clear_grad()
+        losses.append(float(loss))
+    out["gpt_mp"] = {"losses": losses, "coord": mesh_mod.get_mesh().coord,
+                     "state": state_dict_to_numpy(gpt)}
+    out["wrappers"] = fleet_wrappers(payload)
     return out
