@@ -217,7 +217,37 @@ its seconds):
    Multi-rank pipelines, data parallelism, sharding and tensor
    parallelism on ``nn.Layer`` run on the CPU over gloo
    (``tests/test_torch_{pipeline,fleet,tp}.py``): NCCL does not put two
-   ranks on one card.
+   ranks on one card;
+10. data and the generic train step: (a) the DataLoader alone:
+    ``FakeData`` at 224 x 224 x 3 (fp32, 1000 classes) through
+    ``DataLoader(batch_size=256, num_workers=8, shuffle=True,
+    drop_last=True, persistent_workers=True)`` with
+    ``PADDLE_SHM_SLOT_MB`` set so that a batch fits a slot: batches/s
+    after the first, the ring / queue counts (the queue's asserted 0),
+    each batch's flag from the workers (``torch.cuda.is_initialized()``
+    in the worker, from the collate function) asserted False, and no
+    ``pt_dl_*`` segment left in ``/dev/shm`` once the loader is gone;
+    (b) ResNet-50 through ``build_model_train_step`` at ``bench.py``'s
+    ``_resnet50_bench`` configuration (NHWC, ``compute_dtype="bfloat16"``,
+    momentum, lr 0.1, weight decay 1e-4, batch 256 at 224 px) fed by
+    (a)'s loader: 3 warm-up and 10 timed steps on the host clock around
+    synchronised steps (images/s, MFU: images/s x 6 x 4,089,184,256 MACs
+    over 989 TFLOP/s, ``max_memory_allocated``), then the same step on
+    one resident batch (the gap is the loader's cost to the card), and
+    one profiled step (busy share, top device time); the loss finite;
+    (c) BERT-base through ``build_model_train_step`` at
+    ``_bert_bench``'s configuration (vocab 30528, hidden 768, 12 layers,
+    seq 512, batch 32, 76 masked, AdamW lr 1e-4, weight decay 0.01,
+    bf16) on resident seeded arrays: step ms, tokens/s, MFU, peak memory,
+    busy share, and 12 launches of each flash kernel a step asserted;
+    (d) ``resnet18(num_classes=10)`` at 32 px, batch 4, fp32, TF32 off,
+    lr 1e-3: 3 steps of the generic step on the card and on the CPU, each
+    step from the CPU's state (a free run multiplies the rounding
+    differences about tenfold a step through the last stage's BatchNorm
+    over 4 samples): losses within 1e-5 relative, each parameter's
+    update within ``UPDATE_RTOL`` (``update_ratios``) and each BatchNorm
+    buffer within 1e-4 relative.  ``--phase 10`` builds and runs this
+    phase alone (no result line).
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -237,7 +267,7 @@ flash forward and its backward (forward and backward less the forward,
 both by CUDA-graph replay) for the two backward kernels.  The flash
 kernels have more rows each: at BERT-base's attention in fp32 and in
 bf16 (``flash_fwd_bert_fp32`` ...), with their launches on phase 8's
-runs, and at GPT-760M's (phase 9's bnsd cases of phase 2) in fp32 and in
+runs (and, for bf16, under ``launches_in`` on phase 10's BERT-base step), and at GPT-760M's (phase 9's bnsd cases of phase 2) in fp32 and in
 bf16 (``flash_fwd_gpt760m_fp32`` ...), with their launches on phase 9's
 plain fp32 run and its bf16 run (and under ``launches_in`` on its other
 fp32 runs); their bounds are at the peak of the arithmetic each uses:
@@ -3211,6 +3241,311 @@ def phase_fleet(np, torch, card):
             "bf16": {"fleet bf16 auto_cast": bf16["launches"]}}
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+# the DataLoader and the generic step: bench.py's _resnet50_bench (ResNet-50
+# v1.5, NHWC, bf16, momentum lr 0.1, wd 1e-4, batch 256 at 224 px) fed by
+# FakeData through 8 spawned workers, and _bert_bench (BERT-base, AdamW lr
+# 1e-4, wd 0.01, bf16, batch 32 x 512, 76 masked) through the same step
+RESNET = dict(depth=50, batch=256, image=224, workers=8, classes=1000)
+RESNET_MACS = 4089184256        # conv + fc MACs an image at 224 px (bench.py)
+STEP_WARM, STEP_TIMED = 3, 10
+BERT_STEP = dict(vocab=30528, hidden=768, layers=12, heads=12, seq=512,
+                 batch=32, masked=76)
+
+
+def _probe_collate(batch):
+    """The default collate plus a flag from the worker: whether torch has
+    made a CUDA context in this process (it must not)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.io import default_collate_fn
+
+    return default_collate_fn(batch) + (
+        np.asarray(torch.cuda.is_initialized()),)
+
+
+def _ce_loss(m, images, labels):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+
+    return paddle.mean(F.softmax_with_cross_entropy(m(images), labels))
+
+
+def _timed_steps(np, torch, step, state, batches):
+    """Host-clock seconds of each synchronised step over ``batches`` (an
+    iterator of batch tuples, fetched inside the timing); returns the
+    state, the losses and the times."""
+    params, bufs, opt = state
+    losses, times = [], []
+    for _ in range(STEP_WARM + STEP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = next(batches)
+        params, bufs, opt, loss = step(params, bufs, opt, *batch)
+        losses.append(float(loss))                       # synchronises
+        times.append(time.perf_counter() - t0)
+    return (params, bufs, opt), losses, times
+
+
+def _loader_alone(np, torch, loader, card):
+    """(a): one epoch of the loader alone; batches/s after the first batch
+    (which waits for the workers to start)."""
+    flags, stamps = [], []
+    t0 = time.perf_counter()
+    for images, labels, flag in loader:
+        stamps.append(time.perf_counter())
+        flags.append(bool(flag.numpy()))
+    torch.cuda.synchronize()
+    n = len(stamps)
+    rate = (n - 1) / (stamps[-1] - stamps[0])
+    log(f"loader alone: {n} batches of {RESNET['batch']} x "
+        f"{'x'.join(map(str, images.shape[1:]))} fp32 "
+        f"({images.numpy().nbytes / 2**20:.1f} MiB a batch), first batch "
+        f"after {stamps[0] - t0:.2f} s, then {rate:.2f} batches/s "
+        f"({rate * RESNET['batch']:.0f} images/s); through the ring "
+        f"{loader.ring_batches}, by queue {loader.queue_batches}; a worker "
+        f"with a CUDA context: {any(flags)}; {card}")
+    if loader.queue_batches or loader.ring_batches != n or any(flags):
+        raise AssertionError("the loader's batches did not all come "
+                             "through the ring, or a worker touched the "
+                             "card")
+    return rate
+
+
+def _resnet50(np, torch, card):
+    """(a) and (b): the loader alone, then ResNet-50 through the generic
+    step fed by it, then on one resident batch."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.models.step_builder import build_model_train_step
+    from paddle_tpu_torch.vision import models
+    from paddle_tpu_torch.vision.datasets import FakeData
+
+    b, px = RESNET["batch"], RESNET["image"]
+    batch_mib = b * px * px * 3 * 4 / 2**20
+    os.environ["PADDLE_SHM_SLOT_MB"] = str(int(batch_mib) + 8)
+    shm = os.statvfs("/dev/shm")
+    log(f"/dev/shm: {shm.f_bavail * shm.f_frsize / 2**30:.1f} GiB free; "
+        f"rings: {RESNET['workers']} x 4 slots of "
+        f"{os.environ['PADDLE_SHM_SLOT_MB']} MiB")
+    data = FakeData(num_samples=b * (STEP_WARM + STEP_TIMED),
+                    image_shape=(px, px, 3),
+                    num_classes=RESNET["classes"])
+    loader = DataLoader(data, batch_size=b, shuffle=True, drop_last=True,
+                        num_workers=RESNET["workers"],
+                        persistent_workers=True, collate_fn=_probe_collate)
+    rate = _loader_alone(np, torch, loader, card)
+
+    paddle.seed(0)
+    model = getattr(models, f"resnet{RESNET['depth']}")(
+        num_classes=RESNET["classes"], data_format="NHWC")
+    step, params, bufs, opt = build_model_train_step(
+        model, _ce_loss, optimizer="momentum", lr=0.1, weight_decay=1e-4,
+        compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fed = ((images, labels) for images, labels, _ in loader)
+    state, losses, times = _timed_steps(np, torch, step,
+                                        (params, bufs, opt), fed)
+    fed.close()
+    ring, queue = loader.ring_batches, loader.queue_batches
+    del loader, fed
+    gc.collect()
+    left = sorted(f for f in os.listdir("/dev/shm") if f.startswith("pt_dl_"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rng = np.random.RandomState(0)
+    resident = (torch.as_tensor(rng.rand(b, px, px, 3).astype("float32"),
+                                device="cuda"),
+                torch.as_tensor(rng.randint(0, RESNET["classes"], (b, 1)),
+                                device="cuda"))
+    state, r_losses, r_times = _timed_steps(
+        np, torch, step, state, iter([resident] * (STEP_WARM + STEP_TIMED)))
+    busy = _profile(torch, "ResNet-50 step, resident batch",
+                    lambda: step(*state, *resident))
+    fed_s = float(np.mean(times[STEP_WARM:]))
+    res_s = float(np.mean(r_times[STEP_WARM:]))
+
+    def mfu(sec):
+        return b / sec * 6 * RESNET_MACS / BF16_FLOPS
+
+    log(f"ResNet-{RESNET['depth']} generic step (NHWC, bf16, momentum, "
+        f"batch {b} at {px} px; {card}): fed by the loader "
+        f"{1e3 * fed_s:.1f} ms a step (timed "
+        f"{[round(1e3 * t, 1) for t in times[STEP_WARM:]]}, warm-up "
+        f"{[round(1e3 * t, 1) for t in times[:STEP_WARM]]}), {b / fed_s:.0f} "
+        f"images/s, MFU {100 * mfu(fed_s):.2f}%; resident batch "
+        f"{1e3 * res_s:.1f} ms ({b / res_s:.0f} images/s, MFU "
+        f"{100 * mfu(res_s):.2f}%); the loader's cost to the card "
+        f"{1e3 * (fed_s - res_s):+.1f} ms a step (the loader alone "
+        f"{rate:.2f} batches/s); max_memory_allocated {peak:.2f} GiB; "
+        f"device busy {100 * busy:.1f}% of one profiled step; losses fed "
+        f"{[round(x, 4) for x in losses]}, resident "
+        f"{[round(x, 4) for x in r_losses]}; loader: ring {ring}, queue "
+        f"{queue}; segments left in /dev/shm {left}")
+    if not np.all(np.isfinite(losses + r_losses)):
+        raise AssertionError("ResNet-50's loss is not finite")
+    if queue or left:
+        raise AssertionError(f"a batch went by queue ({queue}) or a ring "
+                             f"was left in /dev/shm ({left})")
+    del model, step, params, bufs, opt, state, resident
+    _free(torch)
+
+
+def _bert_step(np, torch, card):
+    """(c): BERT-base through the generic step on resident arrays; returns
+    the flash launches of one step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertPretrainingCriterion)
+    from paddle_tpu_torch.models.step_builder import build_model_train_step
+
+    c = BERT_STEP
+    cfg = BertConfig(vocab_size=c["vocab"], hidden_size=c["hidden"],
+                     num_layers=c["layers"], num_heads=c["heads"],
+                     max_seq_len=c["seq"], dropout=0.0)
+    paddle.seed(0)
+    model = BertForPretraining(cfg)
+    crit = BertPretrainingCriterion()
+
+    def loss_builder(m, ids, token_type, pos, mlm_labels, nsp_labels):
+        mlm_logits, nsp_logits = m(ids, token_type, masked_positions=pos)
+        return crit(mlm_logits, nsp_logits, mlm_labels, nsp_labels,
+                    masked_lm_scale=float(int(pos.shape[0])
+                                          * int(pos.shape[1])))
+
+    step, params, bufs, opt = build_model_train_step(
+        model, loss_builder, optimizer="adamw", lr=1e-4, weight_decay=0.01,
+        compute_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    b, s, m = c["batch"], c["seq"], c["masked"]
+    ids = rng.randint(0, c["vocab"], (b, s)).astype("int64")
+    tt = (rng.rand(b, s) > 0.5).astype("int64")
+    pos = np.stack([rng.choice(s, m, replace=False) + i * s
+                    for i in range(b)]).astype("int64")
+    mlm = ids.reshape(-1)[pos.reshape(-1)]
+    nsp = rng.randint(0, 2, (b, 1)).astype("int64")
+    arrays = tuple(torch.as_tensor(a, device="cuda")
+                   for a in (ids, tt, pos, mlm, nsp))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, losses, times = _timed_steps(
+        np, torch, step, (params, bufs, opt),
+        iter([arrays] * (STEP_WARM + STEP_TIMED)))
+    launches = {k: KERNELS[k] // (STEP_WARM + STEP_TIMED) for k in FLASH}
+    total = {k: KERNELS[k] for k in FLASH}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = _profile(torch, "BERT-base generic step",
+                    lambda: step(*state, *arrays))
+    step_s = float(np.mean(times[STEP_WARM:]))
+    fpt = bert_flops_per_token(c["hidden"], c["layers"], s, c["vocab"],
+                               m / s)
+    mfu = b * s / step_s * fpt / BF16_FLOPS
+    log(f"BERT-base generic step (AdamW, bf16, B={b} S={s} {m} masked; "
+        f"{card}): {1e3 * step_s:.1f} ms a step (timed "
+        f"{[round(1e3 * t, 1) for t in times[STEP_WARM:]]}, warm-up "
+        f"{[round(1e3 * t, 1) for t in times[:STEP_WARM]]}), "
+        f"{b * s / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of 989 "
+        f"TFLOP/s (phase 8's eager bf16 auto_cast step: 174.0 ms, PERF.md); "
+        f"max_memory_allocated {peak:.2f} GiB; device busy "
+        f"{100 * busy:.1f}% of one profiled step; losses "
+        f"{[round(x, 4) for x in losses]}; flash launches a step "
+        f"{json.dumps(launches)}")
+    want = {k: c["layers"] * (STEP_WARM + STEP_TIMED) for k in FLASH}
+    if total != want:
+        raise AssertionError(f"BERT-base's generic step launched {total}, "
+                             f"expected {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"BERT-base's generic step: losses {losses}")
+    del model, step, params, bufs, opt, state, arrays
+    _free(torch)
+    return total
+
+
+def _resnet_parity(np, torch):
+    """(d): resnet18 at 32 px, batch 4, fp32, TF32 off, lr 1e-3: 3 steps
+    on the card and on the CPU, each from the CPU's state."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models.step_builder import build_model_train_step
+    from paddle_tpu_torch.vision.models import resnet18
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    state = None
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        with unique_name.guard():
+            paddle.seed(0)
+            model = resnet18(num_classes=10)
+        if state is None:
+            state = {k: v.numpy() for k, v in model.state_dict().items()}
+        else:
+            load_paddle_state_dict(model, state)
+        runs[dev] = (model, build_model_train_step(
+            model, _ce_loss, optimizer="momentum", lr=1e-3,
+            weight_decay=1e-4, compute_dtype=None))
+    paddle.set_device("gpu")
+    names = [n for n, _ in runs["cpu"][0].named_parameters()]
+    rng = np.random.RandomState(0)
+    batch = (rng.randn(4, 3, 32, 32).astype("float32"),
+             rng.randint(0, 10, (4, 1)).astype("int64"))
+    (_, (cstep, cpar, cbuf, copt)), (_, (gstep, gpar, gbuf, gopt)) = (
+        runs["cpu"], runs["gpu"])
+    worst = {"loss": 0.0, "update": 0.0, "buffer": 0.0}
+    for i in range(3):
+        start = [p.clone() for p in cpar]
+        for g, c in zip(gpar, cpar):
+            g.copy_(c)
+        gbuf = [b.cuda() for b in cbuf]
+        for g, c in zip(gopt["v"], copt["v"]):
+            g.copy_(c)
+        cpar, cbuf, copt, closs = cstep(cpar, cbuf, copt, *batch)
+        gpar, gbuf, gopt, gloss = gstep(gpar, gbuf, gopt, *batch)
+        rel = abs(float(gloss) - float(closs)) / abs(float(closs))
+        log(f"resnet18 generic step {i + 1}, card vs cpu: loss "
+            f"{float(gloss):.7f} vs {float(closs):.7f} (rel {rel:.2e})")
+        ratios = update_ratios(torch, None, names,
+                               [p.cpu() for p in gpar], cpar, start)
+        bufs = max(((g.cpu() - c).norm() / c.norm()).item()
+                   for g, c in zip(gbuf, cbuf))
+        log(f"  worst BatchNorm buffer, relative: {bufs:.3e}")
+        worst = {"loss": max(worst["loss"], rel),
+                 "update": max(worst["update"], max(ratios.values())),
+                 "buffer": max(worst["buffer"], bufs)}
+    log(f"resnet18 generic step, card vs cpu over 3 steps: worst loss rel "
+        f"{worst['loss']:.3e} (tol 1e-5), update ratio {worst['update']:.3e} "
+        f"(tol {UPDATE_RTOL:g}), buffer {worst['buffer']:.3e} (tol 1e-4)")
+    if not (worst["loss"] <= 1e-5 and worst["update"] <= UPDATE_RTOL
+            and worst["buffer"] <= 1e-4):
+        raise AssertionError("the generic step on the card disagrees with "
+                             "the CPU")
+    del runs
+    _free(torch)
+
+
+def phase_data(np, torch, card):
+    """Phase 10: the DataLoader over the shared-memory ring, ResNet-50 and
+    BERT-base through ``build_model_train_step``, and the resnet18 step on
+    the card against the CPU.  Returns the BERT-base step's flash
+    launches."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    _resnet_parity(np, torch)
+    _resnet50(np, torch, card)
+    launches = _bert_step(np, torch, card)
+    log(card)
+    return launches
+
+
 def main():
     try:
         import numpy as np
@@ -3255,6 +3590,12 @@ def main():
         phase_fleet(np, torch, card)
         done("9 fleet")
         return 0
+    if sys.argv[1:] == ["--phase", "10"]:
+        # phase 10 alone, for work on data and the generic step: no result
+        # line
+        phase_data(np, torch, card)
+        done("10 data and the generic step")
+        return 0
     kernels = phase_paged(np, torch)
     kernels.update(phase_gemm(np, torch))
     kernels.update(phase_flash(np, torch))
@@ -3275,6 +3616,8 @@ def main():
     done("8 eager BERT")
     fleet_runs = phase_fleet(np, torch, card)
     done("9 fleet")
+    step_launches = phase_data(np, torch, card)
+    done("10 data and the generic step")
     kernels.update(bert_kernels)
     line = []
     for name, k in kernels.items():
@@ -3292,6 +3635,9 @@ def main():
                                   else "_gpt760m_")
             if "_bert_" in name:
                 n, run = bert_runs[dt][base], f"eager BERT-base {dt}"
+                if dt == "bf16":
+                    more = {"phase 10 BERT-base generic step bf16":
+                            step_launches[base]}
             else:
                 (run, c), *rest = fleet_runs[dt].items()
                 n = c[base]

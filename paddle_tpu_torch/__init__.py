@@ -28,6 +28,12 @@ mirrors the JAX package so that every module has an obvious counterpart:
   on them and ``models/gpt_layers.py`` is GPT as paddle layers, which
   ``fleet`` trains (``distributed_model`` / ``distributed_optimizer``,
   ``PipelineParallel``, ``DataParallel``, the sharding optimizer);
+* data and the generic step: ``io/`` (datasets, samplers, the
+  DataLoader with its shared-memory ring), ``reader/``, ``io_api.py``
+  (``save`` / ``load`` / ``batch``), ``vision/`` (ResNet, VGG,
+  MobileNet, LeNet and the datasets over the 2-D conv and pool ops) and
+  ``models/step_builder.py`` (``build_model_train_step``, one train step
+  for any ``nn.Layer``);
 * ``examples/serve_gpt.py``: the serve CLI
   (``python -m paddle_tpu_torch.examples.serve_gpt``), and
   ``examples/pretrain_bert.py``: BERT pretraining through the eager API
@@ -39,7 +45,8 @@ Entry points run on the CUDA card unless the caller passes ``device="cpu"``
 card (``gpu:0``) unless ``set_device("cpu")`` says otherwise.  The
 top-level namespace is the reference's ``paddle_tpu`` namespace for the
 modules ported so far: ``to_tensor``, ``seed``, ``set_device``,
-``no_grad``, ``grad``, ``DataParallel`` and the tensor functions.
+``no_grad``, ``grad``, ``DataParallel``, ``io``, ``reader``, ``vision``,
+``save``, ``load``, ``batch`` and the tensor functions.
 """
 
 from .device import default_device, default_dtype, resolve_device  # noqa: F401
@@ -96,6 +103,10 @@ from . import autograd  # noqa: F401
 from . import regularizer  # noqa: F401
 from .nn import ParamAttr  # noqa: F401
 from .dygraph.parallel import DataParallel  # noqa: F401
+from . import io  # noqa: F401
+from . import reader  # noqa: F401
+from . import vision  # noqa: F401
+from .io_api import batch, load, save  # noqa: F401
 
 VarBase = Tensor
 in_dynamic_mode = in_dygraph_mode

@@ -12,7 +12,7 @@ and ``--amp`` (the forward under ``amp.auto_cast()``, bf16)::
     python -m paddle_tpu_torch.examples.pretrain_bert --amp --hidden 768 \\
         --layers 12 --heads 12 --seq 512 --batch 32 --masked 76
 
-``--model ernie`` waits for the ERNIE port (ROADMAP A.9).
+``--model ernie`` waits for the ERNIE port (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def build(args):
 
     if args.model != "bert":
         raise NotImplementedError("--model ernie waits for the ERNIE port "
-                                  "(ROADMAP A.9)")
+                                  "(ROADMAP A.7)")
     paddle.seed(args.seed)
     cfg = BertConfig(vocab_size=args.vocab, hidden_size=args.hidden,
                      num_layers=args.layers, num_heads=args.heads,

@@ -17,7 +17,9 @@ The live flags are read where they act:
 * ``FLAGS_tpu_matmul_precision``: fp32 matmul precision
   (``torch.set_float32_matmul_precision``: ``"float32"`` and
   ``"default"`` are ``highest``, ``"tensorfloat32"`` is ``high``,
-  ``"bfloat16"`` is ``medium``).
+  ``"bfloat16"`` is ``medium``); an fp32 conv on the card follows it,
+  cuDNN's TF32 off at ``highest`` (``ops/nn_ops.py``), so the flag
+  governs both.
 
 The reference's flags that tune subsystems the port does not have
 (allocator strategy, cudnn search, eager deletion ...) are accepted and
@@ -143,7 +145,8 @@ define_flag("FLAGS_tpu_flash_attention", True,
             "kernels where they apply, and raises otherwise", inert=True)
 define_flag("FLAGS_tpu_matmul_precision", "",
             "fp32 matmul precision: one of '', 'default', 'bfloat16', "
-            "'tensorfloat32', 'float32'", type=str,
+            "'tensorfloat32', 'float32'; an fp32 conv on the card follows "
+            "it (cuDNN's TF32 off at full fp32)", type=str,
             on_set=_set_matmul_precision)
 define_flag("FLAGS_profiler_logdir",
             os.path.join(tempfile.gettempdir(), "paddle_tpu_torch_profile"),

@@ -3,6 +3,7 @@ from .bert import (BertConfig, BertForPretraining, BertModel,
 from .generation import build_beam_search_fn, build_generate_fn, generate
 from .gpt import (GPTConfig, GPTForPretraining, gpt_13b, gpt_1p3b, gpt_medium,
                   gpt_small, gpt_tiny)
+from .step_builder import build_model_train_step
 from .gpt_layers import (GPTAttention, GPTEmbeddings, GPTForPretrainingPipe,
                          GPTMLP, GPTModel)
 
@@ -11,4 +12,4 @@ __all__ = ["GPTConfig", "GPTForPretraining", "gpt_tiny", "gpt_small",
            "generate", "build_beam_search_fn", "BertConfig", "BertModel",
            "BertForPretraining", "BertPretrainingCriterion",
            "GPTForPretrainingPipe", "GPTModel", "GPTAttention", "GPTMLP",
-           "GPTEmbeddings"]
+           "GPTEmbeddings", "build_model_train_step"]

@@ -1,16 +1,19 @@
 """``paddle.nn.functional``: the functions over the ported ops.
 
 Counterpart of ``paddle_tpu/nn/functional/__init__.py``, function for
-function where the op is ported: activations, ``linear``, dropout, the
-norms, ``embedding`` / ``one_hot``, the losses, ``pad``,
-``label_smooth``, ``normalize``, ``cosine_similarity``, ``sequence_mask``
-and ``scaled_dot_product_attention`` (the registered op, which on the
-card launches the flash kernels).  The functions over the vision ops
-(conv, pool, interpolate / upsample, ``unfold``, ``pixel_shuffle``,
-``affine_grid``, ``grid_sample``, ``temporal_shift``) and
-``ring_attention``, ``ctc_loss``, ``hsigmoid_loss``, ``gather_tree``,
-``alpha_dropout`` and ``dropout3d`` wait for the vision ops and the
-extras layers (ROADMAP A).
+function where the op is ported: activations, ``linear``, the 2-D convs
+and pools and the 1-D forms built on them (``conv1d``,
+``conv1d_transpose``, ``max_pool1d``, ``avg_pool1d``,
+``adaptive_*_pool1d``), dropout, the norms, ``embedding`` / ``one_hot``,
+the losses, ``pad``, ``label_smooth``, ``normalize``,
+``cosine_similarity``, ``sequence_mask`` and
+``scaled_dot_product_attention`` (the registered op, which on the card
+launches the flash kernels).  The 3-D convs and pools, interpolate /
+upsample, ``unfold``, ``pixel_shuffle``, ``affine_grid``,
+``grid_sample``, ``temporal_shift``, ``ring_attention``, ``ctc_loss``,
+``hsigmoid_loss``, ``gather_tree``, ``alpha_dropout`` and ``dropout3d``
+wait for the 3-D ops, the interpolation ops and the extras layers
+(ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ from ...ops.dispatch import dispatch, single
 from ... import tensor_api as T
 
 __all__ = [
-    "linear", "relu", "relu6", "gelu", "sigmoid", "tanh", "softmax",
+    "linear", "conv2d", "conv2d_transpose", "max_pool2d", "avg_pool2d",
+    "adaptive_avg_pool2d", "adaptive_max_pool2d", "conv1d",
+    "conv1d_transpose", "max_pool1d", "avg_pool1d", "adaptive_avg_pool1d",
+    "adaptive_max_pool1d", "relu", "relu6", "gelu", "sigmoid", "tanh", "softmax",
     "log_softmax", "leaky_relu", "elu", "selu", "silu", "swish", "mish",
     "hardswish", "hardsigmoid", "hardtanh", "hardshrink", "softshrink",
     "softplus", "softsign", "tanhshrink", "thresholded_relu", "prelu",
@@ -151,6 +157,206 @@ def maxout(x, groups, axis=1, name=None):
     from ...dygraph import tracer
 
     return tracer.trace_fn(fn, [x], name="maxout")
+
+
+# -- 2-D conv and pool -------------------------------------------------------
+
+
+def conv2d(
+    x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+    data_format="NCHW", name=None,
+):
+    stride = [stride] * 2 if isinstance(stride, int) else list(stride)
+    dilation = [dilation] * 2 if isinstance(dilation, int) else list(dilation)
+    pad_alg = "EXPLICIT"
+    if isinstance(padding, str):
+        pad_alg, padding = padding.upper(), [0, 0]
+    padding = [padding] * 2 if isinstance(padding, int) else list(padding)
+    out = _d(
+        "conv2d",
+        {"Input": [x], "Filter": [weight]},
+        {
+            "strides": stride, "paddings": padding, "dilations": dilation,
+            "groups": groups, "padding_algorithm": pad_alg, "data_format": data_format,
+        },
+        slot="Output",
+    )
+    if bias is not None:
+        ax = 1 if data_format == "NCHW" else 3
+        out = _d("elementwise_add", {"X": [out], "Y": [bias]}, {"axis": ax})
+    return out
+
+
+def conv2d_transpose(
+    x, weight, bias=None, stride=1, padding=0, output_padding=0, dilation=1,
+    groups=1, output_size=None, data_format="NCHW", name=None,
+):
+    stride = [stride] * 2 if isinstance(stride, int) else list(stride)
+    dilation = [dilation] * 2 if isinstance(dilation, int) else list(dilation)
+    padding = [padding] * 2 if isinstance(padding, int) else list(padding)
+    output_padding = (
+        [output_padding] * 2 if isinstance(output_padding, int) else list(output_padding)
+    )
+    if output_size is not None:
+        # derive output_padding so the result hits the requested size exactly
+        os_ = [output_size] * 2 if isinstance(output_size, int) else list(output_size)
+        kh, kw = int(weight.shape[-2]), int(weight.shape[-1])
+        for i, (k, dim) in enumerate(zip((kh, kw), (2, 3))):
+            base = (int(x.shape[dim]) - 1) * stride[i] - 2 * padding[i] + dilation[i] * (k - 1) + 1
+            output_padding[i] = int(os_[i]) - base
+    out = _d(
+        "conv2d_transpose",
+        {"Input": [x], "Filter": [weight]},
+        {"strides": stride, "paddings": padding, "dilations": dilation,
+         "groups": groups, "output_padding": output_padding},
+        slot="Output",
+    )
+    if bias is not None:
+        out = _d("elementwise_add", {"X": [out], "Y": [bias]}, {"axis": 1})
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    ks = [kernel_size] * 2 if isinstance(kernel_size, int) else list(kernel_size)
+    st = ks if stride is None else ([stride] * 2 if isinstance(stride, int) else list(stride))
+    pd = [padding] * 2 if isinstance(padding, int) else list(padding)
+    if return_mask:
+        if data_format != "NCHW":
+            raise ValueError("return_mask=True requires NCHW (the mask indexes "
+                             "an NCHW feature map)")
+        outs = dispatch("max_pool2d_with_index", {"X": [x]},
+                        {"ksize": ks, "strides": st, "paddings": pd,
+                         "ceil_mode": ceil_mode})
+        return single(outs, "Out"), single(outs, "Mask")
+    return _d(
+        "pool2d", {"X": [x]},
+        {"pooling_type": "max", "ksize": ks, "strides": st, "paddings": pd,
+         "ceil_mode": ceil_mode, "data_format": data_format},
+    )
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW", name=None):
+    ks = [kernel_size] * 2 if isinstance(kernel_size, int) else list(kernel_size)
+    st = ks if stride is None else ([stride] * 2 if isinstance(stride, int) else list(stride))
+    pd = [padding] * 2 if isinstance(padding, int) else list(padding)
+    return _d(
+        "pool2d", {"X": [x]},
+        {"pooling_type": "avg", "ksize": ks, "strides": st, "paddings": pd,
+         "ceil_mode": ceil_mode, "exclusive": exclusive, "data_format": data_format},
+    )
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    os = [output_size] * 2 if isinstance(output_size, int) else list(output_size)
+    return _d(
+        "pool2d", {"X": [x]},
+        {"pooling_type": "avg", "ksize": os, "adaptive": True, "data_format": data_format},
+    )
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False,
+                        data_format="NCHW", name=None):
+    os = [output_size] * 2 if isinstance(output_size, int) else list(output_size)
+    if return_mask:
+        if data_format != "NCHW":
+            raise ValueError("return_mask=True requires NCHW (the mask indexes "
+                             "an NCHW feature map)")
+        outs = dispatch("max_pool2d_with_index", {"X": [x]},
+                        {"ksize": os, "adaptive": True})
+        return single(outs, "Out"), single(outs, "Mask")
+    return _d(
+        "pool2d", {"X": [x]},
+        {"pooling_type": "max", "ksize": os, "adaptive": True, "data_format": data_format},
+    )
+
+
+# -- 1-D conv and pool (the 2-D ops over a singleton height) --------------
+
+
+def _require_default_layout(data_format, allowed, return_mask=False):
+    """The 1-D conv and pool functions take the channels-first layout only:
+    reject the others instead of convolving over the wrong axes, and
+    reject return_mask (argmax indices) the same way."""
+    if data_format not in allowed:
+        raise NotImplementedError(
+            f"data_format={data_format!r} is not wired for this op "
+            f"(supported: {allowed}); transpose to channels-first")
+    if return_mask:
+        raise NotImplementedError(
+            "return_mask=True (pooling argmax indices) is not wired")
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    """1-D conv as a 2-D conv over a singleton height (Conv1D layer trick)."""
+    _require_default_layout(data_format, ("NCL",))
+    x4 = T.unsqueeze(x, [2])
+    w4 = T.unsqueeze(weight, [2])
+    s = stride if isinstance(stride, int) else stride[0]
+    p = padding if isinstance(padding, int) else padding[0]
+    d = dilation if isinstance(dilation, int) else dilation[0]
+    out = conv2d(x4, w4, bias=bias, stride=[1, s], padding=[0, p],
+                 dilation=[1, d], groups=groups)
+    return T.squeeze(out, [2])
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format="NCL", name=None):
+    _require_default_layout(data_format, ("NCL",))
+    x4 = T.unsqueeze(x, [2])
+    w4 = T.unsqueeze(weight, [2])
+    s = stride if isinstance(stride, int) else stride[0]
+    p = padding if isinstance(padding, int) else padding[0]
+    d = dilation if isinstance(dilation, int) else dilation[0]
+    op = (output_padding if isinstance(output_padding, int)
+          else output_padding[0])
+    os_ = None if output_size is None else [1, (
+        output_size if isinstance(output_size, int) else output_size[0])]
+    out = conv2d_transpose(x4, w4, bias=bias, stride=[1, s], padding=[0, p],
+                           output_padding=[0, op], dilation=[1, d],
+                           groups=groups, output_size=os_)
+    return T.squeeze(out, [2])
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, name=None):
+    _require_default_layout("NCL", ("NCL",), return_mask)
+    x4 = T.unsqueeze(x, [2])
+    k = kernel_size if isinstance(kernel_size, int) else kernel_size[0]
+    s = k if stride is None else (
+        stride if isinstance(stride, int) else stride[0])
+    p = padding if isinstance(padding, int) else padding[0]
+    out = max_pool2d(x4, [1, k], stride=[1, s], padding=[0, p],
+                     ceil_mode=ceil_mode)
+    return T.squeeze(out, [2])
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, name=None):
+    x4 = T.unsqueeze(x, [2])
+    k = kernel_size if isinstance(kernel_size, int) else kernel_size[0]
+    s = k if stride is None else (
+        stride if isinstance(stride, int) else stride[0])
+    p = padding if isinstance(padding, int) else padding[0]
+    out = avg_pool2d(x4, [1, k], stride=[1, s], padding=[0, p],
+                     ceil_mode=ceil_mode, exclusive=exclusive)
+    return T.squeeze(out, [2])
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    x4 = T.unsqueeze(x, [2])
+    o = output_size if isinstance(output_size, int) else output_size[0]
+    return T.squeeze(adaptive_avg_pool2d(x4, [1, o]), [2])
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    _require_default_layout("NCL", ("NCL",), return_mask)
+    x4 = T.unsqueeze(x, [2])
+    o = output_size if isinstance(output_size, int) else output_size[0]
+    return T.squeeze(adaptive_max_pool2d(x4, [1, o]), [2])
 
 
 # -- linear ------------------------------------------------------------------

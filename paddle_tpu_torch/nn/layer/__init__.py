@@ -1,10 +1,15 @@
 """The layers ported so far (counterpart of ``paddle_tpu/nn/layer``):
-common, norm, activation and loss.  ``conv``, ``pooling``, ``rnn``,
-``transformer`` and ``extras`` wait for later slices (ROADMAP A)."""
+common, conv, pooling, norm, activation and loss.  ``rnn``,
+``transformer`` and ``extras`` wait for later slices (ROADMAP A.7)."""
 
 from .common import (  # noqa: F401
     Bilinear, CosineSimilarity, Dropout, Dropout2D, Embedding, Flatten,
     Identity, Linear, Pad2D,
+)
+from .conv import Conv1D, Conv2D, Conv2DTranspose  # noqa: F401
+from .pooling import (  # noqa: F401
+    AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool1D, AvgPool2D, MaxPool1D,
+    MaxPool2D,
 )
 from .norm import (  # noqa: F401
     BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,

@@ -5,7 +5,7 @@ Counterpart of ``paddle_tpu/nn/layer/common.py``.  ``Linear`` keeps
 paddle's ``[in_features, out_features]`` weight (``y = x @ W + b``), so
 state dicts carry over unchanged.  The upsampling layers (``Upsample``,
 ``UpsamplingBilinear2D``, ``UpsamplingNearest2D``) run the interpolation
-ops, which wait for the vision ops (ROADMAP A.12).
+ops, which wait for ROADMAP A.7.
 """
 
 from __future__ import annotations

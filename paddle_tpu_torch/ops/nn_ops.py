@@ -1,17 +1,37 @@
-"""Neural-net ops: norms, dropout, the fused losses and attention.
+"""Neural-net ops: the 2-D vision ops, norms, dropout, the fused losses and
+attention.
 
-Counterpart of ``paddle_tpu/ops/nn_ops.py`` less its vision ops (conv2d
-/ conv3d and their transposes, pool2d / pool3d, ``max_pool2d_with_index``
-and the interpolation ops, which wait for ROADMAP A.12), and of the
-reference's registered ``scaled_dot_product_attention``
+Counterpart of ``paddle_tpu/ops/nn_ops.py`` less its 3-D vision ops
+(``conv3d``, ``conv3d_transpose``, ``pool3d``) and the interpolation ops,
+which wait for ROADMAP A.7, and of the reference's registered
+``scaled_dot_product_attention``
 (``paddle_tpu/kernels/attention.py:111-125``), whose kernel here is
 :func:`paddle_tpu_torch.kernels.attention.sdpa`: on the card it launches
 the flash kernels, forward and backward, or raises.
 
-The ops whose backward the reference writes by hand keep it as a
-registered grad op (``batch_norm_grad``, ``dropout_grad``,
-``softmax_with_cross_entropy_grad``, ``data_norm_grad``), named by the
-forward op's ``grad_maker``; the others differentiate by autograd.
+The 2-D vision ops (``conv2d``, ``depthwise_conv2d``, ``conv2d_transpose``,
+``pool2d``, ``max_pool2d_with_index``) keep the reference's attributes and
+semantics.  The reference computes them with ``lax.conv_general_dilated``
+and ``lax.reduce_window``, outside any Pallas kernel, so here
+``torch.nn.functional`` computes them (cuDNN on the card):
+
+* padding: 2- and 4-element paddings and ``"SAME"`` / ``"VALID"`` give
+  ``(lo, hi)`` pairs per spatial dim, XLA's SAME putting the odd pixel on
+  the high side; where lo != hi the input is padded explicitly (with -inf
+  for max pooling), since torch pads symmetrically only;
+* NHWC: the input is read as a ``permute(0, 3, 1, 2)`` view, which is
+  channels-last memory, and the output permuted back, with no copy, so
+  cuDNN runs its NHWC kernels;
+* fp32 on the card: a conv follows the fp32 matmul precision
+  (``FLAGS_tpu_matmul_precision``, ``torch.set_float32_matmul_precision``):
+  cuDNN's TF32 is off at ``"highest"``, the default, as the reference's
+  convs are fp32 (``preferred_element_type=float32``);
+* average pooling pads, sums and divides by the count of real elements
+  in the window (``exclusive``) or by kh * kw, as the reference does, and
+  ``ceil_mode`` extends the high pads (``_ceil_extend``): torch's own
+  divisors and ceil rule differ;
+* ``max_pool2d_with_index``'s Mask is the flat ``h * W + w`` index of the
+  first maximum of each window.
 
 :func:`dropout` is the GPT's dropout, the reference's ``dropout`` kernel
 decision for decision:
@@ -50,6 +70,216 @@ def dropout(x, p: float, key: Optional[int], training: bool = True):
     scale = 0.0 if p >= 1.0 else 1.0 / (1.0 - p)
     scale = torch.tensor(scale, dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# the 2-D vision ops
+# ---------------------------------------------------------------------------
+
+
+def _same_pads(sizes, ksize, strides, dilations):
+    """XLA's SAME padding: out = ceil(in / stride), the odd pixel of
+    padding on the high side."""
+    pads = []
+    for n, k, st, d in zip(sizes, ksize, strides, dilations):
+        total = max((-(-n // st) - 1) * st + d * (k - 1) + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pairs(p):
+    """A paddle padding list as (lo, hi) pairs for the 2 spatial dims."""
+    p = list(p)
+    if len(p) == 2:
+        return [(p[0], p[0]), (p[1], p[1])]
+    if len(p) == 4:
+        return [(p[0], p[1]), (p[2], p[3])]
+    raise ValueError(f"bad paddings {p}")
+
+
+def _conv_padding(paddings, algorithm, sizes, ksize, strides, dilations):
+    if algorithm == "SAME":
+        return _same_pads(sizes, ksize, strides, dilations)
+    if algorithm == "VALID":
+        return [(0, 0), (0, 0)]
+    return _pairs(paddings)
+
+
+def _pad_hw(x, pads, value=0.0):
+    """``x`` (N, C, H, W) padded by ``pads`` ((top, bottom), (left,
+    right)); a negative pad crops."""
+    (t, b), (l, r) = pads
+    return F.pad(x, (l, r, t, b), value=value)
+
+
+def _conv_precision(x):
+    """cuDNN's TF32 for an fp32 conv on the card follows the fp32 matmul
+    precision: off at ``"highest"``."""
+    if x.is_cuda and x.dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = (
+            torch.get_float32_matmul_precision() != "highest")
+
+
+@register_op("conv2d")
+def conv2d_kernel(ins, attrs):
+    """``F.conv2d`` over the NCHW view of the input (NHWC: channels-last
+    memory), explicit padding where it is asymmetric."""
+    x, w = ins["Input"], ins["Filter"]
+    strides = tuple(attrs.get("strides", [1, 1]))
+    dilations = tuple(attrs.get("dilations", [1, 1]))
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    xv = x.permute(0, 3, 1, 2) if nhwc else x
+    pads = _conv_padding(attrs.get("paddings", [0, 0]),
+                         attrs.get("padding_algorithm", "EXPLICIT"),
+                         xv.shape[2:], w.shape[-2:], strides, dilations)
+    if all(lo == hi for lo, hi in pads):
+        pad = tuple(lo for lo, _ in pads)
+    else:
+        xv, pad = _pad_hw(xv, pads), 0
+    _conv_precision(x)
+    out = F.conv2d(xv, w, None, strides, pad, dilations,
+                   attrs.get("groups", 1))
+    return {"Output": out.permute(0, 2, 3, 1) if nhwc else out}
+
+
+@register_op("depthwise_conv2d")
+def depthwise_conv2d_kernel(ins, attrs):
+    attrs = dict(attrs)
+    x = ins["Input"]
+    attrs["groups"] = x.shape[1] if attrs.get(
+        "data_format", "NCHW") == "NCHW" else x.shape[-1]
+    return conv2d_kernel(ins, attrs)
+
+
+@register_op("conv2d_transpose")
+def conv2d_transpose_kernel(ins, attrs):
+    """The adjoint of conv2d (NCHW; the Filter is (in, out / groups, kh,
+    kw)): the whole transposed conv, then the pads cropped and
+    ``output_padding`` added on the high side."""
+    x, w = ins["Input"], ins["Filter"]
+    pads = _pairs(attrs.get("paddings", [0, 0]))
+    out_pad = attrs.get("output_padding", [0, 0]) or [0, 0]
+    if isinstance(out_pad, int):
+        out_pad = [out_pad, out_pad]
+    _conv_precision(x)
+    full = F.conv_transpose2d(x, w, None, tuple(attrs.get("strides", [1, 1])),
+                              0, 0, attrs.get("groups", 1),
+                              tuple(attrs.get("dilations", [1, 1])))
+    (t, b), (l, r) = pads
+    return {"Output": _pad_hw(full, [(-t, out_pad[0] - b),
+                                     (-l, out_pad[1] - r)])}
+
+
+def _ceil_extend(sp_pad, sizes, ksize, strides):
+    """ceil_mode: extend the HIGH-side pads so the last partial window is
+    kept: out = ceil((in + pads - k) / s) + 1 (the extra padding never
+    starts a new window)."""
+    out = list(sp_pad)
+    for i in range(2):
+        size = sizes[i] + out[i][0] + out[i][1]
+        rem = (size - ksize[i]) % strides[i]
+        if rem:
+            out[i] = (out[i][0], out[i][1] + strides[i] - rem)
+    return out
+
+
+def _lowest(x):
+    if x.is_floating_point():
+        return float("-inf")
+    return torch.iinfo(x.dtype).min
+
+
+def _adaptive_window(h, w, oh, ow):
+    if h % oh or w % ow:
+        raise AssertionError("adaptive pool requires divisible sizes")
+    return [h // oh, w // ow]
+
+
+@register_op("pool2d")
+def pool2d_kernel(ins, attrs):
+    """Max or average pooling: global, adaptive (sizes that divide) or
+    windowed with the reference's padding, ``ceil_mode`` and ``exclusive``
+    divisor."""
+    x = ins["X"]
+    ptype = attrs.get("pooling_type", "max")
+    ksize = list(attrs.get("ksize", [1, 1]))
+    strides = tuple(attrs.get("strides", ksize))
+    adaptive = attrs.get("adaptive", False)
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    sp = (1, 2) if nhwc else (2, 3)
+    if attrs.get("global_pooling", False) or (adaptive
+                                             and tuple(ksize) == (1, 1)):
+        red = torch.amax if ptype == "max" else torch.mean
+        return {"Out": red(x, dim=sp, keepdim=True)}
+    if adaptive:
+        oh, ow = ksize
+        h, w = x.shape[sp[0]], x.shape[sp[1]]
+        kh, kw = _adaptive_window(h, w, oh, ow)
+        red = torch.amax if ptype == "max" else torch.mean
+        if nhwc:
+            x5 = x.reshape(x.shape[0], oh, kh, ow, kw, x.shape[3])
+            return {"Out": red(x5, dim=(2, 4))}
+        x5 = x.reshape(x.shape[0], x.shape[1], oh, kh, ow, kw)
+        return {"Out": red(x5, dim=(3, 5))}
+    xv = x.permute(0, 3, 1, 2) if nhwc else x
+    sp_pad = _pairs(attrs.get("paddings", [0, 0]))
+    if attrs.get("ceil_mode", False):
+        sp_pad = _ceil_extend(sp_pad, xv.shape[2:], ksize, strides)
+    padded = any(pi != (0, 0) for pi in sp_pad)
+    if ptype == "max":
+        if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(sp_pad,
+                                                               ksize)):
+            out = F.max_pool2d(xv, ksize, strides,
+                               tuple(lo for lo, _ in sp_pad))
+        else:
+            out = F.max_pool2d(_pad_hw(xv, sp_pad, _lowest(x)), ksize,
+                               strides)
+    else:
+        xp = _pad_hw(xv, sp_pad) if padded else xv
+        total = F.avg_pool2d(xp, ksize, strides, divisor_override=1)
+        if attrs.get("exclusive", True) and padded:
+            ones = torch.ones((1, 1) + tuple(xv.shape[2:]), dtype=x.dtype,
+                              device=x.device)
+            count = F.avg_pool2d(_pad_hw(ones, sp_pad), ksize, strides,
+                                 divisor_override=1)
+            out = total / count
+        else:
+            out = total / (ksize[0] * ksize[1])
+    return {"Out": out.permute(0, 2, 3, 1) if nhwc else out}
+
+
+@register_op("max_pool2d_with_index", nondiff_out_slots=("Mask",))
+def max_pool2d_with_index_kernel(ins, attrs):
+    """Max pooling (NCHW) with the argmax as a flat index into the input
+    feature map (h * W + w): the windows as patches (``F.unfold`` of the
+    input padded with the dtype's finite minimum), their max and the
+    first position of it, clamped to the input."""
+    x = ins["X"]
+    ksize = list(attrs.get("ksize", [1, 1]))
+    n, c, h, w = x.shape
+    if attrs.get("adaptive", False):
+        ksize = _adaptive_window(h, w, *ksize)
+        strides = tuple(ksize)
+        sp_pad = [(0, 0), (0, 0)]
+    else:
+        strides = tuple(attrs.get("strides", ksize))
+        sp_pad = _pairs(attrs.get("paddings", [0, 0]))
+        if attrs.get("ceil_mode", False):
+            sp_pad = _ceil_extend(sp_pad, (h, w), ksize, strides)
+    neg = (torch.finfo(x.dtype).min if x.is_floating_point()
+           else torch.iinfo(x.dtype).min)
+    xp = _pad_hw(x, sp_pad, neg)
+    oh = (xp.shape[2] - ksize[0]) // strides[0] + 1
+    ow = (xp.shape[3] - ksize[1]) // strides[1] + 1
+    patches = F.unfold(xp, ksize, stride=strides).reshape(
+        n, c, ksize[0] * ksize[1], oh, ow)
+    out = torch.amax(patches, dim=2)
+    k_loc = torch.argmax(patches, dim=2)
+    oy = torch.arange(oh, device=x.device).reshape(1, 1, -1, 1)
+    ox = torch.arange(ow, device=x.device).reshape(1, 1, 1, -1)
+    gh = (oy * strides[0] - sp_pad[0][0] + k_loc // ksize[1]).clamp(0, h - 1)
+    gw = (ox * strides[1] - sp_pad[1][0] + k_loc % ksize[1]).clamp(0, w - 1)
+    return {"Out": out, "Mask": (gh * w + gw).to(torch.int32)}
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ output gradients, the port's (torch autograd over the kernel, or the
 op's hand-written grad op) against the reference's ``<type>_grad``
 kernel (``jax.vjp`` of the forward, or the hand-written one).  One test
 that the port's registry holds every reference op of those modules but
-the named deferred ones.
+the named deferred ones (the 3-D vision ops and the interpolations; the
+2-D vision ops are here, and ``tests/test_torch_vision_ops.py`` holds
+them over more attributes).
 
 Tolerances: integer and bool outputs exactly; floating outputs to 1e-6
 relative, elementwise and to the tensor's scale: |got - want| <= 1e-6 *
@@ -39,10 +41,10 @@ from paddle_tpu_torch.ops import registry as treg
 RTOL = 1e-6
 MODULES = ("math_ops", "activation_ops", "tensor_ops", "optimizer_ops",
            "nn_ops")
-# the reference's vision ops, which wait for ROADMAP A.12
-DEFERRED = {"conv2d", "depthwise_conv2d", "conv2d_transpose", "pool2d",
-            "max_pool2d_with_index", "nearest_interp_v2",
-            "bilinear_interp_v2", "conv3d", "conv3d_transpose", "pool3d"}
+# the reference's 3-D vision ops and interpolations, which wait for
+# ROADMAP A.7
+DEFERRED = {"nearest_interp_v2", "bilinear_interp_v2", "conv3d",
+            "conv3d_transpose", "pool3d"}
 RANDOM = {"gaussian_random", "uniform_random", "truncated_gaussian_random",
           "randint", "randperm", "multinomial"}
 INJECTED = {"dropout", "bernoulli"}
@@ -304,6 +306,22 @@ def _case(op, seed=0):
                              "Variance": [pos(3)], "SavedMean": [f(3)],
                              "SavedVariance": [pos(3)],
                              "Y@GRAD": [f(4, 3, 2, 2)]}, {}),
+        "conv2d": ({"Input": [f(2, 3, 7, 6)], "Filter": [f(4, 3, 3, 3)]},
+                   {"strides": [2, 1], "paddings": [1, 0, 2, 1]}),
+        "depthwise_conv2d": ({"Input": [f(2, 5, 6, 4)],
+                              "Filter": [f(4, 1, 3, 3)]},
+                             {"paddings": [1, 1], "data_format": "NHWC"}),
+        "conv2d_transpose": ({"Input": [f(2, 3, 5, 4)],
+                              "Filter": [f(3, 2, 3, 3)]},
+                             {"strides": [2, 2], "paddings": [1, 1],
+                              "output_padding": [1, 0]}),
+        "pool2d": ({"X": [f(2, 3, 7, 6)]},
+                   {"pooling_type": "avg", "ksize": [3, 3],
+                    "strides": [2, 2], "paddings": [1, 1],
+                    "ceil_mode": True}),
+        "max_pool2d_with_index": ({"X": [f(2, 3, 7, 6)]},
+                                  {"ksize": [3, 3], "strides": [2, 2],
+                                   "paddings": [1, 1]}),
         "layer_norm": ({"X": [f(2, 3, 8)], "Scale": [pos(8)],
                         "Bias": [f(8)]}, {"begin_norm_axis": 2,
                                           "epsilon": 1e-12}),
