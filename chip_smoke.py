@@ -247,7 +247,35 @@ its seconds):
     over 4 samples): losses within 1e-5 relative, each parameter's
     update within ``UPDATE_RTOL`` (``update_ratios``) and each BatchNorm
     buffer within 1e-4 relative.  ``--phase 10`` builds and runs this
-    phase alone (no result line).
+    phase alone (no result line);
+11. the transformer encoders: (1) the flash forward, dQ and dK/dV with
+    an additive score bias against their plain versions with the same
+    bias at FLASH_TOL (D=64, bnsd head views of one fused QKV tensor):
+    ``vit_s197`` (B=4 H=12 S=197, no mask, bf16 and fp32),
+    ``ernie_padmask`` (B=4 H=12 S=512, a [B, 1, 1, S] float mask of 0 /
+    -1e4 with 0-256 padded keys a row, bf16 and fp32) and
+    ``decoder_mask`` (an [S, S] boolean mask at S=256, bf16) and
+    ``gqa_full`` (bsnd, H=12 over Hkv=4, a random float [B, H, S, S]
+    mask at S=256, bf16 and fp32); then the bf16 kernels at ViT-base's attention
+    (B=128 H=12 S=197) and ERNIE-3.0-base's (B=32 H=12 S=512, the pad
+    mask), held to their plain versions at FLASH_TOL there and timed by
+    CUDA events beside the plain versions, SDPA with the same float
+    ``attn_mask``
+    and the bound (rows ``flash_*_vit_bf16``, ``flash_*_ernie_bf16`` of
+    the kernels line); (2) through ``build_model_train_step`` (AdamW,
+    bf16 compute, fp32 masters, random seeded weights, STEP_WARM +
+    STEP_TIMED steps on a resident batch, one profiled): (a) ViT-base/16
+    at 224 px, 1000 classes, batch 128 (images/s, MFU by
+    ``vit_flops_per_image``), (b) ERNIE-3.0-base (vocab 40000, task
+    types, seq 512, batch 32, 76 masked; each row's real length drawn
+    from 256-512, pad id 0 after it), with step ms, MFU, peak memory,
+    busy share and 12 launches of each flash kernel a step asserted (for
+    (b) every one carrying the pad mask's bias); (c) vit_tiny and
+    ernie_3_0_micro through the generic step on the card and the CPU,
+    fp32, as (d) of phase 10; (d) ``pretrain_bert.py --model ernie`` at
+    a small size, 3 steps card vs CPU in fp32 (1e-5) and under bf16
+    ``auto_cast`` (2e-2).  ``--phase 11`` builds and runs this phase
+    alone (no result line).
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -270,7 +298,10 @@ bf16 (``flash_fwd_bert_fp32`` ...), with their launches on phase 8's
 runs (and, for bf16, under ``launches_in`` on phase 10's BERT-base step), and at GPT-760M's (phase 9's bnsd cases of phase 2) in fp32 and in
 bf16 (``flash_fwd_gpt760m_fp32`` ...), with their launches on phase 9's
 plain fp32 run and its bf16 run (and under ``launches_in`` on its other
-fp32 runs); their bounds are at the peak of the arithmetic each uses:
+fp32 runs), and at ViT-base's and ERNIE-3.0-base's attention in bf16
+(``flash_fwd_vit_bf16`` ...), with their launches on phase 11's runs (a)
+and (b) (and, for ERNIE, under ``launches_in`` on (c) and (d)); their
+bounds are at the peak of the arithmetic each uses:
 bf16 tensor cores (989 TFLOP/s), the fp32 kernels' three TF32 products
 an operation (495 / 3 TFLOP/s).
 The last line is ``{"ok": true, "device": {...}}``.
@@ -1233,10 +1264,10 @@ def _serve(np, torch, model, label, opts, n_req, motif, expected):
 def phase_serving(np, torch):
     """Every serving run; returns each kernel variant's launch count on the
     first run that reaches it, and that run's label."""
-    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+    from paddle_tpu_torch.models import GPTParams, gpt_1p3b
 
     t0 = time.perf_counter()
-    model = GPTForPretraining(gpt_1p3b(), seed=0)          # bf16 on the card
+    model = GPTParams(gpt_1p3b(), seed=0)          # bf16 on the card
     torch.cuda.synchronize()
     log(f"serving: gpt_1p3b bf16 built in {time.perf_counter() - t0:.2f} s")
     first = {}
@@ -1315,12 +1346,12 @@ def _parity_model(np, torch):
     everywhere from here on) and its 4 prompts."""
     import dataclasses
 
-    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+    from paddle_tpu_torch.models import GPTParams, gpt_1p3b
 
     # fp32 products in full fp32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = GPTForPretraining(dataclasses.replace(gpt_1p3b(), num_layers=2),
+    model = GPTParams(dataclasses.replace(gpt_1p3b(), num_layers=2),
                               seed=1, dtype=torch.float32)
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, model.cfg.vocab_size, (n,))
@@ -1536,12 +1567,12 @@ def phase_cluster(np, torch):
     seconds of run (a)'s pool.  Returns each kernel variant's launches in
     (g) and (h), and run (a)'s tokens."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+    from paddle_tpu_torch.models import GPTParams, gpt_1p3b
     from paddle_tpu_torch.serving import (ServingEngine, make_cluster,
                                           restore_engine, snapshot_engine)
 
     _exact_checks(np, torch)
-    model = GPTForPretraining(gpt_1p3b(), seed=0)          # bf16 on the card
+    model = GPTParams(gpt_1p3b(), seed=0)          # bf16 on the card
     cfg = model.cfg
     # 16 slots, one per request: every request is admitted at step 1 in
     # the engine and in the cluster's prefill replica alike, so both run
@@ -1847,12 +1878,12 @@ def _beam_parity(np, torch, model, prompts):
     """Beam search (beam 4, EOS a greedy first token) on the card against
     the same call on the CPU, held as phase 4 holds greedy runs; beam 1
     equal to greedy decoding on the card."""
-    from paddle_tpu_torch.models import (GPTForPretraining,
+    from paddle_tpu_torch.models import (GPTParams,
                                          build_beam_search_fn, generate)
 
     ids = np.stack([prompts[0], prompts[2][:17]]).astype(np.int64)
     eos = int(generate(model, ids, 1)[0, -1])
-    cpu = GPTForPretraining(model.cfg, device="cpu", dtype=torch.float32)
+    cpu = GPTParams(model.cfg, device="cpu", dtype=torch.float32)
     cpu.load_state_dict(model.state_dict())
     kw = dict(beam_size=4, eos_token_id=eos, length_penalty=1.0)
     got = build_beam_search_fn(model, 12, **kw)(ids).cpu().numpy()[:, 17:]
@@ -1883,12 +1914,12 @@ def _dropout_parity(np, torch):
     card's own generator."""
     from paddle_tpu_torch.framework import random as trand
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models import GPTConfig, GPTParams
     from paddle_tpu_torch.models.gpt import build_functional_train_step
 
     cfg = GPTConfig(**{**TRAIN_CFG, "num_layers": 2, "dropout": 0.1})
-    cpu = GPTForPretraining(cfg, device="cpu", dtype=torch.float32, seed=3)
-    card = GPTForPretraining(cfg, device="cuda", dtype=torch.float32, seed=3)
+    cpu = GPTParams(cfg, device="cpu", dtype=torch.float32, seed=3)
+    card = GPTParams(cfg, device="cuda", dtype=torch.float32, seed=3)
     card.load_state_dict(cpu.state_dict())
     names = {p.data_ptr(): n for n, p in cpu.named_parameters()}
     names = [names[p.data_ptr()] for p in cpu.leaves()]
@@ -2114,10 +2145,10 @@ def phase_frontend(np, torch, tokens_a):
     """Phase 5b: part (1) the exact checks; (2) HTTP serving of GPT-1.3B;
     (3) beam search on GPT-1.3B; (4) the int8 head's GEMM; (5) training
     run (e), run (a) of phase 6 with dropout=0.1."""
-    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+    from paddle_tpu_torch.models import GPTParams, gpt_1p3b
 
     _front_exact(np, torch)
-    model = GPTForPretraining(gpt_1p3b(), seed=0)          # bf16 on the card
+    model = GPTParams(gpt_1p3b(), seed=0)          # bf16 on the card
     _front_serving(np, torch, model, tokens_a)
     _beam_serving(np, torch, model)
     _int8_head_forward(np, torch, model)
@@ -2197,14 +2228,14 @@ def _train_parity(np, torch):
     steps.  Losses agree to 1e-4 relative, and each leaf's update to
     UPDATE_RTOL: ||card update - CPU update|| / ||CPU update|| (see
     :func:`update_ratios`)."""
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models import GPTConfig, GPTParams
     from paddle_tpu_torch.models.gpt import build_functional_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = GPTConfig(**{**TRAIN_CFG, "num_layers": 2})
-    cpu = GPTForPretraining(cfg, device="cpu", dtype=torch.float32, seed=3)
-    card = GPTForPretraining(cfg, device="cuda", dtype=torch.float32, seed=3)
+    cpu = GPTParams(cfg, device="cpu", dtype=torch.float32, seed=3)
+    card = GPTParams(cfg, device="cuda", dtype=torch.float32, seed=3)
     card.load_state_dict(cpu.state_dict())
     names = {p.data_ptr(): n for n, p in cpu.named_parameters()}
     names = [names[p.data_ptr()] for p in cpu.leaves()]
@@ -2238,13 +2269,13 @@ def _train(np, torch, label, over, remat, per_step):
     """One training run at full width: 1 warm-up and 4 timed steps on one
     seeded batch; returns the kernels' launch counts."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models import GPTConfig, GPTParams
     from paddle_tpu_torch.models.gpt import build_functional_train_step
 
     cfg = GPTConfig(**TRAIN_CFG, **over)
     carried = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    model = GPTForPretraining(cfg, seed=0)                # bf16 on the card
+    model = GPTParams(cfg, seed=0)                # bf16 on the card
     step, params, opt = build_functional_train_step(
         model, lr=1e-4, remat=remat, ce_chunk_rows=2048)
     rng = np.random.RandomState(0)
@@ -2349,7 +2380,7 @@ def _dist_step_parity(np, torch, mesh):
     ``generate``, token for token."""
     from paddle_tpu_torch.distributed import mesh as mesh_mod
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining, generate
+    from paddle_tpu_torch.models import GPTConfig, GPTParams, generate
     from paddle_tpu_torch.models.generation import build_generate_fn
     from paddle_tpu_torch.models.gpt import build_functional_train_step
 
@@ -2361,7 +2392,7 @@ def _dist_step_parity(np, torch, mesh):
     labels = torch.as_tensor(labels.astype("int64"), device="cuda")
     runs = {}
     for name in ("plain", "distributed"):
-        model = GPTForPretraining(cfg, seed=0)
+        model = GPTParams(cfg, seed=0)
         if name == "plain":
             mesh_mod.set_mesh(None)
             step, params, opt = build_functional_train_step(
@@ -2398,7 +2429,7 @@ def _dist_step_parity(np, torch, mesh):
         raise AssertionError("the one-rank distributed step differs from the "
                              "plain step")
     del pp, pd
-    model = GPTForPretraining(GPTConfig(**{**TRAIN_CFG, "num_layers": 2,
+    model = GPTParams(GPTConfig(**{**TRAIN_CFG, "num_layers": 2,
                                            "use_parallel": True}), seed=0)
     model.eval()
     prompts = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 64)),
@@ -3467,13 +3498,16 @@ def _bert_step(np, torch, card):
     return total
 
 
-def _resnet_parity(np, torch):
-    """(d): resnet18 at 32 px, batch 4, fp32, TF32 off, lr 1e-3: 3 steps
-    on the card and on the CPU, each from the CPU's state."""
+def _step_parity(np, torch, label, factory, loss, batch, tol_loss=1e-5):
+    """A model's generic step (momentum, lr 1e-3, fp32, TF32 off) for 3
+    steps on the card and on the CPU, each step from the CPU's state
+    (parameters, buffers, velocities): losses within ``tol_loss``
+    relative, each parameter's update within ``UPDATE_RTOL``
+    (``update_ratios``) and each buffer within 1e-4 relative.
+    ``factory()`` builds the model under the current seed."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.framework import unique_name
     from paddle_tpu_torch.models.step_builder import build_model_train_step
-    from paddle_tpu_torch.vision.models import resnet18
     from paddle_tpu_torch.weights import load_paddle_state_dict
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3484,19 +3518,16 @@ def _resnet_parity(np, torch):
         paddle.set_device(dev)
         with unique_name.guard():
             paddle.seed(0)
-            model = resnet18(num_classes=10)
+            model = factory()
         if state is None:
             state = {k: v.numpy() for k, v in model.state_dict().items()}
         else:
             load_paddle_state_dict(model, state)
         runs[dev] = (model, build_model_train_step(
-            model, _ce_loss, optimizer="momentum", lr=1e-3,
+            model, loss, optimizer="momentum", lr=1e-3,
             weight_decay=1e-4, compute_dtype=None))
     paddle.set_device("gpu")
     names = [n for n, _ in runs["cpu"][0].named_parameters()]
-    rng = np.random.RandomState(0)
-    batch = (rng.randn(4, 3, 32, 32).astype("float32"),
-             rng.randint(0, 10, (4, 1)).astype("int64"))
     (_, (cstep, cpar, cbuf, copt)), (_, (gstep, gpar, gbuf, gopt)) = (
         runs["cpu"], runs["gpu"])
     worst = {"loss": 0.0, "update": 0.0, "buffer": 0.0}
@@ -3507,28 +3538,46 @@ def _resnet_parity(np, torch):
         gbuf = [b.cuda() for b in cbuf]
         for g, c in zip(gopt["v"], copt["v"]):
             g.copy_(c)
+        # each step at its model's place: a forward makes tensors (the
+        # position ids) on the current one
+        paddle.set_device("cpu")
         cpar, cbuf, copt, closs = cstep(cpar, cbuf, copt, *batch)
+        paddle.set_device("gpu")
         gpar, gbuf, gopt, gloss = gstep(gpar, gbuf, gopt, *batch)
         rel = abs(float(gloss) - float(closs)) / abs(float(closs))
-        log(f"resnet18 generic step {i + 1}, card vs cpu: loss "
+        log(f"{label} generic step {i + 1}, card vs cpu: loss "
             f"{float(gloss):.7f} vs {float(closs):.7f} (rel {rel:.2e})")
         ratios = update_ratios(torch, None, names,
                                [p.cpu() for p in gpar], cpar, start)
-        bufs = max(((g.cpu() - c).norm() / c.norm()).item()
-                   for g, c in zip(gbuf, cbuf))
-        log(f"  worst BatchNorm buffer, relative: {bufs:.3e}")
+        bufs = max([((g.cpu() - c).norm() / c.norm()).item()
+                    for g, c in zip(gbuf, cbuf)], default=0.0)
+        log(f"  worst buffer, relative: {bufs:.3e}")
         worst = {"loss": max(worst["loss"], rel),
                  "update": max(worst["update"], max(ratios.values())),
                  "buffer": max(worst["buffer"], bufs)}
-    log(f"resnet18 generic step, card vs cpu over 3 steps: worst loss rel "
-        f"{worst['loss']:.3e} (tol 1e-5), update ratio {worst['update']:.3e} "
-        f"(tol {UPDATE_RTOL:g}), buffer {worst['buffer']:.3e} (tol 1e-4)")
-    if not (worst["loss"] <= 1e-5 and worst["update"] <= UPDATE_RTOL
+    log(f"{label} generic step, card vs cpu over 3 steps: worst loss rel "
+        f"{worst['loss']:.3e} (tol {tol_loss:g}), update ratio "
+        f"{worst['update']:.3e} (tol {UPDATE_RTOL:g}), buffer "
+        f"{worst['buffer']:.3e} (tol 1e-4)")
+    if not (worst["loss"] <= tol_loss and worst["update"] <= UPDATE_RTOL
             and worst["buffer"] <= 1e-4):
-        raise AssertionError("the generic step on the card disagrees with "
-                             "the CPU")
+        raise AssertionError(f"{label}'s generic step on the card disagrees "
+                             "with the CPU")
     del runs
     _free(torch)
+    return worst
+
+
+def _resnet_parity(np, torch):
+    """(d): resnet18 at 32 px, batch 4, fp32, TF32 off, lr 1e-3: 3 steps
+    on the card and on the CPU, each from the CPU's state."""
+    from paddle_tpu_torch.vision.models import resnet18
+
+    rng = np.random.RandomState(0)
+    batch = (rng.randn(4, 3, 32, 32).astype("float32"),
+             rng.randint(0, 10, (4, 1)).astype("int64"))
+    _step_parity(np, torch, "resnet18", lambda: resnet18(num_classes=10),
+                 _ce_loss, batch)
 
 
 def phase_data(np, torch, card):
@@ -3544,6 +3593,408 @@ def phase_data(np, torch, card):
     launches = _bert_step(np, torch, card)
     log(card)
     return launches
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+# the transformer encoder family through the generic step, random seeded
+# weights, bf16 compute, fp32 masters, AdamW: ViT-base/16 (224 px, 1000
+# classes, batch 128: 197 tokens) and ERNIE-3.0-base (vocab 40000, 12 x
+# 768, 12 heads, task-type embeddings, seq 512, batch 32, 76 masked; each
+# row's real length drawn from 256-512 by the seed, pad id 0 after it, so
+# that the default pad mask is the flash kernels' score bias)
+VIT = dict(arch="vit_b_16", img=224, patch=16, classes=1000, batch=128,
+           hidden=768, layers=12)
+ERNIE = dict(vocab=40000, hidden=768, layers=12, heads=12, seq=512,
+             batch=32, masked=76)
+# the biased flash cases (D=64, head views of one fused QKV tensor, as the
+# encoders hand them over): label, layout, B, H, Hkv, S, mask, dtypes; "pad"
+# is a [B, 1, 1, S] float mask of 0 / -1e4 with 0-256 padded keys a row
+# (ERNIE's), "bool" an [S, S] boolean mask (a decoder's), "full" a random
+# float [B, H, S, S] one (with GQA, seq-major as the kernels take it:
+# each query head of a KV group reads its own bias slice)
+BIAS_CASES = (
+    ("vit_s197", "bnsd", 4, 12, 12, 197, None, ("bf16", "fp32")),
+    ("ernie_padmask", "bnsd", 4, 12, 12, 512, "pad", ("bf16", "fp32")),
+    ("decoder_mask", "bnsd", 4, 12, 12, 256, "bool", ("bf16",)),
+    ("gqa_full", "bsnd", 4, 12, 4, 256, "full", ("bf16", "fp32")),
+)
+ERNIE_SMALL = ["--model", "ernie", "--hidden", "64", "--layers", "2",
+               "--heads", "2", "--vocab", "256", "--seq", "64", "--batch",
+               "4", "--masked", "8"]
+
+
+def _mask(torch, g, kind, b, s, h=1):
+    """The case's attention mask on the card (None for none)."""
+    if kind == "pad":
+        pad = torch.randint(0, 257, (b, 1), device="cuda", generator=g)
+        keep = torch.arange(s, device="cuda")[None, :] < s - pad
+        return torch.where(keep, 0.0, -1e4)[:, None, None, :]
+    if kind == "bool":
+        keep = torch.rand(s, s, device="cuda", generator=g) > 0.4
+        return keep | torch.eye(s, dtype=torch.bool, device="cuda")
+    if kind == "full":
+        return torch.randn(b, h, s, s, device="cuda", generator=g)
+    return None
+
+
+def _flash_biased(np, torch):
+    """The forward, dQ and dK/dV kernels with a score bias against their
+    plain versions with the same bias, each tensor within FLASH_TOL (the
+    backward kernels from the plain forward's out and lse)."""
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels.flash import (flash_bwd, flash_fwd_cuda,
+                                                mask_bias)
+
+    d = 64
+    for case, layout, b, h, hkv, s, kind, dts in BIAS_CASES:
+        for dt in dts:
+            dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt]
+            g = torch.Generator(device="cuda").manual_seed(s + h)
+            q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype)
+            bias = mask_bias(_mask(torch, g, kind, b, s, h), q, layout)
+            scale = 1.0 / np.sqrt(d)
+            out, lse = flash_fwd_cuda(q, k, v, False, scale, None, layout,
+                                      bias)
+            ref, rlse = flash_fwd_plain(q, k, v, False, scale, None, layout,
+                                        bias)
+            do = torch.randn(ref.shape, device="cuda", generator=g).to(dtype)
+            got = flash_bwd(q, k, v, ref, rlse, do, False, scale, None,
+                            layout, bias)
+            want = flash_bwd_plain(q, k, v, ref, rlse, do, False, scale,
+                                   None, layout, bias)
+            torch.cuda.synchronize()
+            for name, part, a, r in (("flash_fwd", "out", out, ref),
+                                     ("flash_fwd", "lse", lse, rlse),
+                                     ("flash_bwd_dq", "dq", got[0], want[0]),
+                                     ("flash_bwd_dkv", "dk", got[1], want[1]),
+                                     ("flash_bwd_dkv", "dv", got[2],
+                                      want[2])):
+                _flash_close(
+                    f"{name} {part} {case} ({layout}, B={b} H={h} Hkv={hkv} "
+                    f"S={s} D={d}, not causal, {dt}, mask {kind})", a, r,
+                    *FLASH_TOL[dt][part])
+            del q, k, v, bias, out, lse, ref, rlse, do, got, want
+    torch.cuda.empty_cache()
+
+
+def _time_flash_model(np, torch, label, b, h, s, kind):
+    """The bf16 forward, dQ and dK/dV kernels at a model's attention (D=64,
+    bnsd head views, not causal, ``kind``'s mask as the score bias): held
+    to their plain versions with the same bias within FLASH_TOL (the
+    backward kernels from the plain forward's out and lse), timed by CUDA
+    events beside the plain versions and SDPA (the same float mask as its
+    ``attn_mask``); returns their kernels-line rows
+    ``flash_*_{label}_bf16``, each with its own max abs error here."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels.flash import (flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda, flash_delta,
+                                                flash_fwd_cuda, mask_bias)
+
+    d, dtype = 64, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = _qkv_views(torch, g, "bnsd", b, h, h, s, d, dtype)
+    mask = _mask(torch, g, kind, b, s)
+    bias = mask_bias(mask, q)
+    scale = 1.0 / np.sqrt(d)
+    opts = (False, scale, None, "bnsd", bias)
+    out, lse = flash_fwd_cuda(q, k, v, *opts)
+    ref, rlse = flash_fwd_plain(q, k, v, *opts)
+    do = torch.randn(ref.shape, device="cuda", generator=g).to(dtype)
+    delta = flash_delta(ref, do, "bnsd")
+    dq = flash_bwd_dq_cuda(q, k, v, ref, rlse, delta, do, *opts)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, rlse, delta, do, *opts)
+    want = flash_bwd_plain(q, k, v, ref, rlse, do, *opts)
+    err = {}
+    for name, part, a, r in (("flash_fwd", "out", out, ref),
+                             ("flash_fwd", "lse", lse, rlse),
+                             ("flash_bwd_dq", "dq", dq, want[0]),
+                             ("flash_bwd_dkv", "dk", dk, want[1]),
+                             ("flash_bwd_dkv", "dv", dv, want[2])):
+        e = _flash_close(f"{name} {part} {label} (bnsd, B={b} H={h} S={s} "
+                         f"D={d}, not causal, bf16, mask {kind})", a, r,
+                         *FLASH_TOL["bf16"][part])
+        err[name] = max(err.get(name, 0.0), e)
+    del out, lse, dq, dk, dv, want
+    calls = {"flash_fwd": lambda: flash_fwd_cuda(q, k, v, *opts),
+             "flash_bwd_dq": lambda: flash_bwd_dq_cuda(
+                 q, k, v, ref, rlse, delta, do, *opts),
+             "flash_bwd_dkv": lambda: flash_bwd_dkv_cuda(
+                 q, k, v, rlse, delta, do, *opts)}
+    ms = {name: time_ms(fn) for name, fn in calls.items()}
+    plain_fwd = time_ms(lambda: flash_fwd_plain(q, k, v, *opts), iters=3)
+    plain_bwd = time_ms(lambda: flash_bwd_plain(q, k, v, ref, rlse, do,
+                                                *opts), iters=3)
+    am = None if mask is None else mask.to(dtype)
+    lib = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*lib, attn_mask=am)
+        torch.autograd.grad(o, lib, do)
+
+    lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=am))
+    lib_bwd = graph_ms(sdpa_fwd_bwd) - lib_fwd
+    elems = b * h * s * d * 2                    # bytes of one operand
+    rows = b * h * s * 4                         # lse or delta
+    mbytes = 0 if mask is None else b * s * 4    # the [B, 1, 1, S] bias
+    full = b * h * s * s * d                     # every query-key pair
+    work = {"flash_fwd": (4 * elems + rows + mbytes, 4 * full),
+            "flash_bwd_dq": (5 * elems + 2 * rows + mbytes, 6 * full),
+            "flash_bwd_dkv": (6 * elems + 2 * rows + mbytes, 8 * full)}
+    results = {}
+    for name, (nbytes, ops) in work.items():
+        bms, by, peak = _flash_bound("bf16", nbytes, ops)
+        fwd = name == "flash_fwd"
+        results[f"{name}_{label}_bf16"] = dict(
+            ms=ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
+            bound_ms=bms, bound_by=by,
+            library_ms=lib_fwd if fwd else lib_bwd, max_abs_err=err[name])
+        log(f"{name} {label} (bf16): B={b} H={h} S={s} D={d} bnsd not "
+            f"causal, mask {kind}: {ms[name]:.4f} ms "
+            f"({ops / ms[name] / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_fwd if fwd else plain_bwd:.4f} ms (the whole "
+            f"{'forward' if fwd else 'backward'}), sdpa "
+            f"{'forward' if fwd else 'fwd+bwd - fwd'} by graph replay "
+            f"{lib_fwd if fwd else lib_bwd:.4f} ms, bound {bms:.4f} ms "
+            f"({by}; {ops:.4g} flop at {peak}, {nbytes} bytes; "
+            f"{100 * bms / ms[name]:.1f}% of it)")
+    del q, k, v, mask, bias, ref, rlse, do, delta, lib
+    torch.cuda.empty_cache()
+    return results
+
+
+def vit_flops_per_image(c):
+    """Training flops per image, bench.py's convention (6 x the forward's
+    multiply-adds): per block and token 12 h^2 (the projections and the
+    MLP) + 2 s h (attention's two products), the patch embedding and the
+    head on the class token."""
+    h, n = c["hidden"], (c["img"] // c["patch"]) ** 2
+    s = n + 1
+    return 6.0 * (c["layers"] * s * (12.0 * h * h + 2.0 * s * h)
+                  + n * 3 * c["patch"] ** 2 * h + h * c["classes"])
+
+
+class _BiasSpy:
+    """Counts the flash launches that carry a score bias, by kernel, while
+    it is entered (a wrapper of ``flash._launch``)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.kernels import flash
+
+        self._mod, self._orig = flash, flash._launch
+        self.counts = dict.fromkeys(FLASH, 0)
+
+        def launch(name, *args, **kw):
+            bias = args[7] if len(args) > 7 else kw.get("bias")
+            if bias is not None:
+                self.counts[name] += 1
+            return self._orig(name, *args, **kw)
+
+        flash._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._launch = self._orig
+
+
+def _model_step(np, torch, card, label, model, loss, batch, tokens,
+                flops):
+    """A model through ``build_model_train_step`` (AdamW, bf16 compute) on
+    a resident batch: STEP_WARM + STEP_TIMED steps on the host clock, a
+    profiled one; asserts 12 launches of each flash kernel a step and
+    returns the run's flash launches, biased launches and numbers."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models.step_builder import build_model_train_step
+
+    step, params, bufs, opt = build_model_train_step(
+        model, loss, optimizer="adamw", lr=1e-4, weight_decay=0.01,
+        compute_dtype="bfloat16")
+    arrays = tuple(torch.as_tensor(a, device="cuda") for a in batch)
+    n = STEP_WARM + STEP_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _BiasSpy() as spy:
+        state, losses, times = _timed_steps(
+            np, torch, step, (params, bufs, opt), iter([arrays] * n))
+    total = {k: KERNELS[k] for k in FLASH}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = _profile(torch, f"{label} generic step",
+                    lambda: step(*state, *arrays))
+    step_s = float(np.mean(times[STEP_WARM:]))
+    mfu = flops / step_s / BF16_FLOPS
+    log(f"{label} generic step (AdamW, bf16; {card}): "
+        f"{1e3 * step_s:.1f} ms a step (timed "
+        f"{[round(1e3 * t, 1) for t in times[STEP_WARM:]]}, warm-up "
+        f"{[round(1e3 * t, 1) for t in times[:STEP_WARM]]}), "
+        f"{tokens / step_s:.0f} {'images' if 'ViT' in label else 'tokens'}"
+        f"/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s; max_memory_allocated "
+        f"{peak:.2f} GiB; device busy {100 * busy:.1f}% of one profiled "
+        f"step; losses {[round(x, 4) for x in losses]}; flash launches a "
+        f"step {json.dumps({k: v // n for k, v in total.items()})}, with a "
+        f"score bias {json.dumps({k: v // n for k, v in spy.counts.items()})}")
+    if total != {k: 12 * n for k in FLASH}:
+        raise AssertionError(f"{label} launched {total}, expected 12 of "
+                             f"each flash kernel a step")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}'s generic step: losses {losses}")
+    del step, params, bufs, opt, state, arrays
+    _free(torch)
+    return total, spy.counts
+
+
+def _vit_step(np, torch, card):
+    """(a): ViT-base/16 at 224 px through the generic step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import models
+
+    c = VIT
+    paddle.seed(0)
+    model = getattr(models, c["arch"])(num_classes=c["classes"],
+                                       img_size=c["img"])
+    rng = np.random.RandomState(0)
+    batch = (rng.rand(c["batch"], 3, c["img"], c["img"]).astype("float32"),
+             rng.randint(0, c["classes"], (c["batch"], 1)))
+    total, biased = _model_step(np, torch, card, "ViT-base/16", model,
+                                _ce_loss, batch, c["batch"],
+                                c["batch"] * vit_flops_per_image(c))
+    if any(biased.values()):
+        raise AssertionError(f"ViT-base launched biased kernels: {biased}")
+    del model
+    return total
+
+
+def _ernie_batch(np, c, seed=0):
+    """ids whose rows have a real length drawn from [seq / 2, seq] and pad
+    id 0 after it, token types, masked positions among the real tokens,
+    their labels and the sentence-order labels."""
+    rng = np.random.RandomState(seed)
+    b, s, m = c["batch"], c["seq"], c["masked"]
+    lens = rng.randint(s // 2, s + 1, b)
+    ids = rng.randint(1, c["vocab"], (b, s)).astype("int64")
+    ids[np.arange(s)[None, :] >= lens[:, None]] = 0
+    tt = (rng.rand(b, s) > 0.5).astype("int64")
+    pos = np.stack([rng.choice(n, m, replace=False) + i * s
+                    for i, n in enumerate(lens)]).astype("int64")
+    mlm = ids.reshape(-1)[pos.reshape(-1)]
+    sop = rng.randint(0, 2, (b, 1)).astype("int64")
+    return (ids, tt, pos, mlm, sop), lens
+
+
+def _ernie_loss(m, ids, token_type, pos, mlm_labels, sop_labels):
+    from paddle_tpu_torch.models import ErniePretrainingCriterion
+
+    mlm_logits, sop_logits = m(ids, token_type, masked_positions=pos)
+    return ErniePretrainingCriterion()(
+        mlm_logits, sop_logits, mlm_labels, sop_labels,
+        masked_lm_scale=float(int(pos.shape[0]) * int(pos.shape[1])))
+
+
+def _ernie_step(np, torch, card):
+    """(b): ERNIE-3.0-base through the generic step; every flash launch
+    carries the pad mask's bias."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_0_base
+
+    c = ERNIE
+    paddle.seed(0)
+    model = ErnieForPretraining(ernie_3_0_base(
+        vocab_size=c["vocab"], max_seq_len=c["seq"], dropout=0.0))
+    batch, lens = _ernie_batch(np, c)
+    log(f"ERNIE-3.0-base batch: real lengths {lens.tolist()} of "
+        f"{c['seq']} ({100 * (1 - lens.sum() / lens.size / c['seq']):.1f}% "
+        "pad tokens)")
+    tokens = c["batch"] * c["seq"]
+    fpt = bert_flops_per_token(c["hidden"], c["layers"], c["seq"],
+                               c["vocab"], c["masked"] / c["seq"])
+    total, biased = _model_step(np, torch, card, "ERNIE-3.0-base", model,
+                                _ernie_loss, batch, tokens, tokens * fpt)
+    if biased != total:
+        raise AssertionError(f"ERNIE-3.0-base: {biased} of {total} flash "
+                             "launches carried the pad mask's bias")
+    del model
+    return total
+
+
+def _small_parity(np, torch):
+    """(c): vit_tiny and ernie_3_0_micro (pad tails) through the generic
+    step on the card and the CPU, fp32; returns ERNIE's flash launches on
+    the card."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_0_micro
+    from paddle_tpu_torch.vision.models import vit_tiny
+
+    rng = np.random.RandomState(1)
+    images = (rng.randn(4, 3, 32, 32).astype("float32"),
+              rng.randint(0, 10, (4, 1)).astype("int64"))
+    _step_parity(np, torch, "vit_tiny", vit_tiny, _ce_loss, images)
+    c = dict(vocab=1000, batch=4, seq=64, masked=8)
+    batch, _ = _ernie_batch(np, c, seed=1)
+    reset_launch_counts()
+    _step_parity(np, torch, "ernie_3_0_micro", lambda: ErnieForPretraining(
+        ernie_3_0_micro(vocab_size=c["vocab"], max_seq_len=c["seq"])),
+        _ernie_loss, batch)
+    return {k: KERNELS[k] for k in FLASH}
+
+
+def _ernie_example(np, torch):
+    """(d): ``pretrain_bert.py --model ernie`` at a small size, 3 steps on
+    the card and on the CPU from the same weights, fp32 (losses within
+    1e-5 relative: the fp32 kernels with the pad mask's bias) and under
+    ``amp.auto_cast()`` (bf16, within 2e-2); returns the card's flash
+    launches by dtype."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for amp, dt, tol in ((False, "fp32", 1e-5), (True, "bf16", 2e-2)):
+        init, cpu, _, _, _ = _bert_run(np, torch, ERNIE_SMALL, 3, amp=amp,
+                                       device="cpu")
+        _, card, _, launches, _ = _bert_run(np, torch, ERNIE_SMALL, 3,
+                                            amp=amp, state=init)
+        _free(torch)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        log(f"pretrain_bert --model ernie ({dt}), card vs cpu: losses card "
+            f"{card} cpu {cpu}, rel err {rel:.3e} (tol {tol:g}); launches "
+            f"{json.dumps(launches)}")
+        if not rel <= tol:
+            raise AssertionError(f"the ERNIE example ({dt}) on the card "
+                                 "disagrees with the CPU")
+        if launches != {k: 3 * 2 for k in FLASH}:
+            raise AssertionError(f"the ERNIE example launched {launches}")
+        out[dt] = launches
+    return out
+
+
+def phase_transformers(np, torch, card):
+    """Phase 11: the biased flash kernels against their plain versions,
+    timed at ViT-base's and ERNIE-3.0-base's attention; ViT-base and
+    ERNIE-3.0-base at full width through ``build_model_train_step``;
+    vit_tiny and ernie_3_0_micro card vs CPU; the ERNIE example card vs
+    CPU.  Returns the kernels-line rows and each row's launches."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    _flash_biased(np, torch)
+    rows = _time_flash_model(np, torch, "vit", VIT["batch"], 12, 197, None)
+    rows.update(_time_flash_model(np, torch, "ernie", ERNIE["batch"], 12,
+                                  ERNIE["seq"], "pad"))
+    vit = _vit_step(np, torch, card)
+    ernie = _ernie_step(np, torch, card)
+    small = _small_parity(np, torch)
+    example = _ernie_example(np, torch)
+    launches = {"vit": ("phase 11 (a) ViT-base/16 generic step bf16", vit,
+                        {}),
+                "ernie": ("phase 11 (b) ERNIE-3.0-base generic step bf16",
+                          ernie, {
+                              "phase 11 (c) ernie_3_0_micro fp32": small,
+                              "phase 11 (d) pretrain_bert --model ernie "
+                              "fp32": example["fp32"],
+                              "phase 11 (d) pretrain_bert --model ernie "
+                              "bf16": example["bf16"]})}
+    log(card)
+    return rows, launches
 
 
 def main():
@@ -3596,6 +4047,12 @@ def main():
         phase_data(np, torch, card)
         done("10 data and the generic step")
         return 0
+    if sys.argv[1:] == ["--phase", "11"]:
+        # phase 11 alone, for work on the transformer encoders and the
+        # biased flash kernels: no result line
+        phase_transformers(np, torch, card)
+        done("11 the transformer encoders")
+        return 0
     kernels = phase_paged(np, torch)
     kernels.update(phase_gemm(np, torch))
     kernels.update(phase_flash(np, torch))
@@ -3618,7 +4075,10 @@ def main():
     done("9 fleet")
     step_launches = phase_data(np, torch, card)
     done("10 data and the generic step")
+    encoder_kernels, encoder_runs = phase_transformers(np, torch, card)
+    done("11 the transformer encoders")
     kernels.update(bert_kernels)
+    kernels.update(encoder_kernels)
     line = []
     for name, k in kernels.items():
         src = name.split("_int")[0]
@@ -3630,7 +4090,19 @@ def main():
                     "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"}.get(
             src, f"paddle_tpu/kernels/paged_attention.py:{entry.get(src)}")
         more = {run: c[name] for run, c in cluster.items() if name in c}
-        if "_bert_" in name or "_gpt760m_" in name:
+        model = next((m for m in encoder_runs if f"_{m}_" in name), None)
+        if model is not None:
+            base = name.split(f"_{model}_")[0]
+            run, counts, others = encoder_runs[model]
+            n = counts[base]
+            more = {r: c[base] for r, c in others.items()}
+            src = "flash_fwd" if base == "flash_fwd" else "flash_bwd"
+            replaces = {"flash_fwd": "paddle_tpu/kernels/flash.py:74",
+                        "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
+                        "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"
+                        }[base]
+            log(f"{name}: {n} launches on the {run} run")
+        elif "_bert_" in name or "_gpt760m_" in name:
             base, dt = name.split("_bert_" if "_bert_" in name
                                   else "_gpt760m_")
             if "_bert_" in name:

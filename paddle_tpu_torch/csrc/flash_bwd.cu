@@ -107,7 +107,7 @@ struct DqTile {
   static constexpr size_t SMEM = (2 * Q_ELEMS + size_t(STAGES) * 2 * KV_ELEMS) * ELT;
 };
 
-template <typename C>
+template <typename C, bool BIAS>
 __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
   constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -121,6 +121,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
   const int d0 = (warp / C::RW) * C::DW;
   const bf16* kb = slice<const bf16>(a.k, b, kvh);
   const bf16* vb = slice<const bf16>(a.v, b, kvh);
+  [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, h) : nullptr;
   int lo, hi;
   k_tiles(a, qt, &lo, &hi);
 
@@ -191,11 +192,20 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
     // element e: query row g + (e / 2) * 8, key column 2t + (e % 2) of
     // tile n.  Masks only where the warp's tile crosses an edge.
     const bool edge = !all_visible(a, r0, 16, k0, BK);
+    [[maybe_unused]] float bv[C::NS][4];
+    if constexpr (BIAS)
+      load_bias<C::NS>(bv, a, edge, [&](int n, int e, int* qi, int* kj) {
+        *qi = r0 + (lane >> 2) + (e >> 1) * 8;
+        *kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        return bs;
+      });
 #pragma unroll
     for (int n = 0; n < C::NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[n][e] * scale2 - lse2[e >> 1]);
+        float x = s[n][e] * scale2;
+        if constexpr (BIAS) x += kLog2e * bv[n][e];
+        float p = exp2f(x - lse2[e >> 1]);
         if (edge && !visible(a, r0 + (lane >> 2) + (e >> 1) * 8, k0 + n * 8 + 2 * (lane & 3) + (e & 1)))
           p = 0.f;
         dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * a.scale;
@@ -261,7 +271,7 @@ struct DkvTile {
   static constexpr size_t SMEM = 2 * KV_ELEMS * ELT + STAGES * STAGE_BYTES;
 };
 
-template <typename C>
+template <typename C, bool BIAS>
 __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
   constexpr int LD = C::LD, BQ = C::BQ, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -315,6 +325,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
     cp_async_commit();
     const int q0 = (lo + t % nq) * BQ;
     if (none_visible(a, q0, BQ, kr0, 16)) continue;
+    [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, kvh * a.G + t / nq) : nullptr;
     const unsigned char* st = ring + size_t(t % STAGES) * C::STAGE_BYTES;
     const bf16* sq = reinterpret_cast<const bf16*>(st);
     const bf16* sdo = sq + C::Q_ELEMS;
@@ -348,14 +359,24 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
     // column 2t + (e % 2) of tile n.  Masks only where the warp's tile
     // crosses an edge.
     const bool edge = !all_visible(a, q0, BQ, kr0, 16);
+    [[maybe_unused]] float bv[C::NS][4];
+    if constexpr (BIAS)
+      load_bias<C::NS>(bv, a, edge, [&](int n, int e, int* qi, int* kj) {
+        *qi = q0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        *kj = kr0 + (lane >> 2) + (e >> 1) * 8;
+        return bs;
+      });
 #pragma unroll
     for (int n = 0; n < C::NS; ++n) {
       const int c = n * 8 + 2 * (lane & 3);
       const float2 ls = *reinterpret_cast<const float2*>(slse + c);
       const float2 de = *reinterpret_cast<const float2*>(sdelta + c);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = expf(s[n][e] * a.scale - ((e & 1) ? ls.y : ls.x));
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * a.scale;
+        if constexpr (BIAS) x += bv[n][e];
+        s[n][e] = expf(x - ((e & 1) ? ls.y : ls.x));
+      }
       if (edge) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -476,7 +497,7 @@ __device__ __forceinline__ void heavy_dp64(float (&d)[NS][4], uint32_t heavy, in
 }
 
 // dQ, fp32: flash_bwd_dq_bf16's walk with fp32 tiles and 3xTF32 products.
-template <typename C>
+template <typename C, bool BIAS>
 __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
   constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -490,6 +511,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
   const int d0 = (warp / C::RW) * C::DW;
   const float* kb = slice<const float>(a.k, b, kvh);
   const float* vb = slice<const float>(a.v, b, kvh);
+  [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, h) : nullptr;
   int lo, hi;
   k_tiles(a, qt, &lo, &hi);
 
@@ -554,13 +576,22 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
     // element e: query row g + (e / 2) * 8, key column 2t + (e % 2) of
     // tile n.  Masks only where the warp's tile crosses an edge.
     const bool edge = !all_visible(a, r0, 16, k0, BK);
+    [[maybe_unused]] float bv[C::NS][4];
+    if constexpr (BIAS)
+      load_bias<C::NS>(bv, a, edge, [&](int n, int e, int* qi, int* kj) {
+        *qi = r0 + (lane >> 2) + (e >> 1) * 8;
+        *kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        return bs;
+      });
     uint32_t heavy = 0;
 #pragma unroll
     for (int n = 0; n < C::NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = (lane >> 2) + (e >> 1) * 8, c = n * 8 + 2 * (lane & 3) + (e & 1);
-        float p = expf(s[n][e] * a.scale - lse[e >> 1]);
+        float x = s[n][e] * a.scale;
+        if constexpr (BIAS) x += bv[n][e];
+        float p = expf(x - lse[e >> 1]);
         if (edge && !visible(a, r0 + r, k0 + c)) p = 0.f;
         s[n][e] = p;
         dp[n][e] = (dp[n][e] - dl[e >> 1].x) - dl[e >> 1].y;
@@ -606,7 +637,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
 
 // dK/dV, fp32: flash_bwd_dkv_bf16's walk with fp32 tiles and 3xTF32
 // products; P^T stays fp32 for dV += P^T.dO.
-template <typename C>
+template <typename C, bool BIAS>
 __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
   constexpr int LD = C::LD, BQ = C::BQ, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -661,6 +692,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
     cp_async_commit();
     const int q0 = (lo + t % nq) * BQ;
     if (none_visible(a, q0, BQ, kr0, 16)) continue;
+    [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, kvh * a.G + t / nq) : nullptr;
     const float* sq = reinterpret_cast<const float*>(ring + size_t(t % STAGES) * C::STAGE_BYTES);
     const float* sdo = sq + C::Q_ELEMS;
     const float* slse = sdo + C::Q_ELEMS;
@@ -687,6 +719,13 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
     // column 2t + (e % 2) of tile n.  Masks only where the warp's tile
     // crosses an edge.
     const bool edge = !all_visible(a, q0, BQ, kr0, 16);
+    [[maybe_unused]] float bv[C::NS][4];
+    if constexpr (BIAS)
+      load_bias<C::NS>(bv, a, edge, [&](int n, int e, int* qi, int* kj) {
+        *qi = q0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        *kj = kr0 + (lane >> 2) + (e >> 1) * 8;
+        return bs;
+      });
     uint32_t heavy = 0;
 #pragma unroll
     for (int n = 0; n < C::NS; ++n) {
@@ -694,8 +733,11 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
       const float2 ls = *reinterpret_cast<const float2*>(slse + c);
       const float4 de = *reinterpret_cast<const float4*>(sdelta + c);  // hi, lo of c, c + 1
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = expf(s[n][e] * a.scale - ((e & 1) ? ls.y : ls.x));
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * a.scale;
+        if constexpr (BIAS) x += bv[n][e];
+        s[n][e] = expf(x - ((e & 1) ? ls.y : ls.x));
+      }
       if (edge) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -754,8 +796,11 @@ cudaError_t dq_launch(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
   const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
-  if constexpr (C::ELT == 2) return launch(flash_bwd_dq_bf16<C>, grid, C::NT, C::SMEM, st, a);
-  else return launch(flash_bwd_dq_fp32<C>, grid, C::NT, C::SMEM, st, a);
+  return with_bias(a, [&](auto bias) {
+    constexpr bool B = decltype(bias)::value;
+    if constexpr (C::ELT == 2) return launch(flash_bwd_dq_bf16<C, B>, grid, C::NT, C::SMEM, st, a);
+    else return launch(flash_bwd_dq_fp32<C, B>, grid, C::NT, C::SMEM, st, a);
+  });
 }
 
 // The dQ tiles by dtype (0 fp32, 1 bf16) and padded head dim (warps,
@@ -785,8 +830,11 @@ cudaError_t dkv_launch(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
   const dim3 grid((a.S + C::BK - 1) / C::BK, a.H / a.G, a.B);
-  if constexpr (C::ELT == 2) return launch(flash_bwd_dkv_bf16<C>, grid, C::NT, C::SMEM, st, a);
-  else return launch(flash_bwd_dkv_fp32<C>, grid, C::NT, C::SMEM, st, a);
+  return with_bias(a, [&](auto bias) {
+    constexpr bool B = decltype(bias)::value;
+    if constexpr (C::ELT == 2) return launch(flash_bwd_dkv_bf16<C, B>, grid, C::NT, C::SMEM, st, a);
+    else return launch(flash_bwd_dkv_fp32<C, B>, grid, C::NT, C::SMEM, st, a);
+  });
 }
 
 // The dK/dV tiles by dtype and padded head dim (warps, warps per 16 key
@@ -811,9 +859,10 @@ cudaError_t dkv_tiles(int dtype, int D, F&& f) {
 }
 
 inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
-                     const long long* strides, int B, int H, int Hkv, int S,
-                     int D, float scale, int causal, int window, int dtype,
-                     void* stream, bool dkv) {
+                     const long long* strides, const void* bias,
+                     const long long* bias_strides, int B, int H, int Hkv,
+                     int S, int D, float scale, int causal, int window,
+                     int dtype, void* stream, bool dkv) {
   Args a{};
   const int elt = dtype == 1 ? 2 : 4;
   if ((dtype != 0 && dtype != 1) ||
@@ -821,6 +870,7 @@ inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
                  elt))
     return int(cudaErrorInvalidValue);
   a.lse = static_cast<float*>(const_cast<void*>(lse));
+  set_bias(&a, bias, bias_strides);
   if (dtype == 0)
     a.delta2 = static_cast<const float2*>(delta);
   else
@@ -838,19 +888,20 @@ inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
 // rowsum(dO * O): (B * H, S) fp32 for bf16 inputs, and for fp32 inputs
 // (B * H, S, 2) fp32, the fp64 sum as hi + lo.  dq: q's view.  out (the
 // forward's output) is read by neither kernel; it stays in the
-// interface.  dtype: 0 fp32, 1 bf16.  Returns the CUDA error code of the
-// launch.
+// interface.  bias, bias_strides: as flash_fwd's.  dtype: 0 fp32, 1 bf16.
+// Returns the CUDA error code of the launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* out, const void* dout, const void* lse,
                             const void* delta, void* dq,
-                            const long long* strides, int B, int H, int Hkv,
+                            const long long* strides, const void* bias,
+                            const long long* bias_strides, int B, int H, int Hkv,
                             int S, int D, float scale, int causal, int window,
                             int dtype, void* stream) {
   void* ptrs[8] = {const_cast<void*>(q), const_cast<void*>(k),
                    const_cast<void*>(v), const_cast<void*>(out),
                    const_cast<void*>(dout), dq, nullptr, nullptr};
-  return fa::bwd_entry(ptrs, lse, delta, strides, B, H, Hkv, S, D, scale,
-                       causal, window, dtype, stream, false);
+  return fa::bwd_entry(ptrs, lse, delta, strides, bias, bias_strides, B, H,
+                       Hkv, S, D, scale, causal, window, dtype, stream, false);
 }
 
 // As flash_bwd_dq without out, with the strides of q, k, v, dout, dk, dv;
@@ -858,14 +909,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv,
-                             const long long* strides, int B, int H, int Hkv,
+                             const long long* strides, const void* bias,
+                             const long long* bias_strides, int B, int H, int Hkv,
                              int S, int D, float scale, int causal,
                              int window, int dtype, void* stream) {
   void* ptrs[8] = {const_cast<void*>(q), const_cast<void*>(k),
                    const_cast<void*>(v), nullptr, const_cast<void*>(dout),
                    nullptr, dk, dv};
-  return fa::bwd_entry(ptrs, lse, delta, strides, B, H, Hkv, S, D, scale,
-                       causal, window, dtype, stream, true);
+  return fa::bwd_entry(ptrs, lse, delta, strides, bias, bias_strides, B, H,
+                       Hkv, S, D, scale, causal, window, dtype, stream, true);
 }
 
 // The dynamic shared memory, in bytes, that the dQ (dkv 0) or dK/dV (dkv

@@ -24,6 +24,19 @@
 // window) has its scaled score replaced by -1e30 before the running max;
 // in the backward its probability is 0.
 //
+// An additive fp32 score bias (the reference's float attention mask, or a
+// boolean one turned into 0 / -1e9 by the wrapper) is one more operand,
+// read as bias[b * bias_b + h * bias_h + qi * bias_q + kj * bias_k] with
+// element strides in which 0 broadcasts a dimension: a [B, 1, 1, S] pad
+// mask, an [S, S] decoder mask and a full [B, H, S, S] mask are each read
+// in place.  It is added to the scaled score of every visible position
+// before the running max, and again where the backward recomputes p from
+// lse (so that lse, which holds it, cancels it).  Each kernel is a template
+// over BIAS: the instantiation without one reads nothing more and compiles
+// to the same code as without the operand.  Its values come from global
+// memory through the read-only path: a pad mask is one row of S floats a
+// batch, which every query tile reads again from L1 / L2.
+//
 // Bound on this card: at the training shape (B*H = 144, S = 1024, D = 128,
 // causal) the work is 4 (forward), 6 (dQ) and 8 (dK/dV) x B*H*S^2*D/2
 // flops against 4-6 operands of B*H*S*D bf16 values.  By the card's rates
@@ -70,6 +83,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 
 namespace fa {
 
@@ -100,11 +115,29 @@ struct Args {
   int BQ, BK;           // query and key rows per tile
   float scale;
   int causal, window;   // window <= 0: none
+  const float* bias;    // additive score bias (fp32), or null
+  long long bias_b, bias_h, bias_q, bias_k;  // its element strides; 0 broadcasts
 };
 
 template <typename T>
 __device__ __forceinline__ T* slice(const Operand& o, int b, int h) {
   return static_cast<T*>(o.ptr) + b * o.b + h * o.h;
+}
+
+// The bias of query head h of batch b: add qi * bias_q + kj * bias_k.
+__device__ __forceinline__ const float* bias_slice(const Args& a, int b, int h) {
+  return a.bias + b * a.bias_b + h * a.bias_h;
+}
+
+// The bias of (qi, kj) in base 2 (times log2(e)), for the kernels that
+// keep their scores in base 2.
+__device__ __forceinline__ float bias2(const Args& a, const float* bs, int qi, int kj) {
+  return kLog2e * __ldg(bs + qi * a.bias_q + kj * a.bias_k);
+}
+
+// The bias of (qi, kj), base e.
+__device__ __forceinline__ float bias_e(const Args& a, const float* bs, int qi, int kj) {
+  return __ldg(bs + qi * a.bias_q + kj * a.bias_k);
 }
 
 // Leading dimension of a tile of `cols` values of `elt` bytes: one 16-byte
@@ -117,6 +150,36 @@ __device__ __forceinline__ bool visible(const Args& a, int qi, int kj) {
   if (qi >= a.S || kj >= a.S) return false;
   if (!a.causal) return true;
   return kj <= qi && (a.window <= 0 || kj > qi - a.window);
+}
+
+// The bias (base e) of a warp's accumulator tile of NS n8 tiles into
+// bv: pos(n, e, &qi, &kj) names element (n, e)'s query and key and
+// returns the slice to read.  Off an edge every element is read without
+// a test, so the loads issue together and their latency is paid once a
+// tile; on an edge a position that is not visible (past row S among
+// them) reads nothing and gets 0, its probability being masked anyway.
+template <int NS, typename P>
+__device__ __forceinline__ void load_bias(float (&bv)[NS][4], const Args& a, bool edge,
+                                          P&& pos) {
+  if (!edge) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int qi, kj;
+        const float* bs = pos(n, e, &qi, &kj);
+        bv[n][e] = bias_e(a, bs, qi, kj);
+      }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int qi, kj;
+        const float* bs = pos(n, e, &qi, &kj);
+        bv[n][e] = visible(a, qi, kj) ? bias_e(a, bs, qi, kj) : 0.f;
+      }
+  }
 }
 
 // The k-tiles [lo, hi) that hold a position visible to some row of query
@@ -185,6 +248,26 @@ inline bool make_args(Args* a, void* const ptrs[8], const long long* strides,
   a->causal = causal;
   a->window = causal ? window : 0;
   return true;
+}
+
+// The bias operand of the C entry points: null, or a pointer with its four
+// element strides (b, h, q, k).
+inline void set_bias(Args* a, const void* bias, const long long* strides) {
+  a->bias = static_cast<const float*>(bias);
+  if (bias) {
+    a->bias_b = strides[0];
+    a->bias_h = strides[1];
+    a->bias_q = strides[2];
+    a->bias_k = strides[3];
+  }
+}
+
+// Launch `f(std::bool_constant<BIAS>)` with BIAS = whether the launch has a
+// score bias: the two instantiations of each kernel.
+template <typename F>
+inline cudaError_t with_bias(const Args& a, F&& f) {
+  if (a.bias) return f(std::true_type{});
+  return f(std::false_type{});
 }
 
 // -- register-fragment toolkit of the bf16 kernels ---------------------------

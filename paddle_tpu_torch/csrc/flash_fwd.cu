@@ -79,7 +79,7 @@ struct FwdTile {
   static constexpr size_t SMEM = Q_BYTES + size_t(STAGES) * 2 * KV_ELEMS * 2;
 };
 
-template <typename C>
+template <typename C, bool BIAS>
 __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
   constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -91,6 +91,7 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
   const int q0 = qt * C::BQ, wr = warp * 16, r0 = q0 + wr;
   const bf16* kb = slice<const bf16>(a.k, b, kvh);
   const bf16* vb = slice<const bf16>(a.v, b, kvh);
+  [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, h) : nullptr;
   int lo, hi;
   k_tiles(a, qt, &lo, &hi);
 
@@ -123,6 +124,15 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
     if (none_visible(a, r0, 16, k0, BK)) continue;
     const bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
     const bf16* sv = sk + C::KV_ELEMS;
+    const bool edge = !all_visible(a, r0, 16, k0, BK);
+    // the tile's bias, its loads in flight during the product below
+    [[maybe_unused]] float bv[C::NS][4];
+    if constexpr (BIAS)
+      load_bias<C::NS>(bv, a, edge, [&](int n, int e, int* qi, int* kj) {
+        *qi = r0 + (lane >> 2) + (e >> 1) * 8;
+        *kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        return bs;
+      });
 
     // S = Q.K^T
     float s[C::NS][4];
@@ -141,20 +151,27 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
       }
     }
 
-    // scale (to base 2), and mask only where the warp's tile crosses an edge
-    if (all_visible(a, r0, 16, k0, BK)) {
+    // scale (to base 2), add the bias, and mask only where the warp's
+    // tile crosses an edge
+    if (!edge) {
 #pragma unroll
       for (int n = 0; n < C::NS; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] *= scale2;
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] *= scale2;
+          if constexpr (BIAS) s[n][e] += kLog2e * bv[n][e];
+        }
     } else {
 #pragma unroll
       for (int n = 0; n < C::NS; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = visible(a, r0 + (lane >> 2) + (e >> 1) * 8, k0 + n * 8 + 2 * (lane & 3) + (e & 1))
-                        ? s[n][e] * scale2
-                        : kNegInf;
+        for (int e = 0; e < 4; ++e) {
+          const int qi = r0 + (lane >> 2) + (e >> 1) * 8, kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+          if constexpr (BIAS)
+            s[n][e] = visible(a, qi, kj) ? s[n][e] * scale2 + kLog2e * bv[n][e] : kNegInf;
+          else
+            s[n][e] = visible(a, qi, kj) ? s[n][e] * scale2 : kNegInf;
+        }
     }
 
     // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
@@ -258,7 +275,7 @@ struct FwdTile32 {
 // thread, and the dispatch's tiles ran as fast or faster so on an H100
 // than with the count ptxas picks without it, or with room left for 3-4
 // blocks an SM.
-template <typename C>
+template <typename C, bool BIAS>
 __global__ void __launch_bounds__(C::NT, 1) flash_fwd_fp32(Args a) {
   constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES, MW = C::MW;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -272,6 +289,7 @@ __global__ void __launch_bounds__(C::NT, 1) flash_fwd_fp32(Args a) {
   const int q0 = qt * C::BQ, wr = warp * C::WR, r0 = q0 + wr;
   const float* kb = slice<const float>(a.k, b, kvh);
   const float* vb = slice<const float>(a.v, b, kvh);
+  [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, h) : nullptr;
   int lo, hi;
   k_tiles(a, qt, &lo, &hi);
 
@@ -358,20 +376,29 @@ __global__ void __launch_bounds__(C::NT, 1) flash_fwd_fp32(Args a) {
 #pragma unroll
     for (int i = 0; i < MW; ++i) {
       const int ri = r0 + 16 * i;
-      // scale (to base 2), and mask only where the m16 tile crosses an edge
+      // scale (to base 2), add the bias, and mask only where the m16 tile
+      // crosses an edge
       if (all_visible(a, ri, 16, k0, BK)) {
 #pragma unroll
         for (int n = 0; n < C::NS; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[i][n][e] *= scale2;
+          for (int e = 0; e < 4; ++e) {
+            s[i][n][e] *= scale2;
+            if constexpr (BIAS)
+              s[i][n][e] += bias2(a, bs, ri + (lane >> 2) + (e >> 1) * 8,
+                                  k0 + n * 8 + 2 * (lane & 3) + (e & 1));
+          }
       } else {
 #pragma unroll
         for (int n = 0; n < C::NS; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[i][n][e] = visible(a, ri + (lane >> 2) + (e >> 1) * 8, k0 + n * 8 + 2 * (lane & 3) + (e & 1))
-                             ? s[i][n][e] * scale2
-                             : kNegInf;
+          for (int e = 0; e < 4; ++e) {
+            const int qi = ri + (lane >> 2) + (e >> 1) * 8, kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+            if constexpr (BIAS)
+              s[i][n][e] = visible(a, qi, kj) ? s[i][n][e] * scale2 + bias2(a, bs, qi, kj) : kNegInf;
+            else
+              s[i][n][e] = visible(a, qi, kj) ? s[i][n][e] * scale2 : kNegInf;
+          }
       }
 
       // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
@@ -450,7 +477,9 @@ cudaError_t fwd_fp32(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
   const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
-  return launch(flash_fwd_fp32<C>, grid, C::NT, C::SMEM, st, a);
+  return with_bias(a, [&](auto bias) {
+    return launch(flash_fwd_fp32<C, decltype(bias)::value>, grid, C::NT, C::SMEM, st, a);
+  });
 }
 
 // The tiles by padded head dim (warps, m16 tiles a warp, K/V rows, Q
@@ -469,7 +498,9 @@ cudaError_t fwd_bf16(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
   const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
-  return launch(flash_fwd_bf16<C>, grid, C::NT, C::SMEM, st, a);
+  return with_bias(a, [&](auto bias) {
+    return launch(flash_fwd_bf16<C, decltype(bias)::value>, grid, C::NT, C::SMEM, st, a);
+  });
 }
 
 // The tiles by padded head dim: 64-row K/V tiles up to D = 64, 32-row
@@ -485,10 +516,13 @@ cudaError_t fwd_bf16(Args a, cudaStream_t st) {
 
 // q, k, v: [B, S, H(kv), D] views given by `strides` (b, s, h of q, k, v,
 // out in that order; d contiguous; every stride and D a multiple of one
-// 16-byte vector).  out: q's view; lse: (B * H, S) fp32.  window <= 0:
-// none.  dtype: 0 fp32, 1 bf16.  Returns the CUDA error code of the launch.
+// 16-byte vector).  out: q's view; lse: (B * H, S) fp32.  bias: null, or
+// an fp32 score bias of [B, H, S, S] read through bias_strides (b, h, q,
+// k; 0 broadcasts).  window <= 0: none.  dtype: 0 fp32, 1 bf16.  Returns
+// the CUDA error code of the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, const long long* strides,
+                         const void* bias, const long long* bias_strides,
                          int B, int H, int Hkv, int S, int D, float scale,
                          int causal, int window, int dtype, void* stream) {
   void* ptrs[8] = {const_cast<void*>(q), const_cast<void*>(k),
@@ -501,6 +535,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                      window, elt))
     return int(cudaErrorInvalidValue);
   a.lse = static_cast<float*>(lse);
+  fa::set_bias(&a, bias, bias_strides);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return int(dtype == 1 ? fa::fwd_bf16(a, st) : fa::fwd_fp32(a, st));
 }

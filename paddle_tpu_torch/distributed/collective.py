@@ -156,8 +156,11 @@ def get_world_size():
     return dist_env.get_world_size()
 
 
-def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
-    """In place over ``group``; returns ``tensor``."""
+def all_reduce(tensor, op=ReduceOp.SUM, group=None, use_calc_stream=True,
+               sync_op=True):
+    """In place over ``group``; returns ``tensor``.  ``use_calc_stream``
+    and ``sync_op`` are the reference's: the collective runs on the
+    current stream and is complete for every later op on it."""
     dist.all_reduce(tensor, op=_OPS[op], group=_pg(group))
     return tensor
 

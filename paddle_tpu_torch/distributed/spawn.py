@@ -8,7 +8,9 @@ children start from a fresh interpreter (``spawn`` start method) and
 import the module that defines it.  :meth:`MultiprocessContext.join`
 waits for all ranks at once and terminates the pool when the first one
 fails, so a rank blocked in a collective with a dead peer cannot hang the
-caller; ``timeout`` bounds the wait.
+caller; ``options["timeout"]`` bounds the wait.  ``nprocs=-1`` (the
+default, as the reference's) starts one rank per local device: one per
+CUDA card, or one without a card.
 """
 
 from __future__ import annotations
@@ -76,16 +78,22 @@ def _worker(func, args, env, error_queue):
         raise
 
 
-def spawn(func, args: Sequence = (), nprocs: int = 1, join: bool = True,
-          daemon: bool = False, timeout: Optional[float] = None, **options):
-    """Start ``nprocs`` ranks of ``func(*args)``; returns the
-    :class:`MultiprocessContext`.  With ``join`` it waits for them: at
-    most ``timeout`` seconds, after which it terminates every rank and
-    raises TimeoutError.  ``options``: ``master_port`` (default a free
-    port), ``env`` (more environment for every rank), ``start_method``
-    (default "spawn")."""
+def spawn(func, args: Sequence = (), nprocs: int = -1, join: bool = True,
+          daemon: bool = False, **options):
+    """Start ``nprocs`` ranks of ``func(*args)`` (-1: one per local
+    device, ``torch.cuda.device_count()`` or 1 without a card); returns
+    the :class:`MultiprocessContext`.  With ``join`` it waits for them: at
+    most ``options["timeout"]`` seconds (None: no limit), after which it
+    terminates every rank and raises TimeoutError.  ``options`` also
+    take ``master_port`` (default a free port), ``env`` (more environment
+    for every rank) and ``start_method`` (default "spawn")."""
+    if nprocs == -1:
+        import torch
+
+        nprocs = max(torch.cuda.device_count(), 1)
     if nprocs < 1:
-        raise ValueError(f"spawn needs nprocs >= 1, got {nprocs}")
+        raise ValueError(f"spawn needs nprocs >= 1 or -1, got {nprocs}")
+    timeout: Optional[float] = options.get("timeout")
     cluster = Cluster(ips=["127.0.0.1"], nproc_per_node=nprocs,
                       master="127.0.0.1",
                       master_port=int(options.get("master_port")

@@ -1,5 +1,7 @@
-"""BERT pretraining through the port's eager paddle API (BASELINE config
-2): ``BertForPretraining`` and its criterion, AdamW over
+"""BERT or ERNIE pretraining through the port's eager paddle API (BASELINE
+config 2): ``BertForPretraining`` (MLM + NSP) or, with ``--model ernie``,
+``ErnieForPretraining`` (MLM + SOP, task-type embeddings, the pad-aware
+default attention mask) and its criterion, AdamW over
 ``LinearWarmup(PolynomialDecay)`` with the global-norm gradient clip,
 ``loss.backward()``, ``optimizer.step()``, on synthetic masked-LM data.
 
@@ -11,8 +13,10 @@ and ``--amp`` (the forward under ``amp.auto_cast()``, bf16)::
     python -m paddle_tpu_torch.examples.pretrain_bert --device cpu --steps 3
     python -m paddle_tpu_torch.examples.pretrain_bert --amp --hidden 768 \\
         --layers 12 --heads 12 --seq 512 --batch 32 --masked 76
+    python -m paddle_tpu_torch.examples.pretrain_bert --model ernie
 
-``--model ernie`` waits for the ERNIE port (ROADMAP A.7).
+On the card ERNIE's pad mask reaches the flash kernels as their score
+bias.
 """
 
 from __future__ import annotations
@@ -43,17 +47,20 @@ def build(args):
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import nn, optimizer as opt
     from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
-                                         BertPretrainingCriterion)
+                                         BertPretrainingCriterion,
+                                         ErnieConfig, ErnieForPretraining,
+                                         ErniePretrainingCriterion)
 
-    if args.model != "bert":
-        raise NotImplementedError("--model ernie waits for the ERNIE port "
-                                  "(ROADMAP A.7)")
     paddle.seed(args.seed)
-    cfg = BertConfig(vocab_size=args.vocab, hidden_size=args.hidden,
-                     num_layers=args.layers, num_heads=args.heads,
-                     max_seq_len=args.seq, dropout=0.0)
-    model = BertForPretraining(cfg)
-    criterion = BertPretrainingCriterion()
+    config, model_cls, crit_cls = {
+        "bert": (BertConfig, BertForPretraining, BertPretrainingCriterion),
+        "ernie": (ErnieConfig, ErnieForPretraining,
+                  ErniePretrainingCriterion)}[args.model]
+    cfg = config(vocab_size=args.vocab, hidden_size=args.hidden,
+                 num_layers=args.layers, num_heads=args.heads,
+                 max_seq_len=args.seq, dropout=0.0)
+    model = model_cls(cfg)
+    criterion = crit_cls()
     sched = opt.lr.LinearWarmup(
         opt.lr.PolynomialDecay(learning_rate=args.lr,
                                decay_steps=max(args.steps, 10)),

@@ -137,14 +137,14 @@ def main(argv=None):
                  "demo (chaos per replica is exercised in "
                  "tests/test_torch_disagg.py)")
 
-    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTParams
     from paddle_tpu_torch.serving import FaultPlan, ServingEngine
 
     cfg = GPTConfig(vocab_size=args.vocab, hidden_size=args.hidden,
                     num_layers=args.layers, num_heads=args.heads,
                     max_seq_len=args.max_seq, dropout=0.0,
                     num_kv_heads=args.kv_heads, attn_window=args.window)
-    model = GPTForPretraining(cfg, device=args.device, seed=0)
+    model = GPTParams(cfg, device=args.device, seed=0)
     model.eval()
 
     faults = (FaultPlan.random(args.inject_faults, n_steps=50)

@@ -37,7 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry points: name -> (source, function, argtypes), the source
 # being csrc/<source>.cu.  kv_bits is 0 for float pages (the scale
 # pointers may then be null), 8 or 4.  The flash entries take a pointer to
-# int64 strides (b, s, h of each tensor operand, in argument order).
+# int64 strides (b, s, h of each tensor operand, in argument order), and
+# a score bias with a pointer to its four int64 strides.
 SIGNATURES = {
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
     # workspace, B, H, Hkv, page_size, D, max_pages, num_pages,
@@ -58,15 +59,16 @@ SIGNATURES = {
     # x, xq, sx, wq, ws, out, M, N, K, dtype, path (0 split, 1 wgmma), bm,
     # bn, chunks per split, stream
     "w8a8_gemm": ("w8a8_gemm", "w8a8_gemm_fwd", [_P] * 6 + [_I] * 8 + [_P]),
-    # q, k, v, out, lse, strides, B, H, Hkv, S, D, scale, causal, window,
-    # dtype (0 fp32, 1 bf16), stream
-    "flash_fwd": ("flash_fwd", "flash_fwd", [_P] * 6 + [_I] * 5 + [_F]
+    # q, k, v, out, lse, strides, bias (fp32 or null), bias strides (b,
+    # h, q, k), B, H, Hkv, S, D, scale, causal, window, dtype (0 fp32, 1
+    # bf16), stream
+    "flash_fwd": ("flash_fwd", "flash_fwd", [_P] * 8 + [_I] * 5 + [_F]
                   + [_I] * 3 + [_P]),
     # q, k, v, out, dout, lse, delta, dq, strides, then as flash_fwd
-    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq", [_P] * 9 + [_I] * 5
+    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq", [_P] * 11 + [_I] * 5
                      + [_F] + [_I] * 3 + [_P]),
     # q, k, v, dout, lse, delta, dk, dv, strides, then as flash_fwd
-    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv", [_P] * 9 + [_I] * 5
+    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv", [_P] * 11 + [_I] * 5
                       + [_F] + [_I] * 3 + [_P]),
     # D, dtype, dkv (0 dQ, 1 dK/dV): the kernel's dynamic shared memory in
     # bytes (no launch)

@@ -5,9 +5,15 @@ tensors to the flash kernels.
 Counterpart of ``paddle_tpu/kernels/attention.py`` (``_sdpa_reference``,
 ``sdpa``).  :func:`sdpa_plain` is the reference's jnp attention, decision
 for decision; the CPU training path runs it.  On the card :func:`sdpa`
-launches the flash kernels whenever :func:`~.flash.supported` holds, at
-every length (the reference's ``seq >= 512`` gate is a TPU tuning choice),
-and raises otherwise: it never runs the plain version there.
+launches the flash kernels whenever :func:`~.flash.kernel_reason` finds
+nothing they cannot take: at every sequence length (the reference's
+``seq >= 512`` and block-divisor gates are TPU tuning choices; the
+kernels mask a ragged last tile) and with an attention mask, which they
+take as an additive fp32 score bias (:func:`~.flash.mask_bias`: a float
+mask as it is, a boolean one as 0 / -1e9, as ``_sdpa_reference`` masks).
+It raises otherwise (q and k of other lengths, a head dim outside the
+kernels' tiles, a mask that requires grad): it never runs the plain
+version there.
 
 Attention dropout (``dropout_p > 0``) takes :func:`sdpa_dropout` on either
 device, as the reference routes it: "dropout always takes the reference
@@ -125,19 +131,21 @@ def sdpa(q, k, v, mask=None, scale=None, is_causal=False, dropout_p=0.0,
     on either device, as the reference routes dropout to its jnp path.
     Otherwise CPU tensors run :func:`sdpa_plain` (the seq-major layouts
     transposed in and out, as the reference's CPU path does), and CUDA
-    tensors launch the flash kernels, which read the layout in place, or
-    raise NotImplementedError naming what the kernels cannot take."""
+    tensors launch the flash kernels, which read the layout in place and
+    take ``mask`` as a score bias, or raise NotImplementedError naming
+    what the kernels cannot take."""
     if dropout_p > 0.0:
         return sdpa_dropout(q, k, v, dropout_p, key, mask=mask, scale=scale,
                             is_causal=is_causal, layout=layout,
                             window=window)
     if q.device.type == "cuda":
-        reason = flash.unsupported_reason(q, k, mask=mask, layout=layout)
+        reason = flash.kernel_reason(q, k, mask=mask, layout=layout)
         if reason is not None:
             raise NotImplementedError(
                 f"sdpa: the flash kernels cannot take {reason}")
-        return flash.flash_attention(q, k, v, causal=is_causal, scale=scale,
-                                     layout=layout, window=window)
+        return flash.attention(q, k, v, causal=is_causal, scale=scale,
+                               layout=layout, window=window,
+                               bias=flash.mask_bias(mask, q, layout))
     if q.device.type != "cpu":
         raise ValueError(f"sdpa runs on cpu or cuda, not {q.device}")
     return _seq_major(layout, q, k, v, lambda q, k, v: sdpa_plain(

@@ -19,6 +19,18 @@ saves ``(q, k, v, out, lse)`` as the reference's ``_flash_fwd_rule`` does.
 CPU tensors take the plain versions (:func:`flash_fwd_plain`,
 :func:`flash_bwd_plain`); CUDA tensors launch the kernels, or raise.
 Launches count as ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
+
+Beyond the reference's Pallas kernels, which refuse a mask, every entry
+here takes an additive fp32 score ``bias`` that broadcasts to the heads'
+[B, H, S, S] (:func:`mask_bias` makes it from an attention mask: a float
+mask as it is, a boolean one as 0 / -1e9, the reference's
+``_sdpa_reference`` decisions).  It is added to the scaled scores before
+the causal band and the window mask them; no gradient flows to it.  The
+kernels read it through its strides, so a [B, 1, 1, S] pad mask or an
+[S, S] decoder mask is never copied along a broadcast dimension.
+:func:`attention` is the entry that the card's ``sdpa`` takes: the
+kernels at any sequence length, with a bias; :func:`flash_attention`
+keeps the reference's signature and block gate.
 """
 
 from __future__ import annotations
@@ -79,6 +91,63 @@ def _head_dim_reason(d):
     if d % 8 != 0 or not (16 <= d <= 256):
         return f"head_dim {d} (needs a multiple of 8 in 16..256)"
     return None
+
+
+def _heads_shape(q, layout):
+    """The [B, H, S, S] shape of the scores of q's [B, H, S, D] heads
+    view (3-D bnsd: [B*H, 1, S, S])."""
+    b, h, s, _ = _heads(q, layout).shape
+    return (b, h, s, s)
+
+
+def _mask_shape(q, layout):
+    """The scores' shape in the reference's terms, which a mask broadcasts
+    to: [..., S, S] of q's bnsd shape, [B, H, S, S] for seq-major."""
+    if layout == "bnsd":
+        return (*q.shape[:-1], q.shape[-2])
+    return _heads_shape(q, layout)
+
+
+def kernel_reason(q, k, mask=None, layout="bnsd"):
+    """Why the CUDA kernels cannot take these inputs, or None when they
+    can: what ``sdpa`` on the card checks.  Any sequence length and a mask
+    that broadcasts to the scores pass; q/k of other lengths, a head dim
+    outside the kernels' tiles, and a mask that requires grad do not."""
+    if q.ndim < 3:
+        return f"{q.ndim}-D q (needs at least 3 dims)"
+    reason = _shape_reason(q, k, layout) or _head_dim_reason(q.shape[-1])
+    if reason is not None or mask is None:
+        return reason
+    if mask.requires_grad:
+        return "an attention mask that requires grad (no gradient flows " \
+               "to the kernels' score bias)"
+    scores = _mask_shape(q, layout)
+    try:
+        fits = torch.broadcast_shapes(mask.shape, scores) == scores
+    except RuntimeError:
+        fits = False
+    if not fits:
+        return (f"a mask of shape {tuple(mask.shape)} that does not "
+                f"broadcast to the scores {scores}")
+    return None
+
+
+def mask_bias(mask, q, layout="bnsd"):
+    """The kernels' score bias for an attention ``mask`` (None for none):
+    fp32, a float mask as it is and a boolean one as 0 where True and -1e9
+    where False (the reference's ``jnp.where(mask, logits, -1e9)``), as an
+    ``expand`` view of the [B, H, S, S] scores of q's heads view.  The
+    mask broadcasts against the scores in the reference's terms
+    (:func:`_mask_shape`)."""
+    if mask is None:
+        return None
+    if mask.dtype == torch.bool:
+        bias = torch.zeros(mask.shape, device=mask.device).masked_fill(
+            ~mask, -1e9)
+    else:
+        bias = mask.float()
+    return bias.expand(_mask_shape(q, layout)).reshape(
+        _heads_shape(q, layout))
 
 
 def unsupported_reason(q, k, mask=None, dropout_p=0.0, layout="bnsd"):
@@ -160,10 +229,13 @@ def _grouped(q, k, v, layout):
     return qh.reshape(b, hkv, h // hkv, s, d), kh, vh
 
 
-def _scores(qg, kh, scale, causal, window):
+def _scores(qg, kh, scale, causal, window, bias=None):
     """fp32 scores of the kernels: products of the inputs' values summed
-    in fp32, times ``scale``, -1e30 where masked."""
+    in fp32, times ``scale``, plus ``bias`` (:func:`mask_bias`'s [B, H, S,
+    S] view), -1e30 where masked."""
     s = torch.einsum("bngqd,bnkd->bngqk", qg.float(), kh.float()) * scale
+    if bias is not None:
+        s = s + bias.reshape(s.shape)
     if causal:
         keep = _visible(s.shape[-1], causal, window, s.device)
         s = torch.where(keep, s, _NEG_INF)
@@ -176,16 +248,17 @@ def _scores(qg, kh, scale, causal, window):
 
 
 def flash_fwd_plain(q, k, v, causal=False, scale=None, window=None,
-                    layout="bnsd"):
+                    layout="bnsd", bias=None):
     """The forward kernel's plain version: the reference's ``_fwd_kernel``
     recurrence written densely.  Returns ``out`` (q's shape and dtype) and
     ``lse`` (B*H, S) fp32, row ``b * H + h`` (for bnsd, the flattened
     leading index).  P is cast to V's dtype before P.V and
-    ``l = max(l, 1e-30)``, as in the kernel."""
+    ``l = max(l, 1e-30)``, as in the kernel.  ``bias``: the score bias
+    (:func:`mask_bias`), added to the scaled scores in fp32."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qg, kh, vh = _grouped(q, k, v, layout)
-    s = _scores(qg, kh, scale, causal, window)
+    s = _scores(qg, kh, scale, causal, window, bias)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(-1).clamp_min(1e-30)
@@ -197,7 +270,7 @@ def flash_fwd_plain(q, k, v, causal=False, scale=None, window=None,
 
 
 def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
-                    window=None, layout="bnsd"):
+                    window=None, layout="bnsd", bias=None):
     """The backward kernels' plain version: dQ, dK, dV recomputed from the
     forward's ``lse`` and ``delta = rowsum(dO * O)`` as the reference's
     ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` compute them: ``p = exp(s -
@@ -212,7 +285,8 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
     autodiff gives) no fp32 summation noise, which another summation
     order would not reproduce, is left.  The fp32 kernels take delta
     summed in fp64 too, and dp in fp64 for a pair that holds at least
-    1/16 of its query's probability."""
+    1/16 of its query's probability.  ``bias``: the forward's score
+    bias, added again where p is recomputed from lse."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qg, kh, vh = _grouped(q, k, v, layout)
@@ -221,7 +295,8 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
     og = _heads(out, layout).reshape(qg.shape).double()
     delta = (dog.double() * og).sum(-1)
     lse = lse.reshape(b, hkv, g, s_len)
-    p = torch.exp(_scores(qg, kh, scale, causal, window) - lse[..., None])
+    p = torch.exp(_scores(qg, kh, scale, causal, window, bias)
+                  - lse[..., None])
     dp = torch.einsum("bngqd,bnkd->bngqk", dog.double(), vh.double())
     ds = p * (dp - delta[..., None]).float() * scale
     dq = torch.einsum("bngqk,bnkd->bngqd", ds.to(k.dtype).float(), kh.float())
@@ -249,10 +324,13 @@ def _operand(x, layout):
     return c if ok else c.contiguous()
 
 
-def _check(q, k, v):
+def _check(q, k, v, bias, layout):
     """What the kernels ask beyond :func:`flash_attention`'s shape checks,
-    which their callers have made: one float dtype, one device, and a head
-    dim that their tiles take."""
+    which their callers have made: one float dtype, one device, a head
+    dim that their tiles take, and a ``bias`` that is None or, as
+    :func:`mask_bias` makes it, an fp32 view of the heads' [B, H, S, S]
+    scores on q's device (read through its strides: a broadcast dimension
+    keeps stride 0 and nothing is copied along it)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash kernels take fp32 or bf16 q/k/v of one "
                          f"dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
@@ -261,17 +339,29 @@ def _check(q, k, v):
     reason = _head_dim_reason(q.shape[-1])
     if reason is not None:
         raise ValueError(f"flash kernels cannot take {reason}")
+    if bias is not None and (
+            bias.dtype != torch.float32 or bias.device != q.device
+            or tuple(bias.shape) != _heads_shape(q, layout)):
+        raise ValueError(f"flash kernels take an fp32 bias of the scores' "
+                         f"shape {_heads_shape(q, layout)} on q's device "
+                         f"(mask_bias), not {bias.dtype} "
+                         f"{tuple(bias.shape)} on {bias.device}")
 
 
-def _launch(name, tensors, strided, dims, scale, causal, window, dtype):
+def _launch(name, tensors, strided, dims, scale, causal, window, dtype,
+            bias=None):
     """Launch ``name`` over raw ``tensors`` (pointers in argument order),
-    with the strides of the ``strided`` [B, S, H, D] views."""
+    with the strides of the ``strided`` [B, S, H, D] views, and the score
+    ``bias`` (None, or an fp32 [B, H, S, S] view) with its strides."""
     strides = [st for t in strided for st in t.stride()[:3]]
     arr = (ctypes.c_longlong * len(strides))(*strides)
+    barr = (ctypes.c_longlong * 4)(*(bias.stride() if bias is not None
+                                     else (0, 0, 0, 0)))
     dev = tensors[0].device
     code = _build.kernel(name)(
-        *[t.data_ptr() for t in tensors], ctypes.addressof(arr), *dims,
-        float(scale), int(causal), int(window or 0), _DTYPES[dtype],
+        *[t.data_ptr() for t in tensors], ctypes.addressof(arr),
+        None if bias is None else bias.data_ptr(), ctypes.addressof(barr),
+        *dims, float(scale), int(causal), int(window or 0), _DTYPES[dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(name, code)
     _build.LAUNCHES[name] += 1
@@ -282,17 +372,17 @@ def _dims(qc, kc):
     return b, h, kc.shape[2], s, d
 
 
-def flash_fwd_cuda(q, k, v, causal, scale, window, layout):
+def flash_fwd_cuda(q, k, v, causal, scale, window, layout, bias=None):
     """The forward kernel: ``out`` (q's shape and dtype), ``lse`` (B*H, S)
     fp32.  CUDA tensors only."""
-    _check(q, k, v)
+    _check(q, k, v, bias, layout)
     qc, kc, vc = (_operand(t, layout) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     oc = _canon(out, layout)
     b, h, hkv, s, d = _dims(qc, kc)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", (qc, kc, vc, oc, lse), (qc, kc, vc, oc),
-            (b, h, hkv, s, d), scale, causal, window, q.dtype)
+            (b, h, hkv, s, d), scale, causal, window, q.dtype, bias)
     return out, lse
 
 
@@ -316,12 +406,12 @@ def flash_delta(out, do, layout="bnsd"):
     return delta.transpose(1, 2).reshape(b * h, s, 2).contiguous()
 
 
-def _bwd_operands(q, k, v, lse, delta, do, layout):
+def _bwd_operands(q, k, v, lse, delta, do, layout, bias):
     """The backward kernels' read operands as [B, S, H, D] views, the
     contiguous lse and delta, and the dims (B, H, Hkv, S, D).  delta must
     have :func:`flash_delta`'s layout for q's dtype: the kernels read it
     through a raw pointer."""
-    _check(q, k, v)
+    _check(q, k, v, bias, layout)
     qc, kc, vc, dc = (_operand(t, layout) for t in (q, k, v, do.to(q.dtype)))
     dims = _dims(qc, kc)
     b, h, _, s, _ = dims
@@ -334,31 +424,33 @@ def _bwd_operands(q, k, v, lse, delta, do, layout):
 
 
 def flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, causal, scale, window,
-                      layout):
+                      layout, bias=None):
     """The dQ kernel: ``dq`` in q's shape and dtype.  CUDA tensors only.
     The kernel reads ``delta``; ``out`` is handed over because the C entry
     point takes it, and no body reads it."""
     (qc, kc, vc, dc), lse, delta, dims = _bwd_operands(q, k, v, lse, delta,
-                                                       do, layout)
+                                                       do, layout, bias)
     oc = _operand(out.to(q.dtype), layout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dqc = _canon(dq, layout)
     _launch("flash_bwd_dq", (qc, kc, vc, oc, dc, lse, delta, dqc),
-            (qc, kc, vc, oc, dc, dqc), dims, scale, causal, window, q.dtype)
+            (qc, kc, vc, oc, dc, dqc), dims, scale, causal, window, q.dtype,
+            bias)
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, lse, delta, do, causal, scale, window,
-                       layout):
+                       layout, bias=None):
     """The dK/dV kernel: ``dk, dv`` in k's and v's shapes and dtypes.
     CUDA tensors only."""
     (qc, kc, vc, dc), lse, delta, dims = _bwd_operands(q, k, v, lse, delta,
-                                                       do, layout)
+                                                       do, layout, bias)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     dkc, dvc = _canon(dk, layout), _canon(dv, layout)
     _launch("flash_bwd_dkv", (qc, kc, vc, dc, lse, delta, dkc, dvc),
-            (qc, kc, vc, dc, dkc, dvc), dims, scale, causal, window, q.dtype)
+            (qc, kc, vc, dc, dkc, dvc), dims, scale, causal, window, q.dtype,
+            bias)
     return dk, dv
 
 
@@ -369,46 +461,70 @@ def _device_of(q):
     return q.device.type
 
 
-def flash_fwd(q, k, v, causal=False, scale=None, window=None, layout="bnsd"):
+def flash_fwd(q, k, v, causal=False, scale=None, window=None, layout="bnsd",
+              bias=None):
     """``(out, lse)``: the plain version for CPU tensors, the kernel for
     CUDA tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if _device_of(q) == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale, window, layout)
-    return flash_fwd_cuda(q, k, v, causal, scale, window, layout)
+        return flash_fwd_plain(q, k, v, causal, scale, window, layout, bias)
+    return flash_fwd_cuda(q, k, v, causal, scale, window, layout, bias)
 
 
 def flash_bwd(q, k, v, out, lse, do, causal=False, scale=None, window=None,
-              layout="bnsd"):
+              layout="bnsd", bias=None):
     """``(dq, dk, dv)``: the plain version for CPU tensors, the kernels
     for CUDA tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if _device_of(q) == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, causal, scale, window,
-                               layout)
+                               layout, bias)
     delta = flash_delta(out, do, layout)
-    opts = (causal, scale, window, layout)
+    opts = (causal, scale, window, layout, bias)
     return (flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, *opts),
             *flash_bwd_dkv_cuda(q, k, v, lse, delta, do, *opts))
 
 
 class _Flash(torch.autograd.Function):
-    """Forward kernel; backward from the saved ``(q, k, v, out, lse)``."""
+    """Forward kernel; backward from the saved ``(q, k, v, out, lse)`` and
+    the score bias, which gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window, layout):
-        out, lse = flash_fwd(q, k, v, causal, scale, window, layout)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, causal, scale, window, layout, bias):
+        out, lse = flash_fwd(q, k, v, causal, scale, window, layout, bias)
+        ctx.save_for_backward(q, k, v, out, lse, bias)
         ctx.opts = (causal, scale, window, layout)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, *ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, out, lse, bias = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, *ctx.opts, bias)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attention(q, k, v, causal=False, scale=None, layout="bnsd", window=None,
+              bias=None):
+    """Flash attention at any sequence length, with an optional score
+    ``bias`` (:func:`mask_bias`): what ``sdpa`` runs on the card, where the
+    kernels take every length (ragged last tiles are masked).  The
+    reference's shape checks raise ValueError; the block gate of
+    :func:`flash_attention` is not applied."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if window is not None and not causal:
+        raise ValueError("flash_attention: window requires causal=True")
+    reason = _shape_reason(q, k, layout)
+    if reason is not None:
+        raise ValueError(f"flash_attention: {reason}")
+    if bias is not None and bias.requires_grad:
+        raise NotImplementedError("flash attention: no gradient flows to "
+                                  "the score bias")
+    win = None if window is None else int(window)
+    return _Flash.apply(q, k, v, bool(causal), float(scale), win, layout,
+                        bias)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
@@ -418,11 +534,8 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     keys more than ``window - 1`` positions behind each query.
     ``block_q``/``block_k`` are checked as the reference checks them (a
     length with no block raises); the CUDA kernels pick their own tiles."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
     if window is not None and not causal:
         raise ValueError("flash_attention: window requires causal=True")
-    win = None if window is None else int(window)
     s_axis = _layout_s_axis(layout, q.ndim)
     s_len = q.shape[s_axis]
     if (block_q or _pick_block(s_len)) is None or \
@@ -430,7 +543,4 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
         raise ValueError(
             f"flash_attention: unsupported seq len {s_len} (needs a power-of-"
             f"two-ish divisor >= 8)")
-    reason = _shape_reason(q, k, layout)
-    if reason is not None:
-        raise ValueError(f"flash_attention: {reason}")
-    return _Flash.apply(q, k, v, bool(causal), float(scale), win, layout)
+    return attention(q, k, v, causal, scale, layout, window)

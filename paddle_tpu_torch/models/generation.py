@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from ..distributed.fleet.meta_parallel.mp_layers import (
     quantize_row_parallel, row_parallel_w8a8)
+from ..weights import gpt_params
 from ..ops.quant_ops import (quantize_int4_per_token, quantize_per_channel,
                              quantize_per_token, unpack_int4, w8a8_apply)
 
@@ -364,7 +365,11 @@ def build_generate_fn(model, max_new_tokens: int, temperature: float = 1.0,
     projections W8A8 with an int8 KV cache; ``kv_bits`` (default
     ``cfg.kv_bits``; 8 or 4) quantizes the KV cache alone.
     ``attn_window`` (default ``cfg.attn_window``) applies sliding-window
-    attention.  ``seed`` seeds the sampling generator."""
+    attention.  ``seed`` seeds the sampling generator.  ``model``: a
+    :class:`~paddle_tpu_torch.models.gpt.GPTParams` or a paddle
+    ``GPTForPretraining`` (read through :func:`~paddle_tpu_torch.weights.
+    gpt_params`)."""
+    model = gpt_params(model)
     cfg = model.cfg
     int8 = _resolve_int8(cfg, int8)
     params, make_run = _decoder_setup(model, int8=int8,
@@ -470,6 +475,7 @@ def build_beam_search_fn(model, max_new_tokens: int, beam_size: int = 4,
     cache is written in place by each step's forward, so the reorder
     takes the rows into new tensors after the write (``index_select``):
     no step reads a row that the next step overwrites."""
+    model = gpt_params(model)
     cfg = model.cfg
     K = beam_size
     int8 = _resolve_int8(cfg, int8)

@@ -1,7 +1,7 @@
 """GPT: configuration, parameters, the training forward and the functional
 train step (counterpart of ``paddle_tpu/models/gpt.py``).
 
-:class:`GPTForPretraining` holds the decoder's parameters: word and
+:class:`GPTParams` holds the decoder's parameters as a torch module: word and
 position embeddings, the pre-LN blocks, the final LayerNorm, and the LM
 head tied to the word embedding.  Projection weights keep the reference's
 ``[in, out]`` layout (``x @ W``), so parameter names and shapes match the
@@ -11,7 +11,7 @@ one to one, and the JAX model's ``named_parameters()`` in the same order
 
 Inference reads the parameters through
 :func:`paddle_tpu_torch.models.generation._decoder_setup`.  The
-full-sequence forward (:meth:`GPTForPretraining.forward`) and
+full-sequence forward (:meth:`GPTParams.forward`) and
 :func:`build_functional_train_step` (forward, backward, chunked
 cross-entropy and AdamW with fp32 masters) run attention through
 :func:`~paddle_tpu_torch.kernels.sdpa`: the flash kernels on the card, the
@@ -73,7 +73,7 @@ from ..framework import random as _random
 from ..kernels.attention import sdpa
 from ..ops.nn_ops import dropout as _dropout
 from ..ops.quant_ops import w8a8_matmul
-from ..weights import attn_split, tp_shard
+from ..weights import attn_split, gpt_params, tp_shard
 from .generation import _ln
 
 
@@ -185,8 +185,12 @@ class GPTBlock(nn.Module):
         self.fc2_w, self.fc2_b = normal(f, h), const(h, 0.0)
 
 
-class GPTForPretraining(nn.Module):
-    """GPT decoder parameters with the LM head tied to ``wte``.
+class GPTParams(nn.Module):
+    """GPT decoder parameters with the LM head tied to ``wte``: the torch
+    holder that generation, serving and the functional train step read
+    (the reference's paddle ``GPTForPretraining`` is
+    :class:`~paddle_tpu_torch.models.gpt_layers.GPTForPretraining`, which
+    they also take, through :func:`~paddle_tpu_torch.weights.gpt_params`).
 
     Weights are drawn N(0, ``initializer_range``) from a generator seeded
     with ``seed`` on ``device`` (the CUDA card unless the caller passes
@@ -266,8 +270,10 @@ class GPTForPretraining(nn.Module):
         return logits if tp is None else tp.concat(logits)
 
 
-class GPTPretrainingCriterion(nn.Module):
-    """Next-token cross-entropy over logits, mean over tokens (or over the
+class GPTParamsCriterion(nn.Module):
+    """:class:`GPTParams`' criterion, on torch tensors (the paddle
+    ``GPTPretrainingCriterion`` is :mod:`~.gpt_layers`'): next-token
+    cross-entropy over logits, mean over tokens (or over the
     ``loss_mask``'s weight).  ``seq_major`` logits arrive [S, B, V] while
     labels stay [B, S]; the labels are transposed here.  Labels equal to
     -100 are ignored, as the reference's ``softmax_with_cross_entropy``
@@ -404,7 +410,7 @@ _BLOCK_KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
 
 
 def _tree(leaves, cfg):
-    """Flat parameters in :meth:`GPTForPretraining.leaves` order as
+    """Flat parameters in :meth:`GPTParams.leaves` order as
     ``{"wte", "wpe", "lnf_g", "lnf_b", "blocks": [list of 12, ...]}``."""
     n = len(_BLOCK_KEYS)
     blocks = [leaves[2 + i * n:2 + (i + 1) * n]
@@ -649,7 +655,7 @@ def _sharding_stage(sharding_stage, shd):
     return sharding_stage
 
 
-def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
+def build_functional_train_step(model, lr: float = 1e-4,
                                 beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1,
                                 remat=True, ce_chunk_rows: int = 1024,
                                 compute_dtype=None, *, dp_axis=None,
@@ -658,7 +664,7 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
 
     Returns ``(step, params, opt_state)`` with ``step(params, opt_state,
     ids, labels) -> (params, opt_state, loss)``.  ``params`` are the
-    model's own parameters (detached, in :meth:`GPTForPretraining.leaves`
+    model's own parameters (detached, in :meth:`GPTParams.leaves`
     order, the reference's) and are updated IN PLACE, as is ``opt_state``
     ({"m", "v", "t"} and, when any parameter is not fp32, fp32 "master"
     copies); the reference donates both to its jitted step.
@@ -688,7 +694,13 @@ def build_functional_train_step(model: GPTForPretraining, lr: float = 1e-4,
     (None: the reference's choice, :func:`_sharding_stage`) apply there.
     Asking for a mesh, ``dp_axis``, a ZeRO stage or a ``use_parallel``
     model without an initialised process group raises RuntimeError: the
-    step never runs them quietly on one device."""
+    step never runs them quietly on one device.
+
+    ``model``: a :class:`GPTParams`, or a paddle ``GPTForPretraining``,
+    whose weights the step copies into a holder
+    (:func:`~paddle_tpu_torch.weights.gpt_params`) and leaves as they
+    are, as the reference's step reads a paddle model's parameters."""
+    model = gpt_params(model)
     cfg = model.cfg
     if remat != "dots" and not isinstance(remat, bool):
         raise ValueError(f"remat must be True, False, or 'dots'; got "
@@ -978,3 +990,13 @@ def _distributed_step(model, mesh, stage, remat, ce_chunk_rows, cast, opts):
     step.unshard = unshard
     step.stage = stage
     return step, params, opt_state
+
+
+# The reference's paddle classes under its names (``paddle_tpu/models/
+# gpt.py``): the model and the criterion are paddle ``nn.Layer``s, which a
+# paddle optimizer trains; GPTParams and GPTParamsCriterion are the torch
+# holder the functional paths read.  Imported last: gpt_layers reads
+# GPTConfig from this module.
+from .gpt_layers import (  # noqa: E402,F401
+    GPTForPretraining, GPTForPretrainingPipe, GPTModel,
+    GPTPretrainingCriterion)

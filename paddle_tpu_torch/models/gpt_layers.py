@@ -8,12 +8,14 @@ reference's ``state_dict()`` loads here
 (:func:`paddle_tpu_torch.weights.load_paddle_state_dict`).
 
 Which is which: this module keeps the reference's names for its paddle
-layers.  :mod:`paddle_tpu_torch.models.gpt` keeps ``GPTBlock``,
-``GPTForPretraining`` and ``GPTPretrainingCriterion`` for its torch
-parameter holders, which serving and the functional train step read;
-``models/__init__.py`` exports the torch ``GPTForPretraining`` and this
-module's ``GPTForPretrainingPipe``, ``GPTModel``, ``GPTAttention``,
-``GPTMLP`` and ``GPTEmbeddings``.  Both take the same :class:`GPTConfig`.
+layers, and :mod:`paddle_tpu_torch.models.gpt` and ``models/__init__.py``
+export ``GPTForPretraining``, ``GPTModel``, ``GPTPretrainingCriterion``
+and ``GPTForPretrainingPipe`` from here, as the reference's do.
+:mod:`~paddle_tpu_torch.models.gpt`'s ``GPTParams`` (with ``GPTBlock``
+and ``GPTParamsCriterion``) is the torch parameter holder that serving,
+generation and the functional train step read; each of them also takes
+this module's ``GPTForPretraining`` (:func:`paddle_tpu_torch.weights.
+gpt_params`).  Both take the same :class:`GPTConfig`.
 
 Attention goes through ``F.scaled_dot_product_attention`` (the registered
 op: on the card the flash kernels, forward and backward), causal, in

@@ -27,8 +27,9 @@ returns ``(params, buffers, opt_state, loss)``.
 ``inline_kernels`` groups the reference's jitted kernels; eager PyTorch
 has nothing to group, so it is accepted and has no effect (ROADMAP C).
 On a mesh whose ``dp_axis`` has more than one rank the reference shards
-one SPMD program over the global batch, so BatchNorm's statistics are the
-global batch's; a per-rank step would compute local ones, so the port
+one SPMD program over the global batch.  BatchNorm already reduces its
+statistics over the data-parallel group (``ops/nn_ops.py``), but this
+step does not yet average its gradients over the ranks, so the port
 raises there (ROADMAP A.11).
 """
 
@@ -75,8 +76,8 @@ def build_model_train_step(
     if mesh_mod.get_mesh() is not None and mesh_mod.axis_size(dp_axis) > 1:
         raise NotImplementedError(
             f"build_model_train_step on a mesh with {dp_axis}="
-            f"{mesh_mod.axis_size(dp_axis)}: BatchNorm's statistics would be "
-            "each rank's, not the global batch's (ROADMAP A.11)")
+            f"{mesh_mod.axis_size(dp_axis)}: the step does not yet average "
+            "its gradients over the data-parallel ranks (ROADMAP A.11)")
 
     model.train()
     param_objs = [p for p in model.parameters()

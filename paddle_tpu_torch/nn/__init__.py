@@ -1,8 +1,8 @@
 """``paddle.nn``: layers, functional, initializers and gradient clips.
 
 Counterpart of ``paddle_tpu/nn/__init__.py`` for the modules ported so
-far; ``nn/quant``, ``nn/utils`` and the rnn, transformer and extras
-layers wait for later slices (ROADMAP A.7).
+far; ``nn/quant``, ``nn/utils`` and the rnn and extras layers wait for
+later slices (ROADMAP A.7).
 """
 
 from .layer_base import (  # noqa: F401

@@ -1,6 +1,6 @@
 """The layers ported so far (counterpart of ``paddle_tpu/nn/layer``):
-common, conv, pooling, norm, activation and loss.  ``rnn``,
-``transformer`` and ``extras`` wait for later slices (ROADMAP A.7)."""
+common, conv, pooling, norm, activation, loss and transformer.  ``rnn``
+and ``extras`` wait for later slices (ROADMAP A.7)."""
 
 from .common import (  # noqa: F401
     Bilinear, CosineSimilarity, Dropout, Dropout2D, Embedding, Flatten,
@@ -25,4 +25,8 @@ from .activation import (  # noqa: F401
 from .loss import (  # noqa: F401
     BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss, L1Loss,
     MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
+)
+from .transformer import (  # noqa: F401
+    MultiHeadAttention, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
 )

@@ -3,9 +3,12 @@ GroupNorm, InstanceNorm, LocalResponseNorm.
 
 Counterpart of ``paddle_tpu/nn/layer/norm.py``.  BatchNorm's running
 statistics are the op's MeanOut / VarianceOut; a training forward
-rebinds the layer's buffers to them.  ``SyncBatchNorm`` computes on one
-rank as ``BatchNorm`` does (its cross-rank statistics wait for the
-distributed layers on ``nn.Layer``, ROADMAP A.8).
+rebinds the layer's buffers to them.  Under a data-parallel group (the
+installed mesh's dp x sharding axes, as ``DataParallel`` and
+``fleet.distributed_model`` train) every ``BatchNorm*`` and
+``SyncBatchNorm`` normalises by the global batch's statistics, as the
+reference's BatchNorm over its sharded global batch does: the op
+all-reduces them (``ops/nn_ops.py``).
 """
 
 from __future__ import annotations
@@ -89,9 +92,10 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """BatchNorm whose statistics span the data-parallel ranks; on one
-    rank it computes as BatchNorm does (the cross-rank statistics wait for
-    the distributed layers on ``nn.Layer``, ROADMAP A.8)."""
+    """BatchNorm whose statistics span the data-parallel ranks: it
+    computes as ``BatchNorm`` does, which under a data-parallel group
+    all-reduces its statistics and its backward's sums over the group
+    (on one rank, the rank's own)."""
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

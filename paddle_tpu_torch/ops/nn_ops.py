@@ -54,6 +54,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..framework import random as _random
@@ -293,6 +294,24 @@ def _bn_axes(x, data_layout):
     return (0,) + tuple(range(2, x.ndim)), (1, -1) + (1,) * (x.ndim - 2)
 
 
+def _data_group():
+    """BatchNorm's data-parallel group: ``(group, first rank)`` of the
+    installed mesh's dp x sharding axes when they hold more than one rank,
+    else None.  The reference shards one global batch over those axes
+    (``DataParallelSPMD``), so its BatchNorm normalises by the global
+    batch's moments; here each rank holds its rows, and the statistics
+    and the backward's sums are all-reduced over this group.  Ranks that
+    hold the same rows (a batch not sharded) get the moments of those
+    rows, as they would alone."""
+    from ..distributed import mesh as mesh_mod
+
+    mesh = mesh_mod.get_mesh()
+    axes = ("dp", "sharding")
+    if mesh is None or mesh.degree(axes) <= 1:
+        return None
+    return mesh.group(axes), mesh.group_ranks(axes)[0]
+
+
 def _batch_norm_grad_maker(ins, outs, ogs):
     return "batch_norm_grad", {
         "X": ins["X"], "Scale": ins["Scale"], "Bias": ins["Bias"],
@@ -308,7 +327,13 @@ def _batch_norm_grad_maker(ins, outs, ogs):
 def batch_norm_kernel(ins, attrs):
     """Batch statistics in one pass over x shifted by a per-channel value
     of its first sample (the reference's form), or the running ones in
-    eval; MeanOut / VarianceOut are the updated running statistics."""
+    eval; MeanOut / VarianceOut are the updated running statistics.
+    Under a data-parallel group (:func:`_data_group`) the batch is the
+    global one: the shift is the global first sample's (broadcast from
+    the rank that holds it), and the count, the shifted sum and the
+    shifted sum of squares are all-reduced in fp32, so every rank
+    normalises by, and updates its running statistics with, the global
+    mean and (population) variance, as the reference does."""
     x = ins["X"]
     scale, bias = ins["Scale"], ins["Bias"]
     mean_rt, var_rt = ins["Mean"], ins["Variance"]
@@ -331,10 +356,22 @@ def batch_norm_kernel(ins, attrs):
             first = xf[(slice(0, 1), slice(None))
                        + (slice(0, 1),) * (x.ndim - 2)]
         shift = torch.mean(first, dim=axes).detach()
+        data = _data_group()
+        if data is not None:
+            shift = shift.contiguous()
+            dist.broadcast(shift, src=data[1], group=data[0])
         xc = xf - shift.reshape(bshape)
-        mean_c = torch.mean(xc, dim=axes)
-        var = torch.clamp_min(torch.mean(torch.square(xc), dim=axes)
-                              - torch.square(mean_c), 0.0)
+        if data is None:
+            mean_c = torch.mean(xc, dim=axes)
+            msq = torch.mean(torch.square(xc), dim=axes)
+        else:
+            c = shift.numel()
+            sums = torch.cat([torch.sum(xc, dim=axes),
+                              torch.sum(torch.square(xc), dim=axes),
+                              xc.new_full((1,), xc.numel() // c)])
+            dist.all_reduce(sums, group=data[0])
+            mean_c, msq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp_min(msq - torch.square(mean_c), 0.0)
         mean = mean_c + shift
         mean_out = momentum * mean_rt + (1.0 - momentum) * mean
         var_out = momentum * var_rt + (1.0 - momentum) * var
@@ -370,9 +407,18 @@ def batch_norm_grad_kernel(ins, attrs):
             * inv_std.reshape(bshape)
         dbias = torch.sum(dyf, dim=axes)
         dscale = torch.sum(dyf * xhat, dim=axes)
-        dx = ((scale * inv_std).reshape(bshape) / m
-              * (m * dyf - dbias.reshape(bshape)
-                 - xhat * dscale.reshape(bshape)))
+        # under a data-parallel group dx takes the global batch's sums
+        # and count; the parameters' gradients stay this rank's, which
+        # the data-parallel wrapper averages
+        gb, gs, n = dbias, dscale, m
+        data = _data_group()
+        if data is not None:
+            c = dbias.numel()
+            sums = torch.cat([dbias, dscale, dbias.new_full((1,), m)])
+            dist.all_reduce(sums, group=data[0])
+            gb, gs, n = sums[:c], sums[c:2 * c], sums[-1]
+        dx = ((scale * inv_std).reshape(bshape) / n
+              * (n * dyf - gb.reshape(bshape) - xhat * gs.reshape(bshape)))
     return {"X" + GRAD_SUFFIX: dx.to(x.dtype), "Scale" + GRAD_SUFFIX: dscale,
             "Bias" + GRAD_SUFFIX: dbias}
 

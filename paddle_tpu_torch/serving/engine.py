@@ -71,6 +71,7 @@ from ..models.generation import (_block_finish, _block_qkv, _decoder_setup,
                                  _lm_head, _make_sampler, _resolve_int8,
                                  _resolve_kv_bits, spec_accept_greedy)
 from ..ops.quant_ops import quantize_int4_per_token, quantize_per_token
+from ..weights import gpt_params
 from .drafter import NGramDrafter
 from .faults import FaultPlan, InjectedFault
 from .flight_recorder import FlightRecorder
@@ -269,6 +270,7 @@ class ServingEngine:
                  kv_bits: Optional[int] = None,
                  attn_window: Optional[int] = None,
                  role: str = "both", double_buffer: bool = False):
+        model = gpt_params(model)   # a paddle GPTForPretraining: its holder
         cfg = model.cfg
         if getattr(model, "tp", None) is not None:
             # the reference's engine has no tensor parallelism either

@@ -40,7 +40,7 @@ Training compares by the JAX model's named parameters instead
 (``gpt.embeddings.word_embeddings.weight``, ``gpt.blocks.{i}.attn.qkv.
 weight``, ...): their order, ``model.parameters()``, is the order of the
 reference train step's flat leaves and of the port's
-``GPTForPretraining.leaves()``.  :func:`load_jax_named_params` maps
+``GPTParams.leaves()``.  :func:`load_jax_named_params` maps
 them to the port's names; :func:`params_to_numpy` gives the port's
 parameters back as numpy in that order.
 """
@@ -61,7 +61,7 @@ def params_from_jax(tree) -> Dict[str, object]:
     """The reference's parameter tree (numpy arrays, or anything
     ``np.asarray`` accepts) as a port state dict: ``{"wte": tensor, …,
     "blocks.0.qkv_w": tensor, …}`` in fp32 on the CPU, ready for
-    ``GPTForPretraining.load_state_dict``.  Quantized trees (``*_wq``) are
+    ``GPTParams.load_state_dict``.  Quantized trees (``*_wq``) are
     refused: the port quantizes its int8 weights from the float ones."""
     def tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
@@ -309,8 +309,40 @@ def gather_shards(ranks, cfg, dims) -> Dict[str, np.ndarray]:
     return out
 
 
+def gpt_params(model):
+    """``model`` as the torch parameter holder
+    (:class:`~paddle_tpu_torch.models.gpt.GPTParams`) that generation,
+    serving and the functional train step read: a holder as it is; a
+    paddle ``GPTForPretraining`` (:mod:`~paddle_tpu_torch.models.
+    gpt_layers`, the reference's class) as a new holder of its config
+    with copies of its weights (mapped by the reference's names,
+    :func:`port_name`), on its device, in its dtype and in its training
+    mode, as the reference's functional step and decoder read a paddle
+    model's parameters without changing them.  A tensor-parallel paddle
+    model (rank slices) raises NotImplementedError: build the holder
+    with ``use_parallel`` instead."""
+    from .models.gpt import GPTParams
+    from .models.gpt_layers import GPTForPretraining
+
+    if isinstance(model, GPTParams):
+        return model
+    if not isinstance(model, GPTForPretraining):
+        raise TypeError(f"a GPTParams or a paddle GPTForPretraining, not "
+                        f"{type(model).__name__}")
+    named = list(model.named_parameters())
+    if any(getattr(p, "tp_split", None) is not None for _, p in named):
+        raise NotImplementedError(
+            "a tensor-parallel paddle GPTForPretraining holds rank slices; "
+            "build GPTParams with use_parallel for the functional paths")
+    w = model.gpt.embeddings.word_embeddings.weight._t
+    holder = GPTParams(model.cfg, device=w.device, dtype=w.dtype)
+    with torch.no_grad():
+        holder.load_state_dict({port_name(n): p._t for n, p in named})
+    return holder.train(model.training)
+
+
 def params_to_numpy(params):
-    """The port's parameters (tensors in ``GPTForPretraining.leaves()``
+    """The port's parameters (tensors in ``GPTParams.leaves()``
     order, as the train step returns them) as fp32 numpy arrays, in that
     order."""
     return [p.detach().float().cpu().numpy() for p in params]
@@ -318,7 +350,7 @@ def params_to_numpy(params):
 
 def load_jax_params(model, tree) -> None:
     """Copy the reference's parameter tree into ``model`` (a
-    :class:`~paddle_tpu_torch.models.gpt.GPTForPretraining`), casting to
+    :class:`~paddle_tpu_torch.models.gpt.GPTParams`), casting to
     the model's dtype and device; a tensor-parallel model takes its
     rank's slices.  Shapes must match exactly."""
     _load(model, params_from_jax(tree))

@@ -232,3 +232,28 @@ def test_fleet_wrappers_of_nn_layers_wait_for_a7(tmp_path):
                  {"modes": {"data_parallel": {}}})
     assert got["data_parallel"] == want == ("DataParallelSPMD",
                                             "HybridParallelOptimizer")
+
+
+def test_spawn_and_all_reduce_signatures_match_reference(tmp_path):
+    """ROADMAP C.5: ``spawn`` and ``all_reduce`` take the reference's
+    arguments (``inspect.signature`` equal), and ``spawn(f)`` with the
+    default ``nprocs=-1`` runs one rank per local device: one gloo rank
+    on this host, which has no card."""
+    import inspect
+    import pickle
+
+    import importlib
+
+    from paddle_tpu.distributed import collective as jcoll
+    from paddle_tpu_torch.distributed import all_reduce, spawn
+
+    jspawn = importlib.import_module("paddle_tpu.distributed.spawn")
+    assert inspect.signature(spawn) == inspect.signature(jspawn.spawn)
+    assert inspect.signature(all_reduce) == inspect.signature(
+        jcoll.all_reduce)
+    assert not torch.cuda.is_available()
+    spawn(W.solo_rank, args=(str(tmp_path),), timeout=W.JOIN_TIMEOUT)
+    with open(tmp_path / "solo.pkl", "rb") as f:
+        got = pickle.load(f)
+    assert (got["rank"], got["world"]) == (0, 1)
+    np.testing.assert_array_equal(got["t"], [0.0, 1.0, 2.0])

@@ -537,20 +537,99 @@ def test_flash_kernels_match_plain_on_card(dev, case):
 
 @pytest.mark.cuda
 def test_sdpa_on_card_launches_flash_or_raises(dev):
-    """sdpa on CUDA tensors takes the flash kernels at any supported
-    length, and raises where the kernels cannot go (no plain fallback)."""
+    """sdpa on CUDA tensors takes the flash kernels at any length and with
+    a mask (the score bias), and raises where the kernels cannot go (no
+    plain fallback): q and k of other lengths, a head dim outside the
+    tiles, a mask that requires grad."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
 
     g = torch.Generator(device=dev).manual_seed(1)
     q, k, v = _flash_inputs(dev, g, "bsnd", 2, 4, 2, 64, 64, torch.bfloat16)
     reset_launch_counts()
     sdpa(q, k, v, is_causal=True, layout="bsnd")
-    assert KERNELS["flash_fwd"] == 1
+    sdpa(q, k, v, mask=torch.ones(64, 64, dtype=torch.bool, device=dev),
+         layout="bsnd")
+    q7, k7, v7 = _flash_inputs(dev, g, "bnsd", 2, 4, 4, 197, 64,
+                               torch.bfloat16)
+    sdpa(q7, k7, v7)
+    assert KERNELS["flash_fwd"] == 3
     with pytest.raises(NotImplementedError, match="head_dim"):
         sdpa(q[..., :12], k[..., :12], v[..., :12], layout="bsnd")
-    with pytest.raises(NotImplementedError, match="mask"):
-        sdpa(q, k, v, mask=torch.ones(64, 64, dtype=torch.bool, device=dev),
-             layout="bsnd")
+    with pytest.raises(NotImplementedError, match="lengths"):
+        sdpa(q7, k7[:, :, :64], v7[:, :, :64])
+    with pytest.raises(NotImplementedError, match="grad"):
+        sdpa(q7, k7, v7, mask=torch.zeros(2, 1, 1, 197, device=dev,
+                                          requires_grad=True))
+    assert KERNELS["flash_fwd"] == 3
+
+
+# the biased cases: layout, B, H, Hkv, S, D, causal, mask kind ("pad": a
+# [B, 1, 1, S] float mask of 0 / -1e4 on 0-S/2 padded keys a row, ERNIE's;
+# "bool": an [S, S] boolean mask, a decoder's; "full": a float [B, H, S, S]
+# one; None), at ViT-base's S=197 and a small ERNIE-like S=512 batch; the
+# GQA cases (H=12 over Hkv=4, seq-major: bnsd takes no GQA) have each
+# query head of a KV group read its own slice of a full bias
+BIAS_CASES = [
+    ("bnsd", 2, 12, 12, 197, 64, False, None),
+    ("bnsd", 2, 12, 12, 512, 64, False, "pad"),
+    ("bnsd", 1, 4, 4, 256, 64, False, "bool"),
+    ("bsnd", 1, 4, 4, 136, 128, True, "full"),
+    ("bnsd", 1, 2, 2, 77, 256, False, "pad"),
+    ("bsnd", 2, 12, 4, 197, 64, False, "pad"),
+    ("bsnd", 2, 12, 4, 197, 64, False, "full"),
+    ("sbnd", 2, 12, 4, 256, 64, False, "pad"),
+    ("sbnd", 2, 12, 4, 256, 64, True, "full"),
+]
+
+
+def _bias(dev, g, kind, b, h, s):
+    if kind == "pad":
+        n = torch.randint(s // 2, s + 1, (b, 1), device=dev, generator=g)
+        keep = torch.arange(s, device=dev)[None, :] < n
+        return torch.where(keep, 0.0, -1e4)[:, None, None]
+    if kind == "bool":
+        m = torch.rand(s, s, device=dev, generator=g) > 0.4
+        return m | torch.eye(s, dtype=torch.bool, device=dev)
+    if kind == "full":
+        return torch.randn(b, h, s, s, device=dev, generator=g)
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BIAS_CASES,
+                         ids=[f"{c[0]}-h{c[2]}kv{c[3]}-s{c[4]}-d{c[5]}-"
+                              f"{c[7]}{'-causal' if c[6] else ''}"
+                              for c in BIAS_CASES])
+def test_flash_kernels_with_bias_match_plain_on_card(dev, case):
+    """The forward, dQ and dK/dV kernels with a score bias (mask_bias of
+    the case's mask, read in place through its strides) against their
+    plain versions on the same inputs and bias, fp32 and bf16, within
+    FLASH_TOL; a second launch is bit-identical."""
+    from paddle_tpu_torch.kernels.flash import mask_bias
+
+    layout, b, h, hkv, s, d, causal, kind = case
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    for dtype, tol in FLASH_TOL.items():
+        q, k, v = _flash_inputs(dev, g, layout, b, h, hkv, s, d, dtype)
+        bias = mask_bias(_bias(dev, g, kind, b, h, s), q, layout)
+        out, lse = flash_fwd(q, k, v, causal, None, None, layout, bias)
+        ref, rlse = flash_fwd_plain(q, k, v, causal, None, None, layout,
+                                    bias)
+        torch.cuda.synchronize()
+        _close(out, ref, tol["out"], f"{dtype} out")
+        _close(lse, rlse, tol["lse"], f"{dtype} lse")
+        do = torch.randn(ref.shape, device=dev, generator=g).to(dtype)
+        got = flash_bwd(q, k, v, ref, rlse, do, causal, None, None, layout,
+                        bias)
+        want = flash_bwd_plain(q, k, v, ref, rlse, do, causal, None, None,
+                               layout, bias)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            _close(x, y, tol[name], f"{dtype} {name}")
+        again = flash_bwd(q, k, v, ref, rlse, do, causal, None, None, layout,
+                          bias)
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
 
 
 def _update_ratios(cfg, names, got, want, init):
@@ -587,13 +666,13 @@ def test_train_step_on_card_matches_cpu(dev, over, remat, update_rtol):
     import numpy as np
 
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models import GPTConfig, GPTParams
     from paddle_tpu_torch.models.gpt import build_functional_train_step
 
     cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
                     num_heads=4, max_seq_len=64, **over)
-    cpu = GPTForPretraining(cfg, device="cpu", dtype=torch.float32, seed=2)
-    card = GPTForPretraining(cfg, device=dev, dtype=torch.float32, seed=2)
+    cpu = GPTParams(cfg, device="cpu", dtype=torch.float32, seed=2)
+    card = GPTParams(cfg, device=dev, dtype=torch.float32, seed=2)
     card.load_state_dict(cpu.state_dict())
     names = {p.data_ptr(): n for n, p in cpu.named_parameters()}
     names = [names[p.data_ptr()] for p in cpu.leaves()]
@@ -664,12 +743,12 @@ def test_double_buffer_leaves_the_decode_in_flight(dev, monkeypatch):
     dispatch keeps the card busy, so the engine's flag
     (``retires_in_flight``), not a time, shows it; any sync in dispatch or
     in the next step's admission would have drained the spin first."""
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models import GPTConfig, GPTParams
     from paddle_tpu_torch.serving import ServingEngine
 
     cfg = GPTConfig(vocab_size=4096, hidden_size=512, num_layers=4,
                     num_heads=4, max_seq_len=256)
-    model = GPTForPretraining(cfg, seed=0)
+    model = GPTParams(cfg, seed=0)
     eng = ServingEngine(model, max_slots=2, page_size=32, double_buffer=True)
     rid = eng.add_request(torch.arange(40).numpy(), 8)
     eng.step()                       # admit, prefill, first dispatch
@@ -770,12 +849,12 @@ def test_frontend_stream_on_card_equals_its_finished_request(dev):
     import numpy as np
 
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models import GPTConfig, GPTParams
     from paddle_tpu_torch.serving import ServingEngine, serve
 
     cfg = GPTConfig(vocab_size=4096, hidden_size=512, num_layers=2,
                     num_heads=4, max_seq_len=256)
-    model = GPTForPretraining(cfg, seed=0, dtype=torch.float32)
+    model = GPTParams(cfg, seed=0, dtype=torch.float32)
     prompt = np.arange(3, 43) % 4096
     want = ServingEngine(model, max_slots=2, page_size=32).run(
         [(prompt, 12)])

@@ -41,7 +41,7 @@ from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.ops import nn_ops as jnn
 from paddle_tpu_torch.framework import random as trand
 from paddle_tpu_torch.kernels import attention as tatt
-from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+from paddle_tpu_torch.models.gpt import (GPTConfig, GPTParams,
                                          build_functional_train_step)
 from paddle_tpu_torch.ops import dropout as tdropout
 from paddle_tpu_torch.weights import (load_jax_named_params,
@@ -85,7 +85,7 @@ def _pair(seed=0, **over):
     paddle.seed(seed)
     jm = jgpt.GPTForPretraining(jgpt.GPTConfig(**{**CFG, **over}))
     named = [(n, np.asarray(p._array)) for n, p in jm.named_parameters()]
-    tm = GPTForPretraining(GPTConfig(**{**CFG, **over}), device="cpu")
+    tm = GPTParams(GPTConfig(**{**CFG, **over}), device="cpu")
     load_jax_named_params(tm, named)
     return jm, tm
 

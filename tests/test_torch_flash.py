@@ -182,9 +182,10 @@ def test_first_query_dq_matches_reference_exactly(case):
 
 
 def test_dq_launch_hands_the_kernel_out(monkeypatch):
-    """The dQ kernel's launch passes q, k, v, out, dout, lse, delta, dq and
+    """The dQ kernel's launch passes q, k, v, out, dout, lse, delta, dq,
     the strides of the five [B, S, H, D] views and dq (out stays in the
-    C entry point's interface; the kernels read delta)."""
+    C entry point's interface; the kernels read delta), then a null bias
+    and its zero strides."""
     import ctypes
     import types
 
@@ -195,7 +196,9 @@ def test_dq_launch_hands_the_kernel_out(monkeypatch):
     def kernel(name):
         def launch(*a):      # the strides live for the call only
             ptr = ctypes.cast(a[8], ctypes.POINTER(ctypes.c_longlong))
-            calls.append((name, a, [ptr[i] for i in range(18)]))
+            bptr = ctypes.cast(a[10], ctypes.POINTER(ctypes.c_longlong))
+            calls.append((name, a, [ptr[i] for i in range(18)]
+                          + [bptr[i] for i in range(4)]))
             return 0
         return launch
 
@@ -213,8 +216,9 @@ def test_dq_launch_hands_the_kernel_out(monkeypatch):
     assert args[3] == out.data_ptr() and args[4] == do.data_ptr()
     assert args[5] == lse.data_ptr() and args[6] == delta.data_ptr()
     assert strides == [st for t in (q, k, v, out, do, dq)
-                       for st in t.stride()[:3]]
-    assert args[9:14] == (b, h, hkv, s, d)
+                       for st in t.stride()[:3]] + [0] * 4
+    assert args[9] is None
+    assert args[11:16] == (b, h, hkv, s, d)
 
 
 
@@ -251,7 +255,8 @@ def test_fwd_launch_reads_bnsd_head_views_in_place(monkeypatch):
     assert args[:3] == tuple(t.data_ptr() for t in (q, k, v))
     assert strides == [st for t in (q, k, v, out)
                        for st in t.transpose(1, 2).stride()[:3]]
-    assert args[6:11] == (b, h, h, s, d)
+    assert args[6] is None
+    assert args[8:13] == (b, h, h, s, d)
 
 def _shapes():
     for layout in ("bnsd", "bsnd", "sbnd"):
@@ -454,3 +459,203 @@ def test_sdpa_refuses_what_is_not_ported():
     assert "head_dim" in tflash.unsupported_reason(torch.zeros(1, 2, 16, 12),
                                                    torch.zeros(1, 2, 16, 12))
     assert "mask" in tflash.unsupported_reason(q, q, mask=q)
+
+
+# ---------------------------------------------------------------------------
+# the score bias: the plain versions with a mask, against the reference's
+# _sdpa_reference (which takes masks) and its jax.vjp
+# ---------------------------------------------------------------------------
+
+# name, layout, B, H, Hkv, S, D, causal, mask kind: "pad" a [B, 1, 1, S]
+# float mask of 0 / -1e4 on padded keys (ERNIE's), "bool" an [S, S]
+# boolean mask (a decoder's), "full" a random float [B, H, S, S] mask,
+# None no mask (S=197: ViT-base/16's tokens, no block of 8 divides it);
+# the gqa cases (seq-major: bnsd takes no GQA, as in the reference) have
+# each query head of a KV group add its own bias slice
+BIAS_CASES = [
+    ("pad_b11s", "bnsd", 2, 3, 3, 24, 16, False, "pad"),
+    ("bool_ss", "bnsd", 2, 2, 2, 20, 16, False, "bool"),
+    ("s197", "bnsd", 1, 2, 2, 197, 16, False, None),
+    ("s197_pad", "bnsd", 2, 2, 2, 197, 16, False, "pad"),
+    ("full_causal", "bsnd", 2, 4, 4, 24, 16, True, "full"),
+    ("bool_sbnd", "sbnd", 2, 2, 2, 16, 32, False, "bool"),
+    ("gqa_pad_bsnd", "bsnd", 2, 6, 2, 24, 16, False, "pad"),
+    ("gqa_full_sbnd", "sbnd", 2, 6, 2, 20, 16, False, "full"),
+    ("gqa_full_bsnd_causal", "bsnd", 2, 6, 3, 20, 16, True, "full"),
+]
+
+
+def _mask(kind, b, h, s, seed):
+    """The case's mask as numpy, in the reference's bnsd terms."""
+    rng = np.random.RandomState(seed)
+    if kind == "pad":
+        keep = np.arange(s)[None, :] < rng.randint(s // 2, s + 1, (b, 1))
+        return np.where(keep, 0.0, -1e4).astype(np.float32)[:, None, None]
+    if kind == "bool":
+        m = rng.rand(s, s) > 0.4
+        m[np.arange(s), np.arange(s)] = True       # no row fully masked
+        return m
+    if kind == "full":
+        return rng.randn(b, h, s, s).astype(np.float32)
+    return None
+
+
+def _bias_case(case, seed):
+    name, layout, b, h, hkv, s, d, causal, kind = case
+    q, k, v = _inputs((layout, b, h, hkv, s, d), seed)
+    return layout, causal, q, k, v, _mask(kind, b, h, s, seed + 1)
+
+
+def _ref_mask(mask, h, hkv):
+    """The mask as _sdpa_reference takes it: with GQA its logits are
+    [B, Hkv, H/Hkv, S, S], so a mask over q's [B, H] (or [B, 1]) heads
+    gains that split; an [S, S] mask broadcasts as it is."""
+    if mask is None or h == hkv or mask.ndim < 4:
+        return mask
+    b, mh = mask.shape[:2]
+    return mask.reshape(b, *((hkv, h // hkv) if mh == h else (1, 1)),
+                        *mask.shape[2:])
+
+
+def _ref_masked_lse(q, k, causal, mask):
+    """logsumexp of the reference's scaled scores with the mask applied
+    as _sdpa_reference applies it, (B*H, S)."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    logits = jnp.einsum("bngqd,bnkd->bngqk",
+                        jnp.asarray(q).reshape(b, hkv, h // hkv, s, d),
+                        jnp.asarray(k)) / np.sqrt(d)
+    logits = logits.reshape(b, h, s, s)
+    if causal:
+        logits = jnp.where(np.tril(np.ones((s, s), bool)), logits, -jnp.inf)
+    if mask is not None:
+        logits = (jnp.where(mask, logits, -1e9) if mask.dtype == bool
+                  else logits + mask)
+    return np.asarray(jax.nn.logsumexp(logits, axis=-1)).reshape(b * h, s)
+
+
+@pytest.mark.parametrize("case", BIAS_CASES, ids=[c[0] for c in BIAS_CASES])
+def test_plain_with_bias_matches_reference(case):
+    """flash_fwd_plain with the mask's bias (mask_bias) against
+    _sdpa_reference with the mask, and lse against the masked scores'
+    logsumexp; flash_bwd_plain and autograd through ``attention`` against
+    jax.vjp of the reference.  fp32, 1e-5: summation order only (a boolean
+    mask's -1e9 is added to the score where the reference replaces it,
+    which leaves a masked key's probability 0 either way)."""
+    layout, causal, q, k, v, mask = _bias_case(case, seed=11)
+    g = np.random.RandomState(13).randn(*q.shape).astype(np.float32)
+    rmask = _ref_mask(mask, q.shape[1], k.shape[1])
+    ref_fn = (lambda q, k, v: jatt._sdpa_reference(
+        q, k, v, mask=None if rmask is None else jnp.asarray(rmask),
+        is_causal=causal))
+    ref, vjp = jax.vjp(ref_fn, *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    tq, tk, tv = (_t(a, layout) for a in (q, k, v))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    bias = tflash.mask_bias(tmask, tq, layout)
+    out, lse = tflash.flash_fwd_plain(tq, tk, tv, causal, None, None, layout,
+                                      bias)
+    np.testing.assert_allclose(_from_layout(out.numpy(), layout),
+                               np.asarray(ref), **TOL)
+    np.testing.assert_allclose(lse.numpy(),
+                               _ref_masked_lse(q, k, causal, mask), **TOL)
+    plain = tflash.flash_bwd_plain(tq, tk, tv, out, lse, _t(g, layout),
+                                   causal, None, None, layout, bias)
+    aq, ak, av = (x.clone().requires_grad_() for x in (tq, tk, tv))
+    tatt_out = tflash.attention(aq, ak, av, causal=causal, layout=layout,
+                                bias=bias)
+    tatt_out.backward(_t(g, layout))
+    for got_p, got_a, w in zip(plain, (aq.grad, ak.grad, av.grad), want):
+        np.testing.assert_allclose(_from_layout(got_p.numpy(), layout), w,
+                                   **TOL)
+        np.testing.assert_allclose(_from_layout(got_a.numpy(), layout), w,
+                                   **TOL)
+
+
+def test_mask_bias_is_a_view_and_kernel_reason_decides():
+    """mask_bias reads a float mask in place (an expand view: stride 0 on
+    every broadcast dimension, the mask's own storage), turns a boolean
+    one into 0 / -1e9 at its own shape, and puts a 3-D bnsd q's scores at
+    [B*H, 1, S, S]; kernel_reason takes any length and a mask that
+    broadcasts, and refuses other lengths, a mask that requires grad or
+    does not broadcast, and head dims outside the tiles."""
+    b, h, s, d = 2, 3, 197, 64
+    q = torch.zeros(b, h, s, d)
+    pad = torch.zeros(b, 1, 1, s)
+    bias = tflash.mask_bias(pad, q)
+    assert bias.shape == (b, h, s, s) and bias.stride() == (s, 0, 0, 1)
+    assert bias.data_ptr() == pad.data_ptr()
+    dec = torch.rand(s, s) > 0.5
+    bias = tflash.mask_bias(dec, q)
+    assert bias.dtype == torch.float32 and bias.stride() == (0, 0, s, 1)
+    assert set(bias.unique().tolist()) == {0.0, -1e9}
+    seq = q.transpose(1, 2)                            # bsnd
+    assert tflash.mask_bias(pad, seq, "bsnd").stride() == (s, 0, 0, 1)
+    q3 = torch.zeros(b * h, s, d)
+    assert tflash.mask_bias(torch.zeros(s, s), q3).shape == (b * h, 1, s, s)
+
+    assert tflash.kernel_reason(q, q) is None           # S=197
+    assert tflash.kernel_reason(q, q, pad) is None
+    assert tflash.kernel_reason(seq, seq, pad, "bsnd") is None
+    assert "lengths" in tflash.kernel_reason(q, torch.zeros(b, h, 64, d))
+    assert "head_dim" in tflash.kernel_reason(torch.zeros(1, 2, 16, 12),
+                                              torch.zeros(1, 2, 16, 12))
+    assert "grad" in tflash.kernel_reason(q, q, pad.requires_grad_())
+    assert "broadcast" in tflash.kernel_reason(q, q, torch.zeros(b, 5, s, s))
+    assert "broadcast" in tflash.kernel_reason(
+        q, q, torch.zeros(1, b, h, s, s))
+    # the reference's own gate is kept for its callers
+    assert "mask" in tflash.unsupported_reason(q, q, mask=pad)
+    assert "sequence length" in tflash.unsupported_reason(q, q)
+
+
+def test_fwd_launch_hands_the_kernel_the_bias(monkeypatch):
+    """A [B, 1, 1, S] float mask reaches the forward and backward kernels
+    as its own pointer with element strides (S, 0, 0, 1), at S=197; a
+    boolean [S, S] one as a 0 / -1e9 fp32 tensor with (0, 0, S, 1); a
+    bias that is not mask_bias's fp32 view of the scores is refused."""
+    import ctypes
+    import types
+
+    from paddle_tpu_torch.kernels import _build
+
+    calls = []
+
+    def kernel(name):
+        def launch(*a):
+            at = 6 if name == "flash_fwd" else 9
+            ptr = ctypes.cast(a[at + 1], ctypes.POINTER(ctypes.c_longlong))
+            calls.append((name, a[at], [ptr[i] for i in range(4)]))
+            return 0
+        return launch
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    b, h, s, d = 2, 4, 197, 64
+    q, k, v = (torch.randn(b, h, s, d) for _ in range(3))
+    pad = torch.zeros(b, 1, 1, s)
+    bias = tflash.mask_bias(pad, q)
+    tflash.flash_fwd_cuda(q, k, v, False, 0.125, None, "bnsd", bias)
+    tflash.flash_bwd(q, k, v, q, torch.zeros(b * h, s), q, False, 0.125,
+                     None, "bnsd", bias)
+    # flash_bwd on CPU tensors takes the plain version: launch it directly
+    delta = torch.zeros(b * h, s, 2)
+    tflash.flash_bwd_dq_cuda(q, k, v, q, torch.zeros(b * h, s), delta, q,
+                             False, 0.125, None, "bnsd", bias)
+    tflash.flash_bwd_dkv_cuda(q, k, v, torch.zeros(b * h, s), delta, q,
+                              False, 0.125, None, "bnsd", bias)
+    dec = tflash.mask_bias(torch.ones(s, s, dtype=torch.bool), q)
+    tflash.flash_fwd_cuda(q, k, v, False, 0.125, None, "bnsd", dec)
+    assert [c[0] for c in calls] == ["flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv", "flash_fwd"]
+    for _, ptr, strides in calls[:3]:
+        assert ptr == pad.data_ptr() and strides == [s, 0, 0, 1]
+    assert calls[3][1] == dec.data_ptr() and calls[3][2] == [0, 0, s, 1]
+    # the launchers take mask_bias's fp32 [B, H, S, S] view, not the mask
+    with pytest.raises(ValueError, match="bias"):
+        tflash.flash_fwd_cuda(q, k, v, False, 0.125, None, "bnsd", pad)
+    with pytest.raises(ValueError, match="bias"):
+        tflash.flash_bwd_dkv_cuda(q, k, v, torch.zeros(b * h, s), delta, q,
+                                  False, 0.125, None, "bnsd", bias.double())

@@ -370,3 +370,46 @@ def test_recompute_gpt_block_is_bit_identical(interpretable):
     np.testing.assert_array_equal(rx, px)
     for a, b in zip(rg, pg):
         np.testing.assert_array_equal(a, b)
+
+
+def test_batchnorm_at_dp2_normalises_by_the_global_batch(tmp_path):
+    """ROADMAP C.4: BatchNorm2D at dp=2 through ``fleet.distributed_model``
+    (two gloo ranks, an 8 x 4 x 3 x 3 batch whose second half, rank 1's,
+    is shifted by +3) against the reference's BatchNorm2D over the whole
+    batch on one CPU device: the output, the parameters' gradients (the
+    wrapper's average of the ranks' ``mean(out * g)`` on their rows is the
+    gradient of the global ``mean(out * g)``), the input's gradient (a
+    rank's is the gradient of its own loss on its rows: 2x the global
+    one's there, 0 elsewhere) and both running statistics, within 1e-5
+    relative to each tensor's largest value (the reference on two virtual
+    devices agrees with itself within 1.2e-7)."""
+    r = np.random.RandomState(0)
+    x = r.randn(8, 4, 3, 3).astype("float32")
+    x[4:] += 3.0
+    g = r.randn(*x.shape).astype("float32")
+    # one fresh name generator for the whole reference run: its tape
+    # tells tensors apart by name
+    old = jnames.switch()
+    try:
+        jp.seed(0)
+        bn = jnn.BatchNorm2D(4, momentum=0.8)
+        state = {k: np.asarray(v.numpy())
+                 for k, v in bn.state_dict().items()}
+        jx = jp.to_tensor(x, stop_gradient=False)
+        out = bn(jx)
+        jp.mean(out * jp.to_tensor(g)).backward()
+        want = {"out": out.numpy(), "dx": jx.grad.numpy(),
+                "dw": bn.weight.grad.numpy(), "db": bn.bias.grad.numpy(),
+                "mean": bn._mean.numpy(), "var": bn._variance.numpy()}
+    finally:
+        jnames.switch(old)
+    ranks = W.run(tmp_path, 2, "bn_dp", {"x": x, "g": g, "state": state})
+    got = {"out": np.concatenate([rk["out"] for rk in ranks]),
+           "dx": (ranks[0]["dx"] + ranks[1]["dx"]) / 2}
+    for k in ("dw", "db", "mean", "var"):
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+        got[k] = ranks[0][k]
+    assert np.abs(ranks[0]["dx"][4:]).max() == 0
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=1e-5, atol=1e-5 * max(
+            1.0, float(np.abs(w).max())), err_msg=k)

@@ -21,7 +21,7 @@ from paddle_tpu.models import generation as jgen
 from paddle_tpu.models.gpt import GPTConfig as JConfig
 from paddle_tpu.models.gpt import GPTForPretraining as JModel
 from paddle_tpu_torch.models import generation as tgen
-from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, gpt_tiny
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTParams, gpt_tiny
 from paddle_tpu_torch.weights import load_jax_params, params_from_jax
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -38,7 +38,7 @@ def _pair(seed=3, **cfg):
     jm = JModel(JConfig(dropout=0.0, **cfg))
     jm.eval()
     tree = jax.tree_util.tree_map(np.asarray, jgen._decoder_setup(jm)[0])
-    tm = GPTForPretraining(GPTConfig(**cfg), device="cpu")
+    tm = GPTParams(GPTConfig(**cfg), device="cpu")
     load_jax_params(tm, tree)
     return jm, tm, tree
 

@@ -34,7 +34,7 @@ import paddle_tpu as paddle
 from paddle_tpu.dygraph.tensor import Tensor as JTensor
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.ops.dispatch import dispatch
-from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+from paddle_tpu_torch.models.gpt import (GPTConfig, GPTParams,
                                          build_functional_train_step)
 from paddle_tpu_torch.ops import w8a8_matmul
 from paddle_tpu_torch.weights import load_jax_named_params
@@ -48,7 +48,7 @@ def _pair(**over):
     jm = jgpt.GPTForPretraining(jgpt.GPTConfig(**CFG, **over))
     jm.eval()
     named = [(n, np.asarray(p._array)) for n, p in jm.named_parameters()]
-    tm = GPTForPretraining(GPTConfig(**CFG, **over), device="cpu")
+    tm = GPTParams(GPTConfig(**CFG, **over), device="cpu")
     tm.eval()
     load_jax_named_params(tm, named)
     return jm, tm

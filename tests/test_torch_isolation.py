@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.distributed import init_parallel_env
-from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+from paddle_tpu_torch.models import GPTConfig, GPTParams
 from paddle_tpu_torch.models.gpt import build_functional_train_step
 from paddle_tpu_torch.serving import (KVPool, ServingEngine, ServingFrontend,
                                       make_cluster)
@@ -64,7 +64,11 @@ def test_port_imports_no_jax_and_no_reference_at_runtime():
         "paddle_tpu_torch.vision.models.resnet, "
         "paddle_tpu_torch.vision.datasets, "
         "paddle_tpu_torch.nn.layer.conv, paddle_tpu_torch.nn.layer.pooling, "
-        "paddle_tpu_torch.models.step_builder, chip_smoke\n"
+        "paddle_tpu_torch.models.step_builder, "
+        "paddle_tpu_torch.nn.layer.transformer, "
+        "paddle_tpu_torch.vision.models.vit, paddle_tpu_torch.models.ernie, "
+        "paddle_tpu_torch.examples.train_vit, "
+        "paddle_tpu_torch.examples.pretrain_bert, chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps([len(new), bad]))\n")
@@ -94,8 +98,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     cfg = GPTConfig(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
                     max_seq_len=32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        GPTForPretraining(cfg)
-    model = GPTForPretraining(cfg, device="cpu")
+        GPTParams(cfg)
+    model = GPTParams(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
     assert ServingEngine(model, device="cpu").device.type == "cpu"

@@ -33,7 +33,7 @@ from paddle_tpu.distributed import fleet as jfleet
 from paddle_tpu.distributed import mesh as jmesh
 from paddle_tpu.distributed.fleet import meta_parallel as jmpp
 from paddle_tpu.models import gpt as jgpt
-from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+from paddle_tpu_torch.models.gpt import (GPTConfig, GPTParams,
                                          build_functional_train_step)
 from paddle_tpu_torch.weights import (gather_shards, load_jax_named_params,
                                       params_to_numpy, port_name)
@@ -258,7 +258,7 @@ def _reference(over, opts, mp, steps=3, dp=1, pp=1, sharding=1,
 
 
 def _port_single(named, over, opts, steps=3):
-    tm = GPTForPretraining(GPTConfig(**{**CFG, **over}), device="cpu")
+    tm = GPTParams(GPTConfig(**{**CFG, **over}), device="cpu")
     load_jax_named_params(tm, named)
     step, params, opt = build_functional_train_step(tm, **opts)
     ids, labels = _batch()

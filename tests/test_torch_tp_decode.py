@@ -23,7 +23,7 @@ import paddle_tpu as paddle
 from paddle_tpu.models import generation as jgen
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu_torch.models import build_beam_search_fn, build_generate_fn
-from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTParams
 from paddle_tpu_torch.weights import load_jax_named_params
 
 CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=2,
@@ -52,7 +52,7 @@ def decoded(tmp_path_factory):
         ref[name] = {"greedy": np.asarray(jgen.build_generate_fn(jm, NEW)(
             ids)), "beam": np.asarray(jgen.build_beam_search_fn(
                 jm, NEW, beam_size=3)(ids))}
-        tm = GPTForPretraining(GPTConfig(**cfg), device="cpu")
+        tm = GPTParams(GPTConfig(**cfg), device="cpu")
         load_jax_named_params(tm, named)
         tm.eval()
         single[name] = {

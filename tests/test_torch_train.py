@@ -36,8 +36,8 @@ import jax.numpy as jnp
 import paddle_tpu as paddle
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.ops import quant_ops as jq
-from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
-                                         GPTPretrainingCriterion,
+from paddle_tpu_torch.models.gpt import (GPTConfig, GPTParams,
+                                         GPTParamsCriterion,
                                          build_functional_train_step)
 from paddle_tpu_torch.ops import w8a8_matmul
 from paddle_tpu_torch.weights import (load_jax_named_params,
@@ -72,7 +72,7 @@ def _pair(over, seed=0):
     paddle.seed(seed)
     jm = jgpt.GPTForPretraining(jgpt.GPTConfig(**CFG, **over))
     named = [(n, np.asarray(p._array)) for n, p in jm.named_parameters()]
-    tm = GPTForPretraining(GPTConfig(**CFG, **over), device="cpu")
+    tm = GPTParams(GPTConfig(**CFG, **over), device="cpu")
     load_jax_named_params(tm, named)
     return jm, tm
 
@@ -153,7 +153,7 @@ def test_forward_and_criterion_match_reference(seq_major, int8):
     np.testing.assert_allclose(tlogits.detach().numpy(), jlogits.numpy(),
                                rtol=1e-5, atol=1e-5)
     jcrit = jgpt.GPTPretrainingCriterion(seq_major=seq_major)
-    tcrit = GPTPretrainingCriterion(seq_major=seq_major)
+    tcrit = GPTParamsCriterion(seq_major=seq_major)
     for lm in (None, mask):
         jl = jcrit(jlogits, paddle.to_tensor(labels),
                    None if lm is None else paddle.to_tensor(lm))
@@ -212,12 +212,12 @@ def test_options_that_are_not_ported_raise():
     for kw in ({"mesh": object()}, {"dp_axis": "dp"}, {"sharding_stage": 2}):
         with pytest.raises(RuntimeError, match="process group"):
             build_functional_train_step(tm, **kw)
-    m = GPTForPretraining(GPTConfig(**CFG, use_parallel=True), device="cpu")
+    m = GPTParams(GPTConfig(**CFG, use_parallel=True), device="cpu")
     with pytest.raises(RuntimeError, match="use_parallel.*process group"):
         build_functional_train_step(m)
     # dropout is ported: it drops in training mode and is the identity
     # in eval
-    m = GPTForPretraining(GPTConfig(**CFG, dropout=0.1), device="cpu")
+    m = GPTParams(GPTConfig(**CFG, dropout=0.1), device="cpu")
     build_functional_train_step(m)
     ids = np.zeros((1, 4), np.int64)
     assert not torch.equal(m(ids), m(ids))

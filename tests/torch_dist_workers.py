@@ -295,7 +295,7 @@ def train(payload):
 
     from paddle_tpu_torch.distributed import mesh as mesh_mod
     from paddle_tpu_torch.framework import random as trand
-    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTParams,
                                              build_functional_train_step)
     from paddle_tpu_torch.weights import load_jax_named_params
 
@@ -303,7 +303,7 @@ def train(payload):
     for run in payload["runs"]:
         mesh = _fleet(**run["dims"], stage=run.get("strategy_stage"))
         cfg = GPTConfig(**{**payload["cfg"], **run.get("over", {})})
-        model = GPTForPretraining(cfg, device="cpu")
+        model = GPTParams(cfg, device="cpu")
         load_jax_named_params(model, run.get("named", payload["named"]))
         if run.get("dtype"):
             model.to(getattr(torch, run["dtype"]))
@@ -363,14 +363,14 @@ def decode(payload):
     ``payload["models"]`` (a config and its named weights)."""
     from paddle_tpu_torch.models import (build_beam_search_fn,
                                          build_generate_fn)
-    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTParams
     from paddle_tpu_torch.weights import load_jax_named_params
 
     _fleet(mp=payload["mp"])
     ids, n = payload["ids"], payload["new"]
     out = []
     for cfg, named in payload["models"]:
-        model = GPTForPretraining(GPTConfig(**cfg, use_parallel=True),
+        model = GPTParams(GPTConfig(**cfg, use_parallel=True),
                                   device="cpu")
         load_jax_named_params(model, named)
         model.eval()
@@ -714,3 +714,54 @@ def fleet_checks(payload):
                      "state": state_dict_to_numpy(gpt)}
     out["wrappers"] = fleet_wrappers(payload)
     return out
+
+
+def solo_rank(tmp):
+    """The rank of ``spawn(solo_rank, (tmp,))`` with spawn's default
+    ``nprocs`` (one rank on a host without a card): a gloo group of one,
+    ``all_reduce`` with the reference's arguments (positional, then the
+    ``use_calc_stream`` keyword); writes its rank, world and result."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import distributed as D
+
+    env = D.init_parallel_env(backend="gloo",
+                              store_path=os.path.join(tmp, "solo.store"),
+                              timeout=GROUP_TIMEOUT)
+    t = torch.arange(3.0)
+    D.all_reduce(t, D.ReduceOp.SUM, None, True, True)
+    D.all_reduce(t, op=D.ReduceOp.MAX, use_calc_stream=False)
+    with open(os.path.join(tmp, "solo.pkl"), "wb") as f:
+        pickle.dump({"rank": env.rank, "world": env.world_size,
+                     "t": t.numpy()}, f)
+    dist.destroy_process_group()
+
+
+def bn_dp(payload):
+    """ROADMAP C.4's case: BatchNorm2D at dp=2 through
+    ``fleet.distributed_model``, from the reference's weights, on the
+    payload's global batch (each rank takes its rows): one training
+    forward, ``mean(out * g)`` on the rank's rows backward (the wrapper
+    averages the parameters' gradients over dp); returns the rank's
+    output rows, its input gradient, the parameters' gradients and the
+    running statistics."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    _fleet_init(dp=2)
+    with unique_name.guard():
+        bn = nn.BatchNorm2D(payload["x"].shape[1], momentum=0.8)
+    load_paddle_state_dict(bn, payload["state"])
+    model = fleet.distributed_model(bn)
+    x = tp.to_tensor(payload["x"], stop_gradient=False)
+    out = model(x)
+    g = tp.to_tensor(mesh_mod.shard_batch(payload["g"]))
+    tp.mean(out * g).backward()
+    return {"out": _np(out), "dx": _np(x.grad),
+            "dw": _np(bn.weight.grad), "db": _np(bn.bias.grad),
+            "mean": _np(bn._mean), "var": _np(bn._variance)}

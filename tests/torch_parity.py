@@ -18,7 +18,7 @@ from paddle_tpu.models.gpt import GPTConfig as JConfig
 from paddle_tpu.models.gpt import GPTForPretraining as JModel
 from paddle_tpu.serving import ServingEngine as JEngine
 from paddle_tpu_torch.models import generate
-from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTParams
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.weights import load_jax_params
 
@@ -44,7 +44,7 @@ def pair(seed=3, **over):
     jm = JModel(JConfig(**{**CFG, **over}, dropout=0.0))
     jm.eval()
     tree = jax.tree_util.tree_map(np.asarray, jgen._decoder_setup(jm)[0])
-    tm = GPTForPretraining(GPTConfig(**{**CFG, **over}), device="cpu")
+    tm = GPTParams(GPTConfig(**{**CFG, **over}), device="cpu")
     load_jax_params(tm, tree)
     return jm, tm
 
