@@ -275,7 +275,35 @@ its seconds):
     fp32, as (d) of phase 10; (d) ``pretrain_bert.py --model ernie`` at
     a small size, 3 steps card vs CPU in fp32 (1e-5) and under bf16
     ``auto_cast`` (2e-2).  ``--phase 11`` builds and runs this phase
-    alone (no result line).
+    alone (no result line);
+12. the encoder-decoder and the rec models: (a) the flash forward, dQ
+    and dK/dV with q and k of other lengths against their plain versions
+    at FLASH_TOL, bf16 and fp32 (``CROSS_CASES``: Transformer-base's
+    cross-attention B=96 H=8 Sq=200 Sk=256 with the source padding's
+    bias, a causal chunk Sq=64 over Sk=256, a decode step Sq=1, GQA in
+    bsnd, the decoder's -inf mask, Sq > Sk not causal), ``sdpa``
+    refusing causal Sq > Sk, and the cross-attention, causal-chunk
+    (bf16) and decode-step (fp32, forward) shapes timed beside the plain
+    versions, SDPA with a float ``attn_mask`` and the bound (rows
+    ``flash_*_cross_bf16``, ``flash_*_causal_offset_bf16``,
+    ``flash_fwd_decode_fp32``); (b) Transformer-base (d 512, 8 heads,
+    6 + 6 layers, FFN 2048, 37000 tied tokens, dropout 0.1) built from
+    the API's layers, through ``build_model_train_step`` (AdamW, bf16)
+    at batch 96 of 256 source and 200 target tokens with pad tails:
+    step ms, tokens/s, MFU, peak memory, busy share, and 18 launches of
+    each flash kernel a step asserted, all biased, 6 of them
+    cross-attention; (c) its greedy decode of 32 tokens through
+    ``TransformerDecoder.gen_cache`` (fp32, ``no_grad``): ms a token and
+    12 launches a token asserted; (d) a small Transformer (2 + 2 layers,
+    d 64) through the generic step card vs CPU (3 fp32 steps, losses
+    within 1e-5) and its greedy decode card vs CPU (tokens equal, logits
+    within 1e-5); (e) DeepFM and wide&deep at 26 fields x 1,000,000 rows
+    (442.5M parameters, dense gradients), batch 4096, eagerly (Adam) and
+    through the generic step (AdamW without decay): step ms,
+    examples/s, peak memory, busy share; (f) a small DeepFM card vs CPU,
+    10 Adam steps (losses within 1e-5) and its held-out AUC (within
+    1e-4).  ``--phase 12`` builds and runs this phase alone (no result
+    line).
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -300,7 +328,8 @@ bf16 (``flash_fwd_gpt760m_fp32`` ...), with their launches on phase 9's
 plain fp32 run and its bf16 run (and under ``launches_in`` on its other
 fp32 runs), and at ViT-base's and ERNIE-3.0-base's attention in bf16
 (``flash_fwd_vit_bf16`` ...), with their launches on phase 11's runs (a)
-and (b) (and, for ERNIE, under ``launches_in`` on (c) and (d)); their
+and (b) (and, for ERNIE, under ``launches_in`` on (c) and (d)), and at
+phase 12's shapes, with their launches on its runs (b) and (c); their
 bounds are at the peak of the arithmetic each uses:
 bf16 tensor cores (989 TFLOP/s), the fp32 kernels' three TF32 products
 an operation (495 / 3 TFLOP/s).
@@ -395,11 +424,21 @@ def phase_build():
     for name in _build.SOURCES:
         ptxas = _build.BUILD_DIR / f"{name}.ptxas.txt"
         if ptxas.exists():
+            entries = reports = 0
             for line in ptxas.read_text().splitlines():
                 if "Compiling entry function" in line:
                     log(f"  {name}: {line.split(chr(39))[1]}")
+                    entries += 1
                 elif "registers" in line or "spill" in line:
                     log(f"    {line.strip()}")
+                    reports += "registers" in line
+            # nvcc --split-compile runs ptxas in threads: each entry must
+            # still come with its own register report
+            log(f"  {name}: {entries} entry functions, {reports} register "
+                "reports")
+            if entries != reports:
+                raise AssertionError(f"ptxas -v of {name}.cu: {entries} "
+                                     f"entries but {reports} reports")
     smem = _build.kernel("flash_bwd_smem")
     log("  flash_bwd dynamic shared memory, bytes by padded D (dQ, dK/dV): "
         + "; ".join(f"{dt} " + ", ".join(
@@ -2204,9 +2243,14 @@ def update_ratios(torch, cfg, names, got, want, init):
     with the share of elements more than 1e-6 apart.  The key part of the
     QKV bias is left out: it adds q.b_k to a whole row of scores, which
     the softmax cancels, so its gradient is zero but for rounding, and
-    AdamW steps each side by ~lr on its own noise there."""
+    AdamW steps each side by ~lr on its own noise there; so is a key
+    projection's bias (``k_proj.bias``) whole."""
     ratios = {}
     for name, a, b, a0 in zip(names, got, want, init):
+        if name.endswith("k_proj.bias"):
+            # a bias on the keys alone: the softmax cancels all of it
+            log(f"  update {name}: left out (its gradient is rounding)")
+            continue
         if name.endswith("qkv_b"):
             keep = torch.ones(a.numel(), dtype=torch.bool)
             keep[cfg.hidden_size:
@@ -3624,17 +3668,28 @@ ERNIE_SMALL = ["--model", "ernie", "--hidden", "64", "--layers", "2",
                "4", "--masked", "8"]
 
 
-def _mask(torch, g, kind, b, s, h=1):
-    """The case's attention mask on the card (None for none)."""
-    if kind == "pad":
-        pad = torch.randint(0, 257, (b, 1), device="cuda", generator=g)
-        keep = torch.arange(s, device="cuda")[None, :] < s - pad
-        return torch.where(keep, 0.0, -1e4)[:, None, None, :]
+def _mask(torch, g, kind, b, s, h=1, sk=None):
+    """The case's attention mask on the card (None for none) for s queries
+    over ``sk`` keys (None: s): "pad" a [B, 1, 1, Sk] float mask of 0 /
+    -1e4 with 0 to Sk/2 padded keys a row; "neginf" that plus -inf above
+    the diagonal aligned at the bottom right ([B, 1, S, Sk], a decoder's
+    ``generate_square_subsequent_mask`` and padding); "bool" an [S, S]
+    boolean mask; "full" a random float [B, H, S, Sk] one."""
+    sk = s if sk is None else sk
+    if kind in ("pad", "neginf"):
+        pad = torch.randint(0, sk // 2 + 1, (b, 1), device="cuda",
+                            generator=g)
+        keep = torch.arange(sk, device="cuda")[None, :] < sk - pad
+        bias = torch.where(keep, 0.0, -1e4)[:, None, None, :]
+        if kind == "pad":
+            return bias
+        return bias + torch.triu(torch.full((s, sk), float("-inf"),
+                                            device="cuda"), 1 + sk - s)
     if kind == "bool":
         keep = torch.rand(s, s, device="cuda", generator=g) > 0.4
         return keep | torch.eye(s, dtype=torch.bool, device="cuda")
     if kind == "full":
-        return torch.randn(b, h, s, s, device="cuda", generator=g)
+        return torch.randn(b, h, s, sk, device="cuda", generator=g)
     return None
 
 
@@ -3678,14 +3733,18 @@ def _flash_biased(np, torch):
     torch.cuda.empty_cache()
 
 
-def _time_flash_model(np, torch, label, b, h, s, kind):
-    """The bf16 forward, dQ and dK/dV kernels at a model's attention (D=64,
-    bnsd head views, not causal, ``kind``'s mask as the score bias): held
-    to their plain versions with the same bias within FLASH_TOL (the
-    backward kernels from the plain forward's out and lse), timed by CUDA
-    events beside the plain versions and SDPA (the same float mask as its
-    ``attn_mask``); returns their kernels-line rows
-    ``flash_*_{label}_bf16``, each with its own max abs error here."""
+def _time_flash_model(np, torch, label, q, k, v, mask, causal=False,
+                      backward=True):
+    """The forward (and dQ, dK/dV) kernels at a model's attention (bnsd
+    head views ``q`` [B, H, Sq, D] and ``k``, ``v`` [B, H, Sk, D] as the
+    model hands them over, ``mask`` as the score bias): held to their
+    plain versions with the same bias within FLASH_TOL (the backward
+    kernels from the plain forward's out and lse), timed by CUDA events
+    beside the plain versions and SDPA with a float ``attn_mask`` (the
+    mask, and a causal band as a -inf mask aligned at the bottom right);
+    returns their kernels-line rows ``flash_*_{label}_{dtype}``, each
+    with its own max abs error here.  The bound counts the pairs a causal
+    band leaves visible."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
@@ -3693,76 +3752,93 @@ def _time_flash_model(np, torch, label, b, h, s, kind):
                                                 flash_bwd_dq_cuda, flash_delta,
                                                 flash_fwd_cuda, mask_bias)
 
-    d, dtype = 64, torch.bfloat16
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dt = "fp32" if q.dtype == torch.float32 else "bf16"
     g = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v = _qkv_views(torch, g, "bnsd", b, h, h, s, d, dtype)
-    mask = _mask(torch, g, kind, b, s)
-    bias = mask_bias(mask, q)
+    bias = mask_bias(mask, q, "bnsd", k)
     scale = 1.0 / np.sqrt(d)
-    opts = (False, scale, None, "bnsd", bias)
+    opts = (causal, scale, None, "bnsd", bias)
+    what = (f"(bnsd, B={b} H={h} Sq={sq} Sk={sk} D={d}, "
+            f"{'causal' if causal else 'not causal'}, {dt}, mask "
+            f"{None if mask is None else tuple(mask.shape)})")
     out, lse = flash_fwd_cuda(q, k, v, *opts)
     ref, rlse = flash_fwd_plain(q, k, v, *opts)
-    do = torch.randn(ref.shape, device="cuda", generator=g).to(dtype)
+    do = torch.randn(ref.shape, device="cuda", generator=g).to(q.dtype)
     delta = flash_delta(ref, do, "bnsd")
-    dq = flash_bwd_dq_cuda(q, k, v, ref, rlse, delta, do, *opts)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, rlse, delta, do, *opts)
-    want = flash_bwd_plain(q, k, v, ref, rlse, do, *opts)
+    parts = [("flash_fwd", "out", out, ref), ("flash_fwd", "lse", lse, rlse)]
+    calls = {"flash_fwd": lambda: flash_fwd_cuda(q, k, v, *opts)}
+    if backward:
+        dq = flash_bwd_dq_cuda(q, k, v, ref, rlse, delta, do, *opts)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, rlse, delta, do, *opts)
+        want = flash_bwd_plain(q, k, v, ref, rlse, do, *opts)
+        parts += [("flash_bwd_dq", "dq", dq, want[0]),
+                  ("flash_bwd_dkv", "dk", dk, want[1]),
+                  ("flash_bwd_dkv", "dv", dv, want[2])]
+        calls["flash_bwd_dq"] = lambda: flash_bwd_dq_cuda(
+            q, k, v, ref, rlse, delta, do, *opts)
+        calls["flash_bwd_dkv"] = lambda: flash_bwd_dkv_cuda(
+            q, k, v, rlse, delta, do, *opts)
     err = {}
-    for name, part, a, r in (("flash_fwd", "out", out, ref),
-                             ("flash_fwd", "lse", lse, rlse),
-                             ("flash_bwd_dq", "dq", dq, want[0]),
-                             ("flash_bwd_dkv", "dk", dk, want[1]),
-                             ("flash_bwd_dkv", "dv", dv, want[2])):
-        e = _flash_close(f"{name} {part} {label} (bnsd, B={b} H={h} S={s} "
-                         f"D={d}, not causal, bf16, mask {kind})", a, r,
-                         *FLASH_TOL["bf16"][part])
+    for name, part, a, r in parts:
+        e = _flash_close(f"{name} {part} {label} {what}", a, r,
+                         *FLASH_TOL[dt][part])
         err[name] = max(err.get(name, 0.0), e)
-    del out, lse, dq, dk, dv, want
-    calls = {"flash_fwd": lambda: flash_fwd_cuda(q, k, v, *opts),
-             "flash_bwd_dq": lambda: flash_bwd_dq_cuda(
-                 q, k, v, ref, rlse, delta, do, *opts),
-             "flash_bwd_dkv": lambda: flash_bwd_dkv_cuda(
-                 q, k, v, rlse, delta, do, *opts)}
+    del parts, out, lse
     ms = {name: time_ms(fn) for name, fn in calls.items()}
-    plain_fwd = time_ms(lambda: flash_fwd_plain(q, k, v, *opts), iters=3)
-    plain_bwd = time_ms(lambda: flash_bwd_plain(q, k, v, ref, rlse, do,
-                                                *opts), iters=3)
-    am = None if mask is None else mask.to(dtype)
-    lib = [x.detach().requires_grad_() for x in (q, k, v)]
+    plain = {"flash_fwd": time_ms(lambda: flash_fwd_plain(q, k, v, *opts),
+                                  iters=3)}
+    am = mask
+    if causal:
+        band = torch.triu(torch.full((sq, sk), float("-inf"), device="cuda"),
+                          1 + sk - sq)
+        am = band if am is None else am + band
+    am = None if am is None else am.to(q.dtype)
+    lib = {"flash_fwd": graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=am))}
+    if backward:
+        plain["flash_bwd_dq"] = plain["flash_bwd_dkv"] = time_ms(
+            lambda: flash_bwd_plain(q, k, v, ref, rlse, do, *opts), iters=3)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
 
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(*lib, attn_mask=am)
-        torch.autograd.grad(o, lib, do)
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=am)
+            torch.autograd.grad(o, leaves, do)
 
-    lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=am))
-    lib_bwd = graph_ms(sdpa_fwd_bwd) - lib_fwd
-    elems = b * h * s * d * 2                    # bytes of one operand
-    rows = b * h * s * 4                         # lse or delta
-    mbytes = 0 if mask is None else b * s * 4    # the [B, 1, 1, S] bias
-    full = b * h * s * s * d                     # every query-key pair
-    work = {"flash_fwd": (4 * elems + rows + mbytes, 4 * full),
-            "flash_bwd_dq": (5 * elems + 2 * rows + mbytes, 6 * full),
-            "flash_bwd_dkv": (6 * elems + 2 * rows + mbytes, 8 * full)}
+        lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = (
+            graph_ms(sdpa_fwd_bwd) - lib["flash_fwd"])
+        del leaves
+    elt = q.element_size()
+    qe, ke = b * h * sq * d * elt, b * h * sk * d * elt   # one operand
+    rows = b * h * sq * 4                                 # lse
+    drows = rows * (2 if dt == "fp32" else 1)             # delta
+    mbytes = 0 if mask is None else mask.numel() * 4      # the bias
+    pairs = b * h * (sq * (sk - sq) + sq * (sq + 1) // 2 if causal
+                     else sq * sk)
+    full = pairs * d
+    work = {"flash_fwd": (2 * qe + 2 * ke + rows + mbytes, 4 * full),
+            "flash_bwd_dq": (3 * qe + 2 * ke + rows + drows + mbytes,
+                             6 * full),
+            "flash_bwd_dkv": (2 * qe + 4 * ke + rows + drows + mbytes,
+                              8 * full)}
     results = {}
-    for name, (nbytes, ops) in work.items():
-        bms, by, peak = _flash_bound("bf16", nbytes, ops)
+    for name in calls:
+        nbytes, ops = work[name]
+        bms, by, peak = _flash_bound(dt, nbytes, ops)
         fwd = name == "flash_fwd"
-        results[f"{name}_{label}_bf16"] = dict(
-            ms=ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
-            bound_ms=bms, bound_by=by,
-            library_ms=lib_fwd if fwd else lib_bwd, max_abs_err=err[name])
-        log(f"{name} {label} (bf16): B={b} H={h} S={s} D={d} bnsd not "
-            f"causal, mask {kind}: {ms[name]:.4f} ms "
+        results[f"{name}_{label}_{dt}"] = dict(
+            ms=ms[name], plain_ms=plain[name], bound_ms=bms, bound_by=by,
+            library_ms=lib[name], max_abs_err=err[name])
+        log(f"{name} {label} {what}: {ms[name]:.4f} ms "
             f"({ops / ms[name] / 1e9:.1f} TFLOP/s), plain "
-            f"{plain_fwd if fwd else plain_bwd:.4f} ms (the whole "
+            f"{plain[name]:.4f} ms (the whole "
             f"{'forward' if fwd else 'backward'}), sdpa "
             f"{'forward' if fwd else 'fwd+bwd - fwd'} by graph replay "
-            f"{lib_fwd if fwd else lib_bwd:.4f} ms, bound {bms:.4f} ms "
+            f"{lib[name]:.4f} ms, bound {bms:.4f} ms "
             f"({by}; {ops:.4g} flop at {peak}, {nbytes} bytes; "
             f"{100 * bms / ms[name]:.1f}% of it)")
-    del q, k, v, mask, bias, ref, rlse, do, delta, lib
-    torch.cuda.empty_cache()
+    del q, k, v, mask, bias, ref, rlse, do, delta
+    _free(torch)
     return results
 
 
@@ -3977,9 +4053,15 @@ def phase_transformers(np, torch, card):
 
     paddle.set_device("gpu")
     _flash_biased(np, torch)
-    rows = _time_flash_model(np, torch, "vit", VIT["batch"], 12, 197, None)
-    rows.update(_time_flash_model(np, torch, "ernie", ERNIE["batch"], 12,
-                                  ERNIE["seq"], "pad"))
+    rows = {}
+    for label, b, s, kind in (("vit", VIT["batch"], 197, None),
+                              ("ernie", ERNIE["batch"], ERNIE["seq"], "pad")):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q, k, v = _qkv_views(torch, g, "bnsd", b, 12, 12, s, 64,
+                             torch.bfloat16)
+        rows.update(_time_flash_model(np, torch, label, q, k, v,
+                                      _mask(torch, g, kind, b, s)))
+        del q, k, v
     vit = _vit_step(np, torch, card)
     ernie = _ernie_step(np, torch, card)
     small = _small_parity(np, torch)
@@ -3993,6 +4075,581 @@ def phase_transformers(np, torch, card):
                               "fp32": example["fp32"],
                               "phase 11 (d) pretrain_bert --model ernie "
                               "bf16": example["bf16"]})}
+    log(card)
+    return rows, launches
+
+
+# -- phase 12 ----------------------------------------------------------------
+
+# Transformer-base (Vaswani et al. 2017; nn.Transformer's defaults): d_model
+# 512, 8 heads, 6 + 6 layers, FFN 2048, a shared 37000-token vocabulary
+# with the output tied to the embedding, residual dropout 0.1 and no
+# attention or activation dropout (tensor2tensor's transformer_base);
+# batch 96 of 256 source and 200 target tokens, each row's real length
+# drawn by the seed (source 128-256, target 100-200), pad id 0 after it;
+# greedy decode of DECODE_TOKENS tokens at that batch over the memory
+TRANSFORMER = dict(vocab=37000, d_model=512, heads=8, layers=6, ffn=2048,
+                   batch=96, src=256, tgt=200, dropout=0.1)
+DECODE_TOKENS = 32
+TRANSFORMER_SMALL = dict(vocab=128, d_model=64, heads=4, layers=2, ffn=128,
+                         batch=4, src=24, tgt=16, dropout=0.0)
+# BASELINE config 4: DeepFM and wide&deep at RecConfig's widths (26 fields,
+# 13 dense features, dim 16, tower 400-400-400) with 1,000,000 rows a
+# field (a Criteo-sized table of 26M rows), batch 4096, Adam 1e-3
+REC = dict(fields=26, vocab=1_000_000, batch=4096, lr=1e-3)
+REC_SMALL = dict(fields=8, vocab=500, batch=256, lr=1e-3)
+# the flash kernels with q and k of other lengths (D=64; bnsd head views
+# as MultiHeadAttention hands them over, bsnd for GQA): label, layout, B,
+# H, Hkv, Sq, Sk, causal, mask kind (``_mask``'s: "pad" the source padding,
+# "neginf" the decoder's mask)
+CROSS_CASES = (
+    ("cross", "bnsd", 96, 8, 8, 200, 256, False, "pad"),
+    ("causal_offset", "bnsd", 96, 8, 8, 64, 256, True, None),
+    ("decode", "bnsd", 96, 8, 8, 1, 256, False, "pad"),
+    ("gqa_cross", "bsnd", 8, 8, 2, 200, 256, False, "full"),
+    ("decoder_self", "bnsd", 8, 8, 8, 200, 200, False, "neginf"),
+    ("more_queries", "bnsd", 8, 8, 8, 256, 200, False, None),
+)
+
+
+def _cross_inputs(torch, g, layout, b, h, hkv, sq, sk, d, dtype):
+    """q of Sq rows and k, v of Sk rows: head views of one query and one
+    fused key-value projection output, as cross-attention's projections
+    give them."""
+    q = torch.randn(b, sq, h * d, device="cuda", generator=g).to(dtype)
+    kv = torch.randn(b, sk, 2 * hkv * d, device="cuda", generator=g).to(dtype)
+    k, v = torch.split(kv, [hkv * d, hkv * d], dim=-1)
+    q, k, v = (q.reshape(b, sq, h, d), k.reshape(b, sk, hkv, d),
+               v.reshape(b, sk, hkv, d))
+    if layout == "bnsd":
+        return tuple(t.transpose(1, 2) for t in (q, k, v))
+    return q, k, v
+
+
+def _flash_cross(np, torch):
+    """(a): the forward, dQ and dK/dV kernels with q and k of other lengths
+    against their plain versions on the card, each tensor within FLASH_TOL,
+    bf16 and fp32 (the backward kernels from the plain forward's out and
+    lse); nothing is NaN where whole key tiles score -inf.  Then the
+    decision on causal attention with more queries than keys: ``sdpa``
+    raises, and launches the kernels for the same shape not causal."""
+    from paddle_tpu_torch.kernels import KERNELS, flash_bwd_plain, \
+        flash_fwd_plain, reset_launch_counts, sdpa
+    from paddle_tpu_torch.kernels.flash import (flash_bwd, flash_fwd_cuda,
+                                                mask_bias)
+
+    d = 64
+    for case, layout, b, h, hkv, sq, sk, causal, kind in CROSS_CASES:
+        for dt in ("bf16", "fp32"):
+            dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt]
+            g = torch.Generator(device="cuda").manual_seed(sq + sk + h)
+            q, k, v = _cross_inputs(torch, g, layout, b, h, hkv, sq, sk, d,
+                                    dtype)
+            bias = mask_bias(_mask(torch, g, kind, b, sq, h, sk), q, layout,
+                             k)
+            scale = 1.0 / np.sqrt(d)
+            opts = (causal, scale, None, layout, bias)
+            out, lse = flash_fwd_cuda(q, k, v, *opts)
+            ref, rlse = flash_fwd_plain(q, k, v, *opts)
+            do = torch.randn(ref.shape, device="cuda", generator=g).to(dtype)
+            got = flash_bwd(q, k, v, ref, rlse, do, *opts)
+            want = flash_bwd_plain(q, k, v, ref, rlse, do, *opts)
+            torch.cuda.synchronize()
+            for name, part, a, r in (("flash_fwd", "out", out, ref),
+                                     ("flash_fwd", "lse", lse, rlse),
+                                     ("flash_bwd_dq", "dq", got[0], want[0]),
+                                     ("flash_bwd_dkv", "dk", got[1], want[1]),
+                                     ("flash_bwd_dkv", "dv", got[2],
+                                      want[2])):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{name} {part} {case} ({dt}) is "
+                                         "not finite")
+                _flash_close(
+                    f"{name} {part} {case} ({layout}, B={b} H={h} Hkv={hkv} "
+                    f"Sq={sq} Sk={sk} D={d}, "
+                    f"{'causal' if causal else 'not causal'}, {dt}, mask "
+                    f"{kind})", a, r, *FLASH_TOL[dt][part])
+            del q, k, v, bias, out, lse, ref, rlse, do, got, want
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = _cross_inputs(torch, g, "bnsd", 2, 8, 8, 256, 200, d,
+                            torch.bfloat16)
+    reset_launch_counts()
+    sdpa(q, k, v)
+    try:
+        sdpa(q, k, v, is_causal=True)
+    except NotImplementedError as e:
+        log(f"causal Sq=256 over Sk=200: sdpa raises ({e}); not causal it "
+            f"launched {KERNELS['flash_fwd']} forward kernel")
+    else:
+        raise AssertionError("sdpa took causal attention with Sq > Sk")
+    if KERNELS["flash_fwd"] != 1:
+        raise AssertionError(f"sdpa at Sq > Sk launched {KERNELS}")
+    torch.cuda.empty_cache()
+
+
+def _sinusoid(np, n, d):
+    pos = np.arange(n)[:, None] / np.power(10000.0, np.arange(0, d, 2) / d)
+    table = np.zeros((n, d), "float32")
+    table[:, 0::2], table[:, 1::2] = np.sin(pos), np.cos(pos)
+    return table
+
+
+def _seq2seq(np, c):
+    """A Transformer translation model from the API's layers: token
+    embedding times sqrt(d_model) plus sinusoidal positions,
+    ``nn.Transformer`` (post-norm, ReLU), logits by the embedding's
+    transpose (tied)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+
+    d = c["d_model"]
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            # N(0, d^-1/2), tensor2tensor's, so that the tied logits
+            # start near unit scale
+            self.embedding = nn.Embedding(c["vocab"], d, weight_attr=(
+                paddle.ParamAttr(initializer=nn.initializer.Normal(
+                    0.0, d ** -0.5))))
+            self.transformer = nn.Transformer(
+                d, c["heads"], c["layers"], c["layers"], c["ffn"],
+                dropout=c["dropout"], attn_dropout=0.0, act_dropout=0.0)
+            self.dropout = nn.Dropout(c["dropout"])
+            self._pos = _sinusoid(np, max(c["src"], c["tgt"]) + 64, d)
+
+        def embed(self, ids, start=0):
+            x = self.embedding(ids) * float(np.sqrt(d))
+            pos = paddle.to_tensor(self._pos[start:start + ids.shape[1]])
+            return self.dropout(x + paddle.cast(pos, x.dtype))
+
+        def logits(self, h):
+            return paddle.matmul(h, self.embedding.weight, transpose_y=True)
+
+        def forward(self, src, tgt, src_mask, tgt_mask):
+            h = self.transformer(self.embed(src), self.embed(tgt), src_mask,
+                                 tgt_mask, src_mask)
+            return self.logits(h)
+
+    return Seq2Seq()
+
+
+def _seq2seq_batch(np, c, seed=0):
+    """Source and target ids with pad tails of the seed's lengths (pad id
+    0, BOS 1), the decoder's input and labels, the source key-padding bias
+    [B, 1, 1, Ss] and the decoder's mask [B, 1, St, St]
+    (``generate_square_subsequent_mask`` plus the target padding)."""
+    from paddle_tpu_torch import nn
+
+    rng = np.random.RandomState(seed)
+    b, ss, st = c["batch"], c["src"], c["tgt"]
+    src = rng.randint(3, c["vocab"], (b, ss)).astype("int64")
+    tgt = rng.randint(3, c["vocab"], (b, st + 1)).astype("int64")
+    src_len = rng.randint(ss // 2, ss + 1, b)
+    tgt_len = rng.randint(st // 2, st + 2, b)
+    src[np.arange(ss)[None, :] >= src_len[:, None]] = 0
+    tgt[np.arange(st + 1)[None, :] >= tgt_len[:, None]] = 0
+    tgt[:, 0] = 1
+    src_mask = np.where(src == 0, -1e9, 0.0).astype("float32")[:, None, None]
+    causal = nn.Transformer.generate_square_subsequent_mask(None, st)
+    pad = np.where(tgt[:, :-1] == 0, -1e9, 0.0).astype("float32")
+    tgt_mask = (causal.numpy()[None, None] + pad[:, None, None]).astype(
+        "float32")
+    return (src, tgt[:, :-1], tgt[:, 1:], src_mask, tgt_mask), (src_len,
+                                                                tgt_len)
+
+
+def _seq2seq_loss(m, src, tgt_in, tgt_out, src_mask, tgt_mask):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+
+    logits = m(src, tgt_in, src_mask, tgt_mask)
+    v = logits.shape[-1]
+    return F.cross_entropy(paddle.reshape(logits, [-1, v]),
+                           paddle.reshape(tgt_out, [-1, 1]))
+
+
+def transformer_flops_per_step(c):
+    """Training flops of one step, 6 x the forward's multiply-adds: per
+    encoder layer and source token 4 d^2 (the projections) + 2 d f (the
+    FFN) + 2 Ss d (attention's two products); per decoder layer and target
+    token 4 d^2 + 2 St d (self-attention) + 2 d^2 + 2 Ss d (cross: q and
+    out; k and v per source token, 2 d^2) + 2 d f; the tied logits d V per
+    target token."""
+    d, f, n = c["d_model"], c["ffn"], c["layers"]
+    b, ss, st = c["batch"], c["src"], c["tgt"]
+    enc = n * ss * (4 * d * d + 2 * d * f + 2 * ss * d)
+    dec = n * (st * (4 * d * d + 2 * st * d + 2 * d * d + 2 * ss * d
+                     + 2 * d * f) + ss * 2 * d * d)
+    return 6.0 * b * (enc + dec + st * d * c["vocab"])
+
+
+class _CrossSpy(_BiasSpy):
+    """:class:`_BiasSpy` that also counts the launches whose q and k have
+    other lengths (cross-attention), by kernel."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.cross = dict.fromkeys(FLASH, 0)
+        inner = self._mod._launch
+
+        def launch(name, *args, **kw):
+            dims = args[2]
+            if dims[3] != dims[4]:
+                self.cross[name] += 1
+            return inner(name, *args, **kw)
+
+        self._mod._launch = launch
+        return self
+
+
+def _transformer_step(np, torch, card):
+    """(b): Transformer-base through ``build_model_train_step`` (AdamW,
+    bf16 compute, fp32 masters) on a resident batch: STEP_WARM +
+    STEP_TIMED steps, one profiled; asserts 18 launches of each flash
+    kernel a step (6 encoder self-attention, 6 decoder self-attention, 6
+    cross-attention at Sq=200, Sk=256), every one biased.  Returns the
+    model (its weights as built), the batch's source ids and mask, and
+    the launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models.step_builder import build_model_train_step
+
+    c = TRANSFORMER
+    paddle.seed(0)
+    model = _seq2seq(np, c)
+    batch, (src_len, tgt_len) = _seq2seq_batch(np, c)
+    n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+    log(f"Transformer-base: {n_params / 1e6:.1f}M parameters; source "
+        f"lengths {int(src_len.min())}-{int(src_len.max())} of {c['src']} "
+        f"({int(src_len.sum())} real tokens), target "
+        f"{int(tgt_len.min())}-{int(tgt_len.max())} of {c['tgt'] + 1}")
+    step, params, bufs, opt = build_model_train_step(
+        model, _seq2seq_loss, optimizer="adamw", lr=1e-4, weight_decay=0.01,
+        compute_dtype="bfloat16")
+    arrays = tuple(torch.as_tensor(a, device="cuda") for a in batch)
+    n = STEP_WARM + STEP_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _CrossSpy() as spy:
+        state, losses, times = _timed_steps(
+            np, torch, step, (params, bufs, opt), iter([arrays] * n))
+    total = {k: KERNELS[k] for k in FLASH}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = _profile(torch, "Transformer-base generic step",
+                    lambda: step(*state, *arrays))
+    step_s = float(np.mean(times[STEP_WARM:]))
+    src_tok, tgt_tok = c["batch"] * c["src"], c["batch"] * c["tgt"]
+    flops = transformer_flops_per_step(c)
+    log(f"Transformer-base generic step (AdamW, bf16, dropout "
+        f"{c['dropout']}; {card}): {1e3 * step_s:.1f} ms a step (timed "
+        f"{[round(1e3 * t, 1) for t in times[STEP_WARM:]]}, warm-up "
+        f"{[round(1e3 * t, 1) for t in times[:STEP_WARM]]}), "
+        f"{src_tok / step_s:.0f} source + {tgt_tok / step_s:.0f} target "
+        f"tokens/s, MFU {100 * flops / step_s / BF16_FLOPS:.2f}% of 989 "
+        f"TFLOP/s ({flops:.4g} flop a step); max_memory_allocated "
+        f"{peak:.2f} GiB; device busy {100 * busy:.1f}% of one profiled "
+        f"step; losses {[round(x, 4) for x in losses]}; flash launches a "
+        f"step {json.dumps({k: v // n for k, v in total.items()})}, with a "
+        f"score bias {json.dumps({k: v // n for k, v in spy.counts.items()})}"
+        f", cross-attention {json.dumps({k: v // n for k, v in spy.cross.items()})}")
+    want = {k: 18 * n for k in FLASH}
+    if (total != want or spy.counts != want
+            or spy.cross != {k: 6 * n for k in FLASH}):
+        raise AssertionError(f"Transformer-base launched {total} (biased "
+                             f"{spy.counts}, cross {spy.cross}); expected 18 "
+                             "of each a step, all biased, 6 cross")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"Transformer-base's generic step: losses "
+                             f"{losses}")
+    del step, params, bufs, opt, state, arrays
+    _free(torch)
+    return model, batch[0], batch[3], total
+
+
+def _greedy(np, paddle, model, src, src_mask, steps, keep_logits=False):
+    """Greedy decoding from BOS through ``TransformerDecoder.gen_cache``,
+    each step's token chosen on the model's device: the tokens (numpy,
+    read back once) and, with ``keep_logits``, each step's logits."""
+    m = paddle.to_tensor(src_mask)
+    memory = model.transformer.encoder(model.embed(paddle.to_tensor(src)), m)
+    cache = model.transformer.decoder.gen_cache(memory)
+    tok = paddle.to_tensor(np.ones((src.shape[0], 1), "int64"))
+    toks, logits = [], []
+    for t in range(steps):
+        h, cache = model.transformer.decoder(model.embed(tok, start=t),
+                                             memory, None, m, cache)
+        out = model.logits(h)
+        tok = paddle.argmax(out, axis=-1)
+        toks.append(tok)
+        if keep_logits:
+            logits.append(out)
+    toks = paddle.concat(toks, axis=1).numpy()
+    if keep_logits:
+        return toks, paddle.concat(logits, axis=1).numpy()
+    return toks
+
+
+def _transformer_decode(np, torch, card, model, src, src_mask):
+    """(c): greedy decode of DECODE_TOKENS tokens at batch 96 over the
+    memory of (b)'s source batch, fp32, under ``no_grad`` (the ``Cache``
+    grows in place): ms a token and 12 forward launches a token asserted
+    (6 against the growing ``Cache``, 6 against the ``StaticCache`` with
+    the source padding's bias); returns the run's launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    model.eval()
+    with paddle.no_grad():
+        _greedy(np, paddle, model, src, src_mask, 2)          # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with _CrossSpy() as spy:
+            t0 = time.perf_counter()
+            toks = _greedy(np, paddle, model, src, src_mask, DECODE_TOKENS)
+            wall = time.perf_counter() - t0
+        total = {k: KERNELS[k] for k in FLASH}
+        busy = _profile(torch, "Transformer-base greedy decode, 4 tokens",
+                        lambda: _greedy(np, paddle, model, src, src_mask, 4))
+    log(f"Transformer-base greedy decode ({card}): {DECODE_TOKENS} tokens at "
+        f"batch {src.shape[0]} over a memory of {src.shape[1]}: "
+        f"{1e3 * wall / DECODE_TOKENS:.2f} ms a token (host clock, "
+        f"encoder included), device busy {100 * busy:.1f}% (4 tokens "
+        f"profiled); flash launches {json.dumps(total)} "
+        f"({total.get('flash_fwd', 0) / DECODE_TOKENS:.1f} a token, biased "
+        f"{spy.counts.get('flash_fwd')}, q and k of other lengths "
+        f"{spy.cross.get('flash_fwd')}); first row's tokens "
+        f"{toks[0, :12].tolist()}")
+    # the encoder's 6 self-attention launches, then 12 a token
+    want = {k: 6 + 12 * DECODE_TOKENS if k == "flash_fwd" else 0
+            for k in FLASH}
+    cross = {k: 12 * DECODE_TOKENS if k == "flash_fwd" else 0 for k in FLASH}
+    if total != want or spy.cross != cross:
+        raise AssertionError(f"greedy decode launched {total} (cross "
+                             f"{spy.cross}); expected 6 + 12 a token")
+    model.train()
+    return total
+
+
+def _transformer_small_parity(np, torch):
+    """(d): a small Transformer (2 + 2 layers, d 64) through the generic
+    step on the card and the CPU, 3 fp32 steps (losses within 1e-5), and
+    greedy decoding card vs CPU from the same weights, token for token."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    c = TRANSFORMER_SMALL
+    batch, _ = _seq2seq_batch(np, c, seed=2)
+    _step_parity(np, torch, "Transformer (2 + 2, d 64)",
+                 lambda: _seq2seq(np, c), _seq2seq_loss, batch)
+    models = {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        with unique_name.guard():
+            paddle.seed(0)
+            models[dev] = _seq2seq(np, c)
+    load_paddle_state_dict(models["gpu"], {
+        k: v.numpy() for k, v in models["cpu"].state_dict().items()})
+    toks, logits = {}, {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        models[dev].eval()
+        with paddle.no_grad():
+            toks[dev], logits[dev] = _greedy(np, paddle, models[dev],
+                                             batch[0], batch[3], 12, True)
+    paddle.set_device("gpu")
+    rel = float(np.abs(logits["gpu"] - logits["cpu"]).max()
+                / np.abs(logits["cpu"]).max())
+    log(f"small Transformer greedy decode, card vs cpu: "
+        f"{toks['gpu'].tolist()} vs {toks['cpu'].tolist()}; each step's "
+        f"logits within {rel:.3e} of the largest (tol 1e-5)")
+    if not (np.array_equal(toks["gpu"], toks["cpu"]) and rel <= 1e-5):
+        raise AssertionError("greedy decoding on the card disagrees with "
+                             "the CPU")
+    del models
+    _free(torch)
+
+
+def _rec_batches(np, cfg, n, batch):
+    from paddle_tpu_torch.models import synthetic_click_batch
+
+    return [synthetic_click_batch(cfg, batch, seed=i) for i in range(n)]
+
+
+def _rec_loss(m, ids, dense, label):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.binary_cross_entropy_with_logits(m(ids, dense), label)
+
+
+def _rec_runs(np, torch, card):
+    """(e): DeepFM and wide&deep at 26 fields x 1,000,000 rows, batch 4096:
+    eagerly (``loss.backward()``, ``Adam.step()``, as the example) and
+    through ``build_model_train_step`` (AdamW without weight decay), with
+    dense gradients and updates; the batches made before the timed window
+    (each draws the table's hidden logits, 26M normals, on the host)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.models import DeepFM, RecConfig, WideDeep
+    from paddle_tpu_torch.models.step_builder import build_model_train_step
+
+    c = REC
+    cfg = RecConfig(field_vocab_sizes=(c["vocab"],) * c["fields"])
+    t0 = time.perf_counter()
+    batches = _rec_batches(np, cfg, STEP_WARM + STEP_TIMED, c["batch"])
+    log(f"rec batches: {len(batches)} of {c['batch']} in "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    cuda = [tuple(torch.as_tensor(a, device="cuda") for a in b)
+            for b in batches]
+    for name, cls in (("DeepFM", DeepFM), ("wide&deep", WideDeep)):
+        paddle.seed(0)
+        model = cls(cfg)
+        n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+        o = opt.Adam(c["lr"], parameters=model.parameters())
+
+        def eager(ids, dense, label):
+            loss = _rec_loss(model, paddle.to_tensor(ids),
+                             paddle.to_tensor(dense), paddle.to_tensor(label))
+            loss.backward()
+            o.step()
+            o.clear_grad()
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for b in cuda:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(eager(*b).numpy()))
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = _profile(torch, f"{name} eager step", lambda: eager(*cuda[0]))
+        step_s = float(np.mean(times[STEP_WARM:]))
+        log(f"{name} eager (Adam {c['lr']}, fp32, dense; {card}): "
+            f"{n_params / 1e6:.1f}M parameters, {1e3 * step_s:.2f} ms a "
+            f"step (timed {[round(1e3 * t, 2) for t in times[STEP_WARM:]]})"
+            f", {c['batch'] / step_s:.0f} examples/s; max_memory_allocated "
+            f"{peak:.2f} GiB; device busy {100 * busy:.1f}%; losses "
+            f"{[round(x, 4) for x in losses]}")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{name} eager: losses {losses}")
+        # the generic step from the same initial weights
+        del o, eager, model
+        _free(torch)
+        paddle.seed(0)
+        model = cls(cfg)
+        step, params, bufs, ost = build_model_train_step(
+            model, _rec_loss, optimizer="adamw", lr=c["lr"],
+            weight_decay=0.0, compute_dtype=None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, times = _timed_steps(np, torch, step,
+                                            (params, bufs, ost), iter(cuda))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = _profile(torch, f"{name} generic step",
+                        lambda: step(*state, *cuda[0]))
+        step_s = float(np.mean(times[STEP_WARM:]))
+        log(f"{name} generic step (AdamW {c['lr']}, no decay, fp32; {card}):"
+            f" {1e3 * step_s:.2f} ms a step (timed "
+            f"{[round(1e3 * t, 2) for t in times[STEP_WARM:]]}), "
+            f"{c['batch'] / step_s:.0f} examples/s; max_memory_allocated "
+            f"{peak:.2f} GiB; device busy {100 * busy:.1f}%; losses "
+            f"{[round(x, 4) for x in losses]}")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{name} generic step: losses {losses}")
+        del step, params, bufs, ost, state, model
+        _free(torch)
+    del cuda, batches
+    _free(torch)
+
+
+def _rec_small_parity(np, torch):
+    """(f): a small DeepFM, 10 fp32 Adam steps of the example's loop on the
+    card and on the CPU from the same weights (losses within 1e-5
+    relative) and its held-out AUC (within 1e-4)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.examples.train_deepfm import (held_out_auc,
+                                                        train_step)
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import DeepFM, RecConfig
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = REC_SMALL
+    cfg = RecConfig(field_vocab_sizes=(c["vocab"],) * c["fields"])
+    batches = _rec_batches(np, cfg, 10, c["batch"])
+    runs, state = {}, None
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        with unique_name.guard():
+            paddle.seed(0)
+            model = DeepFM(cfg)
+        if state is None:
+            state = {k: v.numpy() for k, v in model.state_dict().items()}
+        else:
+            load_paddle_state_dict(model, state)
+        o = opt.Adam(c["lr"], parameters=model.parameters())
+        losses = [float(train_step(model, o, b).numpy()) for b in batches]
+        runs[dev] = (losses, held_out_auc(cfg, model, batch=4096))
+    paddle.set_device("gpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["gpu"][0],
+                                                  runs["cpu"][0]))
+    auc = abs(runs["gpu"][1] - runs["cpu"][1])
+    log(f"small DeepFM, card vs cpu over 10 Adam steps: losses "
+        f"{[round(x, 6) for x in runs['gpu'][0]]} vs "
+        f"{[round(x, 6) for x in runs['cpu'][0]]}, worst rel {rel:.3e} (tol "
+        f"1e-5); held-out AUC {runs['gpu'][1]:.6f} vs {runs['cpu'][1]:.6f} "
+        f"(|diff| {auc:.2e}, tol 1e-4)")
+    if not (rel <= 1e-5 and auc <= 1e-4):
+        raise AssertionError("the small DeepFM on the card disagrees with "
+                             "the CPU")
+    _free(torch)
+
+
+def phase_seq2seq_rec(np, torch, card):
+    """Phase 12: the flash kernels with q and k of other lengths against
+    their plain versions, timed at the Transformer's cross-attention, a
+    causal chunk over a longer cache and a decode step; Transformer-base
+    through the generic step and greedy decode; the small Transformer
+    card vs CPU; DeepFM and wide&deep at 26M rows, eager and through the
+    generic step; the small DeepFM card vs CPU.  Returns the kernels-line
+    rows and each row's launches."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    _flash_cross(np, torch)
+    c = TRANSFORMER
+    rows = {}
+    for label, sq, causal, kind, dtype in (
+            ("cross", c["tgt"], False, "pad", torch.bfloat16),
+            ("causal_offset", 64, True, None, torch.bfloat16),
+            ("decode", 1, False, "pad", torch.float32)):
+        g = torch.Generator(device="cuda").manual_seed(sq)
+        q, k, v = _cross_inputs(torch, g, "bnsd", c["batch"], c["heads"],
+                                c["heads"], sq, c["src"], 64, dtype)
+        rows.update(_time_flash_model(
+            np, torch, label, q, k, v,
+            _mask(torch, g, kind, c["batch"], sq, sk=c["src"]), causal,
+            backward=label != "decode"))
+        del q, k, v
+    model, src, src_mask, trained = _transformer_step(np, torch, card)
+    decoded = _transformer_decode(np, torch, card, model, src, src_mask)
+    del model
+    _free(torch)
+    _transformer_small_parity(np, torch)
+    _rec_runs(np, torch, card)
+    _rec_small_parity(np, torch)
+    launches = {"cross": ("phase 12 (b) Transformer-base generic step bf16",
+                          trained),
+                "causal_offset": ("phase 12 (b) Transformer-base generic "
+                                  "step bf16 (a timing row: no run at this "
+                                  "shape)", trained),
+                "decode": ("phase 12 (c) Transformer-base greedy decode "
+                           "fp32", decoded)}
     log(card)
     return rows, launches
 
@@ -4053,6 +4710,12 @@ def main():
         phase_transformers(np, torch, card)
         done("11 the transformer encoders")
         return 0
+    if sys.argv[1:] == ["--phase", "12"]:
+        # phase 12 alone, for work on the encoder-decoder, the flash
+        # kernels at other lengths and the rec models: no result line
+        phase_seq2seq_rec(np, torch, card)
+        done("12 the encoder-decoder and the rec models")
+        return 0
     kernels = phase_paged(np, torch)
     kernels.update(phase_gemm(np, torch))
     kernels.update(phase_flash(np, torch))
@@ -4077,8 +4740,11 @@ def main():
     done("10 data and the generic step")
     encoder_kernels, encoder_runs = phase_transformers(np, torch, card)
     done("11 the transformer encoders")
+    seq_kernels, seq_runs = phase_seq2seq_rec(np, torch, card)
+    done("12 the encoder-decoder and the rec models")
     kernels.update(bert_kernels)
     kernels.update(encoder_kernels)
+    kernels.update(seq_kernels)
     line = []
     for name, k in kernels.items():
         src = name.split("_int")[0]
@@ -4091,7 +4757,18 @@ def main():
             src, f"paddle_tpu/kernels/paged_attention.py:{entry.get(src)}")
         more = {run: c[name] for run, c in cluster.items() if name in c}
         model = next((m for m in encoder_runs if f"_{m}_" in name), None)
-        if model is not None:
+        shape = next((m for m in seq_runs if f"_{m}_" in name), None)
+        if shape is not None:
+            base = name.split(f"_{shape}_")[0]
+            run, counts = seq_runs[shape]
+            n = counts[base]
+            src = "flash_fwd" if base == "flash_fwd" else "flash_bwd"
+            replaces = {"flash_fwd": "paddle_tpu/kernels/flash.py:74",
+                        "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
+                        "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"
+                        }[base]
+            log(f"{name}: {n} launches on the {run} run")
+        elif model is not None:
             base = name.split(f"_{model}_")[0]
             run, counts, others = encoder_runs[model]
             n = counts[base]

@@ -106,6 +106,7 @@ from .dygraph.parallel import DataParallel  # noqa: F401
 from . import io  # noqa: F401
 from . import reader  # noqa: F401
 from . import vision  # noqa: F401
+from . import metric  # noqa: F401
 from .io_api import batch, load, save  # noqa: F401
 
 VarBase = Tensor

@@ -39,7 +39,7 @@
 // and dS, rounded to bf16, is the A operand of dQ += dS.K directly (K's B
 // fragments by ldmatrix.trans): no S, P or dS tile touches shared memory.
 // Per-element masks run only on a warp's tiles that cross the diagonal,
-// the window's edge or row S.  At DP = 256 two warps share each 16 query
+// the window's edge or the last row.  At DP = 256 two warps share each 16 query
 // rows (DSPLIT = 2), each recomputing S and dP, so that dQ fits in
 // registers.
 //
@@ -127,11 +127,11 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
 
   auto load_kv = [&](int j) {
     bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
-    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.S, a.D);
-    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.S, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.Sk, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.Sk, a.D);
   };
-  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.S, a.D);
-  cp_rows<C::BQ, C::DP, C::NT>(sdo, slice<const bf16>(a.dout, b, h), a.dout.s, q0, a.S,
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
+  cp_rows<C::BQ, C::DP, C::NT>(sdo, slice<const bf16>(a.dout, b, h), a.dout.s, q0, a.Sq,
                                a.D);
   cp_async_commit();
 #pragma unroll
@@ -140,16 +140,16 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
     cp_async_commit();
   }
 
-  // lse (base 2) and delta of this lane's rows g and g + 8 (0 past row S,
+  // lse (base 2) and delta of this lane's rows g and g + 8 (0 past row Sq,
   // where every tile is an edge tile and p is masked to 0)
   const float scale2 = a.scale * kLog2e;
-  const size_t row = (size_t(b) * a.H + h) * a.S;
+  const size_t row = (size_t(b) * a.H + h) * a.Sq;
   float lse2[2], dl[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = r0 + (lane >> 2) + hf * 8;
-    lse2[hf] = r < a.S ? a.lse[row + r] * kLog2e : 0.f;
-    dl[hf] = r < a.S ? a.delta[row + r] : 0.f;
+    lse2[hf] = r < a.Sq ? a.lse[row + r] * kLog2e : 0.f;
+    dl[hf] = r < a.Sq ? a.delta[row + r] : 0.f;
   }
   float dq[C::NA][4];
 #pragma unroll
@@ -244,7 +244,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
   constexpr int VPR = C::DP / 8;
   for (int e = threadIdx.x; e < C::BQ * VPR; e += C::NT) {
     const int r = e / VPR, c = (e - r * VPR) * 8;
-    if (q0 + r < a.S && c < a.D)
+    if (q0 + r < a.Sq && c < a.D)
       *reinterpret_cast<uint4*>(dqb + (q0 + r) * a.dq.s + c) =
           *reinterpret_cast<const uint4*>(sq + r * LD + c);
   }
@@ -286,21 +286,21 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
   q_tiles(a, kt, &lo, &hi);
   const int nq = hi - lo, total = a.G * nq;
 
-  cp_rows<C::BK, C::DP, C::NT>(sk, slice<const bf16>(a.k, b, kvh), a.k.s, k0, a.S, a.D);
-  cp_rows<C::BK, C::DP, C::NT>(sv, slice<const bf16>(a.v, b, kvh), a.v.s, k0, a.S, a.D);
+  cp_rows<C::BK, C::DP, C::NT>(sk, slice<const bf16>(a.k, b, kvh), a.k.s, k0, a.Sk, a.D);
+  cp_rows<C::BK, C::DP, C::NT>(sv, slice<const bf16>(a.v, b, kvh), a.v.s, k0, a.Sk, a.D);
   cp_async_commit();
   // (head, q-tile) pair t of the walk: Q, dO, lse, delta into stage t % STAGES
   auto load_q = [&](int t) {
     const int h = kvh * a.G + t / nq, q0 = (lo + t % nq) * BQ;
     unsigned char* st = ring + size_t(t % STAGES) * C::STAGE_BYTES;
     bf16* sq = reinterpret_cast<bf16*>(st);
-    cp_rows<BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.S, a.D);
+    cp_rows<BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
     cp_rows<BQ, C::DP, C::NT>(sq + C::Q_ELEMS, slice<const bf16>(a.dout, b, h), a.dout.s,
-                              q0, a.S, a.D);
+                              q0, a.Sq, a.D);
     float* sl = reinterpret_cast<float*>(st + 2 * C::Q_ELEMS * 2);
-    const size_t row = (size_t(b) * a.H + h) * a.S;
+    const size_t row = (size_t(b) * a.H + h) * a.Sq;
     for (int r = threadIdx.x; r < BQ; r += C::NT) {
-      const bool ok = q0 + r < a.S;
+      const bool ok = q0 + r < a.Sq;
       const size_t at = row + (ok ? q0 + r : 0);
       cp_async4(sl + r, a.lse + at, ok);
       cp_async4(sl + BQ + r, a.delta + at, ok);
@@ -423,7 +423,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
   constexpr int VPR = C::DP / 8;
   for (int e = threadIdx.x; e < C::BK * VPR; e += C::NT) {
     const int r = e / VPR, c = (e - r * VPR) * 8;
-    if (k0 + r < a.S && c < a.D) {
+    if (k0 + r < a.Sk && c < a.D) {
       *reinterpret_cast<uint4*>(dkb + (k0 + r) * a.dk.s + c) =
           *reinterpret_cast<const uint4*>(sk + r * LD + c);
       *reinterpret_cast<uint4*>(dvb + (k0 + r) * a.dv.s + c) =
@@ -441,6 +441,14 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
 // probability (at most 16 a query) takes dp in fp64 from the fp32 rows,
 // as flash_bwd_plain forms it.
 constexpr float kHeavy = 1.f / 16;
+
+// dK/dV: with at most kFewQueries queries (a decode step, a short chunk
+// over a long memory) a key's gradient is a sum of that few ds, each
+// p (dp - delta) with p ~ 1 / Sk and nothing heavy, and one whose dp
+// lies near delta is rounding noise of dp at fp32 accuracy; so there
+// every visible pair takes dp in fp64.  The work is small at that few
+// queries.
+constexpr int kFewQueries = 16;
 
 // Row pair of one heavy (query, key) pair: dO's and V's fp32 rows in
 // shared memory and the query's delta.
@@ -517,11 +525,11 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
 
   auto load_kv = [&](int j) {
     float* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
-    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.S, a.D);
-    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.S, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.Sk, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.Sk, a.D);
   };
-  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.S, a.D);
-  cp_rows<C::BQ, C::DP, C::NT>(sdo, slice<const float>(a.dout, b, h), a.dout.s, q0, a.S,
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
+  cp_rows<C::BQ, C::DP, C::NT>(sdo, slice<const float>(a.dout, b, h), a.dout.s, q0, a.Sq,
                                a.D);
   cp_async_commit();
 #pragma unroll
@@ -530,16 +538,16 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
     cp_async_commit();
   }
 
-  // lse and delta of this lane's rows g and g + 8 (0 past row S, where
+  // lse and delta of this lane's rows g and g + 8 (0 past row Sq, where
   // every tile is an edge tile and p is masked to 0)
-  const size_t row = (size_t(b) * a.H + h) * a.S;
+  const size_t row = (size_t(b) * a.H + h) * a.Sq;
   float lse[2];
   float2 dl[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = r0 + (lane >> 2) + hf * 8;
-    lse[hf] = r < a.S ? a.lse[row + r] : 0.f;
-    dl[hf] = r < a.S ? a.delta2[row + r] : make_float2(0.f, 0.f);
+    lse[hf] = r < a.Sq ? a.lse[row + r] : 0.f;
+    dl[hf] = r < a.Sq ? a.delta2[row + r] : make_float2(0.f, 0.f);
   }
   float dq[C::NA][4];
 #pragma unroll
@@ -628,7 +636,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = r0 + (lane >> 2) + hf * 8;
-      if (r < a.S && c < a.D)
+      if (r < a.Sq && c < a.D)
         *reinterpret_cast<float2*>(dqb + r * a.dq.s + c) =
             make_float2(dq[n][2 * hf], dq[n][2 * hf + 1]);
     }
@@ -651,23 +659,24 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
   int lo, hi;
   q_tiles(a, kt, &lo, &hi);
   const int nq = hi - lo, total = a.G * nq;
+  const bool few = a.Sq <= kFewQueries;
 
-  cp_rows<C::BK, C::DP, C::NT>(sk, slice<const float>(a.k, b, kvh), a.k.s, k0, a.S, a.D);
-  cp_rows<C::BK, C::DP, C::NT>(sv, slice<const float>(a.v, b, kvh), a.v.s, k0, a.S, a.D);
+  cp_rows<C::BK, C::DP, C::NT>(sk, slice<const float>(a.k, b, kvh), a.k.s, k0, a.Sk, a.D);
+  cp_rows<C::BK, C::DP, C::NT>(sv, slice<const float>(a.v, b, kvh), a.v.s, k0, a.Sk, a.D);
   cp_async_commit();
   // (head, q-tile) pair t of the walk: Q, dO, lse, delta into stage t % STAGES
   auto load_q = [&](int t) {
     const int h = kvh * a.G + t / nq, q0 = (lo + t % nq) * BQ;
     unsigned char* st = ring + size_t(t % STAGES) * C::STAGE_BYTES;
     float* sq = reinterpret_cast<float*>(st);
-    cp_rows<BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.S, a.D);
+    cp_rows<BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
     cp_rows<BQ, C::DP, C::NT>(sq + C::Q_ELEMS, slice<const float>(a.dout, b, h), a.dout.s,
-                              q0, a.S, a.D);
+                              q0, a.Sq, a.D);
     float* sl = sq + 2 * C::Q_ELEMS;
     float2* sd = reinterpret_cast<float2*>(sl + BQ);
-    const size_t row = (size_t(b) * a.H + h) * a.S;
+    const size_t row = (size_t(b) * a.H + h) * a.Sq;
     for (int r = threadIdx.x; r < BQ; r += C::NT) {
-      const bool ok = q0 + r < a.S;
+      const bool ok = q0 + r < a.Sq;
       const size_t at = row + (ok ? q0 + r : 0);
       cp_async4(sl + r, a.lse + at, ok);
       cp_async8(sd + r, a.delta2 + at, ok);
@@ -746,7 +755,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         dp[n][e] = (e & 1) ? (dp[n][e] - de.z) - de.w : (dp[n][e] - de.x) - de.y;
-        if (s[n][e] >= kHeavy) heavy |= 1u << (n * 4 + e);
+        if (s[n][e] >= kHeavy || (few && s[n][e] > 0.f)) heavy |= 1u << (n * 4 + e);
       }
     }
     heavy_dp64(dp, heavy, a.D, [&](int l, int n, int e) {
@@ -781,7 +790,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = kr0 + (lane >> 2) + hf * 8;
-      if (r < a.S && c < a.D) {
+      if (r < a.Sk && c < a.D) {
         *reinterpret_cast<float2*>(dkb + r * a.dk.s + c) =
             make_float2(dk[n][2 * hf], dk[n][2 * hf + 1]);
         *reinterpret_cast<float2*>(dvb + r * a.dv.s + c) =
@@ -795,7 +804,7 @@ template <typename C>
 cudaError_t dq_launch(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
-  const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
+  const dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.H, a.B);
   return with_bias(a, [&](auto bias) {
     constexpr bool B = decltype(bias)::value;
     if constexpr (C::ELT == 2) return launch(flash_bwd_dq_bf16<C, B>, grid, C::NT, C::SMEM, st, a);
@@ -829,7 +838,7 @@ template <typename C>
 cudaError_t dkv_launch(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
-  const dim3 grid((a.S + C::BK - 1) / C::BK, a.H / a.G, a.B);
+  const dim3 grid((a.Sk + C::BK - 1) / C::BK, a.H / a.G, a.B);
   return with_bias(a, [&](auto bias) {
     constexpr bool B = decltype(bias)::value;
     if constexpr (C::ELT == 2) return launch(flash_bwd_dkv_bf16<C, B>, grid, C::NT, C::SMEM, st, a);
@@ -861,12 +870,12 @@ cudaError_t dkv_tiles(int dtype, int D, F&& f) {
 inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
                      const long long* strides, const void* bias,
                      const long long* bias_strides, int B, int H, int Hkv,
-                     int S, int D, float scale, int causal, int window,
+                     int Sq, int Sk, int D, float scale, int causal, int window,
                      int dtype, void* stream, bool dkv) {
   Args a{};
   const int elt = dtype == 1 ? 2 : 4;
   if ((dtype != 0 && dtype != 1) ||
-      !make_args(&a, ptrs, strides, B, H, Hkv, S, D, scale, causal, window,
+      !make_args(&a, ptrs, strides, B, H, Hkv, Sq, Sk, D, scale, causal, window,
                  elt))
     return int(cudaErrorInvalidValue);
   a.lse = static_cast<float*>(const_cast<void*>(lse));
@@ -884,9 +893,10 @@ inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
 
 // q, k, v, out, dout: [B, S, H(kv), D] views given by `strides` (b, s, h
 // of q, k, v, out, dout, dq in that order; d contiguous; every stride and D
-// a multiple of one 16-byte vector); lse: (B * H, S) fp32; delta =
-// rowsum(dO * O): (B * H, S) fp32 for bf16 inputs, and for fp32 inputs
-// (B * H, S, 2) fp32, the fp64 sum as hi + lo.  dq: q's view.  out (the
+// a multiple of one 16-byte vector); q, out and dout have Sq rows, k and
+// v Sk; lse: (B * H, Sq) fp32; delta = rowsum(dO * O): (B * H, Sq) fp32
+// for bf16 inputs, and for fp32 inputs (B * H, Sq, 2) fp32, the fp64 sum
+// as hi + lo.  dq: q's view.  out (the
 // forward's output) is read by neither kernel; it stays in the
 // interface.  bias, bias_strides: as flash_fwd's.  dtype: 0 fp32, 1 bf16.
 // Returns the CUDA error code of the launch.
@@ -895,13 +905,13 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* delta, void* dq,
                             const long long* strides, const void* bias,
                             const long long* bias_strides, int B, int H, int Hkv,
-                            int S, int D, float scale, int causal, int window,
+                            int Sq, int Sk, int D, float scale, int causal, int window,
                             int dtype, void* stream) {
   void* ptrs[8] = {const_cast<void*>(q), const_cast<void*>(k),
                    const_cast<void*>(v), const_cast<void*>(out),
                    const_cast<void*>(dout), dq, nullptr, nullptr};
   return fa::bwd_entry(ptrs, lse, delta, strides, bias, bias_strides, B, H,
-                       Hkv, S, D, scale, causal, window, dtype, stream, false);
+                       Hkv, Sq, Sk, D, scale, causal, window, dtype, stream, false);
 }
 
 // As flash_bwd_dq without out, with the strides of q, k, v, dout, dk, dv;
@@ -911,13 +921,13 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* delta, void* dk, void* dv,
                              const long long* strides, const void* bias,
                              const long long* bias_strides, int B, int H, int Hkv,
-                             int S, int D, float scale, int causal,
+                             int Sq, int Sk, int D, float scale, int causal,
                              int window, int dtype, void* stream) {
   void* ptrs[8] = {const_cast<void*>(q), const_cast<void*>(k),
                    const_cast<void*>(v), nullptr, const_cast<void*>(dout),
                    nullptr, dk, dv};
   return fa::bwd_entry(ptrs, lse, delta, strides, bias, bias_strides, B, H,
-                       Hkv, S, D, scale, causal, window, dtype, stream, true);
+                       Hkv, Sq, Sk, D, scale, causal, window, dtype, stream, true);
 }
 
 // The dynamic shared memory, in bytes, that the dQ (dkv 0) or dK/dV (dkv

@@ -17,24 +17,28 @@
 // tile of BQ query rows (or BK key rows in dK/dV) and streams the other
 // side's tiles through shared memory.  Tiles of fully masked positions are
 // skipped by the loop bounds (causal, and the window's first visible
-// tile), re-derived for the CUDA tile sizes.  A sequence length that is
-// not a multiple of the tile leaves a ragged last tile: its rows load as
-// zeros, are masked out of every product, and are never stored.  Masking
-// follows the reference: a position outside the causal band (or the
-// window) has its scaled score replaced by -1e30 before the running max;
-// in the backward its probability is 0.
+// tile), re-derived for the CUDA tile sizes.  Queries and keys have
+// lengths of their own, Sq and Sk (cross-attention over a memory, a chunk
+// or one decode step against a longer cache); a causal band is aligned at
+// the bottom right, query qi at position qi + Sk - Sq, as the reference's
+// _sdpa_reference places it.  A length that is not a multiple of the tile
+// leaves a ragged last tile: its rows load as zeros, are masked out of
+// every product, and are never stored.  Masking follows the reference: a
+// position outside the causal band (or the window) has its scaled score
+// replaced by -1e30 before the running max; in the backward its
+// probability is 0.
 //
 // An additive fp32 score bias (the reference's float attention mask, or a
 // boolean one turned into 0 / -1e9 by the wrapper) is one more operand,
 // read as bias[b * bias_b + h * bias_h + qi * bias_q + kj * bias_k] with
 // element strides in which 0 broadcasts a dimension: a [B, 1, 1, S] pad
-// mask, an [S, S] decoder mask and a full [B, H, S, S] mask are each read
-// in place.  It is added to the scaled score of every visible position
+// mask, an [Sq, Sk] decoder mask and a full [B, H, Sq, Sk] mask are each
+// read in place.  It is added to the scaled score of every visible position
 // before the running max, and again where the backward recomputes p from
 // lse (so that lse, which holds it, cancels it).  Each kernel is a template
 // over BIAS: the instantiation without one reads nothing more and compiles
 // to the same code as without the operand.  Its values come from global
-// memory through the read-only path: a pad mask is one row of S floats a
+// memory through the read-only path: a pad mask is one row of Sk floats a
 // batch, which every query tile reads again from L1 / L2.
 //
 // Bound on this card: at the training shape (B*H = 144, S = 1024, D = 128,
@@ -63,7 +67,7 @@
 // shared memory.  The streamed side comes through a ring of shared-memory
 // stages filled by cp.async 16-byte copies: tile j + 1 is in flight while
 // tile j is computed on.  Only a warp's tile that crosses the causal
-// diagonal, the window's edge or row S evaluates per-element masks; a
+// diagonal, the window's edge or the last row evaluates per-element masks; a
 // warp skips a tile it cannot see at all.  mma.sync is used rather than
 // wgmma: its accumulator-as-operand layout is what keeps P in registers,
 // it needs no shared-memory descriptors, and the file still builds in
@@ -107,10 +111,12 @@ struct Operand {
 // Everything a launch needs; operands a kernel does not use are null.
 struct Args {
   Operand q, k, v, o, dout, dq, dk, dv;
-  float* lse;           // (B * H, S) fp32, row b * H + h
-  const float* delta;   // (B * H, S) fp32: rowsum(dO * O) (bf16 kernels)
+  float* lse;           // (B * H, Sq) fp32, row b * H + h
+  const float* delta;   // (B * H, Sq) fp32: rowsum(dO * O) (bf16 kernels)
   const float2* delta2;  // the same summed in fp64, as fp32 hi + lo (fp32 kernels)
-  int B, H, G, S, D;    // G = H / Hkv query heads per KV head
+  int B, H, G, D;       // G = H / Hkv query heads per KV head
+  int Sq, Sk;           // query and key lengths
+  int off;              // Sk - Sq: the causal band's offset (bottom-right aligned)
   int DP;               // D rounded up to 16 (the tiles' width)
   int BQ, BK;           // query and key rows per tile
   float scale;
@@ -145,18 +151,22 @@ __device__ __forceinline__ float bias_e(const Args& a, const float* bs, int qi, 
 // every row 16-byte (and every 16-row fragment 32-byte) aligned.
 __host__ __device__ constexpr int tile_ld(int cols, int elt) { return cols + 16 / elt; }
 
-// Key position kj is visible to query position qi.
+// Key position kj is visible to query position qi.  Causal bands align
+// the last query with the last key, as the reference's _sdpa_reference
+// places its queries at positions Sk - Sq .. Sk - 1: query qi sees keys
+// up to qi + off.
 __device__ __forceinline__ bool visible(const Args& a, int qi, int kj) {
-  if (qi >= a.S || kj >= a.S) return false;
+  if (qi >= a.Sq || kj >= a.Sk) return false;
   if (!a.causal) return true;
-  return kj <= qi && (a.window <= 0 || kj > qi - a.window);
+  const int p = qi + a.off;
+  return kj <= p && (a.window <= 0 || kj > p - a.window);
 }
 
 // The bias (base e) of a warp's accumulator tile of NS n8 tiles into
 // bv: pos(n, e, &qi, &kj) names element (n, e)'s query and key and
 // returns the slice to read.  Off an edge every element is read without
 // a test, so the loads issue together and their latency is paid once a
-// tile; on an edge a position that is not visible (past row S among
+// tile; on an edge a position that is not visible (past row Sq among
 // them) reads nothing and gets 0, its probability being masked anyway.
 template <int NS, typename P>
 __device__ __forceinline__ void load_bias(float (&bv)[NS][4], const Args& a, bool edge,
@@ -185,25 +195,25 @@ __device__ __forceinline__ void load_bias(float (&bv)[NS][4], const Args& a, boo
 // The k-tiles [lo, hi) that hold a position visible to some row of query
 // tile qt (reference: _fwd_kernel / _bwd_dq_kernel's lo and hi).
 __device__ __forceinline__ void k_tiles(const Args& a, int qt, int* lo, int* hi) {
-  const int nk = (a.S + a.BK - 1) / a.BK;
+  const int nk = (a.Sk + a.BK - 1) / a.BK;
   *lo = 0;
   *hi = nk;
   if (a.causal) {
-    *hi = min(((qt + 1) * a.BQ + a.BK - 1) / a.BK, nk);
-    if (a.window > 0) *lo = max((qt * a.BQ - (a.window - 1)) / a.BK, 0);
+    *hi = min(max(((qt + 1) * a.BQ + a.off + a.BK - 1) / a.BK, 0), nk);
+    if (a.window > 0) *lo = max((qt * a.BQ + a.off - (a.window - 1)) / a.BK, 0);
   }
 }
 
 // The q-tiles [lo, hi) with a row that sees some key of k-tile kt
 // (reference: _bwd_dkv_kernel's lo and hi).
 __device__ __forceinline__ void q_tiles(const Args& a, int kt, int* lo, int* hi) {
-  const int nq = (a.S + a.BQ - 1) / a.BQ;
+  const int nq = (a.Sq + a.BQ - 1) / a.BQ;
   *lo = 0;
   *hi = nq;
   if (a.causal) {
-    *lo = (kt * a.BK) / a.BQ;
+    *lo = min(max((kt * a.BK - a.off) / a.BQ, 0), nq);
     if (a.window > 0)
-      *hi = min(((kt + 1) * a.BK + a.window - 1 + a.BQ - 1) / a.BQ, nq);
+      *hi = max(min(((kt + 1) * a.BK - a.off + a.window - 1 + a.BQ - 1) / a.BQ, nq), *lo);
   }
 }
 
@@ -222,9 +232,9 @@ inline cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
 // Args from the C entry points' flat arguments; strides hold (b, s, h) of
 // each non-null operand in the order q, k, v, o, dout, dq, dk, dv.
 inline bool make_args(Args* a, void* const ptrs[8], const long long* strides,
-                      int B, int H, int Hkv, int S, int D, float scale,
+                      int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
                       int causal, int window, int elt) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || D < 16 || D > 256 ||
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || D < 16 || D > 256 ||
       D % (16 / elt) != 0)
     return false;
   Operand* ops[8] = {&a->q, &a->k, &a->v, &a->o, &a->dout, &a->dq, &a->dk, &a->dv};
@@ -241,7 +251,9 @@ inline bool make_args(Args* a, void* const ptrs[8], const long long* strides,
   a->B = B;
   a->H = H;
   a->G = H / Hkv;
-  a->S = S;
+  a->Sq = Sq;
+  a->Sk = Sk;
+  a->off = Sk - Sq;
   a->D = D;
   a->DP = (D + 15) / 16 * 16;
   a->scale = scale;
@@ -639,9 +651,9 @@ __device__ __forceinline__ void split_rows(float* tile, float* p1, float* p2, in
 // The edge-tile test.  Every key of [k0, k0 + nk) is visible to every
 // query of [q0, q0 + nq): the tile needs no per-element mask.
 __device__ __forceinline__ bool all_visible(const Args& a, int q0, int nq, int k0, int nk) {
-  if (q0 + nq > a.S || k0 + nk > a.S) return false;
+  if (q0 + nq > a.Sq || k0 + nk > a.Sk) return false;
   if (!a.causal) return true;
-  return k0 + nk - 1 <= q0 && (a.window <= 0 || k0 > q0 + nq - 1 - a.window);
+  return k0 + nk - 1 <= q0 + a.off && (a.window <= 0 || k0 > q0 + nq - 1 + a.off - a.window);
 }
 
 // No key of [k0, k0 + nk) is visible to any query of [q0, q0 + nq): the
@@ -650,9 +662,9 @@ __device__ __forceinline__ bool all_visible(const Args& a, int q0, int nq, int k
 // reference; its first visible key then scales that by exp(-1e30 - m) =
 // 0, so skipping such a tile gives the same result.)
 __device__ __forceinline__ bool none_visible(const Args& a, int q0, int nq, int k0, int nk) {
-  if (q0 >= a.S || k0 >= a.S) return true;
+  if (q0 >= a.Sq || k0 >= a.Sk) return true;
   if (!a.causal) return false;
-  return k0 > q0 + nq - 1 || (a.window > 0 && k0 + nk - 1 <= q0 - a.window);
+  return k0 > q0 + nq - 1 + a.off || (a.window > 0 && k0 + nk - 1 <= q0 + a.off - a.window);
 }
 
 }  // namespace fa

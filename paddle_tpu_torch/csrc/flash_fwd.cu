@@ -97,10 +97,10 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
 
   auto load_kv = [&](int j) {
     bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
-    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.S, a.D);
-    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.S, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.Sk, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.Sk, a.D);
   };
-  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.S, a.D);
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
   cp_async_commit();
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
   }
 
   // epilogue: out = O / max(l, 1e-30) through the warp's own Q rows, lse
-  float* lse = a.lse + (size_t(b) * a.H + h) * a.S;
+  float* lse = a.lse + (size_t(b) * a.H + h) * a.Sq;
   bf16* stage = sq + wr * LD;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -225,7 +225,7 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     lt = fmaxf(lt, 1e-30f);
     const int r = (lane >> 2) + hf * 8;
-    if ((lane & 3) == 0 && r0 + r < a.S) lse[r0 + r] = m[hf] * kLn2 + logf(lt);
+    if ((lane & 3) == 0 && r0 + r < a.Sq) lse[r0 + r] = m[hf] * kLn2 + logf(lt);
 #pragma unroll
     for (int n = 0; n < C::NO; ++n)
       *reinterpret_cast<uint32_t*>(stage + r * LD + n * 8 + 2 * (lane & 3)) =
@@ -237,7 +237,7 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
 #pragma unroll
   for (int i = 0; i < 16 * VPR / 32; ++i) {
     const int e = lane + 32 * i, r = e / VPR, c = (e - r * VPR) * 8;
-    if (r0 + r < a.S && c < a.D)
+    if (r0 + r < a.Sq && c < a.D)
       *reinterpret_cast<uint4*>(ob + (r0 + r) * a.o.s + c) =
           *reinterpret_cast<const uint4*>(stage + r * LD + c);
   }
@@ -295,10 +295,10 @@ __global__ void __launch_bounds__(C::NT, 1) flash_fwd_fp32(Args a) {
 
   auto load_kv = [&](int j) {
     float* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
-    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.S, a.D);
-    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.S, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.Sk, a.D);
+    cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.Sk, a.D);
   };
-  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.S, a.D);
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const float>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
   cp_async_commit();
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -449,7 +449,7 @@ __global__ void __launch_bounds__(C::NT, 1) flash_fwd_fp32(Args a) {
   cp_async_wait<0>();
 
   // epilogue: out = O / max(l, 1e-30) from registers, and lse
-  float* lse = a.lse + (size_t(b) * a.H + h) * a.S;
+  float* lse = a.lse + (size_t(b) * a.H + h) * a.Sq;
   float* ob = slice<float>(a.o, b, h);
 #pragma unroll
   for (int i = 0; i < MW; ++i)
@@ -460,7 +460,7 @@ __global__ void __launch_bounds__(C::NT, 1) flash_fwd_fp32(Args a) {
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       lt = fmaxf(lt, 1e-30f);
       const int r = r0 + 16 * i + (lane >> 2) + hf * 8;
-      if (r >= a.S) continue;
+      if (r >= a.Sq) continue;
       if ((lane & 3) == 0) lse[r] = m[i][hf] * kLn2 + logf(lt);
 #pragma unroll
       for (int n = 0; n < C::NO; ++n) {
@@ -476,7 +476,7 @@ template <typename C>
 cudaError_t fwd_fp32(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
-  const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
+  const dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.H, a.B);
   return with_bias(a, [&](auto bias) {
     return launch(flash_fwd_fp32<C, decltype(bias)::value>, grid, C::NT, C::SMEM, st, a);
   });
@@ -497,7 +497,7 @@ template <typename C>
 cudaError_t fwd_bf16(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
-  const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
+  const dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.H, a.B);
   return with_bias(a, [&](auto bias) {
     return launch(flash_fwd_bf16<C, decltype(bias)::value>, grid, C::NT, C::SMEM, st, a);
   });
@@ -516,14 +516,14 @@ cudaError_t fwd_bf16(Args a, cudaStream_t st) {
 
 // q, k, v: [B, S, H(kv), D] views given by `strides` (b, s, h of q, k, v,
 // out in that order; d contiguous; every stride and D a multiple of one
-// 16-byte vector).  out: q's view; lse: (B * H, S) fp32.  bias: null, or
-// an fp32 score bias of [B, H, S, S] read through bias_strides (b, h, q,
-// k; 0 broadcasts).  window <= 0: none.  dtype: 0 fp32, 1 bf16.  Returns
+// 16-byte vector); q has Sq rows, k and v Sk.  out: q's view; lse: (B *
+// H, Sq) fp32.  bias: null, or an fp32 score bias of [B, H, Sq, Sk] read
+// through bias_strides (b, h, q, k; 0 broadcasts).  window <= 0: none.  dtype: 0 fp32, 1 bf16.  Returns
 // the CUDA error code of the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, const long long* strides,
                          const void* bias, const long long* bias_strides,
-                         int B, int H, int Hkv, int S, int D, float scale,
+                         int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
                          int causal, int window, int dtype, void* stream) {
   void* ptrs[8] = {const_cast<void*>(q), const_cast<void*>(k),
                    const_cast<void*>(v), out, nullptr, nullptr, nullptr,
@@ -531,7 +531,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   fa::Args a{};
   const int elt = dtype == 1 ? 2 : 4;
   if ((dtype != 0 && dtype != 1) ||
-      !fa::make_args(&a, ptrs, strides, B, H, Hkv, S, D, scale, causal,
+      !fa::make_args(&a, ptrs, strides, B, H, Hkv, Sq, Sk, D, scale, causal,
                      window, elt))
     return int(cudaErrorInvalidValue);
   a.lse = static_cast<float*>(lse);

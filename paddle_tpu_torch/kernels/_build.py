@@ -4,9 +4,13 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles on its own into a shared
 library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/paddle_tpu_torch/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC --split-compile=0
+         -o build/paddle_tpu_torch/<name>-<hash>.so <name>.cu
 
-There is no fast-math flag: divisions stay IEEE and ``rintf`` rounds half
+``--split-compile=0`` lets nvcc optimise a source's kernels in parallel
+threads, as many as the machine has cores (the flash backward's 32
+instantiations build in a third of the time, to the same code).  There
+is no fast-math flag: divisions stay IEEE and ``rintf`` rounds half
 to even, which the bit-exact quantization of ``w8a8_gemm.cu`` relies on.
 The output lands in ``build/paddle_tpu_torch/`` at the root of the
 checkout (ignored by git), named by a hash of the sources, the headers
@@ -31,7 +35,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+              "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry points: name -> (source, function, argtypes), the source
@@ -60,15 +65,15 @@ SIGNATURES = {
     # bn, chunks per split, stream
     "w8a8_gemm": ("w8a8_gemm", "w8a8_gemm_fwd", [_P] * 6 + [_I] * 8 + [_P]),
     # q, k, v, out, lse, strides, bias (fp32 or null), bias strides (b,
-    # h, q, k), B, H, Hkv, S, D, scale, causal, window, dtype (0 fp32, 1
-    # bf16), stream
-    "flash_fwd": ("flash_fwd", "flash_fwd", [_P] * 8 + [_I] * 5 + [_F]
+    # h, q, k), B, H, Hkv, Sq, Sk, D, scale, causal, window, dtype (0
+    # fp32, 1 bf16), stream
+    "flash_fwd": ("flash_fwd", "flash_fwd", [_P] * 8 + [_I] * 6 + [_F]
                   + [_I] * 3 + [_P]),
     # q, k, v, out, dout, lse, delta, dq, strides, then as flash_fwd
-    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq", [_P] * 11 + [_I] * 5
+    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq", [_P] * 11 + [_I] * 6
                      + [_F] + [_I] * 3 + [_P]),
     # q, k, v, dout, lse, delta, dk, dv, strides, then as flash_fwd
-    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv", [_P] * 11 + [_I] * 5
+    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv", [_P] * 11 + [_I] * 6
                       + [_F] + [_I] * 3 + [_P]),
     # D, dtype, dkv (0 dQ, 1 dK/dV): the kernel's dynamic shared memory in
     # bytes (no launch)

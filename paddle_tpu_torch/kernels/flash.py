@@ -22,15 +22,24 @@ Launches count as ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
 
 Beyond the reference's Pallas kernels, which refuse a mask, every entry
 here takes an additive fp32 score ``bias`` that broadcasts to the heads'
-[B, H, S, S] (:func:`mask_bias` makes it from an attention mask: a float
-mask as it is, a boolean one as 0 / -1e9, the reference's
+[B, H, Sq, Sk] (:func:`mask_bias` makes it from an attention mask: a
+float mask as it is, a boolean one as 0 / -1e9, the reference's
 ``_sdpa_reference`` decisions).  It is added to the scaled scores before
 the causal band and the window mask them; no gradient flows to it.  The
-kernels read it through its strides, so a [B, 1, 1, S] pad mask or an
-[S, S] decoder mask is never copied along a broadcast dimension.
+kernels read it through its strides, so a [B, 1, 1, Sk] pad mask or an
+[Sq, Sk] decoder mask is never copied along a broadcast dimension.
+
+Beyond them too, q and k may have lengths of their own, Sq and Sk
+(cross-attention over a memory, one decode step against a cache).  A
+causal band is then aligned at the bottom right: query i sits at
+position ``i + Sk - Sq``, as ``_sdpa_reference`` places its queries.
+Causal with Sq > Sk leaves the first ``Sq - Sk`` queries no key; the
+reference gives them a softmax over its -1e9 fill, which the kernels do
+not reproduce, so that case is refused (:func:`kernel_reason`).
+
 :func:`attention` is the entry that the card's ``sdpa`` takes: the
-kernels at any sequence length, with a bias; :func:`flash_attention`
-keeps the reference's signature and block gate.
+kernels at any lengths, with a bias; :func:`flash_attention`
+keeps the reference's signature, its one-length rule and its block gate.
 """
 
 from __future__ import annotations
@@ -67,15 +76,11 @@ def _layout_s_axis(layout, ndim=4):
     return -2
 
 
-def _shape_reason(q, k, layout):
-    """The shape checks that :func:`flash_attention` makes as the
-    reference's does (layout rank, cross-attention lengths, GQA), as a
+def _layout_reason(q, k, layout):
+    """The layout checks that the kernels need (layout rank, GQA), as a
     reason, or None."""
-    s_axis = _layout_s_axis(layout, q.ndim)
     if layout in ("bsnd", "sbnd") and q.ndim != 4:
         return f"layout {layout!r} needs 4-D q/k/v, got {q.ndim}-D"
-    if q.shape[s_axis] != k.shape[s_axis]:
-        return "q/k of other lengths (cross-attention)"
     if q.ndim < 3:
         return None
     h_axis = 2 if layout in ("bsnd", "sbnd") else -3
@@ -87,41 +92,69 @@ def _shape_reason(q, k, layout):
     return None
 
 
+def _shape_reason(q, k, layout):
+    """The shape checks that :func:`flash_attention` makes as the
+    reference's does, in its order (layout rank, one length for q and k,
+    GQA), as a reason, or None."""
+    rank_ok = layout not in ("bsnd", "sbnd") or q.ndim == 4
+    if rank_ok and len(set(_lengths(q, k, layout))) > 1:
+        return "q/k of other lengths (cross-attention)"
+    return _layout_reason(q, k, layout)
+
+
+def _lengths(q, k, layout):
+    """(Sq, Sk): the query and key lengths."""
+    s_axis = _layout_s_axis(layout, q.ndim)
+    return q.shape[s_axis], k.shape[s_axis]
+
+
 def _head_dim_reason(d):
     if d % 8 != 0 or not (16 <= d <= 256):
         return f"head_dim {d} (needs a multiple of 8 in 16..256)"
     return None
 
 
-def _heads_shape(q, layout):
-    """The [B, H, S, S] shape of the scores of q's [B, H, S, D] heads
-    view (3-D bnsd: [B*H, 1, S, S])."""
-    b, h, s, _ = _heads(q, layout).shape
-    return (b, h, s, s)
+def _heads_shape(q, layout, k=None):
+    """The [B, H, Sq, Sk] shape of the scores of q's [B, H, Sq, D] heads
+    view against k's Sk keys (3-D bnsd: [B*H, 1, Sq, Sk]); k None: k of
+    q's length."""
+    b, h, sq, _ = _heads(q, layout).shape
+    sk = sq if k is None else _lengths(q, k, layout)[1]
+    return (b, h, sq, sk)
 
 
-def _mask_shape(q, layout):
+def _mask_shape(q, layout, k=None):
     """The scores' shape in the reference's terms, which a mask broadcasts
-    to: [..., S, S] of q's bnsd shape, [B, H, S, S] for seq-major."""
+    to: [..., Sq, Sk] of q's bnsd shape, [B, H, Sq, Sk] for seq-major."""
     if layout == "bnsd":
-        return (*q.shape[:-1], q.shape[-2])
-    return _heads_shape(q, layout)
+        return (*q.shape[:-1], _heads_shape(q, layout, k)[-1])
+    return _heads_shape(q, layout, k)
 
 
-def kernel_reason(q, k, mask=None, layout="bnsd"):
+def _causal_reason(q, k, causal, layout):
+    sq, sk = _lengths(q, k, layout)
+    if causal and sq > sk:
+        return (f"causal attention of {sq} queries over {sk} keys (the "
+                f"first {sq - sk} queries see no key)")
+    return None
+
+
+def kernel_reason(q, k, mask=None, layout="bnsd", is_causal=False):
     """Why the CUDA kernels cannot take these inputs, or None when they
-    can: what ``sdpa`` on the card checks.  Any sequence length and a mask
-    that broadcasts to the scores pass; q/k of other lengths, a head dim
-    outside the kernels' tiles, and a mask that requires grad do not."""
+    can: what ``sdpa`` on the card checks.  Any lengths of q and k and a
+    mask that broadcasts to the scores pass; a head dim outside the
+    kernels' tiles, a mask that requires grad, and causal attention with
+    more queries than keys do not."""
     if q.ndim < 3:
         return f"{q.ndim}-D q (needs at least 3 dims)"
-    reason = _shape_reason(q, k, layout) or _head_dim_reason(q.shape[-1])
+    reason = (_layout_reason(q, k, layout) or _head_dim_reason(q.shape[-1])
+              or _causal_reason(q, k, is_causal, layout))
     if reason is not None or mask is None:
         return reason
     if mask.requires_grad:
         return "an attention mask that requires grad (no gradient flows " \
                "to the kernels' score bias)"
-    scores = _mask_shape(q, layout)
+    scores = _mask_shape(q, layout, k)
     try:
         fits = torch.broadcast_shapes(mask.shape, scores) == scores
     except RuntimeError:
@@ -132,13 +165,13 @@ def kernel_reason(q, k, mask=None, layout="bnsd"):
     return None
 
 
-def mask_bias(mask, q, layout="bnsd"):
+def mask_bias(mask, q, layout="bnsd", k=None):
     """The kernels' score bias for an attention ``mask`` (None for none):
     fp32, a float mask as it is and a boolean one as 0 where True and -1e9
     where False (the reference's ``jnp.where(mask, logits, -1e9)``), as an
-    ``expand`` view of the [B, H, S, S] scores of q's heads view.  The
-    mask broadcasts against the scores in the reference's terms
-    (:func:`_mask_shape`)."""
+    ``expand`` view of the [B, H, Sq, Sk] scores of q's heads view against
+    ``k``'s keys (None: as many as q's queries).  The mask broadcasts
+    against the scores in the reference's terms (:func:`_mask_shape`)."""
     if mask is None:
         return None
     if mask.dtype == torch.bool:
@@ -146,8 +179,8 @@ def mask_bias(mask, q, layout="bnsd"):
             ~mask, -1e9)
     else:
         bias = mask.float()
-    return bias.expand(_mask_shape(q, layout)).reshape(
-        _heads_shape(q, layout))
+    return bias.expand(_mask_shape(q, layout, k)).reshape(
+        _heads_shape(q, layout, k))
 
 
 def unsupported_reason(q, k, mask=None, dropout_p=0.0, layout="bnsd"):
@@ -208,11 +241,14 @@ def _from_heads(xh, layout, shape):
     return xh.reshape(shape).contiguous()
 
 
-def _visible(s_len, causal, window, device):
-    """(S, S) bool: key j visible to query i."""
-    i = torch.arange(s_len, device=device)[:, None]
-    j = torch.arange(s_len, device=device)[None, :]
-    keep = torch.ones(s_len, s_len, dtype=torch.bool, device=device)
+def _visible(s_len, causal, window, device, k_len=None):
+    """(Sq, Sk) bool: key j visible to query i (``k_len`` None: Sk = Sq).
+    The causal band is aligned at the bottom right: query i sits at
+    position ``i + Sk - Sq``."""
+    k_len = s_len if k_len is None else k_len
+    i = torch.arange(k_len - s_len, k_len, device=device)[:, None]
+    j = torch.arange(k_len, device=device)[None, :]
+    keep = torch.ones(s_len, k_len, dtype=torch.bool, device=device)
     if causal:
         keep = j <= i
         if window is not None:
@@ -231,13 +267,13 @@ def _grouped(q, k, v, layout):
 
 def _scores(qg, kh, scale, causal, window, bias=None):
     """fp32 scores of the kernels: products of the inputs' values summed
-    in fp32, times ``scale``, plus ``bias`` (:func:`mask_bias`'s [B, H, S,
-    S] view), -1e30 where masked."""
+    in fp32, times ``scale``, plus ``bias`` (:func:`mask_bias`'s [B, H,
+    Sq, Sk] view), -1e30 where masked."""
     s = torch.einsum("bngqd,bnkd->bngqk", qg.float(), kh.float()) * scale
     if bias is not None:
         s = s + bias.reshape(s.shape)
     if causal:
-        keep = _visible(s.shape[-1], causal, window, s.device)
+        keep = _visible(s.shape[-2], causal, window, s.device, s.shape[-1])
         s = torch.where(keep, s, _NEG_INF)
     return s
 
@@ -325,25 +361,30 @@ def _operand(x, layout):
 
 
 def _check(q, k, v, bias, layout):
-    """What the kernels ask beyond :func:`flash_attention`'s shape checks,
-    which their callers have made: one float dtype, one device, a head
-    dim that their tiles take, and a ``bias`` that is None or, as
-    :func:`mask_bias` makes it, an fp32 view of the heads' [B, H, S, S]
-    scores on q's device (read through its strides: a broadcast dimension
-    keeps stride 0 and nothing is copied along it)."""
+    """What the kernels ask beyond :func:`attention`'s shape checks,
+    which their callers have made: one float dtype, one device, k and v
+    of one shape, one head dim that their tiles take, and a ``bias`` that
+    is None or, as :func:`mask_bias` makes it, an fp32 view of the heads'
+    [B, H, Sq, Sk] scores on q's device (read through its strides: a
+    broadcast dimension keeps stride 0 and nothing is copied along it)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash kernels take fp32 or bf16 q/k/v of one "
                          f"dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash kernels: q, k and v must share a device")
+    if k.shape != v.shape or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"flash kernels take k and v of one shape and "
+                         f"q's head dim, not q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
     reason = _head_dim_reason(q.shape[-1])
     if reason is not None:
         raise ValueError(f"flash kernels cannot take {reason}")
+    scores = _heads_shape(q, layout, k)
     if bias is not None and (
             bias.dtype != torch.float32 or bias.device != q.device
-            or tuple(bias.shape) != _heads_shape(q, layout)):
+            or tuple(bias.shape) != scores):
         raise ValueError(f"flash kernels take an fp32 bias of the scores' "
-                         f"shape {_heads_shape(q, layout)} on q's device "
+                         f"shape {scores} on q's device "
                          f"(mask_bias), not {bias.dtype} "
                          f"{tuple(bias.shape)} on {bias.device}")
 
@@ -352,7 +393,8 @@ def _launch(name, tensors, strided, dims, scale, causal, window, dtype,
             bias=None):
     """Launch ``name`` over raw ``tensors`` (pointers in argument order),
     with the strides of the ``strided`` [B, S, H, D] views, and the score
-    ``bias`` (None, or an fp32 [B, H, S, S] view) with its strides."""
+    ``bias`` (None, or an fp32 [B, H, Sq, Sk] view) with its strides.
+    ``dims``: (B, H, Hkv, Sq, Sk, D)."""
     strides = [st for t in strided for st in t.stride()[:3]]
     arr = (ctypes.c_longlong * len(strides))(*strides)
     barr = (ctypes.c_longlong * 4)(*(bias.stride() if bias is not None
@@ -368,21 +410,23 @@ def _launch(name, tensors, strided, dims, scale, causal, window, dtype,
 
 
 def _dims(qc, kc):
-    b, s, h, d = qc.shape
-    return b, h, kc.shape[2], s, d
+    """(B, H, Hkv, Sq, Sk, D) of the [B, S, H, D] views of q and k."""
+    b, sq, h, d = qc.shape
+    return b, h, kc.shape[2], sq, kc.shape[1], d
 
 
 def flash_fwd_cuda(q, k, v, causal, scale, window, layout, bias=None):
-    """The forward kernel: ``out`` (q's shape and dtype), ``lse`` (B*H, S)
-    fp32.  CUDA tensors only."""
+    """The forward kernel: ``out`` (q's shape and dtype), ``lse`` (B*H,
+    Sq) fp32.  CUDA tensors only."""
     _check(q, k, v, bias, layout)
     qc, kc, vc = (_operand(t, layout) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     oc = _canon(out, layout)
-    b, h, hkv, s, d = _dims(qc, kc)
-    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", (qc, kc, vc, oc, lse), (qc, kc, vc, oc),
-            (b, h, hkv, s, d), scale, causal, window, q.dtype, bias)
+    dims = _dims(qc, kc)
+    lse = torch.empty((dims[0] * dims[1], dims[3]), dtype=torch.float32,
+                      device=q.device)
+    _launch("flash_fwd", (qc, kc, vc, oc, lse), (qc, kc, vc, oc), dims,
+            scale, causal, window, q.dtype, bias)
     return out, lse
 
 
@@ -408,13 +452,13 @@ def flash_delta(out, do, layout="bnsd"):
 
 def _bwd_operands(q, k, v, lse, delta, do, layout, bias):
     """The backward kernels' read operands as [B, S, H, D] views, the
-    contiguous lse and delta, and the dims (B, H, Hkv, S, D).  delta must
-    have :func:`flash_delta`'s layout for q's dtype: the kernels read it
-    through a raw pointer."""
+    contiguous lse and delta, and the dims (B, H, Hkv, Sq, Sk, D).  delta
+    must have :func:`flash_delta`'s layout for q's dtype: the kernels read
+    it through a raw pointer."""
     _check(q, k, v, bias, layout)
     qc, kc, vc, dc = (_operand(t, layout) for t in (q, k, v, do.to(q.dtype)))
     dims = _dims(qc, kc)
-    b, h, _, s, _ = dims
+    b, h, _, s, _, _ = dims
     want = (b * h, s, 2) if q.dtype == torch.float32 else (b * h, s)
     if delta.dtype != torch.float32 or tuple(delta.shape) != want:
         raise ValueError(f"flash backward: delta must be fp32 {want} "
@@ -507,16 +551,18 @@ class _Flash(torch.autograd.Function):
 
 def attention(q, k, v, causal=False, scale=None, layout="bnsd", window=None,
               bias=None):
-    """Flash attention at any sequence length, with an optional score
+    """Flash attention at any lengths of q and k, with an optional score
     ``bias`` (:func:`mask_bias`): what ``sdpa`` runs on the card, where the
     kernels take every length (ragged last tiles are masked).  The
-    reference's shape checks raise ValueError; the block gate of
-    :func:`flash_attention` is not applied."""
+    reference's layout checks raise ValueError, and so does causal
+    attention with more queries than keys; neither the one-length rule
+    nor the block gate of :func:`flash_attention` is applied."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if window is not None and not causal:
         raise ValueError("flash_attention: window requires causal=True")
-    reason = _shape_reason(q, k, layout)
+    reason = (_layout_reason(q, k, layout)
+              or _causal_reason(q, k, causal, layout))
     if reason is not None:
         raise ValueError(f"flash_attention: {reason}")
     if bias is not None and bias.requires_grad:
@@ -533,9 +579,13 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     reference's arguments and ValueErrors.  ``window`` (causal only) masks
     keys more than ``window - 1`` positions behind each query.
     ``block_q``/``block_k`` are checked as the reference checks them (a
-    length with no block raises); the CUDA kernels pick their own tiles."""
+    length with no block raises); the CUDA kernels pick their own tiles.
+    q and k of other lengths raise, as the reference's do."""
     if window is not None and not causal:
         raise ValueError("flash_attention: window requires causal=True")
+    reason = _shape_reason(q, k, layout)
+    if reason is not None:
+        raise ValueError(f"flash_attention: {reason}")
     s_axis = _layout_s_axis(layout, q.ndim)
     s_len = q.shape[s_axis]
     if (block_q or _pick_block(s_len)) is None or \

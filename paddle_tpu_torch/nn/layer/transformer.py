@@ -7,9 +7,15 @@ through the registered ``scaled_dot_product_attention`` op in the bnsd
 layout, as the reference's does: on the card the flash kernels, forward
 and backward, with ``attn_mask`` (``src_mask``, ``tgt_mask``,
 ``memory_mask``) as their additive score bias; on the CPU the plain
-attention.  The card's kernels need q and k of one length, so
-cross-attention over a memory of another length and decoding against a
-growing ``Cache`` raise there (ROADMAP A.15), as the dispatcher says.
+attention.  The kernels take q and k of other lengths, so cross-attention
+over a memory of another length and each incremental step (Sq = 1
+against a growing ``Cache`` or a ``StaticCache``) launch them too.
+
+A ``Cache`` grows by the step's keys and values, ``concat`` along the
+sequence as the reference's does.  Where no gradient is recorded
+(decoding under ``no_grad``) the cache's tensors are views of a buffer
+with room to spare, and a step writes its rows in place
+(:func:`_append`), so a decode step does not copy the whole cache.
 """
 
 from __future__ import annotations
@@ -18,12 +24,40 @@ import collections
 import copy
 
 import numpy as np
+import torch
 
 from ..layer_base import Layer, LayerList
 from .common import Dropout, Linear
 from .norm import LayerNorm
 from .. import functional as F
 from ... import tensor_api as T
+from ...dygraph.tensor import Tensor
+
+
+def _append(old, new):
+    """``concat([old, new], axis=2)`` of a ``Cache``'s [B, H, L, D] keys or
+    values.  With a gradient to record it is the concat op.  Without one,
+    the result is a view of a buffer [B, H, capacity, D] whose first rows
+    hold the cache: the step's rows are written in place behind them when
+    ``old`` is the buffer's latest view (its length is the buffer's
+    filled length), else the rows are copied into a new buffer of twice
+    the length.  A cache that an earlier step returned stays valid: its
+    rows are never written again."""
+    o, n = old._t, new._t
+    if torch.is_grad_enabled() and (o.requires_grad or n.requires_grad):
+        return T.concat([old, new], axis=2)
+    length, steps = o.shape[2], n.shape[2]
+    buf = o._base
+    if (buf is None or getattr(buf, "_filled", None) != length
+            or buf.dim() != 4 or buf.shape[2] < length + steps
+            or o.data_ptr() != buf.data_ptr() or o.stride() != buf.stride()
+            or o.shape[:2] != buf.shape[:2] or o.dtype != n.dtype):
+        cap = max(2 * (length + steps), 64)
+        buf = o.new_empty(o.shape[0], o.shape[1], cap, o.shape[3])
+        buf[:, :, :length] = o
+    buf[:, :, length:length + steps] = n
+    buf._filled = length + steps
+    return Tensor._wrap(buf[:, :, :length + steps])
 
 
 def _convert_param_attr_to_list(param_attr, n):
@@ -92,8 +126,8 @@ class MultiHeadAttention(Layer):
             k = self._reshape_qkv(self.k_proj(key))
             v = self._reshape_qkv(self.v_proj(value))
             if isinstance(cache, self.Cache):
-                k = T.concat([cache.k, k], axis=2)
-                v = T.concat([cache.v, v], axis=2)
+                k = _append(cache.k, k)
+                v = _append(cache.v, v)
                 cache = self.Cache(k, v)
 
         out = F.scaled_dot_product_attention(

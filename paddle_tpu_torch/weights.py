@@ -366,15 +366,18 @@ def load_paddle_state_dict(layer, state) -> None:
     ``bert.layers.0.attn.qkv.weight``, values as numpy arrays or anything
     ``np.asarray`` takes, paddle layouts: Linear weights ``[in, out]``)
     into the port's :class:`~paddle_tpu_torch.nn.Layer` of the same
-    structure, cast to each parameter's dtype and device.  Every key must
-    match, both ways, with two translations:
+    structure, cast to each parameter's dtype and device: BERT, ERNIE,
+    ViT, the paddle GPT, ``nn.Transformer`` and the models built on it,
+    ``DeepFM`` and ``WideDeep``.  Every key must match, both ways, with
+    two translations:
 
     * a ``GPTForPretrainingPipe`` (``run_functions.{i}`` keys) takes a
       ``GPTForPretraining`` state dict (:func:`reference_to_pipe`); on a
       pipeline rank the blocks of other stages, which the engine dropped,
       are skipped;
-    * a tensor-parallel parameter (``tp_split``) given its global value
-      keeps its slice."""
+    * a parameter split over ranks (``tp_split``: a tensor-parallel
+      layer's, or a rec model's table rows over its ``shard_axis``)
+      given its global value keeps its slice."""
     own = layer.state_dict()
     state = {k: np.asarray(v) for k, v in state.items()}
     if (any(k.startswith("run_functions.") for k in own)

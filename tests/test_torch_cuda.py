@@ -537,10 +537,11 @@ def test_flash_kernels_match_plain_on_card(dev, case):
 
 @pytest.mark.cuda
 def test_sdpa_on_card_launches_flash_or_raises(dev):
-    """sdpa on CUDA tensors takes the flash kernels at any length and with
-    a mask (the score bias), and raises where the kernels cannot go (no
-    plain fallback): q and k of other lengths, a head dim outside the
-    tiles, a mask that requires grad."""
+    """sdpa on CUDA tensors takes the flash kernels at any length, with q
+    and k of other lengths and with a mask (the score bias), and raises
+    where the kernels cannot go (no plain fallback): causal attention with
+    more queries than keys, a head dim outside the tiles, a mask that
+    requires grad."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -555,12 +556,15 @@ def test_sdpa_on_card_launches_flash_or_raises(dev):
     assert KERNELS["flash_fwd"] == 3
     with pytest.raises(NotImplementedError, match="head_dim"):
         sdpa(q[..., :12], k[..., :12], v[..., :12], layout="bsnd")
-    with pytest.raises(NotImplementedError, match="lengths"):
-        sdpa(q7, k7[:, :, :64], v7[:, :, :64])
+    sdpa(q7, k7[:, :, :64], v7[:, :, :64])
+    sdpa(q7[:, :, :1], k7, v7, mask=torch.zeros(2, 1, 1, 197, device=dev))
+    assert KERNELS["flash_fwd"] == 5
+    with pytest.raises(NotImplementedError, match="causal"):
+        sdpa(q7, k7[:, :, :64], v7[:, :, :64], is_causal=True)
     with pytest.raises(NotImplementedError, match="grad"):
         sdpa(q7, k7, v7, mask=torch.zeros(2, 1, 1, 197, device=dev,
                                           requires_grad=True))
-    assert KERNELS["flash_fwd"] == 3
+    assert KERNELS["flash_fwd"] == 5
 
 
 # the biased cases: layout, B, H, Hkv, S, D, causal, mask kind ("pad": a
@@ -628,6 +632,94 @@ def test_flash_kernels_with_bias_match_plain_on_card(dev, case):
             _close(x, y, tol[name], f"{dtype} {name}")
         again = flash_bwd(q, k, v, ref, rlse, do, causal, None, None, layout,
                           bias)
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+
+
+# q and k of other lengths: layout, B, H, Hkv, Sq, Sk, D, causal, window,
+# mask kind ("pad": a [B, 1, 1, Sk] float mask, 0 / -1e4 on 0-Sk/2 padded
+# keys a row; "full": a float [B, H, Sq, Sk] one; "neginf": the decoder's
+# -inf mask above the diagonal, aligned at the bottom right, with -inf on
+# the padded keys, so that whole tiles of a row score -inf): the
+# Transformer's cross-attention (Sq=200 over a memory of 256), a chunk
+# against a longer cache (causal, with and without a window), one decode
+# step (Sq=1) against 256 keys and against a growing cache (causal), GQA
+# in both seq-major layouts, more queries than keys (not causal), and the
+# -inf mask at D=64 and D=256
+CROSS_CASES = [
+    ("bnsd", 2, 8, 8, 200, 256, 64, False, None, "pad"),
+    ("bnsd", 2, 4, 4, 64, 300, 128, True, None, None),
+    ("bsnd", 1, 4, 2, 100, 333, 128, True, 48, None),
+    ("bnsd", 3, 8, 8, 1, 256, 64, False, None, "pad"),
+    ("bnsd", 2, 8, 8, 1, 77, 64, True, None, None),
+    ("bsnd", 2, 12, 4, 96, 200, 64, False, None, "full"),
+    ("sbnd", 2, 4, 2, 40, 136, 32, True, None, "full"),
+    ("sbnd", 2, 4, 2, 150, 72, 32, False, None, "pad"),
+    ("bnsd", 2, 8, 8, 200, 200, 64, False, None, "neginf"),
+    ("bnsd", 1, 4, 4, 72, 190, 256, False, None, "neginf"),
+]
+
+
+def _cross_mask(dev, g, kind, b, h, sq, sk):
+    if kind in ("pad", "neginf"):
+        n = torch.randint(sk // 2, sk + 1, (b, 1), device=dev, generator=g)
+        keep = torch.arange(sk, device=dev)[None, :] < n
+        if kind == "pad":
+            return torch.where(keep, 0.0, -1e4)[:, None, None]
+        qpos = torch.arange(sk - sq, sk, device=dev)[:, None]
+        band = torch.arange(sk, device=dev)[None, :] <= qpos
+        keep = keep[:, None, None] & band
+        return torch.where(keep, 0.0, float("-inf"))
+    if kind == "full":
+        return torch.randn(b, h, sq, sk, device=dev, generator=g)
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CROSS_CASES,
+                         ids=[f"{c[0]}-h{c[2]}kv{c[3]}-q{c[4]}k{c[5]}-d{c[6]}"
+                              f"-{c[9]}{'-causal' if c[7] else ''}"
+                              f"{'-w' + str(c[8]) if c[8] else ''}"
+                              for c in CROSS_CASES])
+def test_flash_kernels_cross_lengths_match_plain_on_card(dev, case):
+    """The forward, dQ and dK/dV kernels with q and k of other lengths (a
+    causal band aligned at the bottom right), with and without a score
+    bias, against their plain versions on the same inputs, fp32 and bf16,
+    within FLASH_TOL; nothing is NaN where whole tiles score -inf; a
+    second launch is bit-identical."""
+    from paddle_tpu_torch.kernels.flash import mask_bias
+
+    layout, b, h, hkv, sq, sk, d, causal, window, kind = case
+    g = torch.Generator(device=dev).manual_seed(sq + sk + d)
+
+    def shape(n, s):
+        return {"bnsd": (b, n, s, d), "bsnd": (b, s, n, d),
+                "sbnd": (s, b, n, d)}[layout]
+
+    for dtype, tol in FLASH_TOL.items():
+        q = torch.randn(shape(h, sq), device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(shape(hkv, sk), device=dev, generator=g).to(dtype)
+                for _ in range(2))
+        bias = mask_bias(_cross_mask(dev, g, kind, b, h, sq, sk), q, layout,
+                         k)
+        out, lse = flash_fwd(q, k, v, causal, None, window, layout, bias)
+        ref, rlse = flash_fwd_plain(q, k, v, causal, None, window, layout,
+                                    bias)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+        _close(out, ref, tol["out"], f"{dtype} out")
+        _close(lse, rlse, tol["lse"], f"{dtype} lse")
+        do = torch.randn(ref.shape, device=dev, generator=g).to(dtype)
+        got = flash_bwd(q, k, v, ref, rlse, do, causal, None, window, layout,
+                        bias)
+        want = flash_bwd_plain(q, k, v, ref, rlse, do, causal, None, window,
+                               layout, bias)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            assert x.shape == y.shape and torch.isfinite(x).all()
+            _close(x, y, tol[name], f"{dtype} {name}")
+        again = flash_bwd(q, k, v, ref, rlse, do, causal, None, window,
+                          layout, bias)
         for x, y in zip(got, again):
             assert torch.equal(x, y)
 

@@ -577,9 +577,10 @@ def test_mask_bias_is_a_view_and_kernel_reason_decides():
     """mask_bias reads a float mask in place (an expand view: stride 0 on
     every broadcast dimension, the mask's own storage), turns a boolean
     one into 0 / -1e9 at its own shape, and puts a 3-D bnsd q's scores at
-    [B*H, 1, S, S]; kernel_reason takes any length and a mask that
-    broadcasts, and refuses other lengths, a mask that requires grad or
-    does not broadcast, and head dims outside the tiles."""
+    [B*H, 1, S, S]; kernel_reason takes any length, q and k of other
+    lengths and a mask that broadcasts, and refuses causal attention with
+    more queries than keys, a mask that requires grad or does not
+    broadcast, and head dims outside the tiles."""
     b, h, s, d = 2, 3, 197, 64
     q = torch.zeros(b, h, s, d)
     pad = torch.zeros(b, 1, 1, s)
@@ -598,7 +599,10 @@ def test_mask_bias_is_a_view_and_kernel_reason_decides():
     assert tflash.kernel_reason(q, q) is None           # S=197
     assert tflash.kernel_reason(q, q, pad) is None
     assert tflash.kernel_reason(seq, seq, pad, "bsnd") is None
-    assert "lengths" in tflash.kernel_reason(q, torch.zeros(b, h, 64, d))
+    assert tflash.kernel_reason(q, torch.zeros(b, h, 64, d)) is None
+    assert "causal" in tflash.kernel_reason(q, torch.zeros(b, h, 64, d),
+                                            is_causal=True)
+    assert "lengths" in tflash.unsupported_reason(q, torch.zeros(b, h, 64, d))
     assert "head_dim" in tflash.kernel_reason(torch.zeros(1, 2, 16, 12),
                                               torch.zeros(1, 2, 16, 12))
     assert "grad" in tflash.kernel_reason(q, q, pad.requires_grad_())

@@ -765,3 +765,35 @@ def bn_dp(payload):
     return {"out": _np(out), "dx": _np(x.grad),
             "dw": _np(bn.weight.grad), "db": _np(bn.bias.grad),
             "mean": _np(bn._mean), "var": _np(bn._variance)}
+
+
+def rec_mp_train(payload):
+    """DeepFM with its tables' rows split over mp (fleet.init at mp =
+    world) from the reference's global weights, 5 Adam steps on the
+    payload's batches: the losses, this rank's state and the tables'
+    ``is_distributed``."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import DeepFM, RecConfig
+    from paddle_tpu_torch.weights import (load_paddle_state_dict,
+                                          state_dict_to_numpy)
+    import torch.distributed as dist
+
+    _fleet_init(mp=dist.get_world_size())
+    with unique_name.guard():
+        tp.seed(0)
+        model = DeepFM(RecConfig(**payload["cfg"]))
+    load_paddle_state_dict(model, payload["state"])
+    o = tp.optimizer.Adam(0.02, parameters=model.parameters())
+    losses = []
+    for ids, dense, label in payload["batches"]:
+        loss = tp.nn.functional.binary_cross_entropy_with_logits(
+            model(tp.to_tensor(ids), tp.to_tensor(dense)),
+            tp.to_tensor(label))
+        loss.backward()
+        o.step()
+        o.clear_grad()
+        losses.append(float(loss.numpy()))
+    return {"losses": losses, "state": state_dict_to_numpy(model),
+            "distributed": [model.embedding.weight.is_distributed,
+                            model.fo_weight.weight.is_distributed]}

@@ -48,9 +48,12 @@ def rel(a, b):
         np.linalg.norm(a))
 
 
-def run_both(case, steps=3, **kw):
+def run_both(case, steps=3, skip=(), **kw):
     """``steps`` steps of both packages' steps, each from the reference's
-    state; per step the loss pair and the worst relative differences."""
+    state; per step the loss pair and the worst relative differences.
+    The updates of the parameters whose names end in one of ``skip`` are
+    left out (a bias on the keys alone, whose gradient the softmax
+    cancels)."""
     factory, loss, batch = case
     jm, tm = pair(factory)
     js, jpar, jbuf, jopt = jbuild(jm, loss(jp), **kw)
@@ -61,7 +64,7 @@ def run_both(case, steps=3, **kw):
         if name.endswith("qkv.bias"):
             h = p.shape[0] // 3
             k[h:2 * h] = False
-        keep.append(k)
+        keep.append(None if skip and name.endswith(tuple(skip)) else k)
     hist = []
     for _ in range(steps):
         start = [np.asarray(a) for a in jpar]
@@ -75,11 +78,13 @@ def run_both(case, steps=3, **kw):
         jpar, jbuf, jopt, jl = js(jpar, jbuf, jopt,
                                   *[jnp.asarray(a) for a in batch])
         tpar, tbuf, topt, tl = ts(tpar, tbuf, topt, *batch)
+        kept = [(a, b, c, k) for a, b, c, k in zip(jpar, tpar, start, keep)
+                if k is not None]
         upd = [float(np.linalg.norm((b.numpy() - np.asarray(a))[k])
                      / np.linalg.norm((np.asarray(a) - c)[k]))
-               for a, b, c, k in zip(jpar, tpar, start, keep)]
+               for a, b, c, k in kept]
         diff = [((b.numpy() - np.asarray(a))[k], (np.asarray(a) - c)[k])
-                for a, b, c, k in zip(jpar, tpar, start, keep)]
+                for a, b, c, k in kept]
         hist.append({
             "loss": (float(tl), float(jl)), "update": max(upd),
             "update_all": float(np.sqrt(sum((d ** 2).sum() for d, _ in diff)
@@ -89,7 +94,8 @@ def run_both(case, steps=3, **kw):
                             for a, b in zip(jbuf, tbuf)], default=0.0),
             "moments": max(rel(b.numpy(), np.asarray(a))
                            for k in topt if k != "t"
-                           for a, b in zip(jopt[k], topt[k])),
+                           for a, b, m in zip(jopt[k], topt[k], keep)
+                           if m is not None),
             "t": (topt["t"], int(jopt["t"]))})
     return hist, (jm, tm, tpar, tbuf)
 
