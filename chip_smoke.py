@@ -4654,6 +4654,331 @@ def phase_seq2seq_rec(np, torch, card):
     return rows, launches
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+# graph mode: (a) BASELINE config 0, the fluid LeNet of
+# paddle_tpu_torch/examples/fluid_mnist.py (30 steps, batch 64), on the card
+# against the same script on the CPU from the CPU's initial weights; (b)
+# BERT-base (BERT_STEP's shape, AdamW lr 1e-4, wd 0.01, dropout 0) as a
+# static program on a resident batch, STEP_WARM + STEP_TIMED steps, held to
+# the eager port's model on the same weights; (c) the same program under
+# static.amp.decorate (bf16) against the eager model under auto_cast; (d)
+# (b)'s trained program saved as an inference model, reloaded and run
+# against the eager model's eval forward.  Tolerances: (a) losses 1e-4
+# relative with exact fp32 convolutions, 1e-3 with cuDNN's (see
+# _static_mnist); (b) losses 1e-5 relative and each sampled parameter's update
+# within UPDATE_RTOL (phase 10's generic-step parity); (c) losses 2e-2
+# relative and updates within 2e-2 (FLASH_TOL's bf16 rtol); (d) FLASH_TOL
+# fp32 on the logits.
+MNIST_ARGS = ["--steps", "30", "--batch", "64"]
+STATIC_LR, STATIC_WD = 1e-4, 0.01
+STATIC_TOL = {"fp32": (1e-5, UPDATE_RTOL), "bf16": (2e-2, 2e-2)}
+# the parameters whose updates (b) and (c) compare: the tied embedding, a
+# first- and a last-layer weight, a LayerNorm scale and the heads
+STATIC_SAMPLE = ("bert.word_embeddings.weight", "bert.layers.0.attn.qkv.weight",
+                 "bert.layers.11.fc2.weight", "bert.layers.5.ln2.weight",
+                 "transform.weight", "nsp.weight")
+
+
+def _static_mnist(np, torch):
+    """(a) the fluid LeNet on the card from the CPU run's initial weights
+    (TF32 off): the loss falls; the losses within 1e-4 relative of the
+    CPU's with the card's convolutions in exact fp32 (cuDNN off: PyTorch's
+    own im2col + SGEMM), and within 1e-3 with cuDNN's algorithms (whose
+    weight gradients differ from the CPU's by more than fp32 rounding, a
+    difference that 30 Adam steps amplify; logged)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.examples import fluid_mnist as ex
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    quiet = lambda msg: None  # noqa: E731
+    cpu, _, state = ex.run(ex.parse_args(MNIST_ARGS + ["--device", "cpu"]),
+                           log=quiet)
+    gpu = ex.parse_args(MNIST_ARGS + ["--device", "gpu"])
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        exact, _, _ = ex.run(gpu, init_state=state, log=quiet)
+    t0 = time.perf_counter()
+    card, accs, _ = ex.run(gpu, init_state=state, log=quiet)
+    secs = time.perf_counter() - t0
+    paddle.set_device("gpu")
+
+    def worst(got):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, cpu))
+
+    rel_exact, rel = worst(exact), worst(card)
+    log(f"fluid LeNet (BASELINE config 0), {len(card)} steps at "
+        f"{' '.join(MNIST_ARGS)} on the card in {secs:.2f} s: loss "
+        f"{card[0]:.4f} -> {card[-1]:.4f}, accuracy {accs[0]:.3f} -> "
+        f"{accs[-1]:.3f}; card vs cpu worst rel {rel_exact:.3e} with exact "
+        f"fp32 convolutions (tol 1e-4), {rel:.3e} with cuDNN's (tol 1e-3)")
+    if not (np.all(np.isfinite(card)) and card[-1] < card[0]):
+        raise AssertionError(f"the fluid LeNet did not train: {card}")
+    if not (rel_exact <= 1e-4 and rel <= 1e-3):
+        raise AssertionError("the fluid LeNet on the card disagrees with the "
+                             "CPU")
+
+
+def _static_batch(np, torch, c):
+    """BERT_STEP's batch on the card (as phase 10 (c) draws it), the
+    masked positions flat over the batch."""
+    rng = np.random.RandomState(0)
+    b, s, m = c["batch"], c["seq"], c["masked"]
+    ids = rng.randint(0, c["vocab"], (b, s)).astype("int64")
+    tt = (rng.rand(b, s) > 0.5).astype("int64")
+    pos = np.stack([rng.choice(s, m, replace=False) + i * s
+                    for i in range(b)]).astype("int64").reshape(-1)
+    mlm = ids.reshape(-1)[pos].reshape(-1, 1)
+    nsp = rng.randint(0, 2, (b, 1)).astype("int64")
+    return {k: torch.as_tensor(v, device="cuda") for k, v in
+            dict(ids=ids, tt=tt, pos=pos, mlm=mlm, nsp=nsp).items()}
+
+
+def _bert_cfg(c):
+    from paddle_tpu_torch.models import BertConfig
+
+    return BertConfig(vocab_size=c["vocab"], hidden_size=c["hidden"],
+                      num_layers=c["layers"], num_heads=c["heads"],
+                      max_seq_len=c["seq"], dropout=0.0)
+
+
+def _static_bert_program(c, amp):
+    """BERT-base and its criterion built under a fresh program pair and
+    fresh unique names, AdamW's minimize appended (through
+    static.amp.decorate for bf16)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         BertPretrainingCriterion)
+
+    b, s, m = c["batch"], c["seq"], c["masked"]
+    main, startup = static.Program(), static.Program()
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup), unique_name.guard():
+            model = BertForPretraining(_bert_cfg(c))
+            crit = BertPretrainingCriterion()
+            ids = static.data("ids", [b, s], "int64")
+            tt = static.data("tt", [b, s], "int64")
+            pos = static.data("pos", [b * m], "int64")
+            mlm = static.data("mlm", [b * m, 1], "int64")
+            nsp = static.data("nsp", [b, 1], "int64")
+            logits, nsp_logits = model(ids, tt, masked_positions=pos)
+            loss = crit(logits, nsp_logits, mlm, nsp,
+                        masked_lm_scale=float(b * m))
+            opt = paddle.optimizer.AdamW(learning_rate=STATIC_LR,
+                                         weight_decay=STATIC_WD)
+            if amp:
+                opt = static.amp.decorate(opt)
+            opt.minimize(loss)
+    finally:
+        paddle.disable_static()
+    return main, startup, loss, [ids, tt, pos], [logits, nsp_logits]
+
+
+def _eager_bert(np, torch, c, state):
+    """The eager port's BERT-base on the card, each parameter set from
+    ``state`` by its unique name (the static program's names)."""
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         BertPretrainingCriterion)
+
+    with unique_name.guard():
+        model = BertForPretraining(_bert_cfg(c))
+    for _, p in model.named_parameters():
+        p.set_value(state[p.name])
+    return model, BertPretrainingCriterion()
+
+
+def _eager_bert_steps(np, torch, c, model, crit, batch, steps, amp):
+    import paddle_tpu_torch as paddle
+
+    opt = paddle.optimizer.AdamW(learning_rate=STATIC_LR,
+                                 parameters=model.parameters(),
+                                 weight_decay=STATIC_WD)
+    args = [paddle.Tensor(batch[k]) for k in ("ids", "tt", "pos", "mlm",
+                                                "nsp")]
+    scale = float(c["batch"] * c["masked"])
+    losses = []
+    for _ in range(steps):
+        with paddle.amp.auto_cast(enable=amp, dtype="bfloat16"):
+            logits, nsp_logits = model(args[0], args[1],
+                                       masked_positions=args[2])
+            loss = crit(logits, nsp_logits, args[3], args[4],
+                        masked_lm_scale=scale)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.numpy()))
+    return losses
+
+
+def _static_bert(np, torch, card, dt, init=None):
+    """(b) fp32 or (c) bf16: BERT-base as a static program against the
+    eager model on the same weights.  Returns the flash launches a step,
+    the initial weights (numpy, by name), the trained program's pieces
+    and the eager model (for (d))."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework.scope import Scope, scope_guard
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.static.io import _host
+
+    c = BERT_STEP
+    amp = dt == "bf16"
+    steps = STEP_WARM + STEP_TIMED
+    paddle.set_device("gpu")
+    t0 = time.perf_counter()
+    main, startup, loss, feeds, fetches = _static_bert_program(c, amp)
+    build_s = time.perf_counter() - t0
+    scope = Scope()
+    exe = static.Executor(paddle.CUDAPlace(0))
+    with scope_guard(scope):
+        exe.run(startup)
+        if init is not None:
+            static.set_program_state(main, init)
+        params = [p.name for p in main.all_parameters()]
+        start = {n: _host(scope.find_var(n)) for n in params}
+        batch = _static_batch(np, torch, c)
+        feed = {"ids": batch["ids"], "tt": batch["tt"], "pos": batch["pos"],
+                "mlm": batch["mlm"], "nsp": batch["nsp"]}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+            times.append(time.perf_counter() - t1)
+            losses.append(float(lv))
+        total = {k: KERNELS[k] for k in FLASH}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ops = exe.last_run_ops
+        # the weights after the compared steps (the runs below move them)
+        trained = {n: scope.find_var(n).clone() for n in params}
+        # the host's cost: one run whose fetch stays on the card, timed
+        # without a synchronisation (an upper bound where the launch queue
+        # fills and the host waits for the card)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
+        host_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        busy = _profile(torch, f"static BERT-base {dt} step",
+                        lambda: exe.run(main, feed=feed, fetch_list=[loss]))
+    step_s = float(np.mean(times[STEP_WARM:]))
+    b, s, m = c["batch"], c["seq"], c["masked"]
+    fpt = bert_flops_per_token(c["hidden"], c["layers"], s, c["vocab"], m / s)
+    mfu = b * s / step_s * fpt / BF16_FLOPS
+    log(f"static BERT-base {dt} (AdamW, B={b} S={s} {m} masked; {card}): "
+        f"program of {ops} ops built in {build_s:.2f} s; "
+        f"{1e3 * step_s:.1f} ms a step (timed "
+        f"{[round(1e3 * t, 1) for t in times[STEP_WARM:]]}, warm-up "
+        f"{[round(1e3 * t, 1) for t in times[:STEP_WARM]]}), "
+        f"{b * s / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of 989 "
+        f"TFLOP/s; max_memory_allocated {peak:.2f} GiB; device busy "
+        f"{100 * busy:.1f}% of one profiled step; {ops} ops a step, "
+        f"{1e6 * host_s / ops:.1f} us host an op ({1e3 * host_s:.1f} ms to "
+        f"enqueue a step); losses {[round(x, 4) for x in losses]}; flash "
+        f"launches {json.dumps(total)}")
+    want = {k: c["layers"] * steps for k in FLASH}
+    if total != want:
+        raise AssertionError(f"static BERT-base {dt} launched {total}, "
+                             f"expected {want} (one forward a layer a step)")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"static BERT-base {dt}: losses {losses}")
+
+    model, crit = _eager_bert(np, torch, c, start)
+    eager = _eager_bert_steps(np, torch, c, model, crit, batch, steps, amp)
+    tol_loss, tol_update = STATIC_TOL[dt]
+    rel = max(abs(a - e) / abs(e) for a, e in zip(losses, eager))
+    named = dict(model.named_parameters())
+    ratios = {}
+    for key in STATIC_SAMPLE:
+        p = named[key]
+        got = trained[p.name].float()
+        want_t, init_t = p._t.detach().float(), torch.as_tensor(
+            start[p.name], device="cuda").float()
+        ratios[key] = ((got - want_t).norm() / (want_t - init_t).norm()).item()
+    log(f"static BERT-base {dt} vs the eager model on the same weights over "
+        f"{steps} steps: losses {[round(x, 6) for x in losses]} vs "
+        f"{[round(x, 6) for x in eager]}, worst rel {rel:.3e} (tol "
+        f"{tol_loss:g}); update ratios "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ratios.items())
+        + f" (tol {tol_update:g})")
+    if not (rel <= tol_loss and max(ratios.values()) <= tol_update):
+        raise AssertionError(f"static BERT-base {dt} disagrees with the "
+                             "eager model")
+    per_step = {k: v // steps for k, v in total.items()}
+    return per_step, start, (main, scope, feeds, fetches, batch), model
+
+
+def _static_inference(np, torch, trained, model):
+    """(d) (b)'s program saved by save_inference_model, reloaded and run
+    once: 12 flash_fwd launches and no backward launch, the logits within
+    FLASH_TOL fp32 of the eager model's eval forward on the trained
+    weights."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework.scope import Scope, scope_guard
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    main, scope, feeds, fetches, batch = trained
+    exe = static.Executor(paddle.CUDAPlace(0))
+    with tempfile.TemporaryDirectory() as d, scope_guard(scope):
+        prefix = os.path.join(d, "bert_base")
+        static.save_inference_model(prefix, feeds, fetches, exe,
+                                    program=main)
+        for _, p in model.named_parameters():
+            p.set_value(scope.find_var(p.name))
+        with scope_guard(Scope()):
+            prog, feed_names, fetch_names = static.load_inference_model(
+                prefix, exe)
+            reset_launch_counts()
+            got = exe.run(prog, feed={n: batch[k] for n, k in
+                                      zip(feed_names, ("ids", "tt", "pos"))},
+                          fetch_list=fetch_names, return_numpy=False)
+            torch.cuda.synchronize()
+            launches = {k: KERNELS[k] for k in FLASH}
+    model.eval()
+    with paddle.no_grad():
+        want = model(paddle.Tensor(batch["ids"]), paddle.Tensor(batch["tt"]),
+                     masked_positions=paddle.Tensor(batch["pos"]))
+    log(f"static BERT-base inference program ({len(prog.global_block().ops)} "
+        f"ops after pruning) reloaded: launches {json.dumps(launches)}")
+    for label, g, w in zip(("mlm logits", "nsp logits"), got, want):
+        _flash_close(f"reloaded inference program vs eager eval, {label}",
+                     g._t.float(), w._t.float(), *FLASH_TOL["fp32"]["out"])
+    want = {k: BERT_STEP["layers"] if k == "flash_fwd" else 0 for k in FLASH}
+    if launches != want:
+        raise AssertionError(f"the inference program launched {launches}, "
+                             f"expected {want}")
+
+
+def phase_static(np, torch, card):
+    """Phase 13: graph mode (see the comment above MNIST_ARGS).  Returns
+    each flash kernel's launches a step of the static BERT-base program,
+    by dtype."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    _static_mnist(np, torch)
+    runs = {}
+    runs["fp32"], init, trained, model = _static_bert(np, torch, card,
+                                                      "fp32")
+    _static_inference(np, torch, trained, model)
+    del trained, model
+    _free(torch)
+    runs["bf16"], _, _, _ = _static_bert(np, torch, card, "bf16", init=init)
+    _free(torch)
+    log(card)
+    return runs
+
+
 def main():
     try:
         import numpy as np
@@ -4710,6 +5035,11 @@ def main():
         phase_transformers(np, torch, card)
         done("11 the transformer encoders")
         return 0
+    if sys.argv[1:] == ["--phase", "13"]:
+        # phase 13 alone, for work on graph mode: no result line
+        phase_static(np, torch, card)
+        done("13 graph mode")
+        return 0
     if sys.argv[1:] == ["--phase", "12"]:
         # phase 12 alone, for work on the encoder-decoder, the flash
         # kernels at other lengths and the rec models: no result line
@@ -4742,6 +5072,8 @@ def main():
     done("11 the transformer encoders")
     seq_kernels, seq_runs = phase_seq2seq_rec(np, torch, card)
     done("12 the encoder-decoder and the rec models")
+    static_runs = phase_static(np, torch, card)
+    done("13 graph mode")
     kernels.update(bert_kernels)
     kernels.update(encoder_kernels)
     kernels.update(seq_kernels)
@@ -4784,9 +5116,11 @@ def main():
                                   else "_gpt760m_")
             if "_bert_" in name:
                 n, run = bert_runs[dt][base], f"eager BERT-base {dt}"
+                more = {f"phase 13 static BERT-base {dt} (a step)":
+                        static_runs[dt][base]}
                 if dt == "bf16":
-                    more = {"phase 10 BERT-base generic step bf16":
-                            step_launches[base]}
+                    more["phase 10 BERT-base generic step bf16"] = \
+                        step_launches[base]
             else:
                 (run, c), *rest = fleet_runs[dt].items()
                 n = c[base]

@@ -38,6 +38,11 @@ mirrors the JAX package so that every module has an obvious counterpart:
   (``python -m paddle_tpu_torch.examples.serve_gpt``), and
   ``examples/pretrain_bert.py``: BERT pretraining through the eager API
   (``python -m paddle_tpu_torch.examples.pretrain_bert``);
+* graph mode: ``framework/program.py`` (Program, Block, Variable,
+  Operator, Parameter), ``static/`` (the Executor, ``append_backward``,
+  ``static.nn``, ``static.amp``, static io, ``cond`` / ``while_loop``)
+  and ``fluid/``, the v2.1 namespace; ``examples/fluid_mnist.py`` trains
+  BASELINE config 0 through it;
 * ``weights.py``: lifts a JAX parameter tree (as numpy) into the port.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``
@@ -46,7 +51,8 @@ card (``gpu:0``) unless ``set_device("cpu")`` says otherwise.  The
 top-level namespace is the reference's ``paddle_tpu`` namespace for the
 modules ported so far: ``to_tensor``, ``seed``, ``set_device``,
 ``no_grad``, ``grad``, ``DataParallel``, ``io``, ``reader``, ``vision``,
-``save``, ``load``, ``batch`` and the tensor functions.
+``static``, ``fluid``, ``enable_static``, ``save``, ``load``, ``batch``
+and the tensor functions.
 """
 
 from .device import default_device, default_dtype, resolve_device  # noqa: F401
@@ -108,6 +114,8 @@ from . import reader  # noqa: F401
 from . import vision  # noqa: F401
 from . import metric  # noqa: F401
 from .io_api import batch, load, save  # noqa: F401
+from . import static  # noqa: F401
+from . import fluid  # noqa: F401
 
 VarBase = Tensor
 in_dynamic_mode = in_dygraph_mode

@@ -135,10 +135,45 @@ def trace_op(op_type: str, inputs: Dict[str, Any], attrs: Dict[str, Any]):
 def trace_fn(fn, tensors: List, name: str = "pyfunc"):
     """``fn`` over the tensors' torch tensors, recorded by autograd (the
     composite surface functions: indexing, in-place helpers); returns a
-    Tensor, or a list for several outputs."""
+    Tensor, or a list for several outputs.  In static mode ``fn`` becomes
+    a one-off op appended to the program, differentiated like any other
+    op."""
+    from ..framework import program as fw
     from .tensor import Tensor
 
+    if not fw.in_dygraph_mode():
+        return _trace_fn_static(fn, tensors, name)
     out = fn(*[t._t for t in tensors])
     if isinstance(out, (list, tuple)):
         return [Tensor._wrap(o) for o in out]
     return Tensor._wrap(out)
+
+
+_pyfunc_counter = [0]
+
+
+def _trace_fn_static(fn, tensors, name):
+    """Register ``fn`` as a one-off op type and append it to the current
+    block; the appended Operator keeps the op's def (and ``fn``) alive as
+    long as its program."""
+    from ..framework import program as fw
+    from ..ops.dispatch import dispatch_static
+
+    _pyfunc_counter[0] += 1
+    op_type = f"__pyfunc_{name}_{_pyfunc_counter[0]}"
+
+    def kernel(kins, attrs):
+        xs = kins["X"]
+        if not isinstance(xs, list):
+            xs = [xs]
+        out = fn(*xs)
+        if isinstance(out, (list, tuple)):
+            return {"Out": list(out)}
+        return {"Out": [out]}
+
+    od = registry.register_ephemeral(registry.OpDef(
+        type=op_type, kernel=kernel, list_slots={"X", "Out"}))
+    outs = dispatch_static(op_type, {"X": list(tensors)}, {})
+    fw.default_main_program().current_block().ops[-1]._ephemeral_def = od
+    res = outs["Out"]
+    return res[0] if len(res) == 1 else res

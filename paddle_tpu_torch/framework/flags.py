@@ -132,14 +132,14 @@ def _set_matmul_precision(v: str) -> None:
 
 
 define_flag("FLAGS_check_nan_inf", False,
-            "check every eager op's outputs for NaN/Inf and raise naming "
-            "the op")
+            "check every op's outputs (eager, or in a static executor "
+            "run) for NaN/Inf and raise naming the op")
 define_flag("FLAGS_benchmark", False,
             "synchronize the card after every eager op (and before a "
             "RecordEvent closes), so host spans time the card's work")
 define_flag("FLAGS_call_stack_level", 1,
-            "error verbosity (accepted; the static executor it steers "
-            "waits for graph mode)")
+            "error verbosity: >= 2 attaches the Python stack that built "
+            "an op to the static executor's errors")
 define_flag("FLAGS_tpu_flash_attention", True,
             "accepted: on the card, attention always launches the flash "
             "kernels where they apply, and raises otherwise", inert=True)

@@ -2,10 +2,12 @@
 outputs and raises naming the first op that produced a NaN or an Inf.
 
 Counterpart of ``paddle_tpu/framework/nan_inf.py``
-(``assert_all_finite_eager``).  The check reads the outputs back to the
+(``assert_all_finite_eager``, ``op_all_finite``,
+``raise_first_bad_op``).  The eager check reads the outputs back to the
 host, a synchronisation per op: a debugging flag's cost, as in the
-reference.  The static executor's per-op finite vector waits for graph
-mode (ROADMAP A.10).
+reference.  The static executor keeps one finite flag per op on the
+device (:func:`op_all_finite`) and reads them once, after the run
+(:func:`raise_first_bad_op`).
 """
 
 from __future__ import annotations
@@ -35,3 +37,23 @@ def assert_all_finite_eager(op_type: str, outs) -> None:
                 f"{slot}[{i}] (shape {tuple(v.shape)}, dtype "
                 f"{str(v.dtype).replace('torch.', '')}) contains {n_nan} "
                 f"NaN and {n_inf} Inf values")
+
+
+def op_all_finite(outs) -> torch.Tensor:
+    """A 0-d bool tensor: every float output of this op is finite."""
+    ok = None
+    for _, _, v in _float_tensors(outs):
+        f = torch.isfinite(v).all()
+        ok = f if ok is None else ok & f
+    return ok if ok is not None else torch.tensor(True)
+
+
+def raise_first_bad_op(oks, op_labels) -> None:
+    """Raise naming the first op whose finite flag is False."""
+    flags = [bool(o) for o in oks]
+    if all(flags):
+        return
+    idx = flags.index(False)
+    raise RuntimeError(
+        f"FLAGS_check_nan_inf: op #{idx} {op_labels[idx]} produced NaN/Inf "
+        f"({flags.count(False)} op(s) non-finite in this step)")

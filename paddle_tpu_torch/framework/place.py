@@ -13,6 +13,7 @@ accepts ``"gpu"`` for its accelerator.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
@@ -119,6 +120,19 @@ def _get_current_place() -> Place:
         place = _parse(os.environ.get("PADDLE_TPU_DEVICE", "gpu:0"))
         _state.place = place
     return place
+
+
+@contextlib.contextmanager
+def place_guard(place: Place):
+    """Make ``place`` the current place inside the block (the static
+    executor runs its ops so: creation ops make their tensors on the
+    executor's device)."""
+    old = getattr(_state, "place", None)
+    _state.place = place
+    try:
+        yield place
+    finally:
+        _state.place = old
 
 
 def current_device() -> torch.device:

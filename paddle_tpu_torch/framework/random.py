@@ -123,8 +123,12 @@ def set_chain_state(state) -> None:
     _state.trace_key = trace_key
 
 
-def generator(key: int, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``key``."""
+def generator(key: int, device) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` on ``device`` seeded with ``key``; None on
+    the ``meta`` device, where shape inference runs a kernel and nothing
+    is drawn."""
+    if torch.device(device).type == "meta":
+        return None
     return torch.Generator(device=device).manual_seed(int(key))
 
 

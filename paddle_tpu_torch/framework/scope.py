@@ -1,9 +1,10 @@
 """Scope: a hierarchical name -> value store.
 
 Counterpart of ``paddle_tpu/framework/scope.py`` (``Scope``,
-``global_scope``, ``scope_guard``); values are torch tensors.  The
-static executor that reads persistables out of a scope waits for graph
-mode (ROADMAP A.10).
+``global_scope``, ``scope_guard``); values are torch tensors on the
+device of the executor that made them.  The static executor reads a
+program's persistables (parameters, optimizer state, BatchNorm
+statistics) out of a scope and updates them there in place.
 """
 
 from __future__ import annotations

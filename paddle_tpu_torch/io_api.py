@@ -4,8 +4,8 @@ Counterpart of ``paddle_tpu/io_api.py``, with its on-disk format: a pickle
 (protocol 4) of the object with every Tensor replaced by ``{"__tensor__":
 True, "value": <numpy array>, "name": ..., "stop_gradient": ...}``, so a
 file written by either package loads in the other.  A bf16 tensor is saved
-as fp32 (:meth:`Tensor.numpy`).  The static ``Variable`` branch of the
-reference's ``save`` waits for graph mode (ROADMAP A.10).
+as fp32 (:meth:`Tensor.numpy`); a static ``Variable`` is saved with its
+value in the global scope (None before its startup program ran).
 """
 
 from __future__ import annotations
@@ -21,10 +21,19 @@ _PROTO = 4
 
 def _to_saveable(obj: Any):
     from .dygraph.tensor import Tensor
+    from .framework import program as fw
+    from .framework.scope import global_scope
 
     if isinstance(obj, Tensor):
         return {"__tensor__": True, "value": obj.numpy(), "name": obj.name,
                 "stop_gradient": obj.stop_gradient}
+    if isinstance(obj, fw.Variable):
+        from .static.io import _host
+
+        val = global_scope().find_var(obj.name)
+        return {"__tensor__": True,
+                "value": _host(val) if val is not None else None,
+                "name": obj.name, "stop_gradient": obj.stop_gradient}
     if isinstance(obj, dict):
         return {k: _to_saveable(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):

@@ -6,8 +6,9 @@ Uniform, Normal, TruncatedNormal, Xavier, Kaiming / MSRA, Assign,
 the creation op and attributes it runs (``_op``); in dygraph mode it
 runs that op eagerly with the next key of the seed chain (every
 initializer takes one, as the reference's do, so the chain advances
-alike).  Appending the op to a startup program waits for graph mode
-(ROADMAP A.10).
+alike), and in static mode it appends the op to the startup program
+(:meth:`Initializer.apply_static`), which the executor runs with its
+own keys.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ...framework import program as fw
 from ...framework.dtype import convert_dtype, to_torch_dtype
 
 __all__ = [
@@ -66,6 +68,16 @@ class Initializer:
     def _op(self, shape, dtype):
         raise NotImplementedError
 
+    def apply_static(self, param, startup_block) -> None:
+        """Append the initializing op of ``param`` to the startup
+        program's block."""
+        op_type, attrs = self._op(tuple(param.shape), param.dtype)
+        if not startup_block.has_var(param.name):
+            startup_block.create_parameter(
+                name=param.name, shape=param.shape, dtype=param.dtype)
+        startup_block.append_op(type=op_type, inputs={},
+                                outputs={"Out": [param.name]}, attrs=attrs)
+
     def apply_dygraph(self, shape, dtype):
         """The initial value as a torch tensor on the current device."""
         from ...dygraph import tracer
@@ -75,7 +87,12 @@ class Initializer:
                                        rng=_init_rng())["Out"][0]
 
     def __call__(self, param, block=None):
-        """Re-initialize ``param`` (a Tensor) in place."""
+        """Re-initialize ``param``: a Tensor in place, a static Variable by
+        an op of ``block`` (the startup program's by default)."""
+        if isinstance(param, fw.Variable):
+            block = (block if block is not None
+                     else fw.default_startup_program().global_block())
+            return self.apply_static(param, block)
         param.set_value(self.apply_dygraph(param.shape, param.dtype))
         return param
 
@@ -183,6 +200,15 @@ class KaimingNormal(Initializer):
 class Assign(Initializer):
     def __init__(self, value):
         self.value = np.asarray(value)
+
+    def apply_static(self, param, startup_block) -> None:
+        if not startup_block.has_var(param.name):
+            startup_block.create_parameter(
+                name=param.name, shape=param.shape, dtype=param.dtype)
+        startup_block.append_op(
+            type="assign_value", inputs={}, outputs={"Out": [param.name]},
+            attrs={"shape": list(self.value.shape), "dtype": param.dtype,
+                   "values": self.value.reshape(-1).tolist()})
 
     def apply_dygraph(self, shape, dtype):
         import torch

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from ...framework import program as fw
 from ..layer_base import Layer, ParamAttr
 from .. import functional as F
 from ... import tensor_api as T
@@ -55,7 +56,7 @@ class Embedding(Layer):
             shape=[num_embeddings, embedding_dim], attr=weight_attr,
             default_initializer=Normal(0.0, 1.0),
         )
-        if padding_idx is not None:
+        if padding_idx is not None and fw.in_dygraph_mode():
             with torch.no_grad():
                 self.weight._t[padding_idx] = 0.0
 

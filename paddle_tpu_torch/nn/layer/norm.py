@@ -3,7 +3,8 @@ GroupNorm, InstanceNorm, LocalResponseNorm.
 
 Counterpart of ``paddle_tpu/nn/layer/norm.py``.  BatchNorm's running
 statistics are the op's MeanOut / VarianceOut; a training forward
-rebinds the layer's buffers to them.  Under a data-parallel group (the
+rebinds the layer's buffers to them (in static mode the op writes them
+back to the same persistable Variables).  Under a data-parallel group (the
 installed mesh's dp x sharding axes, as ``DataParallel`` and
 ``fleet.distributed_model`` train) every ``BatchNorm*`` and
 ``SyncBatchNorm`` normalises by the global batch's statistics, as the
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ...framework import program as fw
 from ...ops.dispatch import dispatch
 from ..layer_base import Layer
 from ..initializer import Constant
@@ -34,12 +36,29 @@ class _BatchNormBase(Layer):
             shape=[num_features], attr=weight_attr, default_initializer=Constant(1.0)
         )
         self.bias = self.create_parameter(shape=[num_features], attr=bias_attr, is_bias=True)
-        from ...dygraph.tensor import Tensor
+        if fw.in_dygraph_mode():
+            from ...dygraph.tensor import Tensor
 
-        self.register_buffer("_mean", Tensor(np.zeros(num_features,
-                                                      "float32")))
-        self.register_buffer("_variance", Tensor(np.ones(num_features,
-                                                         "float32")))
+            self.register_buffer("_mean", Tensor(np.zeros(num_features,
+                                                          "float32")))
+            self.register_buffer("_variance", Tensor(np.ones(num_features,
+                                                             "float32")))
+            return
+        blk = fw.default_main_program().global_block()
+        self._mean = blk.create_var(
+            name=self.full_name() + ".mean", shape=(num_features,),
+            dtype="float32", persistable=True, stop_gradient=True)
+        self._variance = blk.create_var(
+            name=self.full_name() + ".variance", shape=(num_features,),
+            dtype="float32", persistable=True, stop_gradient=True)
+        sb = fw.default_startup_program().global_block()
+        for var, val in ((self._mean, 0.0), (self._variance, 1.0)):
+            sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                          persistable=True)
+            sb.append_op(type="fill_constant", inputs={},
+                         outputs={"Out": [var.name]},
+                         attrs={"shape": [num_features], "value": val,
+                                "dtype": "float32"})
 
     def forward(self, x):
         training = self.training and not (self._use_global_stats or False)
@@ -49,11 +68,28 @@ class _BatchNormBase(Layer):
                  "is_test": not training, "data_layout": self._data_format,
                  "use_global_stats": bool(self._use_global_stats)
                  if self._use_global_stats is not None else False}
-        outs = dispatch("batch_norm", ins, attrs)
-        if training:
-            # the running statistics, rebound (a functional update)
-            self._buffers["_mean"] = outs["MeanOut"][0].detach()
-            self._buffers["_variance"] = outs["VarianceOut"][0].detach()
+        if fw.in_dygraph_mode():
+            outs = dispatch("batch_norm", ins, attrs)
+            if training:
+                # the running statistics, rebound (a functional update)
+                self._buffers["_mean"] = outs["MeanOut"][0].detach()
+                self._buffers["_variance"] = outs["VarianceOut"][0].detach()
+            return outs["Y"][0]
+        # static: MeanOut / VarianceOut write the same persistable vars
+        from ...framework import unique_name
+        from ...ops.dispatch import dispatch_static
+
+        blk = fw.default_main_program().current_block()
+        y = blk.create_var(name=unique_name.generate(self.full_name() + ".out"))
+        sm = blk.create_var(name=unique_name.generate(
+            self.full_name() + ".saved_mean"), stop_gradient=True)
+        sv = blk.create_var(name=unique_name.generate(
+            self.full_name() + ".saved_var"), stop_gradient=True)
+        outs = dispatch_static(
+            "batch_norm", ins, attrs,
+            outputs={"Y": [y], "MeanOut": [self._mean],
+                     "VarianceOut": [self._variance],
+                     "SavedMean": [sm], "SavedVariance": [sv]})
         return outs["Y"][0]
 
     def extra_repr(self):

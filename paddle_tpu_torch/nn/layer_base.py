@@ -7,7 +7,9 @@ buffers and sublayers, forward hooks, ``state_dict`` /
 in dygraph mode: a parameter is a leaf Tensor that needs a gradient,
 named by the unique-name counters as the reference names it
 (``linear_0.w_0``), so state-dict keys and optimizer state keys agree
-between the packages.
+between the packages.  In static mode a parameter is a ``Parameter`` of
+the main program and its initializer op goes into the startup program,
+under the same names.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 
 import torch
 
+from ..framework import program as fw
 from ..framework import unique_name
 from ..framework.dtype import convert_dtype, to_torch_dtype
 from ..dygraph.tensor import Tensor
@@ -121,16 +124,31 @@ class Layer:
             init = Constant(0.0) if is_bias else XavierUniform()
         name = attr.name or unique_name.generate(self._full_name + ".w")
         shape = [int(s) for s in shape]
-        value = init.apply_dygraph(shape, dtype)
-        return EagerParameter(
-            value, trainable=attr.trainable, name=name,
-            learning_rate=attr.learning_rate, regularizer=attr.regularizer,
+        if fw.in_dygraph_mode():
+            value = init.apply_dygraph(shape, dtype)
+            return EagerParameter(
+                value, trainable=attr.trainable, name=name,
+                learning_rate=attr.learning_rate,
+                regularizer=attr.regularizer, need_clip=attr.need_clip)
+        # static mode: a Parameter of the main program, initialized by an
+        # op of the startup program
+        p = fw.default_main_program().global_block().create_parameter(
+            name=name, shape=shape, dtype=dtype, trainable=attr.trainable,
+            initializer=init, regularizer=attr.regularizer,
             need_clip=attr.need_clip)
+        init.apply_static(p, fw.default_startup_program().global_block())
+        return p
 
     def create_variable(self, name=None, persistable=False, dtype=None):
-        """Non-parameter state: in dygraph mode the caller registers a
-        buffer instead (None)."""
-        return None
+        """Non-parameter state: a Variable of the main program in static
+        mode; in dygraph mode the caller registers a buffer instead
+        (None)."""
+        dtype = convert_dtype(dtype or self._dtype)
+        name = name or unique_name.generate(self._full_name + ".b")
+        if fw.in_dygraph_mode():
+            return None
+        return fw.default_main_program().global_block().create_var(
+            name=name, dtype=dtype, persistable=persistable)
 
     def add_parameter(self, name: str, parameter):
         self._parameters[name] = parameter

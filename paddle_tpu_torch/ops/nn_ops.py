@@ -724,7 +724,10 @@ def _data_norm_grad_maker(ins, outs, ogs):
                                          "BatchSquareSum"),
              nondiff_out_slots=("BatchSizeOut", "BatchSumOut",
                                 "BatchSquareSumOut"),
-             grad_maker=_data_norm_grad_maker)
+             grad_maker=_data_norm_grad_maker,
+             grad_rebinds={"BatchSizeOut": "BatchSize",
+                           "BatchSumOut": "BatchSum",
+                           "BatchSquareSumOut": "BatchSquareSum"})
 def data_norm_kernel(ins, attrs):
     """y = (x - sum / size) * sqrt(size / square_sum); the statistics'
     update runs in the grad op, as in the reference."""

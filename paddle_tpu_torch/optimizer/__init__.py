@@ -2,11 +2,15 @@
 LarsMomentum, Adam, AdamW, Lamb, RMSProp, Adagrad, Adadelta, Adamax, and
 the schedulers of :mod:`.lr`.
 
-Counterpart of ``paddle_tpu/optimizer/__init__.py``, in dygraph mode.
-Every optimizer runs its registered update op (:mod:`paddle_tpu_torch.
+Counterpart of ``paddle_tpu/optimizer/__init__.py``.  In dygraph mode
+every optimizer runs its registered update op (:mod:`paddle_tpu_torch.
 ops.optimizer_ops`) once per parameter and writes the outputs back: the
 parameter in place (it stays the same leaf tensor), its accumulators by
-rebinding.  Accumulators are keyed by the parameter's unique name, and
+rebinding.  In static mode ``minimize`` appends the backward
+(``append_backward``), the regularizer and clip ops and one update op
+per parameter to the program; the accumulators and the learning rate are
+persistable Variables that the startup program fills, and an
+``LRScheduler.step()`` writes the new rate into the scope.  Accumulators are keyed by the parameter's unique name, and
 the state dict uses the reference's keys (``{param}_{acc}_0``, e.g.
 ``linear_0.w_0_moment1_0``), so the two packages' state dicts carry
 over.  With ``multi_precision`` (or ``amp.decorate(level="O2")``) a
@@ -22,6 +26,9 @@ import torch
 
 from ..dygraph.tensor import Tensor
 from ..dygraph import tracer
+from ..framework import program as fw
+from ..framework import unique_name
+from ..framework.scope import global_scope
 from . import lr as lr_sched_mod
 from .lr import LRScheduler
 
@@ -46,6 +53,15 @@ class Optimizer:
             self.regularization = L2Decay(float(weight_decay))
         else:
             self.regularization = weight_decay
+        if isinstance(learning_rate, LRScheduler):
+            import weakref
+
+            # a scheduler's step() writes the rate into the scope of the
+            # static optimizers bound here
+            bound = getattr(learning_rate, "_bound_optimizers", None)
+            if bound is None:
+                bound = learning_rate._bound_optimizers = weakref.WeakSet()
+            bound.add(self)
         self._grad_clip = grad_clip
         # accumulators: acc_name -> param_name -> Tensor
         self._accumulators: Dict[str, Dict[str, Tensor]] = {}
@@ -53,6 +69,7 @@ class Optimizer:
         # {acc}_0`` and consumed by _add_accumulator
         self._accumulators_holder: Dict[str, object] = {}
         self._lr_cache: Dict[torch.device, Tuple[float, torch.Tensor]] = {}
+        self._lr_var = None  # the static learning-rate Variable
         self._multi_precision = False
 
     # -- lr ---------------------------------------------------------------
@@ -65,10 +82,41 @@ class Optimizer:
         if isinstance(self._learning_rate, LRScheduler):
             raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
+        self._sync_static_lr()
+
+    def _sync_static_lr(self):
+        """Write the current rate into the scope's learning-rate Variable
+        (in place where it exists)."""
+        if self._lr_var is None:
+            return
+        cur = global_scope().find_var(self._lr_var.name)
+        if isinstance(cur, torch.Tensor):
+            cur.fill_(self.get_lr())
+        else:
+            from ..framework.place import current_device
+
+            global_scope().set(self._lr_var.name, torch.tensor(
+                [self.get_lr()], dtype=torch.float32,
+                device=current_device()))
 
     def _lr_input(self, p):
-        """The LearningRate input on ``p``'s device: [1] fp32, made once
-        per value and device."""
+        """The LearningRate input: in dygraph mode [1] fp32 on ``p``'s
+        device, made once per value and device; in static mode the
+        persistable Variable the startup program fills."""
+        if not fw.in_dygraph_mode():
+            if self._lr_var is None:
+                block = fw.default_main_program().global_block()
+                self._lr_var = block.create_var(
+                    name=unique_name.generate("learning_rate"), shape=(1,),
+                    dtype="float32", persistable=True, stop_gradient=True)
+                sb = fw.default_startup_program().global_block()
+                sb.create_var(name=self._lr_var.name, shape=(1,),
+                              dtype="float32", persistable=True)
+                sb.append_op(type="fill_constant", inputs={},
+                             outputs={"Out": [self._lr_var.name]},
+                             attrs={"shape": [1], "value": self.get_lr(),
+                                    "dtype": "float32"})
+            return self._lr_var
         value = self.get_lr()
         dev = p._t.device
         hit = self._lr_cache.get(dev)
@@ -86,6 +134,20 @@ class Optimizer:
         if pname in store:
             return store[pname]
         shape = list(shape if shape is not None else param.shape)
+        if not fw.in_dygraph_mode():
+            dtype = dtype or "float32"
+            acc = fw.default_main_program().global_block().create_var(
+                name=unique_name.generate(f"{pname}_{name}"), shape=shape,
+                dtype=dtype, persistable=True, stop_gradient=True)
+            sb = fw.default_startup_program().global_block()
+            sb.create_var(name=acc.name, shape=shape, dtype=dtype,
+                          persistable=True)
+            sb.append_op(type="fill_constant", inputs={},
+                         outputs={"Out": [acc.name]},
+                         attrs={"shape": shape, "value": fill_value,
+                                "dtype": dtype})
+            store[pname] = acc
+            return acc
         dt = _torch_dtype(dtype or "float32")
         held = self._pop_held(pname, name, dt, shape, param._t.device)
         if held is None:
@@ -124,8 +186,8 @@ class Optimizer:
         """(target, finalize): the tensor the update writes (the master
         under multi_precision) and a callback that mirrors the new master
         into the low-precision parameter."""
-        if self._multi_precision and p._t.dtype in (torch.float16,
-                                                    torch.bfloat16):
+        if (self._multi_precision and fw.in_dygraph_mode()
+                and p._t.dtype in (torch.float16, torch.bfloat16)):
             mw = self._master_weight(p)
 
             def finalize():
@@ -140,7 +202,13 @@ class Optimizer:
                     bind: Dict[str, object], attrs: Dict[str, object]):
         """Run an update op; ``bind`` maps output slot -> the Tensor that
         takes the new value (a parameter in place, an accumulator by
-        rebinding)."""
+        rebinding); in static mode the appended op writes them."""
+        if not fw.in_dygraph_mode():
+            from ..ops.dispatch import dispatch_static
+
+            dispatch_static(op_type, ins, attrs, outputs={
+                slot: [v] for slot, v in bind.items() if v is not None})
+            return
         arrays = {s: [t._t if isinstance(t, Tensor) else t for t in vs]
                   for s, vs in ins.items()}
         outs = tracer.run_eager_kernel(op_type, arrays, attrs)
@@ -226,8 +294,17 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        self.step()
-        return None, self._params_grads_dygraph()
+        if fw.in_dygraph_mode():
+            self.step()
+            return None, self._params_grads_dygraph()
+        from ..static.backward import append_backward
+
+        params_grads = append_backward(loss, parameters, no_grad_set)
+        params_grads = self._apply_regularization(params_grads)
+        params_grads = self._apply_clip(params_grads)
+        for p, g in params_grads:
+            self._apply_optimize_op(p, g)
+        return None, params_grads
 
     @torch.no_grad()
     def apply_gradients(self, params_grads):

@@ -37,6 +37,9 @@ class LRScheduler:
         else:
             self.last_epoch = epoch
         self.last_lr = self.get_lr()
+        # static optimizers bound here keep the scope's rate in step
+        for o in getattr(self, "_bound_optimizers", []):
+            o._sync_static_lr()
         if self.verbose:
             print(f"Epoch {self.last_epoch}: lr set to {self.last_lr}")
 

@@ -6,8 +6,10 @@ a registered op (:func:`paddle_tpu_torch.ops.dispatch.dispatch`), and the
 Tensor's operators and methods (the ``math_op_patch`` role).  Python
 scalars in a binary op take the other operand's dtype, as the
 reference's ``_wrap`` makes them, and travel as 0-d CPU tensors, which an
-operation on the card reads as a scalar argument.  The static-graph
-branches wait for graph mode (ROADMAP A.10).
+operation on the card reads as a scalar argument.  In static mode the
+same functions append ops to the current program: a Python scalar
+becomes a ``fill_constant`` op, and a static ``Variable`` takes the
+Tensor's operators, methods and indexing (``x[0]``, ``x[:, 0]``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .dygraph.tensor import Tensor, to_tensor
+from .framework import program as fw
 from .framework.dtype import convert_dtype, to_torch_dtype
 from .ops.dispatch import dispatch, single
 
@@ -71,7 +74,7 @@ def _d(op_type, ins, attrs=None, slot="Out"):
 
 
 def is_tensor(x) -> bool:
-    return isinstance(x, Tensor)
+    return isinstance(x, (Tensor, fw.Variable))
 
 
 def _is_scalar(v) -> bool:
@@ -84,10 +87,20 @@ def _wrap(v, like=None):
     the CPU as a 0-d tensor."""
     if is_tensor(v):
         return v
+    if fw.in_dygraph_mode():
+        if like is not None and _is_scalar(v) and not isinstance(v, bool):
+            return Tensor._wrap(torch.tensor(v, dtype=to_torch_dtype(
+                like.dtype)))
+        return Tensor(np.asarray(v))
+    # static mode: a fill_constant op
+    arr = np.asarray(v)
+    dtype = str(arr.dtype) if arr.dtype != np.float64 else "float32"
     if like is not None and _is_scalar(v) and not isinstance(v, bool):
-        return Tensor._wrap(torch.tensor(v, dtype=to_torch_dtype(
-            like.dtype)))
-    return Tensor(np.asarray(v))
+        dtype = like.dtype if isinstance(like.dtype, str) else str(like.dtype)
+    return _d("fill_constant", {}, {
+        "shape": list(arr.shape),
+        "value": float(arr) if arr.ndim == 0 else arr.tolist(),
+        "dtype": dtype})
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +471,9 @@ def numel(x, name=None):
     n = 1
     for s in x.shape:
         n *= s
-    return to_tensor(np.asarray(n, dtype="int64"))
+    if fw.in_dygraph_mode():
+        return to_tensor(np.asarray(n, dtype="int64"))
+    return full([1], n, "int64")
 
 
 def norm(x, p="fro", axis=None, keepdim=False, name=None):
@@ -860,6 +875,22 @@ def _patch(cls):
 
 _patch(Tensor)
 Tensor.__hash__ = lambda self: id(self)
+_patch(fw.Variable)
+fw.Variable.__hash__ = lambda self: id(self)
+fw.Variable.cast = lambda self, dtype: cast(self, dtype)
+
+
+def _variable_getitem(self, idx):
+    """``var[idx]`` in a static program: the Tensor's indexing as a
+    one-off op (int and slice indices)."""
+    from .dygraph import tracer
+    from .dygraph.tensor import _normalize_index
+
+    return tracer.trace_fn(lambda a: a[_normalize_index(idx, a.device)],
+                           [self], name="getitem")
+
+
+fw.Variable.__getitem__ = _variable_getitem
 
 
 # ---------------------------------------------------------------------------

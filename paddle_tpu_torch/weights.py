@@ -43,6 +43,10 @@ reference train step's flat leaves and of the port's
 ``GPTParams.leaves()``.  :func:`load_jax_named_params` maps
 them to the port's names; :func:`params_to_numpy` gives the port's
 parameters back as numpy in that order.
+
+A static program's weights carry across by name instead:
+:func:`paddle_tpu_torch.static.set_program_state` takes the reference's
+scope arrays (numpy) for a program built in the same order.
 """
 
 from __future__ import annotations

@@ -172,7 +172,14 @@ EAGER_MODULES = (
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.regularizer",
     "paddle_tpu_torch.amp", "paddle_tpu_torch.amp.auto_cast",
     "paddle_tpu_torch.amp.grad_scaler", "paddle_tpu_torch.models.bert",
-    "paddle_tpu_torch.examples.pretrain_bert")
+    "paddle_tpu_torch.examples.pretrain_bert",
+    "paddle_tpu_torch.static", "paddle_tpu_torch.static.executor",
+    "paddle_tpu_torch.static.backward", "paddle_tpu_torch.static.io",
+    "paddle_tpu_torch.static.amp", "paddle_tpu_torch.static.nn",
+    "paddle_tpu_torch.static.control_flow", "paddle_tpu_torch.static.input",
+    "paddle_tpu_torch.fluid", "paddle_tpu_torch.fluid.layers",
+    "paddle_tpu_torch.fluid.dygraph", "paddle_tpu_torch.fluid.io",
+    "paddle_tpu_torch.fluid.contrib", "paddle_tpu_torch.examples.fluid_mnist")
 
 
 def test_eager_core_imports_no_jax_and_no_reference():
