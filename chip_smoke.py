@@ -304,6 +304,33 @@ its seconds):
     10 Adam steps (losses within 1e-5) and its held-out AUC (within
     1e-4).  ``--phase 12`` builds and runs this phase alone (no result
     line).
+13. graph mode (``phase_static``; ``--phase 13`` alone);
+14. jit and deployment (``phase_jit``; ``--phase 14`` builds and runs it
+    alone, no result line): (a) BERT-base (BERT_STEP's widths, seeded
+    weights, eval) through ``jit.to_static`` with ``[None, 512]`` int64
+    input specs at B=32 x 512 in fp32, against its eager forward at
+    FLASH_TOL fp32 (and whether bit for bit), 12 ``flash_fwd`` launches a
+    call and no backward launch asserted, then ``jit.save`` / ``jit.load``
+    (the loaded layer bit for bit); (b) ``paddle.inference``'s Predictor
+    over that saved model in fp32 (bit for bit (a)), under
+    ``enable_bf16()`` and under ``enable_int8()`` (4 L + 1
+    ``quantized_matmul`` ops and as many ``w8a8_gemm_prequant`` launches a
+    run), each with ms a batch, sequences/s, peak memory, busy share, ops
+    a run and host us an op, the bf16 and int8 errors against fp32, and
+    the int8 Predictor at B=2 against the CPU's (their relative norm
+    distance within twice the CPU's own int8-vs-fp32 distance); (c) the
+    pre-quantized GEMM at BERT-base's four projections (M = 16384): the
+    int32 sums and the output bit for bit against the plain version,
+    timed beside ``torch._int_mm`` and the bound (row
+    ``w8a8_gemm_prequant``, the layer summed); (d) int8 GPT-1.3B (the
+    paddle layers at ``gpt_1p3b(int8=True, int8_lm_head=True)``, fp32)
+    through ``to_static`` at B=4 x 1024: 97 ``w8a8_matmul`` ops and no
+    one-off op, 97 ``w8a8_gemm`` and 24 ``flash_fwd`` launches a forward,
+    the logits bit for bit the eager forward's, ms a forward and
+    tokens/s; (e) dy2static's tensor if / while / for / break cases on
+    the card against the CPU, ``infer_int8.py --device gpu`` and
+    ``fluid_word2vec.py --device gpu --steps 60`` (its losses within 1e-4
+    relative of the CPU's from the same weights).
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -4979,6 +5006,489 @@ def phase_static(np, torch, card):
     return runs
 
 
+
+# -- phase 14 ----------------------------------------------------------------
+
+# BERT-base (BERT_STEP's widths) through to_static and the Predictor:
+# batch x seq, the batch of the int8 card-vs-CPU check, the Predictor's
+# timed runs.  The int8 card-vs-CPU check holds the two within twice the
+# distance that int8 puts between the CPU's int8 and fp32 outputs: int8
+# with per-tensor dynamic scales is discontinuous, and the card's fp32
+# attention and LayerNorm round differently from the CPU's, which moves
+# activations across quantization steps (op by op, on equal inputs, the
+# two are bit for bit: tests/test_torch_cuda.py)
+JIT_BATCH, JIT_PARITY_BATCH, PRED_REPEATS = 32, 2, 5
+# BERT-base's projections, (K, N), at JIT_BATCH x 512 rows (part (c))
+BERT_PROJ = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072),
+             "fc2": (3072, 768)}
+# int8 GPT-1.3B through to_static: batch x seq, timed forwards
+GPT_INT8 = dict(batch=4, seq=1024, timed=3)
+
+
+def bert_int8_matmuls(layers):
+    """The quantized_matmul ops of an L-layer BertModel program under
+    enable_int8()'s size gate: each layer's qkv, proj, fc1 and fc2, and
+    the pooler (tests/test_torch_int8_inference.py finds it for L=2)."""
+    return 4 * layers + 1
+
+
+def _launches(names=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "w8a8_gemm", "w8a8_gemm_prequant")):
+    from paddle_tpu_torch.kernels import KERNELS
+
+    return {k: KERNELS[k] for k in names}
+
+
+def _jit_bert(np, torch, card, tmp):
+    """(a) BERT-base through to_static against its eager forward, then
+    jit.save / jit.load.  Returns the saved prefix, the batch and the
+    to_static outputs."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    from paddle_tpu_torch.models import BertModel
+
+    c = BERT_STEP
+    b, s = JIT_BATCH, c["seq"]
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    with unique_name.guard():
+        model = BertModel(_bert_cfg(c))
+    model.eval()
+    rng = np.random.RandomState(0)
+    ids = torch.as_tensor(rng.randint(0, c["vocab"], (b, s)), device="cuda")
+    tt = torch.as_tensor((rng.rand(b, s) > 0.5).astype("int64"),
+                         device="cuda")
+    args = (paddle.Tensor(ids), paddle.Tensor(tt))
+    with paddle.no_grad():
+        want = model(*args)
+    spec = [jit.InputSpec([None, s], "int64")] * 2
+    jit.to_static(model, input_spec=spec)
+    t0 = time.perf_counter()
+    model(*args)  # traces, then runs
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    reset_launch_counts()
+    got = model(*args)
+    torch.cuda.synchronize()
+    launches = _launches()
+    prog = model.forward.concrete_program[0]
+    times = []
+    for _ in range(PRED_REPEATS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    ms = 1e3 * float(np.mean(times))
+    same = all(torch.equal(g._t, w._t) for g, w in zip(got, want))
+    log(f"(a) to_static BERT-base fp32 (B={b} S={s}; {card}): program of "
+        f"{len(prog.global_block().ops)} ops, traced and run once in "
+        f"{trace_s:.2f} s; {ms:.2f} ms a call ({b * s / ms * 1e3:.0f} "
+        f"tokens/s); launches a call {json.dumps(launches)}; outputs vs the "
+        f"eager forward bit for bit: {same}")
+    for label, g, w in zip(("sequence output", "pooled output"), got, want):
+        _flash_close(f"(a) to_static vs eager, {label}", g._t, w._t,
+                     *FLASH_TOL["fp32"]["out"])
+    expect = {"flash_fwd": c["layers"], "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0, "w8a8_gemm": 0, "w8a8_gemm_prequant": 0}
+    if launches != expect:
+        raise AssertionError(f"(a) to_static BERT-base launched {launches}, "
+                             f"expected {expect}")
+    prefix = os.path.join(tmp, "bert_base")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=spec)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = jit.load(prefix)
+    load_s = time.perf_counter() - t0
+    back = loaded(*args)
+    same = all(torch.equal(g._t, w._t) for g, w in zip(back, got))
+    log(f"(a) jit.save {save_s:.2f} s, jit.load {load_s:.2f} s; the loaded "
+        f"layer vs to_static bit for bit: {same}")
+    if not same:
+        raise AssertionError("(a) the jit.load-ed BERT-base differs from its "
+                             "to_static program")
+    outs = [g._t for g in got]
+    del model, loaded, back, got, want
+    _free(torch)
+    return prefix, (ids, tt), outs
+
+
+def _predictor(prefix, precision, device="gpu"):
+    from paddle_tpu_torch import inference
+
+    cfg = inference.Config(prefix)
+    if device == "cpu":
+        cfg.disable_gpu()
+    if precision == "bf16":
+        cfg.enable_bf16()
+    elif precision == "int8":
+        cfg.enable_int8()
+    return inference.create_predictor(cfg)
+
+
+def _predictors(np, torch, card, prefix, batch, fp32_outs):
+    """(b) the Predictor over (a)'s saved model in fp32, bf16 and int8;
+    then the int8 run at JIT_PARITY_BATCH against the CPU's.  Returns the
+    launches a run of each precision."""
+    from paddle_tpu_torch.kernels import reset_launch_counts
+
+    c = BERT_STEP
+    layers = c["layers"]
+    b, s = batch[0].shape
+    expect = {
+        "fp32": dict(flash_fwd=layers),
+        "bf16": dict(flash_fwd=layers),
+        "int8": dict(flash_fwd=layers,
+                     w8a8_gemm_prequant=bert_int8_matmuls(layers))}
+    runs, outs = {}, {}
+    for precision in ("fp32", "bf16", "int8"):
+        t0 = time.perf_counter()
+        pred = _predictor(prefix, precision)
+        load_s = time.perf_counter() - t0
+        block = pred._program.global_block()
+        ops = [op.type for op in block.ops]
+        n_q = ops.count("quantized_matmul")
+        attn = {block._var_recursive(op.input("Q")[0]).dtype
+                for op in block.ops
+                if op.type == "scaled_dot_product_attention"}
+        got = pred.run_on_device(batch)  # the first run: prepares the program
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        got = pred.run_on_device(batch)
+        torch.cuda.synchronize()
+        launches = _launches()
+        times = []
+        for _ in range(PRED_REPEATS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred.run_on_device(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_ops = pred._exe.last_run_ops
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred.run_on_device(batch)
+        host_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        busy = _profile(torch, f"Predictor BERT-base {precision} run",
+                        lambda: pred.run_on_device(batch))
+        ms = 1e3 * float(np.mean(times))
+        outs[precision] = [g._t.float() for g in got]
+        log(f"(b) Predictor BERT-base {precision} (B={b} S={s}; {card}): "
+            f"loaded in {load_s:.2f} s; {ms:.2f} ms a batch (timed "
+            f"{[round(1e3 * t, 2) for t in times]}), {b / ms * 1e3:.1f} "
+            f"sequences/s; max_memory_allocated {peak:.2f} GiB; device busy "
+            f"{100 * busy:.1f}% of one profiled run; {n_ops} ops a run, "
+            f"{1e6 * host_s / n_ops:.1f} us host an op; quantized_matmul ops "
+            f"{n_q}; the attention ops' query dtype {sorted(attn)}; launches "
+            f"a run {json.dumps(launches)}")
+        want = {k: expect[precision].get(k, 0) for k in launches}
+        if launches != want:
+            raise AssertionError(f"(b) the {precision} Predictor launched "
+                                 f"{launches}, expected {want}")
+        if attn != {"bfloat16" if precision == "bf16" else "float32"}:
+            raise AssertionError(f"(b) the {precision} program's attention "
+                                 f"takes {attn} queries")
+        if precision == "int8" and (n_q != bert_int8_matmuls(layers)
+                                    or pred._n_int8 != n_q):
+            raise AssertionError(f"(b) the int8 program has {n_q} "
+                                 f"quantized_matmul ops ({pred._n_int8} "
+                                 "rewritten)")
+        runs[precision] = launches
+        del pred, got
+        _free(torch)
+    same = all(torch.equal(a, w) for a, w in zip(outs["fp32"], fp32_outs))
+    log(f"(b) the fp32 Predictor vs (a)'s to_static outputs bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("(b) the fp32 Predictor differs from (a)")
+    for precision in ("bf16", "int8"):
+        for label, g, w in zip(("sequence output", "pooled output"),
+                               outs[precision], outs["fp32"]):
+            err = (g - w).abs().max().item()
+            rel = ((g - w).norm() / w.norm()).item()
+            log(f"(b) {precision} vs fp32, {label}: max abs err {err:.3e}, "
+                f"relative (norm) error {rel:.3e}")
+            if not (np.isfinite(err) and rel < 0.1):
+                raise AssertionError(f"(b) the {precision} Predictor is off")
+    # the int8 Predictor on the card against its CPU run (the plain
+    # versions) on the batch's first rows, held within twice the distance
+    # int8 itself puts between the CPU's int8 and fp32 outputs
+    small = [t[:JIT_PARITY_BATCH].cpu().numpy() for t in batch]
+    card_out = _predictor(prefix, "int8").run(small)
+    cpu_out = _predictor(prefix, "int8", device="cpu").run(small)
+    cpu_fp32 = _predictor(prefix, "fp32", device="cpu").run(small)
+    for label, g, w, f in zip(("sequence output", "pooled output"),
+                              card_out, cpu_out, cpu_fp32):
+        err = float(np.abs(g - w).max())
+        rel = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+        int8_rel = float(np.linalg.norm(w - f) / np.linalg.norm(f))
+        log(f"(b) int8 Predictor card vs CPU at B={JIT_PARITY_BATCH}, "
+            f"{label}: max abs err {err:.3e} ({err / np.abs(w).max():.3e} "
+            f"of the largest |output|), relative (norm) error {rel:.3e}; "
+            f"the CPU's int8 vs its fp32: {int8_rel:.3e} (the bound: twice "
+            f"it)")
+        if not rel <= 2 * int8_rel:
+            raise AssertionError("(b) the int8 Predictor on the card "
+                                 "disagrees with the CPU")
+    _free(torch)
+    return runs
+
+
+def _prequant_gemm(np, torch, card):
+    """(c) the pre-quantized GEMM at BERT-base's projections (M = JIT_BATCH
+    x 512 rows): the int32 sums (unit scales) and the rescaled output bit
+    for bit against the plain version; timed by CUDA events beside
+    ``torch._int_mm`` on the same operands and the bound.  Returns the
+    kernels-line row (the layer's four projections summed)."""
+    from paddle_tpu_torch.kernels.int8_gemm import (w8a8_gemm_prequant,
+                                                    w8a8_gemm_prequant_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    m = JIT_BATCH * BERT_STEP["seq"]
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    for proj, (k, n) in BERT_PROJ.items():
+        xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        sx = torch.rand(m, 1, device=dev, generator=g) * 1e-2 + 1e-4
+        ws = torch.rand(n, device=dev, generator=g) * 1e-2 + 1e-4
+        ones_m = torch.ones(m, 1, device=dev)
+        ones_n = torch.ones(n, device=dev)
+        acc = w8a8_gemm_prequant(xq, ones_m, wq, ones_n)
+        _, want_acc = w8a8_gemm_prequant_plain(xq, ones_m, wq, ones_n,
+                                               return_acc=True)
+        top = want_acc.abs().max().item()
+        exact_acc = top < 2 ** 24 and torch.equal(acc, want_acc.float())
+        out = w8a8_gemm_prequant(xq, sx, wq, ws)
+        want = w8a8_gemm_prequant_plain(xq, sx, wq, ws)
+        err = (out - want).abs().max().item()
+        ms = time_ms(lambda: w8a8_gemm_prequant(xq, sx, wq, ws), 10)
+        plain_ms = time_ms(lambda: w8a8_gemm_prequant_plain(xq, sx, wq, ws),
+                           3, 1)
+        lib_ms = time_ms(lambda: torch._int_mm(xq, wq.t()), 10)
+        nbytes = m * k + n * k + 4 * m + 4 * n + 4 * m * n
+        bms, by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS)
+        log(f"(c) w8a8_gemm_prequant {proj} M={m} K={k} N={n} ({card}): "
+            f"int32 sums bit for bit {exact_acc} (largest |sum| {top:.0f}); "
+            f"output max abs err {err:.3e} (tol 0); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, _int_mm {lib_ms:.4f} ms "
+            f"({ms / lib_ms:.2f}x), bound {bms:.4f} ms ({by}), "
+            f"{2 * m * n * k / ms / 1e9:.1f} TOP/s")
+        if not (exact_acc and err == 0.0):
+            raise AssertionError(f"(c) w8a8_gemm_prequant {proj} is not exact")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bytes", nbytes),
+                         ("ops", 2 * m * n * k)):
+            row[key] += val
+        del xq, wq, acc, want_acc, out, want
+    bms, by = bound_ms(row["bytes"], row["ops"], INT8_OPS)
+    log(f"(c) w8a8_gemm_prequant one BERT-base layer (qkv + proj + fc1 + "
+        f"fc2, M={m}): {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"_int_mm {row['library_ms']:.4f} ms "
+        f"({row['ms'] / row['library_ms']:.2f}x), bound {bms:.4f} ms ({by})")
+    _free(torch)
+    return dict(ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=bms,
+                bound_by=by, library_ms=row["library_ms"], max_abs_err=0.0)
+
+
+def _jit_gpt_int8(np, torch, card):
+    """(d) int8 GPT-1.3B (the paddle layers, fp32 as phase 9's plain runs)
+    through to_static against its eager forward.  Returns the launches a
+    forward."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.models.gpt_layers import GPTForPretraining
+
+    cfg = gpt_1p3b(int8=True, int8_lm_head=True)
+    b, s = GPT_INT8["batch"], GPT_INT8["seq"]
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    t0 = time.perf_counter()
+    with unique_name.guard():
+        model = GPTForPretraining(cfg)
+    model.eval()
+    build_s = time.perf_counter() - t0
+    ids = paddle.Tensor(torch.as_tensor(
+        np.random.RandomState(1).randint(0, cfg.vocab_size, (b, s)),
+        device="cuda"))
+    reset_launch_counts()
+    with paddle.no_grad():
+        want = model(ids)
+    torch.cuda.synchronize()
+    eager = _launches()
+    jit.to_static(model, input_spec=[jit.InputSpec([None, s], "int64")])
+    t0 = time.perf_counter()
+    model(ids)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    ops = [op.type for op in model.forward.concrete_program[0]
+           .global_block().ops]
+    n_w8 = ops.count("w8a8_matmul")
+    one_off = sorted({t for t in ops if t.startswith("__")})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    got = model(ids)
+    torch.cuda.synchronize()
+    launches = _launches()
+    times = []
+    for _ in range(GPT_INT8["timed"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = 1e3 * float(np.mean(times))
+    same = torch.equal(got._t, want._t)
+    err = (got._t.float() - want._t.float()).abs().max().item()
+    log(f"(d) int8 GPT-1.3B through to_static (fp32, B={b} S={s}; {card}): "
+        f"built in {build_s:.2f} s, traced and run once in {trace_s:.2f} s; "
+        f"program of {len(ops)} ops, {n_w8} w8a8_matmul, one-off ops "
+        f"{one_off}; {ms:.2f} ms a forward (timed "
+        f"{[round(1e3 * t, 2) for t in times]}), {b * s / ms * 1e3:.0f} "
+        f"tokens/s; max_memory_allocated {peak:.2f} GiB; launches a forward "
+        f"{json.dumps(launches)} (eager {json.dumps(eager)}); logits vs the "
+        f"eager forward bit for bit: {same} (max abs err {err:.3e})")
+    n_proj = 4 * cfg.num_layers + 1
+    expect = {"flash_fwd": cfg.num_layers, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0, "w8a8_gemm": n_proj,
+              "w8a8_gemm_prequant": 0}
+    if n_w8 != n_proj or one_off or launches != expect or eager != expect:
+        raise AssertionError(f"(d) int8 GPT-1.3B: {n_w8} w8a8_matmul ops, "
+                             f"one-off {one_off}, launches {launches} / "
+                             f"eager {eager}, expected {expect}")
+    if not same:
+        raise AssertionError("(d) the to_static int8 GPT-1.3B differs from "
+                             "its eager forward")
+    del model, got, want
+    _free(torch)
+    return launches
+
+
+def _d2s_cases(P):
+    """Tensor if / while / for / break cases of
+    tests/test_torch_dy2static.py, with the values the CPU test asserts."""
+
+    def if_assign(x):
+        if x.sum() > 0:
+            y = x * 2.0
+        else:
+            y = x - 1.0
+        return y + 0.5
+
+    def while_tensor(x):
+        s = P.zeros([1])
+        i = P.zeros([1])
+        while s.sum() < x.sum():
+            s = s + 1.0
+            i = i + 2.0
+        return s + i
+
+    def for_tensor_bound(x):
+        n = x.sum().astype("int64")
+        acc = P.zeros([1])
+        for i in range(n):
+            acc = acc + 1.5
+        return acc
+
+    def break_tensor_bound(x):
+        n = x.sum().astype("int64")
+        acc = P.zeros([1])
+        for i in range(n):
+            if acc.sum() >= 5.0:
+                break
+            acc = acc + 1.0
+        return acc
+
+    def return_in_while(x):
+        s = P.zeros([1])
+        while s.sum() < 5.0:
+            s = s + 1.0
+            if s.sum() > 2.0:
+                return s
+        return s
+
+    return [(if_assign, (2, 3), 1.0, 2.5), (if_assign, (2, 3), -1.0, -1.5),
+            (while_tensor, (4,), 1.8, 24.0),
+            (for_tensor_bound, (5,), 1.0, 7.5),
+            (break_tensor_bound, (100,), 1.0, 5.0),
+            (return_in_while, (1,), 0.0, 3.0)]
+
+
+def _examples_on_card(np, torch):
+    """(e) dy2static on the card against the CPU, and the two examples."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.examples import fluid_word2vec, infer_int8
+
+    for fn, shape, value, first in _d2s_cases(paddle):
+        x = np.full(shape, value, "float32")
+        got = {}
+        for device in ("cpu", "gpu"):
+            paddle.set_device(device)
+            got[device] = paddle.jit.to_static(fn)(paddle.to_tensor(x)).numpy()
+        log(f"(e) dy2static {fn.__name__}({value:g}): card "
+            f"{got['gpu'].reshape(-1)[:3].tolist()}, cpu "
+            f"{got['cpu'].reshape(-1)[:3].tolist()}")
+        if not (got["gpu"].reshape(-1)[0] == first
+                and np.array_equal(got["gpu"], got["cpu"])):
+            raise AssertionError(f"(e) dy2static {fn.__name__} on the card "
+                                 f"gave {got['gpu']}, the CPU {got['cpu']}")
+    quiet = lambda msg: None  # noqa: E731
+    paddle.set_device("gpu")
+    acc_fp32, acc_int8 = infer_int8.main(["--device", "gpu"])
+    log(f"(e) infer_int8.py --device gpu: accuracy fp32 {acc_fp32:.3f}, "
+        f"int8 {acc_int8:.3f}")
+    args = ["--steps", "60"]
+    cpu, state, _ = fluid_word2vec.run(
+        fluid_word2vec.parse_args(args + ["--device", "cpu"]), log=quiet)
+    card, _, shape = fluid_word2vec.run(
+        fluid_word2vec.parse_args(args + ["--device", "gpu"]),
+        init_state=state, log=quiet)
+    fluid_word2vec.check(card, shape)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"(e) fluid_word2vec.py --device gpu --steps 60: loss {card[0]:.4f} "
+        f"-> {card[-1]:.4f}; card vs cpu worst rel {rel:.3e} (tol 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError("(e) fluid_word2vec on the card disagrees with "
+                             "the CPU")
+    paddle.set_device("gpu")
+
+
+def phase_jit(np, torch, card):
+    """Phase 14: jit and deployment (see the comment above JIT_BATCH).
+    Returns the kernels-line row of the pre-quantized GEMM and each run's
+    launches."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix, batch, outs = _jit_bert(np, torch, card, tmp)
+        runs["bert"] = _predictors(np, torch, card, prefix, batch, outs)
+    del outs, batch
+    _free(torch)
+    row = _prequant_gemm(np, torch, card)
+    runs["gpt"] = _jit_gpt_int8(np, torch, card)
+    _examples_on_card(np, torch)
+    log(card)
+    return {"w8a8_gemm_prequant": row}, runs
+
+
 def main():
     try:
         import numpy as np
@@ -5040,6 +5550,11 @@ def main():
         phase_static(np, torch, card)
         done("13 graph mode")
         return 0
+    if sys.argv[1:] == ["--phase", "14"]:
+        # phase 14 alone, for work on jit and deployment: no result line
+        phase_jit(np, torch, card)
+        done("14 jit and deployment")
+        return 0
     if sys.argv[1:] == ["--phase", "12"]:
         # phase 12 alone, for work on the encoder-decoder, the flash
         # kernels at other lengths and the rec models: no result line
@@ -5074,6 +5589,9 @@ def main():
     done("12 the encoder-decoder and the rec models")
     static_runs = phase_static(np, torch, card)
     done("13 graph mode")
+    jit_kernels, jit_runs = phase_jit(np, torch, card)
+    done("14 jit and deployment")
+    kernels.update(jit_kernels)
     kernels.update(bert_kernels)
     kernels.update(encoder_kernels)
     kernels.update(seq_kernels)
@@ -5083,6 +5601,8 @@ def main():
         entry = {"paged_attention": 213, "paged_attention_mq": 372}
         replaces = {"paged_prefill": "paddle_tpu/kernels/paged_prefill.py:166",
                     "w8a8_gemm": "paddle_tpu/kernels/int8_gemm.py:85",
+                    "w8a8_gemm_prequant":
+                        "paddle_tpu/kernels/int8_gemm.py:85",
                     "flash_fwd": "paddle_tpu/kernels/flash.py:74",
                     "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
                     "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"}.get(
@@ -5117,7 +5637,12 @@ def main():
             if "_bert_" in name:
                 n, run = bert_runs[dt][base], f"eager BERT-base {dt}"
                 more = {f"phase 13 static BERT-base {dt} (a step)":
-                        static_runs[dt][base]}
+                        static_runs[dt][base],
+                        f"phase 14 BERT-base Predictor {dt} (a run)":
+                        jit_runs["bert"][dt][base]}
+                if dt == "fp32":
+                    more["phase 14 BERT-base int8 Predictor (a run)"] = \
+                        jit_runs["bert"]["int8"][base]
                 if dt == "bf16":
                     more["phase 10 BERT-base generic step bf16"] = \
                         step_launches[base]
@@ -5131,6 +5656,11 @@ def main():
                         "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"
                         }[base]
             log(f"{name}: {n} launches on the {run} run")
+        elif name == "w8a8_gemm_prequant":
+            n = jit_runs["bert"]["int8"][name]
+            src = "w8a8_gemm"
+            log(f"{name}: {n} launches on phase 14's int8 BERT-base "
+                "Predictor run")
         elif name in FLASH:
             n, run = trained[name]
             src = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
@@ -5138,6 +5668,9 @@ def main():
         else:
             n, run = first[name]
             log(f"{name}: {n} launches on serving run ({run})")
+            if name == "w8a8_gemm":
+                more["phase 14 int8 GPT-1.3B to_static (a forward)"] = \
+                    jit_runs["gpt"][name]
         entry = {"name": name, "route": "cuda",
                  "source": f"paddle_tpu_torch/csrc/{src}.cu",
                  "replaces": replaces, "launches": n,

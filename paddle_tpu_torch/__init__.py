@@ -43,6 +43,11 @@ mirrors the JAX package so that every module has an obvious counterpart:
   ``static.nn``, ``static.amp``, static io, ``cond`` / ``while_loop``)
   and ``fluid/``, the v2.1 namespace; ``examples/fluid_mnist.py`` trains
   BASELINE config 0 through it;
+* deployment: ``jit/`` (``to_static`` with the dy2static AST pass,
+  ``jit.save`` / ``jit.load``, ``TracedLayer``), ``inference/`` (``Config``
+  and the ``Predictor``, in fp32, bf16 or int8 through
+  ``static/quant_int8.py``) and ``incubate/quant.py`` (quantization-aware
+  training and post-training quantization);
 * ``weights.py``: lifts a JAX parameter tree (as numpy) into the port.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``
@@ -51,8 +56,9 @@ card (``gpu:0``) unless ``set_device("cpu")`` says otherwise.  The
 top-level namespace is the reference's ``paddle_tpu`` namespace for the
 modules ported so far: ``to_tensor``, ``seed``, ``set_device``,
 ``no_grad``, ``grad``, ``DataParallel``, ``io``, ``reader``, ``vision``,
-``static``, ``fluid``, ``enable_static``, ``save``, ``load``, ``batch``
-and the tensor functions.
+``static``, ``fluid``, ``jit``, ``inference``, ``incubate``,
+``enable_static``, ``save``, ``load``, ``batch`` and the tensor
+functions.
 """
 
 from .device import default_device, default_dtype, resolve_device  # noqa: F401
@@ -116,6 +122,9 @@ from . import metric  # noqa: F401
 from .io_api import batch, load, save  # noqa: F401
 from . import static  # noqa: F401
 from . import fluid  # noqa: F401
+from . import jit  # noqa: F401
+from . import inference  # noqa: F401
+from . import incubate  # noqa: F401
 
 VarBase = Tensor
 in_dynamic_mode = in_dygraph_mode

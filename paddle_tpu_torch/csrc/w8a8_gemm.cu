@@ -31,6 +31,10 @@
 //   dependent launch, which starts its weight copies and then waits
 //   (griddepcontrol.wait) for xq and sx.
 //
+// w8a8_gemm_prequant runs either GEMM body alone, on xq and sx the caller
+//   filled (the int8 inference ops quantize per tensor, not per row): a
+//   plain launch, whose griddepcontrol.wait returns at once.
+//
 // split_kernel, for few rows (decode).  Bound by the weight bytes: 2 M N K
 //   operations at 1979 TOP/s take less time than N K bytes at 3.35 TB/s
 //   for M below ~295, and at the decode rows a projection reads its 4-17
@@ -717,20 +721,22 @@ cudaLaunchAttribute dependent() {
   return attr;
 }
 
+// pdl: launched as the quantize's programmatic dependent (else the
+// griddepcontrol.wait of the bodies returns at once)
 template <typename T>
-cudaError_t launch_split(const SplitArgs& a, int n_split, cudaStream_t st) {
+cudaError_t launch_split(const SplitArgs& a, int n_split, bool pdl, cudaStream_t st) {
   using L = SplitSmem<kSplitStages>;
   static bool ready[kMaxDevices] = {};
   const cudaError_t err = allow_smem(split_kernel<kSplitStages, T>, L::kBytes, ready);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[2] = {dependent(), {}};
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = n_split;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2] = {{}, dependent()};
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
   const dim3 grid(n_split, (a.N + kSplitBN - 1) / kSplitBN, (a.M + L::BM - 1) / L::BM);
   return launch_ex(split_kernel<kSplitStages, T>, grid, kSplitThreads, L::kBytes, st, attr,
-                   2, a);
+                   pdl ? 2 : 1, a);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -775,7 +781,7 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int K, int 
 
 template <int BN, typename T>
 cudaError_t launch_wgmma(const int8_t* xq, const float* sx, const int8_t* wq, const float* ws,
-                         T* out, int M, int N, int K, cudaStream_t st) {
+                         T* out, int M, int N, int K, bool pdl, cudaStream_t st) {
   constexpr int STAGES = kWgmmaStages;
   static bool ready[kMaxDevices] = {};
   CUtensorMap tx, tw;
@@ -787,7 +793,8 @@ cudaError_t launch_wgmma(const int8_t* xq, const float* sx, const int8_t* wq, co
   const int tiles = ((N + BN - 1) / BN) * ((M + kBM - 1) / kBM);
   cudaLaunchAttribute attr = dependent();
   return launch_ex(wgmma_kernel<BN, STAGES, T>, dim3(max(1, min(tiles, sm_count()))), 384,
-                   wgmma_smem<BN>(STAGES), st, &attr, 1, tx, tw, sx, ws, out, M, N, K);
+                   wgmma_smem<BN>(STAGES), st, &attr, pdl ? 1 : 0, tx, tw, sx, ws, out, M, N,
+                   K);
 }
 
 template <typename T, int TPR>
@@ -797,16 +804,38 @@ cudaError_t launch_quant(const T* x, int8_t* xq, float* sx, int M, int K, cudaSt
   return cudaGetLastError();
 }
 
+// the plan's GEMM body over xq (M, K) int8 and sx (M,) fp32 into out (M, N)
+// of T; pdl as for launch_split
+template <typename T>
+cudaError_t launch_gemm(const int8_t* q, const float* s, const void* wq, const void* ws,
+                        void* out, int M, int N, int K, int bn, int cps, bool split, bool pdl,
+                        cudaStream_t st) {
+  const int8_t* w = static_cast<const int8_t*>(wq);
+  const float* c = static_cast<const float*>(ws);
+  if (split) {
+    const SplitArgs a = {q, s, w, c, out, M, N, K, cps};
+    return launch_split<T>(a, (K / kKC + cps - 1) / cps, pdl, st);
+  }
+  T* o = static_cast<T*>(out);
+  if (bn == 128) return launch_wgmma<128, T>(q, s, w, c, o, M, N, K, pdl, st);
+  return launch_wgmma<256, T>(q, s, w, c, o, M, N, K, pdl, st);
+}
+
+// 0 for a plan the kernel cannot take, 1 for the split path, 2 for wgmma
+int plan_kind(int M, int N, int K, int path, int bm, int bn, int cps) {
+  if (M < 1 || K < kKC || K % kKC || N < 16 || N % 16) return 0;
+  const int n_split = (K / kKC + cps - 1) / max(cps, 1);
+  if (path == 0 && bm == 16 && bn == kSplitBN && cps >= 1 && n_split <= kMaxCluster) return 1;
+  if (path == 1 && bm == kBM && (bn == 128 || bn == 256)) return 2;
+  return 0;
+}
+
 template <typename T>
 cudaError_t launch(const void* x, void* xq, void* sx, const void* wq, const void* ws,
                    void* out, int M, int N, int K, int path, int bm, int bn, int cps,
                    cudaStream_t st) {
-  if (M < 1 || K < kKC || K % kKC || N < 16 || N % 16) return cudaErrorInvalidValue;
-  const int n_split = (K / kKC + cps - 1) / max(cps, 1);
-  const bool split = path == 0 && bm == 16 && bn == kSplitBN &&
-                     cps >= 1 && n_split <= kMaxCluster;
-  const bool wide = path == 1 && bm == kBM && (bn == 128 || bn == 256);
-  if (!split && !wide) return cudaErrorInvalidValue;
+  const int kind = plan_kind(M, N, K, path, bm, bn, cps);
+  if (kind == 0) return cudaErrorInvalidValue;
   // the quantize: TPR threads a row, one 16-value chunk each for few rows
   // (their latency is the call's), up to two for many (K <= 32 TPR)
   const T* xt = static_cast<const T*>(x);
@@ -819,15 +848,7 @@ cudaError_t launch(const void* x, void* xq, void* sx, const void* wq, const void
                           : need <= 256 || M > 1024 ? launch_quant<T, 256>(xt, q, s, M, K, st)
                                                     : launch_quant<T, 512>(xt, q, s, M, K, st);
   if (err != cudaSuccess) return err;
-  const int8_t* w = static_cast<const int8_t*>(wq);
-  const float* c = static_cast<const float*>(ws);
-  if (split) {
-    const SplitArgs a = {q, s, w, c, out, M, N, K, cps};
-    return launch_split<T>(a, n_split, st);
-  }
-  T* o = static_cast<T*>(out);
-  if (bn == 128) return launch_wgmma<128, T>(q, s, w, c, o, M, N, K, st);
-  return launch_wgmma<256, T>(q, s, w, c, o, M, N, K, st);
+  return launch_gemm<T>(q, s, wq, ws, out, M, N, K, bn, cps, kind == 1, true, st);
 }
 
 }  // namespace
@@ -849,4 +870,23 @@ extern "C" int w8a8_gemm_fwd(const void* x, void* xq, void* sx, const void* wq,
   if (dtype == 0)
     return int(launch<float>(x, xq, sx, wq, ws, out, M, N, K, path, bm, bn, cps, st));
   return int(cudaErrorInvalidValue);
+}
+
+// The GEMM alone, on rows the caller quantized: xq (M, K) int8 and sx (M,)
+// fp32 in, out (M, N) of out_dtype (0 = fp32, 1 = bf16) = float(acc) *
+// sx[row] * ws[col], by the plan's body as w8a8_gemm_fwd runs it (no
+// quantize before it, so not a dependent launch).  Same requirements.
+extern "C" int w8a8_gemm_prequant(const void* xq, const void* sx, const void* wq,
+                                  const void* ws, void* out, int M, int N, int K,
+                                  int out_dtype, int path, int bm, int bn, int cps,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int kind = plan_kind(M, N, K, path, bm, bn, cps);
+  if (kind == 0 || (out_dtype != 0 && out_dtype != 1)) return int(cudaErrorInvalidValue);
+  const int8_t* q = static_cast<const int8_t*>(xq);
+  const float* s = static_cast<const float*>(sx);
+  return int(out_dtype == 1
+                 ? launch_gemm<bf16>(q, s, wq, ws, out, M, N, K, bn, cps, kind == 1, false, st)
+                 : launch_gemm<float>(q, s, wq, ws, out, M, N, K, bn, cps, kind == 1, false,
+                                      st));
 }

@@ -1,8 +1,7 @@
 """``paddle.fluid.dygraph``: the v2.1-era imperative API (``guard``,
 ``to_variable``, ``Layer``, the ``dygraph.nn`` layer classes with their
-``act=`` argument, ``no_grad``).  ``declarative``, ``TracedLayer`` and
-``ProgramTranslator``'s conversion come with ``jit/``, the rest of
-graph mode (ROADMAP A.10)."""
+``act=`` argument, ``no_grad``), and ``paddle.jit``'s ``declarative``
+(``to_static``), ``TracedLayer`` and ``ProgramTranslator``."""
 
 from __future__ import annotations
 
@@ -255,37 +254,6 @@ class BilinearTensorProduct(Layer):
         return _act_wrap(self._b(x, y), self._act)
 
 
-# -- the jit bridge (jit/ comes with the rest of graph mode, ROADMAP A.10) ---
-
-
-def declarative(*a, **k):
-    raise NotImplementedError(
-        "fluid.dygraph.declarative is paddle.jit.to_static, which the port "
-        "gains with jit/ (ROADMAP A.10)")
-
-
-class ProgramTranslator:
-    """The ``ProgramTranslator`` singleton's switch."""
-
-    _instance = None
-    _enabled = True
-
-    @classmethod
-    def get_instance(cls):
-        if cls._instance is None:
-            cls._instance = cls()
-        return cls._instance
-
-    def enable(self, flag: bool):
-        type(self)._enabled = bool(flag)
-
-    def enable_to_static(self, flag: bool):
-        self.enable(flag)
-
-
-def _traced_layer_unavailable(*a, **k):
-    raise NotImplementedError(
-        "fluid.dygraph.TracedLayer comes with jit/ (ROADMAP A.10)")
-
-
-TracedLayer = _traced_layer_unavailable
+# -- the jit bridge -----------------------------------------------------------
+from ... import jit  # noqa: E402
+from ...jit import ProgramTranslator, TracedLayer, declarative  # noqa: E402,F401

@@ -63,7 +63,8 @@ class Variable:
         raise TypeError(
             f"bool(Variable '{self.name}') is undefined in a static graph: "
             "a Variable has no value at trace time.  Use "
-            "paddle.static.nn.cond / while_loop.")
+            "paddle.static.nn.cond / while_loop, or run the function "
+            "through paddle.jit.to_static so `if`/`while` convert.")
 
     def __init__(
         self,

@@ -64,6 +64,10 @@ SIGNATURES = {
     # x, xq, sx, wq, ws, out, M, N, K, dtype, path (0 split, 1 wgmma), bm,
     # bn, chunks per split, stream
     "w8a8_gemm": ("w8a8_gemm", "w8a8_gemm_fwd", [_P] * 6 + [_I] * 8 + [_P]),
+    # xq, sx, wq, ws, out, M, N, K, out dtype, path, bm, bn, chunks per
+    # split, stream
+    "w8a8_gemm_prequant": ("w8a8_gemm", "w8a8_gemm_prequant",
+                           [_P] * 5 + [_I] * 8 + [_P]),
     # q, k, v, out, lse, strides, bias (fp32 or null), bias strides (b,
     # h, q, k), B, H, Hkv, Sq, Sk, D, scale, causal, window, dtype (0
     # fp32, 1 bf16), stream

@@ -17,6 +17,11 @@ sum their splits in distributed shared memory, for many rows a persistent
 TMA + ``wgmma`` body, each launched as a dependent of one row-quantize
 pass.  See the source for the design and what bounds each on the card.
 
+:func:`w8a8_gemm_prequant` runs the same GEMM bodies alone, on int8 rows
+that the caller quantized and their scales: the int8 inference ops
+(``quantized_matmul``) quantize per tensor, which a row-local pass cannot
+do.  Its plain version is :func:`w8a8_gemm_prequant_plain`.
+
 :func:`w8a8_gemm` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors, never rerouted.  The kernel's bodies read K in
 64-byte chunks and N in 16-column groups; any other K or N is zero-padded
@@ -38,6 +43,7 @@ from . import _build
 from .paged_attention import _DTYPES
 
 _build.LAUNCHES["w8a8_gemm"] = 0
+_build.LAUNCHES["w8a8_gemm_prequant"] = 0
 
 #: K bytes per ring stage of the split path (one ``mma.sync`` k32 pair)
 GEMM_KC = 64
@@ -230,3 +236,69 @@ def _kernel_gemm(x, wq, ws, return_quantized, plan):
     xq = scratch[:m * kp].view(torch.int8).view(m, kp)[:, :k]
     sx = scratch[m * kp:m * kp + 4 * m].view(torch.float32).view(m, 1)
     return out, xq, sx
+
+
+def w8a8_gemm_prequant_plain(xq, sx, wq, ws, *, out_dtype=torch.float32,
+                             return_acc=False):
+    """The pre-quantized launch's plain version: ``xq`` (M, K) int8 rows
+    quantized by the caller with scales ``sx`` (M, 1) fp32, ``wq`` (N, K)
+    int8, ``ws`` (N,) fp32 -> ``float(acc) * sx[row] * ws[col]`` (M, N) in
+    ``out_dtype``, the two products rounded one at a time as the kernel's
+    epilogue rounds them.  The integer product is formed in float64 (exact,
+    as in :func:`w8a8_gemm_plain`); ``return_acc`` also returns it as
+    int32."""
+    acc = xq.double() @ wq.double().t()
+    out = (acc.float() * sx.reshape(-1, 1).float() * ws.float()).to(out_dtype)
+    return (out, acc.to(torch.int32)) if return_acc else out
+
+
+def w8a8_gemm_prequant(xq, sx, wq, ws, *, out_dtype=torch.float32,
+                       plan=None):
+    """The int8 GEMM alone, on rows the caller quantized (the int8
+    inference ops': per tensor, or per row): ``xq`` (M, K) int8, ``sx``
+    (M, 1) fp32 row scales, ``wq`` (N, K) int8, ``ws`` (N,) fp32; any M, K,
+    N >= 1.  Returns ``float(acc) * sx[row] * ws[col]`` (M, N) in
+    ``out_dtype`` (fp32 or bf16).
+
+    CPU tensors take :func:`w8a8_gemm_prequant_plain`.  CUDA
+    tensors launch the kernel's ``w8a8_gemm_prequant`` entry (the
+    :func:`gemm_plan` body of :func:`w8a8_gemm`, without its quantize) on
+    the current stream, or raise; K and N are zero-padded as for
+    :func:`w8a8_gemm`.  Each call counts one ``w8a8_gemm_prequant``
+    launch."""
+    if xq.device.type == "cpu":
+        return w8a8_gemm_prequant_plain(xq, sx, wq, ws, out_dtype=out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"w8a8_gemm_prequant runs on cpu or cuda, not "
+                         f"{xq.device}")
+    if (xq.dtype != torch.int8 or xq.dim() != 2 or wq.dim() != 2
+            or wq.shape[1] != xq.shape[1] or min(xq.shape[1], wq.shape[0]) < 1
+            or tuple(ws.shape) != (wq.shape[0],) or sx.numel() != xq.shape[0]
+            or sx.dtype != torch.float32 or sx.device != xq.device
+            or out_dtype not in _DTYPES):
+        raise ValueError(
+            f"w8a8_gemm_prequant: xq (M, K) int8, sx (M, 1) fp32, wq (N, K) "
+            f"int8, ws (N,) and an fp32 or bf16 output, not "
+            f"{tuple(xq.shape)} {xq.dtype}, {tuple(sx.shape)} {sx.dtype}, "
+            f"{tuple(wq.shape)}, {tuple(ws.shape)}, {out_dtype}")
+    n = wq.shape[0]
+    xqp, wqp, wsp = pad_operands(xq.contiguous(), wq, ws)
+    m, kp = xqp.shape
+    np_ = wqp.shape[0]
+    if (wqp.dtype != torch.int8 or not wqp.is_contiguous()
+            or wqp.device != xq.device or wsp.dtype != torch.float32
+            or not wsp.is_contiguous() or wsp.device != xq.device
+            or xqp.data_ptr() % 16 or wqp.data_ptr() % 16):
+        raise ValueError("w8a8_gemm_prequant: wq must be contiguous int8 and "
+                         "ws contiguous fp32 on xq's device, xq and wq "
+                         "16-byte aligned")
+    plan = plan or gemm_plan(m, np_, kp)
+    out = torch.empty((m, np_), dtype=out_dtype, device=xq.device)
+    code = _build.kernel("w8a8_gemm_prequant")(
+        xqp.data_ptr(), sx.contiguous().data_ptr(), wqp.data_ptr(),
+        wsp.data_ptr(), out.data_ptr(), m, np_, kp, _DTYPES[out_dtype],
+        _PATHS[plan.path], plan.bm, plan.bn, plan.chunks_per_split,
+        torch.cuda.current_stream(xq.device).cuda_stream)
+    _build.check("w8a8_gemm_prequant", code)
+    _build.LAUNCHES["w8a8_gemm_prequant"] += 1
+    return out[:, :n].contiguous() if np_ != n else out

@@ -44,7 +44,7 @@ from .. import nn
 from .. import tensor_api as T
 from ..dygraph import tracer
 from ..nn import functional as F
-from ..ops.quant_ops import w8a8_matmul
+from ..ops.dispatch import dispatch
 from .gpt import GPTConfig
 
 __all__ = ["GPTConfig", "w8a8_linear", "GPTAttention", "GPTMLP", "GPTBlock",
@@ -66,13 +66,14 @@ def _mp_rank():
 
 
 def w8a8_linear(x, layer):
-    """A Linear layer's weights through the W8A8 product
+    """A Linear layer's weights through the registered ``w8a8_matmul`` op
     (:func:`~paddle_tpu_torch.ops.w8a8_matmul`: per-output-channel weight
     quantization and dynamic per-token activation quantization of the live
     float weight, the int8 GEMM, straight-through gradients), then its
     bias.  The float parameters stay the layer's, so the int8 and float
     models share structure, state-dict keys and seed-chain draws."""
-    out = tracer.trace_fn(lambda a, w: w8a8_matmul(a, w), [x, layer.weight])
+    out = dispatch("w8a8_matmul", {"X": [x], "W": [layer.weight]},
+                   {})["Out"][0]
     if getattr(layer, "bias", None) is not None:
         out = T.add(out, layer.bias)
     return out
@@ -259,7 +260,8 @@ def _tied_head(x, word_embeddings, w8a8=False):
         group = word_embeddings.group
         x = tracer.trace_fn(lambda a: _c_identity(a, group), [x])
     if w8a8:
-        out = tracer.trace_fn(lambda a, b: w8a8_matmul(a, b, True), [x, w])
+        out = dispatch("w8a8_matmul", {"X": [x], "W": [w]},
+                       {"transpose_y": True})["Out"][0]
     else:
         out = T.matmul(x, w, transpose_y=True)
     out.vocab_parallel = vocab_parallel

@@ -348,7 +348,20 @@ class Layer:
             out = hook(self, inputs)
             if out is not None:
                 inputs = out if isinstance(out, tuple) else (out,)
-        outputs = self.forward(*inputs, **kwargs)
+        fwd = self.forward
+        if not fw.in_dygraph_mode() and not getattr(
+                fwd, "__dy2static_converted__", False):
+            # under a static trace a sub-layer's tensor control flow builds
+            # cond / while ops too: its forward is converted (cached per
+            # code object; a forward with nothing to convert runs as is)
+            from ..jit import dy2static
+
+            func = getattr(fwd, "__func__", fwd)
+            conv = dy2static.convert_func(func)
+            outputs = (conv(self, *inputs, **kwargs) if conv is not func
+                       else fwd(*inputs, **kwargs))
+        else:
+            outputs = fwd(*inputs, **kwargs)
         for hook in self._forward_post_hooks.values():
             out = hook(self, inputs, outputs)
             if out is not None:

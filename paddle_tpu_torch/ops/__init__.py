@@ -1,10 +1,10 @@
 """The port's op library (counterpart of ``paddle_tpu/ops``): importing
-it registers the math, activation, tensor, nn and optimizer ops
+it registers the math, activation, tensor, nn, optimizer and quant ops
 (:mod:`.registry`), which :func:`.dispatch.dispatch` runs eagerly; plus
 the numerics the GPT layers call directly (the quantization decisions of
 :mod:`.quant_ops`, :func:`.nn_ops.dropout`); :func:`.dispatch.dispatch`
-appends them to a Program in static mode.  The sequence, collective and
-quant op modules of the reference wait for later slices (ROADMAP A)."""
+appends them to a Program in static mode.  The sequence and collective
+op modules of the reference wait for later slices (ROADMAP A)."""
 
 from . import registry  # noqa: F401
 from . import math_ops  # noqa: F401
@@ -12,6 +12,7 @@ from . import activation_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import quant_ops  # noqa: F401
 from .dispatch import dispatch, dispatch_dygraph, dispatch_static, single  # noqa: F401
 from .nn_ops import dropout
 from .quant_ops import (dequantize_int4, pack_int4, quantize_int4_per_token,

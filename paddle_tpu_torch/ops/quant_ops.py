@@ -12,13 +12,23 @@ the port quantizes bit-identically to the reference:
 
 :func:`w8a8_matmul` is the differentiable W8A8 product of the training
 path (the reference's ``_w8a8_ste``): int8 forward through the
-``w8a8_gemm`` kernel, straight-through gradients.  The registered
-fake-quant training ops are not ported.
+``w8a8_gemm`` kernel, straight-through gradients.  It is also the
+registered ``w8a8_matmul`` op, which the GPT layers dispatch, so a static
+program records it by name.
+
+The module registers the reference's other quant ops too: the fake-quant
+ops of quantization-aware training (abs-max, channel-wise and
+moving-average, with a straight-through grad op) and the int8 inference
+ops ``quantized_matmul`` and ``quantized_conv2d``, which the int8 program
+rewrite (:mod:`paddle_tpu_torch.static.quant_int8`) puts in place of
+matmuls and convs.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .registry import GRAD_SUFFIX, register_op
 
 _QMAX = 127.0
 _QMAX4 = 7.0
@@ -155,3 +165,202 @@ def w8a8_matmul(x, w, transpose_y: bool = False):
     Differentiable with straight-through gradients: ``dx = g @ w^T`` and
     ``dw = x^T @ g`` in fp32, cast to x's and w's dtypes."""
     return _W8A8STE.apply(x, w, bool(transpose_y))
+
+
+# ---------------------------------------------------------------------------
+# the registered quant ops (the reference's ``ops/quant_ops.py:31-213`` and
+# ``w8a8_matmul``, :364)
+# ---------------------------------------------------------------------------
+
+def _div(x, d):
+    """``x / d`` by a true division on x's device (see :func:`_scale`)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def _fake_qdq(x, scale, bit_length):
+    """``clip(round(x / s * bnd), ±bnd) * s / bnd`` with ``s = max(scale,
+    1e-8)``, as the reference's ``_fake_qdq``."""
+    bnd = float(2 ** (bit_length - 1) - 1)
+    s = scale.clamp_min(_EPS)
+    q = torch.round(x / s * bnd).clamp(-bnd, bnd)
+    return _div(q * s, bnd)
+
+
+def _ste_grad_maker(ins, outs, ogs):
+    """Straight-through: ``dX = dOut`` (the reference's ``assign``)."""
+    return "fake_quantize_dequantize_grad", {"Out" + GRAD_SUFFIX: ogs["Out"]}
+
+
+@register_op("fake_quantize_dequantize_grad", no_grad=True)
+def fake_qdq_grad_kernel(ins, attrs):
+    """The straight-through gradient of the fake-quant ops."""
+    return {"X" + GRAD_SUFFIX: ins["Out" + GRAD_SUFFIX]}
+
+
+@register_op("fake_quantize_dequantize_abs_max",
+             nondiff_out_slots=("OutScale",), grad_maker=_ste_grad_maker)
+def fake_qdq_abs_max_kernel(ins, attrs):
+    x = ins["X"]
+    scale = x.abs().amax()
+    return {"Out": _fake_qdq(x, scale, attrs.get("bit_length", 8)),
+            "OutScale": scale.reshape(1)}
+
+
+@register_op("fake_channel_wise_quantize_dequantize_abs_max",
+             nondiff_out_slots=("OutScale",), grad_maker=_ste_grad_maker)
+def fake_qdq_channel_kernel(ins, attrs):
+    x = ins["X"]
+    axis = attrs.get("quant_axis", 0)
+    red = tuple(i for i in range(x.dim()) if i != axis)
+    scale = x.abs().amax(dim=red, keepdim=True)
+    return {"Out": _fake_qdq(x, scale, attrs.get("bit_length", 8)),
+            "OutScale": scale.reshape(-1)}
+
+
+@register_op("fake_quantize_dequantize_moving_average_abs_max",
+             nondiff_slots=("InScale", "InState", "InAccum"),
+             nondiff_out_slots=("OutScale", "OutState", "OutAccum"),
+             grad_maker=_ste_grad_maker)
+def fake_qdq_moving_avg_kernel(ins, attrs):
+    """Activation fake-quant with a moving-average scale, the reference's
+    recurrence: with ``InState`` / ``InAccum``, ``state = rate * state + 1``,
+    ``accum = rate * accum + max|x|`` and ``scale = accum / state``;
+    without them ``rate * InScale + (1 - rate) * max|x|``; with
+    ``is_test`` the scale is ``InScale`` as it is."""
+    x, in_scale = ins["X"], ins["InScale"]
+    bits = attrs.get("bit_length", 8)
+    rate = attrs.get("moving_rate", 0.9)
+    has_state = "InState" in ins and "InAccum" in ins
+    if attrs.get("is_test", False):
+        new_scale = in_scale.reshape(())
+        outs = {"Out": _fake_qdq(x, new_scale, bits),
+                "OutScale": new_scale.reshape(1)}
+        if has_state:
+            outs["OutState"] = ins["InState"].reshape(1)
+            outs["OutAccum"] = ins["InAccum"].reshape(1)
+        return outs
+    cur = x.abs().amax()
+    if has_state:
+        state = rate * ins["InState"].reshape(()) + 1.0
+        accum = rate * ins["InAccum"].reshape(()) + cur
+        new_scale = accum / state
+        return {"Out": _fake_qdq(x, new_scale, bits),
+                "OutScale": new_scale.reshape(1),
+                "OutState": state.reshape(1),
+                "OutAccum": accum.reshape(1)}
+    new_scale = rate * in_scale.reshape(()) + (1.0 - rate) * cur
+    return {"Out": _fake_qdq(x, new_scale, bits),
+            "OutScale": new_scale.reshape(1)}
+
+
+def _tensor_scale(xf, xs):
+    """The per-tensor activation scale of the int8 inference ops:
+    ``max(XScale or max|x|, 1e-8) / 127`` in fp32."""
+    absmax = xf.abs().amax() if xs is None else xs.reshape(()).float()
+    return _scale(absmax, _QMAX)
+
+
+def _quantize_with(xf, sx):
+    return torch.round(xf / sx).clamp(-_QMAX, _QMAX).to(torch.int8)
+
+
+@register_op("quantized_conv2d", nondiff_slots=("Filter", "WScale", "XScale"),
+             no_grad=True)
+def quantized_conv2d_kernel(ins, attrs):
+    """Int8 inference conv: the input quantized per tensor (the calibrated
+    ``XScale`` where the graph carries one, else its abs-max), the int8 x
+    int8 convolution summed exactly (a float64 convolution: its sums are
+    integers below 2^53, where fp32 would round past 2^24), then
+    ``float(acc) * (sx * WScale[o])``.  ``Filter`` is the int8 OIHW weight,
+    ``WScale`` [O] its per-output-channel scale; the layout attributes are
+    conv2d's."""
+    from .nn_ops import conv2d_kernel
+
+    x, wq, ws = ins["Input"], ins["Filter"], ins["WScale"]
+    xf = x.float()
+    sx = _tensor_scale(xf, ins.get("XScale"))
+    xq = _quantize_with(xf, sx)
+    acc = conv2d_kernel({"Input": xq.double(), "Filter": wq.double()},
+                        attrs)["Output"]
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    cshape = (1, 1, 1, -1) if nhwc else (1, -1, 1, 1)
+    out = acc.float() * (sx * ws.float().reshape(cshape))
+    return {"Output": out.to(x.dtype)}
+
+
+@register_op("quantized_matmul", nondiff_slots=("Y", "WScale", "XScale"),
+             no_grad=True)
+def quantized_matmul_kernel(ins, attrs):
+    """Int8 inference matmul against a pre-quantized weight ``Y`` [K, N]
+    int8 (or a stack [B, K, N] against x [B, ..., K]) with its
+    per-output-channel scale ``WScale`` [N] (or [B, N]).
+
+    The activations quantize per tensor (the calibrated ``XScale`` where
+    the graph carries one, else their abs-max), or per row with
+    ``per_token`` (which ignores XScale).  The int8 product runs through
+    :mod:`~paddle_tpu_torch.kernels.int8_gemm`: per tensor, on rows
+    quantized here, by :func:`w8a8_gemm_prequant` with the activation
+    scale folded into the column scale (``sx * WScale``, the reference's
+    rescale ``float(acc) * (sx * WScale)`` bit for bit); per row by
+    :func:`w8a8_gemm`; each batch of a stack by :func:`w8a8_gemm_prequant`
+    with the row scale (the reference's ``float(acc) * sx * WScale``).
+    The weight is read (N, K), K contiguous: its transpose is made once per
+    weight tensor (:func:`_weight_nk`), not on each call."""
+    from ..kernels.int8_gemm import w8a8_gemm, w8a8_gemm_prequant
+
+    x, wq, ws = ins["X"], ins["Y"], ins["WScale"].float()
+    if x.device.type == "meta":  # shape inference
+        return {"Out": x.new_empty(*x.shape[:-1], wq.shape[-1])}
+    xf = x.float()
+    k = x.shape[-1]
+    if wq.dim() == 3:
+        b, n = wq.shape[0], wq.shape[2]
+        sx = _tensor_scale(xf, ins.get("XScale"))
+        xq = _quantize_with(xf, sx).reshape(b, -1, k)
+        rows = torch.full((xq.shape[1], 1), 1.0, device=x.device) * sx
+        wsb = ws if ws.dim() == 2 else ws.expand(b, n)
+        wt = _weight_nk(wq)
+        out = torch.stack([
+            w8a8_gemm_prequant(xq[i], rows, wt[i], wsb[i].contiguous(),
+                               out_dtype=torch.float32)
+            for i in range(b)])
+        return {"Out": out.reshape(*x.shape[:-1], n).to(x.dtype)}
+    n = wq.shape[1]
+    x2 = xf.reshape(-1, k)
+    if attrs.get("per_token", False):
+        out = w8a8_gemm(x2.contiguous(), _weight_nk(wq), ws)
+    else:
+        sx = _tensor_scale(xf, ins.get("XScale"))
+        ones = torch.ones((x2.shape[0], 1), device=x.device)
+        out = w8a8_gemm_prequant(_quantize_with(x2, sx), ones, _weight_nk(wq),
+                                 (sx * ws).contiguous(),
+                                 out_dtype=torch.float32)
+    return {"Out": out.reshape(*x.shape[:-1], n).to(x.dtype)}
+
+
+def _weight_nk(wq):
+    """``wq`` [..., K, N] int8 as [..., N, K], K contiguous, made once per
+    weight tensor (and again only after the tensor changes in place): an
+    inference program's int8 weights are transposed on their first run.
+    The transpose rides on the tensor object, and dies with it."""
+    hit = getattr(wq, "_int8_weight_nk", None)
+    if hit is not None and hit[0] == wq._version:
+        return hit[1]
+    wt = wq.transpose(-1, -2).contiguous()
+    wq._int8_weight_nk = (wq._version, wt)
+    return wt
+
+
+@register_op("w8a8_matmul")
+def w8a8_matmul_kernel(ins, attrs):
+    """:func:`w8a8_matmul` as an op: ``X`` [.., K] float activations and
+    the FLOAT weight ``W`` [K, N] ([N, K] with ``transpose_y``, the tied
+    head's layout), both quantized on every call; the gradient is the
+    straight-through one of :class:`_W8A8STE`, which the registry's grad
+    op takes by autograd."""
+    x, w = ins["X"], ins["W"]
+    transpose_y = bool(attrs.get("transpose_y", False))
+    if x.device.type == "meta":  # shape inference
+        n = w.shape[0] if transpose_y else w.shape[1]
+        return {"Out": x.new_empty(*x.shape[:-1], n)}
+    return {"Out": _W8A8STE.apply(x, w, transpose_y)}

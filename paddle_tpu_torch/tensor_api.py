@@ -14,6 +14,7 @@ Tensor's operators, methods and indexing (``x[0]``, ``x[:, 0]``).
 
 from __future__ import annotations
 
+import builtins
 from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
@@ -880,12 +881,53 @@ fw.Variable.__hash__ = lambda self: id(self)
 fw.Variable.cast = lambda self, dtype: cast(self, dtype)
 
 
+_SLICE_END = 2 ** 31 - 1  # an end past any dim: the slice op clamps it
+
+
+def slice_attrs(idx, ndim):
+    """The ``slice`` op's attributes for a basic index (ints, and slices
+    without a step, over the leading dims), or None for any other."""
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    if len(idx) > ndim:
+        return None
+    axes, starts, ends, decrease = [], [], [], []
+    for axis, i in enumerate(idx):
+        if isinstance(i, (builtins.bool, np.bool_)):
+            return None
+        if isinstance(i, (int, np.integer)):
+            i = int(i)
+            axes.append(axis)
+            starts.append(i)
+            ends.append(i + 1 if i != -1 else _SLICE_END)
+            decrease.append(axis)
+        elif isinstance(i, builtins.slice) and i.step in (None, 1):
+            if i.start is None and i.stop is None:
+                continue
+            if not builtins.all(v is None or isinstance(v, (int, np.integer))
+                                for v in (i.start, i.stop)):
+                return None
+            axes.append(axis)
+            starts.append(0 if i.start is None else int(i.start))
+            ends.append(_SLICE_END if i.stop is None else int(i.stop))
+        else:
+            return None
+    return {"axes": axes, "starts": starts, "ends": ends,
+            "decrease_axis": decrease}
+
+
 def _variable_getitem(self, idx):
-    """``var[idx]`` in a static program: the Tensor's indexing as a
-    one-off op (int and slice indices)."""
+    """``var[idx]`` in a static program: a basic index (ints and unit-step
+    slices) is the registered ``slice`` op, so the program saves and loads
+    in another process; any other index is the Tensor's indexing as a
+    one-off op of this process."""
     from .dygraph import tracer
     from .dygraph.tensor import _normalize_index
 
+    attrs = slice_attrs(idx, len(self.shape))
+    if attrs is not None:
+        if not attrs["axes"]:
+            return self
+        return _d("slice", {"Input": [self]}, attrs)
     return tracer.trace_fn(lambda a: a[_normalize_index(idx, a.device)],
                            [self], name="getitem")
 

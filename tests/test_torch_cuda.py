@@ -1064,3 +1064,105 @@ def test_ring_flash_from_shards_matches_whole_sequence_on_card(dev, dtype,
             assert used <= 1.0, (name, used.item())
     torch.testing.assert_close(torch.cat(lses, 2).reshape(8, 512), lse,
                                rtol=1e-5, atol=1e-5)
+
+
+# -- the pre-quantized launch (the int8 inference ops) ------------------------
+
+
+@pytest.mark.parametrize("path", ["split", "wgmma"])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 16), (5, 100, 40), (16, 768, 2304),
+                                   (300, 3072, 768), (1000, 200, 1000)])
+@pytest.mark.cuda
+def test_w8a8_gemm_prequant_matches_plain_on_card(dev, m, k, n, path):
+    """Rows quantized beforehand (per tensor) through either GEMM body at
+    ragged M, K and N: the int32 sums bit for bit (unit scales, every
+    |sum| below 2^24 so that fp32 holds it exactly), and the rescaled
+    output bit for bit, both products rounded one at a time."""
+    from paddle_tpu_torch.kernels.int8_gemm import (gemm_plan, pad_operands,
+                                                    w8a8_gemm_prequant,
+                                                    w8a8_gemm_prequant_plain)
+
+    g = torch.Generator(device=dev).manual_seed(m * 7 + k)
+    xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    sx = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
+    ws = torch.rand(n, device=dev, generator=g) * 0.02 + 1e-3
+    xp, wp, _ = pad_operands(xq, wq, ws)
+    plan = gemm_plan(m, wp.shape[0], xp.shape[1], path=path)
+    ones_m, ones_n = torch.ones(m, 1, device=dev), torch.ones(n, device=dev)
+    acc = w8a8_gemm_prequant(xq, ones_m, wq, ones_n, plan=plan)
+    _, want_acc = w8a8_gemm_prequant_plain(xq, ones_m, wq, ones_n,
+                                           return_acc=True)
+    assert want_acc.abs().max().item() < 2 ** 24
+    assert torch.equal(acc, want_acc.float())
+    for dt in (torch.float32, torch.bfloat16):
+        out = w8a8_gemm_prequant(xq, sx, wq, ws, out_dtype=dt, plan=plan)
+        want = w8a8_gemm_prequant_plain(xq, sx, wq, ws, out_dtype=dt)
+        assert out.dtype == dt and torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_forms_on_card_match_cpu(dev):
+    """The registered quantized_matmul on the card against its CPU run:
+    per tensor, with a calibrated XScale and the batched [B, K, N] form
+    bit for bit (the same rescale order on both), per_token within fp32
+    rounding of the rescale (the card's rescale rounds after each
+    product, as w8a8_gemm's)."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.ops.quant_ops import quantized_matmul_kernel
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 7, 96, generator=g)
+    w = torch.randint(-127, 128, (96, 40), generator=g, dtype=torch.int8)
+    ws = torch.rand(40, generator=g) * 0.01
+    wb = torch.randint(-127, 128, (2, 96, 40), generator=g, dtype=torch.int8)
+    wsb = torch.rand(2, 40, generator=g) * 0.01
+    cases = [({"X": x, "Y": w, "WScale": ws}, {}, 0),
+             ({"X": x, "Y": w, "WScale": ws,
+               "XScale": torch.tensor([2.5])}, {}, 0),
+             ({"X": x, "Y": wb, "WScale": wsb}, {}, 0),
+             ({"X": x, "Y": w, "WScale": ws}, {"per_token": True}, 1e-6)]
+    for ins, attrs, rtol in cases:
+        cpu = quantized_matmul_kernel(ins, attrs)["Out"]
+        reset_launch_counts()
+        card = quantized_matmul_kernel(
+            {k: v.to(dev) for k, v in ins.items()}, attrs)["Out"]
+        launched = KERNELS["w8a8_gemm"] + KERNELS["w8a8_gemm_prequant"]
+        assert launched == (2 if ins["Y"].dim() == 3 else 1)
+        torch.testing.assert_close(card.cpu(), cpu, rtol=rtol, atol=0)
+
+
+@pytest.mark.cuda
+def test_int8_predictor_on_card_matches_cpu(dev, tmp_path):
+    """A small MLP saved by jit.save, run by an int8 Predictor on the card
+    and on the CPU: quantized_matmul launches the pre-quantized GEMM, and
+    the outputs agree bit for bit (the same quantization decisions and
+    rescale order)."""
+    import numpy as np
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import inference, jit, nn
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    tp.set_device("cpu")
+    tp.seed(0)
+    model = nn.Sequential(nn.Linear(64, 128), nn.ReLU(), nn.Linear(128, 32))
+    model.eval()
+    path = str(tmp_path / "mlp")
+    jit.save(model, path, input_spec=[jit.InputSpec([None, 64], "float32")])
+    x = np.random.RandomState(0).randn(24, 64).astype("float32")
+    outs = {}
+    for device in ("cpu", "gpu"):
+        tp.set_device(device)
+        cfg = inference.Config(path)
+        if device == "cpu":
+            cfg.disable_gpu()
+        cfg.enable_int8(min_weight_elements=0)
+        pred = inference.create_predictor(cfg)
+        reset_launch_counts()
+        (outs[device],) = pred.run([x])
+        assert pred._n_int8 == 2
+        assert KERNELS["w8a8_gemm_prequant"] == (2 if device == "gpu" else 0)
+    np.testing.assert_array_equal(outs["gpu"], outs["cpu"])

@@ -179,7 +179,12 @@ EAGER_MODULES = (
     "paddle_tpu_torch.static.control_flow", "paddle_tpu_torch.static.input",
     "paddle_tpu_torch.fluid", "paddle_tpu_torch.fluid.layers",
     "paddle_tpu_torch.fluid.dygraph", "paddle_tpu_torch.fluid.io",
-    "paddle_tpu_torch.fluid.contrib", "paddle_tpu_torch.examples.fluid_mnist")
+    "paddle_tpu_torch.fluid.contrib", "paddle_tpu_torch.examples.fluid_mnist",
+    "paddle_tpu_torch.ops.quant_ops", "paddle_tpu_torch.jit",
+    "paddle_tpu_torch.jit.dy2static", "paddle_tpu_torch.static.quant_int8",
+    "paddle_tpu_torch.inference", "paddle_tpu_torch.incubate",
+    "paddle_tpu_torch.incubate.quant", "paddle_tpu_torch.examples.infer_int8",
+    "paddle_tpu_torch.examples.fluid_word2vec")
 
 
 def test_eager_core_imports_no_jax_and_no_reference():

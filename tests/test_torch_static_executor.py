@@ -42,15 +42,10 @@ def _cpu():
 @pytest.fixture
 def parity(monkeypatch):
     """tests/torch_static_parity.py, with the reference's Variable
-    indexed as its Tensor is (its BERT takes ``qkv[0]``)."""
+    indexed as the port's is (its BERT takes ``qkv[0]``)."""
     import torch_static_parity as sp
-    from paddle_tpu.framework import program as jfw
 
-    monkeypatch.setattr(
-        jfw.Variable, "__getitem__",
-        lambda self, idx: sp.jtracer.trace_fn(
-            lambda a: a[sp.j_normalize_index(idx)], [self], name="getitem"),
-        raising=False)
+    sp.give_reference_variable_indexing(monkeypatch)
     return sp
 
 

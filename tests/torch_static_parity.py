@@ -11,8 +11,9 @@ One-off op types (``__pyfunc_getitem_7``) carry a process-wide counter;
 
 The reference's static ``Variable`` has no indexing, so its BERT (which
 takes ``qkv[0]``) does not build; :func:`reference_variable_indexing`
-gives it the indexing its eager Tensor has (a ``trace_fn`` one-off op),
-which the port's Variable has.
+gives it the port's Variable indexing: a basic index (ints, unit-step
+slices) as the registered ``slice`` op, any other as a one-off op of
+its eager Tensor's indexing.
 """
 
 import re
@@ -25,11 +26,13 @@ from paddle_tpu import static as jst
 from paddle_tpu.dygraph import tracer as jtracer
 from paddle_tpu.dygraph.tensor import _normalize_index as j_normalize_index
 from paddle_tpu.framework import program as jfw
+from paddle_tpu.ops.dispatch import dispatch_static as jdispatch_static
 from paddle_tpu.framework import unique_name as jnames
 from paddle_tpu.framework.scope import Scope as JScope
 from paddle_tpu.framework.scope import scope_guard as jscope_guard
 
 import paddle_tpu_torch as tp
+from paddle_tpu_torch import tensor_api
 from paddle_tpu_torch import static as tst
 from paddle_tpu_torch.framework import unique_name as tnames
 from paddle_tpu_torch.framework.scope import Scope as TScope
@@ -38,13 +41,26 @@ from paddle_tpu_torch.framework.scope import scope_guard as tscope_guard
 PKGS = {"ref": (jp, jst, jnames), "port": (tp, tst, tnames)}
 
 
+def _reference_getitem(self, idx):
+    """The port's Variable indexing, in the reference's ops: a basic
+    index is its registered ``slice`` op, any other a one-off op."""
+    attrs = tensor_api.slice_attrs(idx, len(self.shape))
+    if attrs is None:
+        return jtracer.trace_fn(lambda a: a[j_normalize_index(idx)], [self],
+                                name="getitem")
+    if not attrs["axes"]:
+        return self
+    return jdispatch_static("slice", {"Input": [self]}, attrs)["Out"][0]
+
+
+def give_reference_variable_indexing(monkeypatch):
+    monkeypatch.setattr(jfw.Variable, "__getitem__", _reference_getitem,
+                        raising=False)
+
+
 @pytest.fixture
 def reference_variable_indexing(monkeypatch):
-    monkeypatch.setattr(
-        jfw.Variable, "__getitem__",
-        lambda self, idx: jtracer.trace_fn(
-            lambda a: a[j_normalize_index(idx)], [self], name="getitem"),
-        raising=False)
+    give_reference_variable_indexing(monkeypatch)
 
 
 def build(pkg, fn):
