@@ -5489,6 +5489,732 @@ def phase_jit(np, torch, card):
     return {"w8a8_gemm_prequant": row}, runs
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+# the rest of the eager API.  (a) Transformer-base (phase 12's TRANSFORMER,
+# fp32, random seeded weights) translating through nn.BeamSearchDecoder +
+# nn.dynamic_decode: beam 4 (Vaswani et al. 2017, section 6.1; no length
+# penalty, as the reference has none), batch 32 of 256-token sources with
+# their pad bias (_seq2seq_batch), at most 64 steps, BOS 1, EOS 2; the cell
+# runs model.transformer.decoder over gen_cache's caches, carried as a flat
+# list of states (the memory, the source bias, each layer's Cache and
+# StaticCache keys and values).  (b) The PTB "medium" LSTM language model
+# (Zaremba et al. 2014; PaddleNLP's rnnlm example): vocab 10000, nn.LSTM of
+# 2 x 650, 35 steps, batch 20, SGD lr 1.0 with a global-norm clip of 5,
+# dropout off, seeded synthetic tokens, the states carried (detached) from
+# step to step.  (c) The first two blocks of C3D (Tran et al. 2015) at
+# batch 8 of 3 x 16 x 112 x 112 clips (Conv3D 64 k3 p1, ReLU, MaxPool3D
+# (1, 2, 2), Conv3D 128 k3 p1, ReLU, MaxPool3D 2), forward and backward;
+# bilinear and nearest interpolate x 2 of an [8, 64, 128, 128] map.  (d)
+# The newly registered ops and the new functions at small shapes.  Each
+# card run is held against the same run on the CPU: (a) ids equal and
+# scores within 1e-5 on TRANSFORMER_SMALL (and beam 1 equal to _greedy),
+# (b) losses within 1e-4, (c) within 1e-4 of each tensor's largest value
+# (nearest exactly), (d) within 1e-5 of each tensor's largest value,
+# integers exactly; TF32 off throughout.
+BEAM = dict(batch=32, beam=4, steps=64, end=2)
+PTB = dict(vocab=10000, hidden=650, layers=2, steps=35, batch=20, lr=1.0,
+           clip=5.0, train_steps=5)
+C3D = dict(batch=8, frames=16, size=112)
+INTERP = (8, 64, 128, 128)
+
+
+def _beam_search(np, paddle, model, src, src_mask, beam, steps, end):
+    """Beam search through ``model.transformer.decoder`` (ids and best
+    scores, numpy): the cell rebuilds the caches from the flat states and
+    takes the position from the self-attention cache's length (gen_cache
+    starts it at the memory's)."""
+    mha = paddle.nn.MultiHeadAttention
+    m = paddle.to_tensor(src_mask)
+    memory = model.transformer.encoder(model.embed(paddle.to_tensor(src)), m)
+    caches = model.transformer.decoder.gen_cache(memory)
+    n = len(caches)
+
+    def flat(memory, m, caches):
+        return [memory, m] + [t for inc, st in caches
+                              for t in (inc.k, inc.v, st.k, st.v)]
+
+    def cell(ids, states):
+        memory, m = states[0], states[1]
+        cache = [(mha.Cache(*states[2 + 4 * i:4 + 4 * i]),
+                  mha.StaticCache(*states[4 + 4 * i:6 + 4 * i]))
+                 for i in range(n)]
+        start = states[2].shape[2] - memory.shape[1]
+        h, new = model.transformer.decoder(model.embed(ids, start), memory,
+                                           None, m, cache)
+        return paddle.squeeze(h, [1]), flat(memory, m, new)
+
+    dec = paddle.nn.BeamSearchDecoder(
+        cell, start_token=1, end_token=end, beam_size=beam,
+        embedding_fn=lambda tok: paddle.unsqueeze(tok, [-1]),
+        output_fn=model.logits)
+    ids, scores = paddle.nn.dynamic_decode(dec, inits=flat(memory, m, caches),
+                                           max_step_num=steps)
+    return ids.numpy(), scores.numpy()
+
+
+class _DecodeRecorder:
+    """Keeps, while it is entered, the inputs and the result of the last
+    ``flash_fwd_cuda`` call at Sq = 1 with a score bias (cross-attention
+    over the source) and of the last at Sq = 1 without one whose Sk is not
+    a multiple of 64 (self-attention over the grown cache, its last key
+    tile ragged), by reference: the decoder makes new tensors each step
+    and writes none of these in place."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.kernels import flash
+
+        self._mod, self._orig = flash, flash.flash_fwd_cuda
+        self.kept = {}
+
+        def fwd(q, k, v, causal, scale, window, layout, bias=None):
+            res = self._orig(q, k, v, causal, scale, window, layout, bias)
+            seq = 2 if layout == "bnsd" else 1
+            if q.shape[seq] == 1 and (bias is not None or k.shape[seq] % 64):
+                self.kept["cross" if bias is not None else "self"] = (
+                    (q, k, v, causal, scale, window, layout, bias), res)
+            return res
+
+        flash.flash_fwd_cuda = fwd
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_fwd_cuda = self._orig
+
+    def check(self, torch):
+        """Each kept launch's out and lse against ``flash_fwd_plain`` on
+        its own inputs, within FLASH_TOL; the worst max abs error."""
+        from paddle_tpu_torch.kernels import flash_fwd_plain
+
+        worst = 0.0
+        for kind in ("self", "cross"):
+            if kind not in self.kept:
+                raise AssertionError(f"beam search made no Sq = 1 {kind}-"
+                                     "attention launch to check")
+            args, (out, lse) = self.kept[kind]
+            q, k, layout, bias = args[0], args[1], args[6], args[7]
+            seq = 2 if layout == "bnsd" else 1
+            dt = "fp32" if q.dtype == torch.float32 else "bf16"
+            ref, rlse = flash_fwd_plain(*args)
+            label = (f"flash_fwd beam-search decode {kind} ({layout}, "
+                     f"B={q.shape[0]} H={q.shape[3 - seq]} Sq=1 "
+                     f"Sk={k.shape[seq]} D={q.shape[-1]}, {dt}, "
+                     f"{'pad bias' if bias is not None else 'no bias'})")
+            for part, a, r in (("out", out, ref), ("lse", lse, rlse)):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{label} {part} is not finite")
+                top = _flash_close(f"{label} {part}", a, r,
+                                   *FLASH_TOL[dt][part])
+                worst = max(worst, top)
+        self.kept.clear()
+        return worst
+
+
+def _beam_base(np, torch, card):
+    """(a) at Transformer-base: ms a step, the busy share and device time
+    by kernel, and 6 + 12 a step flash_fwd launches asserted (6 + 6 a step
+    biased, 12 a step with q and k of other lengths, no backward); the
+    last cross-attention launch and the last self-attention launch over a
+    ragged cache held against the plain forward on their own inputs;
+    returns the run's launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    c = TRANSFORMER
+    with unique_name.guard():
+        paddle.seed(0)
+        model = _seq2seq(np, c)
+    model.eval()
+    (src, _, _, src_mask, _), _ = _seq2seq_batch(
+        np, dict(c, batch=BEAM["batch"]), seed=3)
+    args = (np, paddle, model, src, src_mask, BEAM["beam"])
+    with paddle.no_grad():
+        _beam_search(*args, 2, BEAM["end"])                     # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with _CrossSpy() as spy, _DecodeRecorder() as rec:
+            t0 = time.perf_counter()
+            ids, scores = _beam_search(*args, BEAM["steps"], BEAM["end"])
+            wall = time.perf_counter() - t0
+        total = {k: KERNELS[k] for k in FLASH}
+        rec.check(torch)
+        busy = _profile(torch, "Transformer-base beam search, 4 steps",
+                        lambda: _beam_search(*args, 4, BEAM["end"]))
+    steps = ids.shape[1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"Transformer-base beam search ({card}): beam {BEAM['beam']} at "
+        f"batch {src.shape[0]} over sources of {src.shape[1]}, {steps} "
+        f"steps: {1e3 * wall / steps:.2f} ms a step (host clock, encoder "
+        f"included), device busy {100 * busy:.1f}% (4 steps profiled), "
+        f"peak {peak:.2f} GiB; flash launches {json.dumps(total)} "
+        f"({total.get('flash_fwd', 0) / steps:.2f} a step, biased "
+        f"{spy.counts.get('flash_fwd')}, q and k of other lengths "
+        f"{spy.cross.get('flash_fwd')}); the fp32 forward runs one live query "
+        f"row in its 256-row block (ROADMAP A.15); best scores "
+        f"{float(scores.min()):.3f}..{float(scores.max()):.3f}, first "
+        f"row's ids {ids[0, :12].tolist()}")
+    want = {k: 6 + 12 * steps if k == "flash_fwd" else 0 for k in FLASH}
+    biased = {k: 6 + 6 * steps if k == "flash_fwd" else 0 for k in FLASH}
+    cross = {k: 12 * steps if k == "flash_fwd" else 0 for k in FLASH}
+    if (total != want or spy.counts != biased or spy.cross != cross
+            or ids.shape[0] != src.shape[0]
+            or not np.isfinite(scores).all()
+            or ids.min() < 0 or ids.max() >= c["vocab"]):
+        raise AssertionError(
+            f"beam search launched {total} (biased {spy.counts}, cross "
+            f"{spy.cross}) over {steps} steps; expected 6 + 12 a step")
+    del model
+    _free(torch)
+    return total
+
+
+def _beam_small_parity(np, torch):
+    """(a) on TRANSFORMER_SMALL from the same weights: beam 4 card vs CPU
+    (ids equal, scores within 1e-5), beam 1 on the card equal to phase
+    12's ``_greedy`` (the end token repeated once a row has emitted it)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    c = TRANSFORMER_SMALL
+    (src, _, _, src_mask, _), _ = _seq2seq_batch(np, c, seed=2)
+    models, ids, scores = {}, {}, {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        with unique_name.guard():
+            paddle.seed(0)
+            models[dev] = _seq2seq(np, c)
+        models[dev].eval()
+    load_paddle_state_dict(models["gpu"], {
+        k: v.numpy() for k, v in models["cpu"].state_dict().items()})
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        with paddle.no_grad():
+            ids[dev], scores[dev] = _beam_search(
+                np, paddle, models[dev], src, src_mask, 4, 12, BEAM["end"])
+    with paddle.no_grad():
+        ids1, _ = _beam_search(np, paddle, models["gpu"], src, src_mask, 1,
+                               12, BEAM["end"])
+        greedy = _greedy(np, paddle, models["gpu"], src, src_mask,
+                         ids1.shape[1])
+    ended = np.cumsum(greedy == BEAM["end"], axis=1) > 0
+    ended[:, 1:] = ended[:, :-1].copy()
+    ended[:, 0] = False
+    greedy = np.where(ended, BEAM["end"], greedy)
+    rel = float(np.abs(scores["gpu"] - scores["cpu"]).max()
+                / max(1.0, float(np.abs(scores["cpu"]).max())))
+    log(f"small Transformer beam search, card vs cpu: ids "
+        f"{ids['gpu'].tolist()} vs {ids['cpu'].tolist()}, scores within "
+        f"{rel:.3e} (tol 1e-5); beam 1 vs greedy {ids1.tolist()} vs "
+        f"{greedy.tolist()}")
+    if not (np.array_equal(ids["gpu"], ids["cpu"]) and rel <= 1e-5
+            and np.array_equal(ids1, greedy)):
+        raise AssertionError("beam search on the card disagrees with the "
+                             "CPU or with greedy decoding")
+    del models
+    _free(torch)
+
+
+def _ptb_lm(c):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+
+    class RNNLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(c["vocab"], c["hidden"])
+            self.lstm = nn.LSTM(c["hidden"], c["hidden"], c["layers"])
+            self.head = nn.Linear(c["hidden"], c["vocab"])
+
+        def forward(self, ids, states):
+            out, states = self.lstm(self.embedding(ids), states)
+            return self.head(out), states
+
+    return RNNLM()
+
+
+def _ptb_batches(np, c):
+    """Seeded synthetic tokens cut as PTB's reader cuts a stream: a [batch,
+    steps] window and the window one token later, a step each."""
+    rng = np.random.RandomState(7)
+    n = c["steps"] * c["train_steps"] + 1
+    data = rng.randint(0, c["vocab"], (c["batch"], n)).astype("int64")
+    return [(data[:, i:i + c["steps"]], data[:, i + 1:i + 1 + c["steps"]])
+            for i in range(0, n - 1, c["steps"])]
+
+
+def _ptb_train(np, torch, model, batches, c, clock=None):
+    """SGD with the global-norm clip over ``batches``, the LSTM states
+    carried (detached) from step to step; each step's loss and host ms
+    (synchronised).  ``clock`` (an _OpClock) wraps the second step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    opt = paddle.optimizer.SGD(learning_rate=c["lr"],
+                               parameters=model.parameters(),
+                               grad_clip=nn.ClipGradByGlobalNorm(c["clip"]))
+    shape = [c["layers"], c["batch"], c["hidden"]]
+    states = (paddle.zeros(shape), paddle.zeros(shape))
+    losses, ms = [], []
+    for i, (ids, labels) in enumerate(batches):
+        if i == 1 and clock is not None:
+            clock.__enter__()
+        t0 = time.perf_counter()
+        logits, (h, cs) = model(paddle.to_tensor(ids), states)
+        loss = F.cross_entropy(paddle.reshape(logits, [-1, c["vocab"]]),
+                               paddle.reshape(paddle.to_tensor(labels),
+                                              [-1, 1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        states = (h.detach(), cs.detach())
+        losses.append(float(loss.numpy()))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 1 and clock is not None:
+            clock.__exit__()
+    return losses, ms
+
+
+def _ptb(np, torch, card):
+    """(b): five steps on the card against the same five on the CPU from
+    the same weights, losses within 1e-4; step ms, ops a step, the busy
+    share of one more step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    c = PTB
+    batches = _ptb_batches(np, c)
+    models, runs = {}, {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        with unique_name.guard():
+            paddle.seed(0)
+            models[dev] = _ptb_lm(c)
+    load_paddle_state_dict(models["gpu"], {
+        k: v.numpy() for k, v in models["cpu"].state_dict().items()})
+    clock = _OpClock()
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        runs[dev] = _ptb_train(np, torch, models[dev], batches, c,
+                               clock if dev == "gpu" else None)
+    (cpu, _), (gpu, ms) = runs["cpu"], runs["gpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
+    busy = _profile(torch, "PTB medium LSTM LM, one step",
+                    lambda: _ptb_train(np, torch, models["gpu"],
+                                       batches[:1], c))
+    tokens = c["batch"] * c["steps"]
+    log(f"PTB medium LSTM LM ({card}): vocab {c['vocab']}, 2 x "
+        f"{c['hidden']}, {c['steps']} steps x batch {c['batch']}, SGD "
+        f"{c['lr']} clip {c['clip']}: losses card {[round(v, 6) for v in gpu]}"
+        f" vs cpu {[round(v, 6) for v in cpu]} (worst {rel:.3e} relative, "
+        f"tol 1e-4); step ms {[round(v, 2) for v in ms]} (the last four "
+        f"{np.mean(ms[1:]):.2f}, {tokens / np.mean(ms[1:]) * 1e3:.0f} "
+        f"tokens/s); {clock.ops} ops traced a step at "
+        f"{1e6 * clock.seconds / max(clock.ops, 1):.1f} us host each, "
+        f"{clock.updates} update ops; device busy {100 * busy:.1f}%")
+    if not rel <= 1e-4 or not all(np.isfinite(gpu)):
+        raise AssertionError("the LSTM LM's losses on the card disagree "
+                             "with the CPU's")
+    del models
+    _free(torch)
+
+
+def _rel_err(np, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _c3d_layers(nn):
+    return [nn.Conv3D(3, 64, 3, padding=1), nn.ReLU(),
+            nn.MaxPool3D((1, 2, 2)), nn.Conv3D(64, 128, 3, padding=1),
+            nn.ReLU(), nn.MaxPool3D(2)]
+
+
+def _c3d_choices(torch, z, a, k):
+    """The stack's non-smooth choices at one block, as its backward makes
+    them: ReLU's sign of the conv output ``z`` and max-pool's argmax of
+    each window of ``a`` (size = stride = ``k``; a flat index into each
+    (n, c) plane, as ``max_pool3d`` returns it)."""
+    _, route = torch.nn.functional.max_pool3d(a, k, k, return_indices=True)
+    return z > 0, route
+
+
+def _c3d_flips(torch, zc, ac, k, sign_g, route_g, z_err, a_err):
+    """Where the card's choices (``sign_g``, ``route_g``) differ from the
+    CPU's on the CPU's tensors ``zc``, ``ac``.  Asserts that each differing
+    ReLU sign has |z| within ``z_err`` (the conv output's largest
+    card-vs-CPU difference) and that each differing argmax of a live
+    window picks a value within 2 ``a_err`` of the window's CPU maximum:
+    both choices then fall inside the forward's own rounding.  Counts the
+    elements and windows whose choice the rounding could flip at all
+    (|z| <= z_err; a live window's two largest values within 2 a_err), and
+    asserts they are at most 1e-4 of the whole."""
+    sign_c, route_c = _c3d_choices(torch, zc, ac, k)
+    relu = sign_c != sign_g.cpu()
+    n, c = ac.shape[:2]
+    flat = ac.reshape(n, c, -1)
+    rg, rc = route_g.cpu().reshape(n, c, -1), route_c.reshape(n, c, -1)
+    top = flat.gather(2, rc)
+    at_g = flat.gather(2, rg)
+    # windows whose maximum is a ReLU zero on both sides send no gradient
+    live = (top > 0) | (at_g > 0)
+    pool = (rg != rc) & live
+    shape = (n, c) + tuple(route_c.shape[2:])
+    wins = ac.reshape(n, c, shape[2], k[0], shape[3], k[1], shape[4], k[2])
+    wins = wins.permute(0, 1, 2, 4, 6, 3, 5, 7).reshape(*shape, -1)
+    two = wins.topk(2, dim=-1).values
+    near_pool = int(((two[..., 0] - two[..., 1] <= 2 * a_err)
+                     & (two[..., 0] > 0)).sum())
+    near_relu = int((zc.abs() <= z_err).sum())
+    worst = {"relu": float(zc[relu].abs().max()) if relu.any() else 0.0,
+             "pool": float((top - at_g)[pool].max()) if pool.any() else 0.0}
+    res = {"relu flips": int(relu.sum()), "relu near zero": near_relu,
+           "elements": zc.numel(), "pool flips": int(pool.sum()),
+           "pool near ties": near_pool, "windows": route_c.numel(),
+           "worst |z| of a flip": worst["relu"],
+           "worst gap of a flip": worst["pool"]}
+    if not (worst["relu"] <= z_err and worst["pool"] <= 2 * a_err
+            and near_relu <= 1e-4 * zc.numel()
+            and near_pool <= 1e-4 * route_c.numel()):
+        raise AssertionError(f"C3D's choices on the card differ from the "
+                             f"CPU's beyond the forward's rounding: {res} "
+                             f"(z_err {z_err:.3e}, a_err {a_err:.3e})")
+    return res
+
+
+def _c3d(np, torch, card):
+    """(c): C3D's first two blocks, forward and backward, card vs CPU from
+    the same weights, input and output gradient.  The stack's output
+    within 1e-4 of its largest value.  Its gradients are held within 1e-4
+    of each tensor's largest against the CPU run with the card's ReLU
+    signs and max-pool argmaxes (the CPU's convolutions on the same
+    weights, each pool taken as a gather at the card's argmax): where a
+    window's two largest values, or a conv output and zero, lie within the
+    convolution's fp32 rounding of each other, the two devices may choose
+    differently and send an O(1) gradient to another element.
+    :func:`_c3d_flips` asserts that every such difference lies within that
+    rounding and counts them; the gradients of the CPU's own choices are
+    logged beside.  Then the stack's forward + backward timed."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    c = C3D
+    rng = np.random.RandomState(5)
+    x = rng.randn(c["batch"], 3, c["frames"], c["size"],
+                  c["size"]).astype("float32")
+    nets = {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        with unique_name.guard():
+            paddle.seed(0)
+            nets[dev] = nn.Sequential(*_c3d_layers(nn))
+    load_paddle_state_dict(nets["gpu"], {
+        k: v.numpy() for k, v in nets["cpu"].state_dict().items()})
+    pools = {2: (1, 2, 2), 5: (2, 2, 2)}
+    g = None
+
+    def run(net, choices=None):
+        """The stack forward and backward on the current device: the
+        outputs of its layers (torch), and the output and the gradients of
+        the input and the weights (numpy).  ``choices`` ({pool layer:
+        (ReLU signs, argmaxes)}) puts, in place of the ReLU before each
+        pool and of the pool, a product by the given signs and a gather at
+        the given argmaxes."""
+        nonlocal g
+        t = paddle.to_tensor(x, stop_gradient=False)
+        h, acts = t, []
+        for i, layer in enumerate(net.children()):
+            if choices and i + 1 in choices:            # the ReLU
+                h = h * paddle.to_tensor(choices[i + 1][0].float())
+            elif choices and i in choices:              # the pool
+                idx = paddle.to_tensor(choices[i][1])
+                h = paddle.reshape(paddle.take_along_axis(
+                    paddle.flatten(h, 2), paddle.flatten(idx, 2), 2),
+                    list(idx.shape))
+            else:
+                h = layer(h)
+            acts.append(h._t.detach())
+        if g is None:
+            g = rng.randn(*h.shape).astype("float32")
+        paddle.sum(h * paddle.to_tensor(g)).backward()
+        res = {"out": h.numpy(), "x.grad": t.grad.numpy(),
+               **{n: p.grad.numpy() for n, p in net.named_parameters()}}
+        net.clear_gradients()
+        return acts, res
+
+    paddle.set_device("cpu")
+    acts_c, own = run(nets["cpu"])
+    paddle.set_device("gpu")
+    acts_g, got = run(nets["gpu"])
+    choices = {i: _c3d_choices(torch, acts_g[i - 2], acts_g[i - 1], k)
+               for i, k in pools.items()}
+    flips = {}
+    for i, k in pools.items():
+        z_err = float((acts_g[i - 2].cpu() - acts_c[i - 2]).abs().max())
+        a_err = float((acts_g[i - 1].cpu() - acts_c[i - 1]).abs().max())
+        flips[f"block {i // 3 + 1}"] = _c3d_flips(
+            torch, acts_c[i - 2], acts_c[i - 1], k, *choices[i], z_err,
+            a_err)
+    del acts_c, acts_g
+    paddle.set_device("cpu")
+    _, want = run(nets["cpu"], {i: tuple(t.cpu() for t in ch)
+                                for i, ch in choices.items()})
+    paddle.set_device("gpu")
+    errs = {k: _rel_err(np, got[k], v) for k, v in want.items()}
+    errs["out (the CPU's own choices)"] = _rel_err(np, got["out"],
+                                                   own["out"])
+    own_errs = {k: _rel_err(np, got[k], v) for k, v in own.items()
+                if k != "out"}
+    del choices, got, want, own
+
+    def timed():
+        xt = paddle.to_tensor(x, stop_gradient=False)
+        out = nets["gpu"](xt)
+        paddle.sum(out * paddle.to_tensor(g)).backward()
+        nets["gpu"].clear_gradients()
+
+    timed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        timed()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 3
+    macs = c["batch"] * c["frames"] * c["size"] ** 2 * 64 * 81 + \
+        c["batch"] * c["frames"] * (c["size"] // 2) ** 2 * 128 * 64 * 27
+    log(f"C3D blocks 1-2 ({card}): batch {c['batch']} x 3 x {c['frames']} x "
+        f"{c['size']} x {c['size']} fp32, forward + backward {ms:.2f} ms "
+        f"(host clock, synchronised; {6 * macs / ms / 1e9:.1f} TFLOP/s over "
+        f"{6 * macs / 1e9:.0f} GFLOP); card vs cpu with the card's choices "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} of "
+        f"each tensor's largest (tol 1e-4); choices that differ "
+        f"{json.dumps(flips)}; the gradients with the CPU's own choices "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in own_errs.items()})}")
+    bad = {k: v for k, v in errs.items() if not v <= 1e-4}
+    del nets
+    _free(torch)
+    if bad:
+        raise AssertionError(f"C3D on the card disagrees with the CPU: {bad}")
+
+
+def _interp(np, torch, card):
+    """(c): interpolate x 2, bilinear and nearest, through the port's
+    ``F.interpolate`` (the registered ``*_interp_v2`` ops), card vs CPU,
+    and timed on the card beside the one library call that computes the
+    same function."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+
+    m = np.random.RandomState(6).randn(*INTERP).astype("float32")
+    outs, times = {}, {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        t = paddle.to_tensor(m)
+        outs[dev] = {mode: F.interpolate(t, scale_factor=2, mode=mode).numpy()
+                     for mode in ("bilinear", "nearest")}
+    for mode in ("bilinear", "nearest"):
+        times[mode] = time_ms(lambda: F.interpolate(t, scale_factor=2,
+                                                    mode=mode))
+    mt = torch.as_tensor(m, device="cuda")
+    lib = {}
+    for mode, tm in (("bilinear", "bilinear"), ("nearest", "nearest-exact")):
+        kw = dict(align_corners=False, antialias=True) if mode == "bilinear" \
+            else {}
+        lib[mode] = time_ms(lambda: torch.nn.functional.interpolate(
+            mt, scale_factor=2, mode=tm, **kw))
+    errs = {mode: _rel_err(np, outs["gpu"][mode], outs["cpu"][mode])
+            for mode in ("bilinear", "nearest")}
+    nbytes = m.nbytes * 5
+    log(f"interpolate x 2 of {list(INTERP)} fp32 ({card}): the port's "
+        f"F.interpolate bilinear {times['bilinear']:.4f} ms, nearest "
+        f"{times['nearest']:.4f} ms; the library call "
+        f"(torch.nn.functional.interpolate) {lib['bilinear']:.4f} / "
+        f"{lib['nearest']:.4f} ms (bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f}"
+        f" ms, bytes); card vs cpu {errs['bilinear']:.3e} / "
+        f"{errs['nearest']:.3e} of the largest (tol 1e-5 / 0)")
+    if errs["bilinear"] > 1e-5 or errs["nearest"] != 0:
+        raise AssertionError(f"interpolate on the card disagrees with the "
+                             f"CPU: {errs}")
+
+
+def _new_op_cases(np):
+    """(op, inputs, attrs) of each op this slice registered, small."""
+    r = np.random.RandomState(0)
+
+    def f(*s):
+        return r.randn(*s).astype("float32")
+
+    lens = np.array([5, 0, 3])
+    return [
+        ("conv3d", {"Input": [f(2, 3, 5, 6, 4)], "Filter": [f(4, 3, 3, 2, 3)]},
+         {"strides": [1, 2, 1], "paddings": [1, 0, 1, 1, 0, 2]}),
+        ("conv3d_transpose", {"Input": [f(2, 3, 3, 4, 3)],
+                              "Filter": [f(3, 2, 3, 3, 2)]},
+         {"strides": [2, 1, 2], "paddings": [1, 1, 0],
+          "output_padding": [1, 0, 1]}),
+        ("pool3d", {"X": [f(2, 3, 5, 6, 4)]},
+         {"pooling_type": "avg", "ksize": [3, 3, 2], "strides": [2, 2, 2],
+          "paddings": [1, 1, 0]}),
+        ("pool3d", {"X": [f(2, 3, 5, 6, 4)]},
+         {"pooling_type": "max", "ksize": [3, 3, 2], "strides": [2, 2, 2],
+          "paddings": [1, 1, 1, 0, 0, 1]}),
+        ("nearest_interp_v2", {"X": [f(2, 3, 5, 4)]},
+         {"out_h": 8, "out_w": 3}),
+        ("bilinear_interp_v2", {"X": [f(2, 3, 5, 4)]},
+         {"out_h": -1, "out_w": -1, "scale": [1.6, 0.75]}),
+        *[("sequence_pool", {"X": [f(3, 5, 2)], "Length": [lens]},
+           {"pooltype": pt}) for pt in ("SUM", "AVERAGE", "SQRT", "MAX",
+                                        "FIRST", "LAST")],
+        ("sequence_pad", {"X": [f(3, 5, 2)], "Length": [lens]},
+         {"pad_value": -1.0, "maxlen": 7}),
+        ("sequence_unpad", {"X": [f(3, 5, 2)], "Length": [lens]}, {}),
+        ("sequence_mask", {"X": [np.array([3, 0, 5])]},
+         {"maxlen": 6, "out_dtype": "int32"}),
+        ("sequence_softmax", {"X": [f(3, 5)], "Length": [lens]}, {}),
+        ("sequence_reverse", {"X": [f(3, 5, 2)], "Length": [lens]}, {}),
+        ("sequence_slice", {"X": [f(3, 5, 2)],
+                            "Offset": [np.array([1, 0, 2])],
+                            "SliceLength": [np.array([3, 2, 1])]}, {}),
+        ("sequence_reshape", {"X": [f(3, 4, 6)],
+                              "Length": [np.array([4, 2, 3])]},
+         {"new_dim": 3}),
+        ("sequence_concat", {"X": [f(2, 3, 2), f(2, 4, 2)],
+                             "Length": [np.array([3, 1]),
+                                        np.array([2, 4])]}, {}),
+        ("sequence_expand_as", {"X": [f(3, 2)],
+                                "Length": [np.array([2, 0, 3])]},
+         {"maxlen": 4}),
+        ("sequence_enumerate", {"X": [r.randint(0, 9, (3, 5))],
+                                "Length": [np.array([5, 3, 1])]},
+         {"win_size": 3, "pad_value": 7}),
+        ("sequence_scatter", {"X": [f(2, 6)],
+                              "Ids": [r.randint(0, 6, (2, 3))],
+                              "Updates": [f(2, 3)],
+                              "Length": [np.array([3, 2])]}, {}),
+        ("sequence_conv", {"X": [f(3, 5, 2)], "Filter": [f(6, 4)],
+                           "Length": [lens]},
+         {"contextLength": 3, "contextStart": -1}),
+    ]
+
+
+def _function_cases(np, paddle):
+    """(label, a function of the device's tensors, its numpy inputs) of the
+    slice's new functions and a BiRNN / GRU with lengths; the CPU's call
+    comes first."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    r = np.random.RandomState(1)
+
+    def f(*s):
+        return r.randn(*s).astype("float32")
+
+    def rnn(kind):
+        state = {}
+
+        def run(x, lens):
+            # the CPU's run draws the weights, the card's loads them
+            net = (paddle.nn.GRU(4, 6, num_layers=2, direction="bidirect")
+                   if kind == "gru" else paddle.nn.BiRNN(
+                       paddle.nn.LSTMCell(4, 6), paddle.nn.GRUCell(4, 6)))
+            if state:
+                load_paddle_state_dict(net, state)
+            else:
+                state.update({k: v.numpy()
+                              for k, v in net.state_dict().items()})
+            out, _ = net(x, sequence_length=lens)
+            paddle.sum(out * out).backward()
+            return [out, x.grad] + [p.grad for p in net.parameters()]
+        return run
+
+    return [
+        ("ctc_loss", lambda lg, lab, il, ll: [F.ctc_loss(
+            lg, lab, il, ll, reduction="none")],
+         [f(6, 3, 5), np.array([[1, 2, 2], [3, 4, 0], [1, 1, 1]]),
+          np.array([6, 5, 3]), np.array([3, 2, 3])]),
+        ("hsigmoid_loss", lambda x, lab, w, b: [F.hsigmoid_loss(
+            x, lab, 8, w, b)],
+         [f(4, 6), np.array([[7], [1], [5], [0]]), f(7, 6), f(7)]),
+        ("gather_tree", lambda ids, par: [F.gather_tree(ids, par)],
+         [r.randint(0, 9, (5, 2, 3)), r.randint(0, 3, (5, 2, 3))]),
+        ("grid_sample", lambda x, g: [F.grid_sample(x, g)],
+         [f(2, 3, 4, 5), r.uniform(-1.2, 1.2, (2, 3, 4, 2)).astype(
+             "float32")]),
+        ("temporal_shift", lambda x: [F.temporal_shift(x, 4, 0.25)],
+         [f(8, 8, 2, 2)]),
+        ("GRU with lengths", rnn("gru"), [f(3, 5, 4), np.array([5, 2, 3])]),
+        ("BiRNN with lengths", rnn("birnn"), [f(3, 5, 4),
+                                              np.array([5, 2, 3])]),
+    ]
+
+
+def _ops_on_card(np, torch):
+    """(d): each new registered op and each new function on the card
+    against the same call on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import registry
+
+    worst = {}
+    for op, ins, attrs in _new_op_cases(np):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            t = {s: [torch.as_tensor(np.asarray(a), device=dev) for a in v]
+                 for s, v in ins.items()}
+            with torch.no_grad():
+                got = registry.run_kernel(registry.get_op_def(op), t,
+                                          dict(attrs))
+            outs[dev] = [a.cpu().numpy() for v in got.values() for a in v]
+        for g, w in zip(outs["cuda"], outs["cpu"]):
+            err = (_rel_err(np, g, w) if w.dtype.kind == "f" and w.size
+                   else float(not np.array_equal(g, w)))
+            worst[op] = max(worst.get(op, 0.0), err)
+    for label, fn, arrays in _function_cases(np, paddle):
+        outs = {}
+        for dev in ("cpu", "gpu"):
+            paddle.set_device(dev)
+            ts = [paddle.to_tensor(a, stop_gradient=a.dtype.kind != "f")
+                  for a in arrays]
+            outs[dev] = [o.numpy() for o in fn(*ts)]
+        paddle.set_device("gpu")
+        worst[label] = max(
+            _rel_err(np, g, w) if w.dtype.kind == "f"
+            else float(not np.array_equal(g, w))
+            for g, w in zip(outs["gpu"], outs["cpu"]))
+    log(f"new ops and functions, card vs cpu (of each tensor's largest; "
+        f"integers 0 when equal): "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}")
+    bad = {k: v for k, v in worst.items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"new ops disagree card vs cpu: {bad}")
+
+
+def phase_eager_rest(np, torch, card):
+    """Phase 15: the rest of the eager API (see the comment above BEAM).
+    Returns the beam search's flash launches."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    launches = _beam_base(np, torch, card)
+    _beam_small_parity(np, torch)
+    paddle.set_device("gpu")
+    _ptb(np, torch, card)
+    paddle.set_device("gpu")
+    _c3d(np, torch, card)
+    _interp(np, torch, card)
+    paddle.set_device("gpu")
+    _ops_on_card(np, torch)
+    paddle.set_device("gpu")
+    log(card)
+    return launches
+
+
 def main():
     try:
         import numpy as np
@@ -5555,6 +6281,12 @@ def main():
         phase_jit(np, torch, card)
         done("14 jit and deployment")
         return 0
+    if sys.argv[1:] == ["--phase", "15"]:
+        # phase 15 alone, for work on the rest of the eager API: no result
+        # line
+        phase_eager_rest(np, torch, card)
+        done("15 the rest of the eager API")
+        return 0
     if sys.argv[1:] == ["--phase", "12"]:
         # phase 12 alone, for work on the encoder-decoder, the flash
         # kernels at other lengths and the rec models: no result line
@@ -5591,6 +6323,8 @@ def main():
     done("13 graph mode")
     jit_kernels, jit_runs = phase_jit(np, torch, card)
     done("14 jit and deployment")
+    beam_launches = phase_eager_rest(np, torch, card)
+    done("15 the rest of the eager API")
     kernels.update(jit_kernels)
     kernels.update(bert_kernels)
     kernels.update(encoder_kernels)
@@ -5665,6 +6399,9 @@ def main():
             n, run = trained[name]
             src = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
             log(f"{name}: {n} launches on training run ({run})")
+            if beam_launches.get(name):
+                more["phase 15 (a) Transformer-base beam search fp32"] = \
+                    beam_launches[name]
         else:
             n, run = first[name]
             log(f"{name}: {n} launches on serving run ({run})")

@@ -48,6 +48,11 @@ mirrors the JAX package so that every module has an obvious counterpart:
   and the ``Predictor``, in fp32, bf16 or int8 through
   ``static/quant_int8.py``) and ``incubate/quant.py`` (quantization-aware
   training and post-training quantization);
+* the rest of the eager API: ``nn/layer/rnn.py`` (SimpleRNN, LSTM, GRU),
+  ``nn/layer/extras.py`` (the 3-D convs and pools, the CTC and
+  hierarchical-sigmoid losses, ``BeamSearchDecoder`` /
+  ``dynamic_decode``), ``nn/utils.py``, ``nn/quant/`` and
+  ``ops/sequence_ops.py`` (the padded sequence ops);
 * ``weights.py``: lifts a JAX parameter tree (as numpy) into the port.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``
@@ -57,8 +62,10 @@ top-level namespace is the reference's ``paddle_tpu`` namespace for the
 modules ported so far: ``to_tensor``, ``seed``, ``set_device``,
 ``no_grad``, ``grad``, ``DataParallel``, ``io``, ``reader``, ``vision``,
 ``static``, ``fluid``, ``jit``, ``inference``, ``incubate``,
-``enable_static``, ``save``, ``load``, ``batch`` and the tensor
-functions.
+``enable_static``, ``save``, ``load``, ``batch``, the tensor functions
+and the helpers (``get_cudnn_version``, ``is_compiled_with_*``,
+``set_printoptions``, ``summary``, ``check_shape``, ``monkey_patch_*``),
+which report the card's build where the reference reports the TPU's.
 """
 
 from .device import default_device, default_dtype, resolve_device  # noqa: F401
@@ -132,3 +139,82 @@ enable_dygraph = disable_static
 disable_dygraph = enable_static
 get_cuda_rng_state = get_rng_state
 set_cuda_rng_state = set_rng_state
+
+
+def get_cudnn_version():
+    """The cuDNN version torch was built with (an int such as 90100), or
+    None without cuDNN."""
+    import torch
+
+    return torch.backends.cudnn.version()
+
+
+def is_compiled_with_npu():
+    return False
+
+
+def is_compiled_with_rocm():
+    import torch
+
+    return torch.version.hip is not None
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """Display options of a Tensor's values (printed through numpy)."""
+    import numpy as _np
+
+    kw = {}
+    if precision is not None:
+        kw["precision"] = precision
+    if threshold is not None:
+        kw["threshold"] = threshold
+    if edgeitems is not None:
+        kw["edgeitems"] = edgeitems
+    if linewidth is not None:
+        kw["linewidth"] = linewidth
+    if sci_mode is not None:
+        kw["suppress"] = not sci_mode
+    _np.set_printoptions(**kw)
+
+
+def summary(net, input_size=None, dtypes=None):
+    """Print a Layer's parameters (name, shape, count) and their totals;
+    returns ``{"total_params", "trainable_params"}``."""
+    import numpy as _np
+
+    total = trainable = 0
+    lines = ["-" * 64,
+             f"{'Layer (type)':<38}{'Param shape':<16}{'Param #':>10}",
+             "=" * 64]
+    for name, p in net.named_parameters():
+        n = int(_np.prod(p.shape))
+        total += n
+        if not p.stop_gradient:
+            trainable += n
+        lines.append(f"{name:<38}{str(tuple(p.shape)):<16}{n:>10,}")
+    lines += ["=" * 64, f"Total params: {total:,}",
+              f"Trainable params: {trainable:,}",
+              f"Non-trainable params: {total - trainable:,}", "-" * 64]
+    print("\n".join(lines))
+    return {"total_params": total, "trainable_params": trainable}
+
+
+def check_shape(shape):
+    """Raise TypeError unless every entry of ``shape`` is an int or
+    None."""
+    for s in shape:
+        if s is not None and not isinstance(s, int):
+            raise TypeError(f"shape entries must be ints/None, got {s!r}")
+
+
+def monkey_patch_math_varbase():
+    """A no-op: the Tensor has its operators built in."""
+
+
+def monkey_patch_variable():
+    """A no-op: the static Variable has its operators built in."""

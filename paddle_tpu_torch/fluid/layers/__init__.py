@@ -7,8 +7,7 @@ every name maps onto the port's 2.x functions (``static.nn`` builders,
 static mode through the Executor.  Parameter-server-era or deprecated
 names raise an error naming the modern replacement, and names whose
 2.x backing the port has yet to gain raise NotImplementedError naming
-the ROADMAP item (the 3-D and resize ops, the RNN layers and CTC: A.7;
-``vision.ops`` and ``distribution``: A.12).
+the ROADMAP item (``vision.ops`` and ``distribution``: A.12).
 
 The learning-rate schedule functions return the matching 2.x
 ``optimizer.lr`` scheduler, which every optimizer accepts: the rate a
@@ -305,8 +304,8 @@ label_smooth = F.label_smooth
 l2_normalize = lambda x, axis, epsilon=1e-12, name=None: F.normalize(  # noqa: E731
     x, p=2, axis=axis, epsilon=epsilon)
 pad = F.pad
-unfold = _waits("unfold", "A.7", "nn.functional.unfold")
-pixel_shuffle = _waits("pixel_shuffle", "A.7", "nn.functional.pixel_shuffle")
+unfold = F.unfold
+pixel_shuffle = F.pixel_shuffle
 dropout_impl = F.dropout
 
 
@@ -343,9 +342,20 @@ def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
     return fn(input, pool_size)
 
 
-image_resize = _waits("image_resize", "A.7", "the interp ops")
-resize_bilinear = _waits("resize_bilinear", "A.7", "the interp ops")
-resize_nearest = _waits("resize_nearest", "A.7", "the interp ops")
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", **kw):
+    return F.interpolate(input, size=out_shape, scale_factor=scale,
+                         mode=resample.lower())
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None, **kw):
+    return F.interpolate(input, size=out_shape, scale_factor=scale,
+                         mode="bilinear")
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None, **kw):
+    return F.interpolate(input, size=out_shape, scale_factor=scale,
+                         mode="nearest")
 
 
 def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
@@ -626,7 +636,16 @@ bipartite_match = _waits("bipartite_match", "A.12", "vision.ops")
 # ---------------------------------------------------------------------------
 
 
-lstm = _waits("lstm", "A.7", "nn.LSTM (nn/layer/rnn.py)")
+def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
+         dropout_prob=0.0, is_bidirec=False, **kw):
+    """``(out, last_h, last_c)`` of an ``nn.LSTM`` over ``input`` [B, T,
+    D] from the states (init_h, init_c) [num_layers * dirs, B, H]."""
+    from ... import nn
+
+    rnn = nn.LSTM(input.shape[-1], hidden_size, num_layers=num_layers,
+                  direction="bidirect" if is_bidirec else "forward")
+    out, (h, c) = rnn(input, (init_h, init_c))
+    return out, h, c
 
 
 # ---------------------------------------------------------------------------
@@ -650,11 +669,21 @@ def _unsupported(name, why, instead):
 # ---------------------------------------------------------------------------
 
 
-grid_sampler = _waits("grid_sampler", "A.7", "nn.functional.grid_sample")
-temporal_shift = _waits("temporal_shift", "A.7",
-                        "nn.functional.temporal_shift")
-affine_grid = _waits("affine_grid", "A.7", "nn.functional.affine_grid")
-gather_tree = _waits("gather_tree", "A.7", "nn.functional.gather_tree")
+def grid_sampler(x, grid, name=None):
+    """Bilinear, zero padding, align_corners (the v2.1 op's one mode)."""
+    return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=True)
+
+
+temporal_shift = F.temporal_shift
+
+
+def affine_grid(theta, out_shape, name=None):
+    """The v2.1 op has no align_corners (it is True)."""
+    return F.affine_grid(theta, out_shape, align_corners=True)
+
+
+gather_tree = F.gather_tree
 multiplex = T.multiplex
 
 
@@ -814,12 +843,29 @@ for _n in [k for k, v in list(globals().items()) if v is None]:
 
 from ... import nn as _nn2  # noqa: E402
 
-for _n, _what in (("RNNCell", "nn.RNNCellBase"), ("GRUCell", "nn.GRUCell"),
-                  ("LSTMCell", "nn.LSTMCell"),
-                  ("BeamSearchDecoder", "nn.BeamSearchDecoder"),
-                  ("dynamic_decode", "nn.dynamic_decode"),
-                  ("rnn", "nn.RNN"), ("birnn", "nn.BiRNN")):
-    globals()[_n] = _waits(_n, "A.7", _what + " (nn/layer/rnn.py)")
+RNNCell = _nn2.RNNCellBase
+GRUCell = _nn2.GRUCell
+LSTMCell = _nn2.LSTMCell
+BeamSearchDecoder = _nn2.BeamSearchDecoder
+dynamic_decode = _nn2.dynamic_decode
+
+
+def rnn(cell, inputs, initial_states=None, sequence_length=None,
+        time_major=False, is_reverse=False, **kwargs):
+    """``(outputs, final_states)`` of ``cell`` over ``inputs`` (the v2.1
+    function; ``nn.RNN`` runs it)."""
+    runner = _nn2.RNN(cell, is_reverse=is_reverse, time_major=time_major)
+    return runner(inputs, initial_states=initial_states,
+                  sequence_length=sequence_length)
+
+
+def birnn(cell_fw, cell_bw, inputs, initial_states=None,
+          sequence_length=None, time_major=False, **kwargs):
+    runner = _nn2.BiRNN(cell_fw, cell_bw, time_major=time_major)
+    return runner(inputs, initial_states=initial_states,
+                  sequence_length=sequence_length)
+
+
 for _n in ("Categorical", "Normal", "Uniform"):
     globals()[_n] = _waits(_n, "A.12", "paddle.distribution")
 
@@ -829,8 +875,33 @@ sigmoid_focal_loss = F.sigmoid_focal_loss
 kldiv_loss = F.kl_div
 
 
-warpctc = _waits("warpctc", "A.7", "nn.functional.ctc_loss")
-hsigmoid = _waits("hsigmoid", "A.7", "nn.HSigmoidLoss")
+def warpctc(input, label, blank=0, norm_by_times=False, input_length=None,
+            label_length=None):
+    """The per-sequence CTC losses (``reduction="none"``, the op's
+    output).  Sequences here are padded, so the lengths are required."""
+    if input_length is None or label_length is None:
+        raise ValueError(
+            "fluid.layers.warpctc requires input_length and label_length "
+            "(padded sequences; there is no ragged LoD mode)")
+    if norm_by_times:
+        raise NotImplementedError(
+            "fluid.layers.warpctc norm_by_times=True is not wired; divide "
+            "the per-sequence losses by input_length instead")
+    return F.ctc_loss(input, label, input_length, label_length, blank=blank,
+                      reduction="none")
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    if path_table is not None or path_code is not None or is_custom:
+        raise NotImplementedError(
+            "fluid.layers.hsigmoid's custom tree (path_table / path_code) "
+            "is not wired; use the default complete binary tree")
+    layer = snn._reuse("hsigmoid", name, lambda: _nn2.HSigmoidLoss(
+        int(input.shape[-1]), num_classes, weight_attr=param_attr,
+        bias_attr=bias_attr))
+    return layer(input, label)
 
 
 def cos_sim(X, Y):
@@ -838,8 +909,37 @@ def cos_sim(X, Y):
     return T.unsqueeze(F.cosine_similarity(X, Y, axis=-1), [-1])
 
 
-pool3d = _waits("pool3d", "A.7", "the 3-D pool ops")
-adaptive_pool3d = _waits("adaptive_pool3d", "A.7", "the 3-D pool ops")
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCDHW"):
+    ndhwc = data_format == "NDHWC"
+    if ndhwc:  # the 3-D ops are NCDHW: transpose around them
+        input = T.transpose(input, [0, 4, 1, 2, 3])
+    if global_pooling:
+        out = (T.max(input, axis=[2, 3, 4], keepdim=True)
+               if pool_type == "max"
+               else T.mean(input, axis=[2, 3, 4], keepdim=True))
+    elif pool_type == "max":
+        out = F.max_pool3d(input, kernel_size=pool_size, stride=pool_stride,
+                           padding=pool_padding, ceil_mode=ceil_mode)
+    else:
+        out = F.avg_pool3d(input, kernel_size=pool_size, stride=pool_stride,
+                           padding=pool_padding, ceil_mode=ceil_mode,
+                           exclusive=exclusive)
+    if ndhwc:
+        out = T.transpose(out, [0, 2, 3, 4, 1])
+    return out
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    if require_index:
+        raise NotImplementedError(
+            "adaptive_pool3d(require_index=True) (argmax indices) is not "
+            "wired; use the values-only form")
+    fn = (F.adaptive_max_pool3d if pool_type == "max"
+          else F.adaptive_avg_pool3d)
+    return fn(input, pool_size)
 
 
 def bpr_loss(input, label, name=None):

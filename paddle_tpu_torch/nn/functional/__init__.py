@@ -1,25 +1,28 @@
 """``paddle.nn.functional``: the functions over the ported ops.
 
 Counterpart of ``paddle_tpu/nn/functional/__init__.py``, function for
-function where the op is ported: activations, ``linear``, the 2-D convs
-and pools and the 1-D forms built on them (``conv1d``,
-``conv1d_transpose``, ``max_pool1d``, ``avg_pool1d``,
-``adaptive_*_pool1d``), dropout, the norms, ``embedding`` / ``one_hot``,
-the losses, ``pad``, ``label_smooth``, ``normalize``,
-``cosine_similarity``, ``sequence_mask`` and
+function: activations, ``linear``, the 1-D, 2-D and 3-D convs and pools,
+``interpolate`` / ``upsample``, dropout (``alpha_dropout``,
+``dropout3d``), the norms, ``embedding`` / ``one_hot``, the losses (with
+``ctc_loss`` and ``hsigmoid_loss``), ``pad``, ``unfold``,
+``pixel_shuffle``, ``affine_grid`` / ``grid_sample``,
+``temporal_shift``, ``gather_tree``, ``sequence_mask``,
 ``scaled_dot_product_attention`` (the registered op, which on the card
-launches the flash kernels).  The 3-D convs and pools, interpolate /
-upsample, ``unfold``, ``pixel_shuffle``, ``affine_grid``,
-``grid_sample``, ``temporal_shift``, ``ring_attention``, ``ctc_loss``,
-``hsigmoid_loss``, ``gather_tree``, ``alpha_dropout`` and ``dropout3d``
-wait for the 3-D ops, the interpolation ops and the extras layers
-(ROADMAP A.7).
+launches the flash kernels) and ``ring_attention`` (over
+:mod:`paddle_tpu_torch.kernels.ring`).  The functions the reference
+writes as one-off JAX functions are one-off torch functions here
+(``tracer.trace_fn``), the same formulas, so they run where their
+input lies.
 """
 
 from __future__ import annotations
 
 import torch
 
+import numpy as np
+
+from ...framework import random as _random
+from ...framework.dtype import convert_dtype  # noqa: F401
 from ...ops.dispatch import dispatch, single
 from ... import tensor_api as T
 
@@ -38,7 +41,11 @@ __all__ = [
     "kl_div", "smooth_l1_loss", "margin_ranking_loss", "pad", "flatten",
     "label_smooth", "normalize", "cosine_similarity",
     "scaled_dot_product_attention", "sequence_mask", "square_error_cost",
-    "accuracy",
+    "accuracy", "conv3d", "conv3d_transpose", "max_pool3d", "avg_pool3d",
+    "adaptive_avg_pool3d", "adaptive_max_pool3d", "interpolate", "upsample",
+    "unfold", "pixel_shuffle", "diag_embed", "alpha_dropout", "dropout3d",
+    "temporal_shift", "affine_grid", "grid_sample", "gather_tree",
+    "ctc_loss", "hsigmoid_loss", "ring_attention",
 ]
 
 
@@ -357,6 +364,79 @@ def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
     x4 = T.unsqueeze(x, [2])
     o = output_size if isinstance(output_size, int) else output_size[0]
     return T.squeeze(adaptive_max_pool2d(x4, [1, o]), [2])
+
+
+# -- 3-D conv and pool (NCDHW) ----------------------------------------------
+
+
+def _many(v, n):
+    """An int as ``n`` copies, a sequence as a list."""
+    return [v] * n if isinstance(v, int) else list(v)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    _require_default_layout(data_format, ("NCDHW",))
+    out = _d("conv3d", {"Input": [x], "Filter": [weight]},
+             {"strides": _many(stride, 3), "paddings": _many(padding, 3),
+              "dilations": _many(dilation, 3), "groups": groups},
+             slot="Output")
+    if bias is not None:
+        out = _d("elementwise_add", {"X": [out], "Y": [bias]}, {"axis": 1})
+    return out
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    """The adjoint of conv3d; as the reference's, it reads no
+    ``output_size`` (give ``output_padding``)."""
+    _require_default_layout(data_format, ("NCDHW",))
+    out = _d("conv3d_transpose", {"Input": [x], "Filter": [weight]},
+             {"strides": _many(stride, 3), "paddings": _many(padding, 3),
+              "dilations": _many(dilation, 3), "groups": groups,
+              "output_padding": _many(output_padding, 3)},
+             slot="Output")
+    if bias is not None:
+        out = _d("elementwise_add", {"X": [out], "Y": [bias]}, {"axis": 1})
+    return out
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCDHW", name=None):
+    _require_default_layout(data_format, ("NCDHW",), return_mask)
+    ks = _many(kernel_size, 3)
+    return _d("pool3d", {"X": [x]},
+              {"pooling_type": "max", "ksize": ks,
+               "strides": ks if stride is None else _many(stride, 3),
+               "paddings": _many(padding, 3), "ceil_mode": ceil_mode})
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW",
+               name=None):
+    _require_default_layout(data_format, ("NCDHW",))
+    ks = _many(kernel_size, 3)
+    return _d("pool3d", {"X": [x]},
+              {"pooling_type": "avg", "ksize": ks,
+               "strides": ks if stride is None else _many(stride, 3),
+               "paddings": _many(padding, 3), "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    _require_default_layout(data_format, ("NCDHW",))
+    return _d("pool3d", {"X": [x]},
+              {"pooling_type": "avg", "ksize": _many(output_size, 3),
+               "adaptive": True})
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False,
+                        data_format="NCDHW", name=None):
+    _require_default_layout(data_format, ("NCDHW",), return_mask)
+    return _d("pool3d", {"X": [x]},
+              {"pooling_type": "max", "ksize": _many(output_size, 3),
+               "adaptive": True})
 
 
 # -- linear ------------------------------------------------------------------
@@ -779,6 +859,365 @@ def bilinear(x1, x2, weight, bias=None, name=None):
         return out + rest[0] if rest else out
 
     return tracer.trace_fn(fn, ins, name="bilinear")
+
+
+# -- resizing, patches and the vision extras ---------------------------------
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Resize dims 2 and 3 by the ``nearest_interp_v2`` /
+    ``bilinear_interp_v2`` ops: to ``size``, else by ``scale_factor``
+    (the size truncated).  As the reference's, the ops take no
+    ``align_corners``, ``align_mode`` or ``data_format``: the pixels are
+    half-pixel centred, and the input is NCHW."""
+    attrs = {}
+    if size is not None:
+        attrs["out_h"], attrs["out_w"] = int(size[0]), int(size[1])
+    if scale_factor is not None:
+        sf = (scale_factor if isinstance(scale_factor, (list, tuple))
+              else [scale_factor, scale_factor])
+        attrs["scale"] = [float(v) for v in sf]
+        attrs.setdefault("out_h", -1)
+        attrs.setdefault("out_w", -1)
+    op = {"nearest": "nearest_interp_v2",
+          "bilinear": "bilinear_interp_v2"}[mode]
+    return _d(op, {"X": [x]}, attrs)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """[N, C * kh * kw, L] patches of an NCHW input, (c, kh, kw) order."""
+    from ...dygraph import tracer
+
+    ks, st = _many(kernel_sizes, 2), _many(strides, 2)
+    pd, dl = _many(paddings, 2), _many(dilations, 2)
+
+    def fn(a):
+        return torch.nn.functional.unfold(a, ks, dilation=dl,
+                                          padding=pd[:2], stride=st)
+
+    return tracer.trace_fn(fn, [x], name="unfold")
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    """(B, C * r^2, H, W) -> (B, C, H * r, W * r); NHWC reads the channels
+    as (r, r, C), the reference's order."""
+    from ...dygraph import tracer
+
+    r = int(upscale_factor)
+
+    def fn(a):
+        if data_format == "NCHW":
+            b, c, h, w = a.shape
+            a = a.reshape(b, c // (r * r), r, r, h, w)
+            return a.permute(0, 1, 4, 2, 5, 3).reshape(
+                b, c // (r * r), h * r, w * r)
+        b, h, w, c = a.shape
+        a = a.reshape(b, h, w, r, r, c // (r * r))
+        return a.permute(0, 1, 3, 2, 4, 5).reshape(b, h * r, w * r,
+                                                   c // (r * r))
+
+    return tracer.trace_fn(fn, [x], name="pixel_shuffle")
+
+
+def diag_embed(input, offset=0, dim1=-2, dim2=-1, name=None):
+    """The last dim as the ``offset`` diagonal of a new plane at (dim1,
+    dim2)."""
+    from ...dygraph import tracer
+
+    off = int(offset)
+
+    def fn(a):
+        n = a.shape[-1] + abs(off)
+        base = a.new_zeros(tuple(a.shape[:-1]) + (n, n))
+        idx = torch.arange(a.shape[-1], device=a.device)
+        base[..., idx + max(-off, 0), idx + max(off, 0)] = a
+        nd = base.ndim
+        src = {dim1 % nd: nd - 2, dim2 % nd: nd - 1}
+        rest = iter(range(nd - 2))
+        return base.permute([src[i] if i in src else next(rest)
+                             for i in range(nd)])
+
+    return tracer.trace_fn(fn, [input], name="diag_embed")
+
+
+def _keep(key, shape, device, p):
+    return _random.uniform(key, shape, device) < np.float32(1.0 - p)
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None):
+    """SELU-preserving dropout: dropped values become -alpha * scale, then
+    the affine map that keeps the mean and variance."""
+    if not training or p == 0.0:
+        return x
+    from ...dygraph import tracer
+
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    a = ((1 - p) * (1 + p * alpha_p ** 2)) ** -0.5
+    b = -a * alpha_p * p
+    key = _random.next_rng_key()
+
+    def fn(arr):
+        keep = _keep(key, arr.shape, arr.device, p)
+        return (torch.where(keep, arr, torch.tensor(
+            alpha_p, dtype=arr.dtype, device=arr.device)) * a + b).to(
+                arr.dtype)
+
+    return tracer.trace_fn(fn, [x], name="alpha_dropout")
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None):
+    """Whole channels of a 5-D input dropped, the kept ones scaled by
+    1 / (1 - p)."""
+    if not training or p == 0.0:
+        return x
+    from ...dygraph import tracer
+
+    key = _random.next_rng_key()
+
+    def fn(arr):
+        shape = ((arr.shape[0], arr.shape[1], 1, 1, 1)
+                 if data_format == "NCDHW"
+                 else (arr.shape[0], 1, 1, 1, arr.shape[-1]))
+        keep = _keep(key, shape, arr.device, p)
+        return torch.where(keep, arr / (1.0 - p), torch.zeros(
+            (), dtype=arr.dtype, device=arr.device)).to(arr.dtype)
+
+    return tracer.trace_fn(fn, [x], name="dropout3d")
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    """TSM: of the (N * seg_num, C, H, W) frames, the first C * ratio
+    channels shift one segment back in time, the next C * ratio one
+    forward, zeros filling."""
+    from ...dygraph import tracer
+
+    def fn(a):
+        nt, c, h, w = a.shape
+        a = a.reshape(nt // seg_num, seg_num, c, h, w)
+        c1, c2 = int(c * shift_ratio), int(c * 2 * shift_ratio)
+        fwd = torch.cat([a[:, 1:, :c1], torch.zeros_like(a[:, :1, :c1])],
+                        dim=1)
+        back = torch.cat([torch.zeros_like(a[:, :1, c1:c2]),
+                          a[:, :-1, c1:c2]], dim=1)
+        out = torch.cat([fwd, back, a[:, :, c2:]], dim=2)
+        return out.reshape(nt, c, h, w)
+
+    return tracer.trace_fn(fn, [x], name="temporal_shift")
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """The (N, H, W, 2) sampling grid of 2 x 3 affine ``theta`` (N, 2,
+    3) over [-1, 1] coordinates."""
+    from ...dygraph import tracer
+
+    oh, ow = int(out_shape[2]), int(out_shape[3])
+
+    def fn(th):
+        dev = th.device
+        if align_corners:
+            ys = torch.linspace(-1.0, 1.0, oh, device=dev)
+            xs = torch.linspace(-1.0, 1.0, ow, device=dev)
+        else:
+            ys = (torch.arange(oh, device=dev) * 2 + 1) / oh - 1.0
+            xs = (torch.arange(ow, device=dev) * 2 + 1) / ow - 1.0
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+        return torch.einsum("hwk,bjk->bhwj", base,
+                            th.to(torch.float32)).to(th.dtype)
+
+    return tracer.trace_fn(fn, [theta], name="affine_grid")
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    """NCHW ``x`` sampled at ``grid`` (N, Hg, Wg, 2) in [-1, 1]
+    coordinates, bilinear or nearest (round half to even), as the
+    reference computes it: each corner's index clipped into the image, and
+    with ``padding_mode="zeros"`` a corner outside it read as 0 (any other
+    mode keeps the clipped pixel)."""
+    from ...dygraph import tracer
+
+    def fn(a, g):
+        n, c, h, w = a.shape
+        gx, gy = g[..., 0], g[..., 1]
+        if align_corners:
+            fx = (gx + 1.0) * (w - 1) / 2.0
+            fy = (gy + 1.0) * (h - 1) / 2.0
+        else:
+            fx = ((gx + 1.0) * w - 1.0) / 2.0
+            fy = ((gy + 1.0) * h - 1.0) / 2.0
+        rows = torch.arange(n, device=a.device)[:, None, None]
+        chw = a.permute(0, 2, 3, 1)
+
+        def gather(yy, xx):
+            out = chw[rows, yy.clamp(0, h - 1), xx.clamp(0, w - 1)]
+            if padding_mode == "zeros":
+                inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+                out = torch.where(inside[..., None], out,
+                                  torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
+            return out
+
+        if mode == "nearest":
+            out = gather(torch.round(fy).long(), torch.round(fx).long())
+            return out.permute(0, 3, 1, 2).to(a.dtype)
+        x0, y0 = torch.floor(fx).long(), torch.floor(fy).long()
+        wx, wy = fx - x0, fy - y0
+        out = (gather(y0, x0) * ((1 - wy) * (1 - wx))[..., None]
+               + gather(y0, x0 + 1) * ((1 - wy) * wx)[..., None]
+               + gather(y0 + 1, x0) * (wy * (1 - wx))[..., None]
+               + gather(y0 + 1, x0 + 1) * (wy * wx)[..., None])
+        return out.permute(0, 3, 1, 2).to(a.dtype)
+
+    return tracer.trace_fn(fn, [x, grid], name="grid_sample")
+
+
+def gather_tree(ids, parents):
+    """Beam search's backtrack: ``ids`` and ``parents`` (T, B, K); step t
+    of the result holds the token of the beam that each final beam came
+    through."""
+    from ...dygraph import tracer
+
+    def fn(tok, par):
+        beams = torch.arange(tok.shape[-1], device=tok.device).expand(
+            tok.shape[1:])
+        outs = [None] * tok.shape[0]
+        for t in range(tok.shape[0] - 1, -1, -1):
+            outs[t] = torch.gather(tok[t], -1, beams)
+            beams = torch.gather(par[t], -1, beams)
+        return torch.stack(outs)
+
+    return tracer.trace_fn(fn, [ids, parents], name="gather_tree")
+
+
+class _LogAddExp(torch.autograd.Function):
+    """log(exp(a) + exp(b)) as max + log1p(exp(-|a - b|)), its gradient
+    exp(a - out) and exp(b - out) (the reference's): where a value at the
+    -1e30 floor absorbs the log 2, both sides get 1 (torch's logaddexp
+    gives 1 / (1 + exp(b - a)), 0.5)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.maximum(a, b) + torch.log1p(torch.exp(-torch.abs(a - b)))
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        return g * torch.exp(a - out), g * torch.exp(b - out)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean"):
+    """CTC by the reference's log-domain forward recursion over time.
+
+    ``log_probs``: (T, B, C) logits (log-softmax taken here, as warpctc's
+    softmax stage); ``labels``: (B, L) padded.  Impossible paths sit at
+    the -1e30 floor, so an infeasible alignment gives a loss near 1e30
+    (``F.ctc_loss`` gives inf), and a row's last two states are summed
+    even where they are one state (a label of length 0), as the
+    reference's are.  ``"mean"`` averages the losses over max(label
+    length, 1)."""
+    from ...dygraph import tracer
+
+    def fn(logits, lab, in_len, lab_len):
+        lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        tmax, b, _ = lp.shape
+        s = 2 * lab.shape[1] + 1
+        neg = torch.tensor(-1e30, dtype=torch.float32, device=lp.device)
+        ext = torch.full((b, s), blank, dtype=lab.dtype, device=lab.device)
+        ext[:, 1::2] = lab
+        can_skip = torch.zeros((b, s), dtype=torch.bool, device=lab.device)
+        can_skip[:, 2:] = (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])
+        alpha = neg.expand(b, s).clone()
+        alpha[:, 0] = lp[0, :, blank]
+        alpha[:, 1] = torch.gather(lp[0], 1, ext[:, 1:2])[:, 0]
+        emit_idx = ext.long()
+        for t in range(1, tmax):
+            move = torch.cat([neg.expand(b, 1), alpha[:, :-1]], dim=1)
+            skip = torch.cat([neg.expand(b, 2), alpha[:, :-2]], dim=1)
+            skip = torch.where(can_skip, skip, neg)
+            merged = _LogAddExp.apply(_LogAddExp.apply(alpha, move), skip)
+            new = merged + torch.gather(lp[t], 1, emit_idx)
+            alpha = torch.where((t < in_len)[:, None], new, alpha)
+        last = (2 * lab_len).long()
+        a_last = torch.gather(alpha, 1, last[:, None])[:, 0]
+        a_prev = torch.gather(alpha, 1, torch.clamp_min(last - 1, 0)[:, None])
+        loss = -_LogAddExp.apply(a_last, a_prev[:, 0])
+        if reduction == "mean":
+            return torch.mean(loss / torch.clamp_min(lab_len, 1).to(
+                loss.dtype))
+        if reduction == "sum":
+            return torch.sum(loss)
+        return loss
+
+    return tracer.trace_fn(fn, [log_probs, labels, input_lengths,
+                                label_lengths], name="ctc_loss")
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Hierarchical sigmoid over the default complete binary tree: class
+    ``label`` is code ``label + num_classes``; at depth d its node is
+    ``(code >> (len - d)) - 1`` and its bit ``(code >> (len - d - 1)) &
+    1``; the loss is the sum of the path's logistic losses, (B, 1)."""
+    if path_table is not None or path_code is not None:
+        raise NotImplementedError(
+            "custom-tree hsigmoid (path_table / path_code) is not wired; "
+            "the default complete binary tree is")
+    from ...dygraph import tracer
+
+    max_len = int(np.ceil(np.log2(max(num_classes, 2))))
+
+    def fn(x, lab, w, *rest):
+        code = (lab.reshape(-1) + num_classes).to(torch.int32)
+        length = torch.floor(torch.log2(code.to(torch.float32))).to(
+            torch.int32) + 1
+        losses = torch.zeros((x.shape[0],), dtype=torch.float32,
+                             device=x.device)
+        zero = torch.zeros((), dtype=torch.int32, device=x.device)
+        for d in range(max_len):
+            valid = d < (length - 1)
+            node = torch.where(valid, (code >> torch.clamp_min(
+                length - 1 - d, 0)) - 1, zero).long()
+            bit = torch.where(valid, (code >> torch.clamp_min(
+                length - 2 - d, 0)) & 1, zero).to(x.dtype)
+            logit = torch.einsum("bi,bi->b", x, w[node])
+            if rest:
+                logit = logit + rest[0][node]
+            loss = (torch.clamp_min(logit, 0) - logit * bit
+                    + torch.log1p(torch.exp(-torch.abs(logit))))
+            losses = losses + torch.where(valid, loss, torch.zeros(
+                (), dtype=loss.dtype, device=x.device))
+        return losses[:, None]
+
+    ins = [input, label, weight] + ([bias] if bias is not None else [])
+    return tracer.trace_fn(fn, ins, name="hsigmoid_loss")
+
+
+def ring_attention(query, key, value, axis="mp", is_causal=False, name=None,
+                   layout="bnsd"):
+    """Attention with the sequence split over the installed mesh's
+    ``axis`` (:func:`paddle_tpu_torch.kernels.ring.ring_attention`): the
+    K/V blocks travel the ring; inputs and output are the global (B, H,
+    S, D) tensors, or (S, B, H, D) with ``layout="sbnd"``.  Without a mesh
+    axis of more than one rank it is the one-device attention."""
+    from ...dygraph import tracer
+    from ...kernels.ring import ring_attention as _ring
+
+    def fn(q, k, v):
+        return _ring(q, k, v, axis=axis, causal=is_causal, layout=layout)
+
+    return tracer.trace_fn(fn, [query, key, value], name="ring_attention")
 
 
 def relu_(x, name=None):

@@ -1,10 +1,10 @@
-"""The layers ported so far (counterpart of ``paddle_tpu/nn/layer``):
-common, conv, pooling, norm, activation, loss and transformer.  ``rnn``
-and ``extras`` wait for later slices (ROADMAP A.7)."""
+"""The layers (counterpart of ``paddle_tpu/nn/layer``): common, conv,
+pooling, norm, activation, loss, transformer, rnn and extras."""
 
 from .common import (  # noqa: F401
     Bilinear, CosineSimilarity, Dropout, Dropout2D, Embedding, Flatten,
-    Identity, Linear, Pad2D,
+    Identity, Linear, Pad2D, Upsample, UpsamplingBilinear2D,
+    UpsamplingNearest2D,
 )
 from .conv import Conv1D, Conv2D, Conv2DTranspose  # noqa: F401
 from .pooling import (  # noqa: F401
@@ -29,4 +29,16 @@ from .loss import (  # noqa: F401
 from .transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
+)
+from .rnn import (  # noqa: F401
+    RNNCellBase, SimpleRNNCell, LSTMCell, GRUCell, RNN, BiRNN,
+    SimpleRNN, LSTM, GRU,
+)
+from .extras import (  # noqa: F401
+    Silu, AlphaDropout, Dropout3D, Pad1D, Pad3D, PairwiseDistance,
+    PixelShuffle, Unfold, SpectralNorm, LayerDict, MaxPool1D, AvgPool1D,
+    MaxPool3D, AvgPool3D, AdaptiveAvgPool1D, AdaptiveAvgPool3D,
+    AdaptiveMaxPool1D, AdaptiveMaxPool3D, Conv3D, Conv3DTranspose,
+    Conv1DTranspose, CTCLoss, HSigmoidLoss, BeamSearchDecoder,
+    dynamic_decode,
 )

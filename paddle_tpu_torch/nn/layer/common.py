@@ -1,11 +1,11 @@
-"""Common layers: Linear, Embedding, Dropout, Flatten, padding, Identity,
-Bilinear, CosineSimilarity.
+"""Common layers: Linear, Embedding, Dropout, Flatten, padding, the
+upsampling layers, Identity, Bilinear, CosineSimilarity.
 
 Counterpart of ``paddle_tpu/nn/layer/common.py``.  ``Linear`` keeps
 paddle's ``[in_features, out_features]`` weight (``y = x @ W + b``), so
 state dicts carry over unchanged.  The upsampling layers (``Upsample``,
 ``UpsamplingBilinear2D``, ``UpsamplingNearest2D``) run the interpolation
-ops, which wait for ROADMAP A.7.
+ops through ``F.interpolate``.
 """
 
 from __future__ import annotations
@@ -110,6 +110,33 @@ class Pad2D(Layer):
 
     def forward(self, x):
         return F.pad(x, list(self.padding), mode=self.mode, value=self.value)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False)
 
 
 class Identity(Layer):

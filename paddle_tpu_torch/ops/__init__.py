@@ -1,16 +1,17 @@
 """The port's op library (counterpart of ``paddle_tpu/ops``): importing
-it registers the math, activation, tensor, nn, optimizer and quant ops
-(:mod:`.registry`), which :func:`.dispatch.dispatch` runs eagerly; plus
+it registers the math, activation, tensor, nn, sequence, optimizer and
+quant ops (:mod:`.registry`), which :func:`.dispatch.dispatch` runs eagerly; plus
 the numerics the GPT layers call directly (the quantization decisions of
 :mod:`.quant_ops`, :func:`.nn_ops.dropout`); :func:`.dispatch.dispatch`
-appends them to a Program in static mode.  The sequence and collective
-op modules of the reference wait for later slices (ROADMAP A)."""
+appends them to a Program in static mode.  The collective op module of
+the reference waits for a later slice (ROADMAP A.10)."""
 
 from . import registry  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import activation_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import quant_ops  # noqa: F401
 from .dispatch import dispatch, dispatch_dygraph, dispatch_static, single  # noqa: F401

@@ -1,10 +1,8 @@
-"""Neural-net ops: the 2-D vision ops, norms, dropout, the fused losses and
-attention.
+"""Neural-net ops: the 2-D and 3-D vision ops, the interpolations, norms,
+dropout, the fused losses and attention.
 
-Counterpart of ``paddle_tpu/ops/nn_ops.py`` less its 3-D vision ops
-(``conv3d``, ``conv3d_transpose``, ``pool3d``) and the interpolation ops,
-which wait for ROADMAP A.7, and of the reference's registered
-``scaled_dot_product_attention``
+Counterpart of ``paddle_tpu/ops/nn_ops.py``, op for op, and of the
+reference's registered ``scaled_dot_product_attention``
 (``paddle_tpu/kernels/attention.py:111-125``), whose kernel here is
 :func:`paddle_tpu_torch.kernels.attention.sdpa`: on the card it launches
 the flash kernels, forward and backward, or raises.
@@ -32,6 +30,13 @@ and ``lax.reduce_window``, outside any Pallas kernel, so here
   divisors and ceil rule differ;
 * ``max_pool2d_with_index``'s Mask is the flat ``h * W + w`` index of the
   first maximum of each window.
+
+The 3-D ops (``conv3d``, ``conv3d_transpose``, ``pool3d``, NCDHW) follow
+the same rules over three spatial dims, fp32 convs included; ``pool3d``
+reads no ``ceil_mode``, as the reference's does not.  The interpolations
+(``nearest_interp_v2``, ``bilinear_interp_v2``) resize with the
+reference's ``jax.image.resize`` formula: half-pixel centres, the
+bilinear kernel antialiased where it shrinks.
 
 :func:`dropout` is the GPT's dropout, the reference's ``dropout`` kernel
 decision for decision:
@@ -281,6 +286,147 @@ def max_pool2d_with_index_kernel(ins, attrs):
     gh = (oy * strides[0] - sp_pad[0][0] + k_loc // ksize[1]).clamp(0, h - 1)
     gw = (ox * strides[1] - sp_pad[1][0] + k_loc % ksize[1]).clamp(0, w - 1)
     return {"Out": out, "Mask": (gh * w + gw).to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# the 3-D vision ops (NCDHW)
+# ---------------------------------------------------------------------------
+
+
+def _triples(p):
+    """A paddle 3-D padding list (3 or 6 elements) as (lo, hi) pairs."""
+    p = list(p)
+    if len(p) == 3:
+        return [(v, v) for v in p]
+    if len(p) == 6:
+        return [(p[0], p[1]), (p[2], p[3]), (p[4], p[5])]
+    raise ValueError(f"bad 3-D paddings {p}")
+
+
+def _pad_dhw(x, pads, value=0.0):
+    """``x`` (N, C, D, H, W) padded by ``pads`` ((lo, hi) for D, H, W); a
+    negative pad crops."""
+    (d0, d1), (h0, h1), (w0, w1) = pads
+    return F.pad(x, (w0, w1, h0, h1, d0, d1), value=value)
+
+
+@register_op("conv3d")
+def conv3d_kernel(ins, attrs):
+    """``F.conv3d`` (NCDHW, filter OIDHW), explicit padding where it is
+    asymmetric."""
+    x, w = ins["Input"], ins["Filter"]
+    pads = _triples(attrs.get("paddings", [0, 0, 0]))
+    if all(lo == hi for lo, hi in pads):
+        xv, pad = x, tuple(lo for lo, _ in pads)
+    else:
+        xv, pad = _pad_dhw(x, pads), 0
+    _conv_precision(x)
+    out = F.conv3d(xv, w, None, tuple(attrs.get("strides", [1, 1, 1])), pad,
+                   tuple(attrs.get("dilations", [1, 1, 1])),
+                   attrs.get("groups", 1))
+    return {"Output": out}
+
+
+@register_op("conv3d_transpose")
+def conv3d_transpose_kernel(ins, attrs):
+    """The adjoint of conv3d (the Filter is (in, out / groups, kd, kh,
+    kw)): the whole transposed conv, then the pads cropped and
+    ``output_padding`` added on the high side."""
+    x, w = ins["Input"], ins["Filter"]
+    pads = _triples(attrs.get("paddings", [0, 0, 0]))
+    out_pad = attrs.get("output_padding", [0, 0, 0]) or [0, 0, 0]
+    if isinstance(out_pad, int):
+        out_pad = [out_pad] * 3
+    _conv_precision(x)
+    full = F.conv_transpose3d(x, w, None,
+                              tuple(attrs.get("strides", [1, 1, 1])), 0, 0,
+                              attrs.get("groups", 1),
+                              tuple(attrs.get("dilations", [1, 1, 1])))
+    return {"Output": _pad_dhw(full, [(-lo, op - hi) for (lo, hi), op
+                                      in zip(pads, out_pad)])}
+
+
+@register_op("pool3d")
+def pool3d_kernel(ins, attrs):
+    """Max or average pooling over D, H, W: global, adaptive (sizes that
+    divide) or windowed with the reference's padding (max pads with the
+    lowest value; average divides by the count of real elements in the
+    window, or by kd * kh * kw when ``exclusive`` is False).  As the
+    reference's op, it reads no ``ceil_mode``."""
+    x = ins["X"]
+    ptype = attrs.get("pooling_type", "max")
+    ksize = list(attrs.get("ksize", [1, 1, 1]))
+    strides = tuple(attrs.get("strides", ksize))
+    red = torch.amax if ptype == "max" else torch.mean
+    if attrs.get("global_pooling", False) or (
+            attrs.get("adaptive", False) and tuple(ksize) == (1, 1, 1)):
+        return {"Out": red(x, dim=(2, 3, 4), keepdim=True)}
+    if attrs.get("adaptive", False):
+        od, oh, ow = ksize
+        d, h, w = x.shape[2:]
+        if d % od or h % oh or w % ow:
+            raise AssertionError("adaptive pool3d requires divisible sizes")
+        x8 = x.reshape(x.shape[0], x.shape[1], od, d // od, oh, h // oh,
+                       ow, w // ow)
+        return {"Out": red(x8, dim=(3, 5, 7))}
+    pads = _triples(attrs.get("paddings", [0, 0, 0]))
+    padded = any(p != (0, 0) for p in pads)
+    if ptype == "max":
+        if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads,
+                                                               ksize)):
+            return {"Out": F.max_pool3d(x, ksize, strides,
+                                        tuple(lo for lo, _ in pads))}
+        return {"Out": F.max_pool3d(_pad_dhw(x, pads, _lowest(x)), ksize,
+                                    strides)}
+    xp = _pad_dhw(x, pads) if padded else x
+    total = F.avg_pool3d(xp, ksize, strides, divisor_override=1)
+    if attrs.get("exclusive", True) and padded:
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        count = F.avg_pool3d(_pad_dhw(ones, pads), ksize, strides,
+                             divisor_override=1)
+        return {"Out": total / count}
+    return {"Out": total / float(np.prod(ksize))}
+
+
+# ---------------------------------------------------------------------------
+# the interpolation ops (NCHW)
+# ---------------------------------------------------------------------------
+
+
+def _interp_size(x, attrs):
+    """(out_h, out_w): ``out_h`` / ``out_w`` where given (> 0), else the
+    input's size times ``scale``, truncated (the reference's rule)."""
+    oh, ow = attrs.get("out_h", -1), attrs.get("out_w", -1)
+    scale = attrs.get("scale", [])
+    if oh <= 0 and scale:
+        oh = int(x.shape[2] * scale[0])
+        ow = int(x.shape[3] * (scale[1] if len(scale) > 1 else scale[0]))
+    return int(oh), int(ow)
+
+
+@register_op("nearest_interp_v2")
+def nearest_interp_kernel(ins, attrs):
+    """Nearest resize of the spatial dims 2 and 3 with the reference's
+    half-pixel rule (``jax.image.resize``'s "nearest"): output pixel i
+    reads input pixel floor((i + 0.5) * in / out), which is torch's
+    ``nearest-exact``.  The reference's op reads no ``align_corners``,
+    ``align_mode`` or ``data_format``, and neither does this one."""
+    x = ins["X"]
+    return {"Out": F.interpolate(x, size=_interp_size(x, attrs),
+                                 mode="nearest-exact")}
+
+
+@register_op("bilinear_interp_v2")
+def bilinear_interp_kernel(ins, attrs):
+    """Bilinear resize of dims 2 and 3 as ``jax.image.resize``'s
+    "bilinear": half-pixel centres, a triangle kernel widened by the
+    factor where it shrinks (antialiased) and renormalised at the edges,
+    which is torch's bilinear with ``antialias=True``."""
+    x = ins["X"]
+    return {"Out": F.interpolate(x, size=_interp_size(x, attrs),
+                                 mode="bilinear", align_corners=False,
+                                 antialias=True)}
 
 
 # ---------------------------------------------------------------------------

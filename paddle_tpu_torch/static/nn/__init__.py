@@ -8,10 +8,10 @@ kept on the main program).  ``py_func`` runs a host Python function as an
 op (the executor runs ops one by one, so a callback costs one device to
 host copy of its inputs).
 
-Builders whose layers or ops the port has yet to gain raise
-NotImplementedError naming the ROADMAP item: ``conv3d``,
-``conv3d_transpose`` and ``spectral_norm`` (A.7), the ``sequence_*``
-family (A.7, ``ops/sequence_ops.py``), ``multi_box_head`` and
+The ``sequence_*`` builders append the sequence ops
+(:mod:`paddle_tpu_torch.ops.sequence_ops`) over a padded batch and its
+lengths.  Builders whose layers or ops the port has yet to gain raise
+NotImplementedError naming the ROADMAP item: ``multi_box_head`` and
 ``deform_conv2d`` (A.12, ``vision/ops.py``).
 """
 
@@ -138,14 +138,30 @@ def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
 def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
            groups=1, param_attr=None, bias_attr=None, act=None, name=None,
            data_format="NCDHW"):
-    _waits("conv3d", "A.7", "nn.Conv3D (the 3-D vision ops)")
+    from ... import nn as _nn
+
+    in_ch = input.shape[1] if data_format == "NCDHW" else input.shape[-1]
+    layer = _reuse("conv3d", name, lambda: _nn.Conv3D(
+        int(in_ch), num_filters, filter_size, stride=stride, padding=padding,
+        dilation=dilation, groups=groups, weight_attr=param_attr,
+        bias_attr=bias_attr))
+    return _act(layer(input), act)
 
 
 def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
                      stride=1, padding=0, dilation=1, groups=1,
                      param_attr=None, bias_attr=None, act=None, name=None,
                      data_format="NCDHW"):
-    _waits("conv3d_transpose", "A.7", "nn.Conv3DTranspose (the 3-D vision ops)")
+    from ... import nn as _nn
+
+    if filter_size is None:
+        raise ValueError("conv3d_transpose requires filter_size")
+    in_ch = input.shape[1] if data_format == "NCDHW" else input.shape[-1]
+    layer = _reuse("conv3d_transpose", name, lambda: _nn.Conv3DTranspose(
+        int(in_ch), num_filters, filter_size, stride=stride, padding=padding,
+        dilation=dilation, groups=groups, weight_attr=param_attr,
+        bias_attr=bias_attr))
+    return _act(layer(input), act)
 
 
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
@@ -266,7 +282,12 @@ def _const_init(v):
 
 
 def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
-    _waits("spectral_norm", "A.7", "nn.SpectralNorm (nn/layer/extras.py)")
+    from ... import nn as _nn
+
+    layer = _reuse("spectral_norm", name, lambda: _nn.SpectralNorm(
+        [int(v) for v in weight.shape], dim=dim, power_iters=power_iters,
+        eps=eps))
+    return layer(weight)
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
@@ -553,67 +574,134 @@ def switch_case(branch_index, branch_fns, default=None, name=None):
 
 
 # ---------------------------------------------------------------------------
-# the sequence family waits for ops/sequence_ops.py (ROADMAP A.7)
+# the sequence family (ops/sequence_ops.py: a padded batch and its lengths)
 # ---------------------------------------------------------------------------
 
+
+def _seq(op_type, ins, attrs=None, n_out=1):
+    """The op's Out, or (Out, Length) for ``n_out=2``."""
+    from ...ops.dispatch import dispatch
+
+    out = dispatch(op_type, ins, attrs or {})
+
+    def first(v):
+        return v[0] if isinstance(v, list) else v
+
+    if n_out == 1:
+        return first(out["Out"])
+    return first(out["Out"]), first(out["Length"])
+
+
+def _with_length(ins, length):
+    if length is not None:
+        ins["Length"] = [length]
+    return ins
+
+
 def sequence_pad(x, pad_value=0.0, maxlen=None, length=None, name=None):
-    _waits("sequence_pad", "A.7", "the sequence ops")
+    """``(out, length)``: ``pad_value`` past each row's length."""
+    return _seq("sequence_pad", _with_length({"X": [x]}, length),
+                {"pad_value": float(pad_value), "maxlen": maxlen or 0},
+                n_out=2)
 
 
 def sequence_unpad(x, length, name=None):
-    _waits("sequence_unpad", "A.7", "the sequence ops")
+    return _seq("sequence_unpad", {"X": [x], "Length": [length]})
 
 
 def sequence_softmax(input, length=None, use_cudnn=False, name=None):
-    _waits("sequence_softmax", "A.7", "the sequence ops")
+    return _seq("sequence_softmax", _with_length({"X": [input]}, length))
 
 
 def sequence_pool(input, pool_type, length=None, is_test=False,
                   pad_value=0.0):
-    _waits("sequence_pool", "A.7", "the sequence ops")
+    return _seq("sequence_pool", _with_length({"X": [input]}, length),
+                {"pooltype": str(pool_type).upper()})
 
 
 def sequence_first_step(input, length=None):
-    _waits("sequence_first_step", "A.7", "the sequence ops")
+    return sequence_pool(input, "first", length=length)
 
 
 def sequence_last_step(input, length=None):
-    _waits("sequence_last_step", "A.7", "the sequence ops")
+    return sequence_pool(input, "last", length=length)
 
 
 def sequence_reverse(x, length=None, name=None):
-    _waits("sequence_reverse", "A.7", "the sequence ops")
+    return _seq("sequence_reverse", _with_length({"X": [x]}, length))
 
 
 def sequence_slice(input, offset, length, name=None):
-    _waits("sequence_slice", "A.7", "the sequence ops")
+    return _seq("sequence_slice",
+                {"X": [input], "Offset": [offset], "SliceLength": [length]},
+                n_out=2)[0]
 
 
 def sequence_reshape(input, new_dim, length=None):
-    _waits("sequence_reshape", "A.7", "the sequence ops")
+    return _seq("sequence_reshape", _with_length({"X": [input]}, length),
+                {"new_dim": int(new_dim)})
 
 
 def sequence_concat(input, lengths=None, name=None):
-    _waits("sequence_concat", "A.7", "the sequence ops")
+    ins = {"X": list(input)}
+    if lengths is not None:
+        ins["Length"] = list(lengths)
+    return _seq("sequence_concat", ins, n_out=2)[0]
 
 
 def sequence_expand(x, y_length, maxlen=None, ref_level=-1, name=None):
-    _waits("sequence_expand", "A.7", "the sequence ops")
+    """Each row of ``x`` over the first ``y_length[i]`` steps of a new
+    time axis (the dense form of repeating it)."""
+    return sequence_expand_as(x, y_length, maxlen=maxlen, name=name)
 
 
 def sequence_expand_as(x, y_length, maxlen=None, name=None):
-    _waits("sequence_expand_as", "A.7", "the sequence ops")
+    if maxlen is None:
+        raise ValueError(
+            "sequence_expand_as needs an explicit maxlen (the time axis's "
+            "static size)")
+    return _seq("sequence_expand_as", {"X": [x], "Length": [y_length]},
+                {"maxlen": int(maxlen)}, n_out=2)[0]
 
 
 def sequence_enumerate(input, win_size, pad_value=0, length=None, name=None):
-    _waits("sequence_enumerate", "A.7", "the sequence ops")
+    return _seq("sequence_enumerate", _with_length({"X": [input]}, length),
+                {"win_size": int(win_size), "pad_value": pad_value})
 
 
 def sequence_scatter(input, index, updates, length=None, name=None):
-    _waits("sequence_scatter", "A.7", "the sequence ops")
+    return _seq("sequence_scatter", _with_length(
+        {"X": [input], "Ids": [index], "Updates": [updates]}, length))
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
                   padding=True, padding_start=None, bias_attr=None,
                   param_attr=None, act=None, name=None, length=None):
-    _waits("sequence_conv", "A.7", "the sequence ops")
+    """The context-window convolution: a Filter [filter_size * D,
+    num_filters] (and a bias), the window starting ``padding_start`` steps
+    back (default -(filter_size - 1) // 2)."""
+    from .. import create_parameter as _cp
+    from ...framework import unique_name
+
+    d = int(input.shape[-1])
+    pname = (getattr(param_attr, "name", None)
+             or (name and f"{name}.w") or unique_name.generate("seq_conv_w"))
+    w = _cp([int(filter_size) * d, num_filters], dtype=str(input.dtype),
+            name=pname)
+    start = (padding_start if padding_start is not None
+             else -((int(filter_size) - 1) // 2))
+    out = _seq("sequence_conv",
+               _with_length({"X": [input], "Filter": [w]}, length),
+               {"contextLength": int(filter_size), "contextStart": int(start),
+                "contextStride": int(filter_stride)})
+    if bias_attr is not False:
+        bname = (getattr(bias_attr, "name", None)
+                 or (name and f"{name}.b")
+                 or unique_name.generate("seq_conv_b"))
+        b = _cp([num_filters], dtype=str(input.dtype), name=bname,
+                is_bias=True)
+        out = out + b
+        if length is not None:
+            # the pad must stay 0 after the bias add
+            out = sequence_unpad(out, length)
+    return _act(out, act)

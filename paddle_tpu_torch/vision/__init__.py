@@ -1,8 +1,8 @@
 """``paddle.vision``: the datasets and the models ported so far.
 
 Counterpart of ``paddle_tpu/vision/__init__.py``.  ``transforms``,
-``ops``, ``image`` and the folder / extra datasets wait for ROADMAP A.12;
-``vit`` for A.7.
+``ops``, ``image`` and the folder / extra datasets wait for ROADMAP
+A.12.
 """
 
 from . import datasets  # noqa: F401

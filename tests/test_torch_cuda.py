@@ -1166,3 +1166,152 @@ def test_int8_predictor_on_card_matches_cpu(dev, tmp_path):
         assert pred._n_int8 == 2
         assert KERNELS["w8a8_gemm_prequant"] == (2 if device == "gpu" else 0)
     np.testing.assert_array_equal(outs["gpu"], outs["cpu"])
+
+
+def _cpu_and_card(build):
+    """``build()`` made on the CPU (seed 0), and a copy of it on the card
+    with the same weights."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    nets = {}
+    for device in ("cpu", "gpu"):
+        tp.set_device(device)
+        tp.seed(0)
+        nets[device] = build()
+    load_paddle_state_dict(nets["gpu"], {
+        k: v.numpy() for k, v in nets["cpu"].state_dict().items()})
+    return nets
+
+
+def _worst(got, want):
+    import numpy as np
+
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_lstm_step_on_card_matches_cpu(dev):
+    """One step of a 2-layer LSTM language model (forward, backward, SGD
+    with a global-norm clip) on the card against the CPU: the loss and
+    every updated parameter within 1e-4 of its largest value (TF32 off,
+    phase 15 (b)'s tolerance)."""
+    import numpy as np
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn
+
+    class LM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(100, 32)
+            self.lstm = nn.LSTM(32, 32, 2)
+            self.head = nn.Linear(32, 100)
+
+        def forward(self, ids):
+            out, _ = self.lstm(self.embedding(ids))
+            return self.head(out)
+
+    nets = _cpu_and_card(LM)
+    ids = np.random.RandomState(0).randint(0, 100, (4, 9))
+    got = {}
+    for device, net in nets.items():
+        tp.set_device(device)
+        opt = tp.optimizer.SGD(1.0, parameters=net.parameters(),
+                               grad_clip=nn.ClipGradByGlobalNorm(5.0))
+        logits = net(tp.to_tensor(ids[:, :-1]))
+        loss = nn.functional.cross_entropy(
+            tp.reshape(logits, [-1, 100]),
+            tp.reshape(tp.to_tensor(ids[:, 1:]), [-1, 1]))
+        loss.backward()
+        opt.step()
+        got[device] = {"loss": loss.numpy(), **{
+            k: v.numpy() for k, v in net.state_dict().items()}}
+    for k, want in got["cpu"].items():
+        assert _worst(got["gpu"][k], want) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_conv3d_forward_and_backward_on_card_match_cpu(dev):
+    """A Conv3D + MaxPool3D block, forward and backward, on the card (cuDNN,
+    TF32 off) against the CPU within 1e-4 of each tensor's largest."""
+    import numpy as np
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn
+
+    nets = _cpu_and_card(lambda: nn.Sequential(
+        nn.Conv3D(3, 8, 3, padding=1), nn.ReLU(), nn.MaxPool3D((1, 2, 2)),
+        nn.Conv3D(8, 4, [3, 1, 2], stride=[1, 2, 1], padding=[1, 0, 1])))
+    x = np.random.RandomState(1).randn(2, 3, 4, 8, 8).astype("float32")
+    got = {}
+    for device, net in nets.items():
+        tp.set_device(device)
+        xt = tp.to_tensor(x, stop_gradient=False)
+        out = net(xt)
+        tp.sum(out * out).backward()
+        got[device] = {"out": out.numpy(), "x": xt.grad.numpy(), **{
+            n: p.grad.numpy() for n, p in net.named_parameters()}}
+    for k, want in got["cpu"].items():
+        assert _worst(got["gpu"][k], want) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_beam_search_step_on_card_matches_cpu(dev):
+    """One step of beam search (beam 3) through a 2-layer
+    ``nn.TransformerDecoder`` over its caches: on the card the encoder
+    launches 2 ``flash_fwd`` and the step 4 (2 against the growing
+    ``Cache``, 2 against the ``StaticCache`` with the pad bias); ids equal
+    and scores within 1e-5 of the CPU's."""
+    import numpy as np
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(50, 64)
+            self.transformer = nn.Transformer(64, 4, 2, 2, 64, dropout=0.0)
+
+        def logits(self, h):
+            return tp.matmul(h, self.embedding.weight, transpose_y=True)
+
+    nets = _cpu_and_card(Seq2Seq)
+    src = np.random.RandomState(2).randint(3, 50, (2, 7))
+    bias = np.zeros((2, 1, 1, 7), "float32")
+    bias[1, ..., 4:] = -1e9
+    mha = nn.MultiHeadAttention
+    got = {}
+    for device, model in nets.items():
+        tp.set_device(device)
+        model.eval()
+        reset_launch_counts()
+        with tp.no_grad():
+            m = tp.to_tensor(bias)
+            memory = model.transformer.encoder(
+                model.embedding(tp.to_tensor(src)), m)
+            caches = model.transformer.decoder.gen_cache(memory)
+            states = [memory, m] + [t for inc, st in caches
+                                    for t in (inc.k, inc.v, st.k, st.v)]
+
+            def cell(ids, states):
+                cache = [(mha.Cache(*states[2 + 4 * i:4 + 4 * i]),
+                          mha.StaticCache(*states[4 + 4 * i:6 + 4 * i]))
+                         for i in range(2)]
+                h, new = model.transformer.decoder(
+                    model.embedding(ids), states[0], None, states[1], cache)
+                return tp.squeeze(h, [1]), states[:2] + [
+                    t for inc, st in new for t in (inc.k, inc.v, st.k, st.v)]
+
+            dec = nn.BeamSearchDecoder(
+                cell, 1, 2, 3, embedding_fn=lambda t: tp.unsqueeze(t, [-1]),
+                output_fn=model.logits)
+            ids, scores = nn.dynamic_decode(dec, inits=states,
+                                            max_step_num=1)
+        got[device] = ids.numpy(), scores.numpy(), KERNELS["flash_fwd"]
+    assert got["gpu"][2] == 2 + 4 and got["cpu"][2] == 0
+    np.testing.assert_array_equal(got["gpu"][0], got["cpu"][0])
+    np.testing.assert_allclose(got["gpu"][1], got["cpu"][1], rtol=1e-5,
+                               atol=1e-5)

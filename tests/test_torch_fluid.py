@@ -8,8 +8,10 @@ from the reference script's initial weights (carried with
 and its CLI.  The namespace's public names module by module; a program
 of fluid.layers / fluid.nets builders (``nets.scaled_dot_product_attention``
 records the attention op) and the ``fluid.dygraph`` layers on the same
-weights; fluid's save / load forms; the names that wait for a later
-slice raise naming their ROADMAP item.
+weights; fluid's save / load forms; ``lstm``, ``image_resize``,
+``pool3d``, ``conv3d`` and ``sequence_pool`` in static programs run by
+both Executors; the names that wait for a later slice raise naming their
+ROADMAP item.
 """
 
 import importlib
@@ -277,16 +279,56 @@ def test_fluid_save_load_forms(tmp_path):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda L: L.lstm(None, None, None, 1, 4, 1), "A.7"),
-    (lambda L: L.image_resize(None), "A.7"),
-    (lambda L: L.pool3d(None), "A.7"),
     (lambda L: L.prior_box(None), "A.12"),
     (lambda L: L.Normal(0.0, 1.0), "A.12"),
-    (lambda L: L.conv3d(None, 4, 3), "A.7"),
-    (lambda L: L.sequence_pool(None, "sum"), "A.7"),
 ])
 def test_fluid_names_that_wait_raise(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call(tfluid.layers)
     with pytest.raises(NotImplementedError, match="instead"):
         tfluid.layers.dynamic_lstm()
+
+
+def _data(name, shape, dtype="float32"):
+    return name, shape, dtype
+
+
+# fluid.layers calls that the 3-D, interpolation, sequence and RNN ops
+# back: (the program's data, the call)
+FLUID_CALLS = {
+    "lstm": ([_data("x", [2, 4, 5]), _data("h0", [1, 2, 6]),
+              _data("c0", [1, 2, 6])],
+             lambda L, x, h0, c0: list(L.lstm(x, h0, c0, 4, 6, 1))),
+    "image_resize": ([_data("x", [2, 3, 4, 5])],
+                     lambda L, x: L.image_resize(x, out_shape=[6, 8])),
+    "pool3d": ([_data("x", [2, 3, 4, 4, 4])],
+               lambda L, x: L.pool3d(x, pool_size=2, pool_type="avg",
+                                     pool_stride=2)),
+    "conv3d": ([_data("x", [2, 3, 4, 5, 4])],
+               lambda L, x: L.conv3d(x, 4, 3, padding=1, act="relu")),
+    "sequence_pool": ([_data("x", [3, 5, 2]), _data("len", [3], "int64")],
+                      lambda L, x, ln: L.sequence_pool(x, "sum",
+                                                       length=ln)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLUID_CALLS))
+def test_fluid_layer_matches_reference(name):
+    """The call in a static program, run by both Executors from the
+    reference's startup values."""
+    data, call = FLUID_CALLS[name]
+
+    def program(P, st):
+        L = importlib.import_module(P.__name__ + ".fluid").layers
+        ins = [L.data(n, shape=s, dtype=d, append_batch_size=False)
+               for n, s, d in data]
+        out = call(L, *ins)
+        return out if isinstance(out, list) else [out]
+
+    r = np.random.RandomState(0)
+    feed = {n: (np.array([5, 0, 3], d) if d == "int64"
+                else r.randn(*s).astype(d)) for n, s, d in data}
+    got_j, got_t = run_both(program, lambda i: feed, lambda o: o)
+    for k, (a, b) in enumerate(zip(got_t[0], got_j[0])):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"output {k}")

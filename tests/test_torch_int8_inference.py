@@ -548,8 +548,12 @@ def test_bert_int8_rewrite_takes_four_matmuls_a_layer_and_the_pooler(
     and the outputs as the reference's."""
     import torch_static_parity as sp
     from importlib import import_module
+    from paddle_tpu.jit import dy2static as jdy2static
 
     sp.give_reference_variable_indexing(monkeypatch)
+    # as tests/test_torch_jit.py's bert_models: the reference's dy2static
+    # cache would hand another file's BertModel to this conversion
+    monkeypatch.setattr(jdy2static, "_CONVERT_CACHE", {})
 
     def bert(P):
         mod = import_module(P.__name__ + ".models.bert")

@@ -1,17 +1,18 @@
 """The port's registered ops against the reference's, on the CPU.
 
 One parametrised case per op registered in the ported op modules
-(``ops/{math,activation,tensor,optimizer,nn}_ops.py`` and the
+(``ops/{math,activation,tensor,optimizer,nn,sequence}_ops.py`` and the
 registered ``scaled_dot_product_attention``): the same seeded numpy
 inputs go through the reference's ``registry.run_kernel`` and the
 port's.  One case per differentiable op: its input gradients for seeded
 output gradients, the port's (torch autograd over the kernel, or the
 op's hand-written grad op) against the reference's ``<type>_grad``
 kernel (``jax.vjp`` of the forward, or the hand-written one).  One test
-that the port's registry holds every reference op of those modules but
-the named deferred ones (the 3-D vision ops and the interpolations; the
-2-D vision ops are here, and ``tests/test_torch_vision_ops.py`` holds
-them over more attributes).
+that the port's registry holds every reference op of those modules (the
+vision ops are here, and ``tests/test_torch_vision_ops.py`` and
+``tests/test_torch_nn_extras.py`` hold them over more attributes;
+``tests/test_torch_sequence_ops.py`` holds the sequence ops over more
+attributes and lengths).
 
 Tolerances: integer and bool outputs exactly; floating outputs to 1e-6
 relative, elementwise and to the tensor's scale: |got - want| <= 1e-6 *
@@ -40,11 +41,9 @@ from paddle_tpu_torch.ops import registry as treg
 
 RTOL = 1e-6
 MODULES = ("math_ops", "activation_ops", "tensor_ops", "optimizer_ops",
-           "nn_ops")
-# the reference's 3-D vision ops and interpolations, which wait for
-# ROADMAP A.7
-DEFERRED = {"nearest_interp_v2", "bilinear_interp_v2", "conv3d",
-            "conv3d_transpose", "pool3d"}
+           "nn_ops", "sequence_ops")
+# reference ops of those modules that the port has yet to register
+DEFERRED = set()
 RANDOM = {"gaussian_random", "uniform_random", "truncated_gaussian_random",
           "randint", "randperm", "multinomial"}
 INJECTED = {"dropout", "bernoulli"}
@@ -90,6 +89,7 @@ def _case(op, seed=0):
         return r.rand(*s) > 0.5
 
     x = f(3, 4)
+    lens = np.array([5, 2, 3])
     unary_pos = {"sqrt", "rsqrt", "log", "log2", "log10", "log1p",
                  "reciprocal", "lgamma", "digamma"}
     unary_unit = {"tan", "asin", "acos"}
@@ -364,6 +364,52 @@ def _case(op, seed=0):
         "fused_softmax_mask": ({"X": [f(2, 3, 4)], "Mask": [f(2, 3, 4)]},
                                {}),
         "fused_softmax_mask_upper_triangle": ({"X": [f(2, 4, 4)]}, {}),
+        "conv3d": ({"Input": [f(2, 3, 5, 6, 4)],
+                    "Filter": [f(4, 3, 3, 2, 3)]},
+                   {"strides": [1, 2, 1], "paddings": [1, 0, 1, 1, 0, 2]}),
+        "conv3d_transpose": ({"Input": [f(2, 3, 3, 4, 3)],
+                              "Filter": [f(3, 2, 3, 3, 2)]},
+                             {"strides": [2, 1, 2], "paddings": [1, 1, 0],
+                              "output_padding": [1, 0, 1]}),
+        "pool3d": ({"X": [f(2, 3, 5, 6, 4)]},
+                   {"pooling_type": "avg", "ksize": [3, 3, 2],
+                    "strides": [2, 2, 2], "paddings": [1, 1, 0]}),
+        "nearest_interp_v2": ({"X": [f(2, 3, 5, 4)]},
+                              {"out_h": 8, "out_w": 3}),
+        "bilinear_interp_v2": ({"X": [f(2, 3, 5, 4)]},
+                               {"out_h": -1, "out_w": -1,
+                                "scale": [1.6, 0.75]}),
+        # sequences: a padded batch and its lengths
+        "sequence_pad": ({"X": [f(3, 5, 2)], "Length": [lens]},
+                         {"pad_value": -1.0, "maxlen": 7}),
+        "sequence_unpad": ({"X": [f(3, 5, 2)], "Length": [lens]}, {}),
+        "sequence_mask": ({"X": [np.array([3, 0, 5])]},
+                          {"maxlen": 6, "out_dtype": "int32"}),
+        "sequence_softmax": ({"X": [f(3, 5)], "Length": [lens]}, {}),
+        "sequence_pool": ({"X": [f(3, 5, 2)], "Length": [lens]},
+                          {"pooltype": "MAX"}),
+        "sequence_reverse": ({"X": [f(3, 5, 2)], "Length": [lens]}, {}),
+        "sequence_slice": ({"X": [f(3, 5, 2)],
+                            "Offset": [np.array([1, 0, 2])],
+                            "SliceLength": [np.array([3, 2, 1])]}, {}),
+        "sequence_reshape": ({"X": [f(3, 4, 6)],
+                              "Length": [np.array([4, 2, 3])]},
+                             {"new_dim": 3}),
+        "sequence_concat": ({"X": [f(2, 3, 2), f(2, 4, 2)],
+                             "Length": [np.array([3, 1]),
+                                        np.array([2, 4])]}, {}),
+        "sequence_expand_as": ({"X": [f(3, 2)],
+                                "Length": [np.array([2, 0, 3])]},
+                               {"maxlen": 4}),
+        "sequence_enumerate": ({"X": [ints(3, 5, hi=9)],
+                                "Length": [np.array([5, 3, 1])]},
+                               {"win_size": 3, "pad_value": 7}),
+        "sequence_scatter": ({"X": [f(2, 6)], "Ids": [ints(2, 3, hi=6)],
+                              "Updates": [f(2, 3)],
+                              "Length": [np.array([3, 2])]}, {}),
+        "sequence_conv": ({"X": [f(3, 5, 2)], "Filter": [f(6, 4)],
+                           "Length": [lens]},
+                          {"contextLength": 3, "contextStart": -1}),
         "scaled_dot_product_attention": (
             {"Q": [f(2, 2, 8, 16)], "K": [f(2, 2, 8, 16)],
              "V": [f(2, 2, 8, 16)]}, {"is_causal": True}),
