@@ -331,6 +331,17 @@ its seconds):
     the card against the CPU, ``infer_int8.py --device gpu`` and
     ``fluid_word2vec.py --device gpu --steps 60`` (its losses within 1e-4
     relative of the CPU's from the same weights).
+15. the rest of the eager API (``phase_eager_rest``; ``--phase 15``
+    alone);
+16. process-level distributed training (``phase_dist_training``;
+    ``--phase 16`` builds and runs it alone, no result line; see the
+    comment above ``P16_GPT``): GPT-1.3B through the port's launcher
+    and ``examples/train_gpt.py`` ((a) bf16, (b) ``--int8 --seq-major``),
+    the sharded checkpoint bit for bit (c), a static program of the
+    ``c_*`` ops against the program without them (d), and
+    ``examples/train_multiprocess_dp.py`` through the launcher (e); the
+    1.3B attention's flash rows ``flash_*_gpt1p3b_bf16``, with (a)'s
+    launches and (b)'s under ``launches_in``.
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -1048,39 +1059,13 @@ def phase_flash(np, torch):
     (the kernels line), at the long-sequence point and at the flagship
     shape with head dim 64 (logged), and at phase 9's two bnsd cases (their
     own rows of the kernels line, ``flash_fwd_gpt760m_fp32`` ...)."""
-    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
-    from paddle_tpu_torch.kernels.flash import flash_bwd, flash_fwd_cuda
-
-    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     errs = {}           # case -> kernel -> max abs error
-    d = 128
-    for case, layout, b, h, hkv, s, causal, window, dt in FLASH_CASES:
-        g = torch.Generator(device="cuda").manual_seed(s + h + hkv)
-        dtype = dtypes[dt]
-        q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype)
-        scale = 1.0 / np.sqrt(d)
-        out, lse = flash_fwd_cuda(q, k, v, causal, scale, window, layout)
-        ref, rlse = flash_fwd_plain(q, k, v, causal, scale, window, layout)
-        do = torch.randn(ref.shape, device="cuda", generator=g).to(dtype)
-        got = flash_bwd(q, k, v, ref, rlse, do, causal, scale, window, layout)
-        want = flash_bwd_plain(q, k, v, ref, rlse, do, causal, scale, window,
-                               layout)
-        torch.cuda.synchronize()
-        for name, part, a, r in (("flash_fwd", "out", out, ref),
-                                 ("flash_fwd", "lse", lse, rlse),
-                                 ("flash_bwd_dq", "dq", got[0], want[0]),
-                                 ("flash_bwd_dkv", "dk", got[1], want[1]),
-                                 ("flash_bwd_dkv", "dv", got[2], want[2])):
-            err = _flash_close(
-                f"{name} {part} {case} ({layout}, B={b} H={h} Hkv={hkv} "
-                f"S={s} D={d}, {dt}, window {window})", a, r,
-                *FLASH_TOL[dt][part])
-            if dt == "bf16":
-                worst[name] = max(worst[name], err)
-            errs.setdefault(case, dict.fromkeys(worst, 0.0))
-            errs[case][name] = max(errs[case][name], err)
-        del q, k, v, out, lse, ref, rlse, do, got, want
+    for case in FLASH_CASES:
+        errs[case[0]] = _flash_case(np, torch, case)
+        if case[-1] == "bf16":
+            worst = {name: max(worst[name], errs[case[0]][name])
+                     for name in worst}
     torch.cuda.empty_cache()
 
     results = _time_flash(np, torch, FLASH_CASES[0], worst)
@@ -1095,10 +1080,44 @@ def phase_flash(np, torch):
     return results
 
 
-def _time_flash(np, torch, case, worst, d=128):
-    """The three kernels, their plain versions and SDPA timed on one
-    case's strided views at head dim ``d`` in the case's dtype; returns
-    each kernel's entry of the kernels line."""
+def _flash_case(np, torch, case, d=128):
+    """One case's forward, dQ and dK/dV against their plain versions (the
+    backward kernels from the plain forward's out and lse); each kernel's
+    max abs error."""
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels.flash import flash_bwd, flash_fwd_cuda
+
+    label, layout, b, h, hkv, s, causal, window, dt = case
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt]
+    g = torch.Generator(device="cuda").manual_seed(s + h + hkv)
+    q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype)
+    scale = 1.0 / np.sqrt(d)
+    out, lse = flash_fwd_cuda(q, k, v, causal, scale, window, layout)
+    ref, rlse = flash_fwd_plain(q, k, v, causal, scale, window, layout)
+    do = torch.randn(ref.shape, device="cuda", generator=g).to(dtype)
+    got = flash_bwd(q, k, v, ref, rlse, do, causal, scale, window, layout)
+    want = flash_bwd_plain(q, k, v, ref, rlse, do, causal, scale, window,
+                           layout)
+    torch.cuda.synchronize()
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for name, part, a, r in (("flash_fwd", "out", out, ref),
+                             ("flash_fwd", "lse", lse, rlse),
+                             ("flash_bwd_dq", "dq", got[0], want[0]),
+                             ("flash_bwd_dkv", "dk", got[1], want[1]),
+                             ("flash_bwd_dkv", "dv", got[2], want[2])):
+        err = _flash_close(
+            f"{name} {part} {label} ({layout}, B={b} H={h} Hkv={hkv} "
+            f"S={s} D={d}, {dt}, window {window})", a, r,
+            *FLASH_TOL[dt][part])
+        errs[name] = max(errs[name], err)
+    return errs
+
+
+def _time_flash(np, torch, case, worst, d=128, timer=time_ms):
+    """The three kernels (by ``timer``: CUDA events around eager calls,
+    or ``graph_ms``), their plain versions and SDPA timed on one case's
+    strided views at head dim ``d`` in the case's dtype; returns each
+    kernel's entry of the kernels line."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
@@ -1124,11 +1143,11 @@ def _time_flash(np, torch, case, worst, d=128):
         o = F.scaled_dot_product_attention(*lib, is_causal=True)
         torch.autograd.grad(o, lib, doh)
 
-    ms = {"flash_fwd": time_ms(lambda: flash_fwd_cuda(
+    ms = {"flash_fwd": timer(lambda: flash_fwd_cuda(
               q, k, v, causal, scale, window, layout)),
-          "flash_bwd_dq": time_ms(lambda: flash_bwd_dq_cuda(
+          "flash_bwd_dq": timer(lambda: flash_bwd_dq_cuda(
               q, k, v, out, lse, delta, do, causal, scale, window, layout)),
-          "flash_bwd_dkv": time_ms(lambda: flash_bwd_dkv_cuda(
+          "flash_bwd_dkv": timer(lambda: flash_bwd_dkv_cuda(
               q, k, v, lse, delta, do, causal, scale, window, layout))}
     plain_fwd = time_ms(lambda: flash_fwd_plain(q, k, v, causal, scale,
                                                 window, layout), iters=3)
@@ -1157,7 +1176,8 @@ def _time_flash(np, torch, case, worst, d=128):
                              max_abs_err=worst[name])
         log(f"{name} timed case {label}: B={b} H={h} S={s} D={d} causal "
             f"{dt}, q/k/v head views of one QKV tensor: {ms[name]:.4f} ms "
-            f"({ops / ms[name] / 1e9:.1f} TFLOP/s), plain "
+            f"({'graph replay' if timer is graph_ms else 'CUDA events'}, "
+            f"{ops / ms[name] / 1e9:.1f} TFLOP/s), plain "
             f"{results[name]['plain_ms']:.4f} ms (the whole "
             f"{'forward' if fwd else 'backward'}), sdpa by graph replay "
             f"{'forward' if fwd else 'fwd+bwd - fwd'} "
@@ -6215,6 +6235,464 @@ def phase_eager_rest(np, torch, card):
     return launches
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+# Process-level distributed training (BASELINE config 3).  (a) The port's
+# launcher at nproc 1 runs examples/train_gpt.py at GPT-1.3B width (hidden
+# 2048, 24 layers, 16 heads, vocab 50304; seq 512, batch 8, no remat, bf16
+# with fp32 masters) on a one-rank NCCL group: the trainer's rc, its OK
+# line and falling losses; then the same build / run in this process as a
+# launched rank (the launcher's environment for rank 0 of 1), with 24
+# launches of each flash kernel a step asserted, step ms, tokens/s, MFU,
+# peak memory and one profiled step.  (b) The same with --int8
+# --seq-major, 3 steps: 4 x 24 w8a8_gemm launches a step and the flash
+# kernels on sbnd views.  (c) The sharded checkpoint: GPT-1.3B width at 2
+# layers, saved after step 2 into a temporary directory, loaded into a
+# fresh state of another seed; step 3's loss and every leaf, master and
+# moment equal the uninterrupted step 3's bit for bit.  (d) A static
+# program of every differentiable c_* op (c_embedding, c_identity,
+# c_allreduce_sum, mp_allreduce_sum, c_broadcast, c_allgather,
+# c_reducescatter, alltoall, c_concat, c_split,
+# c_softmax_with_cross_entropy) and its grads through append_backward, the
+# gradients' all-reduce between the stream-ordering ops and a barrier, and
+# the loss's all-reduce max / min / prod, run on the one-rank NCCL group,
+# held bit for bit to the same program without them (lookup_table_v2 and
+# softmax_with_cross_entropy for the two vocabulary-split ops) over
+# P16_STATIC steps of SGD.  (e) examples/train_multiprocess_dp.py through
+# the launcher at nproc 1: rc 0 and its final check.  Before (a), every
+# kernel of (a) and (b) is held to its plain version at the shapes they
+# give it: the flash kernels on the 1.3B attention's bsnd (a) and sbnd (b)
+# head views (B=8 H=16 S=512 D=128 causal bf16) within FLASH_TOL, and
+# w8a8_gemm on the four 1.3B projections at (b)'s P16_ROWS bf16 rows bit
+# for bit.  The bsnd attention is timed by graph replay (as SDPA is)
+# before (a) and again after (e), in the same call; rows
+# flash_*_gpt1p3b_bf16 of the kernels line stand on the later reading.
+P16_GPT = ["--config", "1p3b", "--batch", "8", "--steps", "10", "--device",
+           "gpu"]
+P16_GPT_INT8 = ["--config", "1p3b", "--batch", "8", "--steps", "3", "--int8",
+                "--seq-major", "--device", "gpu"]
+P16_DP = ["--device", "gpu"]
+P16_ROWS = 8 * 512              # (b)'s projection rows: batch x seq
+CKPT_CFG = dict(vocab_size=50304, hidden_size=2048, num_layers=2,
+                num_heads=16, max_seq_len=2048)
+CKPT_BATCH = (8, 512)
+P16_STATIC = dict(batch=64, hidden=256, vocab=1024, steps=3)
+GPT1P3B_FLASH = ("gpt1p3b", "bsnd", 8, 16, 16, 512, True, None, "bf16")
+GPT1P3B_FLASH_SBND = ("gpt1p3b_sbnd", "sbnd", 8, 16, 16, 512, True, None,
+                      "bf16")
+LAUNCH_TIMEOUT = 600
+
+
+def _root():
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _launch(script, argv, log_dir, label):
+    """``script`` through the port's launcher at nproc 1; returns the
+    trainer's log.  A non-zero rc raises with the log's tail."""
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "1", "--log_dir", log_dir,
+           os.path.join("paddle_tpu_torch", "examples", script), *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=_root(), capture_output=True, text=True,
+                          timeout=LAUNCH_TIMEOUT)
+    path = os.path.join(log_dir, "workerlog.0")
+    text = open(path).read() if os.path.exists(path) else ""
+    log(f"({label}) {' '.join(cmd[2:])}: rc {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in text.splitlines()[-8:]:
+        log(f"  trainer: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"({label}) the launched trainer failed, rc "
+                             f"{proc.returncode}: {proc.stderr[-2000:]} "
+                             f"{text[-2000:]}")
+    return text
+
+
+@contextlib.contextmanager
+def _as_launched_rank():
+    """This process as the launcher's rank 0 of 1 (its environment),
+    restored after."""
+    from paddle_tpu_torch.distributed.launch_utils import (Cluster,
+                                                           find_free_port,
+                                                           rank_env)
+
+    cluster = Cluster(ips=["127.0.0.1"], nproc_per_node=1,
+                      master="127.0.0.1", master_port=find_free_port())
+    env = rank_env(cluster, 0)
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _expect(label, launches, want):
+    if launches != want:
+        raise AssertionError(f"({label}) launched {launches}, expected "
+                             f"{want}")
+
+
+def _gpt_in_process(np, torch, argv, per_step, label):
+    """train_gpt's build / run in this process as a launched rank: its
+    losses, launches asserted per step, step ms, tokens/s, MFU (the
+    example's own: 6 N flops a token over its --peak-flops, 989 TFLOP/s),
+    peak memory and a profiled step; returns the launches."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.examples import train_gpt
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    with _as_launched_rank():
+        job = train_gpt.build(argv)
+        try:
+            reset_launch_counts()
+            losses = train_gpt.run(job)
+            launches = {k: n for k, n in KERNELS.items() if n}
+            _expect(label, launches, {k: n * job.args.steps
+                                      for k, n in per_step.items()})
+            timed = job.step_ms[1:]
+            log(f"({label}) in process on a one-rank "
+                f"{dist.get_backend()} group: losses "
+                f"{[round(x, 4) for x in losses]}; step "
+                f"{float(np.mean(timed)):.1f} ms (timed "
+                f"{[round(t, 1) for t in timed]}, first "
+                f"{job.step_ms[0]:.1f}), {job.tokens_per_s:.0f} tokens/s, "
+                f"MFU {100 * job.mfu:.2f}% of "
+                f"{job.args.peak_flops / 1e12:.0f} TFLOP/s, "
+                f"max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"launches {json.dumps(launches)}")
+            _profile(torch, f"({label}) one more step", job.step_once)
+        except BaseException:
+            train_gpt.close(job, barrier=False)
+            raise
+        train_gpt.close(job)
+    if dist.is_initialized():
+        raise AssertionError(f"({label}) left a process group up")
+    del job
+    _free(torch)
+    return launches
+
+
+def _ckpt_run(np, torch, seed, ids, labels, save_at=None, load=None,
+              steps=3):
+    """GPT-1.3B width at 2 layers: ``steps`` steps, saving after step
+    ``save_at`` to the directory ``save_at[1]``, or loading ``load``
+    first; returns (the losses, the state after the last step)."""
+    from paddle_tpu_torch.models import GPTConfig, GPTParams
+    from paddle_tpu_torch.models.gpt import (build_functional_train_step,
+                                             load_train_state,
+                                             save_train_state,
+                                             train_state_dict)
+
+    model = GPTParams(GPTConfig(**CKPT_CFG), device=ids.device, seed=seed)
+    step, params, opt = build_functional_train_step(
+        model, lr=1e-4, remat=False, ce_chunk_rows=2048)
+    if load is not None:
+        load_train_state(step, params, opt, load)
+    losses = []
+    for i in range(opt["t"], steps):
+        params, opt, loss = step(params, opt, ids, labels)
+        losses.append(float(loss))
+        if save_at is not None and i + 1 == save_at[0]:
+            t0 = time.perf_counter()
+            save_train_state(step, params, opt, save_at[1])
+            size = sum(os.path.getsize(os.path.join(save_at[1], f))
+                       for f in os.listdir(save_at[1]))
+            log(f"(c) saved after step {i + 1}: {size / 2**30:.2f} GiB in "
+                f"{time.perf_counter() - t0:.1f} s")
+    state = {k: v.clone()
+             for k, v in train_state_dict(step, params, opt).items()}
+    del model, step, params, opt
+    return losses, state
+
+
+def _checkpoint_on_card(np, torch):
+    """(c): the uninterrupted run against save-after-2, load into a fresh
+    state, step 3; bit for bit."""
+    import shutil
+    import tempfile
+
+    rng = np.random.RandomState(3)
+    b, s = CKPT_BATCH
+    v = CKPT_CFG["vocab_size"]
+    dev = torch.device("cuda")
+    ids = torch.as_tensor(rng.randint(0, v, (b, s)).astype("int32"),
+                          device=dev)
+    labels = torch.as_tensor(rng.randint(0, v, (b, s)).astype("int64"),
+                             device=dev)
+    tmp = tempfile.mkdtemp(prefix="ckpt16_")
+    try:
+        full, want = _ckpt_run(np, torch, 0, ids, labels, save_at=(2, tmp))
+        t0 = time.perf_counter()
+        resumed, got = _ckpt_run(np, torch, 1, ids, labels, load=tmp)
+        log(f"(c) loaded and stepped in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = [k for k in want if torch.equal(want[k], got[k])]
+    log(f"(c) uninterrupted losses {full}, resumed step 3 {resumed}; "
+        f"{len(same)} of {len(want)} entries (leaves, masters, moments, t) "
+        f"bit for bit")
+    if resumed != full[2:] or len(same) != len(want):
+        raise AssertionError(f"(c) the resumed step differs: "
+                             f"{sorted(set(want) - set(same))[:8]}")
+    del want, got
+    _free(torch)
+
+
+def _static_collectives(np, torch, with_ops):
+    """(d)'s program, with the c_* ops or without them, run
+    ``P16_STATIC["steps"]`` SGD steps from one seed's weights; returns
+    (the op types, the fetched losses and final weights)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.ops.dispatch import dispatch_static
+
+    c = P16_STATIC
+    main, startup = static.Program(), static.Program()
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup), unique_name.guard():
+            ids = static.data("ids", [c["batch"]], "int64")
+            label = static.data("label", [c["batch"], 1], "int64")
+            emb = paddle.create_parameter([c["vocab"], c["hidden"]],
+                                          "float32", name="emb")
+            w = paddle.create_parameter([c["hidden"], c["vocab"]],
+                                        "float32", name="w")
+
+            def op(t, x, **attrs):
+                return dispatch_static(t, {"X": [x]},
+                                       {"ring_id": 0, **attrs})["Out"][0]
+
+            if with_ops:
+                h = dispatch_static("c_embedding", {"W": [emb], "Ids": [ids]},
+                                    {"ring_id": 0, "start_index": 0})
+                h = op("c_identity", h["Out"][0])
+                h = op("c_broadcast", h, root=0)
+                h = op("c_allgather", h, nranks=1)
+                h = op("c_reducescatter", h, nranks=1)
+                h = op("alltoall", h)
+                logits = paddle.matmul(h, w)
+                logits = D.all_reduce(logits)
+                logits = op("mp_allreduce_sum", logits)
+                logits = op("c_split", logits, nranks=1)
+                logits = op("c_concat", logits, nranks=1)
+                loss = dispatch_static(
+                    "c_softmax_with_cross_entropy",
+                    {"Logits": [logits], "Label": [label]},
+                    {"ring_id": 0})["Loss"][0]
+            else:
+                h = dispatch_static("lookup_table_v2",
+                                    {"W": [emb], "Ids": [ids]}, {})["Out"][0]
+                logits = paddle.matmul(h, w)
+                loss = dispatch_static(
+                    "softmax_with_cross_entropy",
+                    {"Logits": [logits], "Label": [label]}, {})["Loss"][0]
+            avg = paddle.mean(loss)
+            static.append_backward(avg)
+            lr = static.create_global_var([1], 0.5, "float32",
+                                          persistable=True, name="lr")
+            fetch = [avg]
+            for p in ("emb", "w"):
+                g = f"{p}@GRAD"
+                if with_ops:
+                    # the ops without gradients on the update's side, as
+                    # a data-parallel rewrite places them
+                    g = op("c_sync_calc_stream", g)
+                    g = op("c_allreduce_sum", g)
+                    g = op("c_sync_comm_stream", g)
+                    g = op("c_wait_compute", g)
+                    g = op("barrier", g)
+                dispatch_static("sgd", {"Param": [p], "Grad": [g],
+                                        "LearningRate": [lr]}, {},
+                                outputs={"ParamOut": [p]})
+            if with_ops:
+                fetch += [op(t, avg) for t in ("c_allreduce_max",
+                                               "c_allreduce_min",
+                                               "c_allreduce_prod")]
+    finally:
+        paddle.disable_static()
+    exe = static.Executor(paddle.CUDAPlace(0))
+    scope = static.global_scope()
+    exe.run(startup)
+    rng = np.random.RandomState(16)
+    dev = torch.device("cuda")
+    scope.set("emb", torch.as_tensor(
+        rng.randn(c["vocab"], c["hidden"]).astype("float32") * 0.1, device=dev))
+    scope.set("w", torch.as_tensor(
+        rng.randn(c["hidden"], c["vocab"]).astype("float32") * 0.1, device=dev))
+    feed = {"ids": rng.randint(0, c["vocab"], (c["batch"],)).astype("int64"),
+            "label": rng.randint(0, c["vocab"],
+                                 (c["batch"], 1)).astype("int64")}
+    losses = []
+    for _ in range(c["steps"]):
+        got = exe.run(main, feed=feed, fetch_list=fetch)
+        if any(float(x) != float(got[0]) for x in got[1:]):
+            raise AssertionError(f"(d) one-rank max / min / prod of the "
+                                 f"loss differ from it: {got}")
+        losses.append(float(got[0]))
+    out = [scope.find_var(n).cpu().clone() for n in ("emb", "w")]
+    return [o.type for o in main.global_block().ops], losses, out
+
+
+def _static_on_card(np, torch):
+    """(d): the c_* program against the plain one on a one-rank NCCL
+    group."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+
+    with _as_launched_rank():
+        init_parallel_env()
+        try:
+            ops, la, wa = _static_collectives(np, torch, True)
+            _, lb, wb = _static_collectives(np, torch, False)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    colls = sorted({t for t in ops if t.startswith(("c_", "mp_", "all",
+                                                    "barrier"))})
+    same = [torch.equal(a, b) for a, b in zip(wa, wb)]
+    log(f"(d) static program on a one-rank {backend} group, {len(ops)} ops, "
+        f"collective ops and grads {colls}; losses {la} against {lb} "
+        f"without them; weights bit for bit {same}")
+    if la != lb or not all(same):
+        raise AssertionError("(d) the c_* program differs from the plain one")
+
+
+def _dp_example(tmp):
+    """(e): examples/train_multiprocess_dp.py through the launcher."""
+    text = _launch("train_multiprocess_dp.py", P16_DP,
+                   os.path.join(tmp, "dp"), "e")
+    if "params identical across 1 processes OK" not in text:
+        raise AssertionError("(e) no final check in the trainer's log")
+
+
+def phase_dist_training(np, torch, card):
+    """Phase 16 (see the comment above P16_GPT).  Returns the
+    1.3B attention's kernels-line rows and the launches of (a) and (b)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise AssertionError("phase 16 found a process group up")
+    errs = _gpt1p3b_kernels(np, torch)
+    before = _time_flash(np, torch, GPT1P3B_FLASH, errs, timer=graph_ms)
+    before["eager"] = _fwd_eager_ms(np, torch)
+    log(f"(timed before (a)) {_clocks()}")
+    tmp = tempfile.mkdtemp(prefix="phase16_")
+    try:
+        text = _launch("train_gpt.py", P16_GPT, os.path.join(tmp, "a"), "a")
+        ok = [ln for ln in text.splitlines() if ln.startswith("OK:")]
+        if not ok:
+            raise AssertionError("(a) no OK line in the trainer's log")
+        first, last = (float(x) for x in
+                       ok[0].split("loss ")[1].split(",")[0].split(" -> "))
+        if not last < first:
+            raise AssertionError(f"(a) the loss did not fall: {ok[0]}")
+        a = _gpt_in_process(np, torch, P16_GPT, dict.fromkeys(FLASH, 24),
+                            "a")
+        b = _gpt_in_process(np, torch, P16_GPT_INT8,
+                            {**dict.fromkeys(FLASH, 24), "w8a8_gemm": 96},
+                            "b")
+        _checkpoint_on_card(np, torch)
+        _static_on_card(np, torch)
+        _dp_example(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = _gpt1p3b_rows(np, torch, errs, before)
+    log(card)
+    return rows, {"a": a, "b": b}
+
+
+def _gpt1p3b_kernels(np, torch):
+    """Every kernel that (a) and (b) launch, at the shapes they give it,
+    against its plain version on the same inputs: the flash forward, dQ
+    and dK/dV on (a)'s bsnd and (b)'s sbnd head views within FLASH_TOL,
+    and w8a8_gemm on (b)'s four projections at P16_ROWS bf16 rows, bit
+    for bit (the output, the quantized rows and their scales).  Returns
+    the worst flash error of each kernel over both layouts."""
+    from paddle_tpu_torch.kernels import w8a8_gemm, w8a8_gemm_plain
+
+    errs = _flash_case(np, torch, GPT1P3B_FLASH)
+    for name, err in _flash_case(np, torch, GPT1P3B_FLASH_SBND).items():
+        errs[name] = max(errs[name], err)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for proj, (wq, ws, k, n) in _gemm_weights(torch, g, PROJ).items():
+        x = torch.randn(P16_ROWS, k, device="cuda", generator=g).bfloat16()
+        got = w8a8_gemm(x, wq, ws, return_quantized=True)
+        want = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"w8a8_gemm GPT-1.3B training {proj} M={P16_ROWS} K={k} N={n}, "
+            f"bf16: bit-exact {exact} (max_abs_err "
+            f"{(got[0] - want[0]).abs().max().item():.3e})")
+        if not exact:
+            raise AssertionError(f"w8a8_gemm GPT-1.3B {proj} M={P16_ROWS} "
+                                 "is not exact")
+        del x, got, want
+    _free(torch)
+    return errs
+
+
+def _clocks():
+    """The card's SM clock (and its maximum), temperature and power draw
+    now, for reading two timings of one call side by side."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60)
+    return "card now: " + (smi.stdout.strip() or smi.stderr.strip())
+
+
+def _fwd_eager_ms(np, torch):
+    """The 1.3B bsnd forward by CUDA events around eager calls, beside
+    its graph-replay reading: the difference is the host's enqueue (the
+    wrapper's allocations and launch) where it outlasts the kernel."""
+    from paddle_tpu_torch.kernels.flash import flash_fwd_cuda
+
+    _, layout, b, h, hkv, s, causal, window, dt = GPT1P3B_FLASH
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, 128,
+                         torch.bfloat16)
+    ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal, 1.0 / np.sqrt(128),
+                                        window, layout))
+    del q, k, v
+    _free(torch)
+    return ms
+
+
+def _gpt1p3b_rows(np, torch, errs, before):
+    """The 1.3B attention timed again after (e) by graph replay, as SDPA
+    is, beside ``before`` (the reading before (a), same call and inputs);
+    the kernels-line rows, which stand on this later reading."""
+    after = _time_flash(np, torch, GPT1P3B_FLASH, errs, timer=graph_ms)
+    eager = _fwd_eager_ms(np, torch)
+    log(f"(timed after (e)) {_clocks()}")
+    log(f"flash_fwd GPT-1.3B bsnd by CUDA events around eager calls, "
+        f"before (a) / after (e): {before.pop('eager'):.4f} / {eager:.4f} "
+        f"ms")
+    for name, row in after.items():
+        b = before[name]
+        log(f"{name} GPT-1.3B bsnd, before (a) / after (e): kernel "
+            f"{b['ms']:.4f} / {row['ms']:.4f} ms, SDPA "
+            f"{b['library_ms']:.4f} / {row['library_ms']:.4f} ms, kernel / "
+            f"SDPA {b['ms'] / b['library_ms']:.2f}x / "
+            f"{row['ms'] / row['library_ms']:.2f}x")
+    _free(torch)
+    return {f"{name}_gpt1p3b_bf16": row for name, row in after.items()}
+
+
 def main():
     try:
         import numpy as np
@@ -6287,6 +6765,12 @@ def main():
         phase_eager_rest(np, torch, card)
         done("15 the rest of the eager API")
         return 0
+    if sys.argv[1:] == ["--phase", "16"]:
+        # phase 16 alone, for work on process-level distributed training:
+        # no result line
+        phase_dist_training(np, torch, card)
+        done("16 process-level distributed training")
+        return 0
     if sys.argv[1:] == ["--phase", "12"]:
         # phase 12 alone, for work on the encoder-decoder, the flash
         # kernels at other lengths and the rec models: no result line
@@ -6325,6 +6809,9 @@ def main():
     done("14 jit and deployment")
     beam_launches = phase_eager_rest(np, torch, card)
     done("15 the rest of the eager API")
+    gpt_rows, gpt_runs = phase_dist_training(np, torch, card)
+    done("16 process-level distributed training")
+    kernels.update(gpt_rows)
     kernels.update(jit_kernels)
     kernels.update(bert_kernels)
     kernels.update(encoder_kernels)
@@ -6344,7 +6831,18 @@ def main():
         more = {run: c[name] for run, c in cluster.items() if name in c}
         model = next((m for m in encoder_runs if f"_{m}_" in name), None)
         shape = next((m for m in seq_runs if f"_{m}_" in name), None)
-        if shape is not None:
+        if "_gpt1p3b_" in name:
+            base = name.split("_gpt1p3b_")[0]
+            n = gpt_runs["a"][base]
+            more = {"phase 16 (b) GPT-1.3B --int8 --seq-major (sbnd)":
+                    gpt_runs["b"][base]}
+            src = "flash_fwd" if base == "flash_fwd" else "flash_bwd"
+            replaces = {"flash_fwd": "paddle_tpu/kernels/flash.py:74",
+                        "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
+                        "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"
+                        }[base]
+            log(f"{name}: {n} launches on phase 16 (a)'s in-process run")
+        elif shape is not None:
             base = name.split(f"_{shape}_")[0]
             run, counts = seq_runs[shape]
             n = counts[base]
@@ -6408,6 +6906,8 @@ def main():
             if name == "w8a8_gemm":
                 more["phase 14 int8 GPT-1.3B to_static (a forward)"] = \
                     jit_runs["gpt"][name]
+                more["phase 16 (b) GPT-1.3B --int8 --seq-major training"] = \
+                    gpt_runs["b"][name]
         entry = {"name": name, "route": "cuda",
                  "source": f"paddle_tpu_torch/csrc/{src}.cu",
                  "replaces": replaces, "launches": n,

@@ -141,26 +141,9 @@ get_cuda_rng_state = get_rng_state
 set_cuda_rng_state = set_rng_state
 
 
-def get_cudnn_version():
-    """The cuDNN version torch was built with (an int such as 90100), or
-    None without cuDNN."""
-    import torch
-
-    return torch.backends.cudnn.version()
-
-
-def is_compiled_with_npu():
-    return False
-
-
-def is_compiled_with_rocm():
-    import torch
-
-    return torch.version.hip is not None
-
-
-def is_compiled_with_xpu():
-    return False
+from .device import (  # noqa: E402,F401
+    get_cudnn_version, is_compiled_with_npu, is_compiled_with_rocm,
+    is_compiled_with_xpu)
 
 
 def set_printoptions(precision=None, threshold=None, edgeitems=None,

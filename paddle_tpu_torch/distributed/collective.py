@@ -31,6 +31,15 @@ storage, the data-parallel wrapper's gradient buckets.  The
 point-to-point helpers (:class:`_SendAct`, :class:`_RecvAct`,
 :func:`_exchange`) move a pipeline's activations and their gradients
 between stages.
+
+**Static mode.**  Given a static ``Variable``, :func:`all_reduce`,
+:func:`all_gather`, :func:`broadcast` and the model-parallel helpers
+append the reference's ``c_*`` op (:mod:`paddle_tpu_torch.ops.
+collective_ops`) to the program instead, on the group's ring: 0 for the
+world, the group's ``id`` for a :class:`Group`, whose ring
+:func:`new_group` binds to its process group (or, with ``axis_name``, to
+that axis of the installed hybrid mesh).  The executor runs them on each
+rank's process.
 """
 
 from __future__ import annotations
@@ -41,6 +50,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..framework import program as fw
+from ..ops import collective_ops
+from ..ops.dispatch import dispatch_static
 from . import env as dist_env
 from . import mesh as mesh_mod
 
@@ -65,15 +77,22 @@ _OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
 class Group:
     """A process group with the reference's accessors: ``rank`` (this
     process's index in it, -1 outside), ``nranks``, ``ranks`` (global),
-    ``id``."""
+    ``id`` (its ring), ``axis_name`` (the hybrid-mesh axis it is bound
+    to, or None).  The ring ``id`` names ``process_group`` (or, without
+    one, ``axis_name``) for the ``c_*`` ops."""
 
     def __init__(self, rank: int, nranks: int, id: int = 0,
-                 ranks: Optional[List[int]] = None, process_group=None):
+                 ranks: Optional[List[int]] = None, axis_name=None, *,
+                 process_group=None):
         self.rank = rank
         self.nranks = nranks
         self.id = id
         self.ranks = list(ranks) if ranks is not None else list(range(nranks))
+        self.axis_name = axis_name
         self.process_group = process_group
+        bound = process_group if process_group is not None else axis_name
+        if bound is not None and id != 0:       # ring 0 is the world
+            collective_ops.set_ring_axis(id, bound)
 
     @property
     def world_size(self):
@@ -83,7 +102,8 @@ class Group:
         return self.ranks.index(rank) if rank in self.ranks else -1
 
     def __repr__(self):
-        return f"Group(id={self.id}, nranks={self.nranks}, ranks={self.ranks})"
+        return (f"Group(id={self.id}, nranks={self.nranks}, "
+                f"ranks={self.ranks}, axis={self.axis_name})")
 
 
 _GROUPS = {}
@@ -105,26 +125,47 @@ def get_group(gid: int = 0) -> Group:
     if gid == 0 and 0 not in _GROUPS:
         world = dist.get_world_size()
         _GROUPS[0] = Group(dist.get_rank(), world, 0, list(range(world)),
-                           dist.group.WORLD)
+                           process_group=dist.group.WORLD)
     return _GROUPS[gid]
 
 
 def new_group(ranks: Optional[List[int]] = None, backend=None,
-              timeout=None) -> Group:
-    """A group over the global ``ranks`` (default all); every rank of the
-    world calls it, in the same order."""
+              axis_name=None, *, timeout=None) -> Group:
+    """A group over the global ``ranks`` (default all), on a new ring;
+    every rank of the world calls it, in the same order.  With
+    ``axis_name`` (an axis of the installed hybrid mesh, or a tuple of
+    them) the group is this rank's group over that axis, and ``ranks``
+    defaults to its ranks."""
     _require()
     from .parallel import _timeout
 
-    ranks = list(ranks) if ranks is not None else list(
-        range(dist.get_world_size()))
-    pg = dist.new_group(ranks, backend=backend, timeout=_timeout(timeout))
+    if axis_name is not None:
+        mesh = mesh_mod.get_mesh()
+        if mesh is None:
+            raise RuntimeError(f"new_group(axis_name={axis_name!r}) needs "
+                               "an installed hybrid mesh")
+        pg = mesh.group(axis_name)
+        if ranks is None:
+            ranks = mesh.group_ranks(axis_name)
+    else:
+        ranks = list(ranks) if ranks is not None else list(
+            range(dist.get_world_size()))
+        pg = dist.new_group(ranks, backend=backend,
+                            timeout=_timeout(timeout))
+    ranks = list(ranks)
     gid = max(_GROUPS, default=0) + 1
     rank = dist.get_rank()
     g = Group(ranks.index(rank) if rank in ranks else -1, len(ranks), gid,
-              ranks, pg)
+              ranks, axis_name, process_group=pg)
     _GROUPS[gid] = g
     return g
+
+
+def _forget_groups():
+    """Drop the groups and ring bindings of an earlier process group (a
+    new world starts without them)."""
+    _GROUPS.clear()
+    collective_ops._RING_AXES.clear()
 
 
 def _pg(group):
@@ -156,26 +197,71 @@ def get_world_size():
     return dist_env.get_world_size()
 
 
+def _static(tensor) -> bool:
+    return isinstance(tensor, fw.Variable)
+
+
+def _ring_attrs(group) -> dict:
+    """The ``c_*`` op attributes naming ``group``'s ring."""
+    if group is None:
+        return {"ring_id": 0}
+    if isinstance(group, Group):
+        return {"ring_id": group.id}
+    if isinstance(group, (str, tuple)):
+        return {"ring_id": 0, "axis_name": group}
+    raise TypeError(f"a static program's collective takes a Group or a mesh "
+                    f"axis name, not {type(group).__name__}")
+
+
+def _record(op_type, tensor, group, **attrs):
+    """Append ``op_type`` on ``tensor`` to the program; its ``Out``."""
+    out = dispatch_static(op_type, {"X": [tensor]},
+                          {**_ring_attrs(group), **attrs})
+    return out["Out"][0]
+
+
+_STATIC_OPS = {ReduceOp.SUM: "c_allreduce_sum", ReduceOp.MAX: "c_allreduce_max",
+               ReduceOp.MIN: "c_allreduce_min",
+               ReduceOp.PROD: "c_allreduce_prod"}
+
+
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, use_calc_stream=True,
                sync_op=True):
     """In place over ``group``; returns ``tensor``.  ``use_calc_stream``
     and ``sync_op`` are the reference's: the collective runs on the
-    current stream and is complete for every later op on it."""
+    current stream and is complete for every later op on it.  A static
+    ``Variable`` records ``c_allreduce_<op>`` and gets its output."""
+    if _static(tensor):
+        return _record(_STATIC_OPS[op], tensor, group)
     dist.all_reduce(tensor, op=_OPS[op], group=_pg(group))
     return tensor
 
 
 def all_gather(tensor_list, tensor, group=None, sync_op=True):
     """Appends every rank's ``tensor`` to ``tensor_list``, in group
-    order."""
+    order.  A static ``Variable`` records ``c_allgather`` (the ranks'
+    tensors concatenated along dim 0) and gets its output."""
+    if _static(tensor):
+        return _record("c_allgather", tensor, group,
+                       nranks=_nranks(group))
     pg = _pg(group)
     out = [torch.empty_like(tensor) for _ in range(dist.get_world_size(pg))]
     dist.all_gather(out, tensor.contiguous(), group=pg)
     tensor_list.extend(out)
 
 
+def _nranks(group) -> int:
+    if isinstance(group, Group):
+        return group.nranks
+    return _size(group) if dist.is_initialized() else 1
+
+
 def broadcast(tensor, src=0, group=None, sync_op=True):
-    """``tensor`` of global rank ``src`` into every rank's, in place."""
+    """``tensor`` of global rank ``src`` into every rank's, in place.  A
+    static ``Variable`` records ``c_broadcast`` (``root`` = ``src``, as
+    the reference's) and gets its output."""
+    if _static(tensor):
+        return _record("c_broadcast", tensor, group, root=src)
     dist.broadcast(tensor, src=src, group=_pg(group))
     return tensor
 
@@ -294,6 +380,8 @@ class _Split(torch.autograd.Function):
 
 
 def _c_identity(tensor, group=None):
+    if _static(tensor):
+        return _record("c_identity", tensor, group)
     return _Identity.apply(tensor, group)
 
 
@@ -301,14 +389,20 @@ def _mp_allreduce(tensor, op=ReduceOp.SUM, group=None, use_calc_stream=True,
                   use_model_parallel=True):
     if op != ReduceOp.SUM:
         raise ValueError("_mp_allreduce differentiates a SUM only")
+    if _static(tensor):
+        return _record("mp_allreduce_sum", tensor, group)
     return _AllReduce.apply(tensor, group)
 
 
 def _c_concat(tensor, group=None, dim=-1):
+    if _static(tensor):
+        return _record("c_concat", tensor, group, nranks=_nranks(group))
     return _Concat.apply(tensor, group, dim)
 
 
 def _c_split(tensor, group=None, dim=-1):
+    if _static(tensor):
+        return _record("c_split", tensor, group, nranks=_nranks(group))
     return _Split.apply(tensor, group, dim)
 
 
@@ -349,7 +443,15 @@ def _c_softmax_with_cross_entropy(logits, label, group=None,
     """Per-row loss ``[..., 1]`` of logits ``[..., V / n]`` split over
     ``group`` (this rank holds rows ``index * V / n`` on) against global
     ``label`` ids ``[...]`` or ``[..., 1]``; with ``return_softmax`` also
-    the local slice of the softmax (no gradient)."""
+    the local slice of the softmax (no gradient).  Static Variables
+    record ``c_softmax_with_cross_entropy``."""
+    if _static(logits):
+        outs = dispatch_static("c_softmax_with_cross_entropy",
+                               {"Logits": [logits], "Label": [label]},
+                               _ring_attrs(group))
+        if return_softmax:
+            return outs["Loss"][0], outs["Softmax"][0]
+        return outs["Loss"][0]
     if label.dim() == logits.dim():
         label = label[..., 0]
     start = _index(group) * logits.shape[-1]

@@ -10,9 +10,9 @@ the ``dp x pp x sharding x mp`` topology of the strategy's
 wraps a model by the topology's parallel mode (``PipelineParallel``,
 ``TensorParallel``, ``ShardingParallel`` or ``DataParallelSPMD``) and
 :func:`distributed_optimizer` an optimizer in ``HybridParallelOptimizer``
-(:mod:`.meta_parallel`); ``meta_optimizers`` and ``utils.recompute`` come
-with them.  The parameter-server path is out of scope, as in the
-reference.
+(:mod:`.meta_parallel`); ``meta_optimizers``, ``utils`` (``recompute``,
+the file systems), ``elastic`` and the ``launch`` module path come with
+them.  The parameter-server path is out of scope, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from .. import env as dist_env
 from ..parallel import init_parallel_env
+from . import elastic  # noqa: F401
 from . import meta_optimizers  # noqa: F401
 from . import meta_parallel  # noqa: F401
 from . import utils  # noqa: F401

@@ -435,7 +435,8 @@ class RowParallelLinear(_Parallel):
 
 class ParallelCrossEntropy(Layer):
     """Softmax cross-entropy over vocabulary-split logits, ``[..., 1]`` per
-    row, as the reference's ``c_softmax_with_cross_entropy``."""
+    row, as the reference's ``c_softmax_with_cross_entropy``; in a static
+    program it records that op."""
 
     def __init__(self, mp_group=None, name=None):
         super().__init__()
@@ -443,7 +444,11 @@ class ParallelCrossEntropy(Layer):
 
     def forward(self, input, label):
         from ....dygraph import tracer
+        from ....framework import program as fw
 
+        if isinstance(input, fw.Variable):
+            # a static program records the reference's op on the ring
+            return _c_softmax_with_cross_entropy(input, label, self._group)
         group = self._group if self._group is not None else _mp()[0]
         logits, = _amp_cast("c_softmax_with_cross_entropy",
                             [_as_tensor(input)])

@@ -18,7 +18,7 @@ from typing import List
 import torch.distributed as dist
 
 from .. import mesh as mesh_mod
-from ..collective import Group
+from ..collective import Group, new_group
 
 
 class CommunicateTopology:
@@ -113,17 +113,13 @@ class HybridCommunicateGroup:
         self._dp_rank, self._pp_rank = c["dp"], c["pp"]
         self._sharding_rank, self._mp_rank = c["sharding"], c["mp"]
 
-        def group(i, axis):
-            ranks = self.mesh.group_ranks(axis)
-            return Group(ranks.index(self.global_rank), len(ranks), i,
-                         ranks, self.mesh.group(axis))
-
-        self._dp_group = group(1, "dp")
-        self._pp_group = group(2, "pp")
-        self._sharding_group = group(3, "sharding")
-        self._mp_group = group(4, "mp")
+        self._dp_group = new_group(axis_name="dp")
+        self._pp_group = new_group(axis_name="pp")
+        self._sharding_group = new_group(axis_name="sharding")
+        self._mp_group = new_group(axis_name="mp")
         self._check_group = Group(self.global_rank, self.nranks, 0,
-                                  list(range(self.nranks)), dist.group.WORLD)
+                                  list(range(self.nranks)),
+                                  process_group=dist.group.WORLD)
 
     def get_parallel_mode(self):
         if (self._mp_degree == 1 and self._pp_degree == 1

@@ -8,7 +8,9 @@ device mesh; here :func:`init_parallel_env` starts one
 * the backend is NCCL on the card unless the caller asks for gloo
   (``backend="gloo"``, the CPU tests' choice); without a card and without
   ``backend="gloo"`` it raises, as :func:`paddle_tpu_torch.device.
-  default_device` does.  A rank's tensors live on ``cuda:<local rank>``;
+  default_device` does.  A rank's tensors live on ``cuda:<device id>``
+  (:func:`~paddle_tpu_torch.distributed.env.get_device_id`: the
+  launcher's ``FLAGS_selected_gpus``, else the local rank);
 * the rendezvous is a ``FileStore`` at ``store_path`` when the caller
   gives one, else ``MASTER_ADDR`` / ``MASTER_PORT`` from the environment
   (``PADDLE_MASTER`` for the address as the reference's launcher sets
@@ -17,7 +19,9 @@ device mesh; here :func:`init_parallel_env` starts one
   instead of hanging.  Nothing retries a failed collective elsewhere.
 
 It is idempotent: a second call returns the environment of the group
-already up.
+already up.  A new group starts without the groups and ring bindings of
+an earlier, destroyed one (:func:`~paddle_tpu_torch.distributed.
+collective.new_group`).
 """
 
 from __future__ import annotations
@@ -62,13 +66,13 @@ class ParallelEnv:
 
     @property
     def device_id(self):
-        return self._local_rank
+        return dist_env.get_device_id()
 
     @property
     def device(self) -> torch.device:
-        """``cuda:<local rank>`` under NCCL, the CPU under gloo."""
+        """``cuda:<device id>`` under NCCL, the CPU under gloo."""
         if dist.is_initialized() and dist.get_backend() == "nccl":
-            return torch.device("cuda", self._local_rank)
+            return torch.device("cuda", self.device_id)
         return torch.device("cpu")
 
     @property
@@ -123,10 +127,13 @@ def init_parallel_env(backend: Optional[str] = None,
                 "MASTER_PORT in the environment, or store_path")
         kw["init_method"] = f"tcp://{addr}:{port}"
     if backend == "nccl":
-        device = torch.device("cuda", dist_env.get_local_rank())
+        device = torch.device("cuda", dist_env.get_device_id())
         torch.cuda.set_device(device)
         kw["device_id"] = device
     dist.init_process_group(**kw)
+    from .collective import _forget_groups
+
+    _forget_groups()
     return ParallelEnv()
 
 

@@ -1,18 +1,19 @@
-"""``paddle.incubate``: imperative quantization (:mod:`.quant`).
+"""``paddle.incubate``: imperative quantization (:mod:`.quant`) and the
+automatic checkpoints of elastic jobs (:mod:`.auto_checkpoint`).
 
-Counterpart of ``paddle_tpu/incubate/__init__.py`` for ``quant``.  The
-reference's other names (the wrapper optimizers, ``asp``,
-``auto_checkpoint``, the fused softmax masks) wait for ROADMAP A.12:
-each raises, naming it.
+Counterpart of ``paddle_tpu/incubate/__init__.py`` for those two.  The
+reference's other names (the wrapper optimizers, ``asp``, the fused
+softmax masks) wait for ROADMAP A.12: each raises, naming it.
 """
 
+from . import auto_checkpoint  # noqa: F401
 from . import quant  # noqa: F401
 
-__all__ = ["quant"]
+__all__ = ["quant", "auto_checkpoint"]
 
 _LATER = ("ExponentialMovingAverage", "LookAhead", "ModelAverage",
-          "GradientMergeOptimizer", "asp", "auto_checkpoint",
-          "softmax_mask_fuse", "softmax_mask_fuse_upper_triangle")
+          "GradientMergeOptimizer", "asp", "softmax_mask_fuse",
+          "softmax_mask_fuse_upper_triangle")
 
 
 def __getattr__(name):

@@ -43,7 +43,9 @@ built with ``use_parallel`` under a mesh whose mp degree is above 1 holds
 its rank's tensor-parallel slices (:func:`paddle_tpu_torch.weights.
 tp_index`: heads of the fused QKV, columns of fc1, rows of proj and fc2,
 vocabulary rows of the tied embedding) of the weights the one-device
-model of the same seed holds.
+model of the same seed holds.  Either step's state saves to the sharded
+checkpoint and loads into any layout (:func:`train_state_dict`,
+:func:`save_train_state`, :func:`load_train_state`).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import DeviceLike, resolve_device, resolve_dtype
 from ..distributed import mesh as mesh_mod
+from ..distributed.checkpoint import Shard
 from ..distributed.collective import (_all_gather_flat, _c_concat,
                                       _c_identity, _coalesced, _Flat,
                                       _gather, _RecvAct, _reduce_scatter_flat,
@@ -73,7 +76,7 @@ from ..framework import random as _random
 from ..kernels.attention import sdpa
 from ..ops.nn_ops import dropout as _dropout
 from ..ops.quant_ops import w8a8_matmul
-from ..weights import attn_split, gpt_params, tp_shard
+from ..weights import _tp_length, attn_split, gpt_params, tp_index, tp_shard
 from .generation import _ln
 
 
@@ -768,7 +771,53 @@ def build_functional_train_step(model, lr: float = 1e-4,
         opt_state["t"] = t
         return params, opt_state, loss.detach()
 
+    step.names = _leaf_names(cfg)
+    step.shard_of = lambda kind, i, t: t
     return step, params, opt_state
+
+
+def _leaf_names(cfg):
+    """Port names of :meth:`GPTParams.leaves`, in its order."""
+    return ["wte", "wpe", *[f"blocks.{b}.{k}" for b in range(cfg.num_layers)
+                            for k in _BLOCK_KEYS], "lnf_g", "lnf_b"]
+
+
+def train_state_dict(step, params, opt_state):
+    """A train step's state as the sharded checkpoint's state dict
+    (:mod:`paddle_tpu_torch.distributed.checkpoint`): ``param/<name>``,
+    ``m/<name>``, ``v/<name>`` and ``master/<name>`` by port name, each
+    this rank's tensor or, where the step partitions it (tensor-parallel
+    slices, ZeRO chunks), its :class:`~paddle_tpu_torch.distributed.
+    checkpoint.Shard`; ``t`` the step count.  Any layout loads into any
+    other: one device's state from a distributed run's checkpoint, and
+    the reverse."""
+    sd = {}
+    for kind, tensors in (("param", params), ("m", opt_state["m"]),
+                          ("v", opt_state["v"]),
+                          ("master", opt_state.get("master"))):
+        if tensors is None:
+            continue
+        for i, name in enumerate(step.names):
+            sd[f"{kind}/{name}"] = step.shard_of(kind, i, tensors[i])
+    sd["t"] = torch.tensor(opt_state["t"], dtype=torch.int64)
+    return sd
+
+
+def save_train_state(step, params, opt_state, path) -> None:
+    """Write the step's state to ``path`` (every rank calls it)."""
+    from ..distributed.checkpoint import save_state_dict
+
+    save_state_dict(train_state_dict(step, params, opt_state), path)
+
+
+def load_train_state(step, params, opt_state, path) -> None:
+    """Fill the step's ``params`` and ``opt_state`` in place from the
+    checkpoint at ``path``, whatever layout wrote it."""
+    from ..distributed.checkpoint import load_state_dict
+
+    sd = train_state_dict(step, params, opt_state)
+    load_state_dict(sd, path)
+    opt_state["t"] = int(sd["t"])
 
 
 # ---------------------------------------------------------------------------
@@ -986,9 +1035,30 @@ def _distributed_step(model, mesh, stage, remat, ce_chunk_rows, cast, opts):
             return list(params)
         return _all_gather_flat(params, flats, sgroup, params[0].dtype)
 
+    # the checkpoint's view of each leaf: its tensor-parallel index (the
+    # global leaf's rows or columns this rank holds) and, where ZeRO
+    # partitions it, the flat chunk's offset
+    where = [tp_index(cfg, n, mp, tp.rank) if tp is not None else None
+             for n in names]
+    shapes = []
+    for p, n, w in zip(held, names, where):
+        shape = list(p.shape)
+        if w is not None:
+            shape[w[0]] = _tp_length(cfg, n.rsplit(".", 1)[-1])
+        shapes.append(shape)
+
+    def shard_of(kind, i, t):
+        flat = stage >= (3 if kind == "param" else 1)
+        if not flat and where[i] is None:
+            return t
+        dim, idx = where[i] if where[i] is not None else (None, None)
+        return Shard(t, shapes[i], dim, idx,
+                     flat=flats[i].r * flats[i].chunk if flat else None)
+
     step.names = names
     step.unshard = unshard
     step.stage = stage
+    step.shard_of = shard_of
     return step, params, opt_state
 
 

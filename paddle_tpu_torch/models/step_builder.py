@@ -26,11 +26,17 @@ returns ``(params, buffers, opt_state, loss)``.
 
 ``inline_kernels`` groups the reference's jitted kernels; eager PyTorch
 has nothing to group, so it is accepted and has no effect (ROADMAP C).
-On a mesh whose ``dp_axis`` has more than one rank the reference shards
-one SPMD program over the global batch.  BatchNorm already reduces its
-statistics over the data-parallel group (``ops/nn_ops.py``), but this
-step does not yet average its gradients over the ranks, so the port
-raises there (ROADMAP A.11).
+
+**Data parallel.**  On an installed hybrid mesh whose data-parallel group
+(``dp`` x ``sharding`` for ``dp_axis="dp"``, else the ``dp_axis`` group)
+has more than one rank, each rank's batch is its rows of the global batch
+(:func:`~paddle_tpu_torch.distributed.mesh.shard_batch`), as the
+reference shards one SPMD program over it: the gradients are averaged
+over the group (one coalesced all-reduce) before the update, so every
+rank takes the update of the global batch's mean loss, and the returned
+loss is that mean on every rank.  BatchNorm reduces its statistics over
+the same group (``ops/nn_ops.py``).  Such a mesh without an initialised
+process group raises RuntimeError.
 """
 
 from __future__ import annotations
@@ -39,8 +45,29 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..distributed.collective import _coalesced
 
 __all__ = ["build_model_train_step"]
+
+
+def _data_group(mesh, dp_axis):
+    """``(process group, ranks)`` of the mesh's data-parallel group, or
+    None on one rank."""
+    if mesh is None:
+        return None
+    axes = ("dp", "sharding") if dp_axis == "dp" else dp_axis
+    n = int(np.prod([mesh.shape[a] for a in (
+        axes if isinstance(axes, tuple) else (axes,))]))
+    if n <= 1:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"build_model_train_step on a mesh with a data-parallel group "
+            f"of {n} ranks needs an initialised process group "
+            "(init_parallel_env / fleet.init)")
+    return mesh.group(axes), n
 
 
 def build_model_train_step(
@@ -73,11 +100,7 @@ def build_model_train_step(
 
     if optimizer not in ("momentum", "adamw"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
-    if mesh_mod.get_mesh() is not None and mesh_mod.axis_size(dp_axis) > 1:
-        raise NotImplementedError(
-            f"build_model_train_step on a mesh with {dp_axis}="
-            f"{mesh_mod.axis_size(dp_axis)}: the step does not yet average "
-            "its gradients over the data-parallel ranks (ROADMAP A.11)")
+    data = _data_group(mesh_mod.get_mesh(), dp_axis)
 
     model.train()
     param_objs = [p for p in model.parameters()
@@ -136,6 +159,13 @@ def build_model_train_step(
             grads = torch.autograd.grad(loss, masters, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(params, grads)]
+        if data is not None:
+            group, n = data
+            _coalesced(grads, lambda b: dist.all_reduce(b, group=group))
+            torch._foreach_div_(grads, float(n))
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / n
         t = opt_state["t"] + 1
         with torch.no_grad():
             if optimizer == "momentum":

@@ -3,8 +3,9 @@ it registers the math, activation, tensor, nn, sequence, optimizer and
 quant ops (:mod:`.registry`), which :func:`.dispatch.dispatch` runs eagerly; plus
 the numerics the GPT layers call directly (the quantization decisions of
 :mod:`.quant_ops`, :func:`.nn_ops.dropout`); :func:`.dispatch.dispatch`
-appends them to a Program in static mode.  The collective op module of
-the reference waits for a later slice (ROADMAP A.10)."""
+appends them to a Program in static mode.  :mod:`.collective_ops`
+registers the reference's ``c_*`` collective ops over
+``torch.distributed``."""
 
 from . import registry  # noqa: F401
 from . import math_ops  # noqa: F401
@@ -14,6 +15,7 @@ from . import nn_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import quant_ops  # noqa: F401
+from . import collective_ops  # noqa: F401
 from .dispatch import dispatch, dispatch_dygraph, dispatch_static, single  # noqa: F401
 from .nn_ops import dropout
 from .quant_ops import (dequantize_int4, pack_int4, quantize_int4_per_token,

@@ -83,6 +83,10 @@ class OpDef:
     # hand-written grad op outputs that rebind forward inputs' variables
     # (grad op output slot -> forward input slot): data_norm's statistics
     grad_rebinds: Dict[str, str] = field(default_factory=dict)
+    # hand-written grad op outputs under another slot than ``<in>@GRAD``
+    # (forward input slot -> grad op output slot): ``c_allreduce_sum``'s
+    # grad op is a ``c_identity`` whose ``Out`` is ``X@GRAD``
+    grad_out_slots: Dict[str, str] = field(default_factory=dict)
     # a one-off op, weakly registered (see register_ephemeral)
     ephemeral: bool = False
 
@@ -99,7 +103,8 @@ def register_op(type: str, *, needs_rng: bool = False,
                 nondiff_out_slots: Sequence[str] = (),
                 grad_maker: Optional[Callable] = None,
                 no_grad: bool = False,
-                grad_rebinds: Optional[Dict[str, str]] = None):
+                grad_rebinds: Optional[Dict[str, str]] = None,
+                grad_out_slots: Optional[Dict[str, str]] = None):
     """Decorator registering a kernel function under ``type``."""
 
     def deco(fn: Callable) -> Callable:
@@ -107,7 +112,8 @@ def register_op(type: str, *, needs_rng: bool = False,
             type=type, kernel=fn, needs_rng=needs_rng,
             list_slots=set(list_slots), nondiff_slots=set(nondiff_slots),
             nondiff_out_slots=set(nondiff_out_slots), grad_maker=grad_maker,
-            no_grad=no_grad, grad_rebinds=dict(grad_rebinds or {}))
+            no_grad=no_grad, grad_rebinds=dict(grad_rebinds or {}),
+            grad_out_slots=dict(grad_out_slots or {}))
         return fn
 
     return deco
@@ -206,11 +212,17 @@ class _HandGrad(torch.autograd.Function):
         res = run_kernel(get_op_def(gtype), gins, spec["attrs"])
         out = []
         for slot, n in spec["layout"]:
-            gs = res.get(slot + GRAD_SUFFIX)
+            gs = res.get(_grad_slot(op_def, slot))
             diff = slot not in op_def.nondiff_slots
             for i in range(n):
                 out.append(gs[i] if (gs is not None and diff) else None)
         return (None, *out)
+
+
+def _grad_slot(op_def: OpDef, slot: str) -> str:
+    """The hand-written grad op's output slot of input ``slot``'s
+    gradient."""
+    return op_def.grad_out_slots.get(slot, slot + GRAD_SUFFIX)
 
 
 def _unflatten(flat, layout):
@@ -511,7 +523,7 @@ def _hand_grad_descs(op, fwd: OpDef, no_grad_set) -> List[dict]:
             continue
         names = [n for n in op.input(slot) if n not in no_grad_set]
         if names:
-            outputs[slot + GRAD_SUFFIX] = [n + GRAD_SUFFIX for n in names]
+            outputs[_grad_slot(fwd, slot)] = [n + GRAD_SUFFIX for n in names]
     return [{"type": gtype,
              "inputs": {s: list(v) for s, v in gins.items()},
              "outputs": outputs, "attrs": dict(op.attrs)}]

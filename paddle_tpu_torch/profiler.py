@@ -222,6 +222,17 @@ def profiler(state: str = "All", sorted_key: Optional[str] = None,
         stop_profiler(sorted_key, profile_path)
 
 
+def start(logdir: Optional[str] = None) -> None:
+    """The 2.x-style alias of ``start_profiler("All", logdir=logdir)``."""
+    start_profiler("All", logdir=logdir)
+
+
+def stop(sorted_key: Optional[str] = None,
+         profile_path: str = _DEFAULT_PROFILE_PATH) -> None:
+    """The 2.x-style alias of ``stop_profiler``."""
+    stop_profiler(sorted_key, profile_path)
+
+
 # ---------------------------------------------------------------------------
 # the utils.profiler surface (the reference's python/paddle/utils/profiler.py)
 # ---------------------------------------------------------------------------

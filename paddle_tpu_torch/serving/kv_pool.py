@@ -51,18 +51,23 @@ class KVPool:
     """Fixed-size page pool + refcounted free-list allocator.  The pool
     lives on ``device`` (the CUDA card unless the caller passes one; see
     :mod:`paddle_tpu_torch.device`) in ``dtype`` (default: the device's,
-    fp32 on the CPU and bf16 on the card)."""
+    fp32 on the CPU and bf16 on the card).  The arguments are the
+    reference's, in its order (``int8=True`` means ``kv_bits=8``), and
+    ``device``, keyword-only."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
-                 num_pages: int, page_size: int, *,
+                 num_pages: int, page_size: int,
                  dtype: Optional[torch.dtype] = None,
-                 device: DeviceLike = None, prefix_cache: bool = False,
+                 int8: bool = False, prefix_cache: bool = False,
                  num_kv_heads: Optional[int] = None,
                  kv_bits: Optional[int] = None,
-                 window: Optional[int] = None):
+                 window: Optional[int] = None, *,
+                 device: DeviceLike = None):
         if num_pages < 2:
             raise ValueError("KVPool needs >= 2 pages (page 0 is the "
                              "reserved null page)")
+        if kv_bits is None and int8:
+            kv_bits = 8
         if kv_bits not in (None, 4, 8):
             raise ValueError(f"kv_bits must be None, 4 or 8, got {kv_bits}")
         kv_heads = num_kv_heads or num_heads

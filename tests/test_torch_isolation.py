@@ -70,7 +70,18 @@ def test_port_imports_no_jax_and_no_reference_at_runtime():
         "paddle_tpu_torch.examples.train_vit, "
         "paddle_tpu_torch.examples.pretrain_bert, "
         "paddle_tpu_torch.metric, paddle_tpu_torch.models.rec, "
-        "paddle_tpu_torch.examples.train_deepfm, chip_smoke\n"
+        "paddle_tpu_torch.examples.train_deepfm, "
+        "paddle_tpu_torch.ops.collective_ops, paddle_tpu_torch.device, "
+        "paddle_tpu_torch.distributed.launch, "
+        "paddle_tpu_torch.distributed.checkpoint, "
+        "paddle_tpu_torch.distributed.utils, "
+        "paddle_tpu_torch.distributed.cloud_utils, "
+        "paddle_tpu_torch.distributed.fleet.launch, "
+        "paddle_tpu_torch.distributed.fleet.elastic, "
+        "paddle_tpu_torch.distributed.fleet.utils.fs, "
+        "paddle_tpu_torch.incubate.auto_checkpoint, "
+        "paddle_tpu_torch.examples.train_gpt, "
+        "paddle_tpu_torch.examples.train_multiprocess_dp, chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps([len(new), bad]))\n")
@@ -124,6 +135,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_functional_train_step(model, mesh=object())
     with pytest.raises(RuntimeError, match="process group"):
         build_functional_train_step(model, dp_axis="dp")
+    # the examples of the distributed slice default to the card
+    from paddle_tpu_torch.examples import train_gpt, train_multiprocess_dp
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_gpt.build(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        train_multiprocess_dp.main(["--steps", "1"])
 
 
 def test_serve_cli_wants_the_card_without_device():

@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu as jp
+from paddle_tpu.framework import unique_name as jnames
 from paddle_tpu.models.step_builder import build_model_train_step as jbuild
 
 import paddle_tpu_torch as tp
@@ -44,6 +46,7 @@ from paddle_tpu_torch.models.step_builder import \
 from torch_step_parity import loss_rel as _loss_rel
 from torch_step_parity import pair as _pair
 from torch_step_parity import run_both as _run_both
+import torch_dist_workers as W
 
 
 @pytest.fixture(autouse=True)
@@ -154,6 +157,9 @@ def test_signature_matches_reference():
 
 
 def test_refuses_a_data_parallel_mesh_and_unknown_optimizers():
+    """A mesh whose data-parallel group has 2 ranks needs a process group
+    (the step averages its gradients over it; without one it raises);
+    an unknown optimizer raises."""
     class _Mesh:
         shape = {"dp": 2, "pp": 1, "sharding": 1, "mp": 1}
 
@@ -162,9 +168,44 @@ def test_refuses_a_data_parallel_mesh_and_unknown_optimizers():
     old = mesh_mod.get_mesh()
     mesh_mod.set_mesh(_Mesh())
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        with pytest.raises(RuntimeError, match="initialised process group"):
             tbuild(tm, loss(tp))
     finally:
         mesh_mod.set_mesh(old)
     with pytest.raises(ValueError, match="unknown optimizer"):
         tbuild(tm, loss(tp), optimizer="sgd")
+
+
+@pytest.mark.parametrize("dims", [{"dp": 2}, {"sharding": 2}],
+                         ids=["dp2", "sharding2"])
+def test_data_parallel_step_matches_reference_global_batch(dims, tmp_path):
+    """``build_model_train_step`` on 2 gloo ranks, each feeding its rows of
+    the global batch (BatchNorm's statistics and the gradients reduced
+    over dp x sharding), against the reference's step over the whole
+    batch: 2 momentum steps, losses to 1e-5 relative, parameters and
+    BatchNorm buffers to 1e-5 (a sum over ranks in another order)."""
+    with jnames.guard():
+        jp.seed(0)
+        jm = W.bn_net(jp)
+    state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    r = np.random.RandomState(3)
+    batches = [(r.randn(8, 3, 6, 6).astype("float32"),
+                r.randint(0, 5, (8, 1)).astype("int64")) for _ in range(2)]
+    opts = dict(optimizer="momentum", lr=0.1, weight_decay=1e-4)
+    js, jpar, jbuf, jopt = jbuild(jm, W.bn_net_loss(jp), compute_dtype=None,
+                                  **opts)
+    losses = []
+    for x, y in batches:
+        jpar, jbuf, jopt, loss = js(jpar, jbuf, jopt, x, y)
+        losses.append(float(np.asarray(loss)))
+    res = W.run(tmp_path, 2, "step_builder_dp",
+                {"dims": dims, "state": state, "batches": batches,
+                 "opts": opts})
+    for rank in res:
+        np.testing.assert_allclose(rank["losses"], losses, rtol=1e-5)
+        for got, want in zip(rank["params"], jpar):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                       atol=1e-5)
+        for got, want in zip(rank["buffers"], jbuf):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                       atol=1e-5)

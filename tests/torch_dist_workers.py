@@ -797,3 +797,204 @@ def rec_mp_train(payload):
     return {"losses": losses, "state": state_dict_to_numpy(model),
             "distributed": [model.embedding.weight.is_distributed,
                             model.fo_weight.weight.is_distributed]}
+
+
+# -- the collective ops, the checkpoint, the generic step, train_gpt --------
+
+# op -> (input slots, output slot of the gradient's cotangent); the inputs
+# of each rank are payload[op][slot][rank]
+COLLECTIVE_OPS = ("c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+                  "c_allreduce_prod", "mp_allreduce_sum", "c_identity",
+                  "c_broadcast", "c_allgather", "c_reducescatter",
+                  "alltoall", "c_concat", "c_split", "c_embedding",
+                  "c_softmax_with_cross_entropy", "barrier",
+                  "c_sync_calc_stream", "c_sync_comm_stream",
+                  "c_wait_compute")
+
+
+def collective_ops(payload):
+    """Each collective op's outputs and (where it has one) its input
+    gradients for the payload's output gradients, on this rank's inputs
+    (``registry.run_kernel`` / ``registry.op_grad``, the forward on ring
+    0, the world); then p2p (``send_v2`` / ``recv_v2`` / ``partial_send``
+    from rank 0 to rank 1), ``c_embedding`` with this rank's own rows,
+    and a static program of the tensor-parallel pattern run by the
+    Executor."""
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.ops import registry as R
+
+    tp.set_device("cpu")
+    r = dist.get_rank()
+    out = {}
+    for op, case in payload["ops"].items():
+        ins = {s: [torch.as_tensor(v[r])] for s, v in case["ins"].items()}
+        attrs = dict(case["attrs"])
+        res = R.run_kernel(R.get_op_def(op), ins, attrs)
+        got = {s: _np(v[0]) for s, v in res.items()}
+        if case.get("grad") is not None:
+            slot, g = case["grad"]
+            grads = R.op_grad(op, ins, attrs,
+                              {slot: [torch.as_tensor(g[r])]})
+            got["grads"] = {s: _np(v[0]) for s, v in grads.items()}
+        out[op] = got
+    x = torch.arange(12.0).reshape(3, 4) * (r + 1)
+    if r == 0:
+        R.run_kernel(R.get_op_def("send_v2"), {"X": [x]},
+                     {"ring_id": 0, "peer": 1})
+        R.run_kernel(R.get_op_def("partial_send"), {"X": [x]},
+                     {"ring_id": 0, "peer": 1, "num": 2, "id": 1})
+    elif r == 1:
+        out["recv_v2"] = _np(R.run_kernel(
+            R.get_op_def("recv_v2"), {},
+            {"ring_id": 0, "peer": 0, "out_shape": [3, 4],
+             "dtype": "float32"})["Out"][0])
+        out["partial_recv"] = _np(R.run_kernel(
+            R.get_op_def("recv_v2"), {},
+            {"ring_id": 0, "peer": 0, "out_shape": [6],
+             "dtype": "float32"})["Out"][0])
+    emb = payload["emb"]
+    n_local = emb["table"].shape[0] // dist.get_world_size()
+    out["emb_own_rows"] = _np(R.run_kernel(
+        R.get_op_def("c_embedding"),
+        {"W": [torch.as_tensor(emb["table"][r * n_local:(r + 1) * n_local])],
+         "Ids": [torch.as_tensor(emb["ids"])]},
+        {"ring_id": 0, "start_index": r * n_local})["Out"][0])
+    out["static_tp"] = _static_tp(payload["static"])
+    return out
+
+
+def _static_tp(p):
+    """The tensor-parallel pattern as a static program (c_embedding over
+    this rank's vocabulary rows, c_identity, a column-split matmul,
+    c_softmax_with_cross_entropy, mean) run on this rank: the loss and
+    this rank's gradients."""
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.ops.dispatch import dispatch_static
+
+    tp.set_device("cpu")
+    r, n = dist.get_rank(), dist.get_world_size()
+    v, h = p["table"].shape
+    vl = v // n
+    main, startup = static.Program(), static.Program()
+    tp.enable_static()
+    try:
+        with static.program_guard(main, startup), unique_name.guard():
+            ids = static.data("ids", list(p["ids"].shape), "int64")
+            label = static.data("label", list(p["label"].shape), "int64")
+            table = tp.create_parameter([vl, h], "float32", name="table")
+            w = tp.create_parameter([h, vl], "float32", name="w")
+            x = dispatch_static("c_embedding", {"W": [table], "Ids": [ids]},
+                                {"ring_id": 0, "start_index": r * vl})
+            x = dispatch_static("c_identity", {"X": x["Out"]},
+                                {"ring_id": 0})["Out"][0]
+            logits = tp.matmul(x, w)
+            loss = dispatch_static("c_softmax_with_cross_entropy",
+                                   {"Logits": [logits], "Label": [label]},
+                                   {"ring_id": 0})["Loss"][0]
+            avg = tp.mean(loss)
+            static.append_backward(avg)
+    finally:
+        tp.disable_static()
+    exe = static.Executor(tp.CPUPlace())
+    scope = static.global_scope()
+    exe.run(startup)
+    scope.set("table", torch.as_tensor(p["table"][r * vl:(r + 1) * vl]))
+    scope.set("w", torch.as_tensor(p["w"][:, r * vl:(r + 1) * vl]))
+    got = exe.run(main, feed={"ids": p["ids"], "label": p["label"]},
+                  fetch_list=[avg, "table@GRAD", "w@GRAD"])
+    return {"ops": [o.type for o in main.global_block().ops],
+            "loss": float(got[0]), "table_grad": np.asarray(got[1]),
+            "w_grad": np.asarray(got[2])}
+
+
+def bn_net(P):
+    """A small conv net with BatchNorm (both packages build it)."""
+    nn = P.nn
+    return nn.Sequential(nn.Conv2D(3, 4, 3, padding=1), nn.BatchNorm2D(4),
+                         nn.ReLU(), nn.Flatten(), nn.Linear(4 * 6 * 6, 5))
+
+
+def bn_net_loss(P):
+    def loss(m, x, y):
+        return P.mean(P.nn.functional.softmax_with_cross_entropy(m(x), y))
+
+    return loss
+
+
+def step_builder_dp(payload):
+    """``build_model_train_step`` over the mesh's dp x sharding group from
+    the payload's state, each rank feeding its rows of each global batch:
+    the losses, the final parameters and buffers."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models.step_builder import build_model_train_step
+    from paddle_tpu_torch.weights import load_paddle_state_dict
+
+    tp.set_device("cpu")
+    _fleet(**payload["dims"])
+    with unique_name.guard():
+        tp.seed(0)
+        model = bn_net(tp)
+    load_paddle_state_dict(model, payload["state"])
+    step, params, bufs, opt = build_model_train_step(
+        model, bn_net_loss(tp), compute_dtype=None, **payload["opts"])
+    losses = []
+    for x, y in payload["batches"]:
+        params, bufs, opt, loss = step(params, bufs, opt,
+                                       mesh_mod.shard_batch(x),
+                                       mesh_mod.shard_batch(y))
+        losses.append(float(loss))
+    return {"losses": losses, "params": [_np(p) for p in params],
+            "buffers": [_np(b) for b in bufs]}
+
+
+def ckpt_train(payload):
+    """Per run: the distributed GPT step over the run's degrees from the
+    reference's weights, ``steps`` steps, then its state saved to the
+    run's directory (every rank); this rank's unsharded parameters."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTParams,
+                                             build_functional_train_step,
+                                             save_train_state)
+    from paddle_tpu_torch.weights import load_jax_named_params
+
+    out = []
+    for run in payload["runs"]:
+        mesh = _fleet(**run["dims"], stage=run.get("stage"))
+        cfg = GPTConfig(**payload["cfg"], use_parallel=run["dims"].get(
+            "mp", 1) > 1)
+        model = GPTParams(cfg, device="cpu")
+        load_jax_named_params(model, payload["named"])
+        step, params, opt = build_functional_train_step(model, lr=1e-3)
+        ids = mesh_mod.shard_batch(payload["ids"])
+        labels = mesh_mod.shard_batch(payload["labels"])
+        losses = []
+        for _ in range(payload["steps"]):
+            params, opt, loss = step(params, opt, ids, labels)
+            losses.append(float(loss))
+        save_train_state(step, params, opt, run["path"])
+        out.append({"losses": losses, "stage": step.stage,
+                    "coord": mesh.coord,
+                    "params": {n: _np(p) for n, p in
+                               zip(step.names, step.unshard(params))}})
+    return out
+
+
+def train_gpt_example(payload):
+    """``examples/train_gpt.py``'s build, the reference's weights loaded
+    into its model, its run: the losses."""
+    from paddle_tpu_torch.examples import train_gpt
+    from paddle_tpu_torch.weights import load_jax_named_params
+
+    job = train_gpt.build(payload["argv"])
+    load_jax_named_params(job.model, payload["named"])
+    return {"losses": train_gpt.run(job), "coord": job.mesh.coord}
