@@ -342,6 +342,29 @@ its seconds):
     ``examples/train_multiprocess_dp.py`` through the launcher (e); the
     1.3B attention's flash rows ``flash_*_gpt1p3b_bf16``, with (a)'s
     launches and (b)'s under ``launches_in``.
+17. hapi and the rest of vision (``phase_hapi``; ``--phase 17`` builds
+    and runs it alone, no result line; see the comment above ``HAPI``):
+    the fp32 flash kernels at ViT-base's attention (B=32 H=12 S=197 D=64,
+    bnsd, not causal) against their plain versions and timed (rows
+    ``flash_*_vitfit_fp32``); (a) ViT-base/16 through ``paddle.Model`` in
+    dygraph mode, fp32, on a ``DatasetFolder`` of seeded ``.npy`` images
+    through ``vision.transforms``: the first forward card vs CPU (1e-4 of
+    the logits' largest magnitude), ``fit`` with ``ModelCheckpoint``,
+    ``LRScheduler`` and ``EarlyStopping`` (12 launches of each flash kernel
+    a train batch and 12 forwards an eval batch asserted by a callback),
+    ``evaluate``, ``predict``, ``save`` / ``load`` into a fresh Model whose
+    predictions are bit for bit the first's; ms a batch, images/s, MFU,
+    peak memory, the busy share of one profiled batch; (b) 3 train_batch
+    calls through the static adapter from (a)'s initial weights against
+    an eager Model's (losses within 1e-5, 12 launches of each kernel a
+    batch in both); (c) the detection ops on the card against the port on
+    the CPU at published shapes (YOLOv3's ``yolo_box`` heads and
+    ``multiclass_nms``, ``roi_align`` on a C4 map, ``generate_proposals``,
+    DCNv2 forward and backward): counts and indices equal, values within
+    1e-5 of each output's largest magnitude, ms each; (d) ``paddle.flops``
+    and ``paddle.summary`` of ViT-base/16 equal on both devices; (e) the
+    tensor-parallel layers as a static program on a one-rank NCCL group,
+    bit for bit the eager layers.
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -367,7 +390,9 @@ plain fp32 run and its bf16 run (and under ``launches_in`` on its other
 fp32 runs), and at ViT-base's and ERNIE-3.0-base's attention in bf16
 (``flash_fwd_vit_bf16`` ...), with their launches on phase 11's runs (a)
 and (b) (and, for ERNIE, under ``launches_in`` on (c) and (d)), and at
-phase 12's shapes, with their launches on its runs (b) and (c); their
+phase 12's shapes, with their launches on its runs (b) and (c), and at
+ViT-base's attention in fp32 (``flash_fwd_vitfit_fp32`` ...), with their
+launches on phase 17 (a) (and under ``launches_in`` on (b)); their
 bounds are at the peak of the arithmetic each uses:
 bf16 tensor cores (989 TFLOP/s), the fp32 kernels' three TF32 products
 an operation (495 / 3 TFLOP/s).
@@ -6693,6 +6718,625 @@ def _gpt1p3b_rows(np, torch, errs, before):
     return {f"{name}_gpt1p3b_bf16": row for name, row in after.items()}
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+# ViT-base/16 (Dosovitskiy et al. 2021) through paddle.Model: 224 px, patch
+# 16, width 768, 12 layers of 12 heads (D=64, S=197), 1000 classes, fp32 as
+# the reference's Model runs (its prepare takes amp_configs and ignores
+# them); the data a DatasetFolder of seeded 256 x 256 x 3 uint8 .npy images
+# in 10 class folders of 32, center-cropped to 224, normalised and made
+# CHW by vision.transforms; batch 32
+HAPI = dict(arch="vit_b_16", img=224, patch=16, classes=1000, hidden=768,
+            layers=12, folders=10, per_folder=32, side=256, batch=32,
+            static_steps=3, parity_images=4)
+# the detection ops at published shapes: YOLOv3 at 608 px, 80 classes, its
+# three heads at strides 32 / 16 / 8 with the COCO anchors, and the NMS
+# settings of PaddleDetection's yolov3_darknet53 (score 0.01, top 1000 a
+# class, keep 100, IoU 0.45, no background class); roi_align and the
+# RPN's proposals on a ResNet C4 map (stride 16) of an 800 x 1088 image,
+# 512 RoIs at 14 x 14 and 15 anchors a cell (5 sizes x 3 ratios), 6000
+# proposals into NMS at 0.7 and 1000 out; DCNv2 (a mask) 3 x 3 at
+# [8, 512, 28, 28]
+YOLO = dict(batch=2, img=608, classes=80, grids=(19, 38, 76),
+            strides=(32, 16, 8),
+            anchors=((116, 90, 156, 198, 373, 326), (30, 61, 62, 45, 59, 119),
+                     (10, 13, 16, 30, 33, 23)),
+            conf=0.005, score=0.01, nms_top_k=1000, keep_top_k=100, nms=0.45)
+ROI = dict(c=1024, h=50, w=68, rois=512, out=14, stride=16)
+RPN = dict(batch=1, h=50, w=68, stride=16, sizes=(32, 64, 128, 256, 512),
+           ratios=(0.5, 1.0, 2.0), pre=6000, post=1000, nms=0.7)
+DCN = dict(batch=8, c=512, size=28, k=3)
+DET_RTOL = 1e-5     # |card - cpu| <= DET_RTOL * max |cpu|, per output
+TP_STATIC = dict(rows=512, hidden=768, ffn=3072, vocab=50304, ids=(4, 128))
+
+
+def _npy_folder(np, root, c, seed=0):
+    """``folders`` class folders of ``per_folder`` seeded uint8 HWC .npy
+    images under ``root``; returns the bytes written."""
+    rng = np.random.RandomState(seed)
+    total = 0
+    for k in range(c["folders"]):
+        d = os.path.join(root, f"class_{k:02d}")
+        os.makedirs(d)
+        for i in range(c["per_folder"]):
+            img = rng.randint(0, 256, (c["side"], c["side"], 3)).astype(
+                "uint8")
+            np.save(os.path.join(d, f"{i:03d}.npy"), img)
+            total += img.nbytes
+    return total
+
+
+class _LaunchProbe:
+    """A hapi callback asserting each batch's flash launches: ``per_train``
+    of every kernel a train batch, ``per_eval`` forwards and no backward
+    an eval batch; it keeps the train batches' host-clock times."""
+
+    def __init__(self, callbacks, per_train, per_eval):
+        from paddle_tpu_torch.kernels import KERNELS
+
+        self._k = KERNELS
+        base = callbacks.Callback
+        probe = self
+
+        class Probe(base):
+            def on_train_batch_begin(self, step, logs=None):
+                probe._begin()
+
+            def on_train_batch_end(self, step, logs=None):
+                probe._end("train", step, per_train)
+
+            def on_eval_batch_begin(self, step, logs=None):
+                probe._begin()
+
+            def on_eval_batch_end(self, step, logs=None):
+                probe._end("eval", step, per_eval)
+
+        self.callback = Probe()
+        self.times, self.batches = [], {"train": 0, "eval": 0}
+
+    def _begin(self):
+        self._before = {k: self._k[k] for k in FLASH}
+        self._t0 = time.perf_counter()
+
+    def _end(self, kind, step, want):
+        # fit and evaluate read the loss back before this hook: the batch
+        # is done on the card
+        if kind == "train":
+            self.times.append(time.perf_counter() - self._t0)
+        got = {k: self._k[k] - self._before[k] for k in FLASH}
+        if got != want:
+            raise AssertionError(f"(a) {kind} batch {step} launched {got}, "
+                                 f"expected {want}")
+        self.batches[kind] += 1
+
+
+def _vit_model(paddle, c, state=None):
+    from paddle_tpu_torch.vision import models
+
+    net = getattr(models, c["arch"])(num_classes=c["classes"],
+                                     img_size=c["img"])
+    if state is not None:
+        net.set_state_dict(state)
+    return net
+
+
+def _prepared(paddle, net, c, steps, spec=False):
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.static import InputSpec
+
+    kw = {}
+    if spec:
+        # the batch is given: ViT's class token expands to the batch, and
+        # with a None batch (-1) expand keeps its 1 in both packages, so
+        # neither's static ViT builds
+        kw = dict(inputs=[InputSpec([c["batch"], 3, c["img"], c["img"]],
+                                    "float32", "image")],
+                  labels=[InputSpec([c["batch"], 1], "int64", "label")])
+    model = paddle.Model(net, **kw)
+    sched = paddle.optimizer.lr.CosineAnnealingDecay(1e-4, T_max=2 * steps)
+    model.prepare(paddle.optimizer.AdamW(sched, parameters=net.parameters(),
+                                         weight_decay=0.01),
+                  paddle.nn.CrossEntropyLoss(), Accuracy(topk=(1, 5)))
+    return model
+
+
+def _vit_pipeline(paddle, c):
+    T = paddle.vision.transforms
+    return T.Compose([T.CenterCrop(c["img"]),
+                      T.Normalize([127.5] * 3, [127.5] * 3, "HWC"),
+                      T.Transpose()])
+
+
+def _hapi_fit(np, torch, card, tmp):
+    """(a): ViT-base/16 through ``paddle.Model`` in dygraph mode, fp32."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    c = HAPI
+    root = os.path.join(tmp, "images")
+    nbytes = _npy_folder(np, root, c)
+    ds = paddle.vision.datasets.DatasetFolder(root,
+                                              transform=_vit_pipeline(paddle,
+                                                                      c))
+    steps = len(ds) // c["batch"]
+    log(f"(a) DatasetFolder: {len(ds)} .npy images in {len(ds.classes)} "
+        f"classes, {nbytes / 2**20:.1f} MiB, a sample {ds[0][0].shape} "
+        f"{ds[0][0].dtype}")
+    paddle.seed(0)
+    net = _vit_model(paddle, c)
+    init = {k: v.numpy() for k, v in net.state_dict().items()}
+    # the first forward on the card against the CPU's, from the same weights
+    x0 = np.stack([ds[i][0] for i in range(c["parity_images"])])
+    net.eval()
+    with paddle.no_grad():
+        got = net(paddle.to_tensor(x0)).numpy()
+    paddle.set_device("cpu")
+    try:
+        with paddle.no_grad():
+            want = _vit_model(paddle, c, init)(paddle.to_tensor(x0)).numpy()
+    finally:
+        paddle.set_device("gpu")
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"(a) the first forward ({c['parity_images']} images, fp32 logits), "
+        f"card vs cpu: max |diff| / max |cpu| {err:.3e} (bound 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError("(a) ViT-base's forward on the card disagrees "
+                             "with the CPU's")
+    model = _prepared(paddle, net, c, steps)
+    fwd_only = {k: c["layers"] if k == "flash_fwd" else 0 for k in FLASH}
+    probe = _LaunchProbe(paddle.callbacks, dict.fromkeys(FLASH, c["layers"]),
+                         fwd_only)
+    ckpt = os.path.join(tmp, "ckpt")
+    cbs = [probe.callback, paddle.callbacks.ModelCheckpoint(save_dir=ckpt),
+           paddle.callbacks.LRScheduler(by_step=True),
+           paddle.callbacks.EarlyStopping(monitor="loss", patience=1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(ds, ds, batch_size=c["batch"], epochs=1, verbose=1,
+              callbacks=cbs)
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k: KERNELS[k] for k in FLASH}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lr = model._optimizer.get_lr()
+    files = sorted(os.listdir(ckpt))
+    logs = model.evaluate(ds, batch_size=c["batch"], verbose=0)
+    t1 = time.perf_counter()
+    preds = model.predict(ds, batch_size=c["batch"], stack_outputs=True)[0]
+    pred_s = time.perf_counter() - t1
+    want_launches = {k: (2 if k == "flash_fwd" else 1) * c["layers"] * steps
+                     for k in FLASH}
+    if fit_launches != want_launches or probe.batches != {"train": steps,
+                                                          "eval": steps}:
+        raise AssertionError(f"(a) fit launched {fit_launches} over "
+                             f"{probe.batches}, expected {want_launches}")
+    if files != ["0.pdopt", "0.pdparams", "final.pdopt", "final.pdparams"]:
+        raise AssertionError(f"(a) ModelCheckpoint wrote {files}")
+    if not (np.isfinite(preds).all() and preds.shape == (len(ds),
+                                                         c["classes"])):
+        raise AssertionError(f"(a) predictions {preds.shape}")
+    path = os.path.join(tmp, "vit")
+    model.save(path)
+    again = _prepared(paddle, _vit_model(paddle, c), c, steps)
+    again.load(path)
+    preds2 = again.predict(ds, batch_size=c["batch"], stack_outputs=True)[0]
+    if not np.array_equal(preds, preds2):
+        raise AssertionError("(a) the loaded Model predicts otherwise: max "
+                             f"|diff| {np.abs(preds - preds2).max()}")
+    step_s = float(np.median(probe.times[2:] or probe.times))
+    flops = c["batch"] * vit_flops_per_image(c)
+    x, y = next(iter(paddle.io.DataLoader(ds, batch_size=c["batch"])))
+    busy = _profile(torch, "ViT-base/16 Model.train_batch fp32",
+                    lambda: model.train_batch([x], [y]))
+    log(f"(a) ViT-base/16 Model.fit fp32 ({card}): {steps} train + {steps} "
+        f"eval batches of {c['batch']} in {fit_s:.2f} s (checkpoints "
+        f"included); a train batch {1e3 * step_s:.1f} ms (median after 2 "
+        f"warm-up; all {[round(1e3 * t, 1) for t in probe.times]}), "
+        f"{c['batch'] / step_s:.1f} images/s, MFU "
+        f"{100 * flops / step_s / BF16_FLOPS:.2f}% of 989 TFLOP/s (the bf16 "
+        f"peak, as the other phases' fp32 runs) and "
+        f"{100 * flops / step_s / FP32_FLOPS:.2f}% of 67 TFLOP/s (fp32 "
+        f"FMAs); predict {len(ds) / pred_s:.1f} images/s; "
+        f"max_memory_allocated {peak:.2f} GiB; device busy {100 * busy:.1f}% "
+        f"of one profiled train batch; lr after the scheduler's steps "
+        f"{lr:.3e}; eval {json.dumps(logs)}; launches {json.dumps(fit_launches)}"
+        f" ({c['layers']} of each a train batch, {c['layers']} forwards an "
+        f"eval batch); checkpoint files {files}; the reloaded Model's "
+        f"predictions bit for bit")
+    del model, again, net
+    _free(torch)
+    return init, ds, fit_launches
+
+
+def _hapi_static(np, torch, init, ds):
+    """(b): the same network through the static adapter, 3 train_batch
+    calls from (a)'s initial weights, against an eager Model's 3."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    c = HAPI
+    n = c["static_steps"]
+    loader = iter(paddle.io.DataLoader(ds, batch_size=c["batch"]))
+    batches = []
+    for _ in range(n):
+        x, y = next(loader)
+        batches.append((x.numpy(), y.numpy().reshape(-1, 1).astype("int64")))
+    losses, launches, times = {}, {}, {}
+    for mode in ("eager", "static"):
+        model = _prepared(paddle, _vit_model(paddle, c, init), c, n,
+                          spec=True)
+        if mode == "static":
+            paddle.enable_static()
+        try:
+            reset_launch_counts()
+            got, ts = [], []
+            for x, y in batches:
+                t0 = time.perf_counter()
+                got.append(float(np.asarray(
+                    model.train_batch([x], [y]).numpy()).reshape(-1)[0]))
+                ts.append(time.perf_counter() - t0)
+            launches[mode] = {k: KERNELS[k] for k in FLASH}
+        finally:
+            if mode == "static":
+                paddle.disable_static()
+        losses[mode], times[mode] = got, ts
+        del model
+        _free(torch)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["static"],
+                                                  losses["eager"]))
+    log(f"(b) ViT-base/16 through the static adapter, {n} train_batch "
+        f"calls: losses {losses['static']} against the eager Model's "
+        f"{losses['eager']} (max rel {rel:.3e}, bound 1e-5); ms a batch "
+        f"static {[round(1e3 * t, 1) for t in times['static']]}, eager "
+        f"{[round(1e3 * t, 1) for t in times['eager']]}; launches static "
+        f"{json.dumps(launches['static'])}, eager "
+        f"{json.dumps(launches['eager'])}")
+    want = dict.fromkeys(FLASH, c["layers"] * n)
+    if launches["static"] != want or launches["eager"] != want:
+        raise AssertionError(f"(b) launched {launches}, expected {want}")
+    if not rel <= 1e-5:
+        raise AssertionError("(b) the static adapter's losses differ from "
+                             "the eager Model's")
+    return launches["static"]
+
+
+def _det_inputs(np):
+    """The seeded inputs of (c), as numpy."""
+    rng = np.random.RandomState(17)
+    y, r, p, d = YOLO, ROI, RPN, DCN
+    heads = [rng.randn(y["batch"], 3 * (5 + y["classes"]), g, g).astype(
+        "float32") for g in y["grids"]]
+    img = np.full((y["batch"], 2), y["img"], "int32")
+    feat = rng.randn(1, r["c"], r["h"], r["w"]).astype("float32")
+    hi, wi = r["h"] * r["stride"], r["w"] * r["stride"]
+    xy = rng.rand(r["rois"], 2) * [wi - 64, hi - 64]
+    wh = rng.rand(r["rois"], 2) * [wi / 2, hi / 2] + 16
+    rois = np.concatenate([xy, np.minimum(xy + wh, [wi - 1, hi - 1])],
+                          1).astype("float32")
+    a = len(p["sizes"]) * len(p["ratios"])
+    scores = rng.rand(p["batch"], a, p["h"], p["w"]).astype("float32")
+    deltas = (rng.randn(p["batch"], 4 * a, p["h"], p["w"]) * 0.2).astype(
+        "float32")
+    base = []
+    for s in p["sizes"]:
+        for ratio in p["ratios"]:
+            w_ = s / np.sqrt(ratio)
+            h_ = s * np.sqrt(ratio)
+            base.append([-w_ / 2, -h_ / 2, w_ / 2, h_ / 2])
+    cy, cx = np.meshgrid(np.arange(p["h"]) * p["stride"] + 8,
+                         np.arange(p["w"]) * p["stride"] + 8, indexing="ij")
+    ctr = np.stack([cx, cy, cx, cy], -1)[:, :, None, :]
+    anchors = (ctr + np.asarray(base)[None, None]).astype("float32")
+    variances = np.ones_like(anchors)
+    im_info = np.array([[p["h"] * p["stride"], p["w"] * p["stride"]]] *
+                       p["batch"], "float32")
+    k = d["k"]
+    dcn = dict(x=rng.randn(d["batch"], d["c"], d["size"], d["size"]).astype(
+                   "float32"),
+               off=(rng.randn(d["batch"], 2 * k * k, d["size"], d["size"])
+                    * 2.0).astype("float32"),
+               mask=rng.rand(d["batch"], k * k, d["size"], d["size"]).astype(
+                   "float32"),
+               w=(rng.randn(d["c"], d["c"], k, k) * 0.02).astype("float32"),
+               b=rng.randn(d["c"]).astype("float32"),
+               g=rng.randn(d["batch"], d["c"], d["size"], d["size"]).astype(
+                   "float32"))
+    return dict(heads=heads, img=img, feat=feat, rois=rois, scores=scores,
+                deltas=deltas, anchors=anchors, variances=variances,
+                im_info=im_info, dcn=dcn)
+
+
+def _det_run(np, paddle, inp, nms_in=None):
+    """The detection ops of (c) on the current place; returns their
+    outputs as numpy, the NMS inputs (the concatenated boxes and scores)
+    and a callable per op for timing.  ``nms_in``: the NMS inputs to use
+    (the card's, so that both devices sort the same scores)."""
+    from paddle_tpu_torch.vision import ops
+
+    t = paddle.to_tensor
+    y = YOLO
+    out, calls = {}, {}
+    boxes, scores = [], []
+    for h, (x, stride, anchors) in enumerate(zip(inp["heads"], y["strides"],
+                                                 y["anchors"])):
+        xt, it = t(x), t(inp["img"])
+
+        def yb(xt=xt, it=it, stride=stride, anchors=anchors):
+            return ops.yolo_box(xt, it, list(anchors), y["classes"],
+                                y["conf"], stride, clip_bbox=True)
+
+        b, s = yb()
+        calls[f"yolo_box head {h}"] = yb
+        out[f"yolo_box{h}_boxes"], out[f"yolo_box{h}_scores"] = (
+            b.numpy(), s.numpy())
+        boxes.append(b.numpy())
+        scores.append(s.numpy())
+    if nms_in is None:
+        nms_in = (np.concatenate(boxes, 1),
+                  np.ascontiguousarray(np.concatenate(scores, 1).transpose(
+                      0, 2, 1)))
+    bt, st = t(nms_in[0]), t(nms_in[1])
+
+    def nms():
+        return ops.multiclass_nms(bt, st, y["score"], y["nms_top_k"],
+                                  y["keep_top_k"], nms_threshold=y["nms"],
+                                  normalized=False, background_label=-1,
+                                  return_index=True)
+
+    o, n, i = nms()
+    calls["multiclass_nms"] = nms
+    out["nms_out"], out["nms_num"], out["nms_index"] = (o.numpy(), n.numpy(),
+                                                        i.numpy())
+    ft, rt = t(inp["feat"]), t(inp["rois"])
+    nt = t(np.array([len(inp["rois"])], "int32"))
+
+    def roi():
+        return ops.roi_align(ft, rt, boxes_num=nt, output_size=ROI["out"],
+                             spatial_scale=1.0 / ROI["stride"])
+
+    out["roi_align"] = roi().numpy()
+    calls["roi_align"] = roi
+    gi = [t(inp[k]) for k in ("scores", "deltas", "im_info", "anchors",
+                              "variances")]
+
+    def gp():
+        return ops.generate_proposals(*gi, pre_nms_top_n=RPN["pre"],
+                                      post_nms_top_n=RPN["post"],
+                                      nms_thresh=RPN["nms"], min_size=0.0,
+                                      return_rois_num=True)
+
+    r, rs, rn = gp()
+    calls["generate_proposals"] = gp
+    out["rpn_rois"], out["rpn_scores"], out["rpn_num"] = (r.numpy(),
+                                                          rs.numpy(),
+                                                          rn.numpy())
+    d = inp["dcn"]
+    leaves = [t(d[k], stop_gradient=False) for k in ("x", "off", "w", "b",
+                                                      "mask")]
+    gt = t(d["g"])
+
+    def dcn():
+        o = ops.deform_conv2d(leaves[0], leaves[1], leaves[2], leaves[3],
+                              padding=1, mask=leaves[4])
+        paddle.sum(o * gt).backward()
+        return o
+
+    o = dcn()
+    out["dcn_out"] = o.numpy()
+    for name, leaf in zip(("x", "offset", "weight", "bias", "mask"), leaves):
+        out[f"dcn_grad_{name}"] = leaf.grad.numpy()
+        leaf.clear_grad()
+
+    def dcn_timed():
+        o = dcn()
+        for leaf in leaves:
+            leaf.clear_grad()
+        return o
+
+    calls["deform_conv2d forward + backward"] = dcn_timed
+    return out, nms_in, calls
+
+
+def _hapi_detection(np, torch, card):
+    """(c): the detection ops on the card against the port on the CPU."""
+    import paddle_tpu_torch as paddle
+
+    inp = _det_inputs(np)
+    got, nms_in, calls = _det_run(np, paddle, inp)
+    paddle.set_device("cpu")
+    try:
+        want, _, _ = _det_run(np, paddle, inp, nms_in)
+    finally:
+        paddle.set_device("gpu")
+    exact = ("nms_num", "nms_index", "rpn_num")
+    worst = {}
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"(c) {k}: card {g.shape} {g.dtype}, cpu "
+                                 f"{w.shape} {w.dtype}")
+        if k in exact:
+            if not np.array_equal(g, w):
+                bad = np.argwhere(g != w)[:5].tolist()
+                raise AssertionError(f"(c) {k} differs at {bad}")
+            continue
+        scale = max(float(np.abs(w).max()), 1e-30)
+        worst[k] = float(np.abs(g.astype("float64") - w).max()) / scale
+        if not worst[k] <= DET_RTOL:
+            i = np.unravel_index(np.argmax(np.abs(g - w)), w.shape)
+            raise AssertionError(f"(c) {k}: max |card - cpu| / max |cpu| "
+                                 f"{worst[k]:.3e} at {i}: card {g[i]} cpu "
+                                 f"{w[i]}")
+    # the NMS rows pick the same candidates in the same order: the class
+    # column and the kept scores are the card's own inputs
+    if not np.array_equal(got["nms_out"][..., :2], want["nms_out"][..., :2]):
+        raise AssertionError("(c) multiclass_nms kept other rows")
+    ms = {name: time_ms(fn, iters=3, warmup=1) for name, fn in calls.items()}
+    log(f"(c) detection ops, card vs the port on the CPU ({card}): counts "
+        f"and indices equal (NMS kept {got['nms_num'].tolist()} of "
+        f"{YOLO['keep_top_k']}, the RPN {got['rpn_num'].tolist()} of "
+        f"{RPN['post']}); values within {DET_RTOL:g} of each output's "
+        f"largest magnitude, worst {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}; "
+        f"ms on the card {json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    _free(torch)
+
+
+def _hapi_flops(np, torch):
+    """(d): paddle.flops and paddle.summary of ViT-base/16 on the card and
+    on the CPU."""
+    import paddle_tpu_torch as paddle
+
+    counts = {}
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        try:
+            net = _vit_model(paddle, HAPI)
+            with contextlib.redirect_stdout(open(os.devnull, "w")):
+                counts[dev] = (paddle.flops(net, [1, 3, HAPI["img"],
+                                                  HAPI["img"]]),
+                               paddle.summary(net)["total_params"])
+        finally:
+            paddle.set_device("gpu")
+        del net
+    log(f"(d) paddle.flops / paddle.summary of ViT-base/16 at 224 px: card "
+        f"{counts['gpu']}, cpu {counts['cpu']}")
+    if counts["gpu"] != counts["cpu"]:
+        raise AssertionError("(d) the counts differ between the devices")
+    _free(torch)
+
+
+def _hapi_tp_static(np, torch):
+    """(e): the three tensor-parallel layers as a static program on a
+    one-rank NCCL group, against the eager layers, bit for bit."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed import fleet, init_parallel_env
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+    from paddle_tpu_torch.framework import unique_name
+
+    c = TP_STATIC
+    rng = np.random.RandomState(5)
+    x = rng.randn(c["rows"], c["hidden"]).astype("float32")
+    ids = rng.permutation(c["vocab"])[:int(np.prod(c["ids"]))].reshape(
+        c["ids"]).astype("int64")
+    gy = rng.randn(c["rows"], c["hidden"]).astype("float32")
+    ge = rng.randn(*c["ids"], c["hidden"]).astype("float32")
+
+    def build():
+        return [mpp.ColumnParallelLinear(c["hidden"], c["ffn"],
+                                         gather_output=False),
+                mpp.RowParallelLinear(c["ffn"], c["hidden"],
+                                      input_is_parallel=True),
+                mpp.VocabParallelEmbedding(c["vocab"], c["hidden"])]
+
+    def forward(layers, xv, iv, gyv, gev):
+        col, row, emb = layers
+        y, e = row(col(xv)), emb(iv)
+        return [y, e], paddle.sum(y * gyv) + paddle.sum(e * gev)
+
+    with _as_launched_rank():
+        init_parallel_env()
+        try:
+            s = fleet.DistributedStrategy()
+            s.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                                "pp_degree": 1, "sharding_degree": 1}
+            fleet.init(is_collective=True, strategy=s)
+            backend = dist.get_backend()
+            with unique_name.guard():
+                eager = build()
+            outs, loss = forward(eager, *[paddle.to_tensor(a)
+                                          for a in (x, ids, gy, ge)])
+            loss.backward()
+            params = [p for m in eager for p in (m.weight, m.bias)
+                      if p is not None]
+            want = [o._t for o in outs] + [p.grad._t for p in params]
+            main, startup = static.Program(), static.Program()
+            paddle.enable_static()
+            try:
+                with static.program_guard(main, startup), unique_name.guard():
+                    vs = [static.data(n, list(a.shape), str(a.dtype))
+                          for n, a in zip(("x", "ids", "gy", "ge"),
+                                          (x, ids, gy, ge))]
+                    layers = build()
+                    souts, sloss = forward(layers, *vs)
+                    static.append_backward(sloss)
+            finally:
+                paddle.disable_static()
+            exe = static.Executor()
+            scope = static.Scope()
+            exe.run(startup, scope=scope)
+            sparams = [p for m in layers for p in (m.weight, m.bias)
+                       if p is not None]
+            for sp, p in zip(sparams, params):
+                scope.set(sp.name, p._t.detach().clone())
+            got = exe.run(main, feed={"x": x, "ids": ids, "gy": gy,
+                                      "ge": ge},
+                          fetch_list=souts + [p.name + "@GRAD"
+                                              for p in sparams],
+                          scope=scope, return_numpy=False)
+        finally:
+            dist.destroy_process_group()
+            mesh_mod.set_mesh(None)
+    if len(got) != len(want):
+        raise AssertionError(f"(e) fetched {len(got)} of {len(want)}")
+    same = [torch.equal(g._t, w) for g, w in zip(got, want)]
+    if not all(same):
+        log("(e) max |static - eager|: " + str(
+            [float((g._t.float() - w.float()).abs().max()) if
+             g._t.shape == w.shape else (tuple(g._t.shape), tuple(w.shape))
+             for g, w in zip(got, want)]))
+    ops = [o.type for o in main.global_block().ops if not o.type.endswith(
+        "_grad")]
+    log(f"(e) ColumnParallelLinear -> RowParallelLinear and "
+        f"VocabParallelEmbedding at mp 1 on a one-rank {backend} group: the "
+        f"static program's forward ops {ops}; outputs and the 5 parameters' "
+        f"gradients bit for bit the eager layers' {same}")
+    if not all(same):
+        raise AssertionError("(e) the static program differs from the eager "
+                             "layers")
+
+
+def phase_hapi(np, torch, card):
+    """Phase 17 (see the comment above HAPI): (a) ViT-base/16 through
+    ``paddle.Model`` in dygraph mode, (b) through the static adapter, (c)
+    the detection ops card vs CPU, (d) ``paddle.flops`` / ``summary``, (e)
+    the tensor-parallel layers in a static program.  Returns the ViT
+    attention's kernels-line rows and the launches of (a) and (b)."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n_tok = (HAPI["img"] // HAPI["patch"]) ** 2 + 1
+    q, k, v = _qkv_views(torch, g, "bnsd", HAPI["batch"], 12, 12, n_tok,
+                         HAPI["hidden"] // 12, torch.float32)
+    rows = _time_flash_model(np, torch, "vitfit", q, k, v, None)
+    del q, k, v
+    tmp = tempfile.mkdtemp(prefix="phase17_")
+    try:
+        init, ds, fit_launches = _hapi_fit(np, torch, card, tmp)
+        static_launches = _hapi_static(np, torch, init, ds)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del init, ds
+    _free(torch)
+    _hapi_detection(np, torch, card)
+    _hapi_flops(np, torch)
+    _hapi_tp_static(np, torch)
+    log(card)
+    return rows, {"vitfit": (
+        "phase 17 (a) ViT-base/16 Model.fit fp32 (train + eval)",
+        fit_launches,
+        {"phase 17 (b) ViT-base/16 static adapter fp32, 3 train_batch":
+         static_launches})}
+
+
 def main():
     try:
         import numpy as np
@@ -6771,6 +7415,11 @@ def main():
         phase_dist_training(np, torch, card)
         done("16 process-level distributed training")
         return 0
+    if sys.argv[1:] == ["--phase", "17"]:
+        # phase 17 alone, for work on hapi and vision: no result line
+        phase_hapi(np, torch, card)
+        done("17 hapi and vision")
+        return 0
     if sys.argv[1:] == ["--phase", "12"]:
         # phase 12 alone, for work on the encoder-decoder, the flash
         # kernels at other lengths and the rec models: no result line
@@ -6811,7 +7460,10 @@ def main():
     done("15 the rest of the eager API")
     gpt_rows, gpt_runs = phase_dist_training(np, torch, card)
     done("16 process-level distributed training")
+    hapi_rows, hapi_runs = phase_hapi(np, torch, card)
+    done("17 hapi and vision")
     kernels.update(gpt_rows)
+    kernels.update(hapi_rows)
     kernels.update(jit_kernels)
     kernels.update(bert_kernels)
     kernels.update(encoder_kernels)
@@ -6831,7 +7483,19 @@ def main():
         more = {run: c[name] for run, c in cluster.items() if name in c}
         model = next((m for m in encoder_runs if f"_{m}_" in name), None)
         shape = next((m for m in seq_runs if f"_{m}_" in name), None)
-        if "_gpt1p3b_" in name:
+        hapi = next((m for m in hapi_runs if f"_{m}_" in name), None)
+        if hapi is not None:
+            base = name.split(f"_{hapi}_")[0]
+            run, counts, others = hapi_runs[hapi]
+            n = counts[base]
+            more = {r: c[base] for r, c in others.items()}
+            src = "flash_fwd" if base == "flash_fwd" else "flash_bwd"
+            replaces = {"flash_fwd": "paddle_tpu/kernels/flash.py:74",
+                        "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
+                        "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"
+                        }[base]
+            log(f"{name}: {n} launches on the {run} run")
+        elif "_gpt1p3b_" in name:
             base = name.split("_gpt1p3b_")[0]
             n = gpt_runs["a"][base]
             more = {"phase 16 (b) GPT-1.3B --int8 --seq-major (sbnd)":

@@ -53,6 +53,10 @@ mirrors the JAX package so that every module has an obvious counterpart:
   hierarchical-sigmoid losses, ``BeamSearchDecoder`` /
   ``dynamic_decode``), ``nn/utils.py``, ``nn/quant/`` and
   ``ops/sequence_ops.py`` (the padded sequence ops);
+* the high-level API: ``hapi/`` (``paddle.Model`` with its eager and
+  static engines, ``paddle.callbacks``, ``paddle.flops``) and the rest of
+  ``vision/`` (``transforms``, the folder and tar datasets, ``image``
+  and the detection ops of ``vision.ops``);
 * ``weights.py``: lifts a JAX parameter tree (as numpy) into the port.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``
@@ -61,7 +65,8 @@ card (``gpu:0``) unless ``set_device("cpu")`` says otherwise.  The
 top-level namespace is the reference's ``paddle_tpu`` namespace for the
 modules ported so far: ``to_tensor``, ``seed``, ``set_device``,
 ``no_grad``, ``grad``, ``DataParallel``, ``io``, ``reader``, ``vision``,
-``static``, ``fluid``, ``jit``, ``inference``, ``incubate``,
+``static``, ``fluid``, ``jit``, ``inference``, ``incubate``, ``hapi``,
+``Model``, ``callbacks``, ``flops``,
 ``enable_static``, ``save``, ``load``, ``batch``, the tensor functions
 and the helpers (``get_cudnn_version``, ``is_compiled_with_*``,
 ``set_printoptions``, ``summary``, ``check_shape``, ``monkey_patch_*``),
@@ -132,6 +137,9 @@ from . import fluid  # noqa: F401
 from . import jit  # noqa: F401
 from . import inference  # noqa: F401
 from . import incubate  # noqa: F401
+from . import hapi  # noqa: F401
+from .hapi import Model  # noqa: F401
+from .hapi import callbacks  # noqa: F401
 
 VarBase = Tensor
 in_dynamic_mode = in_dygraph_mode

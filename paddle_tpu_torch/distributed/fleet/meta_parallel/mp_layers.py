@@ -34,6 +34,19 @@ on its device, the current place unless ``device`` says otherwise, or
 from its ``weight_attr``'s initializer) and keeps its rank's slice, so a
 layer equals the slice of the one-rank layer of that seed;
 :meth:`~_Parallel.set_global` loads given global weights.
+
+Without a hybrid mesh the layers are one rank's (mp 1), as the
+reference's are before ``fleet.init``.  At mp 1 (with a mesh or without)
+a static program records what the reference's records, ``F.linear``'s
+``matmul_v2`` / ``elementwise_add`` and ``F.embedding``'s
+``lookup_table_v2``, and so does an eager call without a mesh.  At mp > 1
+a static program records the collectives on the mesh's ``mp`` axis:
+``c_identity`` before a column-parallel product and ``c_concat`` after it
+(``gather_output``), ``c_split`` (unless ``input_is_parallel``) before a
+row-parallel product and ``mp_allreduce_sum`` after it, ``c_embedding``
+with this rank's first row as ``start_index``.  The reference records the
+one-rank ops there too and lets GSPMD shard them; a port program runs in
+each rank's process.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from ....device import resolve_device
 from ....dygraph.tensor import Tensor
 from ....nn.layer_base import Layer
 from ....framework import random as _random
+from ....nn.initializer import Normal, XavierUniform
 from ....ops.quant_ops import _QMAX, _scale, w8a8_matmul
 from ... import mesh as mesh_mod
 from ...collective import (_c_concat, _c_identity, _c_softmax_with_cross_entropy,
@@ -204,11 +218,18 @@ def parallel_cross_entropy(logits, label, group):
 
 
 def _mp():
+    """(group, degree, rank) of the mesh's ``mp`` axis; without a mesh
+    one rank's (None, 1, 0)."""
     mesh = mesh_mod.get_mesh()
     if mesh is None:
-        raise RuntimeError("tensor-parallel layers need the hybrid mesh: "
-                           "fleet.init() or build_hybrid_mesh() first")
+        return None, 1, 0
     return mesh.group("mp"), mesh.shape["mp"], mesh.coord["mp"]
+
+
+def _static(x) -> bool:
+    from ....framework import program as fw
+
+    return isinstance(x, fw.Variable)
 
 
 def _split(n, parts, what):
@@ -295,8 +316,13 @@ class _Parallel(Layer):
         return torch.as_tensor(list(index), dtype=torch.long,
                                device=self.device_)
 
-    def _make(self, shape, attr, dim, draw, is_bias=False, index=None):
-        """This rank's part of the global parameter of ``shape``."""
+    def _make(self, shape, attr, dim, draw, is_bias=False, index=None,
+              static_init=None):
+        """This rank's part of the global parameter of ``shape``; built in
+        static mode, a parameter of the program of this rank's shape,
+        initialized by ``static_init`` (or the attr's initializer) in the
+        startup program."""
+        from ....framework import program as fw
         from ....framework import unique_name
         from ....nn.initializer import Constant, _global_initializer
         from ....nn.layer_base import EagerParameter, ParamAttr
@@ -304,6 +330,18 @@ class _Parallel(Layer):
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
+        if not fw.in_dygraph_mode():
+            idx = self._indices(shape[dim] if dim is not None else 0, dim,
+                                index)
+            local = list(shape)
+            if idx is not None:
+                local[dim] = len(idx)
+            p = self.create_parameter(local, attr, is_bias=is_bias,
+                                      default_initializer=static_init)
+            p.is_distributed = idx is not None and self.mp > 1
+            p.tp_split = (None if idx is None else
+                          (dim, idx.cpu().numpy(), int(shape[dim])))
+            return p
         init = attr.initializer or _global_initializer(is_bias)
         if init is None and is_bias:
             init = Constant(0.0)
@@ -347,6 +385,33 @@ class _Parallel(Layer):
                     idx, device=full.device))
             p._t.copy_(full)
 
+    def _one_rank(self, x) -> bool:
+        """The reference's one-rank ops apply: a static program at mp 1,
+        or any call without a mesh."""
+        return self.group is None or (self.mp == 1 and _static(x))
+
+    def _linear(self, x, collective_in, collective_out):
+        """The linear layers' forward: ``F.linear`` for one rank; a static
+        program at mp > 1 records ``collective_in(x)``, the product, then
+        ``collective_out`` of it (which adds the bias)."""
+        from ....nn import functional as F
+
+        if not _static(x):
+            x = _as_tensor(x)
+        if self._one_rank(x):
+            if self.int8:
+                from ....ops.quant_ops import w8a8_matmul as op
+
+                out = op(x, self.weight)
+                return out if self.bias is None else out + self.bias
+            return F.linear(x, self.weight, self.bias)
+        from ....tensor_api import matmul
+
+        if self.int8:
+            raise NotImplementedError(
+                "a static program of W8A8 tensor-parallel layers at mp > 1")
+        return collective_out(matmul(collective_in(x), self.weight))
+
     def _traced(self, fn, x):
         """``fn(x, weight, bias)`` on the torch tensors, recorded by
         autograd (the operands cast as amp casts a matmul); takes and
@@ -376,12 +441,25 @@ class VocabParallelEmbedding(_Parallel):
             return full.normal_(0.0, 0.02, generator=self.gen)
 
         self.weight = self._make([num_embeddings, embedding_dim],
-                                 weight_attr, 0, draw)
+                                 weight_attr, 0, draw,
+                                 static_init=Normal(0.0, 0.02))
         self.bias = None
 
     def forward(self, x):
         from ....dygraph import tracer
+        from ....nn import functional as F
+        from ....ops.dispatch import dispatch_static
 
+        if not _static(x):
+            x = _as_tensor(x)
+        if self._one_rank(x):
+            return F.embedding(x, self.weight)
+        if _static(x):
+            rows = self.weight.shape[0]
+            return dispatch_static(
+                "c_embedding", {"W": [self.weight], "Ids": [x]},
+                {"ring_id": 0, "axis_name": "mp",
+                 "start_index": self.rank * rows})["Out"][0]
         return tracer.trace_fn(
             lambda ids, w: vocab_parallel_embedding(ids, w, self.group),
             [_as_tensor(x), self.weight])
@@ -402,11 +480,18 @@ class ColumnParallelLinear(_Parallel):
         self.gather_output, self.int8 = gather_output, int8
         self.weight = self._make(
             [in_features, out_features], weight_attr, 1,
-            lambda: self._xavier(in_features, out_features), index=columns)
+            lambda: self._xavier(in_features, out_features), index=columns,
+            static_init=XavierUniform())
         self.bias = (self._make([out_features], None, 0, None, True,
                                 index=columns) if has_bias else None)
 
     def forward(self, x):
+        if self._one_rank(x) or _static(x):
+            def out(y):
+                y = y if self.bias is None else y + self.bias
+                return _c_concat(y, "mp") if self.gather_output else y
+
+            return self._linear(x, lambda a: _c_identity(a, "mp"), out)
         return self._traced(lambda a, w, b: column_parallel_linear(
             a, w, b, self.group, self.gather_output, self.int8), x)
 
@@ -424,11 +509,20 @@ class RowParallelLinear(_Parallel):
         self.input_is_parallel, self.int8 = input_is_parallel, int8
         self.weight = self._make(
             [in_features, out_features], weight_attr, 0,
-            lambda: self._xavier(in_features, out_features))
+            lambda: self._xavier(in_features, out_features),
+            static_init=XavierUniform())
         self.bias = (self._make([out_features], None, None, None, True)
                      if has_bias else None)
 
     def forward(self, x):
+        if self._one_rank(x) or _static(x):
+            def out(y):
+                y = _mp_allreduce(y, group="mp")
+                return y if self.bias is None else y + self.bias
+
+            return self._linear(
+                x, lambda a: a if self.input_is_parallel
+                else _c_split(a, "mp"), out)
         return self._traced(lambda a, w, b: row_parallel_linear(
             a, w, b, self.group, self.input_is_parallel, self.int8), x)
 
@@ -450,6 +544,13 @@ class ParallelCrossEntropy(Layer):
             # a static program records the reference's op on the ring
             return _c_softmax_with_cross_entropy(input, label, self._group)
         group = self._group if self._group is not None else _mp()[0]
+        if group is None:
+            # one rank: the registered op, as the reference dispatches it
+            from ....ops.dispatch import dispatch
+
+            return dispatch("c_softmax_with_cross_entropy",
+                            {"Logits": [input], "Label": [label]},
+                            {"ring_id": 0})["Loss"][0]
         logits, = _amp_cast("c_softmax_with_cross_entropy",
                             [_as_tensor(input)])
         return tracer.trace_fn(

@@ -596,13 +596,52 @@ def linear_lr_warmup(learning_rate, warmup_steps, start_lr, end_lr):
 
 
 # ---------------------------------------------------------------------------
-# detection.py: vision.ops, which the port gains with ROADMAP A.12
+# detection.py: vision.ops
 # ---------------------------------------------------------------------------
 
-for _n in ("box_coder", "distribute_fpn_proposals", "prior_box",
-           "roi_align", "yolo_box", "yolov3_loss", "multiclass_nms",
-           "roi_pool", "generate_proposals"):
-    globals()[_n] = _waits(_n, "A.12", "vision.ops")
+from ...vision.ops import (  # noqa: F401,E402
+    box_coder, distribute_fpn_proposals, prior_box, roi_align, yolo_box,
+)
+
+
+def yolov3_loss(x, gt_box, gt_label, anchors, anchor_mask, class_num,
+                ignore_thresh, downsample_ratio, gt_score=None,
+                use_label_smooth=True, name=None, scale_x_y=1.0):
+    from ...vision.ops import yolo_loss as _yl
+
+    return _yl(x, gt_box, gt_label, anchors, anchor_mask, class_num,
+               ignore_thresh, downsample_ratio, gt_score=gt_score,
+               use_label_smooth=use_label_smooth, scale_x_y=scale_x_y)
+
+
+def multiclass_nms(bboxes, scores, score_threshold, nms_top_k, keep_top_k,
+                   nms_threshold=0.3, normalized=True, nms_eta=1.0,
+                   background_label=0, name=None):
+    from ...vision.ops import multiclass_nms as _nms
+
+    return _nms(bboxes, scores, score_threshold, nms_top_k, keep_top_k,
+                nms_threshold=nms_threshold, normalized=normalized,
+                nms_eta=nms_eta, background_label=background_label)
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, rois_num=None, name=None):
+    """Max-over-bins RoI pooling (``vision.ops.roi_pool``)."""
+    from ...vision.ops import roi_pool as _rp
+
+    return _rp(input, rois, boxes_num=rois_num,
+               output_size=(pooled_height, pooled_width),
+               spatial_scale=spatial_scale)
+
+
+def generate_proposals(scores, bbox_deltas, im_info, anchors, variances,
+                       pre_nms_top_n=6000, post_nms_top_n=1000,
+                       nms_thresh=0.5, min_size=0.1, eta=1.0, name=None):
+    from ...vision.ops import generate_proposals as _gp
+
+    return _gp(scores, bbox_deltas, im_info, anchors, variances,
+               pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n,
+               nms_thresh=nms_thresh, min_size=min_size, eta=eta)
 
 
 def deformable_conv(input, offset, mask, num_filters, filter_size,
@@ -628,7 +667,14 @@ def box_clip(input, im_info, name=None):
     return T.stack([xmin, ymin, xmax, ymax], axis=-1)
 
 
-bipartite_match = _waits("bipartite_match", "A.12", "vision.ops")
+def bipartite_match(dist_matrix, match_type=None, dist_threshold=None,
+                    name=None):
+    """Not available: the reference binds it to a ``bipartite_match`` op
+    of an ``ops.detection_ops`` module that it does not have, so its call
+    fails too."""
+    raise NotImplementedError(
+        "fluid.layers.bipartite_match: no bipartite_match op exists in "
+        "either package")
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,8 @@ host copy of its inputs).
 
 The ``sequence_*`` builders append the sequence ops
 (:mod:`paddle_tpu_torch.ops.sequence_ops`) over a padded batch and its
-lengths.  Builders whose layers or ops the port has yet to gain raise
-NotImplementedError naming the ROADMAP item: ``multi_box_head`` and
-``deform_conv2d`` (A.12, ``vision/ops.py``).
+lengths.  ``multi_box_head`` and ``deform_conv2d`` build on
+:mod:`paddle_tpu_torch.vision.ops` (``prior_box``, ``deform_conv2d``).
 """
 
 from __future__ import annotations
@@ -475,13 +474,78 @@ def multi_box_head(inputs, image, base_size, num_classes, aspect_ratios,
                    offset=0.5, variance=(0.1, 0.1, 0.2, 0.2), flip=True,
                    clip=False, kernel_size=1, pad=0, stride=1, name=None,
                    min_max_aspect_ratios_order=False):
-    _waits("multi_box_head", "A.12", "vision.ops.prior_box")
+    """SSD's detection head: each feature map's prior boxes
+    (``vision.ops.prior_box``) and its location / confidence convs;
+    returns (locs [B, priors, 4], confs [B, priors, classes], boxes
+    [priors, 4], variances [priors, 4])."""
+    from ... import tensor_api as T
+    from ...vision import ops as vops
+
+    if min_sizes is None:
+        # SSD's sizes: ratios evenly spaced over the feature maps
+        num_layer = len(inputs)
+        min_sizes, max_sizes = [], []
+        step = int(np.floor((max_ratio - min_ratio) / (num_layer - 2)))
+        for ratio in range(min_ratio, max_ratio + 1, step):
+            min_sizes.append(base_size * ratio / 100.0)
+            max_sizes.append(base_size * (ratio + step) / 100.0)
+        min_sizes = [base_size * 0.1] + min_sizes
+        max_sizes = [base_size * 0.2] + max_sizes
+
+    locs, confs, boxes, vars_ = [], [], [], []
+    for i, x in enumerate(inputs):
+        ms = min_sizes[i]
+        mx = max_sizes[i] if max_sizes else None
+        ar = aspect_ratios[i]
+        box, var = vops.prior_box(
+            x, image, min_sizes=[ms] if np.isscalar(ms) else ms,
+            max_sizes=([mx] if mx is not None and np.isscalar(mx) else mx),
+            aspect_ratios=[ar] if np.isscalar(ar) else ar, flip=flip,
+            clip=clip, steps=[steps[i], steps[i]] if steps else [0.0, 0.0],
+            offset=offset, variance=list(variance))
+        nbox = int(np.prod(box.shape[:-1]))
+        num_px = nbox // (int(x.shape[2]) * int(x.shape[3]))
+        loc = conv2d(x, num_px * 4, kernel_size, padding=pad, stride=stride,
+                     name=(name and f"{name}.loc{i}"))
+        conf = conv2d(x, num_px * num_classes, kernel_size, padding=pad,
+                      stride=stride, name=(name and f"{name}.conf{i}"))
+        # NCHW -> [B, prior, 4/classes]
+        loc = T.reshape(T.transpose(loc, [0, 2, 3, 1]), [0, nbox, 4])
+        conf = T.reshape(T.transpose(conf, [0, 2, 3, 1]),
+                         [0, nbox, num_classes])
+        locs.append(loc)
+        confs.append(conf)
+        boxes.append(T.reshape(box, [-1, 4]))
+        vars_.append(T.reshape(var, [-1, 4]))
+    mbox_locs = T.concat(locs, axis=1)
+    mbox_confs = T.concat(confs, axis=1)
+    all_boxes = T.concat(boxes, axis=0)
+    all_vars = T.concat(vars_, axis=0)
+    return mbox_locs, mbox_confs, all_boxes, all_vars
 
 
 def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1,
                   padding=0, dilation=1, groups=1, deformable_groups=1,
                   im2col_step=1, param_attr=None, bias_attr=None, name=None):
-    _waits("deform_conv2d", "A.12", "vision.ops.deform_conv2d")
+    """Deformable convolution (v2 with ``mask``, v1 without): the filter
+    and bias parameters, then ``vision.ops.deform_conv2d``."""
+    from ...vision import ops as vops
+    from .. import create_parameter as _cp
+    from ...framework import unique_name
+
+    kh, kw = ((int(filter_size),) * 2 if np.isscalar(filter_size)
+              else (int(filter_size[0]), int(filter_size[1])))
+    cin = int(x.shape[1])
+    base = name or unique_name.generate("deform_conv")
+    w = _cp([num_filters, cin // groups, kh, kw], dtype=str(x.dtype),
+            name=(getattr(param_attr, "name", None) or f"{base}.w"))
+    b = _cp([num_filters], dtype=str(x.dtype),
+            name=(getattr(bias_attr, "name", None) or f"{base}.b"),
+            is_bias=True) if bias_attr is not False else None
+    return vops.deform_conv2d(
+        x, offset, w, bias=b, stride=stride, padding=padding,
+        dilation=dilation, deformable_groups=deformable_groups,
+        groups=groups, mask=mask)
 
 
 class _PyFunc(torch.autograd.Function):

@@ -767,8 +767,11 @@ def shape(x):
 
 
 def flops(net, input_size, custom_ops=None, print_detail=False):
-    """``paddle.flops`` lives in ``hapi``, which waits for ROADMAP A.12."""
-    raise NotImplementedError("paddle.flops (hapi) waits for ROADMAP A.12")
+    """``paddle.flops``: :func:`paddle_tpu_torch.hapi.flops`."""
+    from .hapi.dynamic_flops import flops as _flops
+
+    return _flops(net, input_size, custom_ops=custom_ops,
+                  print_detail=print_detail)
 
 
 # -- LoDTensorArray surface (dygraph semantics: a python list — the same

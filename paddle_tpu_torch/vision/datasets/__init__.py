@@ -1,10 +1,10 @@
-"""``paddle.vision.datasets``: FakeData and the MNIST / FashionMNIST /
-Cifar10 / Cifar100 readers over local files.
+"""``paddle.vision.datasets``: FakeData, the MNIST / FashionMNIST /
+Cifar10 / Cifar100 readers, the folder datasets (``DatasetFolder``,
+``ImageFolder``) and Flowers / VOC2012, all over local files.
 
-Counterpart of ``paddle_tpu/vision/datasets/__init__.py`` less
-``folder.py`` and ``extra.py`` (ROADMAP A.12).  Nothing is downloaded: a
-missing file raises with a message naming it; point ``image_path`` /
-``data_file`` at local copies, or use ``FakeData``.
+Counterpart of ``paddle_tpu/vision/datasets/__init__.py``.  Nothing is
+downloaded: a missing file raises with a message naming it; point
+``image_path`` / ``data_file`` at local copies, or use ``FakeData``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,11 @@ import numpy as np
 
 from ...io import Dataset
 
-__all__ = ["MNIST", "FashionMNIST", "Cifar10", "Cifar100", "FakeData"]
+from .folder import DatasetFolder, ImageFolder  # noqa: F401
+from .extra import Flowers, VOC2012  # noqa: F401
+
+__all__ = ["MNIST", "FashionMNIST", "Cifar10", "Cifar100", "FakeData",
+           "DatasetFolder", "ImageFolder", "Flowers", "VOC2012"]
 
 _NO_DOWNLOAD = (
     "nothing is downloaded: place the dataset files locally "

@@ -1315,3 +1315,57 @@ def test_beam_search_step_on_card_matches_cpu(dev):
     np.testing.assert_array_equal(got["gpu"][0], got["cpu"][0])
     np.testing.assert_allclose(got["gpu"][1], got["cpu"][1], rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_detection_ops_match_cpu_on_card(dev):
+    """The detection ops on the card against the same ops on the CPU: the
+    NMS's counts, rows and indices exactly (on the same boxes and scores),
+    the others within 1e-5 of each output's largest magnitude, and
+    ``deform_conv2d``'s gradients too."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.dygraph.tensor import Tensor
+    from paddle_tpu_torch.vision import ops
+
+    rng = np.random.RandomState(3)
+    xy = rng.rand(2, 300, 2).astype("float32") * 500
+    boxes = np.concatenate([xy, xy + rng.rand(2, 300, 2).astype("float32")
+                            * 120 + 4], -1)
+    scores = rng.rand(2, 6, 300).astype("float32")
+    feat = rng.randn(2, 16, 20, 24).astype("float32")
+    rois = np.concatenate([rng.rand(40, 2) * 200, rng.rand(40, 2) * 150
+                           + 200], 1).astype("float32")
+    x = rng.randn(2, 8, 9, 9).astype("float32")
+    off = (rng.randn(2, 18, 9, 9) * 1.5).astype("float32")
+    mask = rng.rand(2, 9, 9, 9).astype("float32")
+    w = (rng.randn(12, 8, 3, 3) * 0.1).astype("float32")
+
+    def run(device):
+        def t(a, grad=False):
+            return Tensor(torch.as_tensor(a, device=device),
+                          stop_gradient=not grad)
+        out, nums, idx = ops.multiclass_nms(
+            t(boxes), t(scores), 0.05, 200, 100, nms_threshold=0.45,
+            normalized=False, background_label=-1, return_index=True)
+        ra = ops.roi_align(t(feat), t(rois),
+                           boxes_num=t(np.array([25, 15], "int32")),
+                           output_size=7, spatial_scale=1 / 16)
+        leaves = [t(a, True) for a in (x, off, w, mask)]
+        y = ops.deform_conv2d(leaves[0], leaves[1], leaves[2], padding=1,
+                              mask=leaves[3])
+        paddle.sum(y * y).backward()
+        return ([out, nums, idx, ra, y] + [v.grad for v in leaves])
+
+    got = [a._t.cpu() for a in run(dev)]
+    paddle.set_device("cpu")
+    try:
+        want = [a._t for a in run(torch.device("cpu"))]
+    finally:
+        paddle.set_device("gpu")
+    assert all(a.device.type == "cpu" for a in want)
+    for i in range(3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=0)
+    for g, w_ in zip(got[3:], want[3:]):
+        assert float((g - w_).abs().max()) <= 1e-5 * float(w_.abs().max())

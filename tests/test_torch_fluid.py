@@ -279,7 +279,7 @@ def test_fluid_save_load_forms(tmp_path):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda L: L.prior_box(None), "A.12"),
+    (lambda L: L.Uniform(0.0, 1.0), "A.12"),
     (lambda L: L.Normal(0.0, 1.0), "A.12"),
 ])
 def test_fluid_names_that_wait_raise(call, item):

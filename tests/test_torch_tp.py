@@ -479,3 +479,147 @@ def test_tensor_parallel_composes_with_the_other_axes(combos, i, name, dims):
     for n, a in whole.items():
         np.testing.assert_allclose(a, after[n], rtol=0, atol=2e-5,
                                    err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# the layers in a static program (ROADMAP C.13)
+# ---------------------------------------------------------------------------
+
+
+def _tp_weights(seed=7):
+    rng = np.random.RandomState(seed)
+    return {"wc": rng.randn(8, 16).astype("float32") * 0.3,
+            "bc": rng.randn(16).astype("float32"),
+            "wr": rng.randn(16, 8).astype("float32") * 0.3,
+            "br": rng.randn(8).astype("float32"),
+            "emb": rng.randn(32, 16).astype("float32"),
+            "x": rng.randn(4, 8).astype("float32"),
+            "ids": np.array([[1, 5, 31], [0, 17, 16]], "int64"),
+            "gy": rng.randn(4, 8).astype("float32"),
+            "gz": rng.randn(4, 8).astype("float32"),
+            "ge": rng.randn(2, 3, 16).astype("float32")}
+
+
+def _reference_full(w):
+    """The reference's layers at mp 1 (no fleet.init) on the global
+    weights: outputs y, z, e and the gradients of the parameters in the
+    worker's order."""
+    from paddle_tpu.framework import unique_name as jnames
+
+    with jnames.guard():
+        col = jmpp.ColumnParallelLinear(8, 16, gather_output=False)
+        row = jmpp.RowParallelLinear(16, 8, input_is_parallel=True)
+        gcol = jmpp.ColumnParallelLinear(8, 16, gather_output=True)
+        row2 = jmpp.RowParallelLinear(16, 8, input_is_parallel=False)
+        emb = jmpp.VocabParallelEmbedding(32, 16)
+    for layer, (a, b) in ((col, ("wc", "bc")), (row, ("wr", "br")),
+                          (gcol, ("wc", "bc")), (row2, ("wr", "br"))):
+        layer.weight.set_value(w[a])
+        layer.bias.set_value(w[b])
+    emb.weight.set_value(w["emb"])
+    x = paddle.to_tensor(w["x"])
+    y, z, e = row(col(x)), row2(gcol(x)), emb(paddle.to_tensor(w["ids"]))
+    loss = ((y * paddle.to_tensor(w["gy"])).sum()
+            + (z * paddle.to_tensor(w["gz"])).sum()
+            + (e * paddle.to_tensor(w["ge"])).sum())
+    loss.backward()
+    params = [p for m in (col, row, gcol, row2, emb) for p in m.parameters()]
+    return ([y.numpy(), z.numpy(), e.numpy()],
+            [np.asarray(p.grad.numpy()) for p in params])
+
+
+def test_tp_layers_build_in_a_static_program_at_mp1_without_fleet_init():
+    """Without fleet.init the three layers are one rank's: a static program
+    records the reference's ops (``matmul_v2``, ``elementwise_add``,
+    ``lookup_table_v2``) and gives its outputs on the same weights; the
+    eager layers give them too."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu.framework import unique_name as jnames
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as tmpp
+    from paddle_tpu_torch.framework import unique_name as tnames
+
+    tp.set_device("cpu")
+    w = _tp_weights()
+    runs = {}
+    for P, mpp, names in ((paddle, jmpp, jnames), (tp, tmpp, tnames)):
+        main, startup = P.static.Program(), P.static.Program()
+        P.enable_static()
+        try:
+            with P.static.program_guard(main, startup), names.guard():
+                x = P.static.data("x", [4, 8], "float32")
+                ids = P.static.data("ids", [2, 3], "int64")
+                col = mpp.ColumnParallelLinear(8, 16, gather_output=False)
+                row = mpp.RowParallelLinear(16, 8, input_is_parallel=True)
+                emb = mpp.VocabParallelEmbedding(32, 16)
+                y, e = row(col(x)), emb(ids)
+                s = P.mean(y) + P.mean(e)
+        finally:
+            P.disable_static()
+        exe = P.static.Executor(P.CPUPlace())
+        scope = P.static.global_scope()
+        exe.run(startup)
+        values = {col.weight.name: w["wc"], col.bias.name: w["bc"],
+                  row.weight.name: w["wr"], row.bias.name: w["br"],
+                  emb.weight.name: w["emb"]}
+        if P is tp:
+            for name, v in values.items():
+                scope.set(name, torch.as_tensor(v))
+        else:
+            P.static.set_program_state(main, values)
+        got = exe.run(main, feed={"x": w["x"], "ids": w["ids"]},
+                      fetch_list=[y, e, s])
+        runs[P] = ([o.type for o in main.global_block().ops], got,
+                   sorted(values))
+    (jops, jgot, jnames_), (tops, tgot, tnames_) = runs[paddle], runs[tp]
+    assert tops == jops == ["matmul_v2", "elementwise_add", "matmul_v2",
+                            "elementwise_add", "lookup_table_v2",
+                            "reduce_mean", "reduce_mean", "elementwise_add"]
+    assert tnames_ == jnames_
+    for a, b in zip(jgot, tgot):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), **TOL)
+    # eagerly, without a mesh, the same layers give the same values
+    with tnames.guard():
+        col = tmpp.ColumnParallelLinear(8, 16, gather_output=False)
+        row = tmpp.RowParallelLinear(16, 8, input_is_parallel=True)
+        emb = tmpp.VocabParallelEmbedding(32, 16)
+    col.set_global(w["wc"], w["bc"])
+    row.set_global(w["wr"], w["br"])
+    emb.set_global(w["emb"])
+    y = row(col(tp.to_tensor(w["x"])))
+    np.testing.assert_allclose(y.numpy(), np.asarray(tgot[0]), **TOL)
+    np.testing.assert_array_equal(emb(tp.to_tensor(w["ids"])).numpy(),
+                                  np.asarray(tgot[1]))
+    ce = tmpp.ParallelCrossEntropy()(y, tp.to_tensor(
+        np.array([1, 0, 7, 3], "int64")))
+    assert ce.shape == [4, 1]
+
+
+def test_tp_layers_static_program_at_mp2_equals_eager_and_reference(
+        tmp_path):
+    """At mp 2 on two gloo ranks a static program of the layers records
+    the collectives on the mp axis, and its outputs and gradients equal
+    the eager layers' and the reference's one-rank layers' on the global
+    weights (each rank's gradient its slice)."""
+    w = _tp_weights()
+    want_out, want_grad = _reference_full(w)
+    got = W.run(tmp_path, 2, "static_tp_layers", dict(w, mp=2))
+    # the split dim of each parameter (col w, b; row w, b; gather-col w,
+    # b; row2 w, b; emb w); None for a whole one
+    splits = [1, 0, 0, None, 1, 0, 0, None, 0]
+    for r, res in enumerate(got):
+        ops = res["ops"]
+        for t in ("c_identity", "c_concat", "c_split", "mp_allreduce_sum",
+                  "c_embedding"):
+            assert t in ops, (t, ops)
+        for run in ("static", "eager"):
+            outs, grads = res[run]
+            assert len(outs) == 3 and len(grads) == len(want_grad) == 9
+            for a, b in zip(want_out, outs):
+                np.testing.assert_allclose(b, a, **TOL)
+            for g, full, dim in zip(grads, want_grad, splits):
+                if dim is not None:
+                    full = _slices(full, 2, dim)[r]
+                np.testing.assert_allclose(g, full, **TOL)
+        for a, b in zip(res["static"][0] + res["static"][1],
+                        res["eager"][0] + res["eager"][1]):
+            np.testing.assert_array_equal(a, b)

@@ -998,3 +998,85 @@ def train_gpt_example(payload):
     job = train_gpt.build(payload["argv"])
     load_jax_named_params(job.model, payload["named"])
     return {"losses": train_gpt.run(job), "coord": job.mesh.coord}
+
+
+def _tp_params(layers):
+    """The layers' weights and biases in order (a layer built in static
+    mode holds program parameters, which it does not list)."""
+    return [p for layer in layers for p in (layer.weight, layer.bias)
+            if p is not None]
+
+
+def static_tp_layers(payload):
+    """The tensor-parallel layers on the reference's global weights at
+    ``payload["mp"]``, eagerly and as a static program run by the
+    Executor: the program's op types, and both runs' outputs and this
+    rank's parameter gradients of ``sum(y * gy) + sum(z * gz) + sum(e *
+    ge)`` (y = row(col(x)), z = row2(gather-column(x)), e = emb(ids))."""
+    import torch
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+    from paddle_tpu_torch.framework import unique_name
+
+    tp.set_device("cpu")
+    _fleet(mp=payload["mp"], dp=1)
+
+    def build(P=tp):
+        col = mpp.ColumnParallelLinear(8, 16, gather_output=False)
+        row = mpp.RowParallelLinear(16, 8, input_is_parallel=True)
+        gcol = mpp.ColumnParallelLinear(8, 16, gather_output=True)
+        row2 = mpp.RowParallelLinear(16, 8, input_is_parallel=False)
+        emb = mpp.VocabParallelEmbedding(32, 16)
+        return [col, row, gcol, row2, emb]
+
+    def forward(layers, x, ids, gy, gz, ge):
+        col, row, gcol, row2, emb = layers
+        y, z, e = row(col(x)), row2(gcol(x)), emb(ids)
+        loss = (tp.sum(y * gy) + tp.sum(z * gz) + tp.sum(e * ge))
+        return [y, z, e], loss
+
+    weights = [(payload["wc"], payload["bc"]), (payload["wr"], payload["br"]),
+               (payload["wc"], payload["bc"]), (payload["wr"], payload["br"]),
+               (payload["emb"], None)]
+    feeds = [payload[k] for k in ("x", "ids", "gy", "gz", "ge")]
+    with unique_name.guard():
+        eager = build()
+    for layer, (w, b) in zip(eager, weights):
+        layer.set_global(w, b)
+    outs, loss = forward(eager, *[tp.to_tensor(a) for a in feeds])
+    loss.backward()
+    params = _tp_params(eager)
+    out = {"eager": ([_np(o) for o in outs], [_np(p.grad) for p in params])}
+
+    main, startup = static.Program(), static.Program()
+    tp.enable_static()
+    try:
+        with static.program_guard(main, startup), unique_name.guard():
+            vs = [static.data(n, list(a.shape), str(a.dtype)) for n, a in
+                  zip(("x", "ids", "gy", "gz", "ge"), feeds)]
+            layers = build()
+            souts, sloss = forward(layers, *vs)
+            static.append_backward(sloss)
+    finally:
+        tp.disable_static()
+    exe = static.Executor(tp.CPUPlace())
+    scope = static.global_scope()
+    exe.run(startup)
+    sparams = _tp_params(layers)
+    for layer, (w, b) in zip(layers, weights):
+        for p, full in ((layer.weight, w), (layer.bias, b)):
+            if p is None:
+                continue
+            if p.tp_split is not None:
+                dim, idx, _ = p.tp_split
+                full = np.take(full, idx, axis=dim)
+            scope.set(p.name, torch.as_tensor(np.ascontiguousarray(full)))
+    got = exe.run(main, feed=dict(zip(("x", "ids", "gy", "gz", "ge"), feeds)),
+                  fetch_list=souts + [p.name + "@GRAD" for p in sparams])
+    out["static"] = ([np.asarray(g) for g in got[:3]],
+                     [np.asarray(g) for g in got[3:]])
+    out["ops"] = [o.type for o in main.global_block().ops]
+    out["shapes"] = [tuple(p.shape) for p in sparams]
+    return out

@@ -5,7 +5,12 @@ kills itself once at ``ELASTIC_FAIL_EPOCH`` (a flag file marks the
 injection as done): the launcher must restart the world and training
 resume from the checkpointed epoch.  Rank 0 writes each epoch's first
 loss to ``ELASTIC_RUN_LOG`` and its final weights to
-``ELASTIC_FINAL``.  Imports no JAX."""
+``ELASTIC_FINAL``.  Each rank marks the end of each epoch with a file
+beside the run log and waits there for the other rank's mark, so the
+order is certain however slowly either rank starts: rank 0 has logged
+and checkpointed the epochs before the failure when rank 1 fails, and
+cannot finish the job before it, so the launcher always restarts the
+world and the job resumes.  Imports no JAX."""
 
 import json
 import os
@@ -48,6 +53,22 @@ def train(epochs, model, opt, rng_seed=42, hook=None):
             hook(epoch, losses)
 
 
+def _epoch_done(run_log, epoch, rank, deadline=300.0):
+    """Mark ``epoch`` done for ``rank``, then wait for the other rank's
+    mark of the same epoch (the launcher's restart ends the wait when the
+    other rank died before it)."""
+    marks = run_log + ".epochs"
+    os.makedirs(marks, exist_ok=True)
+    open(os.path.join(marks, f"{epoch}.{rank}"), "w").close()
+    other = os.path.join(marks, f"{epoch}.{1 - rank}")
+    t0 = time.time()
+    while not os.path.exists(other):
+        if time.time() - t0 > deadline:
+            raise TimeoutError(f"rank {1 - rank} never finished epoch "
+                               f"{epoch}")
+        time.sleep(0.01)
+
+
 def build():
     paddle.seed(0)
     model = paddle.nn.Linear(4, 1)
@@ -85,7 +106,8 @@ if __name__ == "__main__":
             with open(run_log, "a") as f:
                 f.write(json.dumps({"pid": os.getpid(), "epoch": epoch,
                                     "loss": losses[0]}) + "\n")
-        time.sleep(0.2)
+        if run_log:
+            _epoch_done(run_log, epoch, rank)
 
     train(acp.train_epoch_range(EPOCHS, save_checkpoint_inter=0), model,
           opt, hook=hook)

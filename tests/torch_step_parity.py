@@ -15,6 +15,7 @@ the softmax cancels, so its gradient is zero but for rounding, and AdamW
 steps each element by ~lr on its own noise.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -31,6 +32,14 @@ from paddle_tpu_torch.weights import load_paddle_state_dict
 
 
 def pair(factory):
+    """The model in each package, the reference's state carried into the
+    port's.  JAX's caches are cleared first: a test that patched
+    ``jax.random.uniform`` (as ``test_torch_vision_models.py``'s fixture
+    does) leaves jitted initializers traced with the patch in them, and a
+    later test in the same process would build its reference model from
+    the patch's draws (a ResNet-18 whose loss starts at 18.5, its
+    gradients' rounding then deciding the moments' comparison)."""
+    jax.clear_caches()
     with jnames.guard():
         jp.seed(0)
         jm = factory(jp)
