@@ -65,7 +65,7 @@ its seconds):
    quantized pages, (e) ``int8=True, spec_k=4`` and (f) ``int8=True,
    kv_bits=4, spec_k=4`` (8 requests each).  Launch counts are zeroed just
    before each run and read just after it: exactly the run's kernel
-   variants must have launched.  (a)-(d) are then profiled over 8 more
+   variants must have launched.  (a)-(d) are then profiled over 4 more
    requests;
 4. parity on the card, fp32, 1.3B width, 2 layers, 4 prompts, 24 greedy
    tokens each: the engine (kernels) against the dense decoder, and the
@@ -365,6 +365,33 @@ its seconds):
     and ``paddle.summary`` of ViT-base/16 equal on both devices; (e) the
     tensor-parallel layers as a static program on a one-rank NCCL group,
     bit for bit the eager layers.
+18. the rest of the breadth (``phase_breadth``; ``--phase 18`` builds and
+    runs it alone, no result line; see the comment above ``ASP_BERT``):
+    the bf16 flash kernels at BERT-base's attention against their plain
+    versions and timed again (the rows ``flash_*_bert_bf16`` stand on this
+    reading); (a) BERT-base (vocab 30522) at batch 32 x 512 under bf16
+    ``auto_cast``, pruned by ``incubate.asp.prune_model(model, 2, 4)`` and
+    stepped by ``GradientMergeOptimizer(asp.decorate(AdamW), k_steps=4)``
+    with an ``ExponentialMovingAverage``: 8 micro-steps (2 updates) with
+    12 launches of each flash kernel a micro-step asserted, 2:4 sparsity,
+    density 0.5 and the masks' zeros held after each update, the EMA's
+    apply / restore bit for bit, the pruned set equal to the CPU's; ms a
+    micro-step and an update, tokens/s, MFU, peak memory, the busy share
+    of a merge window and the update's device time by part; the narrow
+    BERT (2 layers, width 128) in fp32 card vs CPU (losses and EMA
+    shadows within 1e-5, masks bit for bit); (b) ResNet-50 fp32 (batch
+    64 at 224 px) for 10 steps of ``LookAhead(Momentum)`` with
+    ``ModelAverage``, then exported by ``paddle.onnx.export`` under the
+    average: the numpy runner within 1e-4 of the card's logits, and the
+    CPU's export of the same weights the same bytes; (c) the fused softmax
+    masks at GPT-1.3B's causal scores (fp32, bf16) and ERNIE-3.0-base's
+    padded ones, forward and backward card vs CPU at the flash
+    tolerances; ``Categorical`` over [4096, 50304] (equal draws for one
+    seed, pooled shares within 7 standard errors, ``log_prob`` /
+    ``entropy`` / ``kl_divergence`` card vs CPU within 1e-5), ``Normal``
+    and ``Uniform`` over [4096, 1024]; (d) ``utils.run_check()`` and a
+    custom C++ ReLU (``cpp_extension.load``, g++) on a CUDA tensor, bit
+    for bit ``F.relu``'s forward and gradient.
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -392,7 +419,8 @@ fp32 runs), and at ViT-base's and ERNIE-3.0-base's attention in bf16
 and (b) (and, for ERNIE, under ``launches_in`` on (c) and (d)), and at
 phase 12's shapes, with their launches on its runs (b) and (c), and at
 ViT-base's attention in fp32 (``flash_fwd_vitfit_fp32`` ...), with their
-launches on phase 17 (a) (and under ``launches_in`` on (b)); their
+launches on phase 17 (a) (and under ``launches_in`` on (b)), the BERT-base
+bf16 rows also carrying phase 18 (a)'s launches under ``launches_in``; their
 bounds are at the peak of the arithmetic each uses:
 bf16 tensor cores (989 TFLOP/s), the fp32 kernels' three TF32 products
 an operation (495 / 3 TFLOP/s).
@@ -1292,6 +1320,7 @@ def _profile(torch, what, fn):
 
 
 # label, engine options, requests, motif prompts, kernel variants it runs
+PROFILED_REQUESTS = 4           # the profiled window after runs (a)-(d)
 SERVING_RUNS = (
     ("a", {}, 16, False, {"paged_attention", "paged_prefill"}),
     ("b", {"int8": True}, 16, False,
@@ -1365,7 +1394,10 @@ def _serve(np, torch, model, label, opts, n_req, motif, expected):
             f"(acceptance {s['spec_accepted'] / max(1, s['spec_drafted']):.3f})")
     log(f"  launches: {json.dumps(launches)}")
     if label in "abcd":
-        more = _requests(np, rng, cfg, shared, n=8, motif=motif)
+        # 4 requests: the profiler's assembly of the quantized runs'
+        # windows is most of phase 3's time, and grows with the window
+        more = _requests(np, rng, cfg, shared, n=PROFILED_REQUESTS,
+                         motif=motif)
         _profile(torch, f"{len(more)} more requests", lambda: eng.run(more))
     del eng
     torch.cuda.empty_cache()
@@ -7337,6 +7369,729 @@ def phase_hapi(np, torch, card):
          static_launches})}
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+# (a) BERT-base (models/bert.py's config: vocab 30522) pretrained under 2:4
+# ASP and gradient merge, bf16 auto_cast, batch 32 x 512 with phase 8's
+# seeded batches (76 masked a sequence): GradientMergeOptimizer(
+# asp.decorate(AdamW(1e-4, weight_decay=0.01)), k_steps=4) and an EMA
+# (decay 0.999) updated after each real update; 8 micro-steps, 2 updates.
+# The narrow BERT of the card-vs-CPU check runs the same wrappers in fp32.
+ASP_BERT = dict(vocab=30522, hidden=768, layers=12, heads=12, seq=512,
+                batch=32, masked=76, k=4, micro=8, lr=1e-4)
+ASP_SMALL = dict(vocab=1024, hidden=128, layers=2, heads=4, seq=128,
+                 batch=8, masked=20, k=4, micro=8, lr=1e-4)
+ASP_RTOL = 1e-5          # small BERT card vs CPU: losses, EMA shadows
+# (b) ResNet-50 under LookAhead(Momentum) and ModelAverage, then ONNX
+R50_LA = dict(batch=64, image=224, classes=1000, steps=10, lr=0.1, k=5)
+ONNX_RTOL = 1e-4         # |runner - card| <= ONNX_RTOL * max |card logits|
+# (c) the fused softmax masks at GPT-1.3B's causal scores and ERNIE-3.0-
+# base's padded ones; the distributions at GPT's vocabulary
+SOFTMAX_CASES = (("GPT-1.3B causal", (8, 16, 512, 512), True, "fp32"),
+                 ("GPT-1.3B causal", (8, 16, 512, 512), True, "bf16"),
+                 ("ERNIE-3.0-base padded", (32, 12, 512, 512), False,
+                  "fp32"))
+# |card - cpu| <= tol * max |cpu|, per output: the smoke's fp32 tolerance
+# (DET_RTOL) and its bf16 one (FLASH_TOL's rtol); the flash kernels'
+# per-row bound has no room for a row that cancels (the first causal
+# query's dx is g - g)
+SOFTMAX_RTOL = {"fp32": DET_RTOL, "bf16": FLASH_TOL["bf16"]["out"][0]}
+CATEGORICAL = dict(rows=4096, vocab=50304, draws=64)
+SHARE_Z = 7.0            # |share - mean p| <= SHARE_Z * sqrt(mean p / N)
+DIST_SHAPE = (4096, 1024)
+DIST_RTOL = 1e-5         # card vs CPU, of each output's largest magnitude
+CUSTOM_RELU = (4096, 4096)
+RELU_CC = r'''
+#include "paddle_tpu_ext.h"
+
+extern "C" {
+PT_EXPORT_OPS("relu_p18")
+
+int pt_relu_p18_num_outputs(void) { return 1; }
+
+int pt_relu_p18_infer_shape(const int64_t* in_dims, const int32_t* in_ndims,
+                            const int32_t* in_dtypes, int n_in,
+                            int64_t* out_dims, int32_t* out_ndims,
+                            int32_t* out_dtypes) {
+  if (n_in != 1 || in_dtypes[0] != PT_FLOAT32) return 1;
+  out_ndims[0] = in_ndims[0];
+  out_dtypes[0] = in_dtypes[0];
+  for (int i = 0; i < in_ndims[0]; ++i) out_dims[i] = in_dims[i];
+  return 0;
+}
+
+int pt_relu_p18_forward(const PT_Tensor* ins, int n_in, PT_Tensor* outs,
+                        int n_out) {
+  const float* x = (const float*)ins[0].data;
+  float* y = (float*)outs[0].data;
+  const int64_t n = pt_numel(&ins[0]);
+  for (int64_t i = 0; i < n; ++i) y[i] = x[i] > 0.f ? x[i] : 0.f;
+  return 0;
+}
+
+int pt_relu_p18_backward(const PT_Tensor* ins, int n_in, PT_Tensor* outs,
+                         int n_out) {
+  const float* x = (const float*)ins[0].data;
+  const float* g = (const float*)ins[1].data;
+  float* dx = (float*)outs[0].data;
+  const int64_t n = pt_numel(&ins[0]);
+  for (int64_t i = 0; i < n; ++i) dx[i] = x[i] > 0.f ? g[i] : 0.f;
+  return 0;
+}
+}
+'''
+
+
+def _asp_bert(np, torch, c, device, amp, state=None, keep=False,
+              card=None):
+    """BERT of config ``c`` on ``device`` under ASP 2:4, GradientMerge(
+    decorate(AdamW), k) and an EMA, ``c["micro"]`` micro-steps.  After
+    each real update: ``check_sparsity`` and density 0.5 on every pruned
+    weight, zeros where its mask says, the EMA's apply / restore bit for
+    bit.  Returns the run's record (``keep``: the masks and the EMA
+    shadows as numpy; ``card``: the timings, memory and profiles)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import incubate, optimizer as opt
+    from paddle_tpu_torch.examples import pretrain_bert as ex
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertPretrainingCriterion)
+    from paddle_tpu_torch.weights import (load_paddle_state_dict,
+                                          state_dict_to_numpy)
+
+    paddle.set_device(device)
+    on_card = device != "cpu"
+    old = unique_name.switch()
+    try:
+        paddle.seed(0)
+        cfg = BertConfig(vocab_size=c["vocab"], hidden_size=c["hidden"],
+                         num_layers=c["layers"], num_heads=c["heads"],
+                         max_seq_len=c["seq"], dropout=0.0)
+        model = BertForPretraining(cfg)
+        crit = BertPretrainingCriterion()
+        if state is not None:
+            load_paddle_state_dict(model, state)
+        init = state_dict_to_numpy(model) if keep and state is None else None
+        asp._helper.reset()
+        t0 = time.perf_counter()
+        helper = asp.prune_model(model, 2, 4)
+        prune_s = time.perf_counter() - t0
+        pruned = sorted(p.name for p in helper._params.values())
+        gm = incubate.GradientMergeOptimizer(asp.decorate(opt.AdamW(
+            learning_rate=c["lr"], parameters=model.parameters(),
+            weight_decay=0.01)), k_steps=c["k"])
+        ema = incubate.ExponentialMovingAverage(model.parameters(),
+                                                decay=0.999)
+        batches = [ex.make_batch(cfg, c["batch"], c["seq"], c["masked"],
+                                 seed) for seed in range(c["micro"])]
+
+        def micro(i):
+            ids, tt, pos, mlm, nsp = batches[i % len(batches)]
+            ctx = paddle.amp.auto_cast() if amp else contextlib.nullcontext()
+            with ctx:
+                mlm_logits, nsp_logits = model(
+                    paddle.to_tensor(ids), paddle.to_tensor(tt),
+                    masked_positions=paddle.to_tensor(pos))
+                loss = crit(mlm_logits, nsp_logits, paddle.to_tensor(mlm),
+                            paddle.to_tensor(nsp),
+                            masked_lm_scale=float(pos.size))
+            loss.backward()
+            gm.step()
+            update = (i + 1) % c["k"] == 0
+            if update:
+                ema.update()
+            return loss, update
+
+        def checks(i):
+            for k, p in helper._params.items():
+                mask = helper._masks[k]
+                if not (asp.check_sparsity(p, 2, 4)
+                        and asp.calculate_density(p) == 0.5
+                        and not bool(((p._t != 0) & (mask == 0)).any())):
+                    raise AssertionError(
+                        f"ASP ({device}): {p.name} lost its 2:4 mask after "
+                        f"micro-step {i} (density "
+                        f"{asp.calculate_density(p)})")
+            before = [p._t.clone() for p in model.parameters()]
+            with ema.apply():
+                pass
+            if not all(torch.equal(a, p._t)
+                       for a, p in zip(before, model.parameters())):
+                raise AssertionError("EMA apply / restore changed a weight")
+
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = [], []
+        for i in range(c["micro"]):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, update = micro(i)
+            losses.append(float(loss.numpy()))       # synchronises
+            times.append(time.perf_counter() - t0)
+            if update:
+                checks(i)
+        launches = {k: KERNELS[k] for k in FLASH}
+        run = {"losses": losses, "times": times, "launches": launches,
+               "pruned": pruned, "init": init, "prune_s": prune_s,
+               "cfg": cfg, "n_pruned": sum(p.size for p in
+                                           helper._params.values()),
+               "n_params": sum(p.size for p in model.parameters())}
+        if keep:
+            run["masks"] = {helper._params[k].name: m.cpu().numpy()
+                            for k, m in helper._masks.items()}
+            names = {id(p): p.name for p in model.parameters()}
+            run["ema"] = {names[k]: s.cpu().numpy()
+                          for k, s in ema._shadow.items()}
+        if card is not None:
+            run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+            def window():
+                for i in range(c["k"]):
+                    micro(i)
+                torch.cuda.synchronize()
+
+            run["busy"] = _profile(torch, "one merge window (4 micro-steps, "
+                                   "the last the update)", window)
+            run["update"] = _update_breakdown(torch, gm, helper, ema, micro,
+                                              c["k"])
+        del gm, ema, helper, model
+        asp._helper.reset()
+        return run
+    finally:
+        unique_name.switch(old)
+        paddle.set_device("gpu")
+
+
+def _update_breakdown(torch, gm, helper, ema, micro, k):
+    """The device time of the update micro-step by part, from one profile
+    of it (CPU and CUDA activity) with each part in a ``record_function``
+    range: the gradient accumulation and the mean's cast (GradientMerge's
+    own step outside the inner step), AdamW, the masks, the EMA; the
+    forward and backward are the rest.  Returns ``{part: ms}``, or None
+    where the profiler ties no kernel to a host op."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    dec = gm.inner_optimizer
+    adamw = dec._inner
+
+    def ranged(label, fn):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    saved = (adamw.step, helper.apply_masks, ema.update, gm.step)
+    adamw.step = ranged("p18.adamw", saved[0])
+    helper.apply_masks = ranged("p18.masks", saved[1])
+    ema.update = ranged("p18.ema", saved[2])
+    gm.step = ranged("p18.merge", saved[3])
+    try:
+        for i in range(k - 1):
+            micro(i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            micro(k - 1)
+            torch.cuda.synchronize()
+    finally:
+        del adamw.step, helper.apply_masks, ema.update, gm.step
+    events = prof.events()
+    # each kernel to the innermost range around the host op that
+    # launched it (the ranges nest: AdamW and the masks inside the
+    # merge's step)
+    ranges = [(e.time_range.start, e.time_range.end, e.name[4:])
+              for e in events if e.name.startswith("p18.")]
+    parts = dict.fromkeys(("forward and backward", "accumulation", "adamw",
+                           "masks", "ema"), 0.0)
+    for e in events:
+        kernels = getattr(e, "kernels", None) or []
+        if not kernels or e.name.startswith("p18."):
+            continue
+        t = e.time_range.start
+        hit = [label for s, end, label in ranges if s <= t <= end]
+        label = next((h for h in hit if h in ("adamw", "masks", "ema")),
+                     "accumulation" if "merge" in hit
+                     else "forward and backward")
+        parts[label] += sum(k.duration for k in kernels) / 1e3
+    total = sum(parts.values())
+    if not total:
+        log("  update micro-step: the profiler tied no kernel to a host op "
+            "(device time by part: not measured)")
+        return None
+    log(f"  update micro-step: device {total:.2f} ms, by part (each kernel "
+        "to the range of the host op that launched it): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts.items()))
+    return dict(parts, total=total)
+
+
+def _asp_parity(np, torch):
+    """(a) 2: the narrow BERT in fp32 with the same wrappers, 8 micro-steps
+    on the card and in the port on the CPU from the same weights: losses
+    and the EMA shadows (all together) within ASP_RTOL, masks equal bit
+    for bit, 2 layers' flash launches a micro-step on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = _asp_bert(np, torch, ASP_SMALL, "cpu", False, keep=True)
+    card = _asp_bert(np, torch, ASP_SMALL, "gpu", False, state=cpu["init"],
+                     keep=True)
+    _free(torch)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                  cpu["losses"]))
+    # all shadows together: a zero-initialised bias's shadow is 1e-3 of
+    # its AdamW updates, which amplify rounding where a gradient is tiny
+    # (tests/torch_step_parity.py), so each shadow alone is logged
+    diff = sum(float(np.square(card["ema"][n] - w).sum())
+               for n, w in cpu["ema"].items())
+    ema = (diff / sum(float(np.square(w).sum())
+                      for w in cpu["ema"].values())) ** 0.5
+    worst = max(((float(np.linalg.norm(card["ema"][n] - w)
+                        / max(np.linalg.norm(w), 1e-30)), n)
+                 for n, w in cpu["ema"].items()))
+    same = (card["masks"].keys() == cpu["masks"].keys()
+            and all(np.array_equal(card["masks"][n], m)
+                    for n, m in cpu["masks"].items()))
+    log(f"ASP + gradient merge + EMA, small BERT card vs cpu (fp32, "
+        f"{ASP_SMALL['micro']} micro-steps): losses card "
+        f"{[round(v, 6) for v in card['losses']]} cpu "
+        f"{[round(v, 6) for v in cpu['losses']]}, rel err {rel:.3e}; EMA "
+        f"shadows together rel err {ema:.3e} (tol {ASP_RTOL:g}; the worst "
+        f"alone {worst[0]:.3e}, {worst[1]}); "
+        f"{len(cpu['masks'])} masks equal: {same}; launches "
+        f"{json.dumps(card['launches'])}")
+    if not (rel <= ASP_RTOL and ema <= ASP_RTOL and same):
+        raise AssertionError("ASP training on the card disagrees with the "
+                             "CPU")
+    want = {k: ASP_SMALL["micro"] * ASP_SMALL["layers"] for k in FLASH}
+    if card["launches"] != want:
+        raise AssertionError(f"small ASP BERT launched {card['launches']}")
+
+
+def _asp_bert_base(np, torch, card):
+    """(a) 1: BERT-base at full width under ASP and gradient merge, bf16;
+    returns its flash launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    c = ASP_BERT
+    run = _asp_bert(np, torch, c, "gpu", True, card=card)
+    _free(torch)
+    # the pruned set, against the port's selection for the same model on
+    # the CPU
+    paddle.set_device("cpu")
+    old = unique_name.switch()
+    try:
+        paddle.seed(0)
+        cpu_model = BertForPretraining(BertConfig(
+            vocab_size=c["vocab"], hidden_size=c["hidden"],
+            num_layers=c["layers"], num_heads=c["heads"],
+            max_seq_len=c["seq"], dropout=0.0))
+        cpu_set = sorted(p.name for p in cpu_model.parameters()
+                         if asp._prunable(p))
+    finally:
+        unique_name.switch(old)
+        paddle.set_device("gpu")
+    del cpu_model
+    if run["pruned"] != cpu_set:
+        raise AssertionError("the pruned set differs from the CPU's: "
+                             f"{run['pruned']} vs {cpu_set}")
+    want = {k: 12 * c["micro"] for k in FLASH}
+    if run["launches"] != want:
+        raise AssertionError(f"ASP BERT-base launched {run['launches']}, "
+                             f"expected {want}")
+    losses = run["losses"]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ASP BERT-base: losses {losses}")
+    times = run["times"]
+    k = c["k"]
+    plain = [t for i, t in enumerate(times) if (i + 1) % k and i >= k]
+    upd = [t for i, t in enumerate(times) if not (i + 1) % k and i >= k]
+    window = sum(times[k:2 * k])
+    tokens = c["batch"] * c["seq"] * k
+    cfg = run["cfg"]
+    fpt = bert_flops_per_token(cfg.hidden_size, cfg.num_layers, c["seq"],
+                               cfg.vocab_size, c["masked"] / c["seq"])
+    mfu = tokens / window * fpt / BF16_FLOPS
+    log(f"ASP 2:4 + gradient merge (k={k}) + EMA, BERT-base bf16 auto_cast "
+        f"(B={c['batch']} S={c['seq']} {c['masked']} masked, vocab "
+        f"{c['vocab']}, {card}): {len(run['pruned'])} weights pruned "
+        f"({run['n_pruned'] / 1e6:.1f}M of {run['n_params'] / 1e6:.1f}M "
+        f"parameters, masks picked on the host in {run['prune_s']:.2f} s), "
+        f"the set equal to the CPU's; losses "
+        f"{[round(v, 4) for v in losses]}; micro-step "
+        f"{1e3 * float(np.mean(plain)):.1f} ms, the update micro-step "
+        f"{1e3 * float(np.mean(upd)):.1f} ms (all "
+        f"{[round(1e3 * t, 1) for t in times]}); the second merge window "
+        f"{1e3 * window:.1f} ms, {tokens / window:.0f} tokens/s, MFU "
+        f"{100 * mfu:.2f}% of 989 TFLOP/s; max_memory_allocated "
+        f"{run['peak_gib']:.2f} GiB; device busy {100 * run['busy']:.1f}% "
+        f"of one profiled merge window; launches "
+        f"{json.dumps(run['launches'])}; sparsity, density 0.5 and the "
+        f"EMA's apply / restore held after each update")
+    return run["launches"]
+
+
+def _resnet_lookahead_onnx(np, torch, card, tmp):
+    """(b) ResNet-50 fp32, batch 64 at 224 px: 10 steps of LookAhead(
+    Momentum) with ModelAverage; then under ModelAverage.apply() the eval
+    forward on the card, ``paddle.onnx.export`` on the card, the file run
+    by the port's numpy runner on the host (within ONNX_RTOL of the
+    card's logits), and the same Layer moved to the CPU (``Layer.to``)
+    and exported there: the same bytes."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import incubate, optimizer as opt
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.onnx import runner
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision import models
+
+    c = R50_LA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    with unique_name.guard():
+        paddle.seed(0)
+        model = models.resnet50(num_classes=c["classes"])
+    la = incubate.LookAhead(opt.Momentum(
+        learning_rate=c["lr"], momentum=0.9, parameters=model.parameters()),
+        alpha=0.5, k=c["k"])
+    ma = incubate.ModelAverage(0.15, model.parameters(),
+                               min_average_window=2, max_average_window=10)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    images = torch.randn(c["batch"], 3, c["image"], c["image"],
+                         device="cuda", generator=g)
+    labels = torch.randint(0, c["classes"], (c["batch"], 1), device="cuda",
+                           generator=g)
+    losses, times = [], []
+    for step in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = F.cross_entropy(model(paddle.Tensor(images)),
+                               paddle.Tensor(labels))
+        loss.backward()
+        la.step()
+        la.clear_grad()
+        ma.step()
+        losses.append(float(loss.numpy()))
+        times.append(time.perf_counter() - t0)
+        if (step + 1) % c["k"] == 0 and not all(
+                torch.equal(p._t, la._slow[id(p)])
+                for p in model.parameters()):
+            raise AssertionError("LookAhead: fast weights are not the slow "
+                                 f"ones after step {step + 1}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ResNet-50 LookAhead: losses {losses}")
+    spec = [InputSpec([1, 3, c["image"], c["image"]], "float32", "image")]
+    x = images[:1].contiguous()
+    with ma.apply():
+        model.eval()
+        want = model(paddle.Tensor(x)).numpy()
+        t0 = time.perf_counter()
+        path = paddle.onnx.export(model, os.path.join(tmp, "r50_card"),
+                                  input_spec=spec)
+        export_s = time.perf_counter() - t0
+        # the same Layer, its weights moved to the CPU, exported there
+        model.to("cpu")
+        paddle.set_device("cpu")
+        try:
+            cpu_path = paddle.onnx.export(
+                model, os.path.join(tmp, "r50_cpu"), input_spec=spec)
+        finally:
+            paddle.set_device("gpu")
+            model.to("gpu")
+        model.train()
+    graph = runner.load(path)
+    t0 = time.perf_counter()
+    (got,) = runner.run(graph, {graph.input_names[0]: x.cpu().numpy()})
+    run_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    same = open(path, "rb").read() == open(cpu_path, "rb").read()
+    del model, la, ma, images, labels
+    _free(torch)
+    log(f"ResNet-50 fp32 (batch {c['batch']} at {c['image']} px, {card}): "
+        f"{c['steps']} steps of LookAhead(Momentum(0.1, 0.9), alpha 0.5, "
+        f"k {c['k']}) with ModelAverage(0.15, 2..10): losses "
+        f"{[round(v, 4) for v in losses]}, step "
+        f"{1e3 * float(np.mean(times[1:])):.1f} ms; ONNX under "
+        f"ModelAverage.apply(): {os.path.getsize(path)} bytes, "
+        f"{len(graph.nodes)} nodes, export {export_s:.2f} s on the card, "
+        f"the numpy runner {run_s:.2f} s; runner vs the card's eval forward "
+        f"{err:.3e} of the largest logit {np.abs(want).max():.4g} (tol "
+        f"{ONNX_RTOL:g}); the CPU's export of the same weights byte for "
+        f"byte the same: {same}")
+    if not err <= ONNX_RTOL:
+        raise AssertionError("the ONNX runner disagrees with the card")
+    if not same:
+        raise AssertionError("the card's and the CPU's ONNX files differ")
+
+
+def _softmax_masks(np, torch):
+    """(c) 1: the fused softmax masks forward and backward on the card
+    against the port on the CPU, within SOFTMAX_RTOL of each output's
+    largest magnitude; ms a call."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import incubate
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for label, shape, causal, dt in SOFTMAX_CASES:
+        dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dt]
+        x = (4 * torch.randn(shape, device="cuda", generator=g)).to(dtype)
+        gy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        mask = None
+        if not causal:
+            lens = torch.randint(shape[-1] // 4, shape[-1] + 1,
+                                 (shape[0],), device="cuda", generator=g)
+            keep = torch.arange(shape[-1], device="cuda")[None] < lens[:, None]
+            mask = torch.where(keep, 0.0, -1e4).to(dtype)[:, None, None, :]
+
+        def fn(t, m):
+            if causal:
+                return incubate.softmax_mask_fuse_upper_triangle(t)
+            return incubate.softmax_mask_fuse(t, m)
+
+        outs = {}
+        for dev, place in (("cuda", "gpu"), ("cpu", "cpu")):
+            paddle.set_device(place)
+            t = paddle.Tensor(x.to(dev), stop_gradient=False)
+            m = None if mask is None else paddle.Tensor(mask.to(dev))
+            y = fn(t, m)
+            y.backward(paddle.Tensor(gy.to(dev)))
+            outs[dev] = (y._t, t.grad._t)
+        paddle.set_device("gpu")
+        if (outs["cpu"][0].device.type != "cpu"
+                or outs["cuda"][0].device != x.device):
+            raise AssertionError("the softmax masks ran on the wrong device")
+        what = f"softmax_mask_fuse{'_upper_triangle' if causal else ''} " \
+            f"{label} {list(shape)} {dt}"
+        for part, (got, want) in zip(("out", "dx"), zip(outs["cuda"],
+                                                         outs["cpu"])):
+            want = want.to(got.device).float()
+            err = (got.float() - want).abs().max().item()
+            top = want.abs().max().item()
+            log(f"{what} {part}, card vs cpu: max_abs_err {err:.3e}, "
+                f"{err / top:.3e} of the largest {top:.3e} (tol "
+                f"{SOFTMAX_RTOL[dt]:g})")
+            if not err <= SOFTMAX_RTOL[dt] * top:
+                raise AssertionError(f"{what} {part}: the card disagrees "
+                                     "with the CPU")
+        t = paddle.Tensor(x)
+        m = None if mask is None else paddle.Tensor(mask)
+        fwd = time_ms(lambda: fn(t, m), iters=10)
+        tg = paddle.Tensor(x, stop_gradient=False)
+
+        def fwd_bwd():
+            fn(tg, m).backward(paddle.Tensor(gy))
+            tg.clear_grad()
+
+        both = time_ms(fwd_bwd, iters=5)
+        log(f"{what}: forward {fwd:.3f} ms, forward + backward {both:.3f} "
+            "ms a call")
+        del outs, x, gy, mask, t, tg
+        _free(torch)
+
+
+def _rel_max(np, got, want):
+    """max |got - want| over max |want| where ``want`` is finite; inf
+    unless both are non-finite at the same places with the same values
+    (a uniform draw at its low end has log_prob -inf on both devices)."""
+    got, want = np.asarray(got, "float64"), np.asarray(want, "float64")
+    fin = np.isfinite(want)
+    if not (np.array_equal(fin, np.isfinite(got))
+            and np.array_equal(got[~fin], want[~fin])):
+        return float("inf")
+    return float(np.abs(got[fin] - want[fin]).max()
+                 / np.abs(want[fin]).max())
+
+
+def _distributions(np, torch):
+    """(c) 2: ``Categorical`` over [4096, 50304] weights (GPT's vocabulary)
+    and ``Normal`` / ``Uniform`` over [4096, 1024] on the card: equal draws
+    for one seed, the draws' statistics, and ``log_prob`` / ``entropy`` /
+    ``kl_divergence`` against the port on the CPU within DIST_RTOL of each
+    output's largest magnitude."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distribution as D
+
+    c = CATEGORICAL
+    g = torch.Generator(device="cuda").manual_seed(20)
+    w = torch.exp(0.5 * torch.randn(c["rows"], c["vocab"], device="cuda",
+                                    generator=g))
+    w2 = torch.exp(0.5 * torch.randn(c["rows"], c["vocab"], device="cuda",
+                                     generator=g))
+    cat = D.Categorical(paddle.Tensor(w))
+    paddle.seed(11)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1 = cat.sample([c["draws"]])
+    torch.cuda.synchronize()
+    draw_ms = 1e3 * (time.perf_counter() - t0)
+    paddle.seed(11)
+    s2 = cat.sample([c["draws"]])
+    paddle.seed(12)
+    s3 = cat.sample([c["draws"]])
+    n = c["rows"] * c["draws"]
+    counts = torch.bincount(s1._t.reshape(-1), minlength=c["vocab"])
+    pbar = (w / w.sum(-1, keepdim=True)).double().mean(0)
+    z = ((counts.double() / n - pbar).abs() / (pbar / n).sqrt()).max().item()
+    value = s1._t.t().contiguous()                # [rows, draws]
+    card = {"entropy": cat.entropy().numpy(),
+            "kl": cat.kl_divergence(D.Categorical(paddle.Tensor(w2))).numpy(),
+            "log_prob": cat.log_prob(paddle.Tensor(value)).numpy()}
+    paddle.set_device("cpu")
+    try:
+        cpu_cat = D.Categorical(paddle.Tensor(w.cpu()))
+        cpu = {"entropy": cpu_cat.entropy().numpy(),
+               "kl": cpu_cat.kl_divergence(
+                   D.Categorical(paddle.Tensor(w2.cpu()))).numpy(),
+               "log_prob": cpu_cat.log_prob(
+                   paddle.Tensor(value.cpu())).numpy()}
+        on_cpu = cpu_cat.logits._t.device.type == "cpu"
+    finally:
+        paddle.set_device("gpu")
+    if not (on_cpu and cat.logits._t.device == w.device):
+        raise AssertionError("Categorical ran on the wrong device")
+    errs = {k: _rel_max(np, card[k], cpu[k]) for k in card}
+    log(f"Categorical [{c['rows']}, {c['vocab']}]: {c['draws']} draws a row "
+        f"in {draw_ms:.1f} ms; the same seed draws the same: "
+        f"{torch.equal(s1._t, s2._t)}, another seed differs: "
+        f"{not torch.equal(s1._t, s3._t)}; pooled shares vs the mean "
+        f"probabilities, worst z {z:.2f} (bound {SHARE_Z:g}); card vs cpu "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        f"(tol {DIST_RTOL:g})")
+    if not (torch.equal(s1._t, s2._t) and not torch.equal(s1._t, s3._t)
+            and z <= SHARE_Z and max(errs.values()) <= DIST_RTOL):
+        raise AssertionError("Categorical on the card failed its checks")
+    del w, w2, cat, cpu_cat, s1, s2, s3, counts, pbar, value, card, cpu
+    _free(torch)
+
+    shape = DIST_SHAPE
+    loc = torch.randn(shape, device="cuda", generator=g)
+    scale = torch.rand(shape, device="cuda", generator=g) + 0.5
+    low = torch.randn(shape, device="cuda", generator=g)
+    high = low + torch.rand(shape, device="cuda", generator=g) + 0.1
+    loc2 = torch.randn(shape, device="cuda", generator=g)
+    scale2 = torch.rand(shape, device="cuda", generator=g) + 0.5
+    for name, args, kl in (("Normal", (loc, scale), (loc2, scale2)),
+                           ("Uniform", (low, high), None)):
+        cls = getattr(D, name)
+        dist = cls(*[paddle.Tensor(a) for a in args])
+        s = dist.sample([4], seed=3)._t
+        same = torch.equal(s, dist.sample([4], seed=3)._t)
+        other = not torch.equal(s, dist.sample([4], seed=4)._t)
+        n = s.numel()
+        if name == "Normal":
+            u = (s - loc) / scale
+            stats = (u.mean().item(), u.std().item())
+            ok = abs(stats[0]) <= 5 / n ** 0.5 and \
+                abs(stats[1] - 1) <= 5 * (2 / n) ** 0.5
+        else:
+            u = (s - low) / (high - low)
+            stats = (u.mean().item(), u.min().item(), u.max().item())
+            # in [low, high]: low + u (high - low) can round to high
+            ok = abs(stats[0] - 0.5) <= 5 * (1 / 12 / n) ** 0.5 and \
+                stats[1] >= 0 and stats[2] <= 1
+        value = s[0]
+        card = {"log_prob": dist.log_prob(paddle.Tensor(value)).numpy(),
+                "entropy": dist.entropy().numpy()}
+        if kl is not None:
+            card["kl"] = dist.kl_divergence(
+                cls(*[paddle.Tensor(a) for a in kl])).numpy()
+        paddle.set_device("cpu")
+        try:
+            cpu_dist = cls(*[paddle.Tensor(a.cpu()) for a in args])
+            cpu = {"log_prob": cpu_dist.log_prob(
+                       paddle.Tensor(value.cpu())).numpy(),
+                   "entropy": cpu_dist.entropy().numpy()}
+            if kl is not None:
+                cpu["kl"] = cpu_dist.kl_divergence(
+                    cls(*[paddle.Tensor(a.cpu()) for a in kl])).numpy()
+            on_cpu = (s.device == loc.device and
+                      cpu_dist.entropy()._t.device.type == "cpu")
+        finally:
+            paddle.set_device("gpu")
+        if not on_cpu:
+            raise AssertionError(f"{name} ran on the wrong device")
+        errs = {k: _rel_max(np, card[k], cpu[k]) for k in card}
+        log(f"{name} {list(shape)}: 4 seeded draws, same seed equal: {same}, "
+            f"another differs: {other}; standardised draws {stats}; card vs "
+            f"cpu {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+            f" (tol {DIST_RTOL:g})")
+        if not (same and other and ok and max(errs.values()) <= DIST_RTOL):
+            raise AssertionError(f"{name} on the card failed its checks")
+    _free(torch)
+
+
+def _utilities(np, torch, tmp):
+    """(d) ``utils.run_check()`` on the card, and a custom C++ ReLU from
+    ``cpp_extension.load`` (g++) on a CUDA tensor: forward and gradient
+    bit for bit ``F.relu``'s; ms a call, the host round trip included."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.utils import cpp_extension
+
+    paddle.utils.run_check()
+    src = os.path.join(tmp, "relu_p18.cc")
+    with open(src, "w") as f:
+        f.write(RELU_CC)
+    t0 = time.perf_counter()
+    ext = cpp_extension.load("relu_p18", [src], build_directory=tmp)
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(CUSTOM_RELU, device="cuda", generator=g)
+    gy = torch.randn(CUSTOM_RELU, device="cuda", generator=g)
+    tx = paddle.Tensor(x, stop_gradient=False)
+    out = ext.relu_p18(tx)
+    out.backward(paddle.Tensor(gy))
+    xr = x.clone().requires_grad_(True)
+    ref = torch.nn.functional.relu(xr)
+    ref.backward(gy)
+    same = (out._t.device == x.device == tx.grad._t.device
+            and torch.equal(out._t, ref) and torch.equal(tx.grad._t, xr.grad))
+    tn = paddle.Tensor(x)
+    ms = time_ms(lambda: ext.relu_p18(tn), iters=5, warmup=1)
+    lib = time_ms(lambda: torch.nn.functional.relu(x))
+    log(f"custom op relu_p18 (g++ {build_s:.2f} s) on a CUDA tensor "
+        f"{list(CUSTOM_RELU)}: forward and gradient bit for bit F.relu's: "
+        f"{same}; {ms:.2f} ms a call with the host round trip (F.relu on "
+        f"the card {lib:.4f} ms)")
+    if not same:
+        raise AssertionError("the custom op disagrees with F.relu")
+
+
+def phase_breadth(np, torch, card):
+    """Phase 18: (a) BERT-base under ASP 2:4, gradient merge and an EMA
+    in bf16, and the narrow BERT card vs CPU; (b) ResNet-50 under
+    LookAhead and ModelAverage, exported to ONNX; (c) the fused softmax
+    masks and the distributions at published shapes; (d) ``run_check``
+    and a custom C++ op.  Returns the BERT-base bf16 flash rows timed
+    again here and (a)'s launches."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    rows = _time_flash_bert(np, torch, "bf16")
+    _asp_parity(np, torch)
+    launches = _asp_bert_base(np, torch, card)
+    tmp = tempfile.mkdtemp(prefix="phase18_")
+    try:
+        _resnet_lookahead_onnx(np, torch, card, tmp)
+        _softmax_masks(np, torch)
+        _distributions(np, torch)
+        _utilities(np, torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(card)
+    return rows, launches
+
+
 def main():
     try:
         import numpy as np
@@ -7420,6 +8175,12 @@ def main():
         phase_hapi(np, torch, card)
         done("17 hapi and vision")
         return 0
+    if sys.argv[1:] == ["--phase", "18"]:
+        # phase 18 alone, for work on the rest of the breadth: no result
+        # line
+        phase_breadth(np, torch, card)
+        done("18 the rest of the breadth")
+        return 0
     if sys.argv[1:] == ["--phase", "12"]:
         # phase 12 alone, for work on the encoder-decoder, the flash
         # kernels at other lengths and the rec models: no result line
@@ -7462,10 +8223,14 @@ def main():
     done("16 process-level distributed training")
     hapi_rows, hapi_runs = phase_hapi(np, torch, card)
     done("17 hapi and vision")
+    breadth_rows, asp_launches = phase_breadth(np, torch, card)
+    done("18 the rest of the breadth")
     kernels.update(gpt_rows)
     kernels.update(hapi_rows)
     kernels.update(jit_kernels)
     kernels.update(bert_kernels)
+    # BERT-base's bf16 attention timed again in phase 18: the later reading
+    kernels.update(breadth_rows)
     kernels.update(encoder_kernels)
     kernels.update(seq_kernels)
     line = []
@@ -7542,6 +8307,8 @@ def main():
                 if dt == "bf16":
                     more["phase 10 BERT-base generic step bf16"] = \
                         step_launches[base]
+                    more["phase 18 (a) BERT-base ASP 2:4 + gradient merge "
+                         "bf16 (8 micro-steps)"] = asp_launches[base]
             else:
                 (run, c), *rest = fleet_runs[dt].items()
                 n = c[base]

@@ -57,6 +57,13 @@ mirrors the JAX package so that every module has an obvious counterpart:
   static engines, ``paddle.callbacks``, ``paddle.flops``) and the rest of
   ``vision/`` (``transforms``, the folder and tar datasets, ``image``
   and the detection ops of ``vision.ops``);
+* the rest of the breadth: ``text/`` and ``dataset/`` (the datasets and
+  the legacy readers, local files only), ``distribution.py``,
+  ``linalg.py``, ``onnx/`` (export and a numpy runner), ``incubate/``'s
+  wrapper optimizers, ``asp`` and fused softmax masks,
+  ``framework/crypto.py``, ``utils/`` (custom C++ ops, the weights cache,
+  ``run_check``), ``hub.py``, ``compat.py``, ``sysconfig.py`` and
+  ``version.py``;
 * ``weights.py``: lifts a JAX parameter tree (as numpy) into the port.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``
@@ -66,7 +73,9 @@ top-level namespace is the reference's ``paddle_tpu`` namespace for the
 modules ported so far: ``to_tensor``, ``seed``, ``set_device``,
 ``no_grad``, ``grad``, ``DataParallel``, ``io``, ``reader``, ``vision``,
 ``static``, ``fluid``, ``jit``, ``inference``, ``incubate``, ``hapi``,
-``Model``, ``callbacks``, ``flops``,
+``Model``, ``callbacks``, ``flops``, ``text``, ``dataset``,
+``distribution``, ``linalg``, ``onnx``, ``hub``, ``compat``,
+``sysconfig``, ``version``, ``utils``,
 ``enable_static``, ``save``, ``load``, ``batch``, the tensor functions
 and the helpers (``get_cudnn_version``, ``is_compiled_with_*``,
 ``set_printoptions``, ``summary``, ``check_shape``, ``monkey_patch_*``),
@@ -140,6 +149,18 @@ from . import incubate  # noqa: F401
 from . import hapi  # noqa: F401
 from .hapi import Model  # noqa: F401
 from .hapi import callbacks  # noqa: F401
+from . import version  # noqa: F401
+from . import text  # noqa: F401
+from . import dataset  # noqa: F401
+from . import distribution  # noqa: F401
+from . import linalg  # noqa: F401
+from . import onnx  # noqa: F401
+from . import hub  # noqa: F401
+from . import compat  # noqa: F401
+from . import sysconfig  # noqa: F401
+from . import utils  # noqa: F401
+
+__version__ = "0.1.0"
 
 VarBase = Tensor
 in_dynamic_mode = in_dygraph_mode

@@ -108,8 +108,9 @@ def require_version(min_version, max_version=None):
 
 def load_op_library(*a, **k):
     raise NotImplementedError(
-        "fluid.load_op_library loads custom-op libraries, which the port "
-        "gains with utils.cpp_extension's custom-op ABI (ROADMAP A.12)")
+        "fluid.load_op_library loads CUDA .so custom ops; use "
+        "paddle_tpu_torch.utils.cpp_extension (C++ run on the host) "
+        "instead.")
 
 
 # -- the remaining fluid names ---------------------------------------------
@@ -182,9 +183,9 @@ def load(program, model_path, executor=None, var_list=None):
 
 def install_check():
     """``fluid.install_check.run_check``."""
-    raise NotImplementedError(
-        "fluid.install_check needs utils.run_check, which the port gains "
-        "with ROADMAP A.12")
+    from ..utils import run_check
+
+    return run_check()
 
 
 def _cuda_synchronize(place=None):

@@ -5,9 +5,7 @@ Pre-2.x code writes ``import paddle.fluid as fluid; fluid.layers.fc(...)``;
 every name maps onto the port's 2.x functions (``static.nn`` builders,
 ``tensor_api``, ``nn.functional``), so such code runs unmodified, in
 static mode through the Executor.  Parameter-server-era or deprecated
-names raise an error naming the modern replacement, and names whose
-2.x backing the port has yet to gain raise NotImplementedError naming
-the ROADMAP item (``vision.ops`` and ``distribution``: A.12).
+names raise an error naming the modern replacement.
 
 The learning-rate schedule functions return the matching 2.x
 ``optimizer.lr`` scheduler, which every optimizer accepts: the rate a
@@ -29,19 +27,6 @@ from ...static.input import data as _static_data
 # sequence_*, cond/while_loop/case/switch_case, create_parameter, ...)
 from ...static.nn import *  # noqa: F401,F403
 from ...static.nn import __all__ as _snn_all
-
-
-def _waits(name, item, what):
-    """A stand-in for a name whose backing the port gains with ROADMAP
-    ``item``."""
-
-    def raiser(*a, **k):
-        raise NotImplementedError(
-            f"fluid.layers.{name} needs {what}, which the port gains with "
-            f"ROADMAP {item}")
-
-    raiser.__name__ = name
-    return raiser
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -912,8 +897,9 @@ def birnn(cell_fw, cell_bw, inputs, initial_states=None,
                   sequence_length=sequence_length)
 
 
-for _n in ("Categorical", "Normal", "Uniform"):
-    globals()[_n] = _waits(_n, "A.12", "paddle.distribution")
+from ...distribution import (  # noqa: E402,F401
+    Categorical, Normal, Uniform,
+)
 
 sequence_mask = F.sequence_mask
 triu = T.triu

@@ -49,20 +49,11 @@ Adadelta = AdadeltaOptimizer
 RMSProp = RMSPropOptimizer
 Lamb = LambOptimizer
 
-def _waits(name):
-    class _Waits:
-        def __init__(self, *a, **k):
-            raise NotImplementedError(
-                f"fluid.optimizer.{name} needs paddle.incubate, which the "
-                f"port gains with ROADMAP A.12")
+from ..incubate import (  # noqa: E402,F401
+    ExponentialMovingAverage, LookAhead, ModelAverage,
+)
 
-    _Waits.__name__ = name
-    return _Waits
-
-
-ExponentialMovingAverage = _waits("ExponentialMovingAverage")
-LookAhead = LookaheadOptimizer = _waits("LookAhead")
-ModelAverage = _waits("ModelAverage")
+LookaheadOptimizer = LookAhead
 
 
 def _unsupported(name, instead):

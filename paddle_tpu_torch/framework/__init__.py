@@ -2,10 +2,10 @@
 ``torch.Generator``s (:mod:`.random`), the flags (:mod:`.flags`), unique
 names, scopes, the NaN/Inf check, the static-graph descs
 (:mod:`.program`: ``Program``, ``Block``, ``Variable``, ``Operator``,
-``Parameter``) and the mode switch.
+``Parameter``), the mode switch and the model cipher (:mod:`.crypto`,
+over the optional ``cryptography`` package, imported when used).
 
-Counterpart of ``paddle_tpu/framework/``; ``crypto.py`` waits for the
-breadth slice (ROADMAP A.12).
+Counterpart of ``paddle_tpu/framework/``.
 """
 
 from . import dtype, unique_name  # noqa: F401
@@ -41,3 +41,4 @@ from .program import (  # noqa: F401
     program_guard,
 )
 from .scope import Scope, global_scope, scope_guard  # noqa: F401
+from . import crypto  # noqa: E402,F401

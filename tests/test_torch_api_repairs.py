@@ -14,6 +14,9 @@
   and ``Group.axis_name``; a group bound to a mesh axis names that axis's
   process group for the ``c_*`` ops of its ring (a one-rank gloo world
   here).
+* C.16: ``fluid.contrib.slim.quantization``'s ``ImperativeQuantAware`` and
+  ``ImperativePTQ`` are ``incubate.quant``'s classes, as the reference
+  re-exports them (they raised, naming ROADMAP A.12).
 """
 
 import inspect
@@ -154,3 +157,27 @@ def test_a_new_world_forgets_the_rings_of_the_last(tmp_path):
         assert tcoll.get_group(0).process_group is dist.group.WORLD
     finally:
         dist.destroy_process_group()
+
+
+def test_fluid_slim_quantization_is_incubate_quant():
+    """C.16: a QAT script written against ``fluid`` runs in the port, on
+    the classes the JAX package's ``fluid`` re-exports."""
+    import paddle_tpu.fluid.contrib.slim.quantization as jslim
+    import paddle_tpu.incubate.quant as jquant
+
+    import paddle_tpu_torch.fluid.contrib.slim.quantization as tslim
+    import paddle_tpu_torch.incubate.quant as tquant
+    from paddle_tpu_torch import nn
+
+    assert jslim.ImperativeQuantAware is jquant.ImperativeQuantAware
+    assert jslim.ImperativePTQ is jquant.ImperativePTQ
+    assert tslim.ImperativeQuantAware is tquant.ImperativeQuantAware
+    assert tslim.ImperativePTQ is tquant.ImperativePTQ
+    tp.set_device("cpu")
+    tp.seed(0)
+    model = nn.Sequential(nn.Linear(8, 4), nn.ReLU(), nn.Linear(4, 2))
+    q = tp.fluid.contrib.slim.quantization.ImperativeQuantAware().quantize(
+        model)
+    out = q(tp.to_tensor(np.ones((2, 8), "float32")))
+    assert out.shape == [2, 2] and np.isfinite(out.numpy()).all()
+    assert any(type(m).__name__ == "QuantizedLinear" for m in q.sublayers())

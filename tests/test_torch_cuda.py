@@ -1369,3 +1369,80 @@ def test_detection_ops_match_cpu_on_card(dev):
         torch.testing.assert_close(got[i], want[i], rtol=0, atol=0)
     for g, w_ in zip(got[3:], want[3:]):
         assert float((g - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
+
+
+@pytest.mark.cuda
+def test_asp_gradient_merge_ema_on_card_match_cpu(dev):
+    """An MLP pruned 2:4, stepped by GradientMerge(decorate(Momentum),
+    k=2) with an EMA, 4 micro-steps on the card against the CPU: the masks
+    equal bit for bit, every parameter and EMA shadow within 1e-5 of its
+    largest value (TF32 off; momentum's update is linear in the gradient,
+    so a zero-initialised bias is held as tightly as a weight), sparsity
+    held after each update."""
+    import numpy as np
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import incubate, nn
+    from paddle_tpu_torch.incubate import asp
+
+    def build():
+        return nn.Sequential(nn.Linear(16, 32), nn.ReLU(), nn.Linear(32, 8))
+
+    nets = _cpu_and_card(build)
+    r = np.random.RandomState(0)
+    batches = [(r.randn(8, 16).astype("float32"),
+                r.randn(8, 8).astype("float32")) for _ in range(4)]
+    got = {}
+    for device, net in nets.items():
+        tp.set_device(device)
+        asp._helper.reset()
+        helper = asp.prune_model(net, 2, 4)
+        opt = incubate.GradientMergeOptimizer(asp.decorate(
+            tp.optimizer.Momentum(0.05, parameters=net.parameters())),
+            k_steps=2)
+        ema = incubate.ExponentialMovingAverage(net.parameters(), 0.9)
+        for i, (x, y) in enumerate(batches):
+            nn.functional.mse_loss(net(tp.to_tensor(x)),
+                                   tp.to_tensor(y)).backward()
+            opt.step()
+            if i % 2 == 1:
+                ema.update()
+                for k, p in helper._params.items():
+                    assert asp.check_sparsity(p, 2, 4)
+        got[device] = {
+            "masks": [m.cpu().numpy() for m in helper._masks.values()],
+            "params": [p.numpy() for p in net.parameters()],
+            "ema": [s.cpu().numpy() for s in ema._shadow.values()]}
+        asp._helper.reset()
+    for a, b in zip(got["gpu"]["masks"], got["cpu"]["masks"]):
+        np.testing.assert_array_equal(a, b)
+    for key in ("params", "ema"):
+        for a, b in zip(got["gpu"][key], got["cpu"][key]):
+            assert _worst(a, b) <= 1e-5, key
+
+
+@pytest.mark.cuda
+def test_custom_op_on_a_card_tensor_matches_relu(dev, tmp_path):
+    """A custom C++ ReLU (``cpp_extension.load``, g++) on a CUDA tensor:
+    the op runs on a host copy and its output and gradient come back to
+    the card, equal to ``F.relu``'s bit for bit."""
+    import os
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.utils import cpp_extension
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "custom_op_src", "relu2_op.cc")
+    ext = cpp_extension.load("relu2_ext", [src],
+                             build_directory=str(tmp_path))
+    tp.set_device("gpu")
+    x = torch.randn(64, 128, device=dev)
+    g = torch.randn(64, 128, device=dev)
+    tx = tp.Tensor(x, stop_gradient=False)
+    out = ext.relu2(tx)
+    out.backward(tp.Tensor(g))
+    assert out._t.device.type == "cuda" and tx.grad._t.device.type == "cuda"
+    xr = x.clone().requires_grad_(True)
+    ref = torch.nn.functional.relu(xr)
+    ref.backward(g)
+    assert torch.equal(out._t, ref) and torch.equal(tx.grad._t, xr.grad)

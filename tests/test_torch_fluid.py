@@ -279,12 +279,19 @@ def test_fluid_save_load_forms(tmp_path):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda L: L.Uniform(0.0, 1.0), "A.12"),
-    (lambda L: L.Normal(0.0, 1.0), "A.12"),
-])
+    (lambda L: L.Uniform(0.0, 1.0), "Uniform"),
+    (lambda L: L.Normal(0.0, 1.0), "Normal"),
+], ids=["<lambda>-A.12_0", "<lambda>-A.12_1"])
 def test_fluid_names_that_wait_raise(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        call(tfluid.layers)
+    """The distributions that waited for ROADMAP A.12 are bound now, as
+    the reference binds them (``fluid.layers`` re-exports
+    ``paddle.distribution``'s classes); the deprecated names still raise
+    naming their replacement."""
+    import paddle_tpu_torch.distribution as D
+
+    d = call(tfluid.layers)
+    assert type(d) is getattr(D, item)
+    assert getattr(tfluid.layers, item) is getattr(D, item)
     with pytest.raises(NotImplementedError, match="instead"):
         tfluid.layers.dynamic_lstm()
 

@@ -209,7 +209,23 @@ EAGER_MODULES = (
     "paddle_tpu_torch.jit.dy2static", "paddle_tpu_torch.static.quant_int8",
     "paddle_tpu_torch.inference", "paddle_tpu_torch.incubate",
     "paddle_tpu_torch.incubate.quant", "paddle_tpu_torch.examples.infer_int8",
-    "paddle_tpu_torch.examples.fluid_word2vec")
+    "paddle_tpu_torch.examples.fluid_word2vec",
+    "paddle_tpu_torch.text", "paddle_tpu_torch.text.datasets",
+    "paddle_tpu_torch.dataset", "paddle_tpu_torch.dataset.cifar",
+    "paddle_tpu_torch.dataset.conll05", "paddle_tpu_torch.dataset.flowers",
+    "paddle_tpu_torch.dataset.imdb", "paddle_tpu_torch.dataset.imikolov",
+    "paddle_tpu_torch.dataset.mnist", "paddle_tpu_torch.dataset.movielens",
+    "paddle_tpu_torch.dataset.uci_housing",
+    "paddle_tpu_torch.dataset.voc2012", "paddle_tpu_torch.dataset.wmt14",
+    "paddle_tpu_torch.dataset.wmt16", "paddle_tpu_torch.distribution",
+    "paddle_tpu_torch.linalg", "paddle_tpu_torch.onnx",
+    "paddle_tpu_torch.onnx.proto", "paddle_tpu_torch.onnx.convert",
+    "paddle_tpu_torch.onnx.runner", "paddle_tpu_torch.incubate.asp",
+    "paddle_tpu_torch.framework.crypto", "paddle_tpu_torch.utils",
+    "paddle_tpu_torch.utils.download", "paddle_tpu_torch.utils.cpp_extension",
+    "paddle_tpu_torch.hub", "paddle_tpu_torch.compat",
+    "paddle_tpu_torch.sysconfig", "paddle_tpu_torch.version",
+    "paddle_tpu_torch.fluid.contrib.slim.quantization")
 
 
 def test_eager_core_imports_no_jax_and_no_reference():

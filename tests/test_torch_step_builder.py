@@ -110,9 +110,57 @@ CASES = [("resnet18_momentum_nchw", lambda: _resnet("NCHW"),
           dict(optimizer="adamw", lr=1e-3, weight_decay=0.01))]
 
 
+def _fp32_histories():
+    """Each fp32 case's per-step record (JSON-ready), run here."""
+    tp.set_device("cpu")
+    out = {}
+    for name, case, kw in CASES:
+        hist, _ = _run_both(case(), compute_dtype=None, **kw)
+        out[name] = [dict(h, t=list(h["t"])) for h in hist]
+    return out
+
+
+@pytest.fixture(scope="module")
+def fp32_histories():
+    """The fp32 cases, both packages, in one fresh process (ROADMAP C.15).
+
+    In the whole suite the reference's ResNet-18 step now and then rounds
+    another way in one xdist worker than in any fresh process (its step-1
+    loss 2.5212166 against 2.5212128, the port's 2.5212259 in both), and
+    the chaotic BatchNorm at 1 x 1 (the module docstring) carries that to
+    a step-3 loss pair 1.3e-5 apart.  What the worker's earlier tests left
+    behind was not found (not XLA's thread count, a CPU pinning, x64, the
+    compilation cache, nor any one earlier file), so the comparison runs
+    where the reference's arithmetic is pinned: a fresh interpreter with
+    the suite's JAX settings (``conftest.py``'s: CPU, 8 virtual devices,
+    the persistent compilation cache).  The bounds are unchanged."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here, os.path.dirname(here)] + [env["PYTHONPATH"]]
+        if env.get("PYTHONPATH") else [here, os.path.dirname(here)])
+    code = ("import json\n"
+            "import conftest\n"
+            "import test_torch_step_builder as T\n"
+            "print('HISTORIES ' + json.dumps(T._fp32_histories()))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = [s for s in proc.stdout.splitlines()
+            if s.startswith("HISTORIES ")][-1]
+    return {name: [dict(h, t=tuple(h["t"]), loss=tuple(h["loss"]))
+                   for h in hist]
+            for name, hist in json.loads(line[len("HISTORIES "):]).items()}
+
+
 @pytest.mark.parametrize("name,case,kw", CASES, ids=[c[0] for c in CASES])
-def test_three_steps_match_reference_fp32(name, case, kw):
-    hist, _ = _run_both(case(), compute_dtype=None, **kw)
+def test_three_steps_match_reference_fp32(name, case, kw, fp32_histories):
+    hist = fp32_histories[name]
     for h in hist:
         assert _loss_rel(h) <= 1e-5, hist
         assert h["update"] <= 2e-3 and h["moments"] <= 2e-3, hist
