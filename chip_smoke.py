@@ -392,6 +392,25 @@ its seconds):
     and ``Uniform`` over [4096, 1024]; (d) ``utils.run_check()`` and a
     custom C++ ReLU (``cpp_extension.load``, g++) on a CUDA tensor, bit
     for bit ``F.relu``'s forward and gradient.
+19. the reference's inputs on the card (``phase_sdpa_inputs``; ``--phase
+    19`` builds and runs it alone, no result line): (b) ``sdpa`` on the
+    card against ``sdpa_plain`` in fp32 for every input the card refused
+    before this phase existed (fp16, trainable masks of three shapes,
+    causal Sq > Sk, head dims 8 / 12 / 20 and a v head dim of its own,
+    bnsd GQA, 2-D q) and head_dim 264 refused with nothing launched; the
+    fp16 kernels at BERT-base's attention, dBias with a [B, 1, 1, S] and
+    an [H, S, S] trainable bias and causal Sq = 256 over Sk = 200, held
+    to their plain versions and timed beside SDPA (the rows
+    ``flash_*_{bertbase,dbias_pad,dbias_hss,nokey}_fp16``); (c) dBias and
+    causal Sq > Sk at ``CROSS_CASES``'s shapes and bnsd GQA in bf16, fp16
+    and fp32 against the plain versions; (a) the small BERT card vs CPU
+    in fp16 O1 with a GradScaler whose first step overflows (the scale
+    sequences equal), then BERT-base at phase 8's shape in fp16 O1 with a
+    dynamic GradScaler (6 steps: step ms, tokens/s, MFU over the fp16
+    peak, peak memory, the busy share of one more step), O2 under
+    ``amp.decorate(dtype="float16")`` (2 steps) and O1 with a trainable
+    [H, S, S] attention bias (2 steps, ``flash_bwd_dq_dbias`` launched),
+    each with the loss scale after every step and its launches asserted.
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
@@ -1054,13 +1073,23 @@ FLASH_CASES = (
 # the row's rms follows where a value cancels (an early key's dV sums
 # O(1) terms of many queries); lse stays fp32.
 # At atol 1e-2 the worst shares of the bound on an H100 were 0.93 (out),
-# 0.85 (dq), 0.69 (dk) and 1.04 (dv) over these cases, hence 3e-2
+# 0.85 (dq), 0.69 (dk) and 1.04 (dv) over these cases, hence 3e-2.
+# fp16: the same roundings at fp16's 2^-11, 8 times finer: a quarter of
+# bf16's bound.  dbias: fp32 sums of p (dp - delta) over the bias's
+# broadcast dimensions, by atomics in any order on the card, pairwise in
+# the plain version; the 16-bit kernels take dp - delta in fp32 (the fp32
+# ones in fp64 where p is heavy, as for dQ), and where a row sees few keys
+# it cancels to ~1e-5 of the tensor's rms: at atol 1e-3 a bf16 decoder
+# mask's row used 1.5 of the bound on an H100, hence 1e-2.
 FLASH_TOL = {
     "fp32": {"out": (1e-5, 1e-5), "lse": (1e-6, 1e-6), "dq": (1e-5, 1e-5),
-             "dk": (1e-5, 1e-5), "dv": (1e-5, 1e-5)},
+             "dk": (1e-5, 1e-5), "dv": (1e-5, 1e-5), "dbias": (1e-4, 1e-4)},
     "bf16": {"out": (2e-2, 3e-2), "lse": (1e-6, 1e-6), "dq": (2e-2, 3e-2),
-             "dk": (2e-2, 3e-2), "dv": (2e-2, 3e-2)},
+             "dk": (2e-2, 3e-2), "dv": (2e-2, 3e-2), "dbias": (1e-3, 1e-2)},
+    "fp16": {"out": (5e-3, 8e-3), "lse": (1e-6, 1e-6), "dq": (5e-3, 8e-3),
+             "dk": (5e-3, 8e-3), "dv": (5e-3, 8e-3), "dbias": (1e-3, 1e-2)},
 }
+DTYPES = {"fp32": "float32", "bf16": "bfloat16", "fp16": "float16"}
 
 
 def _flash_close(label, got, want, rtol, atol):
@@ -1244,8 +1273,8 @@ def _flash_bound(dt, nbytes, ops):
     bf16 tensor cores, or for fp32 three TF32 products an operation
     (3xTF32); ``bound_ms``'s pair and the peak named (for fp32 with the
     bound at the card's fp32 FMAs beside)."""
-    if dt == "bf16":
-        return (*bound_ms(nbytes, ops, BF16_FLOPS), "989 TFLOP/s bf16")
+    if dt in ("bf16", "fp16"):
+        return (*bound_ms(nbytes, ops, BF16_FLOPS), f"989 TFLOP/s {dt}")
     return (*bound_ms(nbytes, ops, TF32_FLOPS / 3),
             f"495 / 3 TFLOP/s, 3xTF32; {ops / FP32_FLOPS * 1e3:.4f} ms at "
             "67 TFLOP/s of fp32 FMAs")
@@ -3802,8 +3831,8 @@ def _flash_biased(np, torch):
     plain versions with the same bias, each tensor within FLASH_TOL (the
     backward kernels from the plain forward's out and lse)."""
     from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
-    from paddle_tpu_torch.kernels.flash import (flash_bwd, flash_fwd_cuda,
-                                                mask_bias)
+    from paddle_tpu_torch.kernels.flash import (_bias_of, _heads_shape,
+                                                flash_bwd, flash_fwd_cuda)
 
     d = 64
     for case, layout, b, h, hkv, s, kind, dts in BIAS_CASES:
@@ -3811,7 +3840,9 @@ def _flash_biased(np, torch):
             dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dt]
             g = torch.Generator(device="cuda").manual_seed(s + h)
             q, k, v = _qkv_views(torch, g, layout, b, h, hkv, s, d, dtype)
-            bias = mask_bias(_mask(torch, g, kind, b, s, h), q, layout)
+            mask = _mask(torch, g, kind, b, s, h)
+            bias = None if mask is None else _bias_of(
+                mask, q, layout).expand(_heads_shape(q, layout))
             scale = 1.0 / np.sqrt(d)
             out, lse = flash_fwd_cuda(q, k, v, False, scale, None, layout,
                                       bias)
@@ -3837,8 +3868,18 @@ def _flash_biased(np, torch):
     torch.cuda.empty_cache()
 
 
+def _visible_pairs(sq, sk, causal):
+    """The (query, key) pairs a head's kernels compute: all, or under a
+    causal band aligned at the bottom right the visible ones, where a row
+    that sees no key (Sq > Sk) has all Sk."""
+    if not causal:
+        return sq * sk
+    return sum(min(max(i + sk - sq + 1, 0), sk) if i >= sq - sk else sk
+               for i in range(sq))
+
+
 def _time_flash_model(np, torch, label, q, k, v, mask, causal=False,
-                      backward=True):
+                      backward=True, train_mask=False):
     """The forward (and dQ, dK/dV) kernels at a model's attention (bnsd
     head views ``q`` [B, H, Sq, D] and ``k``, ``v`` [B, H, Sk, D] as the
     model hands them over, ``mask`` as the score bias): held to their
@@ -3848,21 +3889,29 @@ def _time_flash_model(np, torch, label, q, k, v, mask, causal=False,
     mask, and a causal band as a -inf mask aligned at the bottom right);
     returns their kernels-line rows ``flash_*_{label}_{dtype}``, each
     with its own max abs error here.  The bound counts the pairs a causal
-    band leaves visible."""
+    band leaves visible.  ``train_mask``: the mask requires grad; the dQ
+    kernel also writes its gradient (the row ``flash_bwd_dq_dbias``), held
+    to the plain version's and timed beside SDPA with an ``attn_mask``
+    that requires grad."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
-    from paddle_tpu_torch.kernels.flash import (flash_bwd_dkv_cuda,
+    from paddle_tpu_torch.kernels.flash import (_bias_of, _heads_shape,
+                                                flash_bwd_dkv_cuda,
                                                 flash_bwd_dq_cuda, flash_delta,
-                                                flash_fwd_cuda, mask_bias)
+                                                flash_fwd_cuda)
 
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    dt = "fp32" if q.dtype == torch.float32 else "bf16"
+    dt = {torch.float32: "fp32", torch.bfloat16: "bf16",
+          torch.float16: "fp16"}[q.dtype]
     g = torch.Generator(device="cuda").manual_seed(7)
-    bias = mask_bias(mask, q, "bnsd", k)
+    base = None if mask is None else _bias_of(mask, q, "bnsd", k, causal)
+    bias = None if base is None else base.expand(_heads_shape(q, "bnsd", k))
     scale = 1.0 / np.sqrt(d)
     opts = (causal, scale, None, "bnsd", bias)
+    dqn = "flash_bwd_dq_dbias" if train_mask else "flash_bwd_dq"
+    dbias = torch.zeros(base.shape, device="cuda") if train_mask else None
     what = (f"(bnsd, B={b} H={h} Sq={sq} Sk={sk} D={d}, "
             f"{'causal' if causal else 'not causal'}, {dt}, mask "
             f"{None if mask is None else tuple(mask.shape)})")
@@ -3873,14 +3922,18 @@ def _time_flash_model(np, torch, label, q, k, v, mask, causal=False,
     parts = [("flash_fwd", "out", out, ref), ("flash_fwd", "lse", lse, rlse)]
     calls = {"flash_fwd": lambda: flash_fwd_cuda(q, k, v, *opts)}
     if backward:
-        dq = flash_bwd_dq_cuda(q, k, v, ref, rlse, delta, do, *opts)
+        dq = flash_bwd_dq_cuda(q, k, v, ref, rlse, delta, do, *opts, dbias)
         dk, dv = flash_bwd_dkv_cuda(q, k, v, rlse, delta, do, *opts)
-        want = flash_bwd_plain(q, k, v, ref, rlse, do, *opts)
-        parts += [("flash_bwd_dq", "dq", dq, want[0]),
+        want = flash_bwd_plain(q, k, v, ref, rlse, do, *opts,
+                               dbias_shape=None if dbias is None
+                               else dbias.shape)
+        parts += [(dqn, "dq", dq, want[0]),
                   ("flash_bwd_dkv", "dk", dk, want[1]),
                   ("flash_bwd_dkv", "dv", dv, want[2])]
-        calls["flash_bwd_dq"] = lambda: flash_bwd_dq_cuda(
-            q, k, v, ref, rlse, delta, do, *opts)
+        if train_mask:
+            parts.append((dqn, "dbias", dbias, want[3]))
+        calls[dqn] = lambda: flash_bwd_dq_cuda(
+            q, k, v, ref, rlse, delta, do, *opts, dbias)
         calls["flash_bwd_dkv"] = lambda: flash_bwd_dkv_cuda(
             q, k, v, rlse, delta, do, *opts)
     err = {}
@@ -3901,28 +3954,34 @@ def _time_flash_model(np, torch, label, q, k, v, mask, causal=False,
     lib = {"flash_fwd": graph_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=am))}
     if backward:
-        plain["flash_bwd_dq"] = plain["flash_bwd_dkv"] = time_ms(
-            lambda: flash_bwd_plain(q, k, v, ref, rlse, do, *opts), iters=3)
+        plain[dqn] = plain["flash_bwd_dkv"] = time_ms(
+            lambda: flash_bwd_plain(q, k, v, ref, rlse, do, *opts,
+                                    dbias_shape=None if dbias is None
+                                    else dbias.shape), iters=3)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lam = am
+        if train_mask:
+            lam = am.detach().requires_grad_()
+            leaves.append(lam)
 
         def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(*leaves, attn_mask=am)
+            o = F.scaled_dot_product_attention(*leaves[:3], attn_mask=lam)
             torch.autograd.grad(o, leaves, do)
 
-        lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = (
+        lib[dqn] = lib["flash_bwd_dkv"] = (
             graph_ms(sdpa_fwd_bwd) - lib["flash_fwd"])
-        del leaves
+        del leaves, lam
     elt = q.element_size()
     qe, ke = b * h * sq * d * elt, b * h * sk * d * elt   # one operand
     rows = b * h * sq * 4                                 # lse
     drows = rows * (2 if dt == "fp32" else 1)             # delta
     mbytes = 0 if mask is None else mask.numel() * 4      # the bias
-    pairs = b * h * (sq * (sk - sq) + sq * (sq + 1) // 2 if causal
-                     else sq * sk)
+    dbytes = 0 if dbias is None else dbias.numel() * 4    # its gradient
+    pairs = b * h * _visible_pairs(sq, sk, causal)
     full = pairs * d
     work = {"flash_fwd": (2 * qe + 2 * ke + rows + mbytes, 4 * full),
-            "flash_bwd_dq": (3 * qe + 2 * ke + rows + drows + mbytes,
-                             6 * full),
+            dqn: (3 * qe + 2 * ke + rows + drows + mbytes + dbytes,
+                  6 * full),
             "flash_bwd_dkv": (2 * qe + 4 * ke + rows + drows + mbytes,
                               8 * full)}
     results = {}
@@ -3941,7 +4000,7 @@ def _time_flash_model(np, torch, label, q, k, v, mask, causal=False,
             f"{lib[name]:.4f} ms, bound {bms:.4f} ms "
             f"({by}; {ops:.4g} flop at {peak}, {nbytes} bytes; "
             f"{100 * bms / ms[name]:.1f}% of it)")
-    del q, k, v, mask, bias, ref, rlse, do, delta
+    del q, k, v, mask, bias, ref, rlse, do, delta, base, dbias
     _free(torch)
     return results
 
@@ -4234,13 +4293,13 @@ def _flash_cross(np, torch):
     """(a): the forward, dQ and dK/dV kernels with q and k of other lengths
     against their plain versions on the card, each tensor within FLASH_TOL,
     bf16 and fp32 (the backward kernels from the plain forward's out and
-    lse); nothing is NaN where whole key tiles score -inf.  Then the
-    decision on causal attention with more queries than keys: ``sdpa``
-    raises, and launches the kernels for the same shape not causal."""
+    lse); nothing is NaN where whole key tiles score -inf.  Then causal
+    attention with more queries than keys: ``sdpa`` launches the kernels
+    for it as for the same shape not causal."""
     from paddle_tpu_torch.kernels import KERNELS, flash_bwd_plain, \
         flash_fwd_plain, reset_launch_counts, sdpa
-    from paddle_tpu_torch.kernels.flash import (flash_bwd, flash_fwd_cuda,
-                                                mask_bias)
+    from paddle_tpu_torch.kernels.flash import (_bias_of, _heads_shape,
+                                                flash_bwd, flash_fwd_cuda)
 
     d = 64
     for case, layout, b, h, hkv, sq, sk, causal, kind in CROSS_CASES:
@@ -4249,8 +4308,9 @@ def _flash_cross(np, torch):
             g = torch.Generator(device="cuda").manual_seed(sq + sk + h)
             q, k, v = _cross_inputs(torch, g, layout, b, h, hkv, sq, sk, d,
                                     dtype)
-            bias = mask_bias(_mask(torch, g, kind, b, sq, h, sk), q, layout,
-                             k)
+            mask = _mask(torch, g, kind, b, sq, h, sk)
+            bias = None if mask is None else _bias_of(
+                mask, q, layout, k, causal).expand(_heads_shape(q, layout, k))
             scale = 1.0 / np.sqrt(d)
             opts = (causal, scale, None, layout, bias)
             out, lse = flash_fwd_cuda(q, k, v, *opts)
@@ -4279,14 +4339,10 @@ def _flash_cross(np, torch):
                             torch.bfloat16)
     reset_launch_counts()
     sdpa(q, k, v)
-    try:
-        sdpa(q, k, v, is_causal=True)
-    except NotImplementedError as e:
-        log(f"causal Sq=256 over Sk=200: sdpa raises ({e}); not causal it "
-            f"launched {KERNELS['flash_fwd']} forward kernel")
-    else:
-        raise AssertionError("sdpa took causal attention with Sq > Sk")
-    if KERNELS["flash_fwd"] != 1:
+    out = sdpa(q, k, v, is_causal=True)
+    log(f"causal Sq=256 over Sk=200: sdpa launched {KERNELS['flash_fwd']} "
+        f"forward kernels (with the same shape not causal)")
+    if KERNELS["flash_fwd"] != 2 or not torch.isfinite(out).all():
         raise AssertionError(f"sdpa at Sq > Sk launched {KERNELS}")
     torch.cuda.empty_cache()
 
@@ -5728,7 +5784,7 @@ def _beam_base(np, torch, card):
         f"({total.get('flash_fwd', 0) / steps:.2f} a step, biased "
         f"{spy.counts.get('flash_fwd')}, q and k of other lengths "
         f"{spy.cross.get('flash_fwd')}); the fp32 forward runs one live query "
-        f"row in its 256-row block (ROADMAP A.15); best scores "
+        f"row in its 256-row block (ROADMAP B.33); best scores "
         f"{float(scores.min()):.3f}..{float(scores.max()):.3f}, first "
         f"row's ids {ids[0, :12].tolist()}")
     want = {k: 6 + 12 * steps if k == "flash_fwd" else 0 for k in FLASH}
@@ -8092,6 +8148,510 @@ def phase_breadth(np, torch, card):
     return rows, launches
 
 
+# -- phase 19 ----------------------------------------------------------------
+
+# the reference's inputs on the card: BERT-base (phase 8's shape) under
+# fp16 O1 with a dynamic GradScaler, then O2 under decorate(float16), and
+# runs with a trainable [H, S, S] attention bias and a trainable [B, 1, 1,
+# S] pad mask (the dBias path, both of emit_dbias's reductions); causal
+# cross-attention with more queries than keys trained in fp16 (the rows
+# with no key); the small BERT card vs CPU in fp16 with a forced overflow
+# at init_loss_scaling 2^24
+P19_O1_STEPS = 6                # 1 warm-up and 5 timed
+P19_O2_STEPS = 2
+P19_BIAS_STEPS = 2
+P19_NOKEY_STEPS = 3
+P19_SMALL_STEPS = 4
+# the small BERT's fp16 losses card vs CPU, relative: measured 5.9e-5 on
+# an H100 80GB HBM3 at 700 W, a third of one step's loss change (3e-3)
+P19_SMALL_TOL = 1e-3
+# each step's loss change card vs CPU, as a share of the largest change
+# on the CPU: measured 1.8% on the same card; a wrong or missing update
+# moves it by a whole step
+P19_SMALL_STEP_TOL = 0.1
+# the causal Sq > Sk run's first fp16 output against the same weights'
+# fp32 output on the CPU (sdpa_plain), as a share of the largest |output|:
+# O1 runs the attention in fp16 (the Linears stay fp32, as the
+# reference's do), which rounds q, k, v, P and its output to 4.9e-4 of a
+# value each; measured 5.1e-4 on an H100 80GB HBM3 at 700 W
+P19_NOKEY_TOL = 5e-3
+# the small run's GradScaler: 2^24 overflows its first step, decr_ratio
+# 2^-8 drops the scale to 2^16, where none of its steps overflows on the
+# CPU (2^17 does, now and then): one skipped step, then updates
+P19_SMALL_SCALE = (2.0 ** 24, 2.0 ** -8)
+# the new kernel cases of (b): label, B, H, Sq, Sk, D, causal, dtype,
+# mask kind (``_mask``'s; "hss" a learned [H, Sq, Sk] bias), trainable
+P19_CASES = (
+    ("bertbase", 32, 12, 512, 512, 64, False, "fp16", None, False),
+    ("dbias_pad", 32, 12, 512, 512, 64, False, "fp16", "pad", True),
+    ("dbias_hss", 32, 12, 512, 512, 64, False, "fp16", "hss", True),
+    ("nokey", 96, 8, 256, 200, 64, True, "fp16", None, False),
+)
+# the run of (a) whose launches each case's rows report: the run that
+# takes that case's variant on the main path
+P19_ROW_RUNS = {"bertbase": "O1",
+                "dbias_pad": "O1 trainable [B, 1, 1, S] pad mask",
+                "dbias_hss": "O1 trainable [H, S, S] bias",
+                "nokey": "causal Sq > Sk"}
+
+
+def _bert_amp_run(np, torch, argv, steps, dtype, level="O1", scale=2.0 ** 16,
+                  device="gpu", state=None, train_mask=None, profile=False,
+                  decr_ratio=0.5):
+    """The pretrain_bert example's loop under ``auto_cast(level, dtype)``
+    with a dynamic GradScaler (``scale`` its initial loss scaling,
+    ``decr_ratio`` its factor on an overflow), O2
+    after ``amp.decorate(level="O2", dtype=dtype)``; ``train_mask``: the
+    attention takes a trainable float mask (a parameter the optimizer
+    updates), "hss" an [H, S, S] bias, "pad" a [B, 1, 1, S] pad mask.  Returns the initial state, the losses, the scale after each
+    step, the step seconds, the flash launches (dBias's included), the
+    bias's change and, with ``profile``, the peak memory and the busy
+    share of one more step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.examples import pretrain_bert as ex
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.weights import (load_paddle_state_dict,
+                                          state_dict_to_numpy)
+
+    paddle.set_device(device)
+    args = ex.parse(argv + ["--steps", str(steps), "--device", device])
+    old = unique_name.switch()
+    try:
+        cfg, model, crit, sched, opt = ex.build(args)
+        if state is not None:
+            load_paddle_state_dict(model, state)
+        init = state_dict_to_numpy(model) if state is None else state
+        bias = None
+        if train_mask is not None:
+            shape = ([cfg.num_heads, args.seq, args.seq]
+                     if train_mask == "hss" else [args.batch, 1, 1, args.seq])
+            bias = paddle.create_parameter(
+                shape, "float32",
+                default_initializer=paddle.nn.initializer.Constant(0.0))
+            opt = popt.AdamW(learning_rate=sched,
+                             parameters=model.parameters() + [bias],
+                             weight_decay=0.01,
+                             grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+            forward = model.forward
+
+            def biased(ids, token_type_ids=None, attn_mask=None, **kw):
+                return forward(ids, token_type_ids, attn_mask=bias, **kw)
+
+            model.forward = biased
+        if level == "O2":
+            model, opt = paddle.amp.decorate(models=model, optimizers=opt,
+                                             level="O2", dtype=dtype)
+        scaler = paddle.amp.GradScaler(init_loss_scaling=scale,
+                                       decr_ratio=decr_ratio)
+        batch = ex.make_batch(cfg, args.batch, args.seq, args.masked,
+                              args.seed)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, scales, times = [], [], []
+        for _ in range(steps):
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = ex.train_step(model, crit, opt, sched, batch, amp=dtype,
+                                 scaler=scaler, level=level)
+            losses.append(float(loss.numpy()))          # synchronises
+            times.append(time.perf_counter() - t0)
+            scales.append(scaler.get_loss_scaling())
+        launches = {k: KERNELS[k] for k in FLASH + ("flash_bwd_dq_dbias",)}
+        moved = (None if bias is None
+                 else float(bias.numpy().astype("float64").std()))
+        extra = None
+        if profile:
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            busy = _profile(torch, f"one more {level} {dtype} step",
+                            lambda: ex.train_step(model, crit, opt, sched,
+                                                  batch, amp=dtype,
+                                                  scaler=scaler,
+                                                  level=level))
+            extra = {"peak_gib": peak, "busy": busy, "cfg": cfg,
+                     "args": args}
+        return init, losses, scales, times, launches, moved, extra
+    finally:
+        unique_name.switch(old)
+        paddle.set_device("gpu")
+
+
+def _fp16_parity(np, torch):
+    """(a1) The small BERT for P19_SMALL_STEPS steps of the fp16 O1 loop
+    with a GradScaler at P19_SMALL_SCALE (its first step overflows:
+    skipped, the scale cut) on the card and on the CPU from the same
+    weights: the scale sequences equal, the losses within P19_SMALL_TOL
+    (fp16 products on two devices), each step's loss change within
+    P19_SMALL_STEP_TOL of the CPU's largest (a wrong gradient moves it),
+    2 layers' flash launches a step."""
+    scale, decr = P19_SMALL_SCALE
+    init, cpu, cpu_scales, _, _, _, _ = _bert_amp_run(
+        np, torch, BERT_SMALL, P19_SMALL_STEPS, "float16", scale=scale,
+        device="cpu", decr_ratio=decr)
+    _, card, scales, _, launches, _, _ = _bert_amp_run(
+        np, torch, BERT_SMALL, P19_SMALL_STEPS, "float16", scale=scale,
+        state=init, decr_ratio=decr)
+    _free(torch)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    moves = [np.diff(x) for x in (card, cpu)]
+    step = float(np.abs(moves[0] - moves[1]).max()
+                 / np.abs(moves[1]).max())
+    log(f"eager BERT small fp16 O1 + GradScaler({scale:g}, decr_ratio "
+        f"{decr:g}), card vs cpu: losses "
+        f"card {card} cpu {cpu}, rel err {rel:.3e} (tol {P19_SMALL_TOL:g}); "
+        f"loss changes card {moves[0].tolist()} cpu {moves[1].tolist()}, "
+        f"apart by {step:.3e} of the largest (tol {P19_SMALL_STEP_TOL:g}); "
+        f"scales card {scales} cpu {cpu_scales}; launches "
+        f"{json.dumps(launches)}")
+    if (not rel <= P19_SMALL_TOL or not step <= P19_SMALL_STEP_TOL
+            or scales != cpu_scales):
+        raise AssertionError("the fp16 BERT step on the card disagrees with "
+                             "the CPU")
+    if scales[0] != scale * decr or card[-1] == card[0]:
+        raise AssertionError(f"no skipped first step, or no update after "
+                             f"it: scales {scales}, losses {card}")
+    want = {k: P19_SMALL_STEPS * 2 for k in FLASH}
+    if {k: launches[k] for k in FLASH} != want:
+        raise AssertionError(f"small fp16 BERT launched {launches}")
+
+
+def _bert_fp16(np, torch, card):
+    """(a2) BERT-base under fp16 O1 + GradScaler (P19_O1_STEPS steps, the
+    first a warm-up), O2 under decorate(float16) (P19_O2_STEPS) and O1
+    with a trainable [H, S, S] attention bias and with a trainable [B, 1,
+    1, S] pad mask (P19_BIAS_STEPS each, the dBias path): finite losses,
+    the scale each step, 12 launches of each flash kernel a step (dQ with
+    dBias in the biased runs) and the mask moved; step ms, tokens/s, MFU
+    over the fp16 dense peak, peak memory and the busy share of one more
+    O1 step.  Returns each run's launches."""
+    runs = {}
+    for label, level, steps, train_mask in (
+            ("O1", "O1", P19_O1_STEPS, None),
+            ("O2", "O2", P19_O2_STEPS, None),
+            ("O1 trainable [H, S, S] bias", "O1", P19_BIAS_STEPS, "hss"),
+            ("O1 trainable [B, 1, 1, S] pad mask", "O1", P19_BIAS_STEPS,
+             "pad")):
+        _, losses, scales, times, launches, moved, x = _bert_amp_run(
+            np, torch, BERT_BASE, steps, "float16", level=level,
+            train_mask=train_mask, profile=label == "O1")
+        _free(torch)
+        dq = "flash_bwd_dq_dbias" if train_mask else "flash_bwd_dq"
+        want = {k: 0 for k in FLASH + ("flash_bwd_dq_dbias",)}
+        want.update({k: 12 * steps for k in ("flash_fwd", dq,
+                                               "flash_bwd_dkv")})
+        log(f"eager BERT-base fp16 {label} + GradScaler ({card}): losses "
+            f"{[round(v, 4) for v in losses]}; loss scale after each step "
+            f"{scales}; step times "
+            f"{[round(1e3 * t, 1) for t in times]} ms; launches "
+            f"{json.dumps(launches)}"
+            + ("" if moved is None else f"; the mask's std after "
+               f"{steps} steps {moved:.3e}"))
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"BERT-base fp16 {label}: losses {losses}")
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"BERT-base fp16 {label} launched "
+                                 f"{launches}, expected {want}")
+        if train_mask and not moved > 0:
+            raise AssertionError(f"the trainable attention mask of {label} "
+                                 "did not move")
+        runs[label] = launches
+        if x is None:
+            continue
+        cfg, args = x["cfg"], x["args"]
+        step_s = float(np.mean(times[1:]))
+        tokens = args.batch * args.seq
+        fpt = bert_flops_per_token(cfg.hidden_size, cfg.num_layers, args.seq,
+                                   cfg.vocab_size, args.masked / args.seq)
+        mfu = tokens / step_s * fpt / BF16_FLOPS
+        log(f"eager BERT-base fp16 O1 (B={args.batch} S={args.seq} "
+            f"{args.masked} masked): step {1e3 * step_s:.1f} ms (mean of "
+            f"the {len(times) - 1} after the warm-up), "
+            f"{tokens / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of the "
+            f"fp16 dense peak 989 TFLOP/s; max_memory_allocated "
+            f"{x['peak_gib']:.2f} GiB; device busy {100 * x['busy']:.1f}% "
+            f"of one profiled step")
+    return runs
+
+
+def _nokey_model(paddle, b, h, sq, sk, d):
+    """Causal cross-attention with more queries than keys: the queries of
+    an [B, Sq, H * D] sequence over an [B, Sk, H * D] memory through
+    ``paddle.nn.functional.scaled_dot_product_attention`` (bsnd, K and V
+    read in place from one fused projection), the band aligned at the
+    bottom right, so the first Sq - Sk queries see no key."""
+    import paddle_tpu_torch.nn.functional as F
+
+    w = h * d
+
+    class Cross(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.q = paddle.nn.Linear(w, w)
+            self.kv = paddle.nn.Linear(w, 2 * w)
+            self.out = paddle.nn.Linear(w, w)
+
+        def forward(self, x, memory):
+            q = paddle.reshape(self.q(x), [b, sq, h, d])
+            kv = paddle.reshape(self.kv(memory), [b, sk, 2, h, d])
+            o = F.scaled_dot_product_attention(q, kv[:, :, 0], kv[:, :, 1],
+                                               is_causal=True, layout="bsnd")
+            self.attn_dtype = o.dtype
+            return self.out(paddle.reshape(o, [b, sq, w]))
+
+    return Cross()
+
+
+def _nokey_train(np, torch, card):
+    """(a3) The causal Sq > Sk model (:func:`_nokey_model`) at the nokey
+    row's shape, trained P19_NOKEY_STEPS steps under fp16 O1 + a dynamic
+    GradScaler with Adam toward a seeded target: the first step's output
+    within P19_NOKEY_TOL of the same weights' fp32 output on the CPU
+    (sdpa_plain, the reference's attention; the rows with no key too),
+    finite losses that fall, one launch of each flash kernel a step.
+    Returns the run's launches."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.weights import (load_paddle_state_dict,
+                                          state_dict_to_numpy)
+
+    _, b, h, sq, sk, d = next(c for c in P19_CASES if c[0] == "nokey")[:6]
+    rng = np.random.RandomState(19)
+    x, memory, target = (rng.randn(b, n, h * d).astype("float32")
+                         for n in (sq, sk, sq))
+    paddle.seed(19)
+    paddle.set_device("cpu")
+    try:
+        ref = _nokey_model(paddle, b, h, sq, sk, d)
+        state = state_dict_to_numpy(ref)
+        want = ref(paddle.to_tensor(x), paddle.to_tensor(memory)).numpy()
+    finally:
+        paddle.set_device("gpu")
+    model = _nokey_model(paddle, b, h, sq, sk, d)
+    load_paddle_state_dict(model, state)
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=model.parameters())
+    scaler = paddle.amp.GradScaler()
+    x, memory, target = (paddle.to_tensor(a) for a in (x, memory, target))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, scales, first = [], [], None
+    for _ in range(P19_NOKEY_STEPS):
+        with paddle.amp.auto_cast(dtype="float16"):
+            y = model(x, memory)
+            loss = F.mse_loss(y, target)
+        if first is None:
+            first = y.numpy().astype("float32")
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        losses.append(float(loss.numpy()))
+        scales.append(scaler.get_loss_scaling())
+    launches = {k: KERNELS[k] for k in FLASH + ("flash_bwd_dq_dbias",)}
+    rel = float(np.abs(first - want).max() / np.abs(want).max())
+    nokey = float(np.abs(first - want)[:, :sq - sk].max()
+                  / np.abs(want).max())
+    log(f"causal cross-attention Sq > Sk (bsnd, B={b} H={h} Sq={sq} "
+        f"Sk={sk} D={d}) fp16 O1 + GradScaler, Adam ({card}): losses "
+        f"{losses}; attention in {model.attn_dtype}; the first output vs "
+        f"the CPU's fp32: max abs err {rel:.3e} of its largest |value| "
+        f"{float(np.abs(want).max()):.4f} (tol {P19_NOKEY_TOL:g}; "
+        f"{nokey:.3e} in the {sq - sk} rows with no key); scales {scales}; "
+        f"launches {json.dumps(launches)}")
+    _free(torch)
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"causal Sq > Sk training: losses {losses}")
+    if not rel <= P19_NOKEY_TOL:
+        raise AssertionError("causal Sq > Sk: the card's first output is "
+                             "off the CPU's")
+    want = {k: P19_NOKEY_STEPS for k in FLASH}
+    want["flash_bwd_dq_dbias"] = 0
+    if launches != want or "float16" not in str(model.attn_dtype):
+        raise AssertionError(f"causal Sq > Sk training launched {launches} "
+                             f"in {model.attn_dtype}, expected {want} in "
+                             f"fp16")
+    return launches
+
+
+def _sdpa_inputs_on_card(np, torch):
+    """(b1) ``sdpa`` on the card against ``sdpa_plain`` (the reference's
+    attention) on the card, fp32, forward and gradients of q, k, v and a
+    float mask, for each input the card refused before: fp16 (bf16 and
+    fp16 within 2e-2 of the fp32 plain), a trainable mask of [B, 1, 1,
+    Sk], [H, Sq, Sk] and full shape, causal Sq > Sk with and without one,
+    head dims 8, 12, 20 and v's 40 against q's 24, bnsd GQA, 2-D q; then
+    a head dim of 264 raises NotImplementedError and launches nothing."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts, sdpa
+    from paddle_tpu_torch.kernels.attention import sdpa_plain
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    cases = (  # label, q, k, v shapes, mask shape, causal, dtype
+        ("fp16", (4, 8, 128, 64), (4, 8, 128, 64), (4, 8, 128, 64), None,
+         False, "fp16"),
+        ("bf16 pad mask", (4, 8, 128, 64), (4, 8, 96, 64), (4, 8, 96, 64),
+         (4, 1, 1, 96), False, "bf16"),
+        ("trainable pad", (4, 8, 128, 64), (4, 8, 128, 64), (4, 8, 128, 64),
+         (4, 1, 1, 128), False, "fp32"),
+        ("trainable hss", (4, 8, 128, 64), (4, 8, 128, 64), (4, 8, 128, 64),
+         (8, 128, 128), True, "fp32"),
+        ("trainable full", (2, 8, 100, 64), (2, 8, 90, 64), (2, 8, 90, 64),
+         (2, 8, 100, 90), False, "fp32"),
+        ("causal Sq > Sk", (4, 8, 200, 64), (4, 8, 120, 64),
+         (4, 8, 120, 64), None, True, "fp32"),
+        ("causal Sq > Sk masked", (4, 8, 200, 64), (4, 8, 120, 64),
+         (4, 8, 120, 64), (4, 1, 1, 120), True, "fp32"),
+        ("D=8", (2, 4, 64, 8), (2, 4, 64, 8), (2, 4, 64, 8), None, True,
+         "fp32"),
+        ("D=12", (2, 4, 64, 12), (2, 4, 64, 12), (2, 4, 64, 12), None,
+         False, "fp32"),
+        ("D=20", (2, 4, 64, 20), (2, 4, 64, 20), (2, 4, 64, 20), None,
+         False, "fp32"),
+        ("Dv=40", (2, 4, 64, 24), (2, 4, 64, 24), (2, 4, 64, 40), None,
+         False, "fp32"),
+        ("bnsd GQA", (2, 12, 128, 64), (2, 4, 128, 64), (2, 4, 128, 64),
+         (2, 1, 1, 1, 128), True, "fp32"),
+        ("2-D q", (96, 64), (80, 64), (80, 64), None, False, "fp32"),
+    )
+    for label, qs, ks, vs, ms, causal, dt in cases:
+        dtype = getattr(torch, DTYPES[dt])
+        q, k, v = (torch.randn(s, device="cuda", generator=g).to(dtype)
+                   .requires_grad_() for s in (qs, ks, vs))
+        mask = (None if ms is None else torch.randn(
+            ms, device="cuda", generator=g).requires_grad_())
+        reset_launch_counts()
+        out = sdpa(q, k, v, mask=mask, is_causal=causal)
+        do = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+        leaves = [t for t in (q, k, v, mask) if t is not None]
+        got = torch.autograd.grad(out, leaves, do)
+        if KERNELS["flash_fwd"] != 1:
+            raise AssertionError(f"sdpa {label}: launched {KERNELS}")
+        ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+        rq, rk, rv = ref_leaves[:3]
+        ref = sdpa_plain(rq, rk, rv, mask=ref_leaves[3] if mask is not None
+                         else None, is_causal=causal)
+        want = torch.autograd.grad(ref, ref_leaves, do.float())
+        tol = 2e-2 if dt != "fp32" else 2e-4
+        errs = []
+        for name, a, r in zip(("out", "dq", "dk", "dv", "dmask"),
+                              (out,) + got, (ref,) + want):
+            err = (a.float() - r).abs().max().item()
+            scale = r.abs().max().item()
+            errs.append(f"{name} {err:.2e}")
+            if not err <= tol * max(scale, 1.0):
+                raise AssertionError(f"sdpa {label} on the card: {name} "
+                                     f"off the reference's by {err}")
+        log(f"sdpa on the card, {label} ({dt}; q {qs} k {ks} v {vs} mask "
+            f"{ms}{' causal' if causal else ''}) vs sdpa_plain fp32: "
+            f"{', '.join(errs)} (tol {tol:g} x max(|ref|, 1)); launches "
+            f"{json.dumps({k: n for k, n in KERNELS.items() if n})}")
+    q = torch.randn(2, 4, 64, 264, device="cuda", generator=g)
+    reset_launch_counts()
+    try:
+        sdpa(q, q, q)
+    except NotImplementedError as e:
+        log(f"sdpa at head_dim 264 raises: {e}")
+    else:
+        raise AssertionError("sdpa took head_dim 264")
+    if any(KERNELS.values()):
+        raise AssertionError(f"a refused sdpa launched {KERNELS}")
+    _free(torch)
+
+
+def _cross_new_inputs(np, torch):
+    """(c) dBias and causal Sq > Sk at CROSS_CASES's shapes, plus bnsd GQA:
+    every case with a float mask with the mask trainable (the dQ kernel's
+    dBias), every case causal where Sq > Sk, in bf16, fp16 and fp32,
+    against the plain versions on the card within FLASH_TOL."""
+    from paddle_tpu_torch.kernels import flash_bwd_plain, flash_fwd_plain
+    from paddle_tpu_torch.kernels.flash import (_bias_of, flash_bwd,
+                                                flash_fwd_cuda)
+
+    d = 64
+    cases = [c for c in CROSS_CASES if c[-1] in ("pad", "full", "neginf")]
+    cases += [(c[0] + "_causal",) + c[1:7] + (True, c[8])
+              for c in CROSS_CASES if c[5] > c[6]]
+    cases.append(("gqa_bnsd", "bnsd", 8, 8, 2, 200, 256, False, "pad"))
+    for case, layout, b, h, hkv, sq, sk, causal, kind in cases:
+        for dt in ("bf16", "fp16", "fp32"):
+            dtype = getattr(torch, DTYPES[dt])
+            g = torch.Generator(device="cuda").manual_seed(sq + sk + h)
+            q, k, v = _cross_inputs(torch, g, layout, b, h, hkv, sq, sk, d,
+                                    dtype)
+            mask = _mask(torch, g, kind, b, sq, h, sk)
+            base = None if mask is None else _bias_of(mask, q, layout, k,
+                                                      causal)
+            bias = None if base is None else base.expand(
+                b, h, sq, sk)
+            shape = None if base is None else base.shape
+            opts = (causal, 1.0 / np.sqrt(d), None, layout, bias)
+            out, lse = flash_fwd_cuda(q, k, v, *opts)
+            ref, rlse = flash_fwd_plain(q, k, v, *opts)
+            do = torch.randn(ref.shape, device="cuda", generator=g).to(dtype)
+            got = flash_bwd(q, k, v, ref, rlse, do, *opts, dbias_shape=shape)
+            want = flash_bwd_plain(q, k, v, ref, rlse, do, *opts,
+                                   dbias_shape=shape)
+            torch.cuda.synchronize()
+            parts = [("flash_fwd", "out", out, ref),
+                     ("flash_fwd", "lse", lse, rlse),
+                     ("flash_bwd_dq", "dq", got[0], want[0]),
+                     ("flash_bwd_dkv", "dk", got[1], want[1]),
+                     ("flash_bwd_dkv", "dv", got[2], want[2])]
+            if shape is not None:
+                parts.append(("flash_bwd_dq_dbias", "dbias", got[3],
+                              want[3]))
+            for name, part, a, r in parts:
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{name} {part} {case} ({dt}) is "
+                                         "not finite")
+                _flash_close(
+                    f"{name} {part} {case} ({layout}, B={b} H={h} Hkv={hkv} "
+                    f"Sq={sq} Sk={sk} D={d}, "
+                    f"{'causal' if causal else 'not causal'}, {dt}, mask "
+                    f"{kind}{' trainable' if shape is not None else ''})",
+                    a, r, *FLASH_TOL[dt][part])
+            del q, k, v, mask, base, bias, out, lse, ref, rlse, do, got, want
+    _free(torch)
+
+
+def phase_sdpa_inputs(np, torch, card):
+    """Phase 19, the reference's inputs on the card: (a) BERT-base under
+    fp16 O1 + GradScaler, O2 and with a trainable [H, S, S] bias and [B,
+    1, 1, S] pad mask, causal cross-attention with Sq > Sk trained in
+    fp16, and the small BERT card vs CPU in fp16; (b) ``sdpa`` on the card on each input
+    the card refused before, and the new kernel cases timed (fp16 at
+    BERT-base's attention, dBias with a [B, 1, 1, S] and an [H, S, S]
+    trainable bias, causal Sq > Sk); (c) dBias and causal Sq > Sk at the
+    cross-attention shapes.  Returns (b)'s kernels-line rows and (a)'s
+    launches by run."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _sdpa_inputs_on_card(np, torch)
+    rows = {}
+    for label, b, h, sq, sk, d, causal, dt, kind, train in P19_CASES:
+        g = torch.Generator(device="cuda").manual_seed(sq * 3 + sk)
+        dtype = getattr(torch, DTYPES[dt])
+        q, k, v = _cross_inputs(torch, g, "bnsd", b, h, h, sq, sk, d, dtype)
+        mask = (torch.randn(h, sq, sk, device="cuda", generator=g)
+                if kind == "hss" else _mask(torch, g, kind, b, sq, h, sk))
+        rows.update(_time_flash_model(np, torch, label, q, k, v, mask,
+                                      causal, train_mask=train))
+        del q, k, v, mask
+    _cross_new_inputs(np, torch)
+    _fp16_parity(np, torch)
+    runs = _bert_fp16(np, torch, card)
+    runs["causal Sq > Sk"] = _nokey_train(np, torch, card)
+    log(card)
+    return rows, runs
+
+
 def main():
     try:
         import numpy as np
@@ -8181,6 +8741,12 @@ def main():
         phase_breadth(np, torch, card)
         done("18 the rest of the breadth")
         return 0
+    if sys.argv[1:] == ["--phase", "19"]:
+        # phase 19 alone, for work on the reference's inputs on the card
+        # (fp16, dBias, causal Sq > Sk, head dims, GQA): no result line
+        phase_sdpa_inputs(np, torch, card)
+        done("19 the reference's inputs on the card")
+        return 0
     if sys.argv[1:] == ["--phase", "12"]:
         # phase 12 alone, for work on the encoder-decoder, the flash
         # kernels at other lengths and the rec models: no result line
@@ -8225,6 +8791,8 @@ def main():
     done("17 hapi and vision")
     breadth_rows, asp_launches = phase_breadth(np, torch, card)
     done("18 the rest of the breadth")
+    p19_rows, p19_runs = phase_sdpa_inputs(np, torch, card)
+    done("19 the reference's inputs on the card")
     kernels.update(gpt_rows)
     kernels.update(hapi_rows)
     kernels.update(jit_kernels)
@@ -8233,6 +8801,7 @@ def main():
     kernels.update(breadth_rows)
     kernels.update(encoder_kernels)
     kernels.update(seq_kernels)
+    kernels.update(p19_rows)
     line = []
     for name, k in kernels.items():
         src = name.split("_int")[0]
@@ -8249,7 +8818,26 @@ def main():
         model = next((m for m in encoder_runs if f"_{m}_" in name), None)
         shape = next((m for m in seq_runs if f"_{m}_" in name), None)
         hapi = next((m for m in hapi_runs if f"_{m}_" in name), None)
-        if hapi is not None:
+        if name in p19_rows:
+            # phase 19's rows: launches on the run of (a) that takes the
+            # case's variant (P19_ROW_RUNS), the other runs beside
+            base = next(b for b in ("flash_fwd", "flash_bwd_dq_dbias",
+                                    "flash_bwd_dq", "flash_bwd_dkv")
+                        if name.startswith(b + "_"))
+            run = next(r for c, r in P19_ROW_RUNS.items()
+                       if name == f"{base}_{c}_fp16")
+            n = p19_runs[run][base]
+            more = {f"phase 19 (a) {r}": c[base]
+                    for r, c in p19_runs.items() if r != run}
+            src = "flash_fwd" if base == "flash_fwd" else "flash_bwd"
+            replaces = {"flash_fwd": "paddle_tpu/kernels/flash.py:74",
+                        "flash_bwd_dq": "paddle_tpu/kernels/flash.py:177",
+                        "flash_bwd_dq_dbias":
+                            "paddle_tpu/kernels/flash.py:177",
+                        "flash_bwd_dkv": "paddle_tpu/kernels/flash.py:224"
+                        }[base]
+            log(f"{name}: {n} launches on phase 19 (a)'s {run} run")
+        elif hapi is not None:
             base = name.split(f"_{hapi}_")[0]
             run, counts, others = hapi_runs[hapi]
             n = counts[base]

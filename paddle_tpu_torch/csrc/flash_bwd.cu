@@ -1,6 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): dQ, and dK with dV, from
-// the forward's row logsumexp, fp32 or bf16, causal or not, sliding
-// window, GQA, any layout given by strides (see flash_common.cuh).
+// the forward's row logsumexp, fp32, bf16 or fp16, causal or not (rows
+// that see no key included), sliding window, GQA, any layout given by
+// strides (see flash_common.cuh); and, from the dQ kernels, the gradient
+// of the score bias.
 //
 // Replaces the TPU kernels paddle_tpu/kernels/flash.py: _bwd_dq_kernel and
 // _bwd_dkv_kernel, as launched by _bwd_call (bnsd) and _bwd_call_smajor
@@ -11,7 +13,9 @@
 //
 // dQ: grid (query tiles, query heads, batch), heaviest tiles first.  A
 // block keeps its Q and dO tiles and walks the k-tiles [lo, hi): dQ +=
-// ds.K with ds cast to K's dtype first.
+// ds.K with ds cast to K's dtype first.  Asked for dBias, it adds
+// p (dp - delta) of every present pair into it (emit_dbias), where it has
+// p and dp in registers anyway: no pass of its own.
 //
 // dK/dV: grid (key tiles, KV heads, batch), the heaviest causal tiles
 // (smallest key index) first.  A block keeps its K and V tiles and, for
@@ -22,28 +26,29 @@
 // (flash.py _bwd_call_smajor), the block loops over the group itself and
 // accumulates all of it in fp32: no partial buffers.
 //
-// bf16, both kernels: at the training shape their 6 (dQ) and 8 (dK/dV)
+// bf16 and fp16 (one body, the element type a template argument of the
+// tiles), both kernels: at the training shape their 6 (dQ) and 8 (dK/dV)
 // B*H*S^2*D/2 flops bound them (0.059 and 0.078 ms against 0.057 and 0.068
 // ms of bytes), and what stood between the first, shared-memory kernels and the
 // tensor cores was shared-memory traffic (S, dP, dS and the accumulators
 // as fp32 tiles, wmma, five block barriers a tile).  So both are register-
 // fragment kernels on flash_common.cuh's toolkit.
 //
-// flash_bwd_dq_bf16: a block of NW warps owns BQ query rows; each warp owns
+// flash_bwd_dq_16: a block of NW warps owns BQ query rows; each warp owns
 // 16 of them and DP / DSPLIT columns of their dQ, which accumulates in
 // registers for the block's life.  Q and dO arrive once by cp.async into
 // padded tiles (A fragments by ldmatrix); K and V stream through a 2-stage
 // cp.async ring of BK-row tiles with zero-filled ragged rows.  S = Q.K^T
 // and dP = dO.V^T come out in the accumulator layout, each lane keeps its
 // two rows' lse and delta in registers, p and ds are formed in registers,
-// and dS, rounded to bf16, is the A operand of dQ += dS.K directly (K's B
+// and dS, rounded to T, is the A operand of dQ += dS.K directly (K's B
 // fragments by ldmatrix.trans): no S, P or dS tile touches shared memory.
 // Per-element masks run only on a warp's tiles that cross the diagonal,
 // the window's edge or the last row.  At DP = 256 two warps share each 16 query
 // rows (DSPLIT = 2), each recomputing S and dP, so that dQ fits in
 // registers.
 //
-// flash_bwd_dkv_bf16: a block of NW warps owns BK key rows; each warp owns
+// flash_bwd_dkv_16: a block of NW warps owns BK key rows; each warp owns
 // 16 of them and DP / DSPLIT columns of their dK and dV, which accumulate
 // in registers for the block's life (at D = 128: 4 warps, 64 key rows,
 // 64-row query tiles, 255 registers a thread and no spill; 8 warps over
@@ -54,11 +59,11 @@
 // as rows, S^T = K.Q^T and dP^T = V.dO^T come out in the accumulator
 // layout (Q's and dO's B fragments by ldmatrix), p and ds are formed in
 // registers (each lane reads lse and delta of its own query columns), and
-// P^T and dS^T, rounded to bf16, are the A operands of dV += P^T.dO and dK
+// P^T and dS^T, rounded to T, are the A operands of dV += P^T.dO and dK
 // += dS^T.Q directly (dO's and Q's B fragments by ldmatrix.trans).  The
 // reference keeps P in fp32 for P^T.dO; this kernel feeds the tensor cores
-// bf16 P (as the forward does for P.V), a rounding the bf16 tolerance of
-// the comparison covers.  At DP = 256 two warps share each 16 key rows.
+// P in T (as the forward does for P.V), a rounding the 16-bit tolerances
+// of the comparison cover.  At DP = 256 two warps share each 16 key rows.
 //
 // fp32 (flash_bwd_dq_fp32, flash_bwd_dkv_fp32): at BERT-base's attention
 // (B*H = 384, S = 512, D = 64, not causal) their 6 and 8 B*H*S^2*D flops
@@ -66,12 +71,12 @@
 // and 0.31 ms as three TF32 products each at 495 TFLOP/s, against 0.08
 // and 0.09 ms of bytes: operations bound them, and the tensor cores are
 // the way to fp32-accurate operations at more than the FMA rate.  So both
-// are the bf16 kernels above with fp32 tiles (row pitch DP + 4 floats) in
+// are the 16-bit kernels above with fp32 tiles (row pitch DP + 4 floats) in
 // the same cp.async rings and every product on mma.sync m16n8k8 in
 // 3xTF32 (flash_common.cuh's toolkit): S, dP (S^T, dP^T), p and ds in
 // registers, P in fp32 for dV += P^T.dO as in the reference, dQ or dK and
 // dV accumulated in registers and stored from them as float2.  Where the
-// bf16 kernels hand the accumulator to the next product as its A
+// 16-bit kernels hand the accumulator to the next product as its A
 // fragment, these permute the summation order instead (tf32_acc_a,
 // tf32_b_cols).  Each k8 step's three products go into a fresh partial
 // that an fp32 add takes into the accumulator: chained into one register
@@ -83,13 +88,13 @@
 // sequence's lse and delta, so a block's first query may see one of its
 // keys and many others.)  The tiles (dq_tiles, dkv_tiles) were timed
 // against 2- and 8-warp, 16- to 64-row and D-split alternatives on an
-// H100; the fp32 ones stream 32-row tiles where the bf16 ones stream 64.
+// H100; the fp32 ones stream 32-row tiles where the 16-bit ones stream 64.
 
 #include "flash_common.cuh"
 
 namespace fa {
 
-// Tiles of the dQ kernels, elements of T (bf16 or fp32): NW warps, DSPLIT
+// Tiles of the dQ kernels, elements of T (bf16, fp16 or fp32): NW warps, DSPLIT
 // of them over each 16 query rows (BQ = 16 NW / DSPLIT), BK-row K/V tiles
 // in a 2-stage ring.
 template <typename T_, int DP_, int NW_, int DSPLIT_, int BK_>
@@ -108,30 +113,31 @@ struct DqTile {
 };
 
 template <typename C, bool BIAS>
-__global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
+__global__ void __launch_bounds__(C::NT) flash_bwd_dq_16(Args a) {
+  using T = typename C::T;
   constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sdo = sq + C::Q_ELEMS;
-  bf16* skv = sdo + C::Q_ELEMS;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sdo = sq + C::Q_ELEMS;
+  T* skv = sdo + C::Q_ELEMS;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = qt * C::BQ, wr = (warp % C::RW) * 16, r0 = q0 + wr;
   const int d0 = (warp / C::RW) * C::DW;
-  const bf16* kb = slice<const bf16>(a.k, b, kvh);
-  const bf16* vb = slice<const bf16>(a.v, b, kvh);
+  const T* kb = slice<const T>(a.k, b, kvh);
+  const T* vb = slice<const T>(a.v, b, kvh);
   [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, h) : nullptr;
   int lo, hi;
   k_tiles(a, qt, &lo, &hi);
 
   auto load_kv = [&](int j) {
-    bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    T* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
     cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.Sk, a.D);
     cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.Sk, a.D);
   };
-  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
-  cp_rows<C::BQ, C::DP, C::NT>(sdo, slice<const bf16>(a.dout, b, h), a.dout.s, q0, a.Sq,
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const T>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
+  cp_rows<C::BQ, C::DP, C::NT>(sdo, slice<const T>(a.dout, b, h), a.dout.s, q0, a.Sq,
                                a.D);
   cp_async_commit();
 #pragma unroll
@@ -162,8 +168,8 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
     cp_async_commit();
     const int k0 = j * BK;
     if (none_visible(a, r0, 16, k0, BK)) continue;
-    const bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
-    const bf16* sv = sk + C::KV_ELEMS;
+    const T* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    const T* sv = sk + C::KV_ELEMS;
 
     // S = Q.K^T and dP = dO.V^T: 16 queries x BK keys each
     float s[C::NS][4], dp[C::NS][4];
@@ -180,11 +186,11 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
       for (int n = 0; n < C::NS; n += 2) {
         uint32_t kf[4], vf[4];
         frag_b_rows<LD>(kf, sk, n * 8, kk * 16);
-        mma16816(s[n], qa, kf[0], kf[1]);
-        mma16816(s[n + 1], qa, kf[2], kf[3]);
+        mma16816<T>(s[n], qa, kf[0], kf[1]);
+        mma16816<T>(s[n + 1], qa, kf[2], kf[3]);
         frag_b_rows<LD>(vf, sv, n * 8, kk * 16);
-        mma16816(dp[n], oa, vf[0], vf[1]);
-        mma16816(dp[n + 1], oa, vf[2], vf[3]);
+        mma16816<T>(dp[n], oa, vf[0], vf[1]);
+        mma16816<T>(dp[n + 1], oa, vf[2], vf[3]);
       }
     }
 
@@ -199,31 +205,48 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
         *kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
         return bs;
       });
+    // d(logit) = p (dp - delta) goes to dBias where asked (one warp of a
+    // DSPLIT group); a row that sees no key has p from its fill and adds
+    // nothing to dQ
+    const bool dbias = a.dbias != nullptr && warp < C::RW;
+    [[maybe_unused]] float* db =
+        BIAS && dbias ? a.dbias + b * a.dbias_b + h * a.dbias_h : nullptr;
 #pragma unroll
-    for (int n = 0; n < C::NS; ++n)
+    for (int n = 0; n < C::NS; ++n) {
+      const int qi0 = r0 + (lane >> 2), kj0 = k0 + n * 8 + 2 * (lane & 3);
+      bool hidden[4] = {false, false, false, false};
+      float g[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale2;
-        if constexpr (BIAS) x += kLog2e * bv[n][e];
-        float p = exp2f(x - lse2[e >> 1]);
-        if (edge && !visible(a, r0 + (lane >> 2) + (e >> 1) * 8, k0 + n * 8 + 2 * (lane & 3) + (e & 1)))
-          p = 0.f;
-        dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * a.scale;
+        float bias = 0.f;
+        if constexpr (BIAS) bias = bv[n][e];
+        float x = s[n][e] * scale2 + kLog2e * bias;
+        if (edge) {
+          const int qi = qi0 + (e >> 1) * 8, kj = kj0 + (e & 1);
+          hidden[e] = !visible(a, qi, kj);
+          if (hidden[e]) x = qi < a.nokey && kj < a.Sk ? kLog2e * fill_logit<T>(bias) : -INFINITY;
+        }
+        g[e] = exp2f(x - lse2[e >> 1]) * (dp[n][e] - dl[e >> 1]);
       }
+      if constexpr (BIAS)
+        if (dbias) emit_dbias(a, db, g, qi0, kj0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] = hidden[e] ? 0.f : g[e] * a.scale;
+    }
 
-    // dQ += dS.K over the warp's columns: dS, rounded to bf16 (K's dtype,
+    // dQ += dS.K over the warp's columns: dS, rounded to T (K's dtype,
     // as the reference casts it), is the A operand; K's B fragments by
     // ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t da[4];
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+      acc_to_a<T>(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < C::NA; n += 2) {
         uint32_t kf[4];
         frag_b_cols<LD>(kf, sk, kk * 16, d0 + n * 8);
-        mma16816(dq[n], da, kf[0], kf[1]);
-        mma16816(dq[n + 1], da, kf[2], kf[3]);
+        mma16816<T>(dq[n], da, kf[0], kf[1]);
+        mma16816<T>(dq[n + 1], da, kf[2], kf[3]);
       }
     }
   }
@@ -237,10 +260,10 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int at = (wr + (lane >> 2) + hf * 8) * LD + d0 + n * 8 + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(sq + at) = pack_bf16(dq[n][2 * hf], dq[n][2 * hf + 1]);
+      *reinterpret_cast<uint32_t*>(sq + at) = pack2<T>(dq[n][2 * hf], dq[n][2 * hf + 1]);
     }
   __syncthreads();
-  bf16* dqb = slice<bf16>(a.dq, b, h);
+  T* dqb = slice<T>(a.dq, b, h);
   constexpr int VPR = C::DP / 8;
   for (int e = threadIdx.x; e < C::BQ * VPR; e += C::NT) {
     const int r = e / VPR, c = (e - r * VPR) * 8;
@@ -250,7 +273,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_bf16(Args a) {
   }
 }
 
-// Tiles of the dK/dV kernels, elements of T (bf16 or fp32): NW warps,
+// Tiles of the dK/dV kernels, elements of T (bf16, fp16 or fp32): NW warps,
 // DSPLIT of them over each 16 key rows (BK = 16 NW / DSPLIT), BQ-row Q/dO
 // tiles in a 2-stage ring.
 template <typename T_, int DP_, int NW_, int DSPLIT_, int BQ_>
@@ -272,11 +295,12 @@ struct DkvTile {
 };
 
 template <typename C, bool BIAS>
-__global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
+__global__ void __launch_bounds__(C::NT) flash_bwd_dkv_16(Args a) {
+  using T = typename C::T;
   constexpr int LD = C::LD, BQ = C::BQ, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + C::KV_ELEMS;
+  T* sk = reinterpret_cast<T*>(smem);
+  T* sv = sk + C::KV_ELEMS;
   unsigned char* ring = smem + 2 * C::KV_ELEMS * 2;
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -286,16 +310,16 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
   q_tiles(a, kt, &lo, &hi);
   const int nq = hi - lo, total = a.G * nq;
 
-  cp_rows<C::BK, C::DP, C::NT>(sk, slice<const bf16>(a.k, b, kvh), a.k.s, k0, a.Sk, a.D);
-  cp_rows<C::BK, C::DP, C::NT>(sv, slice<const bf16>(a.v, b, kvh), a.v.s, k0, a.Sk, a.D);
+  cp_rows<C::BK, C::DP, C::NT>(sk, slice<const T>(a.k, b, kvh), a.k.s, k0, a.Sk, a.D);
+  cp_rows<C::BK, C::DP, C::NT>(sv, slice<const T>(a.v, b, kvh), a.v.s, k0, a.Sk, a.D);
   cp_async_commit();
   // (head, q-tile) pair t of the walk: Q, dO, lse, delta into stage t % STAGES
   auto load_q = [&](int t) {
     const int h = kvh * a.G + t / nq, q0 = (lo + t % nq) * BQ;
     unsigned char* st = ring + size_t(t % STAGES) * C::STAGE_BYTES;
-    bf16* sq = reinterpret_cast<bf16*>(st);
-    cp_rows<BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
-    cp_rows<BQ, C::DP, C::NT>(sq + C::Q_ELEMS, slice<const bf16>(a.dout, b, h), a.dout.s,
+    T* sq = reinterpret_cast<T*>(st);
+    cp_rows<BQ, C::DP, C::NT>(sq, slice<const T>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
+    cp_rows<BQ, C::DP, C::NT>(sq + C::Q_ELEMS, slice<const T>(a.dout, b, h), a.dout.s,
                               q0, a.Sq, a.D);
     float* sl = reinterpret_cast<float*>(st + 2 * C::Q_ELEMS * 2);
     const size_t row = (size_t(b) * a.H + h) * a.Sq;
@@ -327,8 +351,8 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
     if (none_visible(a, q0, BQ, kr0, 16)) continue;
     [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, kvh * a.G + t / nq) : nullptr;
     const unsigned char* st = ring + size_t(t % STAGES) * C::STAGE_BYTES;
-    const bf16* sq = reinterpret_cast<const bf16*>(st);
-    const bf16* sdo = sq + C::Q_ELEMS;
+    const T* sq = reinterpret_cast<const T*>(st);
+    const T* sdo = sq + C::Q_ELEMS;
     const float* slse = reinterpret_cast<const float*>(st + 2 * C::Q_ELEMS * 2);
     const float* sdelta = slse + BQ;
 
@@ -347,11 +371,11 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
       for (int n = 0; n < C::NS; n += 2) {
         uint32_t qf[4], of[4];
         frag_b_rows<LD>(qf, sq, n * 8, kk * 16);
-        mma16816(s[n], ka, qf[0], qf[1]);
-        mma16816(s[n + 1], ka, qf[2], qf[3]);
+        mma16816<T>(s[n], ka, qf[0], qf[1]);
+        mma16816<T>(s[n + 1], ka, qf[2], qf[3]);
         frag_b_rows<LD>(of, sdo, n * 8, kk * 16);
-        mma16816(dp[n], va, of[0], of[1]);
-        mma16816(dp[n + 1], va, of[2], of[3]);
+        mma16816<T>(dp[n], va, of[0], of[1]);
+        mma16816<T>(dp[n + 1], va, of[2], of[3]);
       }
     }
 
@@ -377,31 +401,42 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
         if constexpr (BIAS) x += bv[n][e];
         s[n][e] = expf(x - ((e & 1) ? ls.y : ls.x));
       }
+      // off the band p is 0, but in a row that sees no key (p from its
+      // fill, into dV; no dK)
+      bool hidden[4] = {false, false, false, false};
       if (edge) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (!visible(a, q0 + c + (e & 1), kr0 + (lane >> 2) + (e >> 1) * 8)) s[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + c + (e & 1), kj = kr0 + (lane >> 2) + (e >> 1) * 8;
+          hidden[e] = !visible(a, qi, kj);
+          if (!hidden[e]) continue;
+          float bias = 0.f;
+          if constexpr (BIAS) bias = bv[n][e];
+          s[n][e] = qi < a.nokey && kj < a.Sk
+                        ? expf(fill_logit<T>(bias) - ((e & 1) ? ls.y : ls.x))
+                        : 0.f;
+        }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dp[n][e] = s[n][e] * (dp[n][e] - ((e & 1) ? de.y : de.x)) * a.scale;
+        dp[n][e] = hidden[e] ? 0.f : s[n][e] * (dp[n][e] - ((e & 1) ? de.y : de.x)) * a.scale;
     }
 
     // dV += P^T.dO and dK += dS^T.Q over the warp's columns
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+      acc_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
+      acc_to_a<T>(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < C::NA; n += 2) {
         uint32_t of[4], qf[4];
         frag_b_cols<LD>(of, sdo, kk * 16, d0 + n * 8);
-        mma16816(dv[n], pa, of[0], of[1]);
-        mma16816(dv[n + 1], pa, of[2], of[3]);
+        mma16816<T>(dv[n], pa, of[0], of[1]);
+        mma16816<T>(dv[n + 1], pa, of[2], of[3]);
         frag_b_cols<LD>(qf, sq, kk * 16, d0 + n * 8);
-        mma16816(dk[n], da, qf[0], qf[1]);
-        mma16816(dk[n + 1], da, qf[2], qf[3]);
+        mma16816<T>(dk[n], da, qf[0], qf[1]);
+        mma16816<T>(dk[n + 1], da, qf[2], qf[3]);
       }
     }
   }
@@ -414,12 +449,12 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_bf16(Args a) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int at = (wr + (lane >> 2) + hf * 8) * LD + d0 + n * 8 + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(sk + at) = pack_bf16(dk[n][2 * hf], dk[n][2 * hf + 1]);
-      *reinterpret_cast<uint32_t*>(sv + at) = pack_bf16(dv[n][2 * hf], dv[n][2 * hf + 1]);
+      *reinterpret_cast<uint32_t*>(sk + at) = pack2<T>(dk[n][2 * hf], dk[n][2 * hf + 1]);
+      *reinterpret_cast<uint32_t*>(sv + at) = pack2<T>(dv[n][2 * hf], dv[n][2 * hf + 1]);
     }
   __syncthreads();
-  bf16* dkb = slice<bf16>(a.dk, b, kvh);
-  bf16* dvb = slice<bf16>(a.dv, b, kvh);
+  T* dkb = slice<T>(a.dk, b, kvh);
+  T* dvb = slice<T>(a.dv, b, kvh);
   constexpr int VPR = C::DP / 8;
   for (int e = threadIdx.x; e < C::BK * VPR; e += C::NT) {
     const int r = e / VPR, c = (e - r * VPR) * 8;
@@ -504,7 +539,7 @@ __device__ __forceinline__ void heavy_dp64(float (&d)[NS][4], uint32_t heavy, in
   }
 }
 
-// dQ, fp32: flash_bwd_dq_bf16's walk with fp32 tiles and 3xTF32 products.
+// dQ, fp32: flash_bwd_dq_16's walk with fp32 tiles and 3xTF32 products.
 template <typename C, bool BIAS>
 __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
   constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES;
@@ -591,16 +626,20 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
         *kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
         return bs;
       });
-    uint32_t heavy = 0;
+    uint32_t heavy = 0, hidden = 0;
 #pragma unroll
     for (int n = 0; n < C::NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = (lane >> 2) + (e >> 1) * 8, c = n * 8 + 2 * (lane & 3) + (e & 1);
-        float x = s[n][e] * a.scale;
-        if constexpr (BIAS) x += bv[n][e];
-        float p = expf(x - lse[e >> 1]);
-        if (edge && !visible(a, r0 + r, k0 + c)) p = 0.f;
+        float bias = 0.f;
+        if constexpr (BIAS) bias = bv[n][e];
+        float x = s[n][e] * a.scale + bias;
+        if (edge && !visible(a, r0 + r, k0 + c)) {
+          hidden |= 1u << (n * 4 + e);
+          x = r0 + r < a.nokey && k0 + c < a.Sk ? fill_logit<float>(bias) : -INFINITY;
+        }
+        const float p = expf(x - lse[e >> 1]);
         s[n][e] = p;
         dp[n][e] = (dp[n][e] - dl[e >> 1].x) - dl[e >> 1].y;
         if (p >= kHeavy) heavy |= 1u << (n * 4 + e);
@@ -612,10 +651,22 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
       return HeavyPair{sdo + (wr + (l >> 2) + hf * 8) * LD,
                        sv + (n * 8 + 2 * (l & 3) + (e & 1)) * LD, hf ? d1 : d0};
     });
+    // d(logit) = p (dp - delta) to dBias where asked (one warp of a DSPLIT
+    // group); a row that sees no key adds nothing to dQ
+    const bool dbias = a.dbias != nullptr && warp < C::RW;
+    [[maybe_unused]] float* db =
+        BIAS && dbias ? a.dbias + b * a.dbias_b + h * a.dbias_h : nullptr;
 #pragma unroll
-    for (int n = 0; n < C::NS; ++n)
+    for (int n = 0; n < C::NS; ++n) {
+      float g[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * dp[n][e] * a.scale;
+      for (int e = 0; e < 4; ++e) g[e] = s[n][e] * dp[n][e];
+      if constexpr (BIAS)
+        if (dbias) emit_dbias(a, db, g, r0 + (lane >> 2), k0 + n * 8 + 2 * (lane & 3));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = (hidden >> (n * 4 + e)) & 1u ? 0.f : g[e] * a.scale;
+    }
 
     // dQ += dS.K over the warp's columns: dS tile kk is the A operand of
     // k8 step kk
@@ -643,7 +694,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dq_fp32(Args a) {
   }
 }
 
-// dK/dV, fp32: flash_bwd_dkv_bf16's walk with fp32 tiles and 3xTF32
+// dK/dV, fp32: flash_bwd_dkv_16's walk with fp32 tiles and 3xTF32
 // products; P^T stays fp32 for dV += P^T.dO.
 template <typename C, bool BIAS>
 __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
@@ -735,7 +786,7 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
         *kj = kr0 + (lane >> 2) + (e >> 1) * 8;
         return bs;
       });
-    uint32_t heavy = 0;
+    uint32_t heavy = 0, hidden = 0;
 #pragma unroll
     for (int n = 0; n < C::NS; ++n) {
       const int c = n * 8 + 2 * (lane & 3);
@@ -747,10 +798,20 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
         if constexpr (BIAS) x += bv[n][e];
         s[n][e] = expf(x - ((e & 1) ? ls.y : ls.x));
       }
+      // off the band p is 0, but in a row that sees no key (p from its
+      // fill, into dV; no dK)
       if (edge) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (!visible(a, q0 + c + (e & 1), kr0 + (lane >> 2) + (e >> 1) * 8)) s[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + c + (e & 1), kj = kr0 + (lane >> 2) + (e >> 1) * 8;
+          if (visible(a, qi, kj)) continue;
+          hidden |= 1u << (n * 4 + e);
+          float bias = 0.f;
+          if constexpr (BIAS) bias = bv[n][e];
+          s[n][e] = qi < a.nokey && kj < a.Sk
+                        ? expf(fill_logit<float>(bias) - ((e & 1) ? ls.y : ls.x))
+                        : 0.f;
+        }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -765,7 +826,8 @@ __global__ void __launch_bounds__(C::NT) flash_bwd_dkv_fp32(Args a) {
 #pragma unroll
     for (int n = 0; n < C::NS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * dp[n][e] * a.scale;
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = (hidden >> (n * 4 + e)) & 1u ? 0.f : s[n][e] * dp[n][e] * a.scale;
 
     // dV += P^T.dO and dK += dS^T.Q over the warp's columns: tile kk of
     // P^T and dS^T is the A operand of k8 step kk
@@ -807,27 +869,31 @@ cudaError_t dq_launch(Args a, cudaStream_t st) {
   const dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.H, a.B);
   return with_bias(a, [&](auto bias) {
     constexpr bool B = decltype(bias)::value;
-    if constexpr (C::ELT == 2) return launch(flash_bwd_dq_bf16<C, B>, grid, C::NT, C::SMEM, st, a);
+    if constexpr (C::ELT == 2) return launch(flash_bwd_dq_16<C, B>, grid, C::NT, C::SMEM, st, a);
     else return launch(flash_bwd_dq_fp32<C, B>, grid, C::NT, C::SMEM, st, a);
   });
 }
 
-// The dQ tiles by dtype (0 fp32, 1 bf16) and padded head dim (warps,
-// warps per 16 query rows, K/V rows), handed to f as a value of their
-// type.  bf16: 4 warps over 64 queries, 64-row K/V tiles up to D = 64
+// The dQ tiles by dtype (0 fp32, 1 bf16, 2 fp16) and padded head dim
+// (warps, warps per 16 query rows, K/V rows), handed to f as a value of
+// their type.  bf16 and fp16: 4 warps over 64 queries, 64-row K/V tiles up to D = 64
 // and 32-row above (the forward's); at D = 256, 8 warps, two over each 16
 // queries.  fp32 (twice the bytes a row): 4 warps over 64 queries and
 // 32-row K/V tiles up to D = 64 (three blocks an SM); at D = 128, two
 // warps over each 16 queries (dQ in 32 registers); at D = 256, 8 warps,
 // 16-row K/V tiles (195 KB).
+template <typename T, typename F>
+cudaError_t dq_tiles16(int D, F&& f) {
+  if (D <= 32) return f(DqTile<T, 32, 4, 1, 64>{});
+  if (D <= 64) return f(DqTile<T, 64, 4, 1, 64>{});
+  if (D <= 128) return f(DqTile<T, 128, 4, 1, 32>{});
+  return f(DqTile<T, 256, 8, 2, 32>{});
+}
+
 template <typename F>
 cudaError_t dq_tiles(int dtype, int D, F&& f) {
-  if (dtype == 1) {
-    if (D <= 32) return f(DqTile<bf16, 32, 4, 1, 64>{});
-    if (D <= 64) return f(DqTile<bf16, 64, 4, 1, 64>{});
-    if (D <= 128) return f(DqTile<bf16, 128, 4, 1, 32>{});
-    return f(DqTile<bf16, 256, 8, 2, 32>{});
-  }
+  if (dtype == 1) return dq_tiles16<bf16>(D, f);
+  if (dtype == 2) return dq_tiles16<f16>(D, f);
   if (D <= 32) return f(DqTile<float, 32, 4, 1, 32>{});
   if (D <= 64) return f(DqTile<float, 64, 4, 1, 32>{});
   if (D <= 128) return f(DqTile<float, 128, 4, 2, 32>{});
@@ -841,26 +907,30 @@ cudaError_t dkv_launch(Args a, cudaStream_t st) {
   const dim3 grid((a.Sk + C::BK - 1) / C::BK, a.H / a.G, a.B);
   return with_bias(a, [&](auto bias) {
     constexpr bool B = decltype(bias)::value;
-    if constexpr (C::ELT == 2) return launch(flash_bwd_dkv_bf16<C, B>, grid, C::NT, C::SMEM, st, a);
+    if constexpr (C::ELT == 2) return launch(flash_bwd_dkv_16<C, B>, grid, C::NT, C::SMEM, st, a);
     else return launch(flash_bwd_dkv_fp32<C, B>, grid, C::NT, C::SMEM, st, a);
   });
 }
 
 // The dK/dV tiles by dtype and padded head dim (warps, warps per 16 key
-// rows, Q/dO rows).  bf16: 4 warps over 64 keys, 64-row Q tiles up to D =
+// rows, Q/dO rows).  bf16 and fp16: 4 warps over 64 keys, 64-row Q tiles up to D =
 // 128 (measured against its alternatives on an H100: PERF.md); at D =
 // 256, 8 warps, two over each 16 keys, 32-row Q tiles.  fp32: 32-row Q
 // tiles; 4 warps over 64 keys at D = 32, 8 over 128 at D = 64; at D =
 // 128, 4 warps, two over each 16 keys (dK and dV in 64 registers); at D =
 // 256, 8 warps, four over each 16 keys (196 KB).
+template <typename T, typename F>
+cudaError_t dkv_tiles16(int D, F&& f) {
+  if (D <= 32) return f(DkvTile<T, 32, 4, 1, 64>{});
+  if (D <= 64) return f(DkvTile<T, 64, 4, 1, 64>{});
+  if (D <= 128) return f(DkvTile<T, 128, 4, 1, 64>{});
+  return f(DkvTile<T, 256, 8, 2, 32>{});
+}
+
 template <typename F>
 cudaError_t dkv_tiles(int dtype, int D, F&& f) {
-  if (dtype == 1) {
-    if (D <= 32) return f(DkvTile<bf16, 32, 4, 1, 64>{});
-    if (D <= 64) return f(DkvTile<bf16, 64, 4, 1, 64>{});
-    if (D <= 128) return f(DkvTile<bf16, 128, 4, 1, 64>{});
-    return f(DkvTile<bf16, 256, 8, 2, 32>{});
-  }
+  if (dtype == 1) return dkv_tiles16<bf16>(D, f);
+  if (dtype == 2) return dkv_tiles16<f16>(D, f);
   if (D <= 32) return f(DkvTile<float, 32, 4, 1, 32>{});
   if (D <= 64) return f(DkvTile<float, 64, 8, 1, 32>{});
   if (D <= 128) return f(DkvTile<float, 128, 4, 2, 32>{});
@@ -871,15 +941,17 @@ inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
                      const long long* strides, const void* bias,
                      const long long* bias_strides, int B, int H, int Hkv,
                      int Sq, int Sk, int D, float scale, int causal, int window,
-                     int dtype, void* stream, bool dkv) {
+                     int dtype, void* dbias, const long long* dbias_strides,
+                     void* stream, bool dkv) {
   Args a{};
-  const int elt = dtype == 1 ? 2 : 4;
-  if ((dtype != 0 && dtype != 1) ||
+  const int elt = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 2 || (dbias && !bias) ||
       !make_args(&a, ptrs, strides, B, H, Hkv, Sq, Sk, D, scale, causal, window,
                  elt))
     return int(cudaErrorInvalidValue);
   a.lse = static_cast<float*>(const_cast<void*>(lse));
   set_bias(&a, bias, bias_strides);
+  set_dbias(&a, dbias, dbias_strides);
   if (dtype == 0)
     a.delta2 = static_cast<const float2*>(delta);
   else
@@ -895,10 +967,12 @@ inline int bwd_entry(void* const ptrs[8], const void* lse, const void* delta,
 // of q, k, v, out, dout, dq in that order; d contiguous; every stride and D
 // a multiple of one 16-byte vector); q, out and dout have Sq rows, k and
 // v Sk; lse: (B * H, Sq) fp32; delta = rowsum(dO * O): (B * H, Sq) fp32
-// for bf16 inputs, and for fp32 inputs (B * H, Sq, 2) fp32, the fp64 sum
-// as hi + lo.  dq: q's view.  out (the
-// forward's output) is read by neither kernel; it stays in the
-// interface.  bias, bias_strides: as flash_fwd's.  dtype: 0 fp32, 1 bf16.
+// for bf16 and fp16 inputs, and for fp32 inputs (B * H, Sq, 2) fp32, the
+// fp64 sum as hi + lo.  dq: q's view.  out (the forward's output) is read
+// by neither kernel; it stays in the interface.  bias, bias_strides: as
+// flash_fwd's.  dbias: null, or the score bias's gradient,
+// a zeroed fp32 buffer read through dbias_strides (b, h, q, k; 0 sums
+// that dimension); it needs a bias.  dtype: 0 fp32, 1 bf16, 2 fp16.
 // Returns the CUDA error code of the launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* out, const void* dout, const void* lse,
@@ -906,16 +980,18 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const long long* strides, const void* bias,
                             const long long* bias_strides, int B, int H, int Hkv,
                             int Sq, int Sk, int D, float scale, int causal, int window,
-                            int dtype, void* stream) {
+                            int dtype, void* dbias,
+                            const long long* dbias_strides, void* stream) {
   void* ptrs[8] = {const_cast<void*>(q), const_cast<void*>(k),
                    const_cast<void*>(v), const_cast<void*>(out),
                    const_cast<void*>(dout), dq, nullptr, nullptr};
   return fa::bwd_entry(ptrs, lse, delta, strides, bias, bias_strides, B, H,
-                       Hkv, Sq, Sk, D, scale, causal, window, dtype, stream, false);
+                       Hkv, Sq, Sk, D, scale, causal, window, dtype, dbias,
+                       dbias_strides, stream, false);
 }
 
-// As flash_bwd_dq without out, with the strides of q, k, v, dout, dk, dv;
-// dk and dv are k's and v's views.
+// As flash_bwd_dq without out and dbias, with the strides of q, k, v,
+// dout, dk, dv; dk and dv are k's and v's views.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv,
@@ -927,12 +1003,13 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                    const_cast<void*>(v), nullptr, const_cast<void*>(dout),
                    nullptr, dk, dv};
   return fa::bwd_entry(ptrs, lse, delta, strides, bias, bias_strides, B, H,
-                       Hkv, Sq, Sk, D, scale, causal, window, dtype, stream, true);
+                       Hkv, Sq, Sk, D, scale, causal, window, dtype, nullptr,
+                       nullptr, stream, true);
 }
 
 // The dynamic shared memory, in bytes, that the dQ (dkv 0) or dK/dV (dkv
-// 1) kernel asks for at head dim D and dtype (0 fp32, 1 bf16); ptxas -v
-// reports static shared memory only.
+// 1) kernel asks for at head dim D and dtype (0 fp32, 1 bf16, 2 fp16);
+// ptxas -v reports static shared memory only.
 extern "C" int flash_bwd_smem(int D, int dtype, int dkv) {
   int bytes = 0;
   auto get = [&](auto c) {

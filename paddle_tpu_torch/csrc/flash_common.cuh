@@ -48,13 +48,31 @@
 // its flops, and dK/dV's flops longer than its bytes; either way the time
 // that can be won lies in feeding the tensor cores.
 //
+// Causal attention with Sq > Sk leaves the first Sq - Sk queries (qi +
+// off < 0) no visible key.  The reference fills every logit of such a row
+// with -1e9 in q's dtype, adds a float mask (rounded to q's dtype) after
+// that, and softmaxes the row in fp32: every key of the row is present,
+// with the logit fill_logit() gives, and neither q nor k gets a gradient
+// from it (the fill does not depend on them), while v and the mask do.
+// The tile bounds (k_tiles, q_tiles) and the skip test (none_visible)
+// keep every key of such rows.
+//
+// The dQ kernels also give the gradient of the score bias when asked
+// (Args::dbias): d(logit) = p (dp - delta) at every present position,
+// summed by fp32 atomics into a buffer of the bias's own broadcast shape
+// (element strides with 0 on a broadcast dimension, as the bias is read),
+// after a sum over the warp's 16 rows where the bias broadcasts over
+// queries.  The order of the atomics varies from run to run, so dBias is
+// not bit-reproducible (the other outputs are).
+//
 // The designs below are chosen by dtype (a choice of body by type, not a
 // fallback: a failed build or launch raises in the wrapper).
 //
-// bf16 forward, dQ and dK/dV (flash_fwd_bf16, flash_bwd_dq_bf16,
-// flash_bwd_dkv_bf16): register-fragment kernels.  Every product is
-// mma.sync m16n8k16 (bf16 operands, fp32 accumulation; the product of two
-// bf16 values is exact in fp32, as the reference's
+// 16-bit forward, dQ and dK/dV (flash_fwd_16, flash_bwd_dq_16,
+// flash_bwd_dkv_16), one body for bf16 and fp16 (the element type T is a
+// template argument of the tiles): register-fragment kernels.  Every
+// product is mma.sync m16n8k16 (bf16 or fp16 operands, fp32 accumulation;
+// the product of two such values is exact in fp32, as the reference's
 // preferred_element_type=float32) with operands loaded by
 // ldmatrix (.trans for the operand whose reduction runs along rows) from
 // shared-memory tiles whose rows are padded by one 16-byte vector, which
@@ -63,7 +81,7 @@
 // dV) stay in registers.  The accumulator layout of m16n8k16 is the A
 // operand layout of the next product (two adjacent n8 tiles are one k16
 // fragment), so P (forward), dS (dQ) and P^T, dS^T (dK/dV) go from one
-// product to the next in registers, rounded to bf16, and no score tile is written to
+// product to the next in registers, rounded to T, and no score tile is written to
 // shared memory.  The streamed side comes through a ring of shared-memory
 // stages filled by cp.async 16-byte copies: tile j + 1 is in flight while
 // tile j is computed on.  Only a warp's tile that crosses the causal
@@ -74,7 +92,7 @@
 // seconds.
 //
 // fp32 forward, dQ and dK/dV (flash_fwd_fp32, flash_bwd_dq_fp32,
-// flash_bwd_dkv_fp32): the bf16 kernels' register-fragment structure on
+// flash_bwd_dkv_fp32): the 16-bit kernels' register-fragment structure on
 // mma.sync m16n8k8 with TF32 operands, each product split into three
 // ("3xTF32", see the toolkit below), so that the tensor cores give
 // fp32-accurate sums: fp32 tiles in the same cp.async rings, fragments by
@@ -83,6 +101,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -93,6 +112,7 @@
 namespace fa {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kNegInf = -1e30f;  // the reference's _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
@@ -112,7 +132,7 @@ struct Operand {
 struct Args {
   Operand q, k, v, o, dout, dq, dk, dv;
   float* lse;           // (B * H, Sq) fp32, row b * H + h
-  const float* delta;   // (B * H, Sq) fp32: rowsum(dO * O) (bf16 kernels)
+  const float* delta;   // (B * H, Sq) fp32: rowsum(dO * O) (16-bit kernels)
   const float2* delta2;  // the same summed in fp64, as fp32 hi + lo (fp32 kernels)
   int B, H, G, D;       // G = H / Hkv query heads per KV head
   int Sq, Sk;           // query and key lengths
@@ -123,6 +143,9 @@ struct Args {
   int causal, window;   // window <= 0: none
   const float* bias;    // additive score bias (fp32), or null
   long long bias_b, bias_h, bias_q, bias_k;  // its element strides; 0 broadcasts
+  int nokey;            // rows with no visible key: Sq - Sk when causal and Sq > Sk, else 0
+  float* dbias;         // the bias's gradient (fp32, zeroed by the caller), or null (dQ kernels)
+  long long dbias_b, dbias_h, dbias_q, dbias_k;  // its element strides; 0 sums a dimension
 };
 
 template <typename T>
@@ -162,11 +185,43 @@ __device__ __forceinline__ bool visible(const Args& a, int qi, int kj) {
   return kj <= p && (a.window <= 0 || kj > p - a.window);
 }
 
+// Key kj takes part in query qi's softmax: visible, or any key of a row
+// that sees none (see the top of the file).
+__device__ __forceinline__ bool present(const Args& a, int qi, int kj) {
+  return visible(a, qi, kj) || (qi < a.nokey && kj < a.Sk);
+}
+
+// x rounded to T and back.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same_v<T, bf16>) return __bfloat162float(__float2bfloat16_rn(x));
+  else if constexpr (std::is_same_v<T, f16>) return __half2float(__float2half_rn(x));
+  else return x;
+}
+
+// The logit (base e) of a key in a row with no visible key, whose bias
+// there is b: the reference's fill, -1e9 in q's dtype T, plus the mask in
+// T, rounded to T; then less the fill, which
+// moves the row's softmax nowhere and leaves its lse the log of its sum
+// (at -1e9 an fp32 lse would round log l away: its spacing there is 64).
+// The difference is exact (Sterbenz).  fp16 has no finite -1e9 (the
+// reference's fill is -inf there, and its row NaN): the kernels keep the
+// fill in fp32 for fp16, a recorded choice.
+template <typename T>
+__device__ __forceinline__ float fill_logit(float b) {
+  if constexpr (std::is_same_v<T, f16>) {
+    return (-1e9f + round_to<f16>(b)) + 1e9f;
+  } else {
+    const float fill = round_to<T>(-1e9f);
+    return round_to<T>(fill + round_to<T>(b)) - fill;
+  }
+}
+
 // The bias (base e) of a warp's accumulator tile of NS n8 tiles into
 // bv: pos(n, e, &qi, &kj) names element (n, e)'s query and key and
 // returns the slice to read.  Off an edge every element is read without
 // a test, so the loads issue together and their latency is paid once a
-// tile; on an edge a position that is not visible (past row Sq among
+// tile; on an edge a position that is not present (past row Sq among
 // them) reads nothing and gets 0, its probability being masked anyway.
 template <int NS, typename P>
 __device__ __forceinline__ void load_bias(float (&bv)[NS][4], const Args& a, bool edge,
@@ -187,31 +242,33 @@ __device__ __forceinline__ void load_bias(float (&bv)[NS][4], const Args& a, boo
       for (int e = 0; e < 4; ++e) {
         int qi, kj;
         const float* bs = pos(n, e, &qi, &kj);
-        bv[n][e] = visible(a, qi, kj) ? bias_e(a, bs, qi, kj) : 0.f;
+        bv[n][e] = present(a, qi, kj) ? bias_e(a, bs, qi, kj) : 0.f;
       }
   }
 }
 
-// The k-tiles [lo, hi) that hold a position visible to some row of query
-// tile qt (reference: _fwd_kernel / _bwd_dq_kernel's lo and hi).
+// The k-tiles [lo, hi) that hold a position present to some row of query
+// tile qt (reference: _fwd_kernel / _bwd_dq_kernel's lo and hi): all of
+// them for a tile with a row that sees no key.
 __device__ __forceinline__ void k_tiles(const Args& a, int qt, int* lo, int* hi) {
   const int nk = (a.Sk + a.BK - 1) / a.BK;
   *lo = 0;
   *hi = nk;
-  if (a.causal) {
+  if (a.causal && qt * a.BQ >= a.nokey) {
     *hi = min(max(((qt + 1) * a.BQ + a.off + a.BK - 1) / a.BK, 0), nk);
     if (a.window > 0) *lo = max((qt * a.BQ + a.off - (a.window - 1)) / a.BK, 0);
   }
 }
 
-// The q-tiles [lo, hi) with a row that sees some key of k-tile kt
-// (reference: _bwd_dkv_kernel's lo and hi).
+// The q-tiles [lo, hi) with a row to which some key of k-tile kt is
+// present (reference: _bwd_dkv_kernel's lo and hi): from the first when
+// rows see no key (they lead, and hi covers them).
 __device__ __forceinline__ void q_tiles(const Args& a, int kt, int* lo, int* hi) {
   const int nq = (a.Sq + a.BQ - 1) / a.BQ;
   *lo = 0;
   *hi = nq;
   if (a.causal) {
-    *lo = min(max((kt * a.BK - a.off) / a.BQ, 0), nq);
+    *lo = a.nokey > 0 ? 0 : min(max((kt * a.BK - a.off) / a.BQ, 0), nq);
     if (a.window > 0)
       *hi = max(min(((kt + 1) * a.BK - a.off + a.window - 1 + a.BQ - 1) / a.BQ, nq), *lo);
   }
@@ -259,6 +316,7 @@ inline bool make_args(Args* a, void* const ptrs[8], const long long* strides,
   a->scale = scale;
   a->causal = causal;
   a->window = causal ? window : 0;
+  a->nokey = causal && Sq > Sk ? Sq - Sk : 0;
   return true;
 }
 
@@ -274,6 +332,47 @@ inline void set_bias(Args* a, const void* bias, const long long* strides) {
   }
 }
 
+// The bias's gradient operand of the dQ entry point: null, or a zeroed
+// fp32 buffer with its four element strides (b, h, q, k; 0 sums).
+inline void set_dbias(Args* a, void* dbias, const long long* strides) {
+  a->dbias = static_cast<float*>(dbias);
+  if (dbias) {
+    a->dbias_b = strides[0];
+    a->dbias_h = strides[1];
+    a->dbias_q = strides[2];
+    a->dbias_k = strides[3];
+  }
+}
+
+// d(logit) g of one accumulator tile's elements into dbias (db: the
+// slice of batch b, query head h): element e at query qi0 + (e / 2) * 8,
+// key kj0 + e % 2, as the m16n8 accumulator lays them out (row g, column
+// 2t).  Every lane of the warp calls it.  Where the bias broadcasts over
+// queries the warp sums its 16 rows first (shuffles over g), and 4 lanes
+// add 8 columns; else each present element adds its own.
+__device__ __forceinline__ void emit_dbias(const Args& a, float* db, const float g[4], int qi0,
+                                           int kj0) {
+  if (a.dbias_q == 0) {
+    float v0 = g[0] + g[2], v1 = g[1] + g[3];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      v0 += __shfl_xor_sync(0xffffffffu, v0, o);
+      v1 += __shfl_xor_sync(0xffffffffu, v1, o);
+    }
+    if ((threadIdx.x & 31) < 4) {
+      if (kj0 < a.Sk) atomicAdd(db + kj0 * a.dbias_k, v0);
+      if (kj0 + 1 < a.Sk) atomicAdd(db + (kj0 + 1) * a.dbias_k, v1);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qi0 + (e >> 1) * 8, kj = kj0 + (e & 1);
+      if (g[e] != 0.f && qi < a.Sq && kj < a.Sk)
+        atomicAdd(db + qi * a.dbias_q + kj * a.dbias_k, g[e]);
+    }
+  }
+}
+
 // Launch `f(std::bool_constant<BIAS>)` with BIAS = whether the launch has a
 // score bias: the two instantiations of each kernel.
 template <typename F>
@@ -282,7 +381,7 @@ inline cudaError_t with_bias(const Args& a, F&& f) {
   return f(std::false_type{});
 }
 
-// -- register-fragment toolkit of the bf16 kernels ---------------------------
+// -- register-fragment toolkit of the 16-bit kernels (bf16, fp16) -----------
 //
 // mma.sync m16n8k16 fragments, lane = 4 * g + t (g = lane / 4, t = lane % 4):
 // A (16 x 16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8,
@@ -322,8 +421,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [row0, row0 + R) of one (b, h) slice into a tile of T (bf16 or
-// fp32) [R][tile_ld]: DP columns, zero past D and past row S, by cp.async
+// Rows [row0, row0 + R) of one (b, h) slice into a tile of T (bf16, fp16
+// or fp32) [R][tile_ld]: DP columns, zero past D and past row S, by cp.async
 // 16-byte copies from all NT threads of the block (D and the strides are
 // multiples of one vector, which the wrapper checks).
 template <int R, int DP, int NT, typename T>
@@ -345,13 +444,13 @@ __device__ __forceinline__ void cp_rows(T* tile, const T* src, long long stride,
 // Four 8x8 b16 matrices from shared memory; lane i gives the address of
 // row i % 8 of matrix i / 8 and receives (row lane / 4, cols 2 (lane % 4),
 // +1) of matrix j in r[j] (.trans: of its transpose).
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
@@ -359,8 +458,8 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
 
 // The A fragment of rows [r0, r0 + 16) x cols [c0, c0 + 16) of a row-major
 // tile.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t r[4], const bf16* tile, int r0, int c0) {
+template <int LD, typename T>
+__device__ __forceinline__ void frag_a(uint32_t r[4], const T* tile, int r0, int c0) {
   const int lane = threadIdx.x & 31;
   ldsm_x4(r, tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
 }
@@ -368,8 +467,8 @@ __device__ __forceinline__ void frag_a(uint32_t r[4], const bf16* tile, int r0, 
 // B fragments of two n8 tiles where B(k, n) = tile[n][k] (the rows are
 // B's columns, as K's rows in Q.K^T): n = n0..n0+15, k = k0..k0+15;
 // {r[0], r[1]} for n0, {r[2], r[3]} for n0 + 8.
-template <int LD>
-__device__ __forceinline__ void frag_b_rows(uint32_t r[4], const bf16* tile, int n0, int k0) {
+template <int LD, typename T>
+__device__ __forceinline__ void frag_b_rows(uint32_t r[4], const T* tile, int n0, int k0) {
   const int lane = threadIdx.x & 31;
   ldsm_x4(r, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 + ((lane >> 3) & 1) * 8);
 }
@@ -377,20 +476,29 @@ __device__ __forceinline__ void frag_b_rows(uint32_t r[4], const bf16* tile, int
 // B fragments of two n8 tiles where B(k, n) = tile[k][n] (as V's rows in
 // P.V): k = k0..k0+15, n = n0..n0+15; {r[0], r[1]} for n0, {r[2], r[3]}
 // for n0 + 8.
-template <int LD>
-__device__ __forceinline__ void frag_b_cols(uint32_t r[4], const bf16* tile, int k0, int n0) {
+template <int LD, typename T>
+__device__ __forceinline__ void frag_b_cols(uint32_t r[4], const T* tile, int k0, int n0) {
   const int lane = threadIdx.x & 31;
   ldsm_x4_t(r, tile + (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8);
 }
 
-// c += a . b, m16n8k16, bf16 operands, fp32 accumulator.
+// c += a . b, m16n8k16, T (bf16 or fp16) operands, fp32 accumulator
+// (bf16 by default: the paged kernels' split body calls it so).
+template <typename T = bf16>
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same_v<T, f16>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats rounded to bf16 in one register, lo in the low half.
@@ -399,13 +507,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Two floats rounded to fp16 in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two floats rounded to T (bf16 or fp16) in one register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, f16>) return pack_f16(lo, hi);
+  else return pack_bf16(lo, hi);
+}
+
 // The A fragment of k16 step kk from an fp32 accumulator of n8 tiles c[]:
-// tiles 2 kk and 2 kk + 1, rounded to bf16.
+// tiles 2 kk and 2 kk + 1, rounded to T.
+template <typename T = bf16>
 __device__ __forceinline__ void acc_to_a(uint32_t r[4], const float c0[4], const float c1[4]) {
-  r[0] = pack_bf16(c0[0], c0[1]);
-  r[1] = pack_bf16(c0[2], c0[3]);
-  r[2] = pack_bf16(c1[0], c1[1]);
-  r[3] = pack_bf16(c1[2], c1[3]);
+  r[0] = pack2<T>(c0[0], c0[1]);
+  r[1] = pack2<T>(c0[2], c0[3]);
+  r[2] = pack2<T>(c1[0], c1[1]);
+  r[3] = pack2<T>(c1[2], c1[3]);
 }
 
 // -- split-TF32 toolkit of the fp32 kernels ----------------------------------
@@ -663,7 +785,7 @@ __device__ __forceinline__ bool all_visible(const Args& a, int q0, int nq, int k
 // 0, so skipping such a tile gives the same result.)
 __device__ __forceinline__ bool none_visible(const Args& a, int q0, int nq, int k0, int nk) {
   if (q0 >= a.Sq || k0 >= a.Sk) return true;
-  if (!a.causal) return false;
+  if (!a.causal || q0 < a.nokey) return false;  // a row that sees no key has every key
   return k0 > q0 + nq - 1 + a.off || (a.window > 0 && k0 + nk - 1 <= q0 + a.off - a.window);
 }
 

@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): out and the row logsumexp,
-// fp32 or bf16 q/k/v, causal or not, sliding window, GQA, any layout
-// given by strides (see flash_common.cuh).
+// fp32, bf16 or fp16 q/k/v, causal or not (rows that see no key included),
+// sliding window, GQA, any layout given by strides (see flash_common.cuh).
 //
 // Replaces the TPU kernel paddle_tpu/kernels/flash.py: _fwd_kernel, as
 // launched by _fwd_call (bnsd) and _fwd_call_smajor (bsnd / sbnd, GQA).
@@ -12,7 +12,8 @@
 // h).  Grid: (query tiles, query heads, batch), the heaviest causal tiles
 // (largest row index) issued first.
 //
-// bf16 (flash_fwd_bf16): at the training shape the forward's bytes bound
+// bf16 and fp16 (flash_fwd_16, one body; fp16 swaps the mma's operand
+// type and the roundings): at the training shape the forward's bytes bound
 // it (0.045 ms for 4 operands against 0.039 ms of tensor-core work), so
 // the design reads every operand once per query tile and keeps all
 // intermediate state on chip.  A block of 4 warps owns 64 query rows,
@@ -26,7 +27,7 @@
 // online softmax runs in registers (a row's values sit in the 4 lanes of
 // a quad: two shuffles reduce them; l is kept per lane and summed once at
 // the end; exp2 with log2(e) folded into the scale, lse = m ln 2 + log l
-// in natural log); alpha rescales O in registers; and P, rounded to bf16
+// in natural log); alpha rescales O in registers; and P, rounded to T
 // against the running max as in the reference, is the A operand of P.V
 // directly (V's B fragments by ldmatrix.trans).  The epilogue stages the
 // warp's rows through its own rows of the Q tile and writes them with
@@ -39,7 +40,7 @@
 // D = 64, not causal) its 4 B*H*S^2*D flops take 0.385 ms at the card's
 // 67 TFLOP/s of fp32 FMAs and 0.156 ms as three TF32 products each at 495
 // TFLOP/s, against 0.06 ms of bytes: operations bound it.  So it is the
-// bf16 body above with fp32 tiles (row pitch DP + 4 floats) in the same
+// 16-bit body above with fp32 tiles (row pitch DP + 4 floats) in the same
 // cp.async ring and every product on mma.sync m16n8k8 in 3xTF32
 // (flash_common.cuh's toolkit): S = Q.K^T and the online softmax in
 // registers, P in fp32 (V's dtype, as the reference) the A operand of O
@@ -65,10 +66,11 @@
 
 namespace fa {
 
-// Tiles of the bf16 forward: 4 warps of 16 query rows each, BK-row K/V
-// tiles in a 2-stage ring.
-template <int DP_, int BK_>
+// Tiles of the 16-bit forward (elements of T, bf16 or fp16): 4 warps of
+// 16 query rows each, BK-row K/V tiles in a 2-stage ring.
+template <typename T_, int DP_, int BK_>
 struct FwdTile {
+  using T = T_;
   static constexpr int DP = DP_, NW = 4, BK = BK_, STAGES = 2;
   static constexpr int NT = 32 * NW, BQ = 16 * NW, LD = tile_ld(DP, 2);
   static constexpr int KD = DP / 16;  // k16 steps over d (S = Q.K^T)
@@ -80,27 +82,28 @@ struct FwdTile {
 };
 
 template <typename C, bool BIAS>
-__global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
+__global__ void __launch_bounds__(C::NT) flash_fwd_16(Args a) {
+  using T = typename C::T;
   constexpr int LD = C::LD, BK = C::BK, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* skv = reinterpret_cast<bf16*>(smem + C::Q_BYTES);
+  T* sq = reinterpret_cast<T*>(smem);
+  T* skv = reinterpret_cast<T*>(smem + C::Q_BYTES);
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = qt * C::BQ, wr = warp * 16, r0 = q0 + wr;
-  const bf16* kb = slice<const bf16>(a.k, b, kvh);
-  const bf16* vb = slice<const bf16>(a.v, b, kvh);
+  const T* kb = slice<const T>(a.k, b, kvh);
+  const T* vb = slice<const T>(a.v, b, kvh);
   [[maybe_unused]] const float* bs = BIAS ? bias_slice(a, b, h) : nullptr;
   int lo, hi;
   k_tiles(a, qt, &lo, &hi);
 
   auto load_kv = [&](int j) {
-    bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    T* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
     cp_rows<BK, C::DP, C::NT>(sk, kb, a.k.s, j * BK, a.Sk, a.D);
     cp_rows<BK, C::DP, C::NT>(sk + C::KV_ELEMS, vb, a.v.s, j * BK, a.Sk, a.D);
   };
-  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const bf16>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
+  cp_rows<C::BQ, C::DP, C::NT>(sq, slice<const T>(a.q, b, h), a.q.s, q0, a.Sq, a.D);
   cp_async_commit();
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -122,8 +125,8 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
     cp_async_commit();
     const int k0 = j * BK;
     if (none_visible(a, r0, 16, k0, BK)) continue;
-    const bf16* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
-    const bf16* sv = sk + C::KV_ELEMS;
+    const T* sk = skv + size_t((j - lo) % STAGES) * 2 * C::KV_ELEMS;
+    const T* sv = sk + C::KV_ELEMS;
     const bool edge = !all_visible(a, r0, 16, k0, BK);
     // the tile's bias, its loads in flight during the product below
     [[maybe_unused]] float bv[C::NS][4];
@@ -146,13 +149,13 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
       for (int n = 0; n < C::NS; n += 2) {
         uint32_t kf[4];
         frag_b_rows<LD>(kf, sk, n * 8, kk * 16);
-        mma16816(s[n], qa, kf[0], kf[1]);
-        mma16816(s[n + 1], qa, kf[2], kf[3]);
+        mma16816<T>(s[n], qa, kf[0], kf[1]);
+        mma16816<T>(s[n + 1], qa, kf[2], kf[3]);
       }
     }
 
     // scale (to base 2), add the bias, and mask only where the warp's
-    // tile crosses an edge
+    // tile crosses an edge (a row that sees no key takes the fill)
     if (!edge) {
 #pragma unroll
       for (int n = 0; n < C::NS; ++n)
@@ -167,10 +170,11 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = r0 + (lane >> 2) + (e >> 1) * 8, kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
-          if constexpr (BIAS)
-            s[n][e] = visible(a, qi, kj) ? s[n][e] * scale2 + kLog2e * bv[n][e] : kNegInf;
-          else
-            s[n][e] = visible(a, qi, kj) ? s[n][e] * scale2 : kNegInf;
+          float bias = 0.f;
+          if constexpr (BIAS) bias = bv[n][e];
+          if (visible(a, qi, kj)) s[n][e] = s[n][e] * scale2 + kLog2e * bias;
+          else if (qi < a.nokey && kj < a.Sk) s[n][e] = kLog2e * fill_logit<T>(bias);
+          else s[n][e] = kNegInf;
         }
     }
 
@@ -204,20 +208,20 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+      acc_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < C::NO; n += 2) {
         uint32_t vf[4];
         frag_b_cols<LD>(vf, sv, kk * 16, n * 8);
-        mma16816(o[n], pa, vf[0], vf[1]);
-        mma16816(o[n + 1], pa, vf[2], vf[3]);
+        mma16816<T>(o[n], pa, vf[0], vf[1]);
+        mma16816<T>(o[n + 1], pa, vf[2], vf[3]);
       }
     }
   }
 
   // epilogue: out = O / max(l, 1e-30) through the warp's own Q rows, lse
   float* lse = a.lse + (size_t(b) * a.H + h) * a.Sq;
-  bf16* stage = sq + wr * LD;
+  T* stage = sq + wr * LD;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float lt = l[hf];
@@ -229,10 +233,10 @@ __global__ void __launch_bounds__(C::NT) flash_fwd_bf16(Args a) {
 #pragma unroll
     for (int n = 0; n < C::NO; ++n)
       *reinterpret_cast<uint32_t*>(stage + r * LD + n * 8 + 2 * (lane & 3)) =
-          pack_bf16(o[n][2 * hf] / lt, o[n][2 * hf + 1] / lt);
+          pack2<T>(o[n][2 * hf] / lt, o[n][2 * hf + 1] / lt);
   }
   __syncwarp();
-  bf16* ob = slice<bf16>(a.o, b, h);
+  T* ob = slice<T>(a.o, b, h);
   constexpr int VPR = C::DP / 8;
 #pragma unroll
   for (int i = 0; i < 16 * VPR / 32; ++i) {
@@ -394,10 +398,16 @@ __global__ void __launch_bounds__(C::NT, 1) flash_fwd_fp32(Args a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int qi = ri + (lane >> 2) + (e >> 1) * 8, kj = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
-            if constexpr (BIAS)
-              s[i][n][e] = visible(a, qi, kj) ? s[i][n][e] * scale2 + bias2(a, bs, qi, kj) : kNegInf;
-            else
-              s[i][n][e] = visible(a, qi, kj) ? s[i][n][e] * scale2 : kNegInf;
+            if (visible(a, qi, kj)) {
+              s[i][n][e] *= scale2;
+              if constexpr (BIAS) s[i][n][e] += bias2(a, bs, qi, kj);
+            } else if (qi < a.nokey && kj < a.Sk) {
+              float bias = 0.f;
+              if constexpr (BIAS) bias = bias_e(a, bs, qi, kj);
+              s[i][n][e] = kLog2e * fill_logit<float>(bias);
+            } else {
+              s[i][n][e] = kNegInf;
+            }
           }
       }
 
@@ -494,22 +504,24 @@ cudaError_t fwd_fp32(Args a, cudaStream_t st) {
 }
 
 template <typename C>
-cudaError_t fwd_bf16(Args a, cudaStream_t st) {
+cudaError_t fwd_16_tiles(Args a, cudaStream_t st) {
   a.BQ = C::BQ;
   a.BK = C::BK;
   const dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.H, a.B);
   return with_bias(a, [&](auto bias) {
-    return launch(flash_fwd_bf16<C, decltype(bias)::value>, grid, C::NT, C::SMEM, st, a);
+    return launch(flash_fwd_16<C, decltype(bias)::value>, grid, C::NT, C::SMEM, st, a);
   });
 }
 
-// The tiles by padded head dim: 64-row K/V tiles up to D = 64, 32-row
-// above (measured against their alternatives on an H100: PERF.md).
-cudaError_t fwd_bf16(Args a, cudaStream_t st) {
-  if (a.D <= 32) return fwd_bf16<FwdTile<32, 64>>(a, st);
-  if (a.D <= 64) return fwd_bf16<FwdTile<64, 64>>(a, st);
-  if (a.D <= 128) return fwd_bf16<FwdTile<128, 32>>(a, st);
-  return fwd_bf16<FwdTile<256, 32>>(a, st);
+// The tiles by padded head dim, bf16 and fp16 alike: 64-row K/V tiles up
+// to D = 64, 32-row above (measured against their alternatives on an
+// H100 in bf16: PERF.md).
+template <typename T>
+cudaError_t fwd_16(Args a, cudaStream_t st) {
+  if (a.D <= 32) return fwd_16_tiles<FwdTile<T, 32, 64>>(a, st);
+  if (a.D <= 64) return fwd_16_tiles<FwdTile<T, 64, 64>>(a, st);
+  if (a.D <= 128) return fwd_16_tiles<FwdTile<T, 128, 32>>(a, st);
+  return fwd_16_tiles<FwdTile<T, 256, 32>>(a, st);
 }
 
 }  // namespace fa
@@ -518,8 +530,10 @@ cudaError_t fwd_bf16(Args a, cudaStream_t st) {
 // out in that order; d contiguous; every stride and D a multiple of one
 // 16-byte vector); q has Sq rows, k and v Sk.  out: q's view; lse: (B *
 // H, Sq) fp32.  bias: null, or an fp32 score bias of [B, H, Sq, Sk] read
-// through bias_strides (b, h, q, k; 0 broadcasts).  window <= 0: none.  dtype: 0 fp32, 1 bf16.  Returns
-// the CUDA error code of the launch.
+// through bias_strides (b, h, q, k; 0 broadcasts).  window <= 0: none.
+// dtype: 0 fp32, 1 bf16, 2 fp16.  Causal rows that see no key (Sq > Sk)
+// add the bias to the reference's fill: a boolean mask's bias is 0 in
+// those rows.  Returns the CUDA error code of the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, const long long* strides,
                          const void* bias, const long long* bias_strides,
@@ -529,13 +543,15 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                    const_cast<void*>(v), out, nullptr, nullptr, nullptr,
                    nullptr};
   fa::Args a{};
-  const int elt = dtype == 1 ? 2 : 4;
-  if ((dtype != 0 && dtype != 1) ||
+  const int elt = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 2 ||
       !fa::make_args(&a, ptrs, strides, B, H, Hkv, Sq, Sk, D, scale, causal,
                      window, elt))
     return int(cudaErrorInvalidValue);
   a.lse = static_cast<float*>(lse);
   fa::set_bias(&a, bias, bias_strides);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return int(dtype == 1 ? fa::fwd_bf16(a, st) : fa::fwd_fp32(a, st));
+  if (dtype == 1) return int(fa::fwd_16<fa::bf16>(a, st));
+  if (dtype == 2) return int(fa::fwd_16<fa::f16>(a, st));
+  return int(fa::fwd_fp32(a, st));
 }

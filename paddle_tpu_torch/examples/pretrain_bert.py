@@ -6,13 +6,17 @@ default attention mask) and its criterion, AdamW over
 ``loss.backward()``, ``optimizer.step()``, on synthetic masked-LM data.
 
 Counterpart of ``examples/pretrain_bert.py``, with its flags plus
-``--device`` (the card by default: ``gpu``; ``cpu`` to run on the host)
-and ``--amp`` (the forward under ``amp.auto_cast()``, bf16)::
+``--device`` (the card by default: ``gpu``; ``cpu`` to run on the host),
+``--amp`` (the forward under ``amp.auto_cast()``, bf16) and ``--amp-dtype
+float16`` (fp16 O1 with a dynamic ``GradScaler`` at its default scale,
+2^16: the scaled loss's backward, ``scaler.step``, ``scaler.update``)::
 
     python -m paddle_tpu_torch.examples.pretrain_bert --steps 20
     python -m paddle_tpu_torch.examples.pretrain_bert --device cpu --steps 3
     python -m paddle_tpu_torch.examples.pretrain_bert --amp --hidden 768 \\
         --layers 12 --heads 12 --seq 512 --batch 32 --masked 76
+    python -m paddle_tpu_torch.examples.pretrain_bert --amp \\
+        --amp-dtype float16
     python -m paddle_tpu_torch.examples.pretrain_bert --model ernie
 
 On the card ERNIE's pad mask reaches the flash kernels as their score
@@ -71,12 +75,19 @@ def build(args):
     return cfg, model, criterion, sched, optimizer
 
 
-def train_step(model, criterion, optimizer, sched, batch, amp=False):
-    """One step of the example's loop; returns the loss Tensor."""
+def train_step(model, criterion, optimizer, sched, batch, amp=False,
+               scaler=None, level="O1"):
+    """One step of the example's loop; returns the loss Tensor.  ``amp``:
+    False, True (bf16) or the low dtype's name, the forward under
+    ``amp.auto_cast(level=level, dtype=...)``; ``scaler``: a
+    ``GradScaler`` that scales the loss for the backward and steps the
+    optimizer (skipping the update on an overflow) and the scale."""
     import paddle_tpu_torch as paddle
 
     ids, token_type, pos, mlm_labels, nsp_labels = batch
-    ctx = paddle.amp.auto_cast() if amp else contextlib.nullcontext()
+    dtype = amp if isinstance(amp, str) else "bfloat16"
+    ctx = (paddle.amp.auto_cast(level=level, dtype=dtype) if amp
+           else contextlib.nullcontext())
     with ctx:
         mlm_logits, nsp_logits = model(
             paddle.to_tensor(ids), paddle.to_tensor(token_type),
@@ -85,8 +96,13 @@ def train_step(model, criterion, optimizer, sched, batch, amp=False):
                          paddle.to_tensor(mlm_labels),
                          paddle.to_tensor(nsp_labels),
                          masked_lm_scale=float(pos.size))
-    loss.backward()
-    optimizer.step()
+    if scaler is None:
+        loss.backward()
+        optimizer.step()
+    else:
+        scaler.scale(loss).backward()
+        scaler.step(optimizer)
+        scaler.update()
     optimizer.clear_grad()
     sched.step()
     return loss
@@ -109,6 +125,10 @@ def parse(argv=None):
                    help="gpu (the card, default) or cpu")
     p.add_argument("--amp", action="store_true",
                    help="run the forward under amp.auto_cast() (bf16)")
+    p.add_argument("--amp-dtype", choices=["bfloat16", "float16"],
+                   default="bfloat16",
+                   help="auto_cast's dtype; float16 adds a dynamic "
+                        "GradScaler")
     return p.parse_args(argv)
 
 
@@ -119,11 +139,13 @@ def main(argv=None):
     paddle.set_device(args.device)
     cfg, model, criterion, sched, optimizer = build(args)
     batch = make_batch(cfg, args.batch, args.seq, args.masked, args.seed)
+    amp = args.amp and args.amp_dtype
+    scaler = paddle.amp.GradScaler() if amp == "float16" else None
     losses = []
     t0 = time.time()
     for step in range(args.steps):
         loss = train_step(model, criterion, optimizer, sched, batch,
-                          amp=args.amp)
+                          amp=amp, scaler=scaler)
         losses.append(float(loss.numpy()))
         if step % 5 == 0 or step == args.steps - 1:
             tok_s = (args.batch * args.seq * (step + 1)) / (time.time() - t0)

@@ -20,7 +20,9 @@ from .paged_prefill import paged_prefill, paged_prefill_plain
 #: ``paged_attention_int8``, ``paged_attention_int4``, the same three of
 #: ``paged_attention_mq`` and ``paged_prefill``, ``w8a8_gemm`` and its
 #: pre-quantized launch ``w8a8_gemm_prequant``, and the
-#: flash kernels ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+#: flash kernels ``flash_fwd``, ``flash_bwd_dq`` (``flash_bwd_dq_dbias``
+#: when the launch also writes the score bias's gradient) and
+#: ``flash_bwd_dkv``
 KERNELS = _build.LAUNCHES
 
 

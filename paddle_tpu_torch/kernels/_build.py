@@ -70,12 +70,13 @@ SIGNATURES = {
                            [_P] * 5 + [_I] * 8 + [_P]),
     # q, k, v, out, lse, strides, bias (fp32 or null), bias strides (b,
     # h, q, k), B, H, Hkv, Sq, Sk, D, scale, causal, window, dtype (0
-    # fp32, 1 bf16), stream
+    # fp32, 1 bf16, 2 fp16), stream
     "flash_fwd": ("flash_fwd", "flash_fwd", [_P] * 8 + [_I] * 6 + [_F]
                   + [_I] * 3 + [_P]),
-    # q, k, v, out, dout, lse, delta, dq, strides, then as flash_fwd
+    # q, k, v, out, dout, lse, delta, dq, strides, then as flash_fwd up
+    # to dtype, then dbias (fp32 or null), dbias strides, stream
     "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq", [_P] * 11 + [_I] * 6
-                     + [_F] + [_I] * 3 + [_P]),
+                     + [_F] + [_I] * 3 + [_P] * 3),
     # q, k, v, dout, lse, delta, dk, dv, strides, then as flash_fwd
     "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv", [_P] * 11 + [_I] * 6
                       + [_F] + [_I] * 3 + [_P]),

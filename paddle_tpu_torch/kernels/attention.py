@@ -5,18 +5,20 @@ tensors to the flash kernels.
 Counterpart of ``paddle_tpu/kernels/attention.py`` (``_sdpa_reference``,
 ``sdpa``).  :func:`sdpa_plain` is the reference's jnp attention, decision
 for decision; the CPU training path runs it.  On the card :func:`sdpa`
-launches the flash kernels whenever :func:`~.flash.kernel_reason` finds
-nothing they cannot take: at every sequence length (the reference's
-``seq >= 512`` and block-divisor gates are TPU tuning choices; the
-kernels mask a ragged last tile), with q and k of other lengths
-(cross-attention, a decode step of Sq = 1 against a cache; a causal band
-aligned at the bottom right, as ``_sdpa_reference`` aligns it), and with
-an attention mask, which they take as an additive fp32 score bias
-(:func:`~.flash.mask_bias`: a float mask as it is, -inf included, a
-boolean one as 0 / -1e9, as ``_sdpa_reference`` masks).  It raises
-otherwise (a head dim outside the kernels' tiles, a mask that requires
-grad, causal attention with more queries than keys, whose first queries
-see no key): it never runs the plain version there.
+launches the flash kernels (:func:`~.flash.attend`) on every input that
+``_sdpa_reference`` takes: any sequence lengths (the reference's ``seq >=
+512`` and block-divisor gates are TPU tuning choices; the kernels mask a
+ragged last tile), q and k of other lengths (cross-attention, a decode
+step of Sq = 1 against a cache; a causal band aligned at the bottom
+right, its rows with no key given the reference's -1e9 fill), fp32, bf16
+and fp16, any head dim up to 256 (padded to the tiles), GQA in every
+layout, 2-D q and broadcast leading dims, and an attention mask as an
+additive fp32 score bias (:func:`~.flash._bias_of`: a float mask as it
+is, -inf included, a boolean one as 0 / -1e9, as ``_sdpa_reference``
+masks), whose gradient the kernels give when it requires one.  It raises
+NotImplementedError for what :func:`~.flash.kernel_reason` names (a head
+dim above 256, dtypes other than those three or mixed): it never runs
+the plain version there.
 
 Attention dropout (``dropout_p > 0``) takes :func:`sdpa_dropout` on either
 device, as the reference routes it: "dropout always takes the reference
@@ -134,22 +136,23 @@ def sdpa(q, k, v, mask=None, scale=None, is_causal=False, dropout_p=0.0,
     on either device, as the reference routes dropout to its jnp path.
     Otherwise CPU tensors run :func:`sdpa_plain` (the seq-major layouts
     transposed in and out, as the reference's CPU path does), and CUDA
-    tensors launch the flash kernels, which read the layout in place,
-    take q and k of other lengths and ``mask`` as a score bias, or raise
-    NotImplementedError naming what the kernels cannot take."""
+    tensors launch the flash kernels (:func:`~.flash.attend`), which read
+    the layout in place and take what the reference takes, ``mask`` as a
+    score bias, or raise NotImplementedError naming what the kernels
+    cannot take."""
     if dropout_p > 0.0:
         return sdpa_dropout(q, k, v, dropout_p, key, mask=mask, scale=scale,
                             is_causal=is_causal, layout=layout,
                             window=window)
     if q.device.type == "cuda":
         reason = flash.kernel_reason(q, k, mask=mask, layout=layout,
-                                     is_causal=is_causal)
+                                     is_causal=is_causal, v=v)
         if reason is not None:
             raise NotImplementedError(
                 f"sdpa: the flash kernels cannot take {reason}")
-        return flash.attention(q, k, v, causal=is_causal, scale=scale,
-                               layout=layout, window=window,
-                               bias=flash.mask_bias(mask, q, layout, k))
+        return flash.attend(q, k, v, mask=mask, scale=scale,
+                            is_causal=is_causal, layout=layout,
+                            window=window)
     if q.device.type != "cpu":
         raise ValueError(f"sdpa runs on cpu or cuda, not {q.device}")
     return _seq_major(layout, q, k, v, lambda q, k, v: sdpa_plain(

@@ -22,24 +22,41 @@ Launches count as ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
 
 Beyond the reference's Pallas kernels, which refuse a mask, every entry
 here takes an additive fp32 score ``bias`` that broadcasts to the heads'
-[B, H, Sq, Sk] (:func:`mask_bias` makes it from an attention mask: a
+[B, H, Sq, Sk] (:func:`_bias_of` makes it from an attention mask: a
 float mask as it is, a boolean one as 0 / -1e9, the reference's
 ``_sdpa_reference`` decisions).  It is added to the scaled scores before
-the causal band and the window mask them; no gradient flows to it.  The
-kernels read it through its strides, so a [B, 1, 1, Sk] pad mask or an
-[Sq, Sk] decoder mask is never copied along a broadcast dimension.
+the causal band and the window mask them.  The kernels read it through
+its strides, so a [B, 1, 1, Sk] pad mask or an [Sq, Sk] decoder mask is
+never copied along a broadcast dimension.  A float mask that requires
+grad gets its gradient, as ``jax.vjp`` of ``_sdpa_reference`` gives it:
+d(logit) = p (dp - delta) at every position, summed by the dQ kernel
+over the bias's broadcast dimensions (launches ``flash_bwd_dq_dbias``).
 
 Beyond them too, q and k may have lengths of their own, Sq and Sk
 (cross-attention over a memory, one decode step against a cache).  A
 causal band is then aligned at the bottom right: query i sits at
 position ``i + Sk - Sq``, as ``_sdpa_reference`` places its queries.
 Causal with Sq > Sk leaves the first ``Sq - Sk`` queries no key; the
-reference gives them a softmax over its -1e9 fill, which the kernels do
-not reproduce, so that case is refused (:func:`kernel_reason`).
+reference fills their logits with -1e9 in q's dtype, adds a float mask
+(in q's dtype) and softmaxes that, and so do the kernels and the plain
+versions (:func:`_fill_logits`, the row's logits less the fill, so that
+its fp32 lse keeps the log of its sum): such a row averages V over the
+keys its mask leaves, q and k get no gradient from it, v and the mask do.
+A boolean mask leaves the fill as it is (the reference's ``where`` picks
+-1e9 either way), so :func:`_bias_of` makes its bias 0 in those rows.
+fp16 has no finite -1e9 (the reference's fill is -inf there and its
+row NaN): the kernels keep that fill in fp32, a recorded choice.
 
-:func:`attention` is the entry that the card's ``sdpa`` takes: the
-kernels at any lengths, with a bias; :func:`flash_attention`
-keeps the reference's signature, its one-length rule and its block gate.
+q, k and v may be fp32, bf16 or fp16.  Head dims the tiles do not take
+(not a multiple of 8, under 16, or v's other than q's) are zero-padded
+by :func:`attention` (a copy of q, k and v) and the output sliced back;
+the scale stays that of the real head dim.  Above 256 no tile takes it.
+
+:func:`attend` is the entry that the card's ``sdpa`` takes, with the
+reference's inputs (bnsd GQA, 2-D q, broadcast leading dims, a mask in
+the reference's terms); :func:`attention` the kernels at any lengths,
+with a bias; :func:`flash_attention` keeps the reference's signature,
+its one-length rule and its block gate.
 """
 
 from __future__ import annotations
@@ -48,12 +65,17 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 _NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+_FILL = -1e9        # the reference's masked logit, before its dtype rounds it
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_HEAD_DIM = 256
+# flash_bwd_dq_dbias: a dQ launch that also writes the bias's gradient
+_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dq_dbias",
+            "flash_bwd_dkv")
 _build.LAUNCHES.update({name: 0 for name in _KERNELS})
 
 
@@ -76,17 +98,19 @@ def _layout_s_axis(layout, ndim=4):
     return -2
 
 
-def _layout_reason(q, k, layout):
+def _layout_reason(q, k, layout, bnsd_gqa=False):
     """The layout checks that the kernels need (layout rank, GQA), as a
-    reason, or None."""
+    reason, or None.  GQA takes the seq-major layouts, as the reference's
+    kernels do, and with ``bnsd_gqa`` also 4-D bnsd (what the card's
+    ``sdpa`` hands :func:`attention`)."""
     if layout in ("bsnd", "sbnd") and q.ndim != 4:
         return f"layout {layout!r} needs 4-D q/k/v, got {q.ndim}-D"
     if q.ndim < 3:
         return None
     h_axis = 2 if layout in ("bsnd", "sbnd") else -3
     nh, nkv = q.shape[h_axis], k.shape[h_axis]
-    if nh != nkv and (layout not in ("bsnd", "sbnd") or nkv == 0
-                      or nh % nkv != 0):
+    grouped_ok = layout in ("bsnd", "sbnd") or (bnsd_gqa and q.ndim == 4)
+    if nh != nkv and (not grouped_ok or nkv == 0 or nh % nkv != 0):
         return (f"{nh} query heads over {nkv} KV heads in layout "
                 f"{layout!r} (GQA needs bsnd or sbnd and a divisor)")
     return None
@@ -131,56 +155,117 @@ def _mask_shape(q, layout, k=None):
     return _heads_shape(q, layout, k)
 
 
-def _causal_reason(q, k, causal, layout):
-    sq, sk = _lengths(q, k, layout)
-    if causal and sq > sk:
-        return (f"causal attention of {sq} queries over {sk} keys (the "
-                f"first {sq - sk} queries see no key)")
-    return None
+def _as_bnsd(x, layout):
+    """A seq-major tensor as the reference's bnsd view of it."""
+    if layout == "sbnd":
+        return x.permute(1, 2, 0, 3)
+    if layout == "bsnd":
+        return x.transpose(1, 2)
+    return x
 
 
-def kernel_reason(q, k, mask=None, layout="bnsd", is_causal=False):
-    """Why the CUDA kernels cannot take these inputs, or None when they
-    can: what ``sdpa`` on the card checks.  Any lengths of q and k and a
-    mask that broadcasts to the scores pass; a head dim outside the
-    kernels' tiles, a mask that requires grad, and causal attention with
-    more queries than keys do not."""
-    if q.ndim < 3:
-        return f"{q.ndim}-D q (needs at least 3 dims)"
-    reason = (_layout_reason(q, k, layout) or _head_dim_reason(q.shape[-1])
-              or _causal_reason(q, k, is_causal, layout))
-    if reason is not None or mask is None:
-        return reason
-    if mask.requires_grad:
-        return "an attention mask that requires grad (no gradient flows " \
-               "to the kernels' score bias)"
-    scores = _mask_shape(q, layout, k)
+def _ref_shapes(q, k, v, layout):
+    """(logits shape, grouped) of ``_sdpa_reference`` on these inputs (the
+    seq-major layouts as their bnsd views): the scores q.k^T broadcast
+    over the leading dims, [..., Hkv, G, Sq, Sk] when k and v carry fewer
+    heads than q on dim -3 (GQA).  Raises ValueError where the reference's
+    reshape or einsum would fail."""
+    q, k, v = (_as_bnsd(t, layout) for t in (q, k, v))
+    if q.ndim < 2 or k.ndim < 2 or v.ndim < 2:
+        raise ValueError("q, k and v need at least 2 dims")
+    if k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"q and k of head dims {q.shape[-1]} and "
+                         f"{k.shape[-1]}")
+    if v.shape[-2] != k.shape[-2]:
+        raise ValueError(f"k and v of lengths {k.shape[-2]} and "
+                         f"{v.shape[-2]}")
+    nh = q.shape[-3] if q.ndim >= 3 else 1
+    nkv = k.shape[-3] if k.ndim >= 3 else 1
+    sq, sk = q.shape[-2], k.shape[-2]
+    try:
+        if q.ndim >= 3 and nh != nkv:
+            if nkv == 0 or nh % nkv != 0:
+                raise ValueError(f"{nh} query heads over {nkv} KV heads "
+                                 f"(GQA needs a divisor)")
+            kv_lead = [t.shape[:-3] for t in (k, v) if t.ndim > 3]
+            if v.ndim >= 3 and v.shape[-3] != nkv:
+                raise ValueError(f"k and v of {nkv} and {v.shape[-3]} heads")
+            lead = torch.broadcast_shapes(q.shape[:-3], *kv_lead)
+            return tuple(lead) + (nkv, nh // nkv, sq, sk), True
+        lead = torch.broadcast_shapes(q.shape[:-2], k.shape[:-2],
+                                      v.shape[:-2])
+    except RuntimeError as e:
+        raise ValueError(f"leading dims that do not broadcast ({e})")
+    return tuple(lead) + (sq, sk), False
+
+
+def kernel_reason(q, k, mask=None, layout="bnsd", is_causal=False, v=None):
+    """Why the card's ``sdpa`` cannot take these inputs, or None when it
+    can.  It takes whatever ``_sdpa_reference`` takes (any lengths, causal
+    Sq > Sk, fp16, a mask that requires grad, any head dim, GQA in every
+    layout, 2-D q, broadcast leading dims), except what is named here: a
+    head dim above 256 (no tile takes it), a dtype other than fp32, bf16
+    and fp16, q, k and v of other dtypes (the reference would promote),
+    and seq-major q and k/v of other batch sizes.  ``v`` None: k's
+    shape.  ``is_causal`` decides nothing: every causal band is taken."""
+    v = k if v is None else v
+    if layout not in ("bnsd", "bsnd", "sbnd"):
+        return f"layout {layout!r}"
+    if layout in ("bsnd", "sbnd") and not q.ndim == k.ndim == v.ndim == 4:
+        return f"layout {layout!r} needs 4-D q/k/v, got {q.ndim}-D"
+    if q.dtype not in _DTYPES:
+        return f"{q.dtype} q (the kernels take fp32, bf16 and fp16)"
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        return f"q/k/v of other dtypes ({q.dtype}/{k.dtype}/{v.dtype})"
+    d = max(q.shape[-1], v.shape[-1])
+    if d > _MAX_HEAD_DIM:
+        return f"head_dim {d} (above {_MAX_HEAD_DIM}: no tile takes it)"
+    b_axis = 1 if layout == "sbnd" else 0
+    if layout != "bnsd" and len({t.shape[b_axis] for t in (q, k, v)}) > 1:
+        return "seq-major q and k/v of other batch sizes"
+    try:
+        scores = _ref_shapes(q, k, v, layout)[0]
+    except ValueError as e:
+        return str(e)
+    if mask is None:
+        return None
     try:
         fits = torch.broadcast_shapes(mask.shape, scores) == scores
     except RuntimeError:
         fits = False
     if not fits:
         return (f"a mask of shape {tuple(mask.shape)} that does not "
-                f"broadcast to the scores {scores}")
+                f"broadcast to the scores {tuple(scores)}")
     return None
 
 
-def mask_bias(mask, q, layout="bnsd", k=None):
-    """The kernels' score bias for an attention ``mask`` (None for none):
-    fp32, a float mask as it is and a boolean one as 0 where True and -1e9
-    where False (the reference's ``jnp.where(mask, logits, -1e9)``), as an
-    ``expand`` view of the [B, H, Sq, Sk] scores of q's heads view against
-    ``k``'s keys (None: as many as q's queries).  The mask broadcasts
-    against the scores in the reference's terms (:func:`_mask_shape`)."""
-    if mask is None:
-        return None
+def _bias_of(mask, q, layout="bnsd", k=None, causal=False):
+    """The kernels' fp32 score bias of an attention ``mask`` at its own
+    broadcast shape: a float mask as it is (its graph kept, so that a
+    mask that requires grad gets one), a boolean one as 0 where True and
+    -1e9 where False (the reference's ``jnp.where(mask, logits, -1e9)``).
+    4-D q (and the seq-major layouts): the mask padded to 4-D, which
+    broadcasts to the heads' [B, H, Sq, Sk]; other bnsd ranks: the
+    [B*H, 1, Sq, Sk] view of the reference's [..., Sq, Sk] scores; ``k``
+    None: k of q's length.  ``causal`` with Sq > Sk: a boolean mask's
+    bias is 0 in the rows that see no key (expanded over Sq), where the
+    reference's ``where`` keeps the -1e9 fill at every key.  The kernels
+    read the bias's ``expand`` to :func:`_heads_shape`."""
     if mask.dtype == torch.bool:
         bias = torch.zeros(mask.shape, device=mask.device).masked_fill(
-            ~mask, -1e9)
+            ~mask, _FILL)
     else:
         bias = mask.float()
-    return bias.expand(_mask_shape(q, layout, k)).reshape(
-        _heads_shape(q, layout, k))
+    if q.ndim == 4:
+        bias = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
+    else:
+        bias = bias.expand(_mask_shape(q, layout, k)).reshape(
+            _heads_shape(q, layout, k))
+    sq, sk = _heads_shape(q, layout, k)[-2:]
+    if mask.dtype == torch.bool and causal and sq > sk:
+        rows = torch.arange(sq, device=bias.device)[:, None]
+        bias = torch.where(rows < sq - sk, 0.0, bias)
+    return bias
 
 
 def unsupported_reason(q, k, mask=None, dropout_p=0.0, layout="bnsd"):
@@ -265,16 +350,44 @@ def _grouped(q, k, v, layout):
     return qh.reshape(b, hkv, h // hkv, s, d), kh, vh
 
 
-def _scores(qg, kh, scale, causal, window, bias=None):
+def _fill_logits(bias, dtype, shape, device):
+    """The logits of the rows that see no key (the first Sq - Sk of a
+    causal band with Sq > Sk), ``shape`` [..., Sq - Sk, Sk]: the
+    reference's fill, -1e9 in q's ``dtype``, plus the bias there in q's
+    dtype (a boolean mask's is 0 there: :func:`_bias_of`), rounded to
+    q's dtype; then less the fill, as the
+    kernels take them (the softmax does not move, and the row's fp32 lse
+    keeps the log of its sum, which -1e9's spacing of 64 would round
+    away).  fp16 has no finite -1e9 (the reference's fill is -inf and its
+    row NaN): its fill stays fp32, plus the bias in fp16."""
+    if bias is None:
+        return torch.zeros(shape, device=device)
+    fill = torch.tensor(_FILL, device=device)
+    if dtype != torch.float16:
+        fill = fill.to(dtype).float()
+    b = bias[..., :shape[-2], :].float().to(dtype).float()
+    if dtype == torch.float16:
+        return ((fill + b) - fill).expand(shape)
+    return ((fill + b).to(dtype).float() - fill).expand(shape)
+
+
+def _scores(qg, kh, scale, causal, window, bias=None, dtype=torch.float32):
     """fp32 scores of the kernels: products of the inputs' values summed
-    in fp32, times ``scale``, plus ``bias`` (:func:`mask_bias`'s [B, H,
-    Sq, Sk] view), -1e30 where masked."""
+    in fp32, times ``scale``, plus ``bias`` (a [B, H, Sq, Sk] view of
+    :func:`_bias_of`'s), -1e30 where masked; the rows that see no key take
+    :func:`_fill_logits` of q's ``dtype``."""
     s = torch.einsum("bngqd,bnkd->bngqk", qg.float(), kh.float()) * scale
     if bias is not None:
-        s = s + bias.reshape(s.shape)
+        bias = bias.reshape(s.shape)
+        s = s + bias
     if causal:
-        keep = _visible(s.shape[-2], causal, window, s.device, s.shape[-1])
+        sq, sk = s.shape[-2], s.shape[-1]
+        keep = _visible(sq, causal, window, s.device, sk)
         s = torch.where(keep, s, _NEG_INF)
+        if sq > sk:
+            fill = _fill_logits(bias, dtype, s.shape[:-2] + (sq - sk, sk),
+                                s.device)
+            s = torch.cat((fill, s[..., sq - sk:, :]), -2)
     return s
 
 
@@ -290,11 +403,12 @@ def flash_fwd_plain(q, k, v, causal=False, scale=None, window=None,
     ``lse`` (B*H, S) fp32, row ``b * H + h`` (for bnsd, the flattened
     leading index).  P is cast to V's dtype before P.V and
     ``l = max(l, 1e-30)``, as in the kernel.  ``bias``: the score bias
-    (:func:`mask_bias`), added to the scaled scores in fp32."""
+    (an fp32 [B, H, Sq, Sk] view of :func:`_bias_of`'s), added to the
+    scaled scores in fp32."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qg, kh, vh = _grouped(q, k, v, layout)
-    s = _scores(qg, kh, scale, causal, window, bias)
+    s = _scores(qg, kh, scale, causal, window, bias, q.dtype)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(-1).clamp_min(1e-30)
@@ -306,7 +420,7 @@ def flash_fwd_plain(q, k, v, causal=False, scale=None, window=None,
 
 
 def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
-                    window=None, layout="bnsd", bias=None):
+                    window=None, layout="bnsd", bias=None, dbias_shape=None):
     """The backward kernels' plain version: dQ, dK, dV recomputed from the
     forward's ``lse`` and ``delta = rowsum(dO * O)`` as the reference's
     ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` compute them: ``p = exp(s -
@@ -322,7 +436,13 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
     order would not reproduce, is left.  The fp32 kernels take delta
     summed in fp64 too, and dp in fp64 for a pair that holds at least
     1/16 of its query's probability.  ``bias``: the forward's score
-    bias, added again where p is recomputed from lse."""
+    bias, added again where p is recomputed from lse.
+
+    The rows that see no key (causal, Sq > Sk) have p from their fill:
+    they add P^T.dO to dV and nothing to dQ or dK.  ``dbias_shape`` (a
+    shape that broadcasts to the heads' [B, H, Sq, Sk]): also return the
+    bias's gradient d(logit) = p (dp - delta) (unscaled, every position),
+    fp32, summed to that shape, as a fourth output."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qg, kh, vh = _grouped(q, k, v, layout)
@@ -331,17 +451,26 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal=False, scale=None,
     og = _heads(out, layout).reshape(qg.shape).double()
     delta = (dog.double() * og).sum(-1)
     lse = lse.reshape(b, hkv, g, s_len)
-    p = torch.exp(_scores(qg, kh, scale, causal, window, bias)
+    p = torch.exp(_scores(qg, kh, scale, causal, window, bias, q.dtype)
                   - lse[..., None])
     dp = torch.einsum("bngqd,bnkd->bngqk", dog.double(), vh.double())
-    ds = p * (dp - delta[..., None]).float() * scale
+    dlogit = p * (dp - delta[..., None]).float()
+    ds = dlogit * scale
+    nokey = s_len - kh.shape[-2] if causal else 0
+    if nokey > 0:
+        ds = torch.cat((torch.zeros_like(ds[..., :nokey, :]),
+                        ds[..., nokey:, :]), -2)
     dq = torch.einsum("bngqk,bnkd->bngqd", ds.to(k.dtype).float(), kh.float())
     dv = torch.einsum("bngqk,bngqd->bnkd", p, dog)
     dk = torch.einsum("bngqk,bngqd->bnkd", ds.to(q.dtype).float(), qg.float())
     dq = dq.to(q.dtype).reshape(b, hkv * g, s_len, d)
-    return (_from_heads(dq, layout, q.shape),
-            _from_heads(dk.to(k.dtype), layout, k.shape),
-            _from_heads(dv.to(v.dtype), layout, v.shape))
+    grads = (_from_heads(dq, layout, q.shape),
+             _from_heads(dk.to(k.dtype), layout, k.shape),
+             _from_heads(dv.to(v.dtype), layout, v.shape))
+    if dbias_shape is None:
+        return grads
+    dl = dlogit.reshape(b, hkv * g, s_len, kh.shape[-2])
+    return grads + (dl.sum_to_size(dbias_shape).contiguous(),)
 
 
 # ---------------------------------------------------------------------------
@@ -364,12 +493,12 @@ def _check(q, k, v, bias, layout):
     """What the kernels ask beyond :func:`attention`'s shape checks,
     which their callers have made: one float dtype, one device, k and v
     of one shape, one head dim that their tiles take, and a ``bias`` that
-    is None or, as :func:`mask_bias` makes it, an fp32 view of the heads'
-    [B, H, Sq, Sk] scores on q's device (read through its strides: a
+    is None or an fp32 view of the heads' [B, H, Sq, Sk] scores (an
+    ``expand`` of :func:`_bias_of`'s) on q's device (read through its strides: a
     broadcast dimension keeps stride 0 and nothing is copied along it)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash kernels take fp32 or bf16 q/k/v of one "
-                         f"dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
+        raise ValueError(f"flash kernels take fp32, bf16 or fp16 q/k/v of "
+                         f"one dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash kernels: q, k and v must share a device")
     if k.shape != v.shape or k.shape[-1] != q.shape[-1]:
@@ -385,28 +514,38 @@ def _check(q, k, v, bias, layout):
             or tuple(bias.shape) != scores):
         raise ValueError(f"flash kernels take an fp32 bias of the scores' "
                          f"shape {scores} on q's device "
-                         f"(mask_bias), not {bias.dtype} "
+                         f"(_bias_of), not {bias.dtype} "
                          f"{tuple(bias.shape)} on {bias.device}")
 
 
 def _launch(name, tensors, strided, dims, scale, causal, window, dtype,
-            bias=None):
+            bias=None, dbias=None):
     """Launch ``name`` over raw ``tensors`` (pointers in argument order),
-    with the strides of the ``strided`` [B, S, H, D] views, and the score
-    ``bias`` (None, or an fp32 [B, H, Sq, Sk] view) with its strides.
-    ``dims``: (B, H, Hkv, Sq, Sk, D)."""
+    with the strides of the ``strided`` [B, S, H, D] views, the score
+    ``bias`` (None, or an fp32 [B, H, Sq, Sk] view) with its strides and,
+    for the dQ kernel, ``dbias`` (None, or the zeroed fp32 gradient
+    of the bias as a [B, H, Sq, Sk] view, stride 0 where it sums).
+    ``dims``: (B, H, Hkv, Sq, Sk, D).  A dQ launch that writes dbias
+    counts as ``flash_bwd_dq_dbias``."""
     strides = [st for t in strided for st in t.stride()[:3]]
     arr = (ctypes.c_longlong * len(strides))(*strides)
     barr = (ctypes.c_longlong * 4)(*(bias.stride() if bias is not None
                                      else (0, 0, 0, 0)))
+    extra = ()
+    if name == "flash_bwd_dq":
+        darr = (ctypes.c_longlong * 4)(*(dbias.stride() if dbias is not None
+                                         else (0, 0, 0, 0)))
+        extra = (None if dbias is None else dbias.data_ptr(),
+                 ctypes.addressof(darr))
     dev = tensors[0].device
     code = _build.kernel(name)(
         *[t.data_ptr() for t in tensors], ctypes.addressof(arr),
         None if bias is None else bias.data_ptr(), ctypes.addressof(barr),
         *dims, float(scale), int(causal), int(window or 0), _DTYPES[dtype],
+        *extra,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(name, code)
-    _build.LAUNCHES[name] += 1
+    _build.LAUNCHES[name + ("_dbias" if dbias is not None else "")] += 1
 
 
 def _dims(qc, kc):
@@ -433,7 +572,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, window, layout, bias=None):
 def flash_delta(out, do, layout="bnsd"):
     """``delta = rowsum(dO * O)``, row ``b * H + h``: the backward's
     per-row input, summed by PyTorch as the reference sums it outside
-    Pallas.  For bf16 ``out`` (B*H, S) fp32.  For fp32 ``out`` it is
+    Pallas.  For bf16 and fp16 ``out`` (B*H, S) fp32.  For fp32 ``out`` it is
     summed in fp64, as :func:`flash_bwd_plain` forms it, and handed over
     as (B*H, S, 2) fp32, hi and lo with hi + lo that sum: where a query's
     probability sits on few keys, dp - delta cancels and the fp32 kernels
@@ -468,18 +607,27 @@ def _bwd_operands(q, k, v, lse, delta, do, layout, bias):
 
 
 def flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, causal, scale, window,
-                      layout, bias=None):
+                      layout, bias=None, dbias=None):
     """The dQ kernel: ``dq`` in q's shape and dtype.  CUDA tensors only.
     The kernel reads ``delta``; ``out`` is handed over because the C entry
-    point takes it, and no body reads it."""
+    point takes it, and no body reads it.  ``dbias``: None, or a zeroed
+    fp32 tensor of a shape that broadcasts to the heads' [B, H, Sq, Sk]
+    scores, into which the kernel adds the bias's gradient (it needs
+    ``bias``)."""
     (qc, kc, vc, dc), lse, delta, dims = _bwd_operands(q, k, v, lse, delta,
                                                        do, layout, bias)
     oc = _operand(out.to(q.dtype), layout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dqc = _canon(dq, layout)
+    if dbias is not None:
+        if (bias is None or dbias.dtype != torch.float32
+                or dbias.device != q.device):
+            raise ValueError("flash backward: dbias needs a bias, and is "
+                             "fp32 on q's device")
+        dbias = dbias.expand(_heads_shape(q, layout, k))
     _launch("flash_bwd_dq", (qc, kc, vc, oc, dc, lse, delta, dqc),
             (qc, kc, vc, oc, dc, dqc), dims, scale, causal, window, q.dtype,
-            bias)
+            bias, dbias)
     return dq
 
 
@@ -517,27 +665,35 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None, layout="bnsd",
 
 
 def flash_bwd(q, k, v, out, lse, do, causal=False, scale=None, window=None,
-              layout="bnsd", bias=None):
+              layout="bnsd", bias=None, dbias_shape=None):
     """``(dq, dk, dv)``: the plain version for CPU tensors, the kernels
-    for CUDA tensors."""
+    for CUDA tensors; with ``dbias_shape`` also the bias's gradient, fp32,
+    summed to that shape (which broadcasts to the heads' scores)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if _device_of(q) == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, causal, scale, window,
-                               layout, bias)
+                               layout, bias, dbias_shape)
     delta = flash_delta(out, do, layout)
     opts = (causal, scale, window, layout, bias)
-    return (flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, *opts),
-            *flash_bwd_dkv_cuda(q, k, v, lse, delta, do, *opts))
+    dbias = (None if dbias_shape is None else
+             torch.zeros(dbias_shape, dtype=torch.float32, device=q.device))
+    grads = (flash_bwd_dq_cuda(q, k, v, out, lse, delta, do, *opts, dbias),
+             *flash_bwd_dkv_cuda(q, k, v, lse, delta, do, *opts))
+    return grads if dbias is None else grads + (dbias,)
 
 
 class _Flash(torch.autograd.Function):
     """Forward kernel; backward from the saved ``(q, k, v, out, lse)`` and
-    the score bias, which gets no gradient."""
+    the score bias.  ``bias`` is any fp32 tensor that broadcasts to the
+    heads' [B, H, Sq, Sk] scores (the kernels read its expand view); when
+    it needs a gradient, the dQ kernel sums one at its own shape."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, layout, bias):
-        out, lse = flash_fwd(q, k, v, causal, scale, window, layout, bias)
+        view = None if bias is None else bias.expand(
+            _heads_shape(q, layout, k))
+        out, lse = flash_fwd(q, k, v, causal, scale, window, layout, view)
         ctx.save_for_backward(q, k, v, out, lse, bias)
         ctx.opts = (causal, scale, window, layout)
         return out
@@ -545,32 +701,99 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, bias = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, *ctx.opts, bias)
-        return dq, dk, dv, None, None, None, None, None
+        layout = ctx.opts[3]
+        view = None if bias is None else bias.expand(
+            _heads_shape(q, layout, k))
+        want = bias is not None and ctx.needs_input_grad[7]
+        grads = flash_bwd(q, k, v, out, lse, do, *ctx.opts, view,
+                          bias.shape if want else None)
+        dbias = grads[3] if want else None
+        return (*grads[:3], None, None, None, None, dbias)
+
+
+def _padded_head_dim(d):
+    """The head dim the tiles take: a multiple of 8, at least 16."""
+    return max(16, -(-d // 8) * 8)
 
 
 def attention(q, k, v, causal=False, scale=None, layout="bnsd", window=None,
               bias=None):
     """Flash attention at any lengths of q and k, with an optional score
-    ``bias`` (:func:`mask_bias`): what ``sdpa`` runs on the card, where the
-    kernels take every length (ragged last tiles are masked).  The
-    reference's layout checks raise ValueError, and so does causal
-    attention with more queries than keys; neither the one-length rule
-    nor the block gate of :func:`flash_attention` is applied."""
+    ``bias`` (:func:`_bias_of`, or any fp32 tensor that broadcasts to the
+    heads' [B, H, Sq, Sk]; if it requires grad it gets one): what ``sdpa``
+    runs on the card, where the kernels take every length (ragged last
+    tiles are masked).  The rows that see no key (causal, Sq > Sk) add
+    the bias to their fill.  Head dims the tiles do not take, and a v head dim other than
+    q's, are zero-padded (a copy of q, k and v) with the scale of q's real
+    head dim, and the output sliced back; above 256 the kernels raise
+    (the plain versions take any).  The reference's layout checks raise
+    ValueError; neither the one-length rule nor the block gate of
+    :func:`flash_attention` is applied."""
+    d, dv = q.shape[-1], v.shape[-1]
     if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+        scale = 1.0 / math.sqrt(d)
     if window is not None and not causal:
         raise ValueError("flash_attention: window requires causal=True")
-    reason = (_layout_reason(q, k, layout)
-              or _causal_reason(q, k, causal, layout))
+    reason = _layout_reason(q, k, layout, bnsd_gqa=True)
     if reason is not None:
         raise ValueError(f"flash_attention: {reason}")
-    if bias is not None and bias.requires_grad:
-        raise NotImplementedError("flash attention: no gradient flows to "
-                                  "the score bias")
+    dp = _padded_head_dim(max(d, dv))
+    if (dp != d or dp != dv) and dp <= _MAX_HEAD_DIM:
+        q, k, v = (F.pad(t, (0, dp - t.shape[-1])) for t in (q, k, v))
     win = None if window is None else int(window)
-    return _Flash.apply(q, k, v, bool(causal), float(scale), win, layout,
-                        bias)
+    out = _Flash.apply(q, k, v, bool(causal), float(scale), win, layout,
+                       bias)
+    return out if dp == dv else out[..., :dv]
+
+
+def _as_4d(x):
+    """A bnsd tensor of any rank as a 4-D [N, H, S, D] view (2-D [S, D]
+    as [1, 1, S, D], 3-D [H, S, D] as [1, H, S, D]; leading dims beyond
+    two flattened, a copy where their strides do not merge)."""
+    if x.ndim == 2:
+        return x[None, None]
+    if x.ndim == 3:
+        return x[None]
+    return x.reshape(-1, *x.shape[-3:])
+
+
+def attend(q, k, v, mask=None, scale=None, is_causal=False, layout="bnsd",
+           window=None):
+    """The card's ``sdpa`` on the reference's inputs (:func:`kernel_reason`
+    None): bnsd q, k and v of any rank (2-D q, broadcast leading dims,
+    GQA with k and v of fewer heads on dim -3) as 4-D views, a ``mask``
+    in the reference's terms (it broadcasts to ``_sdpa_reference``'s
+    scores, [..., Hkv, G, Sq, Sk] under GQA) as the heads' score bias,
+    then :func:`attention`; the output in the reference's shape."""
+    shape, grouped = _ref_shapes(q, k, v, layout)
+    if layout == "bnsd":
+        if grouped:
+            k, v = (t.reshape((1,) * (3 - t.ndim) + tuple(t.shape))
+                    for t in (k, v))
+            lead = shape[:-4]
+            q = q.expand(*lead, *q.shape[-3:])
+            k, v = (t.expand(*lead, *t.shape[-3:]) for t in (k, v))
+        else:
+            lead = shape[:-2]
+            q, k, v = (t.expand(*lead, *t.shape[-2:]) for t in (q, k, v))
+        out_shape = q.shape[:-1] + (v.shape[-1],)
+        q, k, v = (_as_4d(t) for t in (q, k, v))
+    bias = None
+    if mask is not None:
+        m = mask.reshape((1,) * (len(shape) - mask.ndim) + tuple(mask.shape))
+        if grouped:                      # (Hkv, G) -> the query heads
+            hkv, g = shape[-4], shape[-3]
+            if m.shape[-4] == m.shape[-3] == 1:
+                m = m.reshape(*m.shape[:-4], 1, *m.shape[-2:])
+            else:
+                m = m.expand(*m.shape[:-4], hkv, g, *m.shape[-2:]).reshape(
+                    *m.shape[:-4], hkv * g, *m.shape[-2:])
+        if m.ndim > 4:
+            lead = shape[:m.ndim - 3]
+            m = m.expand(*lead, *m.shape[-3:]).reshape(-1, *m.shape[-3:])
+        bias = _bias_of(m, q, layout, k, is_causal)
+    out = attention(q, k, v, is_causal, scale, layout, window, bias)
+    return out.reshape(out_shape) if layout == "bnsd" else out
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=None,

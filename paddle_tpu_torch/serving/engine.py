@@ -333,7 +333,8 @@ class ServingEngine:
         elif faults is not None:
             self._clock = faults.now
         else:
-            self._clock = time.monotonic
+            # sanctioned fallback: no injected clock and no fault plan
+            self._clock = time.monotonic  # graftlint: allow=determinism
         n_pages = num_pages or (1 + max_slots * self.max_pages)
         self.pool = KVPool(cfg.num_layers, cfg.num_heads, self.head_dim,
                            n_pages, page_size, dtype=model.dtype,

@@ -46,7 +46,7 @@ class FlightRecorder:
         self.capacity = int(capacity)
         # sanctioned fallback binding: attach_flight always injects the
         # engine clock; a standalone recorder defaults to real time
-        self._clock = clock or time.monotonic
+        self._clock = clock or time.monotonic  # graftlint: allow=determinism
         self._t0 = self._clock()
         self._records = collections.deque(maxlen=self.capacity)
         self.recorded = 0

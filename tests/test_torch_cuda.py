@@ -538,10 +538,10 @@ def test_flash_kernels_match_plain_on_card(dev, case):
 @pytest.mark.cuda
 def test_sdpa_on_card_launches_flash_or_raises(dev):
     """sdpa on CUDA tensors takes the flash kernels at any length, with q
-    and k of other lengths and with a mask (the score bias), and raises
-    where the kernels cannot go (no plain fallback): causal attention with
-    more queries than keys, a head dim outside the tiles, a mask that
-    requires grad."""
+    and k of other lengths, with a mask (the score bias, one that requires
+    grad too), causal attention with more queries than keys, fp16, and
+    head dims the tiles do not take (padded); it raises where the kernels
+    cannot go (no plain fallback): a head dim above 256, fp64."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -554,17 +554,21 @@ def test_sdpa_on_card_launches_flash_or_raises(dev):
                                torch.bfloat16)
     sdpa(q7, k7, v7)
     assert KERNELS["flash_fwd"] == 3
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        sdpa(q[..., :12], k[..., :12], v[..., :12], layout="bsnd")
+    sdpa(q[..., :12], k[..., :12], v[..., :12], layout="bsnd")
     sdpa(q7, k7[:, :, :64], v7[:, :, :64])
     sdpa(q7[:, :, :1], k7, v7, mask=torch.zeros(2, 1, 1, 197, device=dev))
-    assert KERNELS["flash_fwd"] == 5
-    with pytest.raises(NotImplementedError, match="causal"):
-        sdpa(q7, k7[:, :, :64], v7[:, :, :64], is_causal=True)
-    with pytest.raises(NotImplementedError, match="grad"):
-        sdpa(q7, k7, v7, mask=torch.zeros(2, 1, 1, 197, device=dev,
-                                          requires_grad=True))
-    assert KERNELS["flash_fwd"] == 5
+    sdpa(q7, k7[:, :, :64], v7[:, :, :64], is_causal=True)
+    sdpa(q7.half(), k7.half(), v7.half())
+    mask = torch.zeros(2, 1, 1, 197, device=dev, requires_grad=True)
+    qg = q7.detach().requires_grad_()
+    sdpa(qg, k7, v7, mask=mask).float().sum().backward()
+    assert KERNELS["flash_fwd"] == 9 and KERNELS["flash_bwd_dq_dbias"] == 1
+    assert mask.grad is not None and mask.grad.shape == mask.shape
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        sdpa(*(torch.zeros(1, 2, 16, 264, device=dev) for _ in range(3)))
+    with pytest.raises(NotImplementedError, match="float64"):
+        sdpa(q7.double(), k7.double(), v7.double())
+    assert KERNELS["flash_fwd"] == 9
 
 
 # the biased cases: layout, B, H, Hkv, S, D, causal, mask kind ("pad": a
@@ -586,6 +590,16 @@ BIAS_CASES = [
 ]
 
 
+def _heads_bias(mask, q, layout, k=None, causal=False):
+    """The kernels' view of ``mask``'s score bias (None for none)."""
+    from paddle_tpu_torch.kernels.flash import _bias_of, _heads_shape
+
+    if mask is None:
+        return None
+    return _bias_of(mask, q, layout, k, causal).expand(
+        _heads_shape(q, layout, k))
+
+
 def _bias(dev, g, kind, b, h, s):
     if kind == "pad":
         n = torch.randint(s // 2, s + 1, (b, 1), device=dev, generator=g)
@@ -605,17 +619,15 @@ def _bias(dev, g, kind, b, h, s):
                               f"{c[7]}{'-causal' if c[6] else ''}"
                               for c in BIAS_CASES])
 def test_flash_kernels_with_bias_match_plain_on_card(dev, case):
-    """The forward, dQ and dK/dV kernels with a score bias (mask_bias of
-    the case's mask, read in place through its strides) against their
-    plain versions on the same inputs and bias, fp32 and bf16, within
-    FLASH_TOL; a second launch is bit-identical."""
-    from paddle_tpu_torch.kernels.flash import mask_bias
-
+    """The forward, dQ and dK/dV kernels with a score bias (the case's
+    mask as the kernels read it, in place through its strides) against
+    their plain versions on the same inputs and bias, fp32 and bf16,
+    within FLASH_TOL; a second launch is bit-identical."""
     layout, b, h, hkv, s, d, causal, kind = case
     g = torch.Generator(device=dev).manual_seed(s + d)
     for dtype, tol in FLASH_TOL.items():
         q, k, v = _flash_inputs(dev, g, layout, b, h, hkv, s, d, dtype)
-        bias = mask_bias(_bias(dev, g, kind, b, h, s), q, layout)
+        bias = _heads_bias(_bias(dev, g, kind, b, h, s), q, layout)
         out, lse = flash_fwd(q, k, v, causal, None, None, layout, bias)
         ref, rlse = flash_fwd_plain(q, k, v, causal, None, None, layout,
                                     bias)
@@ -687,8 +699,6 @@ def test_flash_kernels_cross_lengths_match_plain_on_card(dev, case):
     bias, against their plain versions on the same inputs, fp32 and bf16,
     within FLASH_TOL; nothing is NaN where whole tiles score -inf; a
     second launch is bit-identical."""
-    from paddle_tpu_torch.kernels.flash import mask_bias
-
     layout, b, h, hkv, sq, sk, d, causal, window, kind = case
     g = torch.Generator(device=dev).manual_seed(sq + sk + d)
 
@@ -700,8 +710,8 @@ def test_flash_kernels_cross_lengths_match_plain_on_card(dev, case):
         q = torch.randn(shape(h, sq), device=dev, generator=g).to(dtype)
         k, v = (torch.randn(shape(hkv, sk), device=dev, generator=g).to(dtype)
                 for _ in range(2))
-        bias = mask_bias(_cross_mask(dev, g, kind, b, h, sq, sk), q, layout,
-                         k)
+        bias = _heads_bias(_cross_mask(dev, g, kind, b, h, sq, sk), q, layout,
+                           k, causal)
         out, lse = flash_fwd(q, k, v, causal, None, window, layout, bias)
         ref, rlse = flash_fwd_plain(q, k, v, causal, None, window, layout,
                                     bias)

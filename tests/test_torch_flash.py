@@ -534,9 +534,18 @@ def _ref_masked_lse(q, k, causal, mask):
     return np.asarray(jax.nn.logsumexp(logits, axis=-1)).reshape(b * h, s)
 
 
+def _heads_bias(mask, q, layout="bnsd", k=None):
+    """The kernels' view of ``mask``'s score bias (None for none): the
+    ``expand`` of ``_bias_of``'s to the heads' [B, H, Sq, Sk]."""
+    if mask is None:
+        return None
+    return tflash._bias_of(mask, q, layout, k).expand(
+        tflash._heads_shape(q, layout, k))
+
+
 @pytest.mark.parametrize("case", BIAS_CASES, ids=[c[0] for c in BIAS_CASES])
 def test_plain_with_bias_matches_reference(case):
-    """flash_fwd_plain with the mask's bias (mask_bias) against
+    """flash_fwd_plain with the mask's bias (_bias_of) against
     _sdpa_reference with the mask, and lse against the masked scores'
     logsumexp; flash_bwd_plain and autograd through ``attention`` against
     jax.vjp of the reference.  fp32, 1e-5: summation order only (a boolean
@@ -553,7 +562,7 @@ def test_plain_with_bias_matches_reference(case):
 
     tq, tk, tv = (_t(a, layout) for a in (q, k, v))
     tmask = None if mask is None else torch.from_numpy(mask)
-    bias = tflash.mask_bias(tmask, tq, layout)
+    bias = _heads_bias(tmask, tq, layout)
     out, lse = tflash.flash_fwd_plain(tq, tk, tv, causal, None, None, layout,
                                       bias)
     np.testing.assert_allclose(_from_layout(out.numpy(), layout),
@@ -574,38 +583,40 @@ def test_plain_with_bias_matches_reference(case):
 
 
 def test_mask_bias_is_a_view_and_kernel_reason_decides():
-    """mask_bias reads a float mask in place (an expand view: stride 0 on
+    """_bias_of reads a float mask in place (an expand view: stride 0 on
     every broadcast dimension, the mask's own storage), turns a boolean
     one into 0 / -1e9 at its own shape, and puts a 3-D bnsd q's scores at
     [B*H, 1, S, S]; kernel_reason takes any length, q and k of other
-    lengths and a mask that broadcasts, and refuses causal attention with
-    more queries than keys, a mask that requires grad or does not
-    broadcast, and head dims outside the tiles."""
+    lengths, causal attention with more queries than keys, a mask that
+    broadcasts (one that requires grad too) and any head dim up to 256,
+    and refuses a mask that does not broadcast and head dims above 256."""
     b, h, s, d = 2, 3, 197, 64
     q = torch.zeros(b, h, s, d)
     pad = torch.zeros(b, 1, 1, s)
-    bias = tflash.mask_bias(pad, q)
+    bias = _heads_bias(pad, q)
     assert bias.shape == (b, h, s, s) and bias.stride() == (s, 0, 0, 1)
     assert bias.data_ptr() == pad.data_ptr()
     dec = torch.rand(s, s) > 0.5
-    bias = tflash.mask_bias(dec, q)
+    bias = _heads_bias(dec, q)
     assert bias.dtype == torch.float32 and bias.stride() == (0, 0, s, 1)
     assert set(bias.unique().tolist()) == {0.0, -1e9}
     seq = q.transpose(1, 2)                            # bsnd
-    assert tflash.mask_bias(pad, seq, "bsnd").stride() == (s, 0, 0, 1)
+    assert _heads_bias(pad, seq, "bsnd").stride() == (s, 0, 0, 1)
     q3 = torch.zeros(b * h, s, d)
-    assert tflash.mask_bias(torch.zeros(s, s), q3).shape == (b * h, 1, s, s)
+    assert _heads_bias(torch.zeros(s, s), q3).shape == (b * h, 1, s, s)
 
     assert tflash.kernel_reason(q, q) is None           # S=197
     assert tflash.kernel_reason(q, q, pad) is None
     assert tflash.kernel_reason(seq, seq, pad, "bsnd") is None
     assert tflash.kernel_reason(q, torch.zeros(b, h, 64, d)) is None
-    assert "causal" in tflash.kernel_reason(q, torch.zeros(b, h, 64, d),
-                                            is_causal=True)
+    assert tflash.kernel_reason(q, torch.zeros(b, h, 64, d),
+                                is_causal=True) is None
     assert "lengths" in tflash.unsupported_reason(q, torch.zeros(b, h, 64, d))
-    assert "head_dim" in tflash.kernel_reason(torch.zeros(1, 2, 16, 12),
-                                              torch.zeros(1, 2, 16, 12))
-    assert "grad" in tflash.kernel_reason(q, q, pad.requires_grad_())
+    assert tflash.kernel_reason(torch.zeros(1, 2, 16, 12),
+                                torch.zeros(1, 2, 16, 12)) is None
+    assert "head_dim" in tflash.kernel_reason(torch.zeros(1, 2, 16, 264),
+                                              torch.zeros(1, 2, 16, 264))
+    assert tflash.kernel_reason(q, q, pad.requires_grad_()) is None
     assert "broadcast" in tflash.kernel_reason(q, q, torch.zeros(b, 5, s, s))
     assert "broadcast" in tflash.kernel_reason(
         q, q, torch.zeros(1, b, h, s, s))
@@ -618,7 +629,7 @@ def test_fwd_launch_hands_the_kernel_the_bias(monkeypatch):
     """A [B, 1, 1, S] float mask reaches the forward and backward kernels
     as its own pointer with element strides (S, 0, 0, 1), at S=197; a
     boolean [S, S] one as a 0 / -1e9 fp32 tensor with (0, 0, S, 1); a
-    bias that is not mask_bias's fp32 view of the scores is refused."""
+    bias that is not an fp32 view of the scores is refused."""
     import ctypes
     import types
 
@@ -640,7 +651,7 @@ def test_fwd_launch_hands_the_kernel_the_bias(monkeypatch):
     b, h, s, d = 2, 4, 197, 64
     q, k, v = (torch.randn(b, h, s, d) for _ in range(3))
     pad = torch.zeros(b, 1, 1, s)
-    bias = tflash.mask_bias(pad, q)
+    bias = _heads_bias(pad, q)
     tflash.flash_fwd_cuda(q, k, v, False, 0.125, None, "bnsd", bias)
     tflash.flash_bwd(q, k, v, q, torch.zeros(b * h, s), q, False, 0.125,
                      None, "bnsd", bias)
@@ -650,14 +661,14 @@ def test_fwd_launch_hands_the_kernel_the_bias(monkeypatch):
                              False, 0.125, None, "bnsd", bias)
     tflash.flash_bwd_dkv_cuda(q, k, v, torch.zeros(b * h, s), delta, q,
                               False, 0.125, None, "bnsd", bias)
-    dec = tflash.mask_bias(torch.ones(s, s, dtype=torch.bool), q)
+    dec = _heads_bias(torch.ones(s, s, dtype=torch.bool), q)
     tflash.flash_fwd_cuda(q, k, v, False, 0.125, None, "bnsd", dec)
     assert [c[0] for c in calls] == ["flash_fwd", "flash_bwd_dq",
                                      "flash_bwd_dkv", "flash_fwd"]
     for _, ptr, strides in calls[:3]:
         assert ptr == pad.data_ptr() and strides == [s, 0, 0, 1]
     assert calls[3][1] == dec.data_ptr() and calls[3][2] == [0, 0, s, 1]
-    # the launchers take mask_bias's fp32 [B, H, S, S] view, not the mask
+    # the launchers take the bias's fp32 [B, H, S, S] view, not the mask
     with pytest.raises(ValueError, match="bias"):
         tflash.flash_fwd_cuda(q, k, v, False, 0.125, None, "bnsd", pad)
     with pytest.raises(ValueError, match="bias"):

@@ -141,8 +141,9 @@ def test_plain_versions_match_reference_at_other_lengths(case):
     assert all(np.isfinite(w).all() for w in want)
 
     tq, tk, tv = (_t(a, layout) for a in (q, k, v))
-    bias = tflash.mask_bias(None if mask is None else torch.from_numpy(mask),
-                            tq, layout, tk)
+    bias = None if mask is None else tflash._bias_of(
+        torch.from_numpy(mask), tq, layout, tk, causal).expand(
+            tflash._heads_shape(tq, layout, tk))
     out, lse = tflash.flash_fwd_plain(tq, tk, tv, causal, None, window,
                                       layout, bias)
     assert lse.shape == (q.shape[0] * q.shape[1], q.shape[2])
@@ -179,7 +180,7 @@ def test_sdpa_on_cpu_matches_reference_at_other_lengths(case):
 
 def test_gates_at_other_lengths_decide_as_the_reference():
     """kernel_reason takes q and k of other lengths (with a mask that
-    broadcasts to [B, H, Sq, Sk]) and refuses causal with Sq > Sk;
+    broadcasts to [B, H, Sq, Sk]), causal with Sq > Sk included;
     supported / unsupported_reason / flash_attention refuse other lengths
     as the reference's supported and flash_attention do."""
     for layout, qs, ks in (("bnsd", (2, 4, 64, 16), (2, 4, 128, 16)),
@@ -194,8 +195,8 @@ def test_gates_at_other_lengths_decide_as_the_reference():
             else torch.zeros(q.shape[:2] + k.shape[2:])
         short_k = torch.zeros(q.shape[:2] + k.shape[2:]) if layout != "bnsd" \
             else torch.zeros(k.shape[:2] + q.shape[2:])
-        assert "causal" in tflash.kernel_reason(long_q, short_k,
-                                                layout=layout, is_causal=True)
+        assert tflash.kernel_reason(long_q, short_k, layout=layout,
+                                    is_causal=True) is None
         assert tflash.kernel_reason(long_q, short_k, layout=layout) is None
         pad = torch.zeros(2, 1, 1, sk)
         assert tflash.kernel_reason(q, k, pad, layout) is None
@@ -210,9 +211,11 @@ def test_gates_at_other_lengths_decide_as_the_reference():
             with pytest.raises(ValueError, match="lengths"):
                 tflash.flash_attention(a, b, b, layout=layout)
     q, k = torch.zeros(2, 4, 1, 16), torch.zeros(2, 4, 256, 16)
-    bias = tflash.mask_bias(torch.zeros(2, 1, 1, 256), q, "bnsd", k)
+    bias = tflash._bias_of(torch.zeros(2, 1, 1, 256), q, "bnsd", k).expand(
+        tflash._heads_shape(q, "bnsd", k))
     assert bias.shape == (2, 4, 1, 256) and bias.stride()[1] == 0
-    with pytest.raises(ValueError, match="causal"):
-        tflash.attention(k, q, q, causal=True)
+    # causal Sq > Sk: the rows that see no key average V (no mask)
+    out = tflash.attention(k, q, q + torch.arange(16.0), causal=True)
+    assert torch.allclose(out[:, :, 0], torch.arange(16.0).expand(2, 4, 16))
     with pytest.raises(ValueError, match="one shape"):
         tflash.flash_fwd_cuda(q, k, k[:, :, :8], False, 0.25, None, "bnsd")
