@@ -20,21 +20,26 @@ its seconds):
      starts 0 and 300), and the multi-query verify kernel at T=5 over the
      same three page kinds; decode and verify also at the serving runs'
      own context lengths (64-576), prefill at the serving runs' own chunks
-     (128 rows at starts 0-512).  Tolerances: fp32 queries 1e-5 (kernel
-     and plain version differ only in summation order, quantized pages
-     dequantize exactly); bf16 2e-2 against the plain version computed in
-     fp32 from the same inputs (the kernel rounds probabilities to bf16
-     for the tensor cores, the plain version keeps them in fp32, and the
-     kernel rounds its output).  Each kernel is timed, by CUDA-graph
+     (128 rows at starts 0-512); each with bf16 queries, and the MHA, the
+     window, the serving-length and serving-chunk cases (and prefill's
+     C=40 at 0) also with fp16 queries over fp16, int8 and int4 pages.
+     Tolerances (``PAGED_TOL``): fp32 queries 1e-5 (kernel and plain
+     version differ only in summation order, quantized pages dequantize
+     exactly); bf16 2e-2 and fp16 5e-3 against the plain version computed
+     in fp32 from the same inputs (the kernel rounds probabilities to q's
+     type for the tensor cores, the plain version keeps them in fp32, and
+     the kernel rounds its output).  Each kernel is timed, by CUDA-graph
      replay with the eager time beside, at the 2048-token lengths (the
-     kernels line), and also in the GQA case and at the serving lengths
-     and chunks (logged);
+     kernels line, bf16 and fp16 rows: ``paged_attention_fp16`` ...),
+     and also in the GQA case and at the serving lengths and chunks
+     (logged);
    - ``w8a8_gemm`` at GPT-1.3B's four projection shapes, M=8 (decode) and
-     M=128 (prefill), and a ragged M=40, and at the training flagship's
-     four projections at M=12288 with bf16 activations (run (d) of phase
-     6, timed beside ``torch._int_mm``, summed over a layer with its
-     bound): the quantized activations, their scales and the output equal
-     the plain version bit for bit.  Then the profile of its quantize and
+     M=128 (prefill), and a ragged M=40, with fp32, bf16 and fp16
+     activations, and at the training flagship's four projections at
+     M=12288 with bf16 (run (d) of phase 6) and fp16 activations (timed
+     beside ``torch._int_mm``, plus the rescale for fp16, summed over a
+     layer with its bound): the quantized activations, their scales and
+     the output equal the plain version bit for bit.  Then the profile of its quantize and
      GEMM kernels, and the sweep of its plan (``_gemm_sweep``: both paths
      at M = 8-256 and the crossover found, the split count at M=8, the
      wgmma tile width at M=128 and M=12288);
@@ -55,28 +60,36 @@ its seconds):
      operation at 495 TFLOP/s, and logged beside it at 67 TFLOP/s of fp32
      FMAs) and at phase 9's two bnsd cases (rows of the kernels line);
 3. serving: GPT-1.3B at full width (24 layers, hidden 2048, 16 heads) with
-   random bf16 weights from a fixed seed, 16 requests per run through the
-   paged engine (8 slots, page 32, chunk 128; prompts of 64-512 tokens,
-   half of them behind a shared 128-token prefix; 32-64 new tokens each),
-   in the engine's modes: (a) bf16 weights and pages, (b) ``int8=True``
-   (W8A8 projections, int8 pages), (c) ``int8=True, kv_bits=4``, (d)
+   random bf16 weights from a fixed seed through the paged engine (8
+   slots, page 32, chunk 128; prompts of 64-512 tokens, half of them
+   behind a shared 128-token prefix; 32-64 new tokens each), in the
+   engine's modes: (a) bf16 weights and pages, (b) ``int8=True`` (W8A8
+   projections, int8 pages), (c) ``int8=True, kv_bits=4``, (d)
    ``spec_k=4`` (the other half of the prompts repeat a short motif, so
-   that the drafter proposes), and two shorter speculative runs over
-   quantized pages, (e) ``int8=True, spec_k=4`` and (f) ``int8=True,
-   kv_bits=4, spec_k=4`` (8 requests each).  Launch counts are zeroed just
-   before each run and read just after it: exactly the run's kernel
-   variants must have launched.  (a)-(d) are then profiled over 4 more
-   requests;
-4. parity on the card, fp32, 1.3B width, 2 layers, 4 prompts, 24 greedy
-   tokens each: the engine (kernels) against the dense decoder, and the
-   speculative engine against the plain engine.  With random weights a
+   that the drafter proposes), each of 16 requests (a second admission
+   wave must hit the prefix cache), (e) ``int8=True, spec_k=4`` and (f)
+   ``int8=True, kv_bits=4, spec_k=4`` (8 requests each); then the same six
+   modes, (a16)-(f16), on the model built in fp16 from the same seed
+   (fp16 pages, or fp16 activations through W8A8 over int8 and int4
+   pages; (a16) and (c16) of 16 requests, with the prefix hit asserted,
+   the others 8).  Launch counts are zeroed just before each run and
+   read just after it: exactly the run's kernel variants must have
+   launched (the fp16 runs' under their ``_fp16`` names).  Each run logs
+   its decode steps' p10 / median / p90 / max; (a) and (c16) are then
+   profiled over 2 more requests;
+4. parity on the card, fp32 and then fp16, 1.3B width, 2 layers, 4
+   prompts, 24 greedy tokens each: the engine (kernels) against the dense
+   decoder, and (fp32) the speculative engine against the plain engine.  With random weights a
    near-tie between two logits can flip an argmax under another summation
    order, so at least 99% of the tokens must agree up to each request's
    first divergence (divergences are printed).  The W8A8 engine (int8 and
    int4 pages) is held against the dense decoder by teacher forcing
-   instead, at least 90% of the positions agreeing: quantized activations
-   turn such float-level differences into int8 rounding differences, and
-   one early divergence would end the greedy comparison;
+   instead, at least ``FORCED_GATE`` of the positions agreeing: quantized
+   activations turn such float-level differences into int8 rounding
+   differences, and one early divergence would end the greedy comparison;
+   beside it, under the same gate, the dense decoder's own greedy tokens
+   under its own teacher forcing, the rate at which another order of
+   rounding alone flips a position;
 5. cluster: the rest of the serving engine.  (1) Exact checks on phase
    4's fp32 model: the handoff round trip (``export_pages`` -> host numpy
    -> ``ingest_pages`` into other pages) byte-equal for bf16, int8 and
@@ -91,8 +104,8 @@ its seconds):
    16 slots (one per request, so that the engine and the cluster's
    prefill replica run the same chunks): (a) one engine, (g) the
    disaggregated cluster (one prefill and one decode replica on the one
-   card) and (h) (a) with ``double_buffer=True``, in the order a, h, g,
-   h, a; each with its launches asserted, its
+   card) and (h) (a) with ``double_buffer=True``, in the order a, h, g;
+   each with its launches asserted, its
    replicas' decode-step and prefill-chunk ms, ``decode_sync_s``,
    handoffs and handoff bytes logged, its tokens held against (a)'s by
    the 99% agreement of phase 4 (the chunk schedules differ, so bf16 may
@@ -414,7 +427,8 @@ its seconds):
 
 Before the last line it prints the card's name and power limit and one
 JSON object ``{"kernels": [...]}`` with each kernel variant's launches on
-the serving or training run that first reaches it (and, under
+the serving or training run that first reaches it (the paged kernels' and
+``w8a8_gemm``'s fp16 rows, ``..._fp16``, on phase 3's fp16 runs; and, under
 ``launches_in``, on phase 5's runs (g) and (h)), its error against the
 plain version, its time (the paged kernels' and ``w8a8_gemm``'s by
 CUDA-graph replay, which takes the host's enqueue cost out of calls that
@@ -425,7 +439,7 @@ of one PyTorch call computing the same function, which the port itself
 never calls: ``scaled_dot_product_attention`` on pre-gathered, dequantized
 dense K/V (the gather and the dequant excluded) for the attention kernels,
 ``torch._int_mm`` on the pre-quantized operands (the quantize excluded) for
-``w8a8_gemm``, ``scaled_dot_product_attention(is_causal=True)`` for the
+``w8a8_gemm`` (and the rescale to fp16 after it for its fp16 row), ``scaled_dot_product_attention(is_causal=True)`` for the
 flash forward and its backward (forward and backward less the forward,
 both by CUDA-graph replay) for the two backward kernels.  The flash
 kernels have more rows each: at BERT-base's attention in fp32 and in
@@ -513,6 +527,18 @@ def bound_ms(nbytes, ops, peak):
     over the peak rate for their type, whichever is larger."""
     b, o = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(b, o) * 1e3, "bytes" if b >= o else "operations"
+
+
+# the 16-bit queries' tolerance against the plain version computed in fp32
+# from the same inputs: the kernel rounds the probabilities to q's type for
+# the tensor cores and rounds its output; fp16 keeps three more bits
+PAGED_TOL = {"bf16": 2e-2, "fp16": 5e-3, "fp32": 1e-5}
+
+
+def _dt(dtype):
+    """The short name of a torch float dtype: "fp32", "bf16" or "fp16"."""
+    return {"float32": "fp32", "bfloat16": "bf16",
+            "float16": "fp16"}[str(dtype).replace("torch.", "")]
 
 
 def _check(label, err, tol):
@@ -694,14 +720,17 @@ def _time_attention(torch, label, case):
 
 
 def phase_paged(np, torch):
-    """Decode, prefill and verify kernels over the three page kinds."""
+    """Decode, prefill and verify kernels over the three page kinds, with
+    bf16, fp16 and fp32 queries; the fp16 variants get rows of their own
+    (``paged_attention_fp16`` ...)."""
     dev = torch.device("cuda")
-    bf16, fp32 = torch.bfloat16, torch.float32
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
     rng = np.random.RandomState(0)
     maxp = PAGED_MAXP
     results = {}
     cases = (("mha", 16, None, bf16), ("gqa4", 4, None, bf16),
-             ("window256", 16, 256, bf16), ("mha_fp32", 16, None, fp32))
+             ("window256", 16, 256, bf16), ("mha_fp32", 16, None, fp32),
+             ("mha_fp16", 16, None, fp16), ("window256_fp16", 16, 256, fp16))
 
     def gen():
         return torch.Generator(device=dev).manual_seed(
@@ -711,42 +740,50 @@ def phase_paged(np, torch):
         return torch.tensor(1 + rng.permutation(n_pages - 1).reshape(shape),
                             dtype=torch.int32, device=dev)
 
-    # decode and verify (T=5): per page kind MHA bf16 (timed), GQA (timed,
-    # logged), window, fp32 queries at the timed lengths; then MHA bf16 at
-    # the serving runs' lengths (timed, logged).  Verify's lengths leave
-    # room for the T rows in the 64-page tables.
+    # decode and verify (T=5): per page kind MHA bf16 and fp16 (timed),
+    # GQA (timed, logged), window (bf16, fp16), fp32 queries at the timed
+    # lengths; then MHA bf16 (timed, logged) and fp16 at the serving runs'
+    # lengths.  Verify's lengths leave room for the T rows in the 64-page
+    # tables.
     mq_lens = [min(n, maxp * 32 - VERIFY_T) for n in TIMED_LENGTHS]
     for kind, t, lengths in (("paged_attention", None, TIMED_LENGTHS),
                              ("paged_attention_mq", VERIFY_T, mq_lens)):
         what = "decode" if t is None else f"verify T={t}"
         for bits, suffix in KINDS.items():
             name = kind + suffix
-            worst = 0.0
+            worst = {bf16: 0.0, fp16: 0.0}
             for label, hkv, window, dtype in cases:
                 case, err = _attention_case(torch, gen, table, bits, hkv,
                                             window, dtype, lengths, t)
+                dt = _dt(dtype)
                 _check(f"{name} {label}{'' if t is None else f' T={t}'}",
-                       err, 1e-5 if dtype == fp32 else 2e-2)
-                if dtype == bf16:
-                    worst = max(worst, err)
-                shape = (f"B=8 H=16 Hkv={hkv} D=128 page 32, bf16 queries, "
+                       err, PAGED_TOL[dt])
+                if dtype in worst:
+                    worst[dtype] = max(worst[dtype], err)
+                shape = (f"B=8 H=16 Hkv={hkv} D=128 page 32, {dt} queries, "
                          f"lengths {lengths}")
-                if label == "mha":
-                    results[name] = _time_attention(
-                        torch, f"{name} timed case, {what}: {shape}", case)
+                if label in ("mha", "mha_fp16"):
+                    row = name + ("_fp16" if dtype == fp16 else "")
+                    results[row] = _time_attention(
+                        torch, f"{row} timed case, {what}: {shape}", case)
                 elif label == "gqa4":
                     _time_attention(torch, f"{name} GQA case, {what}: "
                                     f"{shape}", case)
                 del case
-            case, err = _attention_case(torch, gen, table, bits, 16, None,
-                                        bf16, SERVING_LENGTHS, t)
-            _check(f"{name} serving lengths", err, 2e-2)
-            worst = max(worst, err)
-            _time_attention(torch, f"{name} serving-length case, {what}: "
-                            f"B=8 H=Hkv=16 D=128 page 32, bf16 queries, "
-                            f"lengths {SERVING_LENGTHS}", case)
-            del case
-            results[name]["max_abs_err"] = worst
+            for dtype in (bf16, fp16):
+                dt = _dt(dtype)
+                case, err = _attention_case(torch, gen, table, bits, 16,
+                                            None, dtype, SERVING_LENGTHS, t)
+                _check(f"{name} serving lengths, {dt}", err, PAGED_TOL[dt])
+                worst[dtype] = max(worst[dtype], err)
+                if dtype == bf16:
+                    _time_attention(
+                        torch, f"{name} serving-length case, {what}: B=8 "
+                        f"H=Hkv=16 D=128 page 32, bf16 queries, lengths "
+                        f"{SERVING_LENGTHS}", case)
+                del case
+            results[name]["max_abs_err"] = worst[bf16]
+            results[name + "_fp16"]["max_abs_err"] = worst[fp16]
             torch.cuda.empty_cache()
 
     results.update(_prefill_cases(torch, gen, table))
@@ -802,14 +839,19 @@ def _time_prefill(torch, label, case):
         nbytes, 4 * vis * h * d)
 
 
-# prefill: C in {128, 40} x start in {0, 300}, GQA, window, fp32 queries;
-# timed at C=128, start 300 (the kernels line) and, logged, at the serving
-# runs' own chunks (128 rows of prompts of up to 640 tokens) and with GQA
+# prefill: C in {128, 40} x start in {0, 300}, GQA, window, fp32 queries,
+# fp16 queries at C=128 from 300 and C=40 from 0, with a window too; timed
+# at C=128, start 300 in bf16 and in fp16 (the kernels line) and, logged,
+# at the serving runs' own chunks (128 rows of prompts of up to 640 tokens;
+# fp16 checked there) and with GQA
 PREFILL_CASES = ([(f"c{cc}_s{st}", 16, None, "bf16", cc, st)
                   for cc in (128, 40) for st in (0, 300)]
                  + [("gqa4_c128_s300", 4, None, "bf16", 128, 300),
                     ("window256_c128_s300", 16, 256, "bf16", 128, 300),
-                    ("fp32_c40_s300", 16, None, "fp32", 40, 300)])
+                    ("fp32_c40_s300", 16, None, "fp32", 40, 300),
+                    ("fp16_c128_s300", 16, None, "fp16", 128, 300),
+                    ("fp16_c40_s0", 16, None, "fp16", 40, 0),
+                    ("fp16_window256_c128_s300", 16, 256, "fp16", 128, 300)])
 PREFILL_SERVING_STARTS = (0, 128, 256, 384, 512)
 
 
@@ -818,34 +860,40 @@ def _prefill_cases(torch, gen, table):
     PREFILL_CASES held against the plain version, the timed case, and the
     serving chunks and the GQA case timed and logged; returns each kind's
     entry of the kernels line."""
-    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     results = {}
     for bits, suffix in KINDS.items():
         name = "paged_prefill" + suffix
-        worst = 0.0
+        worst = {"bf16": 0.0, "fp16": 0.0}
         for label, hkv, window, dt, cc, st in PREFILL_CASES:
             case, err = _prefill_case(torch, gen(), table, bits, hkv, window,
-                                      dtypes[dt], cc, st)
-            _check(f"{name} {label}", err, 1e-5 if dt == "fp32" else 2e-2)
-            if dt == "bf16":
-                worst = max(worst, err)
-            shape = (f"C={cc} start={st} H=16 Hkv={hkv} D=128 page 32, bf16 "
+                                      getattr(torch, DTYPES[dt]), cc, st)
+            _check(f"{name} {label}", err, PAGED_TOL[dt])
+            if dt in worst:
+                worst[dt] = max(worst[dt], err)
+            shape = (f"C={cc} start={st} H=16 Hkv={hkv} D=128 page 32, {dt} "
                      "queries")
-            if label == "c128_s300":
-                results[name] = _time_prefill(
-                    torch, f"{name} timed case: {shape}", case)
+            if label in ("c128_s300", "fp16_c128_s300"):
+                row = name + ("_fp16" if dt == "fp16" else "")
+                results[row] = _time_prefill(
+                    torch, f"{row} timed case: {shape}", case)
             elif label == "gqa4_c128_s300":
                 _time_prefill(torch, f"{name} GQA case: {shape}", case)
             del case
         for st in PREFILL_SERVING_STARTS:
-            case, err = _prefill_case(torch, gen(), table, bits, 16, None,
-                                      torch.bfloat16, 128, st)
-            _check(f"{name} serving chunk at {st}", err, 2e-2)
-            worst = max(worst, err)
-            _time_prefill(torch, f"{name} serving chunk: C=128 start={st} "
-                          "H=Hkv=16 D=128 page 32, bf16 queries", case)
-            del case
-        results[name]["max_abs_err"] = worst
+            for dt in ("bf16", "fp16"):
+                case, err = _prefill_case(torch, gen(), table, bits, 16,
+                                          None, getattr(torch, DTYPES[dt]),
+                                          128, st)
+                _check(f"{name} serving chunk at {st}, {dt}", err,
+                       PAGED_TOL[dt])
+                worst[dt] = max(worst[dt], err)
+                if dt == "bf16":
+                    _time_prefill(torch, f"{name} serving chunk: C=128 "
+                                  f"start={st} H=Hkv=16 D=128 page 32, bf16 "
+                                  "queries", case)
+                del case
+        results[name]["max_abs_err"] = worst["bf16"]
+        results[name + "_fp16"]["max_abs_err"] = worst["fp16"]
         torch.cuda.empty_cache()
     return results
 
@@ -920,128 +968,162 @@ def _gemm_sweep(torch, g, weights, train):
     return found
 
 
+def _gemm_library(torch, dt, xq_pad, wq, ws, sx, m):
+    """The yardstick of a w8a8_gemm row: ``torch._int_mm`` on the quantized
+    operands (M padded to 32 rows: it needs M > 16), for fp16 x with the
+    rescale to fp16 in eager fp32 (the bf16 rows keep the bare product of
+    earlier readings)."""
+    if dt == "bf16":
+        return lambda: torch._int_mm(xq_pad, wq.t())
+    return lambda: (torch._int_mm(xq_pad, wq.t())[:m].float() * sx
+                    * ws).half()
+
+
 def phase_gemm(np, torch):
     """``w8a8_gemm`` against its plain version, exactly, at the 1.3B
-    projection shapes (M = 8, 40 and 128, fp32 and bf16 activations) and
-    the training flagship's (M = 12288, bf16); timed at M=8 (one decode
-    step's four projections of a layer, summed for the kernels line) and at
-    M=128, by CUDA-graph replay, with the host's cost per call (eager time
-    less replay time) beside; at M=12288 by CUDA events.  Then the sweep
-    of the plan's decisions (``_gemm_sweep``)."""
+    projection shapes (M = 8, 40 and 128, fp32, bf16 and fp16 activations)
+    and the training flagship's (M = 12288, bf16 and fp16); timed for bf16
+    and fp16 x at M=8 (one decode step's four projections of a layer,
+    summed for the kernels line: ``w8a8_gemm`` and ``w8a8_gemm_fp16``) and
+    at M=128, by CUDA-graph replay, with the host's cost per call (eager
+    time less replay time) beside; at M=12288 by CUDA events.  Then the
+    sweep of the plan's decisions (``_gemm_sweep``)."""
     from paddle_tpu_torch.kernels import w8a8_gemm, w8a8_gemm_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     weights = _gemm_weights(torch, g, PROJ)
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0,
-               ops=0, host_us=0.0)
-    prefill = dict(ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    half = ("bf16", "fp16")
+    # per x dtype, one layer's four projections summed: the decode layer
+    # (M=8), the prefill layer (M=128) and the training layer (M=12288)
+    acc = {dt: {part: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
+                           ops=0, host_us=0.0)
+                for part in ("decode", "prefill", "train")} for dt in half}
+
+    def add(into, **vals):
+        for key, val in vals.items():
+            into[key] += val
+
+    def lib_name(dt):
+        return "_int_mm" if dt == "bf16" else "_int_mm + rescale to fp16"
+
     for proj, (wq, ws, k, n) in weights.items():
-        wb = (wq.float() * ws[:, None]).t().contiguous().bfloat16()
+        dense_w = (wq.float() * ws[:, None]).t().contiguous()
         for m in (8, 40, 128):
             x = torch.randn(m, k, device=dev, generator=g)
             x[-1] = 0.0                              # the 1e-8 clamp
-            out, xq, sx = w8a8_gemm(x, wq, ws, return_quantized=True)
-            ref, rxq, rsx = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
-            xb = x.to(torch.bfloat16)
-            exact = (torch.equal(xq, rxq) and torch.equal(sx, rsx)
-                     and torch.equal(out, ref)
-                     and torch.equal(w8a8_gemm(xb, wq, ws),
-                                     w8a8_gemm_plain(xb, wq, ws)))
-            err = (out - ref).abs().max().item()
-            log(f"w8a8_gemm {proj} M={m} K={k} N={n}: bit-exact {exact} "
-                f"(max_abs_err {err:.3e})")
-            if not exact:
-                raise AssertionError(f"w8a8_gemm {proj} M={m} is not exact")
+            quant = {}
+            for dt in ("fp32",) + half:
+                xd = x.to(getattr(torch, DTYPES[dt]))
+                got = w8a8_gemm(xd, wq, ws, return_quantized=True)
+                want = w8a8_gemm_plain(xd, wq, ws, return_quantized=True)
+                exact = all(torch.equal(a, b) for a, b in zip(got, want))
+                err = (got[0].float() - want[0].float()).abs().max().item()
+                log(f"w8a8_gemm {proj} M={m} K={k} N={n}, {dt} x: bit-exact "
+                    f"{exact} (max_abs_err {err:.3e})")
+                if not exact:
+                    raise AssertionError(f"w8a8_gemm {proj} M={m} {dt} is "
+                                         "not exact")
+                quant[dt] = (xd, got[1], got[2])
             if m == 40:
                 continue
-            # the yardstick: torch._int_mm on the quantized operands, which
-            # needs M > 16: M=8 pads to 32 rows (quantize excluded)
-            xq_pad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
-            xq_pad[:m] = xq
-            calls = dict(bf16_matmul=lambda: xb @ wb,
-                         kernel=lambda: w8a8_gemm(xb, wq, ws),
-                         int_mm=lambda: torch._int_mm(xq_pad, wq.t()),
-                         plain=lambda: w8a8_gemm_plain(xb, wq, ws))
-            # device time from CUDA-graph replays, eager times beside; the
-            # kernel and _int_mm in turns, twice each (the mean), after the
-            # bf16 matmul and before the plain version's fp64 product, so
-            # that the two meet the card in the same state
-            dev_ms = {key: graph_ms(fn) for key, fn in calls.items()}
-            for key in ("kernel", "int_mm"):
-                dev_ms[key] = (dev_ms[key] + graph_ms(calls[key])) / 2
-            eager = {key: time_ms(fn) for key, fn in calls.items()}
-            ms, plain_ms, lib_ms = (dev_ms["kernel"], dev_ms["plain"],
-                                    dev_ms["int_mm"])
             nbytes = m * k * 2 + n * k + n * 4 + m * n * 2
             bms, by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS)
-            host_us = (eager["kernel"] - ms) * 1e3
-            log(f"  timed bf16 x, graph replay (eager): kernel {ms:.4f} "
-                f"({eager['kernel']:.4f}) ms, plain {plain_ms:.4f} "
-                f"({eager['plain']:.4f}) ms, _int_mm {lib_ms:.4f} "
-                f"({eager['int_mm']:.4f}) ms (M padded to {max(m, 32)}), "
-                f"bf16 matmul {dev_ms['bf16_matmul']:.4f} "
-                f"({eager['bf16_matmul']:.4f}) ms, bound {bms:.4f} ms ({by}); "
-                f"host cost per call (eager - replay) {host_us:.2f} us")
-            acc = tot if m == 8 else prefill
-            for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                             ("bound_ms", bms), ("library_ms", lib_ms),
-                             ("bytes", nbytes), ("ops", 2 * m * n * k),
-                             ("host_us", host_us)):
-                if key in acc:
-                    acc[key] += val
+            for dt in half:
+                xd, xq, sx = quant[dt]
+                wd = dense_w.to(xd.dtype)
+                xq_pad = torch.zeros(max(m, 32), k, dtype=torch.int8,
+                                     device=dev)
+                xq_pad[:m] = xq
+                calls = dict(matmul=lambda: xd @ wd,
+                             kernel=lambda: w8a8_gemm(xd, wq, ws),
+                             library=_gemm_library(torch, dt, xq_pad, wq,
+                                                   ws, sx, m),
+                             plain=lambda: w8a8_gemm_plain(xd, wq, ws))
+                # device time from CUDA-graph replays, eager times beside;
+                # the kernel and its yardstick in turns, twice each (the
+                # mean), after the dense matmul and before the plain
+                # version's fp64 product, so that they meet the card in the
+                # same state
+                dev_ms = {key: graph_ms(fn) for key, fn in calls.items()}
+                for key in ("kernel", "library"):
+                    dev_ms[key] = (dev_ms[key] + graph_ms(calls[key])) / 2
+                eager = {key: time_ms(fn) for key, fn in calls.items()}
+                ms = dev_ms["kernel"]
+                host_us = (eager["kernel"] - ms) * 1e3
+                log(f"  timed {dt} x, graph replay (eager): kernel {ms:.4f} "
+                    f"({eager['kernel']:.4f}) ms, plain {dev_ms['plain']:.4f} "
+                    f"({eager['plain']:.4f}) ms, {lib_name(dt)} "
+                    f"{dev_ms['library']:.4f} ({eager['library']:.4f}) ms "
+                    f"(M padded to {max(m, 32)}), {dt} matmul "
+                    f"{dev_ms['matmul']:.4f} ({eager['matmul']:.4f}) ms, "
+                    f"bound {bms:.4f} ms ({by}); host cost per call "
+                    f"(eager - replay) {host_us:.2f} us")
+                add(acc[dt]["decode" if m == 8 else "prefill"], ms=ms,
+                    plain_ms=dev_ms["plain"], library_ms=dev_ms["library"],
+                    bytes=nbytes, ops=2 * m * n * k, host_us=host_us)
     # the training flagship's projections at its M = 12 x 1024 rows, bf16
-    # activations and the live weight quantized as w8a8_matmul does
+    # and fp16 activations and the live weight quantized as w8a8_matmul does
     m = TRAIN_BATCH * TRAIN_SEQ
     train_weights = _gemm_weights(torch, g, TRAIN_PROJ)
-    train = dict(ms=0.0, library_ms=0.0, bytes=0, ops=0)
     layer = []
     for proj, (wq, ws, k, n) in train_weights.items():
-        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
-        layer.append((x, wq, ws))
-        got = w8a8_gemm(x, wq, ws, return_quantized=True)
-        want = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
-        exact = all(torch.equal(a, b) for a, b in zip(got, want))
-        ms = time_ms(lambda: w8a8_gemm(x, wq, ws), 5)
-        lib_ms = time_ms(lambda: torch._int_mm(got[1], wq.t()), 5)
-        log(f"w8a8_gemm training {proj} M={m} K={k} N={n}, bf16: bit-exact "
-            f"{exact}; kernel {ms:.4f} ms, _int_mm on the quantized operands "
-            f"{lib_ms:.4f} ms")
-        if not exact:
-            raise AssertionError(f"w8a8_gemm training {proj} is not exact")
-        for key, val in (("ms", ms), ("library_ms", lib_ms),
-                         ("bytes", m * k * 2 + n * k + n * 4 + m * n * 2),
-                         ("ops", 2 * m * n * k)):
-            train[key] += val
-        del got, want
+        x = torch.randn(m, k, device=dev, generator=g)
+        for dt in half:
+            xd = x.to(getattr(torch, DTYPES[dt]))
+            got = w8a8_gemm(xd, wq, ws, return_quantized=True)
+            want = w8a8_gemm_plain(xd, wq, ws, return_quantized=True)
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            ms = time_ms(lambda: w8a8_gemm(xd, wq, ws), 5)
+            lib_ms = time_ms(_gemm_library(torch, dt, got[1], wq, ws, got[2],
+                                           m), 5)
+            log(f"w8a8_gemm training {proj} M={m} K={k} N={n}, {dt}: "
+                f"bit-exact {exact}; kernel {ms:.4f} ms, {lib_name(dt)} on "
+                f"the quantized operands {lib_ms:.4f} ms")
+            if not exact:
+                raise AssertionError(f"w8a8_gemm training {proj} {dt} is not "
+                                     "exact")
+            add(acc[dt]["train"], ms=ms, library_ms=lib_ms,
+                bytes=m * k * 2 + n * k + n * 4 + m * n * 2,
+                ops=2 * m * n * k)
+            if dt == "bf16":
+                layer.append((xd, wq, ws))
+            del got, want
     # the quantize's and the GEMM's device time (a dependent GEMM's span
     # starts early, so it includes some of its wait for the quantize)
-    _profile(torch, f"w8a8_gemm, one training layer (M={m}), 5 times",
+    _profile(torch, f"w8a8_gemm, one training layer (M={m}), bf16 x, 5 times",
              lambda: [w8a8_gemm(*a) for _ in range(5) for a in layer])
     del layer
-    bms, by = bound_ms(train["bytes"], train["ops"], INT8_OPS)
-    log(f"w8a8_gemm one training layer's forward (M={m}, qkv + proj + fc1 + "
-        f"fc2, bf16 x): {train['ms']:.4f} ms, _int_mm {train['library_ms']:.4f}"
-        f" ms ({train['ms'] / train['library_ms']:.2f}x), bound {bms:.4f} ms "
-        f"({by}), {train['ops'] / train['ms'] / 1e9:.1f} TOP/s; 96 launches "
-        "a step in training run (d)")
-    pms, pby = bound_ms(prefill["bytes"], prefill["ops"], INT8_OPS)
-    log(f"w8a8_gemm one prefill layer (M=128, qkv + proj + fc1 + fc2): "
-        f"{prefill['ms']:.4f} ms, _int_mm {prefill['library_ms']:.4f} ms, "
-        f"bound {pms:.4f} ms ({pby})")
-    bms, by = bound_ms(tot["bytes"], tot["ops"], INT8_OPS)
-    log(f"w8a8_gemm one decode layer (M=8, qkv + proj + fc1 + fc2): "
-        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, _int_mm "
-        f"{tot['library_ms']:.4f} ms, bound {bms:.4f} ms; host cost "
-        f"{tot['host_us'] / 4:.2f} us a call (eager - replay)")
+    rows = {}
+    for dt in half:
+        train, prefill, tot = (acc[dt][p] for p in ("train", "prefill",
+                                                     "decode"))
+        bms, by = bound_ms(train["bytes"], train["ops"], INT8_OPS)
+        log(f"w8a8_gemm one training layer's forward (M={m}, qkv + proj + "
+            f"fc1 + fc2, {dt} x): {train['ms']:.4f} ms, {lib_name(dt)} "
+            f"{train['library_ms']:.4f} ms "
+            f"({train['ms'] / train['library_ms']:.2f}x), bound {bms:.4f} ms "
+            f"({by}), {train['ops'] / train['ms'] / 1e9:.1f} TOP/s"
+            + ("; 96 launches a step in training run (d)" if dt == "bf16"
+               else ""))
+        pms, pby = bound_ms(prefill["bytes"], prefill["ops"], INT8_OPS)
+        log(f"w8a8_gemm one prefill layer (M=128, qkv + proj + fc1 + fc2, "
+            f"{dt} x): {prefill['ms']:.4f} ms, {lib_name(dt)} "
+            f"{prefill['library_ms']:.4f} ms, bound {pms:.4f} ms ({pby})")
+        bms, by = bound_ms(tot["bytes"], tot["ops"], INT8_OPS)
+        log(f"w8a8_gemm one decode layer (M=8, qkv + proj + fc1 + fc2, {dt} "
+            f"x): {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+            f"{lib_name(dt)} {tot['library_ms']:.4f} ms, bound {bms:.4f} ms; "
+            f"host cost {tot['host_us'] / 4:.2f} us a call (eager - replay)")
+        rows["w8a8_gemm" + ("" if dt == "bf16" else "_fp16")] = dict(
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms, bound_by=by,
+            library_ms=tot["library_ms"], max_abs_err=0.0)
     decode = [(torch.randn(8, k, device=dev, generator=g).bfloat16(), wq, ws)
               for wq, ws, k, _ in weights.values()]
-    _profile(torch, "w8a8_gemm, one decode layer (M=8), 20 times",
+    _profile(torch, "w8a8_gemm, one decode layer (M=8), bf16 x, 20 times",
              lambda: [w8a8_gemm(*a) for _ in range(20) for a in decode])
     _gemm_sweep(torch, g, weights, train_weights)
-    return {"w8a8_gemm": dict(ms=tot["ms"], plain_ms=tot["plain_ms"],
-                              bound_ms=bms, bound_by=by,
-                              library_ms=tot["library_ms"], max_abs_err=0.0)}
+    return rows
 
 
 # flash kernels: layout, B, H, Hkv, S, causal, window, dtype (D = 128); the
@@ -1333,12 +1415,13 @@ def _profile(torch, what, fn):
     if ms:
         log(f"  flash kernels: {ms:.2f} ms ({100 * ms / max(busy, 1e-9):.1f}% "
             f"of device time)")
-    # the paged kernels: the split-KV body and its merge for bf16 queries
-    # (decode and verify in its tile split, prefill in its row split:
-    # template argument false or true), the FMA bodies for fp32 ones
-    for kind, keys in (("decode / verify", ("false>", "paged_decode",
+    # the paged kernels: the split-KV body and its merge for bf16 and fp16
+    # queries (decode and verify in its tile split, prefill in its row
+    # split: template argument false or true, before the element type),
+    # the FMA bodies for fp32 ones
+    for kind, keys in (("decode / verify", ("false,", "paged_decode",
                                             "paged_mq")),
-                       ("prefill", ("true>", "paged_prefill"))):
+                       ("prefill", ("true,", "paged_prefill"))):
         ms = sum(t for name, t in by_name.items()
                  if ("ptt::" in name or "paged_" in name)
                  and any(k in name for k in keys))
@@ -1348,25 +1431,41 @@ def _profile(torch, what, fn):
     return share
 
 
-# label, engine options, requests, motif prompts, kernel variants it runs
-PROFILED_REQUESTS = 4           # the profiled window after runs (a)-(d)
-SERVING_RUNS = (
-    ("a", {}, 16, False, {"paged_attention", "paged_prefill"}),
-    ("b", {"int8": True}, 16, False,
-     {"w8a8_gemm", "paged_attention_int8", "paged_prefill_int8"}),
-    ("c", {"int8": True, "kv_bits": 4}, 16, False,
-     {"w8a8_gemm", "paged_attention_int4", "paged_prefill_int4"}),
-    ("d", {"spec_k": 4}, 16, True, {"paged_prefill", "paged_attention_mq"}),
-    ("e", {"int8": True, "spec_k": 4}, 8, True,
-     {"w8a8_gemm", "paged_prefill_int8", "paged_attention_mq_int8"}),
-    ("f", {"int8": True, "kv_bits": 4, "spec_k": 4}, 8, True,
-     {"w8a8_gemm", "paged_prefill_int4", "paged_attention_mq_int4"}),
+# label, engine options, requests, motif prompts, kernel variants it runs;
+# (a)-(f) on the bf16 model, (a16)-(f16) the same modes on the fp16 one.
+# Runs of 16 requests (two admission waves of the 8 slots: the second finds
+# the first's shared prefix in the cache) for (a)-(d) and for (a16) and
+# (c16), prefix sharing over an fp16 pool of float and of int4 pages; the
+# others take 8, one wave.
+LONG_RUNS = ("a", "b", "c", "d", "a16", "c16")
+# the runs profiled over PROFILED_REQUESTS more requests: bf16 float pages,
+# and fp16 W8A8 over int4 pages (the profiler's assembly of a quantized
+# run's window, ~20 s on an H100's host, is most of this phase's time)
+PROFILED_RUNS = ("a", "c16")
+PROFILED_REQUESTS = 2
+SERVING_MODES = (
+    ("a", {}, False, ("paged_attention", "paged_prefill")),
+    ("b", {"int8": True}, False,
+     ("w8a8_gemm", "paged_attention_int8", "paged_prefill_int8")),
+    ("c", {"int8": True, "kv_bits": 4}, False,
+     ("w8a8_gemm", "paged_attention_int4", "paged_prefill_int4")),
+    ("d", {"spec_k": 4}, True, ("paged_prefill", "paged_attention_mq")),
+    ("e", {"int8": True, "spec_k": 4}, True,
+     ("w8a8_gemm", "paged_prefill_int8", "paged_attention_mq_int8")),
+    ("f", {"int8": True, "kv_bits": 4, "spec_k": 4}, True,
+     ("w8a8_gemm", "paged_prefill_int4", "paged_attention_mq_int4")),
 )
+SERVING_RUNS = tuple(
+    (label + tag, dtype, opts, 16 if label + tag in LONG_RUNS else 8, motif,
+     {name + suffix for name in names})
+    for tag, dtype, suffix in (("", "bf16", ""), ("16", "fp16", "_fp16"))
+    for label, opts, motif, names in SERVING_MODES)
 
 
 def _serve(np, torch, model, label, opts, n_req, motif, expected):
     """One serving run of the 1.3B model: returns the launch counts of the
-    kernel variants it ran."""
+    kernel variants it ran.  The PROFILED_RUNS are profiled over
+    PROFILED_REQUESTS more requests."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -1380,11 +1479,14 @@ def _serve(np, torch, model, label, opts, n_req, motif, expected):
             _requests(np, rng, cfg, shared, n=n_req, motif=motif)]
 
     reset_launch_counts()
-    done = {}
+    done, steps = {}, []            # steps: each decode step's host seconds
     t0 = time.perf_counter()
     while eng.has_work:
+        calls = eng.stats["decode_calls"]
         for fin in eng.step():
             done[fin.rid] = fin
+        if eng.stats["decode_calls"] > calls:
+            steps.append(eng.stats["last_decode_s"])
         eng.check_invariants()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1406,7 +1508,8 @@ def _serve(np, torch, model, label, opts, n_req, motif, expected):
         if len(fin.tokens) == 0 or not ((0 <= fin.tokens)
                                         & (fin.tokens < cfg.vocab_size)).all():
             raise AssertionError(f"request {fin.rid} produced bad tokens")
-    log(f"serving ({label}) {json.dumps(opts)}: {n_req} requests in "
+    log(f"serving ({label}) {_dt(model.dtype)} {json.dumps(opts)}: "
+        f"{n_req} requests in "
         f"{wall:.2f} s, {s['tokens_generated']} tokens; decode "
         f"{s['decode_tokens'] / s['decode_s']:.1f} tokens/s over "
         f"{s['decode_calls']} steps, mean decode step "
@@ -1421,10 +1524,12 @@ def _serve(np, torch, model, label, opts, n_req, motif, expected):
         log(f"  spec: drafted {s['spec_drafted']}, accepted "
             f"{s['spec_accepted']}, rejected {s['spec_rejected']} "
             f"(acceptance {s['spec_accepted'] / max(1, s['spec_drafted']):.3f})")
+    q = np.percentile(1e3 * np.asarray(steps), (10, 50, 90))
+    log(f"  decode steps: {len(steps)}, p10 {q[0]:.3f} ms, median "
+        f"{q[1]:.3f} ms, p90 {q[2]:.3f} ms, max {1e3 * max(steps):.3f} ms")
     log(f"  launches: {json.dumps(launches)}")
-    if label in "abcd":
-        # 4 requests: the profiler's assembly of the quantized runs'
-        # windows is most of phase 3's time, and grows with the window
+    if label in PROFILED_RUNS:
+        # 2 requests: the assembly grows with the window
         more = _requests(np, rng, cfg, shared, n=PROFILED_REQUESTS,
                          motif=motif)
         _profile(torch, f"{len(more)} more requests", lambda: eng.run(more))
@@ -1434,24 +1539,30 @@ def _serve(np, torch, model, label, opts, n_req, motif, expected):
 
 
 def phase_serving(np, torch):
-    """Every serving run; returns each kernel variant's launch count on the
-    first run that reaches it, and that run's label."""
+    """Every serving run, on the bf16 model and then on the fp16 one;
+    returns each kernel variant's launch count on the first run that
+    reaches it, and that run's label."""
     from paddle_tpu_torch.models import GPTParams, gpt_1p3b
 
-    t0 = time.perf_counter()
-    model = GPTParams(gpt_1p3b(), seed=0)          # bf16 on the card
-    torch.cuda.synchronize()
-    log(f"serving: gpt_1p3b bf16 built in {time.perf_counter() - t0:.2f} s")
     first = {}
-    for label, opts, n_req, motif, expected in SERVING_RUNS:
-        t1 = time.perf_counter()
-        launches = _serve(np, torch, model, label, opts, n_req, motif,
-                          expected)
-        for name, n in launches.items():
-            first.setdefault(name, (n, label))
-        log(f"  run ({label}) took {time.perf_counter() - t1:.2f} s")
-    del model
-    torch.cuda.empty_cache()
+    for dt in ("bf16", "fp16"):
+        t0 = time.perf_counter()
+        model = GPTParams(gpt_1p3b(), seed=0,
+                          dtype=getattr(torch, DTYPES[dt]))
+        torch.cuda.synchronize()
+        log(f"serving: gpt_1p3b {dt} built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for label, dtype, opts, n_req, motif, expected in SERVING_RUNS:
+            if dtype != dt:
+                continue
+            t1 = time.perf_counter()
+            launches = _serve(np, torch, model, label, opts, n_req, motif,
+                              expected)
+            for name, n in launches.items():
+                first.setdefault(name, (n, label))
+            log(f"  run ({label}) took {time.perf_counter() - t1:.2f} s")
+        del model
+        torch.cuda.empty_cache()
     return first
 
 
@@ -1476,27 +1587,54 @@ def _agreement(np, label, got, want):
         raise AssertionError(f"parity {label}: agreement {share:.4f} < 0.99")
 
 
-def _forced(np, torch, model, label, prompts, got, int8, kv_bits):
+# the least share of positions on which phase 4's engine must agree with
+# the dense decoder under teacher forcing, by the model's dtype: fp32 the
+# reference's own budget for int8 argmax agreement; fp16 one position of
+# 96 below the worst reading of the fp16 W8A8 engine on an H100 (92 and
+# 91 of 96 over int8 and int4 pages, the same in every call; PERF.md)
+FORCED_GATE = {"fp32": 0.9, "fp16": 0.93}
+# the witness's bound: the fp16 engine may choose otherwise than the same
+# weights' fp32 dense decoder at most this many more positions of 96 than
+# the fp16 dense decoder does (read on an H100: 4 fewer over int8 pages,
+# 2 more over int4 ones; PERF.md)
+FORCED_SLACK = 3
+
+
+def _forced(np, torch, model, label, prompts, got, int8, kv_bits,
+            truth=None):
     """Teacher forcing: the dense decoder reads each prompt and the
     engine's own tokens in one forward, and its greedy choice at every
     position is compared with the engine's token there.  Quantized
     activations turn a float-level difference of summation order into a
     different int8 rounding now and then, which moves near-tied logits of
-    a random model; so at least 90% of the positions must agree (the
-    reference's own budget for int8 argmax agreement), and each
-    disagreement is printed with the dense decoder's gap between its top
-    logit and the engine's token."""
+    a random model; so at least FORCED_GATE of the positions must agree,
+    and each disagreement is printed with the dense decoder's gap between
+    its top logit and the engine's token.
+
+    ``truth``, the model's weights in fp32, is the witness: its dense
+    decoder reads the same sequences, and the positions where the engine
+    and where the dense decoder choose other than it are counted; the
+    engine's count may exceed the dense decoder's by FORCED_SLACK at
+    most."""
     from paddle_tpu_torch.models.generation import _decoder_setup, _empty_cache
 
-    params, make_run = _decoder_setup(model, int8=int8)
-    run = make_run(params)
-    agree = total = 0
+    def forward(m):
+        params, make_run = _decoder_setup(m, int8=int8)
+        run = make_run(params)
+
+        def logits(seq, start):
+            ids = torch.as_tensor(seq[None], device=m.device).long()
+            kc, vc = _empty_cache(m.cfg, 1, seq.size, m.dtype, m.device,
+                                  int8=int8, kv_bits=kv_bits)
+            return run(ids, 0, kc, vc)[0][0, start:].float()   # (T, V)
+        return logits
+
+    dense = forward(model)
+    fp32 = forward(truth) if truth is not None else None
+    agree = total = off_engine = off_dense = 0
     for i, (p, toks) in enumerate(zip(prompts, got)):
         seq = np.concatenate([p, toks[:-1]])
-        ids = torch.as_tensor(seq[None], device=model.device).long()
-        kc, vc = _empty_cache(model.cfg, 1, seq.size, model.dtype,
-                              model.device, int8=int8, kv_bits=kv_bits)
-        logits = run(ids, 0, kc, vc)[0][0, p.size - 1:]       # (T, V)
+        logits = dense(seq, p.size - 1)
         want = logits.argmax(-1).cpu().numpy()
         for j in np.nonzero(want != toks)[0]:
             row = logits[j]
@@ -1504,18 +1642,33 @@ def _forced(np, torch, model, label, prompts, got, int8, kv_bits):
             log(f"parity {label}: request {i} position {j}: engine "
                 f"{toks[j]}, dense {want[j]}, dense logit gap {gap:.3e} "
                 f"(logit std {row.std().item():.3e})")
+        if fp32 is not None:
+            ref = fp32(seq, p.size - 1).argmax(-1).cpu().numpy()
+            off_engine += int((ref != toks).sum())
+            off_dense += int((ref != want).sum())
         agree += int((want == toks).sum())
         total += toks.size
     share = agree / total
+    gate = FORCED_GATE[_dt(model.dtype)]
     log(f"parity {label}: {agree}/{total} positions agree under teacher "
-        f"forcing ({100 * share:.2f}%)")
-    if share < 0.9:
-        raise AssertionError(f"parity {label}: agreement {share:.4f} < 0.9")
+        f"forcing ({100 * share:.2f}%, gate {100 * gate:.2f}%)")
+    if fp32 is not None:
+        log(f"parity {label}: against the same weights' fp32 dense decoder "
+            f"on those positions, the engine chooses otherwise at "
+            f"{off_engine} and the {_dt(model.dtype)} dense decoder at "
+            f"{off_dense} of {total} (slack {FORCED_SLACK})")
+    if share < gate:
+        raise AssertionError(f"parity {label}: agreement {share:.4f} < "
+                             f"{gate}")
+    if fp32 is not None and off_engine > off_dense + FORCED_SLACK:
+        raise AssertionError(f"parity {label}: the engine is {off_engine} "
+                             f"positions off fp32, the dense decoder "
+                             f"{off_dense}")
 
 
-def _parity_model(np, torch):
-    """Phase 4's model (fp32, GPT-1.3B width, 2 layers, seed 1; TF32 off
-    everywhere from here on) and its 4 prompts."""
+def _parity_model(np, torch, dtype="fp32"):
+    """Phase 4's model (fp32, or ``dtype``, GPT-1.3B width, 2 layers, seed
+    1; TF32 off everywhere from here on) and its 4 prompts."""
     import dataclasses
 
     from paddle_tpu_torch.models import GPTParams, gpt_1p3b
@@ -1524,7 +1677,7 @@ def _parity_model(np, torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = GPTParams(dataclasses.replace(gpt_1p3b(), num_layers=2),
-                              seed=1, dtype=torch.float32)
+                      seed=1, dtype=getattr(torch, DTYPES[dtype]))
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, model.cfg.vocab_size, (n,))
                for n in (17, 64, 100, 250)]
@@ -1535,30 +1688,48 @@ def _parity_model(np, torch):
 
 
 def phase_parity(np, torch):
-    from paddle_tpu_torch.models import generate
+    """The engine against the dense decoder on the fp32 model and on the
+    fp16 one (the same seed): plain pages by greedy agreement, W8A8 over
+    int8 and int4 pages by teacher forcing (on the fp16 model with the
+    same weights' fp32 dense decoder as the witness); on the fp32 model
+    also the speculative engine against the plain one."""
+    from paddle_tpu_torch.models import GPTParams, generate
     from paddle_tpu_torch.serving import ServingEngine
 
-    model, prompts = _parity_model(np, torch)
+    for dt in ("fp32", "fp16"):
+        model, prompts = _parity_model(np, torch, dt)
 
-    def serve(**opts):
-        eng = ServingEngine(model, max_slots=4, page_size=32,
-                            chunk_tokens=128, **opts)
-        rids = [eng.add_request(p, 24) for p in prompts]
-        done = eng.run()
-        return [done[r].tokens for r in rids], eng
+        def serve(**opts):
+            eng = ServingEngine(model, max_slots=4, page_size=32,
+                                chunk_tokens=128, **opts)
+            rids = [eng.add_request(p, 24) for p in prompts]
+            done = eng.run()
+            return [done[r].tokens for r in rids], eng
 
-    plain, _ = serve()
-    dense = [generate(model, p[None], 24)[0, len(p):].cpu().numpy()
-             for p in prompts]
-    _agreement(np, "engine vs dense decoder, bf16 path", plain, dense)
-    for opts in ({"int8": True}, {"int8": True, "kv_bits": 4}):
-        got, eng = serve(**opts)
-        _forced(np, torch, model, f"engine vs dense decoder, "
-                f"{json.dumps(opts)}", prompts, got, True, eng.kv_bits)
-    spec, eng = serve(spec_k=4)
-    log(f"parity spec: drafted {eng.stats['spec_drafted']}, accepted "
-        f"{eng.stats['spec_accepted']}")
-    _agreement(np, "spec_k=4 engine vs plain engine", spec, plain)
+        plain, _ = serve()
+        dense = [generate(model, p[None], 24)[0, len(p):].cpu().numpy()
+                 for p in prompts]
+        _agreement(np, f"engine vs dense decoder, {dt}", plain, dense)
+        # the witness on the fp16 model: the same weights in fp32, whose
+        # dense decoder the engine and the fp16 dense decoder are both held
+        # to, position by position
+        truth = None
+        if dt != "fp32":
+            truth = GPTParams(model.cfg, device=model.device,
+                               dtype=torch.float32)
+            truth.load_state_dict(model.state_dict())
+        for opts in ({"int8": True}, {"int8": True, "kv_bits": 4}):
+            got, eng = serve(**opts)
+            _forced(np, torch, model, f"engine vs dense decoder, {dt} "
+                    f"{json.dumps(opts)}", prompts, got, True, eng.kv_bits,
+                    truth=truth)
+        if dt == "fp32":
+            spec, eng = serve(spec_k=4)
+            log(f"parity spec: drafted {eng.stats['spec_drafted']}, "
+                f"accepted {eng.stats['spec_accepted']}")
+            _agreement(np, "spec_k=4 engine vs plain engine", spec, plain)
+        del model, truth
+        torch.cuda.empty_cache()
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1717,18 +1888,13 @@ def _replica_line(label, eng):
         f"{s['tokens_generated']}")
 
 
-# label, what it builds, kernel variants it runs; (a) and (h) run twice,
-# in turns around (g), so that an order effect shows as a difference
-# between a run and its repeat
+# label, what it builds, kernel variants it runs
 CLUSTER_RUNS = (
     ("a", "ServingEngine(model)", {"paged_attention", "paged_prefill"}),
     ("h", "ServingEngine(model, double_buffer=True)",
      {"paged_attention", "paged_prefill"}),
     ("g", "make_cluster(model, 2, disaggregate=True)",
      {"paged_attention", "paged_prefill"}),
-    ("h2", "ServingEngine(model, double_buffer=True)",
-     {"paged_attention", "paged_prefill"}),
-    ("a2", "ServingEngine(model)", {"paged_attention", "paged_prefill"}),
 )
 
 
@@ -8804,7 +8970,8 @@ def main():
     kernels.update(p19_rows)
     line = []
     for name, k in kernels.items():
-        src = name.split("_int")[0]
+        # an fp16 row of a paged kernel or of w8a8_gemm: the same source
+        src = name.removesuffix("_fp16").split("_int")[0]
         entry = {"paged_attention": 213, "paged_attention_mq": 372}
         replaces = {"paged_prefill": "paddle_tpu/kernels/paged_prefill.py:166",
                     "w8a8_gemm": "paddle_tpu/kernels/int8_gemm.py:85",

@@ -1,5 +1,5 @@
-// Paged decode attention for Hopper (sm_90a): bf16 or fp32 queries over
-// float pages of their type, int8 pages and nibble-packed int4 pages.
+// Paged decode attention for Hopper (sm_90a): bf16, fp16 or fp32 queries
+// over float pages of their type, int8 pages and nibble-packed int4 pages.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/paged_attention.py:
 // paged_attention (bodies _paged_kernel, _paged_kernel_int8,
@@ -22,9 +22,10 @@
 //
 // Two bodies, chosen by the query dtype (a choice of body by type, not a
 // fallback: a failed launch raises in the wrapper):
-// - bf16 queries: the split-KV body of paged_split.cuh.  The slot's pages
-//   are cut into splits of `pages_per_split` block-table entries, one
-//   block per (KV head, slot, split); each warp streams its pages through
+// - bf16 and fp16 queries: the split-KV body of paged_split.cuh (one
+//   template over the element type).  The slot's pages are cut into
+//   splits of `pages_per_split` block-table entries, one block per (KV
+//   head, slot, split); each warp streams its pages through
 //   its own cp.async ring and multiplies on the tensor cores (mma.sync),
 //   and a second kernel merges the splits by their lse.  Decode is its
 //   T = 1 case, the row at position lengths[b] - 1.
@@ -115,13 +116,13 @@ cudaError_t dispatch_decode_fp32(int kv_bits, const void* q, const void* k,
 
 }  // namespace ptt
 
-// dtype (of q and out): 0 = fp32, 1 = bf16.  kv_bits: 0 = float pages of
-// q's dtype (scales unused, may be null), 8 = int8 pages, 4 = packed int4
-// pages, both with fp32 scales (P, Hkv, ps, 1).  window <= 0 means no
-// window.  bf16: `pages_per_split` block-table entries per split, and
-// `ws` holds B * Hkv * n_split * H / Hkv * (D + 2) floats, n_split =
-// ceil(max_pages / pages_per_split), when n_split > 1 (fp32 uses
-// neither).  Returns the CUDA error code of the launches.
+// dtype (of q and out): 0 = fp32, 1 = bf16, 2 = fp16.  kv_bits: 0 = float
+// pages of q's dtype (scales unused, may be null), 8 = int8 pages, 4 =
+// packed int4 pages, both with fp32 scales (P, Hkv, ps, 1).  window <= 0
+// means no window.  bf16, fp16: `pages_per_split` block-table entries per
+// split, and `ws` holds B * Hkv * n_split * H / Hkv * (D + 2) floats,
+// n_split = ceil(max_pages / pages_per_split), when n_split > 1 (fp32
+// uses neither).  Returns the CUDA error code of the launches.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* k_scales,
                                    const void* v_scales,
@@ -137,14 +138,12 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
+  if (dtype != 0)
     return int(ptt::split::launch<false>(
         q, k_pages, v_pages, ks, vs, bt, lens, out, static_cast<float*>(ws), B,
         1, -1, H, Hkv, ps, D, max_pages, num_pages, pages_per_split, scale,
-        window, kv_bits, st));
-  if (dtype == 0)
-    return int(ptt::dispatch_decode_fp32(
-        kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, H, Hkv, ps,
-        D, max_pages, num_pages, scale, window, st));
-  return int(cudaErrorInvalidValue);
+        window, kv_bits, dtype, st));
+  return int(ptt::dispatch_decode_fp32(
+      kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, H, Hkv, ps,
+      D, max_pages, num_pages, scale, window, st));
 }

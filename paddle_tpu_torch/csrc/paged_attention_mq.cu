@@ -1,6 +1,6 @@
 // Multi-query (speculative verify) paged attention for Hopper (sm_90a):
-// bf16 or fp32 queries over float pages of their type, int8 pages and
-// nibble-packed int4 pages.
+// bf16, fp16 or fp32 queries over float pages of their type, int8 pages
+// and nibble-packed int4 pages.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/paged_attention.py:
 // paged_attention_mq (bodies _mq_kernel, _mq_kernel_int8, _mq_kernel_int4;
@@ -24,9 +24,10 @@
 //
 // Two bodies, chosen by the query dtype (not a fallback: a failed launch
 // raises in the wrapper):
-// - bf16 queries: the split-KV body of paged_split.cuh with T rows per
-//   slot (row r = draft row r / G of query head kvh * G + r % G), up to 16
-//   rows per block on the tensor cores, splits merged by their lse;
+// - bf16 and fp16 queries: the split-KV body of paged_split.cuh with T
+//   rows per slot (row r = draft row r / G of query head kvh * G + r % G),
+//   up to 16 rows per block on the tensor cores, splits merged by their
+//   lse;
 // - fp32 queries: one block per (KV head, slot) with exact fp32 FMA
 //   products over the visible pages (attend_pages, paged_common.cuh).
 
@@ -118,11 +119,11 @@ cudaError_t dispatch_mq_fp32(int kv_bits, const void* q, const void* k,
 
 }  // namespace ptt
 
-// q/out (B, T, H, D); dtype (of q and out): 0 = fp32, 1 = bf16.  kv_bits:
-// 0 = float pages of q's dtype (scales unused, may be null), 8 = int8,
-// 4 = packed int4 pages with fp32 scales (P, Hkv, ps, 1).  window <= 0
-// means no window.  bf16: `pages_per_split` block-table entries per
-// split, and `ws` holds B * Hkv * n_split * T * H / Hkv * (D + 2) floats,
+// q/out (B, T, H, D); dtype (of q and out): 0 = fp32, 1 = bf16, 2 = fp16.
+// kv_bits: 0 = float pages of q's dtype (scales unused, may be null), 8 =
+// int8, 4 = packed int4 pages with fp32 scales (P, Hkv, ps, 1).  window
+// <= 0 means no window.  bf16, fp16: `pages_per_split` block-table entries
+// per split, and `ws` holds B * Hkv * n_split * T * H / Hkv * (D + 2) floats,
 // n_split = ceil(max_pages / pages_per_split), when n_split > 1 (fp32
 // uses neither).  Returns the CUDA error code of the launches.
 extern "C" int paged_attention_mq_fwd(
@@ -136,14 +137,12 @@ extern "C" int paged_attention_mq_fwd(
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
+  if (dtype != 0)
     return int(ptt::split::launch<false>(
         q, k_pages, v_pages, ks, vs, bt, lens, out, static_cast<float*>(ws), B,
         n_q, 0, H, Hkv, ps, D, max_pages, num_pages, pages_per_split, scale,
-        window, kv_bits, st));
-  if (dtype == 0)
-    return int(ptt::dispatch_mq_fp32(
-        kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, n_q, H, Hkv,
-        ps, D, max_pages, num_pages, scale, window, st));
-  return int(cudaErrorInvalidValue);
+        window, kv_bits, dtype, st));
+  return int(ptt::dispatch_mq_fp32(
+      kv_bits, q, k_pages, v_pages, ks, vs, bt, lens, out, B, n_q, H, Hkv,
+      ps, D, max_pages, num_pages, scale, window, st));
 }

@@ -1,6 +1,6 @@
 // Shared body of the paged attention kernels at fp32 queries: decode,
-// multi-query verify and chunk prefill (their bf16 queries take the
-// split-KV body of paged_split.cuh).
+// multi-query verify and chunk prefill (their bf16 and fp16 queries take
+// the split-KV body of paged_split.cuh).
 //
 // One thread block attends R query rows that share one KV head of one
 // sequence slot: the G = H / Hkv query heads of a GQA group, times the

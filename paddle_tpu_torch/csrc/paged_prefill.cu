@@ -1,6 +1,6 @@
-// Paged chunk-prefill attention for Hopper (sm_90a): bf16 queries over
-// bf16, int8 and nibble-packed int4 pages, and fp32 queries over fp32,
-// int8 and int4 pages.
+// Paged chunk-prefill attention for Hopper (sm_90a): bf16 or fp16 queries
+// over pages of their type, int8 and nibble-packed int4 pages, and fp32
+// queries over fp32, int8 and int4 pages.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/paged_prefill.py:
 // paged_prefill (bodies _prefill_kernel, _prefill_kernel_int8,
@@ -16,7 +16,8 @@
 //
 // Two bodies, chosen by the query dtype (a choice of body by type, not a
 // fallback: a failed launch raises in the wrapper):
-// - bf16 queries: the split-KV body of paged_split.cuh in its row split:
+// - bf16 and fp16 queries: the split-KV body of paged_split.cuh in its
+//   row split:
 //   blocks of 64 rows (four warps of m16 tiles: the chunk's rows times the
 //   G query heads of a GQA group, which share every page read) over one
 //   K/V tile ring, `pages_per_split` block-table entries per block from
@@ -121,12 +122,13 @@ cudaError_t dispatch_prefill_fp32(int kv_bits, const void* q, const void* k,
 
 }  // namespace ptt
 
-// q/out (C, H, D); dtype (of q and out): 0 = fp32, 1 = bf16.  kv_bits: 0 =
-// float pages of q's dtype (scales unused, may be null), 8 = int8, 4 =
-// packed int4 pages with fp32 scales (P, Hkv, ps, 1).  window <= 0 means
-// no window.  bf16: `pages_per_split` block-table entries per split, and
-// `ws` holds Hkv * n_split * C * H / Hkv * (D + 2) floats, n_split =
-// ceil(max_pages / pages_per_split), when n_split > 1 (fp32 uses neither).
+// q/out (C, H, D); dtype (of q and out): 0 = fp32, 1 = bf16, 2 = fp16.
+// kv_bits: 0 = float pages of q's dtype (scales unused, may be null), 8 =
+// int8, 4 = packed int4 pages with fp32 scales (P, Hkv, ps, 1).  window <=
+// 0 means no window.  bf16, fp16: `pages_per_split` block-table entries
+// per split, and `ws` holds Hkv * n_split * C * H / Hkv * (D + 2) floats,
+// n_split = ceil(max_pages / pages_per_split), when n_split > 1 (fp32
+// uses neither).
 // Returns the CUDA error code of the launches.
 extern "C" int paged_prefill_fwd(const void* q, const void* k_pages,
                                  const void* v_pages, const void* k_scales,
@@ -139,14 +141,12 @@ extern "C" int paged_prefill_fwd(const void* q, const void* k_pages,
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
+  if (dtype != 0)
     return int(ptt::split::launch<true>(  // the row split
         q, k_pages, v_pages, ks, vs, bt, nullptr, out, static_cast<float*>(ws), 1, C,
         start, H, Hkv, ps, D, max_pages, num_pages, pages_per_split, scale, window,
-        kv_bits, st));
-  if (dtype == 0)
-    return int(ptt::dispatch_prefill_fp32(kv_bits, q, k_pages, v_pages, ks, vs, bt,
-                                          out, start, C, H, Hkv, ps, D, max_pages,
-                                          num_pages, scale, window, st));
-  return int(cudaErrorInvalidValue);
+        kv_bits, dtype, st));
+  return int(ptt::dispatch_prefill_fp32(kv_bits, q, k_pages, v_pages, ks, vs, bt,
+                                        out, start, C, H, Hkv, ps, D, max_pages,
+                                        num_pages, scale, window, st));
 }

@@ -1,8 +1,10 @@
-// Split-KV body of the paged attention kernels for bf16 queries: decode
+// Split-KV body of the paged attention kernels for 16-bit queries (bf16
+// or fp16, the element type T of every template below): decode
 // (paged_attention.cu), multi-query verify (paged_attention_mq.cu) and
-// chunk prefill (paged_prefill.cu), over bf16, int8 and packed int4 pages.
+// chunk prefill (paged_prefill.cu), over float pages of q's type, int8
+// and packed int4 pages.
 //
-// Replaces, for bf16 queries, the page walk the TPU kernels of
+// Replaces, for 16-bit queries, the page walk the TPU kernels of
 // paddle_tpu/kernels/paged_attention.py and paged_prefill.py run as a
 // sequential grid axis (_page_recurrence, _mq_recurrence,
 // _chunk_recurrence: m / l / acc carried in VMEM scratch from one page to
@@ -39,20 +41,25 @@
 //     so that a tile is read once for 16 NG rows; each group writes its own
 //     rows.
 //   A ring is filled by cp.async 16-byte copies as the pages are stored
-//   (bf16, int8 or packed int4, plus the fp32 scales): tile i + 1 is in
+//   (T, int8 or packed int4, plus the fp32 scales): tile i + 1 is in
 //   flight while tile i is computed on.  The split's block-table entries
 //   are read once, into shared memory.  A tile whose every key every row
 //   of the group sees skips the per-element mask; a tile none of them sees
 //   is skipped.
-// - Both products are mma.sync m16n8k16 (bf16 operands, fp32
-//   accumulation) on the fragment toolkit of flash_common.cuh: Q and K by
-//   ldmatrix, V by ldmatrix.trans, and the S accumulator, exponentiated,
-//   becomes P's A operand in registers.  O (16 rows x D) stays in
-//   registers for the block's life.
-// - Quantized pages are widened to bf16 in a staging tile of the ring
-//   right before their fragments load (int8 values and int4 nibbles are
-//   exact in bf16: a byte-permute builds the fp32 2^23 + v, one
-//   subtraction gives v and its upper half is the bf16), never to fp32.
+// - Both products are mma.sync m16n8k16 (T operands, fp32 accumulation)
+//   on the fragment toolkit of flash_common.cuh: Q and K by ldmatrix, V by
+//   ldmatrix.trans, and the S accumulator, exponentiated and rounded to T
+//   (the reference casts the probabilities to V's type before P.V), becomes
+//   P's A operand in registers.  O (16 rows x D) stays in registers for
+//   the block's life.
+// - Quantized pages are widened to T in a staging tile of the ring right
+//   before their fragments load, never to fp32.  int8 values and int4
+//   nibbles are exact in both types, and a byte-permute puts each biased
+//   byte b = v + bias (128 or 8) into the mantissa of a float that one
+//   subtraction turns into v: for bf16 the fp32 2^23 + b, whose upper half
+//   is then the bf16 v; for fp16 two fp16 1024 + b at once (0x64 over the
+//   byte: the mantissa's unit at 2^10 is 1), minus 1024 + bias by one
+//   __hsub2.
 //   The K scale of key j multiplies score column j after Q.K^T, since
 //   q.(s_j k_j) = s_j (q.k_j); the V scale of key j multiplies probability
 //   column j before P.V, and the denominator sums the unscaled
@@ -74,7 +81,7 @@
 // does ~4 flops per value read; the tensor cores take the products (R is
 // padded to 16 rows, free under that bound) so that the threads spend
 // their issue slots on the copies, the widening and the softmax.  With
-// bf16 pages the copies bind (a block's 143 KB of rings leave one block
+// 16-bit pages the copies bind (a block's 143 KB of rings leave one block
 // per SM); with quantized pages the widening does, a warp's dependent
 // chain of byte-permutes, stores and ldmatrix per tile (see PERF.md).  A
 // prefill chunk reads its slot's (start + C) visible positions and does
@@ -94,6 +101,7 @@ namespace ptt {
 namespace split {
 
 using fa::bf16;
+using fa::f16;
 
 constexpr int KT = 32;        // keys per tile
 constexpr int STAGES = 2;     // ring depth
@@ -102,7 +110,7 @@ constexpr int NT = 32 * NW;
 
 // Shared-memory layout of a block: Q tile, then its rings of stages (one
 // per lane group for a tile split, one for a row split; for quantized
-// pages each with a bf16 staging tile), then the split's block-table
+// pages each with a 16-bit staging tile), then the split's block-table
 // entries.  After the tiles, the ring area of a tile split holds the merge.
 template <int DP, int BITS, bool RS>
 struct Layout {
@@ -113,11 +121,11 @@ struct Layout {
   static constexpr int ROWS = RS ? 16 * NG : 16;          // query rows per block
   static constexpr int RINGS = RS ? 1 : NG;
   static constexpr int RT = RS ? NT : GT;                 // threads per ring
-  static constexpr int LD = DP + 8;                       // bf16 tile row
+  static constexpr int LD = DP + 8;                       // 16-bit tile row
   static constexpr int ROWB = BITS == 0 ? 2 * LD : DP * BITS / 8;
   static constexpr int TILEB = KT * ROWB;                 // K or V of a stage
   static constexpr int STAGEB = 2 * TILEB + (BITS ? 2 * KT * 4 : 0);
-  // bf16 staging of quantized pages: K, then V in one tile (tile split),
+  // 16-bit staging of quantized pages: K, then V in one tile (tile split),
   // or K and V side by side (row split, where a block barrier is dearer)
   static constexpr int STAGINGB = BITS ? (RS ? 2 : 1) * KT * LD * 2 : 0;
   static constexpr int RINGB = STAGES * STAGEB + STAGINGB;
@@ -130,15 +138,16 @@ struct Layout {
   static size_t bytes(int pps) { return size_t(QB) + size_t(RINGS) * RINGB + 4 * size_t(pps); }
 };
 
+// q, out and float pages hold the kernel's element type T (bf16 or fp16)
 struct Args {
-  const bf16* q;            // (B, T, H, D)
+  const void* q;            // (B, T, H, D)
   const void* k;            // pages (P, Hkv, ps, D or D / 2)
   const void* v;
-  const float* ks;          // scales (P, Hkv, ps, 1); null for bf16 pages
+  const float* ks;          // scales (P, Hkv, ps, 1); null for float pages
   const float* vs;
   const int* table;         // (B, max_pages)
   const int* lengths;       // (B,), or null: row t at q_off + t
-  bf16* out;                // (B, T, H, D)
+  void* out;                // (B, T, H, D)
   float* ws_acc;            // (B, Hkv, n_split, R, D) unnormalised O
   float2* ws_ml;            // (B, Hkv, n_split, R): (m in log2 units, l)
   int T, q_off, H, Hkv, G, R, n_rg, ps, D, max_pages, num_pages, pps,
@@ -149,17 +158,17 @@ struct Args {
 // Issue the cp.async copies of one tile (keys [j0, j0 + valid) of page
 // `page`, zeros past them and past D) into a stage; the ring's RT
 // threads, `tid` the thread's index among them.
-template <int DP, int BITS, bool RS>
+template <int DP, int BITS, bool RS, typename T>
 __device__ __forceinline__ void issue_tile(const Args& a, char* stage, int page, int j0,
                                            int valid, int kvh, int tid) {
   using L = Layout<DP, BITS, RS>;
   const size_t row0 = (size_t(valid > 0 ? page : 0) * a.Hkv + kvh) * a.ps + j0;
   if constexpr (BITS == 0) {
     constexpr int VPR = DP / 8;
-    const bf16* kg = static_cast<const bf16*>(a.k) + row0 * a.D;
-    const bf16* vg = static_cast<const bf16*>(a.v) + row0 * a.D;
-    bf16* kt = reinterpret_cast<bf16*>(stage);
-    bf16* vt = reinterpret_cast<bf16*>(stage + L::TILEB);
+    const T* kg = static_cast<const T*>(a.k) + row0 * a.D;
+    const T* vg = static_cast<const T*>(a.v) + row0 * a.D;
+    T* kt = reinterpret_cast<T*>(stage);
+    T* vt = reinterpret_cast<T*>(stage + L::TILEB);
 #pragma unroll 4
     for (int i = 0; i < KT * VPR / L::RT; ++i) {
       const int e = tid + L::RT * i, r = e / VPR, c = (e % VPR) * 8;
@@ -192,22 +201,43 @@ __device__ __forceinline__ void issue_tile(const Args& a, char* stage, int page,
   }
 }
 
-// bf16 bits of the integer v held exactly in the fp32 2^23 + v + bias.
-__device__ __forceinline__ uint32_t widen_pair(uint32_t u, int i0, float bias) {
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i0)) - bias;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + i0)) - bias;
-  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+// Biased bytes i0 and i0 + 1 of u (b = v + bias) as two T values v in
+// one register, lo in the low half.  bf16: the fp32 2^23 + b less 2^23 +
+// bias, exact, whose upper half is the bf16 v.  fp16: the fp16 1024 + b
+// (bits 0x6400 | b) less 1024 + bias, both halves in one __hsub2, exact.
+template <typename T>
+__device__ __forceinline__ uint32_t widen_pair(uint32_t u, int i0, int bias) {
+  if constexpr (std::is_same_v<T, f16>) {
+    const uint32_t w = __byte_perm(u, 0x64646464u, 0x4140 + 0x0101 * i0);
+    const __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&w),
+                              __half2half2(__ushort_as_half(
+                                  static_cast<unsigned short>(0x6400 | bias))));
+    return *reinterpret_cast<const uint32_t*>(&r);
+  } else {
+    const float fb = 8388608.f + bias;
+    const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i0)) - fb;
+    const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + i0)) - fb;
+    return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  }
 }
 
-// Four biased bytes (each 128 + v, or 8 + v) as four bf16 values v.
-__device__ __forceinline__ uint2 widen4(uint32_t u, float bias) {
-  return make_uint2(widen_pair(u, 0, bias), widen_pair(u, 2, bias));
+// Four biased bytes (each 128 + v, or 8 + v) as four T values v.
+template <typename T>
+__device__ __forceinline__ uint2 widen4(uint32_t u, int bias) {
+  return make_uint2(widen_pair<T>(u, 0, bias), widen_pair<T>(u, 2, bias));
+}
+
+// x rounded to T (to nearest even).
+template <typename T>
+__device__ __forceinline__ T to_elt(float x) {
+  if constexpr (std::is_same_v<T, f16>) return __float2half_rn(x);
+  else return __float2bfloat16_rn(x);
 }
 
 // A quantized K or V tile of a stage (rows of D * BITS / 8 bytes) widened
-// to the ring's bf16 staging tile [KT][LD] (columns past D stay zero).
-template <int DP, int BITS, bool RS>
-__device__ __forceinline__ void widen_tile(bf16* dst, const char* raw, int D, int tid) {
+// to the ring's T staging tile [KT][LD] (columns past D stay zero).
+template <int DP, int BITS, bool RS, typename T>
+__device__ __forceinline__ void widen_tile(T* dst, const char* raw, int D, int tid) {
   using L = Layout<DP, BITS, RS>;
   constexpr int VPR = DP * BITS / 8 / 16;
   const int rb = D * BITS / 8;
@@ -217,11 +247,11 @@ __device__ __forceinline__ void widen_tile(bf16* dst, const char* raw, int D, in
     if ((KT * VPR % L::RT != 0 && e >= KT * VPR) || c >= rb) continue;
     const uint4 w = *reinterpret_cast<const uint4*>(raw + r * L::ROWB + c);
     const uint32_t x[4] = {w.x, w.y, w.z, w.w};
-    bf16* row = dst + r * L::LD;
+    T* row = dst + r * L::LD;
     if constexpr (BITS == 8) {
       uint2 o[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) o[k] = widen4(x[k] ^ 0x80808080u, 8388736.f);
+      for (int k = 0; k < 4; ++k) o[k] = widen4<T>(x[k] ^ 0x80808080u, 128);
       *reinterpret_cast<uint4*>(row + c) = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
       *reinterpret_cast<uint4*>(row + c + 8) = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
     } else {
@@ -229,8 +259,8 @@ __device__ __forceinline__ void widen_tile(bf16* dst, const char* raw, int D, in
       uint2 lo[4], hi[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        lo[k] = widen4((x[k] & 0x0F0F0F0Fu) ^ 0x08080808u, 8388616.f);
-        hi[k] = widen4(((x[k] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 8388616.f);
+        lo[k] = widen4<T>((x[k] & 0x0F0F0F0Fu) ^ 0x08080808u, 8);
+        hi[k] = widen4<T>(((x[k] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 8);
       }
       *reinterpret_cast<uint4*>(row + c) = make_uint4(lo[0].x, lo[0].y, lo[1].x, lo[1].y);
       *reinterpret_cast<uint4*>(row + c + 8) = make_uint4(lo[2].x, lo[2].y, lo[3].x, lo[3].y);
@@ -288,13 +318,15 @@ __device__ __forceinline__ void row_splits(const Args& a, int qp, int* s0, int* 
   *s1 = last < first ? -1 : min(last / a.pps, a.n_split - 1);
 }
 
-template <int DP, int BITS, bool RS>
+template <int DP, int BITS, bool RS, typename T>
 __global__ void __launch_bounds__(NT)
 split_kernel(const Args a) {
   using L = Layout<DP, BITS, RS>;
   constexpr int NG = L::NG, LD = L::LD, DPO = L::DPO, ROWS = L::ROWS;
   extern __shared__ __align__(128) char split_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(split_smem);
+  const T* q = static_cast<const T*>(a.q);
+  T* out = static_cast<T*>(a.out);
+  T* qs = reinterpret_cast<T*>(split_smem);
   char* rings = split_smem + L::QB;
   int* tbl = reinterpret_cast<int*>(rings + L::RINGS * L::RINGB);
 
@@ -311,7 +343,7 @@ split_kernel(const Args a) {
   if (p0 > p1) {          // no visible page: nothing to write but zeros
     if (a.n_split == 1)     // (the merge reads only its row's splits)
       for (int e = threadIdx.x; e < nr * a.D; e += NT)
-        a.out[row_offset(a, b, kvh, r0 + e / a.D) + e % a.D] = __float2bfloat16(0.f);
+        out[row_offset(a, b, kvh, r0 + e / a.D) + e % a.D] = to_elt<T>(0.f);
     return;
   }
 
@@ -320,7 +352,7 @@ split_kernel(const Args a) {
   for (int e = threadIdx.x; e < ROWS * DP / 8; e += NT) {
     const int r = e / (DP / 8), c = (e % (DP / 8)) * 8;
     const bool ok = r < nr && c < a.D;
-    fa::cp_async16(qs + r * LD + c, ok ? a.q + row_offset(a, b, kvh, r0 + r) + c : a.q, ok);
+    fa::cp_async16(qs + r * LD + c, ok ? q + row_offset(a, b, kvh, r0 + r) + c : q, ok);
   }
   fa::cp_async_commit();
   for (int i = threadIdx.x; i <= p1 - p0; i += NT)
@@ -331,7 +363,7 @@ split_kernel(const Args a) {
   const int tid = threadIdx.x % L::RT;         // thread index at its ring
   const int g = lane / 4, t4 = lane % 4;
   char* ring = rings + (RS ? 0 : grp) * L::RINGB;
-  bf16* staging = reinterpret_cast<bf16*>(ring + STAGES * L::STAGEB);
+  T* staging = reinterpret_cast<T*>(ring + STAGES * L::STAGEB);
   if constexpr (BITS != 0) {
     for (int e = tid; e < L::STAGINGB / 16; e += L::RT)
       reinterpret_cast<uint4*>(staging)[e] = make_uint4(0u, 0u, 0u, 0u);
@@ -356,7 +388,7 @@ split_kernel(const Args a) {
     if (s < mine) {
       int page, pg, j0;
       const int valid = tile(s, &page, &pg, &j0);
-      issue_tile<DP, BITS, RS>(a, ring + s * L::STAGEB, page, j0, valid, kvh, tid);
+      issue_tile<DP, BITS, RS, T>(a, ring + s * L::STAGEB, page, j0, valid, kvh, tid);
     }
     fa::cp_async_commit();
   }
@@ -367,7 +399,7 @@ split_kernel(const Args a) {
   const int gr = RS ? grp * 16 : 0;
   const int gn = RS ? max(0, min(16, nr - gr)) : nr;
   const int gl = max(gn, 1) - 1;
-  const bf16* gq = qs + gr * LD;
+  const T* gq = qs + gr * LD;
   const int g_first = len + (r0 + gr) / a.G, g_last = len + (r0 + gr + gl) / a.G;
   const int qp_lo = len + (r0 + gr + min(g, gl)) / a.G;
   const int qp_hi = len + (r0 + gr + min(g + 8, gl)) / a.G;
@@ -381,8 +413,8 @@ split_kernel(const Args a) {
     if (nxt < mine) {
       int page, pg, j0;
       const int valid = tile(nxt, &page, &pg, &j0);
-      issue_tile<DP, BITS, RS>(a, ring + (nxt % STAGES) * L::STAGEB, page, j0, valid, kvh,
-                               tid);
+      issue_tile<DP, BITS, RS, T>(a, ring + (nxt % STAGES) * L::STAGEB, page, j0, valid,
+                                  kvh, tid);
     }
     fa::cp_async_commit();
     fa::cp_async_wait<STAGES - 1>();
@@ -391,11 +423,11 @@ split_kernel(const Args a) {
     int page, pg, j0;
     const int valid = tile(i, &page, &pg, &j0);
     const float* ksc = reinterpret_cast<const float*>(st + 2 * L::TILEB);
-    const bf16* kt = reinterpret_cast<const bf16*>(st);
-    const bf16* vt = reinterpret_cast<const bf16*>(st + L::TILEB);
+    const T* kt = reinterpret_cast<const T*>(st);
+    const T* vt = reinterpret_cast<const T*>(st + L::TILEB);
     if constexpr (BITS != 0) {
-      widen_tile<DP, BITS, RS>(staging, st, a.D, tid);
-      if constexpr (RS) widen_tile<DP, BITS, RS>(staging + KT * LD, st + L::TILEB, a.D, tid);
+      widen_tile<DP, BITS, RS, T>(staging, st, a.D, tid);
+      if constexpr (RS) widen_tile<DP, BITS, RS, T>(staging + KT * LD, st + L::TILEB, a.D, tid);
       ring_sync<L::DSPLIT, RS>(grp);
       kt = staging;
       if constexpr (RS) vt = staging + KT * LD;
@@ -425,10 +457,10 @@ split_kernel(const Args a) {
         for (int np = 0; np < 2; ++np) {
           fa::frag_b_rows<LD>(kb, kt, np * 16, kk * 16);
           fa::frag_b_rows<LD>(kc, kt, np * 16, kk * 16 + 16);
-          fa::mma16816(s[2 * np], qa, kb[0], kb[1]);
-          fa::mma16816(s[2 * np + 1], qa, kb[2], kb[3]);
-          fa::mma16816(s2[2 * np], qb, kc[0], kc[1]);
-          fa::mma16816(s2[2 * np + 1], qb, kc[2], kc[3]);
+          fa::mma16816<T>(s[2 * np], qa, kb[0], kb[1]);
+          fa::mma16816<T>(s[2 * np + 1], qa, kb[2], kb[3]);
+          fa::mma16816<T>(s2[2 * np], qb, kc[0], kc[1]);
+          fa::mma16816<T>(s2[2 * np + 1], qb, kc[2], kc[3]);
         }
       }
 
@@ -501,24 +533,24 @@ split_kernel(const Args a) {
 
     if constexpr (BITS != 0 && !RS) {
       ring_sync<L::DSPLIT, RS>(grp);               // K's fragments are read
-      widen_tile<DP, BITS, RS>(staging, st + L::TILEB, a.D, tid);
+      widen_tile<DP, BITS, RS, T>(staging, st + L::TILEB, a.D, tid);
       ring_sync<L::DSPLIT, RS>(grp);
       vt = staging;
     }
 
     // O += P . V over this warp's columns: the probabilities, rounded to
-    // bf16, are the A operand
+    // T, are the A operand
     if (seen) {
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         uint32_t pa[4];
-        fa::acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        fa::acc_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
         for (int dn = 0; dn < DPO / 16; ++dn) {
           uint32_t vb[4];
           fa::frag_b_cols<LD>(vb, vt, kk * 16, half * DPO + dn * 16);
-          fa::mma16816(o[2 * dn], pa, vb[0], vb[1]);
-          fa::mma16816(o[2 * dn + 1], pa, vb[2], vb[3]);
+          fa::mma16816<T>(o[2 * dn], pa, vb[0], vb[1]);
+          fa::mma16816<T>(o[2 * dn + 1], pa, vb[2], vb[3]);
         }
       }
     }
@@ -540,14 +572,14 @@ split_kernel(const Args a) {
       int s0, s1;
       row_splits(a, len + row / a.G, &s0, &s1);
       if (a.n_split == 1 || (s0 == sp && s1 == sp)) {
-        bf16* dst = a.out + row_offset(a, b, kvh, row);
+        T* dst = out + row_offset(a, b, kvh, row);
         const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
         for (int n = 0; n < DPO / 8; ++n) {
           const int col = half * DPO + n * 8 + 2 * t4;
           if (col < a.D)
             *reinterpret_cast<uint32_t*>(dst + col) =
-                fa::pack_bf16(o[n][2 * hf] * inv, o[n][2 * hf + 1] * inv);
+                fa::pack2<T>(o[n][2 * hf] * inv, o[n][2 * hf + 1] * inv);
         }
       } else {
         float* dst = a.ws_acc + (part * a.R + row) * a.D;
@@ -605,7 +637,7 @@ split_kernel(const Args a) {
       }
     }
     if (own[r]) {
-      a.out[row_offset(a, b, kvh, r0 + r) + d] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+      out[row_offset(a, b, kvh, r0 + r) + d] = to_elt<T>(l > 0.f ? acc / l : 0.f);
     } else {
       a.ws_acc[(part * a.R + r0 + r) * a.D + d] = acc;
       if (d == 0) a.ws_ml[part * a.R + r0 + r] = make_float2(mx, l);
@@ -620,7 +652,7 @@ split_kernel(const Args a) {
 // with l_s > 0.  Grid (Hkv * R, B): a block per row, its threads over D.
 // (RS names the split kernel it follows: the same body, two names in a
 // profile.)
-template <bool RS>
+template <bool RS, typename T>
 __global__ void __launch_bounds__(128) merge_kernel(const Args a) {
   const int r = blockIdx.x % a.R, kvh = blockIdx.x / a.R, b = blockIdx.y;
   const size_t base = (size_t(b) * a.Hkv + kvh) * a.n_split;
@@ -644,7 +676,7 @@ __global__ void __launch_bounds__(128) merge_kernel(const Args a) {
       const float2 ml = a.ws_ml[(base + s) * a.R + r];
       if (ml.y > 0.f) acc += exp2f(ml.x - mx) * a.ws_acc[((base + s) * a.R + r) * a.D + d];
     }
-    a.out[row_offset(a, b, kvh, r) + d] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+    static_cast<T*>(a.out)[row_offset(a, b, kvh, r) + d] = to_elt<T>(l > 0.f ? acc / l : 0.f);
   }
 }
 
@@ -674,14 +706,14 @@ inline cudaError_t allow_smem(K kernel, bool ready[kMaxDevices]) {
   return err;
 }
 
-template <int DP, int BITS, bool RS>
+template <int DP, int BITS, bool RS, typename T>
 cudaError_t launch_t(Args a, int B, cudaStream_t st) {
   using L = Layout<DP, BITS, RS>;
   static bool ready[kMaxDevices] = {};
-  cudaError_t err = allow_smem(split_kernel<DP, BITS, RS>, ready);
+  cudaError_t err = allow_smem(split_kernel<DP, BITS, RS, T>, ready);
   if (err != cudaSuccess) return err;
   a.n_rg = (a.R + L::ROWS - 1) / L::ROWS;
-  split_kernel<DP, BITS, RS>
+  split_kernel<DP, BITS, RS, T>
       <<<dim3(a.Hkv * a.n_rg, B, a.n_split), NT, L::bytes(a.pps), st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return err;
@@ -697,40 +729,52 @@ cudaError_t launch_t(Args a, int B, cudaStream_t st) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, merge_kernel<RS>, a);
+  err = cudaLaunchKernelEx(&cfg, merge_kernel<RS, T>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int BITS, bool RS>
+template <int BITS, bool RS, typename T>
 cudaError_t launch_bits(const Args& a, int B, cudaStream_t st) {
-  if (a.D <= 64) return launch_t<64, BITS, RS>(a, B, st);
-  if (a.D <= 128) return launch_t<128, BITS, RS>(a, B, st);
-  if (a.D <= 256) return launch_t<256, BITS, RS>(a, B, st);
+  if (a.D <= 64) return launch_t<64, BITS, RS, T>(a, B, st);
+  if (a.D <= 128) return launch_t<128, BITS, RS, T>(a, B, st);
+  if (a.D <= 256) return launch_t<256, BITS, RS, T>(a, B, st);
   return cudaErrorInvalidValue;
 }
 
-// bf16 q / out (B, T, H, D), row t at position lengths[b] + q_off + t (at
-// q_off + t where lens is null); `ws` holds B * Hkv * n_split * R * (D +
-// 2) floats when n_split > 1.  RS: the row split (see the note above).
+template <bool RS, typename T>
+cudaError_t launch_kind(const Args& a, int B, int kv_bits, cudaStream_t st) {
+  switch (kv_bits) {
+    case 0: return launch_bits<0, RS, T>(a, B, st);
+    case 8: return launch_bits<8, RS, T>(a, B, st);
+    case 4: return launch_bits<4, RS, T>(a, B, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// q / out (B, T, H, D) of the kernels' dtype code (1 = bf16, 2 = fp16; any
+// other is refused), row t at position
+// lengths[b] + q_off + t (at q_off + t where lens is null); `ws` holds B *
+// Hkv * n_split * R * (D + 2) floats when n_split > 1.  RS: the row split
+// (see the note above).
 template <bool RS>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const int* bt, const int* lens, void* out, float* ws,
                    int B, int T, int q_off, int H, int Hkv, int ps, int D, int max_pages,
                    int num_pages, int pps, float scale, int window, int kv_bits,
-                   cudaStream_t st) {
+                   int dtype, cudaStream_t st) {
   if (B < 1 || T < 1 || Hkv < 1 || H % Hkv != 0 || ps < 1 || max_pages < 1 || pps < 1 ||
       D % 8 != 0)
     return cudaErrorInvalidValue;
   Args a;
-  a.q = static_cast<const bf16*>(q);
+  a.q = q;
   a.k = k;
   a.v = v;
   a.ks = ks;
   a.vs = vs;
   a.table = bt;
   a.lengths = lens;
-  a.out = static_cast<bf16*>(out);
+  a.out = out;
   a.T = T;
   a.q_off = q_off;
   a.H = H;
@@ -750,10 +794,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
   a.ws_ml = reinterpret_cast<float2*>(
       ws ? ws + size_t(B) * Hkv * a.n_split * a.R * D : nullptr);
   if (a.n_split > 1 && ws == nullptr) return cudaErrorInvalidValue;
-  switch (kv_bits) {
-    case 0: return launch_bits<0, RS>(a, B, st);
-    case 8: return launch_bits<8, RS>(a, B, st);
-    case 4: return launch_bits<4, RS>(a, B, st);
+  switch (dtype) {
+    case 1: return launch_kind<RS, bf16>(a, B, kv_bits, st);
+    case 2: return launch_kind<RS, f16>(a, B, kv_bits, st);
     default: return cudaErrorInvalidValue;
   }
 }

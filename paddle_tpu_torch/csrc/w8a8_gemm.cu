@@ -72,14 +72,19 @@
 //   K-major from shared memory (8-bit wgmma takes no transpose; xq is (M,
 //   K) and wq (N, K), so neither needs a copy).  setmaxnreg moves
 //   registers from the producer to the consumers, whose s32 accumulators
-//   (BN / 2 a thread) feed the epilogue straight from registers; for bf16
-//   output a quad of threads transposes its words so that each thread
-//   stores 16 contiguous bytes of a row.  TMA fills rows and columns past
-//   M, N and K with zeros, so ragged shapes need no padding copy; only the
-//   epilogue's stores are masked.  The tensor maps are encoded on the host
-//   for each call (cuTensorMapEncodeTiled, reached through
-//   cudaGetDriverEntryPoint so that nothing links libcuda) and passed by
-//   value as __grid_constant__ parameters.
+//   (BN / 2 a thread) feed the epilogue straight from registers; for
+//   16-bit output a quad of threads transposes its words so that each
+//   thread stores 16 contiguous bytes of a row.  TMA fills rows and
+//   columns past M, N and K with zeros, so ragged shapes need no padding
+//   copy; only the epilogue's stores are masked.  The tensor maps are
+//   encoded on the host for each call (cuTensorMapEncodeTiled, reached
+//   through cudaGetDriverEntryPoint so that nothing links libcuda) and
+//   passed by value as __grid_constant__ parameters.
+//
+// x and out are fp32, bf16 or fp16 (the activations' type, a template
+// argument of every kernel).  A 16-bit x widens to fp32 exactly, and the
+// output is the fp32 (float(acc) * sx) * ws rounded once to its type, as
+// the plain version's cast rounds it, so every type is bit-exact.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -89,6 +94,7 @@
 namespace w8a8 {
 
 using fa::bf16;
+using fa::f16;
 using fa::cp_async16;
 using fa::cp_async_commit;
 using fa::cp_async_wait;
@@ -115,7 +121,8 @@ __device__ __forceinline__ void griddep_launch() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-// 16 consecutive values of a row, widened to fp32 (bf16 -> fp32 is exact)
+// 16 consecutive values of a row, widened to fp32 (bf16 and fp16 -> fp32
+// are exact)
 __device__ __forceinline__ void load16(const float* p, float (&v)[kChunk]) {
   const float4* q = reinterpret_cast<const float4*>(p);
 #pragma unroll
@@ -137,6 +144,20 @@ __device__ __forceinline__ void load16(const bf16* p, float (&v)[kChunk]) {
     for (int j = 0; j < 4; ++j) {
       v[8 * i + 2 * j] = __uint_as_float(w[j] << 16);
       v[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+}
+__device__ __forceinline__ void load16(const f16* p, float (&v)[kChunk]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint4 u = q[i];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[j]));
+      v[8 * i + 2 * j] = f.x;
+      v[8 * i + 2 * j + 1] = f.y;
     }
   }
 }
@@ -178,7 +199,7 @@ __device__ __forceinline__ void store2(TO* out, size_t i, int a0, int a1, float 
   if constexpr (sizeof(TO) == 4) {
     *reinterpret_cast<float2*>(out + i) = make_float2(v0, v1);
   } else {
-    *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<uint32_t*>(out + i) = fa::pack2<TO>(v0, v1);
   }
 }
 
@@ -529,11 +550,10 @@ __device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t da,
 __device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
   return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
 }
-// two outputs (float(acc) * s) * w as a bf16x2 word
-__device__ __forceinline__ uint32_t bf16_pair(int a0, int a1, float s, float2 w) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn((__int2float_rn(a0) * s) * w.x,
-                                                 (__int2float_rn(a1) * s) * w.y);
-  return *reinterpret_cast<const uint32_t*>(&p);
+// two outputs (float(acc) * s) * w as one word of two 16-bit TO values
+template <typename TO>
+__device__ __forceinline__ uint32_t pair16(int a0, int a1, float s, float2 w) {
+  return fa::pack2<TO>((__int2float_rn(a0) * s) * w.x, (__int2float_rn(a1) * s) * w.y);
 }
 
 template <int BN>
@@ -638,8 +658,8 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
           store2(out, size_t(r0 + 8) * N + col, acc[4 * i + 2], acc[4 * i + 3], s1, wc);
       }
     } else {
-      // bf16: the quad transposes its 4 x 4 words of four 8-column groups,
-      // so that each thread stores one group's 16 bytes of a row
+      // 16-bit: the quad transposes its 4 x 4 words of four 8-column
+      // groups, so that each thread stores one group's 16 bytes of a row
 #pragma unroll
       for (int j = 0; j < BN / 32; ++j)
 #pragma unroll
@@ -648,8 +668,8 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int i = 4 * j + q, col = min(n0 + 8 * i + 2 * t, N - 2);
-            v[q] = bf16_pair(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1], h ? s1 : s0,
-                             *reinterpret_cast<const float2*>(ws + col));
+            v[q] = pair16<TO>(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1], h ? s1 : s0,
+                              *reinterpret_cast<const float2*>(ws + col));
           }
           uint32_t r[4];   // r[k]: lane t ^ k's word for group t
 #pragma unroll
@@ -853,10 +873,10 @@ cudaError_t launch(const void* x, void* xq, void* sx, const void* wq, const void
 
 }  // namespace
 
-// x (M, K) of dtype (0 = fp32, 1 = bf16); xq (M, K) int8 and sx (M,) fp32,
-// scratch the wrapper allocates (written here, returned to it); wq (N, K)
-// int8; ws (N,) fp32; out (M, N) of x's dtype.  The plan, gemm_plan's
-// (kernels/int8_gemm.py): path 0 (split; bm 16, bn 32, cps
+// x (M, K) of dtype (0 = fp32, 1 = bf16, 2 = fp16); xq (M, K) int8 and sx
+// (M,) fp32, scratch the wrapper allocates (written here, returned to it);
+// wq (N, K) int8; ws (N,) fp32; out (M, N) of x's dtype.  The plan,
+// gemm_plan's (kernels/int8_gemm.py): path 0 (split; bm 16, bn 32, cps
 // 64-byte K chunks per split, at most 8 splits) or 1 (wgmma; bm 128, bn
 // 128 or 256).  Needs K % 64 == 0 and N % 16 == 0, x, xq and wq 16-byte
 // aligned; M is any positive count.  Returns the CUDA error code of the
@@ -867,26 +887,31 @@ extern "C" int w8a8_gemm_fwd(const void* x, void* xq, void* sx, const void* wq,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return int(launch<bf16>(x, xq, sx, wq, ws, out, M, N, K, path, bm, bn, cps, st));
+  if (dtype == 2)
+    return int(launch<f16>(x, xq, sx, wq, ws, out, M, N, K, path, bm, bn, cps, st));
   if (dtype == 0)
     return int(launch<float>(x, xq, sx, wq, ws, out, M, N, K, path, bm, bn, cps, st));
   return int(cudaErrorInvalidValue);
 }
 
 // The GEMM alone, on rows the caller quantized: xq (M, K) int8 and sx (M,)
-// fp32 in, out (M, N) of out_dtype (0 = fp32, 1 = bf16) = float(acc) *
-// sx[row] * ws[col], by the plan's body as w8a8_gemm_fwd runs it (no
-// quantize before it, so not a dependent launch).  Same requirements.
+// fp32 in, out (M, N) of out_dtype (0 = fp32, 1 = bf16, 2 = fp16) =
+// float(acc) * sx[row] * ws[col], by the plan's body as w8a8_gemm_fwd runs
+// it (no quantize before it, so not a dependent launch).  Same
+// requirements.
 extern "C" int w8a8_gemm_prequant(const void* xq, const void* sx, const void* wq,
                                   const void* ws, void* out, int M, int N, int K,
                                   int out_dtype, int path, int bm, int bn, int cps,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int kind = plan_kind(M, N, K, path, bm, bn, cps);
-  if (kind == 0 || (out_dtype != 0 && out_dtype != 1)) return int(cudaErrorInvalidValue);
+  if (kind == 0 || out_dtype < 0 || out_dtype > 2) return int(cudaErrorInvalidValue);
   const int8_t* q = static_cast<const int8_t*>(xq);
   const float* s = static_cast<const float*>(sx);
-  return int(out_dtype == 1
-                 ? launch_gemm<bf16>(q, s, wq, ws, out, M, N, K, bn, cps, kind == 1, false, st)
-                 : launch_gemm<float>(q, s, wq, ws, out, M, N, K, bn, cps, kind == 1, false,
-                                      st));
+  const bool split = kind == 1;
+  if (out_dtype == 1)
+    return int(launch_gemm<bf16>(q, s, wq, ws, out, M, N, K, bn, cps, split, false, st));
+  if (out_dtype == 2)
+    return int(launch_gemm<f16>(q, s, wq, ws, out, M, N, K, bn, cps, split, false, st));
+  return int(launch_gemm<float>(q, s, wq, ws, out, M, N, K, bn, cps, split, false, st));
 }

@@ -28,7 +28,8 @@ kernel for CUDA tensors, never rerouted.  The kernel's bodies read K in
 by the wrapper (:func:`pad_operands`) and the output sliced back, which is
 exact: zero K columns change neither a row's absmax nor the int32 sums,
 and zero weight rows (scale 1) only fill the columns cut off.  Each call
-counts one ``w8a8_gemm`` launch (its quantize and GEMM are one kernel's).
+counts one ``w8a8_gemm`` launch (its quantize and GEMM are one kernel's),
+or one ``w8a8_gemm_fp16`` launch for fp16 activations.
 """
 
 from __future__ import annotations
@@ -40,9 +41,13 @@ import torch
 
 from ..ops.quant_ops import quantize_per_token
 from . import _build
-from .paged_attention import _DTYPES
 
-_build.LAUNCHES["w8a8_gemm"] = 0
+#: activation (and output) dtype -> the kernel's dtype code
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: x's dtype -> the launch-count name of a w8a8_gemm call
+_LAUNCH = {torch.float32: "w8a8_gemm", torch.bfloat16: "w8a8_gemm",
+           torch.float16: "w8a8_gemm_fp16"}
+_build.LAUNCHES.update({n: 0 for n in _LAUNCH.values()})
 _build.LAUNCHES["w8a8_gemm_prequant"] = 0
 
 #: K bytes per ring stage of the split path (one ``mma.sync`` k32 pair)
@@ -140,8 +145,8 @@ def w8a8_gemm_plain(x, wq, ws, *, return_quantized=False):
 def _validate(x, wq, ws):
     """The shapes, dtypes and layouts the kernel takes; returns (m, k, n)."""
     if x.dtype not in _DTYPES or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("w8a8_gemm: x must be a contiguous (M, K) fp32 or "
-                         "bf16 tensor")
+        raise ValueError("w8a8_gemm: x must be a contiguous (M, K) fp32, "
+                         "bf16 or fp16 tensor")
     m, k = x.shape
     if (wq.device != x.device or wq.dtype != torch.int8 or wq.dim() != 2
             or wq.shape[1] != k or not wq.is_contiguous()):
@@ -200,7 +205,7 @@ def pad_operands(x, wq, ws):
 def w8a8_gemm(x, wq, ws, *, return_quantized=False, plan=None):
     """Dynamic per-token quantize + int8 GEMM + rescale.
 
-    ``x`` (M, K) fp32/bf16 contiguous; ``wq`` (N, K) int8 contiguous;
+    ``x`` (M, K) fp32/bf16/fp16 contiguous; ``wq`` (N, K) int8 contiguous;
     ``ws`` (N,) fp32; any M, K, N >= 1.  Returns (M, N) in x's dtype (and
     ``xq``, ``sx`` (M, 1) with ``return_quantized``).  ``plan`` (a
     :class:`GemmPlan`, for the padded shape) overrides :func:`gemm_plan`'s.
@@ -228,7 +233,7 @@ def _kernel_gemm(x, wq, ws, return_quantized, plan):
     xp, wqp, wsp = pad_operands(x, wq, ws)
     m, kp, np_ = _validate(xp, wqp, wsp)
     out, scratch = _launch(xp, wqp, wsp, plan or gemm_plan(m, np_, kp))
-    _build.LAUNCHES["w8a8_gemm"] += 1
+    _build.LAUNCHES[_LAUNCH[x.dtype]] += 1
     if np_ != n:
         out = out[:, :n].contiguous()
     if not return_quantized:
@@ -258,7 +263,7 @@ def w8a8_gemm_prequant(xq, sx, wq, ws, *, out_dtype=torch.float32,
     inference ops': per tensor, or per row): ``xq`` (M, K) int8, ``sx``
     (M, 1) fp32 row scales, ``wq`` (N, K) int8, ``ws`` (N,) fp32; any M, K,
     N >= 1.  Returns ``float(acc) * sx[row] * ws[col]`` (M, N) in
-    ``out_dtype`` (fp32 or bf16).
+    ``out_dtype`` (fp32, bf16 or fp16).
 
     CPU tensors take :func:`w8a8_gemm_prequant_plain`.  CUDA
     tensors launch the kernel's ``w8a8_gemm_prequant`` entry (the
@@ -278,7 +283,7 @@ def w8a8_gemm_prequant(xq, sx, wq, ws, *, out_dtype=torch.float32,
             or out_dtype not in _DTYPES):
         raise ValueError(
             f"w8a8_gemm_prequant: xq (M, K) int8, sx (M, 1) fp32, wq (N, K) "
-            f"int8, ws (N,) and an fp32 or bf16 output, not "
+            f"int8, ws (N,) and an fp32, bf16 or fp16 output, not "
             f"{tuple(xq.shape)} {xq.dtype}, {tuple(sx.shape)} {sx.dtype}, "
             f"{tuple(wq.shape)}, {tuple(ws.shape)}, {out_dtype}")
     n = wq.shape[0]

@@ -7,8 +7,9 @@ Counterpart of ``paddle_tpu/kernels/paged_attention.py``
 float, int8 and nibble-packed int4 pages.  The kernels are
 ``paddle_tpu_torch/csrc/paged_attention.cu`` (decode) and
 ``paddle_tpu_torch/csrc/paged_attention_mq.cu`` (verify: T draft rows per
-slot).  For bf16 queries both run the split-KV body of
-``csrc/paged_split.cuh``: each slot's block-table row is cut into splits
+slot).  For bf16 and fp16 queries both run the split-KV body of
+``csrc/paged_split.cuh`` (one template over the 16-bit element type):
+each slot's block-table row is cut into splits
 of :func:`split_plan`'s ``pages_per_split`` entries, one thread block per
 (KV head, slot, split), and a second kernel merges the splits' partials
 from a workspace this module allocates; fp32 queries take one block per
@@ -17,8 +18,10 @@ design and what bounds them on the card.
 
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors; there is no other path.  Launches count per
-wrapper call and page kind: ``paged_attention``, ``paged_attention_int8``,
-``paged_attention_int4`` and the same three of ``paged_attention_mq``.
+wrapper call, page kind and, for fp16 queries, apart: ``paged_attention``,
+``paged_attention_int8``, ``paged_attention_int4`` (fp32 and bf16
+queries), the same three with ``_fp16`` appended (fp16 queries), and the
+six of ``paged_attention_mq``.
 """
 
 from __future__ import annotations
@@ -32,10 +35,21 @@ from ..ops.quant_ops import unpack_int4
 from . import _build
 
 _NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: query dtype -> the kernels' dtype code
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the query dtypes of the split-KV body
+_HALF = (torch.bfloat16, torch.float16)
 _SUFFIX = {0: "", 8: "_int8", 4: "_int4"}   # page kind -> variant name
-_DECODE = {b: "paged_attention" + s for b, s in _SUFFIX.items()}
-_MQ = {b: "paged_attention_mq" + s for b, s in _SUFFIX.items()}
+
+
+def _variants(kernel):
+    """{(page kind, fp16 queries): launch-count name} of one kernel."""
+    return {(b, f16): kernel + s + ("_fp16" if f16 else "")
+            for b, s in _SUFFIX.items() for f16 in (False, True)}
+
+
+_DECODE = _variants("paged_attention")
+_MQ = _variants("paged_attention_mq")
 _build.LAUNCHES.update({n: 0 for n in (*_DECODE.values(), *_MQ.values())})
 #: what the split plan aims for: thread blocks per call (four per SM of an
 #: H100's 132), and key positions per split at least (four 32-key tiles for
@@ -43,15 +57,15 @@ _build.LAUNCHES.update({n: 0 for n in (*_DECODE.values(), *_MQ.values())})
 #: ahead of its math)
 SPLIT_BLOCKS = 528
 SPLIT_MIN_POSITIONS = 512
-#: head dims the bf16 body takes (it pads D to 64, 128 or 256)
-_MAX_BF16_D = 256
+#: head dims the 16-bit body takes (it pads D to 64, 128 or 256)
+_MAX_HALF_D = 256
 
 
 def split_plan(batch, kv_heads, max_pages, page_size):
-    """How the bf16 decode and verify kernels cut each slot's block-table
-    row of ``max_pages`` entries: ``(pages_per_split, n_split)``, split s
-    taking entries ``[s * pages_per_split, (s + 1) * pages_per_split)``
-    (the last one fewer).  Enough splits that ``batch * kv_heads *
+    """How the bf16 and fp16 decode and verify kernels cut each slot's
+    block-table row of ``max_pages`` entries: ``(pages_per_split,
+    n_split)``, split s taking entries ``[s * pages_per_split, (s + 1) *
+    pages_per_split)`` (the last one fewer).  Enough splits that ``batch * kv_heads *
     n_split`` blocks reach :data:`SPLIT_BLOCKS`, each of at least
     :data:`SPLIT_MIN_POSITIONS` positions.
 
@@ -164,7 +178,7 @@ def _check_pages(name, q, k_pages, v_pages, n_heads, head_dim, k_scales,
     if k_pages.device != q.device or v_pages.device != q.device:
         raise ValueError(f"{name}: q and the pages must share a device")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"{name}: q is fp32 or bf16, got {q.dtype}")
+        raise TypeError(f"{name}: q is fp32, bf16 or fp16, got {q.dtype}")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"{name}: pages must be (P, Hkv, page_size, D)")
     _, hkv, _, d_store = k_pages.shape
@@ -223,16 +237,17 @@ def _scale_arg(scale, d):
 def _launch(name, q, k_pages, v_pages, block_tables, lengths, k_scales,
             v_scales, bits, scale, window):
     """Launch the decode (q (B, H, D)) or verify (q (B, T, H, D)) kernel
-    on validated operands; bf16 queries get the split plan and, with more
-    than one split, the partials' workspace.  Returns the output."""
+    on validated operands; bf16 and fp16 queries get the split plan and,
+    with more than one split, the partials' workspace.  Returns the
+    output."""
     *lead, d = q.shape                             # (B, H) or (B, T, H)
     p, hkv, ps, _ = k_pages.shape
     maxp = block_tables.shape[1]
     pps, ws = maxp, None
-    if q.dtype == torch.bfloat16:
-        if d > _MAX_BF16_D:
-            raise ValueError(f"{name}: bf16 queries take D <= {_MAX_BF16_D}, "
-                             f"got {d}")
+    if q.dtype in _HALF:
+        if d > _MAX_HALF_D:
+            raise ValueError(f"{name}: {q.dtype} queries take D <= "
+                             f"{_MAX_HALF_D}, got {d}")
         pps, n_split = split_plan(lead[0], hkv, maxp, ps)
         if n_split > 1:
             # per split and (slot, KV head): the G * T rows' O, m and l
@@ -255,8 +270,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     k_scales=None, v_scales=None, scale=None, window=None):
     """Single-query decode attention through a paged KV pool.
 
-    ``q`` (B, H, D) fp32/bf16; ``k_pages``/``v_pages`` (P, Hkv, page_size,
-    D) of q's dtype, Hkv dividing H (GQA) — or int8 with
+    ``q`` (B, H, D) fp32/bf16/fp16; ``k_pages``/``v_pages`` (P, Hkv,
+    page_size, D) of q's dtype, Hkv dividing H (GQA) — or int8 with
     ``k_scales``/``v_scales`` (P, Hkv, page_size, 1) fp32, or packed int4
     (last dim D // 2, detected from the shape) with the same scales;
     ``block_tables`` (B, max_pages) int32 page ids (entries beyond a
@@ -282,7 +297,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         raise ValueError("paged_attention: block_tables must be (B, max_pages)")
     out = _launch("paged_attention", q, k_pages, v_pages, block_tables,
                   lengths, k_scales, v_scales, bits, scale, window)
-    _build.LAUNCHES[_DECODE[bits]] += 1
+    _build.LAUNCHES[_DECODE[bits, q.dtype == torch.float16]] += 1
     return out
 
 
@@ -290,7 +305,7 @@ def paged_attention_mq(q, k_pages, v_pages, block_tables, lengths, *,
                        k_scales=None, v_scales=None, scale=None, window=None):
     """Multi-query (speculative verify) attention through a paged KV pool.
 
-    ``q`` (B, T, H, D) fp32/bf16, row t of slot b at position
+    ``q`` (B, T, H, D) fp32/bf16/fp16, row t of slot b at position
     ``lengths[b] + t``; ``lengths`` (B,) int32 counts the positions valid
     BEFORE the block, whose own K/V must already be in the pages.  Row t
     attends to page position j iff ``j <= lengths[b] + t`` (and ``j >
@@ -323,5 +338,5 @@ def paged_attention_mq(q, k_pages, v_pages, block_tables, lengths, *,
             "paged_attention_mq: block_tables must be (B, max_pages)")
     out = _launch("paged_attention_mq", q, k_pages, v_pages, block_tables,
                   lengths, k_scales, v_scales, bits, scale, window)
-    _build.LAUNCHES[_MQ[bits]] += 1
+    _build.LAUNCHES[_MQ[bits, q.dtype == torch.float16]] += 1
     return out

@@ -3,8 +3,8 @@ version.
 
 Counterpart of ``paddle_tpu/kernels/paged_prefill.py`` (``paged_prefill``,
 ``paged_prefill_ref``) over float, int8 and nibble-packed int4 pages.  The
-kernel is ``paddle_tpu_torch/csrc/paged_prefill.cu``.  For bf16 queries it
-runs the split-KV body of ``csrc/paged_split.cuh``: blocks of
+kernel is ``paddle_tpu_torch/csrc/paged_prefill.cu``.  For bf16 and fp16
+queries it runs the split-KV body of ``csrc/paged_split.cuh``: blocks of
 :data:`PREFILL_ROWS` rows (the chunk's rows times the query heads of a
 GQA group) over :func:`prefill_plan`'s splits of the slot's block table,
 and a second kernel that merges the splits' partials from a workspace
@@ -15,7 +15,8 @@ design and what bounds them on the card.
 :func:`paged_prefill` takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors; there is no other path.  Launches count per
 page kind: ``paged_prefill``, ``paged_prefill_int8``,
-``paged_prefill_int4``.
+``paged_prefill_int4`` (fp32 and bf16 queries), and the same three with
+``_fp16`` appended for fp16 queries.
 """
 
 from __future__ import annotations
@@ -23,13 +24,14 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .paged_attention import (_DTYPES, _MAX_BF16_D, _NEG_INF, _SUFFIX,
+from .paged_attention import (_DTYPES, _HALF, _MAX_HALF_D, _NEG_INF,
                               SPLIT_BLOCKS, _check_index, _check_pages,
-                              _scale_arg, _scale_scores, gather_pages)
+                              _scale_arg, _scale_scores, _variants,
+                              gather_pages)
 
-_PREFILL = {b: "paged_prefill" + s for b, s in _SUFFIX.items()}
+_PREFILL = _variants("paged_prefill")
 _build.LAUNCHES.update({n: 0 for n in _PREFILL.values()})
-#: the bf16 kernel's query rows per thread block (four warps of 16 rows on
+#: the 16-bit kernel's query rows per thread block (four warps of 16 rows on
 #: one K/V tile ring), and key positions per split at least (four 32-key
 #: tiles, so that the ring runs ahead of the math)
 PREFILL_ROWS = 64
@@ -37,10 +39,10 @@ PREFILL_MIN_POSITIONS = 128
 
 
 def prefill_plan(chunk, heads, kv_heads, max_pages, page_size):
-    """How the bf16 prefill kernel cuts the slot's block-table row of
-    ``max_pages`` entries: ``(pages_per_split, n_split)``, split s taking
-    entries ``[s * pages_per_split, (s + 1) * pages_per_split)`` (the last
-    one fewer).  Enough splits that the ``kv_heads`` x row blocks of
+    """How the bf16 and fp16 prefill kernel cuts the slot's block-table
+    row of ``max_pages`` entries: ``(pages_per_split, n_split)``, split s
+    taking entries ``[s * pages_per_split, (s + 1) * pages_per_split)``
+    (the last one fewer).  Enough splits that the ``kv_heads`` x row blocks of
     :data:`PREFILL_ROWS` (the ``chunk`` x ``heads / kv_heads`` rows of a
     KV head) x ``n_split`` blocks reach :data:`SPLIT_BLOCKS`, each split
     of at least :data:`PREFILL_MIN_POSITIONS` positions.
@@ -89,17 +91,17 @@ def paged_prefill_plain(q, k_pages, v_pages, block_table, start, *,
 
 def _launch(q, k_pages, v_pages, block_table, start, k_scales, v_scales,
             bits, scale, window):
-    """Launch the kernel on validated operands; bf16 queries get the
-    prefill plan and, with more than one split, the partials' workspace.
-    Returns the output."""
+    """Launch the kernel on validated operands; bf16 and fp16 queries get
+    the prefill plan and, with more than one split, the partials'
+    workspace.  Returns the output."""
     c, h, d = q.shape
     p, hkv, ps, _ = k_pages.shape
     maxp = block_table.shape[0]
     pps, ws = maxp, None
-    if q.dtype == torch.bfloat16:
-        if d > _MAX_BF16_D:
-            raise ValueError(f"paged_prefill: bf16 queries take D <= "
-                             f"{_MAX_BF16_D}, got {d}")
+    if q.dtype in _HALF:
+        if d > _MAX_HALF_D:
+            raise ValueError(f"paged_prefill: {q.dtype} queries take D <= "
+                             f"{_MAX_HALF_D}, got {d}")
         pps, n_split = prefill_plan(c, h, hkv, maxp, ps)
         if n_split > 1:
             # per split: the C * H rows' O, m and l
@@ -122,7 +124,7 @@ def paged_prefill(q, k_pages, v_pages, block_table, start, *, k_scales=None,
                   v_scales=None, scale=None, window=None):
     """Chunk attention through a paged KV pool.
 
-    ``q`` (C, H, D) fp32/bf16, row i at position ``start + i``;
+    ``q`` (C, H, D) fp32/bf16/fp16, row i at position ``start + i``;
     ``k_pages``/``v_pages`` (P, Hkv, page_size, D) of q's dtype, Hkv
     dividing H — or int8 / packed int4 with ``k_scales``/``v_scales``
     (P, Hkv, page_size, 1) fp32, as :func:`paged_attention` takes them;
@@ -149,5 +151,5 @@ def paged_prefill(q, k_pages, v_pages, block_table, start, *, k_scales=None,
         raise ValueError(f"paged_prefill: start must be >= 0, got {start}")
     out = _launch(q, k_pages, v_pages, block_table, start, k_scales,
                   v_scales, bits, scale, window)
-    _build.LAUNCHES[_PREFILL[bits]] += 1
+    _build.LAUNCHES[_PREFILL[bits, q.dtype == torch.float16]] += 1
     return out

@@ -119,7 +119,8 @@ def test_mq_kernel_matches_plain_on_card(dev, bits):
 # (40) and windows that leave whole splits empty (300 and 100 of the
 # longest slots).  bf16 is held to 2e-2 against the plain version computed
 # in fp32 from the same inputs (the kernel rounds P to bf16 for the tensor
-# cores and rounds its output), fp32 to 1e-5 (summation order only).
+# cores and rounds its output), fp16 to 5e-3 (the same roundings with three
+# more bits of mantissa), fp32 to 1e-5 (summation order only).
 SPLIT_B, SPLIT_HKV, SPLIT_MAXP, SPLIT_PS = 10, 2, 48, 32
 SPLIT_WINDOWS = (None, 40, 100, 300)
 
@@ -147,17 +148,22 @@ def _split_case(dev, g, bits, dtype):
     return kp, vp, sc, bt, kf, vf
 
 
+HALF_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3}
+
+
 def _held(out, ref, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
     else:
+        assert out.dtype == dtype
         err = (out.float() - ref).abs().max().item()
-        assert err <= 2e-2, err
+        assert err <= HALF_TOL[dtype], err
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
 def test_split_decode_matches_plain_on_card(dev, bits, dtype):
     """Decode over several splits, G in {1, 2, 4, 8}, every window; two
@@ -178,8 +184,9 @@ def test_split_decode_matches_plain_on_card(dev, bits, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
 def test_split_verify_matches_plain_on_card(dev, bits, dtype):
     """Verify over several splits, G in {1, 2, 4, 8} x T in {2, 5, 8}
@@ -214,16 +221,18 @@ SPLIT_SHAPES = [(8, 128), (16, 64), (64, 128), (32, 96), (32, 256)]
 @pytest.mark.cuda
 @pytest.mark.parametrize("ps,d", SPLIT_SHAPES,
                          ids=[f"page{p}-d{d}" for p, d in SPLIT_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
 @pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
-def test_split_shapes_match_plain_on_card(dev, bits, ps, d):
-    """Decode (G=2) and verify (T=5, G=2) with bf16 queries over several
-    splits at other page sizes and head dims, with and without a window;
-    bit-identical repeats."""
+def test_split_shapes_match_plain_on_card(dev, bits, ps, d, dtype):
+    """Decode (G=2) and verify (T=5, G=2) with bf16 and fp16 queries over
+    several splits at other page sizes and head dims, with and without a
+    window; bit-identical repeats."""
     g = torch.Generator(device=dev).manual_seed(ps + d + (bits or 0))
     b, hkv, maxp = 4, 2, 1024 // ps
     kp, vp, sc = _pool(dev, g, bits, P=1 + b * maxp, HKV=hkv, PS=ps, D=d)
     if bits is None:
-        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+        kp, vp = kp.to(dtype), vp.to(dtype)
     kf, vf = (kp, vp) if sc else (kp.float(), vp.float())
     bt = torch.randperm(b * maxp, device=dev, generator=g).add(1)
     bt = bt.to(torch.int32).reshape(b, maxp).contiguous()
@@ -231,23 +240,23 @@ def test_split_shapes_match_plain_on_card(dev, bits, ps, d):
         lens = [1, ps + 1, 600, 1024 - (t or 0)]
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         shape = (b, 2 * hkv, d) if t is None else (b, t, 2 * hkv, d)
-        q = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+        q = torch.randn(shape, device=dev, generator=g).to(dtype)
         fn, plain = ((paged_attention, paged_attention_plain) if t is None
                      else (paged_attention_mq, paged_attention_mq_plain))
         for window in (None, 100):
             out = fn(q, kp, vp, bt, lens, window=window, **sc)
             ref = plain(q.float(), kf, vf, bt, lens, window=window, **sc)
-            _held(out, ref, torch.bfloat16)
+            _held(out, ref, dtype)
             assert torch.equal(out, fn(q, kp, vp, bt, lens, window=window,
                                        **sc))
 
 
-# Prefill with bf16 queries (the split-KV body's row split, over the
-# prefill plan's splits) at a block-table width the plan cuts into several
-# splits: chunks of 1, 16, 40 and 128 rows at start 0, at a page edge and
+# Prefill with bf16 and fp16 queries (the split-KV body's row split, over
+# the prefill plan's splits) at a block-table width the plan cuts into
+# several splits: chunks of 1, 16, 40 and 128 rows at start 0, at a page edge and
 # in mid-page, with no window, a window smaller than a tile (which leaves
 # whole tiles and splits of the table unseen) and one wider than a split;
-# G in {1, 2, 4, 8}; bf16 held to 2e-2 against the plain version computed
+# G in {1, 2, 4, 8}; held to HALF_TOL against the plain version computed
 # in fp32 from the same inputs, and two identical calls bit-identical.
 PREFILL_MAXP = 48
 PREFILL_CHUNKS = (1, 16, 40, 128)
@@ -256,8 +265,10 @@ PREFILL_WINDOWS = (None, 24, 300)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
 @pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
-def test_split_prefill_matches_plain_on_card(dev, bits):
+def test_split_prefill_matches_plain_on_card(dev, bits, dtype):
     """The prefill kernel on the split-KV body for each page kind: every
     chunk width, start and window above, G 1-8; bit-identical repeats.
     The plan splits the 48-entry table into several splits in every
@@ -269,7 +280,7 @@ def test_split_prefill_matches_plain_on_card(dev, bits):
     for group in (1, 2, 4, 8):
         kp, vp, sc = _pool(dev, g, bits, P=1 + PREFILL_MAXP, HKV=hkv)
         if bits is None:
-            kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+            kp, vp = kp.to(dtype), vp.to(dtype)
         kf, vf = (kp, vp) if sc else (kp.float(), vp.float())
         bt = torch.randperm(PREFILL_MAXP, device=dev, generator=g).add(1)
         bt = bt.to(torch.int32).contiguous()
@@ -277,13 +288,13 @@ def test_split_prefill_matches_plain_on_card(dev, bits):
             assert prefill_plan(c, group * hkv, hkv, PREFILL_MAXP, 32)[1] > 1
             for start in PREFILL_STARTS:
                 q = torch.randn(c, group * hkv, 128, device=dev,
-                                generator=g).to(torch.bfloat16)
+                                generator=g).to(dtype)
                 for window in PREFILL_WINDOWS:
                     out = paged_prefill(q, kp, vp, bt, start, window=window,
                                         **sc)
                     ref = paged_prefill_plain(q.float(), kf, vf, bt, start,
                                               window=window, **sc)
-                    _held(out, ref, torch.bfloat16)
+                    _held(out, ref, dtype)
                     again = paged_prefill(q, kp, vp, bt, start,
                                           window=window, **sc)
                     assert torch.equal(out, again)
@@ -293,28 +304,29 @@ def test_split_prefill_matches_plain_on_card(dev, bits):
 @pytest.mark.parametrize("ps,d", SPLIT_SHAPES + [(32, 64)],
                          ids=[f"page{p}-d{d}"
                               for p, d in SPLIT_SHAPES + [(32, 64)]])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
 @pytest.mark.parametrize("bits", [None, 8, 4], ids=["fp", "int8", "int4"])
-def test_split_prefill_shapes_match_plain_on_card(dev, bits, ps, d):
-    """Prefill with bf16 queries (G=2) at other page sizes (8, 16, 64) and
-    head dims (64, 96, 256: the row split's two-warp groups), chunks of 40
-    and 128 rows from a mid-page start, with and without a window;
-    bit-identical repeats."""
+def test_split_prefill_shapes_match_plain_on_card(dev, bits, ps, d, dtype):
+    """Prefill with bf16 and fp16 queries (G=2) at other page sizes (8,
+    16, 64) and head dims (64, 96, 256: the row split's two-warp groups),
+    chunks of 40 and 128 rows from a mid-page start, with and without a
+    window; bit-identical repeats."""
     g = torch.Generator(device=dev).manual_seed(ps + d + 5 + (bits or 0))
     hkv, maxp = 2, 1024 // ps
     kp, vp, sc = _pool(dev, g, bits, P=1 + maxp, HKV=hkv, PS=ps, D=d)
     if bits is None:
-        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+        kp, vp = kp.to(dtype), vp.to(dtype)
     kf, vf = (kp, vp) if sc else (kp.float(), vp.float())
     bt = torch.randperm(maxp, device=dev, generator=g).add(1)
     bt = bt.to(torch.int32).contiguous()
     for c, start in ((40, 300), (128, 600)):
-        q = torch.randn(c, 2 * hkv, d, device=dev,
-                        generator=g).to(torch.bfloat16)
+        q = torch.randn(c, 2 * hkv, d, device=dev, generator=g).to(dtype)
         for window in (None, 100):
             out = paged_prefill(q, kp, vp, bt, start, window=window, **sc)
             ref = paged_prefill_plain(q.float(), kf, vf, bt, start,
                                       window=window, **sc)
-            _held(out, ref, torch.bfloat16)
+            _held(out, ref, dtype)
             assert torch.equal(out, paged_prefill(q, kp, vp, bt, start,
                                                   window=window, **sc))
 
@@ -349,8 +361,8 @@ GEMM_MS = (1, 8, 16, 17, 40, 63, 64, 65, 128, 129, 300)
 def test_w8a8_gemm_is_exact_on_card(dev, k, n):
     """The W8A8 kernel equals its plain version bit for bit on both paths
     and on both sides of the crossover: the quantized activations and their
-    scales, and the output in fp32 and bf16 (the same int32 sums, converted
-    and rescaled in the same order).  Each M also runs on the path its plan
+    scales, and the output in fp32, bf16 and fp16 (the same int32 sums,
+    converted and rescaled in the same order).  Each M also runs on the path its plan
     does not pick."""
     from paddle_tpu_torch.kernels.int8_gemm import gemm_plan
 
@@ -360,7 +372,7 @@ def test_w8a8_gemm_is_exact_on_card(dev, k, n):
         x = torch.randn(m, k, device=dev, generator=g)
         x[-1] = 0.0                      # all-zero row: the 1e-8 clamp
         other = "wgmma" if gemm_plan(m, n, k).path == "split" else "split"
-        for xt in (x, x.to(torch.bfloat16)):
+        for xt in (x, x.to(torch.bfloat16), x.half()):
             _gemm_exact(xt, wq, ws)
             _gemm_exact(xt, wq, ws, gemm_plan(m, n, k, path=other))
     with pytest.raises(ValueError):
@@ -386,15 +398,17 @@ def test_w8a8_gemm_rows_columns_and_ties_on_card(dev, path):
     x[0] = torch.tensor([2.5, 3.5, -0.5, 0.5, -2.5, 126.5, -126.5, 127.0],
                         device=dev).repeat(k // 8)
     plan = gemm_plan(m, n, k, path=path)
-    for xt in (x, x.to(torch.bfloat16)):
+    for xt in (x, x.to(torch.bfloat16), x.half()):
         _gemm_exact(xt, wq, ws, plan)
     _, xq, _ = w8a8_gemm(x, wq, ws, return_quantized=True, plan=plan)
     assert xq[0, :8].tolist() == [2, 4, 0, 0, -2, 126, -126, 127]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
 @pytest.mark.parametrize("want,n_split", [(1, 1), (2, 2), (6, 6), (8, 8)])
-def test_w8a8_gemm_split_counts_on_card(dev, want, n_split):
+def test_w8a8_gemm_split_counts_on_card(dev, want, n_split, dtype):
     """The split path at M = 8 under any split count, clusters of 1 to 8
     blocks (6 wanted gives 6 splits of 6, 6, 6, 6, 6 and 2 chunks), and a
     CUDA graph's replays give the same bits."""
@@ -403,7 +417,7 @@ def test_w8a8_gemm_split_counts_on_card(dev, want, n_split):
     g = torch.Generator(device=dev).manual_seed(want)
     m, k, n = 8, 2048, 2048
     wq, ws = _gemm_weight(dev, g, n, k)
-    x = torch.randn(m, k, device=dev, generator=g, dtype=torch.bfloat16)
+    x = torch.randn(m, k, device=dev, generator=g).to(dtype)
     plan = gemm_plan(m, n, k, n_split=want)
     assert plan.n_split == n_split
     _gemm_exact(x, wq, ws, plan)
@@ -418,17 +432,69 @@ def test_w8a8_gemm_split_counts_on_card(dev, want, n_split):
 
 
 @pytest.mark.cuda
-def test_w8a8_gemm_training_rows_on_card(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_w8a8_gemm_training_rows_on_card(dev, dtype):
     """The training flagship's qkv projection at its M = 12 x 1024 rows,
-    bf16 activations: bit-exact on the wgmma path."""
+    bf16 and fp16 activations: bit-exact on the wgmma path."""
     from paddle_tpu_torch.kernels.int8_gemm import gemm_plan
 
     g = torch.Generator(device=dev).manual_seed(3)
     m, k, n = 12288, 1536, 4608
     wq, ws = _gemm_weight(dev, g, n, k)
-    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    x = torch.randn(m, k, device=dev, generator=g).to(dtype)
     assert gemm_plan(m, n, k).path == "wgmma"
     _gemm_exact(x, wq, ws)
+
+
+@pytest.mark.cuda
+def test_fp16_cuda_tensors_never_take_the_plain_version(dev, monkeypatch):
+    """fp16 CUDA operands reach the kernels, never a plain version: with
+    every ``*_plain`` made to raise on a CUDA tensor, decode, verify and
+    prefill over fp16, int8 and int4 pages and ``w8a8_gemm`` return fp16
+    outputs, and each counts its own ``_fp16`` launch name."""
+    import importlib
+
+    from paddle_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    def refuse(name):
+        def plain(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kw.values())):
+                raise AssertionError(f"{name} took a CUDA tensor")
+        return plain
+
+    for mod, name in (("paged_attention", "paged_attention_plain"),
+                      ("paged_attention", "paged_attention_mq_plain"),
+                      ("paged_prefill", "paged_prefill_plain"),
+                      ("int8_gemm", "w8a8_gemm_plain")):
+        module = importlib.import_module(f"paddle_tpu_torch.kernels.{mod}")
+        monkeypatch.setattr(module, name, refuse(name))
+    g = torch.Generator(device=dev).manual_seed(19)
+    reset_launch_counts()
+    bt = torch.randperm(8, device=dev, generator=g).add(1)
+    bt = bt.to(torch.int32).reshape(2, 4).contiguous()
+    lens = torch.tensor([40, 97], dtype=torch.int32, device=dev)
+    for bits in (None, 8, 4):
+        kp, vp, sc = _pool(dev, g, bits, P=9)
+        if bits is None:
+            kp, vp = kp.half(), vp.half()
+        q = torch.randn(2, 4, 128, device=dev, generator=g).half()
+        q5 = torch.randn(2, 5, 4, 128, device=dev, generator=g).half()
+        qc = torch.randn(16, 4, 128, device=dev, generator=g).half()
+        for out in (paged_attention(q, kp, vp, bt, lens, **sc),
+                    paged_attention_mq(q5, kp, vp, bt, lens, **sc),
+                    paged_prefill(qc, kp, vp, bt[1], 60, **sc)):
+            assert out.dtype == torch.float16 and out.is_cuda
+    wq, ws = _gemm_weight(dev, g, 48, 128)
+    x = torch.randn(8, 128, device=dev, generator=g).half()
+    assert w8a8_gemm(x, wq, ws).dtype == torch.float16
+    torch.cuda.synchronize()
+    launched = {name for name, n in KERNELS.items() if n}
+    assert launched == {f"{k}{s}_fp16" for k in ("paged_attention",
+                                                 "paged_attention_mq",
+                                                 "paged_prefill")
+                        for s in ("", "_int8", "_int4")} | {"w8a8_gemm_fp16"}
 
 
 # layout, B, H, Hkv, S, D, causal, window: every layout, GQA, a window,
@@ -1107,7 +1173,7 @@ def test_w8a8_gemm_prequant_matches_plain_on_card(dev, m, k, n, path):
                                            return_acc=True)
     assert want_acc.abs().max().item() < 2 ** 24
     assert torch.equal(acc, want_acc.float())
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         out = w8a8_gemm_prequant(xq, sx, wq, ws, out_dtype=dt, plan=plan)
         want = w8a8_gemm_prequant_plain(xq, sx, wq, ws, out_dtype=dt)
         assert out.dtype == dt and torch.equal(out, want)

@@ -144,15 +144,18 @@ def test_gemm_launch_allocates_xq_and_sx_alone(monkeypatch, shape):
 
 def test_gemm_launch_depends_on_shapes_alone(monkeypatch):
     """Two calls of one shape launch the same plan whatever the values and
-    the activation dtype; the plan itself is a function of its integers."""
+    the activation dtype (its code 0 fp32, 1 bf16, 2 fp16 passed on); the
+    plan itself is a function of its integers."""
     calls = _record(monkeypatch)
     m, n, k = 8, 2048, 2048
     wq = torch.zeros(n, k, dtype=torch.int8)
     ws = torch.ones(n)
     for x in (torch.zeros(m, k), torch.randn(m, k) * 1e3,
-              torch.randn(m, k).bfloat16()):
-        int8_gemm._launch(x, wq, ws, gemm_plan(m, n, k))
+              torch.randn(m, k).bfloat16(), torch.randn(m, k).half()):
+        out, _ = int8_gemm._launch(x, wq, ws, gemm_plan(m, n, k))
+        assert out.dtype == x.dtype
     assert len({a[6:9] + a[10:14] for a in calls}) == 1
+    assert [a[9] for a in calls] == [0, 0, 1, 2]
     assert gemm_plan(m, n, k) == gemm_plan(int(m), int(n), int(k))
     assert gemm_plan(m, n, k) == gemm_plan(m, n, k, path="split")
 
@@ -267,7 +270,7 @@ def test_padding_to_the_kernel_granularity_is_exact(shape):
     assert xp.shape[1] % GEMM_KC == 0 and wqp.shape[0] % 16 == 0
     assert wqp.shape[1] == xp.shape[1] and wsp.shape == (wqp.shape[0],)
     want, wxq, wsx = w8a8_gemm_plain(x, wq, ws, return_quantized=True)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         got = w8a8_gemm_plain(xp.to(dtype), wqp, wsp)[:, :n]
         assert torch.equal(got, w8a8_gemm_plain(x.to(dtype), wq, ws))
     _, pxq, psx = w8a8_gemm_plain(xp, wqp, wsp, return_quantized=True)

@@ -166,14 +166,19 @@ class _Untouchable(torch.Tensor):
         raise AssertionError(f"the wrapper read lengths ({func})")
 
 
-@pytest.mark.parametrize("t", [None, 5], ids=["decode", "verify"])
+@pytest.mark.parametrize("t,dtype", [(None, torch.bfloat16),
+                                     (5, torch.bfloat16),
+                                     (None, torch.float16),
+                                     (5, torch.float16)],
+                         ids=["decode", "verify", "decode-fp16",
+                              "verify-fp16"])
 @pytest.mark.parametrize("shape", PLAN_SHAPES[:4],
                          ids=["-".join(map(str, s)) for s in PLAN_SHAPES[:4]])
-def test_cuda_launch_plans_from_shapes_alone(monkeypatch, shape, t):
-    """The launch the wrappers make for bf16 queries: the kernel gets
-    split_plan's pages per split and a workspace exactly when there is
-    more than one split, and lengths is only passed on by address: the
-    plan reads nothing from the device."""
+def test_cuda_launch_plans_from_shapes_alone(monkeypatch, shape, t, dtype):
+    """The launch the wrappers make for bf16 and fp16 queries: the kernel
+    gets split_plan's pages per split and a workspace exactly when there
+    is more than one split, its dtype code (1 bf16, 2 fp16), and lengths
+    only by address: the plan reads nothing from the device."""
     import importlib
     import types
 
@@ -188,8 +193,8 @@ def test_cuda_launch_plans_from_shapes_alone(monkeypatch, shape, t):
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     h, d = 2 * hkv, 16
     q = torch.zeros((batch, h, d) if t is None else (batch, t, h, d),
-                    dtype=torch.bfloat16)
-    pages = torch.zeros(1 + batch * maxp, hkv, ps, d, dtype=torch.bfloat16)
+                    dtype=dtype)
+    pages = torch.zeros(1 + batch * maxp, hkv, ps, d, dtype=dtype)
     bt = torch.zeros(batch, maxp, dtype=torch.int32)
     lens = torch.zeros(batch, dtype=torch.int32).as_subclass(_Untouchable)
     name = "paged_attention" if t is None else "paged_attention_mq"
@@ -199,6 +204,7 @@ def test_cuda_launch_plans_from_shapes_alone(monkeypatch, shape, t):
     ws, pps_arg = args[8], args[16 if t is None else 17]
     assert pps_arg == pps
     assert (ws is not None) == (n_split > 1)
+    assert args[-3] == (2 if dtype == torch.float16 else 1)
 
 
 # (chunk, heads, kv_heads, max_pages, page_size): the smoke's timed chunk
@@ -238,17 +244,19 @@ def test_prefill_plan_covers_every_page_once(shape):
         or n_split == max_pages
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16],
+                         ids=["bf16", "fp32", "fp16"])
 @pytest.mark.parametrize("shape", PREFILL_PLAN_SHAPES[:5],
                          ids=["-".join(map(str, s))
                               for s in PREFILL_PLAN_SHAPES[:5]])
 def test_cuda_prefill_launch_plans_from_shapes_alone(monkeypatch, shape,
                                                      dtype):
-    """The launch the prefill wrapper makes: bf16 queries get
+    """The launch the prefill wrapper makes: bf16 and fp16 queries get
     prefill_plan's pages per split and a workspace exactly when there is
     more than one split, the same at every start (one grid per chunk
-    bucket); fp32 queries take the whole table and no workspace."""
+    bucket); fp32 queries take the whole table and no workspace.  The
+    kernel gets q's dtype code."""
     import importlib
     import types
 
@@ -272,7 +280,9 @@ def test_cuda_prefill_launch_plans_from_shapes_alone(monkeypatch, shape,
     for args, start in zip(calls, starts):
         ws, start_arg, pps_arg = args[7], args[8], args[16]
         assert start_arg == start
-        if dtype == torch.bfloat16:
+        assert args[-3] == {torch.float32: 0, torch.bfloat16: 1,
+                            torch.float16: 2}[dtype]
+        if dtype != torch.float32:
             assert pps_arg == pps
             assert (ws is not None) == (n_split > 1)
         else:
